@@ -17,7 +17,17 @@ Phases, each printing one line (any failure raises and exits non-zero):
      snapshot batch of 64 from collation to logits on the host;
   5. profiles that 4096-graph forward with torch.profiler: device busy time,
      idle share and device time by layer (``--trace`` also writes the
-     chrome trace).
+     chrome trace);
+  6. training: (a) holds the backward kernels K1-bwd and K2-bwd, and K2
+     with dropout, against autograd through their plain versions at the
+     serving and 4096-graph shapes, and times them beside bound, plain
+     backward and library yardstick; (b) trains the published config at
+     full width on the snapshot through ``python -m
+     graphtrans_tpu_torch.main`` (2 epochs, batches of 64), counting kernel
+     launches, checking finite epoch losses and moved parameters, and holds
+     one train step through the kernels against the plain versions on the
+     card; (c) times the train step on the 4096-graph batch, with peak
+     memory and a torch.profiler split by layer.
 Then a {"kernels": [...]} line, the nvidia-smi line, and the contract line
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without
 a CUDA card.
@@ -47,17 +57,26 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
 K1_TOL, K2_TOL, LOGITS_TOL = 1e-5, 2e-5, 1e-4
+# gradients; a gradient summed over the whole batch (K1's dT and dscale,
+# parameter gradients) is held to GRAD_TOL * max(1, max |reference|)
+GRAD_TOL = 5e-4
 GIN_LAYERS_PER_FORWARD, ENCODER_LAYERS_PER_FORWARD = 5, 4
 PROFILED_FORWARDS = 5
+TRAIN_EPOCHS, DROPOUT = 2, 0.3
+TIMED_STEPS, PROFILED_STEPS = 10, 3
 # kernel-name fragments -> the layer that launches them (phase 5)
 LAYERS = (
     ("gin_agg_fwd", "K1 gin_agg (aggregation)"),
     ("attention_seg_fwd", "K2 attention_seg"),
+    ("gin_agg_bwd", "K1-bwd gin_agg_bwd"),
+    ("sum_rows", "K1-bwd gin_agg_bwd"),
+    ("attention_seg_bwd", "K2-bwd attention_seg_bwd"),
+    ("multi_tensor", "AdamW (foreach)"),
     ("gemm", "matmul (Linear layers)"),
     ("layer_norm", "LayerNorm"),
     ("index", "gather / index_select"),
     ("embedding", "embedding lookup"),
-    ("reduce", "reductions (graph_sum)"),
+    ("reduce", "reductions (sums over rows)"),
     ("cat", "concatenation"),
 )
 
@@ -371,8 +390,13 @@ def phase5(model, tb, smi: str, trace):
             wall = (time.perf_counter() - t0) * 1e3 / PROFILED_FORWARDS
     if trace:
         prof.export_chrome_trace(trace)
-    kernels = [(e.key, e.self_device_time_total / 1e3 / PROFILED_FORWARDS,
-                e.count / PROFILED_FORWARDS)
+    _print_split("[5]", "forward", prof, PROFILED_FORWARDS, wall, smi)
+
+
+def _print_split(tag: str, what: str, prof, n: int, wall: float, smi: str):
+    """Device busy time, idle share and device time by layer of ``n``
+    profiled runs of ``what`` (wall ms per run), from torch.profiler."""
+    kernels = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
                for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0]
@@ -382,12 +406,328 @@ def phase5(model, tb, smi: str, trace):
     by_layer = collections.Counter()
     for name, ms, _ in kernels:
         by_layer[_layer(name)] += ms
-    print(f"[5] profiled forward of 4096 graphs: wall {wall:.3f} ms, device "
+    print(f"{tag} profiled {what} of 4096 graphs: wall {wall:.3f} ms, device "
           f"busy {busy:.3f} ms, idle share {1 - busy / wall:.3f} on {smi}")
     for layer, ms in by_layer.most_common():
-        print(f"[5]   {layer:32s} {ms:9.3f} ms  {ms / busy:6.1%}")
-    for name, ms, n in sorted(kernels, key=lambda k: -k[1])[:10]:
-        print(f"[5]   top {ms:9.3f} ms {n:5.0f}x  {name[:100]}")
+        print(f"{tag}   {layer:32s} {ms:9.3f} ms  {ms / busy:6.1%}")
+    for name, ms, cnt in sorted(kernels, key=lambda k: -k[1])[:10]:
+        print(f"{tag}   top {ms:9.3f} ms {cnt:5.0f}x  {name[:100]}")
+
+
+# ---- phase 6: training -----------------------------------------------------
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over max(1, max |want|): the error of a sum over
+    the whole batch, in proportion to its size."""
+    return ((got - want).abs().max().item()
+            / max(1.0, want.abs().max().item()))
+
+
+def _plain_bwd_ms(fn, leaves, gout) -> float:
+    """Device ms of a plain version's backward alone: ``autograd.grad``
+    over one recorded forward of ``fn(*leaves)``."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in leaves]
+        out = fn(*leaves)
+        return time_ms(lambda: torch.autograd.grad(out, leaves, gout,
+                                                   retain_graph=True),
+                       iters=5)
+
+
+def check_k1_bwd(args, gout):
+    """K1-bwd against autograd through the plain version: dx and dw
+    absolute, dT and dscale (sums over every edge or node of the batch)
+    relative to max(1, max |reference|)."""
+    from graphtrans_tpu_torch.ops.kernels import gin_agg_bwd, gin_agg_bwd_plain
+
+    got = gin_agg_bwd(*args, gout)
+    torch.cuda.synchronize()
+    want = gin_agg_bwd_plain(*args, gout)
+    errs, abs_err = {}, 0.0
+    for name, g, w in zip(("dx", "dT", "dw", "dscale"), got, want):
+        if g is None:
+            continue
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"K1-bwd: {name} not finite")
+        diff = (g - w).abs().max().item()
+        abs_err = max(abs_err, diff)
+        errs[name] = (_rel_err(g, w) if name in ("dT", "dscale") else diff)
+    if max(errs.values()) > GRAD_TOL:
+        raise AssertionError(f"K1-bwd disagrees with autograd through its "
+                             f"plain version: {errs} > {GRAD_TOL}")
+    return max(errs.values()), abs_err
+
+
+def check_k2_train(qkv, seg, nhead: int, rate: float, seed: int, gen):
+    """K2 forward with dropout ``rate`` and K2-bwd against the plain
+    version (the same mask) and its autograd."""
+    from graphtrans_tpu_torch.ops.kernels import (attention_seg,
+                                                  attention_seg_bwd,
+                                                  attention_seg_bwd_plain,
+                                                  attention_seg_plain)
+
+    out = attention_seg(qkv, seg, nhead, rate, seed)
+    g = torch.randn(out.shape, generator=gen).to(qkv.device)
+    dqkv = attention_seg_bwd(qkv, seg, nhead, g, rate, seed)
+    torch.cuda.synchronize()
+    f_err = (out - attention_seg_plain(qkv, seg, nhead, rate, seed)
+             ).abs().max().item()
+    b_err = (dqkv - attention_seg_bwd_plain(qkv, seg, nhead, g, rate, seed)
+             ).abs().max().item()
+    if f_err > K2_TOL or b_err > GRAD_TOL or not torch.isfinite(dqkv).all():
+        raise AssertionError(f"K2 at rate {rate}: forward |diff| {f_err} "
+                             f"(<= {K2_TOL}), backward {b_err} (<= {GRAD_TOL})")
+    if dqkv[seg < 0].any() or out[seg < 0].any():
+        raise AssertionError("K2: padding tokens are not exactly zero")
+    return f_err, b_err, g
+
+
+def k1_bwd_bound(args, gout):
+    x, src, dst, emask, attr, tbl, w, scale = args
+    G, Sm, d = x.shape
+    F = attr.shape[1]
+    nbytes = sum(t.numel() * t.element_size() for t in args if t is not None)
+    nbytes += gout.numel() * 4 + x.numel() * 4 + tbl.numel() * 4   # dx, dT
+    if w is not None:
+        nbytes += w.numel() * 4                                      # dw
+    # per valid edge and channel: pre (F adds), the dmsg product, the dx
+    # and F dT accumulations (+ the dw product and sum); per node cell the
+    # scale*gout prologue and the dscale product and sum
+    per_edge = 2 * F + 2 + (2 if w is not None else 0)
+    flops = int(emask.sum().item()) * d * per_edge
+    if scale is not None:
+        flops += 3 * G * Sm * d
+    return _bound(nbytes, flops)
+
+
+def k2_bwd_bound(qkv, seg, nhead: int):
+    R, W, d3 = qkv.shape
+    hd = d3 // 3 // nhead
+    _, counts = torch.unique(seg[seg >= 0], return_counts=True)
+    pairs = int((counts.long() ** 2).sum().item())
+    # qkv, seg and dO in, dqkv out; per same-segment pair and head: the
+    # score, dp = dO.v, and the dq, dk and dv products (2*hd each), plus
+    # the softmax and dropout arithmetic
+    nbytes = (2 * qkv.numel() * 4 + seg.numel() * 4 + R * W * (d3 // 3) * 4)
+    return _bound(nbytes, pairs * nhead * (10 * hd + 8))
+
+
+def sdpa_bwd_ms(qkv, seg, nhead: int, g, rate: float) -> float:
+    """Yardstick only: the backward of torch's scaled_dot_product_attention
+    with a boolean segment mask and the same dropout rate on the same
+    inputs (never called by the port)."""
+    R, W, d3 = qkv.shape
+    d = d3 // 3
+    heads = lambda t: t.reshape(R, W, nhead, d // nhead).transpose(1, 2)
+    q, k, v = (heads(t).contiguous().requires_grad_()
+               for t in qkv.split(d, dim=-1))
+    mask = ((seg[:, :, None] == seg[:, None, :])
+            & (seg >= 0)[:, None, :])[:, None]
+    gh = heads(g).contiguous()
+    with torch.enable_grad():
+        out = torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, dropout_p=rate)
+        return time_ms(lambda: torch.autograd.grad(out, (q, k, v), gh,
+                                                   retain_graph=True),
+                       iters=10)
+
+
+def phase6_kernels(device, d_gnn: int, d_model: int, nhead: int, big):
+    """(a) K1-bwd and K2-bwd (and K2 with dropout) against autograd through
+    the plain versions at the serving and 4096-graph shapes; times."""
+    from graphtrans_tpu_torch.data.loader import iterate_batches
+    from graphtrans_tpu_torch.data.mol import load_mol_splits
+    from graphtrans_tpu_torch.ops.kernels import (attention_seg,
+                                                  attention_seg_bwd,
+                                                  attention_seg_plain,
+                                                  gin_agg_bwd, gin_agg_plain)
+    from graphtrans_tpu_torch.predict import serving_layout
+
+    gen = torch.Generator().manual_seed(SEED + 6)
+    splits, num_tasks = load_mol_splits(SNAPSHOT, "ogbg-molpcba")
+    serve = next(iterate_batches(splits["train"],
+                                 **serving_layout(splits, _args(), num_tasks)))
+    k1_err = k1_abs = k2_ferr = k2_err = 0.0
+    rows = []
+    for name, b in (("serve64", serve), ("bench4096", big)):
+        inp = k1_inputs(b, d_gnn, gen, device)
+        gout = torch.randn(inp["x"].shape, generator=gen).to(device)
+        for with_w, with_scale in ((False, True), (True, False), (True, True)):
+            args = (inp["x"], inp["src"], inp["dst"], inp["emask"],
+                    inp["attr"], inp["tbl"], inp["w"] if with_w else None,
+                    inp["scale"] if with_scale else None)
+            err, err_abs = check_k1_bwd(args, gout)
+            k1_err, k1_abs = max(k1_err, err), max(k1_abs, err_abs)
+        qkv, seg = k2_inputs(b, d_model, gen, device)
+        for rate, seed in ((0.0, 0), (DROPOUT, 1234567 + len(rows))):
+            f, e, _ = check_k2_train(qkv, seg, nhead, rate, seed, gen)
+            k2_ferr, k2_err = max(k2_ferr, f), max(k2_err, e)
+
+        # timed as the main path calls them: K1 with the GIN scale and no
+        # edge weight, K2 at the training dropout rate
+        args = (inp["x"], inp["src"], inp["dst"], inp["emask"], inp["attr"],
+                inp["tbl"], None, inp["scale"])
+        fixed = args[1:5]
+        k1 = dict(ms=time_ms(lambda: gin_agg_bwd(*args, gout), iters=20),
+                  plain_ms=_plain_bwd_ms(
+                      lambda x, t, sc: gin_agg_plain(x, *fixed, t, None, sc),
+                      [args[0], args[5], args[7]], gout),
+                  library_ms=None)
+        k1["bound_ms"], k1["bound_by"] = k1_bwd_bound(args, gout)
+        qkv, seg = k2_inputs(b, d_model, gen, device, pad_rows=0)
+        seed = 7654321
+        g = torch.randn(qkv.shape[0], qkv.shape[1], d_model,
+                        generator=gen).to(device)
+        k2 = dict(ms=time_ms(lambda: attention_seg_bwd(
+                      qkv, seg, nhead, g, DROPOUT, seed), iters=20),
+                  plain_ms=_plain_bwd_ms(
+                      lambda t: attention_seg_plain(t, seg, nhead, DROPOUT,
+                                                    seed), [qkv], g),
+                  library_ms=sdpa_bwd_ms(qkv, seg, nhead, g, DROPOUT))
+        k2["bound_ms"], k2["bound_by"] = k2_bwd_bound(qkv, seg, nhead)
+        fwd_drop = time_ms(lambda: attention_seg(qkv, seg, nhead, DROPOUT,
+                                                 seed), iters=20)
+        fwd_plain = time_ms(lambda: attention_seg(qkv, seg, nhead), iters=20)
+        k1["shape"] = "G={} Sm={} Em={} d={}".format(
+            *inp["x"].shape[:2], inp["src"].shape[1], d_gnn)
+        k2["shape"] = (f"R={qkv.shape[0]} W={qkv.shape[1]} d={d_model} "
+                       f"H={nhead} rate={DROPOUT}")
+        for kname, t in (("K1-bwd gin_agg_bwd", k1),
+                         ("K2-bwd attention_seg_bwd", k2)):
+            lib = ("-" if t["library_ms"] is None
+                   else f"{t['library_ms']:.4f}")
+            print(f"[6a] {name} {kname} [{t['shape']}]: kernel "
+                  f"{t['ms']:.4f} ms, plain backward {t['plain_ms']:.4f} ms, "
+                  f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), library "
+                  f"{lib} ms")
+        print(f"[6a] {name} K2 forward with dropout {DROPOUT}: "
+              f"{fwd_drop:.4f} ms (without: {fwd_plain:.4f} ms)")
+        rows.append((k1, k2))
+    print(f"[6a] backward kernels agree with autograd through their plain "
+          f"versions: K1-bwd max err {k1_err:.3g} (<= {GRAD_TOL}; dT and "
+          f"dscale relative to max(1, max|ref|); max |diff| {k1_abs:.3g}), "
+          f"K2 with dropout {DROPOUT}: forward {k2_ferr:.3g} (<= {K2_TOL}), "
+          f"K2-bwd {k2_err:.3g} (<= {GRAD_TOL}); padding tokens exactly 0")
+    return dict(k1_err=k1_err, k2_err=k2_err, timed=rows[-1])
+
+
+def _train_args(extra=()):
+    from graphtrans_tpu_torch import main as train_main
+    from graphtrans_tpu_torch.utils.config import parse_with_config
+
+    return parse_with_config(train_main.build_parser(), [
+        "--configs", CONFIG, "--data_root", SNAPSHOT, "--epochs",
+        str(TRAIN_EPOCHS), "--batch_size", str(BATCH), "--seed", str(SEED),
+        *extra])
+
+
+def _trainer(args, num_tasks: int, device, kernels_on: bool = True):
+    """The entry point's model (weights from --seed) and train step."""
+    from graphtrans_tpu_torch import main as train_main
+    from graphtrans_tpu_torch.ops.kernels import set_kernels
+
+    model, _, step = train_main.build_run(args, num_tasks, device, 1)
+    return set_kernels(model, kernels_on), step
+
+
+def phase6_train(device, tmp: str):
+    """(b) The training entry at full width on the snapshot, its kernel
+    launches, and one step through the kernels against the plain versions."""
+    import contextlib
+    import io
+
+    from graphtrans_tpu_torch import main as train_main
+    from graphtrans_tpu_torch.data.loader import iterate_batches, shuffled_order
+    from graphtrans_tpu_torch.data.mol import load_mol_splits
+    from graphtrans_tpu_torch.ops import kernels
+    from graphtrans_tpu_torch.predict import serving_layout
+
+    argv = ["--configs", CONFIG, "--data_root", SNAPSHOT, "--epochs",
+            str(TRAIN_EPOCHS), "--batch_size", str(BATCH), "--seed",
+            str(SEED), "--save_path", tmp]
+    out = io.StringIO()
+    kernels.reset_launches()                 # the training path starts here
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res = train_main.main(argv)
+    secs = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    for line in out.getvalue().splitlines():
+        print(f"[6b] main: {line}")
+    steps = sum(r["steps"] for r in res["epochs"])
+    want = {"gin_agg": 5 * steps, "gin_agg_bwd": 5 * steps,
+            "attention_seg": 4 * steps, "attention_seg_bwd": 4 * steps}
+    if steps == 0 or launches != want:
+        raise AssertionError(f"training launches {launches}, expected {want}")
+    if not all(math.isfinite(r["loss"]) for r in res["epochs"]):
+        raise AssertionError(f"epoch losses not finite: {res['epochs']}")
+    args = _train_args()
+    splits, num_tasks = load_mol_splits(SNAPSHOT, "ogbg-molpcba")
+    init, _ = _trainer(args, num_tasks, device)
+    trained = torch.load(res["saved"], map_location=device, weights_only=True)
+    params = dict(init.named_parameters())
+    still = [n for n, p in params.items() if torch.equal(p, trained[n])]
+    if len(still) > len(params) // 20:
+        raise AssertionError(f"parameters did not move: {still}")
+    print(f"[6b] trained {TRAIN_EPOCHS} epochs ({steps} steps of <= {BATCH} "
+          f"graphs, {secs:.2f} s with the model build) through "
+          f"graphtrans_tpu_torch.main: losses "
+          f"{[round(r['loss'], 6) for r in res['epochs']]}, "
+          f"{len(params) - len(still)} of {len(params)} parameter tensors "
+          f"moved; launches {launches} = 5, 5, 4 and 4 per step")
+
+    layout = serving_layout(splits, args, num_tasks, BATCH)
+    batch = next(iterate_batches(
+        splits["train"], order=shuffled_order(len(splits["train"]), SEED, 0),
+        **layout)).to(device)
+    got = []
+    for on in (True, False):
+        model, step = _trainer(args, num_tasks, device, kernels_on=on)
+        loss = step(batch).item()
+        got.append((loss, {n: p.grad for n, p in model.named_parameters()}))
+    (lk, gk), (lp, gp) = got
+    g_err = max(_rel_err(gk[n], gp[n]) for n in gk)
+    g_abs = max((gk[n] - gp[n]).abs().max().item() for n in gk)
+    if abs(lk - lp) > LOGITS_TOL or g_err > GRAD_TOL:
+        raise AssertionError(f"train step through the kernels: loss "
+                             f"|diff| {abs(lk - lp)} (<= {LOGITS_TOL}), "
+                             f"gradients {g_err} (<= {GRAD_TOL})")
+    print(f"[6b] one train step (dropout {args.gnn_dropout}/"
+          f"{args.transformer_dropout}, same seeds) through the kernels vs "
+          f"the plain versions on the card: loss {lk:.6f} vs {lp:.6f} "
+          f"(|diff| {abs(lk - lp):.3g} <= {LOGITS_TOL}), gradients max "
+          f"|diff| {g_abs:.3g}, relative to max(1, max|ref|) {g_err:.3g} "
+          f"(<= {GRAD_TOL})")
+    return launches
+
+
+def phase6_step4096(device, big, smi: str):
+    """(c) The train step on the 4096-graph batch: time, peak memory and
+    the device time by layer."""
+    args = _train_args()
+    model, step = _trainer(args, 128, device)
+    tb = big.to(device)
+    n = int(big.graph_mask.sum())
+    _median_ms(lambda: step(tb), 3)                         # warm-up
+    torch.cuda.reset_peak_memory_stats(device)
+    ms, lo, hi, loss = _median_ms(lambda: step(tb), TIMED_STEPS)
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    if not torch.isfinite(loss):
+        raise AssertionError("4096-graph train step: loss not finite")
+    print(f"[6c] train step of {n} graphs (forward, backward, AdamW; "
+          f"dropout {args.gnn_dropout}/{args.transformer_dropout}): median "
+          f"{ms:.3f} ms over {TIMED_STEPS} (min {lo:.3f}, max {hi:.3f}), "
+          f"{n / ms * 1e3:.0f} graphs/s, peak memory {peak:.2f} GiB on {smi}")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            step(tb)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+    _print_split("[6c]", "train step", prof, PROFILED_STEPS, wall, smi)
 
 
 def main(argv=None) -> int:
@@ -426,8 +766,14 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase3(device, tmp)
     phase5(*phase4(device, big, smi), smi, opts.trace)
+    train = phase6_kernels(device, args.gnn_emb_dim, args.d_model, args.nhead,
+                           big)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_launches = phase6_train(device, tmp)
+    phase6_step4096(device, big, smi)
 
     k1, k2 = timing["timed"]
+    k1b, k2b = train["timed"]
     rows = [
         dict(name="gin_agg_fwd", route="cuda",
              source="graphtrans_tpu_torch/csrc/gin_agg.cu",
@@ -438,6 +784,18 @@ def main(argv=None) -> int:
              replaces="graphtrans_tpu/ops/pallas/attention_packed.py:420",
              launches=launches["attention_seg"], max_abs_err=timing["k2_err"],
              **k2),
+        dict(name="gin_agg_bwd", route="cuda",
+             source="graphtrans_tpu_torch/csrc/gin_agg.cu",
+             replaces="graphtrans_tpu/ops/pallas/gin_agg.py:287",
+             launches=train_launches["gin_agg_bwd"],
+             # dx, dw absolute; the grid sums dT, dscale relative to
+             # max(1, max |reference|), as check_k1_bwd holds them
+             max_abs_err=train["k1_err"], **k1b),
+        dict(name="attention_seg_bwd", route="cuda",
+             source="graphtrans_tpu_torch/csrc/attention_packed.cu",
+             replaces="graphtrans_tpu/ops/pallas/attention_packed.py:393",
+             launches=train_launches["attention_seg_bwd"],
+             max_abs_err=train["k2_err"], **k2b),
     ]
     print(json.dumps({"kernels": rows}))
     print(smi)

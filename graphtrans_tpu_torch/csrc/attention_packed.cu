@@ -1,22 +1,62 @@
-// K2: segment-masked attention over packed rows (forward). Wrapper, plain
-// version and design note: graphtrans_tpu_torch/ops/kernels/attention_packed.py.
+// K2: segment-masked attention over packed rows, forward with attention
+// dropout and backward. Wrapper, plain version and design note:
+// graphtrans_tpu_torch/ops/kernels/attention_packed.py.
 //
 // qkv [R, W, 3d] (heads in lanes), seg [R, W] -> out [R, W, d].
 // Query i attends key j iff seg[i] == seg[j] >= 0. One block per (row,
-// head), one thread per query; K_h, V_h and seg are staged in shared memory
-// and read as broadcasts; q and the output stay in registers and the
-// softmax runs online (running max and denominator) in one pass over keys.
+// head). Forward: one thread per query; K_h, V_h and seg are staged in
+// shared memory and read as broadcasts; q and the output stay in registers
+// and the softmax runs online (running max and denominator) in one pass
+// over keys. Dropout (torch semantics: normalise by the undropped
+// denominator, then drop and scale by 1/(1-rate)) keeps (i, j) iff
+// hash(pos, seed') < thresh, with pos = ((r % bt)*W + i)*sp + j and
+// seed' = seed + (r / bt)*H + h: the counter hash of the JAX package's
+// interpret mode, so forward, backward and the plain version draw the same
+// mask from (seed, r, h, i, j) and nothing is stored.
+//
+// Backward: Q_h, K_h, V_h and dO_h of the row in shared memory. Pass A, one
+// thread per query: recompute the running max m_i and denominator l_i and
+// delta_i = sum_j p_ij dp_ij in one online pass, then dq_i in a second
+// pass. Pass B, one thread per key: dk_j and dv_j as sums over the queries
+// of its segment, with m, 1/l and delta of every query from shared memory.
+// Every output cell has one writer: no atomics.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
+struct Dropout {
+  int on;            // 0: rate 0, the identity
+  unsigned thresh;   // keep iff bits < thresh
+  float inv_keep;    // 1 / (1 - rate)
+  int seed;
+  int bt;            // rows per TPU grid tile (mask tiling of the reference)
+  int sp;            // W rounded up to 128
+};
+
+// murmur-style finalizer of (position, seed): graphtrans_tpu/ops/pallas/
+// prng.py:_hash_bits_u32, in u32 arithmetic
+__device__ __forceinline__ unsigned hash_bits(unsigned pos, unsigned seed) {
+  unsigned x = pos * 2654435761u + seed * 0x9E3779B9u;
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  return x ^ (x >> 16);
+}
+
+__device__ __forceinline__ bool keep(const Dropout& dr, unsigned hseed,
+                                     unsigned rowpos, int i, int j, int W) {
+  const unsigned pos = (rowpos * W + i) * (unsigned)dr.sp + j;
+  return hash_bits(pos, hseed) < dr.thresh;
+}
+
 template <int HD>
 __global__ void attention_seg_fwd_kernel(const float* __restrict__ qkv,
                                          const int* __restrict__ seg,
                                          float* __restrict__ out, int W, int d,
-                                         float scale) {
+                                         float scale, Dropout dr) {
   extern __shared__ float smem[];
   float* ks = smem;                                  // [W][HD]
   float* vs = ks + W * HD;                           // [W][HD]
@@ -27,6 +67,9 @@ __global__ void attention_seg_fwd_kernel(const float* __restrict__ qkv,
   const int i = threadIdx.x;  // blockDim.x == W
   const long d3 = 3L * d;
   const float* row = qkv + r * W * d3;
+  const unsigned hseed =
+      (unsigned)dr.seed + (unsigned)(r / dr.bt) * gridDim.y + (unsigned)h;
+  const unsigned rowpos = (unsigned)(r % dr.bt);
 
   for (int idx = i; idx < W * HD; idx += blockDim.x) {
     const int j = idx / HD, c = idx % HD;
@@ -61,11 +104,12 @@ __global__ void attention_seg_fwd_kernel(const float* __restrict__ qkv,
       }
       const float p = expf(s - m);
       l += p;
+      if (dr.on && !keep(dr, hseed, rowpos, i, j, W)) continue;
       const float* vj = vs + j * HD;
 #pragma unroll
       for (int c = 0; c < HD; ++c) o[c] = fmaf(p, vj[c], o[c]);
     }
-    const float inv = 1.f / fmaxf(l, 1e-16f);
+    const float inv = (dr.on ? dr.inv_keep : 1.f) / fmaxf(l, 1e-16f);
 #pragma unroll
     for (int c = 0; c < HD; ++c) o[c] *= inv;
   }
@@ -75,8 +119,152 @@ __global__ void attention_seg_fwd_kernel(const float* __restrict__ qkv,
 }
 
 template <int HD>
-int launch(const float* qkv, const int* seg, float* out, int R, int W, int d,
-           int H, cudaStream_t stream) {
+__global__ void __launch_bounds__(384)
+attention_seg_bwd_kernel(const float* __restrict__ qkv,
+                         const int* __restrict__ seg,
+                         const float* __restrict__ gout,
+                         float* __restrict__ dqkv, int W, int d, float scale,
+                         Dropout dr) {
+  extern __shared__ float smem[];
+  float* qs = smem;                                  // [W][HD]
+  float* ks = qs + W * HD;                           // [W][HD]
+  float* vs = ks + W * HD;                           // [W][HD]
+  float* gs = vs + W * HD;                           // [W][HD] dO
+  float* mrow = gs + W * HD;                         // [W] running max
+  float* linv = mrow + W;                            // [W] 1 / denominator
+  float* delta = linv + W;                           // [W] sum_j p dp
+  int* ss = reinterpret_cast<int*>(delta + W);       // [W]
+
+  const long r = blockIdx.x;
+  const int h = blockIdx.y;
+  const int t = threadIdx.x;  // blockDim.x == W
+  const long d3 = 3L * d;
+  const float* row = qkv + r * W * d3;
+  const float* grow = gout + r * W * d;
+  float* drow = dqkv + r * W * d3;
+  const unsigned hseed =
+      (unsigned)dr.seed + (unsigned)(r / dr.bt) * gridDim.y + (unsigned)h;
+  const unsigned rowpos = (unsigned)(r % dr.bt);
+
+  for (int idx = t; idx < W * HD; idx += blockDim.x) {
+    const int j = idx / HD, c = idx % HD;
+    qs[idx] = row[j * d3 + h * HD + c];
+    ks[idx] = row[j * d3 + d + h * HD + c];
+    vs[idx] = row[j * d3 + 2 * d + h * HD + c];
+    gs[idx] = grow[j * d + h * HD + c];
+  }
+  ss[t] = seg[r * W + t];
+  __syncthreads();
+
+  // pass A: thread t is query i
+  {
+    const int i = t, si = ss[i];
+    float acc[HD];
+#pragma unroll
+    for (int c = 0; c < HD; ++c) acc[c] = 0.f;
+    float m = 0.f, li = 0.f, de = 0.f;
+    if (si >= 0) {
+      float q[HD], g[HD];
+#pragma unroll
+      for (int c = 0; c < HD; ++c) {
+        q[c] = qs[i * HD + c] * scale;
+        g[c] = gs[i * HD + c];
+      }
+      float l = 0.f, a_dp = 0.f;
+      m = -INFINITY;
+      for (int j = 0; j < W; ++j) {
+        if (ss[j] != si) continue;
+        float s = 0.f, dp = 0.f;
+#pragma unroll
+        for (int c = 0; c < HD; ++c) {
+          s = fmaf(q[c], ks[j * HD + c], s);
+          dp = fmaf(g[c], vs[j * HD + c], dp);
+        }
+        if (dr.on) dp = keep(dr, hseed, rowpos, i, j, W) ? dp * dr.inv_keep : 0.f;
+        if (s > m) {
+          const float a = expf(m - s);
+          l *= a;
+          a_dp *= a;
+          m = s;
+        }
+        const float e = expf(s - m);
+        l += e;
+        a_dp = fmaf(e, dp, a_dp);
+      }
+      li = 1.f / fmaxf(l, 1e-16f);
+      de = a_dp * li;
+      for (int j = 0; j < W; ++j) {
+        if (ss[j] != si) continue;
+        float s = 0.f, dp = 0.f;
+#pragma unroll
+        for (int c = 0; c < HD; ++c) {
+          s = fmaf(q[c], ks[j * HD + c], s);
+          dp = fmaf(g[c], vs[j * HD + c], dp);
+        }
+        if (dr.on) dp = keep(dr, hseed, rowpos, i, j, W) ? dp * dr.inv_keep : 0.f;
+        const float ds = expf(s - m) * li * (dp - de);
+#pragma unroll
+        for (int c = 0; c < HD; ++c) acc[c] = fmaf(ds, ks[j * HD + c], acc[c]);
+      }
+    }
+    mrow[i] = m;
+    linv[i] = li;
+    delta[i] = de;
+    float* dq = drow + i * d3 + h * HD;
+#pragma unroll
+    for (int c = 0; c < HD; ++c) dq[c] = acc[c] * scale;
+  }
+  __syncthreads();
+
+  // pass B: thread t is key j
+  {
+    const int j = t, sj = ss[j];
+    float dk[HD], dv[HD];
+#pragma unroll
+    for (int c = 0; c < HD; ++c) dk[c] = dv[c] = 0.f;
+    if (sj >= 0) {
+      float k[HD], v[HD];
+#pragma unroll
+      for (int c = 0; c < HD; ++c) {
+        k[c] = ks[j * HD + c];
+        v[c] = vs[j * HD + c];
+      }
+      for (int i = 0; i < W; ++i) {
+        if (ss[i] != sj) continue;
+        float s = 0.f, dp = 0.f;
+#pragma unroll
+        for (int c = 0; c < HD; ++c) {
+          s = fmaf(qs[i * HD + c] * scale, k[c], s);
+          dp = fmaf(gs[i * HD + c], v[c], dp);
+        }
+        const float p = expf(s - mrow[i]) * linv[i];
+        float pd = p;
+        if (dr.on) {
+          const bool kp = keep(dr, hseed, rowpos, i, j, W);
+          pd = kp ? p * dr.inv_keep : 0.f;
+          dp = kp ? dp * dr.inv_keep : 0.f;
+        }
+        const float ds = p * (dp - delta[i]);
+#pragma unroll
+        for (int c = 0; c < HD; ++c) {
+          dk[c] = fmaf(ds, qs[i * HD + c], dk[c]);
+          dv[c] = fmaf(pd, gs[i * HD + c], dv[c]);
+        }
+      }
+    }
+    float* dkj = drow + j * d3 + d + h * HD;
+    float* dvj = drow + j * d3 + 2 * d + h * HD;
+#pragma unroll
+    for (int c = 0; c < HD; ++c) {
+      dkj[c] = dk[c] * scale;
+      dvj[c] = dv[c];
+    }
+  }
+}
+
+template <int HD>
+int launch_fwd(const float* qkv, const int* seg, float* out, int R, int W,
+               int d, int H, Dropout dr, cudaStream_t stream) {
   const size_t smem = (size_t)2 * W * HD * sizeof(float) + W * sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(
       attention_seg_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -84,8 +272,37 @@ int launch(const float* qkv, const int* seg, float* out, int R, int W, int d,
   if (err != cudaSuccess) return err;
   dim3 grid(R, H);
   attention_seg_fwd_kernel<HD><<<grid, W, smem, stream>>>(
-      qkv, seg, out, W, d, 1.f / sqrtf((float)HD));
+      qkv, seg, out, W, d, 1.f / sqrtf((float)HD), dr);
   return cudaGetLastError();
+}
+
+template <int HD>
+int launch_bwd(const float* qkv, const int* seg, const float* gout,
+               float* dqkv, int R, int W, int d, int H, Dropout dr,
+               cudaStream_t stream) {
+  const size_t smem =
+      (size_t)4 * W * HD * sizeof(float) + 3 * W * sizeof(float) +
+      W * sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_seg_bwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(R, H);
+  attention_seg_bwd_kernel<HD><<<grid, W, smem, stream>>>(
+      qkv, seg, gout, dqkv, W, d, 1.f / sqrtf((float)HD), dr);
+  return cudaGetLastError();
+}
+
+Dropout make_dropout(int on, unsigned thresh, float inv_keep, int seed,
+                     int bt, int sp) {
+  Dropout dr;
+  dr.on = on;
+  dr.thresh = thresh;
+  dr.inv_keep = inv_keep;
+  dr.seed = seed;
+  dr.bt = bt;
+  dr.sp = sp;
+  return dr;
 }
 
 }  // namespace
@@ -94,10 +311,26 @@ extern "C" const char* error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Returns cudaGetLastError() after the launch (0 = launched).
+// Returns cudaGetLastError() after the launch (0 = launched). drop = 0 is
+// attention without dropout; otherwise (thresh, inv_keep, seed, bt, sp)
+// define the keep mask as above.
 extern "C" int attention_seg_fwd(const float* qkv, const int* seg, float* out,
-                                 int R, int W, int d, int H,
-                                 cudaStream_t stream) {
+                                 int R, int W, int d, int H, int drop,
+                                 unsigned thresh, float inv_keep, int seed,
+                                 int bt, int sp, cudaStream_t stream) {
   if (d != H * 32) return cudaErrorInvalidValue;  // hd 32: d_model 128, 4 heads
-  return launch<32>(qkv, seg, out, R, W, d, H, stream);
+  return launch_fwd<32>(qkv, seg, out, R, W, d, H,
+                        make_dropout(drop, thresh, inv_keep, seed, bt, sp),
+                        stream);
+}
+
+extern "C" int attention_seg_bwd(const float* qkv, const int* seg,
+                                 const float* gout, float* dqkv, int R, int W,
+                                 int d, int H, int drop, unsigned thresh,
+                                 float inv_keep, int seed, int bt, int sp,
+                                 cudaStream_t stream) {
+  if (d != H * 32) return cudaErrorInvalidValue;
+  return launch_bwd<32>(qkv, seg, gout, dqkv, R, W, d, H,
+                        make_dropout(drop, thresh, inv_keep, seed, bt, sp),
+                        stream);
 }

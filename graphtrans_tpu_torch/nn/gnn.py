@@ -1,12 +1,14 @@
 """GIN node-embedding stack with an optional virtual node (counterpart of
-``graphtrans_tpu/nn/gnn.py``), in eval mode, JK=cat.
+``graphtrans_tpu/nn/gnn.py``), JK=cat.
 
 Before each layer the virtual node's per-graph embedding is added to its
 graph's nodes, and that sum overwrites ``h_list[layer]`` (the reference
 mutates the list in place, which feeds JK=cat's first entry). After every
 layer but the last the virtual node is updated from the per-graph sum of
-``h_list[layer]`` through a two-layer BN-MLP. No ReLU after the last layer;
-dropout is the identity in eval."""
+``h_list[layer]`` through a two-layer BN-MLP. No ReLU after the last layer.
+In training mode ``ByteDropout(drop_ratio)`` runs at the JAX package's
+sites: after the ReLU of layers 0..L-2, on the last layer's BN output, and
+on each virtual-node MLP output; BatchNorm uses batch statistics."""
 
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from torch import nn
 
 from ..ops.dense_mp import graph_broadcast, graph_sum
 from .conv import GINConv
+from .dropout import ByteDropout
 from .encoders import AtomEncoder
 from .norm import MaskedBatchNorm
 
@@ -37,7 +40,8 @@ class VirtualNodeMLP(nn.Module):
 
 class GNNNodeEmbedding(nn.Module):
     def __init__(self, num_layer: int, emb_dim: int,
-                 virtual_node: bool = True, device=None):
+                 virtual_node: bool = True, drop_ratio: float = 0.0,
+                 device=None):
         super().__init__()
         if num_layer < 2:
             raise ValueError("Number of GNN layers must be greater than 1.")
@@ -54,14 +58,16 @@ class GNNNodeEmbedding(nn.Module):
                 torch.zeros(emb_dim, device=device))
             self.vn_mlps = nn.ModuleList(VirtualNodeMLP(emb_dim, device=device)
                                          for _ in range(num_layer - 1))
+        self.dropout = ByteDropout(drop_ratio)
 
     def init_from(self, gen):
         if self.virtual_node:
             nn.init.zeros_(self.virtualnode_embedding)
 
-    def forward(self, batch) -> torch.Tensor:
+    def forward(self, batch, gen=None) -> torch.Tensor:
         """[N, F] atom features -> [N, 2*emb_dim] (JK=cat of the encoder
-        output, with the first virtual-node add, and the last layer)."""
+        output, with the first virtual-node add, and the last layer).
+        ``gen`` (``nn.dropout.Generators``) feeds dropout in training."""
         mask = batch.node_mask[:, None]
         h_list = [self.atom_encoder(batch.node_feat).masked_fill(~mask, 0.0)]
         if self.virtual_node:
@@ -73,9 +79,10 @@ class GNNNodeEmbedding(nn.Module):
             h = self.batch_norms[layer](h, batch.node_mask)
             if layer < self.num_layer - 1:
                 h = torch.relu(h)
-            h_list.append(h)
+            h_list.append(self.dropout(h, gen))
             if self.virtual_node and layer < self.num_layer - 1:
                 pooled = graph_sum(h_list[layer], batch)
-                vn = self.vn_mlps[layer](pooled + vn, batch.graph_mask)
+                vn = self.dropout(
+                    self.vn_mlps[layer](pooled + vn, batch.graph_mask), gen)
         out = torch.cat([h_list[0], h_list[-1]], dim=-1)
         return out.masked_fill(~mask, 0.0)

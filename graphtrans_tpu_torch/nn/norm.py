@@ -1,14 +1,20 @@
 """Masked BatchNorm over padded node (or graph) rows.
 
-Counterpart of ``graphtrans_tpu/nn/norm.py:MaskedBatchNorm``. Serving runs
-in eval mode, which normalises with the running statistics; padded rows are
-zeroed again afterwards so the padded-rows-are-zero invariant holds. Batch
-statistics over valid rows only come with the training slice."""
+Counterpart of ``graphtrans_tpu/nn/norm.py:MaskedBatchNorm``. In training
+mode the statistics come from the valid rows only, with the JAX package's
+single-pass formula: biased variance ``max(E[x^2] - E[x]^2, 0)`` normalises,
+and the running variance takes the unbiased estimate
+``var * cnt / max(cnt - 1, 1)``, at momentum 0.1. In eval
+mode the running statistics normalise. Padded rows are zeroed again
+afterwards so the padded-rows-are-zero invariant holds."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+
+MOMENTUM = 0.1  # torch's convention: new = (1 - m) * old + m * batch
 
 
 class MaskedBatchNorm(nn.Module):
@@ -23,9 +29,20 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(
-                "MaskedBatchNorm batch statistics arrive with the training "
-                "slice (slice 2); call .eval()")
-        y = ((x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
-             * self.weight + self.bias)
+            m = mask.to(x.dtype)[:, None]
+            cnt = m.sum()
+            s1 = (x * m).sum(dim=0)
+            s2 = (x * x * m).sum(dim=0)
+            cnt_safe = cnt.clamp_min(1.0)
+            mean = s1 / cnt_safe
+            var = (s2 / cnt_safe - mean * mean).clamp_min(0.0)   # biased
+            with torch.no_grad():
+                unbiased = var * cnt_safe / (cnt - 1.0).clamp_min(1.0)
+                self.running_mean.copy_((1 - MOMENTUM) * self.running_mean
+                                        + MOMENTUM * mean)
+                self.running_var.copy_((1 - MOMENTUM) * self.running_var
+                                       + MOMENTUM * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
         return y.masked_fill(~mask[:, None], 0.0)

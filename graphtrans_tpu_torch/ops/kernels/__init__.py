@@ -1,21 +1,28 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
 version. A wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches its kernel (built at first use by ``_build``) or
-raises, and counts the launch in its ``launches`` attribute."""
+raises, and counts the launch in its ``launches`` attribute. The forward
+wrappers are ``torch.autograd.Function``s on CUDA tensors whose backward
+is the matching ``*_bwd`` kernel wrapper."""
 
 from __future__ import annotations
 
 from torch import nn
 
-from .attention_packed import attention_seg, attention_seg_plain
-from .gin_agg import gin_agg, gin_agg_plain
+from .attention_packed import (attention_seg, attention_seg_bwd,
+                               attention_seg_bwd_plain, attention_seg_plain)
+from .gin_agg import gin_agg, gin_agg_bwd, gin_agg_bwd_plain, gin_agg_plain
 
-WRAPPERS = (gin_agg, attention_seg)
+WRAPPERS = (gin_agg, gin_agg_bwd, attention_seg, attention_seg_bwd)
 
 
 def reset_launches():
     for fn in WRAPPERS:
         fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in WRAPPERS}
 
 
 def set_kernels(model: nn.Module, enabled: bool) -> nn.Module:
@@ -28,5 +35,7 @@ def set_kernels(model: nn.Module, enabled: bool) -> nn.Module:
     return model
 
 
-__all__ = ["attention_seg", "attention_seg_plain", "gin_agg", "gin_agg_plain",
+__all__ = ["attention_seg", "attention_seg_bwd", "attention_seg_bwd_plain",
+           "attention_seg_plain", "gin_agg", "gin_agg_bwd",
+           "gin_agg_bwd_plain", "gin_agg_plain", "launch_counts",
            "reset_launches", "set_kernels", "WRAPPERS"]

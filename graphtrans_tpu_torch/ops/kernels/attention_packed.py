@@ -1,4 +1,5 @@
-"""K2: segment-masked attention over packed transformer rows (forward).
+"""K2: segment-masked attention over packed transformer rows, with
+attention dropout, and its backward.
 
 qkv ``[R, W, 3d]`` is the combined projection output with heads in lanes
 (lane c of each d-slice belongs to head ``c // hd``); seg ``[R, W]`` holds
@@ -7,23 +8,37 @@ each token's graph id (-1 = padding). Token i attends token j iff
 subtracts the row max and divides by ``max(sum, 1e-16)``, and a query with
 no valid key (seg -1) outputs exact zeros. Output ``[R, W, d]``, same layout.
 
+Dropout at ``rate > 0`` follows torch: the probabilities are normalised by
+the undropped denominator, then a kept one is scaled by ``1/(1-rate)``.
+(r, h, i, j) is kept iff ``hash(pos, seed') < uint32((1-rate)*0xFFFFFFFF)``
+with ``pos = ((r % bt)*W + i)*sp + j``, ``seed' = seed + (r // bt)*H + h``
+(int32 wrap-around), ``sp = ceil(W/128)*128`` and ``bt = 8 if sp <= 128
+else 4``: the counter hash and the tiling that the JAX kernel uses in
+interpret mode (``graphtrans_tpu/ops/pallas/prng.py:_hash_bits_u32``,
+``attention_packed.py:_keep_mask``). The kernels and the plain version draw
+the same mask from (seed, r, h, i, j); nothing is stored.
+
 Replaces ``graphtrans_tpu/ops/pallas/attention_packed.py:
-attention_packed_seg_qkv`` (forward, ``_fwd_kernel`` with
-``_head_masks_seg`` and ``_probs_all``). The TPU kernel's block-diagonal
-"heads-in-lanes" K/V construct works around 128-lane padding of hd=32
-heads; on the card the kernel works per (row, head) directly.
+attention_packed_seg_qkv``: the forward (``_fwd_kernel`` with
+``_head_masks_seg`` and the dropout of ``_probs_all``) and the backward
+(``attn_bwd_math``, ``_bwd_kernel``), which returns dqkv in the combined
+``[R, W, 3d]`` layout. The TPU kernel's block-diagonal "heads-in-lanes"
+K/V construct works around 128-lane padding of hd=32 heads; on the card
+the kernels work per (row, head) directly.
 
 What bounds it on the H100: memory. For 923 rows of W=128 at d=128 (4096
-molecules) it must move ~242 MB (qkv and seg in, out back; ~72 us at
-3.35 TB/s), while the same-segment (query, key) pairs need only ~1.6 GFLOP
-of f32 work (~24 us at 67 TFLOP/s off the tensor cores): a row holds
-several small graphs, so most of the W x W score matrix is masked out.
-Design (``csrc/attention_packed.cu``): one block per (row, head),
-one thread per query; K_h, V_h and the row's segment ids are staged in
-shared memory and every thread reads them as broadcasts, keeping q and the
-output accumulator in registers with an online softmax (one pass over the
-keys). Keys of other segments are skipped; nothing but qkv, seg and the
-output crosses device memory.
+molecules) the forward must move ~242 MB (qkv and seg in, out back; ~72 us
+at 3.35 TB/s) and the backward ~424 MB (qkv, seg, dO in, dqkv back), while
+the same-segment (query, key) pairs need ~1.6 GFLOP forward and ~4 GFLOP
+backward of f32 work: a row holds several small graphs, so most of the
+W x W score matrix is masked out. Design (``csrc/attention_packed.cu``):
+one block per (row, head). Forward: one thread per query; K_h, V_h and the
+row's segment ids in shared memory, read as broadcasts; q and the output
+accumulator in registers with an online softmax. Backward: Q_h, K_h, V_h
+and dO_h in shared memory; a pass with one thread per query recomputes the
+softmax statistics and delta and writes dq, then a pass with one thread per
+key writes dk and dv. Keys (queries) of other segments are skipped; every
+output cell has one writer, so there are no atomics.
 """
 
 from __future__ import annotations
@@ -37,11 +52,55 @@ from . import _build
 
 W_MAX = 384          # wider packed rows need flash_hil (K3), a later slice
 HEAD_DIM = 32        # the head width csrc/attention_packed.cu compiles
+_M32 = 0xFFFFFFFF
 
 
-def attention_seg_plain(qkv: torch.Tensor, seg: torch.Tensor,
-                        nhead: int) -> torch.Tensor:
-    """Plain PyTorch version of K2: same arguments, same result."""
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2**32 for int64 x in [0, 2**32), in 16-bit halves so
+    no product leaves int64."""
+    lo, hi = x & 0xFFFF, x >> 16
+    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _M32
+
+
+def _hash_bits(pos: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """u32 counter hash of (position, seed) in int64 arithmetic (copy of
+    the JAX package's interpret-mode stand-in for the TPU PRNG)."""
+    x = (_mul32(pos, 2654435761) + _mul32(seed & _M32, 0x9E3779B9)) & _M32
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def dropout_tiling(W: int):
+    """(sp, bt): the key block and the rows per tile that index the mask."""
+    sp = -(-W // 128) * 128
+    return sp, (8 if sp <= 128 else 4)
+
+
+def keep_threshold(rate: float) -> int:
+    """Keep iff bits < this u32 (truncated as numpy truncates)."""
+    return int(min(max(1.0 - rate, 0.0), 1.0) * 0xFFFFFFFF)
+
+
+def keep_mask(R: int, W: int, nhead: int, rate: float, seed: int,
+              device) -> torch.Tensor:
+    """Bool [R, H, W, W]: query i keeps key j of row r, head h."""
+    sp, bt = dropout_tiling(W)
+    ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)
+    r = ar(R)[:, None, None, None]
+    h = ar(nhead)[None, :, None, None]
+    i = ar(W)[None, None, :, None]
+    j = ar(W)[None, None, None, :]
+    pos = ((r % bt) * W + i) * sp + j
+    return _hash_bits(pos, seed + (r // bt) * nhead + h) < keep_threshold(rate)
+
+
+def attention_seg_plain(qkv: torch.Tensor, seg: torch.Tensor, nhead: int,
+                        rate: float = 0.0, seed: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of K2: same arguments, same result (the same
+    dropout mask); autograd differentiates it."""
     R, W, d3 = qkv.shape
     d = d3 // 3
     hd = d // nhead
@@ -52,12 +111,25 @@ def attention_seg_plain(qkv: torch.Tensor, seg: torch.Tensor,
     mask = ((seg[:, :, None] == seg[:, None, :])
             & (seg >= 0)[:, None, :])[:, None]               # [R, 1, W, W]
     s = s.masked_fill(~mask, -1e30)
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True)).masked_fill(~mask, 0.0)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True).detach()).masked_fill(
+        ~mask, 0.0)
     p = e / e.sum(dim=-1, keepdim=True).clamp_min(1e-16)
+    if rate > 0.0:
+        keep = keep_mask(R, W, nhead, rate, seed, qkv.device)
+        p = p * keep.to(p.dtype) * (1.0 / (1.0 - rate))
     return torch.matmul(p, v).transpose(1, 2).reshape(R, W, d)
 
 
-def _check(qkv, seg, nhead):
+def attention_seg_bwd_plain(qkv, seg, nhead, gout, rate=0.0, seed=0):
+    """Plain version of K2's backward: autograd through
+    ``attention_seg_plain``. Returns dqkv [R, W, 3d]."""
+    with torch.enable_grad():
+        leaf = qkv.detach().requires_grad_()
+        out = attention_seg_plain(leaf, seg, nhead, rate, seed)
+        return torch.autograd.grad(out, leaf, gout)[0]
+
+
+def _check(qkv, seg, nhead, rate, gout=None):
     R, W, d3 = qkv.shape
     d = d3 // 3
     if d3 % 3 or d % nhead:
@@ -67,24 +139,36 @@ def _check(qkv, seg, nhead):
                          f"kernel is built for {HEAD_DIM}")
     if W > W_MAX:
         raise ValueError(f"attention_seg: rows of {W} > {W_MAX} tokens")
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"attention_seg: dropout rate {rate} not in [0, 1)")
     if qkv.dtype != torch.float32 or seg.dtype != torch.int32:
         raise ValueError("attention_seg: expected float32 qkv, int32 seg")
     if tuple(seg.shape) != (R, W) or seg.device != qkv.device:
         raise ValueError(f"attention_seg: seg {tuple(seg.shape)} on "
                          f"{seg.device} does not match qkv")
-    if not (qkv.is_contiguous() and seg.is_contiguous()):
+    if gout is not None and (gout.dtype != torch.float32
+                             or tuple(gout.shape) != (R, W, d)
+                             or gout.device != qkv.device):
+        raise ValueError(f"attention_seg_bwd: gout {gout.dtype} "
+                         f"{tuple(gout.shape)} does not match the output")
+    if not all(t.is_contiguous() for t in (qkv, seg, gout) if t is not None):
         raise ValueError("attention_seg: inputs must be contiguous")
 
 
-def attention_seg(qkv: torch.Tensor, seg: torch.Tensor,
-                  nhead: int) -> torch.Tensor:
-    """K2 forward. CPU tensors take ``attention_seg_plain``; CUDA tensors
-    launch the kernel or raise."""
-    if qkv.device.type == "cpu":
-        return attention_seg_plain(qkv, seg, nhead)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"attention_seg: unsupported device {qkv.device}")
-    _check(qkv, seg, nhead)
+def _dropout_args(W: int, rate: float, seed: int):
+    sp, bt = dropout_tiling(W)
+    on = rate > 0.0
+    # the seed as the int32 it wraps to in the reference
+    seed32 = (int(seed) + 2**31) % 2**32 - 2**31
+    return (int(on), ctypes.c_uint(keep_threshold(rate) if on else 0),
+            ctypes.c_float(1.0 / (1.0 - rate)), seed32, bt, sp)
+
+
+def _stream(t: torch.Tensor):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _launch_fwd(qkv, seg, nhead, rate, seed):
     R, W, d3 = qkv.shape
     out = torch.empty((R, W, d3 // 3), dtype=qkv.dtype, device=qkv.device)
     if out.numel() == 0:
@@ -93,20 +177,88 @@ def attention_seg(qkv: torch.Tensor, seg: torch.Tensor,
     err = lib.attention_seg_fwd(
         ctypes.c_void_p(qkv.data_ptr()), ctypes.c_void_p(seg.data_ptr()),
         ctypes.c_void_p(out.data_ptr()), R, W, d3 // 3, nhead,
-        ctypes.c_void_p(torch.cuda.current_stream(qkv.device).cuda_stream))
+        *_dropout_args(W, rate, seed), _stream(qkv))
     _build.check(lib, err, "attention_seg_fwd")
     attention_seg.launches += 1
     return out
 
 
+class _AttentionSeg(torch.autograd.Function):
+    """K2 on CUDA tensors with K2's backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, qkv, seg, nhead, rate, seed):
+        ctx.save_for_backward(qkv, seg)
+        ctx.args = (nhead, rate, seed)
+        return _launch_fwd(qkv, seg, nhead, rate, seed)
+
+    @staticmethod
+    def backward(ctx, gout):
+        qkv, seg = ctx.saved_tensors
+        nhead, rate, seed = ctx.args
+        return (attention_seg_bwd(qkv, seg, nhead, gout.contiguous(), rate,
+                                  seed), None, None, None, None)
+
+
+def attention_seg(qkv: torch.Tensor, seg: torch.Tensor, nhead: int,
+                  rate: float = 0.0, seed: int = 0) -> torch.Tensor:
+    """K2 forward with dropout ``rate`` (0 = none) drawn from ``seed``.
+    CPU tensors take ``attention_seg_plain``; CUDA tensors launch the
+    kernel or raise, and where a gradient is wanted the result carries K2's
+    backward kernel (``attention_seg_bwd``)."""
+    if qkv.device.type == "cpu":
+        return attention_seg_plain(qkv, seg, nhead, rate, seed)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"attention_seg: unsupported device {qkv.device}")
+    _check(qkv, seg, nhead, rate)
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _AttentionSeg.apply(qkv, seg, nhead, rate, seed)
+    return _launch_fwd(qkv, seg, nhead, rate, seed)
+
+
 attention_seg.launches = 0
+
+
+def attention_seg_bwd(qkv: torch.Tensor, seg: torch.Tensor, nhead: int,
+                      gout: torch.Tensor, rate: float = 0.0,
+                      seed: int = 0) -> torch.Tensor:
+    """K2 backward: dqkv [R, W, 3d] for the cotangent ``gout`` [R, W, d]
+    of ``attention_seg(qkv, seg, nhead, rate, seed)``, the dropout mask
+    drawn again from ``seed``. CPU tensors take
+    ``attention_seg_bwd_plain``; CUDA tensors launch the kernel or raise."""
+    if qkv.device.type == "cpu":
+        return attention_seg_bwd_plain(qkv, seg, nhead, gout, rate, seed)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"attention_seg_bwd: unsupported device {qkv.device}")
+    _check(qkv, seg, nhead, rate, gout)
+    R, W, d3 = qkv.shape
+    dqkv = torch.empty_like(qkv)
+    if dqkv.numel() == 0:
+        return dqkv
+    lib = _load()
+    err = lib.attention_seg_bwd(
+        ctypes.c_void_p(qkv.data_ptr()), ctypes.c_void_p(seg.data_ptr()),
+        ctypes.c_void_p(gout.data_ptr()), ctypes.c_void_p(dqkv.data_ptr()),
+        R, W, d3 // 3, nhead, *_dropout_args(W, rate, seed), _stream(qkv))
+    _build.check(lib, err, "attention_seg_bwd")
+    attention_seg_bwd.launches += 1
+    return dqkv
+
+
+attention_seg_bwd.launches = 0
 
 
 def _load():
     lib = _build.load("attention_packed")
     if lib.attention_seg_fwd.argtypes is None:
+        drop = [ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int]
         lib.attention_seg_fwd.argtypes = ([ctypes.c_void_p] * 3
-                                          + [ctypes.c_int] * 4
+                                          + [ctypes.c_int] * 4 + drop
                                           + [ctypes.c_void_p])
         lib.attention_seg_fwd.restype = ctypes.c_int
+        lib.attention_seg_bwd.argtypes = ([ctypes.c_void_p] * 4
+                                          + [ctypes.c_int] * 4 + drop
+                                          + [ctypes.c_void_p])
+        lib.attention_seg_bwd.restype = ctypes.c_int
     return lib

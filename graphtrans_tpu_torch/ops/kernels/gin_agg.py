@@ -9,20 +9,27 @@ with the optional ``w`` and optional ``scale`` prologue ((1+eps)*x of GIN).
 ``attr`` arrives clipped per feature with the table offsets folded in, so it
 indexes the concatenated bond table ``T [V, d]`` directly.
 
-Replaces ``graphtrans_tpu/ops/pallas/gin_agg.py:fused_gin_agg`` (forward,
-``_fwd_kernel``). The TPU kernel builds one-hot and multi-hot matrices so the
-gather, lookup and scatter run on the MXU, and packs graphs block-diagonally
-to fill its 128-wide contraction; both exist for the TPU only.
+Replaces ``graphtrans_tpu/ops/pallas/gin_agg.py:fused_gin_agg``: the
+forward (``_fwd_kernel``) and the backward (``_bwd_kernel``), which returns
+dx (with ``scale*gout``), dT summed over all graphs, dw and dscale. The TPU
+kernels build one-hot and multi-hot matrices so the gather, lookup and
+scatter run on the MXU, pack graphs block-diagonally to fill its 128-wide
+contraction, and carry dT across the sequential grid in a revisited VMEM
+block; all three exist for the TPU only.
 
-What bounds it on the H100: memory. A launch must read x and write out
-(2*G*Sm*d*4 bytes, ~315 MB for 4097 graphs of stride 32 at d=300) and does
-about (F+3)*d flops per valid edge, a few flops per byte against the card's
-~20 f32 flops per byte of bandwidth. Design (``csrc/gin_agg.cu``): one block
-per (graph, 128-channel slice); the graph's x slice, an accumulator of the
-same size and the 13-row bond table sit in shared memory, the edge lists are
-staged once, and each thread owns one channel and walks the edges in order.
-No two threads write one cell, so there are no atomics and the sum order is
-fixed; every byte of x and out crosses device memory once.
+What bounds it on the H100: memory. The forward must read x and write out
+(2*G*Sm*d*4 bytes, ~315 MB for 4097 graphs of stride 32 at d=300), the
+backward read x and gout and write dx (~472 MB), each doing a few flops per
+valid edge and channel, against the card's ~20 f32 flops per byte of
+bandwidth. Design (``csrc/gin_agg.cu``): a block owns a 128-channel slice
+of one graph (forward) or of a chunk of ``GRAPHS_PER_BLOCK`` graphs
+(backward); the graph's x (and gout) slice, an accumulator and the 13-row
+bond table sit in shared memory, the edge lists are staged once, and each
+thread owns one channel and walks the edges in order. No two threads write
+one cell, so there are no atomics and every sum has a fixed order. The
+cross-graph sums of the backward (dT, dscale) leave each block as a
+per-chunk partial that a second small kernel adds up in chunk order;
+dw, a sum over channels, is reduced across the block's warps.
 """
 
 from __future__ import annotations
@@ -36,12 +43,13 @@ from . import _build
 
 _CT = 128  # channels per block (csrc/gin_agg.cu)
 _SMEM_MAX = 232448  # bytes of shared memory a block can use on Hopper
+GRAPHS_PER_BLOCK = 8  # graphs one backward block walks in order
 
 
 def gin_agg_plain(x, src, dst, emask, attr, tbl, w=None, scale=None):
-    """Plain PyTorch version of K1: same arguments, same result. x
-    [G,Sm,d] f32; src/dst/emask [G,Em]; attr [G,F,Em] int; tbl [V,d];
-    w [G,Em] or None; scale a 1-element tensor or None."""
+    """Plain PyTorch version of K1: same arguments, same result; autograd
+    differentiates it. x [G,Sm,d] f32; src/dst/emask [G,Em]; attr [G,F,Em]
+    int; tbl [V,d]; w [G,Em] or None; scale a 1-element tensor or None."""
     G, Sm, d = x.shape
     Em = src.shape[1]
     attr = attr.long()
@@ -60,7 +68,20 @@ def gin_agg_plain(x, src, dst, emask, attr, tbl, w=None, scale=None):
     return out
 
 
-def _check(x, src, dst, emask, attr, tbl, w, scale):
+def gin_agg_bwd_plain(x, src, dst, emask, attr, tbl, w, scale, gout):
+    """Plain version of K1's backward: autograd through ``gin_agg_plain``.
+    Returns (dx, dT, dw or None, dscale or None), as ``gin_agg_bwd``."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() if t is not None else None
+                  for t in (x, tbl, w, scale)]
+        out = gin_agg_plain(leaves[0], src, dst, emask, attr, leaves[1],
+                            leaves[2], leaves[3])
+        want = [t for t in leaves if t is not None]
+        got = iter(torch.autograd.grad(out, want, gout))
+    return tuple(next(got) if t is not None else None for t in leaves)
+
+
+def _check(x, src, dst, emask, attr, tbl, w, scale, gout=None):
     G, Sm, d = x.shape
     Em = src.shape[1]
     F = attr.shape[1]
@@ -72,6 +93,8 @@ def _check(x, src, dst, emask, attr, tbl, w, scale):
         want.append((w, torch.float32, (G, Em)))
     if scale is not None:
         want.append((scale, torch.float32, (1,)))
+    if gout is not None:
+        want.append((gout, torch.float32, (G, Sm, d)))
     for t, dtype, shape in want:
         if t.device != x.device:
             raise ValueError(f"gin_agg: tensors on {t.device} and {x.device}")
@@ -80,7 +103,11 @@ def _check(x, src, dst, emask, attr, tbl, w, scale):
                              f"{t.dtype} {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError("gin_agg: inputs must be contiguous")
-    smem = (2 * Sm + tbl.shape[0]) * _CT * 4 + Em * (3 + F) * 4
+    V = tbl.shape[0]
+    smem = (2 * Sm + V) * _CT * 4 + Em * (3 + F) * 4
+    if gout is not None:   # + gout, dx and dT slices, per-warp dw sums
+        smem += (Sm + V) * _CT * 4 + (Em * _CT // 32 * 4 if w is not None
+                                      else 0)
     if smem > _SMEM_MAX:
         raise ValueError(f"gin_agg: stride {Sm} and {Em} edge slots need "
                          f"{smem} bytes of shared memory (max {_SMEM_MAX})")
@@ -90,19 +117,11 @@ def _ptr(t: Optional[torch.Tensor]):
     return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
 
 
-def gin_agg(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
-            emask: torch.Tensor, attr: torch.Tensor, tbl: torch.Tensor,
-            w: Optional[torch.Tensor] = None,
-            scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K1 forward. CPU tensors take ``gin_agg_plain``; CUDA tensors launch
-    the kernel or raise. Every edge slot, masked or not, must hold src/dst
-    in ``[0, Sm)`` and attr in ``[0, V)``: ``collate`` pads masked slots
-    with 0 and ``dense_mp.bond_table_index`` clips attr."""
-    if x.device.type == "cpu":
-        return gin_agg_plain(x, src, dst, emask, attr, tbl, w, scale)
-    if x.device.type != "cuda":
-        raise ValueError(f"gin_agg: unsupported device {x.device}")
-    _check(x, src, dst, emask, attr, tbl, w, scale)
+def _stream(t: torch.Tensor):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _launch_fwd(x, src, dst, emask, attr, tbl, w, scale):
     G, Sm, d = x.shape
     out = torch.empty_like(x)
     if out.numel() == 0:
@@ -111,14 +130,92 @@ def gin_agg(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     err = lib.gin_agg_fwd(
         _ptr(x), _ptr(src), _ptr(dst), _ptr(emask), _ptr(attr), _ptr(tbl),
         _ptr(w), _ptr(scale), _ptr(out), G, Sm, src.shape[1], attr.shape[1],
-        tbl.shape[0], d,
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+        tbl.shape[0], d, _stream(x))
     _build.check(lib, err, "gin_agg_fwd")
     gin_agg.launches += 1
     return out
 
 
+class _GinAgg(torch.autograd.Function):
+    """K1 on CUDA tensors with K1's backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, src, dst, emask, attr, tbl, w, scale):
+        ctx.save_for_backward(x, src, dst, emask, attr, tbl, w, scale)
+        return _launch_fwd(x, src, dst, emask, attr, tbl, w, scale)
+
+    @staticmethod
+    def backward(ctx, gout):
+        x, src, dst, emask, attr, tbl, w, scale = ctx.saved_tensors
+        dx, dtbl, dw, dscale = gin_agg_bwd(x, src, dst, emask, attr, tbl, w,
+                                           scale, gout.contiguous())
+        return dx, None, None, None, None, dtbl, dw, dscale
+
+
+def gin_agg(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+            emask: torch.Tensor, attr: torch.Tensor, tbl: torch.Tensor,
+            w: Optional[torch.Tensor] = None,
+            scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K1 forward. CPU tensors take ``gin_agg_plain``; CUDA tensors launch
+    the kernel or raise, and where a gradient is wanted the result carries
+    K1's backward kernel (``gin_agg_bwd``). Every edge slot, masked or not,
+    must hold src/dst in ``[0, Sm)`` and attr in ``[0, V)``: ``collate``
+    pads masked slots with 0 and ``dense_mp.bond_table_index`` clips attr."""
+    if x.device.type == "cpu":
+        return gin_agg_plain(x, src, dst, emask, attr, tbl, w, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"gin_agg: unsupported device {x.device}")
+    _check(x, src, dst, emask, attr, tbl, w, scale)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, tbl, w, scale)):
+        return _GinAgg.apply(x, src, dst, emask, attr, tbl, w, scale)
+    return _launch_fwd(x, src, dst, emask, attr, tbl, w, scale)
+
+
 gin_agg.launches = 0
+
+
+def gin_agg_bwd(x, src, dst, emask, attr, tbl, w, scale, gout):
+    """K1 backward on CUDA tensors: (dx [G,Sm,d], dT [V,d], dw [G,Em] or
+    None, dscale [1] or None) for the cotangent ``gout`` of ``gin_agg``.
+    CPU tensors take ``gin_agg_bwd_plain``."""
+    if x.device.type == "cpu":
+        return gin_agg_bwd_plain(x, src, dst, emask, attr, tbl, w, scale,
+                                 gout)
+    if x.device.type != "cuda":
+        raise ValueError(f"gin_agg_bwd: unsupported device {x.device}")
+    _check(x, src, dst, emask, attr, tbl, w, scale, gout)
+    G, Sm, d = x.shape
+    V, Em = tbl.shape[0], src.shape[1]
+    chunks = -(-G // GRAPHS_PER_BLOCK)
+    slices = -(-d // _CT)
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32,
+                                     device=x.device)
+    dx, dtbl = new(G, Sm, d), new(V, d)
+    dw = new(G, Em) if w is not None else None
+    dscale = new(1) if scale is not None else None
+    if G == 0 or d == 0:
+        dtbl.zero_()
+        if dscale is not None:
+            dscale.zero_()
+        return dx, dtbl, dw, dscale
+    dtbl_part = new(chunks, V, d)
+    dw_part = new(slices, G, Em) if w is not None else None
+    dsc_part = new(chunks, d) if scale is not None else None
+    dsc_col = new(d) if scale is not None else None
+    lib = _load()
+    err = lib.gin_agg_bwd(
+        _ptr(x), _ptr(src), _ptr(dst), _ptr(emask), _ptr(attr), _ptr(tbl),
+        _ptr(w), _ptr(scale), _ptr(gout), _ptr(dx), _ptr(dtbl), _ptr(dw),
+        _ptr(dscale), _ptr(dtbl_part), _ptr(dw_part), _ptr(dsc_part),
+        _ptr(dsc_col), G, Sm, Em, attr.shape[1], V, d, GRAPHS_PER_BLOCK,
+        _stream(x))
+    _build.check(lib, err, "gin_agg_bwd")
+    gin_agg_bwd.launches += 1
+    return dx, dtbl, dw, dscale
+
+
+gin_agg_bwd.launches = 0
 
 
 def _load():
@@ -127,4 +224,7 @@ def _load():
         lib.gin_agg_fwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                                     + [ctypes.c_void_p])
         lib.gin_agg_fwd.restype = ctypes.c_int
+        lib.gin_agg_bwd.argtypes = ([ctypes.c_void_p] * 17
+                                    + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        lib.gin_agg_bwd.restype = ctypes.c_int
     return lib

@@ -80,8 +80,29 @@ def build_pack_fields(num_nodes: np.ndarray, graph_mask: np.ndarray,
     }
 
 
-def pack_gather(src: torch.Tensor, pack_node: torch.Tensor) -> torch.Tensor:
-    """``out[s] = src[pack_node[s]]``: src is ``[N+1, d]`` whose last row is
-    zero (the CLS/pad sentinel). Forward only; the gather-based backward
-    through ``pack_inv`` comes with the training slice."""
-    return src.index_select(0, pack_node.long())
+class _PackGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, src, pack_node, pack_inv):
+        ctx.save_for_backward(pack_inv)
+        ctx.n_src = src.shape[0]
+        return src.index_select(0, pack_node.long())
+
+    @staticmethod
+    def backward(ctx, g):
+        (pack_inv,) = ctx.saved_tensors
+        gz = torch.cat([g, g.new_zeros((1,) + g.shape[1:])])
+        d_nodes = gz.index_select(0, pack_inv.long())            # [N, d]
+        pad = g.new_zeros((ctx.n_src - d_nodes.shape[0],) + g.shape[1:])
+        return torch.cat([d_nodes, pad]), None, None
+
+
+def pack_gather(src: torch.Tensor, pack_node: torch.Tensor,
+                pack_inv: torch.Tensor) -> torch.Tensor:
+    """``out[s] = src[pack_node[s]]`` with a gather-based backward (copy of
+    ``graphtrans_tpu/ops/pack.py:pack_gather``). src is ``[N+1, d]`` whose
+    last row is zero (the CLS/pad sentinel); ``pack_inv [N]`` maps each node
+    to its slot (``R*W`` = none). The slot map is injective on real nodes,
+    so ``d_src[i] = d_out[pack_inv[i]]``: a gather, where the backward of
+    ``index_select`` would be an ``index_add_`` (atomics on the card, in no
+    fixed order)."""
+    return _PackGather.apply(src, pack_node, pack_inv)

@@ -35,14 +35,20 @@ def build_parser() -> argparse.ArgumentParser:
     """The flags of the root ``main.py``/``predict.py`` that serving reads,
     with their defaults (molecule datasets: batch size 32)."""
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--configs", default=None)
-    p.add_argument("--data_root", default="data_root")
-    p.add_argument("--dataset", default="ogbg-molpcba")
     p.add_argument("--split", default="test", choices=["train", "valid", "test"])
     p.add_argument("--out", default="predictions.jsonl")
     p.add_argument("--weights", default=None,
                    help="state dict saved with torch.save (default: random "
                         "weights from --seed)")
+    return add_model_args(p)
+
+
+def add_model_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """Config, data, device and model flags, shared with the training
+    entry (``main.py``)."""
+    p.add_argument("--configs", default=None)
+    p.add_argument("--data_root", default="data_root")
+    p.add_argument("--dataset", default="ogbg-molpcba")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     p.add_argument("--batch_size", type=int, default=32)
@@ -71,15 +77,18 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def serving_layout(splits: dict, args, num_tasks: int) -> dict:
+def serving_layout(splits: dict, args, num_tasks: int,
+                   batch_size: Optional[int] = None) -> dict:
     """Batch layout of ``main.py:resolve_dense_layout``/``make_loaders`` for
     molecules: the strided layout (stride and per-graph edge slots bucketed
     from the largest graph of any split) and one tier of packed transformer
-    rows of width ``bucket_size(stride + 1, 128)``. Returns the keyword
-    arguments of ``iterate_batches``."""
+    rows of width ``bucket_size(stride + 1, 128)``, for batches of
+    ``batch_size`` graphs (default: the evaluation batch size). Returns the
+    keyword arguments of ``iterate_batches``."""
     graphs = sum(splits.values(), [])
-    eval_bs = args.eval_batch_size or args.batch_size
-    _, edge_cap = dataset_caps(graphs, max(args.batch_size, eval_bs))
+    eval_bs = batch_size or args.eval_batch_size or args.batch_size
+    _, edge_cap = dataset_caps(graphs, max(
+        args.batch_size, args.eval_batch_size or args.batch_size))
     max_n = max(int(g["x"].shape[0]) for g in graphs)
     max_e = max(int(g["edge_index"].shape[1]) for g in graphs)
     stride = bucket_size(max_n, 16)

@@ -3,7 +3,7 @@
 The experiment configs under ``configs/`` are flat mappings of flag names to
 scalars; this reader covers exactly that (the machine with the card has no
 pyyaml). Keys match a parser option by dest with '-' read as '_'; keys the
-parser does not know (training settings such as ``lr``) are ignored. Values
+parser does not know (``lr`` for ``predict``, say) are ignored. Values
 given on the command line override the config."""
 
 from __future__ import annotations
@@ -42,6 +42,54 @@ def read_flat_yaml(path: str) -> dict:
             key, value = line.split(":", 1)
             out[key.strip()] = _scalar(value)
     return out
+
+
+def add_training_args(parser: argparse.ArgumentParser):
+    """The training flags of the root ``main.py`` that the port's training
+    entry reads, with the same defaults, and the flags of its later slices,
+    which ``check_ported`` turns away."""
+    g = parser.add_argument_group("training")
+    g.add_argument("--epochs", type=int, default=30)
+    g.add_argument("--lr", type=float, default=0.001)
+    g.add_argument("--weight_decay", type=float, default=0.0)
+    g.add_argument("--grad_clip", type=float, default=None)
+    g.add_argument("--scheduler", type=str, default=None)
+    g.add_argument("--gnn_dropout", type=float, default=0.0)
+    g.add_argument("--transformer_dropout", type=float, default=0.3)
+    g.add_argument("--save_path", default=None,
+                   help="directory for last_model.pt (a state dict)")
+    g = parser.add_argument_group("later slices")
+    g.add_argument("--aug", default="baseline")
+    g.add_argument("--runs", type=int, default=1)
+    g.add_argument("--resume", default=None)
+    for flag in ("dp_shards", "tp_shards", "hybrid_shards"):
+        g.add_argument(f"--{flag}", type=int, default=1)
+    g.add_argument("--sp", action="store_true")
+    g.add_argument("--multihost", action="store_true")
+    return parser
+
+
+_LATER = (
+    ("aug", lambda v: v != "baseline", "FLAG arrives with slice 6"),
+    ("runs", lambda v: v != 1, "the multi-run loop arrives with slice 6"),
+    ("resume", lambda v: v is not None,
+     "checkpoints and resume arrive with slice 6"),
+    ("dp_shards", lambda v: v != 1, "data parallelism arrives with slice 7"),
+    ("tp_shards", lambda v: v != 1, "GSPMD arrives with slice 7"),
+    ("hybrid_shards", lambda v: v != 1,
+     "node-sharded training arrives with slice 7"),
+    ("sp", bool, "sequence parallelism arrives with slice 7"),
+    ("multihost", bool, "multi-host training arrives with slice 7"),
+)
+
+
+def check_ported(args):
+    """Raise NotImplementedError, naming its slice, for a flag that asks
+    for something the port does not do yet."""
+    for key, asks, why in _LATER:
+        value = getattr(args, key)
+        if asks(value):
+            raise NotImplementedError(f"--{key} {value}: {why}")
 
 
 def parse_with_config(parser: argparse.ArgumentParser, argv=None):

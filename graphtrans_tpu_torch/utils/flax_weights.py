@@ -101,7 +101,7 @@ def load_flax_variables(model, params: dict, batch_stats: dict):
             src = (coll,) + path
             if src not in leaves:
                 raise KeyError(f"flax leaf {'/'.join(src)} missing (for {key})")
-            arr = np.asarray(leaves[src], np.float32)
+            arr = np.array(leaves[src], np.float32)   # a writable copy
             if transpose:
                 arr = arr.T
             dst = state[key]

@@ -6,6 +6,8 @@ and no JAX (``--noconftest`` skips tests/conftest.py, which imports JAX):
     python -m pytest tests/test_torch_port_cuda.py -q --noconftest
 """
 
+import argparse
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -15,9 +17,12 @@ from graphtrans_tpu_torch.data.synthetic import make_mol_dataset  # noqa: E402
 from graphtrans_tpu_torch.nn.encoders import BOND_FEATURE_DIMS  # noqa: E402
 from graphtrans_tpu_torch.ops.dense_mp import bond_table_index  # noqa: E402
 from graphtrans_tpu_torch.ops.kernels import (  # noqa: E402
-    attention_seg, attention_seg_plain, gin_agg, gin_agg_plain, set_kernels)
+    attention_seg, attention_seg_bwd, attention_seg_bwd_plain,
+    attention_seg_plain, gin_agg, gin_agg_bwd, gin_agg_bwd_plain,
+    gin_agg_plain, set_kernels)
 
 K1_TOL, K2_TOL, LOGITS_TOL = 1e-5, 2e-5, 1e-4
+GRAD_TOL = 5e-4  # gradients (the SMOKE_TPU.json bound)
 
 
 @pytest.fixture
@@ -58,9 +63,64 @@ def test_gin_agg_kernel_matches_plain(cuda, d, with_w, with_scale):
     assert not got.reshape(G * Sm, d)[~b.node_mask].any()
 
 
+def _k1_args(b, d, with_w, with_scale, cuda):
+    G, Sm, Em = b.num_graph_slots, b.node_stride, b.edge_src_dense.shape[1]
+    gen = torch.Generator().manual_seed(d)
+    x = torch.randn(G, Sm, d, generator=gen).to(cuda)
+    x = x.masked_fill(~b.node_mask.reshape(G, Sm, 1), 0.0)
+    return (x, b.edge_src_dense, b.edge_dst_dense, b.edge_mask_dense,
+            bond_table_index(b.edge_attr_dense, BOND_FEATURE_DIMS),
+            torch.randn(sum(BOND_FEATURE_DIMS), d, generator=gen).to(cuda),
+            torch.randn(G, Em, generator=gen).to(cuda) if with_w else None,
+            torch.tensor([1.25], device=cuda) if with_scale else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 300])
+@pytest.mark.parametrize("with_w,with_scale", [(False, True), (True, False),
+                                               (True, True)])
+def test_gin_agg_bwd_kernel_matches_plain(cuda, d, with_w, with_scale):
+    """dx, dT, dw and dscale of K1's backward kernel against autograd
+    through the plain version."""
+    b = _batch().to(cuda)
+    args = _k1_args(b, d, with_w, with_scale, cuda)
+    gout = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(
+        7)).to(cuda)
+    before = gin_agg_bwd.launches
+    got = gin_agg_bwd(*args, gout)
+    torch.cuda.synchronize()
+    assert gin_agg_bwd.launches == before + 1
+    want = gin_agg_bwd_plain(*args, gout)
+    for name, g, w in zip(("dx", "dT", "dw", "dscale"), got, want):
+        assert (g is None) == (w is None), name
+        if g is not None:
+            err = (g - w).abs().max().item()
+            assert err <= GRAD_TOL * max(1.0, w.abs().max().item()), name
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("W,d,H", [(128, 128, 4), (384, 128, 4), (256, 64, 2)])
-def test_attention_seg_kernel_matches_plain(cuda, W, d, H):
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_attention_seg_bwd_kernel_matches_plain(cuda, W, d, H, rate):
+    """K2 forward with dropout and its backward kernel against the plain
+    version, which draws the same mask, and its autograd."""
+    qkv, seg = _k2_case(W, d, cuda)
+    g = torch.randn(qkv.shape[0], W, d,
+                    generator=torch.Generator().manual_seed(3)).to(cuda)
+    seed = 987654321
+    out = attention_seg(qkv, seg, H, rate, seed)
+    before = attention_seg_bwd.launches
+    dqkv = attention_seg_bwd(qkv, seg, H, g, rate, seed)
+    torch.cuda.synchronize()
+    assert attention_seg_bwd.launches == before + 1
+    want = attention_seg_plain(qkv, seg, H, rate, seed)
+    assert (out - want).abs().max().item() <= K2_TOL
+    err = (dqkv - attention_seg_bwd_plain(qkv, seg, H, g, rate, seed)).abs()
+    assert err.max().item() <= GRAD_TOL
+    assert not dqkv[seg < 0].any()
+
+
+def _k2_case(W, d, cuda):
     gen = torch.Generator().manual_seed(W + d)
     R = 6
     seg = torch.full((R, W), -1, dtype=torch.int32)
@@ -72,8 +132,13 @@ def test_attention_seg_kernel_matches_plain(cuda, W, d, H):
             seg[r, s:s + lens[g % 64]] = g
             s += lens[g % 64]
             g += 1
-    qkv = torch.randn(R, W, 3 * d, generator=gen).to(cuda)
-    seg = seg.to(cuda)
+    return torch.randn(R, W, 3 * d, generator=gen).to(cuda), seg.to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,d,H", [(128, 128, 4), (384, 128, 4), (256, 64, 2)])
+def test_attention_seg_kernel_matches_plain(cuda, W, d, H):
+    qkv, seg = _k2_case(W, d, cuda)
     before = attention_seg.launches
     got = attention_seg(qkv, seg, H)
     torch.cuda.synchronize()
@@ -95,3 +160,79 @@ def test_model_kernels_match_plain_versions(cuda):
         want = set_kernels(model, False)(b)[b.graph_mask]
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= LOGITS_TOL
+
+
+def _train_model(cuda, seed=0):
+    from graphtrans_tpu_torch.models.gnn_transformer import GNNTransformer
+    from graphtrans_tpu_torch.nn.init import init_weights
+
+    model = GNNTransformer(4, 3, 300, True, 128, 4, 512, 2, True,
+                           gnn_dropout=0.3, transformer_dropout=0.3,
+                           device=cuda)
+    return init_weights(model, torch.Generator().manual_seed(seed)).train()
+
+
+def _loss_and_grads(model, b, cuda, kernels: bool):
+    from graphtrans_tpu_torch.nn.dropout import Generators
+    from graphtrans_tpu_torch.train.losses import binary_multitask_loss
+
+    set_kernels(model, kernels)
+    model.zero_grad(set_to_none=True)
+    loss = binary_multitask_loss(model(b, Generators.seeded(5, cuda)), b)
+    loss.backward()
+    return loss.item(), {n: p.grad for n, p in model.named_parameters()}
+
+
+@pytest.mark.cuda
+def test_backward_through_kernels_reaches_every_leaf(cuda):
+    """loss.backward() through the CUDA wrappers gives a gradient to the
+    GIN inputs, every bond table, every eps and every in_proj, equal to
+    the plain route's (the wrappers are autograd Functions)."""
+    model = _train_model(cuda)
+    b = _batch(seed=3).to(cuda)
+    f1, b1 = gin_agg_bwd.launches, attention_seg_bwd.launches
+    _, grads = _loss_and_grads(model, b, cuda, kernels=True)
+    assert gin_agg_bwd.launches == f1 + 3
+    assert attention_seg_bwd.launches == b1 + 2
+    state = {n: p for n, p in model.named_parameters()}
+    _, plain = _loss_and_grads(model, b, cuda, kernels=False)
+    for name in state:
+        if ("edge_encoder" in name or name.endswith(".eps")
+                or "in_proj" in name or "atom_encoder" in name):
+            g = grads[name]
+            assert g is not None and g.abs().sum().item() > 0, name
+            err = (g - plain[name]).abs().max().item()
+            assert err <= GRAD_TOL * max(1.0, plain[name].abs().max().item()), name
+
+
+@pytest.mark.cuda
+def test_train_step_kernels_match_plain(cuda):
+    """One AdamW step with dropout on, from the same state and generator
+    seeds: loss, gradients and updated parameters through the kernels
+    against the plain versions on the card."""
+    from graphtrans_tpu_torch.nn.dropout import Generators
+    from graphtrans_tpu_torch.train.losses import binary_multitask_loss
+    from graphtrans_tpu_torch.train.optim import build_optimizer
+    from graphtrans_tpu_torch.trainers.base_trainer import make_train_step
+
+    b = _batch(seed=4).to(cuda)
+    args = argparse.Namespace(lr=1e-4, weight_decay=0.0, grad_clip=None,
+                              scheduler=None, epochs=1)
+    out = []
+    for kernels in (True, False):
+        model = set_kernels(_train_model(cuda), kernels)
+        opt = build_optimizer(model, args, 1)
+        step = make_train_step(model, binary_multitask_loss, opt,
+                               Generators.seeded(11, cuda))
+        loss = step(b).item()
+        out.append((loss, {n: p.grad.clone() for n, p in
+                           model.named_parameters()},
+                    {n: p.detach().clone() for n, p in
+                     model.named_parameters()}))
+    (lk, gk, pk), (lp, gp, pp) = out
+    assert abs(lk - lp) <= LOGITS_TOL
+    for name in gk:
+        scale = max(1.0, gp[name].abs().max().item())
+        assert (gk[name] - gp[name]).abs().max().item() <= GRAD_TOL * scale, name
+        # Adam: a rounding-level gradient may move by up to 2 lr
+        assert (pk[name] - pp[name]).abs().max().item() <= 2e-4 + 1e-6, name

@@ -1,7 +1,7 @@
 """Kernel K1 (GIN aggregation with in-kernel bond lookup): the port's plain
-version against the JAX Pallas kernel in interpret mode and the XLA dense
-route. The CUDA kernel is held against the plain version on the card in
-test_torch_port_cuda.py."""
+version, forward and gradients, against the JAX Pallas kernel in interpret
+mode and the XLA dense route. The CUDA kernels are held against the plain
+version on the card in test_torch_port_cuda.py."""
 
 import dataclasses
 
@@ -18,7 +18,8 @@ from graphtrans_tpu_torch.data.batch import collate  # noqa: E402
 from graphtrans_tpu_torch.data.synthetic import make_mol_dataset  # noqa: E402
 from graphtrans_tpu_torch.nn.encoders import BOND_FEATURE_DIMS  # noqa: E402
 from graphtrans_tpu_torch.ops import dense_mp  # noqa: E402
-from graphtrans_tpu_torch.ops.kernels import gin_agg, gin_agg_plain  # noqa: E402
+from graphtrans_tpu_torch.ops.kernels import (  # noqa: E402
+    gin_agg, gin_agg_bwd, gin_agg_bwd_plain, gin_agg_plain)
 
 TOL = 1e-5  # f32, sums of <= Em terms in another order
 
@@ -94,6 +95,106 @@ def test_plain_matches_jax_xla_dense_route(with_w, d):
     np.testing.assert_allclose(got.numpy().reshape(G * Sm, d),
                                np.asarray(want), atol=TOL, rtol=0)
     assert not got.numpy().reshape(G * Sm, d)[~b.node_mask].any()
+
+
+def _gout(c, seed):
+    return np.random.default_rng(seed).standard_normal(
+        c["x"].shape).astype(np.float32)
+
+
+def _assert_grads(got, want, V):
+    """got: the port's (dx, dT, dw, dscale); want: JAX's, with dT padded to
+    VP rows in the interpret kernel (rows past V must be zero)."""
+    dx, dt, dw, dsc = got
+    np.testing.assert_allclose(dx.numpy(), np.asarray(want[0]), atol=GTOL,
+                               rtol=0)
+    wt = np.asarray(want[1])
+    np.testing.assert_allclose(dt.numpy(), wt[:V], atol=GTOL, rtol=0)
+    assert not wt[V:].any()
+    for g, w in ((dw, want[2]), (dsc, want[3])):
+        assert (g is None) == (w is None)
+        if g is not None:
+            np.testing.assert_allclose(g.numpy().reshape(np.shape(w)),
+                                       np.asarray(w), atol=GTOL, rtol=0)
+
+
+GTOL = 5e-4  # gradients: sums over every edge of the batch, in f32
+
+
+@pytest.mark.parametrize("with_w", [False, True])
+@pytest.mark.parametrize("with_scale", [False, True])
+def test_plain_grads_match_jax_interpret_kernel(with_w, with_scale):
+    """K1's plain version differentiated by autograd against jax.vjp of
+    fused_gin_agg, whose backward is the interpret-mode Pallas kernel."""
+    import jax
+
+    c = _case(128, seed=4)
+    b = c["batch"]
+    V = len(c["tbl"])
+    tblp = np.concatenate([c["tbl"], np.zeros((VP - V, 128), np.float32)])
+    fixed = [jnp.asarray(a) for a in (b.edge_src_dense, b.edge_dst_dense,
+                                      b.edge_mask_dense, c["attr"])]
+
+    def f(x, tbl, *opt):
+        opt = list(opt)
+        w = opt.pop(0) if with_w else None
+        scale = opt.pop(0) if with_scale else None
+        return fused_gin_agg(x, *fixed, tbl, w, scale, True, with_scale, True)
+
+    primals = [jnp.asarray(c["x"]), jnp.asarray(tblp)]
+    if with_w:
+        primals.append(jnp.asarray(c["w"]))
+    if with_scale:
+        primals.append(jnp.float32(c["scale"]))
+    gout = _gout(c, 5)
+    _, vjp = jax.vjp(f, *primals)
+    jg = list(vjp(jnp.asarray(gout)))
+    want = jg[:2] + [jg.pop(2) if with_w else None,
+                     jg[2] if with_scale else None]
+    args = _torch_args(c, with_w, with_scale)
+    got = gin_agg_bwd_plain(*args, torch.from_numpy(gout))
+    _assert_grads(got, want, V)
+    # CPU tensors take the plain version through the wrapper, uncounted
+    before = gin_agg_bwd.launches
+    again = gin_agg_bwd(*args, torch.from_numpy(gout))
+    assert gin_agg_bwd.launches == before
+    # autograd's CPU index backward adds the table gradient in no fixed
+    # order, so two runs differ by f32 rounding of sums up to ~15
+    for a, g in zip(again, got):
+        assert (a is None) == (g is None)
+        if a is not None:
+            torch.testing.assert_close(a, g, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("with_w", [False, True])
+def test_plain_grads_match_jax_xla_dense_route(with_w):
+    """Width 40: jax.vjp through the XLA one-hot route with the table
+    lookup outside and the GIN combine scale*x + agg."""
+    import jax
+
+    c = _case(40, seed=6, Sm=48, Em=144)
+    b = c["batch"]
+    G, Sm, d = c["x"].shape
+    attr = jnp.asarray(c["attr"])
+
+    def f(x, tbl, scale, *w):
+        emb = tbl[attr].sum(axis=1)                          # [G, Em, d]
+        agg = jdm.gather_message_scatter_dense(
+            x.reshape(G * Sm, d), b, emb,
+            edge_weight=w[0] if w else None).reshape(G, Sm, d)
+        return scale * x + agg
+
+    primals = [jnp.asarray(c["x"]), jnp.asarray(c["tbl"]),
+               jnp.float32(c["scale"])]
+    if with_w:
+        primals.append(jnp.asarray(c["w"]))
+    gout = _gout(c, 7)
+    _, vjp = jax.vjp(f, *primals)
+    jg = vjp(jnp.asarray(gout))
+    want = (jg[0], jg[1], jg[3] if with_w else None, jg[2])
+    got = gin_agg_bwd_plain(*_torch_args(c, with_w, True),
+                            torch.from_numpy(gout))
+    _assert_grads(got, want, len(c["tbl"]))
 
 
 def test_fused_tables_route_matches_jax():

@@ -199,7 +199,8 @@ def test_port_imports_nothing_of_jax():
 
 
 def test_import_leaves_jax_unloaded():
-    code = ("import graphtrans_tpu_torch, graphtrans_tpu_torch.predict, sys; "
+    code = ("import graphtrans_tpu_torch, graphtrans_tpu_torch.predict, "
+            "graphtrans_tpu_torch.main, sys; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
