@@ -27,7 +27,16 @@ Phases, each printing one line (any failure raises and exits non-zero):
      launches, checking finite epoch losses and moved parameters, and holds
      one train step through the kernels against the plain versions on the
      card; (c) times the train step on the 4096-graph batch, with peak
-     memory and a torch.profiler split by layer.
+     memory and a torch.profiler split by layer;
+  7. code2 serving (the published GCN-virtual config, flat layout, packing
+     tiers 1024/512, 384, 128): (a) holds K3 (flash_hil_seg) and K7 (spmm)
+     against their plain versions at the code2 snapshot's shapes and at the
+     512-graph bench shape, and times them; (b) serves the code2 snapshot's
+     valid and test splits through ``python -m graphtrans_tpu_torch.predict``
+     (batches of 16), counting K2, K3 and K7 launches, checking records and
+     F1, and holds the logits through the kernels against the plain
+     versions on the card; (c) times and profiles the forward of one
+     512-graph code2-shaped batch.
 Then a {"kernels": [...]} line, the nvidia-smi line, and the contract line
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without
 a CUDA card.
@@ -51,6 +60,8 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(
     REPO, "configs/molpcba/gnn-transformer/JK=cat/pooling=cls+gin+norm_input.yml")
+CODE2_CONFIG = os.path.join(
+    REPO, "configs/code2/gnn-transformer/JK=cat/pooling=cls+norm_input.yml")
 SNAPSHOT = os.path.join(REPO, "data_snapshots")
 BATCH = 64
 SEED = 0
@@ -64,8 +75,18 @@ GIN_LAYERS_PER_FORWARD, ENCODER_LAYERS_PER_FORWARD = 5, 4
 PROFILED_FORWARDS = 5
 TRAIN_EPOCHS, DROPOUT = 2, 0.3
 TIMED_STEPS, PROFILED_STEPS = 10, 3
+# the molpcba forward and train step measured before the code2 slice on
+# this card type (PERF.md, bench4096), printed beside this run's
+EARLIER_FORWARD_MS, EARLIER_STEP_MS = 46.094, 166.506
+# code2 (phase 7): the yml's batch size, the bench batch, the kernels' bounds
+CODE2_BATCH, CODE2_BENCH = 16, 512
+K3_TOL = 2e-5
+K7_TOL = 1e-5      # times max(1, max |reference|)
+GCN_LAYERS_PER_FORWARD = 5
 # kernel-name fragments -> the layer that launches them (phase 5)
 LAYERS = (
+    ("flash_hil_fwd", "K3 flash_hil_seg"),
+    ("spmm_kernel", "K7 spmm (aggregation)"),
     ("gin_agg_fwd", "K1 gin_agg (aggregation)"),
     ("attention_seg_fwd", "K2 attention_seg"),
     ("gin_agg_bwd", "K1-bwd gin_agg_bwd"),
@@ -74,7 +95,7 @@ LAYERS = (
     ("multi_tensor", "AdamW (foreach)"),
     ("gemm", "matmul (Linear layers)"),
     ("layer_norm", "LayerNorm"),
-    ("index", "gather / index_select"),
+    ("index", "gather / index_select / index_add"),
     ("embedding", "embedding lookup"),
     ("reduce", "reductions (sums over rows)"),
     ("cat", "concatenation"),
@@ -364,7 +385,7 @@ def phase4(device, big, smi: str):
     print(f"[4] forward of {n} graphs (stride {big.node_stride}, "
           f"{big.pack_rows} packed rows of {big.pack_w}): median {ms:.3f} ms "
           f"over 10 (min {lo:.3f}, max {hi:.3f}), {n / ms * 1e3:.0f} "
-          f"graphs/s on {smi}")
+          f"graphs/s on {smi} (earlier: {EARLIER_FORWARD_MS} ms)")
     print(f"[4] one snapshot batch of {BATCH} graphs: collate {coll:.3f} ms "
           f"(host), copy in + forward + logits out median {req[0]:.3f} ms "
           f"over 20 (min {req[1]:.3f}, max {req[2]:.3f}) on {smi}")
@@ -393,9 +414,11 @@ def phase5(model, tb, smi: str, trace):
     _print_split("[5]", "forward", prof, PROFILED_FORWARDS, wall, smi)
 
 
-def _print_split(tag: str, what: str, prof, n: int, wall: float, smi: str):
+def _print_split(tag: str, what: str, prof, n: int, wall: float, smi: str,
+                 graphs: int = 4096):
     """Device busy time, idle share and device time by layer of ``n``
-    profiled runs of ``what`` (wall ms per run), from torch.profiler."""
+    profiled runs of ``what`` on ``graphs`` graphs (wall ms per run), from
+    torch.profiler."""
     kernels = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
                for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
@@ -406,7 +429,7 @@ def _print_split(tag: str, what: str, prof, n: int, wall: float, smi: str):
     by_layer = collections.Counter()
     for name, ms, _ in kernels:
         by_layer[_layer(name)] += ms
-    print(f"{tag} profiled {what} of 4096 graphs: wall {wall:.3f} ms, device "
+    print(f"{tag} profiled {what} of {graphs} graphs: wall {wall:.3f} ms, device "
           f"busy {busy:.3f} ms, idle share {1 - busy / wall:.3f} on {smi}")
     for layer, ms in by_layer.most_common():
         print(f"{tag}   {layer:32s} {ms:9.3f} ms  {ms / busy:6.1%}")
@@ -657,7 +680,8 @@ def phase6_train(device, tmp: str):
         print(f"[6b] main: {line}")
     steps = sum(r["steps"] for r in res["epochs"])
     want = {"gin_agg": 5 * steps, "gin_agg_bwd": 5 * steps,
-            "attention_seg": 4 * steps, "attention_seg_bwd": 4 * steps}
+            "attention_seg": 4 * steps, "attention_seg_bwd": 4 * steps,
+            "flash_hil_seg": 0, "spmm": 0}
     if steps == 0 or launches != want:
         raise AssertionError(f"training launches {launches}, expected {want}")
     if not all(math.isfinite(r["loss"]) for r in res["epochs"]):
@@ -718,7 +742,8 @@ def phase6_step4096(device, big, smi: str):
     print(f"[6c] train step of {n} graphs (forward, backward, AdamW; "
           f"dropout {args.gnn_dropout}/{args.transformer_dropout}): median "
           f"{ms:.3f} ms over {TIMED_STEPS} (min {lo:.3f}, max {hi:.3f}), "
-          f"{n / ms * 1e3:.0f} graphs/s, peak memory {peak:.2f} GiB on {smi}")
+          f"{n / ms * 1e3:.0f} graphs/s, peak memory {peak:.2f} GiB on {smi} "
+          f"(earlier: {EARLIER_STEP_MS} ms)")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -730,6 +755,291 @@ def phase6_step4096(device, big, smi: str):
     _print_split("[6c]", "train step", prof, PROFILED_STEPS, wall, smi)
 
 
+# ---- phase 7: code2 serving ----------------------------------------------
+
+
+def _code2_args():
+    from graphtrans_tpu_torch import predict
+    from graphtrans_tpu_torch.utils.config import parse_with_config
+
+    return parse_with_config(predict.build_parser(), [
+        "--configs", CODE2_CONFIG, "--data_root", SNAPSHOT, "--batch_size",
+        str(CODE2_BATCH), "--seed", str(SEED)])
+
+
+def k3_inputs(batch, d: int, gen: torch.Generator, device):
+    """K3's arguments on the widest packing tier of ``batch`` (random
+    qkv)."""
+    R, W = batch.pack_rows, batch.pack_w
+    seg = torch.as_tensor(batch.pack_seg).reshape(R, W)
+    return torch.randn(R, W, 3 * d, generator=gen).to(device), seg.to(device)
+
+
+def k7_inputs(batch, d: int, gen: torch.Generator, device):
+    """K7's arguments as a GCN layer gets them: random node rows (zero on
+    padding rows) and edge embeddings, the batch's dst-sorted edges and the
+    GCN norm deg^-1/2[src] deg^-1/2[dst] as edge weight."""
+    from graphtrans_tpu_torch.ops.segment import out_degree
+
+    tb = batch.to(device)
+    x = torch.randn(batch.num_node_slots, d, generator=gen).to(device)
+    x = x.masked_fill(~tb.node_mask[:, None], 0.0)
+    emb = torch.randn(tb.edge_src.shape[0], d, generator=gen).to(device)
+    dis = (out_degree(tb.edge_src, x.shape[0], tb.edge_mask) + 1.0) ** -0.5
+    w = dis[tb.edge_src.long()] * dis[tb.edge_dst.long()]
+    return (x, emb, tb.edge_src, tb.edge_dst, tb.edge_mask, w)
+
+
+def check_k3(qkv, seg, nhead: int):
+    from graphtrans_tpu_torch.ops.kernels import (flash_hil_seg,
+                                                  flash_hil_seg_plain)
+
+    got = flash_hil_seg(qkv, seg, nhead)
+    torch.cuda.synchronize()
+    err = (got - flash_hil_seg_plain(qkv, seg, nhead)).abs().max().item()
+    if err > K3_TOL or not torch.isfinite(got).all():
+        raise AssertionError(f"K3 disagrees with its plain version: "
+                             f"max |diff| {err} > {K3_TOL}")
+    if (got[seg < 0] != 0).any():
+        raise AssertionError("K3: padding queries are not exactly zero")
+    return err
+
+
+def check_k7(args):
+    from graphtrans_tpu_torch.ops.kernels import spmm, spmm_plain
+
+    got = spmm(*args)
+    torch.cuda.synchronize()
+    want = spmm_plain(*args)
+    err = _rel_err(got, want)
+    if err > K7_TOL or not torch.isfinite(got).all():
+        raise AssertionError(f"K7 disagrees with its plain version: "
+                             f"{err} of max(1, max|ref|) > {K7_TOL}")
+    return err
+
+
+def k3_bound(qkv, seg, nhead: int):
+    R, W, d3 = qkv.shape
+    hd = d3 // 3 // nhead
+    _, counts = torch.unique(seg[seg >= 0], return_counts=True)
+    pairs = int((counts.long() ** 2).sum().item())   # same-segment (q, k)
+    nbytes = qkv.numel() * 4 + seg.numel() * 4 + R * W * (d3 // 3) * 4
+    return _bound(nbytes, 4 * hd * nhead * pairs)
+
+
+def k7_bound(args):
+    """x and the output once, and per valid edge its emb row, src, dst and
+    weight (the padding tail's emb rows are never needed); 4 flops per
+    valid edge and channel (add, relu, scale, sum)."""
+    x, emb, src, dst, emask, w = args
+    N, d = x.shape
+    valid = int(emask.sum().item())
+    nbytes = 2 * N * d * 4 + valid * (d * 4 + 3 * 4) + emask.numel()
+    return _bound(nbytes, 4 * valid * d)
+
+
+def phase7_kernels(device, d_gnn: int, d_model: int, nhead: int, bench):
+    """(a) K3 and K7 against their plain versions at the code2 snapshot's
+    shapes (the train split's first batch of 16: W=1024 rows; the test
+    split's: W=512) and at the 512-graph bench shape; times at the train
+    batch's shape and at the bench shape."""
+    from graphtrans_tpu_torch import predict
+    from graphtrans_tpu_torch.data.loader import iterate_batches
+    from graphtrans_tpu_torch.ops.kernels import (flash_hil_seg,
+                                                  flash_hil_seg_plain, spmm,
+                                                  spmm_plain)
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    args = _code2_args()
+    splits, num_tasks, _ = predict.load_splits(args)
+    serve = [next(iterate_batches(splits[s], **predict.serving_layout(
+        splits, args, num_tasks, split=s))) for s in ("train", "test")]
+    k3_err = k7_err = 0.0
+    for b in serve + [bench]:
+        qkv, seg = k3_inputs(b, d_model, gen, device)
+        k3_err = max(k3_err, check_k3(qkv, seg, nhead))
+        for message in ("relu_add", "add"):
+            a = k7_inputs(b, d_gnn, gen, device)
+            k7_err = max(k7_err, check_k7(a + (message,)))
+    print(f"[7a] K3 and K7 agree with their plain versions at the code2 "
+          f"snapshot (W={serve[0].pack_w}, {serve[1].pack_w}) and 512-graph "
+          f"shapes: K3 max |diff| {k3_err:.3g} (<= {K3_TOL}), padding "
+          f"queries exactly 0; K7 max |diff| / max(1, max|ref|) "
+          f"{k7_err:.3g} (<= {K7_TOL})")
+
+    for name, b in (("serve16", serve[0]), (f"bench{CODE2_BENCH}", bench)):
+        qkv, seg = k3_inputs(b, d_model, gen, device)
+        R, W, d3 = qkv.shape
+        k3 = dict(ms=time_ms(lambda: flash_hil_seg(qkv, seg, nhead),
+                             iters=20),
+                  plain_ms=time_ms(
+                      lambda: flash_hil_seg_plain(qkv, seg, nhead), iters=5),
+                  library_ms=sdpa_ms(qkv, seg, nhead))
+        k3["bound_ms"], k3["bound_by"] = k3_bound(qkv, seg, nhead)
+        a = k7_inputs(b, d_gnn, gen, device)
+        k7 = dict(ms=time_ms(lambda: spmm(*a), iters=20),
+                  plain_ms=time_ms(lambda: spmm_plain(*a), iters=5),
+                  library_ms=None)
+        k7["bound_ms"], k7["bound_by"] = k7_bound(a)
+        k3["shape"] = f"R={R} W={W} d={d3 // 3} H={nhead}"
+        k7["shape"] = (f"N={a[0].shape[0]} E={a[2].shape[0]} valid="
+                       f"{int(a[4].sum().item())} d={d_gnn}")
+        for kname, t, lib in (
+                ("K3 flash_hil_seg", k3, f"{k3['library_ms']:.4f} ms (SDPA, "
+                 "bool seg mask)"),
+                ("K7 spmm", k7, "- (no single PyTorch call computes the "
+                 "gather, relu message, weight and scatter-sum)")):
+            print(f"[7a] {name} {kname} [{t['shape']}]: kernel "
+                  f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library {lib}")
+    return dict(k3_err=k3_err, k7_err=k7_err, timed=(k3, k7))
+
+
+def phase7_serve(device, tmp: str):
+    """(b) The code2 snapshot's valid and test splits through the serving
+    entry point, launches per batch, and the logits through the kernels
+    against the plain versions on the card (all three splits)."""
+    from graphtrans_tpu_torch import predict
+    from graphtrans_tpu_torch.data.loader import iterate_batches
+    from graphtrans_tpu_torch.ops import kernels
+    from graphtrans_tpu_torch.ops.kernels.attention_packed import W_MAX
+
+    args = _code2_args()
+    splits, num_tasks, code = predict.load_splits(args)
+    kernels.reset_launches()                 # the main path starts here
+    want = collections.Counter()
+    results = {}
+    t0 = time.perf_counter()
+    for split in ("valid", "test"):
+        out = os.path.join(tmp, f"code2_{split}.jsonl")
+        res = predict.main(["--configs", CODE2_CONFIG, "--data_root",
+                            SNAPSHOT, "--split", split, "--batch_size",
+                            str(CODE2_BATCH), "--seed", str(SEED), "--out",
+                            out])
+        recs = [json.loads(line) for line in open(out)]
+        if (len(recs) != len(splits[split])
+                or sorted(r["graph_id"] for r in recs)
+                != list(range(len(splits[split])))):
+            raise AssertionError(f"code2 {split}: {len(recs)} records for "
+                                 f"{len(splits[split])} graphs")
+        if not all(len(r["tokens"]) == code.max_seq_len
+                   and 0 <= min(r["tokens"]) and max(r["tokens"]) < num_tasks
+                   and isinstance(r["seq"], list) for r in recs):
+            raise AssertionError(f"code2 {split}: malformed records")
+        if not 0.0 <= res["F1"] <= 1.0:
+            raise AssertionError(f"code2 {split}: F1 {res['F1']}")
+        layout = predict.serving_layout(splits, args, num_tasks, split=split)
+        widths = [layout[k] for k in ("seq_pack_w", "seq_pack_w2",
+                                      "seq_pack_w3") if layout.get(k)]
+        wide = sum(w > W_MAX for w in widths)
+        n = res["batches"]
+        want.update(spmm=GCN_LAYERS_PER_FORWARD * n,
+                    flash_hil_seg=ENCODER_LAYERS_PER_FORWARD * wide * n,
+                    attention_seg=ENCODER_LAYERS_PER_FORWARD
+                    * (len(widths) - wide) * n)
+        results[split] = (res, widths)
+    secs = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    want = dict(want, gin_agg=0, gin_agg_bwd=0, attention_seg_bwd=0)
+    if launches != want or not (launches["flash_hil_seg"] > 0
+                                and launches["spmm"] > 0):
+        raise AssertionError(f"code2 launches {launches}, expected {want}")
+    batches = sum(r["batches"] for r, _ in results.values())
+    for split, (res, widths) in results.items():
+        print(f"[7b] served the code2 {split} split ({res['records']} graphs, "
+              f"{res['batches']} batches of <= {CODE2_BATCH}, tiers {widths}):"
+              f" F1 {res['F1']:.6f} (precision {res['precision']:.6f}, "
+              f"recall {res['recall']:.6f}), random weights")
+    print(f"[7b] launches {launches} over {batches} batches ({secs:.2f} s "
+          f"with model builds): per batch K7 {launches['spmm'] / batches:g}, "
+          f"K3 {launches['flash_hil_seg'] / batches:g}, K2 "
+          f"{launches['attention_seg'] / batches:g}")
+
+    model = predict.build_model(args, num_tasks, device, code)
+    err, n_wide = 0.0, 0
+    with torch.inference_mode():
+        for split in ("train", "valid", "test"):
+            layout = predict.serving_layout(splits, args, num_tasks,
+                                            split=split)
+            for b in iterate_batches(splits[split], **layout):
+                tb = b.to(device)
+                gm = tb.graph_mask
+                got = model(tb)[gm]
+                kernels.set_kernels(model, False)
+                plain = model(tb)[gm]
+                kernels.set_kernels(model, True)
+                if not torch.isfinite(got).all():
+                    raise AssertionError("code2 logits not finite")
+                err = max(err, (got - plain).abs().max().item())
+                n_wide += b.pack_w > W_MAX
+    if err > LOGITS_TOL:
+        raise AssertionError(f"code2 logits through the kernels differ from "
+                             f"the plain versions by {err} > {LOGITS_TOL}")
+    print(f"[7b] code2 logits through the kernels match the plain versions "
+          f"on the card over all three splits ({n_wide} batches with a "
+          f"widest tier past {W_MAX}): max |diff| {err:.3g} (<= "
+          f"{LOGITS_TOL})")
+    return launches
+
+
+def phase7_forward(device, bench, num_tasks: int, smi: str):
+    """(c) The forward of the 512-graph code2 batch at the published
+    width: median of 10 after 3 warm-ups, then a torch.profiler split; and
+    one snapshot batch of 16 from collation to tokens on the host."""
+    import types
+
+    from graphtrans_tpu_torch import predict
+    from graphtrans_tpu_torch.data.loader import iterate_batches
+    from graphtrans_tpu_torch.models.gnn_transformer import (
+        build_gnn_transformer)
+    from graphtrans_tpu_torch.nn.init import init_weights
+
+    args = _code2_args()
+    splits, snap_tasks, code = predict.load_splits(args)
+    layout = predict.serving_layout(splits, args, snap_tasks, split="test")
+    graphs = splits["test"][:CODE2_BATCH]
+    snap = predict.build_model(args, snap_tasks, device, code)
+    with torch.inference_mode():
+        small = next(iterate_batches(graphs, **layout))
+        _median_ms(lambda: snap(small.to(device)).argmax(-1).cpu(), 3)
+        coll = _median_ms(lambda: next(iterate_batches(graphs, **layout)),
+                          10)[0]
+        req = _median_ms(lambda: snap(small.to(device)).argmax(-1).cpu(), 20)
+    print(f"[7c] one code2 snapshot batch ({int(small.graph_mask.sum())} "
+          f"test graphs of the first {CODE2_BATCH}): collate {coll:.3f} ms "
+          f"(host), copy in + forward + tokens out median {req[0]:.3f} ms "
+          f"over 20 (min {req[1]:.3f}, max {req[2]:.3f}) on {smi}")
+
+    sizes = types.SimpleNamespace(num_nodetypes=20, num_nodeattributes=100,
+                                  max_seq_len=5)       # make_code_dataset's
+    model = build_gnn_transformer(args, num_tasks, device, code=sizes)
+    init_weights(model, torch.Generator().manual_seed(SEED)).eval()
+    tb = bench.to(device)
+    n = int(bench.graph_mask.sum())
+    with torch.inference_mode():
+        _median_ms(lambda: model(tb), 3)                    # warm-up
+        ms, lo, hi, out = _median_ms(lambda: model(tb), 10)
+        if not torch.isfinite(out[tb.graph_mask]).all():
+            raise AssertionError("code2 bench batch: logits not finite")
+    tiers = [(getattr(bench, f"{t}_rows"), getattr(bench, f"{t}_w"))
+             for t in ("pack", "pack2", "pack3")]
+    print(f"[7c] code2 forward of {n} graphs ({int(bench.node_mask.sum())} "
+          f"nodes, {int(bench.edge_mask.sum())} edges; packed rows x width "
+          f"{tiers}): median {ms:.3f} ms over 10 (min {lo:.3f}, max "
+          f"{hi:.3f}), {n / ms * 1e3:.0f} graphs/s on {smi}")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.inference_mode():
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(PROFILED_FORWARDS):
+                model(tb)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / PROFILED_FORWARDS
+    _print_split("[7c]", "code2 forward", prof, PROFILED_FORWARDS, wall, smi,
+                 graphs=n)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--trace", default=None,
@@ -739,7 +1049,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
-    from graphtrans_tpu_torch.data.synthetic import mol_bench_batch
+    from graphtrans_tpu_torch.data.synthetic import (code2_bench_batch,
+                                                     mol_bench_batch)
     from graphtrans_tpu_torch.ops.kernels import _build
 
     device = torch.device("cuda", 0)
@@ -772,8 +1083,19 @@ def main(argv=None) -> int:
         train_launches = phase6_train(device, tmp)
     phase6_step4096(device, big, smi)
 
+    t0 = time.perf_counter()
+    bench, bench_tasks = code2_bench_batch(CODE2_BENCH, SEED)
+    print(f"[7] collated the {CODE2_BENCH}-graph code2 batch in "
+          f"{time.perf_counter() - t0:.1f} s")
+    code2 = phase7_kernels(device, args.gnn_emb_dim, args.d_model,
+                           args.nhead, bench)
+    with tempfile.TemporaryDirectory() as tmp:
+        code2_launches = phase7_serve(device, tmp)
+    phase7_forward(device, bench, bench_tasks, smi)
+
     k1, k2 = timing["timed"]
     k1b, k2b = train["timed"]
+    k3, k7 = code2["timed"]
     rows = [
         dict(name="gin_agg_fwd", route="cuda",
              source="graphtrans_tpu_torch/csrc/gin_agg.cu",
@@ -796,6 +1118,17 @@ def main(argv=None) -> int:
              replaces="graphtrans_tpu/ops/pallas/attention_packed.py:393",
              launches=train_launches["attention_seg_bwd"],
              max_abs_err=train["k2_err"], **k2b),
+        dict(name="flash_hil_fwd", route="cuda",
+             source="graphtrans_tpu_torch/csrc/flash_hil.cu",
+             replaces="graphtrans_tpu/ops/pallas/flash_hil.py:319",
+             launches=code2_launches["flash_hil_seg"],
+             max_abs_err=code2["k3_err"], **k3),
+        dict(name="spmm_fwd", route="cuda",
+             source="graphtrans_tpu_torch/csrc/spmm.cu",
+             replaces="graphtrans_tpu/ops/pallas/spmm.py:104",
+             launches=code2_launches["spmm"],
+             # relative to max(1, max |reference|), as check_k7 holds it
+             max_abs_err=code2["k7_err"], **k7),
     ]
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,12 +1,13 @@
 """Padded graph batch container and host-side collation (numpy).
 
-Copy of ``graphtrans_tpu/data/batch.py`` restricted to what the serving path
-uses: the flat node/edge/graph fields, the strided ("dense") layout
-(``node_stride`` + per-graph edge tables) and one tier of variable-length
-sequence packing for the transformer stage. Graph slot ``G-1`` is reserved
-as a padding graph; in the strided layout graph ``g`` owns flat node rows
-``[g*stride, g*stride + n)``, so ``[N, d]`` node tensors view as
-``[G, stride, d]``.
+Copy of ``graphtrans_tpu/data/batch.py`` restricted to what the ported paths
+use: the flat node/edge/graph fields (edges dst-sorted, padding edges at the
+tail pointing at node N-1), the strided ("dense") layout (``node_stride`` +
+per-graph edge tables), code2's ``node_depth`` and sequence targets
+``y_arr``, and up to three tiers of variable-length sequence packing for the
+transformer stage. Graph slot ``G-1`` is reserved as a padding graph; in the
+strided layout graph ``g`` owns flat node rows ``[g*stride, g*stride + n)``,
+so ``[N, d]`` node tensors view as ``[G, stride, d]``.
 """
 
 from __future__ import annotations
@@ -17,22 +18,25 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ..ops.pack import build_pack_fields
+from ..ops.pack import build_pack_fields_tiers
 
-# collate options of the JAX package that later slices bring over
+# collate options of the JAX package that later slices bring over. The
+# scatter-free (sfa) and blocked-CSR (bsp) plans are the TPU's formulations
+# of the flat aggregation; the port's flat route is K7 over dst-sorted edges.
+_TPU_PLANS = ("the slice that ports K8 (blocked_gather_message_scatter); "
+              "the port's flat aggregation is K7 and needs no plan")
 _LATER = {
     "with_dense_adj": "slice 5 (masked transformer encoder)",
-    "bsp_chunks_cap": "slice 3 (flat-layout aggregation, code2)",
-    "scatter_free": "slice 3 (flat-layout aggregation, code2)",
-    "sfa_eb": "slice 3 (flat-layout aggregation, code2)",
-    "sfa_explicit": "slice 3 (flat-layout aggregation, code2)",
-    "ell_explicit": "slice 4 (PNA)",
-    "seq_pack_w2": "slice 3 (multi-tier packing, code2)",
-    "seq_pack_rows2": "slice 3 (multi-tier packing, code2)",
-    "seq_pack_w3": "slice 3 (multi-tier packing, code2)",
-    "seq_pack_rows3": "slice 3 (multi-tier packing, code2)",
-    "max_seq_len": "slice 3 (code2 sequence targets)",
+    "bsp_chunks_cap": _TPU_PLANS,
+    "scatter_free": _TPU_PLANS,
+    "sfa_eb": _TPU_PLANS,
+    "sfa_explicit": _TPU_PLANS,
+    "ell_explicit": "slice 5 (PNA)",
 }
+
+
+class PackOverflow(ValueError):
+    """The packing needs more rows than a pinned row cap allows."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +45,7 @@ class GraphBatch:
     ``collate`` and torch tensors after ``.to(device)``.
 
     Shapes: N node slots, E edge slots, G graph slots, Em edge slots per
-    graph in the strided layout, R*W packed transformer slots."""
+    graph in the strided layout, R*W packed transformer slots per tier."""
 
     node_feat: Any        # [N, F] raw features (int for molecules)
     node_graph: Any       # [N] int32 graph id per node (padding -> G-1)
@@ -55,7 +59,7 @@ class GraphBatch:
     graph_mask: Any       # [G] bool
     num_nodes: Any        # [G] int32
     y: Any                # [G, T] float32 or [G] int32
-    y_arr: Any            # [G, 0] int32
+    y_arr: Any            # [G, L] int32 code2 target tokens, or [G, 0]
     graph_ids: Any        # [G] int32 index into the source split (-1 = pad)
     edge_src_dense: Any = None   # [G, Em] int32 graph-local src (pad 0)
     edge_dst_dense: Any = None   # [G, Em] int32 graph-local dst (pad 0)
@@ -63,12 +67,22 @@ class GraphBatch:
     edge_attr_dense: Any = None  # [G, Em, Fe]
     pack_node: Any = None        # [R*W] int32 slot -> flat node row (N = none)
     pack_seg: Any = None         # [R*W] int32 graph id per slot (-1 = pad)
-    pack_cls_slot: Any = None    # [G] int32 CLS readout slot per graph
+    pack_cls_slot: Any = None    # [G] int32 CLS slot in the tiers' concat
     pack_inv: Any = None         # [N] int32 node -> slot (R*W = absent)
+    pack2_node: Any = None       # second tier [R2*W2], narrower rows
+    pack2_seg: Any = None
+    pack2_inv: Any = None
+    pack3_node: Any = None       # third tier [R3*W3]
+    pack3_seg: Any = None
+    pack3_inv: Any = None
     max_nodes_dense: int = 0
     node_stride: int = 0
     pack_w: int = 0
     pack_rows: int = 0
+    pack2_w: int = 0
+    pack2_rows: int = 0
+    pack3_w: int = 0
+    pack3_rows: int = 0
 
     @property
     def num_graph_slots(self) -> int:
@@ -120,27 +134,38 @@ def collate(
     num_edges_cap: int,
     max_input_len: int = 1000,
     num_tasks: int = 1,
+    max_seq_len: Optional[int] = None,
     y_dtype: str = "int32",
     dense_cap: Optional[int] = None,
     node_stride: int = 0,
     dense_edge_cap: int = 0,
     seq_pack_w: int = 0,
     seq_pack_rows: int = 0,
+    seq_pack_w2: int = 0,
+    seq_pack_rows2: int = 0,
+    seq_pack_w3: int = 0,
+    seq_pack_rows3: int = 0,
     **later,
 ) -> GraphBatch:
     """Assemble host graph dicts (``x [n,F]``, ``edge_index [2,e]``,
-    optional ``edge_attr [e,Fe]`` and ``y``) into one padded GraphBatch.
+    optional ``edge_attr [e,Fe]``, ``y``, ``y_arr [L]``, ``node_depth [n]``)
+    into one padded GraphBatch.
 
     Mirrors the reference semantics: graphs longer than ``max_input_len``
     keep their LAST nodes in the transformer packing, and flat edges are
-    sorted by destination. ``seq_pack_w > 0`` adds one tier of packed
-    transformer rows (``ops/pack.py``)."""
+    sorted by destination. ``seq_pack_w > 0`` adds packed transformer rows
+    (``ops/pack.py``); ``seq_pack_w2`` (< ``seq_pack_w``) and then
+    ``seq_pack_w3`` (< ``seq_pack_w2``) add narrower tiers, and
+    ``seq_pack_rows*`` pin each tier's row count (``PackOverflow`` when a
+    batch needs more). ``max_seq_len`` adds ``y_arr [G, max_seq_len]``."""
     for name, value in later.items():
         if name not in _LATER:
             raise TypeError(f"collate() got an unexpected argument {name!r}")
         if value:
             raise NotImplementedError(
                 f"collate option {name!r} arrives with {_LATER[name]}")
+    widths, caps = _tiers(seq_pack_w, seq_pack_rows, seq_pack_w2,
+                          seq_pack_rows2, seq_pack_w3, seq_pack_rows3)
     G, N, E = num_graphs_cap, num_nodes_cap, num_edges_cap
     if len(graphs) > G:
         raise ValueError(f"batch of {len(graphs)} graphs exceeds cap {G}")
@@ -178,7 +203,7 @@ def collate(
     graph_mask = np.zeros((G,), dtype=bool)
     num_nodes = np.zeros((G,), dtype=np.int32)
     graph_ids = np.full((G,), -1, dtype=np.int32)
-    y_arr = np.zeros((G, 0), dtype=np.int32)
+    y_arr = np.zeros((G, max_seq_len or 0), dtype=np.int32)
     if y_dtype == "int32":
         y = np.zeros((G,), dtype=np.int32)
     else:
@@ -250,6 +275,9 @@ def collate(
             else:
                 arr = np.asarray(gy, dtype=np.float32).reshape(-1)
                 y[i, :arr.shape[0]] = arr
+        if max_seq_len is not None and "y_arr" in g:
+            y_arr[i] = np.asarray(g["y_arr"],
+                                  dtype=np.int32).reshape(-1)[:max_seq_len]
         node_off += n
         edge_off += e
 
@@ -262,14 +290,12 @@ def collate(
     edge_mask = edge_mask[full_order]
 
     pack = {}
-    if seq_pack_w > 0:
-        pack = build_pack_fields(num_nodes, graph_mask, node_offsets, N,
-                                 seq_pack_w, min(max_input_len,
-                                                 seq_pack_w - 1),
-                                 seq_pack_rows)
+    if widths:
+        pack = build_pack_fields_tiers(num_nodes, graph_mask, node_offsets,
+                                       N, widths, max_input_len, caps)
         if pack is None:
-            raise ValueError(f"packing overflows the pinned row cap "
-                             f"{seq_pack_rows}")
+            raise PackOverflow(f"packing into tiers {widths} overflows the "
+                               f"pinned row caps {caps}")
 
     return GraphBatch(
         node_feat=node_feat, node_graph=node_graph, node_pos=node_pos,
@@ -278,3 +304,19 @@ def collate(
         graph_mask=graph_mask, num_nodes=num_nodes, y=y, y_arr=y_arr,
         graph_ids=graph_ids, **(dense or {}), **pack, max_nodes_dense=S,
         node_stride=node_stride)
+
+
+def _tiers(w, rows, w2, rows2, w3, rows3):
+    """(widths, row caps) of the packing tiers asked for. A narrower tier
+    needs every wider one before it; the JAX package would silently drop
+    it instead."""
+    if w <= 0:
+        if w2 > 0 or w3 > 0:
+            raise ValueError("seq_pack_w2/w3 need seq_pack_w")
+        return (), ()
+    if w3 > 0 and not 0 < w2:
+        raise ValueError(f"seq_pack_w3 {w3} needs seq_pack_w2")
+    widths = tuple(v for v in (w, w2, w3) if v > 0)
+    if any(a <= b for a, b in zip(widths, widths[1:])):
+        raise ValueError(f"packing tiers {widths} must narrow strictly")
+    return widths, (rows, rows2, rows3)[:len(widths)]

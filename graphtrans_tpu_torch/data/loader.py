@@ -1,8 +1,9 @@
-"""Host-side batching: fixed capacities, the shuffled training order and
-an iterator that cuts a split into batches in a given order (copied in part
-from ``graphtrans_tpu/data/loader.py``). The JAX package pins one batch
-shape per epoch for its jit; the port runs eagerly and does not.
-"""
+"""Host-side batching: fixed capacities, the packing tiers and their row
+caps, the shuffled training order and an iterator that cuts a split into
+batches in a given order (copied in part from
+``graphtrans_tpu/data/loader.py``). A batch whose packing overflows the
+pinned row caps is split in two and retried, as ``GraphLoader`` does for a
+single consumer."""
 
 from __future__ import annotations
 
@@ -10,7 +11,8 @@ from typing import Iterator, Sequence
 
 import numpy as np
 
-from .batch import GraphBatch, bucket_size, collate
+from ..ops.pack import plan_seq_pack
+from .batch import GraphBatch, PackOverflow, bucket_size, collate
 
 
 def dataset_caps(graphs: Sequence[dict], batch_size: int,
@@ -32,6 +34,44 @@ def dataset_caps(graphs: Sequence[dict], batch_size: int,
 
     return (bucket_size(max(bound(nodes), 1), node_multiple),
             bucket_size(max(bound(edges), 1), edge_multiple))
+
+
+def pack_widths(max_n: int, max_input_len: int) -> tuple:
+    """The packing tiers of a split whose largest graph has ``max_n``
+    nodes (``GraphLoader``): the widest fits the largest kept graph and its
+    CLS token, bucketed to 128; a widest tier past 384 brings a 384 tier and
+    a 128 tier for the small graphs (attention costs sum_rows W_r^2)."""
+    w = bucket_size(min(max_n, max_input_len) + 1, 128)
+    w2 = 384 if w > 384 else 0
+    w3 = 128 if w2 > 0 else 0
+    return tuple(v for v in (w, w2, w3) if v)
+
+
+def sample_pack_rows(graphs: Sequence[dict], batch_size: int, node_cap: int,
+                     edge_cap: int, widths, max_input_len: int, seed: int = 0,
+                     samples: int = 4, plans_per: int = 16) -> tuple:
+    """Row caps per tier (``GraphLoader._sample_pack_rows``): the real
+    packer over the first ``plans_per`` batch plans of ``samples`` shuffled
+    epochs, the most rows each tier needed, +10 % and rounded up to 4. A
+    rarer batch that needs more is split by ``iterate_batches``."""
+    n = np.array([g["x"].shape[0] for g in graphs], np.int64)
+    e = np.array([g["edge_index"].shape[1] for g in graphs], np.int64)
+    keep = (n <= node_cap) & (e <= edge_cap)
+    max_keep = min(widths[0] - 1, max_input_len)
+    need = [1] * len(widths)
+    for s in range(samples):
+        order = np.arange(len(graphs))
+        np.random.default_rng(seed + 104729 * (s + 1)).shuffle(order)
+        order = order[keep[order]]
+        for plan in plan_chunks(n, e, order, batch_size, node_cap,
+                                edge_cap)[:plans_per]:
+            tokens = np.minimum(n[plan], max_keep) + 1
+            tier = np.zeros(len(tokens), np.int32)
+            for t, Wt in enumerate(widths[1:], start=1):
+                tier = np.where(tokens <= Wt, t, tier)
+            for t, Wt in enumerate(widths):
+                need[t] = max(need[t], plan_seq_pack(tokens[tier == t], Wt)[0])
+    return tuple(-(-int(x * 1.1 + 1) // 4) * 4 for x in need)
 
 
 def shuffled_order(num_graphs: int, seed: int, epoch: int) -> np.ndarray:
@@ -84,6 +124,19 @@ def iterate_batches(graphs: Sequence[dict], batch_size: int, node_cap: int,
                          f"the batch caps")
     if order is None:
         order = np.arange(len(graphs))
+    collate_chunk = lambda chunk: collate(chunk, batch_size + 1, node_cap,
+                                          edge_cap, **collate_kw)
     for plan in plan_chunks(n, e, order, batch_size, node_cap, edge_cap):
-        chunk = [dict(graphs[t], _id=int(t)) for t in plan]
-        yield collate(chunk, batch_size + 1, node_cap, edge_cap, **collate_kw)
+        yield from _split_on_overflow(
+            [dict(graphs[t], _id=int(t)) for t in plan], collate_chunk, 0)
+
+
+def _split_on_overflow(chunk, collate_chunk, depth: int) -> list:
+    try:
+        return [collate_chunk(chunk)]
+    except PackOverflow:
+        if len(chunk) < 2 or depth >= 4:
+            raise
+    mid = len(chunk) // 2
+    return (_split_on_overflow(chunk[:mid], collate_chunk, depth + 1)
+            + _split_on_overflow(chunk[mid:], collate_chunk, depth + 1))

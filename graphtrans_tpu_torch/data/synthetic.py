@@ -1,4 +1,4 @@
-"""Synthetic molecule data (numpy; copied from
+"""Synthetic molecules and code2-like ASTs (numpy; copied from
 ``graphtrans_tpu/data/synthetic.py`` so both packages draw identical graphs
 from one seed)."""
 
@@ -8,7 +8,8 @@ import numpy as np
 
 from ..nn.encoders import ATOM_FEATURE_DIMS, BOND_FEATURE_DIMS
 from .batch import bucket_size, collate
-from .loader import dataset_caps
+from .loader import dataset_caps, pack_widths
+from .vocab import augment_edge, encode_seq_to_arr, get_vocab_mapping
 
 
 def _random_connected_graph(rng, n, extra_edges):
@@ -53,6 +54,52 @@ def make_mol_dataset(num_graphs=200, num_tasks=8, min_nodes=8, max_nodes=35,
     return graphs
 
 
+def code2_size_sampler(rng, mean=125.0, sigma=1.0, lo=9, hi=2000):
+    """Heavy-tailed AST size: lognormal with mean ~125 nodes, p99 ~650 and
+    a tail past max_input_len=1000, clipped to [lo, hi]."""
+    mu = np.log(mean) - 0.5 * sigma * sigma
+    n = int(np.exp(rng.normal(mu, sigma)))
+    return int(np.clip(n, lo, hi))
+
+
+def make_code_dataset(num_graphs=200, vocab_size=40, seq_len_max=8,
+                      num_nodetypes=20, num_nodeattributes=100,
+                      min_nodes=10, max_nodes=60, seed=0,
+                      size_dist="uniform"):
+    """code2-like ASTs: random trees in DFS order with (type, attr) node
+    features, node depth, node_is_attributed flags and a target token
+    sequence drawn from the node types. ``size_dist='code2'`` draws sizes
+    from ``code2_size_sampler`` instead of uniformly in
+    [min_nodes, max_nodes]."""
+    rng = np.random.default_rng(seed)
+    words = [f"tok{i}" for i in range(vocab_size)]
+    graphs = []
+    for _ in range(num_graphs):
+        if size_dist == "code2":
+            n = code2_size_sampler(rng)
+        else:
+            n = int(rng.integers(min_nodes, max_nodes + 1))
+        # random tree in DFS order: parent of v in [max(0, v-5), v-1]
+        depth = np.zeros(n, np.int64)
+        src, dst = [], []
+        for v in range(1, n):
+            p = int(rng.integers(max(0, v - 5), v))
+            depth[v] = depth[p] + 1
+            src.append(p)
+            dst.append(v)
+        ei = np.array([src, dst], dtype=np.int64)
+        types = rng.integers(0, num_nodetypes, size=n)
+        attrs = rng.integers(0, num_nodeattributes, size=n)
+        is_attributed = (rng.random(n) < 0.4).astype(np.int64)
+        x = np.stack([types, attrs], axis=1).astype(np.int32)
+        L = int(rng.integers(1, seq_len_max))
+        seq = [words[int(types[i % n]) % vocab_size] for i in range(L)]
+        graphs.append({"x": x, "edge_index": ei, "edge_attr": None,
+                       "node_depth": depth,
+                       "node_is_attributed": is_attributed, "y_seq": seq})
+    return graphs
+
+
 def mol_bench_batch(num_graphs: int = 4096, seed: int = 0):
     """One molpcba-shaped serving batch (``bench.py:build``'s shape):
     ``num_graphs`` graphs of 20-32 nodes with 128 tasks, in the strided
@@ -66,3 +113,26 @@ def mol_bench_batch(num_graphs: int = 4096, seed: int = 0):
                    edge_cap, num_tasks=128, y_dtype="float32",
                    node_stride=stride, dense_edge_cap=em,
                    seq_pack_w=bucket_size(stride + 1, 128))
+
+
+def code2_bench_batch(num_graphs: int = 512, seed: int = 0,
+                      max_input_len: int = 1000):
+    """One code2-shaped serving batch (``bench.py:build_code2``'s shape):
+    ``num_graphs`` ASTs of the heavy-tailed code2 size distribution, edges
+    augmented, five target positions, in the flat layout with the packing
+    tiers of its largest graph (1024, 384, 128 at 512 graphs). Returns
+    (batch, vocabulary size)."""
+    raw = make_code_dataset(num_graphs=num_graphs, vocab_size=5000,
+                            seq_len_max=6, min_nodes=50, max_nodes=250,
+                            seed=seed, size_dist="code2")
+    vocab2idx, _ = get_vocab_mapping([g["y_seq"] for g in raw], 5000)
+    graphs = [dict(augment_edge(g),
+                   y_arr=encode_seq_to_arr(g["y_seq"], vocab2idx, 5))
+              for g in raw]
+    node_cap, edge_cap = dataset_caps(graphs, num_graphs)
+    widths = pack_widths(max(g["x"].shape[0] for g in graphs), max_input_len)
+    tiers = {f"seq_pack_w{t + 1 if t else ''}": w
+             for t, w in enumerate(widths)}
+    return collate(graphs, num_graphs + 1, node_cap, edge_cap,
+                   max_input_len=max_input_len, num_tasks=len(vocab2idx),
+                   max_seq_len=5, y_dtype="int32", **tiers), len(vocab2idx)

@@ -1,17 +1,23 @@
-"""GraphTrans: GIN stack -> linear bridge -> transformer over packed rows ->
+"""GraphTrans: GNN stack -> linear bridge -> transformer over packed rows ->
 CLS readout -> linear head (counterpart of
-``graphtrans_tpu/models/gnn_transformer.py``, seq-packed route). Training
-mode is ``nn.Module.train()``: batch-statistics BatchNorm and dropout, whose
-random draws come from the ``Generators`` passed to ``forward``."""
+``graphtrans_tpu/models/gnn_transformer.py``, seq-packed route): GIN on the
+strided layout with 128 task logits (molpcba), or GCN on the flat layout
+with up to three packing tiers and five per-position vocabulary heads
+(code2). Training mode is ``nn.Module.train()``: batch-statistics BatchNorm
+and dropout, whose random draws come from the ``Generators`` passed to
+``forward``."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
+from ..nn.encoders import ASTNodeEncoder
 from ..nn.gnn import GNNNodeEmbedding
 from ..nn.transformer import TransformerNodeEncoder
-from ..ops.pack import pack_gather
+from ..ops.pack import TIER_NAMES, pack_gather
 from .heads import PredictionHead
 
 
@@ -25,56 +31,77 @@ def use_seq_pack(batch, graph_pooling: str, num_encoder_layers: int) -> bool:
 def packed_transformer_stage(encoder: TransformerNodeEncoder,
                              h_node: torch.Tensor, batch,
                              gen=None) -> torch.Tensor:
-    """Gather node rows into packed ``[R, W, d]`` rows (a zero row for CLS
-    and pad slots; the backward gathers through ``pack_inv``), run the
-    segment-masked encoder, and read each graph's own CLS slot:
-    [N, d] -> [G, d]."""
+    """Per packing tier: gather node rows into packed ``[R, W, d]`` rows (a
+    zero row for CLS and pad slots; the backward gathers through the tier's
+    inverse map) and run the segment-masked encoder; the shared encoder
+    runs once per tier. Each graph's CLS slot is read from the concat of
+    the tiers, widest first: [N, d] -> [G, d]."""
     N, d = h_node.shape
-    R, W = batch.pack_rows, batch.pack_w
     src = torch.cat([h_node, h_node.new_zeros(1, d)])
-    dense = pack_gather(src, batch.pack_node, batch.pack_inv).reshape(R, W, d)
-    seg = batch.pack_seg.reshape(R, W)
-    cls_mask = (seg >= 0) & (batch.pack_node.reshape(R, W) == N)
-    out = encoder(dense, seg, cls_mask, gen).reshape(R * W, d)
-    return out.index_select(0, batch.pack_cls_slot.long())
+    flats = []
+    for name in TIER_NAMES:
+        node = getattr(batch, f"{name}_node")
+        if node is None:
+            break
+        R, W = getattr(batch, f"{name}_rows"), getattr(batch, f"{name}_w")
+        dense = pack_gather(src, node, getattr(batch, f"{name}_inv"))
+        seg = getattr(batch, f"{name}_seg").reshape(R, W)
+        cls_mask = (seg >= 0) & (node.reshape(R, W) == N)
+        out = encoder(dense.reshape(R, W, d), seg, cls_mask, gen)
+        flats.append(out.reshape(R * W, d))
+    flat = flats[0] if len(flats) == 1 else torch.cat(flats)
+    return flat.index_select(0, batch.pack_cls_slot.long())
 
 
 class GNNTransformer(nn.Module):
+    """``gnn_type`` "gin" (molecules) or "gcn" (with ``node_encoder`` an
+    ``ASTNodeEncoder`` for code2); ``max_seq_len`` set gives per-position
+    heads and ``[G, max_seq_len, num_tasks]`` logits."""
+
     def __init__(self, num_tasks: int, gnn_num_layer: int, gnn_emb_dim: int,
                  gnn_virtual_node: bool, d_model: int, nhead: int,
                  dim_feedforward: int, num_encoder_layers: int,
                  transformer_norm_input: bool, gnn_dropout: float = 0.0,
-                 transformer_dropout: float = 0.0, device=None):
+                 transformer_dropout: float = 0.0, device=None,
+                 gnn_type: str = "gin",
+                 node_encoder: Optional[nn.Module] = None,
+                 max_seq_len: Optional[int] = None):
         super().__init__()
         self.gnn_node = GNNNodeEmbedding(gnn_num_layer, gnn_emb_dim,
                                          virtual_node=gnn_virtual_node,
-                                         drop_ratio=gnn_dropout, device=device)
+                                         drop_ratio=gnn_dropout,
+                                         gnn_type=gnn_type,
+                                         node_encoder=node_encoder,
+                                         device=device)
         self.gnn2transformer = nn.Linear(2 * gnn_emb_dim, d_model,
                                          device=device)
         self.transformer_encoder = TransformerNodeEncoder(
             d_model, nhead, dim_feedforward, num_encoder_layers,
             norm_input=transformer_norm_input, dropout=transformer_dropout,
             device=device)
-        self.head = PredictionHead(d_model, num_tasks, device=device)
+        self.head = PredictionHead(d_model, num_tasks, max_seq_len,
+                                   device=device)
         self.num_encoder_layers = num_encoder_layers
 
     def forward(self, batch, gen=None) -> torch.Tensor:
-        """Logits [G, num_tasks] for a strided, seq-packed batch on the
-        model's device (padding graph slots give unread rows). ``gen``
-        (``nn.dropout.Generators``) feeds dropout in training mode."""
+        """Logits for a seq-packed batch on the model's device (padding
+        graph slots give unread rows). ``gen`` (``nn.dropout.Generators``)
+        feeds dropout in training mode."""
         if not use_seq_pack(batch, "cls", self.num_encoder_layers):
             raise NotImplementedError(
                 "only seq-packed batches are ported; the dense transformer "
-                "route arrives with slice 3")
+                "route (K4, K5) is still to port")
         h_node = self.gnn2transformer(self.gnn_node(batch, gen))
         h_graph = packed_transformer_stage(self.transformer_encoder, h_node,
                                            batch, gen)
         return self.head(h_graph)
 
 
+# (dataset kind, gnn_type) compositions the port runs: the published
+# molpcba and code2 GraphTrans configs
+_PORTED = {("mol", "gin"), ("code2", "gcn")}
 _SUPPORTED = {
     "model_type": ("gnn-transformer",),
-    "gnn_type": ("gin",),
     "gnn_JK": ("cat",),
     "graph_pooling": ("cls",),
     "transformer_activation": ("relu",),
@@ -85,15 +112,36 @@ _SUPPORTED = {
 }
 
 
-def build_gnn_transformer(args, num_tasks: int, device=None) -> GNNTransformer:
-    """The model of a parsed config (``utils/config.py``); a composition
-    outside the ported slices raises NotImplementedError."""
+def dataset_kind(dataset: str) -> str:
+    if dataset.startswith("ogbg-mol"):
+        return "mol"
+    if dataset == "ogbg-code2":
+        return "code2"
+    raise NotImplementedError(f"dataset {dataset}: the port runs the "
+                              "ogbg-mol* datasets and ogbg-code2")
+
+
+def build_gnn_transformer(args, num_tasks: int, device=None,
+                          code=None) -> GNNTransformer:
+    """The model of a parsed config (``utils/config.py``); ``code`` (a
+    ``data.code.CodeData``) sizes code2's node encoder and heads. A
+    composition outside the ported slices raises NotImplementedError."""
     for key, ok in _SUPPORTED.items():
         value = getattr(args, key, ok[0])
         if value not in ok:
             raise NotImplementedError(
-                f"{key}={value!r} is not ported yet (slices 1-2 run "
-                f"{key}={ok[0]!r})")
+                f"{key}={value!r} is not ported yet (the port runs "
+                f"{key} in {ok})")
+    kind = dataset_kind(getattr(args, "dataset", "ogbg-molpcba"))
+    if (kind, args.gnn_type) not in _PORTED:
+        raise NotImplementedError(
+            f"gnn_type={args.gnn_type!r} on {kind} is not ported yet (the "
+            f"port runs {sorted(_PORTED)})")
+    node_encoder = max_seq_len = None
+    if kind == "code2":
+        node_encoder = ASTNodeEncoder(args.gnn_emb_dim, code.num_nodetypes,
+                                      code.num_nodeattributes, device=device)
+        max_seq_len = code.max_seq_len
     return GNNTransformer(
         num_tasks=num_tasks, gnn_num_layer=args.gnn_num_layer,
         gnn_emb_dim=args.gnn_emb_dim,
@@ -103,4 +151,5 @@ def build_gnn_transformer(args, num_tasks: int, device=None) -> GNNTransformer:
         transformer_norm_input=args.transformer_norm_input,
         gnn_dropout=getattr(args, "gnn_dropout", 0.0),
         transformer_dropout=getattr(args, "transformer_dropout", 0.0),
-        device=device)
+        device=device, gnn_type=args.gnn_type, node_encoder=node_encoder,
+        max_seq_len=max_seq_len)

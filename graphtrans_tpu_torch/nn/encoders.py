@@ -1,5 +1,6 @@
-"""OGB molecule encoders: one embedding table per categorical feature column,
-summed (counterparts of ``graphtrans_tpu/nn/encoders.py``)."""
+"""Node and edge encoders (counterparts of ``graphtrans_tpu/nn/encoders.py``):
+OGB's molecule encoders (one embedding table per categorical feature
+column, summed), and code2's AST node encoder and linear edge encoder."""
 
 from __future__ import annotations
 
@@ -7,6 +8,8 @@ from typing import Sequence
 
 import torch
 from torch import nn
+
+from .init import normal_
 
 # OGB molecule categorical feature cardinalities
 # (ogb.utils.features.get_atom_feature_dims / get_bond_feature_dims)
@@ -48,3 +51,40 @@ class BondEncoder(nn.Module):
         ``num_features`` feature columns."""
         dims = self.feature_dims[:num_features]
         return torch.cat([self.embs[i].weight for i in range(len(dims))]), dims
+
+
+class ASTNodeEncoder(nn.Module):
+    """type_emb(x[:, 0]) + attr_emb(x[:, 1]) + depth_emb(min(depth, 20)),
+    tables drawn from N(0, 1)."""
+
+    takes_depth = True
+    MAX_DEPTH = 20
+
+    def __init__(self, emb_dim: int, num_nodetypes: int,
+                 num_nodeattributes: int, device=None):
+        super().__init__()
+        self.type_emb = nn.Embedding(num_nodetypes, emb_dim, device=device)
+        self.attr_emb = nn.Embedding(num_nodeattributes, emb_dim,
+                                     device=device)
+        self.depth_emb = nn.Embedding(self.MAX_DEPTH + 1, emb_dim,
+                                      device=device)
+
+    def init_from(self, gen):
+        for m in (self.type_emb, self.attr_emb, self.depth_emb):
+            normal_(m.weight, 1.0, gen)
+
+    def forward(self, x: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+        x = x.long()
+        return (self.type_emb(x[..., 0]) + self.attr_emb(x[..., 1])
+                + self.depth_emb(depth.long().clamp(0, self.MAX_DEPTH)))
+
+
+class LinearEdgeEncoder(nn.Module):
+    """code2's augmented edge attributes [E, 2] -> [E, emb_dim]."""
+
+    def __init__(self, emb_dim: int, device=None):
+        super().__init__()
+        self.lin = nn.Linear(2, emb_dim, device=device)
+
+    def forward(self, e: torch.Tensor) -> torch.Tensor:
+        return self.lin(e.to(self.lin.weight.dtype))

@@ -1,5 +1,6 @@
-"""GIN node-embedding stack with an optional virtual node (counterpart of
-``graphtrans_tpu/nn/gnn.py``), JK=cat.
+"""GNN node-embedding stack with an optional virtual node (counterpart of
+``graphtrans_tpu/nn/gnn.py``), JK=cat: GIN on the strided layout
+(molpcba) or GCN on the flat layout (code2).
 
 Before each layer the virtual node's per-graph embedding is added to its
 graph's nodes, and that sum overwrites ``h_list[layer]`` (the reference
@@ -12,13 +13,16 @@ on each virtual-node MLP output; BatchNorm uses batch statistics."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
-from ..ops.dense_mp import graph_broadcast, graph_sum
-from .conv import GINConv
+from ..ops import dense_mp
+from ..ops.segment import segment_sum
+from .conv import GCNConv, GINConv
 from .dropout import ByteDropout
-from .encoders import AtomEncoder
+from .encoders import AtomEncoder, LinearEdgeEncoder
 from .norm import MaskedBatchNorm
 
 
@@ -38,18 +42,49 @@ class VirtualNodeMLP(nn.Module):
         return torch.relu(self.bn2(self.lin2(v), graph_mask))
 
 
+def graph_broadcast(v: torch.Tensor, batch) -> torch.Tensor:
+    """Per-graph rows [G, d] on their graphs' valid nodes [N, d]."""
+    if batch.node_stride > 0:
+        return dense_mp.graph_broadcast(v, batch)
+    rows = v.index_select(0, batch.node_graph.long())
+    return rows.masked_fill(~batch.node_mask[:, None], 0.0)
+
+
+def graph_sum(h: torch.Tensor, batch) -> torch.Tensor:
+    """Per-graph sum of valid node rows: [N, d] -> [G, d]."""
+    if batch.node_stride > 0:
+        return dense_mp.graph_sum(h, batch)
+    return segment_sum(h, batch.node_graph, batch.num_graph_slots,
+                       batch.node_mask)
+
+
 class GNNNodeEmbedding(nn.Module):
+    """``gnn_type`` "gin" (bond tables, strided layout) or "gcn" (one
+    ``LinearEdgeEncoder`` per layer, flat layout); ``node_encoder`` defaults
+    to the molecule ``AtomEncoder``, and one with ``takes_depth`` (code2's
+    ``ASTNodeEncoder``) also reads ``node_depth``."""
+
     def __init__(self, num_layer: int, emb_dim: int,
                  virtual_node: bool = True, drop_ratio: float = 0.0,
-                 device=None):
+                 gnn_type: str = "gin",
+                 node_encoder: Optional[nn.Module] = None, device=None):
         super().__init__()
         if num_layer < 2:
             raise ValueError("Number of GNN layers must be greater than 1.")
         self.num_layer = num_layer
         self.emb_dim = emb_dim
-        self.atom_encoder = AtomEncoder(emb_dim, device=device)
-        self.convs = nn.ModuleList(GINConv(emb_dim, device=device)
-                                   for _ in range(num_layer))
+        # named as in slice 1 for every node encoder (state-dict keys)
+        self.atom_encoder = (node_encoder if node_encoder is not None
+                             else AtomEncoder(emb_dim, device=device))
+        if gnn_type == "gin":
+            make = lambda: GINConv(emb_dim, device=device)
+        elif gnn_type == "gcn":
+            make = lambda: GCNConv(
+                emb_dim, LinearEdgeEncoder(emb_dim, device=device),
+                device=device)
+        else:
+            raise ValueError(f"Undefined GNN type called {gnn_type}")
+        self.convs = nn.ModuleList(make() for _ in range(num_layer))
         self.batch_norms = nn.ModuleList(MaskedBatchNorm(emb_dim, device=device)
                                          for _ in range(num_layer))
         self.virtual_node = virtual_node
@@ -64,12 +99,17 @@ class GNNNodeEmbedding(nn.Module):
         if self.virtual_node:
             nn.init.zeros_(self.virtualnode_embedding)
 
+    def _encode(self, batch) -> torch.Tensor:
+        if getattr(self.atom_encoder, "takes_depth", False):
+            return self.atom_encoder(batch.node_feat, batch.node_depth)
+        return self.atom_encoder(batch.node_feat)
+
     def forward(self, batch, gen=None) -> torch.Tensor:
-        """[N, F] atom features -> [N, 2*emb_dim] (JK=cat of the encoder
+        """[N, F] node features -> [N, 2*emb_dim] (JK=cat of the encoder
         output, with the first virtual-node add, and the last layer).
         ``gen`` (``nn.dropout.Generators``) feeds dropout in training."""
         mask = batch.node_mask[:, None]
-        h_list = [self.atom_encoder(batch.node_feat).masked_fill(~mask, 0.0)]
+        h_list = [self._encode(batch).masked_fill(~mask, 0.0)]
         if self.virtual_node:
             vn = self.virtualnode_embedding.expand(batch.num_graph_slots, -1)
         for layer in range(self.num_layer):

@@ -20,7 +20,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("gin_agg", "attention_packed")
+KERNELS = ("gin_agg", "attention_packed", "flash_hil", "spmm")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -50,7 +50,7 @@ import torch
 
 from . import _build
 
-W_MAX = 384          # wider packed rows need flash_hil (K3), a later slice
+W_MAX = 384          # wider packed rows take flash_hil_seg (K3)
 HEAD_DIM = 32        # the head width csrc/attention_packed.cu compiles
 _M32 = 0xFFFFFFFF
 

@@ -80,6 +80,59 @@ def build_pack_fields(num_nodes: np.ndarray, graph_mask: np.ndarray,
     }
 
 
+TIER_NAMES = ("pack", "pack2", "pack3")   # GraphBatch field groups
+
+
+def build_pack_fields_tiers(num_nodes: np.ndarray, graph_mask: np.ndarray,
+                            node_offsets: np.ndarray, N: int, widths,
+                            max_keep: int, rows_caps):
+    """Multi-tier packing: ``widths`` is a strictly decreasing tuple of up
+    to three row widths (e.g. (1024, 384, 128)); each graph packs into the
+    narrowest tier its tokens (kept nodes + CLS) fit, each tier as
+    ``build_pack_fields`` packs it with row cap ``rows_caps[t]``. Returns
+    the fields of the ``TIER_NAMES`` groups; ``pack_cls_slot`` indexes the
+    virtual concat of the tiers, widest first. Returns None if any pinned
+    row cap overflows. Equal adjacent widths are rejected (the JAX package
+    accepts them and then packs nothing into the second tier)."""
+    widths = tuple(int(w) for w in widths)
+    if not 1 <= len(widths) <= len(TIER_NAMES) or any(
+            a <= b for a, b in zip(widths, widths[1:])) or widths[-1] <= 0:
+        raise ValueError(f"tier widths {widths}: need 1-3 strictly "
+                         "decreasing positive widths")
+    if len(rows_caps) != len(widths):
+        raise ValueError(f"{len(rows_caps)} row caps for {len(widths)} tiers")
+    n = np.asarray(num_nodes, np.int64)
+    valid = np.asarray(graph_mask, bool)
+    n_keep = np.minimum(n, min(max_keep, widths[0] - 1))
+    tokens = n_keep + 1
+    tier = np.zeros(len(n), np.int32)     # the narrowest width that fits
+    for t, Wt in enumerate(widths[1:], start=1):
+        tier = np.where(tokens <= Wt, t, tier)
+
+    fs, offs, off = [], [], 0
+    for t, Wt in enumerate(widths):
+        ft = build_pack_fields(num_nodes, valid & (tier == t), node_offsets,
+                               N, Wt, min(max_keep, Wt - 1), rows_caps[t])
+        if ft is None:
+            return None
+        fs.append(ft)
+        offs.append(off)
+        off += ft["pack_rows"] * ft["pack_w"]
+    cls_slot = fs[0]["pack_cls_slot"].astype(np.int64)
+    for t in range(1, len(widths)):
+        cls_slot = np.where(tier == t, fs[t]["pack_cls_slot"] + offs[t],
+                            cls_slot)
+    base = offs[1] - 1 if len(widths) > 1 else fs[0]["pack_cls_slot"]
+    out = {"pack_cls_slot": np.where(valid, cls_slot, base).astype(np.int32)}
+    for name, ft in zip(TIER_NAMES, fs):
+        out.update({f"{name}_node": ft["pack_node"],
+                    f"{name}_seg": ft["pack_seg"],
+                    f"{name}_inv": ft["pack_inv"],
+                    f"{name}_w": ft["pack_w"],
+                    f"{name}_rows": ft["pack_rows"]})
+    return out
+
+
 class _PackGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, src, pack_node, pack_inv):

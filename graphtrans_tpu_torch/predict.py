@@ -1,8 +1,11 @@
-"""Batch inference: predictions for one split of a molecule dataset as JSONL,
-one ``{"graph_id", "logits"}`` record per graph (the counterpart of the
-root ``predict.py``).
+"""Batch inference: predictions for one split as JSONL (the counterpart of
+the root ``predict.py``). Molecule datasets give one
+``{"graph_id", "logits"}`` record per graph; ogbg-code2 gives
+``{"graph_id", "tokens", "seq"}`` (the argmax token of each of the
+``max_seq_len`` positions, and the decoded subtokens up to the first
+end-of-sequence) and prints the split's F1.
 
-usage: python -m graphtrans_tpu_torch.predict --configs <molpcba yml> \
+usage: python -m graphtrans_tpu_torch.predict --configs <molpcba or code2 yml> \
            --data_root data_snapshots --split test --batch_size 64 \
            --out preds.jsonl [--weights w.pt] [--seed 0] [--device cuda|cpu]
 
@@ -23,11 +26,14 @@ import torch
 
 from . import resolve_device
 from .data.batch import bucket_size
-from .data.loader import dataset_caps, iterate_batches
+from .data.code import load_code_splits
+from .data.evaluators import eval_f1_seq
+from .data.loader import (dataset_caps, iterate_batches, pack_widths,
+                          sample_pack_rows)
 from .data.mol import load_mol_splits
-from .models.gnn_transformer import GNNTransformer, build_gnn_transformer
+from .models.gnn_transformer import (GNNTransformer, build_gnn_transformer,
+                                     dataset_kind)
 from .nn.init import init_weights
-from .ops.kernels.attention_packed import W_MAX
 from .utils.config import parse_with_config
 
 
@@ -55,6 +61,10 @@ def add_model_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--eval_batch_size", type=int, default=None)
     p.add_argument("--synthetic_num_graphs", type=int, default=400)
     p.add_argument("--synthetic_seed", type=int, default=0)
+    p.add_argument("--num_vocab", type=int, default=5000,
+                   help="ogbg-code2: target vocabulary size")
+    p.add_argument("--max_seq_len", type=int, default=None,
+                   help="ogbg-code2: target positions (default 5)")
     g = p.add_argument_group("model")
     g.add_argument("--model_type", default="gnn")
     g.add_argument("--graph_pooling", default="mean")
@@ -77,38 +87,75 @@ def add_model_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     return p
 
 
+def load_splits(args):
+    """(splits, num_tasks, code): the dataset's three splits (the snapshot
+    under ``--data_root`` or the synthetic fallback); for ogbg-code2
+    ``code`` is the ``data.code.CodeData`` (vocabulary and node-encoder
+    sizes), else None."""
+    if dataset_kind(args.dataset) == "mol":
+        splits, num_tasks = load_mol_splits(args.data_root, args.dataset,
+                                            args.synthetic_num_graphs,
+                                            args.synthetic_seed)
+        return splits, num_tasks, None
+    code = load_code_splits(args.data_root, args.dataset, args.num_vocab,
+                            args.max_seq_len or 5, args.synthetic_num_graphs,
+                            args.synthetic_seed)
+    return code.splits, code.num_tasks, code
+
+
 def serving_layout(splits: dict, args, num_tasks: int,
-                   batch_size: Optional[int] = None) -> dict:
-    """Batch layout of ``main.py:resolve_dense_layout``/``make_loaders`` for
-    molecules: the strided layout (stride and per-graph edge slots bucketed
-    from the largest graph of any split) and one tier of packed transformer
-    rows of width ``bucket_size(stride + 1, 128)``, for batches of
-    ``batch_size`` graphs (default: the evaluation batch size). Returns the
-    keyword arguments of ``iterate_batches``."""
+                   batch_size: Optional[int] = None,
+                   split: Optional[str] = None) -> dict:
+    """Batch layout of ``main.py:make_loaders`` for batches of
+    ``batch_size`` graphs (default: the evaluation batch size) of
+    ``split`` (default ``--split``). Returns the keyword arguments of
+    ``iterate_batches``.
+
+    Molecules take the strided layout (stride and per-graph edge slots
+    bucketed from the largest graph of any split) and one tier of packed
+    rows of width ``bucket_size(stride + 1, 128)``. ogbg-code2 takes the
+    flat layout (node and edge caps from every split) with the packing
+    tiers of the split's largest graph (``loader.pack_widths``) and row
+    caps sampled from the real packer (``loader.sample_pack_rows``)."""
     graphs = sum(splits.values(), [])
     eval_bs = batch_size or args.eval_batch_size or args.batch_size
-    _, edge_cap = dataset_caps(graphs, max(
+    node_cap, edge_cap = dataset_caps(graphs, max(
         args.batch_size, args.eval_batch_size or args.batch_size))
+    if dataset_kind(args.dataset) == "code2":
+        mine = splits[split or args.split]
+        max_n = max(int(g["x"].shape[0]) for g in mine)
+        widths = pack_widths(max_n, args.max_input_len)
+        rows = sample_pack_rows(mine, eval_bs, node_cap, edge_cap, widths,
+                                args.max_input_len)
+        tiers = {}
+        for t, (w, r) in enumerate(zip(widths, rows)):
+            suffix = str(t + 1) if t else ""
+            tiers[f"seq_pack_w{suffix}"] = w
+            tiers[f"seq_pack_rows{suffix}"] = r
+        return dict(batch_size=eval_bs, node_cap=node_cap, edge_cap=edge_cap,
+                    num_tasks=num_tasks, y_dtype="int32",
+                    max_seq_len=args.max_seq_len or 5,
+                    max_input_len=args.max_input_len,
+                    dense_cap=min(bucket_size(max_n, 16), args.max_input_len),
+                    **tiers)
     max_n = max(int(g["x"].shape[0]) for g in graphs)
     max_e = max(int(g["edge_index"].shape[1]) for g in graphs)
     stride = bucket_size(max_n, 16)
     if max_n > 128 or stride > args.max_input_len:
         raise NotImplementedError(
-            f"graphs of {max_n} nodes take the flat layout, which arrives "
-            "with slice 3 (code2)")
+            f"molecules of {max_n} nodes would take the flat layout, where "
+            "GIN is not ported (the port's flat layout serves GCN, code2)")
     pack_w = bucket_size(min(max_n, args.max_input_len) + 1, 128)
-    if pack_w > W_MAX:
-        raise NotImplementedError("multi-tier packing arrives with slice 3")
     return dict(batch_size=eval_bs, node_cap=(eval_bs + 1) * stride,
                 edge_cap=edge_cap, num_tasks=num_tasks, y_dtype="float32",
                 max_input_len=args.max_input_len, node_stride=stride,
                 dense_edge_cap=bucket_size(max_e, 8), seq_pack_w=pack_w)
 
 
-def build_model(args, num_tasks: int, device) -> GNNTransformer:
+def build_model(args, num_tasks: int, device, code=None) -> GNNTransformer:
     """The config's model in eval mode, with ``--weights`` or random
     weights drawn from ``--seed``."""
-    model = build_gnn_transformer(args, num_tasks, device=device)
+    model = build_gnn_transformer(args, num_tasks, device=device, code=code)
     if args.weights:
         model.load_state_dict(torch.load(args.weights, map_location=device,
                                          weights_only=True))
@@ -118,35 +165,51 @@ def build_model(args, num_tasks: int, device) -> GNNTransformer:
 
 
 def predict_split(model: GNNTransformer, graphs, layout: dict, out: str,
-                  device) -> dict:
-    """Write one JSON record per graph of ``graphs`` to ``out``."""
+                  device, code=None) -> dict:
+    """Write one JSON record per graph of ``graphs`` to ``out``; with
+    ``code`` (ogbg-code2) the records hold tokens and subtokens, and the
+    result the split's precision, recall and F1."""
     n_rec = n_batch = 0
+    refs, preds = [], []
     with open(out, "w") as f, torch.inference_mode():
         for batch in iterate_batches(graphs, **layout):
-            logits = model(batch.to(device)).float().cpu().numpy()
+            logits = model(batch.to(device)).float()
+            if code is not None:
+                tokens = logits.argmax(-1).cpu().numpy()        # [G, L]
+            else:
+                logits = logits.cpu().numpy()
             for i in np.nonzero(batch.graph_mask)[0]:
-                f.write(json.dumps({
-                    "graph_id": int(batch.graph_ids[i]),
-                    "logits": [float(v) for v in logits[i]]}) + "\n")
+                gid = int(batch.graph_ids[i])
+                rec = {"graph_id": gid}
+                if code is not None:
+                    rec["tokens"] = [int(t) for t in tokens[i]]
+                    rec["seq"] = code.arr_to_seq(tokens[i])
+                    refs.append(graphs[gid]["y_seq"])
+                    preds.append(rec["seq"])
+                else:
+                    rec["logits"] = [float(v) for v in logits[i]]
+                f.write(json.dumps(rec) + "\n")
                 n_rec += 1
             n_batch += 1
-    return {"records": n_rec, "batches": n_batch, "out": out}
+    result = {"records": n_rec, "batches": n_batch, "out": out}
+    if code is not None:
+        result.update(eval_f1_seq(refs, preds))
+    return result
 
 
 def main(argv: Optional[list] = None) -> dict:
     args = parse_with_config(build_parser(), argv)
     device = resolve_device(args.device)
-    if not args.dataset.startswith("ogbg-mol"):
-        raise NotImplementedError(f"dataset {args.dataset}: slice 1 serves "
-                                  "the ogbg-mol* datasets")
-    splits, num_tasks = load_mol_splits(args.data_root, args.dataset,
-                                        args.synthetic_num_graphs,
-                                        args.synthetic_seed)
+    splits, num_tasks, code = load_splits(args)
     layout = serving_layout(splits, args, num_tasks)
-    model = build_model(args, num_tasks, device)
-    result = predict_split(model, splits[args.split], layout, args.out, device)
+    model = build_model(args, num_tasks, device, code)
+    result = predict_split(model, splits[args.split], layout, args.out,
+                           device, code)
     print(f"wrote {result['records']} predictions ({result['batches']} "
           f"batches) to {args.out}")
+    if code is not None:
+        print(f"{args.split} F1 {result['F1']:.6f} (precision "
+              f"{result['precision']:.6f}, recall {result['recall']:.6f})")
     return result
 
 

@@ -2,7 +2,10 @@
 
 ``load_flax_variables(model, params, batch_stats)`` takes the flax
 ``params`` and ``batch_stats`` trees as nested dicts of numpy arrays (keys
-are flax paths) and fills the port's ``GNNTransformer``. Dense kernels are
+are flax paths) and fills the port's ``GNNTransformer``: the molpcba tree
+(atom encoder, GIN convs with bond tables, ``head/head``) or the code2 tree
+(``node_encoder/{type,attr,depth}_emb``, GCN convs with a linear edge
+encoder and ``root_emb``, ``head/head_0..L-1``). Dense kernels are
 stored ``[in, out]`` by flax and ``[out, in]`` by ``nn.Linear``, so they are
 transposed; ``in_proj`` is ``[d, 3d]`` with q|k|v in that order, as in
 ``nn.Linear(d, 3d)``. Every flax leaf must be consumed and every parameter
@@ -13,6 +16,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..nn.conv import GCNConv
+from ..nn.encoders import ASTNodeEncoder
 
 
 def _flatten(tree, prefix=()):
@@ -42,17 +48,29 @@ def _plan(model) -> dict:
             leaf(f"{port}.running_var", path + ("var",), "batch_stats")
 
     g = model.gnn_node
-    for i in range(len(g.atom_encoder.embs)):
-        leaf(f"gnn_node.atom_encoder.embs.{i}.weight", ("node_encoder", f"emb_{i}"))
+    enc = g.atom_encoder
+    if isinstance(enc, ASTNodeEncoder):
+        for name in ("type_emb", "attr_emb", "depth_emb"):
+            leaf(f"gnn_node.atom_encoder.{name}.weight",
+                 ("node_encoder", name))
+    else:
+        for i in range(len(enc.embs)):
+            leaf(f"gnn_node.atom_encoder.embs.{i}.weight",
+                 ("node_encoder", f"emb_{i}"))
     for i, conv in enumerate(g.convs):
         c, fc = f"gnn_node.convs.{i}", ("gnn_node", f"conv_{i}")
-        leaf(f"{c}.eps", fc + ("eps",))
-        for k in range(len(conv.edge_encoder.embs)):
-            leaf(f"{c}.edge_encoder.embs.{k}.weight",
-                 fc + ("edge_encoder", f"emb_{k}"))
-        dense(f"{c}.lin1", fc + ("TDense_0",))
-        norm(f"{c}.mlp_bn", fc + ("mlp_bn",), batch_stats=True)
-        dense(f"{c}.lin2", fc + ("TDense_1",))
+        if isinstance(conv, GCNConv):
+            dense(f"{c}.lin", fc + ("TDense_0",))
+            dense(f"{c}.edge_encoder.lin", fc + ("edge_encoder", "TDense_0"))
+            leaf(f"{c}.root_emb", fc + ("root_emb",))
+        else:
+            leaf(f"{c}.eps", fc + ("eps",))
+            for k in range(len(conv.edge_encoder.embs)):
+                leaf(f"{c}.edge_encoder.embs.{k}.weight",
+                     fc + ("edge_encoder", f"emb_{k}"))
+            dense(f"{c}.lin1", fc + ("TDense_0",))
+            norm(f"{c}.mlp_bn", fc + ("mlp_bn",), batch_stats=True)
+            dense(f"{c}.lin2", fc + ("TDense_1",))
         norm(f"gnn_node.batch_norms.{i}", ("gnn_node", f"bn_{i}"),
              batch_stats=True)
     if g.virtual_node:
@@ -81,7 +99,11 @@ def _plan(model) -> dict:
         dense(f"{p}.linear2", fp + ("TDense_1",))
         norm(f"{p}.norm1", fp + ("LayerNorm_0",))
         norm(f"{p}.norm2", fp + ("LayerNorm_1",))
-    dense("head.head", ("head", "head"))
+    if model.head.max_seq_len is None:
+        dense("head.head", ("head", "head"))
+    else:
+        for i in range(model.head.max_seq_len):
+            dense(f"head.heads.{i}", ("head", f"head_{i}"))
     return P
 
 

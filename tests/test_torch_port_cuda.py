@@ -236,3 +236,143 @@ def test_train_step_kernels_match_plain(cuda):
         assert (gk[name] - gp[name]).abs().max().item() <= GRAD_TOL * scale, name
         # Adam: a rounding-level gradient may move by up to 2 lr
         assert (pk[name] - pp[name]).abs().max().item() <= 2e-4 + 1e-6, name
+
+
+# ---- code2 serving: K3 (flash_hil_seg) and K7 (spmm) ----------------------
+
+K3_TOL = 2e-5
+
+
+def _k3_case(W, d, cuda):
+    """Two packed rows of width W: segments of many sizes (single tokens
+    too) and a padding tail; one all-padding row."""
+    gen = torch.Generator().manual_seed(W + d)
+    seg = torch.full((3, W), -1, dtype=torch.int32)
+    s = g = 0
+    for n in [W // 2 + 5, 1, 60, 1, 130, 7, W // 8]:
+        if s + n > W - 3:
+            break
+        seg[0, s:s + n] = g
+        s, g = s + n, g + 1
+    seg[1, :W - 40] = torch.arange(W - 40) // 97 + g
+    return torch.randn(3, W, 3 * d, generator=gen).to(cuda), seg.to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [512, 1024])
+@pytest.mark.parametrize("d", [128, 64])
+def test_flash_hil_kernel_matches_plain(cuda, W, d):
+    from graphtrans_tpu_torch.ops.kernels import (flash_hil_seg,
+                                                  flash_hil_seg_plain)
+
+    qkv, seg = _k3_case(W, d, cuda)
+    H = d // 32
+    before = flash_hil_seg.launches
+    got = flash_hil_seg(qkv, seg, H)
+    torch.cuda.synchronize()
+    assert flash_hil_seg.launches == before + 1
+    assert (got - flash_hil_seg_plain(qkv, seg, H)).abs().max().item() <= K3_TOL
+    assert not got[seg < 0].any()
+
+
+def _k7_case(d, cuda, N=3000, E=9000, n_valid=7000):
+    gen = torch.Generator().manual_seed(d)
+    dst = torch.sort(torch.randint(0, N - 500, (n_valid,), generator=gen))[0]
+    src = torch.randint(0, N - 1, (n_valid,), generator=gen)
+    pad = torch.full((E - n_valid,), N - 1)
+    dst, src = torch.cat([dst, pad]), torch.cat([src, pad])
+    mask = torch.arange(E) < n_valid
+    return [t.to(cuda) for t in (
+        torch.randn(N, d, generator=gen), torch.randn(E, d, generator=gen),
+        src.int(), dst.int(), mask, torch.rand(E, generator=gen) + 0.1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [300, 128])
+@pytest.mark.parametrize("message", ["relu_add", "add"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_spmm_kernel_matches_plain(cuda, d, message, weighted):
+    from graphtrans_tpu_torch.ops.kernels import spmm, spmm_plain
+
+    x, emb, src, dst, mask, w = _k7_case(d, cuda)
+    w = w if weighted else None
+    before = spmm.launches
+    got = spmm(x, emb, src, dst, mask, w, message)
+    torch.cuda.synchronize()
+    assert spmm.launches == before + 1
+    want = spmm_plain(x, emb, src, dst, mask, w, message)
+    assert (got - want).abs().max().item() <= 1e-5 * max(
+        1.0, want.abs().max().item())
+    assert not got[x.shape[0] - 500:].any()      # rows with no valid edge
+
+
+def _code2_batch(seed=0):
+    from graphtrans_tpu_torch.data.synthetic import make_code_dataset
+    from graphtrans_tpu_torch.data.vocab import (augment_edge,
+                                                 encode_seq_to_arr,
+                                                 get_vocab_mapping)
+
+    raw = make_code_dataset(num_graphs=14, vocab_size=50, seq_len_max=6,
+                            seed=seed, size_dist="code2")
+    raw[0] = make_code_dataset(num_graphs=1, min_nodes=1100, max_nodes=1100,
+                               seed=seed)[0]
+    v2i, _ = get_vocab_mapping([g["y_seq"] for g in raw], 50)
+    graphs = [dict(augment_edge(g), _id=i,
+                   y_arr=encode_seq_to_arr(g["y_seq"], v2i, 5))
+              for i, g in enumerate(raw)]
+    batch = collate(graphs, 15, 8192, 32768, num_tasks=len(v2i),
+                    max_seq_len=5, seq_pack_w=1024, seq_pack_w2=384,
+                    seq_pack_w3=128)
+    return batch, len(v2i)
+
+
+def _code2_model(num_tasks, cuda):
+    from graphtrans_tpu_torch.models.gnn_transformer import GNNTransformer
+    from graphtrans_tpu_torch.nn.encoders import ASTNodeEncoder
+    from graphtrans_tpu_torch.nn.init import init_weights
+
+    model = GNNTransformer(num_tasks, 3, 300, True, 128, 4, 512, 2, True,
+                           device=cuda, gnn_type="gcn",
+                           node_encoder=ASTNodeEncoder(300, 20, 100,
+                                                       device=cuda),
+                           max_seq_len=5)
+    return init_weights(model, torch.Generator().manual_seed(0)).eval()
+
+
+@pytest.mark.cuda
+def test_code2_model_kernels_match_plain_versions(cuda):
+    from graphtrans_tpu_torch.ops.kernels import flash_hil_seg, spmm
+
+    batch, num_tasks = _code2_batch()
+    assert batch.pack_w == 1024 and batch.pack3_w == 128
+    b = batch.to(cuda)
+    model = _code2_model(num_tasks, cuda)
+    f0, s0 = flash_hil_seg.launches, spmm.launches
+    with torch.inference_mode():
+        got = model(b)[b.graph_mask]
+        assert flash_hil_seg.launches == f0 + 2 and spmm.launches == s0 + 3
+        want = set_kernels(model, False)(b)[b.graph_mask]
+    assert torch.isfinite(got).all() and got.shape[1:] == (5, num_tasks)
+    assert (got - want).abs().max().item() <= LOGITS_TOL
+
+
+@pytest.mark.cuda
+def test_k3_k7_refuse_to_drop_gradients(cuda):
+    """Neither kernel has a backward yet: a CUDA call that would need one
+    raises; under no_grad and inference_mode it runs."""
+    from graphtrans_tpu_torch.ops.kernels import flash_hil_seg, spmm
+
+    qkv, seg = _k3_case(512, 128, cuda)
+    x, emb, src, dst, mask, w = _k7_case(128, cuda)
+    leaf_q, leaf_x = qkv.requires_grad_(), x.requires_grad_()
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        flash_hil_seg(leaf_q, seg, 4)
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        spmm(leaf_x, emb, src, dst, mask, w)
+    with torch.no_grad():
+        flash_hil_seg(leaf_q, seg, 4)
+        spmm(leaf_x, emb, src, dst, mask, w)
+    with torch.inference_mode():
+        flash_hil_seg(leaf_q, seg, 4)
+        spmm(leaf_x, emb, src, dst, mask, w)
+    torch.cuda.synchronize()

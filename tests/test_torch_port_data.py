@@ -121,8 +121,13 @@ def test_collate_matches_jax(layout):
 
 def test_collate_rejects_later_options():
     graphs = ts.make_mol_dataset(num_graphs=2, num_tasks=1, seed=0)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tb.collate(graphs, 3, 128, 256, seq_pack_w=128, seq_pack_w2=64)
+    with pytest.raises(NotImplementedError, match="K8"):
+        tb.collate(graphs, 3, 128, 256, scatter_free=True)
+    # tiers that do not narrow, or a third tier without a second: the JAX
+    # package drops them silently, the port refuses them
+    for bad in (dict(seq_pack_w2=128), dict(seq_pack_w3=64)):
+        with pytest.raises(ValueError, match="seq_pack|narrow"):
+            tb.collate(graphs, 3, 128, 256, seq_pack_w=128, **bad)
     with pytest.raises(TypeError):
         tb.collate(graphs, 3, 128, 256, no_such_option=1)
 
