@@ -36,7 +36,17 @@ Phases, each printing one line (any failure raises and exits non-zero):
      (batches of 16), counting K2, K3 and K7 launches, checking records and
      F1, and holds the logits through the kernels against the plain
      versions on the card; (c) times and profiles the forward of one
-     512-graph code2-shaped batch.
+     512-graph code2-shaped batch;
+  8. code2 training: (a) holds K3 with dropout and the backward kernels
+     K3-bwd and K7-bwd against their plain versions and autograd at the
+     snapshot's train-batch shape and the 512-graph shape, and times them
+     beside bound, plain backward and library yardstick; (b) trains the
+     published code2 config at full width on the snapshot through ``python
+     -m graphtrans_tpu_torch.main`` (2 epochs, batches of 16), counting
+     launches, checking finite losses and moved parameters, and holds one
+     step through the kernels against the plain versions on the card; (c)
+     times the train step on the 512-graph batch, with peak memory and a
+     torch.profiler split by layer.
 Then a {"kernels": [...]} line, the nvidia-smi line, and the contract line
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without
 a CUDA card.
@@ -46,6 +56,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import math
 import os
@@ -54,6 +65,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import torch
 
@@ -85,6 +97,10 @@ K7_TOL = 1e-5      # times max(1, max |reference|)
 GCN_LAYERS_PER_FORWARD = 5
 # kernel-name fragments -> the layer that launches them (phase 5)
 LAYERS = (
+    ("flash_hil_dq", "K3-bwd flash_hil_seg_bwd"),
+    ("flash_hil_dkv", "K3-bwd flash_hil_seg_bwd"),
+    ("spmm_bwd", "K7-bwd spmm_bwd"),
+    ("radixsort", "sort (index backward, K7-bwd's src order)"),
     ("flash_hil_fwd", "K3 flash_hil_seg"),
     ("spmm_kernel", "K7 spmm (aggregation)"),
     ("gin_agg_fwd", "K1 gin_agg (aggregation)"),
@@ -422,7 +438,9 @@ def _print_split(tag: str, what: str, prof, n: int, wall: float, smi: str,
     kernels = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
                for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+               and e.self_device_time_total > 0
+               # a region such as Optimizer.step spans kernels counted apart
+               and not getattr(e, "is_user_annotation", False)]
     busy = sum(ms for _, ms, _ in kernels)
     if busy <= 0:
         raise AssertionError("the profiler saw no kernel time on the card")
@@ -645,19 +663,20 @@ def _train_args(extra=()):
         *extra])
 
 
-def _trainer(args, num_tasks: int, device, kernels_on: bool = True):
-    """The entry point's model (weights from --seed) and train step."""
+def _trainer(args, num_tasks: int, device, kernels_on: bool = True,
+             code=None):
+    """The entry point's model (weights from --seed) and train step
+    (``code``: the code2 model with the sequence loss)."""
     from graphtrans_tpu_torch import main as train_main
     from graphtrans_tpu_torch.ops.kernels import set_kernels
 
-    model, _, step = train_main.build_run(args, num_tasks, device, 1)
+    model, _, step = train_main.build_run(args, num_tasks, device, 1, code)
     return set_kernels(model, kernels_on), step
 
 
 def phase6_train(device, tmp: str):
     """(b) The training entry at full width on the snapshot, its kernel
     launches, and one step through the kernels against the plain versions."""
-    import contextlib
     import io
 
     from graphtrans_tpu_torch import main as train_main
@@ -681,7 +700,8 @@ def phase6_train(device, tmp: str):
     steps = sum(r["steps"] for r in res["epochs"])
     want = {"gin_agg": 5 * steps, "gin_agg_bwd": 5 * steps,
             "attention_seg": 4 * steps, "attention_seg_bwd": 4 * steps,
-            "flash_hil_seg": 0, "spmm": 0}
+            "flash_hil_seg": 0, "flash_hil_seg_bwd": 0, "spmm": 0,
+            "spmm_bwd": 0}
     if steps == 0 or launches != want:
         raise AssertionError(f"training launches {launches}, expected {want}")
     if not all(math.isfinite(r["loss"]) for r in res["epochs"]):
@@ -940,7 +960,8 @@ def phase7_serve(device, tmp: str):
         results[split] = (res, widths)
     secs = time.perf_counter() - t0
     launches = kernels.launch_counts()
-    want = dict(want, gin_agg=0, gin_agg_bwd=0, attention_seg_bwd=0)
+    want = dict(want, gin_agg=0, gin_agg_bwd=0, attention_seg_bwd=0,
+                flash_hil_seg_bwd=0, spmm_bwd=0)
     if launches != want or not (launches["flash_hil_seg"] > 0
                                 and launches["spmm"] > 0):
         raise AssertionError(f"code2 launches {launches}, expected {want}")
@@ -1040,6 +1061,308 @@ def phase7_forward(device, bench, num_tasks: int, smi: str):
                  graphs=n)
 
 
+# ---- phase 8: code2 training ---------------------------------------------
+
+
+def check_k3_train(qkv, seg, nhead: int, rate: float, seed: int, gen):
+    """K3 forward with dropout ``rate`` (saving its statistics) and K3-bwd
+    against the plain version (the same mask) and its autograd."""
+    from graphtrans_tpu_torch.ops.kernels import (flash_hil_seg_bwd,
+                                                  flash_hil_seg_bwd_plain,
+                                                  flash_hil_seg_plain)
+    from graphtrans_tpu_torch.ops.kernels.flash_hil import (
+        flash_hil_seg_with_stats)
+
+    saved = flash_hil_seg_with_stats(qkv, seg, nhead, rate, seed)
+    out = saved[0]
+    g = torch.randn(out.shape, generator=gen).to(qkv.device)
+    dqkv = flash_hil_seg_bwd(qkv, seg, nhead, g, rate, seed, saved=saved)
+    torch.cuda.synchronize()
+    f_err = (out - flash_hil_seg_plain(qkv, seg, nhead, rate, seed)
+             ).abs().max().item()
+    b_err = _rel_err(dqkv, flash_hil_seg_bwd_plain(qkv, seg, nhead, g, rate,
+                                                   seed))
+    if f_err > K3_TOL or b_err > GRAD_TOL or not torch.isfinite(dqkv).all():
+        raise AssertionError(f"K3 at rate {rate}: forward |diff| {f_err} "
+                             f"(<= {K3_TOL}), backward {b_err} of max(1, "
+                             f"max|ref|) (<= {GRAD_TOL})")
+    if dqkv[seg < 0].any() or out[seg < 0].any():
+        raise AssertionError("K3: padding tokens are not exactly zero")
+    return f_err, b_err
+
+
+def check_k7_bwd(args, gen):
+    """K7-bwd (dx, d_emb) against autograd through the plain version;
+    masked edges' d_emb rows exactly zero."""
+    from graphtrans_tpu_torch.ops.kernels import (SrcOrder, spmm_bwd,
+                                                  spmm_bwd_plain)
+
+    x, emb, src, dst, emask, w, message = args
+    g = torch.randn(x.shape, generator=gen).to(x.device)
+    got = spmm_bwd(x, emb, src, dst, emask, g,
+                   SrcOrder(src, emask, x.shape[0]), w, message)
+    torch.cuda.synchronize()
+    want = spmm_bwd_plain(x, emb, src, dst, emask, g, w, message)
+    err = max(_rel_err(a, b) for a, b in zip(got, want))
+    if err > GRAD_TOL or not all(torch.isfinite(t).all() for t in got):
+        raise AssertionError(f"K7-bwd disagrees with autograd through its "
+                             f"plain version: {err} of max(1, max|ref|) > "
+                             f"{GRAD_TOL}")
+    if got[1][~emask].any():
+        raise AssertionError("K7-bwd: masked edges' d_emb rows are not zero")
+    return err
+
+
+def k7_bwd_bound(args):
+    """x and g read once, as k7_bound reads x once (the kernel gathers g
+    per edge only because it walks the edges by source); per valid edge
+    its emb row and its perm, dst and weight entries; d_emb for every edge
+    slot and dx written once; 4 flops per valid edge and channel (add,
+    compare, scale, sum)."""
+    x, emb, src, dst, emask, w = args[:6]
+    N, d = x.shape
+    E = emask.numel()
+    valid = int(emask.sum().item())
+    nbytes = 3 * N * d * 4 + valid * (d * 4 + 3 * 4) + E * d * 4
+    return _bound(nbytes, 4 * valid * d)
+
+
+def phase8_kernels(device, d_gnn: int, d_model: int, nhead: int, bench):
+    """(a) K3 with dropout, K3-bwd and K7-bwd against their plain versions
+    at the code2 snapshot's train-batch shape and at the 512-graph bench
+    shape; times beside bound, plain backward and library yardstick."""
+    from graphtrans_tpu_torch import predict
+    from graphtrans_tpu_torch.data.loader import iterate_batches
+    from graphtrans_tpu_torch.ops.kernels import (SrcOrder, flash_hil_seg,
+                                                  flash_hil_seg_bwd,
+                                                  flash_hil_seg_plain,
+                                                  spmm_bwd, spmm_plain)
+    from graphtrans_tpu_torch.ops.kernels.flash_hil import (
+        flash_hil_seg_with_stats)
+
+    gen = torch.Generator().manual_seed(SEED + 8)
+    args = _code2_args()
+    splits, num_tasks, _ = predict.load_splits(args)
+    train16 = next(iterate_batches(splits["train"], **predict.serving_layout(
+        splits, args, num_tasks, CODE2_BATCH, split="train", seed=SEED)))
+    k3_ferr = k3_err = k7_err = 0.0
+    for b in (train16, bench):
+        qkv, seg = k3_inputs(b, d_model, gen, device)
+        for rate, seed in ((0.0, 0), (DROPOUT, 2**31 - 9)):
+            f, e = check_k3_train(qkv, seg, nhead, rate, seed, gen)
+            k3_ferr, k3_err = max(k3_ferr, f), max(k3_err, e)
+        for message in ("relu_add", "add"):
+            a = k7_inputs(b, d_gnn, gen, device)
+            k7_err = max(k7_err, check_k7_bwd(a + (message,), gen))
+    print(f"[8a] K3 with dropout {DROPOUT} within {k3_ferr:.3g} of its plain "
+          f"version (<= {K3_TOL}); K3-bwd {k3_err:.3g} and K7-bwd "
+          f"{k7_err:.3g} of max(1, max|ref|) from autograd through the plain "
+          f"versions (<= {GRAD_TOL}); padding tokens and masked edges' "
+          f"d_emb rows exactly 0 (train16 W={train16.pack_w}, bench"
+          f"{CODE2_BENCH})")
+
+    for name, b in (("train16", train16), (f"bench{CODE2_BENCH}", bench)):
+        qkv, seg = k3_inputs(b, d_model, gen, device)
+        R, W, d3 = qkv.shape
+        seed = 7654321
+        g = torch.randn(R, W, d_model, generator=gen).to(device)
+        saved = flash_hil_seg_with_stats(qkv, seg, nhead, DROPOUT, seed)
+        k3b = dict(ms=time_ms(lambda: flash_hil_seg_bwd(
+                       qkv, seg, nhead, g, DROPOUT, seed, saved=saved),
+                       iters=20),
+                   plain_ms=_plain_bwd_ms(
+                       lambda t: flash_hil_seg_plain(t, seg, nhead, DROPOUT,
+                                                     seed), [qkv], g),
+                   library_ms=sdpa_bwd_ms(qkv, seg, nhead, g, DROPOUT))
+        k3b["bound_ms"], k3b["bound_by"] = k2_bwd_bound(qkv, seg, nhead)
+        fwd = {what: time_ms(fn, iters=20) for what, fn in (
+            ("serving", lambda: flash_hil_seg(qkv, seg, nhead)),
+            ("training", lambda: flash_hil_seg_with_stats(
+                qkv, seg, nhead, DROPOUT, seed)))}
+        a = k7_inputs(b, d_gnn, gen, device)
+        g7 = torch.randn(a[0].shape, generator=gen).to(device)
+        N7 = a[0].shape[0]
+        order_ms = time_ms(lambda: SrcOrder(a[2], a[4], N7).get(), iters=20)
+        order = SrcOrder(a[2], a[4], N7)
+        order.get()                      # built once per batch, not timed
+        k7b = dict(ms=time_ms(lambda: spmm_bwd(*a[:5], g7, order, a[5]),
+                              iters=20),
+                   plain_ms=_plain_bwd_ms(
+                       lambda x, e: spmm_plain(x, e, *a[2:]), list(a[:2]),
+                       g7),
+                   library_ms=None)
+        k7b["bound_ms"], k7b["bound_by"] = k7_bwd_bound(a)
+        k3b["shape"] = f"R={R} W={W} d={d3 // 3} H={nhead} rate={DROPOUT}"
+        k7b["shape"] = (f"N={a[0].shape[0]} E={a[2].shape[0]} valid="
+                        f"{int(a[4].sum().item())} d={d_gnn}")
+        for kname, t, lib in (
+                ("K3-bwd flash_hil_seg_bwd", k3b,
+                 f"{k3b['library_ms']:.4f} ms (SDPA backward, bool seg "
+                 f"mask, dropout {DROPOUT})"),
+                ("K7-bwd spmm_bwd", k7b, "- (no single PyTorch call)")):
+            print(f"[8a] {name} {kname} [{t['shape']}]: kernel "
+                  f"{t['ms']:.4f} ms, plain backward {t['plain_ms']:.4f} ms, "
+                  f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), library "
+                  f"{lib}")
+        print(f"[8a] {name} K3 forward: serving {fwd['serving']:.4f} ms, "
+              f"with dropout {DROPOUT} and saved statistics (training) "
+              f"{fwd['training']:.4f} ms; K7-bwd's SrcOrder (sort and "
+              f"searchsorted, once per batch) {order_ms:.4f} ms")
+    return dict(k3_err=k3_err, k7_err=k7_err, timed=(k3b, k7b))
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic algorithms while a kernel route is held against the
+    plain route. The plain route's index_add_ (and index_select's backward)
+    otherwise sum with atomics in no fixed order, and the virtual node's
+    batch-statistics BatchNorm over 16 graph rows (the JAX package's
+    single-pass variance, E[x^2] - E[x]^2) magnifies that rounding to ~1e-3
+    of its MLP's gradients: the plain route against itself differed by
+    5.7e-4 and 1.2e-3 of max(1, max|ref|) on two snapshot batches, and by 0
+    in this mode."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _code2_train_args():
+    from graphtrans_tpu_torch import main as train_main
+    from graphtrans_tpu_torch.utils.config import parse_with_config
+
+    return parse_with_config(train_main.build_parser(), [
+        "--configs", CODE2_CONFIG, "--data_root", SNAPSHOT, "--epochs",
+        str(TRAIN_EPOCHS), "--batch_size", str(CODE2_BATCH), "--seed",
+        str(SEED)])
+
+
+def phase8_train(device, tmp: str):
+    """(b) code2 training through the entry point at full width on the
+    snapshot, its kernel launches, and one step through the kernels
+    against the plain versions."""
+    import io
+
+    from graphtrans_tpu_torch import main as train_main
+    from graphtrans_tpu_torch import predict
+    from graphtrans_tpu_torch.data.loader import iterate_batches, shuffled_order
+    from graphtrans_tpu_torch.ops import kernels
+
+    argv = ["--configs", CODE2_CONFIG, "--data_root", SNAPSHOT, "--epochs",
+            str(TRAIN_EPOCHS), "--batch_size", str(CODE2_BATCH), "--seed",
+            str(SEED), "--save_path", tmp]
+    out = io.StringIO()
+    kernels.reset_launches()                 # the code2 training path
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res = train_main.main(argv)
+    secs = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    for line in out.getvalue().splitlines():
+        print(f"[8b] main: {line}")
+    steps = sum(r["steps"] for r in res["epochs"])
+    # every train batch packs into three tiers (1024, 384, 128): the
+    # encoder's 4 layers run K3 on one and K2 on two; 5 GCN layers run K7
+    want = {"gin_agg": 0, "gin_agg_bwd": 0,
+            "attention_seg": 8 * steps, "attention_seg_bwd": 8 * steps,
+            "flash_hil_seg": 4 * steps, "flash_hil_seg_bwd": 4 * steps,
+            "spmm": 5 * steps, "spmm_bwd": 5 * steps}
+    if steps == 0 or launches != want:
+        raise AssertionError(f"code2 training launches {launches}, "
+                             f"expected {want}")
+    if not all(math.isfinite(r["loss"]) for r in res["epochs"]):
+        raise AssertionError(f"epoch losses not finite: {res['epochs']}")
+    args = _code2_train_args()
+    splits, num_tasks, code = predict.load_splits(args)
+    init, _ = _trainer(args, num_tasks, device, code=code)
+    trained = torch.load(res["saved"], map_location=device, weights_only=True)
+    params = dict(init.named_parameters())
+    still = [n for n, p in params.items() if torch.equal(p, trained[n])]
+    if still:
+        raise AssertionError(f"parameters did not move: {still}")
+    print(f"[8b] trained code2 {TRAIN_EPOCHS} epochs ({steps} steps of <= "
+          f"{CODE2_BATCH} graphs, {secs:.2f} s with the model build) through "
+          f"graphtrans_tpu_torch.main: losses "
+          f"{[round(r['loss'], 6) for r in res['epochs']]}, all "
+          f"{len(params)} parameter tensors moved; launches {launches} = "
+          f"K2 8, K3 4, K7 5 per step, each with its backward")
+
+    layout = predict.serving_layout(splits, args, num_tasks, CODE2_BATCH,
+                                    split="train", seed=SEED)
+    batch = next(iterate_batches(
+        splits["train"], order=shuffled_order(len(splits["train"]), SEED, 0),
+        **layout)).to(device)
+
+    def one_step(kernels_on: bool, fixed_order: bool):
+        with deterministic() if fixed_order else contextlib.nullcontext():
+            model, step = _trainer(args, num_tasks, device,
+                                   kernels_on=kernels_on, code=code)
+            loss = step(batch).item()
+            return loss, {n: p.grad for n, p in model.named_parameters()}
+
+    # the plain route against itself, without and with a fixed order: the
+    # spread the comparison below would otherwise have to absorb
+    spread = [max(_rel_err(a[n], b[n]) for n in a) for a, b in (
+        (one_step(False, False)[1], one_step(False, False)[1]),
+        (one_step(False, True)[1], one_step(False, True)[1]))]
+    print(f"[8b] the plain route against itself: gradients differ by "
+          f"{spread[0]:.3g} of max(1, max|ref|) with index_add_'s atomics, "
+          f"{spread[1]:.3g} under deterministic algorithms")
+    got = [one_step(True, True), one_step(False, True)]
+    (lk, gk), (lp, gp) = got
+    g_err = max(_rel_err(gk[n], gp[n]) for n in gk)
+    g_abs = max((gk[n] - gp[n]).abs().max().item() for n in gk)
+    if abs(lk - lp) > LOGITS_TOL or g_err > GRAD_TOL:
+        raise AssertionError(f"code2 train step through the kernels: loss "
+                             f"|diff| {abs(lk - lp)} (<= {LOGITS_TOL}), "
+                             f"gradients {g_err} (<= {GRAD_TOL})")
+    print(f"[8b] one code2 train step (W={batch.pack_w}/{batch.pack2_w}/"
+          f"{batch.pack3_w}, attention dropout {args.transformer_dropout}, "
+          f"same seeds, deterministic algorithms) through the kernels vs the "
+          f"plain versions on the card: loss {lk:.6f} vs {lp:.6f} (|diff| "
+          f"{abs(lk - lp):.3g} <= {LOGITS_TOL}), gradients max |diff| {g_abs:.3g}, relative to "
+          f"max(1, max|ref|) {g_err:.3g} (<= {GRAD_TOL})")
+    return launches
+
+
+def phase8_step512(device, bench, num_tasks: int, smi: str):
+    """(c) The code2 train step on the 512-graph batch at the published
+    width: median of 10 after 3 warm-ups, peak memory, and the device time
+    by layer."""
+    import types
+
+    args = _code2_train_args()
+    sizes = types.SimpleNamespace(num_nodetypes=20, num_nodeattributes=100,
+                                  max_seq_len=5)       # make_code_dataset's
+    model, step = _trainer(args, num_tasks, device, code=sizes)
+    tb = bench.to(device)
+    n = int(bench.graph_mask.sum())
+    _median_ms(lambda: step(tb), 3)                         # warm-up
+    torch.cuda.reset_peak_memory_stats(device)
+    ms, lo, hi, loss = _median_ms(lambda: step(tb), TIMED_STEPS)
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    if not torch.isfinite(loss):
+        raise AssertionError("code2 512-graph train step: loss not finite")
+    print(f"[8c] code2 train step of {n} graphs (forward, backward, AdamW; "
+          f"attention dropout {args.transformer_dropout}): median {ms:.3f} ms "
+          f"over {TIMED_STEPS} (min {lo:.3f}, max {hi:.3f}), "
+          f"{n / ms * 1e3:.0f} graphs/s, peak memory {peak:.2f} GiB on {smi} "
+          f"(forward alone: phase 7c)")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            step(tb)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+    _print_split("[8c]", "code2 train step", prof, PROFILED_STEPS, wall, smi,
+                 graphs=n)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--trace", default=None,
@@ -1093,9 +1416,16 @@ def main(argv=None) -> int:
         code2_launches = phase7_serve(device, tmp)
     phase7_forward(device, bench, bench_tasks, smi)
 
+    code2_train = phase8_kernels(device, args.gnn_emb_dim, args.d_model,
+                                 args.nhead, bench)
+    with tempfile.TemporaryDirectory() as tmp:
+        code2_train_launches = phase8_train(device, tmp)
+    phase8_step512(device, bench, bench_tasks, smi)
+
     k1, k2 = timing["timed"]
     k1b, k2b = train["timed"]
     k3, k7 = code2["timed"]
+    k3b, k7b = code2_train["timed"]
     rows = [
         dict(name="gin_agg_fwd", route="cuda",
              source="graphtrans_tpu_torch/csrc/gin_agg.cu",
@@ -1129,6 +1459,17 @@ def main(argv=None) -> int:
              launches=code2_launches["spmm"],
              # relative to max(1, max |reference|), as check_k7 holds it
              max_abs_err=code2["k7_err"], **k7),
+        dict(name="flash_hil_bwd", route="cuda",
+             source="graphtrans_tpu_torch/csrc/flash_hil.cu",
+             replaces="graphtrans_tpu/ops/pallas/flash_hil.py:398/419",
+             launches=code2_train_launches["flash_hil_seg_bwd"],
+             # relative to max(1, max |reference|), as check_k3_train holds it
+             max_abs_err=code2_train["k3_err"], **k3b),
+        dict(name="spmm_bwd", route="cuda",
+             source="graphtrans_tpu_torch/csrc/spmm.cu",
+             replaces="none (JAX trains through ops/scatter.py)",
+             launches=code2_train_launches["spmm_bwd"],
+             max_abs_err=code2_train["k7_err"], **k7b),
     ]
     print(json.dumps({"kernels": rows}))
     print(smi)

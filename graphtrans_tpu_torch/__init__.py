@@ -2,10 +2,12 @@
 
 The JAX package ``graphtrans_tpu`` is the reference; this package imports
 nothing of it (nor of JAX) and keeps its own copies of the numpy host code.
-Slice 1 covers the molpcba GraphTrans serving forward: strided-layout GIN
-with a virtual node, a packed-row transformer stage with CLS readout, and
-two hand-written CUDA kernels (``ops/kernels``). Importing the package never
-compiles anything; kernels build on first use with a CUDA tensor.
+It serves and trains the published molpcba GraphTrans (strided-layout GIN
+with a virtual node) and code2 GraphTrans (flat-layout GCN with a virtual
+node, per-position vocabulary heads): a packed-row transformer stage with
+CLS readout, and hand-written CUDA kernels with their backwards
+(``ops/kernels``). Importing the package never compiles anything; kernels
+build on first use with a CUDA tensor.
 """
 
 from __future__ import annotations

@@ -1,27 +1,31 @@
 """Training entry: the single-chip baseline training loop of the root
-``main.py`` for the molecule datasets.
+``main.py`` for the molecule datasets and ogbg-code2.
 
-usage: python -m graphtrans_tpu_torch.main --configs <molpcba yml> \
+usage: python -m graphtrans_tpu_torch.main --configs <molpcba or code2 yml> \
            --data_root data_snapshots --epochs 2 --batch_size 64 --seed 0 \
            [--save_path DIR] [--device cuda|cpu]
 
-It trains on the train split (the molpcba snapshot holds 192 molecules) in
-the strided layout with one tier of packed transformer rows, shuffled each
-epoch as the JAX package's ``GraphLoader`` shuffles, with AdamW and the
-config's dropout, and prints one JSON line per epoch: epoch, steps, mean
-loss, lr, seconds and graphs per second on the device it ran on. With
-``--save_path`` it writes ``last_model.pt``, a state dict that
-``python -m graphtrans_tpu_torch.predict --weights`` serves. It runs on the
-card unless ``--device cpu`` is given, and raises without CUDA.
+It trains on the train split (each snapshot holds 192 training graphs),
+shuffled each epoch as the JAX package's ``GraphLoader`` shuffles, with
+AdamW and the config's dropout, and prints one JSON line per epoch: epoch,
+steps, mean loss, lr, seconds and graphs per second on the device it ran
+on. Molecules train in the strided layout with one tier of packed
+transformer rows and the masked BCE loss. ogbg-code2 trains in the flat
+layout with the packing tiers of the train split's largest graph
+(1024/384/128 on the snapshot) and row caps sampled from ``--seed`` (a
+batch that overflows them is split), and the per-position sequence loss
+(``train/losses.py:seq_token_loss``). With ``--save_path`` it writes
+``last_model.pt``, a state dict that ``python -m
+graphtrans_tpu_torch.predict --weights`` serves. It runs on the card unless
+``--device cpu`` is given, and raises without CUDA.
 
 Weights are drawn from ``--seed`` (default 0), and so are the two dropout
 generators (``nn/dropout.py:Generators``). With ``--scheduler plateau`` the
 lr stays at ``--lr``: the plateau scheduler steps on a valid metric, and
 evaluation arrives with slice 6, as do split metrics, multi-run, resume and
-checkpoints, FLAG and ``onecycle``, and the parallel modes with slice 7. A
-flag that asks for one of these raises NotImplementedError naming its
-slice; ogbg-code2 training arrives with slice 4, and bf16
-(``--precision``) after it. The run is f32.
+checkpoints, FLAG and ``onecycle``, and the parallel modes with slice 7.
+bf16 (``--precision bf16``) arrives with slice 5. A flag that asks for one
+of these raises NotImplementedError naming its slice. The run is f32.
 """
 
 from __future__ import annotations
@@ -36,11 +40,10 @@ import torch
 
 from . import predict, resolve_device
 from .data.loader import iterate_batches, shuffled_order
-from .data.mol import load_mol_splits
 from .models.gnn_transformer import build_gnn_transformer
 from .nn.dropout import Generators
 from .nn.init import init_weights
-from .train.losses import binary_multitask_loss
+from .train.losses import binary_multitask_loss, seq_token_loss
 from .train.optim import build_optimizer
 from .trainers.base_trainer import make_train_step, train
 from .utils.config import add_training_args, check_ported, parse_with_config
@@ -54,14 +57,18 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def build_run(args, num_tasks: int, device, steps_per_epoch: int):
+def build_run(args, num_tasks: int, device, steps_per_epoch: int,
+              code=None):
     """The run's model (weights from ``--seed``), optimizer and train step,
-    whose dropout generators are seeded from ``--seed`` too."""
+    whose dropout generators are seeded from ``--seed`` too; ``code`` (a
+    ``data.code.CodeData``) makes it the code2 model with the sequence
+    loss."""
     seed = args.seed or 0
-    model = build_gnn_transformer(args, num_tasks, device=device)
+    model = build_gnn_transformer(args, num_tasks, device=device, code=code)
     init_weights(model, torch.Generator().manual_seed(seed))
     optimizer = build_optimizer(model, args, steps_per_epoch)
-    step = make_train_step(model, binary_multitask_loss, optimizer,
+    loss_fn = binary_multitask_loss if code is None else seq_token_loss
+    step = make_train_step(model, loss_fn, optimizer,
                            Generators.seeded(seed, device))
     return model, optimizer, step
 
@@ -70,21 +77,13 @@ def main(argv: Optional[list] = None) -> dict:
     args = parse_with_config(build_parser(), argv)
     check_ported(args)
     device = resolve_device(args.device)
-    if args.dataset == "ogbg-code2":
-        raise NotImplementedError(
-            "ogbg-code2 training (the K3 and K7 backward kernels, the "
-            "sequence loss) arrives with slice 4 (code2 training)")
-    if not args.dataset.startswith("ogbg-mol"):
-        raise NotImplementedError(f"dataset {args.dataset}: the port trains "
-                                  "the ogbg-mol* datasets")
     seed = args.seed or 0
-    splits, num_tasks = load_mol_splits(args.data_root, args.dataset,
-                                        args.synthetic_num_graphs,
-                                        args.synthetic_seed)
+    splits, num_tasks, code = predict.load_splits(args)
     graphs = splits["train"]
-    layout = predict.serving_layout(splits, args, num_tasks, args.batch_size)
+    layout = predict.serving_layout(splits, args, num_tasks, args.batch_size,
+                                    split="train", seed=seed)
     model, optimizer, step = build_run(
-        args, num_tasks, device, -(-len(graphs) // args.batch_size))
+        args, num_tasks, device, -(-len(graphs) // args.batch_size), code)
     records = []
     for epoch in range(1, args.epochs + 1):
         stats: dict = {}

@@ -8,8 +8,9 @@ all run in kernel K1.
 GCNConv runs on the flat layout (OGB's GCN as the reference writes it):
 x = Linear(h); deg = out_degree(src) + 1; out = sum_{j->i}
 deg^-1/2[src] deg^-1/2[dst] relu(x_j + edge_emb) + relu(x + root_emb)/deg.
-The aggregation runs in kernel K7 over the dst-sorted edges; the degree,
-the norm and the self term are plain PyTorch.
+The aggregation runs in kernel K7 over the dst-sorted edges (its backward
+walks the batch's ``src_order``, shared by every layer); the degree, the
+norm and the self term are plain PyTorch.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 from torch import nn
 
 from ..ops import dense_mp
-from ..ops.kernels import spmm, spmm_plain
+from ..ops.kernels import spmm, spmm_plain, src_order
 from ..ops.segment import out_degree
 from .encoders import BondEncoder
 from .init import normal_
@@ -78,8 +79,9 @@ class GCNConv(nn.Module):
         dis = deg ** -0.5
         norm = dis[batch.edge_src.long()] * dis[batch.edge_dst.long()]
         emb = self.edge_encoder(batch.edge_attr).to(x.dtype)
-        fn = spmm if self.use_kernel else spmm_plain
-        agg = fn(x, emb, batch.edge_src, batch.edge_dst, batch.edge_mask,
-                 norm, "relu_add")
+        args = (x, emb, batch.edge_src, batch.edge_dst, batch.edge_mask, norm,
+                "relu_add")
+        agg = (spmm(*args, order=src_order(batch)) if self.use_kernel
+               else spmm_plain(*args))
         out = agg + torch.relu(x + self.root_emb) * (1.0 / deg)[:, None]
         return out.masked_fill(~mask, 0.0)

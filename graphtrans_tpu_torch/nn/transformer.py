@@ -5,7 +5,7 @@ final LayerNorm, and a learnable CLS embedding added at each graph's CLS
 slot. Attention is segment-masked and runs in kernel K2 for rows of up to
 384 tokens and in kernel K3 (``flash_hil_seg``) for wider rows, as
 ``graphtrans_tpu/nn/transformer.py:189-234`` routes them. In training mode
-attention dropout runs inside K2 from one seed per layer per step, and
+attention dropout runs inside K2 or K3 from one seed per layer per step, and
 ``ByteDropout`` acts on the attention output, the FF activation and the FF
 output (``graphtrans_tpu/nn/transformer.py:470-480``)."""
 
@@ -17,7 +17,6 @@ from torch import nn
 from ..ops.kernels import (attention_seg, attention_seg_plain, flash_hil_seg,
                            flash_hil_seg_plain)
 from ..ops.kernels.attention_packed import W_MAX
-from ..ops.kernels.flash_hil import SLICE_TRAINING
 from .dropout import ByteDropout
 from .init import normal_, xavier_uniform_
 
@@ -54,13 +53,9 @@ class MultiheadSelfAttention(nn.Module):
             seed = gen.attention_seed()
         qkv = self.in_proj(x)
         if x.shape[1] > W_MAX:
-            if rate > 0.0:
-                raise NotImplementedError(
-                    f"attention dropout on rows wider than {W_MAX} (K3) "
-                    f"arrives with {SLICE_TRAINING}")
             fn = flash_hil_seg if self.use_kernel else flash_hil_seg_plain
-            return self.out_proj(fn(qkv, seg, self.nhead))
-        fn = attention_seg if self.use_kernel else attention_seg_plain
+        else:
+            fn = attention_seg if self.use_kernel else attention_seg_plain
         return self.out_proj(fn(qkv, seg, self.nhead, rate, seed))
 
 

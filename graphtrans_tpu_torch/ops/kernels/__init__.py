@@ -3,9 +3,7 @@ version. A wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches its kernel (built at first use by ``_build``) or
 raises, and counts the launch in its ``launches`` attribute. The forward
 wrappers are ``torch.autograd.Function``s on CUDA tensors whose backward
-is the matching ``*_bwd`` kernel wrapper; K3 (``flash_hil_seg``) and K7
-(``spmm``) have no backward kernel yet and raise where a gradient would be
-needed."""
+is the matching ``*_bwd`` kernel wrapper."""
 
 from __future__ import annotations
 
@@ -13,12 +11,14 @@ from torch import nn
 
 from .attention_packed import (attention_seg, attention_seg_bwd,
                                attention_seg_bwd_plain, attention_seg_plain)
-from .flash_hil import flash_hil_seg, flash_hil_seg_plain
+from .flash_hil import (flash_hil_seg, flash_hil_seg_bwd,
+                        flash_hil_seg_bwd_plain, flash_hil_seg_plain)
 from .gin_agg import gin_agg, gin_agg_bwd, gin_agg_bwd_plain, gin_agg_plain
-from .spmm import spmm, spmm_plain
+from .spmm import (SrcOrder, spmm, spmm_bwd, spmm_bwd_plain, spmm_plain,
+                   src_order)
 
 WRAPPERS = (gin_agg, gin_agg_bwd, attention_seg, attention_seg_bwd,
-            flash_hil_seg, spmm)
+            flash_hil_seg, flash_hil_seg_bwd, spmm, spmm_bwd)
 
 
 def reset_launches():
@@ -41,7 +41,9 @@ def set_kernels(model: nn.Module, enabled: bool) -> nn.Module:
 
 
 __all__ = ["attention_seg", "attention_seg_bwd", "attention_seg_bwd_plain",
-           "attention_seg_plain", "flash_hil_seg", "flash_hil_seg_plain",
-           "gin_agg", "gin_agg_bwd", "gin_agg_bwd_plain", "gin_agg_plain",
+           "attention_seg_plain", "flash_hil_seg", "flash_hil_seg_bwd",
+           "flash_hil_seg_bwd_plain", "flash_hil_seg_plain", "gin_agg",
+           "gin_agg_bwd", "gin_agg_bwd_plain", "gin_agg_plain",
            "launch_counts", "reset_launches", "set_kernels", "spmm",
-           "spmm_plain", "WRAPPERS"]
+           "spmm_bwd", "spmm_bwd_plain", "spmm_plain", "src_order",
+           "SrcOrder", "WRAPPERS"]

@@ -46,31 +46,30 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from . import _build
 
 W_MAX = 384          # wider packed rows take flash_hil_seg (K3)
 HEAD_DIM = 32        # the head width csrc/attention_packed.cu compiles
-_M32 = 0xFFFFFFFF
 
 
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """(x * c) mod 2**32 for int64 x in [0, 2**32), in 16-bit halves so
-    no product leaves int64."""
-    lo, hi = x & 0xFFFF, x >> 16
-    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _M32
+def hash_bits(pos: np.ndarray, seed: np.ndarray) -> np.ndarray:
+    """u32 counter hash of (position, seed), numpy uint32 arrays (copy of
+    the JAX package's interpret-mode stand-in for the TPU PRNG, in the
+    arithmetic that wraps as its does)."""
+    x = pos * np.uint32(2654435761) + seed * np.uint32(0x9E3779B9)
+    x ^= x >> np.uint32(16)
+    x *= np.uint32(0x7FEB352D)
+    x ^= x >> np.uint32(15)
+    x *= np.uint32(0x846CA68B)
+    return x ^ (x >> np.uint32(16))
 
 
-def _hash_bits(pos: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
-    """u32 counter hash of (position, seed) in int64 arithmetic (copy of
-    the JAX package's interpret-mode stand-in for the TPU PRNG)."""
-    x = (_mul32(pos, 2654435761) + _mul32(seed & _M32, 0x9E3779B9)) & _M32
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mul32(x, 0x846CA68B)
-    return x ^ (x >> 16)
+def u32(a) -> np.ndarray:
+    """``a`` (ints below 2**32) as a numpy uint32 array."""
+    return np.asarray(a, np.uint32)
 
 
 def dropout_tiling(W: int):
@@ -86,21 +85,27 @@ def keep_threshold(rate: float) -> int:
 
 def keep_mask(R: int, W: int, nhead: int, rate: float, seed: int,
               device) -> torch.Tensor:
-    """Bool [R, H, W, W]: query i keeps key j of row r, head h."""
+    """Bool [R, H, W, W]: query i keeps key j of row r, head h (drawn on
+    the host a row at a time)."""
     sp, bt = dropout_tiling(W)
-    ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)
-    r = ar(R)[:, None, None, None]
-    h = ar(nhead)[None, :, None, None]
-    i = ar(W)[None, None, :, None]
-    j = ar(W)[None, None, None, :]
-    pos = ((r % bt) * W + i) * sp + j
-    return _hash_bits(pos, seed + (r // bt) * nhead + h) < keep_threshold(rate)
+    h = u32(np.arange(nhead))[:, None, None]
+    i = u32(np.arange(W))[None, :, None]
+    j = u32(np.arange(W))[None, None, :]
+    thresh = u32(keep_threshold(rate))
+    keep = np.empty((R, nhead, W, W), bool)
+    for r in range(R):
+        pos = (u32(r % bt) * u32(W) + i) * u32(sp) + j
+        keep[r] = hash_bits(pos, h + u32(r // bt * nhead)
+                            + u32(seed % 2**32)) < thresh
+    return torch.from_numpy(keep).to(device)
 
 
 def attention_seg_plain(qkv: torch.Tensor, seg: torch.Tensor, nhead: int,
-                        rate: float = 0.0, seed: int = 0) -> torch.Tensor:
+                        rate: float = 0.0, seed: int = 0,
+                        keep=None) -> torch.Tensor:
     """Plain PyTorch version of K2: same arguments, same result (the same
-    dropout mask); autograd differentiates it."""
+    dropout mask); autograd differentiates it. ``keep`` (bool [R, H, W, W])
+    replaces K2's mask at ``rate > 0`` (K3 draws its own)."""
     R, W, d3 = qkv.shape
     d = d3 // 3
     hd = d // nhead
@@ -115,7 +120,8 @@ def attention_seg_plain(qkv: torch.Tensor, seg: torch.Tensor, nhead: int,
         ~mask, 0.0)
     p = e / e.sum(dim=-1, keepdim=True).clamp_min(1e-16)
     if rate > 0.0:
-        keep = keep_mask(R, W, nhead, rate, seed, qkv.device)
+        if keep is None:
+            keep = keep_mask(R, W, nhead, rate, seed, qkv.device)
         p = p * keep.to(p.dtype) * (1.0 / (1.0 - rate))
     return torch.matmul(p, v).transpose(1, 2).reshape(R, W, d)
 

@@ -1,4 +1,5 @@
-"""K7: the flat-layout message-passing sum over dst-sorted edges.
+"""K7: the flat-layout message-passing sum over dst-sorted edges, and its
+backward.
 
 Computes
 
@@ -9,26 +10,42 @@ with ``msg = relu(x + emb)`` (``relu_add``, GIN/GCN) or ``x + emb``
 so padded edges add nothing), x ``[N, d]`` and emb ``[E, d]`` float32, and
 src/dst ``[E]`` int32 with dst sorted ascending (``collate`` sorts the flat
 edges by destination and puts padding edges at the tail, pointing at node
-N-1). A node with no edge gets a zero row.
+N-1). A node with no edge gets a zero row. The backward returns dx and
+d_emb: with ``a = x[src] + emb``, ``d_emb[e] = w[e] * 1[a > 0] * g[dst[e]]``
+(torch's relu gradient, 0 at a tie) and ``dx[s]`` the sum of d_emb over the
+edges leaving s. ``edge_weight`` gets no gradient: the GCN norm comes from
+the degree, hence from the mask alone, and a CUDA call whose edge_weight
+requires one raises.
 
 Replaces ``graphtrans_tpu/ops/pallas/spmm.py:gather_message_scatter`` (the
-opt-in Pallas route of ``ops/scatter.py``; the JAX package has no backward
-for it). The TPU kernel keeps x resident in VMEM, walks aligned 256-edge
-tiles per 256-row node block and does the scatter as a one-hot MXU matmul;
-all of that is for the TPU. The CSR row pointer is built on the device with
-``torch.searchsorted(dst, arange(N+1))``, as the TPU kernel builds its block
-pointers, so no value comes back to the host.
+opt-in Pallas route of ``ops/scatter.py``). The JAX package has no backward
+kernel for it: it trains through the XLA segment route
+(``ops/scatter.py:93-105``), so the backward here is the port's own and its
+reference is autograd through that route. The TPU kernel keeps x resident
+in VMEM, walks aligned 256-edge tiles per 256-row node block and does the
+scatter as a one-hot MXU matmul; all of that is for the TPU. The CSR row
+pointer is built on the device with ``torch.searchsorted(dst, arange(N+1))``,
+as the TPU kernel builds its block pointers, so no value comes back to the
+host.
 
-What bounds it on the H100: memory. Per valid edge it reads a row of x
-(through the src gather) and a row of emb and does 4 flops a channel, then
-writes N rows once: at the 512-graph code2 shape (d=300) about 0.4 GB and
-0.2 GFLOP. Design (``csrc/spmm.cu``): one warp per destination row walks
-its edge range in order, lanes over channels, accumulators in registers;
-each output row has one writer, so there are no atomics and the sum has a
-fixed order. A lane loads the src and weight of 8 edges at once and edges
-of weight 0 (the padding tail) are skipped 32 at a time by a ballot, so the
-padding node's long edge list (some 25k edges at 512 graphs) costs a few
-dozen load steps.
+What bounds it on the H100: memory. Per valid edge the forward reads a row
+of x (through the src gather) and a row of emb and does 4 flops a channel,
+then writes N rows once: at the 512-graph code2 shape (d=300) about 0.4 GB
+and 0.2 GFLOP; the backward must read x and g once and a row of emb per
+valid edge, and write d_emb and dx, about 0.68 GB. Design (``csrc/spmm.cu``):
+forward, one warp per destination row walks its edge range in order, lanes
+over channels, accumulators in registers; each output row has one writer,
+so there are no atomics and the sum has a fixed order. A lane loads the src
+and weight of 8 edges at once and edges of weight 0 (the padding tail) are
+skipped 32 at a time by a ballot, so the padding node's long edge list
+(some 25k edges at 512 graphs) costs a few dozen load steps. Backward, one
+warp per source row over the edges in src-major order (``SrcOrder``: a
+stable device sort of the valid edges by src and a ``searchsorted`` row
+pointer; ``src_order(batch)`` keeps one on the batch, so every layer shares
+it), x's row and dx's accumulators in registers, reading the g row of each
+edge's dst and writing its d_emb row; masked
+edges are in no row, and separate warps write their zero d_emb rows 32
+slots at a time. One writer per output cell, a fixed order, no atomics.
 """
 
 from __future__ import annotations
@@ -41,12 +58,10 @@ import torch
 from . import _build
 
 MESSAGES = ("relu_add", "add")
-SLICE_BACKWARD = ("K7 has no backward kernel yet: gradients through the "
-                  "flat aggregation arrive with slice 4 (code2 training)")
 
 
 def _folded_weight(emask: torch.Tensor,
-                edge_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   edge_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The per-edge weight the kernel reads: the mask as 0/1, times
     ``edge_weight`` where given (``spmm.py:120-123`` of the JAX package)."""
     w = emask.to(torch.float32)
@@ -65,7 +80,53 @@ def spmm_plain(x, emb, src, dst, emask, edge_weight=None,
     return torch.zeros_like(x).index_add_(0, dst.long(), m)
 
 
-def _check(x, emb, src, dst, emask, edge_weight, message):
+def spmm_bwd_plain(x, emb, src, dst, emask, g, edge_weight=None,
+                   message: str = "relu_add"):
+    """Plain version of K7's backward: (dx, d_emb) by autograd through
+    ``spmm_plain`` for the cotangent ``g`` [N, d]."""
+    with torch.enable_grad():
+        xl, el = (t.detach().requires_grad_() for t in (x, emb))
+        out = spmm_plain(xl, el, src, dst, emask, edge_weight, message)
+        return torch.autograd.grad(out, (xl, el), g)
+
+
+class SrcOrder:
+    """The src-major edge order K7's backward walks: ``perm`` [E] lists the
+    valid edges of each source row s at ``[sptr[s], sptr[s+1])`` in their
+    batch order (a stable sort; masked edges sort past row N-1 and are in
+    no row). Computed on the device at first use, then shared: one per
+    batch serves every layer."""
+
+    def __init__(self, src: torch.Tensor, emask: torch.Tensor,
+                 num_nodes: int):
+        self.src, self.emask, self.num_nodes = src, emask, num_nodes
+        self._order = None
+
+    def get(self):
+        if self._order is None:
+            N = self.num_nodes
+            key = torch.where(self.emask, self.src, N)
+            skey, perm = torch.sort(key, stable=True)
+            sptr = torch.searchsorted(
+                skey, torch.arange(N + 1, dtype=skey.dtype,
+                                   device=skey.device), out_int32=True)
+            self._order = (perm.to(torch.int32), sptr)
+        return self._order
+
+
+def src_order(batch) -> SrcOrder:
+    """The ``SrcOrder`` of a batch's flat edges, made at the first call and
+    kept on the batch: one sort serves every layer and every step that
+    reuses the batch."""
+    order = batch.__dict__.get("_src_order")
+    if order is None:
+        order = SrcOrder(batch.edge_src, batch.edge_mask,
+                         batch.num_node_slots)
+        object.__setattr__(batch, "_src_order", order)   # a frozen dataclass
+    return order
+
+
+def _check(x, emb, src, dst, emask, edge_weight, message, g=None):
     N, d = x.shape
     E = src.shape[0]
     want = [(x, torch.float32, (N, d)), (emb, torch.float32, (E, d)),
@@ -73,6 +134,8 @@ def _check(x, emb, src, dst, emask, edge_weight, message):
             (emask, torch.bool, (E,))]
     if edge_weight is not None:
         want.append((edge_weight, torch.float32, (E,)))
+    if g is not None:
+        want.append((g, torch.float32, (N, d)))
     for t, dtype, shape in want:
         if t.device != x.device:
             raise ValueError(f"spmm: tensors on {t.device} and {x.device}")
@@ -85,22 +148,7 @@ def _check(x, emb, src, dst, emask, edge_weight, message):
         raise ValueError(f"spmm: message {message!r} not in {MESSAGES}")
 
 
-def spmm(x: torch.Tensor, emb: torch.Tensor, src: torch.Tensor,
-         dst: torch.Tensor, emask: torch.Tensor,
-         edge_weight: Optional[torch.Tensor] = None,
-         message: str = "relu_add") -> torch.Tensor:
-    """K7 forward. CPU tensors take ``spmm_plain``; CUDA tensors launch the
-    kernel or raise. Every edge must hold src and dst in ``[0, N)`` and dst
-    must be sorted. The kernel has no backward yet: a call on CUDA tensors
-    that would need a gradient raises NotImplementedError."""
-    if x.device.type == "cpu":
-        return spmm_plain(x, emb, src, dst, emask, edge_weight, message)
-    if x.device.type != "cuda":
-        raise ValueError(f"spmm: unsupported device {x.device}")
-    _check(x, emb, src, dst, emask, edge_weight, message)
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, emb, edge_weight)):
-        raise NotImplementedError(SLICE_BACKWARD)
+def _launch_fwd(x, emb, src, dst, w, message):
     N, d = x.shape
     out = torch.empty_like(x)
     if out.numel() == 0:
@@ -108,20 +156,107 @@ def spmm(x: torch.Tensor, emb: torch.Tensor, src: torch.Tensor,
     ptr = torch.searchsorted(
         dst, torch.arange(N + 1, dtype=torch.int32, device=x.device),
         out_int32=True)
-    w = _folded_weight(emask, edge_weight)
     lib = _load()
     err = lib.spmm_fwd(
         ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(emb.data_ptr()),
         ctypes.c_void_p(src.data_ptr()), ctypes.c_void_p(ptr.data_ptr()),
         ctypes.c_void_p(w.data_ptr()), ctypes.c_void_p(out.data_ptr()), N, d,
-        int(message == "relu_add"),
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+        int(message == "relu_add"), _stream(x))
     _build.check(lib, err, "spmm_fwd")
     spmm.launches += 1
     return out
 
 
+def _stream(t: torch.Tensor):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+class _Spmm(torch.autograd.Function):
+    """K7 on CUDA tensors with K7's backward kernel as its gradient (dx and
+    d_emb)."""
+
+    @staticmethod
+    def forward(ctx, x, emb, src, dst, emask, edge_weight, message, order):
+        ctx.save_for_backward(x, emb, src, dst, emask, edge_weight)
+        ctx.message, ctx.order = message, order
+        return _launch_fwd(x, emb, src, dst,
+                           _folded_weight(emask, edge_weight), message)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, emb, src, dst, emask, edge_weight = ctx.saved_tensors
+        dx, demb = spmm_bwd(x, emb, src, dst, emask, g.contiguous(),
+                            ctx.order, edge_weight, ctx.message)
+        return dx, demb, None, None, None, None, None, None
+
+
+def spmm(x: torch.Tensor, emb: torch.Tensor, src: torch.Tensor,
+         dst: torch.Tensor, emask: torch.Tensor,
+         edge_weight: Optional[torch.Tensor] = None,
+         message: str = "relu_add",
+         order: Optional[SrcOrder] = None) -> torch.Tensor:
+    """K7 forward. CPU tensors take ``spmm_plain``; CUDA tensors launch the
+    kernel or raise. Every edge must hold src and dst in ``[0, N)`` and dst
+    must be sorted. Where a gradient is wanted the result carries K7's
+    backward kernel (``spmm_bwd``), which walks ``order``, the ``SrcOrder``
+    of these edges (``src_order(batch)`` for a batch's)."""
+    if x.device.type == "cpu":
+        return spmm_plain(x, emb, src, dst, emask, edge_weight, message)
+    if x.device.type != "cuda":
+        raise ValueError(f"spmm: unsupported device {x.device}")
+    _check(x, emb, src, dst, emask, edge_weight, message)
+    if torch.is_grad_enabled() and (x.requires_grad or emb.requires_grad
+                                    or (edge_weight is not None
+                                        and edge_weight.requires_grad)):
+        if edge_weight is not None and edge_weight.requires_grad:
+            raise ValueError(
+                "spmm: edge_weight requires a gradient, which K7's backward "
+                "does not compute (it returns dx and d_emb; the GCN norm "
+                "comes from the mask alone): pass edge_weight.detach()")
+        if order is None:
+            raise ValueError("spmm: a gradient needs order, the SrcOrder of "
+                             "these edges (src_order(batch) for a batch's)")
+        return _Spmm.apply(x, emb, src, dst, emask, edge_weight, message,
+                           order)
+    return _launch_fwd(x, emb, src, dst, _folded_weight(emask, edge_weight),
+                       message)
+
+
 spmm.launches = 0
+
+
+def spmm_bwd(x: torch.Tensor, emb: torch.Tensor, src: torch.Tensor,
+             dst: torch.Tensor, emask: torch.Tensor, g: torch.Tensor,
+             order: SrcOrder, edge_weight: Optional[torch.Tensor] = None,
+             message: str = "relu_add"):
+    """K7 backward: (dx [N, d], d_emb [E, d]) for the cotangent ``g`` of
+    ``spmm(x, emb, src, dst, emask, edge_weight, message)``; the kernel
+    walks ``order``, the ``SrcOrder`` of these edges. CPU tensors take
+    ``spmm_bwd_plain``; CUDA tensors launch the kernel or raise."""
+    if x.device.type == "cpu":
+        return spmm_bwd_plain(x, emb, src, dst, emask, g, edge_weight,
+                              message)
+    if x.device.type != "cuda":
+        raise ValueError(f"spmm_bwd: unsupported device {x.device}")
+    _check(x, emb, src, dst, emask, edge_weight, message, g)
+    N, d = x.shape
+    E = src.shape[0]
+    dx, demb = torch.empty_like(x), torch.empty_like(emb)
+    if N == 0 or d == 0:
+        return dx, demb
+    perm, sptr = order.get()
+    w = _folded_weight(emask, edge_weight)
+    lib = _load()
+    err = lib.spmm_bwd(
+        *(ctypes.c_void_p(t.data_ptr())
+          for t in (x, emb, dst, perm, sptr, w, g, dx, demb)),
+        N, E, d, int(message == "relu_add"), _stream(x))
+    _build.check(lib, err, "spmm_bwd")
+    spmm_bwd.launches += 1
+    return dx, demb
+
+
+spmm_bwd.launches = 0
 
 
 def _load():
@@ -130,4 +265,7 @@ def _load():
         lib.spmm_fwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
                                  + [ctypes.c_void_p])
         lib.spmm_fwd.restype = ctypes.c_int
+        lib.spmm_bwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                                 + [ctypes.c_void_p])
+        lib.spmm_bwd.restype = ctypes.c_int
     return lib

@@ -105,11 +105,12 @@ def load_splits(args):
 
 def serving_layout(splits: dict, args, num_tasks: int,
                    batch_size: Optional[int] = None,
-                   split: Optional[str] = None) -> dict:
+                   split: Optional[str] = None, seed: int = 0) -> dict:
     """Batch layout of ``main.py:make_loaders`` for batches of
     ``batch_size`` graphs (default: the evaluation batch size) of
     ``split`` (default ``--split``). Returns the keyword arguments of
-    ``iterate_batches``.
+    ``iterate_batches``. ``seed`` is the loader's (``--seed`` for the
+    shuffled train loader, 0 for evaluation): it draws code2's row caps.
 
     Molecules take the strided layout (stride and per-graph edge slots
     bucketed from the largest graph of any split) and one tier of packed
@@ -126,7 +127,7 @@ def serving_layout(splits: dict, args, num_tasks: int,
         max_n = max(int(g["x"].shape[0]) for g in mine)
         widths = pack_widths(max_n, args.max_input_len)
         rows = sample_pack_rows(mine, eval_bs, node_cap, edge_cap, widths,
-                                args.max_input_len)
+                                args.max_input_len, seed)
         tiers = {}
         for t, (w, r) in enumerate(zip(widths, rows)):
             suffix = str(t + 1) if t else ""

@@ -59,6 +59,7 @@ def add_training_args(parser: argparse.ArgumentParser):
     g.add_argument("--save_path", default=None,
                    help="directory for last_model.pt (a state dict)")
     g = parser.add_argument_group("later slices")
+    g.add_argument("--precision", default="f32", choices=["f32", "bf16"])
     g.add_argument("--aug", default="baseline")
     g.add_argument("--runs", type=int, default=1)
     g.add_argument("--resume", default=None)
@@ -70,6 +71,7 @@ def add_training_args(parser: argparse.ArgumentParser):
 
 
 _LATER = (
+    ("precision", lambda v: v != "f32", "bf16 arrives with slice 5"),
     ("aug", lambda v: v != "baseline", "FLAG arrives with slice 6"),
     ("runs", lambda v: v != 1, "the multi-run loop arrives with slice 6"),
     ("resume", lambda v: v is not None,

@@ -329,9 +329,17 @@ def test_predict_code2_without_cuda_raises(tmp_path):
 
 
 def test_main_code2_names_slice_4():
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    """code2 training is ported (test_torch_port_code2_train.py); bf16 on
+    code2 is the next slice's and raises naming it, and without CUDA the
+    entry raises unless asked for the CPU."""
+    with pytest.raises(NotImplementedError, match="slice 5"):
         tmain.main(["--configs", str(CONFIG), "--data_root", SNAPSHOT,
-                    "--epochs", "1", "--device", "cpu"])
+                    "--epochs", "1", "--device", "cpu", "--precision",
+                    "bf16"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tmain.main(["--configs", str(CONFIG), "--data_root", SNAPSHOT,
+                        "--epochs", "1"])
 
 
 def test_new_modules_import_nothing_of_jax():

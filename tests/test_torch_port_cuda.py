@@ -235,7 +235,11 @@ def test_train_step_kernels_match_plain(cuda):
         scale = max(1.0, gp[name].abs().max().item())
         assert (gk[name] - gp[name]).abs().max().item() <= GRAD_TOL * scale, name
         # Adam: a rounding-level gradient may move by up to 2 lr
-        assert (pk[name] - pp[name]).abs().max().item() <= 2e-4 + 1e-6, name
+        firm = gp[name].abs() >= 1e-5
+        diff = (pk[name] - pp[name]).abs()
+        assert diff.max().item() <= 2 * args.lr + 1e-6, name
+        assert torch.where(firm, diff, 0.0).max().item() <= (
+            1e-6 + 0.01 * args.lr), name
 
 
 # ---- code2 serving: K3 (flash_hil_seg) and K7 (spmm) ----------------------
@@ -358,21 +362,216 @@ def test_code2_model_kernels_match_plain_versions(cuda):
 
 @pytest.mark.cuda
 def test_k3_k7_refuse_to_drop_gradients(cuda):
-    """Neither kernel has a backward yet: a CUDA call that would need one
-    raises; under no_grad and inference_mode it runs."""
-    from graphtrans_tpu_torch.ops.kernels import flash_hil_seg, spmm
+    """Through either kernel a CUDA leaf gets its gradient from the backward
+    kernel (equal to autograd through the plain version); an edge weight
+    that asks for a gradient K7 does not compute raises, as does a gradient
+    through K7 without the edges' SrcOrder; under no_grad and
+    inference_mode the forwards run without saving anything, and K3 with
+    dropout runs its one dropout launch (which writes the statistics)."""
+    from graphtrans_tpu_torch.ops.kernels import (
+        SrcOrder, flash_hil_seg, flash_hil_seg_bwd, flash_hil_seg_bwd_plain,
+        flash_hil_seg_plain, spmm, spmm_bwd, spmm_bwd_plain)
+    from graphtrans_tpu_torch.ops.kernels.flash_hil import (
+        flash_hil_seg_with_stats)
 
     qkv, seg = _k3_case(512, 128, cuda)
     x, emb, src, dst, mask, w = _k7_case(128, cuda)
-    leaf_q, leaf_x = qkv.requires_grad_(), x.requires_grad_()
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        flash_hil_seg(leaf_q, seg, 4)
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    leaf_q = qkv.clone().requires_grad_()
+    leaf_x, leaf_e = x.clone().requires_grad_(), emb.clone().requires_grad_()
+    g3 = torch.randn(3, 512, 128, device=cuda)
+    g7 = torch.randn(x.shape, device=cuda)
+    order = SrcOrder(src, mask, x.shape[0])
+    b3, b7 = flash_hil_seg_bwd.launches, spmm_bwd.launches
+    flash_hil_seg(leaf_q, seg, 4, 0.3, 99).backward(g3)
+    spmm(leaf_x, leaf_e, src, dst, mask, w, order=order).backward(g7)
+    torch.cuda.synchronize()
+    assert (flash_hil_seg_bwd.launches, spmm_bwd.launches) == (b3 + 1, b7 + 1)
+    want = flash_hil_seg_bwd_plain(qkv, seg, 4, g3, 0.3, 99)
+    assert (leaf_q.grad - want).abs().max().item() <= GRAD_TOL * max(
+        1.0, want.abs().max().item())
+    for got, ref in zip((leaf_x.grad, leaf_e.grad),
+                        spmm_bwd_plain(x, emb, src, dst, mask, g7, w)):
+        assert (got - ref).abs().max().item() <= GRAD_TOL * max(
+            1.0, ref.abs().max().item())
+    with pytest.raises(ValueError, match="edge_weight"):
+        spmm(leaf_x, emb, src, dst, mask, w.clone().requires_grad_(),
+             order=order)
+    with pytest.raises(ValueError, match="SrcOrder"):
         spmm(leaf_x, emb, src, dst, mask, w)
     with torch.no_grad():
         flash_hil_seg(leaf_q, seg, 4)
         spmm(leaf_x, emb, src, dst, mask, w)
+        # dropout is for training: its launch always saves the statistics
+        out, m, _ = flash_hil_seg_with_stats(qkv, seg, 4, 0.3, 99,
+                                             stats=False)
+        assert m is not None
+        assert (flash_hil_seg(leaf_q, seg, 4, 0.3, 99) - out).abs().max(
+            ).item() == 0
+        assert (out - flash_hil_seg_plain(qkv, seg, 4, 0.3, 99)).abs().max(
+            ).item() <= K3_TOL
     with torch.inference_mode():
         flash_hil_seg(leaf_q, seg, 4)
         spmm(leaf_x, emb, src, dst, mask, w)
     torch.cuda.synchronize()
+
+
+# ---- code2 training: K3 with dropout, K3-bwd, K7-bwd ----------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [512, 1024])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_flash_hil_dropout_and_bwd_kernels_match_plain(cuda, W, rate):
+    """K3's forward with dropout and its dq and dk/dv kernels against the
+    plain version, which draws the same mask, and its autograd."""
+    from graphtrans_tpu_torch.ops.kernels import (flash_hil_seg_bwd,
+                                                  flash_hil_seg_bwd_plain,
+                                                  flash_hil_seg_plain)
+    from graphtrans_tpu_torch.ops.kernels.flash_hil import (
+        flash_hil_seg_with_stats)
+
+    qkv, seg = _k3_case(W, 128, cuda)
+    g = torch.randn(3, W, 128, generator=torch.Generator().manual_seed(W)
+                    ).to(cuda)
+    seed = 2**31 - 7
+    saved = flash_hil_seg_with_stats(qkv, seg, 4, rate, seed)
+    before = flash_hil_seg_bwd.launches
+    dqkv = flash_hil_seg_bwd(qkv, seg, 4, g, rate, seed, saved=saved)
+    torch.cuda.synchronize()
+    assert flash_hil_seg_bwd.launches == before + 1
+    out = saved[0]
+    assert (out - flash_hil_seg_plain(qkv, seg, 4, rate, seed)
+            ).abs().max().item() <= K3_TOL
+    want = flash_hil_seg_bwd_plain(qkv, seg, 4, g, rate, seed)
+    assert (dqkv - want).abs().max().item() <= GRAD_TOL * max(
+        1.0, want.abs().max().item())
+    assert not dqkv[seg < 0].any() and not out[seg < 0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [300, 128])
+@pytest.mark.parametrize("message", ["relu_add", "add"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_spmm_bwd_kernel_matches_plain(cuda, d, message, weighted):
+    """dx and d_emb of K7's backward kernel against autograd through the
+    plain version; masked edges (the padding tail and one mid-list) get
+    exact-zero d_emb rows."""
+    from graphtrans_tpu_torch.ops.kernels import (SrcOrder, spmm_bwd,
+                                                  spmm_bwd_plain)
+
+    x, emb, src, dst, mask, w = _k7_case(d, cuda)
+    mask[5] = False
+    w = w if weighted else None
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(d)
+                    ).to(cuda)
+    before = spmm_bwd.launches
+    got = spmm_bwd(x, emb, src, dst, mask, g, SrcOrder(src, mask, x.shape[0]),
+                   w, message)
+    torch.cuda.synchronize()
+    assert spmm_bwd.launches == before + 1
+    for a, b in zip(got, spmm_bwd_plain(x, emb, src, dst, mask, g, w,
+                                        message)):
+        assert (a - b).abs().max().item() <= GRAD_TOL * max(
+            1.0, b.abs().max().item())
+    assert not got[1][~mask].any()
+
+
+@pytest.fixture
+def deterministic():
+    """Deterministic algorithms while the kernels are held against the plain
+    route: its index_add_ otherwise sums with atomics in no fixed order,
+    which the virtual node's batch-statistics BatchNorm over a few graph
+    rows (single-pass variance) magnifies to ~1e-3 of its MLP's gradients,
+    the plain route against itself."""
+    import warnings
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        yield
+    torch.use_deterministic_algorithms(False)
+
+
+def _code2_train_model(num_tasks, cuda):
+    from graphtrans_tpu_torch.models.gnn_transformer import GNNTransformer
+    from graphtrans_tpu_torch.nn.encoders import ASTNodeEncoder
+    from graphtrans_tpu_torch.nn.init import init_weights
+
+    model = GNNTransformer(num_tasks, 3, 300, True, 128, 4, 512, 2, True,
+                           gnn_dropout=0.0, transformer_dropout=0.3,
+                           device=cuda, gnn_type="gcn",
+                           node_encoder=ASTNodeEncoder(300, 20, 100,
+                                                       device=cuda),
+                           max_seq_len=5)
+    return init_weights(model, torch.Generator().manual_seed(0)).train()
+
+
+@pytest.mark.cuda
+def test_code2_backward_through_kernels_reaches_every_leaf(cuda,
+                                                           deterministic):
+    """loss.backward() of the code2 model through K3, K3-bwd, K7 and
+    K7-bwd (and K2) gives every parameter a gradient equal to the plain
+    route's, dropout 0.3 on the same masks."""
+    from graphtrans_tpu_torch.nn.dropout import Generators
+    from graphtrans_tpu_torch.ops.kernels import flash_hil_seg_bwd, spmm_bwd
+    from graphtrans_tpu_torch.train.losses import seq_token_loss
+
+    batch, num_tasks = _code2_batch(seed=1)
+    b = batch.to(cuda)
+    model = _code2_train_model(num_tasks, cuda)
+    grads = []
+    for kernels in (True, False):
+        set_kernels(model, kernels)
+        model.zero_grad(set_to_none=True)
+        f0, s0 = flash_hil_seg_bwd.launches, spmm_bwd.launches
+        seq_token_loss(model(b, Generators.seeded(5, cuda)), b).backward()
+        if kernels:
+            assert flash_hil_seg_bwd.launches == f0 + 2     # 2 layers
+            assert spmm_bwd.launches == s0 + 3              # 3 GCN layers
+        grads.append({n: p.grad for n, p in model.named_parameters()})
+    for name, g in grads[0].items():
+        ref = grads[1][name]
+        assert g is not None and g.abs().sum().item() > 0, name
+        assert (g - ref).abs().max().item() <= GRAD_TOL * max(
+            1.0, ref.abs().max().item()), name
+
+
+@pytest.mark.cuda
+def test_code2_train_step_kernels_match_plain(cuda, deterministic):
+    """One AdamW step of the code2 model with attention dropout 0.3, from
+    the same state and generator seeds: loss, gradients and parameters
+    through the kernels against the plain versions on the card. Parameters
+    under the rule of the CPU step test (test_torch_port_code2_train.py):
+    a first Adam step moves an entry by up to lr whatever its gradient's
+    size, so every entry whose gradient is not below 1e-5 must lie within
+    1e-6 plus 1% of lr."""
+    from graphtrans_tpu_torch.nn.dropout import Generators
+    from graphtrans_tpu_torch.train.losses import seq_token_loss
+    from graphtrans_tpu_torch.train.optim import build_optimizer
+    from graphtrans_tpu_torch.trainers.base_trainer import make_train_step
+
+    batch, num_tasks = _code2_batch(seed=2)
+    b = batch.to(cuda)
+    args = argparse.Namespace(lr=1e-4, weight_decay=0.0, grad_clip=None,
+                              scheduler=None, epochs=1)
+    out = []
+    for kernels in (True, False):
+        model = set_kernels(_code2_train_model(num_tasks, cuda), kernels)
+        step = make_train_step(model, seq_token_loss,
+                               build_optimizer(model, args, 1),
+                               Generators.seeded(11, cuda))
+        loss = step(b).item()
+        out.append((loss, {n: p.grad.clone() for n, p in
+                           model.named_parameters()},
+                    {n: p.detach().clone() for n, p in
+                     model.named_parameters()}))
+    (lk, gk, pk), (lp, gp, pp) = out
+    assert abs(lk - lp) <= LOGITS_TOL
+    for name in gk:
+        scale = max(1.0, gp[name].abs().max().item())
+        assert (gk[name] - gp[name]).abs().max().item() <= GRAD_TOL * scale, name
+        firm = gp[name].abs() >= 1e-5
+        diff = (pk[name] - pp[name]).abs()
+        assert diff.max().item() <= 2 * args.lr + 1e-6, name
+        assert torch.where(firm, diff, 0.0).max().item() <= (
+            1e-6 + 0.01 * args.lr), name
