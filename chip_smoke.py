@@ -46,7 +46,19 @@ Phases, each printing one line (any failure raises and exits non-zero):
      launches, checking finite losses and moved parameters, and holds one
      step through the kernels against the plain versions on the card; (c)
      times the train step on the 512-graph batch, with peak memory and a
-     torch.profiler split by layer.
+     torch.profiler split by layer;
+  9. the Transformer-only model (configs/{molpcba,code2}/transformer/
+     pooling=cls.yml: no GNN, a dense batch with a CLS column, d_model 256,
+     4 heads, 5 layers): (a) holds K4 (attention_dense) and K5
+     (flash_attention) against their plain versions at its snapshot and
+     bench shapes, with the rows the function leaves zero, and times them
+     beside bound, plain version and SDPA; (b) serves both ymls on the
+     snapshot through ``python -m graphtrans_tpu_torch.predict`` (molpcba:
+     three splits, K4 on rows of two 49-token graphs; code2: valid and
+     train take K5, test takes neither), counting launches per split, and
+     holds the logits through the kernels against the plain versions on the
+     card; (c) times and profiles the forward of 4096 molecules and of 512
+     ASTs in the flat unpacked layout.
 Then a {"kernels": [...]} line, the nvidia-smi line, and the contract line
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without
 a CUDA card.
@@ -74,6 +86,10 @@ CONFIG = os.path.join(
     REPO, "configs/molpcba/gnn-transformer/JK=cat/pooling=cls+gin+norm_input.yml")
 CODE2_CONFIG = os.path.join(
     REPO, "configs/code2/gnn-transformer/JK=cat/pooling=cls+norm_input.yml")
+TF_MOL_CONFIG = os.path.join(REPO,
+                             "configs/molpcba/transformer/pooling=cls.yml")
+TF_CODE2_CONFIG = os.path.join(REPO,
+                               "configs/code2/transformer/pooling=cls.yml")
 SNAPSHOT = os.path.join(REPO, "data_snapshots")
 BATCH = 64
 SEED = 0
@@ -102,16 +118,18 @@ LAYERS = (
     ("spmm_bwd", "K7-bwd spmm_bwd"),
     ("radixsort", "sort (index backward, K7-bwd's src order)"),
     ("flash_hil_fwd", "K3 flash_hil_seg"),
+    ("flash_attention_fwd", "K5 flash_attention"),
     ("spmm_kernel", "K7 spmm (aggregation)"),
     ("gin_agg_fwd", "K1 gin_agg (aggregation)"),
     ("attention_seg_fwd", "K2 attention_seg"),
+    ("attention_dense_fwd", "K4 attention_dense"),
     ("gin_agg_bwd", "K1-bwd gin_agg_bwd"),
     ("sum_rows", "K1-bwd gin_agg_bwd"),
     ("attention_seg_bwd", "K2-bwd attention_seg_bwd"),
     ("multi_tensor", "AdamW (foreach)"),
     ("gemm", "matmul (Linear layers)"),
     ("layer_norm", "LayerNorm"),
-    ("index", "gather / index_select / index_add"),
+    ("index", "gather / index_select / index_add / index_copy"),
     ("embedding", "embedding lookup"),
     ("reduce", "reductions (sums over rows)"),
     ("cat", "concatenation"),
@@ -243,17 +261,22 @@ def k2_bound(qkv, seg, nhead: int):
     return _bound(nbytes, pairs * nhead * (4 * hd + 4))
 
 
-def sdpa_ms(qkv, seg, nhead: int) -> float:
+def sdpa_mask_ms(qkv, mask, nhead: int, iters: int = 20) -> float:
     """Yardstick only: torch's scaled_dot_product_attention with a boolean
-    segment mask on the same inputs (never called by the port)."""
-    R, W, d3 = qkv.shape
+    mask [B, 1, S or 1, S] on the same inputs (never called by the port)."""
+    B, S, d3 = qkv.shape
     d = d3 // 3
-    q, k, v = (t.reshape(R, W, nhead, d // nhead).transpose(1, 2).contiguous()
+    q, k, v = (t.reshape(B, S, nhead, d // nhead).transpose(1, 2).contiguous()
                for t in qkv.split(d, dim=-1))
+    f = torch.nn.functional.scaled_dot_product_attention
+    return time_ms(lambda: f(q, k, v, attn_mask=mask), iters=iters)
+
+
+def sdpa_ms(qkv, seg, nhead: int) -> float:
+    """``sdpa_mask_ms`` with the segment mask of K2 and K3."""
     mask = ((seg[:, :, None] == seg[:, None, :])
             & (seg >= 0)[:, None, :])[:, None]
-    f = torch.nn.functional.scaled_dot_product_attention
-    return time_ms(lambda: f(q, k, v, attn_mask=mask), iters=20)
+    return sdpa_mask_ms(qkv, mask, nhead)
 
 
 def phase2(device, d_gnn: int, d_model: int, nhead: int, big):
@@ -701,7 +724,7 @@ def phase6_train(device, tmp: str):
     want = {"gin_agg": 5 * steps, "gin_agg_bwd": 5 * steps,
             "attention_seg": 4 * steps, "attention_seg_bwd": 4 * steps,
             "flash_hil_seg": 0, "flash_hil_seg_bwd": 0, "spmm": 0,
-            "spmm_bwd": 0}
+            "spmm_bwd": 0, "attention_dense": 0, "flash_attention": 0}
     if steps == 0 or launches != want:
         raise AssertionError(f"training launches {launches}, expected {want}")
     if not all(math.isfinite(r["loss"]) for r in res["epochs"]):
@@ -961,7 +984,8 @@ def phase7_serve(device, tmp: str):
     secs = time.perf_counter() - t0
     launches = kernels.launch_counts()
     want = dict(want, gin_agg=0, gin_agg_bwd=0, attention_seg_bwd=0,
-                flash_hil_seg_bwd=0, spmm_bwd=0)
+                flash_hil_seg_bwd=0, spmm_bwd=0, attention_dense=0,
+                flash_attention=0)
     if launches != want or not (launches["flash_hil_seg"] > 0
                                 and launches["spmm"] > 0):
         raise AssertionError(f"code2 launches {launches}, expected {want}")
@@ -1269,7 +1293,8 @@ def phase8_train(device, tmp: str):
     want = {"gin_agg": 0, "gin_agg_bwd": 0,
             "attention_seg": 8 * steps, "attention_seg_bwd": 8 * steps,
             "flash_hil_seg": 4 * steps, "flash_hil_seg_bwd": 4 * steps,
-            "spmm": 5 * steps, "spmm_bwd": 5 * steps}
+            "spmm": 5 * steps, "spmm_bwd": 5 * steps,
+            "attention_dense": 0, "flash_attention": 0}
     if steps == 0 or launches != want:
         raise AssertionError(f"code2 training launches {launches}, "
                              f"expected {want}")
@@ -1363,6 +1388,379 @@ def phase8_step512(device, bench, num_tasks: int, smi: str):
                  graphs=n)
 
 
+# ---- phase 9: the Transformer-only model, serving --------------------------
+
+
+def _tf_args(config: str, extra=()):
+    from graphtrans_tpu_torch import predict
+    from graphtrans_tpu_torch.utils.config import parse_with_config
+
+    return parse_with_config(predict.build_parser(), [
+        "--configs", config, "--data_root", SNAPSHOT, "--seed", str(SEED),
+        *extra])
+
+
+def dense_valid(batch, max_input_len: int = 1000) -> torch.Tensor:
+    """The key mask [G, S+1] the Transformer-only encoder gets for
+    ``batch``: ``nodes_to_dense``'s valid and the CLS column."""
+    from graphtrans_tpu_torch.ops.dense import nodes_to_dense
+
+    tb = batch.to("cpu")
+    S = min(batch.max_nodes_dense, max_input_len)
+    _, valid = nodes_to_dense(torch.zeros(batch.num_node_slots, 1),
+                              tb.node_graph, tb.node_pos, tb.node_mask,
+                              batch.num_graph_slots, S)
+    return torch.cat([valid, torch.ones(len(valid), 1, dtype=torch.bool)], 1)
+
+
+def k4_inputs(valid, d: int, gen: torch.Generator, device):
+    """K4's arguments as the encoder packs rows of ``valid`` [G, S]: 128 // S
+    graphs a row with block S where that is 2 or more, else block 0; random
+    qkv."""
+    from graphtrans_tpu_torch.nn.transformer import graphs_per_row
+
+    G, S = valid.shape
+    gb = graphs_per_row(S)
+    valid = torch.cat([valid, valid.new_zeros(-G % gb, S)]).reshape(-1, gb * S)
+    qkv = torch.randn(len(valid), gb * S, 3 * d, generator=gen)
+    return qkv.to(device), valid.to(device), S if gb > 1 else 0
+
+
+def k5_inputs(valid, d: int, gen: torch.Generator, device,
+              masked_rows: int = 1):
+    """K5's arguments for the rows of ``valid`` [B, S] with ``masked_rows``
+    rows without a valid key appended; random qkv."""
+    valid = torch.cat([valid, valid.new_zeros(masked_rows, valid.shape[1])])
+    qkv = torch.randn(*valid.shape, 3 * d, generator=gen)
+    return qkv.to(device), valid.to(device)
+
+
+def _live(valid, block: int) -> torch.Tensor:
+    """[B, S]: the query has a key it may attend (K4's mask, or K5's
+    key-padding mask with block 0)."""
+    B, S = valid.shape
+    if block == 0:
+        return valid.any(-1, keepdim=True).expand(B, S)
+    return valid.reshape(B, S // block, block).any(-1).repeat_interleave(
+        block, dim=1)
+
+
+def _check_rows(name: str, got, live):
+    """A query with no key outputs exact zeros; every other query (padding
+    queries included) a non-zero row."""
+    if got[~live].any():
+        raise AssertionError(f"{name}: queries without a key are not "
+                             f"exactly zero")
+    if not (got[live].abs().sum(-1) > 0).all():
+        raise AssertionError(f"{name}: a query with keys output zeros")
+
+
+def check_k4(qkv, valid, nhead: int, block: int):
+    from graphtrans_tpu_torch.ops.kernels import (attention_dense,
+                                                  attention_dense_plain)
+
+    got = attention_dense(qkv, valid, nhead, block)
+    torch.cuda.synchronize()
+    err = (got - attention_dense_plain(qkv, valid, nhead, block)
+           ).abs().max().item()
+    if err > K2_TOL or not torch.isfinite(got).all():
+        raise AssertionError(f"K4 (block {block}) disagrees with its plain "
+                             f"version: max |diff| {err} > {K2_TOL}")
+    _check_rows("K4", got, _live(valid, block))
+    return err
+
+
+def check_k5(qkv, valid, nhead: int):
+    from graphtrans_tpu_torch.ops.kernels import (flash_attention,
+                                                  flash_attention_plain,
+                                                  key_padding_segs)
+
+    segs = key_padding_segs(valid)
+    got = flash_attention(qkv, *segs, nhead)
+    torch.cuda.synchronize()
+    err = (got - flash_attention_plain(qkv, *segs, nhead)).abs().max().item()
+    if err > K2_TOL or not torch.isfinite(got).all():
+        raise AssertionError(f"K5 disagrees with its plain version: max "
+                             f"|diff| {err} > {K2_TOL}")
+    _check_rows("K5", got, _live(valid, 0))
+    return err
+
+
+def _attention_bytes(qkv, valid, mask_bytes: int) -> int:
+    """q read and out written for every query, K and V read for the valid
+    keys only (no query needs an invalid key's), and the mask's bytes."""
+    B, S, d3 = qkv.shape
+    return (2 * B * S + 2 * int(valid.sum().item())) * (d3 // 3) * 4 \
+        + mask_bytes
+
+
+def k4_bound(qkv, valid, nhead: int, block: int):
+    """The bytes of _attention_bytes with key_valid read as the kernel reads
+    it (torch's bool, one byte a key); per (query, key) pair of a block and
+    head the score and the weighted sum (2*hd flops each) and the softmax
+    (4)."""
+    B, S, d3 = qkv.shape
+    hd = d3 // 3 // nhead
+    if block:
+        pairs = int((valid.reshape(B, S // block, block).sum(-1) * block)
+                    .sum().item())
+    else:
+        pairs = int(valid.sum().item()) * S
+    nbytes = _attention_bytes(qkv, valid, valid.numel() * valid.element_size())
+    return _bound(nbytes, pairs * nhead * (4 * hd + 4))
+
+
+def k5_bound(qkv, valid, nhead: int):
+    """As k4_bound for the key-padding form (every query of a row attends
+    its valid keys), with the mask read as segq and segk (int32)."""
+    B, S, d3 = qkv.shape
+    hd = d3 // 3 // nhead
+    pairs = int(valid.sum().item()) * S
+    nbytes = _attention_bytes(qkv, valid, 2 * valid.numel() * 4)
+    return _bound(nbytes, pairs * nhead * (4 * hd + 4))
+
+
+def _block_mask(valid, block: int):
+    B, S = valid.shape
+    mask = valid[:, None, None, :]
+    if block:
+        grp = torch.arange(S, device=valid.device) // block
+        mask = mask & (grp[:, None] == grp[None, :])
+    return mask
+
+
+def phase9_kernels(device, mol_bench, code2_bench):
+    """(a) K4 and K5 against their plain versions at the Transformer-only
+    model's shapes: K4 at block 49 (the molpcba snapshot), 33 (4096
+    molecules) and 0 (code2 rows cut to 256 nodes: S 257); K5 at the code2
+    snapshot's first train batch (S 1001), its valid split (S 513) and 512
+    ASTs (S 1001); with the rows the function leaves zero. Times kernel,
+    plain version, bound and SDPA."""
+    from graphtrans_tpu_torch import predict
+    from graphtrans_tpu_torch.data.loader import iterate_batches
+    from graphtrans_tpu_torch.ops.kernels import (attention_dense,
+                                                  attention_dense_plain,
+                                                  flash_attention,
+                                                  flash_attention_plain,
+                                                  key_padding_segs)
+
+    gen = torch.Generator().manual_seed(SEED + 9)
+    first = {}
+    for name, config, split in (("mol", TF_MOL_CONFIG, "train"),
+                                ("code2_train", TF_CODE2_CONFIG, "train"),
+                                ("code2_valid", TF_CODE2_CONFIG, "valid")):
+        args = _tf_args(config)
+        splits, num_tasks, _ = predict.load_splits(args)
+        first[name] = next(iterate_batches(splits[split], **predict.
+                                           serving_layout(splits, args,
+                                                          num_tasks,
+                                                          split=split)))
+    mol_args = _tf_args(TF_MOL_CONFIG)
+    d, nhead = mol_args.d_model, mol_args.nhead
+    k4_cases = {"serve256 block 49": dense_valid(first["mol"]),
+                "bench4096 block 33": dense_valid(mol_bench),
+                "bench512 cut to 256, block 0": dense_valid(code2_bench, 256)}
+    k5_cases = {"train16 S 1001": dense_valid(first["code2_train"]),
+                "valid16 S 513": dense_valid(first["code2_valid"]),
+                "bench512 S 1001": dense_valid(code2_bench)}
+    k4_err = k5_err = 0.0
+    timed = {}
+    for name, valid in k4_cases.items():
+        qkv, v, block = k4_inputs(valid, d, gen, device)
+        if int(name.split()[-1]) != block or qkv.shape[1] % max(block, 1):
+            raise AssertionError(f"K4 {name}: packed as block {block}, "
+                                 f"rows of {qkv.shape[1]}")
+        k4_err = max(k4_err, check_k4(qkv, v, nhead, block))
+        t = dict(ms=time_ms(lambda: attention_dense(qkv, v, nhead, block),
+                            iters=20),
+                 plain_ms=time_ms(lambda: attention_dense_plain(
+                     qkv, v, nhead, block), iters=3),
+                 library_ms=sdpa_mask_ms(qkv, _block_mask(v, block), nhead,
+                                         iters=3))
+        t["bound_ms"], t["bound_by"] = k4_bound(qkv, v, nhead, block)
+        t["shape"] = f"B={qkv.shape[0]} S={qkv.shape[1]} d={d} H={nhead}"
+        timed[("K4 attention_dense", name)] = t
+    for name, valid in k5_cases.items():
+        qkv, v = k5_inputs(valid, d, gen, device)
+        k5_err = max(k5_err, check_k5(qkv, v, nhead))
+        qkv, v = qkv[:-1].contiguous(), v[:-1]     # timed as the model runs
+        segs = key_padding_segs(v)
+        t = dict(ms=time_ms(lambda: flash_attention(qkv, *segs, nhead),
+                            iters=5),
+                 plain_ms=time_ms(lambda: flash_attention_plain(
+                     qkv, *segs, nhead), iters=1),
+                 library_ms=sdpa_mask_ms(qkv, _block_mask(v, 0), nhead,
+                                         iters=3))
+        t["bound_ms"], t["bound_by"] = k5_bound(qkv, v, nhead)
+        t["shape"] = (f"B={qkv.shape[0]} S={qkv.shape[1]} d={d} H={nhead} "
+                      f"valid keys {int(v.sum().item())}")
+        timed[("K5 flash_attention", name)] = t
+    print(f"[9a] K4 and K5 agree with their plain versions: K4 max |diff| "
+          f"{k4_err:.3g} at {list(k4_cases)}, K5 {k5_err:.3g} at "
+          f"{list(k5_cases)} (<= {K2_TOL}); queries without a key exactly "
+          f"0, every other query (padding queries included) non-zero")
+    for (kname, name), t in timed.items():
+        print(f"[9a] {name} {kname} [{t['shape']}]: kernel {t['ms']:.4f} ms, "
+              f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}), library {t['library_ms']:.4f} ms (SDPA, "
+              f"bool mask)")
+    return dict(k4_err=k4_err, k5_err=k5_err,
+                timed=(timed[("K4 attention_dense", "bench4096 block 33")],
+                       timed[("K5 flash_attention", "bench512 S 1001")]))
+
+
+# The kernel each served split's attention must launch, from the JAX
+# package's TPU rule for the split's row width: molpcba's rows of 48 + CLS
+# pack 2 graphs with block 49 (K4); code2's train (1000 + CLS) and valid
+# (512 + CLS) rows take K5, its test rows (448 + CLS) the plain softmax.
+TF_SERVE_KERNEL = {(TF_MOL_CONFIG, "train"): "attention_dense",
+                   (TF_MOL_CONFIG, "valid"): "attention_dense",
+                   (TF_MOL_CONFIG, "test"): "attention_dense",
+                   (TF_CODE2_CONFIG, "valid"): "flash_attention",
+                   (TF_CODE2_CONFIG, "train"): "flash_attention",
+                   (TF_CODE2_CONFIG, "test"): None}
+
+
+def phase9_serve(device, tmp: str):
+    """(b) Both Transformer-only ymls through the serving entry point on
+    the snapshot (molpcba: all three splits; code2: valid and train, where
+    K5 runs, and test, whose rows of 449 take the plain softmax), launches
+    counted from 0 for each split; then the logits through the kernels
+    against the plain versions on the card, every batch of every split."""
+    from graphtrans_tpu_torch import predict
+    from graphtrans_tpu_torch.data.loader import iterate_batches
+    from graphtrans_tpu_torch.nn.transformer import graphs_per_row
+    from graphtrans_tpu_torch.ops import kernels
+
+    totals = collections.Counter()
+    for config, split_names in ((TF_MOL_CONFIG, ("train", "valid", "test")),
+                                (TF_CODE2_CONFIG, ("valid", "train", "test"))):
+        args = _tf_args(config)
+        splits, num_tasks, code = predict.load_splits(args)
+        for split in split_names:
+            out = os.path.join(tmp, f"tf_{split}.jsonl")
+            kernels.reset_launches()         # this split's serving path
+            t0 = time.perf_counter()
+            res = predict.main(["--configs", config, "--data_root", SNAPSHOT,
+                                "--split", split, "--seed", str(SEED),
+                                "--out", out])
+            secs = time.perf_counter() - t0
+            launches = {k: v for k, v in kernels.launch_counts().items() if v}
+            recs = [json.loads(line) for line in open(out)]
+            if (len(recs) != len(splits[split])
+                    or sorted(r["graph_id"] for r in recs)
+                    != list(range(len(splits[split])))):
+                raise AssertionError(f"{args.dataset} {split}: {len(recs)} "
+                                     f"records for {len(splits[split])}")
+            if code is None:
+                ok = all(len(r["logits"]) == num_tasks
+                         and all(math.isfinite(x) for x in r["logits"])
+                         for r in recs)
+            else:
+                ok = (all(len(r["tokens"]) == code.max_seq_len
+                          and 0 <= min(r["tokens"])
+                          and max(r["tokens"]) < num_tasks for r in recs)
+                      and 0.0 <= res["F1"] <= 1.0)
+            if not ok:
+                raise AssertionError(f"{args.dataset} {split}: malformed "
+                                     f"records or F1")
+            layout = predict.serving_layout(splits, args, num_tasks,
+                                            split=split)
+            S = layout["dense_cap"] + 1
+            gb = graphs_per_row(S)
+            kernel = TF_SERVE_KERNEL[(config, split)]
+            want = ({kernel: args.num_encoder_layers * res["batches"]}
+                    if kernel else {})
+            if launches != want:
+                raise AssertionError(f"{args.dataset} {split}: launches "
+                                     f"{launches}, expected {want}")
+            totals.update(launches)
+            f1 = "" if code is None else f", F1 {res['F1']:.6f}"
+            print(f"[9b] served the {args.dataset} {split} split through "
+                  f"graphtrans_tpu_torch.predict ({res['records']} graphs, "
+                  f"{res['batches']} batches of <= {args.batch_size}, rows of "
+                  f"{S} tokens, {gb} a packed row, kernel {kernel}{f1}; "
+                  f"{secs:.2f} s with the model build): launches {launches}")
+    if not (totals["attention_dense"] > 0 and totals["flash_attention"] > 0):
+        raise AssertionError(f"K4 or K5 never launched: {dict(totals)}")
+
+    for config in (TF_MOL_CONFIG, TF_CODE2_CONFIG):
+        args = _tf_args(config)
+        splits, num_tasks, code = predict.load_splits(args)
+        model = predict.build_model(args, num_tasks, device, code)
+        err = 0.0
+        with torch.inference_mode():
+            for split in ("train", "valid", "test"):
+                layout = predict.serving_layout(splits, args, num_tasks,
+                                                split=split)
+                for b in iterate_batches(splits[split], **layout):
+                    tb = b.to(device)
+                    gm = tb.graph_mask
+                    got = model(tb)[gm]
+                    kernels.set_kernels(model, False)
+                    plain = model(tb)[gm]
+                    kernels.set_kernels(model, True)
+                    if not torch.isfinite(got).all():
+                        raise AssertionError(f"{args.dataset}: logits not "
+                                             f"finite")
+                    err = max(err, (got - plain).abs().max().item())
+        if err > LOGITS_TOL:
+            raise AssertionError(f"{args.dataset} Transformer-only logits "
+                                 f"through the kernels differ from the plain "
+                                 f"versions by {err} > {LOGITS_TOL}")
+        print(f"[9b] {args.dataset} Transformer-only logits through the "
+              f"kernels match the plain versions on the card over all three "
+              f"splits: max |diff| {err:.3g} (<= {LOGITS_TOL})")
+    return totals
+
+
+def phase9_forward(device, mol_bench, code2_bench, code2_tasks: int,
+                   smi: str):
+    """(c) The Transformer-only forward of 4096 molecules and of 512 ASTs
+    in the flat unpacked layout at the published widths: median of 10
+    after 3 warm-ups, graphs/s, peak memory, and a torch.profiler split."""
+    import types
+
+    from graphtrans_tpu_torch.models import build_model
+    from graphtrans_tpu_torch.nn.init import init_weights
+
+    sizes = types.SimpleNamespace(num_nodetypes=20, num_nodeattributes=100,
+                                  max_seq_len=5)       # make_code_dataset's
+    for name, config, bench, tasks in (
+            ("molpcba", TF_MOL_CONFIG, mol_bench, 128),
+            ("code2", TF_CODE2_CONFIG, code2_bench, code2_tasks)):
+        args = _tf_args(config)
+        model = build_model(args, tasks, device, code=sizes)
+        init_weights(model, torch.Generator().manual_seed(SEED)).eval()
+        tb = bench.to(device)
+        n = int(bench.graph_mask.sum())
+        torch.cuda.reset_peak_memory_stats(device)
+        with torch.inference_mode():
+            _median_ms(lambda: model(tb), 3)                # warm-up
+            ms, lo, hi, out = _median_ms(lambda: model(tb), 10)
+        if not torch.isfinite(out[tb.graph_mask]).all():
+            raise AssertionError(f"{name} Transformer-only bench batch: "
+                                 f"logits not finite")
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        S = min(bench.max_nodes_dense, args.max_input_len) + 1
+        print(f"[9c] {name} Transformer-only forward of {n} graphs (flat, "
+              f"rows of {S} tokens, {args.num_encoder_layers} layers, "
+              f"d_model {args.d_model}): median {ms:.3f} ms over 10 (min "
+              f"{lo:.3f}, max {hi:.3f}), {n / ms * 1e3:.0f} graphs/s, peak "
+              f"memory {peak:.2f} GiB on {smi}")
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.inference_mode():
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                for _ in range(PROFILED_FORWARDS):
+                    model(tb)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / PROFILED_FORWARDS
+        _print_split("[9c]", f"{name} Transformer-only forward", prof,
+                     PROFILED_FORWARDS, wall, smi, graphs=n)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--trace", default=None,
@@ -1422,10 +1820,21 @@ def main(argv=None) -> int:
         code2_train_launches = phase8_train(device, tmp)
     phase8_step512(device, bench, bench_tasks, smi)
 
+    t0 = time.perf_counter()
+    mol_flat = mol_bench_batch(4096, SEED, flat=True)
+    code2_flat, flat_tasks = code2_bench_batch(CODE2_BENCH, SEED, flat=True)
+    print(f"[9] collated the flat 4096-molecule and {CODE2_BENCH}-AST batches "
+          f"in {time.perf_counter() - t0:.1f} s")
+    tf = phase9_kernels(device, mol_flat, code2_flat)
+    with tempfile.TemporaryDirectory() as tmp:
+        tf_launches = phase9_serve(device, tmp)
+    phase9_forward(device, mol_flat, code2_flat, flat_tasks, smi)
+
     k1, k2 = timing["timed"]
     k1b, k2b = train["timed"]
     k3, k7 = code2["timed"]
     k3b, k7b = code2_train["timed"]
+    k4, k5 = tf["timed"]
     rows = [
         dict(name="gin_agg_fwd", route="cuda",
              source="graphtrans_tpu_torch/csrc/gin_agg.cu",
@@ -1470,6 +1879,16 @@ def main(argv=None) -> int:
              replaces="none (JAX trains through ops/scatter.py)",
              launches=code2_train_launches["spmm_bwd"],
              max_abs_err=code2_train["k7_err"], **k7b),
+        dict(name="attention_dense_fwd", route="cuda",
+             source="graphtrans_tpu_torch/csrc/attention_packed.cu",
+             replaces="graphtrans_tpu/ops/pallas/attention_packed.py:326",
+             launches=tf_launches["attention_dense"],
+             max_abs_err=tf["k4_err"], **k4),
+        dict(name="flash_attention_fwd", route="cuda",
+             source="graphtrans_tpu_torch/csrc/flash_attention.cu",
+             replaces="graphtrans_tpu/ops/pallas/flash_attention.py:228",
+             launches=tf_launches["flash_attention"],
+             max_abs_err=tf["k5_err"], **k5),
     ]
     print(json.dumps({"kernels": rows}))
     print(smi)

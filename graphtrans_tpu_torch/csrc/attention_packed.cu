@@ -1,13 +1,19 @@
 // K2: segment-masked attention over packed rows, forward with attention
-// dropout and backward. Wrapper, plain version and design note:
+// dropout and backward; and K4: key-padding attention, optionally
+// block-diagonal, forward. Wrappers, plain versions and design notes:
 // graphtrans_tpu_torch/ops/kernels/attention_packed.py.
 //
-// qkv [R, W, 3d] (heads in lanes), seg [R, W] -> out [R, W, d].
-// Query i attends key j iff seg[i] == seg[j] >= 0. One block per (row,
-// head). Forward: one thread per query; K_h, V_h and seg are staged in
-// shared memory and read as broadcasts; q and the output stay in registers
-// and the softmax runs online (running max and denominator) in one pass
-// over keys. Dropout (torch semantics: normalise by the undropped
+// K2: qkv [R, W, 3d] (heads in lanes), seg [R, W] -> out [R, W, d].
+// Query i attends key j iff seg[i] == seg[j] >= 0. K4: qkv [B, S, 3d],
+// valid [B, S] -> out [B, S, d]; key j is attendable by query i iff
+// valid[j] and, with block > 0, i / block == j / block. Both forwards are
+// one kernel body with the mask as a template policy (SegMask, PadMask),
+// under two kernels (attention_seg_fwd_kernel, attention_dense_fwd_kernel).
+// One block per (row, head). Forward: one thread per query; K_h, V_h and
+// the row's tags (seg or valid) are staged in shared memory and read as
+// broadcasts; q and the output stay in registers and the softmax runs
+// online (running max and denominator) in one pass over the keys a query
+// can reach. Dropout (K2 only; torch semantics: normalise by the undropped
 // denominator, then drop and scale by 1/(1-rate)) keeps (i, j) iff
 // hash(pos, seed') < thresh, with pos = ((r % bt)*W + i)*sp + j and
 // seed' = seed + (r / bt)*H + h: the counter hash of the JAX package's
@@ -52,11 +58,42 @@ __device__ __forceinline__ bool keep(const Dropout& dr, unsigned hseed,
   return hash_bits(pos, hseed) < dr.thresh;
 }
 
-template <int HD>
-__global__ void attention_seg_fwd_kernel(const float* __restrict__ qkv,
-                                         const int* __restrict__ seg,
-                                         float* __restrict__ out, int W, int d,
-                                         float scale, Dropout dr) {
+constexpr int W_MAX = 384;  // widest row (threads a block)
+
+// K2's mask: query i attends key j iff seg[i] == seg[j] >= 0; a padding
+// query (seg -1) attends nothing and writes zeros. ti is the query's tag.
+struct SegMask {
+  const int* tag;  // shared [W]: seg
+  int block;       // unused
+  __device__ bool live(int ti) const { return ti >= 0; }
+  __device__ int first(int) const { return 0; }
+  __device__ int last(int, int W) const { return W; }
+  __device__ bool attends(int ti, int j) const { return tag[j] == ti; }
+};
+
+// K4's mask: key j is attendable by query i iff valid[j] and, with
+// block > 0, i and j share a block. Every query is live (a padding query
+// attends its block's valid keys); one whose block has no valid key writes
+// zeros. A query walks only its own block's keys.
+struct PadMask {
+  const int* tag;  // shared [W]: valid (0/1)
+  int block;       // 0: the whole row
+  __device__ bool live(int) const { return true; }
+  __device__ int first(int i) const { return block ? i / block * block : 0; }
+  __device__ int last(int i, int W) const {
+    return block ? min(W, first(i) + block) : W;
+  }
+  __device__ bool attends(int, int j) const { return tag[j] != 0; }
+};
+
+// The forward of K2 and K4: one block per (row, head), one thread per query.
+// Tag is the row tags' type in global memory: int (K2's seg) or unsigned
+// char (K4's valid, torch's bool as it lies).
+template <int HD, class Mask, typename Tag>
+__device__ __forceinline__ void attention_fwd_body(
+    const float* __restrict__ qkv, const Tag* __restrict__ tags,
+    float* __restrict__ out, int W, int d, float scale, Dropout dr,
+    int block) {
   extern __shared__ float smem[];
   float* ks = smem;                                  // [W][HD]
   float* vs = ks + W * HD;                           // [W][HD]
@@ -76,21 +113,23 @@ __global__ void attention_seg_fwd_kernel(const float* __restrict__ qkv,
     ks[idx] = row[j * d3 + d + h * HD + c];
     vs[idx] = row[j * d3 + 2 * d + h * HD + c];
   }
-  ss[i] = seg[r * W + i];
+  ss[i] = (int)tags[r * W + i];
   __syncthreads();
 
-  const int si = ss[i];
+  const Mask mask{ss, block};
+  const int ti = ss[i];
   float o[HD];
 #pragma unroll
   for (int c = 0; c < HD; ++c) o[c] = 0.f;
-  if (si >= 0) {
+  if (mask.live(ti)) {
     float q[HD];
     const float* qi = row + i * d3 + h * HD;
 #pragma unroll
     for (int c = 0; c < HD; ++c) q[c] = qi[c] * scale;
     float m = -INFINITY, l = 0.f;
-    for (int j = 0; j < W; ++j) {
-      if (ss[j] != si) continue;
+    const int j_end = mask.last(i, W);
+    for (int j = mask.first(i); j < j_end; ++j) {
+      if (!mask.attends(ti, j)) continue;
       const float* kj = ks + j * HD;
       float s = 0.f;
 #pragma unroll
@@ -116,6 +155,25 @@ __global__ void attention_seg_fwd_kernel(const float* __restrict__ qkv,
   float* oi = out + (r * W + i) * d + h * HD;
 #pragma unroll
   for (int c = 0; c < HD; ++c) oi[c] = o[c];
+}
+
+template <int HD>
+__global__ void attention_seg_fwd_kernel(const float* __restrict__ qkv,
+                                         const int* __restrict__ seg,
+                                         float* __restrict__ out, int W, int d,
+                                         float scale, Dropout dr, int block) {
+  attention_fwd_body<HD, SegMask>(qkv, seg, out, W, d, scale, dr, block);
+}
+
+// K4 at hd 64 needs ~168 registers a thread: the bound keeps a block of
+// 384 threads launchable.
+template <int HD>
+__global__ void __launch_bounds__(W_MAX)
+attention_dense_fwd_kernel(const float* __restrict__ qkv,
+                           const unsigned char* __restrict__ valid,
+                           float* __restrict__ out, int W, int d, float scale,
+                           Dropout dr, int block) {
+  attention_fwd_body<HD, PadMask>(qkv, valid, out, W, d, scale, dr, block);
 }
 
 template <int HD>
@@ -262,17 +320,19 @@ attention_seg_bwd_kernel(const float* __restrict__ qkv,
   }
 }
 
-template <int HD>
-int launch_fwd(const float* qkv, const int* seg, float* out, int R, int W,
-               int d, int H, Dropout dr, cudaStream_t stream) {
+// K/V of the row (196 KB at hd 64, W 384) take dynamic shared memory past
+// the 48 KB default, hence the attribute.
+template <typename Kernel, typename Tag>
+int launch_fwd(Kernel kernel, int HD, const float* qkv, const Tag* tags,
+               float* out, int R, int W, int d, int H, Dropout dr, int block,
+               cudaStream_t stream) {
   const size_t smem = (size_t)2 * W * HD * sizeof(float) + W * sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(
-      attention_seg_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(R, H);
-  attention_seg_fwd_kernel<HD><<<grid, W, smem, stream>>>(
-      qkv, seg, out, W, d, 1.f / sqrtf((float)HD), dr);
+  kernel<<<grid, W, smem, stream>>>(qkv, tags, out, W, d,
+                                    1.f / sqrtf((float)HD), dr, block);
   return cudaGetLastError();
 }
 
@@ -318,10 +378,28 @@ extern "C" int attention_seg_fwd(const float* qkv, const int* seg, float* out,
                                  int R, int W, int d, int H, int drop,
                                  unsigned thresh, float inv_keep, int seed,
                                  int bt, int sp, cudaStream_t stream) {
-  if (d != H * 32) return cudaErrorInvalidValue;  // hd 32: d_model 128, 4 heads
-  return launch_fwd<32>(qkv, seg, out, R, W, d, H,
-                        make_dropout(drop, thresh, inv_keep, seed, bt, sp),
-                        stream);
+  if (d != H * 32 || W > W_MAX) return cudaErrorInvalidValue;  // hd 32
+  return launch_fwd(attention_seg_fwd_kernel<32>, 32, qkv, seg, out, R, W, d,
+                    H, make_dropout(drop, thresh, inv_keep, seed, bt, sp), 0,
+                    stream);
+}
+
+// K4 forward: valid [B, S] one byte each (0/1: torch's bool), block 0 or
+// the graphs' width in a graph-packed row. Heads of width 32 or 64; S <= 384.
+extern "C" int attention_dense_fwd(const float* qkv,
+                                   const unsigned char* valid, float* out,
+                                   int B, int S, int d, int H, int block,
+                                   cudaStream_t stream) {
+  if (B <= 0 || S <= 0 || S > W_MAX || block < 0 || H <= 0 || d % H)
+    return cudaErrorInvalidValue;
+  const Dropout none = make_dropout(0, 0u, 1.f, 0, 1, 128);
+  if (d == H * 32)
+    return launch_fwd(attention_dense_fwd_kernel<32>, 32, qkv, valid, out, B,
+                      S, d, H, none, block, stream);
+  if (d == H * 64)
+    return launch_fwd(attention_dense_fwd_kernel<64>, 64, qkv, valid, out, B,
+                      S, d, H, none, block, stream);
+  return cudaErrorInvalidValue;
 }
 
 extern "C" int attention_seg_bwd(const float* qkv, const int* seg,

@@ -100,14 +100,20 @@ def make_code_dataset(num_graphs=200, vocab_size=40, seq_len_max=8,
     return graphs
 
 
-def mol_bench_batch(num_graphs: int = 4096, seed: int = 0):
+def mol_bench_batch(num_graphs: int = 4096, seed: int = 0,
+                    flat: bool = False):
     """One molpcba-shaped serving batch (``bench.py:build``'s shape):
     ``num_graphs`` graphs of 20-32 nodes with 128 tasks, in the strided
-    layout with one tier of packed transformer rows."""
+    layout with one tier of packed transformer rows; ``flat``: in the flat
+    layout, unpacked, with the dense width of its largest graph (the
+    Transformer-only model's batch)."""
     graphs = make_mol_dataset(num_graphs=num_graphs, num_tasks=128,
                               min_nodes=20, max_nodes=32, seed=seed)
-    _, edge_cap = dataset_caps(graphs, num_graphs)
+    node_cap, edge_cap = dataset_caps(graphs, num_graphs)
     stride = bucket_size(max(g["x"].shape[0] for g in graphs), 16)
+    if flat:
+        return collate(graphs, num_graphs + 1, node_cap, edge_cap,
+                       num_tasks=128, y_dtype="float32", dense_cap=stride)
     em = bucket_size(max(g["edge_index"].shape[1] for g in graphs), 8)
     return collate(graphs, num_graphs + 1, (num_graphs + 1) * stride,
                    edge_cap, num_tasks=128, y_dtype="float32",
@@ -116,12 +122,14 @@ def mol_bench_batch(num_graphs: int = 4096, seed: int = 0):
 
 
 def code2_bench_batch(num_graphs: int = 512, seed: int = 0,
-                      max_input_len: int = 1000):
+                      max_input_len: int = 1000, flat: bool = False):
     """One code2-shaped serving batch (``bench.py:build_code2``'s shape):
     ``num_graphs`` ASTs of the heavy-tailed code2 size distribution, edges
     augmented, five target positions, in the flat layout with the packing
-    tiers of its largest graph (1024, 384, 128 at 512 graphs). Returns
-    (batch, vocabulary size)."""
+    tiers of its largest graph (1024, 384, 128 at 512 graphs); ``flat``:
+    unpacked, with the dense width of its largest graph capped at
+    ``max_input_len`` (1000 at 512 graphs; the Transformer-only model's
+    batch). Returns (batch, vocabulary size)."""
     raw = make_code_dataset(num_graphs=num_graphs, vocab_size=5000,
                             seq_len_max=6, min_nodes=50, max_nodes=250,
                             seed=seed, size_dist="code2")
@@ -130,9 +138,12 @@ def code2_bench_batch(num_graphs: int = 512, seed: int = 0,
                    y_arr=encode_seq_to_arr(g["y_seq"], vocab2idx, 5))
               for g in raw]
     node_cap, edge_cap = dataset_caps(graphs, num_graphs)
-    widths = pack_widths(max(g["x"].shape[0] for g in graphs), max_input_len)
-    tiers = {f"seq_pack_w{t + 1 if t else ''}": w
-             for t, w in enumerate(widths)}
+    max_n = max(g["x"].shape[0] for g in graphs)
+    if flat:
+        tiers = {"dense_cap": min(bucket_size(max_n, 16), max_input_len)}
+    else:
+        tiers = {f"seq_pack_w{t + 1 if t else ''}": w
+                 for t, w in enumerate(pack_widths(max_n, max_input_len))}
     return collate(graphs, num_graphs + 1, node_cap, edge_cap,
                    max_input_len=max_input_len, num_tasks=len(vocab2idx),
                    max_seq_len=5, y_dtype="int32", **tiers), len(vocab2idx)

@@ -22,10 +22,12 @@ graphtrans_tpu_torch.predict --weights`` serves. It runs on the card unless
 Weights are drawn from ``--seed`` (default 0), and so are the two dropout
 generators (``nn/dropout.py:Generators``). With ``--scheduler plateau`` the
 lr stays at ``--lr``: the plateau scheduler steps on a valid metric, and
-evaluation arrives with slice 6, as do split metrics, multi-run, resume and
-checkpoints, FLAG and ``onecycle``, and the parallel modes with slice 7.
-bf16 (``--precision bf16``) arrives with slice 5. A flag that asks for one
-of these raises NotImplementedError naming its slice. The run is f32.
+evaluation arrives with slice 8, as do split metrics, multi-run, resume and
+checkpoints, FLAG and ``onecycle``, and the parallel modes with slice 9.
+bf16 (``--precision bf16``) arrives with slice 7, and training the
+Transformer-only model (``model_type transformer``, which ``predict``
+serves) with slice 6. A flag that asks for one of these raises
+NotImplementedError naming its slice. The run is f32.
 """
 
 from __future__ import annotations

@@ -1,0 +1,17 @@
+"""The port's models by ``model_type`` (``graphtrans_tpu/models/__init__.py``
+lists the JAX package's): "gnn-transformer" (GraphTrans) and "transformer"
+(the Transformer-only ablation)."""
+
+from __future__ import annotations
+
+from .gnn_transformer import build_gnn_transformer
+from .transformer import build_transformer
+
+
+def build_model(args, num_tasks: int, device=None, code=None):
+    """The model of a parsed config (``utils/config.py``); ``code`` (a
+    ``data.code.CodeData``) sizes code2's node encoder and heads. A
+    composition outside the ported slices raises NotImplementedError."""
+    if getattr(args, "model_type", "gnn-transformer") == "transformer":
+        return build_transformer(args, num_tasks, device, code)
+    return build_gnn_transformer(args, num_tasks, device, code)

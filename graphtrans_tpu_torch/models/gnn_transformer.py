@@ -47,7 +47,8 @@ def packed_transformer_stage(encoder: TransformerNodeEncoder,
         dense = pack_gather(src, node, getattr(batch, f"{name}_inv"))
         seg = getattr(batch, f"{name}_seg").reshape(R, W)
         cls_mask = (seg >= 0) & (node.reshape(R, W) == N)
-        out = encoder(dense.reshape(R, W, d), seg, cls_mask, gen)
+        out = encoder(dense.reshape(R, W, d), seg=seg, cls_mask=cls_mask,
+                      gen=gen)
         flats.append(out.reshape(R * W, d))
     flat = flats[0] if len(flats) == 1 else torch.cat(flats)
     return flat.index_select(0, batch.pack_cls_slot.long())
@@ -89,8 +90,8 @@ class GNNTransformer(nn.Module):
         feeds dropout in training mode."""
         if not use_seq_pack(batch, "cls", self.num_encoder_layers):
             raise NotImplementedError(
-                "only seq-packed batches are ported; the dense transformer "
-                "route (K4, K5) is still to port")
+                "GraphTrans runs seq-packed batches; its unpacked route "
+                "(non-CLS pooling, the masked encoder) arrives with slice 7")
         h_node = self.gnn2transformer(self.gnn_node(batch, gen))
         h_graph = packed_transformer_stage(self.transformer_encoder, h_node,
                                            batch, gen)
@@ -100,16 +101,29 @@ class GNNTransformer(nn.Module):
 # (dataset kind, gnn_type) compositions the port runs: the published
 # molpcba and code2 GraphTrans configs
 _PORTED = {("mol", "gin"), ("code2", "gcn")}
-_SUPPORTED = {
-    "model_type": ("gnn-transformer",),
-    "gnn_JK": ("cat",),
-    "graph_pooling": ("cls",),
+# the transformer options both model types run
+_ENCODER = {
     "transformer_activation": ("relu",),
-    "gnn_residual": (False,),
     "num_encoder_layers_masked": (0,),
     "transformer_prenorm": (False,),
     "pos_encoder": (False,),
 }
+_SUPPORTED = {
+    "model_type": ("gnn-transformer",),
+    "gnn_JK": ("cat",),
+    "graph_pooling": ("cls",),
+    "gnn_residual": (False,),
+    **_ENCODER,
+}
+
+
+def _check_supported(args, supported: dict):
+    for key, ok in supported.items():
+        value = getattr(args, key, ok[0])
+        if value not in ok:
+            raise NotImplementedError(
+                f"{key}={value!r} is not ported yet (the port runs "
+                f"{key} in {ok})")
 
 
 def dataset_kind(dataset: str) -> str:
@@ -126,12 +140,7 @@ def build_gnn_transformer(args, num_tasks: int, device=None,
     """The model of a parsed config (``utils/config.py``); ``code`` (a
     ``data.code.CodeData``) sizes code2's node encoder and heads. A
     composition outside the ported slices raises NotImplementedError."""
-    for key, ok in _SUPPORTED.items():
-        value = getattr(args, key, ok[0])
-        if value not in ok:
-            raise NotImplementedError(
-                f"{key}={value!r} is not ported yet (the port runs "
-                f"{key} in {ok})")
+    _check_supported(args, _SUPPORTED)
     kind = dataset_kind(getattr(args, "dataset", "ogbg-molpcba"))
     if (kind, args.gnn_type) not in _PORTED:
         raise NotImplementedError(

@@ -3,14 +3,18 @@ version. A wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches its kernel (built at first use by ``_build``) or
 raises, and counts the launch in its ``launches`` attribute. The forward
 wrappers are ``torch.autograd.Function``s on CUDA tensors whose backward
-is the matching ``*_bwd`` kernel wrapper."""
+is the matching ``*_bwd`` kernel wrapper (K4 and K5 have none yet: their
+backward raises)."""
 
 from __future__ import annotations
 
 from torch import nn
 
-from .attention_packed import (attention_seg, attention_seg_bwd,
+from .attention_packed import (attention_dense, attention_dense_plain,
+                               attention_seg, attention_seg_bwd,
                                attention_seg_bwd_plain, attention_seg_plain)
+from .flash_attention import (flash_attention, flash_attention_plain,
+                              key_padding_segs)
 from .flash_hil import (flash_hil_seg, flash_hil_seg_bwd,
                         flash_hil_seg_bwd_plain, flash_hil_seg_plain)
 from .gin_agg import gin_agg, gin_agg_bwd, gin_agg_bwd_plain, gin_agg_plain
@@ -18,7 +22,8 @@ from .spmm import (SrcOrder, spmm, spmm_bwd, spmm_bwd_plain, spmm_plain,
                    src_order)
 
 WRAPPERS = (gin_agg, gin_agg_bwd, attention_seg, attention_seg_bwd,
-            flash_hil_seg, flash_hil_seg_bwd, spmm, spmm_bwd)
+            flash_hil_seg, flash_hil_seg_bwd, spmm, spmm_bwd,
+            attention_dense, flash_attention)
 
 
 def reset_launches():
@@ -40,10 +45,12 @@ def set_kernels(model: nn.Module, enabled: bool) -> nn.Module:
     return model
 
 
-__all__ = ["attention_seg", "attention_seg_bwd", "attention_seg_bwd_plain",
-           "attention_seg_plain", "flash_hil_seg", "flash_hil_seg_bwd",
-           "flash_hil_seg_bwd_plain", "flash_hil_seg_plain", "gin_agg",
-           "gin_agg_bwd", "gin_agg_bwd_plain", "gin_agg_plain",
+__all__ = ["attention_dense", "attention_dense_plain", "attention_seg",
+           "attention_seg_bwd", "attention_seg_bwd_plain",
+           "attention_seg_plain", "flash_attention", "flash_attention_plain",
+           "flash_hil_seg", "flash_hil_seg_bwd", "flash_hil_seg_bwd_plain",
+           "flash_hil_seg_plain", "gin_agg", "gin_agg_bwd",
+           "gin_agg_bwd_plain", "gin_agg_plain", "key_padding_segs",
            "launch_counts", "reset_launches", "set_kernels", "spmm",
            "spmm_bwd", "spmm_bwd_plain", "spmm_plain", "src_order",
            "SrcOrder", "WRAPPERS"]

@@ -1,5 +1,7 @@
 """K2: segment-masked attention over packed transformer rows, with
-attention dropout, and its backward.
+attention dropout, and its backward; and K4: key-padding attention over
+unpacked rows, optionally block-diagonal, forward (``attention_dense``,
+below).
 
 qkv ``[R, W, 3d]`` is the combined projection output with heads in lanes
 (lane c of each d-slice belongs to head ``c // hd``); seg ``[R, W]`` holds
@@ -39,6 +41,24 @@ and dO_h in shared memory; a pass with one thread per query recomputes the
 softmax statistics and delta and writes dq, then a pass with one thread per
 key writes dk and dv. Keys (queries) of other segments are skipped; every
 output cell has one writer, so there are no atomics.
+
+K4 replaces ``graphtrans_tpu/ops/pallas/attention_packed.py:
+attention_packed_qkv`` (forward ``_call_fwd``, mask ``_head_masks``): qkv
+``[B, S, 3d]``, key_valid ``[B, S]``, ``block``; key j is attendable by
+query i iff ``key_valid[j]`` and, with ``block > 0``, ``i // block == j //
+block``. Unlike K2 a padding query is not masked: it attends its block's
+valid keys; only a query whose block has no valid key outputs zeros. Its
+main path is the Transformer-only model on molecules, where ``128 // S``
+graphs of S tokens share a row and ``block = S`` (1366 rows of 99 at 4096
+molecules, d 256, 4 heads of 64). Bound on the H100: memory (q in and out
+back for every query, K and V in for the valid keys only: ~503 MB, ~0.15
+ms; the same-block pairs need ~3.8 GFLOP). The kernel reads key_valid as
+torch's one-byte bool, so no conversion precedes a launch. Design:
+K2's forward kernel with the mask as a template policy (``PadMask``); a
+query walks only its own block's keys, and K/V of a row of up to 384
+tokens sit in dynamic shared memory (196 KB at hd 64). Heads of width 32
+and 64. The backward and dropout arrive with the slice that trains the
+Transformer-only family.
 """
 
 from __future__ import annotations
@@ -100,30 +120,42 @@ def keep_mask(R: int, W: int, nhead: int, rate: float, seed: int,
     return torch.from_numpy(keep).to(device)
 
 
-def attention_seg_plain(qkv: torch.Tensor, seg: torch.Tensor, nhead: int,
-                        rate: float = 0.0, seed: int = 0,
-                        keep=None) -> torch.Tensor:
-    """Plain PyTorch version of K2: same arguments, same result (the same
-    dropout mask); autograd differentiates it. ``keep`` (bool [R, H, W, W])
-    replaces K2's mask at ``rate > 0`` (K3 draws its own)."""
+def masked_attention(qkv: torch.Tensor, nhead: int, mask: torch.Tensor,
+                     rate: float = 0.0, keep=None) -> torch.Tensor:
+    """Softmax attention of qkv ``[R, W, 3d]`` (heads in lanes) under the
+    bool ``mask`` ``[R, 1, W, W]`` (query, key), as the JAX package's
+    ``masked_softmax``: scores scaled by ``1/sqrt(hd)``, the row max
+    subtracted, the sum clamped at 1e-16 (a query with no key gets zeros),
+    then ``keep`` (bool ``[R, H, W, W]``) dropout at ``rate``. Output
+    ``[R, W, d]``."""
     R, W, d3 = qkv.shape
     d = d3 // 3
     hd = d // nhead
     q, k, v = (t.reshape(R, W, nhead, hd).transpose(1, 2)
                for t in qkv.split(d, dim=-1))                 # [R, H, W, hd]
     s = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
-    seg = seg.long()
-    mask = ((seg[:, :, None] == seg[:, None, :])
-            & (seg >= 0)[:, None, :])[:, None]               # [R, 1, W, W]
     s = s.masked_fill(~mask, -1e30)
     e = torch.exp(s - s.amax(dim=-1, keepdim=True).detach()).masked_fill(
         ~mask, 0.0)
     p = e / e.sum(dim=-1, keepdim=True).clamp_min(1e-16)
     if rate > 0.0:
-        if keep is None:
-            keep = keep_mask(R, W, nhead, rate, seed, qkv.device)
         p = p * keep.to(p.dtype) * (1.0 / (1.0 - rate))
     return torch.matmul(p, v).transpose(1, 2).reshape(R, W, d)
+
+
+def attention_seg_plain(qkv: torch.Tensor, seg: torch.Tensor, nhead: int,
+                        rate: float = 0.0, seed: int = 0,
+                        keep=None) -> torch.Tensor:
+    """Plain PyTorch version of K2: same arguments, same result (the same
+    dropout mask); autograd differentiates it. ``keep`` (bool [R, H, W, W])
+    replaces K2's mask at ``rate > 0`` (K3 draws its own)."""
+    R, W, _ = qkv.shape
+    seg = seg.long()
+    mask = ((seg[:, :, None] == seg[:, None, :])
+            & (seg >= 0)[:, None, :])[:, None]               # [R, 1, W, W]
+    if rate > 0.0 and keep is None:
+        keep = keep_mask(R, W, nhead, rate, seed, qkv.device)
+    return masked_attention(qkv, nhead, mask, rate, keep)
 
 
 def attention_seg_bwd_plain(qkv, seg, nhead, gout, rate=0.0, seed=0):
@@ -254,9 +286,105 @@ def attention_seg_bwd(qkv: torch.Tensor, seg: torch.Tensor, nhead: int,
 attention_seg_bwd.launches = 0
 
 
+# ---- K4: key-padding attention, optionally block-diagonal -----------------
+
+DENSE_HEAD_DIMS = (32, 64)   # the head widths attention_dense_fwd compiles
+
+
+def attention_dense_plain(qkv: torch.Tensor, key_valid: torch.Tensor,
+                          nhead: int, block: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of K4: key j is attendable by query i iff
+    ``key_valid[j]`` and, with ``block > 0``, ``i // block == j // block``.
+    A padding query attends its block's valid keys; a query whose block
+    has no valid key gets exact zeros."""
+    S = qkv.shape[1]
+    mask = key_valid.bool()[:, None, None, :]                 # [B, 1, 1, S]
+    if block > 0:
+        grp = torch.arange(S, device=qkv.device) // block
+        mask = mask & (grp[:, None] == grp[None, :])
+    return masked_attention(qkv, nhead, mask.expand(-1, 1, S, S))
+
+
+def _check_dense(qkv, key_valid, nhead, block):
+    B, S, d3 = qkv.shape
+    d = d3 // 3
+    if d3 % 3 or d % nhead:
+        raise ValueError(f"attention_dense: width {d3} is not 3*nhead*hd")
+    if d // nhead not in DENSE_HEAD_DIMS:
+        raise ValueError(f"attention_dense: head width {d // nhead}; the "
+                         f"kernel is built for {DENSE_HEAD_DIMS}")
+    if S > W_MAX:
+        raise ValueError(f"attention_dense: rows of {S} > {W_MAX} tokens")
+    if block < 0:
+        raise ValueError(f"attention_dense: block {block} < 0")
+    if qkv.dtype != torch.float32 or key_valid.dtype != torch.bool:
+        raise ValueError("attention_dense: expected float32 qkv, bool "
+                         "key_valid")
+    if tuple(key_valid.shape) != (B, S) or key_valid.device != qkv.device:
+        raise ValueError(f"attention_dense: key_valid "
+                         f"{tuple(key_valid.shape)} on {key_valid.device} "
+                         f"does not match qkv")
+    if not qkv.is_contiguous():
+        raise ValueError("attention_dense: qkv must be contiguous")
+
+
+def _launch_dense(qkv, key_valid, nhead, block):
+    B, S, d3 = qkv.shape
+    out = torch.empty((B, S, d3 // 3), dtype=qkv.dtype, device=qkv.device)
+    if out.numel() == 0:
+        return out
+    valid = key_valid.contiguous()     # the bool itself: one byte a key
+    lib = _load()
+    err = lib.attention_dense_fwd(
+        ctypes.c_void_p(qkv.data_ptr()), ctypes.c_void_p(valid.data_ptr()),
+        ctypes.c_void_p(out.data_ptr()), B, S, d3 // 3, nhead, block,
+        _stream(qkv))
+    _build.check(lib, err, "attention_dense_fwd")
+    attention_dense.launches += 1
+    return out
+
+
+class _AttentionDense(torch.autograd.Function):
+    """K4 on CUDA tensors; its backward kernel is still to port."""
+
+    @staticmethod
+    def forward(ctx, qkv, key_valid, nhead, block):
+        return _launch_dense(qkv, key_valid, nhead, block)
+
+    @staticmethod
+    def backward(ctx, gout):
+        raise NotImplementedError(
+            "K4's backward (graphtrans_tpu/ops/pallas/attention_packed.py:"
+            "393) arrives with slice 6, training the Transformer-only model")
+
+
+def attention_dense(qkv: torch.Tensor, key_valid: torch.Tensor, nhead: int,
+                    block: int = 0) -> torch.Tensor:
+    """K4 forward: qkv ``[B, S, 3d]`` (heads in lanes), key_valid bool
+    ``[B, S]``, ``block`` 0 or the width of each graph in a graph-packed
+    row. CPU tensors take ``attention_dense_plain``; CUDA tensors launch
+    the kernel or raise (and a gradient through it raises: no backward
+    kernel yet)."""
+    if qkv.device.type == "cpu":
+        return attention_dense_plain(qkv, key_valid, nhead, block)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"attention_dense: unsupported device {qkv.device}")
+    _check_dense(qkv, key_valid, nhead, block)
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _AttentionDense.apply(qkv, key_valid, nhead, block)
+    return _launch_dense(qkv, key_valid, nhead, block)
+
+
+attention_dense.launches = 0
+
+
 def _load():
     lib = _build.load("attention_packed")
     if lib.attention_seg_fwd.argtypes is None:
+        lib.attention_dense_fwd.argtypes = ([ctypes.c_void_p] * 3
+                                            + [ctypes.c_int] * 5
+                                            + [ctypes.c_void_p])
+        lib.attention_dense_fwd.restype = ctypes.c_int
         drop = [ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_int,
                 ctypes.c_int, ctypes.c_int]
         lib.attention_seg_fwd.argtypes = ([ctypes.c_void_p] * 3

@@ -9,6 +9,10 @@ usage: python -m graphtrans_tpu_torch.predict --configs <molpcba or code2 yml> \
            --data_root data_snapshots --split test --batch_size 64 \
            --out preds.jsonl [--weights w.pt] [--seed 0] [--device cuda|cpu]
 
+The configs are GraphTrans (``configs/*/gnn-transformer/...``) or the
+Transformer-only model (``configs/{molpcba,code2}/transformer/
+pooling=cls.yml``).
+
 Weights come from ``--weights`` (a ``torch.save``d state dict of this
 package's model, e.g. converted from the JAX package with
 ``utils/flax_weights.py``) or are drawn at random from ``--seed``. Runs on
@@ -23,16 +27,16 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch import nn
 
-from . import resolve_device
+from . import models, resolve_device
 from .data.batch import bucket_size
 from .data.code import load_code_splits
 from .data.evaluators import eval_f1_seq
 from .data.loader import (dataset_caps, iterate_batches, pack_widths,
                           sample_pack_rows)
 from .data.mol import load_mol_splits
-from .models.gnn_transformer import (GNNTransformer, build_gnn_transformer,
-                                     dataset_kind)
+from .models.gnn_transformer import dataset_kind
 from .nn.init import init_weights
 from .utils.config import parse_with_config
 
@@ -112,19 +116,32 @@ def serving_layout(splits: dict, args, num_tasks: int,
     ``iterate_batches``. ``seed`` is the loader's (``--seed`` for the
     shuffled train loader, 0 for evaluation): it draws code2's row caps.
 
-    Molecules take the strided layout (stride and per-graph edge slots
-    bucketed from the largest graph of any split) and one tier of packed
-    rows of width ``bucket_size(stride + 1, 128)``. ogbg-code2 takes the
+    GraphTrans on molecules takes the strided layout (stride and per-graph
+    edge slots bucketed from the largest graph of any split) and one tier of
+    packed rows of width ``bucket_size(stride + 1, 128)``; on ogbg-code2 the
     flat layout (node and edge caps from every split) with the packing
     tiers of the split's largest graph (``loader.pack_widths``) and row
-    caps sampled from the real packer (``loader.sample_pack_rows``)."""
+    caps sampled from the real packer (``loader.sample_pack_rows``). The
+    Transformer-only model takes the flat layout on every dataset, unpacked:
+    its dense width is ``bucket_size(n, 16)`` of the split's largest graph,
+    capped at ``max_input_len``, as each loader of the JAX package sizes
+    it (``graphtrans_tpu/data/loader.py:149``)."""
     graphs = sum(splits.values(), [])
     eval_bs = batch_size or args.eval_batch_size or args.batch_size
     node_cap, edge_cap = dataset_caps(graphs, max(
         args.batch_size, args.eval_batch_size or args.batch_size))
-    if dataset_kind(args.dataset) == "code2":
+    code2 = dataset_kind(args.dataset) == "code2"
+    if code2 or args.model_type == "transformer":
         mine = splits[split or args.split]
         max_n = max(int(g["x"].shape[0]) for g in mine)
+    if args.model_type == "transformer":
+        targets = (dict(y_dtype="int32", max_seq_len=args.max_seq_len or 5)
+                   if code2 else dict(y_dtype="float32"))
+        return dict(batch_size=eval_bs, node_cap=node_cap, edge_cap=edge_cap,
+                    num_tasks=num_tasks, max_input_len=args.max_input_len,
+                    dense_cap=min(bucket_size(max_n, 16), args.max_input_len),
+                    **targets)
+    if code2:
         widths = pack_widths(max_n, args.max_input_len)
         rows = sample_pack_rows(mine, eval_bs, node_cap, edge_cap, widths,
                                 args.max_input_len, seed)
@@ -145,7 +162,8 @@ def serving_layout(splits: dict, args, num_tasks: int,
     if max_n > 128 or stride > args.max_input_len:
         raise NotImplementedError(
             f"molecules of {max_n} nodes would take the flat layout, where "
-            "GIN is not ported (the port's flat layout serves GCN, code2)")
+            "GIN is not ported (the port's flat layout serves GCN, code2, "
+            "and the Transformer-only model)")
     pack_w = bucket_size(min(max_n, args.max_input_len) + 1, 128)
     return dict(batch_size=eval_bs, node_cap=(eval_bs + 1) * stride,
                 edge_cap=edge_cap, num_tasks=num_tasks, y_dtype="float32",
@@ -153,10 +171,10 @@ def serving_layout(splits: dict, args, num_tasks: int,
                 dense_edge_cap=bucket_size(max_e, 8), seq_pack_w=pack_w)
 
 
-def build_model(args, num_tasks: int, device, code=None) -> GNNTransformer:
-    """The config's model in eval mode, with ``--weights`` or random
-    weights drawn from ``--seed``."""
-    model = build_gnn_transformer(args, num_tasks, device=device, code=code)
+def build_model(args, num_tasks: int, device, code=None) -> nn.Module:
+    """The config's model (``--model_type``) in eval mode, with
+    ``--weights`` or random weights drawn from ``--seed``."""
+    model = models.build_model(args, num_tasks, device=device, code=code)
     if args.weights:
         model.load_state_dict(torch.load(args.weights, map_location=device,
                                          weights_only=True))
@@ -165,7 +183,7 @@ def build_model(args, num_tasks: int, device, code=None) -> GNNTransformer:
     return model.eval()
 
 
-def predict_split(model: GNNTransformer, graphs, layout: dict, out: str,
+def predict_split(model: nn.Module, graphs, layout: dict, out: str,
                   device, code=None) -> dict:
     """Write one JSON record per graph of ``graphs`` to ``out``; with
     ``code`` (ogbg-code2) the records hold tokens and subtokens, and the

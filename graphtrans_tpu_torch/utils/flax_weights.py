@@ -1,11 +1,13 @@
-"""Weights of the JAX package's GraphTrans model carried into the port.
+"""Weights of the JAX package's models carried into the port.
 
 ``load_flax_variables(model, params, batch_stats)`` takes the flax
 ``params`` and ``batch_stats`` trees as nested dicts of numpy arrays (keys
 are flax paths) and fills the port's ``GNNTransformer``: the molpcba tree
 (atom encoder, GIN convs with bond tables, ``head/head``) or the code2 tree
 (``node_encoder/{type,attr,depth}_emb``, GCN convs with a linear edge
-encoder and ``root_emb``, ``head/head_0..L-1``). Dense kernels are
+encoder and ``root_emb``, ``head/head_0..L-1``); or its Transformer-only
+``TransformerModule`` (``node_encoder``, ``transformer/{cls_embedding,
+norm_input, layer_i/..., final_norm}``, ``head``). Dense kernels are
 stored ``[in, out]`` by flax and ``[out, in]`` by ``nn.Linear``, so they are
 transposed; ``in_proj`` is ``[d, 3d]`` with q|k|v in that order, as in
 ``nn.Linear(d, 3d)``. Every flax leaf must be consumed and every parameter
@@ -47,16 +49,46 @@ def _plan(model) -> dict:
             leaf(f"{port}.running_mean", path + ("mean",), "batch_stats")
             leaf(f"{port}.running_var", path + ("var",), "batch_stats")
 
+    def node_encoder(port, enc):
+        if isinstance(enc, ASTNodeEncoder):
+            for name in ("type_emb", "attr_emb", "depth_emb"):
+                leaf(f"{port}.{name}.weight", ("node_encoder", name))
+        else:
+            for i in range(len(enc.embs)):
+                leaf(f"{port}.embs.{i}.weight", ("node_encoder", f"emb_{i}"))
+
+    def encoder(port, enc):          # its flax name is the port's
+        fe = (port,)
+        leaf(f"{port}.cls_embedding", fe + ("cls_embedding",))
+        if enc.norm_input is not None:
+            norm(f"{port}.norm_input", fe + ("norm_input",))
+        norm(f"{port}.final_norm", fe + ("final_norm",))
+        for i in range(len(enc.layers)):
+            p, fp = f"{port}.layers.{i}", fe + (f"layer_{i}",)
+            fa = fp + ("MultiheadSelfAttention_0",)
+            leaf(f"{p}.self_attn.in_proj.weight", fa + ("in_proj",), t=True)
+            leaf(f"{p}.self_attn.in_proj.bias", fa + ("in_proj_bias",))
+            leaf(f"{p}.self_attn.out_proj.weight", fa + ("out_proj",), t=True)
+            leaf(f"{p}.self_attn.out_proj.bias", fa + ("out_proj_bias",))
+            dense(f"{p}.linear1", fp + ("TDense_0",))
+            dense(f"{p}.linear2", fp + ("TDense_1",))
+            norm(f"{p}.norm1", fp + ("LayerNorm_0",))
+            norm(f"{p}.norm2", fp + ("LayerNorm_1",))
+
+    def head(h):
+        if h.max_seq_len is None:
+            dense("head.head", ("head", "head"))
+        else:
+            for i in range(h.max_seq_len):
+                dense(f"head.heads.{i}", ("head", f"head_{i}"))
+
+    if not hasattr(model, "gnn_node"):          # the Transformer-only model
+        node_encoder("node_encoder", model.node_encoder)
+        encoder("transformer", model.transformer)
+        head(model.head)
+        return P
     g = model.gnn_node
-    enc = g.atom_encoder
-    if isinstance(enc, ASTNodeEncoder):
-        for name in ("type_emb", "attr_emb", "depth_emb"):
-            leaf(f"gnn_node.atom_encoder.{name}.weight",
-                 ("node_encoder", name))
-    else:
-        for i in range(len(enc.embs)):
-            leaf(f"gnn_node.atom_encoder.embs.{i}.weight",
-                 ("node_encoder", f"emb_{i}"))
+    node_encoder("gnn_node.atom_encoder", g.atom_encoder)
     for i, conv in enumerate(g.convs):
         c, fc = f"gnn_node.convs.{i}", ("gnn_node", f"conv_{i}")
         if isinstance(conv, GCNConv):
@@ -83,33 +115,14 @@ def _plan(model) -> dict:
             dense(f"{v}.lin2", fv + ("TDense_1",))
             norm(f"{v}.bn2", fv + ("MaskedBatchNorm_1",), batch_stats=True)
     dense("gnn2transformer", ("gnn2transformer",))
-    enc, fe = model.transformer_encoder, ("transformer_encoder",)
-    leaf("transformer_encoder.cls_embedding", fe + ("cls_embedding",))
-    if enc.norm_input is not None:
-        norm("transformer_encoder.norm_input", fe + ("norm_input",))
-    norm("transformer_encoder.final_norm", fe + ("final_norm",))
-    for i in range(len(enc.layers)):
-        p, fp = f"transformer_encoder.layers.{i}", fe + (f"layer_{i}",)
-        fa = fp + ("MultiheadSelfAttention_0",)
-        leaf(f"{p}.self_attn.in_proj.weight", fa + ("in_proj",), t=True)
-        leaf(f"{p}.self_attn.in_proj.bias", fa + ("in_proj_bias",))
-        leaf(f"{p}.self_attn.out_proj.weight", fa + ("out_proj",), t=True)
-        leaf(f"{p}.self_attn.out_proj.bias", fa + ("out_proj_bias",))
-        dense(f"{p}.linear1", fp + ("TDense_0",))
-        dense(f"{p}.linear2", fp + ("TDense_1",))
-        norm(f"{p}.norm1", fp + ("LayerNorm_0",))
-        norm(f"{p}.norm2", fp + ("LayerNorm_1",))
-    if model.head.max_seq_len is None:
-        dense("head.head", ("head", "head"))
-    else:
-        for i in range(model.head.max_seq_len):
-            dense(f"head.heads.{i}", ("head", f"head_{i}"))
+    encoder("transformer_encoder", model.transformer_encoder)
+    head(model.head)
     return P
 
 
 def load_flax_variables(model, params: dict, batch_stats: dict):
-    """Copy the flax variables into ``model`` (a ``GNNTransformer``) in
-    place and return it."""
+    """Copy the flax variables into ``model`` (a ``GNNTransformer`` or a
+    ``TransformerModule``) in place and return it."""
     leaves = {("params",) + p: v for p, v in _flatten(params)}
     leaves.update({("batch_stats",) + p: v for p, v in _flatten(batch_stats)})
     plan = _plan(model)

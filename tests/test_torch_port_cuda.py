@@ -575,3 +575,141 @@ def test_code2_train_step_kernels_match_plain(cuda, deterministic):
         assert diff.max().item() <= 2 * args.lr + 1e-6, name
         assert torch.where(firm, diff, 0.0).max().item() <= (
             1e-6 + 0.01 * args.lr), name
+
+
+# ---- the Transformer-only model: K4 (attention_dense), K5 (flash_attention)
+
+
+def _dense_valid(B, S, block, gen):
+    """A key mask with padding keys everywhere, one block (block 0: one
+    row) without a valid key, and each graph's CLS key valid."""
+    valid = torch.rand(B, S, generator=gen) < 0.6
+    last = (torch.arange(S) % block == block - 1) if block else (
+        torch.arange(S) == S - 1)
+    valid |= last
+    valid[1, block:2 * block] = False
+    if block == 0:
+        valid[1] = False
+    return valid
+
+
+def _live(valid, block):
+    B, S = valid.shape
+    if block == 0:
+        return valid.any(-1, keepdim=True).expand(B, S)
+    return valid.reshape(B, S // block, block).any(-1).repeat_interleave(
+        block, dim=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,block,d,H", [
+    (98, 49, 256, 4), (99, 33, 256, 4), (257, 0, 256, 4), (384, 0, 128, 4),
+    (128, 64, 64, 2)])
+def test_attention_dense_kernel_matches_plain(cuda, S, block, d, H):
+    """K4 at the Transformer-only model's shapes (rows of two 49-token or
+    three 33-token graphs, rows of 257) and hd 32: padding queries in a
+    live block attend its keys; a block without a valid key gives zeros."""
+    from graphtrans_tpu_torch.ops.kernels import (attention_dense,
+                                                  attention_dense_plain)
+
+    gen = torch.Generator().manual_seed(S + d)
+    B = 7
+    qkv = torch.randn(B, S, 3 * d, generator=gen).to(cuda)
+    valid = _dense_valid(B, S, block, gen).to(cuda)
+    before = attention_dense.launches
+    got = attention_dense(qkv, valid, H, block)
+    torch.cuda.synchronize()
+    assert attention_dense.launches == before + 1
+    want = attention_dense_plain(qkv, valid, H, block)
+    assert (got - want).abs().max().item() <= K2_TOL
+    live = _live(valid, block)
+    assert not got[~live].any() and (got[live].abs().sum(-1) > 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,d,H", [(1001, 256, 4), (513, 256, 4),
+                                   (1001, 128, 4), (600, 256, 2)])
+@pytest.mark.parametrize("form", ["key_padding", "seg"])
+def test_flash_attention_kernel_matches_plain(cuda, S, d, H, form):
+    """K5 at code2's row widths, heads of 64, 32 and 128, with a key-padding
+    mask (graph rows of ~125 nodes and a CLS key, one row without a valid
+    key) or a segment mask."""
+    from graphtrans_tpu_torch.ops.kernels import (flash_attention,
+                                                  flash_attention_plain,
+                                                  key_padding_segs)
+
+    gen = torch.Generator().manual_seed(S + d + H)
+    B = 6
+    qkv = torch.randn(B, S, 3 * d, generator=gen).to(cuda)
+    if form == "key_padding":
+        n = torch.randint(9, 300, (B,), generator=gen)
+        valid = torch.arange(S)[None, :] < n[:, None]
+        valid[:, -1] = True
+        valid[2] = False
+        segq, segk = key_padding_segs(valid.to(cuda))
+    else:
+        seg = (torch.arange(S)[None, :] // torch.randint(
+            40, 400, (B, 1), generator=gen)).int()
+        seg[:, S - 37:] = -1
+        seg[3] = -1
+        segq = segk = seg.to(cuda)
+    before = flash_attention.launches
+    got = flash_attention(qkv, segq, segk, H)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(qkv, segq, segk, H)
+    assert (got - want).abs().max().item() <= K2_TOL
+    live = ((segq[:, :, None] == segk[:, None, :])
+            & (segk >= 0)[:, None, :]).any(-1)
+    assert not got[~live].any() and (got[live].abs().sum(-1) > 0).all()
+
+
+@pytest.mark.cuda
+def test_k4_k5_refuse_other_widths_and_gradients(cuda):
+    """Head widths the kernels do not compile raise, naming those they do;
+    a gradient through either raises (their backward is a later slice's)."""
+    from graphtrans_tpu_torch.ops.kernels import (attention_dense,
+                                                  flash_attention,
+                                                  key_padding_segs)
+
+    valid = torch.ones(2, 600, dtype=torch.bool, device=cuda)
+    segs = key_padding_segs(valid)
+    with pytest.raises(ValueError, match=r"\(32, 64, 128\)"):
+        flash_attention(torch.randn(2, 600, 3 * 96, device=cuda), *segs, 2)
+    with pytest.raises(ValueError, match=r"\(32, 64\)"):
+        attention_dense(torch.randn(2, 96, 3 * 256, device=cuda),
+                        valid[:, :96], 2, 48)
+    qkv = torch.randn(2, 600, 3 * 128, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        flash_attention(qkv, *segs, 2).sum().backward()
+    qkv = torch.randn(2, 96, 3 * 128, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        attention_dense(qkv, valid[:, :96], 2, 48).sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config,split,batch_size,kernel", [
+    ("configs/molpcba/transformer/pooling=cls.yml", "valid", 256,
+     "attention_dense"),
+    ("configs/code2/transformer/pooling=cls.yml", "valid", 24,
+     "flash_attention"),
+    ("configs/code2/transformer/pooling=cls.yml", "test", 24, None)])
+def test_transformer_predict_launches(cuda, tmp_path, config, split,
+                                      batch_size, kernel):
+    """A predict batch of each Transformer-only yml at full width: K4 on
+    the molecules' packed rows, K5 on code2's 513-token rows, neither on
+    code2's test rows of 449 (the plain softmax), five layers each."""
+    import pathlib
+
+    from graphtrans_tpu_torch import predict
+    from graphtrans_tpu_torch.ops import kernels
+
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    kernels.reset_launches()
+    res = predict.main(["--configs", str(repo / config), "--data_root",
+                        str(repo / "data_snapshots"), "--split", split,
+                        "--batch_size", str(batch_size), "--out",
+                        str(tmp_path / "p.jsonl")])
+    assert res["records"] == 24 and res["batches"] <= 2
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    assert launches == ({kernel: 5 * res["batches"]} if kernel else {})

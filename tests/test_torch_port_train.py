@@ -156,7 +156,7 @@ def test_cosine_schedule_matches_optax():
         np.testing.assert_allclose(opt.lr, float(sched(step)), rtol=1e-5,
                                    atol=1e-12)
         opt.step()
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(NotImplementedError, match="slice 8"):
         build_optimizer(torch.nn.Linear(2, 2),
                         argparse.Namespace(**dict(vars(args),
                                                   scheduler="onecycle")), 4)
@@ -400,10 +400,10 @@ def test_main_without_cuda_raises():
 
 
 @pytest.mark.parametrize("flag,slice_", [
-    (["--aug", "flag"], "slice 6"), (["--runs", "3"], "slice 6"),
-    (["--resume", "x"], "slice 6"), (["--sp"], "slice 7"),
-    (["--dp_shards", "4"], "slice 7"), (["--scheduler", "onecycle"],
-                                        "slice 6")])
+    (["--aug", "flag"], "slice 8"), (["--runs", "3"], "slice 8"),
+    (["--resume", "x"], "slice 8"), (["--sp"], "slice 9"),
+    (["--dp_shards", "4"], "slice 9"), (["--scheduler", "onecycle"],
+                                        "slice 8")])
 def test_main_turns_away_later_slices(flag, slice_):
     with pytest.raises(NotImplementedError, match=slice_):
         tmain.main(["--configs", str(CONFIG), "--data_root",
