@@ -58,8 +58,22 @@ Phases, each printing one line (any failure raises and exits non-zero):
      train take K5, test takes neither), counting launches per split, and
      holds the logits through the kernels against the plain versions on the
      card; (c) times and profiles the forward of 4096 molecules and of 512
-     ASTs in the flat unpacked layout.
-Then a {"kernels": [...]} line, the nvidia-smi line, and the contract line
+     ASTs in the flat unpacked layout;
+ 10. training the Transformer-only model: (a) holds K4 and K5 with
+     attention dropout 0.3 and their backward kernels K4-bwd and K5-bwd
+     against the plain versions (the same masks) and autograd at the
+     snapshot's and bench shapes (K4 also at rows of 257 and 384, hd 64),
+     and K11 (byte_dropout) forward and backward against its plain version
+     at the bench512 activations' widths, and times them beside bound,
+     plain version and library yardstick; (b) trains both ymls at full width
+     on the snapshot through ``python -m graphtrans_tpu_torch.main`` (2
+     epochs), counting launches per yml (molpcba K4 and K4-bwd, code2 K5 and
+     K5-bwd), checking finite losses and moved parameters, and holds one
+     step through the kernels against the plain versions; (c) times the
+     train step of 4096 molecules and of 512 ASTs with peak memory and a
+     torch.profiler split, then again with K11 switched on.
+Then the script's wall seconds, a {"kernels": [...]} line, the nvidia-smi
+line, and the contract line
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without
 a CUDA card.
 """
@@ -113,6 +127,9 @@ K7_TOL = 1e-5      # times max(1, max |reference|)
 GCN_LAYERS_PER_FORWARD = 5
 # kernel-name fragments -> the layer that launches them (phase 5)
 LAYERS = (
+    ("padtags", "K4-bwd attention_dense_bwd"),
+    ("segtags", "K5-bwd flash_attention_bwd"),
+    ("byte_dropout", "K11 byte_dropout"),
     ("flash_hil_dq", "K3-bwd flash_hil_seg_bwd"),
     ("flash_hil_dkv", "K3-bwd flash_hil_seg_bwd"),
     ("spmm_bwd", "K7-bwd spmm_bwd"),
@@ -578,23 +595,29 @@ def k2_bwd_bound(qkv, seg, nhead: int):
 
 
 def sdpa_bwd_ms(qkv, seg, nhead: int, g, rate: float) -> float:
-    """Yardstick only: the backward of torch's scaled_dot_product_attention
-    with a boolean segment mask and the same dropout rate on the same
-    inputs (never called by the port)."""
-    R, W, d3 = qkv.shape
-    d = d3 // 3
-    heads = lambda t: t.reshape(R, W, nhead, d // nhead).transpose(1, 2)
-    q, k, v = (heads(t).contiguous().requires_grad_()
-               for t in qkv.split(d, dim=-1))
+    """``sdpa_bwd_mask_ms`` with the segment mask of K2 and K3."""
     mask = ((seg[:, :, None] == seg[:, None, :])
             & (seg >= 0)[:, None, :])[:, None]
+    return sdpa_bwd_mask_ms(qkv, mask, nhead, g, rate, iters=10)
+
+
+def sdpa_bwd_mask_ms(qkv, mask, nhead: int, g, rate: float,
+                     iters: int = 3) -> float:
+    """Yardstick only: the backward of torch's scaled_dot_product_attention
+    with a boolean mask and the same dropout rate on the same inputs (never
+    called by the port)."""
+    B, S, d3 = qkv.shape
+    d = d3 // 3
+    heads = lambda t: t.reshape(B, S, nhead, d // nhead).transpose(1, 2)
+    q, k, v = (heads(t).contiguous().requires_grad_()
+               for t in qkv.split(d, dim=-1))
     gh = heads(g).contiguous()
     with torch.enable_grad():
         out = torch.nn.functional.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, dropout_p=rate)
         return time_ms(lambda: torch.autograd.grad(out, (q, k, v), gh,
                                                    retain_graph=True),
-                       iters=10)
+                       iters=iters)
 
 
 def phase6_kernels(device, d_gnn: int, d_model: int, nhead: int, big):
@@ -724,7 +747,9 @@ def phase6_train(device, tmp: str):
     want = {"gin_agg": 5 * steps, "gin_agg_bwd": 5 * steps,
             "attention_seg": 4 * steps, "attention_seg_bwd": 4 * steps,
             "flash_hil_seg": 0, "flash_hil_seg_bwd": 0, "spmm": 0,
-            "spmm_bwd": 0, "attention_dense": 0, "flash_attention": 0}
+            "spmm_bwd": 0, "attention_dense": 0, "attention_dense_bwd": 0,
+            "flash_attention": 0, "flash_attention_bwd": 0,
+            "byte_dropout": 0}
     if steps == 0 or launches != want:
         raise AssertionError(f"training launches {launches}, expected {want}")
     if not all(math.isfinite(r["loss"]) for r in res["epochs"]):
@@ -985,7 +1010,8 @@ def phase7_serve(device, tmp: str):
     launches = kernels.launch_counts()
     want = dict(want, gin_agg=0, gin_agg_bwd=0, attention_seg_bwd=0,
                 flash_hil_seg_bwd=0, spmm_bwd=0, attention_dense=0,
-                flash_attention=0)
+                attention_dense_bwd=0, flash_attention=0,
+                flash_attention_bwd=0, byte_dropout=0)
     if launches != want or not (launches["flash_hil_seg"] > 0
                                 and launches["spmm"] > 0):
         raise AssertionError(f"code2 launches {launches}, expected {want}")
@@ -1294,7 +1320,8 @@ def phase8_train(device, tmp: str):
             "attention_seg": 8 * steps, "attention_seg_bwd": 8 * steps,
             "flash_hil_seg": 4 * steps, "flash_hil_seg_bwd": 4 * steps,
             "spmm": 5 * steps, "spmm_bwd": 5 * steps,
-            "attention_dense": 0, "flash_attention": 0}
+            "attention_dense": 0, "attention_dense_bwd": 0,
+            "flash_attention": 0, "flash_attention_bwd": 0, "byte_dropout": 0}
     if steps == 0 or launches != want:
         raise AssertionError(f"code2 training launches {launches}, "
                              f"expected {want}")
@@ -1761,11 +1788,431 @@ def phase9_forward(device, mol_bench, code2_bench, code2_tasks: int,
                      PROFILED_FORWARDS, wall, smi, graphs=n)
 
 
+# ---- phase 10: the Transformer-only model, training ------------------------
+
+
+def check_k4_train(qkv, valid, nhead: int, block: int, rate: float,
+                   seed: int, gen):
+    """K4 with dropout ``rate`` and K4-bwd against the plain version (the
+    same mask) and its autograd; a block without a valid key gives zero
+    dq, dk and dv, and a padding key zero dk and dv."""
+    from graphtrans_tpu_torch.ops.kernels import (attention_dense_bwd,
+                                                  attention_dense_bwd_plain,
+                                                  attention_dense_plain)
+    from graphtrans_tpu_torch.ops.kernels.attention_packed import (
+        attention_dense_with_stats)
+
+    d = qkv.shape[2] // 3
+    g = torch.randn(*qkv.shape[:2], d, generator=gen).to(qkv.device)
+    saved = attention_dense_with_stats(qkv, valid, nhead, block, rate, seed)
+    dqkv = attention_dense_bwd(qkv, valid, nhead, g, block, rate, seed, saved)
+    torch.cuda.synchronize()
+    f_err = (saved[0] - attention_dense_plain(qkv, valid, nhead, block, rate,
+                                              seed)).abs().max().item()
+    b_err = _rel_err(dqkv, attention_dense_bwd_plain(qkv, valid, nhead, g,
+                                                      block, rate, seed))
+    if f_err > K2_TOL or b_err > GRAD_TOL or not torch.isfinite(dqkv).all():
+        raise AssertionError(f"K4 (block {block}) at rate {rate}: forward "
+                             f"|diff| {f_err} (<= {K2_TOL}), backward "
+                             f"{b_err} (<= {GRAD_TOL})")
+    dead = ~_live(valid, block)   # dropout may zero a live query's row
+    if saved[0][dead].any() or dqkv[dead].any() or dqkv[..., d:][~valid].any():
+        raise AssertionError("K4 with dropout: a dead block's output or "
+                             "gradient, or a padding key's, is not zero")
+    return f_err, b_err, g
+
+
+def check_k5_train(qkv, valid, nhead: int, rate: float, seed: int, gen,
+                   rows: int):
+    """K5 with dropout and K5-bwd on all rows of ``qkv`` against the plain
+    version and its autograd on the first ``rows`` (the plain backward of
+    all 513 bench rows would hold [513, H, 1001, 1001] probabilities);
+    queries without a key and padding keys get zero gradients."""
+    from graphtrans_tpu_torch.ops.kernels import (flash_attention_bwd,
+                                                  flash_attention_bwd_plain,
+                                                  flash_attention_plain,
+                                                  key_padding_segs)
+    from graphtrans_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_with_stats)
+
+    d = qkv.shape[2] // 3
+    segs = key_padding_segs(valid)
+    g = torch.randn(*qkv.shape[:2], d, generator=gen).to(qkv.device)
+    saved = flash_attention_with_stats(qkv, *segs, nhead, rate, seed)
+    dqkv = flash_attention_bwd(qkv, *segs, nhead, g, rate, seed, saved)
+    torch.cuda.synchronize()
+    head = [t[:rows] for t in (qkv, *segs)]
+    f_err = (saved[0][:rows] - flash_attention_plain(*head, nhead, rate, seed)
+             ).abs().max().item()
+    b_err = _rel_err(dqkv[:rows], flash_attention_bwd_plain(
+        *head, nhead, g[:rows], rate, seed))
+    if f_err > K2_TOL or b_err > GRAD_TOL or not torch.isfinite(dqkv).all():
+        raise AssertionError(f"K5 at rate {rate}: forward |diff| {f_err} "
+                             f"(<= {K2_TOL}), backward {b_err} "
+                             f"(<= {GRAD_TOL})")
+    dead = ~_live(valid, 0)       # dropout may zero a live query's row
+    if saved[0][dead].any() or dqkv[dead].any() or dqkv[..., d:][~valid].any():
+        raise AssertionError("K5 with dropout: a query without a key, or a "
+                             "padding key, has a non-zero output or "
+                             "gradient")
+    return f_err, b_err, g
+
+
+def k4_bwd_bound(qkv, valid, nhead: int, block: int):
+    """K4-bwd reads q and dO for every query, K and V for the valid keys,
+    out, m and l of the forward and the mask, and writes dqkv; per (query,
+    key) pair of a block and head: the score, dp = dO.v and the dq, dk and
+    dv products (2*hd each), and the softmax and dropout arithmetic."""
+    B, S, d3 = qkv.shape
+    d, hd = d3 // 3, d3 // 3 // nhead
+    keys = int(valid.sum().item())
+    pairs = (int((valid.reshape(B, S // block, block).sum(-1) * block).sum()
+                 .item()) if block else keys * S)
+    nbytes = ((3 * B * S + 2 * keys) * d + B * S * d3 + 2 * B * S * nhead) \
+        * 4 + valid.numel()
+    return _bound(nbytes, pairs * nhead * (10 * hd + 8))
+
+
+def k5_bwd_bound(qkv, valid, nhead: int):
+    """As k4_bwd_bound for the key-padding form, the mask read as segq and
+    segk (int32)."""
+    B, S, d3 = qkv.shape
+    d, hd = d3 // 3, d3 // 3 // nhead
+    keys = int(valid.sum().item())
+    nbytes = ((3 * B * S + 2 * keys) * d + B * S * d3 + 2 * B * S * nhead) \
+        * 4 + 2 * valid.numel() * 4
+    return _bound(nbytes, keys * S * nhead * (10 * hd + 8))
+
+
+def _chunked_plain_bwd_ms(fn, qkv, g, rows: int) -> float:
+    """The plain version's backward over all rows of ``qkv``, measured
+    ``rows`` rows at a time (each chunk's autograd graph fits the card)."""
+    total = 0.0
+    for r0 in range(0, qkv.shape[0], rows):
+        total += _plain_bwd_ms(lambda t: fn(t, r0), [qkv[r0:r0 + rows]],
+                               g[r0:r0 + rows])
+    return total
+
+
+def phase10_kernels(device, mol_bench, code2_bench):
+    """(a) K4 and K5 with attention dropout 0.3 and their backward kernels
+    against the plain versions and autograd at the Transformer-only
+    model's training shapes, and K11 against its plain version at the
+    widths of the bench512 activations; times beside bound, plain version
+    and library yardstick."""
+    from graphtrans_tpu_torch import predict
+    from graphtrans_tpu_torch.data.loader import iterate_batches
+    from graphtrans_tpu_torch.ops.kernels import (
+        attention_dense_bwd, attention_dense_plain, byte_dropout,
+        byte_dropout_plain, flash_attention_bwd, flash_attention_plain,
+        key_padding_segs)
+    from graphtrans_tpu_torch.ops.kernels.attention_packed import (
+        attention_dense_with_stats)
+    from graphtrans_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_with_stats)
+
+    gen = torch.Generator().manual_seed(SEED + 10)
+    first = {}
+    for name, config, split in (("mol", TF_MOL_CONFIG, "train"),
+                                ("code2_train", TF_CODE2_CONFIG, "train"),
+                                ("code2_valid", TF_CODE2_CONFIG, "valid")):
+        args = _tf_args(config)
+        splits, num_tasks, _ = predict.load_splits(args)
+        first[name] = next(iterate_batches(splits[split], **predict.
+                                           serving_layout(splits, args,
+                                                          num_tasks,
+                                                          split=split)))
+    args = _tf_args(TF_MOL_CONFIG)
+    d, nhead = args.d_model, args.nhead
+    seed = 2**31 - 11
+    k4_cases = {"serve256 block 49": dense_valid(first["mol"]),
+                "bench4096 block 33": dense_valid(mol_bench),
+                "bench512 cut to 256, block 0": dense_valid(code2_bench, 256),
+                "bench512 cut to 383, block 0": dense_valid(code2_bench, 383)}
+    k5_cases = {"train16 S 1001": dense_valid(first["code2_train"]),
+                "valid16 S 513": dense_valid(first["code2_valid"]),
+                "bench512 S 1001": dense_valid(code2_bench)}
+    k4_err = k4_ferr = k5_err = k5_ferr = 0.0
+    timed = {}
+    for name, valid in k4_cases.items():
+        qkv, v, block = k4_inputs(valid, d, gen, device)
+        if int(name.split()[-1]) != block:
+            raise AssertionError(f"K4 {name}: packed as block {block}")
+        f, e, g = check_k4_train(qkv, v, nhead, block, DROPOUT, seed, gen)
+        k4_ferr, k4_err = max(k4_ferr, f), max(k4_err, e)
+        saved = attention_dense_with_stats(qkv, v, nhead, block, DROPOUT,
+                                           seed)
+        t = dict(ms=time_ms(lambda: attention_dense_bwd(
+                     qkv, v, nhead, g, block, DROPOUT, seed, saved), iters=10),
+                 plain_ms=_plain_bwd_ms(lambda x: attention_dense_plain(
+                     x, v, nhead, block, DROPOUT, seed), [qkv], g),
+                 library_ms=sdpa_bwd_mask_ms(qkv, _block_mask(v, block),
+                                             nhead, g, DROPOUT))
+        t["bound_ms"], t["bound_by"] = k4_bwd_bound(qkv, v, nhead, block)
+        t["fwd_ms"] = time_ms(lambda: attention_dense_with_stats(
+            qkv, v, nhead, block, DROPOUT, seed), iters=10)
+        t["shape"] = (f"B={qkv.shape[0]} S={qkv.shape[1]} d={d} H={nhead} "
+                      f"rate={DROPOUT}")
+        timed[("K4-bwd attention_dense_bwd", name)] = t
+    for name, valid in k5_cases.items():
+        bench = name.startswith("bench")
+        qkv, v = k5_inputs(valid, d, gen, device)
+        f, e, _ = check_k5_train(qkv, v, nhead, DROPOUT, seed, gen,
+                                 64 if bench else len(qkv))
+        k5_ferr, k5_err = max(k5_ferr, f), max(k5_err, e)
+        qkv, v = qkv[:-1].contiguous(), v[:-1]     # timed as the model runs
+        segs = key_padding_segs(v)
+        g = torch.randn(*qkv.shape[:2], d, generator=gen).to(device)
+        saved = flash_attention_with_stats(qkv, *segs, nhead, DROPOUT, seed)
+        plain = lambda x, r0: flash_attention_plain(
+            x, *(s[r0:r0 + 64] for s in segs), nhead, DROPOUT, seed)
+        t = dict(ms=time_ms(lambda: flash_attention_bwd(
+                     qkv, *segs, nhead, g, DROPOUT, seed, saved), iters=3),
+                 plain_ms=_chunked_plain_bwd_ms(plain, qkv, g, 64),
+                 library_ms=sdpa_bwd_mask_ms(
+                     qkv, _block_mask(v, 0), nhead, g, DROPOUT))
+        t["bound_ms"], t["bound_by"] = k5_bwd_bound(qkv, v, nhead)
+        t["fwd_ms"] = time_ms(lambda: flash_attention_with_stats(
+            qkv, *segs, nhead, DROPOUT, seed), iters=3)
+        t["shape"] = (f"B={qkv.shape[0]} S={qkv.shape[1]} d={d} H={nhead} "
+                      f"rate={DROPOUT} valid keys {int(v.sum().item())}")
+        timed[("K5-bwd flash_attention_bwd", name)] = t
+    print(f"[10a] with attention dropout {DROPOUT}: K4 forward within "
+          f"{k4_ferr:.3g} and K5 forward within {k5_ferr:.3g} of their plain "
+          f"versions (<= {K2_TOL}); K4-bwd {k4_err:.3g} at {list(k4_cases)} "
+          f"and K5-bwd {k5_err:.3g} at {list(k5_cases)} (bench512: the "
+          f"first 64 rows) of max(1, max|ref|) from autograd through the "
+          f"plain versions (<= {GRAD_TOL}); dead blocks, queries without a "
+          f"key and padding keys get exactly 0")
+    for (kname, name), t in timed.items():
+        print(f"[10a] {name} {kname} [{t['shape']}]: kernel {t['ms']:.4f} ms "
+              f"(training forward {t['fwd_ms']:.4f} ms), plain backward "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}), library {t['library_ms']:.4f} ms (SDPA "
+              f"backward, bool mask, dropout {DROPOUT})")
+
+    tokens = int(code2_bench.num_graph_slots) * (
+        min(code2_bench.max_nodes_dense, 1000) + 1)
+    t11 = int(round(DROPOUT * 256))
+    k11 = {}
+    for width in (d, 2 * d):
+        x = torch.randn(tokens, width, generator=gen).to(device)
+        gx = torch.randn(tokens, width, generator=gen).to(device)
+        xg = x.clone().requires_grad_()
+        got = byte_dropout(xg, seed, t11)
+        got.backward(gx)
+        xp = x.clone().requires_grad_()
+        want = byte_dropout_plain(xp, seed, t11)
+        want.backward(gx)
+        if not (torch.equal(got.detach(), want.detach())
+                and torch.equal(xg.grad, xp.grad)):
+            raise AssertionError(f"K11 at [{tokens}, {width}] disagrees with "
+                                 f"its plain version")
+        del got, want, xg, xp, gx
+        kept = (byte_dropout(x, seed, t11) != 0).float().mean().item()
+        k11[width] = dict(
+            ms=time_ms(lambda: byte_dropout(x, seed, t11), iters=10),
+            plain_ms=time_ms(lambda: byte_dropout_plain(x, seed, t11),
+                             iters=2),
+            library_ms=time_ms(lambda: torch.nn.functional.dropout(
+                x, DROPOUT, training=True), iters=10),
+            shape=f"[{tokens}, {width}] t={t11}", kept=kept)
+        k11[width]["bound_ms"], k11[width]["bound_by"] = _bound(
+            2 * x.numel() * 4, 12 * x.numel())
+        del x
+    for width, t in k11.items():
+        print(f"[10a] K11 byte_dropout {t['shape']} (kept {t['kept']:.4f}, "
+              f"expected {(256 - t11) / 256:.4f}): kernel {t['ms']:.4f} ms, "
+              f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}), library {t['library_ms']:.4f} ms "
+              f"(F.dropout at {DROPOUT}: the same work, another mask)")
+    print(f"[10a] K11 forward and backward equal their plain versions to the "
+          f"bit at [{tokens}, {d}] and [{tokens}, {2 * d}]")
+    return dict(k4_err=k4_err, k5_err=k5_err, k11_err=0.0,
+                timed=(timed[("K4-bwd attention_dense_bwd",
+                              "bench4096 block 33")],
+                       timed[("K5-bwd flash_attention_bwd",
+                              "bench512 S 1001")],
+                       k11[2 * d]))
+
+
+def _tf_train_args(config: str, extra=()):
+    from graphtrans_tpu_torch import main as train_main
+    from graphtrans_tpu_torch.utils.config import parse_with_config
+
+    return parse_with_config(train_main.build_parser(), [
+        "--configs", config, "--data_root", SNAPSHOT, "--epochs",
+        str(TRAIN_EPOCHS), "--seed", str(SEED), *extra])
+
+
+# The kernels each yml's training step must launch, by the JAX package's TPU
+# rule for the train split's rows: molpcba's rows of 48 + CLS pack 2 graphs
+# with block 49 (K4); code2's rows of 1000 + CLS take K5.
+TF_TRAIN_KERNELS = {TF_MOL_CONFIG: ("attention_dense", "attention_dense_bwd"),
+                    TF_CODE2_CONFIG: ("flash_attention",
+                                      "flash_attention_bwd")}
+
+
+def phase10_train(device, tmp: str):
+    """(b) Both Transformer-only ymls through the training entry at full
+    width on the snapshot (2 epochs, the ymls' batch sizes), launches
+    counted from 0 for each, finite losses and every parameter moved; then
+    one step through the kernels against the plain versions."""
+    import io
+
+    from graphtrans_tpu_torch import main as train_main
+    from graphtrans_tpu_torch import predict
+    from graphtrans_tpu_torch.data.loader import iterate_batches, shuffled_order
+    from graphtrans_tpu_torch.ops import kernels
+
+    totals = collections.Counter()
+    for config, want_kernels in TF_TRAIN_KERNELS.items():
+        args = _tf_train_args(config)
+        splits, num_tasks, code = predict.load_splits(args)
+        save = os.path.join(tmp, os.path.basename(os.path.dirname(
+            os.path.dirname(config))))
+        out = io.StringIO()
+        kernels.reset_launches()             # this yml's training path
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            res = train_main.main(["--configs", config, "--data_root",
+                                   SNAPSHOT, "--epochs", str(TRAIN_EPOCHS),
+                                   "--seed", str(SEED), "--save_path", save])
+        secs = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        for line in out.getvalue().splitlines():
+            print(f"[10b] main: {line}")
+        steps = sum(r["steps"] for r in res["epochs"])
+        want = {k: args.num_encoder_layers * steps for k in want_kernels}
+        if steps == 0 or launches != want:
+            raise AssertionError(f"{args.dataset} Transformer-only training "
+                                 f"launches {launches}, expected {want}")
+        totals.update(launches)
+        if not all(math.isfinite(r["loss"]) for r in res["epochs"]):
+            raise AssertionError(f"epoch losses not finite: {res['epochs']}")
+        init, _ = _trainer(args, num_tasks, device, code=code)
+        trained = torch.load(res["saved"], map_location=device,
+                             weights_only=True)
+        params = dict(init.named_parameters())
+        still = [n for n, p in params.items() if torch.equal(p, trained[n])]
+        if still:
+            raise AssertionError(f"parameters did not move: {still}")
+        print(f"[10b] trained the {args.dataset} Transformer-only yml "
+              f"{TRAIN_EPOCHS} epochs ({steps} steps of <= {args.batch_size} "
+              f"graphs, attention dropout {args.transformer_dropout}, "
+              f"{secs:.2f} s with the model build) through "
+              f"graphtrans_tpu_torch.main: losses "
+              f"{[round(r['loss'], 6) for r in res['epochs']]}, all "
+              f"{len(params)} parameter tensors moved; launches {launches} = "
+              f"{args.num_encoder_layers} a step each")
+
+        layout = predict.serving_layout(splits, args, num_tasks,
+                                        args.batch_size, split="train",
+                                        seed=SEED)
+        batch = next(iterate_batches(
+            splits["train"], order=shuffled_order(len(splits["train"]), SEED,
+                                                  0), **layout)).to(device)
+        got = []
+        with deterministic():
+            for on in (True, False):
+                model, step = _trainer(args, num_tasks, device,
+                                       kernels_on=on, code=code)
+                loss = step(batch).item()
+                got.append((loss, {n: p.grad for n, p in
+                                   model.named_parameters()}))
+        (lk, gk), (lp, gp) = got
+        g_err = max(_rel_err(gk[n], gp[n]) for n in gk)
+        g_abs = max((gk[n] - gp[n]).abs().max().item() for n in gk)
+        if abs(lk - lp) > LOGITS_TOL or g_err > GRAD_TOL:
+            raise AssertionError(f"{args.dataset} Transformer-only step "
+                                 f"through the kernels: loss |diff| "
+                                 f"{abs(lk - lp)} (<= {LOGITS_TOL}), gradients "
+                                 f"{g_err} (<= {GRAD_TOL})")
+        print(f"[10b] one {args.dataset} Transformer-only train step "
+              f"(attention dropout {args.transformer_dropout}, same seeds) "
+              f"through the kernels vs the plain versions on the card: loss "
+              f"{lk:.6f} vs {lp:.6f} (|diff| {abs(lk - lp):.3g} <= "
+              f"{LOGITS_TOL}), gradients max |diff| {g_abs:.3g}, relative to "
+              f"max(1, max|ref|) {g_err:.3g} (<= {GRAD_TOL})")
+    return totals
+
+
+def phase10_step(device, mol_bench, code2_bench, code2_tasks: int, smi: str):
+    """(c) The Transformer-only train step on 4096 molecules and on 512
+    ASTs at the published widths: median of 10 after 3 warm-ups, graphs/s,
+    peak memory and a torch.profiler split; then the same step with K11
+    switched on (nn/dropout.py:FUSED), its launches and time."""
+    import types
+
+    from graphtrans_tpu_torch.nn import dropout as tdrop
+    from graphtrans_tpu_torch.ops import kernels
+
+    sizes = types.SimpleNamespace(num_nodetypes=20, num_nodeattributes=100,
+                                  max_seq_len=5)       # make_code_dataset's
+    k11_launches = 0
+    for name, config, bench, tasks in (
+            ("molpcba", TF_MOL_CONFIG, mol_bench, 128),
+            ("code2", TF_CODE2_CONFIG, code2_bench, code2_tasks)):
+        args = _tf_train_args(config)
+        model, step = _trainer(args, tasks, device,
+                               code=sizes if name == "code2" else None)
+        tb = bench.to(device)
+        n = int(bench.graph_mask.sum())
+        S = min(bench.max_nodes_dense, args.max_input_len) + 1
+        torch.cuda.reset_peak_memory_stats(device)
+        _median_ms(lambda: step(tb), 3)                     # warm-up
+        ms, lo, hi, loss = _median_ms(lambda: step(tb), TIMED_STEPS)
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        if not torch.isfinite(loss):
+            raise AssertionError(f"{name} Transformer-only step: loss not "
+                                 f"finite")
+        print(f"[10c] {name} Transformer-only train step of {n} graphs "
+              f"(rows of {S} tokens, {args.num_encoder_layers} layers, "
+              f"d_model {args.d_model}, attention dropout "
+              f"{args.transformer_dropout}; forward, backward, AdamW): median "
+              f"{ms:.3f} ms over {TIMED_STEPS} (min {lo:.3f}, max {hi:.3f}), "
+              f"{n / ms * 1e3:.0f} graphs/s, peak memory {peak:.2f} GiB on "
+              f"{smi}")
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(PROFILED_STEPS):
+                step(tb)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+        _print_split("[10c]", f"{name} Transformer-only train step", prof,
+                     PROFILED_STEPS, wall, smi, graphs=n)
+        tdrop.FUSED = True
+        try:
+            kernels.reset_launches()
+            loss = step(tb)
+            torch.cuda.synchronize()
+            per_step = kernels.byte_dropout.launches
+            k11_launches += per_step
+            _median_ms(lambda: step(tb), 2)                 # warm-up
+            fms, flo, fhi, loss = _median_ms(lambda: step(tb), TIMED_STEPS)
+        finally:
+            tdrop.FUSED = False
+        if per_step == 0 or not torch.isfinite(loss):
+            raise AssertionError(f"{name} step with K11 on: {per_step} K11 "
+                                 f"launches, loss {loss}")
+        print(f"[10c] {name} the same step with K11 switched on "
+              f"(nn/dropout.py:FUSED): {per_step} byte_dropout launches a "
+              f"step (forward and backward), median {fms:.3f} ms over "
+              f"{TIMED_STEPS} (min {flo:.3f}, max {fhi:.3f}) against "
+              f"{ms:.3f} ms off")
+        del model, step, tb
+        torch.cuda.empty_cache()
+    return k11_launches
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--trace", default=None,
                    help="write phase 5's chrome trace to this file")
     opts = p.parse_args(argv)
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -1830,11 +2277,17 @@ def main(argv=None) -> int:
         tf_launches = phase9_serve(device, tmp)
     phase9_forward(device, mol_flat, code2_flat, flat_tasks, smi)
 
+    tf_train = phase10_kernels(device, mol_flat, code2_flat)
+    with tempfile.TemporaryDirectory() as tmp:
+        tf_train_launches = phase10_train(device, tmp)
+    k11_launches = phase10_step(device, mol_flat, code2_flat, flat_tasks, smi)
+
     k1, k2 = timing["timed"]
     k1b, k2b = train["timed"]
     k3, k7 = code2["timed"]
     k3b, k7b = code2_train["timed"]
     k4, k5 = tf["timed"]
+    k4b, k5b, k11 = tf_train["timed"]
     rows = [
         dict(name="gin_agg_fwd", route="cuda",
              source="graphtrans_tpu_torch/csrc/gin_agg.cu",
@@ -1889,7 +2342,24 @@ def main(argv=None) -> int:
              replaces="graphtrans_tpu/ops/pallas/flash_attention.py:228",
              launches=tf_launches["flash_attention"],
              max_abs_err=tf["k5_err"], **k5),
+        dict(name="attention_dense_bwd", route="cuda",
+             source="graphtrans_tpu_torch/csrc/attention_packed.cu",
+             replaces="graphtrans_tpu/ops/pallas/attention_packed.py:393",
+             launches=tf_train_launches["attention_dense_bwd"],
+             # relative to max(1, max |reference|), as check_k4_train holds it
+             max_abs_err=tf_train["k4_err"], **k4b),
+        dict(name="flash_attention_bwd", route="cuda",
+             source="graphtrans_tpu_torch/csrc/flash_attention.cu",
+             replaces="graphtrans_tpu/ops/pallas/flash_attention.py:326/350",
+             launches=tf_train_launches["flash_attention_bwd"],
+             max_abs_err=tf_train["k5_err"], **k5b),
+        dict(name="byte_dropout", route="cuda",
+             source="graphtrans_tpu_torch/csrc/dropout.cu",
+             replaces="graphtrans_tpu/ops/pallas/dropout.py:89",
+             launches=k11_launches, max_abs_err=tf_train["k11_err"], **k11),
     ]
+    print(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
+          f"(phases 0-10, the kernels' build included)")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 // K2: segment-masked attention over packed rows, forward with attention
 // dropout and backward; and K4: key-padding attention, optionally
-// block-diagonal, forward. Wrappers, plain versions and design notes:
+// block-diagonal, forward with attention dropout and backward. Wrappers,
+// plain versions and design notes:
 // graphtrans_tpu_torch/ops/kernels/attention_packed.py.
 //
 // K2: qkv [R, W, 3d] (heads in lanes), seg [R, W] -> out [R, W, d].
@@ -13,24 +14,33 @@
 // the row's tags (seg or valid) are staged in shared memory and read as
 // broadcasts; q and the output stay in registers and the softmax runs
 // online (running max and denominator) in one pass over the keys a query
-// can reach. Dropout (K2 only; torch semantics: normalise by the undropped
+// can reach. Dropout (torch semantics: normalise by the undropped
 // denominator, then drop and scale by 1/(1-rate)) keeps (i, j) iff
 // hash(pos, seed') < thresh, with pos = ((r % bt)*W + i)*sp + j and
 // seed' = seed + (r / bt)*H + h: the counter hash of the JAX package's
 // interpret mode, so forward, backward and the plain version draw the same
-// mask from (seed, r, h, i, j) and nothing is stored.
+// mask from (seed, r, h, i, j) and nothing is stored. Where a gradient is
+// wanted K4's forward also writes m and l per (row, query, head).
 //
-// Backward: Q_h, K_h, V_h and dO_h of the row in shared memory. Pass A, one
-// thread per query: recompute the running max m_i and denominator l_i and
-// delta_i = sum_j p_ij dp_ij in one online pass, then dq_i in a second
-// pass. Pass B, one thread per key: dk_j and dv_j as sums over the queries
-// of its segment, with m, 1/l and delta of every query from shared memory.
-// Every output cell has one writer: no atomics.
+// K2's backward: Q_h, K_h, V_h and dO_h of the row in shared memory. Pass
+// A, one thread per query: recompute the running max m_i and denominator
+// l_i and delta_i = sum_j p_ij dp_ij in one online pass, then dq_i in a
+// second pass. Pass B, one thread per key: dk_j and dv_j as sums over the
+// queries of its segment, with m, 1/l and delta of every query from shared
+// memory. Every output cell has one writer: no atomics. Staging a whole row
+// does not fit K4 at hd 64 past W ~ 223 (4*W*HD floats), so K4's backward
+// is the streaming pair of attention_bwd.cuh (shared with K5) with K4's
+// mask as tags and K2's dropout.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attention_bwd.cuh"
+#include "hash.cuh"
+
 namespace {
+
+using prng::hash_bits;
 
 struct Dropout {
   int on;            // 0: rate 0, the identity
@@ -39,24 +49,23 @@ struct Dropout {
   int seed;
   int bt;            // rows per TPU grid tile (mask tiling of the reference)
   int sp;            // W rounded up to 128
+
+  // keep (i, j) of a row whose tile seed is hseed = seed + (r / bt)*H + h
+  // and whose place in its tile is rowpos = r % bt (both hoisted out of
+  // K2's loops)
+  __device__ bool at(unsigned hseed, unsigned rowpos, int i, int j,
+                     int W) const {
+    const unsigned pos = (rowpos * W + i) * (unsigned)sp + j;
+    return hash_bits(pos, hseed) < thresh;
+  }
+
+  // keep (r, h, i, j): the Keep policy of attention_bwd.cuh (K4-bwd)
+  __device__ bool operator()(long r, int h, int H, int W, int i,
+                             int j) const {
+    return at((unsigned)seed + (unsigned)(r / bt) * H + h,
+              (unsigned)(r % bt), i, j, W);
+  }
 };
-
-// murmur-style finalizer of (position, seed): graphtrans_tpu/ops/pallas/
-// prng.py:_hash_bits_u32, in u32 arithmetic
-__device__ __forceinline__ unsigned hash_bits(unsigned pos, unsigned seed) {
-  unsigned x = pos * 2654435761u + seed * 0x9E3779B9u;
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  return x ^ (x >> 16);
-}
-
-__device__ __forceinline__ bool keep(const Dropout& dr, unsigned hseed,
-                                     unsigned rowpos, int i, int j, int W) {
-  const unsigned pos = (rowpos * W + i) * (unsigned)dr.sp + j;
-  return hash_bits(pos, hseed) < dr.thresh;
-}
 
 constexpr int W_MAX = 384;  // widest row (threads a block)
 
@@ -88,11 +97,13 @@ struct PadMask {
 
 // The forward of K2 and K4: one block per (row, head), one thread per query.
 // Tag is the row tags' type in global memory: int (K2's seg) or unsigned
-// char (K4's valid, torch's bool as it lies).
-template <int HD, class Mask, typename Tag>
+// char (K4's valid, torch's bool as it lies). STATS writes the softmax
+// statistics m and l [R, W, H] that K4's backward reads.
+template <int HD, class Mask, bool STATS, typename Tag>
 __device__ __forceinline__ void attention_fwd_body(
     const float* __restrict__ qkv, const Tag* __restrict__ tags,
-    float* __restrict__ out, int W, int d, float scale, Dropout dr,
+    float* __restrict__ out, float* __restrict__ stat_m,
+    float* __restrict__ stat_l, int W, int d, float scale, Dropout dr,
     int block) {
   extern __shared__ float smem[];
   float* ks = smem;                                  // [W][HD]
@@ -121,12 +132,12 @@ __device__ __forceinline__ void attention_fwd_body(
   float o[HD];
 #pragma unroll
   for (int c = 0; c < HD; ++c) o[c] = 0.f;
+  float m = -INFINITY, l = 0.f;
   if (mask.live(ti)) {
     float q[HD];
     const float* qi = row + i * d3 + h * HD;
 #pragma unroll
     for (int c = 0; c < HD; ++c) q[c] = qi[c] * scale;
-    float m = -INFINITY, l = 0.f;
     const int j_end = mask.last(i, W);
     for (int j = mask.first(i); j < j_end; ++j) {
       if (!mask.attends(ti, j)) continue;
@@ -143,7 +154,7 @@ __device__ __forceinline__ void attention_fwd_body(
       }
       const float p = expf(s - m);
       l += p;
-      if (dr.on && !keep(dr, hseed, rowpos, i, j, W)) continue;
+      if (dr.on && !dr.at(hseed, rowpos, i, j, W)) continue;
       const float* vj = vs + j * HD;
 #pragma unroll
       for (int c = 0; c < HD; ++c) o[c] = fmaf(p, vj[c], o[c]);
@@ -155,25 +166,36 @@ __device__ __forceinline__ void attention_fwd_body(
   float* oi = out + (r * W + i) * d + h * HD;
 #pragma unroll
   for (int c = 0; c < HD; ++c) oi[c] = o[c];
+  if (STATS) {
+    const long at = (r * W + i) * gridDim.y + h;
+    stat_m[at] = m;
+    stat_l[at] = l;
+  }
 }
 
 template <int HD>
 __global__ void attention_seg_fwd_kernel(const float* __restrict__ qkv,
                                          const int* __restrict__ seg,
-                                         float* __restrict__ out, int W, int d,
-                                         float scale, Dropout dr, int block) {
-  attention_fwd_body<HD, SegMask>(qkv, seg, out, W, d, scale, dr, block);
+                                         float* __restrict__ out,
+                                         float* __restrict__ stat_m,
+                                         float* __restrict__ stat_l, int W,
+                                         int d, float scale, Dropout dr,
+                                         int block) {
+  attention_fwd_body<HD, SegMask, false>(qkv, seg, out, stat_m, stat_l, W, d,
+                                         scale, dr, block);
 }
 
 // K4 at hd 64 needs ~168 registers a thread: the bound keeps a block of
-// 384 threads launchable.
-template <int HD>
+// 384 threads launchable. STATS: the training instance.
+template <int HD, bool STATS>
 __global__ void __launch_bounds__(W_MAX)
 attention_dense_fwd_kernel(const float* __restrict__ qkv,
                            const unsigned char* __restrict__ valid,
-                           float* __restrict__ out, int W, int d, float scale,
-                           Dropout dr, int block) {
-  attention_fwd_body<HD, PadMask>(qkv, valid, out, W, d, scale, dr, block);
+                           float* __restrict__ out, float* __restrict__ stat_m,
+                           float* __restrict__ stat_l, int W, int d,
+                           float scale, Dropout dr, int block) {
+  attention_fwd_body<HD, PadMask, STATS>(qkv, valid, out, stat_m, stat_l, W,
+                                         d, scale, dr, block);
 }
 
 template <int HD>
@@ -238,7 +260,7 @@ attention_seg_bwd_kernel(const float* __restrict__ qkv,
           s = fmaf(q[c], ks[j * HD + c], s);
           dp = fmaf(g[c], vs[j * HD + c], dp);
         }
-        if (dr.on) dp = keep(dr, hseed, rowpos, i, j, W) ? dp * dr.inv_keep : 0.f;
+        if (dr.on) dp = dr.at(hseed, rowpos, i, j, W) ? dp * dr.inv_keep : 0.f;
         if (s > m) {
           const float a = expf(m - s);
           l *= a;
@@ -259,7 +281,7 @@ attention_seg_bwd_kernel(const float* __restrict__ qkv,
           s = fmaf(q[c], ks[j * HD + c], s);
           dp = fmaf(g[c], vs[j * HD + c], dp);
         }
-        if (dr.on) dp = keep(dr, hseed, rowpos, i, j, W) ? dp * dr.inv_keep : 0.f;
+        if (dr.on) dp = dr.at(hseed, rowpos, i, j, W) ? dp * dr.inv_keep : 0.f;
         const float ds = expf(s - m) * li * (dp - de);
 #pragma unroll
         for (int c = 0; c < HD; ++c) acc[c] = fmaf(ds, ks[j * HD + c], acc[c]);
@@ -298,7 +320,7 @@ attention_seg_bwd_kernel(const float* __restrict__ qkv,
         const float p = expf(s - mrow[i]) * linv[i];
         float pd = p;
         if (dr.on) {
-          const bool kp = keep(dr, hseed, rowpos, i, j, W);
+          const bool kp = dr.at(hseed, rowpos, i, j, W);
           pd = kp ? p * dr.inv_keep : 0.f;
           dp = kp ? dp * dr.inv_keep : 0.f;
         }
@@ -324,14 +346,14 @@ attention_seg_bwd_kernel(const float* __restrict__ qkv,
 // the 48 KB default, hence the attribute.
 template <typename Kernel, typename Tag>
 int launch_fwd(Kernel kernel, int HD, const float* qkv, const Tag* tags,
-               float* out, int R, int W, int d, int H, Dropout dr, int block,
-               cudaStream_t stream) {
+               float* out, float* stat_m, float* stat_l, int R, int W, int d,
+               int H, Dropout dr, int block, cudaStream_t stream) {
   const size_t smem = (size_t)2 * W * HD * sizeof(float) + W * sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(R, H);
-  kernel<<<grid, W, smem, stream>>>(qkv, tags, out, W, d,
+  kernel<<<grid, W, smem, stream>>>(qkv, tags, out, stat_m, stat_l, W, d,
                                     1.f / sqrtf((float)HD), dr, block);
   return cudaGetLastError();
 }
@@ -379,26 +401,66 @@ extern "C" int attention_seg_fwd(const float* qkv, const int* seg, float* out,
                                  unsigned thresh, float inv_keep, int seed,
                                  int bt, int sp, cudaStream_t stream) {
   if (d != H * 32 || W > W_MAX) return cudaErrorInvalidValue;  // hd 32
-  return launch_fwd(attention_seg_fwd_kernel<32>, 32, qkv, seg, out, R, W, d,
-                    H, make_dropout(drop, thresh, inv_keep, seed, bt, sp), 0,
+  return launch_fwd(attention_seg_fwd_kernel<32>, 32, qkv, seg, out, nullptr,
+                    nullptr, R, W, d, H,
+                    make_dropout(drop, thresh, inv_keep, seed, bt, sp), 0,
                     stream);
 }
 
 // K4 forward: valid [B, S] one byte each (0/1: torch's bool), block 0 or
-// the graphs' width in a graph-packed row. Heads of width 32 or 64; S <= 384.
+// the graphs' width in a graph-packed row; drop and the rest as K2's.
+// stat_m and stat_l ([B, S, H]) may be null: the statistics are then not
+// written (serving). Heads of width 32 or 64; S <= 384.
 extern "C" int attention_dense_fwd(const float* qkv,
                                    const unsigned char* valid, float* out,
-                                   int B, int S, int d, int H, int block,
-                                   cudaStream_t stream) {
+                                   float* stat_m, float* stat_l, int B, int S,
+                                   int d, int H, int block, int drop,
+                                   unsigned thresh, float inv_keep, int seed,
+                                   int bt, int sp, cudaStream_t stream) {
   if (B <= 0 || S <= 0 || S > W_MAX || block < 0 || H <= 0 || d % H)
     return cudaErrorInvalidValue;
-  const Dropout none = make_dropout(0, 0u, 1.f, 0, 1, 128);
+  if ((stat_m == nullptr) != (stat_l == nullptr)) return cudaErrorInvalidValue;
+  const Dropout dr = make_dropout(drop, thresh, inv_keep, seed, bt, sp);
+  const bool stats = stat_m != nullptr;
   if (d == H * 32)
-    return launch_fwd(attention_dense_fwd_kernel<32>, 32, qkv, valid, out, B,
-                      S, d, H, none, block, stream);
+    return stats ? launch_fwd(attention_dense_fwd_kernel<32, true>, 32, qkv,
+                              valid, out, stat_m, stat_l, B, S, d, H, dr,
+                              block, stream)
+                 : launch_fwd(attention_dense_fwd_kernel<32, false>, 32, qkv,
+                              valid, out, stat_m, stat_l, B, S, d, H, dr,
+                              block, stream);
   if (d == H * 64)
-    return launch_fwd(attention_dense_fwd_kernel<64>, 64, qkv, valid, out, B,
-                      S, d, H, none, block, stream);
+    return stats ? launch_fwd(attention_dense_fwd_kernel<64, true>, 64, qkv,
+                              valid, out, stat_m, stat_l, B, S, d, H, dr,
+                              block, stream)
+                 : launch_fwd(attention_dense_fwd_kernel<64, false>, 64, qkv,
+                              valid, out, stat_m, stat_l, B, S, d, H, dr,
+                              block, stream);
+  return cudaErrorInvalidValue;
+}
+
+// K4 backward: dqkv [B, S, 3d] for the cotangent gout [B, S, d] of
+// attention_dense_fwd's out, from its saved m and l; delta [B, S, H] is
+// scratch. The streaming kernels of attention_bwd.cuh with K4's mask as
+// tags and K2's dropout tiling. Heads of width 32 or 64.
+extern "C" int attention_dense_bwd(const float* qkv,
+                                   const unsigned char* valid,
+                                   const float* out, const float* gout,
+                                   const float* stat_m, const float* stat_l,
+                                   float* delta, float* dqkv, int B, int S,
+                                   int d, int H, int block, int drop,
+                                   unsigned thresh, float inv_keep, int seed,
+                                   int bt, int sp, cudaStream_t stream) {
+  if (B <= 0 || S <= 0 || S > W_MAX || block < 0 || H <= 0 || d % H)
+    return cudaErrorInvalidValue;
+  const Dropout dr = make_dropout(drop, thresh, inv_keep, seed, bt, sp);
+  const attn::PadTags tags{valid, block};
+  if (d == H * 32)
+    return attn::launch_bwd<32>(qkv, tags, out, gout, stat_m, stat_l, delta,
+                                dqkv, B, S, d, H, dr, stream);
+  if (d == H * 64)
+    return attn::launch_bwd<64>(qkv, tags, out, gout, stat_m, stat_l, delta,
+                                dqkv, B, S, d, H, dr, stream);
   return cudaErrorInvalidValue;
 }
 

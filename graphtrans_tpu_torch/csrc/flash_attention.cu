@@ -1,6 +1,6 @@
 // K5: attention over long unpacked rows with a key-padding or segment mask,
-// streaming the keys in tiles with an online softmax; forward. Wrapper,
-// plain version and design note:
+// streaming the keys in tiles with an online softmax, with attention
+// dropout; and its backward. Wrapper, plain version and design note:
 // graphtrans_tpu_torch/ops/kernels/flash_attention.py.
 //
 // qkv [B, S, 3d] (heads in lanes), segq, segk [B, S] int32 -> out [B, S, d].
@@ -14,39 +14,59 @@
 // can attend is skipped whole (one __syncthreads_or): in a graph's row the
 // valid keys are a prefix plus the CLS column, so at code2's mean graph
 // size most tiles of a 1001-wide row are skipped, exactly, for any mask.
+//
+// Dropout (torch semantics: l sums the undropped probabilities; a kept one
+// is scaled by 1/(1-rate)) keeps (b, h, i, j) iff hash(pos, s) < thresh
+// with s = seed + ((b*H + h)*16384 + i/256)*1024 + j/256 and pos =
+// (i%256)*256 + j%256: the JAX kernel's per-(q-block, k-block) seeds at its
+// BQ = BK = 256, hashed as its interpret mode hashes them. Forward,
+// backward and the plain version draw the same mask; nothing is stored.
+// Where a gradient is wanted the forward also writes m and l per (row,
+// query, head). The backward is the streaming pair of attention_bwd.cuh
+// (dq, which also writes delta = dO . O; then dk/dv) with segq and segk as
+// its tags.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attention_bwd.cuh"
+#include "hash.cuh"
+
 namespace {
 
-constexpr int BQ = 128;  // queries a block (= threads)
+using attn::block_range;
 
-// Fills lo/hi with the min and max of the block's tags that are >= 0 (none:
-// hi < 0). All threads of the block call it.
-__device__ __forceinline__ void block_range(int tag, int* range, int& lo,
-                                            int& hi) {
-  if (threadIdx.x == 0) {
-    range[0] = 0x7fffffff;
-    range[1] = -1;
-  }
-  __syncthreads();
-  if (tag >= 0) {
-    atomicMin(&range[0], tag);
-    atomicMax(&range[1], tag);
-  }
-  __syncthreads();
-  lo = range[0];
-  hi = range[1];
-}
+constexpr int BQ = 128;       // queries a block (= threads)
+constexpr int MASK_TILE = 256;  // the JAX kernel's BQ = BK, which seed its mask
 
-template <int HD>
+struct Dropout {
+  int on;            // 0: rate 0, the identity
+  unsigned thresh;   // keep iff bits < thresh
+  float inv_keep;    // 1 / (1 - rate)
+  unsigned seed;
+
+  // keep (b, h, i, j); u32 arithmetic wraps as the reference's int32 does
+  __device__ bool operator()(long b, int h, int H, int, int i, int j) const {
+    const unsigned bh = (unsigned)b * H + (unsigned)h;
+    const unsigned s = seed + (bh * 16384u + (unsigned)(i / MASK_TILE)) *
+                                  1024u +
+                       (unsigned)(j / MASK_TILE);
+    const unsigned pos = (unsigned)(i % MASK_TILE) * MASK_TILE +
+                         (unsigned)(j % MASK_TILE);
+    return prng::hash_bits(pos, s) < thresh;
+  }
+};
+
+// DROP and STATS are compile-time, so the serving launch (neither) runs
+// the loop of a kernel without dropout and writes no statistics.
+template <int HD, bool DROP, bool STATS>
 __global__ void __launch_bounds__(BQ)
 flash_attention_fwd_kernel(const float* __restrict__ qkv,
                            const int* __restrict__ segq,
                            const int* __restrict__ segk,
-                           float* __restrict__ out, int S, int d,
-                           float scale) {
+                           float* __restrict__ out, float* __restrict__ stat_m,
+                           float* __restrict__ stat_l, int S, int d,
+                           float scale, Dropout dr) {
   constexpr int BK = 4096 / HD;  // keys a tile (<= BQ)
   __shared__ float4 ks4[BK * HD / 4];
   __shared__ float4 vs4[BK * HD / 4];
@@ -114,6 +134,7 @@ flash_attention_fwd_kernel(const float* __restrict__ qkv,
           }
           const float p = expf(s - m);
           l += p;
+          if (DROP && !dr(b, h, gridDim.y, S, i, k0 + jj)) continue;
           const float* vj = vs + jj * HD;
 #pragma unroll
           for (int c = 0; c < HD; ++c) o[c] = fmaf(p, vj[c], o[c]);
@@ -123,20 +144,51 @@ flash_attention_fwd_kernel(const float* __restrict__ qkv,
     }
   }
   if (i < S) {
-    const float inv = 1.f / fmaxf(l, 1e-16f);
+    const float inv = (DROP ? dr.inv_keep : 1.f) / fmaxf(l, 1e-16f);
     float* oi = out + (b * S + i) * d + h * HD;
 #pragma unroll
     for (int c = 0; c < HD; ++c) oi[c] = o[c] * inv;
+    if (STATS) {
+      const long at = (b * S + i) * gridDim.y + h;
+      stat_m[at] = m;
+      stat_l[at] = l;
+    }
   }
 }
 
+template <int HD, bool DROP, bool STATS>
+int launch_instance(const float* qkv, const int* segq, const int* segk,
+                    float* out, float* stat_m, float* stat_l, int B, int S,
+                    int d, int H, Dropout dr, cudaStream_t stream) {
+  dim3 grid(B, H, (S + BQ - 1) / BQ);
+  flash_attention_fwd_kernel<HD, DROP, STATS><<<grid, BQ, 0, stream>>>(
+      qkv, segq, segk, out, stat_m, stat_l, S, d, 1.f / sqrtf((float)HD), dr);
+  return cudaGetLastError();
+}
+
+// The serving instance (no dropout, no statistics), the gradient instance
+// without dropout, and the training one (dropout always saves statistics).
 template <int HD>
 int launch_fwd(const float* qkv, const int* segq, const int* segk,
-               float* out, int B, int S, int d, int H, cudaStream_t stream) {
-  dim3 grid(B, H, (S + BQ - 1) / BQ);
-  flash_attention_fwd_kernel<HD><<<grid, BQ, 0, stream>>>(
-      qkv, segq, segk, out, S, d, 1.f / sqrtf((float)HD));
-  return cudaGetLastError();
+               float* out, float* stat_m, float* stat_l, int B, int S, int d,
+               int H, Dropout dr, cudaStream_t stream) {
+  if (dr.on)
+    return launch_instance<HD, true, true>(qkv, segq, segk, out, stat_m,
+                                           stat_l, B, S, d, H, dr, stream);
+  if (stat_m)
+    return launch_instance<HD, false, true>(qkv, segq, segk, out, stat_m,
+                                            stat_l, B, S, d, H, dr, stream);
+  return launch_instance<HD, false, false>(qkv, segq, segk, out, stat_m,
+                                           stat_l, B, S, d, H, dr, stream);
+}
+
+Dropout make_dropout(int on, unsigned thresh, float inv_keep, int seed) {
+  Dropout dr;
+  dr.on = on;
+  dr.thresh = thresh;
+  dr.inv_keep = inv_keep;
+  dr.seed = (unsigned)seed;
+  return dr;
 }
 
 }  // namespace
@@ -146,18 +198,57 @@ extern "C" const char* error_string(int err) {
 }
 
 // Returns cudaGetLastError() after the launch (0 = launched). Heads of
-// width 32, 64 or 128.
+// width 32, 64 or 128. drop = 0 is attention without dropout; otherwise
+// (thresh, inv_keep, seed) define the keep mask as above. stat_m and
+// stat_l ([B, S, H]) may be null without dropout: the softmax statistics
+// are then not written (serving).
 extern "C" int flash_attention_fwd(const float* qkv, const int* segq,
-                                   const int* segk, float* out, int B, int S,
-                                   int d, int H, cudaStream_t stream) {
+                                   const int* segk, float* out, float* stat_m,
+                                   float* stat_l, int B, int S, int d, int H,
+                                   int drop, unsigned thresh, float inv_keep,
+                                   int seed, cudaStream_t stream) {
   if (B <= 0 || S <= 0 || H <= 0 || d % H) return cudaErrorInvalidValue;
+  if ((stat_m == nullptr) != (stat_l == nullptr)) return cudaErrorInvalidValue;
+  if (drop && stat_m == nullptr) return cudaErrorInvalidValue;
+  const Dropout dr = make_dropout(drop, thresh, inv_keep, seed);
   switch (d / H) {
     case 32:
-      return launch_fwd<32>(qkv, segq, segk, out, B, S, d, H, stream);
+      return launch_fwd<32>(qkv, segq, segk, out, stat_m, stat_l, B, S, d, H,
+                            dr, stream);
     case 64:
-      return launch_fwd<64>(qkv, segq, segk, out, B, S, d, H, stream);
+      return launch_fwd<64>(qkv, segq, segk, out, stat_m, stat_l, B, S, d, H,
+                            dr, stream);
     case 128:
-      return launch_fwd<128>(qkv, segq, segk, out, B, S, d, H, stream);
+      return launch_fwd<128>(qkv, segq, segk, out, stat_m, stat_l, B, S, d, H,
+                             dr, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// dqkv [B, S, 3d] for the cotangent gout [B, S, d] of flash_attention_fwd's
+// out, from its saved m and l; delta [B, S, H] is scratch (written by the
+// dq kernel, read by the dk/dv kernel on the same stream).
+extern "C" int flash_attention_bwd(const float* qkv, const int* segq,
+                                   const int* segk, const float* out,
+                                   const float* gout, const float* stat_m,
+                                   const float* stat_l, float* delta,
+                                   float* dqkv, int B, int S, int d, int H,
+                                   int drop, unsigned thresh, float inv_keep,
+                                   int seed, cudaStream_t stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || d % H) return cudaErrorInvalidValue;
+  const Dropout dr = make_dropout(drop, thresh, inv_keep, seed);
+  const attn::SegTags tags{segq, segk};
+  switch (d / H) {
+    case 32:
+      return attn::launch_bwd<32>(qkv, tags, out, gout, stat_m, stat_l, delta,
+                                  dqkv, B, S, d, H, dr, stream);
+    case 64:
+      return attn::launch_bwd<64>(qkv, tags, out, gout, stat_m, stat_l, delta,
+                                  dqkv, B, S, d, H, dr, stream);
+    case 128:
+      return attn::launch_bwd<128>(qkv, tags, out, gout, stat_m, stat_l,
+                                   delta, dqkv, B, S, d, H, dr, stream);
     default:
       return cudaErrorInvalidValue;
   }

@@ -26,12 +26,12 @@ from ..ops.pack import build_pack_fields_tiers
 _TPU_PLANS = ("the slice that ports K8 (blocked_gather_message_scatter); "
               "the port's flat aggregation is K7 and needs no plan")
 _LATER = {
-    "with_dense_adj": "slice 7 (masked transformer encoder)",
+    "with_dense_adj": "slice 11 (masked transformer encoder)",
     "bsp_chunks_cap": _TPU_PLANS,
     "scatter_free": _TPU_PLANS,
     "sfa_eb": _TPU_PLANS,
     "sfa_explicit": _TPU_PLANS,
-    "ell_explicit": "slice 7 (PNA)",
+    "ell_explicit": "slice 11 (PNA)",
 }
 
 

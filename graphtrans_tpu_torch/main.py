@@ -1,5 +1,6 @@
-"""Training entry: the single-chip baseline training loop of the root
-``main.py`` for the molecule datasets and ogbg-code2.
+"""Training entry: the single-chip training loop of the root ``main.py``
+for the molecule datasets and ogbg-code2, GraphTrans and the
+Transformer-only model.
 
 usage: python -m graphtrans_tpu_torch.main --configs <molpcba or code2 yml> \
            --data_root data_snapshots --epochs 2 --batch_size 64 --seed 0 \
@@ -9,25 +10,28 @@ It trains on the train split (each snapshot holds 192 training graphs),
 shuffled each epoch as the JAX package's ``GraphLoader`` shuffles, with
 AdamW and the config's dropout, and prints one JSON line per epoch: epoch,
 steps, mean loss, lr, seconds and graphs per second on the device it ran
-on. Molecules train in the strided layout with one tier of packed
-transformer rows and the masked BCE loss. ogbg-code2 trains in the flat
-layout with the packing tiers of the train split's largest graph
-(1024/384/128 on the snapshot) and row caps sampled from ``--seed`` (a
-batch that overflows them is split), and the per-position sequence loss
-(``train/losses.py:seq_token_loss``). With ``--save_path`` it writes
-``last_model.pt``, a state dict that ``python -m
+on. Molecules take the masked BCE loss, ogbg-code2 the per-position
+sequence loss (``train/losses.py:seq_token_loss``). GraphTrans on
+molecules trains in the strided layout with one tier of packed transformer
+rows; on ogbg-code2 in the flat layout with the packing tiers of the train
+split's largest graph (1024/384/128 on the snapshot) and row caps sampled
+from ``--seed`` (a batch that overflows them is split). The
+Transformer-only model (``model_type transformer``,
+``configs/{molpcba,code2}/transformer/pooling=cls.yml``) trains in the
+flat unpacked layout at the train split's dense width, its attention in
+K4 or K5 with their dropout (``predict.serving_layout``). With
+``--save_path`` it writes ``last_model.pt``, a state dict that ``python -m
 graphtrans_tpu_torch.predict --weights`` serves. It runs on the card unless
 ``--device cpu`` is given, and raises without CUDA.
 
 Weights are drawn from ``--seed`` (default 0), and so are the two dropout
 generators (``nn/dropout.py:Generators``). With ``--scheduler plateau`` the
 lr stays at ``--lr``: the plateau scheduler steps on a valid metric, and
-evaluation arrives with slice 8, as do split metrics, multi-run, resume and
-checkpoints, FLAG and ``onecycle``, and the parallel modes with slice 9.
-bf16 (``--precision bf16``) arrives with slice 7, and training the
-Transformer-only model (``model_type transformer``, which ``predict``
-serves) with slice 6. A flag that asks for one of these raises
-NotImplementedError naming its slice. The run is f32.
+evaluation arrives with slice 12, as do split metrics, multi-run, resume
+and checkpoints, FLAG and ``onecycle``; the parallel modes arrive with
+slice 13 and bf16 (``--precision bf16``) with slice 10. A flag that asks
+for one of these raises NotImplementedError naming its slice. The run is
+f32.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ import torch
 
 from . import predict, resolve_device
 from .data.loader import iterate_batches, shuffled_order
-from .models.gnn_transformer import build_gnn_transformer
+from .models import build_model
 from .nn.dropout import Generators
 from .nn.init import init_weights
 from .train.losses import binary_multitask_loss, seq_token_loss
@@ -61,12 +65,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 def build_run(args, num_tasks: int, device, steps_per_epoch: int,
               code=None):
-    """The run's model (weights from ``--seed``), optimizer and train step,
-    whose dropout generators are seeded from ``--seed`` too; ``code`` (a
-    ``data.code.CodeData``) makes it the code2 model with the sequence
-    loss."""
+    """The run's model (``--model_type``, weights from ``--seed``),
+    optimizer and train step, whose dropout generators are seeded from
+    ``--seed`` too; ``code`` (a ``data.code.CodeData``) makes it the code2
+    model with the sequence loss."""
     seed = args.seed or 0
-    model = build_gnn_transformer(args, num_tasks, device=device, code=code)
+    model = build_model(args, num_tasks, device=device, code=code)
     init_weights(model, torch.Generator().manual_seed(seed))
     optimizer = build_optimizer(model, args, steps_per_epoch)
     loss_fn = binary_multitask_loss if code is None else seq_token_loss

@@ -91,7 +91,7 @@ class GNNTransformer(nn.Module):
         if not use_seq_pack(batch, "cls", self.num_encoder_layers):
             raise NotImplementedError(
                 "GraphTrans runs seq-packed batches; its unpacked route "
-                "(non-CLS pooling, the masked encoder) arrives with slice 7")
+                "(non-CLS pooling, the masked encoder) arrives with slice 11")
         h_node = self.gnn2transformer(self.gnn_node(batch, gen))
         h_graph = packed_transformer_stage(self.transformer_encoder, h_node,
                                            batch, gen)

@@ -2,9 +2,9 @@
 ``graphtrans_tpu/models/transformer.py``): no GNN. The node encoder's rows
 go into a dense ``[G, S, d]`` batch (``ops/dense.py``), the encoder runs
 over unpacked rows with a CLS column appended, and the CLS column is read
-out into the prediction head (per-position heads for code2). Serving only:
-training the family arrives with slice 6, and pooling other than CLS (the
-``NodePool`` zoo) with slice 7."""
+out into the prediction head (per-position heads for code2). It serves and
+trains; pooling other than CLS (the ``NodePool`` zoo) arrives with slice
+11."""
 
 from __future__ import annotations
 
@@ -38,7 +38,9 @@ class TransformerModule(nn.Module):
 
     def forward(self, batch, gen=None) -> torch.Tensor:
         """Logits ``[G, num_tasks]`` (or ``[G, L, num_tasks]``) for a batch
-        on the model's device (padding graph slots give unread rows)."""
+        on the model's device (padding graph slots give unread rows).
+        ``gen`` (``nn.dropout.Generators``) feeds dropout in training
+        mode."""
         if getattr(self.node_encoder, "takes_depth", False):
             h = self.node_encoder(batch.node_feat, batch.node_depth)
         else:
@@ -48,7 +50,7 @@ class TransformerModule(nn.Module):
         dense, valid = nodes_to_dense(h, batch.node_graph, batch.node_pos,
                                       batch.node_mask, batch.num_graph_slots,
                                       S, batch.node_stride)
-        return self.head(self.transformer(dense, valid)[:, -1])
+        return self.head(self.transformer(dense, valid, gen=gen)[:, -1])
 
 
 def build_transformer(args, num_tasks: int, device=None,
@@ -62,7 +64,7 @@ def build_transformer(args, num_tasks: int, device=None,
     if args.graph_pooling != "cls":
         raise NotImplementedError(
             f"graph_pooling={args.graph_pooling!r} on model_type transformer "
-            "arrives with slice 7 (the NodePool zoo); the port runs cls")
+            "arrives with slice 11 (the NodePool zoo); the port runs cls")
     if dataset_kind(getattr(args, "dataset", "ogbg-molpcba")) == "code2":
         if args.gnn_emb_dim != args.d_model:
             raise ValueError(

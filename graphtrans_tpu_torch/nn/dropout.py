@@ -6,11 +6,19 @@ and a kept element scaled by ``1/(1 - t/256)`` (rate 0.3 keeps 179/256).
 The bytes come from an explicit ``torch.Generator`` on the activation's
 device. Rate 0, and eval mode, are exact identities.
 
+With ``FUSED`` set (off by default, as the JAX package's ``_PALLAS_FUSED``:
+there the fused kernel measured slower than XLA's fused mask on the TPU), a
+tensor whose last dim is a multiple of 128 and which holds at least
+``MIN_SIZE`` elements takes K11 (``ops/kernels/dropout.py:byte_dropout``)
+instead, which draws the same kind of bytes from a counter hash inside the
+kernel and stores no mask; its seed is drawn from the host generator, one
+per site per step.
+
 ``Generators`` holds the two generators of a training run: ``host`` (CPU)
-draws one attention-dropout seed per encoder layer per step as a Python int
-(K2 draws its mask in the kernel from it; a card generator would cost a
-synchronising ``.item()`` per layer), and ``device`` draws ByteDropout's
-bytes where the activations live."""
+draws the kernels' dropout seeds as Python ints (K2-K5's one per attention
+layer per step, K11's one per site per step; a card generator would cost a
+synchronising ``.item()`` each), and ``device`` draws ByteDropout's bytes
+where the activations live."""
 
 from __future__ import annotations
 
@@ -18,6 +26,11 @@ import dataclasses
 
 import torch
 from torch import nn
+
+from ..ops.kernels import byte_dropout, byte_dropout_plain
+
+FUSED = False          # route large lane-aligned tensors to K11
+MIN_SIZE = 1 << 18     # graphtrans_tpu/nn/dropout.py:_PALLAS_MIN_SIZE
 
 
 @dataclasses.dataclass
@@ -31,16 +44,23 @@ class Generators:
         return cls(host=torch.Generator().manual_seed(seed),
                    device=torch.Generator(device=dev).manual_seed(seed))
 
-    def attention_seed(self) -> int:
-        """A K2 dropout seed in [0, 2**31 - 1), as the JAX package draws
-        one per layer (``jax.random.randint(..., 0, 2**31 - 1)``)."""
+    def kernel_seed(self) -> int:
+        """A kernel's dropout seed in [0, 2**31 - 1), as the JAX package
+        draws one (``jax.random.randint(..., 0, 2**31 - 1)``)."""
         return int(torch.randint(0, 2**31 - 1, (1,), generator=self.host))
+
+
+def fused_route(x: torch.Tensor) -> bool:
+    """K11 takes x (``graphtrans_tpu/nn/dropout.py:_pallas_route``)."""
+    return (FUSED and x.dim() >= 2 and x.shape[-1] % 128 == 0
+            and x.numel() >= MIN_SIZE)
 
 
 class ByteDropout(nn.Module):
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
+        self.use_kernel = True
 
     def forward(self, x: torch.Tensor, gen) -> torch.Tensor:
         """``gen`` is the run's ``Generators`` (may be None in eval mode or
@@ -55,6 +75,9 @@ class ByteDropout(nn.Module):
         if gen is None:
             raise ValueError("ByteDropout in training mode needs the run's "
                              "Generators")
+        if fused_route(x):
+            fn = byte_dropout if self.use_kernel else byte_dropout_plain
+            return fn(x, gen.kernel_seed(), t)
         bits = torch.randint(0, 256, x.shape, dtype=torch.uint8,
                              device=x.device, generator=gen.device)
         scale = 1.0 / (1.0 - t / 256.0)

@@ -17,8 +17,10 @@ is appended (``:537-541``). Rows of S tokens with ``128 // S >= 2`` are
 packed ``gb`` graphs to a row with block-diagonal attention (``:546-575``),
 and each attention call takes the route the JAX package takes on a TPU
 (``dense_route``): K4 (``attention_dense``), K5 (``flash_attention``) or the
-plain masked softmax, which the JAX package leaves to XLA. Serving only:
-attention dropout there arrives with the next slice."""
+plain masked softmax, which the JAX package leaves to XLA. In training mode
+attention dropout runs inside K4 or K5 from one seed per layer per step;
+on the plain route it is ``ByteDropout`` on the probabilities, as the JAX
+package drops ``att`` (``:376``)."""
 
 from __future__ import annotations
 
@@ -70,6 +72,7 @@ class MultiheadSelfAttention(nn.Module):
         self.dropout = dropout
         self.in_proj = nn.Linear(d_model, 3 * d_model, device=device)
         self.out_proj = nn.Linear(d_model, d_model, device=device)
+        self.attn_drop = ByteDropout(dropout)     # the plain unpacked route
         self.use_kernel = True
 
     def init_from(self, gen):
@@ -83,16 +86,11 @@ class MultiheadSelfAttention(nn.Module):
         unpacked rows with the key mask valid (bool [R, W]; on K5's route
         its ``key_padding_segs``) and ``block`` > 0 for graph blocks of
         that width."""
+        rate = self.dropout if self.training else 0.0
         if seg is None:
             return self.out_proj(self._unpacked(self.in_proj(x), valid,
-                                                block))
-        rate = self.dropout if self.training else 0.0
-        seed = 0
-        if rate > 0.0:
-            if gen is None:
-                raise ValueError("attention dropout in training mode needs "
-                                 "the run's Generators")
-            seed = gen.attention_seed()
+                                                block, rate, gen))
+        seed = self._seed(rate, gen)
         qkv = self.in_proj(x)
         if x.shape[1] > W_MAX:
             fn = flash_hil_seg if self.use_kernel else flash_hil_seg_plain
@@ -100,18 +98,27 @@ class MultiheadSelfAttention(nn.Module):
             fn = attention_seg if self.use_kernel else attention_seg_plain
         return self.out_proj(fn(qkv, seg, self.nhead, rate, seed))
 
-    def _unpacked(self, qkv, valid, block):
-        if self.training and self.dropout > 0.0:
-            raise NotImplementedError(
-                "attention dropout on unpacked rows (K4, K5) arrives with "
-                "slice 6, training the Transformer-only model")
+    @staticmethod
+    def _seed(rate, gen) -> int:
+        """The kernel's dropout seed for this layer and step (0 at rate 0)."""
+        if rate == 0.0:
+            return 0
+        if gen is None:
+            raise ValueError("attention dropout in training mode needs the "
+                             "run's Generators")
+        return gen.kernel_seed()
+
+    def _unpacked(self, qkv, valid, block, rate, gen):
         route = dense_route(qkv.shape[1], qkv.shape[2] // 3, block)
         if route == "k5":
             fn = flash_attention if self.use_kernel else flash_attention_plain
-            return fn(qkv, *valid, self.nhead)
-        fn = (attention_dense if route == "k4" and self.use_kernel
-              else attention_dense_plain)
-        return fn(qkv, valid, self.nhead, block)
+            return fn(qkv, *valid, self.nhead, rate, self._seed(rate, gen))
+        if route == "k4":
+            fn = attention_dense if self.use_kernel else attention_dense_plain
+            return fn(qkv, valid, self.nhead, block, rate,
+                      self._seed(rate, gen))
+        drop = (lambda p: self.attn_drop(p, gen)) if rate > 0.0 else None
+        return attention_dense_plain(qkv, valid, self.nhead, block, drop=drop)
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -162,7 +169,7 @@ class TransformerNodeEncoder(nn.Module):
         [R, W, d]. Unpacked rows: dense [B, S, d], valid [B, S] -> [B, S+1,
         d], the CLS column last."""
         if seg is None:
-            return self._unpacked(dense, valid)
+            return self._unpacked(dense, valid, gen)
         dense = dense + self.cls_embedding * cls_mask[:, :, None].to(dense.dtype)
         if self.norm_input is not None:
             dense = self.norm_input(dense)
@@ -170,7 +177,7 @@ class TransformerNodeEncoder(nn.Module):
             dense = layer(dense, seg, gen)
         return self.final_norm(dense)
 
-    def _unpacked(self, dense, valid):
+    def _unpacked(self, dense, valid, gen):
         B, _, d = dense.shape
         cls = self.cls_embedding.to(dense.dtype).expand(B, 1, d)
         dense = torch.cat([dense, cls], dim=1)
@@ -190,6 +197,6 @@ class TransformerNodeEncoder(nn.Module):
         if dense_route(dense.shape[1], d, block) == "k5":
             valid = key_padding_segs(valid)    # K5's form, once for all layers
         for layer in self.layers:
-            dense = layer(dense, valid=valid, block=block)
+            dense = layer(dense, gen=gen, valid=valid, block=block)
         dense = self.final_norm(dense)
         return dense.reshape(-1, S, d)[:B] if gb > 1 else dense

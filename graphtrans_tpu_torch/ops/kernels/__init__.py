@@ -3,18 +3,22 @@ version. A wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches its kernel (built at first use by ``_build``) or
 raises, and counts the launch in its ``launches`` attribute. The forward
 wrappers are ``torch.autograd.Function``s on CUDA tensors whose backward
-is the matching ``*_bwd`` kernel wrapper (K4 and K5 have none yet: their
-backward raises)."""
+is the matching ``*_bwd`` kernel wrapper (K11's backward is its own kernel
+on the cotangent, counted as ``byte_dropout``)."""
 
 from __future__ import annotations
 
 from torch import nn
 
-from .attention_packed import (attention_dense, attention_dense_plain,
-                               attention_seg, attention_seg_bwd,
-                               attention_seg_bwd_plain, attention_seg_plain)
-from .flash_attention import (flash_attention, flash_attention_plain,
-                              key_padding_segs)
+from .attention_packed import (attention_dense, attention_dense_bwd,
+                               attention_dense_bwd_plain,
+                               attention_dense_plain, attention_seg,
+                               attention_seg_bwd, attention_seg_bwd_plain,
+                               attention_seg_plain)
+from .dropout import byte_dropout, byte_dropout_plain
+from .flash_attention import (flash_attention, flash_attention_bwd,
+                              flash_attention_bwd_plain,
+                              flash_attention_plain, key_padding_segs)
 from .flash_hil import (flash_hil_seg, flash_hil_seg_bwd,
                         flash_hil_seg_bwd_plain, flash_hil_seg_plain)
 from .gin_agg import gin_agg, gin_agg_bwd, gin_agg_bwd_plain, gin_agg_plain
@@ -23,7 +27,8 @@ from .spmm import (SrcOrder, spmm, spmm_bwd, spmm_bwd_plain, spmm_plain,
 
 WRAPPERS = (gin_agg, gin_agg_bwd, attention_seg, attention_seg_bwd,
             flash_hil_seg, flash_hil_seg_bwd, spmm, spmm_bwd,
-            attention_dense, flash_attention)
+            attention_dense, attention_dense_bwd, flash_attention,
+            flash_attention_bwd, byte_dropout)
 
 
 def reset_launches():
@@ -45,9 +50,12 @@ def set_kernels(model: nn.Module, enabled: bool) -> nn.Module:
     return model
 
 
-__all__ = ["attention_dense", "attention_dense_plain", "attention_seg",
-           "attention_seg_bwd", "attention_seg_bwd_plain",
-           "attention_seg_plain", "flash_attention", "flash_attention_plain",
+__all__ = ["attention_dense", "attention_dense_bwd",
+           "attention_dense_bwd_plain", "attention_dense_plain",
+           "attention_seg", "attention_seg_bwd", "attention_seg_bwd_plain",
+           "attention_seg_plain", "byte_dropout", "byte_dropout_plain",
+           "flash_attention", "flash_attention_bwd",
+           "flash_attention_bwd_plain", "flash_attention_plain",
            "flash_hil_seg", "flash_hil_seg_bwd", "flash_hil_seg_bwd_plain",
            "flash_hil_seg_plain", "gin_agg", "gin_agg_bwd",
            "gin_agg_bwd_plain", "gin_agg_plain", "key_padding_segs",

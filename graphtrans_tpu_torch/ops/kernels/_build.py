@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 for ``sm_90a`` into its own shared library under
-``graphtrans_tpu_torch/_build/`` (named by a hash of the source, so an edit
-rebuilds), loaded with ``ctypes``. Importing this module compiles nothing.
+``graphtrans_tpu_torch/_build/`` (named by a hash of the source and of the
+shared ``csrc/*.cuh`` headers, so an edit rebuilds), loaded with
+``ctypes``. Importing this module compiles nothing.
 A failed build raises; nothing falls back to the plain versions.
 """
 
@@ -21,7 +22,7 @@ _PKG = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("gin_agg", "attention_packed", "flash_hil", "spmm",
-           "flash_attention")
+           "flash_attention", "dropout")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -42,8 +43,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha1((SRC_DIR / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    digest = hashlib.sha1((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names=KERNELS) -> float:

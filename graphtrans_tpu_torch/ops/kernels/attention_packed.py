@@ -43,22 +43,32 @@ key writes dk and dv. Keys (queries) of other segments are skipped; every
 output cell has one writer, so there are no atomics.
 
 K4 replaces ``graphtrans_tpu/ops/pallas/attention_packed.py:
-attention_packed_qkv`` (forward ``_call_fwd``, mask ``_head_masks``): qkv
-``[B, S, 3d]``, key_valid ``[B, S]``, ``block``; key j is attendable by
-query i iff ``key_valid[j]`` and, with ``block > 0``, ``i // block == j //
-block``. Unlike K2 a padding query is not masked: it attends its block's
-valid keys; only a query whose block has no valid key outputs zeros. Its
-main path is the Transformer-only model on molecules, where ``128 // S``
-graphs of S tokens share a row and ``block = S`` (1366 rows of 99 at 4096
-molecules, d 256, 4 heads of 64). Bound on the H100: memory (q in and out
-back for every query, K and V in for the valid keys only: ~503 MB, ~0.15
-ms; the same-block pairs need ~3.8 GFLOP). The kernel reads key_valid as
-torch's one-byte bool, so no conversion precedes a launch. Design:
-K2's forward kernel with the mask as a template policy (``PadMask``); a
-query walks only its own block's keys, and K/V of a row of up to 384
-tokens sit in dynamic shared memory (196 KB at hd 64). Heads of width 32
-and 64. The backward and dropout arrive with the slice that trains the
-Transformer-only family.
+attention_packed_qkv`` (forward ``_call_fwd``, backward ``_call_bwd``, mask
+``_head_masks``): qkv ``[B, S, 3d]``, key_valid ``[B, S]``, ``block``; key
+j is attendable by query i iff ``key_valid[j]`` and, with ``block > 0``,
+``i // block == j // block``. Unlike K2 a padding query is not masked: it
+attends its block's valid keys; only a query whose block has no valid key
+outputs zeros (and gets zero dq), while a valid key's dk and dv sum over
+every query of its block, padding queries included. Its dropout is K2's
+(the JAX kernels share ``_keep_mask`` and the seeds ``seed + program *
+nhead + h`` over ``bt`` rows a program), with r the (graph-packed) row.
+Its main path is the Transformer-only model on molecules, where ``128 //
+S`` graphs of S tokens share a row and ``block = S`` (1366 rows of 99 at
+4096 molecules, d 256, 4 heads of 64). Bound on the H100: memory (q in and
+out back for every query, K and V in for the valid keys only: ~503 MB,
+~0.15 ms; the same-block pairs need ~3.8 GFLOP); the backward moves about
+twice that. The kernel reads key_valid as torch's one-byte bool, so no
+conversion precedes a launch. Design: the forward is K2's forward kernel
+with the mask as a template policy (``PadMask``); a query walks only its
+own block's keys, and K/V of a row of up to 384 tokens sit in dynamic
+shared memory (196 KB at hd 64); where a gradient is wanted it also
+writes m and l ``[B, S, H]``. K2's backward stages Q, K, V and dO of a
+whole row, which past ~223 tokens at hd 64 exceeds a block's shared
+memory, so K4's backward is the streaming pair of
+``csrc/attention_bwd.cuh`` (shared with K5): a dq kernel that also writes
+delta, and a dk/dv kernel, each token handled by hd/32 threads, tiles of
+keys (queries) outside the block's graph blocks skipped. Heads of width
+32 and 64.
 """
 
 from __future__ import annotations
@@ -66,7 +76,6 @@ from __future__ import annotations
 import ctypes
 import math
 
-import numpy as np
 import torch
 
 from . import _build
@@ -75,21 +84,29 @@ W_MAX = 384          # wider packed rows take flash_hil_seg (K3)
 HEAD_DIM = 32        # the head width csrc/attention_packed.cu compiles
 
 
-def hash_bits(pos: np.ndarray, seed: np.ndarray) -> np.ndarray:
-    """u32 counter hash of (position, seed), numpy uint32 arrays (copy of
-    the JAX package's interpret-mode stand-in for the TPU PRNG, in the
-    arithmetic that wraps as its does)."""
-    x = pos * np.uint32(2654435761) + seed * np.uint32(0x9E3779B9)
-    x ^= x >> np.uint32(16)
-    x *= np.uint32(0x7FEB352D)
-    x ^= x >> np.uint32(15)
-    x *= np.uint32(0x846CA68B)
-    return x ^ (x >> np.uint32(16))
+def _i32(c: int) -> int:
+    """The u32 constant c as the int32 of its bits: x * _i32(c) for x in
+    [0, 2**32) stays within int64, and its low 32 bits are the u32
+    product's."""
+    return c - 2**32 if c >= 2**31 else c
 
 
-def u32(a) -> np.ndarray:
-    """``a`` (ints below 2**32) as a numpy uint32 array."""
-    return np.asarray(a, np.uint32)
+def hash_bits(pos: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """u32 counter hash of (position, seed): a copy of the JAX package's
+    interpret-mode stand-in for the TPU PRNG, in int64 torch arithmetic on
+    the tensors' own device (each product masked to 32 bits). pos and seed
+    hold u32 values, and so does the result, a new tensor of their
+    broadcast shape worked in place."""
+    x = seed * _i32(0x9E3779B9)
+    x.bitwise_and_(0xFFFFFFFF)
+    x = x + ((pos * _i32(2654435761)) & 0xFFFFFFFF)
+    x.bitwise_and_(0xFFFFFFFF)
+    x ^= x >> 16
+    x.mul_(_i32(0x7FEB352D)).bitwise_and_(0xFFFFFFFF)
+    x ^= x >> 15
+    x.mul_(_i32(0x846CA68B)).bitwise_and_(0xFFFFFFFF)
+    x ^= x >> 16
+    return x
 
 
 def dropout_tiling(W: int):
@@ -99,35 +116,39 @@ def dropout_tiling(W: int):
 
 
 def keep_threshold(rate: float) -> int:
-    """Keep iff bits < this u32 (truncated as numpy truncates)."""
+    """Keep iff bits < this u32 (the float truncated, as the reference's
+    ``jnp.uint32`` truncates it)."""
     return int(min(max(1.0 - rate, 0.0), 1.0) * 0xFFFFFFFF)
+
+
+def keep_drop(keep: torch.Tensor, rate: float):
+    """Dropout of the probabilities by the bool mask ``keep`` at ``rate``
+    (torch semantics: a kept probability scaled by ``1/(1-rate)``)."""
+    return lambda p: p * keep.to(p.dtype) * (1.0 / (1.0 - rate))
 
 
 def keep_mask(R: int, W: int, nhead: int, rate: float, seed: int,
               device) -> torch.Tensor:
-    """Bool [R, H, W, W]: query i keeps key j of row r, head h (drawn on
-    the host a row at a time)."""
+    """Bool [R, H, W, W]: query i keeps key j of row r, head h (drawn with
+    torch on ``device``)."""
     sp, bt = dropout_tiling(W)
-    h = u32(np.arange(nhead))[:, None, None]
-    i = u32(np.arange(W))[None, :, None]
-    j = u32(np.arange(W))[None, None, :]
-    thresh = u32(keep_threshold(rate))
-    keep = np.empty((R, nhead, W, W), bool)
-    for r in range(R):
-        pos = (u32(r % bt) * u32(W) + i) * u32(sp) + j
-        keep[r] = hash_bits(pos, h + u32(r // bt * nhead)
-                            + u32(seed % 2**32)) < thresh
-    return torch.from_numpy(keep).to(device)
+    r = torch.arange(R, device=device)[:, None, None, None]
+    h = torch.arange(nhead, device=device)[None, :, None, None]
+    i = torch.arange(W, device=device)[:, None]
+    j = torch.arange(W, device=device)[None, :]
+    pos = ((r % bt) * W + i) * sp + j                           # [R, 1, W, W]
+    s = (seed % 2**32 + (r // bt) * nhead + h) & 0xFFFFFFFF     # [R, H, 1, 1]
+    return hash_bits(pos, s) < keep_threshold(rate)
 
 
 def masked_attention(qkv: torch.Tensor, nhead: int, mask: torch.Tensor,
-                     rate: float = 0.0, keep=None) -> torch.Tensor:
+                     drop=None) -> torch.Tensor:
     """Softmax attention of qkv ``[R, W, 3d]`` (heads in lanes) under the
     bool ``mask`` ``[R, 1, W, W]`` (query, key), as the JAX package's
     ``masked_softmax``: scores scaled by ``1/sqrt(hd)``, the row max
     subtracted, the sum clamped at 1e-16 (a query with no key gets zeros),
-    then ``keep`` (bool ``[R, H, W, W]``) dropout at ``rate``. Output
-    ``[R, W, d]``."""
+    then ``drop`` (a function of the probabilities ``[R, H, W, W]``, e.g.
+    ``keep_drop``) if given. Output ``[R, W, d]``."""
     R, W, d3 = qkv.shape
     d = d3 // 3
     hd = d // nhead
@@ -138,8 +159,8 @@ def masked_attention(qkv: torch.Tensor, nhead: int, mask: torch.Tensor,
     e = torch.exp(s - s.amax(dim=-1, keepdim=True).detach()).masked_fill(
         ~mask, 0.0)
     p = e / e.sum(dim=-1, keepdim=True).clamp_min(1e-16)
-    if rate > 0.0:
-        p = p * keep.to(p.dtype) * (1.0 / (1.0 - rate))
+    if drop is not None:
+        p = drop(p)
     return torch.matmul(p, v).transpose(1, 2).reshape(R, W, d)
 
 
@@ -153,9 +174,12 @@ def attention_seg_plain(qkv: torch.Tensor, seg: torch.Tensor, nhead: int,
     seg = seg.long()
     mask = ((seg[:, :, None] == seg[:, None, :])
             & (seg >= 0)[:, None, :])[:, None]               # [R, 1, W, W]
-    if rate > 0.0 and keep is None:
-        keep = keep_mask(R, W, nhead, rate, seed, qkv.device)
-    return masked_attention(qkv, nhead, mask, rate, keep)
+    drop = None
+    if rate > 0.0:
+        if keep is None:
+            keep = keep_mask(R, W, nhead, rate, seed, qkv.device)
+        drop = keep_drop(keep, rate)
+    return masked_attention(qkv, nhead, mask, drop)
 
 
 def attention_seg_bwd_plain(qkv, seg, nhead, gout, rate=0.0, seed=0):
@@ -288,24 +312,40 @@ attention_seg_bwd.launches = 0
 
 # ---- K4: key-padding attention, optionally block-diagonal -----------------
 
-DENSE_HEAD_DIMS = (32, 64)   # the head widths attention_dense_fwd compiles
+DENSE_HEAD_DIMS = (32, 64)   # the head widths attention_dense compiles
 
 
 def attention_dense_plain(qkv: torch.Tensor, key_valid: torch.Tensor,
-                          nhead: int, block: int = 0) -> torch.Tensor:
+                          nhead: int, block: int = 0, rate: float = 0.0,
+                          seed: int = 0, drop=None) -> torch.Tensor:
     """Plain PyTorch version of K4: key j is attendable by query i iff
     ``key_valid[j]`` and, with ``block > 0``, ``i // block == j // block``.
     A padding query attends its block's valid keys; a query whose block
-    has no valid key gets exact zeros."""
-    S = qkv.shape[1]
+    has no valid key gets exact zeros. At ``rate > 0`` K2's dropout mask
+    (``keep_mask``) over the rows of qkv; ``drop`` (a function of the
+    probabilities) replaces it, as the encoder's plain route does with
+    ``ByteDropout``. Autograd differentiates it."""
+    B, S, _ = qkv.shape
     mask = key_valid.bool()[:, None, None, :]                 # [B, 1, 1, S]
     if block > 0:
         grp = torch.arange(S, device=qkv.device) // block
         mask = mask & (grp[:, None] == grp[None, :])
-    return masked_attention(qkv, nhead, mask.expand(-1, 1, S, S))
+    if drop is None and rate > 0.0:
+        drop = keep_drop(keep_mask(B, S, nhead, rate, seed, qkv.device), rate)
+    return masked_attention(qkv, nhead, mask.expand(-1, 1, S, S), drop)
 
 
-def _check_dense(qkv, key_valid, nhead, block):
+def attention_dense_bwd_plain(qkv, key_valid, nhead, gout, block=0, rate=0.0,
+                              seed=0):
+    """Plain version of K4's backward: autograd through
+    ``attention_dense_plain``. Returns dqkv [B, S, 3d]."""
+    with torch.enable_grad():
+        leaf = qkv.detach().requires_grad_()
+        out = attention_dense_plain(leaf, key_valid, nhead, block, rate, seed)
+        return torch.autograd.grad(out, leaf, gout)[0]
+
+
+def _check_dense(qkv, key_valid, nhead, block, rate, gout=None):
     B, S, d3 = qkv.shape
     d = d3 // 3
     if d3 % 3 or d % nhead:
@@ -314,9 +354,12 @@ def _check_dense(qkv, key_valid, nhead, block):
         raise ValueError(f"attention_dense: head width {d // nhead}; the "
                          f"kernel is built for {DENSE_HEAD_DIMS}")
     if S > W_MAX:
-        raise ValueError(f"attention_dense: rows of {S} > {W_MAX} tokens")
+        raise ValueError(f"attention_dense: rows of {S} > {W_MAX} tokens; "
+                         f"the kernel is built for rows of up to {W_MAX}")
     if block < 0:
         raise ValueError(f"attention_dense: block {block} < 0")
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"attention_dense: dropout rate {rate} not in [0, 1)")
     if qkv.dtype != torch.float32 or key_valid.dtype != torch.bool:
         raise ValueError("attention_dense: expected float32 qkv, bool "
                          "key_valid")
@@ -324,69 +367,142 @@ def _check_dense(qkv, key_valid, nhead, block):
         raise ValueError(f"attention_dense: key_valid "
                          f"{tuple(key_valid.shape)} on {key_valid.device} "
                          f"does not match qkv")
-    if not qkv.is_contiguous():
-        raise ValueError("attention_dense: qkv must be contiguous")
+    if gout is not None and (gout.dtype != torch.float32
+                             or tuple(gout.shape) != (B, S, d)
+                             or gout.device != qkv.device):
+        raise ValueError(f"attention_dense_bwd: gout {gout.dtype} "
+                         f"{tuple(gout.shape)} does not match the output")
+    if not all(t.is_contiguous() for t in (qkv, gout) if t is not None):
+        raise ValueError("attention_dense: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in (qkv, gout) if t is not None):
+        raise ValueError("attention_dense: qkv and gout must be 16-byte "
+                         "aligned (the backward loads four floats at a time)")
 
 
-def _launch_dense(qkv, key_valid, nhead, block):
+def attention_dense_with_stats(qkv: torch.Tensor, key_valid: torch.Tensor,
+                               nhead: int, block: int = 0, rate: float = 0.0,
+                               seed: int = 0, stats: bool = True):
+    """K4's forward kernel on CUDA tensors: (out [B, S, d], m, l), with the
+    softmax statistics m and l [B, S, H] that the backward reads (None,
+    None when ``stats`` is False: the serving launch writes none)."""
+    _check_dense(qkv, key_valid, nhead, block, rate)
     B, S, d3 = qkv.shape
     out = torch.empty((B, S, d3 // 3), dtype=qkv.dtype, device=qkv.device)
+    m = l = None
+    if stats:
+        m = torch.empty((B, S, nhead), dtype=torch.float32, device=qkv.device)
+        l = torch.empty_like(m)
     if out.numel() == 0:
-        return out
+        return out, m, l
     valid = key_valid.contiguous()     # the bool itself: one byte a key
+    ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
     lib = _load()
     err = lib.attention_dense_fwd(
-        ctypes.c_void_p(qkv.data_ptr()), ctypes.c_void_p(valid.data_ptr()),
-        ctypes.c_void_p(out.data_ptr()), B, S, d3 // 3, nhead, block,
-        _stream(qkv))
+        ptr(qkv), ptr(valid), ptr(out), ptr(m), ptr(l), B, S, d3 // 3, nhead,
+        block, *_dropout_args(S, rate, seed), _stream(qkv))
     _build.check(lib, err, "attention_dense_fwd")
     attention_dense.launches += 1
-    return out
+    return out, m, l
 
 
 class _AttentionDense(torch.autograd.Function):
-    """K4 on CUDA tensors; its backward kernel is still to port."""
+    """K4 on CUDA tensors with K4's backward kernels as its gradient."""
 
     @staticmethod
-    def forward(ctx, qkv, key_valid, nhead, block):
-        return _launch_dense(qkv, key_valid, nhead, block)
+    def forward(ctx, qkv, key_valid, nhead, block, rate, seed):
+        out, m, l = attention_dense_with_stats(qkv, key_valid, nhead, block,
+                                               rate, seed)
+        ctx.save_for_backward(qkv, key_valid, out, m, l)
+        ctx.args = (nhead, block, rate, seed)
+        return out
 
     @staticmethod
     def backward(ctx, gout):
-        raise NotImplementedError(
-            "K4's backward (graphtrans_tpu/ops/pallas/attention_packed.py:"
-            "393) arrives with slice 6, training the Transformer-only model")
+        qkv, key_valid, out, m, l = ctx.saved_tensors
+        nhead, block, rate, seed = ctx.args
+        return (attention_dense_bwd(qkv, key_valid, nhead, gout.contiguous(),
+                                    block, rate, seed, saved=(out, m, l)),
+                None, None, None, None, None)
 
 
 def attention_dense(qkv: torch.Tensor, key_valid: torch.Tensor, nhead: int,
-                    block: int = 0) -> torch.Tensor:
+                    block: int = 0, rate: float = 0.0,
+                    seed: int = 0) -> torch.Tensor:
     """K4 forward: qkv ``[B, S, 3d]`` (heads in lanes), key_valid bool
     ``[B, S]``, ``block`` 0 or the width of each graph in a graph-packed
-    row. CPU tensors take ``attention_dense_plain``; CUDA tensors launch
-    the kernel or raise (and a gradient through it raises: no backward
-    kernel yet)."""
+    row, dropout ``rate`` (0 = none) drawn from ``seed``. CPU tensors take
+    ``attention_dense_plain``; CUDA tensors launch the kernel or raise, and
+    where a gradient is wanted the result carries K4's backward kernels
+    (``attention_dense_bwd``)."""
     if qkv.device.type == "cpu":
-        return attention_dense_plain(qkv, key_valid, nhead, block)
+        return attention_dense_plain(qkv, key_valid, nhead, block, rate, seed)
     if qkv.device.type != "cuda":
         raise ValueError(f"attention_dense: unsupported device {qkv.device}")
-    _check_dense(qkv, key_valid, nhead, block)
     if torch.is_grad_enabled() and qkv.requires_grad:
-        return _AttentionDense.apply(qkv, key_valid, nhead, block)
-    return _launch_dense(qkv, key_valid, nhead, block)
+        _check_dense(qkv, key_valid, nhead, block, rate)
+        return _AttentionDense.apply(qkv, key_valid, nhead, block, rate, seed)
+    return attention_dense_with_stats(qkv, key_valid, nhead, block, rate,
+                                      seed, stats=False)[0]
 
 
 attention_dense.launches = 0
 
 
+def attention_dense_bwd(qkv: torch.Tensor, key_valid: torch.Tensor,
+                        nhead: int, gout: torch.Tensor, block: int = 0,
+                        rate: float = 0.0, seed: int = 0,
+                        saved=None) -> torch.Tensor:
+    """K4 backward: dqkv [B, S, 3d] for the cotangent ``gout`` [B, S, d] of
+    ``attention_dense(qkv, key_valid, nhead, block, rate, seed)``, the
+    dropout mask drawn again from ``seed``. ``saved`` is the forward's
+    (out, m, l) from ``attention_dense_with_stats``, which the kernels
+    read. CPU tensors take ``attention_dense_bwd_plain`` (no ``saved``);
+    CUDA tensors launch the dq and dk/dv kernels or raise."""
+    if qkv.device.type == "cpu":
+        return attention_dense_bwd_plain(qkv, key_valid, nhead, gout, block,
+                                         rate, seed)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"attention_dense_bwd: unsupported device "
+                         f"{qkv.device}")
+    _check_dense(qkv, key_valid, nhead, block, rate, gout)
+    B, S, d3 = qkv.shape
+    out, m, l = saved if saved is not None else (None, None, None)
+    if not (m is not None and out.shape == gout.shape
+            and tuple(m.shape) == tuple(l.shape) == (B, S, nhead)):
+        raise ValueError("attention_dense_bwd: needs the forward's (out, m, "
+                         "l) from attention_dense_with_stats")
+    dqkv = torch.empty_like(qkv)
+    if dqkv.numel() == 0:
+        return dqkv
+    delta = torch.empty_like(m)
+    valid = key_valid.contiguous()
+    lib = _load()
+    err = lib.attention_dense_bwd(
+        *(ctypes.c_void_p(t.data_ptr())
+          for t in (qkv, valid, out, gout, m, l, delta, dqkv)),
+        B, S, d3 // 3, nhead, block, *_dropout_args(S, rate, seed),
+        _stream(qkv))
+    _build.check(lib, err, "attention_dense_bwd")
+    attention_dense_bwd.launches += 1
+    return dqkv
+
+
+attention_dense_bwd.launches = 0
+
+
 def _load():
     lib = _build.load("attention_packed")
     if lib.attention_seg_fwd.argtypes is None:
-        lib.attention_dense_fwd.argtypes = ([ctypes.c_void_p] * 3
-                                            + [ctypes.c_int] * 5
-                                            + [ctypes.c_void_p])
-        lib.attention_dense_fwd.restype = ctypes.c_int
         drop = [ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_int,
                 ctypes.c_int, ctypes.c_int]
+        lib.attention_dense_fwd.argtypes = ([ctypes.c_void_p] * 5
+                                            + [ctypes.c_int] * 5 + drop
+                                            + [ctypes.c_void_p])
+        lib.attention_dense_fwd.restype = ctypes.c_int
+        lib.attention_dense_bwd.argtypes = ([ctypes.c_void_p] * 8
+                                            + [ctypes.c_int] * 5 + drop
+                                            + [ctypes.c_void_p])
+        lib.attention_dense_bwd.restype = ctypes.c_int
         lib.attention_seg_fwd.argtypes = ([ctypes.c_void_p] * 3
                                           + [ctypes.c_int] * 4 + drop
                                           + [ctypes.c_void_p])

@@ -1,6 +1,7 @@
 """K5: attention over long unpacked rows (a graph's nodes and its CLS
 column, S up to 1001 at code2's ``max_input_len``) with a key-padding or a
-segment mask, streaming the keys in tiles with an online softmax; forward.
+segment mask, streaming the keys in tiles with an online softmax, with
+attention dropout; and its backward.
 
 qkv ``[B, S, 3d]`` is the combined projection output with heads in lanes,
 as K2 and K3 take it, so no head transposes surround the kernel; segq and
@@ -9,28 +10,49 @@ segk ``[B, S]`` int32. Query i attends key j iff ``segq[i] == segk[j] >=
 (``key_padding_segs``), the segment form segq = segk = seg. Scores are
 scaled by ``1/sqrt(hd)`` and the output is normalised by ``max(l,
 1e-16)``, so a query with no key (a fully masked row) outputs exact zeros.
-Output ``[B, S, d]``.
+Output ``[B, S, d]``; the backward returns dqkv in the combined ``[B, S,
+3d]`` layout.
+
+Dropout at ``rate > 0`` follows torch (``l`` sums the undropped
+probabilities, a kept one is scaled by ``1/(1-rate)``) and the JAX
+kernel's seed schedule: (b, h, i, j) is kept iff ``hash(pos, s) <
+keep_threshold(rate)`` with ``pos = (i % 256)*256 + j % 256`` and ``s =
+seed + ((b*H + h)*16384 + i // 256)*1024 + j // 256`` (int32 wrap-around):
+its BQ = BK = 256 and its ``bh`` from the ``[B, H, S, hd] -> [B*H, S,
+hd]`` reshape (``graphtrans_tpu/ops/pallas/flash_attention.py:101``),
+hashed by the counter hash its package uses in interpret mode. The JAX
+kernel draws from the TPU's own PRNG there; a test that swaps its
+``_dropout_keep`` for that hash holds the two to the same mask. The
+kernels and the plain version draw the same mask; nothing is stored.
 
 Replaces ``graphtrans_tpu/ops/pallas/flash_attention.py:flash_attention``
-and ``flash_attention_seg`` (forward ``_fwd_kernel``), which take per-head
-``[B*H, S, hd]`` operands; the tests hold the plain version to them by
-reshaping. The backward (``_dq_kernel``, ``_dkv_kernel``) and the dropout,
-which draws from the TPU's own PRNG, arrive with the slice that trains the
-Transformer-only family: a gradient through the kernel raises.
+and ``flash_attention_seg``: the forward (``_fwd_kernel``) and the backward
+(``_dq_kernel``, ``_dkv_kernel``, after ``_flash_bwd_rule``'s ``delta =
+sum(o * g)``), which take per-head ``[B*H, S, hd]`` operands; the tests
+hold the plain version to them by reshaping.
 
 What bounds it on the H100: operations. At the code2 throughput shape (513
-graph rows of S = 1001, d 256, 4 heads of 64) it must read q and write out
-for every query and read K and V for the valid keys only (~1.18 GB, ~0.35
-ms at 3.35 TB/s), while every query of a row attends that row's valid
-keys: 1001 x (kept nodes + CLS) pairs a row, ~62 M pairs, x 4 heads x ~260
-f32 flops, ~65 GFLOP, ~0.97 ms at 67 TFLOP/s. Design
-(``csrc/flash_attention.cu``): one block per (row, head, 128 queries), one
-thread per query with q and the output accumulator in registers; K_h and
-V_h stream through shared memory 4096/hd keys at a time (K3's loop), and a
-key tile that no query of the block can attend is skipped whole. A graph's
-valid keys are a prefix plus the CLS column, so at code2's mean of ~125
-nodes most tiles are skipped: without the skip the kernel would do ~8x the
-work. Heads of width 32, 64 and 128 are compiled.
+graph rows of S = 1001, d 256, 4 heads of 64) the forward must read q and
+write out for every query and read K and V for the valid keys only (~1.18
+GB, ~0.35 ms at 3.35 TB/s), while every query of a row attends that row's
+valid keys: 1001 x (kept nodes + CLS) pairs a row, ~62 M pairs, x 4 heads x
+~260 f32 flops, ~65 GFLOP, ~0.97 ms at 67 TFLOP/s; the backward does about
+2.5 times those flops. Design (``csrc/flash_attention.cu``): one block per
+(row, head, 128 queries), one thread per query with q and the output
+accumulator in registers; K_h and V_h stream through shared memory 4096/hd
+keys at a time (K3's loop), and a key tile that no query of the block can
+attend is skipped whole. A graph's valid keys are a prefix plus the CLS
+column, so at code2's mean of ~125 nodes most tiles are skipped: without
+the skip the kernel would do ~8x the work. Where a gradient is wanted the
+forward also writes m and l ``[B, S, H]`` (dropout and statistics are
+template parameters, so the serving launch runs the loop without either).
+The backward is the streaming pair of ``csrc/attention_bwd.cuh`` (shared
+with K4): a dq kernel that also writes delta, skipping key tiles without a
+key its queries attend, and a dk/dv kernel whose key blocks without a
+valid key write zeros; in the key-padding form a live key block walks all
+S queries. Each token is handled by hd/32 threads of 32 channels, so the
+backward keeps its sums in registers at every width. Heads of width 32,
+64 and 128 are compiled.
 """
 
 from __future__ import annotations
@@ -40,10 +62,12 @@ import ctypes
 import torch
 
 from . import _build
-from .attention_packed import _stream, masked_attention
+from .attention_packed import (_stream, hash_bits, keep_drop,
+                               keep_threshold, masked_attention)
 
 HEAD_DIMS = (32, 64, 128)     # the head widths the kernel compiles
 PLAIN_SCORE_BYTES = 1 << 30   # the plain version's score budget per chunk
+MASK_TILE = 256               # the JAX kernel's BQ = BK, which seed its mask
 
 
 def key_padding_segs(key_valid: torch.Tensor):
@@ -53,11 +77,33 @@ def key_padding_segs(key_valid: torch.Tensor):
     return torch.zeros_like(segk), segk
 
 
+def tile_keep_mask(rows: torch.Tensor, S: int, nhead: int, rate: float,
+                   seed: int, bq: int = MASK_TILE,
+                   bk: int = MASK_TILE) -> torch.Tensor:
+    """Bool ``[len(rows), H, S, S]``: query i keeps key j of row
+    ``rows[n]`` and head h under the flash kernels' seed schedule over
+    ``bq`` x ``bk`` tiles (K5's 256 x 256; K3's 512 x 128): ``s = seed +
+    ((b*H + h)*16384 + i // bq)*1024 + j // bk``, ``pos = (i % bq)*bk + j %
+    bk``. Drawn with torch on the rows' device."""
+    dev = rows.device
+    i = torch.arange(S, device=dev)[:, None]
+    j = torch.arange(S, device=dev)[None, :]
+    pos = (i % bq) * bk + j % bk                                 # [S, S]
+    tile = (i // bq) * 1024 + j // bk
+    bh = rows[:, None] * nhead + torch.arange(nhead, device=dev)  # [b, H]
+    s = bh[:, :, None, None] * (16384 * 1024) + tile
+    s += seed % 2**32
+    s.bitwise_and_(0xFFFFFFFF)
+    return hash_bits(pos, s) < keep_threshold(rate)
+
+
 def flash_attention_plain(qkv: torch.Tensor, segq: torch.Tensor,
-                          segk: torch.Tensor, nhead: int) -> torch.Tensor:
+                          segk: torch.Tensor, nhead: int, rate: float = 0.0,
+                          seed: int = 0) -> torch.Tensor:
     """Plain PyTorch version of K5: the masked softmax of the JAX package
-    over whole rows, taken a few rows at a time so the ``[rows, H, S, S]``
-    scores stay within ``PLAIN_SCORE_BYTES``."""
+    over whole rows, with K5's dropout mask at ``rate > 0``, taken a few
+    rows at a time so the ``[rows, H, S, S]`` scores stay within
+    ``PLAIN_SCORE_BYTES``. Autograd differentiates it."""
     B, S, _ = qkv.shape
     step = max(1, PLAIN_SCORE_BYTES // (nhead * S * S * 4))
     outs = []
@@ -66,11 +112,26 @@ def flash_attention_plain(qkv: torch.Tensor, segq: torch.Tensor,
         sk = segk[b0:b0 + step].long()
         mask = ((sq[:, :, None] == sk[:, None, :])
                 & (sk >= 0)[:, None, :])[:, None]            # [b, 1, S, S]
-        outs.append(masked_attention(qkv[b0:b0 + step], nhead, mask))
+        drop = None
+        if rate > 0.0:
+            rows = torch.arange(b0, b0 + len(sq), device=qkv.device)
+            drop = keep_drop(tile_keep_mask(rows, S, nhead, rate, seed),
+                             rate)
+        outs.append(masked_attention(qkv[b0:b0 + step], nhead, mask, drop))
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
-def _check(qkv, segq, segk, nhead):
+def flash_attention_bwd_plain(qkv, segq, segk, nhead, gout, rate=0.0,
+                              seed=0):
+    """Plain version of K5's backward: autograd through
+    ``flash_attention_plain``. Returns dqkv [B, S, 3d]."""
+    with torch.enable_grad():
+        leaf = qkv.detach().requires_grad_()
+        out = flash_attention_plain(leaf, segq, segk, nhead, rate, seed)
+        return torch.autograd.grad(out, leaf, gout)[0]
+
+
+def _check(qkv, segq, segk, nhead, rate, gout=None):
     B, S, d3 = qkv.shape
     d = d3 // 3
     if d3 % 3 or d % nhead:
@@ -78,6 +139,9 @@ def _check(qkv, segq, segk, nhead):
     if d // nhead not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head width {d // nhead}; the "
                          f"kernel is built for {HEAD_DIMS}")
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"flash_attention: dropout rate {rate} not in "
+                         f"[0, 1)")
     if qkv.dtype != torch.float32:
         raise ValueError("flash_attention: expected float32 qkv")
     for name, t in (("segq", segq), ("segk", segk)):
@@ -86,65 +150,144 @@ def _check(qkv, segq, segk, nhead):
             raise ValueError(f"flash_attention: {name} {t.dtype} "
                              f"{tuple(t.shape)} on {t.device} does not "
                              f"match qkv (int32 [B, S])")
-    if not all(t.is_contiguous() for t in (qkv, segq, segk)):
+    if gout is not None and (gout.dtype != torch.float32
+                             or tuple(gout.shape) != (B, S, d)
+                             or gout.device != qkv.device):
+        raise ValueError(f"flash_attention_bwd: gout {gout.dtype} "
+                         f"{tuple(gout.shape)} does not match the output")
+    if not all(t.is_contiguous() for t in (qkv, segq, segk, gout)
+               if t is not None):
         raise ValueError("flash_attention: inputs must be contiguous")
-    if qkv.data_ptr() % 16:
-        raise ValueError("flash_attention: qkv must be 16-byte aligned (the "
-                         "kernel loads K and V four floats at a time)")
+    if any(t.data_ptr() % 16 for t in (qkv, gout) if t is not None):
+        raise ValueError("flash_attention: qkv and gout must be 16-byte "
+                         "aligned (the kernels load four floats at a time)")
 
 
-def _launch(qkv, segq, segk, nhead):
+def _dropout_args(rate: float, seed: int):
+    on = rate > 0.0
+    seed32 = (int(seed) + 2**31) % 2**32 - 2**31   # the int32 it wraps to
+    return (int(on), ctypes.c_uint(keep_threshold(rate) if on else 0),
+            ctypes.c_float(1.0 / (1.0 - rate)), seed32)
+
+
+def flash_attention_with_stats(qkv: torch.Tensor, segq: torch.Tensor,
+                               segk: torch.Tensor, nhead: int,
+                               rate: float = 0.0, seed: int = 0,
+                               stats: bool = True):
+    """K5's forward kernel on CUDA tensors: (out [B, S, d], m, l), with the
+    softmax statistics m and l [B, S, H] that the backward reads (None,
+    None when ``stats`` is False and ``rate`` 0: the serving launch writes
+    none; with dropout the kernel always writes them)."""
+    _check(qkv, segq, segk, nhead, rate)
     B, S, d3 = qkv.shape
     out = torch.empty((B, S, d3 // 3), dtype=qkv.dtype, device=qkv.device)
+    m = l = None
+    if stats or rate > 0.0:
+        m = torch.empty((B, S, nhead), dtype=torch.float32, device=qkv.device)
+        l = torch.empty_like(m)
     if out.numel() == 0:
-        return out
+        return out, m, l
+    ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
     lib = _load()
     err = lib.flash_attention_fwd(
-        *(ctypes.c_void_p(t.data_ptr()) for t in (qkv, segq, segk, out)),
-        B, S, d3 // 3, nhead, _stream(qkv))
+        ptr(qkv), ptr(segq), ptr(segk), ptr(out), ptr(m), ptr(l), B, S,
+        d3 // 3, nhead, *_dropout_args(rate, seed), _stream(qkv))
     _build.check(lib, err, "flash_attention_fwd")
     flash_attention.launches += 1
-    return out
+    return out, m, l
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K5 on CUDA tensors; its backward kernels are still to port."""
+    """K5 on CUDA tensors with K5's backward kernels as its gradient."""
 
     @staticmethod
-    def forward(ctx, qkv, segq, segk, nhead):
-        return _launch(qkv, segq, segk, nhead)
+    def forward(ctx, qkv, segq, segk, nhead, rate, seed):
+        out, m, l = flash_attention_with_stats(qkv, segq, segk, nhead, rate,
+                                               seed)
+        ctx.save_for_backward(qkv, segq, segk, out, m, l)
+        ctx.args = (nhead, rate, seed)
+        return out
 
     @staticmethod
     def backward(ctx, gout):
-        raise NotImplementedError(
-            "K5's backward (graphtrans_tpu/ops/pallas/flash_attention.py:326 "
-            "dq, :350 dk/dv) arrives with slice 6, training the "
-            "Transformer-only model")
+        qkv, segq, segk, out, m, l = ctx.saved_tensors
+        nhead, rate, seed = ctx.args
+        return (flash_attention_bwd(qkv, segq, segk, nhead, gout.contiguous(),
+                                    rate, seed, saved=(out, m, l)),
+                None, None, None, None, None)
 
 
 def flash_attention(qkv: torch.Tensor, segq: torch.Tensor,
-                    segk: torch.Tensor, nhead: int) -> torch.Tensor:
-    """K5 forward. CPU tensors take ``flash_attention_plain``; CUDA tensors
-    launch the kernel or raise (and a gradient through it raises: no
-    backward kernel yet)."""
+                    segk: torch.Tensor, nhead: int, rate: float = 0.0,
+                    seed: int = 0) -> torch.Tensor:
+    """K5 forward with dropout ``rate`` (0 = none) drawn from ``seed``.
+    CPU tensors take ``flash_attention_plain``; CUDA tensors launch the
+    kernel or raise, and where a gradient is wanted the result carries K5's
+    backward kernels (``flash_attention_bwd``)."""
     if qkv.device.type == "cpu":
-        return flash_attention_plain(qkv, segq, segk, nhead)
+        return flash_attention_plain(qkv, segq, segk, nhead, rate, seed)
     if qkv.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {qkv.device}")
-    _check(qkv, segq, segk, nhead)
     if torch.is_grad_enabled() and qkv.requires_grad:
-        return _FlashAttention.apply(qkv, segq, segk, nhead)
-    return _launch(qkv, segq, segk, nhead)
+        _check(qkv, segq, segk, nhead, rate)
+        return _FlashAttention.apply(qkv, segq, segk, nhead, rate, seed)
+    return flash_attention_with_stats(qkv, segq, segk, nhead, rate, seed,
+                                      stats=False)[0]
 
 
 flash_attention.launches = 0
 
 
+def flash_attention_bwd(qkv: torch.Tensor, segq: torch.Tensor,
+                        segk: torch.Tensor, nhead: int, gout: torch.Tensor,
+                        rate: float = 0.0, seed: int = 0,
+                        saved=None) -> torch.Tensor:
+    """K5 backward: dqkv [B, S, 3d] for the cotangent ``gout`` [B, S, d] of
+    ``flash_attention(qkv, segq, segk, nhead, rate, seed)``, the dropout
+    mask drawn again from ``seed``. ``saved`` is the forward's (out, m, l)
+    from ``flash_attention_with_stats``, which the kernels read. CPU tensors
+    take ``flash_attention_bwd_plain`` (no ``saved``); CUDA tensors launch
+    the dq and dk/dv kernels or raise."""
+    if qkv.device.type == "cpu":
+        return flash_attention_bwd_plain(qkv, segq, segk, nhead, gout, rate,
+                                         seed)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device "
+                         f"{qkv.device}")
+    _check(qkv, segq, segk, nhead, rate, gout)
+    B, S, d3 = qkv.shape
+    out, m, l = saved if saved is not None else (None, None, None)
+    if not (m is not None and out.shape == gout.shape
+            and tuple(m.shape) == tuple(l.shape) == (B, S, nhead)):
+        raise ValueError("flash_attention_bwd: needs the forward's (out, m, "
+                         "l) from flash_attention_with_stats")
+    dqkv = torch.empty_like(qkv)
+    if dqkv.numel() == 0:
+        return dqkv
+    delta = torch.empty_like(m)
+    lib = _load()
+    err = lib.flash_attention_bwd(
+        *(ctypes.c_void_p(t.data_ptr())
+          for t in (qkv, segq, segk, out, gout, m, l, delta, dqkv)),
+        B, S, d3 // 3, nhead, *_dropout_args(rate, seed), _stream(qkv))
+    _build.check(lib, err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dqkv
+
+
+flash_attention_bwd.launches = 0
+
+
 def _load():
     lib = _build.load("flash_attention")
     if lib.flash_attention_fwd.argtypes is None:
-        lib.flash_attention_fwd.argtypes = ([ctypes.c_void_p] * 4
-                                            + [ctypes.c_int] * 4
+        drop = [ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_int]
+        lib.flash_attention_fwd.argtypes = ([ctypes.c_void_p] * 6
+                                            + [ctypes.c_int] * 4 + drop
                                             + [ctypes.c_void_p])
         lib.flash_attention_fwd.restype = ctypes.c_int
+        lib.flash_attention_bwd.argtypes = ([ctypes.c_void_p] * 9
+                                            + [ctypes.c_int] * 4 + drop
+                                            + [ctypes.c_void_p])
+        lib.flash_attention_bwd.restype = ctypes.c_int
     return lib

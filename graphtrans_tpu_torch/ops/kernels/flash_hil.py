@@ -47,12 +47,12 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from . import _build
 from .attention_packed import (HEAD_DIM, _stream, attention_seg_plain,
-                               hash_bits, keep_threshold, u32)
+                               keep_threshold)
+from .flash_attention import tile_keep_mask
 
 MASK_BQ, MASK_BK = 512, 128   # the JAX kernel's blocks, which seed its mask
 
@@ -60,20 +60,9 @@ MASK_BQ, MASK_BK = 512, 128   # the JAX kernel's blocks, which seed its mask
 def flash_hil_keep_mask(R: int, W: int, nhead: int, rate: float, seed: int,
                         device=None) -> torch.Tensor:
     """Bool [R, H, W, W]: query i keeps key j of row r, head h, under
-    flash_hil's seed schedule (drawn on the host a row at a time)."""
-    h = u32(np.arange(nhead))[:, None, None]
-    i = u32(np.arange(W))[None, :, None]
-    j = u32(np.arange(W))[None, None, :]
-    pos = (i % u32(MASK_BQ)) * u32(MASK_BK) + j % u32(MASK_BK)
-    # seed + ((r*H + h)*16384 + i//512)*1024 + j//128, mod 2**32
-    tile = (u32(seed % 2**32) + (i // u32(MASK_BQ)) * u32(1024)
-            + j // u32(MASK_BK))
-    thresh = u32(keep_threshold(rate))
-    keep = np.empty((R, nhead, W, W), bool)
-    for r in range(R):
-        keep[r] = hash_bits(pos, tile + (u32(r * nhead) + h)
-                            * u32(16384 * 1024)) < thresh
-    return torch.from_numpy(keep).to(device)
+    flash_hil's seed schedule (K5's over 512 x 128 tiles)."""
+    return tile_keep_mask(torch.arange(R, device=device), W, nhead, rate,
+                          seed, MASK_BQ, MASK_BK)
 
 
 def flash_hil_seg_plain(qkv: torch.Tensor, seg: torch.Tensor, nhead: int,

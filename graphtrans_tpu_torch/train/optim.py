@@ -9,13 +9,13 @@ gradients are left as they are while ``||g|| < max``, else become
 
 - ``None``/``plateau``: a constant lr. ``plateau`` is a host-side
   ``PlateauScheduler`` (copied, pure Python) stepped on a valid metric
-  after each epoch; evaluation arrives with slice 8, so until then the lr
+  after each epoch; evaluation arrives with slice 12, so until then the lr
   stays at ``--lr``, as the JAX package's does until its first plateau
   step;
 - ``cosine``: optax's ``cosine_decay_schedule`` (alpha 0) over
   ``epochs * steps_per_epoch`` updates, as a ``LambdaLR`` stepped once per
   update;
-- ``onecycle`` arrives with slice 8.
+- ``onecycle`` arrives with slice 12.
 """
 
 from __future__ import annotations
@@ -101,7 +101,7 @@ class Optimizer:
                 self.adamw, lambda s: cosine_decay(s, total))
         elif sched == "onecycle":
             raise NotImplementedError(
-                "--scheduler onecycle arrives with slice 8 (trainers)")
+                "--scheduler onecycle arrives with slice 12 (trainers)")
         elif sched not in (None, "none", "plateau"):
             raise NotImplementedError(f"scheduler {sched}")
 

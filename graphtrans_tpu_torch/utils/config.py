@@ -71,20 +71,17 @@ def add_training_args(parser: argparse.ArgumentParser):
 
 
 _LATER = (
-    ("model_type", lambda v: v == "transformer",
-     "training the Transformer-only family arrives with slice 6 (K4-bwd, "
-     "K5-bwd and their attention dropout); predict serves it"),
-    ("precision", lambda v: v != "f32", "bf16 arrives with slice 7"),
-    ("aug", lambda v: v != "baseline", "FLAG arrives with slice 8"),
-    ("runs", lambda v: v != 1, "the multi-run loop arrives with slice 8"),
+    ("precision", lambda v: v != "f32", "bf16 arrives with slice 10"),
+    ("aug", lambda v: v != "baseline", "FLAG arrives with slice 12"),
+    ("runs", lambda v: v != 1, "the multi-run loop arrives with slice 12"),
     ("resume", lambda v: v is not None,
-     "checkpoints and resume arrive with slice 8"),
-    ("dp_shards", lambda v: v != 1, "data parallelism arrives with slice 9"),
-    ("tp_shards", lambda v: v != 1, "GSPMD arrives with slice 9"),
+     "checkpoints and resume arrive with slice 12"),
+    ("dp_shards", lambda v: v != 1, "data parallelism arrives with slice 13"),
+    ("tp_shards", lambda v: v != 1, "GSPMD arrives with slice 13"),
     ("hybrid_shards", lambda v: v != 1,
-     "node-sharded training arrives with slice 9"),
-    ("sp", bool, "sequence parallelism arrives with slice 9"),
-    ("multihost", bool, "multi-host training arrives with slice 9"),
+     "node-sharded training arrives with slice 13"),
+    ("sp", bool, "sequence parallelism arrives with slice 13"),
+    ("multihost", bool, "multi-host training arrives with slice 13"),
 )
 
 

@@ -332,7 +332,7 @@ def test_main_code2_names_slice_4():
     """code2 training is ported (test_torch_port_code2_train.py); bf16 on
     code2 is a later slice's and raises naming it, and without CUDA the
     entry raises unless asked for the CPU."""
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    with pytest.raises(NotImplementedError, match="slice 10"):
         tmain.main(["--configs", str(CONFIG), "--data_root", SNAPSHOT,
                     "--epochs", "1", "--device", "cpu", "--precision",
                     "bf16"])

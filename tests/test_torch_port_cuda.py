@@ -666,25 +666,222 @@ def test_flash_attention_kernel_matches_plain(cuda, S, d, H, form):
 
 @pytest.mark.cuda
 def test_k4_k5_refuse_other_widths_and_gradients(cuda):
-    """Head widths the kernels do not compile raise, naming those they do;
-    a gradient through either raises (their backward is a later slice's)."""
+    """Head widths and row widths the kernels do not compile raise, naming
+    those they do, forward and backward; a gradient through either reaches
+    qkv through its backward kernels."""
     from graphtrans_tpu_torch.ops.kernels import (attention_dense,
+                                                  attention_dense_bwd,
                                                   flash_attention,
+                                                  flash_attention_bwd,
                                                   key_padding_segs)
 
     valid = torch.ones(2, 600, dtype=torch.bool, device=cuda)
     segs = key_padding_segs(valid)
     with pytest.raises(ValueError, match=r"\(32, 64, 128\)"):
         flash_attention(torch.randn(2, 600, 3 * 96, device=cuda), *segs, 2)
+    with pytest.raises(ValueError, match=r"\(32, 64, 128\)"):
+        flash_attention_bwd(torch.randn(2, 600, 3 * 96, device=cuda), *segs,
+                            2, torch.randn(2, 600, 96, device=cuda))
     with pytest.raises(ValueError, match=r"\(32, 64\)"):
         attention_dense(torch.randn(2, 96, 3 * 256, device=cuda),
                         valid[:, :96], 2, 48)
+    with pytest.raises(ValueError, match="384"):
+        attention_dense_bwd(torch.randn(2, 400, 3 * 128, device=cuda),
+                            valid[:, :400], 2,
+                            torch.randn(2, 400, 128, device=cuda))
     qkv = torch.randn(2, 600, 3 * 128, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        flash_attention(qkv, *segs, 2).sum().backward()
+    before = flash_attention_bwd.launches
+    flash_attention(qkv, *segs, 2, 0.3, 5).sum().backward()
+    assert flash_attention_bwd.launches == before + 1
+    assert torch.isfinite(qkv.grad).all() and qkv.grad.abs().sum() > 0
     qkv = torch.randn(2, 96, 3 * 128, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        attention_dense(qkv, valid[:, :96], 2, 48).sum().backward()
+    before = attention_dense_bwd.launches
+    attention_dense(qkv, valid[:, :96], 2, 48, 0.3, 5).sum().backward()
+    assert attention_dense_bwd.launches == before + 1
+    assert torch.isfinite(qkv.grad).all() and qkv.grad.abs().sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("S,block,d,H", [
+    (98, 49, 256, 4), (99, 33, 256, 4), (257, 0, 256, 4), (384, 0, 256, 4),
+    (128, 64, 64, 2)])
+def test_attention_dense_dropout_and_bwd_kernels_match_plain(cuda, S, block,
+                                                             d, H, rate):
+    """K4 with dropout and K4-bwd against the plain version (the same mask)
+    and its autograd, up to rows of 384 at hd 64 (K2-bwd's staging would
+    not fit there): a block without a valid key gives zero dq, dk and dv;
+    a padding key zero dk and dv."""
+    from graphtrans_tpu_torch.ops.kernels import (attention_dense_bwd,
+                                                  attention_dense_bwd_plain,
+                                                  attention_dense_plain)
+    from graphtrans_tpu_torch.ops.kernels.attention_packed import (
+        attention_dense_with_stats)
+
+    gen = torch.Generator().manual_seed(S + d + int(rate * 10))
+    B = 9
+    qkv = torch.randn(B, S, 3 * d, generator=gen).to(cuda)
+    valid = _dense_valid(B, S, block, gen).to(cuda)
+    g = torch.randn(B, S, d, generator=gen).to(cuda)
+    seed = 2**31 - 77
+    saved = attention_dense_with_stats(qkv, valid, H, block, rate, seed)
+    before = attention_dense_bwd.launches
+    dqkv = attention_dense_bwd(qkv, valid, H, g, block, rate, seed, saved)
+    torch.cuda.synchronize()
+    assert attention_dense_bwd.launches == before + 1
+    want = attention_dense_plain(qkv, valid, H, block, rate, seed)
+    assert (saved[0] - want).abs().max().item() <= K2_TOL
+    ref = attention_dense_bwd_plain(qkv, valid, H, g, block, rate, seed)
+    assert (dqkv - ref).abs().max().item() <= GRAD_TOL * max(
+        1.0, ref.abs().max().item())
+    dead = ~_live(valid, block)
+    assert not dqkv[dead].any()
+    assert not dqkv[..., d:][~valid].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("S,d,H", [(1001, 256, 4), (513, 256, 4),
+                                   (1001, 128, 4), (600, 256, 2)])
+@pytest.mark.parametrize("form", ["key_padding", "seg"])
+def test_flash_attention_dropout_and_bwd_kernels_match_plain(cuda, S, d, H,
+                                                             form, rate):
+    """K5 with dropout and K5-bwd against the plain version (the same mask,
+    drawn with torch) and its autograd, heads of 64, 32 and 128; padding
+    keys and queries without a key get exact zeros."""
+    from graphtrans_tpu_torch.ops.kernels import (flash_attention_bwd,
+                                                  flash_attention_bwd_plain,
+                                                  flash_attention_plain,
+                                                  key_padding_segs)
+    from graphtrans_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_with_stats)
+
+    gen = torch.Generator().manual_seed(S + d + H + int(rate * 10))
+    B = 3
+    qkv = torch.randn(B, S, 3 * d, generator=gen).to(cuda)
+    if form == "key_padding":
+        n = torch.randint(9, 300, (B,), generator=gen)
+        valid = torch.arange(S)[None, :] < n[:, None]
+        valid[:, -1] = True
+        valid[2] = False
+        segq, segk = key_padding_segs(valid.to(cuda))
+    else:
+        seg = (torch.arange(S)[None, :] // torch.randint(
+            40, 400, (B, 1), generator=gen)).int()
+        seg[:, S - 37:] = -1
+        seg[2] = -1
+        segq = segk = seg.to(cuda)
+    g = torch.randn(B, S, d, generator=gen).to(cuda)
+    seed = 987654321
+    saved = flash_attention_with_stats(qkv, segq, segk, H, rate, seed)
+    dqkv = flash_attention_bwd(qkv, segq, segk, H, g, rate, seed, saved)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(qkv, segq, segk, H, rate, seed)
+    assert (saved[0] - want).abs().max().item() <= K2_TOL
+    ref = flash_attention_bwd_plain(qkv, segq, segk, H, g, rate, seed)
+    assert (dqkv - ref).abs().max().item() <= GRAD_TOL * max(
+        1.0, ref.abs().max().item())
+    live = ((segq[:, :, None] == segk[:, None, :])
+            & (segk >= 0)[:, None, :]).any(-1)
+    assert not dqkv[..., :d][~live].any()
+    assert not dqkv[..., d:][segk < 0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2100, 256), (7, 513, 512), (3, 128)])
+def test_byte_dropout_kernel_matches_plain(cuda, shape):
+    """K11 forward and backward (the kernel on the cotangent) against the
+    plain version: the same mask, to the bit."""
+    from graphtrans_tpu_torch.ops.kernels import (byte_dropout,
+                                                  byte_dropout_plain)
+
+    gen = torch.Generator().manual_seed(len(shape))
+    x = torch.randn(*shape, generator=gen).to(cuda).requires_grad_()
+    g = torch.randn(*shape, generator=gen).to(cuda)
+    before = byte_dropout.launches
+    got = byte_dropout(x, 2**31 - 3, 77)
+    got.backward(g)
+    torch.cuda.synchronize()
+    assert byte_dropout.launches == before + 2
+    xr = x.detach().requires_grad_()
+    want = byte_dropout_plain(xr, 2**31 - 3, 77)
+    want.backward(g)
+    assert torch.equal(got.detach(), want.detach())
+    assert torch.equal(x.grad, xr.grad)
+
+
+def _tf_train_model(kind, num_tasks, cuda):
+    import types
+
+    from graphtrans_tpu_torch.models.transformer import build_transformer
+    from graphtrans_tpu_torch.nn.init import init_weights
+
+    args = argparse.Namespace(
+        model_type="transformer", graph_pooling="cls", gnn_type="gcn",
+        gnn_virtual_node=False, d_model=256, gnn_emb_dim=256, nhead=4,
+        dim_feedforward=512, num_encoder_layers=2, max_input_len=1000,
+        transformer_norm_input=False, transformer_dropout=0.3,
+        dataset="ogbg-code2" if kind == "code2" else "ogbg-molpcba")
+    sizes = types.SimpleNamespace(num_nodetypes=20, num_nodeattributes=100,
+                                  max_seq_len=5)
+    model = build_transformer(args, num_tasks, cuda,
+                              sizes if kind == "code2" else None)
+    return init_weights(model, torch.Generator().manual_seed(0)).train()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mol", "code2"])
+def test_transformer_backward_through_kernels_reaches_every_leaf(cuda, kind):
+    """loss.backward() of the Transformer-only model (2 layers, d 256,
+    attention dropout 0.3) through K4 and K4-bwd (molecules, rows of two
+    graphs) or K5 and K5-bwd (code2 rows past 512) gives every parameter a
+    gradient equal to the plain route's, on the same masks."""
+    from graphtrans_tpu_torch.data.synthetic import make_code_dataset
+    from graphtrans_tpu_torch.data.vocab import (augment_edge,
+                                                 encode_seq_to_arr,
+                                                 get_vocab_mapping)
+    from graphtrans_tpu_torch.nn.dropout import Generators
+    from graphtrans_tpu_torch.ops.kernels import (attention_dense_bwd,
+                                                  flash_attention_bwd)
+    from graphtrans_tpu_torch.train.losses import (binary_multitask_loss,
+                                                   seq_token_loss)
+
+    if kind == "mol":
+        num_tasks = 128
+        graphs = make_mol_dataset(num_graphs=30, num_tasks=num_tasks,
+                                  min_nodes=3, max_nodes=40, seed=3)
+        kw = dict(num_tasks=num_tasks, y_dtype="float32", dense_cap=48)
+        wrapper, loss_fn, caps = (attention_dense_bwd, binary_multitask_loss,
+                                  (32, 2048, 8192))
+    else:
+        raw = make_code_dataset(num_graphs=6, vocab_size=50, seq_len_max=6,
+                                min_nodes=100, max_nodes=700, seed=4)
+        v2i, _ = get_vocab_mapping([g["y_seq"] for g in raw], 50)
+        graphs = [dict(augment_edge(g),
+                       y_arr=encode_seq_to_arr(g["y_seq"], v2i, 5))
+                  for g in raw]
+        num_tasks = len(v2i)
+        kw = dict(num_tasks=num_tasks, y_dtype="int32", max_seq_len=5,
+                  max_input_len=1000, dense_cap=704)
+        wrapper, loss_fn, caps = (flash_attention_bwd, seq_token_loss,
+                                  (8, 8192, 32768))
+    graphs = [dict(g, _id=i) for i, g in enumerate(graphs)]
+    b = collate(graphs, *caps, **kw).to(cuda)
+    model = _tf_train_model(kind, num_tasks, cuda)
+    grads = []
+    for kernels in (True, False):
+        set_kernels(model, kernels)
+        model.zero_grad(set_to_none=True)
+        before = wrapper.launches
+        loss_fn(model(b, Generators.seeded(5, cuda)), b).backward()
+        if kernels:
+            assert wrapper.launches == before + 2            # 2 layers
+        grads.append({n: p.grad for n, p in model.named_parameters()})
+    for name, g in grads[0].items():
+        ref = grads[1][name]
+        assert g is not None and g.abs().sum().item() > 0, name
+        assert (g - ref).abs().max().item() <= GRAD_TOL * max(
+            1.0, ref.abs().max().item()), name
 
 
 @pytest.mark.cuda

@@ -156,7 +156,7 @@ def test_cosine_schedule_matches_optax():
         np.testing.assert_allclose(opt.lr, float(sched(step)), rtol=1e-5,
                                    atol=1e-12)
         opt.step()
-    with pytest.raises(NotImplementedError, match="slice 8"):
+    with pytest.raises(NotImplementedError, match="slice 12"):
         build_optimizer(torch.nn.Linear(2, 2),
                         argparse.Namespace(**dict(vars(args),
                                                   scheduler="onecycle")), 4)
@@ -210,7 +210,7 @@ def test_byte_dropout():
     again = ByteDropout(0.3).train()(x, Generators.seeded(0, "cpu"))
     assert torch.equal(again, y)
     s = Generators.seeded(5, "cpu")
-    seeds = [s.attention_seed() for _ in range(3)]
+    seeds = [s.kernel_seed() for _ in range(3)]
     assert len(set(seeds)) == 3 and all(0 <= v < 2**31 - 1 for v in seeds)
 
 
@@ -400,10 +400,10 @@ def test_main_without_cuda_raises():
 
 
 @pytest.mark.parametrize("flag,slice_", [
-    (["--aug", "flag"], "slice 8"), (["--runs", "3"], "slice 8"),
-    (["--resume", "x"], "slice 8"), (["--sp"], "slice 9"),
-    (["--dp_shards", "4"], "slice 9"), (["--scheduler", "onecycle"],
-                                        "slice 8")])
+    (["--aug", "flag"], "slice 12"), (["--runs", "3"], "slice 12"),
+    (["--resume", "x"], "slice 12"), (["--sp"], "slice 13"),
+    (["--dp_shards", "4"], "slice 13"), (["--scheduler", "onecycle"],
+                                         "slice 12")])
 def test_main_turns_away_later_slices(flag, slice_):
     with pytest.raises(NotImplementedError, match=slice_):
         tmain.main(["--configs", str(CONFIG), "--data_root",

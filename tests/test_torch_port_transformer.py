@@ -356,25 +356,23 @@ def test_predict_transformer_on_cpu(tmp_path, config, split, records, width):
 
 
 def test_later_slices_raise():
-    """Training the family, non-CLS pooling, a code2 encoder narrower than
-    the transformer, K4's and K5's backward and attention dropout on
-    unpacked rows name their slices."""
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    """Training the family is ported (test_torch_port_transformer_train.py);
+    bf16 and non-CLS pooling on it name their slices, and a code2 encoder
+    narrower than the transformer is refused."""
+    with pytest.raises(NotImplementedError, match="slice 10"):
         tmain.main(["--configs", str(MOL_CONFIG), "--data_root", SNAPSHOT,
-                    "--epochs", "1", "--device", "cpu"])
+                    "--epochs", "1", "--device", "cpu", "--precision",
+                    "bf16"])
     args = predict.parse_with_config(predict.build_parser(), [
         "--configs", str(MOL_CONFIG), "--graph_pooling", "mean"])
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    with pytest.raises(NotImplementedError, match="slice 11"):
         build_model(args, 128)
+    with pytest.raises(NotImplementedError, match="slice 11"):
+        tmain.main(["--configs", str(MOL_CONFIG), "--data_root", SNAPSHOT,
+                    "--epochs", "1", "--device", "cpu", "--graph_pooling",
+                    "mean"])
     args = predict.parse_with_config(predict.build_parser(), [
         "--configs", str(CODE2_CONFIG), "--d_model", "64"])
     with pytest.raises(ValueError, match="gnn_emb_dim"):
         build_model(args, 10, code=argparse.Namespace(
             num_nodetypes=TYPES, num_nodeattributes=ATTRS, max_seq_len=SEQ))
-    from graphtrans_tpu_torch.ops.kernels import attention_packed
-    for fn in (attention_packed._AttentionDense, tfa_mod._FlashAttention):
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            fn.backward(None, torch.zeros(1))
-    enc = ttr.TransformerNodeEncoder(32, 2, 64, 1, dropout=0.1).train()
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        enc(torch.zeros(2, 3, 32), torch.ones(2, 3, dtype=torch.bool))
