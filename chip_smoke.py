@@ -71,7 +71,22 @@ Phases, each printing one line (any failure raises and exits non-zero):
      K5-bwd), checking finite losses and moved parameters, and holds one
      step through the kernels against the plain versions; (c) times the
      train step of 4096 molecules and of 512 ASTs with peak memory and a
-     torch.profiler split, then again with K11 switched on.
+     torch.profiler split, then again with K11 switched on;
+ 11. the attention-backend switch: (a) holds K9 (attention_smalls) and
+     K9-bwd at rates 0 and 0.3 on the molpcba snapshot's rows of 49, 4096
+     molecules' rows of 33 (smalls) and packed rows of 99 (packed_smalls),
+     and code2's rows of 1001, and K10 (transformer_layer, one whole encoder
+     layer) and K10-bwd at [1366, 99, 256] and the snapshot's rows of 98,
+     against their plain versions and autograd, timed beside bound, plain
+     version and library yardstick; (b) serves the molpcba Transformer-only
+     yml through predict under --attn_backend smalls and packed_smalls and
+     under packed_layer set in process (launches per backend, logits
+     against the plain versions and against auto), trains it 2 epochs
+     through main under smalls and packed_layer (launches, losses, moved
+     parameters, one step against the plain route), and serves the code2
+     GraphTrans yml under --attn_backend flash (K5 on its 384-wide tier,
+     logits against auto); (c) times and profiles the 4096-molecule forward
+     and train step under auto, smalls, packed_smalls and packed_layer.
 Then the script's wall seconds, a {"kernels": [...]} line, the nvidia-smi
 line, and the contract line
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without
@@ -127,7 +142,14 @@ K7_TOL = 1e-5      # times max(1, max |reference|)
 GCN_LAYERS_PER_FORWARD = 5
 # kernel-name fragments -> the layer that launches them (phase 5)
 LAYERS = (
-    ("padtags", "K4-bwd attention_dense_bwd"),
+    ("attention_smalls_fwd", "K9 attention_smalls"),   # before its Keep
+    ("smallskeep", "K9-bwd attention_smalls_bwd"),
+    ("layer_gemm", "K10 transformer_layer (products)"),
+    ("layer_norm_fwd_kernel", "K10 transformer_layer (LayerNorm, sums)"),
+    ("layer_norm_bwd_kernel", "K10 transformer_layer (LayerNorm, sums)"),
+    ("layer_colsum", "K10 transformer_layer (LayerNorm, sums)"),
+    ("layer_sum", "K10 transformer_layer (LayerNorm, sums)"),
+    ("padtags", "K4-bwd attention_dense_bwd (K10's too)"),
     ("segtags", "K5-bwd flash_attention_bwd"),
     ("byte_dropout", "K11 byte_dropout"),
     ("flash_hil_dq", "K3-bwd flash_hil_seg_bwd"),
@@ -139,7 +161,7 @@ LAYERS = (
     ("spmm_kernel", "K7 spmm (aggregation)"),
     ("gin_agg_fwd", "K1 gin_agg (aggregation)"),
     ("attention_seg_fwd", "K2 attention_seg"),
-    ("attention_dense_fwd", "K4 attention_dense"),
+    ("attention_dense_fwd", "K4 attention_dense (K10's too)"),
     ("gin_agg_bwd", "K1-bwd gin_agg_bwd"),
     ("sum_rows", "K1-bwd gin_agg_bwd"),
     ("attention_seg_bwd", "K2-bwd attention_seg_bwd"),
@@ -744,7 +766,8 @@ def phase6_train(device, tmp: str):
     for line in out.getvalue().splitlines():
         print(f"[6b] main: {line}")
     steps = sum(r["steps"] for r in res["epochs"])
-    want = {"gin_agg": 5 * steps, "gin_agg_bwd": 5 * steps,
+    want = {**dict.fromkeys(launches, 0),        # every other wrapper: 0
+            "gin_agg": 5 * steps, "gin_agg_bwd": 5 * steps,
             "attention_seg": 4 * steps, "attention_seg_bwd": 4 * steps,
             "flash_hil_seg": 0, "flash_hil_seg_bwd": 0, "spmm": 0,
             "spmm_bwd": 0, "attention_dense": 0, "attention_dense_bwd": 0,
@@ -1008,6 +1031,7 @@ def phase7_serve(device, tmp: str):
         results[split] = (res, widths)
     secs = time.perf_counter() - t0
     launches = kernels.launch_counts()
+    want = dict(dict.fromkeys(launches, 0), **want)   # every other: 0
     want = dict(want, gin_agg=0, gin_agg_bwd=0, attention_seg_bwd=0,
                 flash_hil_seg_bwd=0, spmm_bwd=0, attention_dense=0,
                 attention_dense_bwd=0, flash_attention=0,
@@ -1316,7 +1340,8 @@ def phase8_train(device, tmp: str):
     steps = sum(r["steps"] for r in res["epochs"])
     # every train batch packs into three tiers (1024, 384, 128): the
     # encoder's 4 layers run K3 on one and K2 on two; 5 GCN layers run K7
-    want = {"gin_agg": 0, "gin_agg_bwd": 0,
+    want = {**dict.fromkeys(launches, 0),        # every other wrapper: 0
+            "gin_agg": 0, "gin_agg_bwd": 0,
             "attention_seg": 8 * steps, "attention_seg_bwd": 8 * steps,
             "flash_hil_seg": 4 * steps, "flash_hil_seg_bwd": 4 * steps,
             "spmm": 5 * steps, "spmm_bwd": 5 * steps,
@@ -2207,6 +2232,560 @@ def phase10_step(device, mol_bench, code2_bench, code2_tasks: int, smi: str):
     return k11_launches
 
 
+# ---- phase 11: the attention-backend switch (K9, K10) ----------------------
+
+
+def check_k9(qkv, valid, nhead: int, block: int, rate: float, seed: int, gen,
+             rows: int):
+    """K9 (with dropout ``rate``) and K9-bwd on all rows of ``qkv`` against
+    the plain version (the same mask) and its autograd on the first
+    ``rows``; queries without a key and padding keys get zero outputs and
+    gradients."""
+    from graphtrans_tpu_torch.ops.kernels import (attention_smalls_bwd,
+                                                  attention_smalls_bwd_plain,
+                                                  attention_smalls_plain)
+    from graphtrans_tpu_torch.ops.kernels.attention_smalls import (
+        attention_smalls_with_stats)
+
+    d = qkv.shape[2] // 3
+    g = torch.randn(*qkv.shape[:2], d, generator=gen).to(qkv.device)
+    saved = attention_smalls_with_stats(qkv, valid, nhead, block, rate, seed)
+    dqkv = attention_smalls_bwd(qkv, valid, nhead, g, block, rate, seed,
+                                saved)
+    torch.cuda.synchronize()
+    head = (qkv[:rows], valid[:rows], nhead, block)
+    f_err = (saved[0][:rows] - attention_smalls_plain(*head, rate, seed)
+             ).abs().max().item()
+    b_err = _rel_err(dqkv[:rows], attention_smalls_bwd_plain(
+        *head[:3], g[:rows], block, rate, seed))
+    if f_err > K2_TOL or b_err > GRAD_TOL or not torch.isfinite(dqkv).all():
+        raise AssertionError(f"K9 (block {block}) at rate {rate}: forward "
+                             f"|diff| {f_err} (<= {K2_TOL}), backward "
+                             f"{b_err} (<= {GRAD_TOL})")
+    dead = ~_live(valid, block)   # dropout may zero a live query's row
+    if saved[0][dead].any() or dqkv[dead].any() or dqkv[..., d:][~valid].any():
+        raise AssertionError("K9: a query without a key, or a padding key, "
+                             "has a non-zero output or gradient")
+    return f_err, b_err, g
+
+
+def layer_inputs(valid, d: int, ff: int, nhead: int, gen, device):
+    """K10's arguments as the packed encoder gets them for rows of
+    ``valid`` [G, S]: random x [B, gb*S, d], the packed key mask, the block,
+    and one layer's twelve parameters as torch initialises them
+    (``TransformerEncoderLayer.fused_params``)."""
+    from graphtrans_tpu_torch.nn.transformer import TransformerEncoderLayer
+
+    qkv, v, block = k4_inputs(valid, d, gen, device)
+    x = torch.randn(*qkv.shape[:2], d, generator=gen).to(device)
+    torch.manual_seed(SEED)
+    layer = TransformerEncoderLayer(d, nhead, ff, DROPOUT, device=device)
+    params = [p.detach() for p in layer.fused_params()]
+    return x, v, block, params
+
+
+def check_k10(x, valid, params, nhead: int, block: int, rate: float,
+              seed: int, gen):
+    """K10 and K10-bwd against the plain layer (the same masks) and its
+    autograd: the output, dx and all twelve parameter gradients, the
+    backward on the kernel's relu decisions (``relu_side``: a
+    pre-activation within f32 rounding of 0 may take either side in two
+    correct computations, and moves a row of the gradients when it does)."""
+    from graphtrans_tpu_torch.ops.kernels import (transformer_layer_bwd,
+                                                  transformer_layer_bwd_plain,
+                                                  transformer_layer_plain)
+    from graphtrans_tpu_torch.ops.kernels.transformer_layer import (
+        relu_side, transformer_layer_saved)
+
+    g = torch.randn(*x.shape, generator=gen).to(x.device)
+    y, saved = transformer_layer_saved(x, valid, params, nhead, block, rate,
+                                       seed)
+    grads = transformer_layer_bwd(x, valid, params, nhead, block, g, rate,
+                                  seed, saved)
+    torch.cuda.synchronize()
+    mask = relu_side(saved, (*x.shape[:2], params[6].shape[0]))
+    want = transformer_layer_plain(x, valid, params, nhead, block, rate, seed)
+    f_err = (y - want).abs().max().item()
+    m_err = (transformer_layer_plain(x, valid, params, nhead, block, rate,
+                                     seed, mask) - want).abs().max().item()
+    refs = transformer_layer_bwd_plain(x, valid, params, nhead, block, g, rate,
+                                       seed, mask)
+    b_err = max(_rel_err(a, b) for a, b in zip(grads, refs))
+    if (f_err > K2_TOL or m_err > K2_TOL or b_err > GRAD_TOL
+            or not all(torch.isfinite(t).all() for t in grads)):
+        raise AssertionError(f"K10 (block {block}) at rate {rate}: forward "
+                             f"|diff| {f_err} (on the kernel's relu side "
+                             f"{m_err}; <= {K2_TOL}), backward {b_err} (<= "
+                             f"{GRAD_TOL})")
+    return f_err, b_err, g, saved
+
+
+def library_layer(x, valid, params, nhead: int, block: int, rate: float):
+    """Yardstick only: K10's layer through torch's library calls (cuBLAS
+    F.linear, SDPA with a bool block mask, F.dropout, F.layer_norm), never
+    called by the port."""
+    F = torch.nn.functional
+    wqkv, bqkv, wout, bout, s1, b1, w1, bf1, w2, bf2, s2, b2 = params
+    B, S, d = x.shape
+    q, k, v = (t.reshape(B, S, nhead, d // nhead).transpose(1, 2)
+               for t in F.linear(x, wqkv, bqkv).split(d, dim=-1))
+    a = F.scaled_dot_product_attention(q, k, v,
+                                       attn_mask=_block_mask(valid, block),
+                                       dropout_p=rate)
+    a = F.linear(a.transpose(1, 2).reshape(B, S, d), wout, bout)
+    y1 = F.layer_norm(x + F.dropout(a, rate), (d,), s1, b1, 1e-5)
+    f = F.dropout(F.relu(F.linear(y1, w1, bf1)), rate)
+    return F.layer_norm(y1 + F.dropout(F.linear(f, w2, bf2), rate), (d,), s2,
+                        b2, 1e-5)
+
+
+def k10_bound(x, valid, params, nhead: int, block: int,
+              backward: bool = False):
+    """The forward reads x, the mask and the parameters and writes y; its
+    products need 2 T (3d^2 + d^2 + 2 d ff) flops, the attention the
+    same-block pairs' (K4's). The backward reads x, the cotangent, the
+    parameters and what the forward kept (qkv, ao, m, l, both LayerNorms'
+    xhat and 1/sigma, y1, the FF activation) and writes dx and the twelve
+    gradients, with twice the forward's product flops and K4-bwd's pair
+    flops."""
+    B, S, d = x.shape
+    T, ff, hd = B * S, params[6].shape[0], d // nhead
+    pbytes = sum(p.numel() for p in params) * 4
+    gemm = 2 * T * (3 * d * d + d * d + 2 * d * ff)
+    pairs = int((valid.reshape(B, S // block, block).sum(-1) * block).sum()
+                .item())
+    if not backward:
+        return _bound(2 * T * d * 4 + pbytes + valid.numel(),
+                      gemm + pairs * nhead * (4 * hd + 4))
+    kept = 3 * d + d + 2 * nhead + d + 1 + d + ff + d + 1    # a token's
+    return _bound((3 * T * d + T * kept) * 4 + 2 * pbytes + valid.numel(),
+                  2 * gemm + pairs * nhead * (10 * hd + 8))
+
+
+def phase11_kernels(device, mol_bench, code2_bench):
+    """(a) K9 and K9-bwd (attention_smalls) at rates 0 and 0.3 on the
+    molpcba snapshot's rows of 49 (smalls), 4096 molecules' rows of 33
+    (smalls) and packed rows of 99 (packed_smalls, block 33), and code2's
+    rows of 1001 (smalls); K10 and K10-bwd (transformer_layer) at 4096
+    molecules' [1366, 99, 256], ff 512, block 33 and the snapshot's rows of
+    98, block 49; against their plain versions and autograd, and timed
+    beside bound, plain version and library yardstick."""
+    from graphtrans_tpu_torch import predict
+    from graphtrans_tpu_torch.data.loader import iterate_batches
+    from graphtrans_tpu_torch.ops.kernels import (
+        attention_smalls, attention_smalls_bwd, attention_smalls_plain,
+        transformer_layer, transformer_layer_bwd, transformer_layer_plain)
+    from graphtrans_tpu_torch.ops.kernels.attention_smalls import (
+        attention_smalls_with_stats)
+    from graphtrans_tpu_torch.ops.kernels.transformer_layer import (
+        transformer_layer_saved)
+
+    gen = torch.Generator().manual_seed(SEED + 11)
+    args = _tf_args(TF_MOL_CONFIG)
+    splits, num_tasks, _ = predict.load_splits(args)
+    serve = next(iterate_batches(splits["train"], **predict.serving_layout(
+        splits, args, num_tasks, split="train")))
+    d, nhead, ff = args.d_model, args.nhead, args.dim_feedforward
+    seed = 2**31 - 13
+    # name: (key mask [G, S], pack as packed_smalls does, rows the plain
+    # backward is held on)
+    k9_cases = {"serve256 smalls S 49": (dense_valid(serve), False, None),
+                "bench4096 smalls S 33": (dense_valid(mol_bench), False, None),
+                "bench4096 packed_smalls block 33": (dense_valid(mol_bench),
+                                                     True, None),
+                "bench512 smalls S 1001": (dense_valid(code2_bench), False,
+                                           64)}
+    errs = collections.defaultdict(float)
+    timed = {}
+    for name, (valid, packed, rows) in k9_cases.items():
+        if packed:
+            qkv, v, block = k4_inputs(valid, d, gen, device)
+        else:
+            qkv = torch.randn(*valid.shape, 3 * d, generator=gen).to(device)
+            v, block = valid.to(device), 0
+        for rate in (0.0, DROPOUT):
+            f, e, g = check_k9(qkv, v, nhead, block, rate, seed, gen,
+                               rows or len(qkv))
+            errs["k9"], errs["k9_bwd"] = (max(errs["k9"], f),
+                                          max(errs["k9_bwd"], e))
+        saved = attention_smalls_with_stats(qkv, v, nhead, block, DROPOUT,
+                                            seed)
+        plain = lambda x, r0: attention_smalls_plain(
+            x, v[r0:r0 + 64], nhead, block, DROPOUT, seed)
+        t = dict(ms=time_ms(lambda: attention_smalls(qkv, v, nhead, block),
+                            iters=5 if rows else 20),
+                 plain_ms=time_ms(lambda: attention_smalls_plain(
+                     qkv, v, nhead, block), iters=1 if rows else 3),
+                 library_ms=sdpa_mask_ms(qkv, _block_mask(v, block), nhead,
+                                         iters=3),
+                 bwd_ms=time_ms(lambda: attention_smalls_bwd(
+                     qkv, v, nhead, g, block, DROPOUT, seed, saved),
+                     iters=3 if rows else 10),
+                 bwd_plain_ms=(_chunked_plain_bwd_ms(plain, qkv, g, 64)
+                               if rows else _plain_bwd_ms(
+                                   lambda x: attention_smalls_plain(
+                                       x, v, nhead, block, DROPOUT, seed),
+                                   [qkv], g)),
+                 bwd_library_ms=sdpa_bwd_mask_ms(qkv, _block_mask(v, block),
+                                                 nhead, g, DROPOUT))
+        t["bound_ms"], t["bound_by"] = k4_bound(qkv, v, nhead, block)
+        t["bwd_bound_ms"], t["bwd_bound_by"] = k4_bwd_bound(qkv, v, nhead,
+                                                            block)
+        t["shape"] = (f"B={qkv.shape[0]} S={qkv.shape[1]} d={d} H={nhead} "
+                      f"block {block}")
+        timed[name] = t
+        del qkv, v, g, saved
+    print(f"[11a] K9 agrees with its plain version within {errs['k9']:.3g} "
+          f"(<= {K2_TOL}) and K9-bwd with autograd through it within "
+          f"{errs['k9_bwd']:.3g} of max(1, max|ref|) (<= {GRAD_TOL}) at rates "
+          f"0 and {DROPOUT}, at {list(k9_cases)} (S 1001: the first 64 rows);"
+          f" queries without a key and padding keys get exactly 0")
+    for name, t in timed.items():
+        print(f"[11a] {name} K9 attention_smalls [{t['shape']}]: kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library "
+              f"{t['library_ms']:.4f} ms (SDPA, bool mask); K9-bwd (dropout "
+              f"{DROPOUT}) {t['bwd_ms']:.4f} ms, plain backward "
+              f"{t['bwd_plain_ms']:.4f} ms, bound {t['bwd_bound_ms']:.4f} ms "
+              f"({t['bwd_bound_by']}), library {t['bwd_library_ms']:.4f} ms "
+              f"(SDPA backward)")
+
+    k10_cases = {"bench4096 [1366, 99] block 33": dense_valid(mol_bench),
+                 "serve256 rows of 98 block 49": dense_valid(serve)}
+    ltimed = {}
+    for name, valid in k10_cases.items():
+        x, v, block, params = layer_inputs(valid, d, ff, nhead, gen, device)
+        for rate in (0.0, DROPOUT):
+            f, e, g, _ = check_k10(x, v, params, nhead, block, rate, seed,
+                                   gen)
+            errs["k10"], errs["k10_bwd"] = (max(errs["k10"], f),
+                                            max(errs["k10_bwd"], e))
+        _, saved = transformer_layer_saved(x, v, params, nhead, block,
+                                           DROPOUT, seed)
+        with torch.no_grad():
+            t = dict(ms=time_ms(lambda: transformer_layer(
+                         x, v, params, nhead, block), iters=5),
+                     plain_ms=time_ms(lambda: transformer_layer_plain(
+                         x, v, params, nhead, block), iters=3),
+                     library_ms=time_ms(lambda: library_layer(
+                         x, v, params, nhead, block, 0.0), iters=5))
+        t.update(
+            bwd_ms=time_ms(lambda: transformer_layer_bwd(
+                x, v, params, nhead, block, g, DROPOUT, seed, saved), iters=5),
+            bwd_plain_ms=_plain_bwd_ms(
+                lambda xx, *ps: transformer_layer_plain(
+                    xx, v, ps, nhead, block, DROPOUT, seed), [x, *params], g),
+            bwd_library_ms=_plain_bwd_ms(
+                lambda xx, *ps: library_layer(xx, v, ps, nhead, block,
+                                              DROPOUT), [x, *params], g))
+        t["bound_ms"], t["bound_by"] = k10_bound(x, v, params, nhead, block)
+        t["bwd_bound_ms"], t["bwd_bound_by"] = k10_bound(
+            x, v, params, nhead, block, backward=True)
+        t["shape"] = (f"B={x.shape[0]} S={x.shape[1]} d={d} ff={ff} "
+                      f"H={nhead} block {block}")
+        ltimed[name] = t
+        del x, v, g, saved
+    print(f"[11a] K10 agrees with its plain layer within {errs['k10']:.3g} "
+          f"(<= {K2_TOL}) and K10-bwd (dx and the twelve parameter "
+          f"gradients, on the kernel's relu decisions) with autograd through "
+          f"it within {errs['k10_bwd']:.3g} of max(1, max|ref|) (<= "
+          f"{GRAD_TOL}) at rates 0 and {DROPOUT}, at {list(k10_cases)}")
+    for name, t in ltimed.items():
+        print(f"[11a] {name} K10 transformer_layer [{t['shape']}]: kernel "
+              f"chain {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library "
+              f"{t['library_ms']:.4f} ms (F.linear, SDPA, F.layer_norm); "
+              f"K10-bwd (dropout {DROPOUT}) {t['bwd_ms']:.4f} ms, plain "
+              f"backward {t['bwd_plain_ms']:.4f} ms, bound "
+              f"{t['bwd_bound_ms']:.4f} ms ({t['bwd_bound_by']}), library "
+              f"backward {t['bwd_library_ms']:.4f} ms")
+    pick = lambda t, pre: dict(ms=t[pre + "ms"], plain_ms=t[pre + "plain_ms"],
+                               bound_ms=t[pre + "bound_ms"],
+                               bound_by=t[pre + "bound_by"],
+                               library_ms=t[pre + "library_ms"])
+    k9 = timed["bench4096 smalls S 33"]
+    k10 = ltimed["bench4096 [1366, 99] block 33"]
+    return dict(errs=errs, timed=(pick(k9, ""), pick(k9, "bwd_"),
+                                  pick(k10, ""), pick(k10, "bwd_")))
+
+
+# The wrapper each backend's molpcba Transformer-only layers launch: rows of
+# 48 + CLS take K9 unpacked (smalls), K9 on packed rows of 2 x 49
+# (packed_smalls) or K10 on them (packed_layer).
+TF_BACKEND_KERNEL = {"smalls": "attention_smalls",
+                     "packed_smalls": "attention_smalls",
+                     "packed_layer": "transformer_layer"}
+
+
+@contextlib.contextmanager
+def programmatic_backend(name: str):
+    """packed_fused and packed_layer are no choices of --attn_backend, as in
+    the JAX package, where a caller sets them with set_attn_backend before
+    main runs: the entry points apply their flag through their module's
+    set_attn_backend, which this points at ``name`` for one run."""
+    from graphtrans_tpu_torch import main as train_main
+    from graphtrans_tpu_torch import predict
+
+    orig = train_main.set_attn_backend
+    forced = lambda model, _: orig(model, name)
+    train_main.set_attn_backend = predict.set_attn_backend = forced
+    try:
+        yield
+    finally:
+        train_main.set_attn_backend = predict.set_attn_backend = orig
+
+
+def _backend_argv(backend: str):
+    return [] if backend == "packed_layer" else ["--attn_backend", backend]
+
+
+def phase11_serve(device, tmp: str):
+    """(b) The molpcba Transformer-only yml through the serving entry point
+    under smalls, packed_smalls (--attn_backend) and packed_layer (set in
+    process), every split, launches counted from 0 for each; then per
+    backend the logits through the kernels against the plain versions and
+    against auto, every batch of every split; and the code2 GraphTrans yml
+    under --attn_backend flash (K5 on its 384-wide segment tier), logits
+    against auto."""
+    from graphtrans_tpu_torch import predict
+    from graphtrans_tpu_torch.data.loader import iterate_batches
+    from graphtrans_tpu_torch.nn.transformer import set_attn_backend
+    from graphtrans_tpu_torch.ops import kernels
+
+    args = _tf_args(TF_MOL_CONFIG)
+    splits, num_tasks, _ = predict.load_splits(args)
+    totals = collections.Counter()
+    for backend, kernel in TF_BACKEND_KERNEL.items():
+        for split in ("train", "valid", "test"):
+            out = os.path.join(tmp, f"{backend}_{split}.jsonl")
+            kernels.reset_launches()         # this backend's serving path
+            with (programmatic_backend(backend) if backend == "packed_layer"
+                  else contextlib.nullcontext()):
+                res = predict.main(["--configs", TF_MOL_CONFIG, "--data_root",
+                                    SNAPSHOT, "--split", split, "--seed",
+                                    str(SEED), "--out", out,
+                                    *_backend_argv(backend)])
+            launches = {k: v for k, v in kernels.launch_counts().items() if v}
+            recs = [json.loads(line) for line in open(out)]
+            if not (len(recs) == len(splits[split])
+                    and all(len(r["logits"]) == num_tasks
+                            and all(math.isfinite(x) for x in r["logits"])
+                            for r in recs)):
+                raise AssertionError(f"{backend} {split}: malformed records")
+            want = {kernel: args.num_encoder_layers * res["batches"]}
+            if launches != want:
+                raise AssertionError(f"{backend} {split}: launches "
+                                     f"{launches}, expected {want}")
+            totals.update(launches)
+        print(f"[11b] served the molpcba snapshot (3 splits) through "
+              f"graphtrans_tpu_torch.predict under {backend}"
+              f"{' (set in process)' if backend == 'packed_layer' else ''}:"
+              f" launches {kernel} {totals[kernel]} so far, "
+              f"{args.num_encoder_layers} a batch")
+
+    model = predict.build_model(args, num_tasks, device)
+    err = collections.defaultdict(float)
+    with torch.inference_mode():
+        for split in ("train", "valid", "test"):
+            layout = predict.serving_layout(splits, args, num_tasks,
+                                            split=split)
+            for b in iterate_batches(splits[split], **layout):
+                tb = b.to(device)
+                gm = tb.graph_mask
+                auto = model(tb)[gm]
+                for backend in TF_BACKEND_KERNEL:
+                    set_attn_backend(model, backend)
+                    got = model(tb)[gm]
+                    kernels.set_kernels(model, False)
+                    plain = model(tb)[gm]
+                    kernels.set_kernels(model, True)
+                    set_attn_backend(model, "auto")
+                    if not torch.isfinite(got).all():
+                        raise AssertionError(f"{backend}: logits not finite")
+                    err[backend, "plain"] = max(
+                        err[backend, "plain"], (got - plain).abs().max().item())
+                    err[backend, "auto"] = max(
+                        err[backend, "auto"], (got - auto).abs().max().item())
+    if max(err.values()) > LOGITS_TOL:
+        raise AssertionError(f"molpcba Transformer-only logits under the "
+                             f"backends: {dict(err)} > {LOGITS_TOL}")
+    print(f"[11b] molpcba Transformer-only logits over all three splits, "
+          f"through K9/K10 against the plain versions and against auto (K4) "
+          f"on the card: " + ", ".join(
+              f"{b} {err[b, 'plain']:.3g} / {err[b, 'auto']:.3g}"
+              for b in TF_BACKEND_KERNEL) + f" (<= {LOGITS_TOL})")
+
+    args = _code2_args()
+    splits, num_tasks, code = predict.load_splits(args)
+    out = os.path.join(tmp, "code2_flash.jsonl")
+    kernels.reset_launches()                 # code2 under flash
+    res = predict.main(["--configs", CODE2_CONFIG, "--data_root", SNAPSHOT,
+                        "--split", "valid", "--batch_size", str(CODE2_BATCH),
+                        "--seed", str(SEED), "--out", out, "--attn_backend",
+                        "flash"])
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    if not (launches.get("flash_attention", 0) > 0
+            and 0.0 <= res["F1"] <= 1.0):
+        raise AssertionError(f"code2 under flash: launches {launches}, F1 "
+                             f"{res['F1']}")
+    model = predict.build_model(args, num_tasks, device, code)
+    layout = predict.serving_layout(splits, args, num_tasks, split="valid")
+    f_err = 0.0
+    with torch.inference_mode():
+        for b in iterate_batches(splits["valid"], **layout):
+            tb = b.to(device)
+            auto = model(tb)[tb.graph_mask]
+            set_attn_backend(model, "flash")
+            got = model(tb)[tb.graph_mask]
+            set_attn_backend(model, "auto")
+            f_err = max(f_err, (got - auto).abs().max().item())
+    if f_err > LOGITS_TOL:
+        raise AssertionError(f"code2 logits under flash differ from auto by "
+                             f"{f_err} > {LOGITS_TOL}")
+    print(f"[11b] served the code2 GraphTrans valid split under --attn_backend"
+          f" flash ({res['batches']} batches, F1 {res['F1']:.6f}): launches "
+          f"{launches} (K5 on the 384-wide tier, K3 on the wider one); "
+          f"logits against auto max |diff| {f_err:.3g} (<= {LOGITS_TOL})")
+    return totals
+
+
+def phase11_train(device, tmp: str):
+    """(b) The molpcba Transformer-only yml through the training entry at
+    full width on the snapshot (2 epochs) under --attn_backend smalls and
+    under packed_layer (set in process), launches counted from 0 for each,
+    finite losses and every parameter moved; then one step through the
+    kernels against the plain versions under each."""
+    import io
+
+    from graphtrans_tpu_torch import main as train_main
+    from graphtrans_tpu_torch import predict
+    from graphtrans_tpu_torch.data.loader import iterate_batches, shuffled_order
+    from graphtrans_tpu_torch.nn.transformer import set_attn_backend
+    from graphtrans_tpu_torch.ops import kernels
+
+    totals = collections.Counter()
+    for backend in ("smalls", "packed_layer"):
+        kernel = TF_BACKEND_KERNEL[backend]
+        args = _tf_train_args(TF_MOL_CONFIG)
+        splits, num_tasks, _ = predict.load_splits(args)
+        save = os.path.join(tmp, backend)
+        out = io.StringIO()
+        kernels.reset_launches()             # this backend's training path
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), (
+                programmatic_backend(backend) if backend == "packed_layer"
+                else contextlib.nullcontext()):
+            res = train_main.main(["--configs", TF_MOL_CONFIG, "--data_root",
+                                   SNAPSHOT, "--epochs", str(TRAIN_EPOCHS),
+                                   "--seed", str(SEED), "--save_path", save,
+                                   *_backend_argv(backend)])
+        secs = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        steps = sum(r["steps"] for r in res["epochs"])
+        want = {kernel: args.num_encoder_layers * steps,
+                kernel + "_bwd": args.num_encoder_layers * steps}
+        if steps == 0 or launches != want:
+            raise AssertionError(f"training under {backend}: launches "
+                                 f"{launches}, expected {want}")
+        totals.update(launches)
+        if not all(math.isfinite(r["loss"]) for r in res["epochs"]):
+            raise AssertionError(f"epoch losses not finite: {res['epochs']}")
+        init, _ = _trainer(args, num_tasks, device)
+        trained = torch.load(res["saved"], map_location=device,
+                             weights_only=True)
+        params = dict(init.named_parameters())
+        still = [n for n, p in params.items() if torch.equal(p, trained[n])]
+        if still:
+            raise AssertionError(f"parameters did not move: {still}")
+        print(f"[11b] trained the molpcba Transformer-only yml "
+              f"{TRAIN_EPOCHS} epochs under {backend} ({steps} steps, "
+              f"{secs:.2f} s with the model build) through "
+              f"graphtrans_tpu_torch.main: losses "
+              f"{[round(r['loss'], 6) for r in res['epochs']]}, all "
+              f"{len(params)} parameter tensors moved; launches {launches}")
+
+        layout = predict.serving_layout(splits, args, num_tasks,
+                                        args.batch_size, split="train",
+                                        seed=SEED)
+        batch = next(iterate_batches(
+            splits["train"], order=shuffled_order(len(splits["train"]), SEED,
+                                                  0), **layout)).to(device)
+        got = []
+        for on in (True, False):
+            model, step = _trainer(args, num_tasks, device, kernels_on=on)
+            set_attn_backend(model, backend)
+            loss = step(batch).item()
+            got.append((loss, {n: p.grad for n, p in
+                               model.named_parameters()}))
+        (lk, gk), (lp, gp) = got
+        g_err = max(_rel_err(gk[n], gp[n]) for n in gk)
+        if abs(lk - lp) > LOGITS_TOL or g_err > GRAD_TOL:
+            raise AssertionError(f"step under {backend} through the kernels: "
+                                 f"loss |diff| {abs(lk - lp)}, gradients "
+                                 f"{g_err}")
+        print(f"[11b] one step under {backend} (dropout "
+              f"{args.transformer_dropout}, same seeds) through the kernels "
+              f"vs the plain versions: loss {lk:.6f} vs {lp:.6f}, gradients "
+              f"within {g_err:.3g} of max(1, max|ref|) (<= {GRAD_TOL})")
+    return totals
+
+
+def phase11_cost(device, mol_bench, smi: str):
+    """(c) What each backend costs on the card: the Transformer-only
+    forward and train step of 4096 molecules under auto, smalls,
+    packed_smalls and packed_layer, median of 10 after 3 warm-ups, peak
+    memory and a torch.profiler split."""
+    from graphtrans_tpu_torch.nn.init import init_weights
+    from graphtrans_tpu_torch.nn.transformer import set_attn_backend
+
+    tb = mol_bench.to(device)
+    n = int(mol_bench.graph_mask.sum())
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for backend in ("auto", "smalls", "packed_smalls", "packed_layer"):
+        args = _tf_train_args(TF_MOL_CONFIG)
+        model, step = _trainer(args, 128, device)
+        set_attn_backend(model, backend)
+        torch.cuda.reset_peak_memory_stats(device)
+        model.eval()
+        with torch.inference_mode():
+            _median_ms(lambda: model(tb), 3)
+            fms, flo, fhi, _ = _median_ms(lambda: model(tb), 10)
+            fpeak = torch.cuda.max_memory_allocated(device) / 2**30
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                for _ in range(PROFILED_FORWARDS):
+                    model(tb)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / PROFILED_FORWARDS
+        print(f"[11c] {backend}: Transformer-only forward of {n} molecules: "
+              f"median {fms:.3f} ms over 10 (min {flo:.3f}, max {fhi:.3f}), "
+              f"{n / fms * 1e3:.0f} graphs/s, peak {fpeak:.2f} GiB on {smi}")
+        _print_split("[11c]", f"{backend} forward", prof, PROFILED_FORWARDS,
+                     wall, smi, graphs=n)
+        model.train()
+        torch.cuda.reset_peak_memory_stats(device)
+        _median_ms(lambda: step(tb), 3)
+        ms, lo, hi, loss = _median_ms(lambda: step(tb), TIMED_STEPS)
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        if not torch.isfinite(loss):
+            raise AssertionError(f"{backend} step: loss not finite")
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(PROFILED_STEPS):
+                step(tb)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+        print(f"[11c] {backend}: train step of {n} molecules (dropout "
+              f"{args.transformer_dropout}): median {ms:.3f} ms over "
+              f"{TIMED_STEPS} (min {lo:.3f}, max {hi:.3f}), "
+              f"{n / ms * 1e3:.0f} graphs/s, peak {peak:.2f} GiB on {smi}")
+        _print_split("[11c]", f"{backend} train step", prof, PROFILED_STEPS,
+                     wall, smi, graphs=n)
+        del model, step
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--trace", default=None,
@@ -2282,12 +2861,19 @@ def main(argv=None) -> int:
         tf_train_launches = phase10_train(device, tmp)
     k11_launches = phase10_step(device, mol_flat, code2_flat, flat_tasks, smi)
 
+    switch = phase11_kernels(device, mol_flat, code2_flat)
+    with tempfile.TemporaryDirectory() as tmp:
+        switch_launches = phase11_serve(device, tmp)
+        switch_launches.update(phase11_train(device, tmp))
+    phase11_cost(device, mol_flat, smi)
+
     k1, k2 = timing["timed"]
     k1b, k2b = train["timed"]
     k3, k7 = code2["timed"]
     k3b, k7b = code2_train["timed"]
     k4, k5 = tf["timed"]
     k4b, k5b, k11 = tf_train["timed"]
+    k9, k9b, k10, k10b = switch["timed"]
     rows = [
         dict(name="gin_agg_fwd", route="cuda",
              source="graphtrans_tpu_torch/csrc/gin_agg.cu",
@@ -2357,9 +2943,31 @@ def main(argv=None) -> int:
              source="graphtrans_tpu_torch/csrc/dropout.cu",
              replaces="graphtrans_tpu/ops/pallas/dropout.py:89",
              launches=k11_launches, max_abs_err=tf_train["k11_err"], **k11),
+        dict(name="attention_smalls_fwd", route="cuda",
+             source="graphtrans_tpu_torch/csrc/attention_smalls.cu",
+             replaces="graphtrans_tpu/ops/pallas/attention_smallS.py:176",
+             launches=switch_launches["attention_smalls"],
+             max_abs_err=switch["errs"]["k9"], **k9),
+        dict(name="attention_smalls_bwd", route="cuda",
+             source="graphtrans_tpu_torch/csrc/attention_smalls.cu",
+             replaces="graphtrans_tpu/ops/pallas/attention_smallS.py:227",
+             launches=switch_launches["attention_smalls_bwd"],
+             # relative to max(1, max |reference|), as check_k9 holds it
+             max_abs_err=switch["errs"]["k9_bwd"], **k9b),
+        dict(name="transformer_layer_fwd", route="cuda",
+             source="graphtrans_tpu_torch/csrc/transformer_layer.cu",
+             replaces="graphtrans_tpu/ops/pallas/transformer_layer.py:340",
+             launches=switch_launches["transformer_layer"],
+             max_abs_err=switch["errs"]["k10"], **k10),
+        dict(name="transformer_layer_bwd", route="cuda",
+             source="graphtrans_tpu_torch/csrc/transformer_layer.cu",
+             replaces="graphtrans_tpu/ops/pallas/transformer_layer.py:420",
+             launches=switch_launches["transformer_layer_bwd"],
+             # relative to max(1, max |reference|), as check_k10 holds it
+             max_abs_err=switch["errs"]["k10_bwd"], **k10b),
     ]
     print(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
-          f"(phases 0-10, the kernels' build included)")
+          f"(phases 0-11, the kernels' build included)")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

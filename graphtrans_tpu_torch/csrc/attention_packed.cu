@@ -17,7 +17,8 @@
 // can reach. Dropout (torch semantics: normalise by the undropped
 // denominator, then drop and scale by 1/(1-rate)) keeps (i, j) iff
 // hash(pos, seed') < thresh, with pos = ((r % bt)*W + i)*sp + j and
-// seed' = seed + (r / bt)*H + h: the counter hash of the JAX package's
+// seed' = seed + (r / bt)*stride + h (stride H; H + 3 when K4's kernels run
+// inside K10's layer, transformer_layer.cu): the counter hash of the JAX package's
 // interpret mode, so forward, backward and the plain version draw the same
 // mask from (seed, r, h, i, j) and nothing is stored. Where a gradient is
 // wanted K4's forward also writes m and l per (row, query, head).
@@ -49,8 +50,9 @@ struct Dropout {
   int seed;
   int bt;            // rows per TPU grid tile (mask tiling of the reference)
   int sp;            // W rounded up to 128
+  int stride;        // seeds a tile: H (K2, K4), H + 3 (K10's layer)
 
-  // keep (i, j) of a row whose tile seed is hseed = seed + (r / bt)*H + h
+  // keep (i, j) of a row whose tile seed is hseed = seed + (r / bt)*stride + h
   // and whose place in its tile is rowpos = r % bt (both hoisted out of
   // K2's loops)
   __device__ bool at(unsigned hseed, unsigned rowpos, int i, int j,
@@ -62,7 +64,7 @@ struct Dropout {
   // keep (r, h, i, j): the Keep policy of attention_bwd.cuh (K4-bwd)
   __device__ bool operator()(long r, int h, int H, int W, int i,
                              int j) const {
-    return at((unsigned)seed + (unsigned)(r / bt) * H + h,
+    return at((unsigned)seed + (unsigned)(r / bt) * stride + h,
               (unsigned)(r % bt), i, j, W);
   }
 };
@@ -116,7 +118,7 @@ __device__ __forceinline__ void attention_fwd_body(
   const long d3 = 3L * d;
   const float* row = qkv + r * W * d3;
   const unsigned hseed =
-      (unsigned)dr.seed + (unsigned)(r / dr.bt) * gridDim.y + (unsigned)h;
+      (unsigned)dr.seed + (unsigned)(r / dr.bt) * dr.stride + (unsigned)h;
   const unsigned rowpos = (unsigned)(r % dr.bt);
 
   for (int idx = i; idx < W * HD; idx += blockDim.x) {
@@ -223,7 +225,7 @@ attention_seg_bwd_kernel(const float* __restrict__ qkv,
   const float* grow = gout + r * W * d;
   float* drow = dqkv + r * W * d3;
   const unsigned hseed =
-      (unsigned)dr.seed + (unsigned)(r / dr.bt) * gridDim.y + (unsigned)h;
+      (unsigned)dr.seed + (unsigned)(r / dr.bt) * dr.stride + (unsigned)h;
   const unsigned rowpos = (unsigned)(r % dr.bt);
 
   for (int idx = t; idx < W * HD; idx += blockDim.x) {
@@ -376,7 +378,7 @@ int launch_bwd(const float* qkv, const int* seg, const float* gout,
 }
 
 Dropout make_dropout(int on, unsigned thresh, float inv_keep, int seed,
-                     int bt, int sp) {
+                     int bt, int sp, int stride) {
   Dropout dr;
   dr.on = on;
   dr.thresh = thresh;
@@ -384,6 +386,7 @@ Dropout make_dropout(int on, unsigned thresh, float inv_keep, int seed,
   dr.seed = seed;
   dr.bt = bt;
   dr.sp = sp;
+  dr.stride = stride;
   return dr;
 }
 
@@ -403,12 +406,13 @@ extern "C" int attention_seg_fwd(const float* qkv, const int* seg, float* out,
   if (d != H * 32 || W > W_MAX) return cudaErrorInvalidValue;  // hd 32
   return launch_fwd(attention_seg_fwd_kernel<32>, 32, qkv, seg, out, nullptr,
                     nullptr, R, W, d, H,
-                    make_dropout(drop, thresh, inv_keep, seed, bt, sp), 0,
+                    make_dropout(drop, thresh, inv_keep, seed, bt, sp, H), 0,
                     stream);
 }
 
 // K4 forward: valid [B, S] one byte each (0/1: torch's bool), block 0 or
-// the graphs' width in a graph-packed row; drop and the rest as K2's.
+// the graphs' width in a graph-packed row; drop and the rest as K2's, with
+// stride the seeds a tile of bt rows (H; H + 3 inside K10's layer).
 // stat_m and stat_l ([B, S, H]) may be null: the statistics are then not
 // written (serving). Heads of width 32 or 64; S <= 384.
 extern "C" int attention_dense_fwd(const float* qkv,
@@ -416,11 +420,13 @@ extern "C" int attention_dense_fwd(const float* qkv,
                                    float* stat_m, float* stat_l, int B, int S,
                                    int d, int H, int block, int drop,
                                    unsigned thresh, float inv_keep, int seed,
-                                   int bt, int sp, cudaStream_t stream) {
-  if (B <= 0 || S <= 0 || S > W_MAX || block < 0 || H <= 0 || d % H)
+                                   int bt, int sp, int stride,
+                                   cudaStream_t stream) {
+  if (B <= 0 || S <= 0 || S > W_MAX || block < 0 || H <= 0 || d % H ||
+      stride < H)
     return cudaErrorInvalidValue;
   if ((stat_m == nullptr) != (stat_l == nullptr)) return cudaErrorInvalidValue;
-  const Dropout dr = make_dropout(drop, thresh, inv_keep, seed, bt, sp);
+  const Dropout dr = make_dropout(drop, thresh, inv_keep, seed, bt, sp, stride);
   const bool stats = stat_m != nullptr;
   if (d == H * 32)
     return stats ? launch_fwd(attention_dense_fwd_kernel<32, true>, 32, qkv,
@@ -442,7 +448,8 @@ extern "C" int attention_dense_fwd(const float* qkv,
 // K4 backward: dqkv [B, S, 3d] for the cotangent gout [B, S, d] of
 // attention_dense_fwd's out, from its saved m and l; delta [B, S, H] is
 // scratch. The streaming kernels of attention_bwd.cuh with K4's mask as
-// tags and K2's dropout tiling. Heads of width 32 or 64.
+// tags and K2's dropout tiling (stride as the forward's). Heads of width 32
+// or 64.
 extern "C" int attention_dense_bwd(const float* qkv,
                                    const unsigned char* valid,
                                    const float* out, const float* gout,
@@ -450,10 +457,12 @@ extern "C" int attention_dense_bwd(const float* qkv,
                                    float* delta, float* dqkv, int B, int S,
                                    int d, int H, int block, int drop,
                                    unsigned thresh, float inv_keep, int seed,
-                                   int bt, int sp, cudaStream_t stream) {
-  if (B <= 0 || S <= 0 || S > W_MAX || block < 0 || H <= 0 || d % H)
+                                   int bt, int sp, int stride,
+                                   cudaStream_t stream) {
+  if (B <= 0 || S <= 0 || S > W_MAX || block < 0 || H <= 0 || d % H ||
+      stride < H)
     return cudaErrorInvalidValue;
-  const Dropout dr = make_dropout(drop, thresh, inv_keep, seed, bt, sp);
+  const Dropout dr = make_dropout(drop, thresh, inv_keep, seed, bt, sp, stride);
   const attn::PadTags tags{valid, block};
   if (d == H * 32)
     return attn::launch_bwd<32>(qkv, tags, out, gout, stat_m, stat_l, delta,
@@ -471,6 +480,6 @@ extern "C" int attention_seg_bwd(const float* qkv, const int* seg,
                                  cudaStream_t stream) {
   if (d != H * 32) return cudaErrorInvalidValue;
   return launch_bwd<32>(qkv, seg, gout, dqkv, R, W, d, H,
-                        make_dropout(drop, thresh, inv_keep, seed, bt, sp),
+                        make_dropout(drop, thresh, inv_keep, seed, bt, sp, H),
                         stream);
 }

@@ -7,8 +7,9 @@
 // Query i attends key j iff segq[i] == segk[j] >= 0 (the key-padding form
 // is segq = 0, segk = valid ? 0 : -1); scale 1/sqrt(hd); the output is
 // normalised by max(l, 1e-16), so a query with no key writes exact zeros.
-// One block per (row, head, BQ queries), one thread per query: q and the
-// output accumulator (HD floats each) stay in registers. The keys stream
+// The forward is the streaming body of attention_fwd.cuh (shared with K9)
+// under K5's own kernel. One block per (row, head, BQ queries), one thread
+// per query: q and the output accumulator (HD floats each) stay in registers. The keys stream
 // through shared memory BK = 4096 / HD at a time (32 KB for K and V at
 // every head width). A key tile none of whose keys any query of the block
 // can attend is skipped whole (one __syncthreads_or): in a graph's row the
@@ -30,13 +31,13 @@
 #include <math.h>
 
 #include "attention_bwd.cuh"
+#include "attention_fwd.cuh"
 #include "hash.cuh"
 
 namespace {
 
-using attn::block_range;
+using attn::BQ;
 
-constexpr int BQ = 128;       // queries a block (= threads)
 constexpr int MASK_TILE = 256;  // the JAX kernel's BQ = BK, which seed its mask
 
 struct Dropout {
@@ -57,8 +58,10 @@ struct Dropout {
   }
 };
 
-// DROP and STATS are compile-time, so the serving launch (neither) runs
-// the loop of a kernel without dropout and writes no statistics.
+// K5's own kernel over the streaming body of attention_fwd.cuh, with segq
+// and segk as its tags. DROP and STATS are compile-time, so the serving
+// launch (neither) runs the loop of a kernel without dropout and writes no
+// statistics.
 template <int HD, bool DROP, bool STATS>
 __global__ void __launch_bounds__(BQ)
 flash_attention_fwd_kernel(const float* __restrict__ qkv,
@@ -67,93 +70,8 @@ flash_attention_fwd_kernel(const float* __restrict__ qkv,
                            float* __restrict__ out, float* __restrict__ stat_m,
                            float* __restrict__ stat_l, int S, int d,
                            float scale, Dropout dr) {
-  constexpr int BK = 4096 / HD;  // keys a tile (<= BQ)
-  __shared__ float4 ks4[BK * HD / 4];
-  __shared__ float4 vs4[BK * HD / 4];
-  __shared__ int ss[BK];
-  __shared__ int qrange[2];
-  const float* ks = reinterpret_cast<const float*>(ks4);
-  const float* vs = reinterpret_cast<const float*>(vs4);
-
-  const long b = blockIdx.x;
-  const int h = blockIdx.y;
-  const int t = threadIdx.x;
-  const int i = blockIdx.z * BQ + t;
-  const long d3 = 3L * d;
-  const float* row = qkv + b * S * d3;
-  const int* krow = segk + b * S;
-
-  const int si = i < S ? segq[b * S + i] : -1;
-  int qmin, qmax;
-  block_range(si, qrange, qmin, qmax);
-
-  float q[HD], o[HD];
-#pragma unroll
-  for (int c = 0; c < HD; ++c) o[c] = 0.f;
-  if (si >= 0) {
-    const float* qi = row + i * d3 + h * HD;
-#pragma unroll
-    for (int c = 0; c < HD; ++c) q[c] = qi[c] * scale;
-  }
-  float m = -INFINITY, l = 0.f;
-
-  if (qmax >= 0) {  // the block holds a query that can attend something
-    for (int k0 = 0; k0 < S; k0 += BK) {
-      const int j = k0 + t;
-      const int sj = (t < BK && j < S) ? krow[j] : -1;
-      const bool meets = sj >= qmin && sj <= qmax;  // qmin >= 0
-      if (!__syncthreads_or(meets)) continue;  // uniform: no pair in the tile
-      if (t < BK) ss[t] = sj;
-      // K_h and V_h of the tile, 16 bytes a load (HD and d are multiples
-      // of 32, so every row offset is 16-byte aligned)
-      for (int idx = t; idx < BK * HD / 4; idx += BQ) {
-        const int jj = idx / (HD / 4), c4 = idx % (HD / 4);
-        float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-        if (k0 + jj < S) {
-          const float* kr = row + (long)(k0 + jj) * d3 + d + h * HD;
-          kv = reinterpret_cast<const float4*>(kr)[c4];
-          vv = reinterpret_cast<const float4*>(kr + d)[c4];
-        }
-        ks4[idx] = kv;
-        vs4[idx] = vv;
-      }
-      __syncthreads();
-      if (si >= 0) {
-        for (int jj = 0; jj < BK; ++jj) {
-          if (ss[jj] != si) continue;
-          const float* kj = ks + jj * HD;
-          float s = 0.f;
-#pragma unroll
-          for (int c = 0; c < HD; ++c) s = fmaf(q[c], kj[c], s);
-          if (s > m) {
-            const float a = expf(m - s);  // 0 on the first key (m = -inf)
-            l *= a;
-#pragma unroll
-            for (int c = 0; c < HD; ++c) o[c] *= a;
-            m = s;
-          }
-          const float p = expf(s - m);
-          l += p;
-          if (DROP && !dr(b, h, gridDim.y, S, i, k0 + jj)) continue;
-          const float* vj = vs + jj * HD;
-#pragma unroll
-          for (int c = 0; c < HD; ++c) o[c] = fmaf(p, vj[c], o[c]);
-        }
-      }
-      __syncthreads();  // the tile is overwritten next
-    }
-  }
-  if (i < S) {
-    const float inv = (DROP ? dr.inv_keep : 1.f) / fmaxf(l, 1e-16f);
-    float* oi = out + (b * S + i) * d + h * HD;
-#pragma unroll
-    for (int c = 0; c < HD; ++c) oi[c] = o[c] * inv;
-    if (STATS) {
-      const long at = (b * S + i) * gridDim.y + h;
-      stat_m[at] = m;
-      stat_l[at] = l;
-    }
-  }
+  attn::stream_fwd<HD, DROP, STATS>(qkv, attn::SegTags{segq, segk}, out,
+                                    stat_m, stat_l, S, d, scale, dr);
 }
 
 template <int HD, bool DROP, bool STATS>

@@ -4,7 +4,7 @@ Transformer-only model.
 
 usage: python -m graphtrans_tpu_torch.main --configs <molpcba or code2 yml> \
            --data_root data_snapshots --epochs 2 --batch_size 64 --seed 0 \
-           [--save_path DIR] [--device cuda|cpu]
+           [--save_path DIR] [--device cuda|cpu] [--attn_backend ...]
 
 It trains on the train split (each snapshot holds 192 training graphs),
 shuffled each epoch as the JAX package's ``GraphLoader`` shuffles, with
@@ -19,10 +19,13 @@ from ``--seed`` (a batch that overflows them is split). The
 Transformer-only model (``model_type transformer``,
 ``configs/{molpcba,code2}/transformer/pooling=cls.yml``) trains in the
 flat unpacked layout at the train split's dense width, its attention in
-K4 or K5 with their dropout (``predict.serving_layout``). With
-``--save_path`` it writes ``last_model.pt``, a state dict that ``python -m
-graphtrans_tpu_torch.predict --weights`` serves. It runs on the card unless
-``--device cpu`` is given, and raises without CUDA.
+K4 or K5 with their dropout (``predict.serving_layout``).
+``--attn_backend`` (the root ``main.py``'s choices) picks the attention
+route as ``predict`` does; the kernels' dropout seeds are drawn one per
+layer per step. With ``--save_path`` it writes ``last_model.pt``, a state
+dict that ``python -m graphtrans_tpu_torch.predict --weights`` serves. It
+runs on the card unless ``--device cpu`` is given, and raises without
+CUDA.
 
 Weights are drawn from ``--seed`` (default 0), and so are the two dropout
 generators (``nn/dropout.py:Generators``). With ``--scheduler plateau`` the
@@ -49,6 +52,7 @@ from .data.loader import iterate_batches, shuffled_order
 from .models import build_model
 from .nn.dropout import Generators
 from .nn.init import init_weights
+from .nn.transformer import set_attn_backend
 from .train.losses import binary_multitask_loss, seq_token_loss
 from .train.optim import build_optimizer
 from .trainers.base_trainer import make_train_step, train
@@ -72,6 +76,7 @@ def build_run(args, num_tasks: int, device, steps_per_epoch: int,
     seed = args.seed or 0
     model = build_model(args, num_tasks, device=device, code=code)
     init_weights(model, torch.Generator().manual_seed(seed))
+    set_attn_backend(model, args.attn_backend)
     optimizer = build_optimizer(model, args, steps_per_epoch)
     loss_fn = binary_multitask_loss if code is None else seq_token_loss
     step = make_train_step(model, loss_fn, optimizer,

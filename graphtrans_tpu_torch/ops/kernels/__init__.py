@@ -4,7 +4,8 @@ tensors it launches its kernel (built at first use by ``_build``) or
 raises, and counts the launch in its ``launches`` attribute. The forward
 wrappers are ``torch.autograd.Function``s on CUDA tensors whose backward
 is the matching ``*_bwd`` kernel wrapper (K11's backward is its own kernel
-on the cotangent, counted as ``byte_dropout``)."""
+on the cotangent, counted as ``byte_dropout``; K10's forward and backward
+are chains of launches, counted once a chain)."""
 
 from __future__ import annotations
 
@@ -15,6 +16,9 @@ from .attention_packed import (attention_dense, attention_dense_bwd,
                                attention_dense_plain, attention_seg,
                                attention_seg_bwd, attention_seg_bwd_plain,
                                attention_seg_plain)
+from .attention_smalls import (attention_smalls, attention_smalls_bwd,
+                               attention_smalls_bwd_plain,
+                               attention_smalls_plain)
 from .dropout import byte_dropout, byte_dropout_plain
 from .flash_attention import (flash_attention, flash_attention_bwd,
                               flash_attention_bwd_plain,
@@ -24,11 +28,15 @@ from .flash_hil import (flash_hil_seg, flash_hil_seg_bwd,
 from .gin_agg import gin_agg, gin_agg_bwd, gin_agg_bwd_plain, gin_agg_plain
 from .spmm import (SrcOrder, spmm, spmm_bwd, spmm_bwd_plain, spmm_plain,
                    src_order)
+from .transformer_layer import (transformer_layer, transformer_layer_bwd,
+                                transformer_layer_bwd_plain,
+                                transformer_layer_plain)
 
 WRAPPERS = (gin_agg, gin_agg_bwd, attention_seg, attention_seg_bwd,
             flash_hil_seg, flash_hil_seg_bwd, spmm, spmm_bwd,
             attention_dense, attention_dense_bwd, flash_attention,
-            flash_attention_bwd, byte_dropout)
+            flash_attention_bwd, byte_dropout, attention_smalls,
+            attention_smalls_bwd, transformer_layer, transformer_layer_bwd)
 
 
 def reset_launches():
@@ -53,7 +61,9 @@ def set_kernels(model: nn.Module, enabled: bool) -> nn.Module:
 __all__ = ["attention_dense", "attention_dense_bwd",
            "attention_dense_bwd_plain", "attention_dense_plain",
            "attention_seg", "attention_seg_bwd", "attention_seg_bwd_plain",
-           "attention_seg_plain", "byte_dropout", "byte_dropout_plain",
+           "attention_seg_plain", "attention_smalls", "attention_smalls_bwd",
+           "attention_smalls_bwd_plain", "attention_smalls_plain",
+           "byte_dropout", "byte_dropout_plain",
            "flash_attention", "flash_attention_bwd",
            "flash_attention_bwd_plain", "flash_attention_plain",
            "flash_hil_seg", "flash_hil_seg_bwd", "flash_hil_seg_bwd_plain",
@@ -61,4 +71,6 @@ __all__ = ["attention_dense", "attention_dense_bwd",
            "gin_agg_bwd_plain", "gin_agg_plain", "key_padding_segs",
            "launch_counts", "reset_launches", "set_kernels", "spmm",
            "spmm_bwd", "spmm_bwd_plain", "spmm_plain", "src_order",
-           "SrcOrder", "WRAPPERS"]
+           "SrcOrder", "transformer_layer", "transformer_layer_bwd",
+           "transformer_layer_bwd_plain", "transformer_layer_plain",
+           "WRAPPERS"]

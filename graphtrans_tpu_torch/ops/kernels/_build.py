@@ -22,7 +22,8 @@ _PKG = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("gin_agg", "attention_packed", "flash_hil", "spmm",
-           "flash_attention", "dropout")
+           "flash_attention", "dropout", "attention_smalls",
+           "transformer_layer")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

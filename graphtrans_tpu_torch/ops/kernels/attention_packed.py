@@ -14,7 +14,7 @@ Dropout at ``rate > 0`` follows torch: the probabilities are normalised by
 the undropped denominator, then a kept one is scaled by ``1/(1-rate)``.
 (r, h, i, j) is kept iff ``hash(pos, seed') < uint32((1-rate)*0xFFFFFFFF)``
 with ``pos = ((r % bt)*W + i)*sp + j``, ``seed' = seed + (r // bt)*H + h``
-(int32 wrap-around), ``sp = ceil(W/128)*128`` and ``bt = 8 if sp <= 128
+(int32 wrap-around; inside K10's layer the stride is H + 3, not H), ``sp = ceil(W/128)*128`` and ``bt = 8 if sp <= 128
 else 4``: the counter hash and the tiling that the JAX kernel uses in
 interpret mode (``graphtrans_tpu/ops/pallas/prng.py:_hash_bits_u32``,
 ``attention_packed.py:_keep_mask``). The kernels and the plain version draw
@@ -128,16 +128,18 @@ def keep_drop(keep: torch.Tensor, rate: float):
 
 
 def keep_mask(R: int, W: int, nhead: int, rate: float, seed: int,
-              device) -> torch.Tensor:
+              device, stride: int = 0) -> torch.Tensor:
     """Bool [R, H, W, W]: query i keeps key j of row r, head h (drawn with
-    torch on ``device``)."""
+    torch on ``device``). ``stride`` is the seeds a tile of ``bt`` rows
+    takes: ``nhead`` (the default, 0) for K2 and K4; K10's layer takes
+    ``nhead + 3`` (its three dropout streams follow the heads')."""
     sp, bt = dropout_tiling(W)
     r = torch.arange(R, device=device)[:, None, None, None]
     h = torch.arange(nhead, device=device)[None, :, None, None]
     i = torch.arange(W, device=device)[:, None]
     j = torch.arange(W, device=device)[None, :]
     pos = ((r % bt) * W + i) * sp + j                           # [R, 1, W, W]
-    s = (seed % 2**32 + (r // bt) * nhead + h) & 0xFFFFFFFF     # [R, H, 1, 1]
+    s = (seed % 2**32 + (r // bt) * (stride or nhead) + h) & 0xFFFFFFFF
     return hash_bits(pos, s) < keep_threshold(rate)
 
 
@@ -166,16 +168,17 @@ def masked_attention(qkv: torch.Tensor, nhead: int, mask: torch.Tensor,
 
 def attention_seg_plain(qkv: torch.Tensor, seg: torch.Tensor, nhead: int,
                         rate: float = 0.0, seed: int = 0,
-                        keep=None) -> torch.Tensor:
+                        keep=None, drop=None) -> torch.Tensor:
     """Plain PyTorch version of K2: same arguments, same result (the same
     dropout mask); autograd differentiates it. ``keep`` (bool [R, H, W, W])
-    replaces K2's mask at ``rate > 0`` (K3 draws its own)."""
+    replaces K2's mask at ``rate > 0`` (K3 draws its own); ``drop`` (a
+    function of the probabilities) replaces both, as the encoder's plain
+    route does with ``ByteDropout``."""
     R, W, _ = qkv.shape
     seg = seg.long()
     mask = ((seg[:, :, None] == seg[:, None, :])
             & (seg >= 0)[:, None, :])[:, None]               # [R, 1, W, W]
-    drop = None
-    if rate > 0.0:
+    if drop is None and rate > 0.0:
         if keep is None:
             keep = keep_mask(R, W, nhead, rate, seed, qkv.device)
         drop = keep_drop(keep, rate)
@@ -386,6 +389,16 @@ def attention_dense_with_stats(qkv: torch.Tensor, key_valid: torch.Tensor,
     softmax statistics m and l [B, S, H] that the backward reads (None,
     None when ``stats`` is False: the serving launch writes none)."""
     _check_dense(qkv, key_valid, nhead, block, rate)
+    res = dense_fwd_launch(qkv, key_valid, nhead, block, rate, seed, stats)
+    attention_dense.launches += 1
+    return res
+
+
+def dense_fwd_launch(qkv, key_valid, nhead, block, rate, seed, stats,
+                     stride=0):
+    """K4's forward kernel on checked CUDA tensors, uncounted, with the
+    dropout seeds ``stride`` a tile (``keep_mask``): the launch that
+    ``attention_dense_with_stats`` counts, and that K10's layer makes."""
     B, S, d3 = qkv.shape
     out = torch.empty((B, S, d3 // 3), dtype=qkv.dtype, device=qkv.device)
     m = l = None
@@ -399,9 +412,8 @@ def attention_dense_with_stats(qkv: torch.Tensor, key_valid: torch.Tensor,
     lib = _load()
     err = lib.attention_dense_fwd(
         ptr(qkv), ptr(valid), ptr(out), ptr(m), ptr(l), B, S, d3 // 3, nhead,
-        block, *_dropout_args(S, rate, seed), _stream(qkv))
+        block, *_dropout_args(S, rate, seed), stride or nhead, _stream(qkv))
     _build.check(lib, err, "attention_dense_fwd")
-    attention_dense.launches += 1
     return out, m, l
 
 
@@ -471,6 +483,18 @@ def attention_dense_bwd(qkv: torch.Tensor, key_valid: torch.Tensor,
             and tuple(m.shape) == tuple(l.shape) == (B, S, nhead)):
         raise ValueError("attention_dense_bwd: needs the forward's (out, m, "
                          "l) from attention_dense_with_stats")
+    dqkv = dense_bwd_launch(qkv, key_valid, nhead, gout, block, rate, seed,
+                            saved)
+    attention_dense_bwd.launches += 1
+    return dqkv
+
+
+def dense_bwd_launch(qkv, key_valid, nhead, gout, block, rate, seed, saved,
+                     stride=0):
+    """K4's backward kernels on checked CUDA tensors, uncounted (see
+    ``dense_fwd_launch``)."""
+    B, S, d3 = qkv.shape
+    out, m, l = saved
     dqkv = torch.empty_like(qkv)
     if dqkv.numel() == 0:
         return dqkv
@@ -481,9 +505,8 @@ def attention_dense_bwd(qkv: torch.Tensor, key_valid: torch.Tensor,
         *(ctypes.c_void_p(t.data_ptr())
           for t in (qkv, valid, out, gout, m, l, delta, dqkv)),
         B, S, d3 // 3, nhead, block, *_dropout_args(S, rate, seed),
-        _stream(qkv))
+        stride or nhead, _stream(qkv))
     _build.check(lib, err, "attention_dense_bwd")
-    attention_dense_bwd.launches += 1
     return dqkv
 
 
@@ -497,11 +520,11 @@ def _load():
                 ctypes.c_int, ctypes.c_int]
         lib.attention_dense_fwd.argtypes = ([ctypes.c_void_p] * 5
                                             + [ctypes.c_int] * 5 + drop
-                                            + [ctypes.c_void_p])
+                                            + [ctypes.c_int, ctypes.c_void_p])
         lib.attention_dense_fwd.restype = ctypes.c_int
         lib.attention_dense_bwd.argtypes = ([ctypes.c_void_p] * 8
                                             + [ctypes.c_int] * 5 + drop
-                                            + [ctypes.c_void_p])
+                                            + [ctypes.c_int, ctypes.c_void_p])
         lib.attention_dense_bwd.restype = ctypes.c_int
         lib.attention_seg_fwd.argtypes = ([ctypes.c_void_p] * 3
                                           + [ctypes.c_int] * 4 + drop

@@ -1,0 +1,267 @@
+"""K9: per-head attention over unpacked rows with a key-padding mask and,
+with ``block > 0``, a block-diagonal one, at any row width, with attention
+dropout; and its backward.
+
+qkv ``[B, S, 3d]`` is the combined projection output with heads in lanes,
+as K4 and K5 take it; key_valid ``[B, S]`` bool. Key j is attendable by
+query i iff ``key_valid[j]`` and, with ``block > 0``, ``i // block == j //
+block``: K4's function (``attention_dense_plain``) at any S. A padding query
+attends its block's valid keys; a query whose block has no valid key
+outputs exact zeros. Output ``[B, S, d]``; the backward returns dqkv in the
+combined ``[B, S, 3d]`` layout.
+
+Dropout at ``rate > 0`` follows torch and the JAX kernel's seed schedule
+(``graphtrans_tpu/ops/pallas/attention_smallS.py:_keep_mask`` over its
+tiles of ``ht = max(1, min(16, 4096 // S))`` (batch, head) pairs): with
+``p = b*H + h``, (b, h, i, j) is kept iff ``hash(pos, seed + p // ht) <
+keep_threshold(rate)`` and ``pos = ((p % ht)*S + i)*S + j`` (int32
+wrap-around). The JAX kernel draws from the TPU's own PRNG there; a test
+that swaps its ``_keep_mask`` for its package's interpret-mode hash holds
+the two to the same mask. The kernels and the plain version draw the same
+mask; nothing is stored.
+
+Replaces ``graphtrans_tpu/ops/pallas/attention_smallS.py:attention_smallS``:
+the forward (``_fwd_kernel``) and the backward (``_bwd_kernel``), which take
+per-head ``[B*H, S, hd]`` operands; the tests hold the plain version to
+them by reshaping. It is the attention of ``--attn_backend smalls`` (block
+0, unpacked rows of any width) and ``packed_smalls`` (graph-packed rows,
+block = the graphs' width).
+
+What bounds it on the H100: memory at the molecule shapes (4096 rows of 33
+tokens, d 256, 4 heads of 64: q in and out back for every query, K and V
+for the valid keys, ~0.15 ms; the pairs need ~3.8 GFLOP, as K4's), and
+operations at code2's rows of 1001 (K5's shape). Design: no new device
+code. The forward is K5's streaming body (``csrc/attention_fwd.cuh``) and
+the backward K4's and K5's streaming pair (``csrc/attention_bwd.cuh``),
+both with K4's mask as tags (``PadTags``) and K9's seed schedule as the
+dropout policy, each under its own ``__global__`` instances in
+``csrc/attention_smalls.cu``. One block per (row, head, 128 queries) with a
+thread a query, so at rows of 33 three quarters of a block's threads idle.
+Heads of width 32, 64 and 128.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .attention_packed import (_stream, attention_dense_plain, hash_bits,
+                               keep_drop, keep_threshold)
+from .flash_attention import HEAD_DIMS, PLAIN_SCORE_BYTES, _dropout_args
+
+
+def pairs_per_tile(S: int) -> int:
+    """The JAX kernel's ``_ht``: (batch, head) pairs a program."""
+    return max(1, min(16, 4096 // max(S, 1)))
+
+
+def keep_mask(rows: torch.Tensor, S: int, nhead: int, rate: float,
+              seed: int) -> torch.Tensor:
+    """Bool ``[len(rows), H, S, S]``: query i keeps key j of row
+    ``rows[n]`` and head h under K9's seed schedule. Drawn with torch on the
+    rows' device."""
+    dev = rows.device
+    ht = pairs_per_tile(S)
+    p = (rows[:, None] * nhead + torch.arange(nhead, device=dev))[:, :, None,
+                                                                    None]
+    i = torch.arange(S, device=dev)[:, None]
+    j = torch.arange(S, device=dev)[None, :]
+    pos = ((p % ht) * S + i) * S + j                          # [b, H, S, S]
+    s = (seed % 2**32 + p // ht) & 0xFFFFFFFF                 # [b, H, 1, 1]
+    return hash_bits(pos, s) < keep_threshold(rate)
+
+
+def attention_smalls_plain(qkv: torch.Tensor, key_valid: torch.Tensor,
+                           nhead: int, block: int = 0, rate: float = 0.0,
+                           seed: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of K9: K4's masked softmax with K9's dropout
+    mask at ``rate > 0``, taken a few rows at a time so the ``[rows, H, S,
+    S]`` scores stay within ``PLAIN_SCORE_BYTES``. Autograd differentiates
+    it."""
+    B, S, _ = qkv.shape
+    step = max(1, PLAIN_SCORE_BYTES // (nhead * S * S * 4))
+    outs = []
+    for b0 in range(0, B, step):
+        drop = None
+        if rate > 0.0:
+            rows = torch.arange(b0, min(B, b0 + step), device=qkv.device)
+            drop = keep_drop(keep_mask(rows, S, nhead, rate, seed), rate)
+        outs.append(attention_dense_plain(qkv[b0:b0 + step],
+                                          key_valid[b0:b0 + step], nhead,
+                                          block, drop=drop))
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def attention_smalls_bwd_plain(qkv, key_valid, nhead, gout, block=0,
+                               rate=0.0, seed=0):
+    """Plain version of K9's backward: autograd through
+    ``attention_smalls_plain``. Returns dqkv [B, S, 3d]."""
+    with torch.enable_grad():
+        leaf = qkv.detach().requires_grad_()
+        out = attention_smalls_plain(leaf, key_valid, nhead, block, rate,
+                                     seed)
+        return torch.autograd.grad(out, leaf, gout)[0]
+
+
+def _check(qkv, key_valid, nhead, block, rate, gout=None):
+    B, S, d3 = qkv.shape
+    d = d3 // 3
+    if d3 % 3 or d % nhead:
+        raise ValueError(f"attention_smalls: width {d3} is not 3*nhead*hd")
+    if d // nhead not in HEAD_DIMS:
+        raise ValueError(f"attention_smalls: head width {d // nhead}; the "
+                         f"kernel is built for {HEAD_DIMS}")
+    if block < 0:
+        raise ValueError(f"attention_smalls: block {block} < 0")
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"attention_smalls: dropout rate {rate} not in "
+                         f"[0, 1)")
+    if qkv.dtype != torch.float32 or key_valid.dtype != torch.bool:
+        raise ValueError("attention_smalls: expected float32 qkv, bool "
+                         "key_valid")
+    if tuple(key_valid.shape) != (B, S) or key_valid.device != qkv.device:
+        raise ValueError(f"attention_smalls: key_valid "
+                         f"{tuple(key_valid.shape)} on {key_valid.device} "
+                         f"does not match qkv")
+    if gout is not None and (gout.dtype != torch.float32
+                             or tuple(gout.shape) != (B, S, d)
+                             or gout.device != qkv.device):
+        raise ValueError(f"attention_smalls_bwd: gout {gout.dtype} "
+                         f"{tuple(gout.shape)} does not match the output")
+    if not all(t.is_contiguous() for t in (qkv, gout) if t is not None):
+        raise ValueError("attention_smalls: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in (qkv, gout) if t is not None):
+        raise ValueError("attention_smalls: qkv and gout must be 16-byte "
+                         "aligned (the kernels load four floats at a time)")
+
+
+def attention_smalls_with_stats(qkv: torch.Tensor, key_valid: torch.Tensor,
+                                nhead: int, block: int = 0,
+                                rate: float = 0.0, seed: int = 0,
+                                stats: bool = True):
+    """K9's forward kernel on CUDA tensors: (out [B, S, d], m, l), with the
+    softmax statistics m and l [B, S, H] that the backward reads (None,
+    None when ``stats`` is False and ``rate`` 0: the serving launch writes
+    none; with dropout the kernel always writes them)."""
+    _check(qkv, key_valid, nhead, block, rate)
+    B, S, d3 = qkv.shape
+    out = torch.empty((B, S, d3 // 3), dtype=qkv.dtype, device=qkv.device)
+    m = l = None
+    if stats or rate > 0.0:
+        m = torch.empty((B, S, nhead), dtype=torch.float32, device=qkv.device)
+        l = torch.empty_like(m)
+    if out.numel() == 0:
+        return out, m, l
+    valid = key_valid.contiguous()     # the bool itself: one byte a key
+    ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
+    lib = _load()
+    err = lib.attention_smalls_fwd(
+        ptr(qkv), ptr(valid), ptr(out), ptr(m), ptr(l), B, S, d3 // 3, nhead,
+        block, *_dropout_args(rate, seed), _stream(qkv))
+    _build.check(lib, err, "attention_smalls_fwd")
+    attention_smalls.launches += 1
+    return out, m, l
+
+
+class _AttentionSmalls(torch.autograd.Function):
+    """K9 on CUDA tensors with K9's backward kernels as its gradient."""
+
+    @staticmethod
+    def forward(ctx, qkv, key_valid, nhead, block, rate, seed):
+        out, m, l = attention_smalls_with_stats(qkv, key_valid, nhead, block,
+                                                rate, seed)
+        ctx.save_for_backward(qkv, key_valid, out, m, l)
+        ctx.args = (nhead, block, rate, seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        qkv, key_valid, out, m, l = ctx.saved_tensors
+        nhead, block, rate, seed = ctx.args
+        return (attention_smalls_bwd(qkv, key_valid, nhead,
+                                     gout.contiguous(), block, rate, seed,
+                                     saved=(out, m, l)),
+                None, None, None, None, None)
+
+
+def attention_smalls(qkv: torch.Tensor, key_valid: torch.Tensor, nhead: int,
+                     block: int = 0, rate: float = 0.0,
+                     seed: int = 0) -> torch.Tensor:
+    """K9 forward: qkv ``[B, S, 3d]`` (heads in lanes), key_valid bool
+    ``[B, S]``, ``block`` 0 or the width of each graph in a graph-packed
+    row, dropout ``rate`` (0 = none) drawn from ``seed``. CPU tensors take
+    ``attention_smalls_plain``; CUDA tensors launch the kernel or raise, and
+    where a gradient is wanted the result carries K9's backward kernels
+    (``attention_smalls_bwd``)."""
+    if qkv.device.type == "cpu":
+        return attention_smalls_plain(qkv, key_valid, nhead, block, rate,
+                                      seed)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"attention_smalls: unsupported device {qkv.device}")
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        _check(qkv, key_valid, nhead, block, rate)
+        return _AttentionSmalls.apply(qkv, key_valid, nhead, block, rate,
+                                      seed)
+    return attention_smalls_with_stats(qkv, key_valid, nhead, block, rate,
+                                       seed, stats=False)[0]
+
+
+attention_smalls.launches = 0
+
+
+def attention_smalls_bwd(qkv: torch.Tensor, key_valid: torch.Tensor,
+                         nhead: int, gout: torch.Tensor, block: int = 0,
+                         rate: float = 0.0, seed: int = 0,
+                         saved=None) -> torch.Tensor:
+    """K9 backward: dqkv [B, S, 3d] for the cotangent ``gout`` [B, S, d] of
+    ``attention_smalls(qkv, key_valid, nhead, block, rate, seed)``, the
+    dropout mask drawn again from ``seed``. ``saved`` is the forward's
+    (out, m, l) from ``attention_smalls_with_stats``, which the kernels
+    read. CPU tensors take ``attention_smalls_bwd_plain`` (no ``saved``);
+    CUDA tensors launch the dq and dk/dv kernels or raise."""
+    if qkv.device.type == "cpu":
+        return attention_smalls_bwd_plain(qkv, key_valid, nhead, gout, block,
+                                          rate, seed)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"attention_smalls_bwd: unsupported device "
+                         f"{qkv.device}")
+    _check(qkv, key_valid, nhead, block, rate, gout)
+    B, S, d3 = qkv.shape
+    out, m, l = saved if saved is not None else (None, None, None)
+    if not (m is not None and out.shape == gout.shape
+            and tuple(m.shape) == tuple(l.shape) == (B, S, nhead)):
+        raise ValueError("attention_smalls_bwd: needs the forward's (out, m, "
+                         "l) from attention_smalls_with_stats")
+    dqkv = torch.empty_like(qkv)
+    if dqkv.numel() == 0:
+        return dqkv
+    delta = torch.empty_like(m)
+    valid = key_valid.contiguous()
+    lib = _load()
+    err = lib.attention_smalls_bwd(
+        *(ctypes.c_void_p(t.data_ptr())
+          for t in (qkv, valid, out, gout, m, l, delta, dqkv)),
+        B, S, d3 // 3, nhead, block, *_dropout_args(rate, seed), _stream(qkv))
+    _build.check(lib, err, "attention_smalls_bwd")
+    attention_smalls_bwd.launches += 1
+    return dqkv
+
+
+attention_smalls_bwd.launches = 0
+
+
+def _load():
+    lib = _build.load("attention_smalls")
+    if lib.attention_smalls_fwd.argtypes is None:
+        drop = [ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_int]
+        lib.attention_smalls_fwd.argtypes = ([ctypes.c_void_p] * 5
+                                             + [ctypes.c_int] * 5 + drop
+                                             + [ctypes.c_void_p])
+        lib.attention_smalls_fwd.restype = ctypes.c_int
+        lib.attention_smalls_bwd.argtypes = ([ctypes.c_void_p] * 8
+                                             + [ctypes.c_int] * 5 + drop
+                                             + [ctypes.c_void_p])
+        lib.attention_smalls_bwd.restype = ctypes.c_int
+    return lib

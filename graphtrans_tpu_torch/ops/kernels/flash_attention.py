@@ -37,8 +37,9 @@ write out for every query and read K and V for the valid keys only (~1.18
 GB, ~0.35 ms at 3.35 TB/s), while every query of a row attends that row's
 valid keys: 1001 x (kept nodes + CLS) pairs a row, ~62 M pairs, x 4 heads x
 ~260 f32 flops, ~65 GFLOP, ~0.97 ms at 67 TFLOP/s; the backward does about
-2.5 times those flops. Design (``csrc/flash_attention.cu``): one block per
-(row, head, 128 queries), one thread per query with q and the output
+2.5 times those flops. Design (``csrc/flash_attention.cu``, the streaming
+body of ``csrc/attention_fwd.cuh``, shared with K9): one block per (row,
+head, 128 queries), one thread per query with q and the output
 accumulator in registers; K_h and V_h stream through shared memory 4096/hd
 keys at a time (K3's loop), and a key tile that no query of the block can
 attend is skipped whole. A graph's valid keys are a prefix plus the CLS

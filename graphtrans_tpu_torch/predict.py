@@ -7,7 +7,8 @@ end-of-sequence) and prints the split's F1.
 
 usage: python -m graphtrans_tpu_torch.predict --configs <molpcba or code2 yml> \
            --data_root data_snapshots --split test --batch_size 64 \
-           --out preds.jsonl [--weights w.pt] [--seed 0] [--device cuda|cpu]
+           --out preds.jsonl [--weights w.pt] [--seed 0] [--device cuda|cpu] \
+           [--attn_backend auto|flash|smalls|chunked|dense|packed|packed_smalls]
 
 The configs are GraphTrans (``configs/*/gnn-transformer/...``) or the
 Transformer-only model (``configs/{molpcba,code2}/transformer/
@@ -38,6 +39,7 @@ from .data.loader import (dataset_caps, iterate_batches, pack_widths,
 from .data.mol import load_mol_splits
 from .models.gnn_transformer import dataset_kind
 from .nn.init import init_weights
+from .nn.transformer import CLI_BACKENDS, set_attn_backend
 from .utils.config import parse_with_config
 
 
@@ -88,6 +90,11 @@ def add_model_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     g.add_argument("--num_encoder_layers_masked", type=int, default=0)
     g.add_argument("--transformer_prenorm", action="store_true")
     g.add_argument("--pos_encoder", action="store_true")
+    g.add_argument("--attn_backend", default="auto", choices=CLI_BACKENDS,
+                   help="attention route, as the root main.py's flag: auto "
+                        "(the JAX package's TPU rule), or force flash, "
+                        "smalls, chunked, dense, packed or packed_smalls "
+                        "(nn/transformer.py:attention_route)")
     return p
 
 
@@ -173,8 +180,10 @@ def serving_layout(splits: dict, args, num_tasks: int,
 
 def build_model(args, num_tasks: int, device, code=None) -> nn.Module:
     """The config's model (``--model_type``) in eval mode, with
-    ``--weights`` or random weights drawn from ``--seed``."""
+    ``--weights`` or random weights drawn from ``--seed``, its attention on
+    ``--attn_backend``."""
     model = models.build_model(args, num_tasks, device=device, code=code)
+    set_attn_backend(model, args.attn_backend)
     if args.weights:
         model.load_state_dict(torch.load(args.weights, map_location=device,
                                          weights_only=True))

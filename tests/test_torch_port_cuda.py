@@ -830,22 +830,30 @@ def _tf_train_model(kind, num_tasks, cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["mol", "code2"])
+@pytest.mark.parametrize("kind", ["mol", "code2", "mol-packed_layer",
+                                  "mol-smalls"])
 def test_transformer_backward_through_kernels_reaches_every_leaf(cuda, kind):
     """loss.backward() of the Transformer-only model (2 layers, d 256,
     attention dropout 0.3) through K4 and K4-bwd (molecules, rows of two
-    graphs) or K5 and K5-bwd (code2 rows past 512) gives every parameter a
-    gradient equal to the plain route's, on the same masks."""
+    graphs), K5 and K5-bwd (code2 rows past 512), K10 and K10-bwd (the
+    molecules under ``packed_layer``: every product, LayerNorm and dropout
+    of the layer) or K9 and K9-bwd (the molecules under ``smalls``) gives
+    every parameter a gradient equal to the plain route's, on the same
+    masks."""
     from graphtrans_tpu_torch.data.synthetic import make_code_dataset
     from graphtrans_tpu_torch.data.vocab import (augment_edge,
                                                  encode_seq_to_arr,
                                                  get_vocab_mapping)
     from graphtrans_tpu_torch.nn.dropout import Generators
+    from graphtrans_tpu_torch.nn.transformer import set_attn_backend
     from graphtrans_tpu_torch.ops.kernels import (attention_dense_bwd,
-                                                  flash_attention_bwd)
+                                                  attention_smalls_bwd,
+                                                  flash_attention_bwd,
+                                                  transformer_layer_bwd)
     from graphtrans_tpu_torch.train.losses import (binary_multitask_loss,
                                                    seq_token_loss)
 
+    kind, backend = (kind.split("-") + ["auto"])[:2]
     if kind == "mol":
         num_tasks = 128
         graphs = make_mol_dataset(num_graphs=30, num_tasks=num_tasks,
@@ -867,7 +875,9 @@ def test_transformer_backward_through_kernels_reaches_every_leaf(cuda, kind):
                                   (8, 8192, 32768))
     graphs = [dict(g, _id=i) for i, g in enumerate(graphs)]
     b = collate(graphs, *caps, **kw).to(cuda)
-    model = _tf_train_model(kind, num_tasks, cuda)
+    model = set_attn_backend(_tf_train_model(kind, num_tasks, cuda), backend)
+    wrapper = {"packed_layer": transformer_layer_bwd,
+               "smalls": attention_smalls_bwd}.get(backend, wrapper)
     grads = []
     for kernels in (True, False):
         set_kernels(model, kernels)
@@ -910,3 +920,143 @@ def test_transformer_predict_launches(cuda, tmp_path, config, split,
     assert res["records"] == 24 and res["batches"] <= 2
     launches = {k: v for k, v in kernels.launch_counts().items() if v}
     assert launches == ({kernel: 5 * res["batches"]} if kernel else {})
+
+
+def _smalls_case(S, block, d, gen, cuda, B=6):
+    qkv = torch.randn(B, S, 3 * d, generator=gen).to(cuda)
+    valid = _dense_valid(B, S, block, gen)
+    return qkv, valid.to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("S,block,d,H", [
+    (33, 0, 256, 4), (49, 0, 256, 4), (99, 33, 256, 4), (98, 49, 128, 4),
+    (1001, 0, 256, 4), (520, 0, 512, 4)])
+def test_attention_smalls_kernels_match_plain(cuda, S, block, d, H, rate):
+    """K9 (forward, with dropout) and K9-bwd against the plain version (the
+    same mask) and its autograd, at the molecules' rows of 33 and 49
+    (smalls), packed rows of three 33-token graphs (packed_smalls), code2's
+    rows of 1001 and heads of 32, 64 and 128: queries without a key give
+    zeros, and their gradients and a padding key's dk and dv are zero."""
+    from graphtrans_tpu_torch.ops.kernels import (attention_smalls,
+                                                  attention_smalls_bwd,
+                                                  attention_smalls_bwd_plain,
+                                                  attention_smalls_plain)
+    from graphtrans_tpu_torch.ops.kernels.attention_smalls import (
+        attention_smalls_with_stats)
+
+    gen = torch.Generator().manual_seed(S + d + block)
+    qkv, valid = _smalls_case(S, block, d, gen, cuda)
+    g = torch.randn(*qkv.shape[:2], d, generator=gen).to(cuda)
+    before = attention_smalls.launches, attention_smalls_bwd.launches
+    got = attention_smalls(qkv, valid, H, block, rate, 77)
+    saved = attention_smalls_with_stats(qkv, valid, H, block, rate, 77)
+    dqkv = attention_smalls_bwd(qkv, valid, H, g, block, rate, 77, saved)
+    torch.cuda.synchronize()
+    assert (attention_smalls.launches, attention_smalls_bwd.launches) == (
+        before[0] + 2, before[1] + 1)
+    want = attention_smalls_plain(qkv, valid, H, block, rate, 77)
+    assert (got - want).abs().max().item() <= K2_TOL
+    assert torch.equal(got, saved[0])
+    ref = attention_smalls_bwd_plain(qkv, valid, H, g, block, rate, 77)
+    assert (dqkv - ref).abs().max().item() <= GRAD_TOL * max(
+        1.0, ref.abs().max().item())
+    dead = ~_live(valid, block)
+    assert not got[dead].any() and not dqkv[dead].any()
+    assert not dqkv[..., d:][~valid].any()
+    if rate == 0.0:
+        assert (got[~dead].abs().sum(-1) > 0).all()
+
+
+def _layer_case(B, S, d, ff, block, gen, cuda):
+    x = torch.randn(B, S, d, generator=gen)
+    valid = _dense_valid(B, S, block, gen)
+    shapes = ((3 * d, d), (3 * d,), (d, d), (d,), (d,), (d,), (ff, d),
+              (ff,), (d, ff), (d,), (d,), (d,))
+    params = [torch.randn(*s, generator=gen) / (s[-1] ** 0.5 if len(s) == 2
+                                                else 4.0) for s in shapes]
+    params[4] += 1.0                                    # LN scales near 1
+    params[10] += 1.0
+    return (x.to(cuda), valid.to(cuda), [p.to(cuda) for p in params])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("B,S,d,ff,H,block", [
+    (37, 99, 256, 512, 4, 33), (20, 98, 256, 512, 4, 49),
+    (11, 96, 128, 256, 2, 24)])
+def test_transformer_layer_kernels_match_plain(cuda, B, S, d, ff, H, block,
+                                               rate):
+    """K10 (forward, with its four dropouts) and K10-bwd against the plain
+    layer (the same masks) and its autograd: the output, dx and all twelve
+    parameter gradients; B not a multiple of the reference's 8-row tile.
+    The backward is held to the plain one on the kernel's relu decisions
+    (``relu_side``: a pre-activation within f32 rounding of 0 may take
+    either side; at 20 x 98 x 512 one did, and moved a row of dx by 0.02).
+    Two runs of the backward give the same bits (no atomics)."""
+    from graphtrans_tpu_torch.ops.kernels import (
+        transformer_layer, transformer_layer_bwd, transformer_layer_bwd_plain,
+        transformer_layer_plain)
+    from graphtrans_tpu_torch.ops.kernels.transformer_layer import (
+        relu_side, transformer_layer_saved)
+
+    gen = torch.Generator().manual_seed(B + S + d)
+    x, valid, params = _layer_case(B, S, d, ff, block, gen, cuda)
+    g = torch.randn(B, S, d, generator=gen).to(cuda)
+    before = transformer_layer.launches, transformer_layer_bwd.launches
+    got = transformer_layer(x, valid, params, H, block, rate, 91)
+    y, saved = transformer_layer_saved(x, valid, params, H, block, rate, 91)
+    grads = transformer_layer_bwd(x, valid, params, H, block, g, rate, 91,
+                                  saved)
+    again = transformer_layer_bwd(x, valid, params, H, block, g, rate, 91,
+                                  saved)
+    torch.cuda.synchronize()
+    assert (transformer_layer.launches, transformer_layer_bwd.launches) == (
+        before[0] + 1, before[1] + 2)
+    want = transformer_layer_plain(x, valid, params, H, block, rate, 91)
+    assert (got - want).abs().max().item() <= K2_TOL
+    assert torch.equal(got, y)
+    refs = transformer_layer_bwd_plain(x, valid, params, H, block, g, rate,
+                                       91, relu_side(saved, (B, S, ff)))
+    for i, (mine, ref) in enumerate(zip(grads, refs)):
+        assert mine.shape == ref.shape, i
+        assert (mine - ref).abs().max().item() <= GRAD_TOL * max(
+            1.0, ref.abs().max().item()), i
+        assert torch.equal(mine, again[i]), i
+
+
+@pytest.mark.cuda
+def test_k9_k10_refuse_other_shapes_and_carry_gradients(cuda):
+    """K10 refuses rows wider than 128, d % 128 != 0 and block 0; K9 a head
+    width it does not compile; autograd reaches x and every parameter
+    through K10-bwd and qkv through K9-bwd."""
+    from graphtrans_tpu_torch.ops.kernels import (attention_smalls,
+                                                  attention_smalls_bwd,
+                                                  transformer_layer,
+                                                  transformer_layer_bwd)
+
+    gen = torch.Generator().manual_seed(3)
+    x, valid, params = _layer_case(4, 99, 128, 256, 33, gen, cuda)
+    with pytest.raises(ValueError, match="at most 128"):
+        transformer_layer(torch.randn(2, 132, 128, device=cuda),
+                          valid[:2, :1].expand(2, 132).contiguous(), params,
+                          2, 33)
+    with pytest.raises(ValueError, match="block > 0"):
+        transformer_layer(x, valid, params, 2, 0)
+    with pytest.raises(ValueError, match=r"\(32, 64, 128\)"):
+        attention_smalls(torch.randn(2, 40, 3 * 96, device=cuda),
+                         valid[:2, :40].contiguous(), 2)
+    leaves = [t.requires_grad_() for t in (x, *params)]
+    before = transformer_layer_bwd.launches
+    transformer_layer(leaves[0], valid, leaves[1:], 2, 33, 0.3,
+                      5).sum().backward()
+    assert transformer_layer_bwd.launches == before + 1
+    assert all(t.grad is not None and torch.isfinite(t.grad).all()
+               for t in leaves)
+    qkv = torch.randn(2, 40, 3 * 128, device=cuda, requires_grad=True)
+    before = attention_smalls_bwd.launches
+    attention_smalls(qkv, valid[:2, :40].contiguous(), 2, 0, 0.3,
+                     5).sum().backward()
+    assert attention_smalls_bwd.launches == before + 1
+    assert torch.isfinite(qkv.grad).all() and qkv.grad.abs().sum() > 0

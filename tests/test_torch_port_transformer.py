@@ -178,11 +178,12 @@ ROUTES = [  # (S with CLS, d): (graphs a row, route)
 
 @pytest.mark.parametrize("S,d,gb,route", ROUTES)
 def test_route_table(S, d, gb, route, monkeypatch):
-    """The route the JAX package takes on a TPU for each row width, and the
-    wrapper the port's encoder calls for it."""
+    """The route the JAX package takes on a TPU for each row width under
+    the default backend (auto), and the wrapper the port's encoder calls
+    for it (every backend: test_torch_port_attn_backend.py)."""
     assert ttr.graphs_per_row(S) == gb
     block = S if gb > 1 else 0
-    assert ttr.dense_route(gb * S, d, block) == route
+    assert ttr.attention_route("auto", gb * S, d, block) == route
     calls = []
 
     def spy(name, fn):
