@@ -86,7 +86,23 @@ Phases, each printing one line (any failure raises and exits non-zero):
      parameters, one step against the plain route), and serves the code2
      GraphTrans yml under --attn_backend flash (K5 on its 384-wide tier,
      logits against auto); (c) times and profiles the 4096-molecule forward
-     and train step under auto, smalls, packed_smalls and packed_layer.
+     and train step under auto, smalls, packed_smalls and packed_layer;
+ 12. NCI1 (configs/NCI1/gnn-transformer/no-virtual/gd=128+gdp=0.1+tdp=0.1+
+     l=3+cosine.yml: GCN 5 x 128 without a virtual node on the strided
+     layout, JK=last, 3 encoder layers of 128 on packed rows of 128, 2
+     classes; the synthetic TU fallback, 400 graphs): (a) holds K6
+     (dense_agg) and K6-bwd against their plain versions and autograd at
+     the yml's batch of 128 and a 4096-graph batch, relu on and off, with
+     and without w, and times them at the main path's arguments beside
+     bound, plain version and the JAX package's one-hot bmm formulation;
+     (b) serves the three splits through ``python -m
+     graphtrans_tpu_torch.predict`` (records, accuracy, 5 K6 and 3 K2
+     launches a batch, logits against the plain versions) and the
+     Transformer-only NCI1 yml's test split (K4), trains both ymls 2 epochs
+     through ``python -m graphtrans_tpu_torch.main`` (launches, losses,
+     moved parameters) and holds one NCI1 step through the kernels against
+     the plain route; (c) times and profiles the forward and the train step
+     of the 4096-graph batch, and times the step at the yml's batch.
 Then the script's wall seconds, a {"kernels": [...]} line, the nvidia-smi
 line, and the contract line
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without
@@ -119,6 +135,10 @@ TF_MOL_CONFIG = os.path.join(REPO,
                              "configs/molpcba/transformer/pooling=cls.yml")
 TF_CODE2_CONFIG = os.path.join(REPO,
                                "configs/code2/transformer/pooling=cls.yml")
+NCI1_CONFIG = os.path.join(
+    REPO, "configs/NCI1/gnn-transformer/no-virtual/"
+    "gd=128+gdp=0.1+tdp=0.1+l=3+cosine.yml")
+TF_NCI1_CONFIG = os.path.join(REPO, "configs/NCI1/transformer/pooling=cls.yml")
 SNAPSHOT = os.path.join(REPO, "data_snapshots")
 BATCH = 64
 SEED = 0
@@ -140,6 +160,8 @@ CODE2_BATCH, CODE2_BENCH = 16, 512
 K3_TOL = 2e-5
 K7_TOL = 1e-5      # times max(1, max |reference|)
 GCN_LAYERS_PER_FORWARD = 5
+# NCI1 (phase 12): the throughput batch; K6 forward against its plain version
+NCI1_BENCH, K6_TOL = 4096, 1e-5
 # kernel-name fragments -> the layer that launches them (phase 5)
 LAYERS = (
     ("attention_smalls_fwd", "K9 attention_smalls"),   # before its Keep
@@ -159,11 +181,13 @@ LAYERS = (
     ("flash_hil_fwd", "K3 flash_hil_seg"),
     ("flash_attention_fwd", "K5 flash_attention"),
     ("spmm_kernel", "K7 spmm (aggregation)"),
+    ("dense_agg_fwd", "K6 dense_agg (aggregation)"),
+    ("dense_agg_bwd", "K6-bwd dense_agg_bwd"),
     ("gin_agg_fwd", "K1 gin_agg (aggregation)"),
     ("attention_seg_fwd", "K2 attention_seg"),
     ("attention_dense_fwd", "K4 attention_dense (K10's too)"),
     ("gin_agg_bwd", "K1-bwd gin_agg_bwd"),
-    ("sum_rows", "K1-bwd gin_agg_bwd"),
+    ("sum_rows", "K1-bwd gin_agg_bwd"),     # K6-bwd's too at d > 128
     ("attention_seg_bwd", "K2-bwd attention_seg_bwd"),
     ("multi_tensor", "AdamW (foreach)"),
     ("gemm", "matmul (Linear layers)"),
@@ -732,13 +756,14 @@ def _train_args(extra=()):
 
 
 def _trainer(args, num_tasks: int, device, kernels_on: bool = True,
-             code=None):
-    """The entry point's model (weights from --seed) and train step
-    (``code``: the code2 model with the sequence loss)."""
+             data=None):
+    """The entry point's model (weights from --seed) and train step with
+    the dataset's loss (``data``: what ``predict.load_splits`` returns for
+    code2 or a TU dataset, which sizes the model's encoders)."""
     from graphtrans_tpu_torch import main as train_main
     from graphtrans_tpu_torch.ops.kernels import set_kernels
 
-    model, _, step = train_main.build_run(args, num_tasks, device, 1, code)
+    model, _, step = train_main.build_run(args, num_tasks, device, 1, data)
     return set_kernels(model, kernels_on), step
 
 
@@ -1107,7 +1132,7 @@ def phase7_forward(device, bench, num_tasks: int, smi: str):
 
     sizes = types.SimpleNamespace(num_nodetypes=20, num_nodeattributes=100,
                                   max_seq_len=5)       # make_code_dataset's
-    model = build_gnn_transformer(args, num_tasks, device, code=sizes)
+    model = build_gnn_transformer(args, num_tasks, device, data=sizes)
     init_weights(model, torch.Generator().manual_seed(SEED)).eval()
     tb = bench.to(device)
     n = int(bench.graph_mask.sum())
@@ -1354,7 +1379,7 @@ def phase8_train(device, tmp: str):
         raise AssertionError(f"epoch losses not finite: {res['epochs']}")
     args = _code2_train_args()
     splits, num_tasks, code = predict.load_splits(args)
-    init, _ = _trainer(args, num_tasks, device, code=code)
+    init, _ = _trainer(args, num_tasks, device, data=code)
     trained = torch.load(res["saved"], map_location=device, weights_only=True)
     params = dict(init.named_parameters())
     still = [n for n, p in params.items() if torch.equal(p, trained[n])]
@@ -1376,7 +1401,7 @@ def phase8_train(device, tmp: str):
     def one_step(kernels_on: bool, fixed_order: bool):
         with deterministic() if fixed_order else contextlib.nullcontext():
             model, step = _trainer(args, num_tasks, device,
-                                   kernels_on=kernels_on, code=code)
+                                   kernels_on=kernels_on, data=code)
             loss = step(batch).item()
             return loss, {n: p.grad for n, p in model.named_parameters()}
 
@@ -1414,7 +1439,7 @@ def phase8_step512(device, bench, num_tasks: int, smi: str):
     args = _code2_train_args()
     sizes = types.SimpleNamespace(num_nodetypes=20, num_nodeattributes=100,
                                   max_seq_len=5)       # make_code_dataset's
-    model, step = _trainer(args, num_tasks, device, code=sizes)
+    model, step = _trainer(args, num_tasks, device, data=sizes)
     tb = bench.to(device)
     n = int(bench.graph_mask.sum())
     _median_ms(lambda: step(tb), 3)                         # warm-up
@@ -1782,7 +1807,7 @@ def phase9_forward(device, mol_bench, code2_bench, code2_tasks: int,
             ("molpcba", TF_MOL_CONFIG, mol_bench, 128),
             ("code2", TF_CODE2_CONFIG, code2_bench, code2_tasks)):
         args = _tf_args(config)
-        model = build_model(args, tasks, device, code=sizes)
+        model = build_model(args, tasks, device, data=sizes)
         init_weights(model, torch.Generator().manual_seed(SEED)).eval()
         tb = bench.to(device)
         n = int(bench.graph_mask.sum())
@@ -2115,7 +2140,7 @@ def phase10_train(device, tmp: str):
         totals.update(launches)
         if not all(math.isfinite(r["loss"]) for r in res["epochs"]):
             raise AssertionError(f"epoch losses not finite: {res['epochs']}")
-        init, _ = _trainer(args, num_tasks, device, code=code)
+        init, _ = _trainer(args, num_tasks, device, data=code)
         trained = torch.load(res["saved"], map_location=device,
                              weights_only=True)
         params = dict(init.named_parameters())
@@ -2141,7 +2166,7 @@ def phase10_train(device, tmp: str):
         with deterministic():
             for on in (True, False):
                 model, step = _trainer(args, num_tasks, device,
-                                       kernels_on=on, code=code)
+                                       kernels_on=on, data=code)
                 loss = step(batch).item()
                 got.append((loss, {n: p.grad for n, p in
                                    model.named_parameters()}))
@@ -2180,7 +2205,7 @@ def phase10_step(device, mol_bench, code2_bench, code2_tasks: int, smi: str):
             ("code2", TF_CODE2_CONFIG, code2_bench, code2_tasks)):
         args = _tf_train_args(config)
         model, step = _trainer(args, tasks, device,
-                               code=sizes if name == "code2" else None)
+                               data=sizes if name == "code2" else None)
         tb = bench.to(device)
         n = int(bench.graph_mask.sum())
         S = min(bench.max_nodes_dense, args.max_input_len) + 1
@@ -2786,6 +2811,436 @@ def phase11_cost(device, mol_bench, smi: str):
         torch.cuda.empty_cache()
 
 
+# ---- phase 12: NCI1 (GCN on the strided layout, K6) -------------------------
+
+
+def _nci1_args(config: str = None, train: bool = False, extra=()):
+    """The NCI1 yml as the entry point parses it, with ``--runs 1`` (the
+    yml's 20 runs arrive with slice 12). No NCI1 files are in the
+    repository: the split is the synthetic fallback's, drawn from the yml's
+    seed."""
+    from graphtrans_tpu_torch import main as train_main
+    from graphtrans_tpu_torch import predict
+    from graphtrans_tpu_torch.utils.config import parse_with_config
+
+    entry = train_main if train else predict
+    return parse_with_config(entry.build_parser(), [
+        "--configs", config or NCI1_CONFIG, "--data_root", SNAPSHOT,
+        "--runs", "1", *extra])
+
+
+def k6_inputs(batch, d: int, gen: torch.Generator, device,
+              zero_emb: bool = True):
+    """K6's arguments as a GCN layer of NCI1 gets them: random node rows
+    (zero on padding rows), the edge embeddings of ``ZeroEdgeEncoder``
+    (``zero_emb``; else random), and the GCN norm as the edge weight."""
+    from graphtrans_tpu_torch.ops.dense_mp import dense_degree, dense_gather
+
+    G, Sm = batch.num_graph_slots, batch.node_stride
+    x = torch.randn(G * Sm, d, generator=gen)
+    x[~torch.as_tensor(batch.node_mask)] = 0
+    tb = batch.to(device)
+    src, dst, emask = tb.edge_src_dense, tb.edge_dst_dense, tb.edge_mask_dense
+    dis = ((dense_degree(src, emask, Sm) + 1.0) ** -0.5)[..., None]
+    norm = (dense_gather(dis, src, emask) * dense_gather(dis, dst, emask))
+    Em = src.shape[1]
+    emb = (torch.zeros(G, Em, d) if zero_emb
+           else torch.randn(G, Em, d, generator=gen))
+    return (x.reshape(G, Sm, d).to(device), src, dst, emask, emb.to(device),
+            norm[..., 0].contiguous())
+
+
+def check_k6(args, relu: bool, with_w: bool, gout):
+    """K6 against its plain version (1e-5) and K6-bwd against autograd
+    through it (dx, demb, dw relative to max(1, max |reference|)); padding
+    node rows of the forward exactly 0."""
+    from graphtrans_tpu_torch.ops.dense_mp import dense_degree
+    from graphtrans_tpu_torch.ops.kernels import (dense_agg, dense_agg_bwd,
+                                                  dense_agg_bwd_plain,
+                                                  dense_agg_plain)
+
+    args = args[:5] + (args[5] if with_w else None,)
+    got = dense_agg(*args, relu=relu)
+    grads = dense_agg_bwd(*args, gout, relu=relu)
+    torch.cuda.synchronize()
+    f_err = (got - dense_agg_plain(*args, relu=relu)).abs().max().item()
+    want = dense_agg_bwd_plain(*args, gout, relu=relu)
+    b_err = max(_rel_err(g, w) for g, w in zip(grads, want) if w is not None)
+    if (f_err > K6_TOL or b_err > GRAD_TOL or not torch.isfinite(got).all()
+            or not all(torch.isfinite(g).all() for g in grads
+                       if g is not None)):
+        raise AssertionError(f"K6 (relu {relu}, w {with_w}): forward |diff| "
+                             f"{f_err} (<= {K6_TOL}), backward {b_err} (<= "
+                             f"{GRAD_TOL})")
+    reached = dense_degree(args[2], args[3], args[0].shape[1]) > 0
+    if got[~reached].any() or grads[1][~args[3]].any():
+        raise AssertionError("K6: rows no valid edge reaches, or masked "
+                             "slots' demb, are not 0")
+    return f_err, b_err
+
+
+def k6_bound(args, gout=None):
+    """K6's (with ``gout``: K6-bwd's) bound: x (and gout) read and the
+    output (dx) written once, the edge lists read once, and the emb row of
+    each valid edge read once (a masked slot's is never needed, as in
+    ``k7_bound``); the backward writes demb in full (zeros on masked
+    slots) and dw. Per valid edge and channel the forward's add, relu,
+    weight product and sum, the backward's add, relu and its mask, the dw
+    product and sum, the weight product and the dx sum."""
+    x, src, dst, emask, emb, w = args
+    edges = int(emask.sum().item()) * x.shape[-1]
+    nbytes = 2 * x.numel() * 4 + edges * 4 + sum(
+        t.numel() * t.element_size() for t in (src, dst, emask, w)
+        if t is not None)
+    if gout is None:
+        return _bound(nbytes, edges * (3 + (w is not None)))
+    nbytes += gout.numel() * 4 + emb.numel() * 4                 # demb
+    if w is not None:
+        nbytes += w.numel() * 4                                     # dw
+    return _bound(nbytes, edges * (4 + 3 * (w is not None)))
+
+
+def onehot_agg(x, src, dst, emask, emb, w, relu: bool = True):
+    """Yardstick only: the JAX package's default formulation of the strided
+    sum (``graphtrans_tpu/ops/dense_mp.py:100-117``, ``:157-171``, what runs
+    without ``--use_pallas``), as a pair of one-hot ``torch.bmm`` products
+    around the message (never called by the port)."""
+    iota = torch.arange(x.shape[1], device=x.device)
+    oh_src = ((src[..., None] == iota) & emask[..., None]).float()
+    oh_dst = ((dst[..., None] == iota) & emask[..., None]).float()
+    m = torch.bmm(oh_src, x) + emb
+    if relu:
+        m = torch.relu(m)
+    if w is not None:
+        m = m * w[..., None]
+    m = torch.where(emask[..., None], m, 0.0)
+    return torch.bmm(oh_dst.transpose(1, 2), m)
+
+
+def phase12_kernels(device, d_gnn: int, bench):
+    """(a) K6 and K6-bwd against their plain versions at the yml's batch
+    (the train split's first batch of 128) and the 4096-graph batch, with
+    relu on and off and with and without w; times at the main path's
+    arguments beside bound, plain version and the one-hot bmm yardstick."""
+    from graphtrans_tpu_torch import predict
+    from graphtrans_tpu_torch.data.loader import iterate_batches
+    from graphtrans_tpu_torch.ops.kernels import (dense_agg, dense_agg_bwd,
+                                                  dense_agg_plain)
+
+    gen = torch.Generator().manual_seed(SEED + 12)
+    args = _nci1_args()
+    splits, num_tasks, _ = predict.load_splits(args)
+    serve = next(iterate_batches(splits["train"], **predict.serving_layout(
+        splits, args, num_tasks, split="train")))
+    f_err = b_err = 0.0
+    rows = []
+    for name, b in (("serve128", serve), ("bench4096", bench)):
+        main_args = k6_inputs(b, d_gnn, gen, device)
+        gout = torch.randn(main_args[0].shape, generator=gen).to(device)
+        for inp in (k6_inputs(b, d_gnn, gen, device, zero_emb=False),
+                    main_args):
+            for relu, with_w in ((True, True), (True, False), (False, True),
+                                 (False, False)):
+                f, e = check_k6(inp, relu, with_w, gout)
+                f_err, b_err = max(f_err, f), max(b_err, e)
+        fixed = main_args[1:4]
+        k6 = dict(ms=time_ms(lambda: dense_agg(*main_args), iters=20),
+                  plain_ms=time_ms(lambda: dense_agg_plain(*main_args),
+                                   iters=5),
+                  library_ms=time_ms(lambda: onehot_agg(*main_args), iters=5))
+        k6["bound_ms"], k6["bound_by"] = k6_bound(main_args)
+        leaves = [main_args[0], main_args[4], main_args[5]]
+        with torch.enable_grad():
+            lib_leaves = [t.detach().requires_grad_() for t in leaves]
+            lib_out = onehot_agg(lib_leaves[0], *fixed, *lib_leaves[1:])
+            lib_bwd = time_ms(lambda: torch.autograd.grad(
+                lib_out, lib_leaves, gout, retain_graph=True), iters=5)
+        k6b = dict(ms=time_ms(lambda: dense_agg_bwd(*main_args, gout),
+                              iters=20),
+                   plain_ms=_plain_bwd_ms(
+                       lambda x, e, w: dense_agg_plain(x, *fixed, e, w),
+                       leaves, gout),
+                   library_ms=lib_bwd)
+        k6b["bound_ms"], k6b["bound_by"] = k6_bound(main_args, gout)
+        shape = "G={} Sm={} Em={} d={}".format(
+            *main_args[0].shape[:2], main_args[1].shape[1], d_gnn)
+        for kname, t, plain in (("K6 dense_agg", k6, "plain"),
+                                ("K6-bwd dense_agg_bwd", k6b,
+                                 "plain backward")):
+            t["shape"] = shape
+            print(f"[12a] {name} {kname} [{shape}, relu, w = GCN norm, emb "
+                  f"0]: kernel {t['ms']:.4f} ms, {plain} {t['plain_ms']:.4f} "
+                  f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+                  f"library (one-hot bmm pair) {t['library_ms']:.4f} ms")
+        rows.append((k6, k6b))
+    print(f"[12a] K6 and K6-bwd agree with their plain versions (relu on "
+          f"and off, w given and not, random and zero emb): forward max "
+          f"|diff| {f_err:.3g} (<= {K6_TOL}), backward max err {b_err:.3g} "
+          f"(<= {GRAD_TOL} of max(1, max|ref|)); unreached rows and masked "
+          f"demb exactly 0")
+    return dict(k6_err=f_err, k6b_err=b_err, timed=rows[-1])
+
+
+def phase12_serve(device, tmp: str):
+    """(b) The NCI1 GraphTrans yml served through ``python -m
+    graphtrans_tpu_torch.predict`` (three splits of the synthetic fallback,
+    batches of 128, random weights at full width): records, accuracy and
+    K6/K2 launches counted from 0; the logits through the kernels against
+    the plain versions; then the Transformer-only NCI1 yml's test split
+    (K4)."""
+    from graphtrans_tpu_torch import predict
+    from graphtrans_tpu_torch.data.loader import iterate_batches
+    from graphtrans_tpu_torch.ops import kernels
+
+    args = _nci1_args()
+    splits, num_tasks, data = predict.load_splits(args)
+    kernels.reset_launches()                 # the NCI1 serving path
+    batches = records = 0
+    accs = {}
+    t0 = time.perf_counter()
+    for split in ("train", "valid", "test"):
+        out = os.path.join(tmp, f"nci1_{split}.jsonl")
+        res = predict.main(["--configs", NCI1_CONFIG, "--data_root",
+                            SNAPSHOT, "--runs", "1", "--split", split,
+                            "--out", out])
+        recs = [json.loads(line) for line in open(out)]
+        if (len(recs) != len(splits[split])
+                or sorted(r["graph_id"] for r in recs)
+                != list(range(len(splits[split])))
+                or not all(len(r["logits"]) == 2
+                           and all(math.isfinite(v) for v in r["logits"])
+                           for r in recs)
+                or not 0.0 <= res["acc"] <= 1.0):
+            raise AssertionError(f"NCI1 {split}: {len(recs)} records for "
+                                 f"{len(splits[split])} graphs, acc "
+                                 f"{res['acc']}")
+        batches += res["batches"]
+        records += res["records"]
+        accs[split] = round(res["acc"], 6)
+    secs = time.perf_counter() - t0
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    want = {"dense_agg": args.gnn_num_layer * batches,
+            "attention_seg": args.num_encoder_layers * batches}
+    if launches != want:
+        raise AssertionError(f"NCI1 serving launches {launches}, expected "
+                             f"{want}")
+    print(f"[12b] served {records} synthetic NCI1 graphs (3 splits, "
+          f"{batches} batches of <= {args.batch_size}; {secs:.2f} s with "
+          f"model builds) through graphtrans_tpu_torch.predict: accuracy "
+          f"{accs} (random weights); launches {launches} = "
+          f"{args.gnn_num_layer} and {args.num_encoder_layers} a batch")
+
+    layout = predict.serving_layout(splits, args, num_tasks)
+    model = predict.build_model(args, num_tasks, device, data)
+    err = 0.0
+    with torch.inference_mode():
+        for split in ("train", "valid", "test"):
+            for b in iterate_batches(splits[split], **layout):
+                tb = b.to(device)
+                got = model(tb)[tb.graph_mask]
+                kernels.set_kernels(model, False)
+                want = model(tb)[tb.graph_mask]
+                kernels.set_kernels(model, True)
+                err = max(err, (got - want).abs().max().item())
+    if err > LOGITS_TOL:
+        raise AssertionError(f"NCI1 logits through the kernels differ from "
+                             f"the plain versions by {err} > {LOGITS_TOL}")
+    print(f"[12b] NCI1 logits through K6 and K2 match the plain versions on "
+          f"the card: max |diff| {err:.3g} (<= {LOGITS_TOL})")
+
+    tf = _nci1_args(TF_NCI1_CONFIG)
+    kernels.reset_launches()                 # the Transformer-only NCI1 path
+    out = os.path.join(tmp, "nci1_tf.jsonl")
+    res = predict.main(["--configs", TF_NCI1_CONFIG, "--data_root", SNAPSHOT,
+                        "--runs", "1", "--out", out])
+    tf_launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    if (tf_launches != {"attention_dense": tf.num_encoder_layers
+                        * res["batches"]}
+            or res["records"] != len(splits["test"])
+            or not 0.0 <= res["acc"] <= 1.0):
+        raise AssertionError(f"NCI1 Transformer-only serving: launches "
+                             f"{tf_launches}, {res}")
+    S = predict.serving_layout(splits, tf, num_tasks)["dense_cap"] + 1
+    print(f"[12b] served the NCI1 Transformer-only yml's test split "
+          f"({res['records']} graphs, rows of {S} tokens, {128 // S} a "
+          f"packed row, d_model {tf.d_model}): accuracy {res['acc']:.6f}; "
+          f"launches "
+          f"{tf_launches} = {tf.num_encoder_layers} a batch")
+    return launches
+
+
+def phase12_train(device, tmp: str):
+    """(b) The NCI1 GraphTrans yml trained 2 epochs through ``python -m
+    graphtrans_tpu_torch.main`` (batches of 128), K6/K6-bwd/K2/K2-bwd
+    launches counted from 0, finite losses and moved parameters, one step
+    through the kernels against the plain route; then the Transformer-only
+    NCI1 yml 2 epochs (K4, K4-bwd)."""
+    import io
+
+    from graphtrans_tpu_torch import main as train_main
+    from graphtrans_tpu_torch import predict
+    from graphtrans_tpu_torch.data.loader import iterate_batches, shuffled_order
+    from graphtrans_tpu_torch.ops import kernels
+
+    args = _nci1_args(train=True)
+    splits, num_tasks, data = predict.load_splits(args)
+    launches = {}
+    for config, tag in ((NCI1_CONFIG, "GraphTrans"),
+                        (TF_NCI1_CONFIG, "Transformer-only")):
+        cargs = _nci1_args(config, train=True)
+        out = io.StringIO()
+        kernels.reset_launches()             # this yml's training path
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            res = train_main.main([
+                "--configs", config, "--data_root", SNAPSHOT, "--runs", "1",
+                "--epochs", str(TRAIN_EPOCHS), "--save_path",
+                os.path.join(tmp, tag)])
+        secs = time.perf_counter() - t0
+        got = {k: v for k, v in kernels.launch_counts().items() if v}
+        for line in out.getvalue().splitlines():
+            print(f"[12b] main: {line}")
+        steps = sum(r["steps"] for r in res["epochs"])
+        L = cargs.num_encoder_layers
+        want = ({"dense_agg": cargs.gnn_num_layer * steps,
+                 "dense_agg_bwd": cargs.gnn_num_layer * steps,
+                 "attention_seg": L * steps, "attention_seg_bwd": L * steps}
+                if config == NCI1_CONFIG else
+                {"attention_dense": L * steps,
+                 "attention_dense_bwd": L * steps})
+        if steps == 0 or got != want:
+            raise AssertionError(f"NCI1 {tag} training launches {got}, "
+                                 f"expected {want}")
+        if not all(math.isfinite(r["loss"]) for r in res["epochs"]):
+            raise AssertionError(f"epoch losses not finite: {res['epochs']}")
+        init, _ = _trainer(cargs, num_tasks, device, data=data)
+        trained = torch.load(res["saved"], map_location=device,
+                             weights_only=True)
+        params = dict(init.named_parameters())
+        still = [n for n, p in params.items() if torch.equal(p, trained[n])]
+        if len(still) > len(params) // 20:
+            raise AssertionError(f"parameters did not move: {still}")
+        drop = (f"{cargs.gnn_dropout}/" if config == NCI1_CONFIG
+                else "attention ") + str(cargs.transformer_dropout)
+        print(f"[12b] trained the NCI1 {tag} yml {TRAIN_EPOCHS} epochs "
+              f"({steps} steps of <= {cargs.batch_size} graphs, dropout "
+              f"{drop}, {secs:.2f} s with the model build) through "
+              f"graphtrans_tpu_torch.main: losses "
+              f"{[round(r['loss'], 6) for r in res['epochs']]}, "
+              f"{len(params) - len(still)} of {len(params)} parameter "
+              f"tensors moved; launches {got}")
+        launches.update(got)
+
+    layout = predict.serving_layout(splits, args, num_tasks, args.batch_size,
+                                    split="train", seed=args.seed or 0)
+    batch = next(iterate_batches(
+        splits["train"], order=shuffled_order(len(splits["train"]),
+                                              args.seed or 0, 0),
+        **layout)).to(device)
+    got = []
+    with deterministic():
+        for on in (True, False):
+            model, step = _trainer(args, num_tasks, device, kernels_on=on,
+                                   data=data)
+            loss = step(batch).item()
+            got.append((loss, {n: p.grad for n, p in
+                               model.named_parameters()}))
+    (lk, gk), (lp, gp) = got
+    g_err = max(_rel_err(gk[n], gp[n]) for n in gk)
+    g_abs = max((gk[n] - gp[n]).abs().max().item() for n in gk)
+    if abs(lk - lp) > LOGITS_TOL or g_err > GRAD_TOL:
+        raise AssertionError(f"NCI1 train step through the kernels: loss "
+                             f"|diff| {abs(lk - lp)} (<= {LOGITS_TOL}), "
+                             f"gradients {g_err} (<= {GRAD_TOL})")
+    print(f"[12b] one NCI1 train step (dropout {args.gnn_dropout}/"
+          f"{args.transformer_dropout}, same seeds) through K6-bwd and K2-bwd "
+          f"vs the plain versions on the card: loss {lk:.6f} vs {lp:.6f} "
+          f"(|diff| {abs(lk - lp):.3g} <= {LOGITS_TOL}), gradients max "
+          f"|diff| {g_abs:.3g}, relative to max(1, max|ref|) {g_err:.3g} "
+          f"(<= {GRAD_TOL})")
+    return launches
+
+
+def phase12_cost(device, bench, smi: str):
+    """(c) The NCI1 GraphTrans forward and train step on 4096 synthetic TU
+    graphs at the yml's widths (median of 10 after 3 warm-ups, peak
+    memory, a torch.profiler split by layer), and the train step at the
+    yml's batch of 128."""
+    from graphtrans_tpu_torch import predict
+    from graphtrans_tpu_torch.data.loader import iterate_batches
+    from graphtrans_tpu_torch.data.tu import TUData
+
+    args = _nci1_args(train=True)
+    data = TUData({}, 2, 16)                 # make_tu_dataset's 16 labels
+    tb = bench.to(device)
+    n = int(bench.graph_mask.sum())
+    model = predict.build_model(_nci1_args(), 2, device, data)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.inference_mode():
+        _median_ms(lambda: model(tb), 3)                    # warm-up
+        torch.cuda.reset_peak_memory_stats(device)
+        ms, lo, hi, out = _median_ms(lambda: model(tb), 10)
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        if not torch.isfinite(out[tb.graph_mask]).all():
+            raise AssertionError("NCI1 4096-graph forward: not finite")
+        print(f"[12c] NCI1 forward of {n} graphs (stride {bench.node_stride}, "
+              f"{bench.edge_src_dense.shape[1]} edge slots, "
+              f"{bench.pack_rows} packed rows of {bench.pack_w}): median "
+              f"{ms:.3f} ms over 10 (min {lo:.3f}, max {hi:.3f}), "
+              f"{n / ms * 1e3:.0f} graphs/s, peak memory {peak:.2f} GiB on "
+              f"{smi}")
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(PROFILED_FORWARDS):
+                model(tb)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / PROFILED_FORWARDS
+    _print_split("[12c]", "NCI1 forward", prof, PROFILED_FORWARDS, wall, smi,
+                 graphs=n)
+    del model
+
+    model, step = _trainer(args, 2, device, data=data)
+    _median_ms(lambda: step(tb), 3)                         # warm-up
+    torch.cuda.reset_peak_memory_stats(device)
+    ms, lo, hi, loss = _median_ms(lambda: step(tb), TIMED_STEPS)
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    if not torch.isfinite(loss):
+        raise AssertionError("NCI1 4096-graph train step: loss not finite")
+    print(f"[12c] NCI1 train step of {n} graphs (forward, backward, AdamW; "
+          f"dropout {args.gnn_dropout}/{args.transformer_dropout}): median "
+          f"{ms:.3f} ms over {TIMED_STEPS} (min {lo:.3f}, max {hi:.3f}), "
+          f"{n / ms * 1e3:.0f} graphs/s, peak memory {peak:.2f} GiB on {smi}")
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            step(tb)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+    _print_split("[12c]", "NCI1 train step", prof, PROFILED_STEPS, wall, smi,
+                 graphs=n)
+
+    splits, num_tasks, _ = predict.load_splits(args)
+    small = next(iterate_batches(splits["train"], **predict.serving_layout(
+        splits, args, num_tasks, args.batch_size, split="train"))).to(device)
+    m = int(small.graph_mask.sum().item())
+    _median_ms(lambda: step(small), 3)                      # warm-up
+    sms, slo, shi, _ = _median_ms(lambda: step(small), TIMED_STEPS)
+    print(f"[12c] NCI1 train step at the yml's batch ({m} graphs): median "
+          f"{sms:.3f} ms over {TIMED_STEPS} (min {slo:.3f}, max {shi:.3f}), "
+          f"{m / sms * 1e3:.0f} graphs/s on {smi}")
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            step(small)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+    _print_split("[12c]", "NCI1 train step", prof, PROFILED_STEPS, wall, smi,
+                 graphs=m)
+    del model, step, tb
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--trace", default=None,
@@ -2797,7 +3252,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     from graphtrans_tpu_torch.data.synthetic import (code2_bench_batch,
-                                                     mol_bench_batch)
+                                                     mol_bench_batch,
+                                                     tu_bench_batch)
     from graphtrans_tpu_torch.ops.kernels import _build
 
     device = torch.device("cuda", 0)
@@ -2867,6 +3323,16 @@ def main(argv=None) -> int:
         switch_launches.update(phase11_train(device, tmp))
     phase11_cost(device, mol_flat, smi)
 
+    t0 = time.perf_counter()
+    nci1_bench = tu_bench_batch(NCI1_BENCH, SEED)
+    print(f"[12] collated the {NCI1_BENCH}-graph NCI1 batch in "
+          f"{time.perf_counter() - t0:.1f} s")
+    nci1 = phase12_kernels(device, _nci1_args().gnn_emb_dim, nci1_bench)
+    with tempfile.TemporaryDirectory() as tmp:
+        nci1_launches = phase12_serve(device, tmp)
+        nci1_train_launches = phase12_train(device, tmp)
+    phase12_cost(device, nci1_bench, smi)
+
     k1, k2 = timing["timed"]
     k1b, k2b = train["timed"]
     k3, k7 = code2["timed"]
@@ -2874,6 +3340,7 @@ def main(argv=None) -> int:
     k4, k5 = tf["timed"]
     k4b, k5b, k11 = tf_train["timed"]
     k9, k9b, k10, k10b = switch["timed"]
+    k6, k6b = nci1["timed"]
     rows = [
         dict(name="gin_agg_fwd", route="cuda",
              source="graphtrans_tpu_torch/csrc/gin_agg.cu",
@@ -2965,9 +3432,20 @@ def main(argv=None) -> int:
              launches=switch_launches["transformer_layer_bwd"],
              # relative to max(1, max |reference|), as check_k10 holds it
              max_abs_err=switch["errs"]["k10_bwd"], **k10b),
+        dict(name="dense_agg_fwd", route="cuda",
+             source="graphtrans_tpu_torch/csrc/dense_agg.cu",
+             replaces="graphtrans_tpu/ops/pallas/dense_agg.py:168",
+             launches=nci1_launches["dense_agg"], max_abs_err=nci1["k6_err"],
+             **k6),
+        dict(name="dense_agg_bwd", route="cuda",
+             source="graphtrans_tpu_torch/csrc/dense_agg.cu",
+             replaces="graphtrans_tpu/ops/pallas/dense_agg.py:140",
+             launches=nci1_train_launches["dense_agg_bwd"],
+             # relative to max(1, max |reference|), as check_k6 holds it
+             max_abs_err=nci1["k6b_err"], **k6b),
     ]
     print(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
-          f"(phases 0-11, the kernels' build included)")
+          f"(phases 0-12, the kernels' build included)")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,9 @@
 // Forward: one block per (graph g, slice of CT channels); thread t owns
 // channel c0+t. The graph's x slice, an accumulator and the bond table slice
 // live in shared memory; each thread walks the graph's edges in order and
-// adds into its own accumulator column, so no cell has two writers. src, dst
-// and attr must be in range on every edge slot, masked ones included.
+// adds into its own accumulator column, so no cell has two writers (the
+// walk is strided_agg.cuh's, shared with K6). src, dst and attr must be in
+// range on every edge slot, masked ones included.
 //
 // Backward: one block per (chunk of GPB graphs, channel slice) walks its
 // graphs in order with the same per-channel ownership: dx of each graph is
@@ -21,19 +22,25 @@
 
 #include <cuda_runtime.h>
 
+#include "strided_agg.cuh"
+
 namespace {
 
-constexpr int CT = 128;
+using strided::CT;
 
-// x[src] + (T[attr_0] + T[attr_1] + ...), added in the plain version's
-// order: the backward's relu mask must not flip on a rounding difference.
-__device__ __forceinline__ float pre_act(const float* xs, const float* ts,
-                                         const int* ea, int src, int e,
-                                         int Em, int F, int t) {
-  float emb = ts[ea[e] * CT + t];
-  for (int f = 1; f < F; ++f) emb += ts[ea[f * Em + e] * CT + t];
-  return xs[src * CT + t] + emb;
-}
+// Channel t of edge e's bond embedding, T[attr_0] + T[attr_1] + ..., added
+// in the plain version's order: the backward's relu mask must not flip on a
+// rounding difference.
+struct TableEmb {
+  const float* ts;
+  const int* ea;
+  int Em, F, t;
+  __device__ __forceinline__ float operator()(int e) const {
+    float v = ts[ea[e] * CT + t];
+    for (int f = 1; f < F; ++f) v += ts[ea[f * Em + e] * CT + t];
+    return v;
+  }
+};
 
 __global__ void __launch_bounds__(CT)
 gin_agg_fwd_kernel(const float* __restrict__ x, const int* __restrict__ src,
@@ -55,29 +62,20 @@ gin_agg_fwd_kernel(const float* __restrict__ x, const int* __restrict__ src,
   const int c0 = blockIdx.y * CT;
   const int t = threadIdx.x;
   const bool live = c0 + t < d;
-  const float* xg = x + g * Sm * d + c0 + t;
 
-  for (int s = 0; s < Sm; ++s) {
-    xs[s * CT + t] = live ? xg[(long)s * d] : 0.f;
-    acc[s * CT + t] = 0.f;
-  }
+  strided::stage_fwd_rows(xs, acc, x + g * Sm * d + c0 + t, Sm, d, live, t);
   for (int v = 0; v < V; ++v) ts[v * CT + t] = live ? tbl[(long)v * d + c0 + t] : 0.f;
-  for (int e = t; e < Em; e += CT) {
-    const long ge = g * Em + e;
-    es[e] = src[ge];
-    ed[e] = emask[ge] ? dst[ge] : -1;
-    ew[e] = w ? w[ge] : 1.f;
+  // The table-row indices in a pass of their own: here (a block stages one
+  // graph) that measured faster than one pass; the backward, which stages
+  // graph after graph, takes them in stage_edges' pass.
+  strided::stage_edges(src, dst, emask, w, g, Em, t, es, ed, ew, [](int) {});
+  for (int e = t; e < Em; e += CT)
     for (int f = 0; f < F; ++f) ea[f * Em + e] = attr[(g * F + f) * Em + e];
-  }
   __syncthreads();
   if (!live) return;
 
-  for (int e = 0; e < Em; ++e) {
-    const int dd = ed[e];
-    if (dd < 0) continue;
-    acc[dd * CT + t] += fmaxf(pre_act(xs, ts, ea, es[e], e, Em, F, t), 0.f)
-                        * ew[e];
-  }
+  strided::walk_fwd<true, true>(xs, acc, es, ed, ew, Em, t,
+                                TableEmb{ts, ea, Em, F, t});
   const float sc = scale ? *scale : 0.f;
   float* og = out + g * Sm * d + c0 + t;
   for (int s = 0; s < Sm; ++s) {
@@ -116,7 +114,6 @@ gin_agg_bwd_kernel(const float* __restrict__ x, const int* __restrict__ src,
   const int slice = blockIdx.y;
   const int c0 = slice * CT;
   const int t = threadIdx.x;
-  const int lane = t & 31, warp = t >> 5;
   const bool live = c0 + t < d;
   const float sc = scale ? *scale : 0.f;
 
@@ -124,60 +121,34 @@ gin_agg_bwd_kernel(const float* __restrict__ x, const int* __restrict__ src,
     ts[v * CT + t] = live ? tbl[(long)v * d + c0 + t] : 0.f;
     dts[v * CT + t] = 0.f;
   }
+  auto add_dtbl = [&](int e, float dm) {
+    for (int f = 0; f < F; ++f) dts[ea[f * Em + e] * CT + t] += dm;
+  };
   float dsc = 0.f;
   const long g0 = (long)chunk * gpb;
   const long g1 = g0 + gpb < G ? g0 + gpb : (long)G;
   for (long g = g0; g < g1; ++g) {
     __syncthreads();  // the previous graph's edge lists and wsum are read
     const long base = g * Sm * d + c0 + t;
-    for (int s = 0; s < Sm; ++s) {
-      const float xv = live ? x[base + (long)s * d] : 0.f;
-      const float gv = live ? gout[base + (long)s * d] : 0.f;
-      xs[s * CT + t] = xv;
-      gs[s * CT + t] = gv;
-      dxs[s * CT + t] = scale ? sc * gv : 0.f;
-      dsc = fmaf(gv, xv, dsc);
-    }
-    for (int e = t; e < Em; e += CT) {
-      const long ge = g * Em + e;
-      es[e] = src[ge];
-      ed[e] = emask[ge] ? dst[ge] : -1;
-      ew[e] = w ? w[ge] : 1.f;
+    strided::stage_bwd_rows(xs, gs, dxs, x, gout, base, Sm, d, live, t,
+                            scale != nullptr, sc, dsc);
+    strided::stage_edges(src, dst, emask, w, g, Em, t, es, ed, ew,
+                         [&](int e) {
       for (int f = 0; f < F; ++f) ea[f * Em + e] = attr[(g * F + f) * Em + e];
-    }
+    });
     __syncthreads();
 
-    for (int e = 0; e < Em; ++e) {
-      const int dd = ed[e];  // the same for every thread of the block
-      float part = 0.f;
-      if (dd >= 0) {
-        const int ss = es[e];
-        const float pre = pre_act(xs, ts, ea, ss, e, Em, F, t);
-        const float gm = gs[dd * CT + t];
-        part = gm * fmaxf(pre, 0.f);
-        if (pre > 0.f) {
-          const float dm = gm * ew[e];
-          dxs[ss * CT + t] += dm;
-          for (int f = 0; f < F; ++f) dts[ea[f * Em + e] * CT + t] += dm;
-        }
-      }
-      if (w) {
-        for (int o = 16; o > 0; o >>= 1)
-          part += __shfl_down_sync(0xffffffffu, part, o);
-        if (lane == 0) wsum[warp * Em + e] = part;
-      }
-    }
+    strided::walk_bwd<true, true, 1>(xs, gs, dxs, es, ed, ew, wsum,
+                                     w != nullptr, Em, t,
+                                     TableEmb{ts, ea, Em, F, t}, add_dtbl,
+                                     [](int, float) {});
     if (live) {
       float* dg = dx + base;
       for (int s = 0; s < Sm; ++s) dg[(long)s * d] = dxs[s * CT + t];
     }
     if (w) {
       __syncthreads();
-      for (int e = t; e < Em; e += CT) {
-        float s = 0.f;
-        for (int k = 0; k < CT / 32; ++k) s += wsum[k * Em + e];
-        dw_part[((long)slice * G + g) * Em + e] = s;
-      }
+      strided::write_dw(wsum, dw_part, g, G, slice, Em, t);
     }
   }
   if (live) {
@@ -187,24 +158,7 @@ gin_agg_bwd_kernel(const float* __restrict__ x, const int* __restrict__ src,
   }
 }
 
-// out[j] = sum_i in[i*m + j], i in order: the deterministic second pass
-// that adds up per-block partials.
-__global__ void sum_rows_kernel(const float* __restrict__ in,
-                                float* __restrict__ out, int n, long m) {
-  const long j = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= m) return;
-  float s = 0.f;
-  for (int i = 0; i < n; ++i) s += in[(long)i * m + j];
-  out[j] = s;
-}
-
-cudaError_t sum_rows(const float* in, float* out, int n, long m,
-                     cudaStream_t stream) {
-  const int threads = 256;
-  sum_rows_kernel<<<(unsigned)((m + threads - 1) / threads), threads, 0,
-                    stream>>>(in, out, n, m);
-  return cudaGetLastError();
-}
+using strided::sum_rows;
 
 }  // namespace
 

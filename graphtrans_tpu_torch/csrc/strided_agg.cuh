@@ -1,0 +1,192 @@
+// The strided-layout message sum shared by K1 (gin_agg.cu) and K6
+// (dense_agg.cu):
+//
+//   out[g,s,c] = sum_{e: mask[g,e], dst[g,e]=s}
+//                w[g,e] * relu(x[g,src[g,e],c] + emb_e[c])
+//
+// and its backward. One block per (graph, slice of CT channels); thread t
+// owns channel c0+t. The graph's x slice (in the backward also gout's and
+// a dx accumulator) and its edge lists sit in shared memory, and each
+// thread walks the edges in order, adding into its own column, so no cell
+// has two writers and every sum has a fixed order. The kernels differ only
+// in how an edge's embedding is made (policy Emb: emb(e) is channel t of
+// edge e's embedding; K1 sums table rows in shared memory, K6 loads emb),
+// fetched a few edges ahead of their adds; a masked slot fetches nothing.
+// dw (a sum over channels) is reduced across the block's warps per edge,
+// written per channel slice, and the slices summed in order by sum_rows.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace strided {
+
+constexpr int CT = 128;  // channels per block (= threads)
+constexpr int EU = 8;    // edges whose embeddings are fetched together
+
+// The forward's rows: channel t of one graph's x (col: row 0 of that
+// channel of its [Sm, d] slice) into shared xs [Sm][CT] (0 on a channel
+// past d) and the accumulator acc [Sm][CT] zeroed.
+__device__ __forceinline__ void stage_fwd_rows(float* xs, float* acc,
+                                               const float* col, int Sm,
+                                               int d, bool live, int t) {
+  for (int r = 0; r < Sm; ++r) {
+    xs[r * CT + t] = live ? col[(long)r * d] : 0.f;
+    acc[r * CT + t] = 0.f;
+  }
+}
+
+// The backward's rows, both loads of a row issued together: x and gout of
+// channel t (at base + r*d) into xs and gs, dxs set to sc*gout (0 unless
+// scaled), and gout*x added to dsc in row order (K1's dscale).
+__device__ __forceinline__ void stage_bwd_rows(float* xs, float* gs,
+                                               float* dxs, const float* x,
+                                               const float* gout, long base,
+                                               int Sm, int d, bool live,
+                                               int t, bool scaled, float sc,
+                                               float& dsc) {
+  for (int r = 0; r < Sm; ++r) {
+    const float xv = live ? x[base + (long)r * d] : 0.f;
+    const float gv = live ? gout[base + (long)r * d] : 0.f;
+    xs[r * CT + t] = xv;
+    gs[r * CT + t] = gv;
+    dxs[r * CT + t] = scaled ? sc * gv : 0.f;
+    dsc = fmaf(gv, xv, dsc);
+  }
+}
+
+// Graph g's edge lists into shared memory: es = src, ed = dst (-1 on a
+// masked slot), ew = w (1 where w is null). more(e) stages a kernel's own
+// per-edge lists in the same pass, so all of an edge's loads are in flight
+// together: K1's backward stages graph after graph in one block, and a
+// second pass puts one more memory latency on each graph.
+template <class More>
+__device__ __forceinline__ void stage_edges(const int* src, const int* dst,
+                                            const bool* emask, const float* w,
+                                            long g, int Em, int t, int* es,
+                                            int* ed, float* ew, More more) {
+  for (int e = t; e < Em; e += CT) {
+    const long ge = g * Em + e;
+    es[e] = src[ge];
+    ed[e] = emask[ge] ? dst[ge] : -1;
+    ew[e] = w ? w[ge] : 1.f;
+    more(e);
+  }
+}
+
+// The forward's walk: acc[dst] += w * relu(x[src] + emb(e)) over the valid
+// edges in order (relu and w as the flags say).
+template <bool RELU, bool HAS_W, class Emb>
+__device__ __forceinline__ void walk_fwd(const float* xs, float* acc,
+                                         const int* es, const int* ed,
+                                         const float* ew, int Em, int t,
+                                         Emb emb) {
+  for (int e0 = 0; e0 < Em; e0 += EU) {
+    float ev[EU];
+#pragma unroll
+    for (int k = 0; k < EU; ++k) {
+      const int e = e0 + k;
+      ev[k] = (e < Em && ed[e] >= 0) ? emb(e) : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < EU; ++k) {
+      const int e = e0 + k;
+      if (e >= Em) break;
+      const int dd = ed[e];
+      if (dd < 0) continue;
+      float m = xs[es[e] * CT + t] + ev[k];
+      if (RELU) m = fmaxf(m, 0.f);
+      if (HAS_W) m *= ew[e];
+      acc[dd * CT + t] += m;
+    }
+  }
+}
+
+// Sums v over each warp; lane 0 writes the warp's sum to wsum[warp][e].
+__device__ __forceinline__ void warp_sums(float v, float* wsum, int e,
+                                          int Em, int t) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  if ((t & 31) == 0) wsum[(t >> 5) * Em + e] = v;
+}
+
+// The backward's walk over the edges in order. On a valid edge, with pre =
+// x[src] + emb(e): dmsg = gout[dst] (*w; 0 where pre <= 0 under relu) is
+// added into dxs at src, and with want_dw gout[dst]*relu(pre) is summed
+// over the block's channels into wsum [CT/32][Em]. on_msg(e, dmsg) runs
+// where a message passed (K1: dT), on_slot(e, dmsg) on every slot, dmsg 0
+// on a masked one (K6: demb). ed[e] is the same for every thread, so the
+// warp shuffles never diverge. With U > 1, U edges' embeddings are fetched
+// before their adds (K6: EU loads from device memory); with U = 1 each is
+// made where it is used (K1's table sums, from shared memory, measured
+// faster so).
+template <bool RELU, bool HAS_W, int U, class Emb, class OnMsg, class OnSlot>
+__device__ __forceinline__ void walk_bwd(const float* xs, const float* gs,
+                                         float* dxs, const int* es,
+                                         const int* ed, const float* ew,
+                                         float* wsum, bool want_dw, int Em,
+                                         int t, Emb emb, OnMsg on_msg,
+                                         OnSlot on_slot) {
+  for (int e0 = 0; e0 < Em; e0 += U) {
+    float ev[U];
+    if (U > 1) {
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+        const int e = e0 + k;
+        ev[k] = (e < Em && ed[e] >= 0) ? emb(e) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      const int e = e0 + k;
+      if (e >= Em) break;
+      const int dd = ed[e];
+      float part = 0.f, dm = 0.f;
+      if (dd >= 0) {
+        const int ss = es[e];
+        const float pre = xs[ss * CT + t] + (U > 1 ? ev[k] : emb(e));
+        const float gm = gs[dd * CT + t];
+        part = gm * (RELU ? fmaxf(pre, 0.f) : pre);
+        dm = HAS_W ? gm * ew[e] : gm;
+        if (RELU && !(pre > 0.f)) dm = 0.f;
+        dxs[ss * CT + t] += dm;
+        if (!RELU || pre > 0.f) on_msg(e, dm);
+      }
+      on_slot(e, dm);
+      if (HAS_W && want_dw) warp_sums(part, wsum, e, Em, t);
+    }
+  }
+}
+
+// After a __syncthreads that follows walk_bwd: each edge's dw over the
+// block's channels (its warps' sums, in order) into this channel slice's
+// partial dw_part [slices, G, Em].
+__device__ __forceinline__ void write_dw(const float* wsum, float* dw_part,
+                                         long g, int G, int slice, int Em,
+                                         int t) {
+  for (int e = t; e < Em; e += CT) {
+    float s = 0.f;
+    for (int k = 0; k < CT / 32; ++k) s += wsum[k * Em + e];
+    dw_part[((long)slice * G + g) * Em + e] = s;
+  }
+}
+
+// out[j] = sum_i in[i*m + j], i in order: the deterministic second pass
+// that adds up per-block partials.
+__global__ void sum_rows_kernel(const float* __restrict__ in,
+                                float* __restrict__ out, int n, long m) {
+  const long j = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= m) return;
+  float s = 0.f;
+  for (int i = 0; i < n; ++i) s += in[(long)i * m + j];
+  out[j] = s;
+}
+
+inline cudaError_t sum_rows(const float* in, float* out, int n, long m,
+                            cudaStream_t stream) {
+  const int threads = 256;
+  sum_rows_kernel<<<(unsigned)((m + threads - 1) / threads), threads, 0,
+                    stream>>>(in, out, n, m);
+  return cudaGetLastError();
+}
+
+}  // namespace strided

@@ -1,7 +1,7 @@
 """Split metrics on the host (numpy; copied from
 ``graphtrans_tpu/data/evaluators.py``). ogbg-code2: per-graph set-based
 subtoken precision, recall and F1, averaged over the graphs (the OGB
-evaluator's semantics)."""
+evaluator's semantics); the TU datasets: plain accuracy."""
 
 from __future__ import annotations
 
@@ -21,3 +21,7 @@ def eval_f1_seq(seq_ref: list, seq_pred: list) -> dict:
     mean = lambda v: float(np.mean(v)) if v else 0.0
     return {"precision": mean(precisions), "recall": mean(recalls),
             "F1": mean(f1s)}
+
+
+def eval_acc(y_true: np.ndarray, y_pred: np.ndarray) -> dict:
+    return {"acc": float((y_true == y_pred).mean()) if len(y_true) else 0.0}

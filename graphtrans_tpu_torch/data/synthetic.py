@@ -1,6 +1,6 @@
-"""Synthetic molecules and code2-like ASTs (numpy; copied from
-``graphtrans_tpu/data/synthetic.py`` so both packages draw identical graphs
-from one seed)."""
+"""Synthetic molecules, NCI-like TU graphs and code2-like ASTs (numpy;
+copied from ``graphtrans_tpu/data/synthetic.py`` so both packages draw
+identical graphs from one seed)."""
 
 from __future__ import annotations
 
@@ -25,6 +25,31 @@ def _random_connected_graph(rng, n, extra_edges):
             src += [int(u), int(v)]
             dst += [int(v), int(u)]
     return np.array([src, dst], dtype=np.int64)
+
+
+def make_tu_dataset(num_graphs=200, num_classes=2, num_node_labels=16,
+                    min_nodes=8, max_nodes=40, seed=0):
+    """NCI-like graphs: one-hot node-label features, no edge features, and
+    a binary class from graph density and the label histogram (split at
+    the dataset's median)."""
+    rng = np.random.default_rng(seed)
+    graphs = []
+    for _ in range(num_graphs):
+        n = int(rng.integers(min_nodes, max_nodes + 1))
+        extra = int(rng.integers(0, n))
+        ei = _random_connected_graph(rng, n, extra)
+        labels = rng.integers(0, num_node_labels, size=n)
+        x = np.zeros((n, num_node_labels), np.float32)
+        x[np.arange(n), labels] = 1.0
+        density = ei.shape[1] / (n * (n - 1) + 1)
+        signal = density * 10 + (labels < num_node_labels // 2).mean()
+        graphs.append({"x": x, "edge_index": ei, "edge_attr": None,
+                       "y": np.array([int(signal > 1.05)]),
+                       "_signal": signal})
+    med = np.median([g["_signal"] for g in graphs])
+    for g in graphs:
+        g["y"] = np.array([int(g.pop("_signal") > med)])
+    return graphs
 
 
 def make_mol_dataset(num_graphs=200, num_tasks=8, min_nodes=8, max_nodes=35,
@@ -117,6 +142,21 @@ def mol_bench_batch(num_graphs: int = 4096, seed: int = 0,
     em = bucket_size(max(g["edge_index"].shape[1] for g in graphs), 8)
     return collate(graphs, num_graphs + 1, (num_graphs + 1) * stride,
                    edge_cap, num_tasks=128, y_dtype="float32",
+                   node_stride=stride, dense_edge_cap=em,
+                   seq_pack_w=bucket_size(stride + 1, 128))
+
+
+def tu_bench_batch(num_graphs: int = 4096, seed: int = 0):
+    """One NCI1-shaped batch of ``num_graphs`` synthetic TU graphs
+    (``make_tu_dataset``: 8-40 nodes, 16 node labels, 2 classes) in the
+    strided layout of the NCI1 GraphTrans (stride and edge slots bucketed
+    from its largest graph, one tier of packed rows of 128)."""
+    graphs = make_tu_dataset(num_graphs=num_graphs, seed=seed)
+    _, edge_cap = dataset_caps(graphs, num_graphs)
+    stride = bucket_size(max(g["x"].shape[0] for g in graphs), 16)
+    em = bucket_size(max(g["edge_index"].shape[1] for g in graphs), 8)
+    return collate(graphs, num_graphs + 1, (num_graphs + 1) * stride,
+                   edge_cap, num_tasks=2, y_dtype="int32",
                    node_stride=stride, dense_edge_cap=em,
                    seq_pack_w=bucket_size(stride + 1, 128))
 

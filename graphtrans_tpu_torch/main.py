@@ -1,8 +1,8 @@
 """Training entry: the single-chip training loop of the root ``main.py``
-for the molecule datasets and ogbg-code2, GraphTrans and the
-Transformer-only model.
+for the molecule datasets, ogbg-code2 and the TU datasets (NCI1, NCI109),
+GraphTrans and the Transformer-only model.
 
-usage: python -m graphtrans_tpu_torch.main --configs <molpcba or code2 yml> \
+usage: python -m graphtrans_tpu_torch.main --configs <molpcba, code2 or NCI1 yml> \
            --data_root data_snapshots --epochs 2 --batch_size 64 --seed 0 \
            [--save_path DIR] [--device cuda|cpu] [--attn_backend ...]
 
@@ -11,13 +11,16 @@ shuffled each epoch as the JAX package's ``GraphLoader`` shuffles, with
 AdamW and the config's dropout, and prints one JSON line per epoch: epoch,
 steps, mean loss, lr, seconds and graphs per second on the device it ran
 on. Molecules take the masked BCE loss, ogbg-code2 the per-position
-sequence loss (``train/losses.py:seq_token_loss``). GraphTrans on
-molecules trains in the strided layout with one tier of packed transformer
-rows; on ogbg-code2 in the flat layout with the packing tiers of the train
-split's largest graph (1024/384/128 on the snapshot) and row caps sampled
-from ``--seed`` (a batch that overflows them is split). The
-Transformer-only model (``model_type transformer``,
-``configs/{molpcba,code2}/transformer/pooling=cls.yml``) trains in the
+sequence loss (``train/losses.py:seq_token_loss``), the TU datasets the
+cross-entropy over one class per graph (``classification_loss``; their
+split is drawn from ``--seed``). GraphTrans on molecules and TU graphs
+trains in the strided layout with one tier of packed transformer rows
+(NCI1's GCN sums in K6 and its backward); on ogbg-code2 in the flat
+layout with the packing tiers of the train split's largest graph
+(1024/384/128 on the snapshot) and row caps sampled from ``--seed`` (a
+batch that overflows them is split). The Transformer-only model
+(``model_type transformer``,
+``configs/{molpcba,code2,NCI1}/transformer/pooling=cls.yml``) trains in the
 flat unpacked layout at the train split's dense width, its attention in
 K4 or K5 with their dropout (``predict.serving_layout``).
 ``--attn_backend`` (the root ``main.py``'s choices) picks the attention
@@ -53,7 +56,7 @@ from .models import build_model
 from .nn.dropout import Generators
 from .nn.init import init_weights
 from .nn.transformer import set_attn_backend
-from .train.losses import binary_multitask_loss, seq_token_loss
+from .train.losses import dataset_loss
 from .train.optim import build_optimizer
 from .trainers.base_trainer import make_train_step, train
 from .utils.config import add_training_args, check_ported, parse_with_config
@@ -68,18 +71,17 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def build_run(args, num_tasks: int, device, steps_per_epoch: int,
-              code=None):
-    """The run's model (``--model_type``, weights from ``--seed``),
-    optimizer and train step, whose dropout generators are seeded from
-    ``--seed`` too; ``code`` (a ``data.code.CodeData``) makes it the code2
-    model with the sequence loss."""
+              data=None):
+    """The run's model (``--model_type``, weights from ``--seed``; ``data``
+    as ``predict.load_splits`` returns it), optimizer and train step with
+    the dataset's loss, whose dropout generators are seeded from
+    ``--seed`` too."""
     seed = args.seed or 0
-    model = build_model(args, num_tasks, device=device, code=code)
+    model = build_model(args, num_tasks, device=device, data=data)
     init_weights(model, torch.Generator().manual_seed(seed))
     set_attn_backend(model, args.attn_backend)
     optimizer = build_optimizer(model, args, steps_per_epoch)
-    loss_fn = binary_multitask_loss if code is None else seq_token_loss
-    step = make_train_step(model, loss_fn, optimizer,
+    step = make_train_step(model, dataset_loss(args.dataset), optimizer,
                            Generators.seeded(seed, device))
     return model, optimizer, step
 
@@ -89,12 +91,12 @@ def main(argv: Optional[list] = None) -> dict:
     check_ported(args)
     device = resolve_device(args.device)
     seed = args.seed or 0
-    splits, num_tasks, code = predict.load_splits(args)
+    splits, num_tasks, data = predict.load_splits(args)
     graphs = splits["train"]
     layout = predict.serving_layout(splits, args, num_tasks, args.batch_size,
                                     split="train", seed=seed)
     model, optimizer, step = build_run(
-        args, num_tasks, device, -(-len(graphs) // args.batch_size), code)
+        args, num_tasks, device, -(-len(graphs) // args.batch_size), data)
     records = []
     for epoch in range(1, args.epochs + 1):
         stats: dict = {}

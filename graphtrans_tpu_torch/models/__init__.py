@@ -8,10 +8,11 @@ from .gnn_transformer import build_gnn_transformer
 from .transformer import build_transformer
 
 
-def build_model(args, num_tasks: int, device=None, code=None):
-    """The model of a parsed config (``utils/config.py``); ``code`` (a
-    ``data.code.CodeData``) sizes code2's node encoder and heads. A
-    composition outside the ported slices raises NotImplementedError."""
+def build_model(args, num_tasks: int, device=None, data=None):
+    """The model of a parsed config (``utils/config.py``); ``data`` (a
+    ``data.code.CodeData`` or ``data.tu.TUData``) sizes code2's node
+    encoder and heads or TU's node encoder. A composition outside the
+    ported slices raises NotImplementedError."""
     if getattr(args, "model_type", "gnn-transformer") == "transformer":
-        return build_transformer(args, num_tasks, device, code)
-    return build_gnn_transformer(args, num_tasks, device, code)
+        return build_transformer(args, num_tasks, device, data)
+    return build_gnn_transformer(args, num_tasks, device, data)

@@ -1,21 +1,23 @@
 """GraphTrans: GNN stack -> linear bridge -> transformer over packed rows ->
 CLS readout -> linear head (counterpart of
 ``graphtrans_tpu/models/gnn_transformer.py``, seq-packed route): GIN on the
-strided layout with 128 task logits (molpcba), or GCN on the flat layout
+strided layout with 128 task logits (molpcba), GCN on the flat layout
 with up to three packing tiers and five per-position vocabulary heads
-(code2). Training mode is ``nn.Module.train()``: batch-statistics BatchNorm
-and dropout, whose random draws come from the ``Generators`` passed to
-``forward``."""
+(code2), or GCN without a virtual node on the strided layout, JK=last,
+with class logits (NCI1, NCI109). Training mode is ``nn.Module.train()``:
+batch-statistics BatchNorm and dropout, whose random draws come from the
+``Generators`` passed to ``forward``."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
 
-from ..nn.encoders import ASTNodeEncoder
-from ..nn.gnn import GNNNodeEmbedding
+from ..data import dataset_kind
+from ..nn.encoders import ASTNodeEncoder, LinearNodeEncoder, ZeroEdgeEncoder
+from ..nn.gnn import GNNNodeEmbedding, gnn_out_dim
 from ..nn.transformer import TransformerNodeEncoder
 from ..ops.pack import TIER_NAMES, pack_gather
 from .heads import PredictionHead
@@ -56,8 +58,10 @@ def packed_transformer_stage(encoder: TransformerNodeEncoder,
 
 class GNNTransformer(nn.Module):
     """``gnn_type`` "gin" (molecules) or "gcn" (with ``node_encoder`` an
-    ``ASTNodeEncoder`` for code2); ``max_seq_len`` set gives per-position
-    heads and ``[G, max_seq_len, num_tasks]`` logits."""
+    ``ASTNodeEncoder`` for code2, a ``LinearNodeEncoder`` and
+    ``edge_encoder`` a ``ZeroEdgeEncoder`` factory for TU);
+    ``max_seq_len`` set gives per-position heads and ``[G, max_seq_len,
+    num_tasks]`` logits."""
 
     def __init__(self, num_tasks: int, gnn_num_layer: int, gnn_emb_dim: int,
                  gnn_virtual_node: bool, d_model: int, nhead: int,
@@ -66,16 +70,18 @@ class GNNTransformer(nn.Module):
                  transformer_dropout: float = 0.0, device=None,
                  gnn_type: str = "gin",
                  node_encoder: Optional[nn.Module] = None,
-                 max_seq_len: Optional[int] = None):
+                 max_seq_len: Optional[int] = None, gnn_JK: str = "cat",
+                 edge_encoder: Optional[Callable[[], nn.Module]] = None):
         super().__init__()
         self.gnn_node = GNNNodeEmbedding(gnn_num_layer, gnn_emb_dim,
                                          virtual_node=gnn_virtual_node,
                                          drop_ratio=gnn_dropout,
                                          gnn_type=gnn_type,
                                          node_encoder=node_encoder,
-                                         device=device)
-        self.gnn2transformer = nn.Linear(2 * gnn_emb_dim, d_model,
-                                         device=device)
+                                         device=device, JK=gnn_JK,
+                                         edge_encoder=edge_encoder)
+        self.gnn2transformer = nn.Linear(gnn_out_dim(gnn_JK, gnn_emb_dim),
+                                         d_model, device=device)
         self.transformer_encoder = TransformerNodeEncoder(
             d_model, nhead, dim_feedforward, num_encoder_layers,
             norm_input=transformer_norm_input, dropout=transformer_dropout,
@@ -99,8 +105,8 @@ class GNNTransformer(nn.Module):
 
 
 # (dataset kind, gnn_type) compositions the port runs: the published
-# molpcba and code2 GraphTrans configs
-_PORTED = {("mol", "gin"), ("code2", "gcn")}
+# molpcba, code2 and NCI1 GraphTrans configs
+_PORTED = {("mol", "gin"), ("code2", "gcn"), ("tu", "gcn")}
 # the transformer options both model types run
 _ENCODER = {
     "transformer_activation": ("relu",),
@@ -110,7 +116,7 @@ _ENCODER = {
 }
 _SUPPORTED = {
     "model_type": ("gnn-transformer",),
-    "gnn_JK": ("cat",),
+    "gnn_JK": ("cat", "last"),
     "graph_pooling": ("cls",),
     "gnn_residual": (False,),
     **_ENCODER,
@@ -126,19 +132,11 @@ def _check_supported(args, supported: dict):
                 f"{key} in {ok})")
 
 
-def dataset_kind(dataset: str) -> str:
-    if dataset.startswith("ogbg-mol"):
-        return "mol"
-    if dataset == "ogbg-code2":
-        return "code2"
-    raise NotImplementedError(f"dataset {dataset}: the port runs the "
-                              "ogbg-mol* datasets and ogbg-code2")
-
-
 def build_gnn_transformer(args, num_tasks: int, device=None,
-                          code=None) -> GNNTransformer:
-    """The model of a parsed config (``utils/config.py``); ``code`` (a
-    ``data.code.CodeData``) sizes code2's node encoder and heads. A
+                          data=None) -> GNNTransformer:
+    """The model of a parsed config (``utils/config.py``); ``data`` sizes
+    the dataset's encoders: a ``data.code.CodeData`` (code2's node encoder
+    and heads) or a ``data.tu.TUData`` (the node-label count). A
     composition outside the ported slices raises NotImplementedError."""
     _check_supported(args, _SUPPORTED)
     kind = dataset_kind(getattr(args, "dataset", "ogbg-molpcba"))
@@ -146,11 +144,15 @@ def build_gnn_transformer(args, num_tasks: int, device=None,
         raise NotImplementedError(
             f"gnn_type={args.gnn_type!r} on {kind} is not ported yet (the "
             f"port runs {sorted(_PORTED)})")
-    node_encoder = max_seq_len = None
+    node_encoder = max_seq_len = edge_encoder = None
     if kind == "code2":
-        node_encoder = ASTNodeEncoder(args.gnn_emb_dim, code.num_nodetypes,
-                                      code.num_nodeattributes, device=device)
-        max_seq_len = code.max_seq_len
+        node_encoder = ASTNodeEncoder(args.gnn_emb_dim, data.num_nodetypes,
+                                      data.num_nodeattributes, device=device)
+        max_seq_len = data.max_seq_len
+    elif kind == "tu":
+        node_encoder = LinearNodeEncoder(data.num_node_labels,
+                                         args.gnn_emb_dim, device=device)
+        edge_encoder = lambda: ZeroEdgeEncoder(args.gnn_emb_dim)
     return GNNTransformer(
         num_tasks=num_tasks, gnn_num_layer=args.gnn_num_layer,
         gnn_emb_dim=args.gnn_emb_dim,
@@ -161,4 +163,5 @@ def build_gnn_transformer(args, num_tasks: int, device=None,
         gnn_dropout=getattr(args, "gnn_dropout", 0.0),
         transformer_dropout=getattr(args, "transformer_dropout", 0.0),
         device=device, gnn_type=args.gnn_type, node_encoder=node_encoder,
-        max_seq_len=max_seq_len)
+        max_seq_len=max_seq_len, gnn_JK=args.gnn_JK,
+        edge_encoder=edge_encoder)

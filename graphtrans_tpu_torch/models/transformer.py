@@ -2,7 +2,8 @@
 ``graphtrans_tpu/models/transformer.py``): no GNN. The node encoder's rows
 go into a dense ``[G, S, d]`` batch (``ops/dense.py``), the encoder runs
 over unpacked rows with a CLS column appended, and the CLS column is read
-out into the prediction head (per-position heads for code2). It serves and
+out into the prediction head (per-position heads for code2), on the
+molecule datasets, ogbg-code2 and the TU datasets. It serves and
 trains; pooling other than CLS (the ``NodePool`` zoo) arrives with slice
 11."""
 
@@ -13,10 +14,11 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..nn.encoders import AtomEncoder, ASTNodeEncoder
+from ..data import dataset_kind
+from ..nn.encoders import AtomEncoder, ASTNodeEncoder, LinearNodeEncoder
 from ..nn.transformer import TransformerNodeEncoder
 from ..ops.dense import nodes_to_dense
-from .gnn_transformer import _ENCODER, _check_supported, dataset_kind
+from .gnn_transformer import _ENCODER, _check_supported
 from .heads import PredictionHead
 
 
@@ -54,9 +56,10 @@ class TransformerModule(nn.Module):
 
 
 def build_transformer(args, num_tasks: int, device=None,
-                      code=None) -> TransformerModule:
+                      data=None) -> TransformerModule:
     """The Transformer-only model of a parsed config. Node encoders are
     sized as the JAX package sizes them: molecules ``AtomEncoder(d_model)``
+    and TU ``LinearNodeEncoder(d_model)`` over ``data.num_node_labels``
     (``Transformer.get_emb_dim``); code2 ``ASTNodeEncoder(gnn_emb_dim)``
     always (``graphtrans_tpu/data/code.py:163-171``, a quirk of the
     reference), so there ``gnn_emb_dim`` must equal ``d_model``."""
@@ -65,18 +68,22 @@ def build_transformer(args, num_tasks: int, device=None,
         raise NotImplementedError(
             f"graph_pooling={args.graph_pooling!r} on model_type transformer "
             "arrives with slice 11 (the NodePool zoo); the port runs cls")
-    if dataset_kind(getattr(args, "dataset", "ogbg-molpcba")) == "code2":
+    kind = dataset_kind(getattr(args, "dataset", "ogbg-molpcba"))
+    max_seq_len = None
+    if kind == "code2":
         if args.gnn_emb_dim != args.d_model:
             raise ValueError(
                 f"the AST node encoder is sized gnn_emb_dim "
                 f"({args.gnn_emb_dim}) and feeds the transformer of width "
                 f"d_model ({args.d_model}): they must be equal")
-        node_encoder = ASTNodeEncoder(args.gnn_emb_dim, code.num_nodetypes,
-                                      code.num_nodeattributes, device=device)
-        max_seq_len = code.max_seq_len
+        node_encoder = ASTNodeEncoder(args.gnn_emb_dim, data.num_nodetypes,
+                                      data.num_nodeattributes, device=device)
+        max_seq_len = data.max_seq_len
+    elif kind == "tu":
+        node_encoder = LinearNodeEncoder(data.num_node_labels, args.d_model,
+                                         device=device)
     else:
         node_encoder = AtomEncoder(args.d_model, device=device)
-        max_seq_len = None
     return TransformerModule(
         num_tasks=num_tasks, node_encoder=node_encoder, d_model=args.d_model,
         nhead=args.nhead, dim_feedforward=args.dim_feedforward,

@@ -5,12 +5,14 @@ relu(x_j + bond_emb)), MLP = Linear(d,2d) -> masked BN -> ReLU ->
 Linear(2d,d); the aggregation, the bond lookup and the (1+eps)*x combine
 all run in kernel K1.
 
-GCNConv runs on the flat layout (OGB's GCN as the reference writes it):
-x = Linear(h); deg = out_degree(src) + 1; out = sum_{j->i}
-deg^-1/2[src] deg^-1/2[dst] relu(x_j + edge_emb) + relu(x + root_emb)/deg.
-The aggregation runs in kernel K7 over the dst-sorted edges (its backward
-walks the batch's ``src_order``, shared by every layer); the degree, the
-norm and the self term are plain PyTorch.
+GCNConv (OGB's GCN as the reference writes it): x = Linear(h); deg =
+out_degree(src) + 1; out = sum_{j->i} deg^-1/2[src] deg^-1/2[dst]
+relu(x_j + edge_emb) + relu(x + root_emb)/deg. On the flat layout (code2)
+the aggregation runs in kernel K7 over the dst-sorted edges (its backward
+walks the batch's ``src_order``, shared by every layer); on the strided
+layout (NCI1) in kernel K6 over each graph's edge slots, with the degree
+and the norm from per-graph reductions and gathers (``dense_mp``). The
+degree, the norm and the self term are plain PyTorch.
 """
 
 from __future__ import annotations
@@ -54,8 +56,9 @@ class GINConv(nn.Module):
 
 
 class GCNConv(nn.Module):
-    """``edge_encoder`` maps the batch's ``edge_attr`` to ``[E, emb_dim]``
-    (``LinearEdgeEncoder`` for code2)."""
+    """``edge_encoder`` maps the batch's ``edge_attr`` (flat) or
+    ``edge_attr_dense`` (strided) to ``[..., emb_dim]``
+    (``LinearEdgeEncoder`` for code2, ``ZeroEdgeEncoder`` for TU)."""
 
     def __init__(self, emb_dim: int, edge_encoder: nn.Module, device=None):
         super().__init__()
@@ -68,20 +71,36 @@ class GCNConv(nn.Module):
         normal_(self.root_emb, 1.0, gen)
 
     def forward(self, batch, h: torch.Tensor) -> torch.Tensor:
-        if batch.node_stride > 0:
-            raise NotImplementedError(
-                "GCNConv runs on the flat layout only; the strided layout "
-                "serves GIN (molpcba)")
         mask = batch.node_mask[:, None]
         x = self.lin(h).masked_fill(~mask, 0.0)
-        deg = out_degree(batch.edge_src, x.shape[0], batch.edge_mask,
-                         x.dtype) + 1.0
-        dis = deg ** -0.5
-        norm = dis[batch.edge_src.long()] * dis[batch.edge_dst.long()]
-        emb = self.edge_encoder(batch.edge_attr).to(x.dtype)
-        args = (x, emb, batch.edge_src, batch.edge_dst, batch.edge_mask, norm,
-                "relu_add")
-        agg = (spmm(*args, order=src_order(batch)) if self.use_kernel
-               else spmm_plain(*args))
-        out = agg + torch.relu(x + self.root_emb) * (1.0 / deg)[:, None]
+        if batch.node_stride > 0:
+            agg, inv_deg = self._strided(batch, x)
+        else:
+            deg = out_degree(batch.edge_src, x.shape[0], batch.edge_mask,
+                             x.dtype) + 1.0
+            dis = deg ** -0.5
+            norm = dis[batch.edge_src.long()] * dis[batch.edge_dst.long()]
+            emb = self.edge_encoder(batch.edge_attr).to(x.dtype)
+            args = (x, emb, batch.edge_src, batch.edge_dst, batch.edge_mask,
+                    norm, "relu_add")
+            agg = (spmm(*args, order=src_order(batch)) if self.use_kernel
+                   else spmm_plain(*args))
+            inv_deg = (1.0 / deg)[:, None]
+        out = agg + torch.relu(x + self.root_emb) * inv_deg
         return out.masked_fill(~mask, 0.0)
+
+    def _strided(self, batch, x: torch.Tensor):
+        """(aggregation [N, d] in K6, 1/deg [N, 1]) on the strided layout:
+        the degree is a per-graph count over the src slots, the per-edge
+        norm gathers deg^-1/2 at src and dst (zero on masked slots)."""
+        G, Sm = batch.num_graph_slots, batch.node_stride
+        src, dst = batch.edge_src_dense, batch.edge_dst_dense
+        emask = batch.edge_mask_dense
+        deg = dense_mp.dense_degree(src, emask, Sm, x.dtype) + 1.0
+        dis = (deg ** -0.5)[..., None]
+        norm = (dense_mp.dense_gather(dis, src, emask)
+                * dense_mp.dense_gather(dis, dst, emask))[..., 0]
+        emb = self.edge_encoder(batch.edge_attr_dense).to(x.dtype)
+        agg = dense_mp.gather_message_scatter_dense(
+            x, batch, emb, norm, kernel=self.use_kernel)
+        return agg, (1.0 / deg).reshape(G * Sm, 1)

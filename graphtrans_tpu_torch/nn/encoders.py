@@ -1,6 +1,7 @@
 """Node and edge encoders (counterparts of ``graphtrans_tpu/nn/encoders.py``):
 OGB's molecule encoders (one embedding table per categorical feature
-column, summed), and code2's AST node encoder and linear edge encoder."""
+column, summed), code2's AST node encoder and linear edge encoder, and the
+TU datasets' linear node encoder and zero edge encoder."""
 
 from __future__ import annotations
 
@@ -88,3 +89,29 @@ class LinearEdgeEncoder(nn.Module):
 
     def forward(self, e: torch.Tensor) -> torch.Tensor:
         return self.lin(e.to(self.lin.weight.dtype))
+
+
+class LinearNodeEncoder(nn.Module):
+    """TU node features (one-hot node labels, float) [N, in_dim] ->
+    [N, emb_dim], an f32 Linear."""
+
+    def __init__(self, in_dim: int, emb_dim: int, device=None):
+        super().__init__()
+        self.lin = nn.Linear(in_dim, emb_dim, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.lin(x.to(torch.float32))
+
+
+class ZeroEdgeEncoder(nn.Module):
+    """The edge "encoder" of datasets without edge features: zeros
+    ``[..., emb_dim]`` from the attribute tensor's leading shape, so a
+    message is ``relu(x_j)`` as in the reference TU path. No parameters."""
+
+    def __init__(self, emb_dim: int):
+        super().__init__()
+        self.emb_dim = emb_dim
+
+    def forward(self, e: torch.Tensor) -> torch.Tensor:
+        return e.new_zeros(e.shape[:-1] + (self.emb_dim,),
+                           dtype=torch.float32)

@@ -1,6 +1,6 @@
 """GNN node-embedding stack with an optional virtual node (counterpart of
-``graphtrans_tpu/nn/gnn.py``), JK=cat: GIN on the strided layout
-(molpcba) or GCN on the flat layout (code2).
+``graphtrans_tpu/nn/gnn.py``), JK=cat or last: GIN on the strided layout
+(molpcba), GCN on the flat layout (code2) or on the strided layout (NCI1).
 
 Before each layer the virtual node's per-graph embedding is added to its
 graph's nodes, and that sum overwrites ``h_list[layer]`` (the reference
@@ -13,7 +13,7 @@ on each virtual-node MLP output; BatchNorm uses batch statistics."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -58,30 +58,45 @@ def graph_sum(h: torch.Tensor, batch) -> torch.Tensor:
                        batch.node_mask)
 
 
+JKS = ("cat", "last")
+
+
+def gnn_out_dim(JK: str, emb_dim: int) -> int:
+    return 2 * emb_dim if JK == "cat" else emb_dim
+
+
 class GNNNodeEmbedding(nn.Module):
-    """``gnn_type`` "gin" (bond tables, strided layout) or "gcn" (one
-    ``LinearEdgeEncoder`` per layer, flat layout); ``node_encoder`` defaults
-    to the molecule ``AtomEncoder``, and one with ``takes_depth`` (code2's
-    ``ASTNodeEncoder``) also reads ``node_depth``."""
+    """``gnn_type`` "gin" (bond tables, strided layout) or "gcn" (one edge
+    encoder per layer from ``edge_encoder``, a factory: by default code2's
+    ``LinearEdgeEncoder``; TU's ``ZeroEdgeEncoder``); ``node_encoder``
+    defaults to the molecule ``AtomEncoder``, and one with ``takes_depth``
+    (code2's ``ASTNodeEncoder``) also reads ``node_depth``. ``JK`` "cat"
+    returns the encoder output beside the last layer, "last" the last
+    layer alone."""
 
     def __init__(self, num_layer: int, emb_dim: int,
                  virtual_node: bool = True, drop_ratio: float = 0.0,
                  gnn_type: str = "gin",
-                 node_encoder: Optional[nn.Module] = None, device=None):
+                 node_encoder: Optional[nn.Module] = None, device=None,
+                 JK: str = "cat",
+                 edge_encoder: Optional[Callable[[], nn.Module]] = None):
         super().__init__()
         if num_layer < 2:
             raise ValueError("Number of GNN layers must be greater than 1.")
+        if JK not in JKS:
+            raise ValueError(f"JK {JK!r} not in {JKS}")
         self.num_layer = num_layer
         self.emb_dim = emb_dim
+        self.JK = JK
         # named as in slice 1 for every node encoder (state-dict keys)
         self.atom_encoder = (node_encoder if node_encoder is not None
                              else AtomEncoder(emb_dim, device=device))
         if gnn_type == "gin":
             make = lambda: GINConv(emb_dim, device=device)
         elif gnn_type == "gcn":
-            make = lambda: GCNConv(
-                emb_dim, LinearEdgeEncoder(emb_dim, device=device),
-                device=device)
+            edge = edge_encoder or (lambda: LinearEdgeEncoder(emb_dim,
+                                                              device=device))
+            make = lambda: GCNConv(emb_dim, edge(), device=device)
         else:
             raise ValueError(f"Undefined GNN type called {gnn_type}")
         self.convs = nn.ModuleList(make() for _ in range(num_layer))
@@ -106,8 +121,9 @@ class GNNNodeEmbedding(nn.Module):
 
     def forward(self, batch, gen=None) -> torch.Tensor:
         """[N, F] node features -> [N, 2*emb_dim] (JK=cat of the encoder
-        output, with the first virtual-node add, and the last layer).
-        ``gen`` (``nn.dropout.Generators``) feeds dropout in training."""
+        output, with the first virtual-node add, and the last layer) or
+        [N, emb_dim] (JK=last). ``gen`` (``nn.dropout.Generators``) feeds
+        dropout in training."""
         mask = batch.node_mask[:, None]
         h_list = [self._encode(batch).masked_fill(~mask, 0.0)]
         if self.virtual_node:
@@ -124,5 +140,6 @@ class GNNNodeEmbedding(nn.Module):
                 pooled = graph_sum(h_list[layer], batch)
                 vn = self.dropout(
                     self.vn_mlps[layer](pooled + vn, batch.graph_mask), gen)
-        out = torch.cat([h_list[0], h_list[-1]], dim=-1)
+        out = (torch.cat([h_list[0], h_list[-1]], dim=-1) if self.JK == "cat"
+               else h_list[-1])
         return out.masked_fill(~mask, 0.0)

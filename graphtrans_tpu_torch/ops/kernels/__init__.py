@@ -19,6 +19,8 @@ from .attention_packed import (attention_dense, attention_dense_bwd,
 from .attention_smalls import (attention_smalls, attention_smalls_bwd,
                                attention_smalls_bwd_plain,
                                attention_smalls_plain)
+from .dense_agg import (dense_agg, dense_agg_bwd, dense_agg_bwd_plain,
+                        dense_agg_plain)
 from .dropout import byte_dropout, byte_dropout_plain
 from .flash_attention import (flash_attention, flash_attention_bwd,
                               flash_attention_bwd_plain,
@@ -36,7 +38,8 @@ WRAPPERS = (gin_agg, gin_agg_bwd, attention_seg, attention_seg_bwd,
             flash_hil_seg, flash_hil_seg_bwd, spmm, spmm_bwd,
             attention_dense, attention_dense_bwd, flash_attention,
             flash_attention_bwd, byte_dropout, attention_smalls,
-            attention_smalls_bwd, transformer_layer, transformer_layer_bwd)
+            attention_smalls_bwd, transformer_layer, transformer_layer_bwd,
+            dense_agg, dense_agg_bwd)
 
 
 def reset_launches():
@@ -63,7 +66,8 @@ __all__ = ["attention_dense", "attention_dense_bwd",
            "attention_seg", "attention_seg_bwd", "attention_seg_bwd_plain",
            "attention_seg_plain", "attention_smalls", "attention_smalls_bwd",
            "attention_smalls_bwd_plain", "attention_smalls_plain",
-           "byte_dropout", "byte_dropout_plain",
+           "byte_dropout", "byte_dropout_plain", "dense_agg",
+           "dense_agg_bwd", "dense_agg_bwd_plain", "dense_agg_plain",
            "flash_attention", "flash_attention_bwd",
            "flash_attention_bwd_plain", "flash_attention_plain",
            "flash_hil_seg", "flash_hil_seg_bwd", "flash_hil_seg_bwd_plain",

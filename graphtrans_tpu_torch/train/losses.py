@@ -1,10 +1,15 @@
 """Losses (copies of ``graphtrans_tpu/train/losses.py``), masked over valid
 graphs: BCE-with-logits on the labelled entries of the molecule datasets,
-and ogbg-code2's per-position sequence cross-entropy."""
+ogbg-code2's per-position sequence cross-entropy, and the TU datasets'
+cross-entropy over one class id per graph."""
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
+
+from ..data import dataset_kind
 
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -33,6 +38,13 @@ def softmax_cross_entropy(logits: torch.Tensor,
     return torch.logsumexp(logits, dim=-1) - gold
 
 
+def classification_loss(pred: torch.Tensor, batch) -> torch.Tensor:
+    """pred [G, C] logits, ``batch.y`` [G] int class ids: the mean
+    cross-entropy over valid graphs (the TU datasets; the reference's FLAG
+    divisor is ignored, as in ``tud.py``)."""
+    return masked_mean(softmax_cross_entropy(pred, batch.y), batch.graph_mask)
+
+
 def seq_token_loss(pred: torch.Tensor, batch) -> torch.Tensor:
     """pred [G, L, V] logits, ``batch.y_arr`` [G, L] token ids: the
     cross-entropy of each position averaged over valid graphs, then the
@@ -42,3 +54,16 @@ def seq_token_loss(pred: torch.Tensor, batch) -> torch.Tensor:
     per_pos = torch.stack([masked_mean(ce[:, i], batch.graph_mask)
                            for i in range(L)])
     return per_pos.sum() / L
+
+
+# each dataset kind's loss, as the JAX package's dataset utils choose it
+# (``MolUtil``, ``CodeUtil``, ``TUUtil.loss_fn``)
+LOSSES = {"mol": binary_multitask_loss, "code2": seq_token_loss,
+          "tu": classification_loss}
+
+
+def dataset_loss(dataset: str) -> Callable:
+    """The training loss of ``dataset``: masked BCE on the molecule
+    datasets, the per-position sequence loss on ogbg-code2, cross-entropy
+    over one class per graph on the TU datasets."""
+    return LOSSES[dataset_kind(dataset)]

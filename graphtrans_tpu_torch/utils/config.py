@@ -4,7 +4,9 @@ The experiment configs under ``configs/`` are flat mappings of flag names to
 scalars; this reader covers exactly that (the machine with the card has no
 pyyaml). Keys match a parser option by dest with '-' read as '_'; keys the
 parser does not know (``lr`` for ``predict``, say) are ignored. Values
-given on the command line override the config."""
+given on the command line override the config, and the config overrides
+the dataset's defaults (``DATASET_DEFAULTS``), which override the parser's
+own: the three stages of the root ``main.py``."""
 
 from __future__ import annotations
 
@@ -85,6 +87,17 @@ _LATER = (
 )
 
 
+# the ``set_defaults`` of each dataset util's ``add_args`` in the JAX
+# package (``data/mol.py:MolUtil``, ``data/code.py:CodeUtil``,
+# ``data/tu.py:TUUtil``), by dataset name
+_MOL = dict(batch_size=32, epochs=100, gnn_dropout=0.5)
+_TU = dict(batch_size=128, epochs=10000, lr=0.0005, weight_decay=0.0001,
+           gnn_dropout=0.5, gnn_emb_dim=128)
+DATASET_DEFAULTS = {"ogbg-molhiv": _MOL, "ogbg-molpcba": _MOL,
+                    "ogbg-code2": dict(max_seq_len=5),
+                    "NCI1": _TU, "NCI109": _TU}
+
+
 def check_ported(args):
     """Raise NotImplementedError, naming its slice, for a flag that asks
     for something the port does not do yet."""
@@ -95,17 +108,22 @@ def check_ported(args):
 
 
 def parse_with_config(parser: argparse.ArgumentParser, argv=None):
-    """Parse ``argv`` with ``--configs <yml>`` values as defaults."""
+    """Parse ``argv`` with ``--configs <yml>`` values as defaults, over the
+    defaults of the dataset the command line or the config names."""
+    dests = {a.dest: a for a in parser._actions}
     pre, _ = parser.parse_known_args(argv)
+    config = {}
     if getattr(pre, "configs", None):
-        dests = {a.dest: a for a in parser._actions}
-        defaults = {}
         for key, value in read_flat_yaml(pre.configs).items():
             action = dests.get(key.replace("-", "_"))
             if action is None:
                 continue
             if action.type is not None and value is not None:
                 value = action.type(value)
-            defaults[action.dest] = value
-        parser.set_defaults(**defaults)
+            config[action.dest] = value
+        parser.set_defaults(**config)
+        pre, _ = parser.parse_known_args(argv)
+    stage = DATASET_DEFAULTS.get(getattr(pre, "dataset", None), {})
+    parser.set_defaults(**{k: v for k, v in stage.items() if k in dests})
+    parser.set_defaults(**config)
     return parser.parse_args(argv)

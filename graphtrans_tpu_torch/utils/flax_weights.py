@@ -3,9 +3,11 @@
 ``load_flax_variables(model, params, batch_stats)`` takes the flax
 ``params`` and ``batch_stats`` trees as nested dicts of numpy arrays (keys
 are flax paths) and fills the port's ``GNNTransformer``: the molpcba tree
-(atom encoder, GIN convs with bond tables, ``head/head``) or the code2 tree
+(atom encoder, GIN convs with bond tables, ``head/head``), the code2 tree
 (``node_encoder/{type,attr,depth}_emb``, GCN convs with a linear edge
-encoder and ``root_emb``, ``head/head_0..L-1``); or its Transformer-only
+encoder and ``root_emb``, ``head/head_0..L-1``) or the NCI1 tree
+(``node_encoder/TDense_0``, GCN convs whose zero edge encoder has no
+parameters, a bridge from JK=last's width); or its Transformer-only
 ``TransformerModule`` (``node_encoder``, ``transformer/{cls_embedding,
 norm_input, layer_i/..., final_norm}``, ``head``). Dense kernels are
 stored ``[in, out]`` by flax and ``[out, in]`` by ``nn.Linear``, so they are
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 
 from ..nn.conv import GCNConv
-from ..nn.encoders import ASTNodeEncoder
+from ..nn.encoders import ASTNodeEncoder, LinearEdgeEncoder, LinearNodeEncoder
 
 
 def _flatten(tree, prefix=()):
@@ -53,6 +55,8 @@ def _plan(model) -> dict:
         if isinstance(enc, ASTNodeEncoder):
             for name in ("type_emb", "attr_emb", "depth_emb"):
                 leaf(f"{port}.{name}.weight", ("node_encoder", name))
+        elif isinstance(enc, LinearNodeEncoder):
+            dense(f"{port}.lin", ("node_encoder", "TDense_0"))
         else:
             for i in range(len(enc.embs)):
                 leaf(f"{port}.embs.{i}.weight", ("node_encoder", f"emb_{i}"))
@@ -93,7 +97,9 @@ def _plan(model) -> dict:
         c, fc = f"gnn_node.convs.{i}", ("gnn_node", f"conv_{i}")
         if isinstance(conv, GCNConv):
             dense(f"{c}.lin", fc + ("TDense_0",))
-            dense(f"{c}.edge_encoder.lin", fc + ("edge_encoder", "TDense_0"))
+            if isinstance(conv.edge_encoder, LinearEdgeEncoder):
+                dense(f"{c}.edge_encoder.lin",
+                      fc + ("edge_encoder", "TDense_0"))
             leaf(f"{c}.root_emb", fc + ("root_emb",))
         else:
             leaf(f"{c}.eps", fc + ("eps",))

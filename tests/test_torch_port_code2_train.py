@@ -243,7 +243,7 @@ def test_main_code2_trains_and_predict_serves_its_weights(tmp_path, capsys):
     args = parse_with_config(tmain.build_parser(), argv)
     assert args.transformer_dropout == 0.3
     splits, num_tasks, code = predict.load_splits(args)
-    fresh = init_weights(build_gnn_transformer(args, num_tasks, code=code),
+    fresh = init_weights(build_gnn_transformer(args, num_tasks, data=code),
                          torch.Generator().manual_seed(0))
     trained = torch.load(res["saved"], weights_only=True)
     still = [n for n, p in fresh.named_parameters()

@@ -1060,3 +1060,138 @@ def test_k9_k10_refuse_other_shapes_and_carry_gradients(cuda):
                      5).sum().backward()
     assert attention_smalls_bwd.launches == before + 1
     assert torch.isfinite(qkv.grad).all() and qkv.grad.abs().sum() > 0
+
+
+# ---- K6: the strided sum with precomputed edge embeddings (NCI1) ----------
+
+
+def _k6_case(G, d, with_w, cuda, seed=0):
+    """K6's arguments on a strided batch of G - 1 synthetic TU graphs and
+    one padding slot (stride 48, 160 edge slots), random x, emb and w."""
+    from graphtrans_tpu_torch.data.synthetic import make_tu_dataset
+
+    graphs = [dict(g, _id=i) for i, g in enumerate(
+        make_tu_dataset(num_graphs=G - 1, seed=seed))]
+    b = collate(graphs, G, G * 48, 16384, num_tasks=2, y_dtype="int32",
+                node_stride=48, dense_edge_cap=160).to(cuda)
+    gen = torch.Generator().manual_seed(G + d)
+    x = torch.randn(G, 48, d, generator=gen).to(cuda)
+    x = x.masked_fill(~b.node_mask.reshape(G, 48, 1), 0.0)
+    emb = torch.randn(G, 160, d, generator=gen).to(cuda)
+    w = torch.randn(G, 160, generator=gen).to(cuda) if with_w else None
+    return (x, b.edge_src_dense, b.edge_dst_dense, b.edge_mask_dense, emb, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,d", [(128, 128), (37, 128), (37, 200)])
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("with_w", [False, True])
+def test_dense_agg_kernels_match_plain(cuda, G, d, relu, with_w):
+    """K6 and K6-bwd against the plain version and its autograd, at G 128
+    and at a G that is not a multiple of 16, one channel slice and two."""
+    from graphtrans_tpu_torch.ops.kernels import (dense_agg, dense_agg_bwd,
+                                                  dense_agg_bwd_plain,
+                                                  dense_agg_plain)
+
+    args = _k6_case(G, d, with_w, cuda)
+    f0, b0 = dense_agg.launches, dense_agg_bwd.launches
+    got = dense_agg(*args, relu=relu)
+    gout = torch.randn(got.shape, generator=torch.Generator().manual_seed(
+        9)).to(cuda)
+    grads = dense_agg_bwd(*args, gout, relu=relu)
+    torch.cuda.synchronize()
+    assert (dense_agg.launches, dense_agg_bwd.launches) == (f0 + 1, b0 + 1)
+    assert (got - dense_agg_plain(*args, relu=relu)).abs().max().item() \
+        <= K1_TOL
+    want = dense_agg_bwd_plain(*args, gout, relu=relu)
+    for name, g, w in zip(("dx", "demb", "dw"), grads, want):
+        assert (g is None) == (w is None), name
+        if g is not None:
+            err = (g - w).abs().max().item()
+            assert err <= GRAD_TOL * max(1.0, w.abs().max().item()), name
+    assert not grads[1][~args[3]].any()          # masked slots: demb 0
+
+
+@pytest.mark.cuda
+def test_dense_agg_autograd_and_refusals(cuda):
+    """The CUDA wrapper is an autograd Function whose backward is K6-bwd,
+    and it raises on what the kernel does not take."""
+    from graphtrans_tpu_torch.ops.kernels import (dense_agg, dense_agg_bwd,
+                                                  dense_agg_plain)
+
+    x, src, dst, emask, emb, w = _k6_case(37, 128, True, cuda)
+    leaves = [t.clone().requires_grad_() for t in (x, emb, w)]
+    b0 = dense_agg_bwd.launches
+    dense_agg(leaves[0], src, dst, emask, leaves[1], leaves[2]).square() \
+        .sum().backward()
+    assert dense_agg_bwd.launches == b0 + 1
+    plain = [t.clone().requires_grad_() for t in (x, emb, w)]
+    dense_agg_plain(plain[0], src, dst, emask, plain[1], plain[2]).square() \
+        .sum().backward()
+    for a, b in zip(leaves, plain):
+        assert (a.grad - b.grad).abs().max().item() <= GRAD_TOL * max(
+            1.0, b.grad.abs().max().item())
+    with pytest.raises(ValueError, match="expected"):
+        dense_agg(x, src.long(), dst, emask, emb)
+    with pytest.raises(ValueError, match="contiguous"):
+        dense_agg(x.transpose(0, 1).contiguous().transpose(0, 1), src, dst,
+                  emask, emb)
+    with pytest.raises(ValueError, match="shared memory"):
+        dense_agg(torch.zeros(2, 240, 128, device=cuda),
+                  torch.zeros(2, 8, dtype=torch.int32, device=cuda),
+                  torch.zeros(2, 8, dtype=torch.int32, device=cuda),
+                  torch.zeros(2, 8, dtype=torch.bool, device=cuda),
+                  torch.zeros(2, 8, 128, device=cuda))
+
+
+@pytest.mark.cuda
+def test_nci1_step_through_kernels_matches_plain(cuda):
+    """The NCI1 GraphTrans at the yml's widths (GCN 5 x 128 on the strided
+    layout, JK=last, 3 encoder layers of 128, dropout 0.1/0.1): eval logits
+    and one train step through K6/K6-bwd and K2/K2-bwd against the plain
+    route with the same dropout draws."""
+    from graphtrans_tpu_torch.data.synthetic import make_tu_dataset
+    from graphtrans_tpu_torch.models.gnn_transformer import GNNTransformer
+    from graphtrans_tpu_torch.nn.dropout import Generators
+    from graphtrans_tpu_torch.nn.encoders import (LinearNodeEncoder,
+                                                  ZeroEdgeEncoder)
+    from graphtrans_tpu_torch.nn.init import init_weights
+    from graphtrans_tpu_torch.ops import kernels
+    from graphtrans_tpu_torch.train.losses import classification_loss
+
+    graphs = [dict(g, _id=i) for i, g in enumerate(
+        make_tu_dataset(num_graphs=40, seed=4))]
+    b = collate(graphs, 41, 41 * 48, 8192, num_tasks=2, y_dtype="int32",
+                node_stride=48, dense_edge_cap=160, seq_pack_w=128).to(cuda)
+    model = GNNTransformer(
+        2, 5, 128, False, 128, 4, 256, 3, True, gnn_dropout=0.1,
+        transformer_dropout=0.1, device=cuda, gnn_type="gcn",
+        node_encoder=LinearNodeEncoder(16, 128, device=cuda), gnn_JK="last",
+        edge_encoder=lambda: ZeroEdgeEncoder(128))
+    init_weights(model, torch.Generator().manual_seed(0)).eval()
+    kernels.reset_launches()
+    with torch.inference_mode():
+        got = model(b)[b.graph_mask]
+        assert (kernels.dense_agg.launches,
+                kernels.attention_seg.launches) == (5, 3)
+        want = set_kernels(model, False)(b)[b.graph_mask]
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= LOGITS_TOL
+    model.train()
+    result = []
+    for on in (True, False):
+        set_kernels(model, on)
+        model.zero_grad(set_to_none=True)
+        kernels.reset_launches()
+        loss = classification_loss(model(b, Generators.seeded(5, cuda)), b)
+        loss.backward()
+        if on:
+            assert (kernels.dense_agg_bwd.launches,
+                    kernels.attention_seg_bwd.launches) == (5, 3)
+        result.append((loss.item(), {n: p.grad.clone()
+                                     for n, p in model.named_parameters()}))
+    (lk, gk), (lp, gp) = result
+    assert abs(lk - lp) <= LOGITS_TOL
+    for name in gk:
+        err = (gk[name] - gp[name]).abs().max().item()
+        assert err <= GRAD_TOL * max(1.0, gp[name].abs().max().item()), name

@@ -375,5 +375,5 @@ def test_later_slices_raise():
     args = predict.parse_with_config(predict.build_parser(), [
         "--configs", str(CODE2_CONFIG), "--d_model", "64"])
     with pytest.raises(ValueError, match="gnn_emb_dim"):
-        build_model(args, 10, code=argparse.Namespace(
+        build_model(args, 10, data=argparse.Namespace(
             num_nodetypes=TYPES, num_nodeattributes=ATTRS, max_seq_len=SEQ))
