@@ -102,7 +102,24 @@ Phases, each printing one line (any failure raises and exits non-zero):
      through ``python -m graphtrans_tpu_torch.main`` (launches, losses,
      moved parameters) and holds one NCI1 step through the kernels against
      the plain route; (c) times and profiles the forward and the train step
-     of the 4096-graph batch, and times the step at the yml's batch.
+     of the 4096-graph batch, and times the step at the yml's batch;
+ 13. code2 GCN through the block plans (K8) and K12: (a) holds K8
+     (blocked_gather_message_scatter), K8-demb and K8-dx against their
+     plain versions and autograd at the code2 snapshot's train batch of 16
+     and the 512-graph batch, both collated with plans at
+     chunk_capacity(edge cap, node cap), and K12 (segment_sum_mxu, a
+     standalone op: its one call, counted) at [196608, 128], and times
+     them beside bound, plain version and yardstick (K7 and K7-bwd at the
+     same batch; index_add_ for K12); (b) serves the code2 valid and test
+     splits through ``predict.predict_split`` with the model of
+     ``predict.build_model`` under ``set_block_spmm(model, "on")`` (no
+     batch overflows its plans; 5 K8 and no K7 launches a batch), holds
+     the logits of all three splits against the plain versions and the K7
+     route, checks the two emb copies bitwise equal on every real slot,
+     and takes one train step of ``main.build_run``'s model (5 K8, 5
+     K8-demb, 5 K8-dx) against the plain versions and the K7 route; (c)
+     times and profiles the 512-graph forward and train step on the
+     blocked route, with peak memory, beside the K7 route.
 Then the script's wall seconds, a {"kernels": [...]} line, the nvidia-smi
 line, and the contract line
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without
@@ -162,6 +179,9 @@ K7_TOL = 1e-5      # times max(1, max |reference|)
 GCN_LAYERS_PER_FORWARD = 5
 # NCI1 (phase 12): the throughput batch; K6 forward against its plain version
 NCI1_BENCH, K6_TOL = 4096, 1e-5
+# phase 13: K8's forward and K12 against their plain versions, times
+# max(1, max |reference|)
+K8_TOL = 1e-5
 # kernel-name fragments -> the layer that launches them (phase 5)
 LAYERS = (
     ("attention_smalls_fwd", "K9 attention_smalls"),   # before its Keep
@@ -177,6 +197,10 @@ LAYERS = (
     ("flash_hil_dq", "K3-bwd flash_hil_seg_bwd"),
     ("flash_hil_dkv", "K3-bwd flash_hil_seg_bwd"),
     ("spmm_bwd", "K7-bwd spmm_bwd"),
+    ("block_walk<false", "K8 blocked_gather_message_scatter"),
+    ("block_walk<true", "K8-dx blocked_gather_message_scatter_dx"),
+    ("block_demb", "K8-demb blocked_gather_message_scatter_demb"),
+    ("segment_sum_kernel", "K12 segment_sum_mxu"),
     ("radixsort", "sort (index backward, K7-bwd's src order)"),
     ("flash_hil_fwd", "K3 flash_hil_seg"),
     ("flash_attention_fwd", "K5 flash_attention"),
@@ -756,15 +780,17 @@ def _train_args(extra=()):
 
 
 def _trainer(args, num_tasks: int, device, kernels_on: bool = True,
-             data=None):
+             data=None, bsp: str = "off"):
     """The entry point's model (weights from --seed) and train step with
     the dataset's loss (``data``: what ``predict.load_splits`` returns for
-    code2 or a TU dataset, which sizes the model's encoders)."""
+    code2 or a TU dataset, which sizes the model's encoders); ``bsp``, the
+    model's ``set_block_spmm`` mode."""
     from graphtrans_tpu_torch import main as train_main
+    from graphtrans_tpu_torch.ops.block_plan import set_block_spmm
     from graphtrans_tpu_torch.ops.kernels import set_kernels
 
     model, _, step = train_main.build_run(args, num_tasks, device, 1, data)
-    return set_kernels(model, kernels_on), step
+    return set_block_spmm(set_kernels(model, kernels_on), bsp), step
 
 
 def phase6_train(device, tmp: str):
@@ -3241,6 +3267,488 @@ def phase12_cost(device, bench, smi: str):
     torch.cuda.empty_cache()
 
 
+# ---- phase 13: code2 GCN through the block plans (K8), and K12 -------------
+
+
+def _bsp_layout(layout: dict) -> dict:
+    """A code2 serving layout with K8's block plans at chunk_capacity of
+    its caps."""
+    from graphtrans_tpu_torch.ops.block_plan import chunk_capacity
+
+    return dict(layout, bsp_chunks_cap=chunk_capacity(layout["edge_cap"],
+                                                      layout["node_cap"]))
+
+
+def _perms(batch):
+    """Each plan's slot -> edge map (-1 on pad slots), rebuilt on the host
+    (collate keeps the plans without it)."""
+    from graphtrans_tpu_torch.ops.block_plan import build_block_plan
+
+    C = batch.bsp_fwd["blk_out"].shape[0]
+    return [torch.from_numpy(build_block_plan(
+        batch.edge_src, batch.edge_dst, batch.edge_mask,
+        batch.num_node_slots, C, major)["perm"]) for major in ("dst", "src")]
+
+
+def k8_inputs(batch, d: int, gen: torch.Generator, device):
+    """K8's arguments as a GCN layer gets them: random node rows (zero on
+    padding rows), one random embedding row per edge laid out in each
+    plan's chunk order (as the edge encoder makes both copies; pad slots
+    0), and the GCN norm per slot (``bsp_slot_weight``)."""
+    from graphtrans_tpu_torch.nn.conv import bsp_slot_weight
+    from graphtrans_tpu_torch.ops.segment import out_degree
+
+    tb = batch.to(device)
+    x = torch.randn(batch.num_node_slots, d, generator=gen).to(device)
+    x = x.masked_fill(~tb.node_mask[:, None], 0.0)
+    per_edge = torch.randn(tb.edge_src.shape[0], d, generator=gen).to(device)
+    embs = []
+    for perm in _perms(batch):
+        perm = perm.to(device)
+        real = perm >= 0
+        emb = torch.zeros(perm.shape[0], d, device=device)
+        emb[real] = per_edge[perm[real]]
+        embs.append(emb)
+    dis = (out_degree(tb.edge_src, x.shape[0], tb.edge_mask) + 1.0) ** -0.5
+    return dict(x=x, ef=embs[0], eb=embs[1], pf=tb.bsp_fwd, pb=tb.bsp_bwd,
+                wf=bsp_slot_weight(tb.bsp_fwd, dis, False).contiguous(),
+                wb=bsp_slot_weight(tb.bsp_bwd, dis, True).contiguous())
+
+
+def check_k8(a, message: str, with_w: bool, gen):
+    """K8 against its plain version (1e-5 of max(1, max|ref|)), its d_emb
+    and dx kernels against autograd through the plain version (5e-4 of
+    max(1, max|ref|)); slots that are not real get exact-zero d_emb rows.
+    The plain versions sum with index_add_ under deterministic
+    algorithms."""
+    from graphtrans_tpu_torch.ops.kernels import (
+        blocked_gather_message_scatter,
+        blocked_gather_message_scatter_bwd_plain,
+        blocked_gather_message_scatter_demb,
+        blocked_gather_message_scatter_dx,
+        blocked_gather_message_scatter_plain)
+
+    x, ef, eb, pf, pb = (a[k] for k in ("x", "ef", "eb", "pf", "pb"))
+    wf, wb = (a["wf"], a["wb"]) if with_w else (None, None)
+    g = torch.randn(x.shape, generator=gen).to(x.device)
+    out = blocked_gather_message_scatter(x, ef, eb, pf, pb, wf, wb, message)
+    demb = blocked_gather_message_scatter_demb(x, g, ef, pf, wf, message)
+    dx = blocked_gather_message_scatter_dx(x, g, eb, pb, wb, message)
+    torch.cuda.synchronize()
+    with deterministic():
+        want = blocked_gather_message_scatter_plain(x, ef, eb, pf, pb, wf,
+                                                    wb, message)
+        ref_dx, ref_demb = blocked_gather_message_scatter_bwd_plain(
+            x, ef, eb, pf, pb, g, wf, wb, message)
+    f_err = _rel_err(out, want)
+    errs = {"demb": _rel_err(demb, ref_demb), "dx": _rel_err(dx, ref_dx)}
+    if (f_err > K8_TOL or max(errs.values()) > GRAD_TOL
+            or not all(torch.isfinite(t).all() for t in (out, demb, dx))):
+        raise AssertionError(f"K8 ({message}, w {with_w}) disagrees with its "
+                             f"plain version: forward {f_err} (<= {K8_TOL}), "
+                             f"{errs} (<= {GRAD_TOL}) of max(1, max|ref|)")
+    if demb[~(pf["mask"].reshape(-1) > 0)].any():
+        raise AssertionError("K8-demb: slots that are not real are not 0")
+    return f_err, errs
+
+
+def _slots_moved(a):
+    """(real slots, all slots) of the dst-major plan."""
+    mask = a["pf"]["mask"]
+    return int((mask > 0).sum().item()), mask.numel()
+
+
+def k8_bound(a, part: str = "fwd"):
+    """K8's (``part``: its d_emb's or dx's) bound: x (and g) read and the
+    output written once; per real slot its emb row, its two rows-in-block
+    and its weight; the mask of every slot (what tells a pad slot) and the
+    chunks' block ids. d_emb writes all C*EB rows (zero on pad slots). Per
+    real slot and channel the forward's add, relu, weight product and sum,
+    d_emb's product, add and compare, dx's product, add, compare and sum,
+    as k7_bound counts them."""
+    x = a["x"]
+    N, d = x.shape
+    real, slots = _slots_moved(a)
+    C = a["pf"]["blk_out"].numel()
+    nbytes = (2 * N * d * 4 + real * (d * 4 + 3 * 4) + slots * 4 + 2 * C * 4)
+    if part == "demb":
+        nbytes += N * d * 4 + (slots - real) * d * 4   # g; the zero rows
+        return _bound(nbytes, 3 * real * d)
+    if part == "dx":
+        nbytes += N * d * 4                              # g
+    return _bound(nbytes, 4 * real * d)
+
+
+def k12_bound(msg, dst, N: int):
+    """msg and dst read once, the output written once; one add per edge
+    and channel."""
+    E, d = msg.shape
+    return _bound(E * d * 4 + E * 4 + N * d * 4, E * d)
+
+
+def phase13_kernels(device, d_gnn: int, bench):
+    """(a) K8, K8-demb and K8-dx against their plain versions at the code2
+    snapshot's train batch of 16 and the 512-graph bench batch, both with
+    block plans at chunk_capacity(edge cap, node cap) (relu_add with the
+    GCN norm, add without), and K12 at [E, 128] over the bench batch's
+    dst-sorted edges; times beside bound, plain version and yardstick (K7
+    and K7-bwd at the same batch; index_add_ for K12)."""
+    from graphtrans_tpu_torch import predict
+    from graphtrans_tpu_torch.data.loader import iterate_batches
+    from graphtrans_tpu_torch.ops import kernels
+    from graphtrans_tpu_torch.ops.kernels import (
+        SrcOrder, blocked_gather_message_scatter,
+        blocked_gather_message_scatter_bwd_plain,
+        blocked_gather_message_scatter_demb,
+        blocked_gather_message_scatter_demb_plain,
+        blocked_gather_message_scatter_dx,
+        blocked_gather_message_scatter_dx_plain,
+        blocked_gather_message_scatter_plain, segment_sum_mxu,
+        segment_sum_mxu_plain, spmm, spmm_bwd)
+
+    gen = torch.Generator().manual_seed(SEED + 13)
+    args = _code2_args()
+    splits, num_tasks, _ = predict.load_splits(args)
+    layout = _bsp_layout(predict.serving_layout(
+        splits, args, num_tasks, CODE2_BATCH, split="train", seed=SEED))
+    t0 = time.perf_counter()
+    train16 = next(iterate_batches(splits["train"], **layout))
+    coll = (time.perf_counter() - t0) * 1e3
+    if train16.bsp_fwd is None or bench.bsp_fwd is None:
+        raise AssertionError("a phase 13 batch overflowed its block plans")
+    f_err, b_err = 0.0, {"demb": 0.0, "dx": 0.0}
+    for b in (train16, bench):
+        a = k8_inputs(b, d_gnn, gen, device)
+        for message, with_w in (("relu_add", True), ("add", False)):
+            f, e = check_k8(a, message, with_w, gen)
+            f_err = max(f_err, f)
+            b_err = {k: max(b_err[k], e[k]) for k in b_err}
+    print(f"[13a] K8, K8-demb and K8-dx agree with their plain versions at "
+          f"the code2 train batch of {CODE2_BATCH} (collated with plans in "
+          f"{coll:.1f} ms) and the {CODE2_BENCH}-graph batch (relu_add with "
+          f"the GCN norm, add without): forward {f_err:.3g} (<= {K8_TOL}), "
+          f"d_emb {b_err['demb']:.3g}, dx {b_err['dx']:.3g} (<= {GRAD_TOL}) "
+          f"of max(1, max|ref|); pad slots' d_emb exactly 0")
+
+    rows = {}
+    for name, b in (("train16", train16), (f"bench{CODE2_BENCH}", bench)):
+        a = k8_inputs(b, d_gnn, gen, device)
+        x, ef, eb, pf, pb, wf, wb = (a[k] for k in ("x", "ef", "eb", "pf",
+                                                     "pb", "wf", "wb"))
+        g = torch.randn(x.shape, generator=gen).to(device)
+        fwd = dict(ms=time_ms(lambda: blocked_gather_message_scatter(
+                       x, ef, eb, pf, pb, wf, wb), iters=20),
+                   plain_ms=time_ms(
+                       lambda: blocked_gather_message_scatter_plain(
+                           x, ef, eb, pf, pb, wf, wb), iters=5),
+                   library_ms=None)
+        demb = dict(ms=time_ms(lambda: blocked_gather_message_scatter_demb(
+                        x, g, ef, pf, wf), iters=20),
+                    plain_ms=time_ms(
+                        lambda: blocked_gather_message_scatter_demb_plain(
+                            x, g, ef, pf, wf), iters=5),
+                    library_ms=None)
+        dx = dict(ms=time_ms(lambda: blocked_gather_message_scatter_dx(
+                      x, g, eb, pb, wb), iters=20),
+                  plain_ms=time_ms(
+                      lambda: blocked_gather_message_scatter_dx_plain(
+                          x, g, eb, pb, wb), iters=5),
+                  library_ms=None)
+        autograd_ms = time_ms(
+            lambda: blocked_gather_message_scatter_bwd_plain(
+                x, ef, eb, pf, pb, g, wf, wb), iters=5)
+        fwd["bound_ms"], fwd["bound_by"] = k8_bound(a)
+        demb["bound_ms"], demb["bound_by"] = k8_bound(a, "demb")
+        dx["bound_ms"], dx["bound_by"] = k8_bound(a, "dx")
+        k7a = k7_inputs(b, d_gnn, gen, device)
+        order = SrcOrder(k7a[2], k7a[4], k7a[0].shape[0])
+        order.get()
+        k7_ms = time_ms(lambda: spmm(*k7a), iters=20)
+        k7b_ms = time_ms(lambda: spmm_bwd(*k7a[:5], g, order, k7a[5]),
+                         iters=20)
+        real, slots = _slots_moved(a)
+        shape = (f"N={x.shape[0]} C={pf['blk_out'].numel()} slots={slots} "
+                 f"real={real} d={d_gnn}")
+        for kname, t, plain in (("K8 fwd", fwd, "plain"),
+                                ("K8-demb", demb, "plain"),
+                                ("K8-dx", dx, "plain")):
+            t["shape"] = shape
+            print(f"[13a] {name} {kname} [{shape}]: kernel {t['ms']:.4f} ms, "
+                  f"{plain} {t['plain_ms']:.4f} ms, bound "
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library none "
+                  f"(no single PyTorch call)")
+        print(f"[13a] {name} yardsticks at the same batch: K7 {k7_ms:.4f} ms "
+              f"against K8 {fwd['ms']:.4f}; K7-bwd {k7b_ms:.4f} ms against "
+              f"K8-demb + K8-dx {demb['ms'] + dx['ms']:.4f}; autograd through "
+              f"K8's plain version {autograd_ms:.4f} ms")
+        rows = dict(fwd=fwd, demb=demb, dx=dx)
+
+    # K12: the standalone op as its user calls it, once, counted from 0
+    tb = bench.to(device)
+    N = tb.num_node_slots
+    msg = torch.randn(tb.edge_dst.shape[0], 128, generator=gen).to(device)
+    dst = tb.edge_dst
+    kernels.reset_launches()
+    got = segment_sum_mxu(msg, dst, N)
+    torch.cuda.synchronize()
+    k12_launches = kernels.launch_counts()["segment_sum_mxu"]
+    with deterministic():
+        want = segment_sum_mxu_plain(msg, dst, N)
+    k12_err = _rel_err(got, want)
+    out = torch.zeros(N, 128, device=device)
+    k12 = dict(ms=time_ms(lambda: segment_sum_mxu(msg, dst, N), iters=20),
+               plain_ms=time_ms(lambda: segment_sum_mxu_plain(msg, dst, N),
+                                iters=5),
+               library_ms=time_ms(
+                   lambda: out.zero_().index_add_(0, dst.long(), msg),
+                   iters=20))
+    if k12_err > K8_TOL or k12_launches != 1 or not torch.isfinite(got).all():
+        raise AssertionError(f"K12 disagrees with its plain version: "
+                             f"{k12_err} (<= {K8_TOL}), {k12_launches} "
+                             f"launches")
+    if segment_sum_mxu(msg[:, :100].contiguous(), dst, N) is not None:
+        raise AssertionError("K12 took a shape the JAX function refuses")
+    k12["bound_ms"], k12["bound_by"] = k12_bound(msg, dst, N)
+    k12["shape"] = f"E={msg.shape[0]} d=128 N={N}"
+    print(f"[13a] K12 segment_sum_mxu [{k12['shape']}]: {k12_err:.3g} of "
+          f"max(1, max|ref|) from its plain version (<= {K8_TOL}), None at "
+          f"d=100; kernel {k12['ms']:.4f} ms, plain {k12['plain_ms']:.4f} "
+          f"ms, bound {k12['bound_ms']:.4f} ms ({k12['bound_by']}), library "
+          f"{k12['library_ms']:.4f} ms (index_add_ into zeros); "
+          f"{k12_launches} launch in its standalone call (no model path "
+          f"calls it)")
+    return dict(f_err=f_err, b_err=b_err, k12_err=k12_err,
+                k12_launches=k12_launches, timed=(rows["fwd"], rows["demb"],
+                                                  rows["dx"], k12))
+
+
+def phase13_serve(device, tmp: str):
+    """(b) The code2 flagship built by ``predict.build_model`` with
+    ``set_block_spmm(model, "on")`` serves the snapshot's valid and test
+    splits through ``predict.predict_split`` in batches of 16 with block
+    plans (none overflows): 5 K8 and no K7 launch a batch; logits against
+    the plain versions and the K7 route; the two emb copies equal on every
+    real slot; then one train step of ``main.build_run``'s model and step
+    (5 K8, 5 K8-demb, 5 K8-dx) against the plain versions and the K7
+    route."""
+    from graphtrans_tpu_torch import predict
+    from graphtrans_tpu_torch.data.loader import iterate_batches, shuffled_order
+    from graphtrans_tpu_torch.ops import kernels
+    from graphtrans_tpu_torch.ops.kernels.attention_packed import W_MAX
+    from graphtrans_tpu_torch.ops.block_plan import set_block_spmm
+
+    args = _code2_args()
+    splits, num_tasks, code = predict.load_splits(args)
+    layouts = {s: _bsp_layout(predict.serving_layout(splits, args, num_tasks,
+                                                     split=s))
+               for s in ("train", "valid", "test")}
+    overflow = sum(b.bsp_fwd is None for s in layouts
+                   for b in iterate_batches(splits[s], **layouts[s]))
+    if overflow:
+        raise AssertionError(f"{overflow} code2 batches overflowed their "
+                             f"block plans")
+    model = set_block_spmm(predict.build_model(args, num_tasks, device, code),
+                           "on")
+    kernels.reset_launches()                 # the blocked serving path
+    want = collections.Counter()
+    results = {}
+    for split in ("valid", "test"):
+        out = os.path.join(tmp, f"code2_bsp_{split}.jsonl")
+        res = predict.predict_split(model, splits[split], layouts[split], out,
+                                    device, code)
+        recs = [json.loads(line) for line in open(out)]
+        if (len(recs) != len(splits[split]) or not 0.0 <= res["F1"] <= 1.0
+                or not all(len(r["tokens"]) == code.max_seq_len
+                           for r in recs)):
+            raise AssertionError(f"code2 {split} on the blocked route: "
+                                 f"{len(recs)} records, {res}")
+        widths = [layouts[split][k] for k in ("seq_pack_w", "seq_pack_w2",
+                                              "seq_pack_w3")
+                  if layouts[split].get(k)]
+        wide = sum(w > W_MAX for w in widths)
+        n = res["batches"]
+        want.update(blocked_gather_message_scatter=GCN_LAYERS_PER_FORWARD * n,
+                    flash_hil_seg=ENCODER_LAYERS_PER_FORWARD * wide * n,
+                    attention_seg=ENCODER_LAYERS_PER_FORWARD
+                    * (len(widths) - wide) * n)
+        results[split] = res
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    if launches != dict(want):
+        raise AssertionError(f"code2 blocked serving launches {launches}, "
+                             f"expected {dict(want)} (K7 none)")
+    batches = sum(r["batches"] for r in results.values())
+    print(f"[13b] served the code2 valid and test splits on the blocked route "
+          f"({sum(r['records'] for r in results.values())} graphs, {batches} "
+          f"batches of <= {CODE2_BATCH}, no plan overflow in any split): F1 "
+          f"{ {s: round(r['F1'], 6) for s, r in results.items()} }; launches "
+          f"{launches}: K8 {launches['blocked_gather_message_scatter'] / batches:g}"
+          f" a batch, K7 0")
+
+    err_plain = err_k7 = 0.0
+    emb_same = True
+    enc = model.gnn_node.convs[0].edge_encoder
+    with torch.inference_mode():
+        for split in ("train", "valid", "test"):
+            for b in iterate_batches(splits[split], **layouts[split]):
+                tb = b.to(device)
+                gm = tb.graph_mask
+                got = model(tb)[gm]
+                plain = kernels.set_kernels(model, False)(tb)[gm]
+                k7 = set_block_spmm(kernels.set_kernels(model, True),
+                                    "off")(tb)[gm]
+                set_block_spmm(model, "on")
+                if not torch.isfinite(got).all():
+                    raise AssertionError("code2 blocked logits not finite")
+                err_plain = max(err_plain, (got - plain).abs().max().item())
+                err_k7 = max(err_k7, (got - k7).abs().max().item())
+                ef = enc(tb.edge_attr_bsp_fwd)
+                eb = enc(tb.edge_attr_bsp_bwd)
+                pf, pb = (p.to(device) for p in _perms(b))
+                by_edge = torch.full((b.edge_src.shape[0],), -1,
+                                     dtype=torch.long, device=device)
+                by_edge[pb[pb >= 0]] = torch.nonzero(pb >= 0)[:, 0]
+                real = pf >= 0
+                emb_same &= torch.equal(ef[real], eb[by_edge[pf[real]]])
+    if err_plain > LOGITS_TOL or err_k7 > LOGITS_TOL:
+        raise AssertionError(f"code2 blocked logits: {err_plain} from the "
+                             f"plain versions, {err_k7} from the K7 route "
+                             f"(<= {LOGITS_TOL})")
+    print(f"[13b] code2 logits on the blocked route over all three splits: "
+          f"max |diff| {err_plain:.3g} from the plain versions and "
+          f"{err_k7:.3g} from the K7 route (<= {LOGITS_TOL}); the dst- and "
+          f"src-major emb copies bitwise equal on every real slot: "
+          f"{emb_same}")
+    if not emb_same:
+        raise AssertionError("the two emb copies differ on a real slot: "
+                             "d_emb's and dx's relu decisions may disagree")
+
+    targs = _code2_train_args()
+    tlayout = _bsp_layout(predict.serving_layout(
+        splits, targs, num_tasks, CODE2_BATCH, split="train", seed=SEED))
+    batch = next(iterate_batches(
+        splits["train"], order=shuffled_order(len(splits["train"]), SEED, 0),
+        **tlayout)).to(device)
+    if batch.bsp_fwd is None:
+        raise AssertionError("the code2 train batch overflowed its plans")
+    got = {}
+    step_launches = None
+    with deterministic():
+        for tag, on, bsp in (("kernels", True, "on"), ("plain", False, "on"),
+                             ("k7", True, "off")):
+            model, step = _trainer(targs, num_tasks, device, kernels_on=on,
+                                   data=code, bsp=bsp)
+            kernels.reset_launches()         # the blocked training path
+            loss = step(batch).item()
+            if tag == "kernels":
+                step_launches = {k: v for k, v in
+                                 kernels.launch_counts().items() if v}
+            got[tag] = (loss, {n: p.grad for n, p in
+                               model.named_parameters()})
+    want = {"blocked_gather_message_scatter": 5,
+            "blocked_gather_message_scatter_demb": 5,
+            "blocked_gather_message_scatter_dx": 5}
+    if {k: step_launches.get(k, 0) for k in (*want, "spmm", "spmm_bwd")} != {
+            **want, "spmm": 0, "spmm_bwd": 0}:
+        raise AssertionError(f"code2 blocked step launches {step_launches}")
+    lk, gk = got["kernels"]
+    errs = {}
+    for tag in ("plain", "k7"):
+        lr, gr = got[tag]
+        errs[tag] = (abs(lk - lr), max(_rel_err(gk[n], gr[n]) for n in gk))
+        if errs[tag][0] > LOGITS_TOL or errs[tag][1] > GRAD_TOL:
+            raise AssertionError(f"code2 blocked step against {tag}: loss "
+                                 f"|diff| {errs[tag][0]}, gradients "
+                                 f"{errs[tag][1]}")
+    print(f"[13b] one code2 train step on the blocked route (main.build_run, "
+          f"set_block_spmm on, deterministic algorithms): launches "
+          f"{step_launches}; loss {lk:.6f}; against the plain versions loss "
+          f"|diff| {errs['plain'][0]:.3g}, gradients {errs['plain'][1]:.3g}; "
+          f"against the K7 route {errs['k7'][0]:.3g}, {errs['k7'][1]:.3g} "
+          f"of max(1, max|ref|) (<= {LOGITS_TOL}, {GRAD_TOL})")
+    return launches, step_launches
+
+
+def phase13_cost(device, bench, num_tasks: int, smi: str):
+    """(c) The code2 forward and train step on the 512-graph batch with
+    block plans, on the blocked route and on the K7 route in the same call
+    (median of 10 after 3 warm-ups, peak memory), and a torch.profiler
+    split of the blocked forward and step."""
+    import types
+
+    from graphtrans_tpu_torch.models.gnn_transformer import (
+        build_gnn_transformer)
+    from graphtrans_tpu_torch.nn.init import init_weights
+    from graphtrans_tpu_torch.ops.block_plan import set_block_spmm
+
+    args = _code2_args()
+    sizes = types.SimpleNamespace(num_nodetypes=20, num_nodeattributes=100,
+                                  max_seq_len=5)       # make_code_dataset's
+    model = build_gnn_transformer(args, num_tasks, device, data=sizes)
+    init_weights(model, torch.Generator().manual_seed(SEED)).eval()
+    t0 = time.perf_counter()
+    tb = bench.to(device)
+    torch.cuda.synchronize()
+    copy_ms = (time.perf_counter() - t0) * 1e3
+    n = int(bench.graph_mask.sum())
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for mode in ("on", "off"):
+        set_block_spmm(model, mode)
+        with torch.inference_mode():
+            _median_ms(lambda: model(tb), 3)                # warm-up
+            torch.cuda.reset_peak_memory_stats(device)
+            ms, lo, hi, out = _median_ms(lambda: model(tb), 10)
+            peak = torch.cuda.max_memory_allocated(device) / 2**30
+            if not torch.isfinite(out[tb.graph_mask]).all():
+                raise AssertionError("code2 bench forward: not finite")
+        route = "blocked (K8)" if mode == "on" else "K7"
+        print(f"[13c] code2 forward of {n} graphs, {route} route: median "
+              f"{ms:.3f} ms over 10 (min {lo:.3f}, max {hi:.3f}), "
+              f"{n / ms * 1e3:.0f} graphs/s, peak memory {peak:.2f} GiB on "
+              f"{smi}")
+        if mode == "on":
+            with torch.inference_mode():
+                with torch.profiler.profile(activities=acts) as prof:
+                    t0 = time.perf_counter()
+                    for _ in range(PROFILED_FORWARDS):
+                        model(tb)
+                    torch.cuda.synchronize()
+                    wall = ((time.perf_counter() - t0) * 1e3
+                            / PROFILED_FORWARDS)
+            _print_split("[13c]", "code2 blocked forward", prof,
+                         PROFILED_FORWARDS, wall, smi, graphs=n)
+    del model
+    targs = _code2_train_args()
+    for bsp in ("on", "off"):
+        model, step = _trainer(targs, num_tasks, device, data=sizes, bsp=bsp)
+        _median_ms(lambda: step(tb), 3)                     # warm-up
+        torch.cuda.reset_peak_memory_stats(device)
+        ms, lo, hi, loss = _median_ms(lambda: step(tb), TIMED_STEPS)
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        if not torch.isfinite(loss):
+            raise AssertionError("code2 bench train step: loss not finite")
+        route = "blocked (K8)" if bsp == "on" else "K7"
+        print(f"[13c] code2 train step of {n} graphs, {route} route: median "
+              f"{ms:.3f} ms over {TIMED_STEPS} (min {lo:.3f}, max {hi:.3f}), "
+              f"{n / ms * 1e3:.0f} graphs/s, peak memory {peak:.2f} GiB on "
+              f"{smi}")
+        if bsp == "on":
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                for _ in range(PROFILED_STEPS):
+                    step(tb)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+            _print_split("[13c]", "code2 blocked train step", prof,
+                         PROFILED_STEPS, wall, smi, graphs=n)
+        del model, step
+    print(f"[13c] the bench batch with plans copied to the card in "
+          f"{copy_ms:.1f} ms (host clock; plans, two chunk-ordered attribute "
+          f"copies and the flat fields)")
+    del tb
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--trace", default=None,
@@ -3333,6 +3841,15 @@ def main(argv=None) -> int:
         nci1_train_launches = phase12_train(device, tmp)
     phase12_cost(device, nci1_bench, smi)
 
+    t0 = time.perf_counter()
+    bench_bsp, bsp_tasks = code2_bench_batch(CODE2_BENCH, SEED, bsp=True)
+    print(f"[13] collated the {CODE2_BENCH}-graph code2 batch with both "
+          f"block plans in {time.perf_counter() - t0:.1f} s")
+    bsp = phase13_kernels(device, args.gnn_emb_dim, bench_bsp)
+    with tempfile.TemporaryDirectory() as tmp:
+        bsp_launches, bsp_step_launches = phase13_serve(device, tmp)
+    phase13_cost(device, bench_bsp, bsp_tasks, smi)
+
     k1, k2 = timing["timed"]
     k1b, k2b = train["timed"]
     k3, k7 = code2["timed"]
@@ -3341,6 +3858,7 @@ def main(argv=None) -> int:
     k4b, k5b, k11 = tf_train["timed"]
     k9, k9b, k10, k10b = switch["timed"]
     k6, k6b = nci1["timed"]
+    k8, k8d, k8x, k12 = bsp["timed"]
     rows = [
         dict(name="gin_agg_fwd", route="cuda",
              source="graphtrans_tpu_torch/csrc/gin_agg.cu",
@@ -3443,9 +3961,31 @@ def main(argv=None) -> int:
              launches=nci1_train_launches["dense_agg_bwd"],
              # relative to max(1, max |reference|), as check_k6 holds it
              max_abs_err=nci1["k6b_err"], **k6b),
+        dict(name="blocked_gms_fwd", route="cuda",
+             source="graphtrans_tpu_torch/csrc/block_spmm.cu",
+             replaces="graphtrans_tpu/ops/pallas/block_spmm.py:184",
+             launches=bsp_launches["blocked_gather_message_scatter"],
+             # relative to max(1, max |reference|), as check_k8 holds it
+             max_abs_err=bsp["f_err"], **k8),
+        dict(name="blocked_gms_demb", route="cuda",
+             source="graphtrans_tpu_torch/csrc/block_spmm.cu",
+             replaces="graphtrans_tpu/ops/pallas/block_spmm.py:89",
+             launches=bsp_step_launches["blocked_gather_message_scatter_demb"],
+             max_abs_err=bsp["b_err"]["demb"], **k8d),
+        dict(name="blocked_gms_dx", route="cuda",
+             source="graphtrans_tpu_torch/csrc/block_spmm.cu",
+             replaces="graphtrans_tpu/ops/pallas/block_spmm.py:108",
+             launches=bsp_step_launches["blocked_gather_message_scatter_dx"],
+             max_abs_err=bsp["b_err"]["dx"], **k8x),
+        dict(name="segment_sum_mxu", route="cuda",
+             source="graphtrans_tpu_torch/csrc/scatter_mxu.cu",
+             replaces="graphtrans_tpu/ops/pallas/scatter_mxu.py:69",
+             # a standalone op: its one call in phase 13a, as a user calls it
+             launches=bsp["k12_launches"], max_abs_err=bsp["k12_err"],
+             **k12),
     ]
     print(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
-          f"(phases 0-12, the kernels' build included)")
+          f"(phases 0-13, the kernels' build included)")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

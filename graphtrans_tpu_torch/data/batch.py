@@ -4,10 +4,12 @@ Copy of ``graphtrans_tpu/data/batch.py`` restricted to what the ported paths
 use: the flat node/edge/graph fields (edges dst-sorted, padding edges at the
 tail pointing at node N-1), the strided ("dense") layout (``node_stride`` +
 per-graph edge tables), code2's ``node_depth`` and sequence targets
-``y_arr``, and up to three tiers of variable-length sequence packing for the
-transformer stage. Graph slot ``G-1`` is reserved as a padding graph; in the
-strided layout graph ``g`` owns flat node rows ``[g*stride, g*stride + n)``,
-so ``[N, d]`` node tensors view as ``[G, stride, d]``.
+``y_arr``, the blocked-CSR plans of kernel K8 (``bsp_*``, built by
+``ops/block_plan.py`` after the dst sort), and up to three tiers of
+variable-length sequence packing for the transformer stage. Graph slot
+``G-1`` is reserved as a padding graph; in the strided layout graph ``g``
+owns flat node rows ``[g*stride, g*stride + n)``, so ``[N, d]`` node
+tensors view as ``[G, stride, d]``.
 """
 
 from __future__ import annotations
@@ -18,19 +20,20 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..ops import block_plan
 from ..ops.pack import build_pack_fields_tiers
 
 # collate options of the JAX package that later slices bring over. The
-# scatter-free (sfa) and blocked-CSR (bsp) plans are the TPU's formulations
-# of the flat aggregation; the port's flat route is K7 over dst-sorted edges.
-_TPU_PLANS = ("the slice that ports K8 (blocked_gather_message_scatter); "
-              "the port's flat aggregation is K7 and needs no plan")
+# scatter-free (sfa) plans are an XLA formulation of the flat aggregation
+# with no kernel; PNA's segment reducers are the path that reads them.
+_SFA = ("slice 11 (PNA, with its ELL and scatter-free plans); the port's "
+        "flat aggregation is K7, or K8 over the block plans of "
+        "bsp_chunks_cap")
 _LATER = {
     "with_dense_adj": "slice 11 (masked transformer encoder)",
-    "bsp_chunks_cap": _TPU_PLANS,
-    "scatter_free": _TPU_PLANS,
-    "sfa_eb": _TPU_PLANS,
-    "sfa_explicit": _TPU_PLANS,
+    "scatter_free": _SFA,
+    "sfa_eb": _SFA,
+    "sfa_explicit": _SFA,
     "ell_explicit": "slice 11 (PNA)",
 }
 
@@ -65,6 +68,10 @@ class GraphBatch:
     edge_dst_dense: Any = None   # [G, Em] int32 graph-local dst (pad 0)
     edge_mask_dense: Any = None  # [G, Em] bool
     edge_attr_dense: Any = None  # [G, Em, Fe]
+    bsp_fwd: Any = None          # dst-major block plan (dict of arrays)
+    bsp_bwd: Any = None          # src-major block plan
+    edge_attr_bsp_fwd: Any = None  # [C*EB, Fe] edge_attr in bsp_fwd's order
+    edge_attr_bsp_bwd: Any = None  # [C*EB, Fe] in bsp_bwd's order
     pack_node: Any = None        # [R*W] int32 slot -> flat node row (N = none)
     pack_seg: Any = None         # [R*W] int32 graph id per slot (-1 = pad)
     pack_cls_slot: Any = None    # [G] int32 CLS slot in the tiers' concat
@@ -93,12 +100,15 @@ class GraphBatch:
         return self.node_graph.shape[0]
 
     def to(self, device) -> "GraphBatch":
-        """A copy whose array fields are torch tensors on ``device``."""
+        """A copy whose array fields, and the arrays of its plan dicts, are
+        torch tensors on ``device``."""
         def conv(v):
             if isinstance(v, np.ndarray):
                 return torch.from_numpy(np.ascontiguousarray(v)).to(device)
             if isinstance(v, torch.Tensor):
                 return v.to(device)
+            if isinstance(v, dict):
+                return {k: conv(a) for k, a in v.items()}
             return v
 
         return dataclasses.replace(self, **{
@@ -145,6 +155,7 @@ def collate(
     seq_pack_rows2: int = 0,
     seq_pack_w3: int = 0,
     seq_pack_rows3: int = 0,
+    bsp_chunks_cap: int = 0,
     **later,
 ) -> GraphBatch:
     """Assemble host graph dicts (``x [n,F]``, ``edge_index [2,e]``,
@@ -157,7 +168,11 @@ def collate(
     (``ops/pack.py``); ``seq_pack_w2`` (< ``seq_pack_w``) and then
     ``seq_pack_w3`` (< ``seq_pack_w2``) add narrower tiers, and
     ``seq_pack_rows*`` pin each tier's row count (``PackOverflow`` when a
-    batch needs more). ``max_seq_len`` adds ``y_arr [G, max_seq_len]``."""
+    batch needs more). ``max_seq_len`` adds ``y_arr [G, max_seq_len]``.
+    ``bsp_chunks_cap > 0`` adds the dst- and src-major block plans of K8
+    and the edge attributes in each plan's chunk order, in the flat layout
+    when ``num_nodes_cap`` is a multiple of 128; a batch whose plan needs
+    more chunks gets none (``bsp_fwd`` None) and takes K7."""
     for name, value in later.items():
         if name not in _LATER:
             raise TypeError(f"collate() got an unexpected argument {name!r}")
@@ -289,6 +304,20 @@ def collate(
     edge_attr = edge_attr[full_order]
     edge_mask = edge_mask[full_order]
 
+    bsp = {}
+    if bsp_chunks_cap > 0 and node_stride == 0 and N % block_plan.NB == 0:
+        plan_f = block_plan.build_block_plan(edge_src, edge_dst, edge_mask, N,
+                                             bsp_chunks_cap, major="dst")
+        plan_b = block_plan.build_block_plan(edge_src, edge_dst, edge_mask, N,
+                                             bsp_chunks_cap, major="src")
+        if plan_f is not None and plan_b is not None:
+            bsp = dict(
+                edge_attr_bsp_fwd=block_plan.permute_edge_data(
+                    edge_attr, plan_f.pop("perm")),
+                edge_attr_bsp_bwd=block_plan.permute_edge_data(
+                    edge_attr, plan_b.pop("perm")),
+                bsp_fwd=plan_f, bsp_bwd=plan_b)
+
     pack = {}
     if widths:
         pack = build_pack_fields_tiers(num_nodes, graph_mask, node_offsets,
@@ -302,8 +331,8 @@ def collate(
         node_mask=node_mask, node_depth=node_depth, edge_src=edge_src,
         edge_dst=edge_dst, edge_attr=edge_attr, edge_mask=edge_mask,
         graph_mask=graph_mask, num_nodes=num_nodes, y=y, y_arr=y_arr,
-        graph_ids=graph_ids, **(dense or {}), **pack, max_nodes_dense=S,
-        node_stride=node_stride)
+        graph_ids=graph_ids, **(dense or {}), **bsp, **pack,
+        max_nodes_dense=S, node_stride=node_stride)
 
 
 def _tiers(w, rows, w2, rows2, w3, rows3):

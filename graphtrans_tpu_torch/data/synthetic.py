@@ -7,6 +7,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..nn.encoders import ATOM_FEATURE_DIMS, BOND_FEATURE_DIMS
+from ..ops.block_plan import chunk_capacity
 from .batch import bucket_size, collate
 from .loader import dataset_caps, pack_widths
 from .vocab import augment_edge, encode_seq_to_arr, get_vocab_mapping
@@ -162,14 +163,17 @@ def tu_bench_batch(num_graphs: int = 4096, seed: int = 0):
 
 
 def code2_bench_batch(num_graphs: int = 512, seed: int = 0,
-                      max_input_len: int = 1000, flat: bool = False):
+                      max_input_len: int = 1000, flat: bool = False,
+                      bsp: bool = False):
     """One code2-shaped serving batch (``bench.py:build_code2``'s shape):
     ``num_graphs`` ASTs of the heavy-tailed code2 size distribution, edges
     augmented, five target positions, in the flat layout with the packing
     tiers of its largest graph (1024, 384, 128 at 512 graphs); ``flat``:
     unpacked, with the dense width of its largest graph capped at
     ``max_input_len`` (1000 at 512 graphs; the Transformer-only model's
-    batch). Returns (batch, vocabulary size)."""
+    batch); ``bsp``: with K8's block plans at
+    ``chunk_capacity(edge cap, node cap)``. Returns (batch, vocabulary
+    size)."""
     raw = make_code_dataset(num_graphs=num_graphs, vocab_size=5000,
                             seq_len_max=6, min_nodes=50, max_nodes=250,
                             seed=seed, size_dist="code2")
@@ -184,6 +188,8 @@ def code2_bench_batch(num_graphs: int = 512, seed: int = 0,
     else:
         tiers = {f"seq_pack_w{t + 1 if t else ''}": w
                  for t, w in enumerate(pack_widths(max_n, max_input_len))}
+    if bsp:
+        tiers["bsp_chunks_cap"] = chunk_capacity(edge_cap, node_cap)
     return collate(graphs, num_graphs + 1, node_cap, edge_cap,
                    max_input_len=max_input_len, num_tasks=len(vocab2idx),
                    max_seq_len=5, y_dtype="int32", **tiers), len(vocab2idx)

@@ -7,12 +7,17 @@ all run in kernel K1.
 
 GCNConv (OGB's GCN as the reference writes it): x = Linear(h); deg =
 out_degree(src) + 1; out = sum_{j->i} deg^-1/2[src] deg^-1/2[dst]
-relu(x_j + edge_emb) + relu(x + root_emb)/deg. On the flat layout (code2)
-the aggregation runs in kernel K7 over the dst-sorted edges (its backward
-walks the batch's ``src_order``, shared by every layer); on the strided
-layout (NCI1) in kernel K6 over each graph's edge slots, with the degree
-and the norm from per-graph reductions and gathers (``dense_mp``). The
-degree, the norm and the self term are plain PyTorch.
+relu(x_j + edge_emb) + relu(x + root_emb)/deg. On the strided layout
+(NCI1) the aggregation runs in kernel K6 over each graph's edge slots, with
+the degree and the norm from per-graph reductions and gathers
+(``dense_mp``). On the flat layout (code2) it runs in kernel K8 over the
+batch's block plans when it carries them and the model's switch is on
+(``ops/block_plan.py:set_block_spmm``; the edge encoder then encodes the
+attributes in each plan's chunk order, and the norm is gathered per
+slot), else in kernel K7 over the dst-sorted edges (its backward walks the
+batch's ``src_order``, shared by every layer): the JAX package's
+precedence, strided, then blocked, then flat. The degree, the norm and
+the self term are plain PyTorch.
 """
 
 from __future__ import annotations
@@ -20,8 +25,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops import dense_mp
-from ..ops.kernels import spmm, spmm_plain, src_order
+from ..ops import block_plan, dense_mp
+from ..ops.kernels import (blocked_gather_message_scatter,
+                           blocked_gather_message_scatter_plain, spmm,
+                           spmm_plain, src_order)
 from ..ops.segment import out_degree
 from .encoders import BondEncoder
 from .init import normal_
@@ -55,10 +62,23 @@ class GINConv(nn.Module):
         return self.lin2(out).masked_fill(~batch.node_mask[:, None], 0.0)
 
 
+def bsp_slot_weight(plan, per_node_vals: torch.Tensor,
+                    major_is_src: bool) -> torch.Tensor:
+    """Per-slot weight [C*EB] of a block plan from per-node values:
+    ``vals[src] * vals[dst]`` with both endpoints rebuilt from the plan
+    (pad slots read row 0; the kernel's mask kills them)."""
+    maj, mnr = block_plan.slot_rows(plan)
+    src, dst = (maj, mnr) if major_is_src else (mnr, maj)
+    return per_node_vals[src] * per_node_vals[dst]
+
+
 class GCNConv(nn.Module):
-    """``edge_encoder`` maps the batch's ``edge_attr`` (flat) or
+    """``edge_encoder`` maps the batch's ``edge_attr`` (flat; its
+    ``edge_attr_bsp_*`` copies on the blocked route) or
     ``edge_attr_dense`` (strided) to ``[..., emb_dim]``
-    (``LinearEdgeEncoder`` for code2, ``ZeroEdgeEncoder`` for TU)."""
+    (``LinearEdgeEncoder`` for code2, ``ZeroEdgeEncoder`` for TU).
+    ``block_spmm`` ("off", "on" or "auto", set by ``set_block_spmm``)
+    turns the blocked route on."""
 
     def __init__(self, emb_dim: int, edge_encoder: nn.Module, device=None):
         super().__init__()
@@ -66,6 +86,7 @@ class GCNConv(nn.Module):
         self.edge_encoder = edge_encoder
         self.root_emb = nn.Parameter(torch.zeros(emb_dim, device=device))
         self.use_kernel = True
+        self.block_spmm = "off"
 
     def init_from(self, gen):
         normal_(self.root_emb, 1.0, gen)
@@ -79,15 +100,31 @@ class GCNConv(nn.Module):
             deg = out_degree(batch.edge_src, x.shape[0], batch.edge_mask,
                              x.dtype) + 1.0
             dis = deg ** -0.5
-            norm = dis[batch.edge_src.long()] * dis[batch.edge_dst.long()]
-            emb = self.edge_encoder(batch.edge_attr).to(x.dtype)
-            args = (x, emb, batch.edge_src, batch.edge_dst, batch.edge_mask,
-                    norm, "relu_add")
-            agg = (spmm(*args, order=src_order(batch)) if self.use_kernel
-                   else spmm_plain(*args))
+            if self.block_spmm != "off" and batch.bsp_fwd is not None:
+                agg = self._blocked(batch, x, dis)
+            else:
+                norm = dis[batch.edge_src.long()] * dis[batch.edge_dst.long()]
+                emb = self.edge_encoder(batch.edge_attr).to(x.dtype)
+                args = (x, emb, batch.edge_src, batch.edge_dst,
+                        batch.edge_mask, norm, "relu_add")
+                agg = (spmm(*args, order=src_order(batch)) if self.use_kernel
+                       else spmm_plain(*args))
             inv_deg = (1.0 / deg)[:, None]
         out = agg + torch.relu(x + self.root_emb) * inv_deg
         return out.masked_fill(~mask, 0.0)
+
+    def _blocked(self, batch, x: torch.Tensor, dis: torch.Tensor):
+        """The aggregation [N, d] in K8 over the batch's block plans: the
+        edge encoder on each plan's chunk-ordered attributes, the norm per
+        slot of each plan."""
+        emb_f = self.edge_encoder(batch.edge_attr_bsp_fwd).to(x.dtype)
+        emb_b = self.edge_encoder(batch.edge_attr_bsp_bwd).to(x.dtype)
+        w_f = bsp_slot_weight(batch.bsp_fwd, dis, False)
+        w_b = bsp_slot_weight(batch.bsp_bwd, dis, True)
+        fn = (blocked_gather_message_scatter if self.use_kernel
+              else blocked_gather_message_scatter_plain)
+        return fn(x, emb_f, emb_b, batch.bsp_fwd, batch.bsp_bwd, w_f, w_b,
+                  "relu_add")
 
     def _strided(self, batch, x: torch.Tensor):
         """(aggregation [N, d] in K6, 1/deg [N, 1]) on the strided layout:

@@ -23,7 +23,7 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("gin_agg", "attention_packed", "flash_hil", "spmm",
            "flash_attention", "dropout", "attention_smalls",
-           "transformer_layer", "dense_agg")
+           "transformer_layer", "dense_agg", "block_spmm", "scatter_mxu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

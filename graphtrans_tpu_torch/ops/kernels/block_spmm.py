@@ -1,0 +1,329 @@
+"""K8: the flat-layout message-passing sum over the blocked-CSR chunk plans
+(``ops/block_plan.py``), and its backward (d_emb and dx).
+
+Computes K7's function in the plans' order:
+
+    out[maj] = sum over the real slots of the dst-major plan of
+               w[slot] * msg(x[min] + emb_fwd[slot])
+
+with ``maj = blk_out[c]*NB + loc_out[c, s]`` (the edge's dst),
+``min = blk_in[c]*NB + loc_in[c, s]`` (its src), a slot real where
+``mask > 0``, ``msg = relu`` (``relu_add``) or the identity (``add``),
+x ``[N, d]`` with ``N % 128 == 0``, emb_fwd and emb_bwd ``[C*EB, d]`` (the
+edge embeddings in the dst-major and src-major chunk orders), w_fwd and
+w_bwd ``[C*EB]`` or None. A node no real slot reaches gets a zero row. The
+backward gives ``d_emb[slot] = w * 1[x[min] + emb_fwd > 0] * g[maj]``
+over the dst-major plan (0 on slots that are not real: the edge
+encoder's bias gradient sums every slot) and dx over the src-major plan,
+whose major rows are the srcs: ``dx[src] = sum w * 1[x[src] + emb_bwd >
+0] * g[dst]``. emb_bwd gets no gradient (emb_fwd carries the whole d_emb;
+both copies come from one encoder), and w none: the GCN norm is
+structural, and a call whose w requires a gradient raises.
+
+Replaces ``graphtrans_tpu/ops/pallas/block_spmm.py:
+blocked_gather_message_scatter`` (``_fwd_kernel``, ``_demb_kernel``,
+``_dx_kernel``). The TPU kernel runs one grid step per chunk, gathers and
+scatters each chunk's 512 slots as 128-wide one-hot MXU products and
+carries the block's sum across its consecutive chunks in VMEM; those are
+TPU idioms and none of them carries over.
+
+What bounds it on the H100: memory. Per real slot the forward reads a row
+of emb and gathers a row of x, and writes the N rows once; at the
+512-graph code2 batch (N = 65536, d = 300, 171762 real slots of 1245184)
+that is about 0.36 GB. d_emb must write all C*EB rows (1.49 GB there), dx
+reads like the forward. Design (``csrc/block_spmm.cu``): forward and dx,
+one block per (major block, 128 channels) walks its run of chunks
+(``run`` from ``searchsorted(blk_out)``), skips the chunks with no real
+slot (``live``, a count per chunk; the pad chunks at the plan's tail all
+revisit the last block) 128 at a time, lists each chunk's real slots in
+slot order, and adds their messages into a 128 x 128 sum in shared
+memory, one thread per channel: no atomics, a fixed order. d_emb, one
+warp per slot, writes zero rows for the slots that are not real. The
+wrapper computes ``run`` and ``live`` on the card (two small torch ops a
+launch) and allocates with ``torch.empty``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ..block_plan import EB, NB, slot_rows
+from . import _build
+
+MESSAGES = ("relu_add", "add")
+_PLAN = (("blk_out", torch.int32, 1), ("blk_in", torch.int32, 1),
+         ("loc_out", torch.int32, 2), ("loc_in", torch.int32, 2),
+         ("mask", torch.float32, 2))
+
+
+def _real(plan) -> torch.Tensor:
+    return plan["mask"].reshape(-1, 1) > 0
+
+
+def _message(message: str):
+    if message not in MESSAGES:
+        raise ValueError(f"block_spmm: message {message!r} not in "
+                         f"{MESSAGES}")
+    return message == "relu_add"
+
+
+def blocked_gather_message_scatter_plain(
+        x, emb_fwd, emb_bwd, plan_fwd, plan_bwd, w_fwd=None, w_bwd=None,
+        message: str = "relu_add") -> torch.Tensor:
+    """Plain PyTorch version of K8's forward: gather at the minor rows,
+    message, weight and mask, ``index_add_`` at the major rows in slot
+    order. Only the dst-major plan and its emb copy enter the result."""
+    relu = _message(message)
+    maj, mnr = slot_rows(plan_fwd)
+    m = x.index_select(0, mnr) + emb_fwd
+    if relu:
+        m = torch.relu(m)
+    if w_fwd is not None:
+        m = m * w_fwd.to(torch.float32)[:, None]
+    m = torch.where(_real(plan_fwd), m, 0.0)
+    return torch.zeros_like(x).index_add_(0, maj, m)
+
+
+def blocked_gather_message_scatter_bwd_plain(
+        x, emb_fwd, emb_bwd, plan_fwd, plan_bwd, g, w_fwd=None, w_bwd=None,
+        message: str = "relu_add"):
+    """(dx, d_emb) by autograd through the plain forward for the cotangent
+    ``g`` [N, d]; emb_bwd's cotangent is zero (it does not enter)."""
+    with torch.enable_grad():
+        xl, el = (t.detach().requires_grad_() for t in (x, emb_fwd))
+        out = blocked_gather_message_scatter_plain(
+            xl, el, emb_bwd, plan_fwd, plan_bwd, w_fwd, w_bwd, message)
+        return torch.autograd.grad(out, (xl, el), g)
+
+
+def blocked_gather_message_scatter_demb_plain(x, g, emb_fwd, plan_fwd,
+                                              w_fwd=None,
+                                              message: str = "relu_add"):
+    """Plain version of the d_emb kernel (dst-major plan), [C*EB, d]."""
+    relu = _message(message)
+    maj, mnr = slot_rows(plan_fwd)
+    gate = g.index_select(0, maj)
+    if w_fwd is not None:
+        gate = gate * w_fwd.to(torch.float32)[:, None]
+    if relu:
+        gate = torch.where(x.index_select(0, mnr) + emb_fwd > 0, gate, 0.0)
+    return torch.where(_real(plan_fwd), gate, 0.0)
+
+
+def blocked_gather_message_scatter_dx_plain(x, g, emb_bwd, plan_bwd,
+                                            w_bwd=None,
+                                            message: str = "relu_add"):
+    """Plain version of the dx kernel (src-major plan: major rows are the
+    srcs, minor rows the dsts), [N, d]."""
+    relu = _message(message)
+    src, dst = slot_rows(plan_bwd)
+    gate = g.index_select(0, dst)
+    if w_bwd is not None:
+        gate = gate * w_bwd.to(torch.float32)[:, None]
+    if relu:
+        gate = torch.where(x.index_select(0, src) + emb_bwd > 0, gate, 0.0)
+    gate = torch.where(_real(plan_bwd), gate, 0.0)
+    return torch.zeros_like(x).index_add_(0, src, gate)
+
+
+def _check(x, pairs, g=None):
+    """pairs: (emb [C*EB, d], plan, w or None) per plan used."""
+    N, d = x.shape
+    if N % NB:
+        raise ValueError(f"block_spmm: {N} node rows, not a multiple of {NB}")
+    want = [(x, torch.float32, (N, d))]
+    if g is not None:
+        want.append((g, torch.float32, (N, d)))
+    for emb, plan, w in pairs:
+        C = plan["blk_out"].shape[0]
+        for key, dtype, rank in _PLAN:
+            want.append((plan[key], dtype, (C, EB)[:rank]))
+        want.append((emb, torch.float32, (C * EB, d)))
+        if w is not None:
+            want.append((w, torch.float32, (C * EB,)))
+    for t, dtype, shape in want:
+        if t.device != x.device:
+            raise ValueError(f"block_spmm: tensors on {t.device} and "
+                             f"{x.device}")
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"block_spmm: expected {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError("block_spmm: inputs must be contiguous")
+
+
+def _refuse_weight_grad(w_fwd, w_bwd):
+    if torch.is_grad_enabled() and any(
+            w is not None and w.requires_grad for w in (w_fwd, w_bwd)):
+        raise ValueError(
+            "block_spmm: a slot weight requires a gradient, which K8 does "
+            "not compute (the GCN norm is structural): pass w.detach()")
+
+
+def _walk_args(plan, nblk: int):
+    """run [nblk + 1] (each major block's first chunk) and live [C] (real
+    slots per chunk), on the card."""
+    blk_out = plan["blk_out"]
+    run = torch.searchsorted(
+        blk_out, torch.arange(nblk + 1, dtype=torch.int32,
+                              device=blk_out.device), out_int32=True)
+    live = (plan["mask"] > 0).sum(1, dtype=torch.int32)
+    return run, live
+
+
+def _ptr(t):
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _stream(t: torch.Tensor):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _launch_walk(name, gat, xmaj, emb, plan, w, relu):
+    N, d = gat.shape
+    out = torch.empty_like(gat)
+    run, live = _walk_args(plan, N // NB)
+    lib = _load()
+    args = [] if xmaj is None else [xmaj]
+    err = getattr(lib, name)(
+        *(_ptr(t) for t in [*args, gat, emb, plan["blk_in"],
+                            plan["loc_out"], plan["loc_in"], plan["mask"],
+                            w, run, live, out]),
+        N // NB, d, int(relu), _stream(gat))
+    _build.check(lib, err, name)
+    return out
+
+
+class _Blocked(torch.autograd.Function):
+    """K8 on CUDA tensors with the d_emb and dx kernels as its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, emb_fwd, emb_bwd, w_fwd, w_bwd, plan_fwd, plan_bwd,
+                message):
+        ctx.save_for_backward(x, emb_fwd, emb_bwd, w_fwd, w_bwd)
+        ctx.plans, ctx.message = (plan_fwd, plan_bwd), message
+        return _forward(x, emb_fwd, plan_fwd, w_fwd, message)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, emb_fwd, emb_bwd, w_fwd, w_bwd = ctx.saved_tensors
+        plan_fwd, plan_bwd = ctx.plans
+        g = g.contiguous()
+        dx = demb = None
+        if ctx.needs_input_grad[1]:
+            demb = blocked_gather_message_scatter_demb(
+                x, g, emb_fwd, plan_fwd, w_fwd, ctx.message)
+        if ctx.needs_input_grad[0]:
+            dx = blocked_gather_message_scatter_dx(
+                x, g, emb_bwd, plan_bwd, w_bwd, ctx.message)
+        return dx, demb, None, None, None, None, None, None
+
+
+def _forward(x, emb_fwd, plan_fwd, w_fwd, message):
+    out = _launch_walk("block_spmm_fwd", x, None, emb_fwd, plan_fwd, w_fwd,
+                       message == "relu_add")
+    blocked_gather_message_scatter.launches += 1
+    return out
+
+
+def blocked_gather_message_scatter(
+        x: torch.Tensor, emb_fwd: torch.Tensor, emb_bwd: torch.Tensor,
+        plan_fwd: dict, plan_bwd: dict, w_fwd: Optional[torch.Tensor] = None,
+        w_bwd: Optional[torch.Tensor] = None,
+        message: str = "relu_add") -> torch.Tensor:
+    """K8 forward, with the JAX signature. CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise. ``plan_fwd`` and
+    ``plan_bwd`` are the batch's dst- and src-major plans as tensors on
+    x's device (``blk_out`` grouped ascending, as ``build_block_plan``
+    makes it); w_fwd and w_bwd both given or both None. Where x or emb_fwd
+    wants a gradient the result carries the d_emb and dx kernels."""
+    _message(message)
+    if (w_fwd is None) != (w_bwd is None):
+        raise ValueError("block_spmm: give both slot weights or neither")
+    _refuse_weight_grad(w_fwd, w_bwd)
+    if x.device.type == "cpu":
+        return blocked_gather_message_scatter_plain(
+            x, emb_fwd, emb_bwd, plan_fwd, plan_bwd, w_fwd, w_bwd, message)
+    if x.device.type != "cuda":
+        raise ValueError(f"block_spmm: unsupported device {x.device}")
+    _check(x, [(emb_fwd, plan_fwd, w_fwd), (emb_bwd, plan_bwd, w_bwd)])
+    if torch.is_grad_enabled() and (x.requires_grad or emb_fwd.requires_grad
+                                    or emb_bwd.requires_grad):
+        return _Blocked.apply(x, emb_fwd, emb_bwd, w_fwd, w_bwd, plan_fwd,
+                              plan_bwd, message)
+    return _forward(x, emb_fwd, plan_fwd, w_fwd, message)
+
+
+blocked_gather_message_scatter.launches = 0
+
+
+def blocked_gather_message_scatter_demb(
+        x: torch.Tensor, g: torch.Tensor, emb_fwd: torch.Tensor,
+        plan_fwd: dict, w_fwd: Optional[torch.Tensor] = None,
+        message: str = "relu_add") -> torch.Tensor:
+    """K8's d_emb [C*EB, d] for the cotangent g of its forward. CPU tensors
+    take the plain version; CUDA tensors launch the kernel or raise."""
+    relu = _message(message)
+    if x.device.type == "cpu":
+        return blocked_gather_message_scatter_demb_plain(
+            x, g, emb_fwd, plan_fwd, w_fwd, message)
+    if x.device.type != "cuda":
+        raise ValueError(f"block_spmm: unsupported device {x.device}")
+    _check(x, [(emb_fwd, plan_fwd, w_fwd)], g)
+    demb = torch.empty_like(emb_fwd)
+    lib = _load()
+    err = lib.block_spmm_demb(
+        *(_ptr(t) for t in (x, g, emb_fwd, plan_fwd["blk_out"],
+                            plan_fwd["blk_in"], plan_fwd["loc_out"],
+                            plan_fwd["loc_in"], plan_fwd["mask"], w_fwd,
+                            demb)),
+        plan_fwd["blk_out"].shape[0], x.shape[1], int(relu), _stream(x))
+    _build.check(lib, err, "block_spmm_demb")
+    blocked_gather_message_scatter_demb.launches += 1
+    return demb
+
+
+blocked_gather_message_scatter_demb.launches = 0
+
+
+def blocked_gather_message_scatter_dx(
+        x: torch.Tensor, g: torch.Tensor, emb_bwd: torch.Tensor,
+        plan_bwd: dict, w_bwd: Optional[torch.Tensor] = None,
+        message: str = "relu_add") -> torch.Tensor:
+    """K8's dx [N, d] for the cotangent g of its forward, over the
+    src-major plan. CPU tensors take the plain version; CUDA tensors
+    launch the kernel or raise."""
+    relu = _message(message)
+    if x.device.type == "cpu":
+        return blocked_gather_message_scatter_dx_plain(
+            x, g, emb_bwd, plan_bwd, w_bwd, message)
+    if x.device.type != "cuda":
+        raise ValueError(f"block_spmm: unsupported device {x.device}")
+    _check(x, [(emb_bwd, plan_bwd, w_bwd)], g)
+    dx = _launch_walk("block_spmm_dx", g, x, emb_bwd, plan_bwd, w_bwd, relu)
+    blocked_gather_message_scatter_dx.launches += 1
+    return dx
+
+
+blocked_gather_message_scatter_dx.launches = 0
+
+
+def _load():
+    lib = _build.load("block_spmm")
+    if lib.block_spmm_fwd.argtypes is None:
+        lib.block_spmm_fwd.argtypes = ([ctypes.c_void_p] * 10
+                                       + [ctypes.c_int] * 3
+                                       + [ctypes.c_void_p])
+        lib.block_spmm_dx.argtypes = ([ctypes.c_void_p] * 11
+                                      + [ctypes.c_int] * 3
+                                      + [ctypes.c_void_p])
+        lib.block_spmm_demb.argtypes = ([ctypes.c_void_p] * 10
+                                        + [ctypes.c_int] * 3
+                                        + [ctypes.c_void_p])
+        for f in (lib.block_spmm_fwd, lib.block_spmm_dx,
+                  lib.block_spmm_demb):
+            f.restype = ctypes.c_int
+    return lib

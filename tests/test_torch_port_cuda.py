@@ -1195,3 +1195,243 @@ def test_nci1_step_through_kernels_matches_plain(cuda):
     for name in gk:
         err = (gk[name] - gp[name]).abs().max().item()
         assert err <= GRAD_TOL * max(1.0, gp[name].abs().max().item()), name
+
+
+# ---- K8 (blocked_gather_message_scatter) and K12 (segment_sum_mxu) ---------
+
+
+def _k8_batch(seed=0):
+    """A flat code2-like batch of 40 ASTs with both block plans at
+    ``chunk_capacity`` of its caps."""
+    from graphtrans_tpu_torch.data.loader import dataset_caps
+    from graphtrans_tpu_torch.data.synthetic import make_code_dataset
+    from graphtrans_tpu_torch.data.vocab import augment_edge
+    from graphtrans_tpu_torch.ops.block_plan import chunk_capacity
+
+    graphs = [dict(augment_edge(g), _id=i) for i, g in enumerate(
+        make_code_dataset(num_graphs=40, min_nodes=20, max_nodes=400,
+                          seed=seed))]
+    ncap, ecap = dataset_caps(graphs, 40)
+    b = collate(graphs, 41, ncap, ecap, num_tasks=4, y_dtype="float32",
+                bsp_chunks_cap=chunk_capacity(ecap, ncap))
+    assert b.bsp_fwd is not None
+    return b
+
+
+def _k8_case(d, cuda, seed=0):
+    """K8's arguments as a GCN layer gets them: random x, one random row
+    per edge laid out in each plan's order (as the edge encoder makes both
+    copies), slot weights from random per-node values."""
+    from graphtrans_tpu_torch.ops.block_plan import build_block_plan
+
+    b = _k8_batch(seed)
+    gen = torch.Generator().manual_seed(d + seed)
+    N, E = b.num_node_slots, b.edge_src.shape[0]
+    x = torch.randn(N, d, generator=gen)
+    per_edge = torch.randn(E, d, generator=gen)
+    vals = torch.rand(N, generator=gen) + 0.2
+    w_edge = vals[torch.from_numpy(b.edge_src).long()] * vals[
+        torch.from_numpy(b.edge_dst).long()]
+    embs, ws = [], []
+    for major in ("dst", "src"):
+        perm = torch.from_numpy(build_block_plan(
+            b.edge_src, b.edge_dst, b.edge_mask, N,
+            b.bsp_fwd["blk_out"].shape[0], major)["perm"])
+        real = perm >= 0
+        emb = torch.zeros(perm.shape[0], d)
+        emb[real] = per_edge[perm[real]]
+        w = torch.zeros(perm.shape[0])
+        w[real] = w_edge[perm[real]]
+        embs.append(emb.to(cuda))
+        ws.append(w.to(cuda))
+    return b.to(cuda), x.to(cuda), embs, ws
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [300, 128])
+@pytest.mark.parametrize("message", ["relu_add", "add"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_blocked_kernels_match_plain(cuda, d, message, weighted):
+    """K8's forward, d_emb and dx kernels against the plain versions (the
+    forward 1e-5, the backward 5e-4 of max(1, max|ref|) from autograd
+    through the plain forward); slots that are not real get exact-zero
+    d_emb rows; one launch each."""
+    from graphtrans_tpu_torch.ops.kernels import (
+        blocked_gather_message_scatter,
+        blocked_gather_message_scatter_bwd_plain,
+        blocked_gather_message_scatter_demb,
+        blocked_gather_message_scatter_demb_plain,
+        blocked_gather_message_scatter_dx,
+        blocked_gather_message_scatter_dx_plain,
+        blocked_gather_message_scatter_plain)
+
+    b, x, (ef, eb), (wf, wb) = _k8_case(d, cuda)
+    if not weighted:
+        wf = wb = None
+    pf, pb = b.bsp_fwd, b.bsp_bwd
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(7)
+                    ).to(cuda)
+    counts = [f.launches for f in (blocked_gather_message_scatter,
+                                   blocked_gather_message_scatter_demb,
+                                   blocked_gather_message_scatter_dx)]
+    out = blocked_gather_message_scatter(x, ef, eb, pf, pb, wf, wb, message)
+    demb = blocked_gather_message_scatter_demb(x, g, ef, pf, wf, message)
+    dx = blocked_gather_message_scatter_dx(x, g, eb, pb, wb, message)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (blocked_gather_message_scatter,
+                                 blocked_gather_message_scatter_demb,
+                                 blocked_gather_message_scatter_dx)] == [
+        c + 1 for c in counts]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:                     # index_add_ sums in a fixed order
+        want = blocked_gather_message_scatter_plain(x, ef, eb, pf, pb, wf,
+                                                    wb, message)
+        ref_dx, ref_demb = blocked_gather_message_scatter_bwd_plain(
+            x, ef, eb, pf, pb, g, wf, wb, message)
+        plain_dx = blocked_gather_message_scatter_dx_plain(x, g, eb, pb, wb,
+                                                           message)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    plain_demb = blocked_gather_message_scatter_demb_plain(x, g, ef, pf, wf,
+                                                           message)
+    assert torch.isfinite(out).all()
+    assert (out - want).abs().max().item() <= 1e-5 * max(
+        1.0, want.abs().max().item())
+    for got, ref in ((demb, ref_demb), (dx, ref_dx), (demb, plain_demb),
+                     (dx, plain_dx)):
+        assert (got - ref).abs().max().item() <= GRAD_TOL * max(
+            1.0, ref.abs().max().item())
+    real = pf["mask"].reshape(-1) > 0
+    assert not demb[~real].any()
+
+
+@pytest.mark.cuda
+def test_blocked_autograd_and_refusals(cuda):
+    """Through K8 a CUDA leaf gets its gradient from the d_emb and dx
+    kernels (emb_bwd none); a slot weight that asks for a gradient raises;
+    under no_grad and inference_mode the forward saves nothing."""
+    from graphtrans_tpu_torch.ops.kernels import (
+        blocked_gather_message_scatter,
+        blocked_gather_message_scatter_bwd_plain,
+        blocked_gather_message_scatter_demb,
+        blocked_gather_message_scatter_dx)
+
+    b, x, (ef, eb), (wf, wb) = _k8_case(128, cuda, seed=1)
+    pf, pb = b.bsp_fwd, b.bsp_bwd
+    leaves = [t.clone().requires_grad_() for t in (x, ef, eb)]
+    g = torch.randn(x.shape, device=cuda)
+    c_demb = blocked_gather_message_scatter_demb.launches
+    c_dx = blocked_gather_message_scatter_dx.launches
+    blocked_gather_message_scatter(*leaves, pf, pb, wf, wb).backward(g)
+    torch.cuda.synchronize()
+    assert blocked_gather_message_scatter_demb.launches == c_demb + 1
+    assert blocked_gather_message_scatter_dx.launches == c_dx + 1
+    assert leaves[2].grad is None
+    for got, ref in zip(leaves[:2], blocked_gather_message_scatter_bwd_plain(
+            x, ef, eb, pf, pb, g, wf, wb)):
+        assert (got.grad - ref).abs().max().item() <= GRAD_TOL * max(
+            1.0, ref.abs().max().item())
+    with pytest.raises(ValueError, match="gradient"):
+        blocked_gather_message_scatter(leaves[0], ef, eb, pf, pb,
+                                       wf.clone().requires_grad_(), wb)
+    with pytest.raises(ValueError, match="multiple"):
+        blocked_gather_message_scatter(x[:-1], ef, eb, pf, pb, wf, wb)
+    with pytest.raises(ValueError, match="expected"):
+        blocked_gather_message_scatter(x, ef[:-1], eb, pf, pb, wf, wb)
+    with torch.no_grad():
+        blocked_gather_message_scatter(*leaves, pf, pb, wf, wb)
+    with torch.inference_mode():
+        blocked_gather_message_scatter(x, ef, eb, pf, pb, wf, wb)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_code2_model_blocked_route_matches_plain_and_k7(cuda, deterministic):
+    """The code2 model with both plans and the switch on: 3 K8 launches a
+    forward and 3 + 3 + 3 with its gradients, 0 of K7; logits and
+    gradients against the plain versions of the same route and against
+    the K7 route."""
+    from graphtrans_tpu_torch.data.synthetic import make_code_dataset
+    from graphtrans_tpu_torch.data.vocab import (augment_edge,
+                                                 encode_seq_to_arr,
+                                                 get_vocab_mapping)
+    from graphtrans_tpu_torch.nn.dropout import Generators
+    from graphtrans_tpu_torch.ops import kernels
+    from graphtrans_tpu_torch.ops.block_plan import (chunk_capacity,
+                                                     set_block_spmm)
+    from graphtrans_tpu_torch.train.losses import seq_token_loss
+
+    raw = make_code_dataset(num_graphs=14, vocab_size=50, seq_len_max=6,
+                            seed=3, size_dist="code2")
+    v2i, _ = get_vocab_mapping([g["y_seq"] for g in raw], 50)
+    graphs = [dict(augment_edge(g), _id=i,
+                   y_arr=encode_seq_to_arr(g["y_seq"], v2i, 5))
+              for i, g in enumerate(raw)]
+    b = collate(graphs, 15, 8192, 32768, num_tasks=len(v2i), max_seq_len=5,
+                seq_pack_w=1024, seq_pack_w2=384, seq_pack_w3=128,
+                bsp_chunks_cap=chunk_capacity(32768, 8192)).to(cuda)
+    assert b.bsp_fwd is not None
+    model = set_block_spmm(_code2_model(len(v2i), cuda), "on")
+    kernels.reset_launches()
+    with torch.inference_mode():
+        got = model(b)[b.graph_mask]
+        counts = kernels.launch_counts()
+        assert (counts["blocked_gather_message_scatter"],
+                counts["spmm"]) == (3, 0)
+        plain = set_kernels(model, False)(b)[b.graph_mask]
+        k7 = set_block_spmm(set_kernels(model, True), "off")(b)[b.graph_mask]
+    assert torch.isfinite(got).all()
+    assert (got - plain).abs().max().item() <= LOGITS_TOL
+    assert (got - k7).abs().max().item() <= LOGITS_TOL
+    model.train()
+    grads = []
+    for kern, mode in ((True, "on"), (False, "on"), (True, "off")):
+        set_block_spmm(set_kernels(model, kern), mode)
+        model.zero_grad(set_to_none=True)
+        kernels.reset_launches()
+        seq_token_loss(model(b, Generators.seeded(5, cuda)), b).backward()
+        if kern and mode == "on":
+            counts = kernels.launch_counts()
+            assert [counts[k] for k in (
+                "blocked_gather_message_scatter",
+                "blocked_gather_message_scatter_demb",
+                "blocked_gather_message_scatter_dx", "spmm",
+                "spmm_bwd")] == [3, 3, 3, 0, 0]
+        grads.append({n: p.grad.clone() for n, p in model.named_parameters()})
+    for name, g in grads[0].items():
+        for ref in (grads[1][name], grads[2][name]):
+            assert (g - ref).abs().max().item() <= GRAD_TOL * max(
+                1.0, ref.abs().max().item()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,E,d", [(1024, 4096, 128), (65536, 196608, 128),
+                                   (512, 1024, 256)])
+def test_segment_sum_mxu_kernel_matches_plain(cuda, N, E, d):
+    """K12 against its plain version (index_add_ under deterministic
+    algorithms) over sorted dsts with out-of-range edges at both ends; one
+    launch; None on a refused shape; msg that asks for a gradient
+    raises."""
+    from graphtrans_tpu_torch.ops.kernels import (segment_sum_mxu,
+                                                  segment_sum_mxu_plain)
+
+    gen = torch.Generator().manual_seed(N)
+    msg = torch.randn(E, d, generator=gen).to(cuda)
+    dst = torch.sort(torch.cat([
+        torch.randint(0, N, (E - 64,), generator=gen),
+        torch.full((32,), -1), torch.full((32,), N)]))[0].int().to(cuda)
+    before = segment_sum_mxu.launches
+    got = segment_sum_mxu(msg, dst, N)
+    torch.cuda.synchronize()
+    assert segment_sum_mxu.launches == before + 1
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        want = segment_sum_mxu_plain(msg, dst, N)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert got.dtype == torch.float32 and got.shape == (N, d)
+    assert (got - want).abs().max().item() <= 1e-5 * max(
+        1.0, want.abs().max().item())
+    assert segment_sum_mxu(msg[:, :100].contiguous(), dst, N) is None
+    with pytest.raises(ValueError, match="gradient"):
+        segment_sum_mxu(msg.clone().requires_grad_(), dst, N)

@@ -121,7 +121,7 @@ def test_collate_matches_jax(layout):
 
 def test_collate_rejects_later_options():
     graphs = ts.make_mol_dataset(num_graphs=2, num_tasks=1, seed=0)
-    with pytest.raises(NotImplementedError, match="K8"):
+    with pytest.raises(NotImplementedError, match="slice 11 \\(PNA"):
         tb.collate(graphs, 3, 128, 256, scatter_free=True)
     # tiers that do not narrow, or a third tier without a second: the JAX
     # package drops them silently, the port refuses them
