@@ -1,7 +1,12 @@
 """Start-up check of the PyTorch/CUDA port (graphtrans_tpu_torch) on one
 NVIDIA card.
 
-usage: python3 chip_smoke.py [--trace trace.json]
+usage: python3 chip_smoke.py [--trace trace.json] [--baseline DIR]
+
+``--baseline DIR`` names a checkout of an earlier commit (its
+graphtrans_tpu_torch/ tree; for one run, never committed): phases 10a and
+11a then build its K4-bwd and K9 from its own sources and time them beside
+this tree's, in turns (earlier, this, this, earlier), on the same inputs.
 
 Phases, each printing one line (any failure raises and exits non-zero):
   0. the card (nvidia-smi name and power limit) and torch; TF32 off;
@@ -191,7 +196,7 @@ LAYERS = (
     ("layer_norm_bwd_kernel", "K10 transformer_layer (LayerNorm, sums)"),
     ("layer_colsum", "K10 transformer_layer (LayerNorm, sums)"),
     ("layer_sum", "K10 transformer_layer (LayerNorm, sums)"),
-    ("padtags", "K4-bwd attention_dense_bwd (K10's too)"),
+    ("attention_dense_bwd", "K4-bwd attention_dense_bwd (K10's too)"),
     ("segtags", "K5-bwd flash_attention_bwd"),
     ("byte_dropout", "K11 byte_dropout"),
     ("flash_hil_dq", "K3-bwd flash_hil_seg_bwd"),
@@ -247,6 +252,44 @@ def time_ms(fn, iters: int, reps: int = 5) -> float:
         b.synchronize()
         per.append(a.elapsed_time(b) / iters)
     return statistics.median(per)
+
+
+def load_baseline(root):
+    """The port package (graphtrans_tpu_torch) of the checkout at ``root``,
+    imported under its own name so that it builds its own csrc/ into its
+    own build directory: its (attention_packed, attention_smalls) kernel
+    modules, or None without ``root``."""
+    import importlib
+    import importlib.util
+
+    if root is None:
+        return None
+    pkg = os.path.join(os.path.abspath(root), "graphtrans_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "baseline_port", os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    sys.modules["baseline_port"] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sys.modules["baseline_port"])
+    mods = tuple(importlib.import_module(f"baseline_port.ops.kernels.{name}")
+                 for name in ("attention_packed", "attention_smalls"))
+    secs = importlib.import_module("baseline_port.ops.kernels._build").build(
+        ("attention_packed", "attention_smalls"))
+    print(f"[1] built the earlier K4-bwd and K9 from {root} in {secs:.1f} s")
+    return mods
+
+
+def turns_ms(new, old, iters: int):
+    """(this ms, earlier ms): ``new`` and ``old`` timed in turns (old, new,
+    new, old), each the mean of its two ``time_ms``; earlier None without
+    ``old``."""
+    if old is None:
+        return time_ms(new, iters=iters), None
+    o1, n1, n2, o2 = (time_ms(f, iters=iters) for f in (old, new, new, old))
+    return (n1 + n2) / 2, (o1 + o2) / 2
+
+
+def _ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
 
 
 def _bound(nbytes: int, flops: float):
@@ -1970,12 +2013,13 @@ def _chunked_plain_bwd_ms(fn, qkv, g, rows: int) -> float:
     return total
 
 
-def phase10_kernels(device, mol_bench, code2_bench):
+def phase10_kernels(device, mol_bench, code2_bench, base=None):
     """(a) K4 and K5 with attention dropout 0.3 and their backward kernels
     against the plain versions and autograd at the Transformer-only
     model's training shapes, and K11 against its plain version at the
     widths of the bench512 activations; times beside bound, plain version
-    and library yardstick."""
+    and library yardstick (K4-bwd also beside ``base``'s, the earlier
+    design, in turns)."""
     from graphtrans_tpu_torch import predict
     from graphtrans_tpu_torch.data.loader import iterate_batches
     from graphtrans_tpu_torch.ops.kernels import (
@@ -1983,7 +2027,7 @@ def phase10_kernels(device, mol_bench, code2_bench):
         byte_dropout_plain, flash_attention_bwd, flash_attention_plain,
         key_padding_segs)
     from graphtrans_tpu_torch.ops.kernels.attention_packed import (
-        attention_dense_with_stats)
+        attention_dense_with_stats, dense_bwd_geometry)
     from graphtrans_tpu_torch.ops.kernels.flash_attention import (
         flash_attention_with_stats)
 
@@ -2018,8 +2062,14 @@ def phase10_kernels(device, mol_bench, code2_bench):
         k4_ferr, k4_err = max(k4_ferr, f), max(k4_err, e)
         saved = attention_dense_with_stats(qkv, v, nhead, block, DROPOUT,
                                            seed)
-        t = dict(ms=time_ms(lambda: attention_dense_bwd(
-                     qkv, v, nhead, g, block, DROPOUT, seed, saved), iters=10),
+        ms, earlier = turns_ms(
+            lambda: attention_dense_bwd(qkv, v, nhead, g, block, DROPOUT,
+                                        seed, saved),
+            base and (lambda: base[0].attention_dense_bwd(
+                qkv, v, nhead, g, block, DROPOUT, seed, saved)), 10)
+        t = dict(ms=ms, earlier_ms=earlier,
+                 instance=dense_bwd_geometry(*qkv.shape[:2], block,
+                                             d // nhead, nhead).instance,
                  plain_ms=_plain_bwd_ms(lambda x: attention_dense_plain(
                      x, v, nhead, block, DROPOUT, seed), [qkv], g),
                  library_ms=sdpa_bwd_mask_ms(qkv, _block_mask(v, block),
@@ -2061,6 +2111,10 @@ def phase10_kernels(device, mol_bench, code2_bench):
           f"plain versions (<= {GRAD_TOL}); dead blocks, queries without a "
           f"key and padding keys get exactly 0")
     for (kname, name), t in timed.items():
+        if "instance" in t:
+            print(f"[10a] {name} {kname} ({t['instance']} instance) "
+                  f"[{t['shape']}]: kernel {t['ms']:.4f} ms against "
+                  f"{_ms(t['earlier_ms'])} for the earlier design, in turns")
         print(f"[10a] {name} {kname} [{t['shape']}]: kernel {t['ms']:.4f} ms "
               f"(training forward {t['fwd_ms']:.4f} ms), plain backward "
               f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
@@ -2164,6 +2218,8 @@ def phase10_train(device, tmp: str):
             raise AssertionError(f"{args.dataset} Transformer-only training "
                                  f"launches {launches}, expected {want}")
         totals.update(launches)
+        totals.update({f"attention_dense_bwd {k}": v for k, v in
+                       kernels.attention_dense_bwd.instances.items()})
         if not all(math.isfinite(r["loss"]) for r in res["epochs"]):
             raise AssertionError(f"epoch losses not finite: {res['epochs']}")
         init, _ = _trainer(args, num_tasks, device, data=code)
@@ -2413,21 +2469,22 @@ def k10_bound(x, valid, params, nhead: int, block: int,
                   2 * gemm + pairs * nhead * (10 * hd + 8))
 
 
-def phase11_kernels(device, mol_bench, code2_bench):
+def phase11_kernels(device, mol_bench, code2_bench, base=None):
     """(a) K9 and K9-bwd (attention_smalls) at rates 0 and 0.3 on the
     molpcba snapshot's rows of 49 (smalls), 4096 molecules' rows of 33
     (smalls) and packed rows of 99 (packed_smalls, block 33), and code2's
     rows of 1001 (smalls); K10 and K10-bwd (transformer_layer) at 4096
     molecules' [1366, 99, 256], ff 512, block 33 and the snapshot's rows of
     98, block 49; against their plain versions and autograd, and timed
-    beside bound, plain version and library yardstick."""
+    beside bound, plain version and library yardstick (K9's forward also
+    beside ``base``'s, the earlier design, in turns)."""
     from graphtrans_tpu_torch import predict
     from graphtrans_tpu_torch.data.loader import iterate_batches
     from graphtrans_tpu_torch.ops.kernels import (
         attention_smalls, attention_smalls_bwd, attention_smalls_plain,
         transformer_layer, transformer_layer_bwd, transformer_layer_plain)
     from graphtrans_tpu_torch.ops.kernels.attention_smalls import (
-        attention_smalls_with_stats)
+        attention_smalls_with_stats, fwd_geometry)
     from graphtrans_tpu_torch.ops.kernels.transformer_layer import (
         transformer_layer_saved)
 
@@ -2463,8 +2520,13 @@ def phase11_kernels(device, mol_bench, code2_bench):
                                             seed)
         plain = lambda x, r0: attention_smalls_plain(
             x, v[r0:r0 + 64], nhead, block, DROPOUT, seed)
-        t = dict(ms=time_ms(lambda: attention_smalls(qkv, v, nhead, block),
-                            iters=5 if rows else 20),
+        ms, earlier = turns_ms(
+            lambda: attention_smalls(qkv, v, nhead, block),
+            base and (lambda: base[1].attention_smalls(qkv, v, nhead, block)),
+            5 if rows else 20)
+        t = dict(ms=ms, earlier_ms=earlier,
+                 instance=fwd_geometry(*qkv.shape[:2], block, d // nhead,
+                                       nhead, False, 0.0).instance,
                  plain_ms=time_ms(lambda: attention_smalls_plain(
                      qkv, v, nhead, block), iters=1 if rows else 3),
                  library_ms=sdpa_mask_ms(qkv, _block_mask(v, block), nhead,
@@ -2492,6 +2554,9 @@ def phase11_kernels(device, mol_bench, code2_bench):
           f"0 and {DROPOUT}, at {list(k9_cases)} (S 1001: the first 64 rows);"
           f" queries without a key and padding keys get exactly 0")
     for name, t in timed.items():
+        print(f"[11a] {name} K9 attention_smalls ({t['instance']} instance) "
+              f"[{t['shape']}]: kernel {t['ms']:.4f} ms against "
+              f"{_ms(t['earlier_ms'])} for the earlier design, in turns")
         print(f"[11a] {name} K9 attention_smalls [{t['shape']}]: kernel "
               f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
               f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library "
@@ -2556,8 +2621,10 @@ def phase11_kernels(device, mol_bench, code2_bench):
                                library_ms=t[pre + "library_ms"])
     k9 = timed["bench4096 smalls S 33"]
     k10 = ltimed["bench4096 [1366, 99] block 33"]
-    return dict(errs=errs, timed=(pick(k9, ""), pick(k9, "bwd_"),
-                                  pick(k10, ""), pick(k10, "bwd_")))
+    return dict(errs=errs, timed=(dict(pick(k9, ""),
+                                       earlier_ms=k9["earlier_ms"]),
+                                  pick(k9, "bwd_"), pick(k10, ""),
+                                  pick(k10, "bwd_")))
 
 
 # The wrapper each backend's molpcba Transformer-only layers launch: rows of
@@ -2628,6 +2695,8 @@ def phase11_serve(device, tmp: str):
                 raise AssertionError(f"{backend} {split}: launches "
                                      f"{launches}, expected {want}")
             totals.update(launches)
+            totals.update({f"attention_smalls {k}": v for k, v in
+                           kernels.attention_smalls.instances.items()})
         print(f"[11b] served the molpcba snapshot (3 splits) through "
               f"graphtrans_tpu_torch.predict under {backend}"
               f"{' (set in process)' if backend == 'packed_layer' else ''}:"
@@ -2739,6 +2808,8 @@ def phase11_train(device, tmp: str):
             raise AssertionError(f"training under {backend}: launches "
                                  f"{launches}, expected {want}")
         totals.update(launches)
+        totals.update({f"attention_smalls {k}": v for k, v in
+                       kernels.attention_smalls.instances.items()})
         if not all(math.isfinite(r["loss"]) for r in res["epochs"]):
             raise AssertionError(f"epoch losses not finite: {res['epochs']}")
         init, _ = _trainer(args, num_tasks, device)
@@ -3753,6 +3824,9 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--trace", default=None,
                    help="write phase 5's chrome trace to this file")
+    p.add_argument("--baseline", default=None,
+                   help="a checkout of an earlier commit whose K4-bwd and K9 "
+                        "phases 10a and 11a time beside this tree's")
     opts = p.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3778,6 +3852,7 @@ def main(argv=None) -> int:
                      for line in log.splitlines() if "registers" in line)
     print(f"[1] built {', '.join(_build.KERNELS)} with nvcc (sm_90a) in "
           f"{secs:.1f} s; ptxas: {regs}")
+    base = load_baseline(opts.baseline)
 
     args = _args()
     t0 = time.perf_counter()
@@ -3820,12 +3895,12 @@ def main(argv=None) -> int:
         tf_launches = phase9_serve(device, tmp)
     phase9_forward(device, mol_flat, code2_flat, flat_tasks, smi)
 
-    tf_train = phase10_kernels(device, mol_flat, code2_flat)
+    tf_train = phase10_kernels(device, mol_flat, code2_flat, base)
     with tempfile.TemporaryDirectory() as tmp:
         tf_train_launches = phase10_train(device, tmp)
     k11_launches = phase10_step(device, mol_flat, code2_flat, flat_tasks, smi)
 
-    switch = phase11_kernels(device, mol_flat, code2_flat)
+    switch = phase11_kernels(device, mol_flat, code2_flat, base)
     with tempfile.TemporaryDirectory() as tmp:
         switch_launches = phase11_serve(device, tmp)
         switch_launches.update(phase11_train(device, tmp))
@@ -3915,8 +3990,11 @@ def main(argv=None) -> int:
              max_abs_err=tf["k5_err"], **k5),
         dict(name="attention_dense_bwd", route="cuda",
              source="graphtrans_tpu_torch/csrc/attention_packed.cu",
+             header="graphtrans_tpu_torch/csrc/attention_tile.cuh",
              replaces="graphtrans_tpu/ops/pallas/attention_packed.py:393",
              launches=tf_train_launches["attention_dense_bwd"],
+             instances={k: tf_train_launches[f"attention_dense_bwd {k}"]
+                        for k in ("short", "wide")},
              # relative to max(1, max |reference|), as check_k4_train holds it
              max_abs_err=tf_train["k4_err"], **k4b),
         dict(name="flash_attention_bwd", route="cuda",
@@ -3930,8 +4008,11 @@ def main(argv=None) -> int:
              launches=k11_launches, max_abs_err=tf_train["k11_err"], **k11),
         dict(name="attention_smalls_fwd", route="cuda",
              source="graphtrans_tpu_torch/csrc/attention_smalls.cu",
+             header="graphtrans_tpu_torch/csrc/attention_tile.cuh",
              replaces="graphtrans_tpu/ops/pallas/attention_smallS.py:176",
              launches=switch_launches["attention_smalls"],
+             instances={k: switch_launches[f"attention_smalls {k}"]
+                        for k in ("tile", "stream")},
              max_abs_err=switch["errs"]["k9"], **k9),
         dict(name="attention_smalls_bwd", route="cuda",
              source="graphtrans_tpu_torch/csrc/attention_smalls.cu",

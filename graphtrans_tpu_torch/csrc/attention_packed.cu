@@ -28,15 +28,20 @@
 // l_i and delta_i = sum_j p_ij dp_ij in one online pass, then dq_i in a
 // second pass. Pass B, one thread per key: dk_j and dv_j as sums over the
 // queries of its segment, with m, 1/l and delta of every query from shared
-// memory. Every output cell has one writer: no atomics. Staging a whole row
-// does not fit K4 at hd 64 past W ~ 223 (4*W*HD floats), so K4's backward
-// is the streaming pair of attention_bwd.cuh (shared with K5) with K4's
-// mask as tags and K2's dropout.
+// memory. Every output cell has one writer: no atomics.
+//
+// K4's backward runs on attention_tile.cuh, one fused kernel per span (a
+// graph block, or the row at block 0): delta = dO.O, p, dp and ds of each
+// pair once (one dropout draw), then dQ, dK and dV from the shared tiles.
+// Spans of up to 64 tokens go whole to attention_dense_bwd_short_kernel;
+// wider ones (block 0, rows of up to 384) to attention_dense_bwd_wide_kernel
+// in 64-token tiles. The wrapper (dense_bwd_geometry) picks the instance,
+// grid, threads and shared bytes; the entry checks them before launching.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "attention_bwd.cuh"
+#include "attention_tile.cuh"
 #include "hash.cuh"
 
 namespace {
@@ -61,7 +66,7 @@ struct Dropout {
     return hash_bits(pos, hseed) < thresh;
   }
 
-  // keep (r, h, i, j): the Keep policy of attention_bwd.cuh (K4-bwd)
+  // keep (r, h, i, j): the Keep policy of attention_tile.cuh (K4-bwd)
   __device__ bool operator()(long r, int h, int H, int W, int i,
                              int j) const {
     return at((unsigned)seed + (unsigned)(r / bt) * stride + h,
@@ -344,6 +349,32 @@ attention_seg_bwd_kernel(const float* __restrict__ qkv,
   }
 }
 
+// K4's backward: spans of up to tile::SHORT_MAX tokens, `group` a block.
+template <int HD>
+__global__ void __launch_bounds__(tile::THREADS)
+attention_dense_bwd_short_kernel(
+    const float* __restrict__ qkv, const unsigned char* __restrict__ valid,
+    const float* __restrict__ out, const float* __restrict__ gout,
+    const float* __restrict__ stat_m, const float* __restrict__ stat_l,
+    float* __restrict__ dqkv, int B, int S, int d, int H, int block, int np,
+    int group, float scale, Dropout dr) {
+  tile::bwd_short<HD>(qkv, valid, out, gout, stat_m, stat_l, dqkv, B, S, d,
+                      H, block, np, group, scale, dr);
+}
+
+// K4's backward: wider spans, one a block of tile::THREADS, 64-token tiles.
+template <int HD>
+__global__ void __launch_bounds__(tile::THREADS)
+attention_dense_bwd_wide_kernel(
+    const float* __restrict__ qkv, const unsigned char* __restrict__ valid,
+    const float* __restrict__ out, const float* __restrict__ gout,
+    const float* __restrict__ stat_m, const float* __restrict__ stat_l,
+    float* __restrict__ dqkv, int S, int d, int H, int block, int npad,
+    float scale, Dropout dr) {
+  tile::bwd_wide<HD>(qkv, valid, out, gout, stat_m, stat_l, dqkv, S, d, H,
+                     block, npad, scale, dr);
+}
+
 // K/V of the row (196 KB at hd 64, W 384) take dynamic shared memory past
 // the 48 KB default, hence the attribute.
 template <typename Kernel, typename Tag>
@@ -375,6 +406,63 @@ int launch_bwd(const float* qkv, const int* seg, const float* gout,
   attention_seg_bwd_kernel<HD><<<grid, W, smem, stream>>>(
       qkv, seg, gout, dqkv, W, d, 1.f / sqrtf((float)HD), dr);
   return cudaGetLastError();
+}
+
+// A launch as the wrapper computed it (attention_packed.py:Geometry):
+// instance 1 the short kernel, 2 the wide one.
+struct Launch {
+  int instance, pad, group, gx, gy, gz, threads, smem;
+};
+
+// Launches K4's backward at HD after checking the wrapper's geometry
+// against the spans of (S, block) and the card's limits; the shared-memory
+// attribute of each kernel is raised once, before its first launch.
+template <int HD>
+int launch_dense_bwd(const float* qkv, const unsigned char* valid,
+                     const float* out, const float* gout, const float* stat_m,
+                     const float* stat_l, float* dqkv, int B, int S, int d,
+                     int H, int block, Dropout dr, Launch L,
+                     cudaStream_t stream) {
+  const tile::Spans sp = tile::spans_of(S, block);
+  const long problems = (long)B * sp.count * H;
+  const float scale = 1.f / sqrtf((float)HD);
+  if (L.smem <= 0 || L.smem > tile::SMEM_MAX || L.group < 1 ||
+      L.threads < 32 || L.threads > tile::THREADS || L.threads % 32 ||
+      L.gy != 1 || L.gz != 1)
+    return cudaErrorInvalidValue;
+  if (L.instance == 1) {
+    const int np = tile::round4(sp.width);
+    if (sp.width > tile::SHORT_MAX || L.pad != np ||
+        (long)L.gx != (problems + L.group - 1) / L.group ||
+        L.smem != L.group * tile::bwd_short_floats(np, HD) * 4)
+      return cudaErrorInvalidValue;
+    static const cudaError_t set = cudaFuncSetAttribute(
+        attention_dense_bwd_short_kernel<HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, tile::SMEM_MAX);
+    if (set != cudaSuccess) return set;
+    attention_dense_bwd_short_kernel<HD><<<L.gx, L.threads, L.smem,
+                                           stream>>>(
+        qkv, valid, out, gout, stat_m, stat_l, dqkv, B, S, d, H, block, np,
+        L.group, scale, dr);
+    return cudaGetLastError();
+  }
+  if (L.instance == 2) {
+    const int npad = (sp.width + tile::WIDE - 1) / tile::WIDE * tile::WIDE;
+    if (sp.width > W_MAX || L.pad != tile::WIDE || L.group != 1 ||
+        L.threads != tile::THREADS || (long)L.gx != problems ||
+        L.smem != tile::bwd_wide_floats(npad, HD) * 4)
+      return cudaErrorInvalidValue;
+    static const cudaError_t set = cudaFuncSetAttribute(
+        attention_dense_bwd_wide_kernel<HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, tile::SMEM_MAX);
+    if (set != cudaSuccess) return set;
+    attention_dense_bwd_wide_kernel<HD><<<L.gx, L.threads, L.smem,
+                                          stream>>>(
+        qkv, valid, out, gout, stat_m, stat_l, dqkv, S, d, H, block, npad,
+        scale, dr);
+    return cudaGetLastError();
+  }
+  return cudaErrorInvalidValue;
 }
 
 Dropout make_dropout(int on, unsigned thresh, float inv_keep, int seed,
@@ -446,30 +534,32 @@ extern "C" int attention_dense_fwd(const float* qkv,
 }
 
 // K4 backward: dqkv [B, S, 3d] for the cotangent gout [B, S, d] of
-// attention_dense_fwd's out, from its saved m and l; delta [B, S, H] is
-// scratch. The streaming kernels of attention_bwd.cuh with K4's mask as
-// tags and K2's dropout tiling (stride as the forward's). Heads of width 32
-// or 64.
+// attention_dense_fwd's out, from its saved m and l, with K2's dropout
+// tiling (stride as the forward's). Heads of width 32 or 64; S <= 384. The
+// launch (instance, pad, group, grid, threads, smem) is the wrapper's
+// dense_bwd_geometry; one that does not match (S, block, hd) is refused.
 extern "C" int attention_dense_bwd(const float* qkv,
                                    const unsigned char* valid,
                                    const float* out, const float* gout,
                                    const float* stat_m, const float* stat_l,
-                                   float* delta, float* dqkv, int B, int S,
-                                   int d, int H, int block, int drop,
-                                   unsigned thresh, float inv_keep, int seed,
-                                   int bt, int sp, int stride,
+                                   float* dqkv, int B, int S, int d, int H,
+                                   int block, int drop, unsigned thresh,
+                                   float inv_keep, int seed, int bt, int sp,
+                                   int stride, int instance, int pad,
+                                   int group, int gx, int gy, int gz,
+                                   int threads, int smem,
                                    cudaStream_t stream) {
   if (B <= 0 || S <= 0 || S > W_MAX || block < 0 || H <= 0 || d % H ||
       stride < H)
     return cudaErrorInvalidValue;
   const Dropout dr = make_dropout(drop, thresh, inv_keep, seed, bt, sp, stride);
-  const attn::PadTags tags{valid, block};
+  const Launch L{instance, pad, group, gx, gy, gz, threads, smem};
   if (d == H * 32)
-    return attn::launch_bwd<32>(qkv, tags, out, gout, stat_m, stat_l, delta,
-                                dqkv, B, S, d, H, dr, stream);
+    return launch_dense_bwd<32>(qkv, valid, out, gout, stat_m, stat_l, dqkv, B,
+                                S, d, H, block, dr, L, stream);
   if (d == H * 64)
-    return attn::launch_bwd<64>(qkv, tags, out, gout, stat_m, stat_l, delta,
-                                dqkv, B, S, d, H, dr, stream);
+    return launch_dense_bwd<64>(qkv, valid, out, gout, stat_m, stat_l, dqkv, B,
+                                S, d, H, block, dr, L, stream);
   return cudaErrorInvalidValue;
 }
 

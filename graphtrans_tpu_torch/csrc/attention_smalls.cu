@@ -7,10 +7,15 @@
 // -> out [B, S, d]. Key j is attendable by query i iff valid[j] and, with
 // block > 0, i / block == j / block: K4's function (a padding query attends
 // its block's valid keys; a query whose block has no valid key writes
-// zeros), as the tags of attention_bwd.cuh's PadTags. The forward is the
-// streaming body of attention_fwd.cuh (K5's) and the backward the streaming
-// pair of attention_bwd.cuh (K4's and K5's), each under K9's own
-// __global__ instances with K9's dropout schedule as the Keep policy.
+// zeros), as the tags of attention_bwd.cuh's PadTags. The forward has two
+// instances, picked by the span width (a graph block, or the row at block
+// 0) in the wrapper's fwd_geometry: spans of up to 128 tokens (112 at hd
+// 128, where shared memory runs out) take the whole-tile body of
+// attention_tile.cuh (scores once, an exact two-pass softmax, O = P_drop V
+// / l), wider ones the streaming body of attention_fwd.cuh (K5's). The
+// backward is the streaming pair of attention_bwd.cuh (K5's), reading
+// either forward's m and l. Each instance is K9's own __global__ with K9's
+// dropout schedule as the Keep policy.
 //
 // Dropout keeps (b, h, i, j) iff hash(pos, seed + p / ht) < thresh with
 // p = b*H + h, ht = max(1, min(16, 4096 / S)) and pos = ((p % ht)*S + i)*S
@@ -23,6 +28,7 @@
 
 #include "attention_bwd.cuh"
 #include "attention_fwd.cuh"
+#include "attention_tile.cuh"
 #include "hash.cuh"
 
 namespace {
@@ -57,15 +63,64 @@ attention_smalls_fwd_kernel(const float* __restrict__ qkv,
                                     stat_m, stat_l, S, d, scale, dr);
 }
 
+// Spans of up to the tile threshold, `group` (row, span, head) a block.
+template <int HD, bool DROP, bool STATS>
+__global__ void __launch_bounds__(tile::THREADS)
+attention_smalls_fwd_tile_kernel(const float* __restrict__ qkv,
+                                 const unsigned char* __restrict__ valid,
+                                 float* __restrict__ out,
+                                 float* __restrict__ stat_m,
+                                 float* __restrict__ stat_l, int B, int S,
+                                 int d, int H, int block, int np, int group,
+                                 float scale, SmallsKeep dr) {
+  tile::fwd_short<HD, DROP, STATS>(qkv, valid, out, stat_m, stat_l, B, S, d,
+                                   H, block, np, group, scale, dr);
+}
+
+// A launch as the wrapper computed it (attention_smalls.py:fwd_geometry):
+// instance 1 the tile body, 2 the streaming one.
+struct Launch {
+  int instance, pad, group, gx, gy, gz, threads, smem;
+};
+
+// Checks the wrapper's geometry against (B, S, H, block) and the card's
+// limits, then launches the instance; the tile kernel's shared-memory
+// attribute is raised once, before its first launch.
 template <int HD, bool DROP, bool STATS>
 int launch_instance(const float* qkv, const unsigned char* valid, float* out,
                     float* stat_m, float* stat_l, int B, int S, int d, int H,
-                    int block, SmallsKeep dr, cudaStream_t stream) {
-  dim3 grid(B, H, (S + BQ - 1) / BQ);
-  attention_smalls_fwd_kernel<HD, DROP, STATS><<<grid, BQ, 0, stream>>>(
-      qkv, valid, out, stat_m, stat_l, S, d, block, 1.f / sqrtf((float)HD),
-      dr);
-  return cudaGetLastError();
+                    int block, SmallsKeep dr, Launch L, cudaStream_t stream) {
+  const float scale = 1.f / sqrtf((float)HD);
+  if (L.instance == 1) {
+    const tile::Spans sp = tile::spans_of(S, block);
+    const int np = tile::round4(sp.width);
+    const long problems = (long)B * sp.count * H;
+    if (L.pad != np || np > 128 || L.group < 1 || L.threads < 32 ||
+        L.threads > tile::THREADS || L.threads % 32 || L.gy != 1 ||
+        L.gz != 1 || (long)L.gx != (problems + L.group - 1) / L.group ||
+        L.smem != L.group * tile::fwd_floats(np, HD) * 4 ||
+        L.smem > tile::SMEM_MAX)
+      return cudaErrorInvalidValue;
+    static const cudaError_t set = cudaFuncSetAttribute(
+        attention_smalls_fwd_tile_kernel<HD, DROP, STATS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, tile::SMEM_MAX);
+    if (set != cudaSuccess) return set;
+    attention_smalls_fwd_tile_kernel<HD, DROP, STATS>
+        <<<L.gx, L.threads, L.smem, stream>>>(qkv, valid, out, stat_m, stat_l,
+                                              B, S, d, H, block, np, L.group,
+                                              scale, dr);
+    return cudaGetLastError();
+  }
+  if (L.instance == 2) {
+    if (L.gx != B || L.gy != H || L.gz != (S + BQ - 1) / BQ ||
+        L.threads != BQ || L.smem != 0)
+      return cudaErrorInvalidValue;
+    dim3 grid(B, H, L.gz);
+    attention_smalls_fwd_kernel<HD, DROP, STATS><<<grid, BQ, 0, stream>>>(
+        qkv, valid, out, stat_m, stat_l, S, d, block, scale, dr);
+    return cudaGetLastError();
+  }
+  return cudaErrorInvalidValue;
 }
 
 // The serving instance (no dropout, no statistics), the gradient instance
@@ -73,15 +128,15 @@ int launch_instance(const float* qkv, const unsigned char* valid, float* out,
 template <int HD>
 int launch_fwd(const float* qkv, const unsigned char* valid, float* out,
                float* stat_m, float* stat_l, int B, int S, int d, int H,
-               int block, SmallsKeep dr, cudaStream_t stream) {
+               int block, SmallsKeep dr, Launch L, cudaStream_t stream) {
   if (dr.on)
     return launch_instance<HD, true, true>(qkv, valid, out, stat_m, stat_l,
-                                           B, S, d, H, block, dr, stream);
+                                           B, S, d, H, block, dr, L, stream);
   if (stat_m)
     return launch_instance<HD, false, true>(qkv, valid, out, stat_m, stat_l,
-                                            B, S, d, H, block, dr, stream);
+                                            B, S, d, H, block, dr, L, stream);
   return launch_instance<HD, false, false>(qkv, valid, out, stat_m, stat_l,
-                                           B, S, d, H, block, dr, stream);
+                                           B, S, d, H, block, dr, L, stream);
 }
 
 SmallsKeep make_keep(int on, unsigned thresh, float inv_keep, int seed,
@@ -106,28 +161,33 @@ extern "C" const char* error_string(int err) {
 // width 32, 64 or 128; any S. drop = 0 is attention without dropout;
 // otherwise (thresh, inv_keep, seed) define the keep mask as above. stat_m
 // and stat_l ([B, S, H]) may be null without dropout: the softmax
-// statistics are then not written (serving).
+// statistics are then not written (serving). The launch (instance, pad,
+// group, grid, threads, smem) is the wrapper's fwd_geometry; one that does
+// not match the shapes is refused.
 extern "C" int attention_smalls_fwd(const float* qkv,
                                     const unsigned char* valid, float* out,
                                     float* stat_m, float* stat_l, int B,
                                     int S, int d, int H, int block, int drop,
                                     unsigned thresh, float inv_keep, int seed,
+                                    int instance, int pad, int group, int gx,
+                                    int gy, int gz, int threads, int smem,
                                     cudaStream_t stream) {
   if (B <= 0 || S <= 0 || H <= 0 || d % H || block < 0)
     return cudaErrorInvalidValue;
   if ((stat_m == nullptr) != (stat_l == nullptr)) return cudaErrorInvalidValue;
   if (drop && stat_m == nullptr) return cudaErrorInvalidValue;
   const SmallsKeep dr = make_keep(drop, thresh, inv_keep, seed, S);
+  const Launch L{instance, pad, group, gx, gy, gz, threads, smem};
   switch (d / H) {
     case 32:
       return launch_fwd<32>(qkv, valid, out, stat_m, stat_l, B, S, d, H,
-                            block, dr, stream);
+                            block, dr, L, stream);
     case 64:
       return launch_fwd<64>(qkv, valid, out, stat_m, stat_l, B, S, d, H,
-                            block, dr, stream);
+                            block, dr, L, stream);
     case 128:
       return launch_fwd<128>(qkv, valid, out, stat_m, stat_l, B, S, d, H,
-                             block, dr, stream);
+                             block, dr, L, stream);
     default:
       return cudaErrorInvalidValue;
   }

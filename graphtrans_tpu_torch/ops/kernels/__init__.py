@@ -57,6 +57,8 @@ WRAPPERS = (gin_agg, gin_agg_bwd, attention_seg, attention_seg_bwd,
 def reset_launches():
     for fn in WRAPPERS:
         fn.launches = 0
+        for name in getattr(fn, "instances", ()):
+            fn.instances[name] = 0
 
 
 def launch_counts() -> dict:

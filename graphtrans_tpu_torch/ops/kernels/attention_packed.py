@@ -62,19 +62,23 @@ conversion precedes a launch. Design: the forward is K2's forward kernel
 with the mask as a template policy (``PadMask``); a query walks only its
 own block's keys, and K/V of a row of up to 384 tokens sit in dynamic
 shared memory (196 KB at hd 64); where a gradient is wanted it also
-writes m and l ``[B, S, H]``. K2's backward stages Q, K, V and dO of a
-whole row, which past ~223 tokens at hd 64 exceeds a block's shared
-memory, so K4's backward is the streaming pair of
-``csrc/attention_bwd.cuh`` (shared with K5): a dq kernel that also writes
-delta, and a dk/dv kernel, each token handled by hd/32 threads, tiles of
-keys (queries) outside the block's graph blocks skipped. Heads of width
-32 and 64.
+writes m and l ``[B, S, H]``. K4's backward is one fused kernel per
+attention block (``csrc/attention_tile.cuh``): a span is a graph block of
+a packed row, or the whole row at block 0, and its Q, K, V and dO are
+staged in shared memory once; delta = dO.O, p, dp and ds of every pair
+are computed once (one dropout draw), then dQ, dK and dV as
+register-blocked tile products. Spans of up to 64 tokens are taken whole
+(the short instance, several spans a block where one is small); wider
+ones (block 0, up to 384) in 64-token tiles with the span's dQ sums in
+shared memory (the wide instance). ``dense_bwd_geometry`` computes each
+launch; the C entry refuses one it cannot run. Heads of width 32 and 64.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -313,6 +317,96 @@ def attention_seg_bwd(qkv: torch.Tensor, seg: torch.Tensor, nhead: int,
 attention_seg_bwd.launches = 0
 
 
+# ---- launch geometry of the kernels on csrc/attention_tile.cuh ------------
+
+SMEM_MAX = 232448    # dynamic shared bytes a block may take on the H100
+TILE_THREADS = 256   # the most threads a block of a tile kernel
+TILE_GROUP_MAX = 8   # the most (row, span, head) problems a block
+SHORT_MAX = 64       # the longest span the short backward takes whole
+WIDE = 64            # rows of a tile of the wide backward
+
+
+@dataclass(frozen=True)
+class Geometry:
+    """One launch of a kernel on ``csrc/attention_tile.cuh`` (or K9's
+    streaming one): the instance, the spans of a row (start, end), the
+    rows ``pad`` of a span's tile, the problems (row, span, head) ``group``
+    a CUDA block, the grid, the threads a block and its dynamic shared
+    bytes. ``args`` are the ints the C entry checks and launches."""
+    instance: str
+    spans: tuple
+    pad: int
+    group: int
+    grid: tuple
+    threads: int
+    smem: int
+
+    def args(self):
+        code = {"short": 1, "tile": 1, "wide": 2, "stream": 2}[self.instance]
+        return (code, self.pad, self.group, *self.grid, self.threads,
+                self.smem)
+
+
+def row_spans(S: int, block: int) -> tuple:
+    """The attention blocks of a row of S tokens: graph blocks of ``block``
+    tokens (the last may be shorter), or the whole row at block 0."""
+    width = block if 0 < block < S else S
+    return tuple((s, min(S, s + width)) for s in range(0, S, width))
+
+
+def _round(n: int, k: int) -> int:
+    return -(-n // k) * k
+
+
+def bwd_short_bytes(pad: int, hd: int) -> int:
+    """Shared bytes of one problem of the short backward: Q, K, V, dO;
+    P_drop, dS; m, 1/l, delta and the key mask of each row."""
+    return 4 * (4 * pad * (hd + 4) + 2 * pad * (pad + 4) + 4 * pad)
+
+
+def bwd_wide_bytes(width: int, hd: int) -> int:
+    """Shared bytes of the wide backward: four 64-row tiles, two score
+    tiles, the span's dQ sums and statistics, a key tile's mask."""
+    npad = _round(width, WIDE)
+    return 4 * (4 * WIDE * (hd + 4) + 2 * WIDE * (WIDE + 4)
+                + npad * (hd + 4) + 3 * npad + WIDE)
+
+
+def tile_launch(instance: str, spans: tuple, per: int, problems: int):
+    """The geometry of a whole-span tile kernel whose problem takes ``per``
+    shared bytes: a thread for each 4 x 4 micro-tile of the pair tile (at
+    most TILE_THREADS), and as many problems a block (a power of two up to
+    TILE_GROUP_MAX) as keep their micro-tiles within 128 threads and their
+    shared memory within SMEM_MAX: spans of up to 32 tokens share a
+    block."""
+    width = spans[0][1] - spans[0][0]
+    pad = _round(width, 4)
+    tiles = (pad // 4) ** 2
+    group = 1
+    while (group < TILE_GROUP_MAX and 2 * group * tiles <= 128
+           and 2 * group * per <= SMEM_MAX):
+        group *= 2
+    threads = min(TILE_THREADS, _round(group * tiles, 32))
+    return Geometry(instance, spans, pad, group,
+                    (-(-problems // group), 1, 1), threads, group * per)
+
+
+def dense_bwd_geometry(B: int, S: int, block: int, hd: int,
+                       nhead: int) -> Geometry:
+    """K4-bwd's launch for rows of S tokens: one problem (row, span, head)
+    per span of ``row_spans(S, block)``; spans of up to SHORT_MAX tokens
+    take the short instance (whole, ``group`` a block), wider ones the
+    wide instance (one a block of 256 threads, 64-token tiles)."""
+    spans = row_spans(S, block)
+    width = spans[0][1] - spans[0][0]
+    problems = B * len(spans) * nhead
+    if width <= SHORT_MAX:
+        return tile_launch("short", spans, bwd_short_bytes(_round(width, 4),
+                                                           hd), problems)
+    return Geometry("wide", spans, WIDE, 1, (problems, 1, 1), TILE_THREADS,
+                    bwd_wide_bytes(width, hd))
+
+
 # ---- K4: key-padding attention, optionally block-diagonal -----------------
 
 DENSE_HEAD_DIMS = (32, 64)   # the head widths attention_dense compiles
@@ -469,7 +563,8 @@ def attention_dense_bwd(qkv: torch.Tensor, key_valid: torch.Tensor,
     dropout mask drawn again from ``seed``. ``saved`` is the forward's
     (out, m, l) from ``attention_dense_with_stats``, which the kernels
     read. CPU tensors take ``attention_dense_bwd_plain`` (no ``saved``);
-    CUDA tensors launch the dq and dk/dv kernels or raise."""
+    CUDA tensors launch the kernel (the instance ``dense_bwd_geometry``
+    picks, counted in ``attention_dense_bwd.instances``) or raise."""
     if qkv.device.type == "cpu":
         return attention_dense_bwd_plain(qkv, key_valid, nhead, gout, block,
                                          rate, seed)
@@ -486,31 +581,37 @@ def attention_dense_bwd(qkv: torch.Tensor, key_valid: torch.Tensor,
     dqkv = dense_bwd_launch(qkv, key_valid, nhead, gout, block, rate, seed,
                             saved)
     attention_dense_bwd.launches += 1
+    attention_dense_bwd.instances[dense_bwd_geometry(
+        B, S, block, d3 // 3 // nhead, nhead).instance] += 1
     return dqkv
 
 
 def dense_bwd_launch(qkv, key_valid, nhead, gout, block, rate, seed, saved,
                      stride=0):
-    """K4's backward kernels on checked CUDA tensors, uncounted (see
-    ``dense_fwd_launch``)."""
+    """K4's backward kernel on checked CUDA tensors, uncounted (see
+    ``dense_fwd_launch``), at ``dense_bwd_geometry``'s launch."""
     B, S, d3 = qkv.shape
     out, m, l = saved
     dqkv = torch.empty_like(qkv)
     if dqkv.numel() == 0:
         return dqkv
-    delta = torch.empty_like(m)
+    if out.data_ptr() % 16:
+        raise ValueError("attention_dense_bwd: the forward's output must be "
+                         "16-byte aligned")
+    geo = dense_bwd_geometry(B, S, block, d3 // 3 // nhead, nhead)
     valid = key_valid.contiguous()
     lib = _load()
     err = lib.attention_dense_bwd(
         *(ctypes.c_void_p(t.data_ptr())
-          for t in (qkv, valid, out, gout, m, l, delta, dqkv)),
+          for t in (qkv, valid, out, gout, m, l, dqkv)),
         B, S, d3 // 3, nhead, block, *_dropout_args(S, rate, seed),
-        stride or nhead, _stream(qkv))
+        stride or nhead, *geo.args(), _stream(qkv))
     _build.check(lib, err, "attention_dense_bwd")
     return dqkv
 
 
 attention_dense_bwd.launches = 0
+attention_dense_bwd.instances = {"short": 0, "wide": 0}   # launches by instance
 
 
 def _load():
@@ -522,9 +623,10 @@ def _load():
                                             + [ctypes.c_int] * 5 + drop
                                             + [ctypes.c_int, ctypes.c_void_p])
         lib.attention_dense_fwd.restype = ctypes.c_int
-        lib.attention_dense_bwd.argtypes = ([ctypes.c_void_p] * 8
+        lib.attention_dense_bwd.argtypes = ([ctypes.c_void_p] * 7
                                             + [ctypes.c_int] * 5 + drop
-                                            + [ctypes.c_int, ctypes.c_void_p])
+                                            + [ctypes.c_int] * 9
+                                            + [ctypes.c_void_p])
         lib.attention_dense_bwd.restype = ctypes.c_int
         lib.attention_seg_fwd.argtypes = ([ctypes.c_void_p] * 3
                                           + [ctypes.c_int] * 4 + drop

@@ -30,14 +30,22 @@ block = the graphs' width).
 What bounds it on the H100: memory at the molecule shapes (4096 rows of 33
 tokens, d 256, 4 heads of 64: q in and out back for every query, K and V
 for the valid keys, ~0.15 ms; the pairs need ~3.8 GFLOP, as K4's), and
-operations at code2's rows of 1001 (K5's shape). Design: no new device
-code. The forward is K5's streaming body (``csrc/attention_fwd.cuh``) and
-the backward K4's and K5's streaming pair (``csrc/attention_bwd.cuh``),
-both with K4's mask as tags (``PadTags``) and K9's seed schedule as the
-dropout policy, each under its own ``__global__`` instances in
-``csrc/attention_smalls.cu``. One block per (row, head, 128 queries) with a
-thread a query, so at rows of 33 three quarters of a block's threads idle.
-Heads of width 32, 64 and 128.
+operations at code2's rows of 1001 (K5's shape). Design: the forward has
+two hand-written instances, picked by the span width (a graph block, or
+the row at block 0; ``fwd_geometry``). Spans of up to ``tile_max(hd)``
+tokens (128; 112 at hd 128, where a span's Q, K, V and scores no longer
+fit a block's shared memory) take the whole-tile body of
+``csrc/attention_tile.cuh``: Q, K and V of the span staged once, the
+scores once into a shared tile by register-blocked micro-tiles, an exact
+two-pass softmax per query row, then O = P_drop V / l; several spans a
+block where one is small. Wider spans take K5's streaming body
+(``csrc/attention_fwd.cuh``, one block per (row, head, 128 queries), a
+thread a query). Both write the m and l that the backward reads, with
+the meaning ``attention_fwd.cuh`` gives them. The backward is K5's
+streaming pair (``csrc/attention_bwd.cuh``) with K4's mask as tags
+(``PadTags``). Each instance is its own ``__global__`` in
+``csrc/attention_smalls.cu`` with K9's seed schedule as the dropout
+policy. Heads of width 32, 64 and 128.
 """
 
 from __future__ import annotations
@@ -47,9 +55,45 @@ import ctypes
 import torch
 
 from . import _build
-from .attention_packed import (_stream, attention_dense_plain, hash_bits,
-                               keep_drop, keep_threshold)
+from .attention_packed import (SMEM_MAX, Geometry, _round, _stream,
+                               attention_dense_plain, hash_bits, keep_drop,
+                               keep_threshold, row_spans, tile_launch)
 from .flash_attention import HEAD_DIMS, PLAIN_SCORE_BYTES, _dropout_args
+
+
+TILE_MAX = 128       # the longest span the tile instance takes
+STREAM_THREADS = 128 # threads (queries) a block of the streaming instance
+
+
+def fwd_tile_bytes(pad: int, hd: int) -> int:
+    """Shared bytes of one problem of the tile forward: Q, K, V; the score
+    tile; 1/l and the key mask of each row."""
+    return 4 * (3 * pad * (hd + 4) + pad * (pad + 4) + 2 * pad)
+
+
+def tile_max(hd: int) -> int:
+    """The longest span the tile instance takes at head width ``hd``: up to
+    TILE_MAX tokens, while one problem fits a block's shared memory."""
+    return max(n for n in range(4, TILE_MAX + 1, 4)
+               if fwd_tile_bytes(n, hd) <= SMEM_MAX)
+
+
+def fwd_geometry(B: int, S: int, block: int, hd: int, nhead: int,
+                 stats: bool, rate: float) -> Geometry:
+    """K9's forward launch for rows of S tokens: the tile instance for spans
+    of ``row_spans(S, block)`` up to ``tile_max(hd)`` tokens, else the
+    streaming one (a block per (row, head, 128 queries)). ``stats`` and
+    ``rate`` pick the compiled variant (serving, gradient, training), not
+    the geometry; they are checked here as the entry checks them."""
+    if rate > 0.0 and not stats:
+        raise ValueError("attention_smalls: dropout saves the statistics")
+    spans = row_spans(S, block)
+    width = spans[0][1] - spans[0][0]
+    if width <= tile_max(hd):
+        return tile_launch("tile", spans, fwd_tile_bytes(_round(width, 4), hd),
+                           B * len(spans) * nhead)
+    return Geometry("stream", spans, 0, 1,
+                    (B, nhead, -(-S // STREAM_THREADS)), STREAM_THREADS, 0)
 
 
 def pairs_per_tile(S: int) -> int:
@@ -144,24 +188,28 @@ def attention_smalls_with_stats(qkv: torch.Tensor, key_valid: torch.Tensor,
     """K9's forward kernel on CUDA tensors: (out [B, S, d], m, l), with the
     softmax statistics m and l [B, S, H] that the backward reads (None,
     None when ``stats`` is False and ``rate`` 0: the serving launch writes
-    none; with dropout the kernel always writes them)."""
+    none; with dropout the kernel always writes them). The instance
+    (``fwd_geometry``) is counted in ``attention_smalls.instances``."""
     _check(qkv, key_valid, nhead, block, rate)
     B, S, d3 = qkv.shape
     out = torch.empty((B, S, d3 // 3), dtype=qkv.dtype, device=qkv.device)
     m = l = None
-    if stats or rate > 0.0:
+    stats = stats or rate > 0.0
+    if stats:
         m = torch.empty((B, S, nhead), dtype=torch.float32, device=qkv.device)
         l = torch.empty_like(m)
     if out.numel() == 0:
         return out, m, l
+    geo = fwd_geometry(B, S, block, d3 // 3 // nhead, nhead, stats, rate)
     valid = key_valid.contiguous()     # the bool itself: one byte a key
     ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
     lib = _load()
     err = lib.attention_smalls_fwd(
         ptr(qkv), ptr(valid), ptr(out), ptr(m), ptr(l), B, S, d3 // 3, nhead,
-        block, *_dropout_args(rate, seed), _stream(qkv))
+        block, *_dropout_args(rate, seed), *geo.args(), _stream(qkv))
     _build.check(lib, err, "attention_smalls_fwd")
     attention_smalls.launches += 1
+    attention_smalls.instances[geo.instance] += 1
     return out, m, l
 
 
@@ -209,6 +257,7 @@ def attention_smalls(qkv: torch.Tensor, key_valid: torch.Tensor, nhead: int,
 
 
 attention_smalls.launches = 0
+attention_smalls.instances = {"tile": 0, "stream": 0}   # launches by instance
 
 
 def attention_smalls_bwd(qkv: torch.Tensor, key_valid: torch.Tensor,
@@ -258,6 +307,7 @@ def _load():
         drop = [ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_int]
         lib.attention_smalls_fwd.argtypes = ([ctypes.c_void_p] * 5
                                              + [ctypes.c_int] * 5 + drop
+                                             + [ctypes.c_int] * 8
                                              + [ctypes.c_void_p])
         lib.attention_smalls_fwd.restype = ctypes.c_int
         lib.attention_smalls_bwd.argtypes = ([ctypes.c_void_p] * 8

@@ -1,0 +1,183 @@
+"""Launch geometry of the kernels on csrc/attention_tile.cuh (K4-bwd and K9's
+forward), on the CPU: for every (S, block, head width) that
+``nn/transformer.py:attention_route`` can send to K4 or K9, the spans
+partition the row and hold exactly K4's pairs, a block's dynamic shared
+memory fits the H100's 227 KB, the threads cover the work, and K9's
+threshold sends the molecules' spans to the tile instance and code2's rows
+of 1001 to the streaming one. The C entries check the same geometry before
+they launch (``csrc/attention_packed.cu``, ``csrc/attention_smalls.cu``);
+the ctypes signatures are held to those entries' parameter lists."""
+
+import importlib
+import re
+import types
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from graphtrans_tpu_torch.nn.transformer import attention_route  # noqa: E402
+
+ap = importlib.import_module("graphtrans_tpu_torch.ops.kernels."
+                             "attention_packed")
+asm = importlib.import_module("graphtrans_tpu_torch.ops.kernels."
+                              "attention_smalls")
+
+SMEM_MAX = 232448
+WIDTHS = (33, 49, 98, 99, 128, 129, 256, 383, 384)
+BLOCKS = (0, 33, 49, 64)
+CASES = [(S, block) for S in WIDTHS for block in BLOCKS]
+PARTIAL = [(100, 33), (98, 33), (129, 64), (20, 6)]   # S % block != 0
+CSRC = Path(__file__).resolve().parents[1] / "graphtrans_tpu_torch" / "csrc"
+
+
+def _k4_pairs(S, block):
+    """K4's mask without the key padding: (i, j) meet iff they share a graph
+    block (block 0: the row)."""
+    grp = torch.arange(S) // block if block else torch.zeros(S, dtype=int)
+    return grp[:, None] == grp[None, :]
+
+
+def _check_spans(spans, S, block):
+    assert spans[0][0] == 0 and spans[-1][1] == S
+    assert all(a < b for a, b in spans)
+    assert all(spans[k][1] == spans[k + 1][0] for k in range(len(spans) - 1))
+    cover = torch.zeros(S, S, dtype=torch.int32)
+    graph = torch.arange(S) // block if block else torch.zeros(S, dtype=int)
+    for a, b in spans:
+        cover[a:b, a:b] += 1
+        assert graph[a:b].unique().numel() == 1   # one graph a span
+    pairs = _k4_pairs(S, block)
+    assert (cover[pairs] == 1).all()              # each pair in one span
+    assert (cover[~pairs] == 0).all()             # and no other pair
+
+
+def _check_launch(geo, B, S, nhead):
+    spans = geo.spans
+    width = spans[0][1] - spans[0][0]
+    problems = B * len(spans) * nhead
+    assert 0 < geo.smem <= SMEM_MAX
+    assert geo.threads % 32 == 0 and 32 <= geo.threads <= 256
+    assert geo.group >= 1 and geo.grid[0] * geo.group >= problems
+    assert (geo.grid[0] - 1) * geo.group < problems   # no empty block
+    if geo.instance in ("short", "tile"):
+        assert geo.pad % 4 == 0 and width <= geo.pad < width + 4
+        # a thread for each 4 x 4 micro-tile of the pair tile
+        assert geo.threads >= min(256, geo.group * (geo.pad // 4) ** 2) - 31
+
+
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("S,block", CASES + PARTIAL)
+def test_k4_bwd_geometry(S, block, hd):
+    B, nhead = 1366, 4
+    geo = ap.dense_bwd_geometry(B, S, block, hd, nhead)
+    _check_spans(geo.spans, S, block)
+    _check_launch(geo, B, S, nhead)
+    width = geo.spans[0][1] - geo.spans[0][0]
+    assert geo.instance == ("short" if width <= 64 else "wide")
+    if geo.instance == "wide":
+        assert geo.threads == 256 and geo.group == 1 and geo.pad == 64
+        assert geo.smem == ap.bwd_wide_bytes(width, hd)
+    else:
+        assert geo.smem == geo.group * ap.bwd_short_bytes(geo.pad, hd)
+    assert len(geo.args()) == 8 and geo.args()[0] in (1, 2)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("S,block", CASES + PARTIAL + [(1001, 0), (513, 0)])
+def test_k9_forward_geometry(S, block, hd):
+    """(The variant, serving or training, does not move the geometry.)"""
+    B, nhead = 4097, 4
+    geo = asm.fwd_geometry(B, S, block, hd, nhead, True, 0.3)
+    assert geo == asm.fwd_geometry(B, S, block, hd, nhead, False, 0.0)
+    _check_spans(geo.spans, S, block)
+    width = geo.spans[0][1] - geo.spans[0][0]
+    if width <= asm.tile_max(hd):
+        assert geo.instance == "tile"
+        _check_launch(geo, B, S, nhead)
+        assert geo.smem == geo.group * asm.fwd_tile_bytes(geo.pad, hd)
+    else:
+        assert geo.instance == "stream" and geo.smem == 0
+        assert geo.grid == (B, nhead, -(-S // 128)) and geo.threads == 128
+    assert len(geo.args()) == 8
+
+
+def test_k9_threshold_follows_shared_memory():
+    """128 tokens at hd 32 and 64; at hd 128 the largest span whose Q, K, V
+    and scores fit a block (112), as the JAX kernel's ~128."""
+    assert [asm.tile_max(hd) for hd in (32, 64, 128)] == [128, 128, 112]
+    assert asm.fwd_tile_bytes(112, 128) <= SMEM_MAX
+    assert asm.fwd_tile_bytes(116, 128) > SMEM_MAX
+    with pytest.raises(ValueError, match="statistics"):
+        asm.fwd_geometry(4, 33, 0, 64, 4, False, 0.3)
+
+
+@pytest.mark.parametrize("backend,S,block,instance", [
+    ("smalls", 33, 0, "tile"), ("smalls", 49, 0, "tile"),
+    ("packed_smalls", 99, 33, "tile"), ("packed_smalls", 98, 49, "tile"),
+    ("packed_smalls", 128, 64, "tile"), ("smalls", 1001, 0, "stream"),
+    ("smalls", 513, 0, "stream")])
+def test_k9_routes_take_the_tile_instance_at_molecule_shapes(backend, S,
+                                                             block,
+                                                             instance):
+    """The molecules' rows (smalls: 33, 49 with CLS; packed_smalls: rows of
+    three 33- or two 49-token graphs) reach K9 and its tile instance;
+    code2's rows of 513 and 1001 its streaming one."""
+    assert attention_route(backend, S, 256, block) == "k9"
+    assert asm.fwd_geometry(64, S, block, 64, 4, True, 0.3).instance == (
+        instance)
+
+
+@pytest.mark.parametrize("backend,S,block", [
+    ("auto", 99, 33), ("auto", 98, 49), ("auto", 128, 64),
+    ("packed_fused", 99, 33), ("auto", 129, 0), ("auto", 256, 0),
+    ("auto", 384, 0)])
+def test_k4_routes_reach_both_backward_instances(backend, S, block):
+    """Packed molecule rows take the short backward, code2's unpacked rows
+    of 129-384 (block 0) the wide one."""
+    assert attention_route(backend, S, 256, block) == "k4"
+    geo = ap.dense_bwd_geometry(8, S, block, 64, 4)
+    assert geo.instance == ("short" if block else "wide")
+
+
+def test_graph_packed_rows_hold_whole_blocks():
+    """attention_route's packed rows hold gb = 128 // S graphs of S tokens,
+    so S * gb % S == 0: K4 and K9 see partial last blocks only when a
+    caller passes them, and both geometries take them (PARTIAL above)."""
+    for S in range(2, 65):
+        gb = 128 // S
+        if gb >= 2:
+            spans = ap.row_spans(gb * S, S)
+            assert len(spans) == gb and all(b - a == S for a, b in spans)
+
+
+def _c_params(source: str, entry: str) -> int:
+    text = (CSRC / source).read_text()
+    sig = re.search(r'extern "C" int ' + entry + r"\((.*?)\)\s*\{", text,
+                    re.S)
+    return len(sig.group(1).split(","))
+
+
+def test_ctypes_signatures_match_the_c_entries(monkeypatch):
+    """The argtypes each wrapper sets (no card needed) have as many entries
+    as the C function has parameters."""
+    from graphtrans_tpu_torch.ops.kernels import _build
+
+    def fake(name):
+        lib = types.SimpleNamespace()
+        for fn in ("attention_seg_fwd", "attention_seg_bwd",
+                   "attention_dense_fwd", "attention_dense_bwd",
+                   "attention_smalls_fwd", "attention_smalls_bwd"):
+            setattr(lib, fn, types.SimpleNamespace(argtypes=None))
+        return lib
+
+    monkeypatch.setattr(_build, "load", fake)
+    packed, smalls = ap._load(), asm._load()
+    for lib, source, entry in (
+            (packed, "attention_packed.cu", "attention_dense_bwd"),
+            (packed, "attention_packed.cu", "attention_dense_fwd"),
+            (smalls, "attention_smalls.cu", "attention_smalls_fwd"),
+            (smalls, "attention_smalls.cu", "attention_smalls_bwd")):
+        assert len(getattr(lib, entry).argtypes) == _c_params(source,
+                                                              entry), entry

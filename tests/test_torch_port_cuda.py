@@ -594,11 +594,15 @@ def _dense_valid(B, S, block, gen):
 
 
 def _live(valid, block):
+    """The queries that attend a key: those whose graph block (the last may
+    be shorter; block 0: the row) holds a valid key."""
     B, S = valid.shape
     if block == 0:
         return valid.any(-1, keepdim=True).expand(B, S)
-    return valid.reshape(B, S // block, block).any(-1).repeat_interleave(
-        block, dim=1)
+    live = torch.zeros_like(valid)
+    for s in range(0, S, block):
+        live[:, s:s + block] = valid[:, s:s + block].any(-1, keepdim=True)
+    return live
 
 
 @pytest.mark.cuda
@@ -705,13 +709,16 @@ def test_k4_k5_refuse_other_widths_and_gradients(cuda):
 @pytest.mark.parametrize("rate", [0.0, 0.3])
 @pytest.mark.parametrize("S,block,d,H", [
     (98, 49, 256, 4), (99, 33, 256, 4), (257, 0, 256, 4), (384, 0, 256, 4),
-    (128, 64, 64, 2)])
+    (128, 64, 64, 2), (99, 33, 128, 4), (384, 64, 256, 4),
+    (100, 33, 256, 4), (383, 0, 128, 4)])
 def test_attention_dense_dropout_and_bwd_kernels_match_plain(cuda, S, block,
                                                              d, H, rate):
     """K4 with dropout and K4-bwd against the plain version (the same mask)
-    and its autograd, up to rows of 384 at hd 64 (K2-bwd's staging would
-    not fit there): a block without a valid key gives zero dq, dk and dv;
-    a padding key zero dk and dv."""
+    and its autograd, up to rows of 384 at hd 64 (the wide instance keeps
+    the span's dQ in shared memory there), heads of 32, block 64 at rows of
+    384 and a partial last block (S % block != 0): a block without a valid
+    key (each row 1 has one) gives zero dq, dk and dv; a padding key zero
+    dk and dv. Both instances are reached."""
     from graphtrans_tpu_torch.ops.kernels import (attention_dense_bwd,
                                                   attention_dense_bwd_plain,
                                                   attention_dense_plain)
@@ -726,9 +733,14 @@ def test_attention_dense_dropout_and_bwd_kernels_match_plain(cuda, S, block,
     seed = 2**31 - 77
     saved = attention_dense_with_stats(qkv, valid, H, block, rate, seed)
     before = attention_dense_bwd.launches
+    instances = dict(attention_dense_bwd.instances)
     dqkv = attention_dense_bwd(qkv, valid, H, g, block, rate, seed, saved)
     torch.cuda.synchronize()
     assert attention_dense_bwd.launches == before + 1
+    wide = (block or S) > 64
+    assert attention_dense_bwd.instances == dict(
+        instances, **{"wide" if wide else "short": instances[
+            "wide" if wide else "short"] + 1})
     want = attention_dense_plain(qkv, valid, H, block, rate, seed)
     assert (saved[0] - want).abs().max().item() <= K2_TOL
     ref = attention_dense_bwd_plain(qkv, valid, H, g, block, rate, seed)
@@ -932,13 +944,21 @@ def _smalls_case(S, block, d, gen, cuda, B=6):
 @pytest.mark.parametrize("rate", [0.0, 0.3])
 @pytest.mark.parametrize("S,block,d,H", [
     (33, 0, 256, 4), (49, 0, 256, 4), (99, 33, 256, 4), (98, 49, 128, 4),
-    (1001, 0, 256, 4), (520, 0, 512, 4)])
+    (1001, 0, 256, 4), (520, 0, 512, 4), (128, 0, 256, 4),
+    (129, 0, 256, 4), (128, 0, 512, 4), (129, 0, 512, 4),
+    (112, 0, 512, 4), (113, 0, 512, 4), (384, 64, 256, 4),
+    (100, 33, 128, 4)])
 def test_attention_smalls_kernels_match_plain(cuda, S, block, d, H, rate):
     """K9 (forward, with dropout) and K9-bwd against the plain version (the
     same mask) and its autograd, at the molecules' rows of 33 and 49
     (smalls), packed rows of three 33-token graphs (packed_smalls), code2's
-    rows of 1001 and heads of 32, 64 and 128: queries without a key give
-    zeros, and their gradients and a padding key's dk and dv are zero."""
+    rows of 1001, heads of 32, 64 and 128, both sides of the tile
+    instance's threshold (128 tokens; 112 at hd 128), block 64 and a
+    partial last block: queries without a key give zeros, and their
+    gradients and a padding key's dk and dv are zero. K9-bwd also runs
+    through autograd on the forward's m and l."""
+    from graphtrans_tpu_torch.ops.kernels.attention_smalls import (
+        fwd_geometry)
     from graphtrans_tpu_torch.ops.kernels import (attention_smalls,
                                                   attention_smalls_bwd,
                                                   attention_smalls_bwd_plain,
@@ -950,12 +970,19 @@ def test_attention_smalls_kernels_match_plain(cuda, S, block, d, H, rate):
     qkv, valid = _smalls_case(S, block, d, gen, cuda)
     g = torch.randn(*qkv.shape[:2], d, generator=gen).to(cuda)
     before = attention_smalls.launches, attention_smalls_bwd.launches
+    instance = fwd_geometry(len(qkv), S, block, d // H, H, True,
+                            rate).instance
+    count = attention_smalls.instances[instance]
     got = attention_smalls(qkv, valid, H, block, rate, 77)
     saved = attention_smalls_with_stats(qkv, valid, H, block, rate, 77)
     dqkv = attention_smalls_bwd(qkv, valid, H, g, block, rate, 77, saved)
+    leaf = qkv.clone().requires_grad_()
+    attention_smalls(leaf, valid, H, block, rate, 77).backward(g)
     torch.cuda.synchronize()
     assert (attention_smalls.launches, attention_smalls_bwd.launches) == (
-        before[0] + 2, before[1] + 1)
+        before[0] + 3, before[1] + 2)
+    assert attention_smalls.instances[instance] == count + 3
+    assert torch.equal(leaf.grad, dqkv)
     want = attention_smalls_plain(qkv, valid, H, block, rate, 77)
     assert (got - want).abs().max().item() <= K2_TOL
     assert torch.equal(got, saved[0])
@@ -1024,6 +1051,56 @@ def test_transformer_layer_kernels_match_plain(cuda, B, S, d, ff, H, block,
         assert (mine - ref).abs().max().item() <= GRAD_TOL * max(
             1.0, ref.abs().max().item()), i
         assert torch.equal(mine, again[i]), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_k4_bwd_and_k10_bwd_on_the_same_rows(cuda, rate):
+    """K4-bwd and K10-bwd on the same packed rows (37 x 99, block 33, d 256,
+    4 heads): K4-bwd draws K4's mask (seeds H a tile) and, as K10-bwd runs
+    it, K10's (seeds H + 3 a tile); each against autograd through its plain
+    version on the same mask."""
+    from graphtrans_tpu_torch.ops.kernels import (
+        attention_dense_bwd, attention_dense_bwd_plain, attention_dense_plain,
+        transformer_layer_bwd, transformer_layer_bwd_plain)
+    from graphtrans_tpu_torch.ops.kernels.attention_packed import (
+        attention_dense_with_stats, dense_bwd_launch, dense_fwd_launch,
+        keep_drop, keep_mask)
+    from graphtrans_tpu_torch.ops.kernels.transformer_layer import (
+        STREAMS, relu_side, transformer_layer_saved)
+
+    B, S, d, ff, H, block, seed = 37, 99, 256, 512, 4, 33, 2**31 - 5
+    gen = torch.Generator().manual_seed(4099)
+    x, valid, params = _layer_case(B, S, d, ff, block, gen, cuda)
+    qkv = torch.randn(B, S, 3 * d, generator=gen).to(cuda)
+    g = torch.randn(B, S, d, generator=gen).to(cuda)
+    tol = lambda ref: GRAD_TOL * max(1.0, ref.abs().max().item())
+
+    saved = attention_dense_with_stats(qkv, valid, H, block, rate, seed)
+    dqkv = attention_dense_bwd(qkv, valid, H, g, block, rate, seed, saved)
+    ref = attention_dense_bwd_plain(qkv, valid, H, g, block, rate, seed)
+    assert (dqkv - ref).abs().max().item() <= tol(ref)
+
+    stride = H + STREAMS                      # K10's seeds a tile
+    saved = dense_fwd_launch(qkv, valid, H, block, rate, seed, True, stride)
+    dqkv = dense_bwd_launch(qkv, valid, H, g, block, rate, seed, saved,
+                            stride)
+    drop = (keep_drop(keep_mask(B, S, H, rate, seed, cuda, stride), rate)
+            if rate > 0.0 else None)
+    leaf = qkv.clone().requires_grad_()
+    out = attention_dense_plain(leaf, valid, H, block, drop=drop)
+    ref = torch.autograd.grad(out, leaf, g)[0]
+    assert (saved[0] - out.detach()).abs().max().item() <= K2_TOL
+    assert (dqkv - ref).abs().max().item() <= tol(ref)
+
+    _, kept = transformer_layer_saved(x, valid, params, H, block, rate, seed)
+    grads = transformer_layer_bwd(x, valid, params, H, block, g, rate, seed,
+                                  kept)
+    refs = transformer_layer_bwd_plain(x, valid, params, H, block, g, rate,
+                                       seed, relu_side(kept, (B, S, ff)))
+    torch.cuda.synchronize()
+    for i, (mine, ref) in enumerate(zip(grads, refs)):
+        assert (mine - ref).abs().max().item() <= tol(ref), i
 
 
 @pytest.mark.cuda
