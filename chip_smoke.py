@@ -5,8 +5,9 @@ usage: python3 chip_smoke.py [--trace trace.json] [--baseline DIR]
 
 ``--baseline DIR`` names a checkout of an earlier commit (its
 graphtrans_tpu_torch/ tree; for one run, never committed): phases 10a and
-11a then build its K4-bwd and K9 from its own sources and time them beside
-this tree's, in turns (earlier, this, this, earlier), on the same inputs.
+11a then build its K4-bwd, K5-bwd, K9 and K9-bwd from its own sources and
+time them beside this tree's, in turns (earlier, this, this, earlier), on
+the same inputs.
 
 Phases, each printing one line (any failure raises and exits non-zero):
   0. the card (nvidia-smi name and power limit) and torch; TF32 off;
@@ -70,8 +71,9 @@ Phases, each printing one line (any failure raises and exits non-zero):
      snapshot's and bench shapes (K4 also at rows of 257 and 384, hd 64),
      and K11 (byte_dropout) forward and backward against its plain version
      at the bench512 activations' widths, and times them beside bound,
-     plain version and library yardstick; (b) trains both ymls at full width
-     on the snapshot through ``python -m graphtrans_tpu_torch.main`` (2
+     plain version and library yardstick (with ``--baseline``, K4-bwd and
+     K5-bwd also beside the earlier design's); (b) trains both ymls at full
+     width on the snapshot through ``python -m graphtrans_tpu_torch.main`` (2
      epochs), counting launches per yml (molpcba K4 and K4-bwd, code2 K5 and
      K5-bwd), checking finite losses and moved parameters, and holds one
      step through the kernels against the plain versions; (c) times the
@@ -83,7 +85,9 @@ Phases, each printing one line (any failure raises and exits non-zero):
      and code2's rows of 1001, and K10 (transformer_layer, one whole encoder
      layer) and K10-bwd at [1366, 99, 256] and the snapshot's rows of 98,
      against their plain versions and autograd, timed beside bound, plain
-     version and library yardstick; (b) serves the molpcba Transformer-only
+     version and library yardstick (K9-bwd also at code2's rows cut to 257,
+     its wide instance; with ``--baseline``, K9 and K9-bwd also beside the
+     earlier design's); (b) serves the molpcba Transformer-only
      yml through predict under --attn_backend smalls and packed_smalls and
      under packed_layer set in process (launches per backend, logits
      against the plain versions and against auto), trains it 2 epochs
@@ -115,7 +119,8 @@ Phases, each printing one line (any failure raises and exits non-zero):
      chunk_capacity(edge cap, node cap), and K12 (segment_sum_mxu, a
      standalone op: its one call, counted) at [196608, 128], and times
      them beside bound, plain version and yardstick (K7 and K7-bwd at the
-     same batch; index_add_ for K12); (b) serves the code2 valid and test
+     same batch; index_add_ for K12, the two in alternating turns over
+     K12_ROUNDS rounds); (b) serves the code2 valid and test
      splits through ``predict.predict_split`` with the model of
      ``predict.build_model`` under ``set_block_spmm(model, "on")`` (no
      batch overflows its plans; 5 K8 and no K7 launches a batch), holds
@@ -166,6 +171,7 @@ BATCH = 64
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
+TF32_TC_FLOPS = 495e12      # H100 SXM TF32 on the tensor cores, dense
 K1_TOL, K2_TOL, LOGITS_TOL = 1e-5, 2e-5, 1e-4
 # gradients; a gradient summed over the whole batch (K1's dT and dscale,
 # parameter gradients) is held to GRAD_TOL * max(1, max |reference|)
@@ -187,17 +193,18 @@ NCI1_BENCH, K6_TOL = 4096, 1e-5
 # phase 13: K8's forward and K12 against their plain versions, times
 # max(1, max |reference|)
 K8_TOL = 1e-5
+K12_ROUNDS = 7   # alternating turns of K12 and index_add_ in phase 13a
 # kernel-name fragments -> the layer that launches them (phase 5)
 LAYERS = (
-    ("attention_smalls_fwd", "K9 attention_smalls"),   # before its Keep
-    ("smallskeep", "K9-bwd attention_smalls_bwd"),
+    ("attention_smalls_fwd", "K9 attention_smalls"),
+    ("attention_smalls_bwd", "K9-bwd attention_smalls_bwd"),
     ("layer_gemm", "K10 transformer_layer (products)"),
     ("layer_norm_fwd_kernel", "K10 transformer_layer (LayerNorm, sums)"),
     ("layer_norm_bwd_kernel", "K10 transformer_layer (LayerNorm, sums)"),
     ("layer_colsum", "K10 transformer_layer (LayerNorm, sums)"),
     ("layer_sum", "K10 transformer_layer (LayerNorm, sums)"),
     ("attention_dense_bwd", "K4-bwd attention_dense_bwd (K10's too)"),
-    ("segtags", "K5-bwd flash_attention_bwd"),
+    ("flash_attention_bwd", "K5-bwd flash_attention_bwd"),
     ("byte_dropout", "K11 byte_dropout"),
     ("flash_hil_dq", "K3-bwd flash_hil_seg_bwd"),
     ("flash_hil_dkv", "K3-bwd flash_hil_seg_bwd"),
@@ -254,11 +261,14 @@ def time_ms(fn, iters: int, reps: int = 5) -> float:
     return statistics.median(per)
 
 
+BASELINE_KERNELS = ("attention_packed", "attention_smalls", "flash_attention")
+
+
 def load_baseline(root):
     """The port package (graphtrans_tpu_torch) of the checkout at ``root``,
     imported under its own name so that it builds its own csrc/ into its
-    own build directory: its (attention_packed, attention_smalls) kernel
-    modules, or None without ``root``."""
+    own build directory: its kernel modules of BASELINE_KERNELS by name,
+    or None without ``root``."""
     import importlib
     import importlib.util
 
@@ -270,11 +280,12 @@ def load_baseline(root):
         submodule_search_locations=[pkg])
     sys.modules["baseline_port"] = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(sys.modules["baseline_port"])
-    mods = tuple(importlib.import_module(f"baseline_port.ops.kernels.{name}")
-                 for name in ("attention_packed", "attention_smalls"))
+    mods = {name: importlib.import_module(f"baseline_port.ops.kernels.{name}")
+            for name in BASELINE_KERNELS}
     secs = importlib.import_module("baseline_port.ops.kernels._build").build(
-        ("attention_packed", "attention_smalls"))
-    print(f"[1] built the earlier K4-bwd and K9 from {root} in {secs:.1f} s")
+        BASELINE_KERNELS)
+    print(f"[1] built the earlier {', '.join(BASELINE_KERNELS)} from {root} "
+          f"in {secs:.1f} s")
     return mods
 
 
@@ -286,6 +297,16 @@ def turns_ms(new, old, iters: int):
         return time_ms(new, iters=iters), None
     o1, n1, n2, o2 = (time_ms(f, iters=iters) for f in (old, new, new, old))
     return (n1 + n2) / 2, (o1 + o2) / 2
+
+
+def alternating_ms(fns, rounds: int, iters: int):
+    """Each of ``fns`` timed with ``time_ms`` once a round, in the same
+    order every round, over ``rounds`` rounds: a list of ms per fn."""
+    per = [[] for _ in fns]
+    for _ in range(rounds):
+        for k, fn in enumerate(fns):
+            per[k].append(time_ms(fn, iters=iters))
+    return per
 
 
 def _ms(x) -> str:
@@ -1977,30 +1998,39 @@ def check_k5_train(qkv, valid, nhead: int, rate: float, seed: int, gen,
     return f_err, b_err, g
 
 
-def k4_bwd_bound(qkv, valid, nhead: int, block: int):
+def k4_bwd_bound(qkv, valid, nhead: int, block: int, mask_bytes=None,
+                 tensor_cores: bool = False):
     """K4-bwd reads q and dO for every query, K and V for the valid keys,
-    out, m and l of the forward and the mask, and writes dqkv; per (query,
-    key) pair of a block and head: the score, dp = dO.v and the dq, dk and
-    dv products (2*hd each), and the softmax and dropout arithmetic."""
+    out, m and l of the forward and the mask (``mask_bytes``: torch's bool,
+    one byte a key, unless given), and writes dqkv; per (query, key) pair
+    of a block and head: the score, dp = dO.v and the dq, dk and dv
+    products (2*hd each), and the softmax and dropout arithmetic (8). With
+    ``tensor_cores`` the products are timed as the long-row backward runs
+    them, 3xTF32 (three TF32 passes) on the tensor cores, the rest on the
+    f32 units; the two kinds of unit run side by side, so the bound is the
+    larger of the bytes' time and each unit's."""
     B, S, d3 = qkv.shape
     d, hd = d3 // 3, d3 // 3 // nhead
     keys = int(valid.sum().item())
     pairs = (int((valid.reshape(B, S // block, block).sum(-1) * block).sum()
-                 .item()) if block else keys * S)
+                 .item()) if block else keys * S) * nhead
     nbytes = ((3 * B * S + 2 * keys) * d + B * S * d3 + 2 * B * S * nhead) \
-        * 4 + valid.numel()
-    return _bound(nbytes, pairs * nhead * (10 * hd + 8))
+        * 4 + (valid.numel() if mask_bytes is None else mask_bytes)
+    if not tensor_cores:
+        return _bound(nbytes, pairs * (10 * hd + 8))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(3 * pairs * 10 * hd / TF32_TC_FLOPS, pairs * 8 / F32_FLOPS) \
+        * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k5_bwd_bound(qkv, valid, nhead: int):
+def k5_bwd_bound(qkv, valid, nhead: int, tensor_cores: bool = True):
     """As k4_bwd_bound for the key-padding form, the mask read as segq and
-    segk (int32)."""
-    B, S, d3 = qkv.shape
-    d, hd = d3 // 3, d3 // 3 // nhead
-    keys = int(valid.sum().item())
-    nbytes = ((3 * B * S + 2 * keys) * d + B * S * d3 + 2 * B * S * nhead) \
-        * 4 + 2 * valid.numel() * 4
-    return _bound(nbytes, keys * S * nhead * (10 * hd + 8))
+    segk (int32); by default against the tensor cores that the long-row
+    backward's products run on (``tensor_cores=False``: the f32 SIMT
+    bound, printed beside it)."""
+    return k4_bwd_bound(qkv, valid, nhead, 0, 2 * valid.numel() * 4,
+                        tensor_cores)
 
 
 def _chunked_plain_bwd_ms(fn, qkv, g, rows: int) -> float:
@@ -2018,8 +2048,8 @@ def phase10_kernels(device, mol_bench, code2_bench, base=None):
     against the plain versions and autograd at the Transformer-only
     model's training shapes, and K11 against its plain version at the
     widths of the bench512 activations; times beside bound, plain version
-    and library yardstick (K4-bwd also beside ``base``'s, the earlier
-    design, in turns)."""
+    and library yardstick (K4-bwd and K5-bwd also beside ``base``'s, the
+    earlier design, in turns)."""
     from graphtrans_tpu_torch import predict
     from graphtrans_tpu_torch.data.loader import iterate_batches
     from graphtrans_tpu_torch.ops.kernels import (
@@ -2065,7 +2095,7 @@ def phase10_kernels(device, mol_bench, code2_bench, base=None):
         ms, earlier = turns_ms(
             lambda: attention_dense_bwd(qkv, v, nhead, g, block, DROPOUT,
                                         seed, saved),
-            base and (lambda: base[0].attention_dense_bwd(
+            base and (lambda: base["attention_packed"].attention_dense_bwd(
                 qkv, v, nhead, g, block, DROPOUT, seed, saved)), 10)
         t = dict(ms=ms, earlier_ms=earlier,
                  instance=dense_bwd_geometry(*qkv.shape[:2], block,
@@ -2092,12 +2122,17 @@ def phase10_kernels(device, mol_bench, code2_bench, base=None):
         saved = flash_attention_with_stats(qkv, *segs, nhead, DROPOUT, seed)
         plain = lambda x, r0: flash_attention_plain(
             x, *(s[r0:r0 + 64] for s in segs), nhead, DROPOUT, seed)
-        t = dict(ms=time_ms(lambda: flash_attention_bwd(
-                     qkv, *segs, nhead, g, DROPOUT, seed, saved), iters=3),
+        ms, earlier = turns_ms(
+            lambda: flash_attention_bwd(qkv, *segs, nhead, g, DROPOUT, seed,
+                                        saved),
+            base and (lambda: base["flash_attention"].flash_attention_bwd(
+                qkv, *segs, nhead, g, DROPOUT, seed, saved)), 3)
+        t = dict(ms=ms, earlier_ms=earlier, instance="long",
                  plain_ms=_chunked_plain_bwd_ms(plain, qkv, g, 64),
                  library_ms=sdpa_bwd_mask_ms(
                      qkv, _block_mask(v, 0), nhead, g, DROPOUT))
         t["bound_ms"], t["bound_by"] = k5_bwd_bound(qkv, v, nhead)
+        t["f32_simt_bound_ms"] = k5_bwd_bound(qkv, v, nhead, False)[0]
         t["fwd_ms"] = time_ms(lambda: flash_attention_with_stats(
             qkv, *segs, nhead, DROPOUT, seed), iters=3)
         t["shape"] = (f"B={qkv.shape[0]} S={qkv.shape[1]} d={d} H={nhead} "
@@ -2115,11 +2150,14 @@ def phase10_kernels(device, mol_bench, code2_bench, base=None):
             print(f"[10a] {name} {kname} ({t['instance']} instance) "
                   f"[{t['shape']}]: kernel {t['ms']:.4f} ms against "
                   f"{_ms(t['earlier_ms'])} for the earlier design, in turns")
+        simt = ("" if "f32_simt_bound_ms" not in t else
+                f"; products on the tensor cores in 3xTF32; "
+                f"{t['f32_simt_bound_ms']:.4f} ms at the f32 SIMT peak")
         print(f"[10a] {name} {kname} [{t['shape']}]: kernel {t['ms']:.4f} ms "
               f"(training forward {t['fwd_ms']:.4f} ms), plain backward "
               f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-              f"({t['bound_by']}), library {t['library_ms']:.4f} ms (SDPA "
-              f"backward, bool mask, dropout {DROPOUT})")
+              f"({t['bound_by']}{simt}), library {t['library_ms']:.4f} ms "
+              f"(SDPA backward, bool mask, dropout {DROPOUT})")
 
     tokens = int(code2_bench.num_graph_slots) * (
         min(code2_bench.max_nodes_dense, 1000) + 1)
@@ -2476,15 +2514,17 @@ def phase11_kernels(device, mol_bench, code2_bench, base=None):
     rows of 1001 (smalls); K10 and K10-bwd (transformer_layer) at 4096
     molecules' [1366, 99, 256], ff 512, block 33 and the snapshot's rows of
     98, block 49; against their plain versions and autograd, and timed
-    beside bound, plain version and library yardstick (K9's forward also
-    beside ``base``'s, the earlier design, in turns)."""
+    beside bound, plain version and library yardstick (K9 and K9-bwd also
+    beside ``base``'s, the earlier design, in turns; K9-bwd at each of its
+    instances: short at rows of 33 and 49 and packed block 33, wide at
+    code2's rows cut to 257, long at rows of 1001)."""
     from graphtrans_tpu_torch import predict
     from graphtrans_tpu_torch.data.loader import iterate_batches
     from graphtrans_tpu_torch.ops.kernels import (
         attention_smalls, attention_smalls_bwd, attention_smalls_plain,
         transformer_layer, transformer_layer_bwd, transformer_layer_plain)
     from graphtrans_tpu_torch.ops.kernels.attention_smalls import (
-        attention_smalls_with_stats, fwd_geometry)
+        attention_smalls_with_stats, bwd_geometry, fwd_geometry)
     from graphtrans_tpu_torch.ops.kernels.transformer_layer import (
         transformer_layer_saved)
 
@@ -2501,6 +2541,8 @@ def phase11_kernels(device, mol_bench, code2_bench, base=None):
                 "bench4096 smalls S 33": (dense_valid(mol_bench), False, None),
                 "bench4096 packed_smalls block 33": (dense_valid(mol_bench),
                                                      True, None),
+                "bench512 cut to 256, smalls S 257": (
+                    dense_valid(code2_bench, 256), False, 64),
                 "bench512 smalls S 1001": (dense_valid(code2_bench), False,
                                            64)}
     errs = collections.defaultdict(float)
@@ -2522,18 +2564,25 @@ def phase11_kernels(device, mol_bench, code2_bench, base=None):
             x, v[r0:r0 + 64], nhead, block, DROPOUT, seed)
         ms, earlier = turns_ms(
             lambda: attention_smalls(qkv, v, nhead, block),
-            base and (lambda: base[1].attention_smalls(qkv, v, nhead, block)),
+            base and (lambda: base["attention_smalls"].attention_smalls(
+                qkv, v, nhead, block)),
             5 if rows else 20)
+        bwd_ms, bwd_earlier = turns_ms(
+            lambda: attention_smalls_bwd(qkv, v, nhead, g, block, DROPOUT,
+                                         seed, saved),
+            base and (lambda: base["attention_smalls"].attention_smalls_bwd(
+                qkv, v, nhead, g, block, DROPOUT, seed, saved)),
+            3 if rows else 10)
         t = dict(ms=ms, earlier_ms=earlier,
                  instance=fwd_geometry(*qkv.shape[:2], block, d // nhead,
                                        nhead, False, 0.0).instance,
+                 bwd_instance=bwd_geometry(*qkv.shape[:2], block,
+                                           d // nhead, nhead).instance,
                  plain_ms=time_ms(lambda: attention_smalls_plain(
                      qkv, v, nhead, block), iters=1 if rows else 3),
                  library_ms=sdpa_mask_ms(qkv, _block_mask(v, block), nhead,
                                          iters=3),
-                 bwd_ms=time_ms(lambda: attention_smalls_bwd(
-                     qkv, v, nhead, g, block, DROPOUT, seed, saved),
-                     iters=3 if rows else 10),
+                 bwd_ms=bwd_ms, bwd_earlier_ms=bwd_earlier,
                  bwd_plain_ms=(_chunked_plain_bwd_ms(plain, qkv, g, 64)
                                if rows else _plain_bwd_ms(
                                    lambda x: attention_smalls_plain(
@@ -2542,8 +2591,10 @@ def phase11_kernels(device, mol_bench, code2_bench, base=None):
                  bwd_library_ms=sdpa_bwd_mask_ms(qkv, _block_mask(v, block),
                                                  nhead, g, DROPOUT))
         t["bound_ms"], t["bound_by"] = k4_bound(qkv, v, nhead, block)
-        t["bwd_bound_ms"], t["bwd_bound_by"] = k4_bwd_bound(qkv, v, nhead,
-                                                            block)
+        t["bwd_bound_ms"], t["bwd_bound_by"] = k4_bwd_bound(
+            qkv, v, nhead, block,
+            tensor_cores=t["bwd_instance"] == "long")
+        t["bwd_f32_simt_bound_ms"] = k4_bwd_bound(qkv, v, nhead, block)[0]
         t["shape"] = (f"B={qkv.shape[0]} S={qkv.shape[1]} d={d} H={nhead} "
                       f"block {block}")
         timed[name] = t
@@ -2551,20 +2602,28 @@ def phase11_kernels(device, mol_bench, code2_bench, base=None):
     print(f"[11a] K9 agrees with its plain version within {errs['k9']:.3g} "
           f"(<= {K2_TOL}) and K9-bwd with autograd through it within "
           f"{errs['k9_bwd']:.3g} of max(1, max|ref|) (<= {GRAD_TOL}) at rates "
-          f"0 and {DROPOUT}, at {list(k9_cases)} (S 1001: the first 64 rows);"
+          f"0 and {DROPOUT}, at {list(k9_cases)} (S 257 and 1001: the first "
+          f"64 rows);"
           f" queries without a key and padding keys get exactly 0")
     for name, t in timed.items():
         print(f"[11a] {name} K9 attention_smalls ({t['instance']} instance) "
               f"[{t['shape']}]: kernel {t['ms']:.4f} ms against "
               f"{_ms(t['earlier_ms'])} for the earlier design, in turns")
+        print(f"[11a] {name} K9-bwd attention_smalls_bwd ("
+              f"{t['bwd_instance']} instance) [{t['shape']}, dropout "
+              f"{DROPOUT}]: kernel {t['bwd_ms']:.4f} ms against "
+              f"{_ms(t['bwd_earlier_ms'])} for the earlier design, in turns")
         print(f"[11a] {name} K9 attention_smalls [{t['shape']}]: kernel "
               f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
               f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library "
               f"{t['library_ms']:.4f} ms (SDPA, bool mask); K9-bwd (dropout "
               f"{DROPOUT}) {t['bwd_ms']:.4f} ms, plain backward "
               f"{t['bwd_plain_ms']:.4f} ms, bound {t['bwd_bound_ms']:.4f} ms "
-              f"({t['bwd_bound_by']}), library {t['bwd_library_ms']:.4f} ms "
-              f"(SDPA backward)")
+              f"({t['bwd_bound_by']}"
+              + (f"; products on the tensor cores in 3xTF32; "
+                 f"{t['bwd_f32_simt_bound_ms']:.4f} ms at the f32 SIMT peak"
+                 if t["bwd_instance"] == "long" else "")
+              + f"), library {t['bwd_library_ms']:.4f} ms (SDPA backward)")
 
     k10_cases = {"bench4096 [1366, 99] block 33": dense_valid(mol_bench),
                  "serve256 rows of 98 block 49": dense_valid(serve)}
@@ -2623,8 +2682,9 @@ def phase11_kernels(device, mol_bench, code2_bench, base=None):
     k10 = ltimed["bench4096 [1366, 99] block 33"]
     return dict(errs=errs, timed=(dict(pick(k9, ""),
                                        earlier_ms=k9["earlier_ms"]),
-                                  pick(k9, "bwd_"), pick(k10, ""),
-                                  pick(k10, "bwd_")))
+                                  dict(pick(k9, "bwd_"),
+                                       earlier_ms=k9["bwd_earlier_ms"]),
+                                  pick(k10, ""), pick(k10, "bwd_")))
 
 
 # The wrapper each backend's molpcba Transformer-only layers launch: rows of
@@ -2810,6 +2870,8 @@ def phase11_train(device, tmp: str):
         totals.update(launches)
         totals.update({f"attention_smalls {k}": v for k, v in
                        kernels.attention_smalls.instances.items()})
+        totals.update({f"attention_smalls_bwd {k}": v for k, v in
+                       kernels.attention_smalls_bwd.instances.items()})
         if not all(math.isfinite(r["loss"]) for r in res["epochs"]):
             raise AssertionError(f"epoch losses not finite: {res['epochs']}")
         init, _ = _trainer(args, num_tasks, device)
@@ -3567,12 +3629,14 @@ def phase13_kernels(device, d_gnn: int, bench):
         want = segment_sum_mxu_plain(msg, dst, N)
     k12_err = _rel_err(got, want)
     out = torch.zeros(N, 128, device=device)
-    k12 = dict(ms=time_ms(lambda: segment_sum_mxu(msg, dst, N), iters=20),
+    turns = alternating_ms(
+        (lambda: segment_sum_mxu(msg, dst, N),
+         lambda: out.zero_().index_add_(0, dst.long(), msg)),
+        K12_ROUNDS, 20)
+    k12 = dict(ms=statistics.median(turns[0]),
                plain_ms=time_ms(lambda: segment_sum_mxu_plain(msg, dst, N),
                                 iters=5),
-               library_ms=time_ms(
-                   lambda: out.zero_().index_add_(0, dst.long(), msg),
-                   iters=20))
+               library_ms=statistics.median(turns[1]))
     if k12_err > K8_TOL or k12_launches != 1 or not torch.isfinite(got).all():
         raise AssertionError(f"K12 disagrees with its plain version: "
                              f"{k12_err} (<= {K8_TOL}), {k12_launches} "
@@ -3588,6 +3652,13 @@ def phase13_kernels(device, d_gnn: int, bench):
           f"{k12['library_ms']:.4f} ms (index_add_ into zeros); "
           f"{k12_launches} launch in its standalone call (no model path "
           f"calls it)")
+    for what, per in (("K12 segment_sum_mxu", turns[0]),
+                      ("index_add_", turns[1])):
+        print(f"[13a] K12 in alternating turns ({K12_ROUNDS} rounds, K12 "
+              f"then index_add_): {what} median {statistics.median(per):.4f} "
+              f"ms, min {min(per):.4f}, max {max(per):.4f}, spread "
+              f"{(max(per) - min(per)) / statistics.median(per):.1%}: "
+              f"{', '.join(f'{x:.4f}' for x in per)}")
     return dict(f_err=f_err, b_err=b_err, k12_err=k12_err,
                 k12_launches=k12_launches, timed=(rows["fwd"], rows["demb"],
                                                   rows["dx"], k12))
@@ -3825,8 +3896,9 @@ def main(argv=None) -> int:
     p.add_argument("--trace", default=None,
                    help="write phase 5's chrome trace to this file")
     p.add_argument("--baseline", default=None,
-                   help="a checkout of an earlier commit whose K4-bwd and K9 "
-                        "phases 10a and 11a time beside this tree's")
+                   help="a checkout of an earlier commit whose K4-bwd, "
+                        "K5-bwd, K9 and K9-bwd phases 10a and 11a time beside "
+                        "this tree's")
     opts = p.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3999,6 +4071,7 @@ def main(argv=None) -> int:
              max_abs_err=tf_train["k4_err"], **k4b),
         dict(name="flash_attention_bwd", route="cuda",
              source="graphtrans_tpu_torch/csrc/flash_attention.cu",
+             header="graphtrans_tpu_torch/csrc/attention_bwd.cuh",
              replaces="graphtrans_tpu/ops/pallas/flash_attention.py:326/350",
              launches=tf_train_launches["flash_attention_bwd"],
              max_abs_err=tf_train["k5_err"], **k5b),
@@ -4016,8 +4089,12 @@ def main(argv=None) -> int:
              max_abs_err=switch["errs"]["k9"], **k9),
         dict(name="attention_smalls_bwd", route="cuda",
              source="graphtrans_tpu_torch/csrc/attention_smalls.cu",
+             header="graphtrans_tpu_torch/csrc/attention_tile.cuh, "
+                    "graphtrans_tpu_torch/csrc/attention_bwd.cuh",
              replaces="graphtrans_tpu/ops/pallas/attention_smallS.py:227",
              launches=switch_launches["attention_smalls_bwd"],
+             instances={k: switch_launches[f"attention_smalls_bwd {k}"]
+                        for k in ("short", "wide", "long")},
              # relative to max(1, max |reference|), as check_k9 holds it
              max_abs_err=switch["errs"]["k9_bwd"], **k9b),
         dict(name="transformer_layer_fwd", route="cuda",

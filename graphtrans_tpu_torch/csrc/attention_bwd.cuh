@@ -1,33 +1,80 @@
-// The streaming attention backward shared by K4-bwd (attention_packed.cu)
-// and K5-bwd (flash_attention.cu): two kernels, dq (which also writes
-// delta) and dk/dv, over qkv [B, S, 3d] with heads in lanes, from the
-// forward's output and its softmax statistics m and l ([B, S, H]).
+// The long-row attention backward: K5-bwd (flash_attention.cu) and K9-bwd's
+// long instance (attention_smalls.cu), over qkv [B, S, 3d] with heads in
+// lanes, from the forward's output and its softmax statistics m and l
+// ([B, S, H], with attention_fwd.cuh's meaning). Also the mask policies
+// and block_range that the streaming forward (attention_fwd.cuh) shares.
 //
 // The mask is a pair of tags (policy Tags): query i attends key j iff
-// qtag(i) == ktag(j) >= 0. K5's are its segq and segk; K4's are the
-// query's block and, for a valid key, the key's block (0 for block 0), so
-// K4's key-padding, block-diagonal mask is the same test. Tags are
-// non-decreasing along a row, so a tile of keys (queries) whose tags cannot
-// meet the block's range is skipped whole. The dropout mask (policy Keep:
-// members on and inv_keep, and keep(b, h, H, S, i, j)) is drawn again from
-// the forward's seed; nothing is stored.
+// qtag(i) == ktag(j) >= 0. K5's are its segq and segk; K9's (and K4's) are
+// the query's block and, for a valid key, the key's block (0 for block 0).
+// The dropout mask (policy Keep: members on and inv_keep, and
+// keep(b, h, H, S, i, j) with the row's own token indices) is drawn again
+// from the forward's seed; nothing is stored.
 //
-// A query (key) is handled by L = HD/32 threads, each holding 32 of its
-// channels (channel c*L + part, so the L threads of a group read
-// neighbouring banks), with the two dot products of a pair summed over the
-// group by shuffles. That keeps q, dO and the dq sum (k, v, dk, dv) in 96
-// (128) registers a thread at every head width. K and V (Q and dO) stream
-// through 32 KB of shared memory 4096/HD tokens at a time. Every output
-// cell has one writer: no atomics; a key no query attends writes zeros.
+// What it replaces. The streaming pair first written for K5: two kernels
+// that gave a query (key) to hd/32 threads, spent one shared load per FMA
+// and two shuffle reductions per pair, and walked whole 64-key tiles by
+// position: a code2 row's valid keys are a prefix plus the CLS column, so
+// the CLS tile held one key in 64 and about a third of the pair slots were
+// padding. It ran at 10 % of its bound (23.24 ms at bench512 on the H100).
+//
+// The design: two kernels, as before, route (a). One kernel per (row, head)
+// that walked the key chunks and kept dQ in device memory would compute each
+// pair once, but a row's whole S x S work would then sit in one block: a
+// graph of 1000 nodes, which code2's heavy tail holds, would take one block
+// some 16 times the mean, and 2048 blocks give the card no slack for that
+// tail. So the work is cut by tiles of T = 64 tokens:
+//  - dq kernel, one block per (row, head, 64 queries): stages the tile's
+//    Q and dO, writes delta_i = dO_i . O_i (for the dk/dv kernel), then
+//    walks the row's keys whose tag meets the tile's tags, gathered 64 at a
+//    time (a block-wide prefix count over the row's tags ranks them), and
+//    keeps its dQ sums in registers;
+//  - dk/dv kernel, one block per (row, head, chunk of 64 valid keys, the
+//    z-th by rank): gathers its keys' K and V, walks the query tiles whose
+//    tags can meet them, and keeps dK and dV in registers. Block z also
+//    writes dk = dv = 0 for the padding keys among tokens [64z, 64z + 64).
+// Gathering by rank fills the chunks: bench512's 62225 valid keys take
+// 78208 chunk slots (80 %) where positional tiles took 110656 (56 %). The
+// pair terms s = q.k and dp = dO.v are computed in both kernels: 7 hd
+// multiply-adds a pair where a single pass would need 5. Every output cell
+// has one writer: no atomics; the results are deterministic.
+//
+// A step is a 64 x 64 pair tile staged in shared memory with 16-byte
+// cp.async copies (rows of hd + 4 floats; gathered rows by index, missing
+// rows zero-filled). The products run on the tensor cores: s = q.k and
+// dp = dO.v, then dQ += dS K (dq kernel) and dV += P_drop^T dO, dK +=
+// dS^T Q (dk/dv kernel), each as mma.sync m16n8k8 TF32 tiles in 3xTF32
+// (every operand split into a TF32 high part and a TF32 remainder, three
+// products summed in f32), so the sums keep f32 accuracy; single-pass
+// TF32 would not. A warp takes 16 rows x 32 keys of the pair tile (16 x
+// hd/2 of a product). The pair's p comes from the forward's m and 1/l, its
+// dropout bit from Keep, and dS (and P_drop) go through shared score tiles
+// whose row stride keeps the fragment loads conflict-free where the tile
+// is read (by rows in the dq kernel, by columns in the dk/dv kernel).
+//
+// Bound on the H100 at bench512 (512 rows of 1001, d 256, 4 heads of 64,
+// ~122 valid keys a row, dropout 0.3): operations. 10 hd flops a pair of
+// products, ~160 GFLOP, take 0.97 ms as 3xTF32 on the tensor cores (495
+// TFLOP/s TF32), 2.41 ms at the f32 SIMT peak; the kernels execute 7 hd a
+// pair over 80 % full chunks. Busy threads: every warp has a 16-row tile
+// in every phase; at S 1001 the query tiles hold 1001 of 1024 rows (98
+// %), at S 513 513 of 576 (89 %), and at bench512 the key chunks 80 % of
+// their slots. Shared memory: the dq kernel takes 87 KB and the dk/dv
+// kernel 106 KB at hd 64 (at most 128 registers a thread), so two blocks
+// (16 warps) share an SM, and one block's copies overlap the other's
+// arithmetic; at hd 128, 150 and 169 KB, one block. The old pair's
+// positional tiles and one-load-per-FMA inner loop are gone; whole tiles
+// whose tags cannot meet are still skipped, padding keys get dk = dv = 0
+// and a query with no attendable key dq = 0.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 
-namespace attn {
+#include "attention_tile.cuh"
 
-constexpr int THREADS = 128;  // threads a block of both kernels
+namespace attn {
 
 // Fills lo/hi with the min and max of the block's tags that are >= 0 (none:
 // hi < 0). All threads of the block call it.
@@ -47,17 +94,6 @@ __device__ __forceinline__ void block_range(int tag, int* range, int& lo,
   hi = range[1];
 }
 
-// The sum of v over the L neighbouring lanes of this thread's group; the L
-// threads of a group take the same path, so only they synchronise.
-template <int L>
-__device__ __forceinline__ float group_sum(float v) {
-  const unsigned lane = threadIdx.x & 31u;
-  const unsigned mask = ((1u << L) - 1u) << (lane & ~(unsigned)(L - 1));
-#pragma unroll
-  for (int o = L / 2; o > 0; o >>= 1) v += __shfl_xor_sync(mask, v, o);
-  return v;
-}
-
 // K5's tags: segq and segk [B, S] int32.
 struct SegTags {
   const int* q;
@@ -66,7 +102,8 @@ struct SegTags {
   __device__ int ktag(long base, int j) const { return k[base + j]; }
 };
 
-// K4's tags: valid [B, S] (torch's bool, one byte) and block (0: the row).
+// K4's and K9's tags: valid [B, S] (torch's bool, one byte) and block (0:
+// the row).
 struct PadTags {
   const unsigned char* valid;
   int block;
@@ -76,248 +113,532 @@ struct PadTags {
   }
 };
 
-// dq = scale * sum_j ds_ij k_j with ds = p (dp_dropped - delta) and p from
-// the saved m, l; delta_i = dO_i . O_i per head (written for dkv_kernel).
-// One block per (row, head, 128/L queries).
+// ---- the long-row backward ----------------------------------------------
+
+constexpr int LONG_THREADS = 256;  // threads a block of both kernels
+constexpr int LONG_T = 64;         // queries a tile, keys a chunk
+// floats a row of a score tile: the dq kernel reads dS by rows (stride
+// = 4 mod 32 banks), the dk/dv kernel P_drop and dS by columns (8 mod 32)
+constexpr int LONG_DQ_SLD = LONG_T + 4;
+constexpr int LONG_DKV_SLD = LONG_T + 8;
+
+// Shared bytes: four 64-row head tiles (Q, dO, K, V), the score tiles (dS;
+// the dk/dv kernel also P_drop), per query m, 1/l, delta and tag, per key
+// tag and token index, and the prefix count's scratch.
+__host__ __device__ constexpr int long_dq_bytes(int hd) {
+  return 4 * (4 * LONG_T * (hd + 4) + LONG_T * LONG_DQ_SLD + 6 * LONG_T + 16);
+}
+__host__ __device__ constexpr int long_dkv_bytes(int hd) {
+  return 4 * (4 * LONG_T * (hd + 4) + 2 * LONG_T * LONG_DKV_SLD +
+              6 * LONG_T + 16);
+}
+// blocks an SM for __launch_bounds__: two up to hd 64
+__host__ __device__ constexpr int long_blocks(int hd) {
+  return hd <= 64 ? 2 : 1;
+}
+
+namespace lr {
+
+constexpr int T = LONG_T, NT = LONG_THREADS;
+
+// 16 bytes from global to shared memory, asynchronously; zeros where !ok
+// (src must still be a valid address).
+__device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away), as bits.
+__device__ __forceinline__ unsigned tf32(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+// x = hi + lo, both TF32: the 3xTF32 split.
+__device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+// c += a b for one m16n8k8 tile, a row-major 16 x 8, b col-major 8 x 8, on
+// TF32 inputs with f32 sums.
+__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
+                                    const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A fragment of a 16 x 8 tile at (m0, k0) of a matrix whose element (m, k)
+// sits at p[m * rs + k * cs], split into TF32 hi and lo parts. lane =
+// 4 g + t holds (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4).
+__device__ __forceinline__ void frag_a(const float* p, int rs, int cs,
+                                       int m0, int k0, unsigned (&hi)[4],
+                                       unsigned (&lo)[4]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float* q = p + (m0 + g) * rs + (k0 + t) * cs;
+  split(q[0], hi[0], lo[0]);
+  split(q[8 * rs], hi[1], lo[1]);
+  split(q[4 * cs], hi[2], lo[2]);
+  split(q[8 * rs + 4 * cs], hi[3], lo[3]);
+}
+// B fragment of an 8 x 8 tile at (k0, n0), element (k, n) at p[k * rs + n *
+// cs]: lane 4 g + t holds (t, g), (t + 4, g).
+__device__ __forceinline__ void frag_b(const float* p, int rs, int cs,
+                                       int k0, int n0, unsigned (&hi)[2],
+                                       unsigned (&lo)[2]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float* q = p + (k0 + t) * rs + (n0 + g) * cs;
+  split(q[0], hi[0], lo[0]);
+  split(q[4 * rs], hi[1], lo[1]);
+}
+// c += a b in 3xTF32: hi*hi + hi*lo + lo*hi (lo*lo, ~2^-22 of the product,
+// is dropped), so the sums keep f32 accuracy.
+__device__ __forceinline__ void mma3(float (&c)[4], const unsigned (&ah)[4],
+                                     const unsigned (&al)[4],
+                                     const unsigned (&bh)[2],
+                                     const unsigned (&bl)[2]) {
+  mma(c, al, bh);
+  mma(c, ah, bl);
+  mma(c, ah, bh);
+}
+
+// The shared tiles of a block.
+template <int HD>
+struct Tiles {
+  static constexpr int LD = HD + 4;
+  float *Q, *G, *K, *V, *dS, *Pd;  // Pd: the dk/dv kernel only
+  float *m, *li, *de;              // per query of the tile
+  int *qt, *kt, *kix;              // query tags; key tags, token indices
+  int* scan;                       // NT / 32 + 1 ints
+  int* range;                      // 2 ints
+  int sld;                         // floats a row of dS (and Pd)
+
+  __device__ explicit Tiles(float* s, bool pd) {
+    sld = pd ? LONG_DKV_SLD : LONG_DQ_SLD;
+    Q = s;
+    G = Q + T * LD;
+    K = G + T * LD;
+    V = K + T * LD;
+    dS = V + T * LD;
+    Pd = pd ? dS + T * sld : nullptr;
+    m = (pd ? Pd : dS) + T * sld;
+    li = m + T;
+    de = li + T;
+    qt = reinterpret_cast<int*>(de + T);
+    kt = qt + T;
+    kix = kt + T;
+    scan = kix + T;
+    range = scan + NT / 32 + 1;
+  }
+};
+
+// Rows [0, T) of N head slices into rows of HD + 4 floats, row r from the
+// token row(r) (src[k] + row(r) * ld[k]), zeros for r >= n.
+template <int HD, int N, class Row>
+__device__ __forceinline__ void stage(float* const (&dst)[N],
+                                      const float* const (&src)[N],
+                                      const long (&ld)[N], Row row, int n) {
+  constexpr int C4 = HD / 4, LD = HD + 4;
+  for (int idx = threadIdx.x; idx < T * C4; idx += NT) {
+    const int r = idx / C4, c = idx % C4 * 4;
+    const bool ok = r < n;
+    const long tok = ok ? row(r) : 0;
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+      cp16(dst[k] + r * LD + c, src[k] + tok * ld[k] + c, ok);
+  }
+}
+
+// The keys j < S that sel(j) accepts, ranked in token order: each thread
+// counts its own contiguous segment of ceil(S / NT) tokens; returns the
+// count before this thread's segment and sets total to the row's count.
+// All threads call it; scan: NT / 32 + 1 ints of shared memory.
+template <class Sel>
+__device__ __forceinline__ int rank_keys(int S, Sel sel, int* scan,
+                                         int& total) {
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const int seg = (S + NT - 1) / NT, j0 = min(S, t * seg);
+  const int j1 = min(S, j0 + seg);
+  int cnt = 0;
+  for (int j = j0; j < j1; ++j) cnt += sel(j) ? 1 : 0;
+  int inc = cnt;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += v;
+  }
+  __syncthreads();  // scan may still be read from an earlier call
+  if (lane == 31) scan[w] = inc;
+  __syncthreads();
+  if (w == 0) {
+    const int v = lane < NT / 32 ? scan[lane] : 0;
+    int s = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, s, o);
+      if (lane >= o) s += u;
+    }
+    if (lane < NT / 32) scan[lane] = s - v;
+    if (lane == NT / 32 - 1) scan[NT / 32] = s;
+  }
+  __syncthreads();
+  total = scan[NT / 32];
+  return scan[w] + inc - cnt;
+}
+
+// Writes the token indices of the accepted keys of ranks [r0, r0 + T) to
+// kix (before: rank_keys's result for this thread).
+template <class Sel>
+__device__ __forceinline__ void list_keys(int S, Sel sel, int before, int r0,
+                                          int* kix) {
+  const int seg = (S + NT - 1) / NT, j0 = min(S, (int)threadIdx.x * seg);
+  const int j1 = min(S, j0 + seg);
+  int r = before;
+  for (int j = j0; j < j1 && r < r0 + T; ++j)
+    if (sel(j)) {
+      if (r >= r0) kix[r - r0] = j;
+      ++r;
+    }
+}
+
+// The warps' tiles: warp w takes rows 16 (w % 4) .. + 16 of a 64-row
+// tile, and columns (w / 4) * 32 of the pair tile's 64 keys, or (w / 4) *
+// HD / 2 of a product's HD channels.
+__device__ __forceinline__ int warp_m0() { return (threadIdx.x >> 5 & 3) * 16; }
+__device__ __forceinline__ int warp_half() { return threadIdx.x >> 7; }
+
+// The pair tile: s = q.k and dp = dO.v for the warp's 16 queries x 32 keys
+// (four m16n8 tiles each, 3xTF32), then dS (and with PD, P_drop) into the
+// score tiles, 0 where the pair does not meet. q0: the tile's first query
+// token; queries with qt < 0 and keys with kt < 0 (padding rows) meet
+// nothing.
+template <int HD, bool PD, class Keep>
+__device__ __forceinline__ void pair_tile(const Tiles<HD>& s, long b, int h,
+                                          int H, int S, int q0, float scale,
+                                          const Keep& keep) {
+  constexpr int LD = HD + 4;
+  const int m0 = warp_m0(), n0 = warp_half() * 32;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  float sc[4][4], dp[4][4];
+  tile::zero(sc);
+  tile::zero(dp);
+#pragma unroll 2
+  for (int k0 = 0; k0 < HD; k0 += 8) {
+    unsigned ah[4], al[4], bh[2], bl[2];
+    frag_a(s.Q, LD, 1, m0, k0, ah, al);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {  // B(k, n) = K[n][k]
+      frag_b(s.K, 1, LD, k0, n0 + 8 * nt, bh, bl);
+      mma3(sc[nt], ah, al, bh, bl);
+    }
+    frag_a(s.G, LD, 1, m0, k0, ah, al);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      frag_b(s.V, 1, LD, k0, n0 + 8 * nt, bh, bl);
+      mma3(dp[nt], ah, al, bh, bl);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = m0 + g + 8 * r, qt = s.qt[i];
+    const float m = s.m[i], li = s.li[i], de = s.de[i];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      float pd[2], ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = n0 + 8 * nt + 2 * t + e;
+        pd[e] = ds[e] = 0.f;
+        if (qt >= 0 && qt == s.kt[j]) {
+          const bool kept = !keep.on || keep(b, h, H, S, q0 + i, s.kix[j]);
+          tile::pair_grad(sc[nt][2 * r + e] * scale, dp[nt][2 * r + e], m, li,
+                          de, kept, keep, pd[e], ds[e]);
+        }
+      }
+      const int at = i * s.sld + n0 + 8 * nt + 2 * t;
+      if constexpr (PD)
+        *reinterpret_cast<float2*>(s.Pd + at) = make_float2(pd[0], pd[1]);
+      *reinterpret_cast<float2*>(s.dS + at) = make_float2(ds[0], ds[1]);
+    }
+  }
+}
+
+// dq: one block per (row, head, T queries). Writes dq (scale * sum_j ds_ij
+// k_j) for the tile's queries and delta_i = dO_i . O_i for the dk/dv
+// kernel.
 template <int HD, class Tags, class Keep>
-__global__ void __launch_bounds__(THREADS)
-dq_kernel(const float* __restrict__ qkv, Tags tags,
-          const float* __restrict__ out, const float* __restrict__ gout,
-          const float* __restrict__ stat_m, const float* __restrict__ stat_l,
-          float* __restrict__ delta, float* __restrict__ dqkv, int S, int d,
-          float scale, Keep keep) {
-  constexpr int L = HD / 32;       // threads a query
-  constexpr int QB = THREADS / L;  // queries a block
-  constexpr int BK = 4096 / HD;    // keys a tile
-  __shared__ float4 ks4[BK * HD / 4];
-  __shared__ float4 vs4[BK * HD / 4];
-  __shared__ int ss[BK];
-  __shared__ int qrange[2];
-  const float* ks = reinterpret_cast<const float*>(ks4);
-  const float* vs = reinterpret_cast<const float*>(vs4);
-
+__device__ __forceinline__ void long_dq(
+    const float* __restrict__ qkv, Tags tags, const float* __restrict__ out,
+    const float* __restrict__ gout, const float* __restrict__ stat_m,
+    const float* __restrict__ stat_l, float* __restrict__ delta,
+    float* __restrict__ dqkv, int S, int d, float scale, Keep keep) {
+  constexpr int LD = HD + 4, NTC = HD / 16;  // n-tiles of a warp's channels
+  extern __shared__ float4 smem4[];
+  const Tiles<HD> s(reinterpret_cast<float*>(smem4), false);
   const long b = blockIdx.x;
-  const int h = blockIdx.y;
-  const int H = gridDim.y;
-  const int t = threadIdx.x;
-  const int part = t % L;
-  const int i = blockIdx.z * QB + t / L;
-  const long d3 = 3L * d;
-  const long base = b * S;
-  const float* row = qkv + base * d3;
+  const int h = blockIdx.y, H = gridDim.y, t = threadIdx.x;
+  const int q0 = blockIdx.z * T, nq = min(T, S - q0);
+  const long d3 = 3L * d, base = b * S;
+  const float* row = qkv + base * d3 + h * HD;
 
-  const int ti = i < S ? tags.qtag(base, i) : -1;
+  {
+    float* const dst[2] = {s.Q, s.G};
+    const float* const src[2] = {row, gout + base * d + h * HD};
+    const long ld[2] = {d3, d};
+    stage<HD, 2>(dst, src, ld, [&](int r) { return (long)(q0 + r); }, nq);
+  }
+  int tag = -1;
+  if (t < T) {
+    float m = 0.f, li = 0.f;
+    if (t < nq) {
+      tag = tags.qtag(base, q0 + t);
+      const long at = (base + q0 + t) * H + h;
+      m = stat_m[at];
+      li = 1.f / fmaxf(stat_l[at], 1e-16f);
+    }
+    s.qt[t] = tag;
+    s.m[t] = m;
+    s.li[t] = li;
+  }
   int qmin, qmax;
-  block_range(ti, qrange, qmin, qmax);
-
-  float q[32], g[32], acc[32];
-  float de = 0.f, m = 0.f, li = 0.f;
+  block_range(tag, s.range, qmin, qmax);
+  cp_wait();
+  __syncthreads();
+  {  // delta: four threads a query, HD / 4 channels each
+    const int r = t >> 2, part = t & 3;
+    constexpr int CW = HD / 4;
+    float de = 0.f;
+    if (r < nq) {
+      const float* o = out + (base + q0 + r) * d + h * HD + part * CW;
+      const float* g = s.G + r * LD + part * CW;
 #pragma unroll
-  for (int c = 0; c < 32; ++c) acc[c] = q[c] = g[c] = 0.f;
-  if (ti >= 0) {
-    const float* qi = row + i * d3 + h * HD + part;
-    const float* gi = gout + (base + i) * d + h * HD + part;
-    const float* oi = out + (base + i) * d + h * HD + part;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      q[c] = qi[c * L] * scale;
-      g[c] = gi[c * L];
-      de = fmaf(g[c], oi[c * L], de);
+      for (int c = 0; c < CW; c += 4)
+        de = tile::dot4(tile::ld4(o + c), tile::ld4(g + c), de);
     }
-    const long at = (base + i) * H + h;
-    m = stat_m[at];
-    li = 1.f / fmaxf(stat_l[at], 1e-16f);
+    de += __shfl_xor_sync(0xffffffffu, de, 1);
+    de += __shfl_xor_sync(0xffffffffu, de, 2);
+    if (part == 0) {
+      s.de[r] = de;
+      if (r < nq) delta[(base + q0 + r) * H + h] = de;
+    }
   }
-  de = group_sum<L>(de);
-  if (i < S && part == 0) delta[(base + i) * H + h] = de;
 
-  if (qmax >= 0) {  // the block holds a query that can attend something
-    for (int k0 = 0; k0 < S; k0 += BK) {
-      const int j = k0 + t;
-      const int sj = (t < BK && j < S) ? tags.ktag(base, j) : -1;
-      const bool meets = sj >= qmin && sj <= qmax;  // qmin >= 0
-      if (!__syncthreads_or(meets)) continue;  // uniform: no pair in the tile
-      if (t < BK) ss[t] = sj;
-      for (int idx = t; idx < BK * HD / 4; idx += THREADS) {
-        const int jj = idx / (HD / 4), c4 = idx % (HD / 4);
-        float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-        if (k0 + jj < S) {
-          const float* kr = row + (long)(k0 + jj) * d3 + d + h * HD;
-          kv = reinterpret_cast<const float4*>(kr)[c4];
-          vv = reinterpret_cast<const float4*>(kr + d)[c4];
-        }
-        ks4[idx] = kv;
-        vs4[idx] = vv;
-      }
+  const int m0 = warp_m0(), c0 = warp_half() * (HD / 2);
+  float acc[NTC][4];
+#pragma unroll
+  for (int nt = 0; nt < NTC; ++nt)
+    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  if (qmax >= 0) {  // the tile holds a query that can attend something
+    auto sel = [&](int j) {
+      const int k = tags.ktag(base, j);
+      return k >= qmin && k <= qmax;  // qmin >= 0
+    };
+    int total;
+    const int before = rank_keys(S, sel, s.scan, total);
+    for (int r0 = 0; r0 < total; r0 += T) {
+      const int nk = min(T, total - r0);
+      list_keys(S, sel, before, r0, s.kix);
       __syncthreads();
-      if (ti >= 0) {
-        for (int jj = 0; jj < BK; ++jj) {
-          if (ss[jj] != ti) continue;  // the same for the whole group
-          const float* kj = ks + jj * HD + part;
-          const float* vj = vs + jj * HD + part;
-          float s = 0.f, dp = 0.f;
+      {
+        float* const dst[2] = {s.K, s.V};
+        const float* const src[2] = {row + d, row + 2 * d};
+        const long ld[2] = {d3, d3};
+        stage<HD, 2>(dst, src, ld, [&](int r) { return (long)s.kix[r]; },
+                     nk);
+      }
+      if (t < T) s.kt[t] = t < nk ? tags.ktag(base, s.kix[t]) : -1;
+      cp_wait();
+      __syncthreads();
+      pair_tile<HD, false>(s, b, h, H, S, q0, scale, keep);
+      __syncthreads();
+      // dQ += dS K over the chunk's keys (dS is 0 past nk, K rows zero)
+      for (int k0 = 0; k0 < nk; k0 += 8) {
+        unsigned ah[4], al[4], bh[2], bl[2];
+        frag_a(s.dS, s.sld, 1, m0, k0, ah, al);
 #pragma unroll
-          for (int c = 0; c < 32; ++c) {
-            s = fmaf(q[c], kj[c * L], s);
-            dp = fmaf(g[c], vj[c * L], dp);
-          }
-          s = group_sum<L>(s);
-          dp = group_sum<L>(dp);
-          if (keep.on)
-            dp = keep(b, h, H, S, i, k0 + jj) ? dp * keep.inv_keep : 0.f;
-          const float ds = expf(s - m) * li * (dp - de);
-#pragma unroll
-          for (int c = 0; c < 32; ++c) acc[c] = fmaf(ds, kj[c * L], acc[c]);
+        for (int nt = 0; nt < NTC; ++nt) {  // B(k, n) = K[k][n]
+          frag_b(s.K, LD, 1, k0, c0 + 8 * nt, bh, bl);
+          mma3(acc[nt], ah, al, bh, bl);
         }
       }
-      __syncthreads();  // the tile is overwritten next
+      __syncthreads();  // kix, K, V and dS are overwritten next
     }
   }
-  if (i < S) {
-    float* dq = dqkv + (base + i) * d3 + h * HD + part;
+  const int g = (t & 31) >> 2, tq = t & 3;
 #pragma unroll
-    for (int c = 0; c < 32; ++c) dq[c * L] = acc[c] * scale;
+  for (int r = 0; r < 2; ++r) {
+    const int i = m0 + g + 8 * r;
+    if (i >= nq) continue;
+    float* o = dqkv + (base + q0 + i) * d3 + h * HD + c0 + 2 * tq;
+#pragma unroll
+    for (int nt = 0; nt < NTC; ++nt)
+      *reinterpret_cast<float2*>(o + 8 * nt) = make_float2(
+          acc[nt][2 * r] * scale, acc[nt][2 * r + 1] * scale);
   }
 }
 
-// dk_j = sum_i ds_ij (scale q_i), dv_j = sum_i p_dropped_ij dO_i over the
-// queries that attend key j. One block per (row, head, 128/L keys); the
-// queries (q * scale, dO, m, 1/l, delta, tags) stream through shared
-// memory. A block with no valid key writes zeros without reading a query.
+// dk, dv: one block per (row, head, z): the z-th chunk of T valid keys by
+// rank, and the padding keys among tokens [zT, zT + T). dk_j = scale *
+// sum_i ds_ij q_i, dv_j = sum_i p_dropped_ij dO_i; delta from the dq
+// kernel.
 template <int HD, class Tags, class Keep>
-__global__ void __launch_bounds__(THREADS)
-dkv_kernel(const float* __restrict__ qkv, Tags tags,
-           const float* __restrict__ gout, const float* __restrict__ stat_m,
-           const float* __restrict__ stat_l, const float* __restrict__ delta,
-           float* __restrict__ dqkv, int S, int d, float scale, Keep keep) {
-  constexpr int L = HD / 32;       // threads a key
-  constexpr int KB = THREADS / L;  // keys a block
-  constexpr int TQ = 4096 / HD;    // queries a tile
-  __shared__ float4 qs4[TQ * HD / 4];  // q * scale
-  __shared__ float4 gs4[TQ * HD / 4];  // dO
-  __shared__ float ms[TQ], lis[TQ], des[TQ];
-  __shared__ int ss[TQ];
-  __shared__ int krange[2];
-  const float* qs = reinterpret_cast<const float*>(qs4);
-  const float* gs = reinterpret_cast<const float*>(gs4);
-
+__device__ __forceinline__ void long_dkv(
+    const float* __restrict__ qkv, Tags tags, const float* __restrict__ gout,
+    const float* __restrict__ stat_m, const float* __restrict__ stat_l,
+    const float* __restrict__ delta, float* __restrict__ dqkv, int S, int d,
+    float scale, Keep keep) {
+  constexpr int LD = HD + 4, C4 = HD / 4, NTC = HD / 16;
+  extern __shared__ float4 smem4[];
+  const Tiles<HD> s(reinterpret_cast<float*>(smem4), true);
   const long b = blockIdx.x;
-  const int h = blockIdx.y;
-  const int H = gridDim.y;
-  const int t = threadIdx.x;
-  const int part = t % L;
-  const int j = blockIdx.z * KB + t / L;
-  const long d3 = 3L * d;
-  const long base = b * S;
-  const float* row = qkv + base * d3;
+  const int h = blockIdx.y, H = gridDim.y, t = threadIdx.x;
+  const int z = blockIdx.z;
+  const long d3 = 3L * d, base = b * S;
+  const float* row = qkv + base * d3 + h * HD;
+  float* drow = dqkv + base * d3 + h * HD;
+  const float4 z4 = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  const int sj = j < S ? tags.ktag(base, j) : -1;
+  for (int idx = t; idx < T * C4; idx += NT) {  // padding keys of tile z
+    const int j = z * T + idx / C4;
+    if (j < S && tags.ktag(base, j) < 0) {
+      float* o = drow + j * d3 + idx % C4 * 4;
+      tile::st4(o + d, z4);
+      tile::st4(o + 2 * d, z4);
+    }
+  }
+  auto sel = [&](int j) { return tags.ktag(base, j) >= 0; };
+  int total;
+  const int before = rank_keys(S, sel, s.scan, total);
+  const int r0 = z * T;
+  if (r0 >= total) return;  // uniform: no chunk z
+  const int nk = min(T, total - r0);
+  list_keys(S, sel, before, r0, s.kix);
+  __syncthreads();
+  {
+    float* const dst[2] = {s.K, s.V};
+    const float* const src[2] = {row + d, row + 2 * d};
+    const long ld[2] = {d3, d3};
+    stage<HD, 2>(dst, src, ld, [&](int r) { return (long)s.kix[r]; }, nk);
+  }
+  int tag = -1;
+  if (t < T) {
+    tag = t < nk ? tags.ktag(base, s.kix[t]) : -1;
+    s.kt[t] = tag;
+  }
   int kmin, kmax;
-  block_range(sj, krange, kmin, kmax);
+  block_range(tag, s.range, kmin, kmax);  // kmax >= 0: nk > 0
 
-  float k[32], v[32], dk[32], dv[32];
+  const int m0 = warp_m0(), c0 = warp_half() * (HD / 2);
+  float dk[NTC][4], dv[NTC][4];
 #pragma unroll
-  for (int c = 0; c < 32; ++c) k[c] = v[c] = dk[c] = dv[c] = 0.f;
-  if (sj >= 0) {
-    const float* kj = row + j * d3 + d + h * HD + part;
+  for (int nt = 0; nt < NTC; ++nt)
 #pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      k[c] = kj[c * L];
-      v[c] = kj[d + c * L];
+    for (int e = 0; e < 4; ++e) dk[nt][e] = dv[nt][e] = 0.f;
+  for (int q0 = 0; q0 < S; q0 += T) {
+    const int nq = min(T, S - q0);
+    int qt = -1;
+    if (t < nq) qt = tags.qtag(base, q0 + t);
+    if (!__syncthreads_or(qt >= kmin && qt <= kmax)) continue;  // uniform
+    {
+      float* const dst[2] = {s.Q, s.G};
+      const float* const src[2] = {row, gout + base * d + h * HD};
+      const long ld[2] = {d3, d};
+      stage<HD, 2>(dst, src, ld, [&](int r) { return (long)(q0 + r); }, nq);
     }
-  }
-
-  if (kmax >= 0) {  // the block holds a valid key
-    for (int q0 = 0; q0 < S; q0 += TQ) {
-      const int iq = q0 + t;
-      const int si = (t < TQ && iq < S) ? tags.qtag(base, iq) : -1;
-      const bool meets = si >= kmin && si <= kmax;  // kmin >= 0
-      if (!__syncthreads_or(meets)) continue;  // uniform: no pair in the tile
-      if (t < TQ) {
-        ss[t] = si;
-        if (si >= 0) {
-          const long at = (base + iq) * H + h;
-          ms[t] = stat_m[at];
-          lis[t] = 1.f / fmaxf(stat_l[at], 1e-16f);
-          des[t] = delta[at];
-        } else {
-          ms[t] = lis[t] = des[t] = 0.f;
-        }
+    if (t < T) {
+      float m = 0.f, li = 0.f, de = 0.f;
+      if (t < nq) {
+        const long at = (base + q0 + t) * H + h;
+        m = stat_m[at];
+        li = 1.f / fmaxf(stat_l[at], 1e-16f);
+        de = delta[at];
       }
-      for (int idx = t; idx < TQ * HD / 4; idx += THREADS) {
-        const int ii = idx / (HD / 4), c4 = idx % (HD / 4);
-        float4 qv = make_float4(0.f, 0.f, 0.f, 0.f), gv = qv;
-        if (q0 + ii < S) {
-          qv = reinterpret_cast<const float4*>(
-              row + (long)(q0 + ii) * d3 + h * HD)[c4];
-          qv.x *= scale;
-          qv.y *= scale;
-          qv.z *= scale;
-          qv.w *= scale;
-          gv = reinterpret_cast<const float4*>(
-              gout + (base + q0 + ii) * d + h * HD)[c4];
-        }
-        qs4[idx] = qv;
-        gs4[idx] = gv;
-      }
-      __syncthreads();
-      if (sj >= 0) {
-        for (int ii = 0; ii < TQ; ++ii) {
-          if (ss[ii] != sj) continue;  // the same for the whole group
-          const float* qi = qs + ii * HD + part;
-          const float* gi = gs + ii * HD + part;
-          float s = 0.f, dp = 0.f;
-#pragma unroll
-          for (int c = 0; c < 32; ++c) {
-            s = fmaf(qi[c * L], k[c], s);
-            dp = fmaf(gi[c * L], v[c], dp);
-          }
-          s = group_sum<L>(s);
-          dp = group_sum<L>(dp);
-          const float p = expf(s - ms[ii]) * lis[ii];
-          float pd = p;
-          if (keep.on) {
-            const bool kp = keep(b, h, H, S, q0 + ii, j);
-            pd = kp ? p * keep.inv_keep : 0.f;
-            dp = kp ? dp * keep.inv_keep : 0.f;
-          }
-          const float ds = p * (dp - des[ii]);
-#pragma unroll
-          for (int c = 0; c < 32; ++c) {
-            dk[c] = fmaf(ds, qi[c * L], dk[c]);  // q * scale: d s / d k
-            dv[c] = fmaf(pd, gi[c * L], dv[c]);
-          }
-        }
-      }
-      __syncthreads();  // the tile is overwritten next
+      s.qt[t] = t < nq ? qt : -1;
+      s.m[t] = m;
+      s.li[t] = li;
+      s.de[t] = de;
     }
-  }
-  if (j < S) {
-    float* dkj = dqkv + (base + j) * d3 + d + h * HD + part;
+    cp_wait();
+    __syncthreads();
+    pair_tile<HD, true>(s, b, h, H, S, q0, scale, keep);
+    __syncthreads();
+    // dV += P_drop^T dO, dK += dS^T Q over the tile's queries (the scores
+    // are 0 past nq, Q and dO rows zero)
+    for (int k0 = 0; k0 < nq; k0 += 8) {
+      unsigned ph[4], pl[4], sh[4], sl[4], bh[2], bl[2];
+      frag_a(s.Pd, 1, s.sld, m0, k0, ph, pl);  // A(m, k) = Pd[k][m]
+      frag_a(s.dS, 1, s.sld, m0, k0, sh, sl);
 #pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      dkj[c * L] = dk[c];
-      dkj[d + c * L] = dv[c];
+      for (int nt = 0; nt < NTC; ++nt) {  // B(k, n) = dO[k][n], Q[k][n]
+        frag_b(s.G, LD, 1, k0, c0 + 8 * nt, bh, bl);
+        mma3(dv[nt], ph, pl, bh, bl);
+        frag_b(s.Q, LD, 1, k0, c0 + 8 * nt, bh, bl);
+        mma3(dk[nt], sh, sl, bh, bl);
+      }
+    }
+    // the next iteration's __syncthreads_or guards Q, G and the scores
+  }
+  const int g = (t & 31) >> 2, tq = t & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int jj = m0 + g + 8 * r;
+    if (jj >= nk) continue;
+    float* o = drow + (long)s.kix[jj] * d3 + c0 + 2 * tq;
+#pragma unroll
+    for (int nt = 0; nt < NTC; ++nt) {
+      *reinterpret_cast<float2*>(o + d + 8 * nt) = make_float2(
+          dk[nt][2 * r] * scale, dk[nt][2 * r + 1] * scale);
+      *reinterpret_cast<float2*>(o + 2 * d + 8 * nt) =
+          make_float2(dv[nt][2 * r], dv[nt][2 * r + 1]);
     }
   }
 }
 
-// Launches dq_kernel then dkv_kernel on one stream (delta passes between
-// them). Returns cudaGetLastError() after each launch.
+}  // namespace lr
+
+// The two __global__ kernels of a caller (its own, with its own launch
+// bounds) over lr::long_dq and lr::long_dkv.
+template <class Tags, class Keep>
+using LongDq = void (*)(const float*, Tags, const float*, const float*,
+                        const float*, const float*, float*, float*, int, int,
+                        float, Keep);
+template <class Tags, class Keep>
+using LongDkv = void (*)(const float*, Tags, const float*, const float*,
+                         const float*, const float*, float*, int, int, float,
+                         Keep);
+
+// Launches dq, then dk/dv on one stream (delta [B, S, H] passes between
+// them), raising their shared-memory limit once, before the first launch
+// (one caller a Tags and Keep pair). Returns cudaGetLastError() after each
+// launch.
 template <int HD, class Tags, class Keep>
-cudaError_t launch_bwd(const float* qkv, Tags tags, const float* out,
-                       const float* gout, const float* stat_m,
-                       const float* stat_l, float* delta, float* dqkv, int B,
-                       int S, int d, int H, Keep keep, cudaStream_t stream) {
-  constexpr int L = HD / 32;
+cudaError_t launch_long_bwd(LongDq<Tags, Keep> dq, LongDkv<Tags, Keep> dkv,
+                            const float* qkv, Tags tags, const float* out,
+                            const float* gout, const float* stat_m,
+                            const float* stat_l, float* delta, float* dqkv,
+                            int B, int S, int d, int H, Keep keep,
+                            cudaStream_t stream) {
+  static const cudaError_t set = [&] {
+    cudaError_t e = cudaFuncSetAttribute(
+        dq, cudaFuncAttributeMaxDynamicSharedMemorySize, long_dq_bytes(HD));
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(
+        dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, long_dkv_bytes(HD));
+  }();
+  if (set != cudaSuccess) return set;
   const float scale = 1.f / sqrtf((float)HD);
-  const int per = THREADS / L;  // queries (keys) a block
-  dim3 grid(B, H, (S + per - 1) / per);
-  dq_kernel<HD, Tags, Keep><<<grid, THREADS, 0, stream>>>(
+  const dim3 grid(B, H, (S + LONG_T - 1) / LONG_T);
+  dq<<<grid, LONG_THREADS, long_dq_bytes(HD), stream>>>(
       qkv, tags, out, gout, stat_m, stat_l, delta, dqkv, S, d, scale, keep);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dkv_kernel<HD, Tags, Keep><<<grid, THREADS, 0, stream>>>(
+  dkv<<<grid, LONG_THREADS, long_dkv_bytes(HD), stream>>>(
       qkv, tags, gout, stat_m, stat_l, delta, dqkv, S, d, scale, keep);
   return cudaGetLastError();
 }

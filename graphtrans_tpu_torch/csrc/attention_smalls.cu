@@ -13,9 +13,14 @@
 // 128, where shared memory runs out) take the whole-tile body of
 // attention_tile.cuh (scores once, an exact two-pass softmax, O = P_drop V
 // / l), wider ones the streaming body of attention_fwd.cuh (K5's). The
-// backward is the streaming pair of attention_bwd.cuh (K5's), reading
-// either forward's m and l. Each instance is K9's own __global__ with K9's
-// dropout schedule as the Keep policy.
+// backward has three instances, picked by span width and head width in the
+// wrapper's bwd_geometry, each reading either forward's m and l: spans of
+// up to 64 tokens take attention_tile.cuh's short backward (whole spans,
+// several a block), spans of up to 384 at hd 32 and 64 its wide one (64-token
+// tiles, the span's dQ in shared memory), the rest (code2's rows of 513 and
+// 1001; hd 128 above 64) the long-row pair of attention_bwd.cuh (K5's). Each
+// instance is K9's own __global__ with K9's dropout schedule as the Keep
+// policy.
 //
 // Dropout keeps (b, h, i, j) iff hash(pos, seed + p / ht) < thresh with
 // p = b*H + h, ht = max(1, min(16, 4096 / S)) and pos = ((p % ht)*S + i)*S
@@ -77,8 +82,9 @@ attention_smalls_fwd_tile_kernel(const float* __restrict__ qkv,
                                    H, block, np, group, scale, dr);
 }
 
-// A launch as the wrapper computed it (attention_smalls.py:fwd_geometry):
-// instance 1 the tile body, 2 the streaming one.
+// A launch as the wrapper computed it (attention_smalls.py:fwd_geometry,
+// bwd_geometry): forward instance 1 the tile body, 2 the streaming one;
+// backward 1 short, 2 wide, 3 long.
 struct Launch {
   int instance, pad, group, gx, gy, gz, threads, smem;
 };
@@ -139,6 +145,132 @@ int launch_fwd(const float* qkv, const unsigned char* valid, float* out,
                                            B, S, d, H, block, dr, L, stream);
 }
 
+// The backward's instances: spans of up to tile::SHORT_MAX tokens, `group`
+// a block; wider spans of up to WIDE_MAX, one a block; and the long-row
+// pair (dq, then dk/dv).
+template <int HD>
+__global__ void __launch_bounds__(tile::THREADS)
+attention_smalls_bwd_short_kernel(
+    const float* __restrict__ qkv, const unsigned char* __restrict__ valid,
+    const float* __restrict__ out, const float* __restrict__ gout,
+    const float* __restrict__ stat_m, const float* __restrict__ stat_l,
+    float* __restrict__ dqkv, int B, int S, int d, int H, int block, int np,
+    int group, float scale, SmallsKeep dr) {
+  tile::bwd_short<HD>(qkv, valid, out, gout, stat_m, stat_l, dqkv, B, S, d,
+                      H, block, np, group, scale, dr);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(tile::THREADS)
+attention_smalls_bwd_wide_kernel(
+    const float* __restrict__ qkv, const unsigned char* __restrict__ valid,
+    const float* __restrict__ out, const float* __restrict__ gout,
+    const float* __restrict__ stat_m, const float* __restrict__ stat_l,
+    float* __restrict__ dqkv, int S, int d, int H, int block, int npad,
+    float scale, SmallsKeep dr) {
+  tile::bwd_wide<HD>(qkv, valid, out, gout, stat_m, stat_l, dqkv, S, d, H,
+                     block, npad, scale, dr);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(attn::LONG_THREADS, attn::long_blocks(HD))
+attention_smalls_bwd_dq_kernel(const float* __restrict__ qkv,
+                               attn::PadTags tags,
+                               const float* __restrict__ out,
+                               const float* __restrict__ gout,
+                               const float* __restrict__ stat_m,
+                               const float* __restrict__ stat_l,
+                               float* __restrict__ delta,
+                               float* __restrict__ dqkv, int S, int d,
+                               float scale, SmallsKeep dr) {
+  attn::lr::long_dq<HD>(qkv, tags, out, gout, stat_m, stat_l, delta, dqkv, S,
+                        d, scale, dr);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(attn::LONG_THREADS, attn::long_blocks(HD))
+attention_smalls_bwd_dkv_kernel(const float* __restrict__ qkv,
+                                attn::PadTags tags,
+                                const float* __restrict__ gout,
+                                const float* __restrict__ stat_m,
+                                const float* __restrict__ stat_l,
+                                const float* __restrict__ delta,
+                                float* __restrict__ dqkv, int S, int d,
+                                float scale, SmallsKeep dr) {
+  attn::lr::long_dkv<HD>(qkv, tags, gout, stat_m, stat_l, delta, dqkv, S, d,
+                         scale, dr);
+}
+
+constexpr int WIDE_MAX = 384;  // the widest span of the wide backward
+
+// Checks the wrapper's bwd_geometry against (B, S, H, block, HD) and the
+// card's limits, then launches the instance (1 short, 2 wide, 3 long); the
+// tile kernels' shared-memory attribute is raised once, before their first
+// launch. Only the long instance reads delta (scratch [B, S, H]).
+template <int HD>
+int launch_bwd(const float* qkv, const unsigned char* valid, const float* out,
+               const float* gout, const float* stat_m, const float* stat_l,
+               float* delta, float* dqkv, int B, int S, int d, int H,
+               int block, SmallsKeep dr, Launch L, cudaStream_t stream) {
+  const tile::Spans sp = tile::spans_of(S, block);
+  const long problems = (long)B * sp.count * H;
+  const float scale = 1.f / sqrtf((float)HD);
+  if (L.instance == 1) {
+    const int np = tile::round4(sp.width);
+    if (sp.width > tile::SHORT_MAX || L.pad != np || L.group < 1 ||
+        L.threads < 32 || L.threads > tile::THREADS || L.threads % 32 ||
+        L.gy != 1 || L.gz != 1 ||
+        (long)L.gx != (problems + L.group - 1) / L.group ||
+        L.smem != L.group * tile::bwd_short_floats(np, HD) * 4 ||
+        L.smem > tile::SMEM_MAX)
+      return cudaErrorInvalidValue;
+    static const cudaError_t set = cudaFuncSetAttribute(
+        attention_smalls_bwd_short_kernel<HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, tile::SMEM_MAX);
+    if (set != cudaSuccess) return set;
+    attention_smalls_bwd_short_kernel<HD><<<L.gx, L.threads, L.smem,
+                                            stream>>>(
+        qkv, valid, out, gout, stat_m, stat_l, dqkv, B, S, d, H, block, np,
+        L.group, scale, dr);
+    return cudaGetLastError();
+  }
+  if (L.instance == 2) {
+    if constexpr (HD > 64) {
+      return cudaErrorInvalidValue;  // bwd_wide's tiles fit no wider head
+    } else {
+      const int npad = (sp.width + tile::WIDE - 1) / tile::WIDE * tile::WIDE;
+      if (sp.width <= tile::SHORT_MAX || sp.width > WIDE_MAX ||
+          L.pad != tile::WIDE || L.group != 1 || L.threads != tile::THREADS ||
+          L.gy != 1 || L.gz != 1 || (long)L.gx != problems ||
+          L.smem != tile::bwd_wide_floats(npad, HD) * 4 ||
+          L.smem > tile::SMEM_MAX)
+        return cudaErrorInvalidValue;
+      static const cudaError_t set = cudaFuncSetAttribute(
+          attention_smalls_bwd_wide_kernel<HD>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, tile::SMEM_MAX);
+      if (set != cudaSuccess) return set;
+      attention_smalls_bwd_wide_kernel<HD><<<L.gx, L.threads, L.smem,
+                                             stream>>>(
+          qkv, valid, out, gout, stat_m, stat_l, dqkv, S, d, H, block, npad,
+          scale, dr);
+      return cudaGetLastError();
+    }
+  }
+  if (L.instance == 3) {
+    if (delta == nullptr || L.pad != attn::LONG_T || L.group != 1 ||
+        L.gx != B || L.gy != H ||
+        L.gz != (S + attn::LONG_T - 1) / attn::LONG_T ||
+        L.threads != attn::LONG_THREADS || L.smem != attn::long_dkv_bytes(HD))
+      return cudaErrorInvalidValue;
+    return attn::launch_long_bwd<HD>(
+        attention_smalls_bwd_dq_kernel<HD>,
+        attention_smalls_bwd_dkv_kernel<HD>, qkv,
+        attn::PadTags{valid, block}, out, gout, stat_m, stat_l, delta, dqkv,
+        B, S, d, H, dr, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
 SmallsKeep make_keep(int on, unsigned thresh, float inv_keep, int seed,
                      int S) {
   SmallsKeep dr;
@@ -194,8 +326,11 @@ extern "C" int attention_smalls_fwd(const float* qkv,
 }
 
 // dqkv [B, S, 3d] for the cotangent gout [B, S, d] of attention_smalls_fwd's
-// out, from its saved m and l; delta [B, S, H] is scratch (written by the
-// dq kernel, read by the dk/dv kernel on the same stream).
+// out, from its saved m and l. The launch (instance, pad, group, grid,
+// threads, smem) is the wrapper's bwd_geometry; one that does not match the
+// shapes is refused. delta [B, S, H] is scratch for the long instance
+// (written by its dq kernel, read by its dk/dv kernel on the same stream)
+// and may be null for the others.
 extern "C" int attention_smalls_bwd(const float* qkv,
                                     const unsigned char* valid,
                                     const float* out, const float* gout,
@@ -203,21 +338,23 @@ extern "C" int attention_smalls_bwd(const float* qkv,
                                     float* delta, float* dqkv, int B, int S,
                                     int d, int H, int block, int drop,
                                     unsigned thresh, float inv_keep, int seed,
+                                    int instance, int pad, int group, int gx,
+                                    int gy, int gz, int threads, int smem,
                                     cudaStream_t stream) {
   if (B <= 0 || S <= 0 || H <= 0 || d % H || block < 0)
     return cudaErrorInvalidValue;
   const SmallsKeep dr = make_keep(drop, thresh, inv_keep, seed, S);
-  const attn::PadTags tags{valid, block};
+  const Launch L{instance, pad, group, gx, gy, gz, threads, smem};
   switch (d / H) {
     case 32:
-      return attn::launch_bwd<32>(qkv, tags, out, gout, stat_m, stat_l, delta,
-                                  dqkv, B, S, d, H, dr, stream);
+      return launch_bwd<32>(qkv, valid, out, gout, stat_m, stat_l, delta,
+                            dqkv, B, S, d, H, block, dr, L, stream);
     case 64:
-      return attn::launch_bwd<64>(qkv, tags, out, gout, stat_m, stat_l, delta,
-                                  dqkv, B, S, d, H, dr, stream);
+      return launch_bwd<64>(qkv, valid, out, gout, stat_m, stat_l, delta,
+                            dqkv, B, S, d, H, block, dr, L, stream);
     case 128:
-      return attn::launch_bwd<128>(qkv, tags, out, gout, stat_m, stat_l,
-                                   delta, dqkv, B, S, d, H, dr, stream);
+      return launch_bwd<128>(qkv, valid, out, gout, stat_m, stat_l, delta,
+                             dqkv, B, S, d, H, block, dr, L, stream);
     default:
       return cudaErrorInvalidValue;
   }

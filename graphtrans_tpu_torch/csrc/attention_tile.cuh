@@ -1,6 +1,7 @@
 // Attention over one whole attention block at a time: K4's backward
-// (attention_packed.cu) and K9's forward on short spans
-// (attention_smalls.cu), over qkv [B, S, 3d] with heads in lanes.
+// (attention_packed.cu), and K9's forward on short spans and its backward
+// up to 384 tokens (attention_smalls.cu), over qkv [B, S, 3d] with heads in
+// lanes.
 //
 // An attention block ("span") is the token range whose queries and keys
 // meet under K4's mask: with block > 0 one graph block of a packed row,
@@ -49,11 +50,11 @@
 // so 4 (6) problems share an SM, and their staging overlaps the others'
 // arithmetic.
 //
-// Wide spans (K4-bwd, block 0, up to 384 tokens): 64-token tiles. For each
-// key tile (skipped whole, with dk = dv = 0, when it holds no valid key)
-// the block walks the query tiles; dK and dV of the key tile stay in
-// registers, and the span's dQ sums stay in shared memory (<= 384 x 68
-// floats at hd 64), each cell updated by one thread.
+// Wide spans (K4-bwd and K9-bwd, up to 384 tokens, hd 32 and 64): 64-token
+// tiles. For each key tile (skipped whole, with dk = dv = 0, when it holds
+// no valid key) the block walks the query tiles; dK and dV of the key tile
+// stay in registers, and the span's dQ sums stay in shared memory (<= 384
+// x 68 floats at hd 64), each cell updated by one thread.
 //
 // Dropout is a policy (Keep: members on and inv_keep, and
 // keep(b, h, H, S, i, j) with i, j the row's own token indices), drawn

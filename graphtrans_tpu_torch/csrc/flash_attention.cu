@@ -23,9 +23,11 @@
 // BQ = BK = 256, hashed as its interpret mode hashes them. Forward,
 // backward and the plain version draw the same mask; nothing is stored.
 // Where a gradient is wanted the forward also writes m and l per (row,
-// query, head). The backward is the streaming pair of attention_bwd.cuh
-// (dq, which also writes delta = dO . O; then dk/dv) with segq and segk as
-// its tags.
+// query, head). The backward is the long-row pair of attention_bwd.cuh
+// (a dq kernel over 64-query tiles, which also writes delta = dO . O; then
+// a dk/dv kernel over chunks of 64 valid keys, both on 64 x 64 pair tiles
+// in shared memory with their products as 3xTF32 mma.sync on the tensor
+// cores) under K5's own kernels, with segq and segk as its tags.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -100,6 +102,46 @@ int launch_fwd(const float* qkv, const int* segq, const int* segk,
                                            stat_l, B, S, d, H, dr, stream);
 }
 
+// K5's backward kernels over the long-row bodies of attention_bwd.cuh.
+template <int HD>
+__global__ void __launch_bounds__(attn::LONG_THREADS, attn::long_blocks(HD))
+flash_attention_bwd_dq_kernel(const float* __restrict__ qkv,
+                              attn::SegTags tags, const float* __restrict__ out,
+                              const float* __restrict__ gout,
+                              const float* __restrict__ stat_m,
+                              const float* __restrict__ stat_l,
+                              float* __restrict__ delta,
+                              float* __restrict__ dqkv, int S, int d,
+                              float scale, Dropout dr) {
+  attn::lr::long_dq<HD>(qkv, tags, out, gout, stat_m, stat_l, delta, dqkv, S,
+                        d, scale, dr);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(attn::LONG_THREADS, attn::long_blocks(HD))
+flash_attention_bwd_dkv_kernel(const float* __restrict__ qkv,
+                               attn::SegTags tags,
+                               const float* __restrict__ gout,
+                               const float* __restrict__ stat_m,
+                               const float* __restrict__ stat_l,
+                               const float* __restrict__ delta,
+                               float* __restrict__ dqkv, int S, int d,
+                               float scale, Dropout dr) {
+  attn::lr::long_dkv<HD>(qkv, tags, gout, stat_m, stat_l, delta, dqkv, S, d,
+                         scale, dr);
+}
+
+template <int HD>
+int launch_bwd(const float* qkv, attn::SegTags tags, const float* out,
+               const float* gout, const float* stat_m, const float* stat_l,
+               float* delta, float* dqkv, int B, int S, int d, int H,
+               Dropout dr, cudaStream_t stream) {
+  return attn::launch_long_bwd<HD>(
+      flash_attention_bwd_dq_kernel<HD>, flash_attention_bwd_dkv_kernel<HD>,
+      qkv, tags, out, gout, stat_m, stat_l, delta, dqkv, B, S, d, H, dr,
+      stream);
+}
+
 Dropout make_dropout(int on, unsigned thresh, float inv_keep, int seed) {
   Dropout dr;
   dr.on = on;
@@ -159,14 +201,14 @@ extern "C" int flash_attention_bwd(const float* qkv, const int* segq,
   const attn::SegTags tags{segq, segk};
   switch (d / H) {
     case 32:
-      return attn::launch_bwd<32>(qkv, tags, out, gout, stat_m, stat_l, delta,
-                                  dqkv, B, S, d, H, dr, stream);
+      return launch_bwd<32>(qkv, tags, out, gout, stat_m, stat_l, delta, dqkv,
+                            B, S, d, H, dr, stream);
     case 64:
-      return attn::launch_bwd<64>(qkv, tags, out, gout, stat_m, stat_l, delta,
-                                  dqkv, B, S, d, H, dr, stream);
+      return launch_bwd<64>(qkv, tags, out, gout, stat_m, stat_l, delta, dqkv,
+                            B, S, d, H, dr, stream);
     case 128:
-      return attn::launch_bwd<128>(qkv, tags, out, gout, stat_m, stat_l,
-                                   delta, dqkv, B, S, d, H, dr, stream);
+      return launch_bwd<128>(qkv, tags, out, gout, stat_m, stat_l, delta,
+                             dqkv, B, S, d, H, dr, stream);
     default:
       return cudaErrorInvalidValue;
   }

@@ -329,10 +329,11 @@ WIDE = 64            # rows of a tile of the wide backward
 @dataclass(frozen=True)
 class Geometry:
     """One launch of a kernel on ``csrc/attention_tile.cuh`` (or K9's
-    streaming one): the instance, the spans of a row (start, end), the
-    rows ``pad`` of a span's tile, the problems (row, span, head) ``group``
-    a CUDA block, the grid, the threads a block and its dynamic shared
-    bytes. ``args`` are the ints the C entry checks and launches."""
+    streaming forward, or its long-row backward): the instance, the spans
+    of a row (start, end), the rows ``pad`` of a span's tile, the problems
+    (row, span, head) ``group`` a CUDA block, the grid, the threads a block
+    and its dynamic shared bytes. ``args`` are the ints the C entry checks
+    and launches."""
     instance: str
     spans: tuple
     pad: int
@@ -342,7 +343,8 @@ class Geometry:
     smem: int
 
     def args(self):
-        code = {"short": 1, "tile": 1, "wide": 2, "stream": 2}[self.instance]
+        code = {"short": 1, "tile": 1, "wide": 2, "stream": 2,
+                "long": 3}[self.instance]
         return (code, self.pad, self.group, *self.grid, self.threads,
                 self.smem)
 

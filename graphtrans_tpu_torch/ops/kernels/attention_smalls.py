@@ -41,8 +41,15 @@ two-pass softmax per query row, then O = P_drop V / l; several spans a
 block where one is small. Wider spans take K5's streaming body
 (``csrc/attention_fwd.cuh``, one block per (row, head, 128 queries), a
 thread a query). Both write the m and l that the backward reads, with
-the meaning ``attention_fwd.cuh`` gives them. The backward is K5's
-streaming pair (``csrc/attention_bwd.cuh``) with K4's mask as tags
+the meaning ``attention_fwd.cuh`` gives them. The backward has three
+instances, picked by span width and head width (``bwd_geometry``): spans of
+up to SHORT_MAX (64) tokens take ``attention_tile.cuh``'s short backward
+(K4-bwd's: each span's Q, K, V and dO staged once, each pair evaluated
+once, delta = dO.O computed in the kernel, several spans a block); spans
+of up to 384 at hd 32 and 64 its wide one (64-token tiles, the span's dQ
+in shared memory); the rest (code2's rows of 513 and 1001; hd 128 above 64
+tokens, where the wide one does not fit a block) the long-row pair of
+``csrc/attention_bwd.cuh`` that K5-bwd runs, with K4's mask as tags
 (``PadTags``). Each instance is its own ``__global__`` in
 ``csrc/attention_smalls.cu`` with K9's seed schedule as the dropout
 policy. Heads of width 32, 64 and 128.
@@ -55,14 +62,19 @@ import ctypes
 import torch
 
 from . import _build
-from .attention_packed import (SMEM_MAX, Geometry, _round, _stream,
-                               attention_dense_plain, hash_bits, keep_drop,
+from .attention_packed import (SHORT_MAX, SMEM_MAX, TILE_THREADS, WIDE,
+                               W_MAX, Geometry, _round, _stream,
+                               attention_dense_plain, bwd_short_bytes,
+                               bwd_wide_bytes, hash_bits, keep_drop,
                                keep_threshold, row_spans, tile_launch)
 from .flash_attention import HEAD_DIMS, PLAIN_SCORE_BYTES, _dropout_args
 
 
 TILE_MAX = 128       # the longest span the tile instance takes
 STREAM_THREADS = 128 # threads (queries) a block of the streaming instance
+LONG_T = 64          # queries a tile, keys a chunk of the long backward
+LONG_THREADS = 256   # threads a block of the long backward
+WIDE_HEAD_DIMS = (32, 64)  # the head widths of the wide backward
 
 
 def fwd_tile_bytes(pad: int, hd: int) -> int:
@@ -94,6 +106,35 @@ def fwd_geometry(B: int, S: int, block: int, hd: int, nhead: int,
                            B * len(spans) * nhead)
     return Geometry("stream", spans, 0, 1,
                     (B, nhead, -(-S // STREAM_THREADS)), STREAM_THREADS, 0)
+
+
+def long_bwd_bytes(hd: int) -> int:
+    """Shared bytes of the long backward's dk/dv kernel (its dq kernel takes
+    one score tile less): Q, dO, K, V tiles of 64 rows, the dS and P_drop
+    score tiles, per-row statistics, tags and token indices, and the prefix
+    count's scratch (``csrc/attention_bwd.cuh:long_dkv_bytes``)."""
+    return 4 * (4 * LONG_T * (hd + 4) + 2 * LONG_T * (LONG_T + 8)
+                + 6 * LONG_T + 16)
+
+
+def bwd_geometry(B: int, S: int, block: int, hd: int,
+                 nhead: int) -> Geometry:
+    """K9-bwd's launch for rows of S tokens, by the width of the spans of
+    ``row_spans(S, block)`` and the head width: up to SHORT_MAX tokens the
+    short instance (whole spans, ``group`` a block), up to W_MAX at hd 32
+    and 64 the wide one (a span a block of 256 threads, 64-token tiles),
+    else the long one (a block per (row, head, 64 tokens), two kernels)."""
+    spans = row_spans(S, block)
+    width = spans[0][1] - spans[0][0]
+    problems = B * len(spans) * nhead
+    if width <= SHORT_MAX:
+        return tile_launch("short", spans, bwd_short_bytes(_round(width, 4),
+                                                           hd), problems)
+    if width <= W_MAX and hd in WIDE_HEAD_DIMS:
+        return Geometry("wide", spans, WIDE, 1, (problems, 1, 1),
+                        TILE_THREADS, bwd_wide_bytes(width, hd))
+    return Geometry("long", spans, LONG_T, 1, (B, nhead, -(-S // LONG_T)),
+                    LONG_THREADS, long_bwd_bytes(hd))
 
 
 def pairs_per_tile(S: int) -> int:
@@ -269,7 +310,8 @@ def attention_smalls_bwd(qkv: torch.Tensor, key_valid: torch.Tensor,
     dropout mask drawn again from ``seed``. ``saved`` is the forward's
     (out, m, l) from ``attention_smalls_with_stats``, which the kernels
     read. CPU tensors take ``attention_smalls_bwd_plain`` (no ``saved``);
-    CUDA tensors launch the dq and dk/dv kernels or raise."""
+    CUDA tensors launch the instance of ``bwd_geometry`` or raise; it is
+    counted in ``attention_smalls_bwd.instances``."""
     if qkv.device.type == "cpu":
         return attention_smalls_bwd_plain(qkv, key_valid, nhead, gout, block,
                                           rate, seed)
@@ -286,19 +328,25 @@ def attention_smalls_bwd(qkv: torch.Tensor, key_valid: torch.Tensor,
     dqkv = torch.empty_like(qkv)
     if dqkv.numel() == 0:
         return dqkv
-    delta = torch.empty_like(m)
+    geo = bwd_geometry(B, S, block, d3 // 3 // nhead, nhead)
+    # delta = dO.O passes between the long instance's two kernels; the tile
+    # instances compute it themselves
+    delta = torch.empty_like(m) if geo.instance == "long" else None
     valid = key_valid.contiguous()
+    ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
     lib = _load()
     err = lib.attention_smalls_bwd(
-        *(ctypes.c_void_p(t.data_ptr())
-          for t in (qkv, valid, out, gout, m, l, delta, dqkv)),
-        B, S, d3 // 3, nhead, block, *_dropout_args(rate, seed), _stream(qkv))
+        *(ptr(t) for t in (qkv, valid, out, gout, m, l, delta, dqkv)),
+        B, S, d3 // 3, nhead, block, *_dropout_args(rate, seed), *geo.args(),
+        _stream(qkv))
     _build.check(lib, err, "attention_smalls_bwd")
     attention_smalls_bwd.launches += 1
+    attention_smalls_bwd.instances[geo.instance] += 1
     return dqkv
 
 
 attention_smalls_bwd.launches = 0
+attention_smalls_bwd.instances = {"short": 0, "wide": 0, "long": 0}
 
 
 def _load():
@@ -312,6 +360,7 @@ def _load():
         lib.attention_smalls_fwd.restype = ctypes.c_int
         lib.attention_smalls_bwd.argtypes = ([ctypes.c_void_p] * 8
                                              + [ctypes.c_int] * 5 + drop
+                                             + [ctypes.c_int] * 8
                                              + [ctypes.c_void_p])
         lib.attention_smalls_bwd.restype = ctypes.c_int
     return lib

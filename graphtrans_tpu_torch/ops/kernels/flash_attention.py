@@ -47,13 +47,21 @@ column, so at code2's mean of ~125 nodes most tiles are skipped: without
 the skip the kernel would do ~8x the work. Where a gradient is wanted the
 forward also writes m and l ``[B, S, H]`` (dropout and statistics are
 template parameters, so the serving launch runs the loop without either).
-The backward is the streaming pair of ``csrc/attention_bwd.cuh`` (shared
-with K4): a dq kernel that also writes delta, skipping key tiles without a
-key its queries attend, and a dk/dv kernel whose key blocks without a
-valid key write zeros; in the key-padding form a live key block walks all
-S queries. Each token is handled by hd/32 threads of 32 channels, so the
-backward keeps its sums in registers at every width. Heads of width 32,
-64 and 128 are compiled.
+The backward is the long-row pair of ``csrc/attention_bwd.cuh`` (shared
+with K9-bwd's long instance), on 64 x 64 pair tiles staged in shared
+memory with ``cp.async``, their products on the tensor cores as 3xTF32
+``mma.sync`` (each operand split into two TF32 parts, three products
+summed in f32, so f32 accuracy is kept): a dq kernel, one block per (row,
+head, 64 queries), that writes delta = dO.O and walks the row's keys whose
+tags meet its queries', gathered 64 at a time by rank, with its dQ sums in
+registers; then a dk/dv kernel, one block per (row, head, chunk of 64 valid
+keys by rank), that walks the query tiles whose tags can meet its keys
+with dK and dV in registers, and writes zeros for the padding keys.
+Gathering fills 80 % of the chunk slots at bench512, where positional
+tiles filled 56 %. Bound: operations (10 hd flops a pair of products;
+~0.97 ms at bench512 as 3xTF32 on the tensor cores, 2.41 ms at the f32
+SIMT peak); the pair terms are computed in both kernels. Every output cell
+has one writer: no atomics. Heads of width 32, 64 and 128 are compiled.
 """
 
 from __future__ import annotations
@@ -248,7 +256,7 @@ def flash_attention_bwd(qkv: torch.Tensor, segq: torch.Tensor,
     mask drawn again from ``seed``. ``saved`` is the forward's (out, m, l)
     from ``flash_attention_with_stats``, which the kernels read. CPU tensors
     take ``flash_attention_bwd_plain`` (no ``saved``); CUDA tensors launch
-    the dq and dk/dv kernels or raise."""
+    the long-row dq and dk/dv kernels or raise."""
     if qkv.device.type == "cpu":
         return flash_attention_bwd_plain(qkv, segq, segk, nhead, gout, rate,
                                          seed)

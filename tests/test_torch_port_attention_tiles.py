@@ -1,12 +1,15 @@
-"""Launch geometry of the kernels on csrc/attention_tile.cuh (K4-bwd and K9's
-forward), on the CPU: for every (S, block, head width) that
+"""Launch geometry of the kernels on csrc/attention_tile.cuh (K4-bwd, K9's
+forward, K9-bwd) and csrc/attention_bwd.cuh (the long-row backward of
+K5-bwd and K9-bwd), on the CPU: for every (S, block, head width) that
 ``nn/transformer.py:attention_route`` can send to K4 or K9, the spans
 partition the row and hold exactly K4's pairs, a block's dynamic shared
 memory fits the H100's 227 KB, the threads cover the work, and K9's
-threshold sends the molecules' spans to the tile instance and code2's rows
-of 1001 to the streaming one. The C entries check the same geometry before
-they launch (``csrc/attention_packed.cu``, ``csrc/attention_smalls.cu``);
-the ctypes signatures are held to those entries' parameter lists."""
+thresholds send the molecules' spans to the tile instances and code2's rows
+of 513 and 1001 to the streaming forward and the long backward, whose
+tiles and rank-ordered key chunks cover every (row, head, token) once. The
+C entries check the same geometry before they launch
+(``csrc/attention_packed.cu``, ``csrc/attention_smalls.cu``); the ctypes
+signatures are held to those entries' parameter lists."""
 
 import importlib
 import re
@@ -103,6 +106,87 @@ def test_k9_forward_geometry(S, block, hd):
     assert len(geo.args()) == 8
 
 
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("S,block", CASES + PARTIAL + [(1001, 0), (513, 0)])
+def test_k9_bwd_geometry(S, block, hd):
+    """K9-bwd's instance by span width and head width: short up to 64
+    tokens, wide up to 384 at hd 32 and 64, long otherwise (a block per
+    (row, head, 64 tokens) of 256 threads)."""
+    B, nhead = 4097, 4
+    geo = asm.bwd_geometry(B, S, block, hd, nhead)
+    _check_spans(geo.spans, S, block)
+    width = geo.spans[0][1] - geo.spans[0][0]
+    want = ("short" if width <= 64 else
+            "wide" if width <= 384 and hd <= 64 else "long")
+    assert geo.instance == want
+    if want == "long":
+        assert geo.grid == (B, nhead, -(-S // 64)) and geo.threads == 256
+        assert geo.group == 1 and geo.pad == 64
+        assert geo.smem == asm.long_bwd_bytes(hd) <= SMEM_MAX
+    else:
+        _check_launch(geo, B, S, nhead)
+        assert geo == ap.dense_bwd_geometry(B, S, block, hd, nhead)
+    assert len(geo.args()) == 8 and geo.args()[0] == {
+        "short": 1, "wide": 2, "long": 3}[want]
+
+
+def test_long_bwd_shared_memory():
+    """The long backward's dk/dv kernel (the larger of the two) fits a block
+    at every head width, and two blocks share an SM up to hd 64 (228 KB an
+    SM, 1 KB of it reserved a block)."""
+    assert [asm.long_bwd_bytes(hd) for hd in (32, 64, 128)] == [
+        75328, 108096, 173632]
+    assert all(2 * (asm.long_bwd_bytes(hd) + 1024) <= 228 * 1024
+               for hd in (32, 64))
+    assert asm.long_bwd_bytes(128) <= SMEM_MAX
+
+
+def _rank_chunks(keep):
+    """The long dk/dv kernel's chunks of a row: the accepted keys (a bool
+    [S]) in token order, T = 64 at a time; chunk z is block z's."""
+    idx = torch.nonzero(keep).flatten()
+    return [idx[z:z + 64] for z in range(0, len(idx), 64)]
+
+
+@pytest.mark.parametrize("S", [33, 64, 65, 129, 513, 1001])
+@pytest.mark.parametrize("form", ["prefix_cls", "scattered", "none", "all"])
+def test_long_bwd_launch_covers_every_row_head_and_tile(S, form):
+    """Over the grid (B, H, ceil(S / 64)) of both long kernels: the query
+    tiles [64z, 64z + 64) cover the row once; the valid keys fall into
+    chunks by rank, each into exactly one block z < ceil(S / 64), and the
+    padding keys into the positional tile of one block, which writes their
+    zeros; every (row, head) pair of the grid is launched."""
+    B, nhead = 3, 4
+    gen = torch.Generator().manual_seed(S)
+    gz = -(-S // 64)
+    if S > 64:   # at hd 128 every row wider than 64 takes the long instance
+        geo = asm.bwd_geometry(B, S, 0, 128, nhead)
+        assert geo.instance == "long" and geo.grid == (B, nhead, gz)
+    cover = torch.zeros(S, dtype=torch.int32)
+    for z in range(gz):
+        cover[64 * z:64 * z + 64] += 1
+    assert (cover == 1).all()
+    for _ in range(B):
+        if form == "prefix_cls":
+            keep = torch.arange(S) < int(torch.randint(1, S, (1,),
+                                                       generator=gen))
+            keep[-1] = True
+        elif form == "scattered":
+            keep = torch.rand(S, generator=gen) < 0.4
+        else:
+            keep = torch.full((S,), form == "all")
+        chunks = _rank_chunks(keep)
+        assert len(chunks) <= gz
+        owner = torch.zeros(S, dtype=torch.int32)
+        for c in chunks:
+            assert 0 < len(c) <= 64
+            owner[c] += 1
+        for z in range(gz):      # block z's zeros for its padding keys
+            pad = ~keep[64 * z:64 * z + 64]
+            owner[64 * z:64 * z + 64][pad] += 1
+        assert (owner == 1).all()
+
+
 def test_k9_threshold_follows_shared_memory():
     """128 tokens at hd 32 and 64; at hd 128 the largest span whose Q, K, V
     and scores fit a block (112), as the JAX kernel's ~128."""
@@ -127,6 +211,21 @@ def test_k9_routes_take_the_tile_instance_at_molecule_shapes(backend, S,
     assert attention_route(backend, S, 256, block) == "k9"
     assert asm.fwd_geometry(64, S, block, 64, 4, True, 0.3).instance == (
         instance)
+
+
+@pytest.mark.parametrize("backend,S,block,instance", [
+    ("smalls", 33, 0, "short"), ("smalls", 49, 0, "short"),
+    ("packed_smalls", 99, 33, "short"), ("packed_smalls", 98, 49, "short"),
+    ("packed_smalls", 128, 64, "short"), ("smalls", 1001, 0, "long"),
+    ("smalls", 513, 0, "long"), ("smalls", 257, 0, "wide")])
+def test_k9_routes_take_the_short_backward_at_molecule_shapes(backend, S,
+                                                              block,
+                                                              instance):
+    """The molecules' rows under smalls and packed_smalls take K9-bwd's
+    short instance; code2's rows of 513 and 1001 its long one, and rows cut
+    to 257 its wide one."""
+    assert attention_route(backend, S, 256, block) == "k9"
+    assert asm.bwd_geometry(64, S, block, 64, 4).instance == instance
 
 
 @pytest.mark.parametrize("backend,S,block", [
@@ -168,16 +267,21 @@ def test_ctypes_signatures_match_the_c_entries(monkeypatch):
         lib = types.SimpleNamespace()
         for fn in ("attention_seg_fwd", "attention_seg_bwd",
                    "attention_dense_fwd", "attention_dense_bwd",
-                   "attention_smalls_fwd", "attention_smalls_bwd"):
+                   "attention_smalls_fwd", "attention_smalls_bwd",
+                   "flash_attention_fwd", "flash_attention_bwd"):
             setattr(lib, fn, types.SimpleNamespace(argtypes=None))
         return lib
 
     monkeypatch.setattr(_build, "load", fake)
-    packed, smalls = ap._load(), asm._load()
+    fa = importlib.import_module("graphtrans_tpu_torch.ops.kernels."
+                                 "flash_attention")
+    packed, smalls, flash = ap._load(), asm._load(), fa._load()
     for lib, source, entry in (
             (packed, "attention_packed.cu", "attention_dense_bwd"),
             (packed, "attention_packed.cu", "attention_dense_fwd"),
             (smalls, "attention_smalls.cu", "attention_smalls_fwd"),
-            (smalls, "attention_smalls.cu", "attention_smalls_bwd")):
+            (smalls, "attention_smalls.cu", "attention_smalls_bwd"),
+            (flash, "flash_attention.cu", "flash_attention_fwd"),
+            (flash, "flash_attention.cu", "flash_attention_bwd")):
         assert len(getattr(lib, entry).argtypes) == _c_params(source,
                                                               entry), entry

@@ -996,6 +996,111 @@ def test_attention_smalls_kernels_match_plain(cuda, S, block, d, H, rate):
         assert (got[~dead].abs().sum(-1) > 0).all()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("S,block", [(33, 0), (49, 0), (99, 33), (257, 0),
+                                     (513, 0), (1001, 0)])
+def test_attention_smalls_bwd_instances_match_autograd(cuda, S, block, hd,
+                                                       rate):
+    """K9-bwd at every instance (short at rows of 33 and 49 and packed
+    block 33; wide at 257 for hd 32 and 64, long there at hd 128; long at
+    513 and 1001) against autograd through the plain version: a block
+    without a valid key and padding keys get exact zeros, two calls agree
+    to the bit, and the launch is counted under its instance."""
+    from graphtrans_tpu_torch.ops.kernels import (attention_smalls_bwd,
+                                                  attention_smalls_bwd_plain)
+    from graphtrans_tpu_torch.ops.kernels.attention_smalls import (
+        attention_smalls_with_stats, bwd_geometry)
+
+    H = 2
+    d = H * hd
+    gen = torch.Generator().manual_seed(S + hd + block + int(rate * 10))
+    qkv, valid = _smalls_case(S, block, d, gen, cuda, B=3)
+    g = torch.randn(*qkv.shape[:2], d, generator=gen).to(cuda)
+    saved = attention_smalls_with_stats(qkv, valid, H, block, rate, 99)
+    instance = bwd_geometry(3, S, block, hd, H).instance
+    assert instance == ("short" if (block or S) <= 64 else
+                        "wide" if S <= 384 and hd <= 64 else "long")
+    before = attention_smalls_bwd.launches
+    counts = dict(attention_smalls_bwd.instances)
+    dqkv = attention_smalls_bwd(qkv, valid, H, g, block, rate, 99, saved)
+    again = attention_smalls_bwd(qkv, valid, H, g, block, rate, 99, saved)
+    torch.cuda.synchronize()
+    assert attention_smalls_bwd.launches == before + 2
+    assert attention_smalls_bwd.instances == dict(
+        counts, **{instance: counts[instance] + 2})
+    assert torch.equal(dqkv, again)
+    ref = attention_smalls_bwd_plain(qkv, valid, H, g, block, rate, 99)
+    assert (dqkv - ref).abs().max().item() <= GRAD_TOL * max(
+        1.0, ref.abs().max().item())
+    assert not dqkv[~_live(valid, block)].any()
+    assert not dqkv[..., d:][~valid].any()
+
+
+def _k5_tags(form, B, S, gen):
+    """(segq, segk) int32 [B, S] on the CPU: a key-padding prefix plus CLS (row 2 without a valid key);
+    contiguous segments whose ids are permuted, with padding tokens among
+    them; or a segment id per token drawn at random (-1: padding)."""
+    from graphtrans_tpu_torch.ops.kernels import key_padding_segs
+
+    if form == "prefix_cls":
+        n = torch.randint(9, 300, (B,), generator=gen)
+        valid = torch.arange(S)[None, :] < n[:, None]
+        valid[:, -1] = True
+        valid[2] = False
+        return key_padding_segs(valid)
+    if form == "permuted":
+        width = torch.randint(20, 200, (B, 1), generator=gen)
+        seg = torch.arange(S)[None, :] // width
+        perm = torch.randperm(S, generator=gen)
+        seg = perm[seg]
+        seg[torch.rand(B, S, generator=gen) < 0.2] = -1
+    else:
+        seg = torch.randint(-1, 3, (B, S), generator=gen)
+    seg[2] = -1
+    return seg.int(), seg.int()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("S", [513, 1001])
+@pytest.mark.parametrize("form", ["prefix_cls", "permuted", "scattered"])
+def test_flash_attention_bwd_long_rows_match_autograd(cuda, S, form, rate):
+    """K5-bwd on the long-row backward at code2's row widths, hd 64: a
+    key-padding prefix plus CLS, segments that are not a prefix (permuted
+    ids, padding among them) and a segment id per token; a row without a
+    valid key. Within 5e-4 of max(1, max|ref|) of autograd through the
+    plain version; queries without a key and padding keys get exact
+    zeros; two calls agree to the bit."""
+    from graphtrans_tpu_torch.ops.kernels import (flash_attention_bwd,
+                                                  flash_attention_bwd_plain)
+    from graphtrans_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_with_stats)
+
+    B, H, d = 3, 4, 256
+    gen = torch.Generator().manual_seed(S + len(form) + int(rate * 10))
+    segq, segk = (t.to(cuda) for t in _k5_tags(form, B, S, gen))
+    qkv = torch.randn(B, S, 3 * d, generator=gen).to(cuda)
+    g = torch.randn(B, S, d, generator=gen).to(cuda)
+    saved = flash_attention_with_stats(qkv, segq, segk, H, rate, 4321)
+    before = flash_attention_bwd.launches
+    dqkv = flash_attention_bwd(qkv, segq, segk, H, g, rate, 4321, saved)
+    again = flash_attention_bwd(qkv, segq, segk, H, g, rate, 4321, saved)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 2
+    assert torch.equal(dqkv, again)
+    ref = flash_attention_bwd_plain(qkv, segq, segk, H, g, rate, 4321)
+    assert (dqkv - ref).abs().max().item() <= GRAD_TOL * max(
+        1.0, ref.abs().max().item())
+    live = ((segq[:, :, None] == segk[:, None, :])
+            & (segk >= 0)[:, None, :]).any(-1)
+    assert not dqkv[..., :d][~live].any()
+    assert not dqkv[..., d:][segk < 0].any()
+    if rate == 0.0:
+        assert (dqkv[..., :d][live].abs().sum(-1) > 0).all()
+
+
 def _layer_case(B, S, d, ff, block, gen, cuda):
     x = torch.randn(B, S, d, generator=gen)
     valid = _dense_valid(B, S, block, gen)
