@@ -4,10 +4,10 @@ NVIDIA card.
 usage: python3 chip_smoke.py [--trace trace.json] [--baseline DIR]
 
 ``--baseline DIR`` names a checkout of an earlier commit (its
-graphtrans_tpu_torch/ tree; for one run, never committed): phases 10a and
-11a then build its K4-bwd, K5-bwd, K9 and K9-bwd from its own sources and
-time them beside this tree's, in turns (earlier, this, this, earlier), on
-the same inputs.
+graphtrans_tpu_torch/ tree; for one run, never committed): phases 9a, 10a
+and 11a then build its K4, K5 and K9 (forward, serving and training) and
+K4-bwd, K5-bwd and K9-bwd from its own sources and time them beside this
+tree's, in turns (earlier, this, this, earlier), on the same inputs.
 
 Phases, each printing one line (any failure raises and exits non-zero):
   0. the card (nvidia-smi name and power limit) and torch; TF32 off;
@@ -57,11 +57,17 @@ Phases, each printing one line (any failure raises and exits non-zero):
      pooling=cls.yml: no GNN, a dense batch with a CLS column, d_model 256,
      4 heads, 5 layers): (a) holds K4 (attention_dense) and K5
      (flash_attention) against their plain versions at its snapshot and
-     bench shapes, with the rows the function leaves zero, and times them
-     beside bound, plain version and SDPA; (b) serves both ymls on the
+     bench shapes (K4 at blocks 49 and 33 on its tile instance, block 0 at
+     rows of 257 and 384 on its long one, hd 64 and 32; K5 also in both tag
+     forms at hd 32, 64 and 128, rates 0 and 0.3, with m and l against the
+     plain scores), with the rows the function leaves zero, and times them
+     beside bound, plain version and SDPA (with ``--baseline``, beside the
+     earlier design's; K5 at bench512 also at hd 32 and 128, and at hd 64
+     with n = 0, 1, 64, 128, 256 valid keys a row); (b) serves both ymls on the
      snapshot through ``python -m graphtrans_tpu_torch.predict`` (molpcba:
-     three splits, K4 on rows of two 49-token graphs; code2: valid and
-     train take K5, test takes neither), counting launches per split, and
+     three splits, K4 on rows of two 49-token graphs, every launch on its
+     tile instance; code2: valid and train take K5, test takes neither),
+     counting launches per split, and
      holds the logits through the kernels against the plain versions on the
      card; (c) times and profiles the forward of 4096 molecules and of 512
      ASTs in the flat unpacked layout;
@@ -71,25 +77,30 @@ Phases, each printing one line (any failure raises and exits non-zero):
      snapshot's and bench shapes (K4 also at rows of 257 and 384, hd 64),
      and K11 (byte_dropout) forward and backward against its plain version
      at the bench512 activations' widths, and times them beside bound,
-     plain version and library yardstick (with ``--baseline``, K4-bwd and
-     K5-bwd also beside the earlier design's); (b) trains both ymls at full
+     plain version and library yardstick, with m and l against the plain
+     scores (with ``--baseline``, K4-bwd and K5-bwd and the training
+     forwards also beside the earlier design's); (b) trains both ymls at full
      width on the snapshot through ``python -m graphtrans_tpu_torch.main`` (2
-     epochs), counting launches per yml (molpcba K4 and K4-bwd, code2 K5 and
-     K5-bwd), checking finite losses and moved parameters, and holds one
+     epochs), counting launches per yml (molpcba K4, on its tile instance,
+     and K4-bwd, code2 K5 and K5-bwd), checking finite losses and moved
+     parameters, and holds one
      step through the kernels against the plain versions; (c) times the
      train step of 4096 molecules and of 512 ASTs with peak memory and a
      torch.profiler split, then again with K11 switched on;
  11. the attention-backend switch: (a) holds K9 (attention_smalls) and
      K9-bwd at rates 0 and 0.3 on the molpcba snapshot's rows of 49, 4096
      molecules' rows of 33 (smalls) and packed rows of 99 (packed_smalls),
-     and code2's rows of 1001, and K10 (transformer_layer, one whole encoder
-     layer) and K10-bwd at [1366, 99, 256] and the snapshot's rows of 98,
+     code2's rows of 1001 and packed blocks of 150 (K9's long forward),
+     with m and l against the plain scores, and K10 (transformer_layer, one
+     whole encoder layer) and K10-bwd at [1366, 99, 256] and the snapshot's
+     rows of 98,
      against their plain versions and autograd, timed beside bound, plain
      version and library yardstick (K9-bwd also at code2's rows cut to 257,
      its wide instance; with ``--baseline``, K9 and K9-bwd also beside the
      earlier design's); (b) serves the molpcba Transformer-only
      yml through predict under --attn_backend smalls and packed_smalls and
-     under packed_layer set in process (launches per backend, logits
+     under packed_layer set in process (launches per backend, K4's
+     forward inside K10 on its tile instance, logits
      against the plain versions and against auto), trains it 2 epochs
      through main under smalls and packed_layer (launches, losses, moved
      parameters, one step against the plain route), and serves the code2
@@ -235,11 +246,14 @@ LAYERS = (
 )
 
 
-def _smi() -> str:
+def _smi(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+CLOCKS = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
 
 
 def time_ms(fn, iters: int, reps: int = 5) -> float:
@@ -1661,11 +1675,24 @@ def _attention_bytes(qkv, valid, mask_bytes: int) -> int:
         + mask_bytes
 
 
-def k4_bound(qkv, valid, nhead: int, block: int):
+def _fwd_bound(nbytes: int, pairs: int, hd: int, tensor_cores: bool):
+    """Per (query, key) pair the score and the weighted sum (2*hd flops
+    each) and the softmax (4). With ``tensor_cores`` the products are timed
+    as the long forward runs them, 3xTF32 (three TF32 passes) on the tensor
+    cores, the softmax on the f32 units; the two kinds of unit run side by
+    side, so the bound is the larger of the bytes' time and each unit's."""
+    if not tensor_cores:
+        return _bound(nbytes, pairs * (4 * hd + 4))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(3 * pairs * 4 * hd / TF32_TC_FLOPS, pairs * 4 / F32_FLOPS) \
+        * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k4_bound(qkv, valid, nhead: int, block: int, tensor_cores: bool = False):
     """The bytes of _attention_bytes with key_valid read as the kernel reads
-    it (torch's bool, one byte a key); per (query, key) pair of a block and
-    head the score and the weighted sum (2*hd flops each) and the softmax
-    (4)."""
+    it (torch's bool, one byte a key); the operations of _fwd_bound for the
+    pairs of a block and head (f32 SIMT unless ``tensor_cores``)."""
     B, S, d3 = qkv.shape
     hd = d3 // 3 // nhead
     if block:
@@ -1674,17 +1701,60 @@ def k4_bound(qkv, valid, nhead: int, block: int):
     else:
         pairs = int(valid.sum().item()) * S
     nbytes = _attention_bytes(qkv, valid, valid.numel() * valid.element_size())
-    return _bound(nbytes, pairs * nhead * (4 * hd + 4))
+    return _fwd_bound(nbytes, pairs * nhead, hd, tensor_cores)
 
 
-def k5_bound(qkv, valid, nhead: int):
+def k5_bound(qkv, valid, nhead: int, tensor_cores: bool = True):
     """As k4_bound for the key-padding form (every query of a row attends
-    its valid keys), with the mask read as segq and segk (int32)."""
+    its valid keys), with the mask read as segq and segk (int32); by
+    default against the tensor cores that the long forward's products run
+    on (``tensor_cores=False``: the f32 SIMT bound, printed beside it)."""
     B, S, d3 = qkv.shape
     hd = d3 // 3 // nhead
     pairs = int(valid.sum().item()) * S
     nbytes = _attention_bytes(qkv, valid, 2 * valid.numel() * 4)
-    return _bound(nbytes, pairs * nhead * (4 * hd + 4))
+    return _fwd_bound(nbytes, pairs * nhead, hd, tensor_cores)
+
+
+def check_stats(name: str, m, l, qkv, meet, nhead: int) -> float:
+    """m and l of a forward against the plain scores in float64 (``meet``
+    bool [B, S, S]: the pairs that meet): m the max scaled score of a
+    query's keys, l the sum of exp(s - m) over them (within K2_TOL, l
+    relative to max(1, l)); a query without a key has m = -inf and l = 0
+    exactly. Returns the largest of the two errors."""
+    B, S, d3 = qkv.shape
+    d = d3 // 3
+    hd = d // nhead
+    q, k, _ = (t.double().reshape(B, S, nhead, hd).transpose(1, 2)
+               for t in qkv.split(d, dim=-1))
+    s = (q @ k.transpose(-1, -2)) / hd ** 0.5
+    s = s.masked_fill(~meet[:, None], float("-inf"))
+    mx = s.amax(-1).transpose(1, 2)
+    has = meet.any(-1)[:, :, None].expand_as(mx)
+    lsum = torch.exp(s - torch.where(has.transpose(1, 2), mx.transpose(1, 2),
+                                     0.0)[..., None]).sum(-1).transpose(1, 2)
+    del s
+    m_err = (m.double()[has] - mx[has]).abs().max().item()
+    l_err = ((l.double()[has] - lsum[has]).abs()
+             / lsum[has].clamp_min(1.0)).max().item()
+    if max(m_err, l_err) > K2_TOL or (m[~has] != float("-inf")).any() \
+            or l[~has].any():
+        raise AssertionError(f"{name}: m |diff| {m_err}, l relative |diff| "
+                             f"{l_err} (<= {K2_TOL}), or a query without a "
+                             f"key has m != -inf or l != 0")
+    return max(m_err, l_err)
+
+
+def k4_meet(valid, block: int):
+    """K4's pairs [B, S, S]: a valid key of the query's graph block (block
+    0: the row)."""
+    S = valid.shape[1]
+    grp = torch.arange(S, device=valid.device) // (block or S)
+    return valid[:, None, :] & (grp[:, None] == grp[None, :])
+
+
+def seg_meet(segq, segk):
+    return (segq[:, :, None] == segk[:, None, :]) & (segk >= 0)[:, None, :]
 
 
 def _block_mask(valid, block: int):
@@ -1696,13 +1766,104 @@ def _block_mask(valid, block: int):
     return mask
 
 
-def phase9_kernels(device, mol_bench, code2_bench):
+def k5_tags(valid, form: str):
+    """K5's tags for rows of ``valid`` [B, S]: the key-padding form, or the
+    segment form on the same rows (each row's valid tokens cut into
+    segments of 40, padding tokens -1)."""
+    from graphtrans_tpu_torch.ops.kernels import key_padding_segs
+
+    if form == "key_padding":
+        return key_padding_segs(valid)
+    S = valid.shape[1]
+    seg = (torch.arange(S, device=valid.device) // 40).expand_as(valid)
+    seg = torch.where(valid, seg, -1).to(torch.int32).contiguous()
+    return seg, seg
+
+
+def check_long_forward(cases: dict, gen, device, seed: int):
+    """K5's long forward at code2's rows (``cases``: name -> key mask [B, S];
+    its first 5 rows and a fully masked one) in both tag forms, at hd 32, 64
+    and 128 (4 heads) and rates 0 and 0.3: the output against the plain version
+    (within K2_TOL; queries without a key exactly 0) and m and l against
+    the plain scores. Returns (output |diff|, statistics |diff|)."""
+    from graphtrans_tpu_torch.ops.kernels import flash_attention_plain
+    from graphtrans_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_with_stats)
+
+    nhead = 4
+    f_err = s_err = 0.0
+    for name, valid in cases.items():
+        for hd in (32, 64, 128):
+            qkv, v = k5_inputs(valid[:5], nhead * hd, gen, device)
+            for form in ("key_padding", "seg"):
+                segs = k5_tags(v, form)
+                meet = seg_meet(*segs)
+                for rate in (0.0, DROPOUT):
+                    out, m, l = flash_attention_with_stats(
+                        qkv, *segs, nhead, rate, seed)
+                    torch.cuda.synchronize()
+                    err = (out - flash_attention_plain(
+                        qkv, *segs, nhead, rate, seed)).abs().max().item()
+                    if err > K2_TOL or not torch.isfinite(out).all():
+                        raise AssertionError(
+                            f"K5 {name} hd {hd} {form} rate {rate}: max "
+                            f"|diff| {err} > {K2_TOL}")
+                    live = meet.any(-1)
+                    if out[~live].any():
+                        raise AssertionError(f"K5 {name} hd {hd} {form}: a "
+                                             f"query without a key is not 0")
+                    f_err = max(f_err, err)
+                    s_err = max(s_err, check_stats(
+                        f"K5 {name} hd {hd} {form} rate {rate}", m, l, qkv,
+                        meet, nhead))
+    return f_err, s_err
+
+
+def time_long_forward(valid, gen, device, base):
+    """K5's long forward on the rows of ``valid`` (bench512's key masks,
+    4 heads): at hd 32 and 128 beside ``base``'s forward in turns; and at
+    hd 64 with every row's keys cut to n valid ones (n - 1 nodes and the
+    CLS column; n = 0, 1, 64, 128, 256), which prices a block's set-up and
+    each chunk of 64 keys. Prints both."""
+    from graphtrans_tpu_torch.ops.kernels import (flash_attention,
+                                                  key_padding_segs)
+
+    for hd in (32, 128):
+        qkv, v = k5_inputs(valid, 4 * hd, gen, device, masked_rows=0)
+        segs = key_padding_segs(v)
+        ms, earlier = turns_ms(
+            lambda: flash_attention(qkv, *segs, 4),
+            base and (lambda: base["flash_attention"].flash_attention(
+                qkv, *segs, 4)), 5)
+        print(f"[9a] bench512 S {v.shape[1]} K5 flash_attention at hd {hd} "
+              f"(d {4 * hd}): kernel {ms:.4f} ms against {_ms(earlier)} for "
+              f"the earlier design, in turns")
+        del qkv
+    qkv, v = k5_inputs(valid, 256, gen, device, masked_rows=0)
+    B, S = v.shape
+    per = {}
+    for n in (0, 1, 64, 128, 256):
+        cut = torch.zeros_like(v)
+        if n:
+            cut[:, :n - 1] = True
+            cut[:, -1] = True
+        segs = key_padding_segs(cut)
+        per[n] = time_ms(lambda: flash_attention(qkv, *segs, 4), iters=5)
+    print(f"[9a] K5 flash_attention at [B={B} S={S} d=256 H=4] with n valid "
+          f"keys a row (chunks of 64 by rank): "
+          + ", ".join(f"n {n}: {ms:.4f} ms" for n, ms in per.items()))
+
+
+def phase9_kernels(device, mol_bench, code2_bench, base=None):
     """(a) K4 and K5 against their plain versions at the Transformer-only
     model's shapes: K4 at block 49 (the molpcba snapshot), 33 (4096
-    molecules) and 0 (code2 rows cut to 256 nodes: S 257); K5 at the code2
-    snapshot's first train batch (S 1001), its valid split (S 513) and 512
-    ASTs (S 1001); with the rows the function leaves zero. Times kernel,
-    plain version, bound and SDPA."""
+    molecules) and 0 (code2 rows cut to 256 and 383 nodes: S 257 and 384,
+    the long instance), at hd 64 and 32; K5 at the code2 snapshot's first
+    train batch (S 1001), its valid split (S 513) and 512 ASTs (S 1001),
+    and on the snapshot's rows at hd 32, 64 and 128 in both tag forms at
+    rates 0 and 0.3 with m and l; with the rows the function leaves zero.
+    Times kernel (beside ``base``'s, the earlier design, in turns), plain
+    version, bound and SDPA."""
     from graphtrans_tpu_torch import predict
     from graphtrans_tpu_torch.data.loader import iterate_batches
     from graphtrans_tpu_torch.ops.kernels import (attention_dense,
@@ -1710,6 +1871,8 @@ def phase9_kernels(device, mol_bench, code2_bench):
                                                   flash_attention,
                                                   flash_attention_plain,
                                                   key_padding_segs)
+    from graphtrans_tpu_torch.ops.kernels.attention_packed import (
+        dense_fwd_geometry)
 
     gen = torch.Generator().manual_seed(SEED + 9)
     first = {}
@@ -1726,7 +1889,8 @@ def phase9_kernels(device, mol_bench, code2_bench):
     d, nhead = mol_args.d_model, mol_args.nhead
     k4_cases = {"serve256 block 49": dense_valid(first["mol"]),
                 "bench4096 block 33": dense_valid(mol_bench),
-                "bench512 cut to 256, block 0": dense_valid(code2_bench, 256)}
+                "bench512 cut to 256, block 0": dense_valid(code2_bench, 256),
+                "bench512 cut to 383, block 0": dense_valid(code2_bench, 383)}
     k5_cases = {"train16 S 1001": dense_valid(first["code2_train"]),
                 "valid16 S 513": dense_valid(first["code2_valid"]),
                 "bench512 S 1001": dense_valid(code2_bench)}
@@ -1738,13 +1902,24 @@ def phase9_kernels(device, mol_bench, code2_bench):
             raise AssertionError(f"K4 {name}: packed as block {block}, "
                                  f"rows of {qkv.shape[1]}")
         k4_err = max(k4_err, check_k4(qkv, v, nhead, block))
-        t = dict(ms=time_ms(lambda: attention_dense(qkv, v, nhead, block),
-                            iters=20),
+        narrow = torch.randn(*qkv.shape[:2], 3 * nhead * 32,
+                             generator=gen).to(device)      # hd 32
+        k4_err = max(k4_err, check_k4(narrow, v, nhead, block))
+        del narrow
+        ms, earlier = turns_ms(
+            lambda: attention_dense(qkv, v, nhead, block),
+            base and (lambda: base["attention_packed"].attention_dense(
+                qkv, v, nhead, block)), 20)
+        t = dict(ms=ms, earlier_ms=earlier,
+                 instance=dense_fwd_geometry(*qkv.shape[:2], block,
+                                             d // nhead, nhead, False,
+                                             0.0).instance,
                  plain_ms=time_ms(lambda: attention_dense_plain(
                      qkv, v, nhead, block), iters=3),
                  library_ms=sdpa_mask_ms(qkv, _block_mask(v, block), nhead,
                                          iters=3))
         t["bound_ms"], t["bound_by"] = k4_bound(qkv, v, nhead, block)
+        t["tc_bound_ms"] = k4_bound(qkv, v, nhead, block, True)[0]
         t["shape"] = f"B={qkv.shape[0]} S={qkv.shape[1]} d={d} H={nhead}"
         timed[("K4 attention_dense", name)] = t
     for name, valid in k5_cases.items():
@@ -1752,28 +1927,52 @@ def phase9_kernels(device, mol_bench, code2_bench):
         k5_err = max(k5_err, check_k5(qkv, v, nhead))
         qkv, v = qkv[:-1].contiguous(), v[:-1]     # timed as the model runs
         segs = key_padding_segs(v)
-        t = dict(ms=time_ms(lambda: flash_attention(qkv, *segs, nhead),
-                            iters=5),
+        ms, earlier = turns_ms(
+            lambda: flash_attention(qkv, *segs, nhead),
+            base and (lambda: base["flash_attention"].flash_attention(
+                qkv, *segs, nhead)), 5)
+        t = dict(ms=ms, earlier_ms=earlier, instance="long",
                  plain_ms=time_ms(lambda: flash_attention_plain(
                      qkv, *segs, nhead), iters=1),
                  library_ms=sdpa_mask_ms(qkv, _block_mask(v, 0), nhead,
                                          iters=3))
         t["bound_ms"], t["bound_by"] = k5_bound(qkv, v, nhead)
+        t["f32_simt_bound_ms"] = k5_bound(qkv, v, nhead, False)[0]
         t["shape"] = (f"B={qkv.shape[0]} S={qkv.shape[1]} d={d} H={nhead} "
                       f"valid keys {int(v.sum().item())}")
         timed[("K5 flash_attention", name)] = t
+    time_long_forward(k5_cases["bench512 S 1001"], gen, device, base)
+    forms_err, stats_err = check_long_forward(
+        {k: v for k, v in k5_cases.items() if not k.startswith("bench")}, gen,
+        device, 2**31 - 9)
+    k5_err = max(k5_err, forms_err)
     print(f"[9a] K4 and K5 agree with their plain versions: K4 max |diff| "
-          f"{k4_err:.3g} at {list(k4_cases)}, K5 {k5_err:.3g} at "
-          f"{list(k5_cases)} (<= {K2_TOL}); queries without a key exactly "
-          f"0, every other query (padding queries included) non-zero")
+          f"{k4_err:.3g} at {list(k4_cases)} (hd 64 and 32), K5 {k5_err:.3g} "
+          f"at {list(k5_cases)} and, on the snapshot's rows, at hd 32, 64 "
+          f"and 128 in both tag forms at rates 0 and {DROPOUT} (<= "
+          f"{K2_TOL}), with m and l within {stats_err:.3g} of the plain "
+          f"scores; queries without a key exactly 0, every other query "
+          f"(padding queries included) non-zero")
     for (kname, name), t in timed.items():
+        print(f"[9a] {name} {kname} ({t['instance']} instance) "
+              f"[{t['shape']}]: kernel {t['ms']:.4f} ms against "
+              f"{_ms(t['earlier_ms'])} for the earlier design, in turns")
+        extra = (f"; {t['f32_simt_bound_ms']:.4f} ms at the f32 SIMT peak, "
+                 f"products on the tensor cores in 3xTF32"
+                 if "f32_simt_bound_ms" in t else
+                 f"; {t['tc_bound_ms']:.4f} ms with the products on the "
+                 f"tensor cores in 3xTF32")
         print(f"[9a] {name} {kname} [{t['shape']}]: kernel {t['ms']:.4f} ms, "
               f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-              f"({t['bound_by']}), library {t['library_ms']:.4f} ms (SDPA, "
-              f"bool mask)")
-    return dict(k4_err=k4_err, k5_err=k5_err,
-                timed=(timed[("K4 attention_dense", "bench4096 block 33")],
-                       timed[("K5 flash_attention", "bench512 S 1001")]))
+              f"({t['bound_by']}{extra}), library {t['library_ms']:.4f} ms "
+              f"(SDPA, bool mask); kernel/SDPA "
+              f"{t['ms'] / t['library_ms']:.3f}")
+    k4 = timed[("K4 attention_dense", "bench4096 block 33")]
+    k5 = timed[("K5 flash_attention", "bench512 S 1001")]
+    pick = lambda t: {k: t[k] for k in ("ms", "earlier_ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")}
+    return dict(k4_err=k4_err, k5_err=k5_err, timed=(pick(k4), pick(k5)))
 
 
 # The kernel each served split's attention must launch, from the JAX
@@ -1841,7 +2040,13 @@ def phase9_serve(device, tmp: str):
             if launches != want:
                 raise AssertionError(f"{args.dataset} {split}: launches "
                                      f"{launches}, expected {want}")
+            if kernels.attention_dense.instances["long"]:
+                raise AssertionError(f"{args.dataset} {split}: K4 forward "
+                                     f"launches off the tile instance: "
+                                     f"{kernels.attention_dense.instances}")
             totals.update(launches)
+            totals.update({f"attention_dense {k}": v for k, v in
+                           kernels.attention_dense.instances.items()})
             f1 = "" if code is None else f", F1 {res['F1']:.6f}"
             print(f"[9b] served the {args.dataset} {split} split through "
                   f"graphtrans_tpu_torch.predict ({res['records']} graphs, "
@@ -1955,6 +2160,8 @@ def check_k4_train(qkv, valid, nhead: int, block: int, rate: float,
         raise AssertionError(f"K4 (block {block}) at rate {rate}: forward "
                              f"|diff| {f_err} (<= {K2_TOL}), backward "
                              f"{b_err} (<= {GRAD_TOL})")
+    check_stats(f"K4 (block {block}) at rate {rate}", saved[1][:64],
+                saved[2][:64], qkv[:64], k4_meet(valid[:64], block), nhead)
     dead = ~_live(valid, block)   # dropout may zero a live query's row
     if saved[0][dead].any() or dqkv[dead].any() or dqkv[..., d:][~valid].any():
         raise AssertionError("K4 with dropout: a dead block's output or "
@@ -1990,6 +2197,8 @@ def check_k5_train(qkv, valid, nhead: int, rate: float, seed: int, gen,
         raise AssertionError(f"K5 at rate {rate}: forward |diff| {f_err} "
                              f"(<= {K2_TOL}), backward {b_err} "
                              f"(<= {GRAD_TOL})")
+    check_stats(f"K5 at rate {rate}", saved[1][:8], saved[2][:8], qkv[:8],
+                seg_meet(*(t[:8] for t in segs)), nhead)
     dead = ~_live(valid, 0)       # dropout may zero a live query's row
     if saved[0][dead].any() or dqkv[dead].any() or dqkv[..., d:][~valid].any():
         raise AssertionError("K5 with dropout: a query without a key, or a "
@@ -2088,6 +2297,11 @@ def phase10_kernels(device, mol_bench, code2_bench, base=None):
         qkv, v, block = k4_inputs(valid, d, gen, device)
         if int(name.split()[-1]) != block:
             raise AssertionError(f"K4 {name}: packed as block {block}")
+        narrow = torch.randn(*qkv.shape[:2], 3 * nhead * 32,
+                             generator=gen).to(device)      # hd 32
+        f, e, _ = check_k4_train(narrow, v, nhead, block, DROPOUT, seed, gen)
+        k4_ferr, k4_err = max(k4_ferr, f), max(k4_err, e)
+        del narrow
         f, e, g = check_k4_train(qkv, v, nhead, block, DROPOUT, seed, gen)
         k4_ferr, k4_err = max(k4_ferr, f), max(k4_err, e)
         saved = attention_dense_with_stats(qkv, v, nhead, block, DROPOUT,
@@ -2105,8 +2319,12 @@ def phase10_kernels(device, mol_bench, code2_bench, base=None):
                  library_ms=sdpa_bwd_mask_ms(qkv, _block_mask(v, block),
                                              nhead, g, DROPOUT))
         t["bound_ms"], t["bound_by"] = k4_bwd_bound(qkv, v, nhead, block)
-        t["fwd_ms"] = time_ms(lambda: attention_dense_with_stats(
-            qkv, v, nhead, block, DROPOUT, seed), iters=10)
+        t["fwd_ms"], t["fwd_earlier_ms"] = turns_ms(
+            lambda: attention_dense_with_stats(qkv, v, nhead, block, DROPOUT,
+                                               seed),
+            base and (lambda: base["attention_packed"].
+                      attention_dense_with_stats(qkv, v, nhead, block,
+                                                 DROPOUT, seed)), 10)
         t["shape"] = (f"B={qkv.shape[0]} S={qkv.shape[1]} d={d} H={nhead} "
                       f"rate={DROPOUT}")
         timed[("K4-bwd attention_dense_bwd", name)] = t
@@ -2133,14 +2351,20 @@ def phase10_kernels(device, mol_bench, code2_bench, base=None):
                      qkv, _block_mask(v, 0), nhead, g, DROPOUT))
         t["bound_ms"], t["bound_by"] = k5_bwd_bound(qkv, v, nhead)
         t["f32_simt_bound_ms"] = k5_bwd_bound(qkv, v, nhead, False)[0]
-        t["fwd_ms"] = time_ms(lambda: flash_attention_with_stats(
-            qkv, *segs, nhead, DROPOUT, seed), iters=3)
+        t["fwd_ms"], t["fwd_earlier_ms"] = turns_ms(
+            lambda: flash_attention_with_stats(qkv, *segs, nhead, DROPOUT,
+                                               seed),
+            base and (lambda: base["flash_attention"].
+                      flash_attention_with_stats(qkv, *segs, nhead, DROPOUT,
+                                                 seed)), 3)
         t["shape"] = (f"B={qkv.shape[0]} S={qkv.shape[1]} d={d} H={nhead} "
                       f"rate={DROPOUT} valid keys {int(v.sum().item())}")
         timed[("K5-bwd flash_attention_bwd", name)] = t
     print(f"[10a] with attention dropout {DROPOUT}: K4 forward within "
           f"{k4_ferr:.3g} and K5 forward within {k5_ferr:.3g} of their plain "
-          f"versions (<= {K2_TOL}); K4-bwd {k4_err:.3g} at {list(k4_cases)} "
+          f"versions (<= {K2_TOL}), m and l within {K2_TOL} of the plain "
+          f"scores; K4-bwd from them {k4_err:.3g} at {list(k4_cases)} (hd 64 "
+          f"and 32) "
           f"and K5-bwd {k5_err:.3g} at {list(k5_cases)} (bench512: the "
           f"first 64 rows) of max(1, max|ref|) from autograd through the "
           f"plain versions (<= {GRAD_TOL}); dead blocks, queries without a "
@@ -2149,7 +2373,9 @@ def phase10_kernels(device, mol_bench, code2_bench, base=None):
         if "instance" in t:
             print(f"[10a] {name} {kname} ({t['instance']} instance) "
                   f"[{t['shape']}]: kernel {t['ms']:.4f} ms against "
-                  f"{_ms(t['earlier_ms'])} for the earlier design, in turns")
+                  f"{_ms(t['earlier_ms'])} for the earlier design, in turns; "
+                  f"the training forward {t['fwd_ms']:.4f} ms against "
+                  f"{_ms(t['fwd_earlier_ms'])}, in turns")
         simt = ("" if "f32_simt_bound_ms" not in t else
                 f"; products on the tensor cores in 3xTF32; "
                 f"{t['f32_simt_bound_ms']:.4f} ms at the f32 SIMT peak")
@@ -2255,7 +2481,13 @@ def phase10_train(device, tmp: str):
         if steps == 0 or launches != want:
             raise AssertionError(f"{args.dataset} Transformer-only training "
                                  f"launches {launches}, expected {want}")
+        if kernels.attention_dense.instances["long"]:
+            raise AssertionError(f"{args.dataset} training: K4 forward "
+                                 f"launches off the tile instance: "
+                                 f"{kernels.attention_dense.instances}")
         totals.update(launches)
+        totals.update({f"attention_dense {k}": v for k, v in
+                       kernels.attention_dense.instances.items()})
         totals.update({f"attention_dense_bwd {k}": v for k, v in
                        kernels.attention_dense_bwd.instances.items()})
         if not all(math.isfinite(r["loss"]) for r in res["epochs"]):
@@ -2407,6 +2639,9 @@ def check_k9(qkv, valid, nhead: int, block: int, rate: float, seed: int, gen,
         raise AssertionError(f"K9 (block {block}) at rate {rate}: forward "
                              f"|diff| {f_err} (<= {K2_TOL}), backward "
                              f"{b_err} (<= {GRAD_TOL})")
+    few = min(rows, 8 if qkv.shape[1] > 512 else 64)
+    check_stats(f"K9 (block {block}) at rate {rate}", saved[1][:few],
+                saved[2][:few], qkv[:few], k4_meet(valid[:few], block), nhead)
     dead = ~_live(valid, block)   # dropout may zero a live query's row
     if saved[0][dead].any() or dqkv[dead].any() or dqkv[..., d:][~valid].any():
         raise AssertionError("K9: a query without a key, or a padding key, "
@@ -2517,7 +2752,10 @@ def phase11_kernels(device, mol_bench, code2_bench, base=None):
     beside bound, plain version and library yardstick (K9 and K9-bwd also
     beside ``base``'s, the earlier design, in turns; K9-bwd at each of its
     instances: short at rows of 33 and 49 and packed block 33, wide at
-    code2's rows cut to 257, long at rows of 1001)."""
+    code2's rows cut to 257 and at packed blocks of 150, long at rows of
+    1001; K9's forward takes its tile instance up to 128 tokens and its
+    long one at rows of 1001 and blocks of 150), with m and l against the
+    plain scores."""
     from graphtrans_tpu_torch import predict
     from graphtrans_tpu_torch.data.loader import iterate_batches
     from graphtrans_tpu_torch.ops.kernels import (
@@ -2544,12 +2782,19 @@ def phase11_kernels(device, mol_bench, code2_bench, base=None):
                 "bench512 cut to 256, smalls S 257": (
                     dense_valid(code2_bench, 256), False, 64),
                 "bench512 smalls S 1001": (dense_valid(code2_bench), False,
-                                           64)}
+                                           64),
+                "bench512 cut to 149, packed block 150": (
+                    dense_valid(code2_bench, 149), 2, 64)}
     errs = collections.defaultdict(float)
     timed = {}
     for name, (valid, packed, rows) in k9_cases.items():
-        if packed:
+        if packed is True:
             qkv, v, block = k4_inputs(valid, d, gen, device)
+        elif packed:     # ``packed`` graphs a row, blocks wider than 128
+            G, block = valid.shape
+            v = torch.cat([valid, valid.new_zeros(-G % packed, block)])
+            v = v.reshape(-1, packed * block).to(device)
+            qkv = torch.randn(*v.shape, 3 * d, generator=gen).to(device)
         else:
             qkv = torch.randn(*valid.shape, 3 * d, generator=gen).to(device)
             v, block = valid.to(device), 0
@@ -2591,6 +2836,7 @@ def phase11_kernels(device, mol_bench, code2_bench, base=None):
                  bwd_library_ms=sdpa_bwd_mask_ms(qkv, _block_mask(v, block),
                                                  nhead, g, DROPOUT))
         t["bound_ms"], t["bound_by"] = k4_bound(qkv, v, nhead, block)
+        t["tc_bound_ms"] = k4_bound(qkv, v, nhead, block, True)[0]
         t["bwd_bound_ms"], t["bwd_bound_by"] = k4_bwd_bound(
             qkv, v, nhead, block,
             tensor_cores=t["bwd_instance"] == "long")
@@ -2600,10 +2846,11 @@ def phase11_kernels(device, mol_bench, code2_bench, base=None):
         timed[name] = t
         del qkv, v, g, saved
     print(f"[11a] K9 agrees with its plain version within {errs['k9']:.3g} "
-          f"(<= {K2_TOL}) and K9-bwd with autograd through it within "
+          f"(<= {K2_TOL}), m and l with the plain scores within {K2_TOL}, "
+          f"and K9-bwd with autograd through it within "
           f"{errs['k9_bwd']:.3g} of max(1, max|ref|) (<= {GRAD_TOL}) at rates "
-          f"0 and {DROPOUT}, at {list(k9_cases)} (S 257 and 1001: the first "
-          f"64 rows);"
+          f"0 and {DROPOUT}, at {list(k9_cases)} (S 257, 300 and 1001: the "
+          f"first 64 rows);"
           f" queries without a key and padding keys get exactly 0")
     for name, t in timed.items():
         print(f"[11a] {name} K9 attention_smalls ({t['instance']} instance) "
@@ -2615,7 +2862,9 @@ def phase11_kernels(device, mol_bench, code2_bench, base=None):
               f"{_ms(t['bwd_earlier_ms'])} for the earlier design, in turns")
         print(f"[11a] {name} K9 attention_smalls [{t['shape']}]: kernel "
               f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
-              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}; "
+              f"{t['tc_bound_ms']:.4f} ms with the products on the tensor "
+              f"cores in 3xTF32), library "
               f"{t['library_ms']:.4f} ms (SDPA, bool mask); K9-bwd (dropout "
               f"{DROPOUT}) {t['bwd_ms']:.4f} ms, plain backward "
               f"{t['bwd_plain_ms']:.4f} ms, bound {t['bwd_bound_ms']:.4f} ms "
@@ -2717,6 +2966,26 @@ def _backend_argv(backend: str):
     return [] if backend == "packed_layer" else ["--attn_backend", backend]
 
 
+def packed_k4_instances(args, splits, num_tasks) -> set:
+    """The instances of K4's forward on each split's graph-packed rows
+    (packed_layer's layer launches it there, counted as K10's chain):
+    dense_fwd_geometry at the split's row width and block."""
+    from graphtrans_tpu_torch import predict
+    from graphtrans_tpu_torch.nn.transformer import graphs_per_row
+    from graphtrans_tpu_torch.ops.kernels.attention_packed import (
+        dense_fwd_geometry)
+
+    found = set()
+    for split in splits:
+        S = predict.serving_layout(splits, args, num_tasks,
+                                   split=split)["dense_cap"] + 1
+        gb = graphs_per_row(S)
+        found.add(dense_fwd_geometry(1, gb * S, S if gb > 1 else 0,
+                                     args.d_model // args.nhead, args.nhead,
+                                     True, 0.0).instance)
+    return found
+
+
 def phase11_serve(device, tmp: str):
     """(b) The molpcba Transformer-only yml through the serving entry point
     under smalls, packed_smalls (--attn_backend) and packed_layer (set in
@@ -2757,6 +3026,10 @@ def phase11_serve(device, tmp: str):
             totals.update(launches)
             totals.update({f"attention_smalls {k}": v for k, v in
                            kernels.attention_smalls.instances.items()})
+        if backend == "packed_layer" and packed_k4_instances(
+                args, splits, num_tasks) != {"tile"}:
+            raise AssertionError("packed_layer: K4's forward inside K10 is "
+                                 "off the tile instance")
         print(f"[11b] served the molpcba snapshot (3 splits) through "
               f"graphtrans_tpu_torch.predict under {backend}"
               f"{' (set in process)' if backend == 'packed_layer' else ''}:"
@@ -2867,6 +3140,10 @@ def phase11_train(device, tmp: str):
         if steps == 0 or launches != want:
             raise AssertionError(f"training under {backend}: launches "
                                  f"{launches}, expected {want}")
+        if backend == "packed_layer" and packed_k4_instances(
+                args, splits, num_tasks) != {"tile"}:
+            raise AssertionError("packed_layer training: K4's forward inside "
+                                 "K10 is off the tile instance")
         totals.update(launches)
         totals.update({f"attention_smalls {k}": v for k, v in
                        kernels.attention_smalls.instances.items()})
@@ -3913,7 +4190,8 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     smi = _smi()
     print(f"[0] card: {smi}; torch {torch.__version__} (CUDA "
-          f"{torch.version.cuda}); {torch.cuda.device_count()} visible")
+          f"{torch.version.cuda}); {torch.cuda.device_count()} visible; "
+          f"{CLOCKS}: {_smi(CLOCKS)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("[0] TF32 off for matmul and cuDNN: float32 work runs in float32")
@@ -3962,7 +4240,7 @@ def main(argv=None) -> int:
     code2_flat, flat_tasks = code2_bench_batch(CODE2_BENCH, SEED, flat=True)
     print(f"[9] collated the flat 4096-molecule and {CODE2_BENCH}-AST batches "
           f"in {time.perf_counter() - t0:.1f} s")
-    tf = phase9_kernels(device, mol_flat, code2_flat)
+    tf = phase9_kernels(device, mol_flat, code2_flat, base)
     with tempfile.TemporaryDirectory() as tmp:
         tf_launches = phase9_serve(device, tmp)
     phase9_forward(device, mol_flat, code2_flat, flat_tasks, smi)
@@ -4052,11 +4330,16 @@ def main(argv=None) -> int:
              max_abs_err=code2_train["k7_err"], **k7b),
         dict(name="attention_dense_fwd", route="cuda",
              source="graphtrans_tpu_torch/csrc/attention_packed.cu",
+             header="graphtrans_tpu_torch/csrc/attention_tile.cuh, "
+                    "graphtrans_tpu_torch/csrc/attention_fwd.cuh",
              replaces="graphtrans_tpu/ops/pallas/attention_packed.py:326",
              launches=tf_launches["attention_dense"],
+             instances={k: tf_launches[f"attention_dense {k}"]
+                        for k in ("tile", "long")},
              max_abs_err=tf["k4_err"], **k4),
         dict(name="flash_attention_fwd", route="cuda",
              source="graphtrans_tpu_torch/csrc/flash_attention.cu",
+             header="graphtrans_tpu_torch/csrc/attention_fwd.cuh",
              replaces="graphtrans_tpu/ops/pallas/flash_attention.py:228",
              launches=tf_launches["flash_attention"],
              max_abs_err=tf["k5_err"], **k5),
@@ -4081,11 +4364,12 @@ def main(argv=None) -> int:
              launches=k11_launches, max_abs_err=tf_train["k11_err"], **k11),
         dict(name="attention_smalls_fwd", route="cuda",
              source="graphtrans_tpu_torch/csrc/attention_smalls.cu",
-             header="graphtrans_tpu_torch/csrc/attention_tile.cuh",
+             header="graphtrans_tpu_torch/csrc/attention_tile.cuh, "
+                    "graphtrans_tpu_torch/csrc/attention_fwd.cuh",
              replaces="graphtrans_tpu/ops/pallas/attention_smallS.py:176",
              launches=switch_launches["attention_smalls"],
              instances={k: switch_launches[f"attention_smalls {k}"]
-                        for k in ("tile", "stream")},
+                        for k in ("tile", "long")},
              max_abs_err=switch["errs"]["k9"], **k9),
         dict(name="attention_smalls_bwd", route="cuda",
              source="graphtrans_tpu_torch/csrc/attention_smalls.cu",
@@ -4142,6 +4426,7 @@ def main(argv=None) -> int:
              launches=bsp["k12_launches"], max_abs_err=bsp["k12_err"],
              **k12),
     ]
+    print(f"[wall] {CLOCKS} at the end: {_smi(CLOCKS)}")
     print(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
           f"(phases 0-13, the kernels' build included)")
     print(json.dumps({"kernels": rows}))

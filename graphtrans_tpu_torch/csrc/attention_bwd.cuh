@@ -1,8 +1,9 @@
 // The long-row attention backward: K5-bwd (flash_attention.cu) and K9-bwd's
 // long instance (attention_smalls.cu), over qkv [B, S, 3d] with heads in
 // lanes, from the forward's output and its softmax statistics m and l
-// ([B, S, H], with attention_fwd.cuh's meaning). Also the mask policies
-// and block_range that the streaming forward (attention_fwd.cuh) shares.
+// ([B, S, H], with attention_fwd.cuh's meaning). Also the mask policies,
+// block_range and the staging, ranking and 3xTF32 pieces that the long
+// forward (attention_fwd.cuh) shares.
 //
 // The mask is a pair of tags (policy Tags): query i attends key j iff
 // qtag(i) == ktag(j) >= 0. K5's are its segq and segk; K9's (and K4's) are
@@ -239,13 +240,14 @@ struct Tiles {
 };
 
 // Rows [0, T) of N head slices into rows of HD + 4 floats, row r from the
-// token row(r) (src[k] + row(r) * ld[k]), zeros for r >= n.
+// token row(r) (src[k] + row(r) * ld[k]), zeros for r >= n. All threads of
+// the block take part.
 template <int HD, int N, class Row>
 __device__ __forceinline__ void stage(float* const (&dst)[N],
                                       const float* const (&src)[N],
                                       const long (&ld)[N], Row row, int n) {
   constexpr int C4 = HD / 4, LD = HD + 4;
-  for (int idx = threadIdx.x; idx < T * C4; idx += NT) {
+  for (int idx = threadIdx.x; idx < T * C4; idx += blockDim.x) {
     const int r = idx / C4, c = idx % C4 * 4;
     const bool ok = r < n;
     const long tok = ok ? row(r) : 0;
@@ -255,15 +257,17 @@ __device__ __forceinline__ void stage(float* const (&dst)[N],
   }
 }
 
-// The keys j < S that sel(j) accepts, ranked in token order: each thread
-// counts its own contiguous segment of ceil(S / NT) tokens; returns the
-// count before this thread's segment and sets total to the row's count.
-// All threads call it; scan: NT / 32 + 1 ints of shared memory.
+// The keys j < S that sel(j) accepts, ranked in token order: each of the
+// block's nt threads counts its own contiguous segment of ceil(S / nt)
+// tokens; returns the count before this thread's segment and sets total to
+// the row's count. All threads call it; scan: nt / 32 + 1 ints of shared
+// memory (nt a multiple of 32, at most 1024).
 template <class Sel>
 __device__ __forceinline__ int rank_keys(int S, Sel sel, int* scan,
                                          int& total) {
   const int t = threadIdx.x, lane = t & 31, w = t >> 5;
-  const int seg = (S + NT - 1) / NT, j0 = min(S, t * seg);
+  const int nt = blockDim.x, nw = nt / 32;
+  const int seg = (S + nt - 1) / nt, j0 = min(S, t * seg);
   const int j1 = min(S, j0 + seg);
   int cnt = 0;
   for (int j = j0; j < j1; ++j) cnt += sel(j) ? 1 : 0;
@@ -277,18 +281,18 @@ __device__ __forceinline__ int rank_keys(int S, Sel sel, int* scan,
   if (lane == 31) scan[w] = inc;
   __syncthreads();
   if (w == 0) {
-    const int v = lane < NT / 32 ? scan[lane] : 0;
+    const int v = lane < nw ? scan[lane] : 0;
     int s = v;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
       const int u = __shfl_up_sync(0xffffffffu, s, o);
       if (lane >= o) s += u;
     }
-    if (lane < NT / 32) scan[lane] = s - v;
-    if (lane == NT / 32 - 1) scan[NT / 32] = s;
+    if (lane < nw) scan[lane] = s - v;
+    if (lane == nw - 1) scan[nw] = s;
   }
   __syncthreads();
-  total = scan[NT / 32];
+  total = scan[nw];
   return scan[w] + inc - cnt;
 }
 
@@ -297,7 +301,8 @@ __device__ __forceinline__ int rank_keys(int S, Sel sel, int* scan,
 template <class Sel>
 __device__ __forceinline__ void list_keys(int S, Sel sel, int before, int r0,
                                           int* kix) {
-  const int seg = (S + NT - 1) / NT, j0 = min(S, (int)threadIdx.x * seg);
+  const int seg = (S + blockDim.x - 1) / blockDim.x;
+  const int j0 = min(S, (int)threadIdx.x * seg);
   const int j1 = min(S, j0 + seg);
   int r = before;
   for (int j = j0; j < j1 && r < r0 + T; ++j)

@@ -7,21 +7,35 @@
 // K2: qkv [R, W, 3d] (heads in lanes), seg [R, W] -> out [R, W, d].
 // Query i attends key j iff seg[i] == seg[j] >= 0. K4: qkv [B, S, 3d],
 // valid [B, S] -> out [B, S, d]; key j is attendable by query i iff
-// valid[j] and, with block > 0, i / block == j / block. Both forwards are
-// one kernel body with the mask as a template policy (SegMask, PadMask),
-// under two kernels (attention_seg_fwd_kernel, attention_dense_fwd_kernel).
-// One block per (row, head). Forward: one thread per query; K_h, V_h and
-// the row's tags (seg or valid) are staged in shared memory and read as
-// broadcasts; q and the output stay in registers and the softmax runs
-// online (running max and denominator) in one pass over the keys a query
-// can reach. Dropout (torch semantics: normalise by the undropped
-// denominator, then drop and scale by 1/(1-rate)) keeps (i, j) iff
-// hash(pos, seed') < thresh, with pos = ((r % bt)*W + i)*sp + j and
-// seed' = seed + (r / bt)*stride + h (stride H; H + 3 when K4's kernels run
-// inside K10's layer, transformer_layer.cu): the counter hash of the JAX package's
+// valid[j] and, with block > 0, i / block == j / block.
+//
+// K2's forward: one block per (row, head), one thread per query. K_h, V_h
+// and the row's seg are staged in shared memory and read as broadcasts; q
+// and the output stay in registers and the softmax runs online (running
+// max and denominator) in one pass over the keys of the query's segment.
+// Dropout (torch semantics: normalise by the undropped denominator, then
+// drop and scale by 1/(1-rate)) keeps (i, j) iff hash(pos, seed') <
+// thresh, with pos = ((r % bt)*W + i)*sp + j and seed' = seed + (r /
+// bt)*stride + h (stride H; H + 3 when K4's kernels run inside K10's
+// layer, transformer_layer.cu): the counter hash of the JAX package's
 // interpret mode, so forward, backward and the plain version draw the same
-// mask from (seed, r, h, i, j) and nothing is stored. Where a gradient is
-// wanted K4's forward also writes m and l per (row, query, head).
+// mask from (seed, r, h, i, j) and nothing is stored.
+//
+// K4's forward has two instances, picked by the span width (a graph block,
+// or the row at block 0) in the wrapper's dense_fwd_geometry: spans of up
+// to 128 tokens (every K4 launch of the molecule paths: rows of 2 x 49 and
+// 3 x 33) take attention_tile.cuh's whole-span forward (a span's Q, K and V
+// staged once, the scores once into a shared tile by register-blocked
+// micro-tiles, an exact two-pass softmax per query row, O = P_drop V / l;
+// several spans a block where one is small); wider ones (block 0, rows of
+// 129-384) the long-row forward of attention_fwd.cuh (K5's: keys gathered
+// by rank, products on the tensor cores in 3xTF32) with K4's mask as its
+// tags. Both draw K2's mask through the Dropout policy below (as K4's
+// backward does) and, where a gradient is wanted, write m and l per (row,
+// query, head) with attention_fwd.cuh's meaning. What they replace: one
+// block per (row, head), a thread per query walking its block's keys with
+// one hd-long dependent FMA chain per key and the whole row's K and V staged
+// for every head (168 registers a thread at hd 64).
 //
 // K2's backward: Q_h, K_h, V_h and dO_h of the row in shared memory. Pass
 // A, one thread per query: recompute the running max m_i and denominator
@@ -41,6 +55,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attention_fwd.cuh"
 #include "attention_tile.cuh"
 #include "hash.cuh"
 
@@ -74,44 +89,15 @@ struct Dropout {
   }
 };
 
-constexpr int W_MAX = 384;  // widest row (threads a block)
+constexpr int W_MAX = 384;  // widest row (K2: threads a block)
 
-// K2's mask: query i attends key j iff seg[i] == seg[j] >= 0; a padding
-// query (seg -1) attends nothing and writes zeros. ti is the query's tag.
-struct SegMask {
-  const int* tag;  // shared [W]: seg
-  int block;       // unused
-  __device__ bool live(int ti) const { return ti >= 0; }
-  __device__ int first(int) const { return 0; }
-  __device__ int last(int, int W) const { return W; }
-  __device__ bool attends(int ti, int j) const { return tag[j] == ti; }
-};
-
-// K4's mask: key j is attendable by query i iff valid[j] and, with
-// block > 0, i and j share a block. Every query is live (a padding query
-// attends its block's valid keys); one whose block has no valid key writes
-// zeros. A query walks only its own block's keys.
-struct PadMask {
-  const int* tag;  // shared [W]: valid (0/1)
-  int block;       // 0: the whole row
-  __device__ bool live(int) const { return true; }
-  __device__ int first(int i) const { return block ? i / block * block : 0; }
-  __device__ int last(int i, int W) const {
-    return block ? min(W, first(i) + block) : W;
-  }
-  __device__ bool attends(int, int j) const { return tag[j] != 0; }
-};
-
-// The forward of K2 and K4: one block per (row, head), one thread per query.
-// Tag is the row tags' type in global memory: int (K2's seg) or unsigned
-// char (K4's valid, torch's bool as it lies). STATS writes the softmax
-// statistics m and l [R, W, H] that K4's backward reads.
-template <int HD, class Mask, bool STATS, typename Tag>
-__device__ __forceinline__ void attention_fwd_body(
-    const float* __restrict__ qkv, const Tag* __restrict__ tags,
-    float* __restrict__ out, float* __restrict__ stat_m,
-    float* __restrict__ stat_l, int W, int d, float scale, Dropout dr,
-    int block) {
+// K2's forward: one block per (row, head), one thread per query; a padding
+// query (seg -1) attends nothing and writes zeros.
+template <int HD>
+__global__ void attention_seg_fwd_kernel(const float* __restrict__ qkv,
+                                         const int* __restrict__ seg,
+                                         float* __restrict__ out, int W,
+                                         int d, float scale, Dropout dr) {
   extern __shared__ float smem[];
   float* ks = smem;                                  // [W][HD]
   float* vs = ks + W * HD;                           // [W][HD]
@@ -131,23 +117,21 @@ __device__ __forceinline__ void attention_fwd_body(
     ks[idx] = row[j * d3 + d + h * HD + c];
     vs[idx] = row[j * d3 + 2 * d + h * HD + c];
   }
-  ss[i] = (int)tags[r * W + i];
+  ss[i] = seg[r * W + i];
   __syncthreads();
 
-  const Mask mask{ss, block};
   const int ti = ss[i];
   float o[HD];
 #pragma unroll
   for (int c = 0; c < HD; ++c) o[c] = 0.f;
-  float m = -INFINITY, l = 0.f;
-  if (mask.live(ti)) {
+  if (ti >= 0) {
     float q[HD];
     const float* qi = row + i * d3 + h * HD;
 #pragma unroll
     for (int c = 0; c < HD; ++c) q[c] = qi[c] * scale;
-    const int j_end = mask.last(i, W);
-    for (int j = mask.first(i); j < j_end; ++j) {
-      if (!mask.attends(ti, j)) continue;
+    float m = -INFINITY, l = 0.f;
+    for (int j = 0; j < W; ++j) {
+      if (ss[j] != ti) continue;
       const float* kj = ks + j * HD;
       float s = 0.f;
 #pragma unroll
@@ -173,36 +157,6 @@ __device__ __forceinline__ void attention_fwd_body(
   float* oi = out + (r * W + i) * d + h * HD;
 #pragma unroll
   for (int c = 0; c < HD; ++c) oi[c] = o[c];
-  if (STATS) {
-    const long at = (r * W + i) * gridDim.y + h;
-    stat_m[at] = m;
-    stat_l[at] = l;
-  }
-}
-
-template <int HD>
-__global__ void attention_seg_fwd_kernel(const float* __restrict__ qkv,
-                                         const int* __restrict__ seg,
-                                         float* __restrict__ out,
-                                         float* __restrict__ stat_m,
-                                         float* __restrict__ stat_l, int W,
-                                         int d, float scale, Dropout dr,
-                                         int block) {
-  attention_fwd_body<HD, SegMask, false>(qkv, seg, out, stat_m, stat_l, W, d,
-                                         scale, dr, block);
-}
-
-// K4 at hd 64 needs ~168 registers a thread: the bound keeps a block of
-// 384 threads launchable. STATS: the training instance.
-template <int HD, bool STATS>
-__global__ void __launch_bounds__(W_MAX)
-attention_dense_fwd_kernel(const float* __restrict__ qkv,
-                           const unsigned char* __restrict__ valid,
-                           float* __restrict__ out, float* __restrict__ stat_m,
-                           float* __restrict__ stat_l, int W, int d,
-                           float scale, Dropout dr, int block) {
-  attention_fwd_body<HD, PadMask, STATS>(qkv, valid, out, stat_m, stat_l, W,
-                                         d, scale, dr, block);
 }
 
 template <int HD>
@@ -375,19 +329,19 @@ attention_dense_bwd_wide_kernel(
                      block, npad, scale, dr);
 }
 
-// K/V of the row (196 KB at hd 64, W 384) take dynamic shared memory past
-// the 48 KB default, hence the attribute.
-template <typename Kernel, typename Tag>
-int launch_fwd(Kernel kernel, int HD, const float* qkv, const Tag* tags,
-               float* out, float* stat_m, float* stat_l, int R, int W, int d,
-               int H, Dropout dr, int block, cudaStream_t stream) {
+// K2's forward: K/V of the row (98 KB at hd 32, W 384) take dynamic shared
+// memory past the 48 KB default, hence the attribute.
+int launch_seg_fwd(const float* qkv, const int* seg, float* out, int R, int W,
+                   int d, int H, Dropout dr, cudaStream_t stream) {
+  constexpr int HD = 32;
   const size_t smem = (size_t)2 * W * HD * sizeof(float) + W * sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      attention_seg_fwd_kernel<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(R, H);
-  kernel<<<grid, W, smem, stream>>>(qkv, tags, out, stat_m, stat_l, W, d,
-                                    1.f / sqrtf((float)HD), dr, block);
+  attention_seg_fwd_kernel<HD><<<grid, W, smem, stream>>>(
+      qkv, seg, out, W, d, 1.f / sqrtf((float)HD), dr);
   return cudaGetLastError();
 }
 
@@ -408,11 +362,100 @@ int launch_bwd(const float* qkv, const int* seg, const float* gout,
   return cudaGetLastError();
 }
 
-// A launch as the wrapper computed it (attention_packed.py:Geometry):
-// instance 1 the short kernel, 2 the wide one.
-struct Launch {
-  int instance, pad, group, gx, gy, gz, threads, smem;
-};
+using tile::Launch;
+
+// K4's forward: spans of up to 128 tokens, `group` (row, span, head) a
+// block.
+template <int HD, bool DROP, bool STATS>
+__global__ void __launch_bounds__(tile::THREADS)
+attention_dense_fwd_tile_kernel(const float* __restrict__ qkv,
+                                const unsigned char* __restrict__ valid,
+                                float* __restrict__ out,
+                                float* __restrict__ stat_m,
+                                float* __restrict__ stat_l, int B, int S,
+                                int d, int H, int block, int np, int group,
+                                float scale, Dropout dr) {
+  tile::fwd_short<HD, DROP, STATS>(qkv, valid, out, stat_m, stat_l, B, S, d,
+                                   H, block, np, group, scale, dr);
+}
+
+// K4's forward: wider spans (block 0), one block per (row, head, 64
+// queries).
+template <int HD, bool DROP, bool STATS>
+__global__ void __launch_bounds__(attn::LONG_FWD_THREADS,
+                                  attn::long_fwd_blocks(HD))
+attention_dense_fwd_long_kernel(const float* __restrict__ qkv,
+                                attn::PadTags tags, float* __restrict__ out,
+                                float* __restrict__ stat_m,
+                                float* __restrict__ stat_l, int S, int d,
+                                float scale, Dropout dr) {
+  attn::long_fwd<HD, DROP, STATS>(qkv, tags, out, stat_m, stat_l, S, d, scale,
+                                  dr);
+}
+
+// Launches K4's forward (instance 1 the tile kernel, 3 the long one) after
+// checking the wrapper's dense_fwd_geometry against the spans of (S, block)
+// and the card's limits; each kernel's shared-memory attribute is raised
+// once, before its first launch.
+template <int HD, bool DROP, bool STATS>
+int launch_dense_fwd_instance(const float* qkv, const unsigned char* valid,
+                              float* out, float* stat_m, float* stat_l, int B,
+                              int S, int d, int H, int block, Dropout dr,
+                              const Launch& L, cudaStream_t stream) {
+  const tile::Spans sp = tile::spans_of(S, block);
+  const float scale = 1.f / sqrtf((float)HD);
+  if (L.instance == 1) {
+    const int np = tile::round4(sp.width);
+    const long problems = (long)B * sp.count * H;
+    if (L.pad != np || np > 128 || L.group < 1 || L.threads < 32 ||
+        L.threads > tile::THREADS || L.threads % 32 || L.gy != 1 ||
+        L.gz != 1 || (long)L.gx != (problems + L.group - 1) / L.group ||
+        L.smem != L.group * tile::fwd_floats(np, HD) * 4 ||
+        L.smem > tile::SMEM_MAX)
+      return cudaErrorInvalidValue;
+    static const cudaError_t set = cudaFuncSetAttribute(
+        attention_dense_fwd_tile_kernel<HD, DROP, STATS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, tile::SMEM_MAX);
+    if (set != cudaSuccess) return set;
+    attention_dense_fwd_tile_kernel<HD, DROP, STATS>
+        <<<L.gx, L.threads, L.smem, stream>>>(qkv, valid, out, stat_m, stat_l,
+                                              B, S, d, H, block, np, L.group,
+                                              scale, dr);
+    return cudaGetLastError();
+  }
+  if (L.instance == 3) {
+    if (sp.width <= 128 || !attn::long_fwd_launch_ok(L, B, S, H, HD))
+      return cudaErrorInvalidValue;
+    static const cudaError_t set = cudaFuncSetAttribute(
+        attention_dense_fwd_long_kernel<HD, DROP, STATS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        attn::long_fwd_bytes(HD));
+    if (set != cudaSuccess) return set;
+    attention_dense_fwd_long_kernel<HD, DROP, STATS>
+        <<<dim3(L.gx, L.gy, L.gz), L.threads, L.smem, stream>>>(
+            qkv, attn::PadTags{valid, block}, out, stat_m, stat_l, S, d,
+            scale, dr);
+    return cudaGetLastError();
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The serving instance (no dropout, no statistics), the gradient instance
+// without dropout, and the training one (dropout always saves statistics).
+template <int HD>
+int launch_dense_fwd(const float* qkv, const unsigned char* valid, float* out,
+                     float* stat_m, float* stat_l, int B, int S, int d, int H,
+                     int block, Dropout dr, const Launch& L,
+                     cudaStream_t stream) {
+  if (dr.on)
+    return launch_dense_fwd_instance<HD, true, true>(
+        qkv, valid, out, stat_m, stat_l, B, S, d, H, block, dr, L, stream);
+  if (stat_m)
+    return launch_dense_fwd_instance<HD, false, true>(
+        qkv, valid, out, stat_m, stat_l, B, S, d, H, block, dr, L, stream);
+  return launch_dense_fwd_instance<HD, false, false>(
+      qkv, valid, out, stat_m, stat_l, B, S, d, H, block, dr, L, stream);
+}
 
 // Launches K4's backward at HD after checking the wrapper's geometry
 // against the spans of (S, block) and the card's limits; the shared-memory
@@ -492,44 +535,41 @@ extern "C" int attention_seg_fwd(const float* qkv, const int* seg, float* out,
                                  unsigned thresh, float inv_keep, int seed,
                                  int bt, int sp, cudaStream_t stream) {
   if (d != H * 32 || W > W_MAX) return cudaErrorInvalidValue;  // hd 32
-  return launch_fwd(attention_seg_fwd_kernel<32>, 32, qkv, seg, out, nullptr,
-                    nullptr, R, W, d, H,
-                    make_dropout(drop, thresh, inv_keep, seed, bt, sp, H), 0,
-                    stream);
+  return launch_seg_fwd(qkv, seg, out, R, W, d, H,
+                        make_dropout(drop, thresh, inv_keep, seed, bt, sp, H),
+                        stream);
 }
 
 // K4 forward: valid [B, S] one byte each (0/1: torch's bool), block 0 or
 // the graphs' width in a graph-packed row; drop and the rest as K2's, with
 // stride the seeds a tile of bt rows (H; H + 3 inside K10's layer).
-// stat_m and stat_l ([B, S, H]) may be null: the statistics are then not
-// written (serving). Heads of width 32 or 64; S <= 384.
+// stat_m and stat_l ([B, S, H]) may be null without dropout: the
+// statistics are then not written (serving). Heads of width 32 or 64;
+// S <= 384. The launch (instance, pad, group, grid, threads, smem) is the
+// wrapper's dense_fwd_geometry; one that does not match (S, block, hd) is
+// refused.
 extern "C" int attention_dense_fwd(const float* qkv,
                                    const unsigned char* valid, float* out,
                                    float* stat_m, float* stat_l, int B, int S,
                                    int d, int H, int block, int drop,
                                    unsigned thresh, float inv_keep, int seed,
-                                   int bt, int sp, int stride,
+                                   int bt, int sp, int stride, int instance,
+                                   int pad, int group, int gx, int gy, int gz,
+                                   int threads, int smem,
                                    cudaStream_t stream) {
   if (B <= 0 || S <= 0 || S > W_MAX || block < 0 || H <= 0 || d % H ||
       stride < H)
     return cudaErrorInvalidValue;
   if ((stat_m == nullptr) != (stat_l == nullptr)) return cudaErrorInvalidValue;
+  if (drop && stat_m == nullptr) return cudaErrorInvalidValue;
   const Dropout dr = make_dropout(drop, thresh, inv_keep, seed, bt, sp, stride);
-  const bool stats = stat_m != nullptr;
+  const Launch L{instance, pad, group, gx, gy, gz, threads, smem};
   if (d == H * 32)
-    return stats ? launch_fwd(attention_dense_fwd_kernel<32, true>, 32, qkv,
-                              valid, out, stat_m, stat_l, B, S, d, H, dr,
-                              block, stream)
-                 : launch_fwd(attention_dense_fwd_kernel<32, false>, 32, qkv,
-                              valid, out, stat_m, stat_l, B, S, d, H, dr,
-                              block, stream);
+    return launch_dense_fwd<32>(qkv, valid, out, stat_m, stat_l, B, S, d, H,
+                                block, dr, L, stream);
   if (d == H * 64)
-    return stats ? launch_fwd(attention_dense_fwd_kernel<64, true>, 64, qkv,
-                              valid, out, stat_m, stat_l, B, S, d, H, dr,
-                              block, stream)
-                 : launch_fwd(attention_dense_fwd_kernel<64, false>, 64, qkv,
-                              valid, out, stat_m, stat_l, B, S, d, H, dr,
-                              block, stream);
+    return launch_dense_fwd<64>(qkv, valid, out, stat_m, stat_l, B, S, d, H,
+                                block, dr, L, stream);
   return cudaErrorInvalidValue;
 }
 

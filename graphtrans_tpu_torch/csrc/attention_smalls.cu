@@ -12,7 +12,8 @@
 // 0) in the wrapper's fwd_geometry: spans of up to 128 tokens (112 at hd
 // 128, where shared memory runs out) take the whole-tile body of
 // attention_tile.cuh (scores once, an exact two-pass softmax, O = P_drop V
-// / l), wider ones the streaming body of attention_fwd.cuh (K5's). The
+// / l), wider ones the long-row body of attention_fwd.cuh (K5's: keys
+// gathered by rank, products on the tensor cores in 3xTF32). The
 // backward has three instances, picked by span width and head width in the
 // wrapper's bwd_geometry, each reading either forward's m and l: spans of
 // up to 64 tokens take attention_tile.cuh's short backward (whole spans,
@@ -38,7 +39,7 @@
 
 namespace {
 
-using attn::BQ;
+using tile::Launch;
 
 struct SmallsKeep {
   int on;            // 0: rate 0, the identity
@@ -56,16 +57,18 @@ struct SmallsKeep {
   }
 };
 
+// Spans wider than the tile threshold (code2's rows of 513 and 1001): one
+// block per (row, head, 64 queries).
 template <int HD, bool DROP, bool STATS>
-__global__ void __launch_bounds__(BQ)
-attention_smalls_fwd_kernel(const float* __restrict__ qkv,
-                            const unsigned char* __restrict__ valid,
-                            float* __restrict__ out,
-                            float* __restrict__ stat_m,
-                            float* __restrict__ stat_l, int S, int d,
-                            int block, float scale, SmallsKeep dr) {
-  attn::stream_fwd<HD, DROP, STATS>(qkv, attn::PadTags{valid, block}, out,
-                                    stat_m, stat_l, S, d, scale, dr);
+__global__ void __launch_bounds__(attn::LONG_FWD_THREADS,
+                                  attn::long_fwd_blocks(HD))
+attention_smalls_fwd_long_kernel(const float* __restrict__ qkv,
+                                 attn::PadTags tags, float* __restrict__ out,
+                                 float* __restrict__ stat_m,
+                                 float* __restrict__ stat_l, int S, int d,
+                                 float scale, SmallsKeep dr) {
+  attn::long_fwd<HD, DROP, STATS>(qkv, tags, out, stat_m, stat_l, S, d, scale,
+                                  dr);
 }
 
 // Spans of up to the tile threshold, `group` (row, span, head) a block.
@@ -82,16 +85,11 @@ attention_smalls_fwd_tile_kernel(const float* __restrict__ qkv,
                                    H, block, np, group, scale, dr);
 }
 
-// A launch as the wrapper computed it (attention_smalls.py:fwd_geometry,
-// bwd_geometry): forward instance 1 the tile body, 2 the streaming one;
-// backward 1 short, 2 wide, 3 long.
-struct Launch {
-  int instance, pad, group, gx, gy, gz, threads, smem;
-};
-
-// Checks the wrapper's geometry against (B, S, H, block) and the card's
-// limits, then launches the instance; the tile kernel's shared-memory
-// attribute is raised once, before its first launch.
+// Checks the wrapper's launch (attention_smalls.py:fwd_geometry; forward
+// instance 1 the tile body, 3 the long one; bwd_geometry's backward 1
+// short, 2 wide, 3 long) against (B, S, H, block) and the card's limits,
+// then launches the instance; each kernel's shared-memory attribute is
+// raised once, before its first launch.
 template <int HD, bool DROP, bool STATS>
 int launch_instance(const float* qkv, const unsigned char* valid, float* out,
                     float* stat_m, float* stat_l, int B, int S, int d, int H,
@@ -117,13 +115,17 @@ int launch_instance(const float* qkv, const unsigned char* valid, float* out,
                                               scale, dr);
     return cudaGetLastError();
   }
-  if (L.instance == 2) {
-    if (L.gx != B || L.gy != H || L.gz != (S + BQ - 1) / BQ ||
-        L.threads != BQ || L.smem != 0)
-      return cudaErrorInvalidValue;
-    dim3 grid(B, H, L.gz);
-    attention_smalls_fwd_kernel<HD, DROP, STATS><<<grid, BQ, 0, stream>>>(
-        qkv, valid, out, stat_m, stat_l, S, d, block, scale, dr);
+  if (L.instance == 3) {
+    if (!attn::long_fwd_launch_ok(L, B, S, H, HD)) return cudaErrorInvalidValue;
+    static const cudaError_t set = cudaFuncSetAttribute(
+        attention_smalls_fwd_long_kernel<HD, DROP, STATS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        attn::long_fwd_bytes(HD));
+    if (set != cudaSuccess) return set;
+    attention_smalls_fwd_long_kernel<HD, DROP, STATS>
+        <<<dim3(L.gx, L.gy, L.gz), L.threads, L.smem, stream>>>(
+            qkv, attn::PadTags{valid, block}, out, stat_m, stat_l, S, d,
+            scale, dr);
     return cudaGetLastError();
   }
   return cudaErrorInvalidValue;

@@ -72,6 +72,14 @@ constexpr int WIDE = 64;         // rows of a tile of the wide backward
 constexpr int SHORT_MAX = 64;    // the longest span the short backward takes
 constexpr int SMEM_MAX = 232448; // dynamic shared bytes a block may take
 
+// A launch as a wrapper computed it (attention_packed.py:Geometry): the
+// instance's code, the rows of a span's tile, the problems a block, the
+// grid, the threads a block and its dynamic shared bytes. The C entries
+// check it against the shapes before they launch.
+struct Launch {
+  int instance, pad, group, gx, gy, gz, threads, smem;
+};
+
 // the spans of a row: `count` of `width` tokens, the last maybe shorter
 struct Spans {
   int width, count;

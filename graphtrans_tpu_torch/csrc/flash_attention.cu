@@ -1,5 +1,5 @@
 // K5: attention over long unpacked rows with a key-padding or segment mask,
-// streaming the keys in tiles with an online softmax, with attention
+// walking the keys in gathered tiles with an online softmax, with attention
 // dropout; and its backward. Wrapper, plain version and design note:
 // graphtrans_tpu_torch/ops/kernels/flash_attention.py.
 //
@@ -7,14 +7,15 @@
 // Query i attends key j iff segq[i] == segk[j] >= 0 (the key-padding form
 // is segq = 0, segk = valid ? 0 : -1); scale 1/sqrt(hd); the output is
 // normalised by max(l, 1e-16), so a query with no key writes exact zeros.
-// The forward is the streaming body of attention_fwd.cuh (shared with K9)
-// under K5's own kernel. One block per (row, head, BQ queries), one thread
-// per query: q and the output accumulator (HD floats each) stay in registers. The keys stream
-// through shared memory BK = 4096 / HD at a time (32 KB for K and V at
-// every head width). A key tile none of whose keys any query of the block
-// can attend is skipped whole (one __syncthreads_or): in a graph's row the
-// valid keys are a prefix plus the CLS column, so at code2's mean graph
-// size most tiles of a 1001-wide row are skipped, exactly, for any mask.
+// The forward is the long-row body of attention_fwd.cuh (shared with K9's
+// long instance and K4's wide spans) under K5's own kernel: one block of
+// four warps per (row, head, 64 queries) walks only the keys whose tags
+// meet its queries', gathered 64 at a time by rank and staged in shared
+// memory with cp.async; each warp keeps 16 query rows whole in registers,
+// S = Q K^T and O += P_drop V as 3xTF32 mma.sync on the tensor cores, the
+// online softmax between them. The wrapper (attention_packed.py:
+// long_fwd_geometry) computes the launch; the entry checks it before
+// launching.
 //
 // Dropout (torch semantics: l sums the undropped probabilities; a kept one
 // is scaled by 1/(1-rate)) keeps (b, h, i, j) iff hash(pos, s) < thresh
@@ -38,8 +39,6 @@
 
 namespace {
 
-using attn::BQ;
-
 constexpr int MASK_TILE = 256;  // the JAX kernel's BQ = BK, which seed its mask
 
 struct Dropout {
@@ -60,46 +59,54 @@ struct Dropout {
   }
 };
 
-// K5's own kernel over the streaming body of attention_fwd.cuh, with segq
-// and segk as its tags. DROP and STATS are compile-time, so the serving
-// launch (neither) runs the loop of a kernel without dropout and writes no
+// K5's own kernel over the long-row body of attention_fwd.cuh, with segq and
+// segk as its tags. DROP and STATS are compile-time, so the serving launch
+// (neither) runs the loop of a kernel without dropout and writes no
 // statistics.
 template <int HD, bool DROP, bool STATS>
-__global__ void __launch_bounds__(BQ)
-flash_attention_fwd_kernel(const float* __restrict__ qkv,
-                           const int* __restrict__ segq,
-                           const int* __restrict__ segk,
+__global__ void __launch_bounds__(attn::LONG_FWD_THREADS,
+                                  attn::long_fwd_blocks(HD))
+flash_attention_fwd_kernel(const float* __restrict__ qkv, attn::SegTags tags,
                            float* __restrict__ out, float* __restrict__ stat_m,
                            float* __restrict__ stat_l, int S, int d,
                            float scale, Dropout dr) {
-  attn::stream_fwd<HD, DROP, STATS>(qkv, attn::SegTags{segq, segk}, out,
-                                    stat_m, stat_l, S, d, scale, dr);
+  attn::long_fwd<HD, DROP, STATS>(qkv, tags, out, stat_m, stat_l, S, d, scale,
+                                  dr);
 }
 
+// Checks the wrapper's launch (tile::Launch, instance 3: the long body)
+// against (B, S, H, HD), then launches; the shared-memory attribute is
+// raised once, before the instance's first launch.
 template <int HD, bool DROP, bool STATS>
-int launch_instance(const float* qkv, const int* segq, const int* segk,
-                    float* out, float* stat_m, float* stat_l, int B, int S,
-                    int d, int H, Dropout dr, cudaStream_t stream) {
-  dim3 grid(B, H, (S + BQ - 1) / BQ);
-  flash_attention_fwd_kernel<HD, DROP, STATS><<<grid, BQ, 0, stream>>>(
-      qkv, segq, segk, out, stat_m, stat_l, S, d, 1.f / sqrtf((float)HD), dr);
+int launch_instance(const float* qkv, attn::SegTags tags, float* out,
+                    float* stat_m, float* stat_l, int B, int S, int d, int H,
+                    Dropout dr, const tile::Launch& L, cudaStream_t stream) {
+  if (L.instance != 3 || !attn::long_fwd_launch_ok(L, B, S, H, HD))
+    return cudaErrorInvalidValue;
+  static const cudaError_t set = cudaFuncSetAttribute(
+      flash_attention_fwd_kernel<HD, DROP, STATS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, attn::long_fwd_bytes(HD));
+  if (set != cudaSuccess) return set;
+  flash_attention_fwd_kernel<HD, DROP, STATS>
+      <<<dim3(L.gx, L.gy, L.gz), L.threads, L.smem, stream>>>(
+          qkv, tags, out, stat_m, stat_l, S, d, 1.f / sqrtf((float)HD), dr);
   return cudaGetLastError();
 }
 
 // The serving instance (no dropout, no statistics), the gradient instance
 // without dropout, and the training one (dropout always saves statistics).
 template <int HD>
-int launch_fwd(const float* qkv, const int* segq, const int* segk,
-               float* out, float* stat_m, float* stat_l, int B, int S, int d,
-               int H, Dropout dr, cudaStream_t stream) {
+int launch_fwd(const float* qkv, attn::SegTags tags, float* out,
+               float* stat_m, float* stat_l, int B, int S, int d, int H,
+               Dropout dr, const tile::Launch& L, cudaStream_t stream) {
   if (dr.on)
-    return launch_instance<HD, true, true>(qkv, segq, segk, out, stat_m,
-                                           stat_l, B, S, d, H, dr, stream);
+    return launch_instance<HD, true, true>(qkv, tags, out, stat_m, stat_l, B,
+                                           S, d, H, dr, L, stream);
   if (stat_m)
-    return launch_instance<HD, false, true>(qkv, segq, segk, out, stat_m,
-                                            stat_l, B, S, d, H, dr, stream);
-  return launch_instance<HD, false, false>(qkv, segq, segk, out, stat_m,
-                                           stat_l, B, S, d, H, dr, stream);
+    return launch_instance<HD, false, true>(qkv, tags, out, stat_m, stat_l, B,
+                                            S, d, H, dr, L, stream);
+  return launch_instance<HD, false, false>(qkv, tags, out, stat_m, stat_l, B,
+                                           S, d, H, dr, L, stream);
 }
 
 // K5's backward kernels over the long-row bodies of attention_bwd.cuh.
@@ -161,26 +168,32 @@ extern "C" const char* error_string(int err) {
 // width 32, 64 or 128. drop = 0 is attention without dropout; otherwise
 // (thresh, inv_keep, seed) define the keep mask as above. stat_m and
 // stat_l ([B, S, H]) may be null without dropout: the softmax statistics
-// are then not written (serving).
+// are then not written (serving). The launch (instance, pad, group, grid,
+// threads, smem) is the wrapper's long_fwd_geometry; one that does not match
+// the shapes is refused.
 extern "C" int flash_attention_fwd(const float* qkv, const int* segq,
                                    const int* segk, float* out, float* stat_m,
                                    float* stat_l, int B, int S, int d, int H,
                                    int drop, unsigned thresh, float inv_keep,
-                                   int seed, cudaStream_t stream) {
+                                   int seed, int instance, int pad, int group,
+                                   int gx, int gy, int gz, int threads,
+                                   int smem, cudaStream_t stream) {
   if (B <= 0 || S <= 0 || H <= 0 || d % H) return cudaErrorInvalidValue;
   if ((stat_m == nullptr) != (stat_l == nullptr)) return cudaErrorInvalidValue;
   if (drop && stat_m == nullptr) return cudaErrorInvalidValue;
   const Dropout dr = make_dropout(drop, thresh, inv_keep, seed);
+  const attn::SegTags tags{segq, segk};
+  const tile::Launch L{instance, pad, group, gx, gy, gz, threads, smem};
   switch (d / H) {
     case 32:
-      return launch_fwd<32>(qkv, segq, segk, out, stat_m, stat_l, B, S, d, H,
-                            dr, stream);
+      return launch_fwd<32>(qkv, tags, out, stat_m, stat_l, B, S, d, H, dr, L,
+                            stream);
     case 64:
-      return launch_fwd<64>(qkv, segq, segk, out, stat_m, stat_l, B, S, d, H,
-                            dr, stream);
+      return launch_fwd<64>(qkv, tags, out, stat_m, stat_l, B, S, d, H, dr, L,
+                            stream);
     case 128:
-      return launch_fwd<128>(qkv, segq, segk, out, stat_m, stat_l, B, S, d, H,
-                             dr, stream);
+      return launch_fwd<128>(qkv, tags, out, stat_m, stat_l, B, S, d, H, dr,
+                             L, stream);
     default:
       return cudaErrorInvalidValue;
   }

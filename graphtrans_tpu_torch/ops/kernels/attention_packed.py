@@ -58,11 +58,21 @@ S`` graphs of S tokens share a row and ``block = S`` (1366 rows of 99 at
 out back for every query, K and V in for the valid keys only: ~503 MB,
 ~0.15 ms; the same-block pairs need ~3.8 GFLOP); the backward moves about
 twice that. The kernel reads key_valid as torch's one-byte bool, so no
-conversion precedes a launch. Design: the forward is K2's forward kernel
-with the mask as a template policy (``PadMask``); a query walks only its
-own block's keys, and K/V of a row of up to 384 tokens sit in dynamic
-shared memory (196 KB at hd 64); where a gradient is wanted it also
-writes m and l ``[B, S, H]``. K4's backward is one fused kernel per
+conversion precedes a launch. Design: the forward has two instances,
+picked by the span width (a graph block of a packed row, or the whole row
+at block 0) in ``dense_fwd_geometry``. Spans of up to ``tile_max(hd)``
+(128) tokens, every K4 launch of the molecule paths, take the whole-span
+forward of ``csrc/attention_tile.cuh`` (K9's): a span's Q, K and V staged
+in shared memory once, the scores once into a shared tile by
+register-blocked micro-tiles, an exact two-pass softmax per query row,
+then O = P_drop V / l; several spans a block where one is small. Wider
+spans (block 0, rows of 129-384) take the long-row forward of
+``csrc/attention_fwd.cuh`` (K5's: keys gathered 64 at a time by rank, a
+warp's 16 query rows whole in its registers, the products on the tensor
+cores in 3xTF32). Both draw
+K2's mask and, where a gradient is wanted, write m and l ``[B, S, H]``
+(launches counted by instance in ``attention_dense.instances``). K4's
+backward is one fused kernel per
 attention block (``csrc/attention_tile.cuh``): a span is a graph block of
 a packed row, or the whole row at block 0, and its Q, K, V and dO are
 staged in shared memory once; delta = dO.O, p, dp and ds of every pair
@@ -324,12 +334,16 @@ TILE_THREADS = 256   # the most threads a block of a tile kernel
 TILE_GROUP_MAX = 8   # the most (row, span, head) problems a block
 SHORT_MAX = 64       # the longest span the short backward takes whole
 WIDE = 64            # rows of a tile of the wide backward
+TILE_MAX = 128       # the longest span the tile forward takes
+LONG_T = 64          # queries a tile, keys a chunk of the long kernels
+LONG_THREADS = 256   # threads a block of the long backward
+LONG_FWD_THREADS = 128  # threads a block of the long forward
 
 
 @dataclass(frozen=True)
 class Geometry:
-    """One launch of a kernel on ``csrc/attention_tile.cuh`` (or K9's
-    streaming forward, or its long-row backward): the instance, the spans
+    """One launch of a kernel on ``csrc/attention_tile.cuh``,
+    ``csrc/attention_fwd.cuh`` or ``csrc/attention_bwd.cuh``: the instance, the spans
     of a row (start, end), the rows ``pad`` of a span's tile, the problems
     (row, span, head) ``group`` a CUDA block, the grid, the threads a block
     and its dynamic shared bytes. ``args`` are the ints the C entry checks
@@ -343,8 +357,7 @@ class Geometry:
     smem: int
 
     def args(self):
-        code = {"short": 1, "tile": 1, "wide": 2, "stream": 2,
-                "long": 3}[self.instance]
+        code = {"short": 1, "tile": 1, "wide": 2, "long": 3}[self.instance]
         return (code, self.pad, self.group, *self.grid, self.threads,
                 self.smem)
 
@@ -372,6 +385,59 @@ def bwd_wide_bytes(width: int, hd: int) -> int:
     npad = _round(width, WIDE)
     return 4 * (4 * WIDE * (hd + 4) + 2 * WIDE * (WIDE + 4)
                 + npad * (hd + 4) + 3 * npad + WIDE)
+
+
+def fwd_tile_bytes(pad: int, hd: int) -> int:
+    """Shared bytes of one problem of the tile forward: Q, K, V; the score
+    tile; 1/l and the key mask of each row."""
+    return 4 * (3 * pad * (hd + 4) + pad * (pad + 4) + 2 * pad)
+
+
+def tile_max(hd: int) -> int:
+    """The longest span the tile forward takes at head width ``hd``: up to
+    TILE_MAX tokens, while one problem fits a block's shared memory (128
+    at hd 32 and 64, 112 at hd 128)."""
+    return max(n for n in range(4, TILE_MAX + 1, 4)
+               if fwd_tile_bytes(n, hd) <= SMEM_MAX)
+
+
+def long_fwd_bytes(hd: int) -> int:
+    """Shared bytes of the long forward: the Q tile, two K/V buffers of 64
+    rows, each warp's 16-row P tile, per-row tags, the buffered keys' tags
+    and token indices, the prefix count's scratch
+    (``csrc/attention_fwd.cuh:long_fwd_bytes``)."""
+    bufs = 1 if hd <= 64 else 2
+    return 4 * ((1 + 2 * bufs) * LONG_T * (hd + 4) + LONG_T * (LONG_T + 4)
+                + (1 + 2 * bufs) * LONG_T + 8)
+
+
+def long_fwd_geometry(B: int, S: int, hd: int, nhead: int,
+                      spans: tuple = None) -> Geometry:
+    """The long forward's launch (K5's, and K4's and K9's above the tile
+    instance): a block of LONG_FWD_THREADS per (row, head, LONG_T
+    queries); ``spans`` default to the row."""
+    return Geometry("long", spans or ((0, S),), LONG_T, 1,
+                    (B, nhead, -(-S // LONG_T)), LONG_FWD_THREADS,
+                    long_fwd_bytes(hd))
+
+
+def dense_fwd_geometry(B: int, S: int, block: int, hd: int, nhead: int,
+                       stats: bool, rate: float) -> Geometry:
+    """The forward launch of K4 (and of K9, at any S) for rows of S tokens:
+    the tile instance for spans of ``row_spans(S, block)`` up to
+    ``tile_max(hd)`` tokens, else the long one (K4: block 0, rows of
+    129-384; K9: code2's rows of 513 and 1001). ``stats`` and ``rate`` pick
+    the compiled variant (serving, gradient, training), not the geometry;
+    they are checked here as the entries check them."""
+    if rate > 0.0 and not stats:
+        raise ValueError("attention forward: dropout saves the statistics")
+    spans = row_spans(S, block)
+    width = spans[0][1] - spans[0][0]
+    if width <= tile_max(hd):
+        return tile_launch("tile", spans, fwd_tile_bytes(_round(width, 4),
+                                                         hd),
+                           B * len(spans) * nhead)
+    return long_fwd_geometry(B, S, hd, nhead, spans)
 
 
 def tile_launch(instance: str, spans: tuple, per: int, problems: int):
@@ -483,32 +549,46 @@ def attention_dense_with_stats(qkv: torch.Tensor, key_valid: torch.Tensor,
                                seed: int = 0, stats: bool = True):
     """K4's forward kernel on CUDA tensors: (out [B, S, d], m, l), with the
     softmax statistics m and l [B, S, H] that the backward reads (None,
-    None when ``stats`` is False: the serving launch writes none)."""
+    None when ``stats`` is False and ``rate`` 0: the serving launch writes
+    none; with dropout the kernel always writes them). The instance
+    (``dense_fwd_geometry``) is counted in ``attention_dense.instances``."""
     _check_dense(qkv, key_valid, nhead, block, rate)
-    res = dense_fwd_launch(qkv, key_valid, nhead, block, rate, seed, stats)
-    attention_dense.launches += 1
+    out, m, l = res = dense_fwd_launch(qkv, key_valid, nhead, block, rate,
+                                       seed, stats)
+    if out.numel():
+        B, S, d3 = qkv.shape
+        attention_dense.launches += 1
+        attention_dense.instances[dense_fwd_geometry(
+            B, S, block, d3 // 3 // nhead, nhead, m is not None,
+            rate).instance] += 1
     return res
 
 
 def dense_fwd_launch(qkv, key_valid, nhead, block, rate, seed, stats,
                      stride=0):
     """K4's forward kernel on checked CUDA tensors, uncounted, with the
-    dropout seeds ``stride`` a tile (``keep_mask``): the launch that
-    ``attention_dense_with_stats`` counts, and that K10's layer makes."""
+    dropout seeds ``stride`` a tile (``keep_mask``), at
+    ``dense_fwd_geometry``'s launch: the launch that
+    ``attention_dense_with_stats`` counts, and that K10's layer makes.
+    Dropout always writes the statistics."""
     B, S, d3 = qkv.shape
     out = torch.empty((B, S, d3 // 3), dtype=qkv.dtype, device=qkv.device)
     m = l = None
+    stats = stats or rate > 0.0
     if stats:
         m = torch.empty((B, S, nhead), dtype=torch.float32, device=qkv.device)
         l = torch.empty_like(m)
     if out.numel() == 0:
         return out, m, l
+    geo = dense_fwd_geometry(B, S, block, d3 // 3 // nhead, nhead, stats,
+                             rate)
     valid = key_valid.contiguous()     # the bool itself: one byte a key
     ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
     lib = _load()
     err = lib.attention_dense_fwd(
         ptr(qkv), ptr(valid), ptr(out), ptr(m), ptr(l), B, S, d3 // 3, nhead,
-        block, *_dropout_args(S, rate, seed), stride or nhead, _stream(qkv))
+        block, *_dropout_args(S, rate, seed), stride or nhead, *geo.args(),
+        _stream(qkv))
     _build.check(lib, err, "attention_dense_fwd")
     return out, m, l
 
@@ -554,6 +634,7 @@ def attention_dense(qkv: torch.Tensor, key_valid: torch.Tensor, nhead: int,
 
 
 attention_dense.launches = 0
+attention_dense.instances = {"tile": 0, "long": 0}   # launches by instance
 
 
 def attention_dense_bwd(qkv: torch.Tensor, key_valid: torch.Tensor,
@@ -623,7 +704,8 @@ def _load():
                 ctypes.c_int, ctypes.c_int]
         lib.attention_dense_fwd.argtypes = ([ctypes.c_void_p] * 5
                                             + [ctypes.c_int] * 5 + drop
-                                            + [ctypes.c_int, ctypes.c_void_p])
+                                            + [ctypes.c_int] * 9
+                                            + [ctypes.c_void_p])
         lib.attention_dense_fwd.restype = ctypes.c_int
         lib.attention_dense_bwd.argtypes = ([ctypes.c_void_p] * 7
                                             + [ctypes.c_int] * 5 + drop

@@ -32,15 +32,18 @@ tokens, d 256, 4 heads of 64: q in and out back for every query, K and V
 for the valid keys, ~0.15 ms; the pairs need ~3.8 GFLOP, as K4's), and
 operations at code2's rows of 1001 (K5's shape). Design: the forward has
 two hand-written instances, picked by the span width (a graph block, or
-the row at block 0; ``fwd_geometry``). Spans of up to ``tile_max(hd)``
+the row at block 0; ``fwd_geometry``, K4's ``dense_fwd_geometry``). Spans
+of up to ``tile_max(hd)``
 tokens (128; 112 at hd 128, where a span's Q, K, V and scores no longer
 fit a block's shared memory) take the whole-tile body of
 ``csrc/attention_tile.cuh``: Q, K and V of the span staged once, the
 scores once into a shared tile by register-blocked micro-tiles, an exact
 two-pass softmax per query row, then O = P_drop V / l; several spans a
-block where one is small. Wider spans take K5's streaming body
-(``csrc/attention_fwd.cuh``, one block per (row, head, 128 queries), a
-thread a query). Both write the m and l that the backward reads, with
+block where one is small. Wider spans take K5's long-row body
+(``csrc/attention_fwd.cuh``: one block of four warps per (row, head, 64
+queries), the keys its queries can meet gathered 64 at a time by rank, a
+warp's 16 query rows whole in its registers, S = Q K^T and O += P_drop V
+on the tensor cores in 3xTF32). Both write the m and l that the backward reads, with
 the meaning ``attention_fwd.cuh`` gives them. The backward has three
 instances, picked by span width and head width (``bwd_geometry``): spans of
 up to SHORT_MAX (64) tokens take ``attention_tile.cuh``'s short backward
@@ -62,50 +65,21 @@ import ctypes
 import torch
 
 from . import _build
-from .attention_packed import (SHORT_MAX, SMEM_MAX, TILE_THREADS, WIDE,
-                               W_MAX, Geometry, _round, _stream,
-                               attention_dense_plain, bwd_short_bytes,
-                               bwd_wide_bytes, hash_bits, keep_drop,
-                               keep_threshold, row_spans, tile_launch)
+from .attention_packed import (LONG_T, LONG_THREADS, SHORT_MAX, SMEM_MAX,
+                               TILE_THREADS, WIDE, W_MAX, Geometry, _round,
+                               _stream, attention_dense_plain,
+                               bwd_short_bytes, bwd_wide_bytes,
+                               dense_fwd_geometry, fwd_tile_bytes, hash_bits,
+                               keep_drop, keep_threshold, row_spans,
+                               tile_launch, tile_max)
 from .flash_attention import HEAD_DIMS, PLAIN_SCORE_BYTES, _dropout_args
 
 
-TILE_MAX = 128       # the longest span the tile instance takes
-STREAM_THREADS = 128 # threads (queries) a block of the streaming instance
-LONG_T = 64          # queries a tile, keys a chunk of the long backward
-LONG_THREADS = 256   # threads a block of the long backward
 WIDE_HEAD_DIMS = (32, 64)  # the head widths of the wide backward
 
-
-def fwd_tile_bytes(pad: int, hd: int) -> int:
-    """Shared bytes of one problem of the tile forward: Q, K, V; the score
-    tile; 1/l and the key mask of each row."""
-    return 4 * (3 * pad * (hd + 4) + pad * (pad + 4) + 2 * pad)
-
-
-def tile_max(hd: int) -> int:
-    """The longest span the tile instance takes at head width ``hd``: up to
-    TILE_MAX tokens, while one problem fits a block's shared memory."""
-    return max(n for n in range(4, TILE_MAX + 1, 4)
-               if fwd_tile_bytes(n, hd) <= SMEM_MAX)
-
-
-def fwd_geometry(B: int, S: int, block: int, hd: int, nhead: int,
-                 stats: bool, rate: float) -> Geometry:
-    """K9's forward launch for rows of S tokens: the tile instance for spans
-    of ``row_spans(S, block)`` up to ``tile_max(hd)`` tokens, else the
-    streaming one (a block per (row, head, 128 queries)). ``stats`` and
-    ``rate`` pick the compiled variant (serving, gradient, training), not
-    the geometry; they are checked here as the entry checks them."""
-    if rate > 0.0 and not stats:
-        raise ValueError("attention_smalls: dropout saves the statistics")
-    spans = row_spans(S, block)
-    width = spans[0][1] - spans[0][0]
-    if width <= tile_max(hd):
-        return tile_launch("tile", spans, fwd_tile_bytes(_round(width, 4), hd),
-                           B * len(spans) * nhead)
-    return Geometry("stream", spans, 0, 1,
-                    (B, nhead, -(-S // STREAM_THREADS)), STREAM_THREADS, 0)
+# K9's forward launch is K4's at any S: the tile instance up to tile_max(hd)
+# tokens, the long one above
+fwd_geometry = dense_fwd_geometry
 
 
 def long_bwd_bytes(hd: int) -> int:
@@ -298,7 +272,7 @@ def attention_smalls(qkv: torch.Tensor, key_valid: torch.Tensor, nhead: int,
 
 
 attention_smalls.launches = 0
-attention_smalls.instances = {"tile": 0, "stream": 0}   # launches by instance
+attention_smalls.instances = {"tile": 0, "long": 0}   # launches by instance
 
 
 def attention_smalls_bwd(qkv: torch.Tensor, key_valid: torch.Tensor,

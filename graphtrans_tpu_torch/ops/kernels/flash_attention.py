@@ -37,18 +37,28 @@ write out for every query and read K and V for the valid keys only (~1.18
 GB, ~0.35 ms at 3.35 TB/s), while every query of a row attends that row's
 valid keys: 1001 x (kept nodes + CLS) pairs a row, ~62 M pairs, x 4 heads x
 ~260 f32 flops, ~65 GFLOP, ~0.97 ms at 67 TFLOP/s; the backward does about
-2.5 times those flops. Design (``csrc/flash_attention.cu``, the streaming
-body of ``csrc/attention_fwd.cuh``, shared with K9): one block per (row,
-head, 128 queries), one thread per query with q and the output
-accumulator in registers; K_h and V_h stream through shared memory 4096/hd
-keys at a time (K3's loop), and a key tile that no query of the block can
-attend is skipped whole. A graph's valid keys are a prefix plus the CLS
-column, so at code2's mean of ~125 nodes most tiles are skipped: without
-the skip the kernel would do ~8x the work. Where a gradient is wanted the
-forward also writes m and l ``[B, S, H]`` (dropout and statistics are
-template parameters, so the serving launch runs the loop without either).
-The backward is the long-row pair of ``csrc/attention_bwd.cuh`` (shared
-with K9-bwd's long instance), on 64 x 64 pair tiles staged in shared
+2.5 times those flops. Design (``csrc/flash_attention.cu``, the long-row
+body of ``csrc/attention_fwd.cuh``, shared with K9's long instance and
+K4's wide spans): one block of four warps per (row, head, 64 queries)
+walks only the keys whose tags meet its queries' tags, gathered 64 at a
+time by rank with their token indices (a block-wide prefix count over the
+row's tags), their K and V staged in shared memory with ``cp.async``.
+Each warp owns 16 query rows whole: S = Q K^T and O += P_drop V run on
+the tensor cores as 3xTF32 ``mma.sync`` (each operand split into two TF32
+parts, three products summed in f32, so f32 accuracy is kept), and the
+online softmax runs in its registers, with a finite running max until
+the first key, so a chunk without a key for a row changes nothing. One
+K/V buffer up to hd 64 lets three blocks share an SM (two buffers at hd
+128). A graph's valid keys are a prefix plus the CLS column, so at
+code2's mean of ~125 nodes a row's 1001 queries walk two chunks of keys.
+Bound: operations (4 hd flops a pair of products, ~65 GFLOP at bench512:
+0.39 ms as 3xTF32 on the tensor cores, 0.97 ms at the f32 SIMT peak).
+Where a gradient is wanted the forward also writes m and l ``[B, S, H]``
+(dropout and statistics are template parameters, so the serving launch
+runs the loop without either); ``long_fwd_geometry`` computes the launch,
+which the C entry checks. The backward is the long-row pair of
+``csrc/attention_bwd.cuh`` (shared with K9-bwd's long instance), on 64 x
+64 pair tiles staged in shared
 memory with ``cp.async``, their products on the tensor cores as 3xTF32
 ``mma.sync`` (each operand split into two TF32 parts, three products
 summed in f32, so f32 accuracy is kept): a dq kernel, one block per (row,
@@ -72,7 +82,8 @@ import torch
 
 from . import _build
 from .attention_packed import (_stream, hash_bits, keep_drop,
-                               keep_threshold, masked_attention)
+                               keep_threshold, long_fwd_geometry,
+                               masked_attention)
 
 HEAD_DIMS = (32, 64, 128)     # the head widths the kernel compiles
 PLAIN_SCORE_BYTES = 1 << 30   # the plain version's score budget per chunk
@@ -196,11 +207,13 @@ def flash_attention_with_stats(qkv: torch.Tensor, segq: torch.Tensor,
         l = torch.empty_like(m)
     if out.numel() == 0:
         return out, m, l
+    geo = long_fwd_geometry(B, S, d3 // 3 // nhead, nhead)
     ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
     lib = _load()
     err = lib.flash_attention_fwd(
         ptr(qkv), ptr(segq), ptr(segk), ptr(out), ptr(m), ptr(l), B, S,
-        d3 // 3, nhead, *_dropout_args(rate, seed), _stream(qkv))
+        d3 // 3, nhead, *_dropout_args(rate, seed), *geo.args(),
+        _stream(qkv))
     _build.check(lib, err, "flash_attention_fwd")
     flash_attention.launches += 1
     return out, m, l
@@ -293,6 +306,7 @@ def _load():
         drop = [ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_int]
         lib.flash_attention_fwd.argtypes = ([ctypes.c_void_p] * 6
                                             + [ctypes.c_int] * 4 + drop
+                                            + [ctypes.c_int] * 8
                                             + [ctypes.c_void_p])
         lib.flash_attention_fwd.restype = ctypes.c_int
         lib.flash_attention_bwd.argtypes = ([ctypes.c_void_p] * 9

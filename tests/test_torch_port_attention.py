@@ -19,6 +19,7 @@ from graphtrans_tpu_torch.ops.kernels import (  # noqa: E402
     attention_seg_plain)
 from graphtrans_tpu_torch.ops.kernels.attention_packed import (  # noqa: E402
     dropout_tiling, keep_mask, keep_threshold)
+from _heap import release_freed_heap  # noqa: E402,F401
 
 TOL = 2e-5  # f32 softmax chain, sums over <= W keys in another order
 

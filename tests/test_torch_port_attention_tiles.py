@@ -5,7 +5,7 @@ K5-bwd and K9-bwd), on the CPU: for every (S, block, head width) that
 partition the row and hold exactly K4's pairs, a block's dynamic shared
 memory fits the H100's 227 KB, the threads cover the work, and K9's
 thresholds send the molecules' spans to the tile instances and code2's rows
-of 513 and 1001 to the streaming forward and the long backward, whose
+of 513 and 1001 to the long forward and the long backward, whose
 tiles and rank-ordered key chunks cover every (row, head, token) once. The
 C entries check the same geometry before they launch
 (``csrc/attention_packed.cu``, ``csrc/attention_smalls.cu``); the ctypes
@@ -101,8 +101,8 @@ def test_k9_forward_geometry(S, block, hd):
         _check_launch(geo, B, S, nhead)
         assert geo.smem == geo.group * asm.fwd_tile_bytes(geo.pad, hd)
     else:
-        assert geo.instance == "stream" and geo.smem == 0
-        assert geo.grid == (B, nhead, -(-S // 128)) and geo.threads == 128
+        assert geo.instance == "long" and geo.smem == ap.long_fwd_bytes(hd)
+        assert geo.grid == (B, nhead, -(-S // 64)) and geo.threads == 128
     assert len(geo.args()) == 8
 
 
@@ -200,14 +200,14 @@ def test_k9_threshold_follows_shared_memory():
 @pytest.mark.parametrize("backend,S,block,instance", [
     ("smalls", 33, 0, "tile"), ("smalls", 49, 0, "tile"),
     ("packed_smalls", 99, 33, "tile"), ("packed_smalls", 98, 49, "tile"),
-    ("packed_smalls", 128, 64, "tile"), ("smalls", 1001, 0, "stream"),
-    ("smalls", 513, 0, "stream")])
+    ("packed_smalls", 128, 64, "tile"), ("smalls", 1001, 0, "long"),
+    ("smalls", 513, 0, "long")])
 def test_k9_routes_take_the_tile_instance_at_molecule_shapes(backend, S,
                                                              block,
                                                              instance):
     """The molecules' rows (smalls: 33, 49 with CLS; packed_smalls: rows of
     three 33- or two 49-token graphs) reach K9 and its tile instance;
-    code2's rows of 513 and 1001 its streaming one."""
+    code2's rows of 513 and 1001 its long one."""
     assert attention_route(backend, S, 256, block) == "k9"
     assert asm.fwd_geometry(64, S, block, 64, 4, True, 0.3).instance == (
         instance)

@@ -44,6 +44,7 @@ from graphtrans_tpu_torch.train.losses import (  # noqa: E402
     binary_multitask_loss)
 from graphtrans_tpu_torch.utils.flax_weights import (  # noqa: E402
     load_flax_variables)
+from _heap import release_freed_heap  # noqa: E402,F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 MOL_CONFIG = REPO / "configs/molpcba/transformer/pooling=cls.yml"

@@ -50,6 +50,7 @@ from graphtrans_tpu_torch.utils.flax_weights import (  # noqa: E402
     load_flax_variables)
 from test_torch_port_code2 import _hp  # noqa: E402
 from test_torch_port_model import _random_stats  # noqa: E402
+from _heap import release_freed_heap  # noqa: E402,F401
 
 FWD_TOL = 1e-5     # K8 and K12 forward, and logits-free sums of a few terms
 GRAD_TOL = 5e-4    # of max(1, max |reference|)

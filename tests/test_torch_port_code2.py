@@ -41,6 +41,7 @@ from graphtrans_tpu_torch.ops import pack as tp  # noqa: E402
 from graphtrans_tpu_torch.utils.flax_weights import (  # noqa: E402
     load_flax_variables)
 from test_torch_port_model import _random_stats  # noqa: E402
+from _heap import release_freed_heap  # noqa: E402,F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CONFIG = REPO / "configs/code2/gnn-transformer/JK=cat/pooling=cls+norm_input.yml"

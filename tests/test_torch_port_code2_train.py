@@ -42,6 +42,7 @@ from test_torch_port_code2 import (  # noqa: E402
     ATTRS, CONFIG, CONFIGS, SEQ, SIZES, SNAPSHOT, TYPES, _collate_kw, _hp,
     _tier_graphs)
 from test_torch_port_model import _random_stats  # noqa: E402
+from _heap import release_freed_heap  # noqa: E402,F401
 
 LOSS_TOL = 1e-4   # f32 BN/LN chains (flax LayerNorm uses E[x^2]-E[x]^2)
 GRAD_TOL = 5e-4   # gradients of the same chains

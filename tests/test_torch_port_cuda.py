@@ -799,6 +799,200 @@ def test_flash_attention_dropout_and_bwd_kernels_match_plain(cuda, S, d, H,
     assert not dqkv[..., d:][segk < 0].any()
 
 
+def _stats_ref(qkv, meet, H):
+    """The plain statistics of each (row, query, head) in float64: the max
+    scaled score over the keys the query attends (``meet`` bool [B, S, S]),
+    the sum of exp(s - max) over them, and whether it has a key."""
+    B, S, d3 = qkv.shape
+    d = d3 // 3
+    hd = d // H
+    q, k, _ = (t.double().reshape(B, S, H, hd).transpose(1, 2)
+               for t in qkv.split(d, dim=-1))
+    s = (q @ k.transpose(-1, -2)) / hd ** 0.5
+    s = s.masked_fill(~meet[:, None], float("-inf"))
+    mx = s.amax(-1)
+    has = meet.any(-1)[:, None].expand_as(mx)
+    lsum = torch.exp(s - torch.where(has, mx, 0.0)[..., None]).sum(-1)
+    return mx.transpose(1, 2), lsum.transpose(1, 2), has.transpose(1, 2)
+
+
+def _check_stats(m, l, qkv, meet, H):
+    """m and l as attention_fwd.cuh defines them: the max scaled score and
+    the sum of the undropped exp(s - m); m = -inf and l = 0 exactly for a
+    query without a key."""
+    mx, lsum, has = _stats_ref(qkv, meet, H)
+    assert (m.double()[has] - mx[has]).abs().max().item() <= K2_TOL
+    assert ((l.double()[has] - lsum[has]).abs()
+            <= K2_TOL * lsum[has].clamp_min(1.0)).all()
+    assert (m[~has] == float("-inf")).all() and not l[~has].any()
+
+
+def _k4_meet(valid, block):
+    S = valid.shape[1]
+    grp = torch.arange(S, device=valid.device) // (block or S)
+    return valid[:, None, :] & (grp[:, None] == grp[None, :])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("S,block", [(98, 49), (99, 33), (100, 33),
+                                     (257, 0), (384, 0)])
+def test_attention_dense_forward_instances_and_stats(cuda, S, block, hd,
+                                                     rate):
+    """K4's forward at both instances (the tile one for spans of up to 128
+    tokens, a partial last block among them; the long one for rows of 257
+    and 384 at block 0) against the plain version, with and without
+    dropout: m and l against the plain scores, K4-bwd from them against
+    autograd, a block without a valid key exactly 0, the launch counted
+    under its instance (serving and training)."""
+    from graphtrans_tpu_torch.ops.kernels import (attention_dense,
+                                                  attention_dense_bwd,
+                                                  attention_dense_bwd_plain,
+                                                  attention_dense_plain)
+    from graphtrans_tpu_torch.ops.kernels.attention_packed import (
+        attention_dense_with_stats, dense_fwd_geometry)
+
+    H, B, seed = 4, 7, 2**31 - 99
+    d = H * hd
+    gen = torch.Generator().manual_seed(S + hd + block + int(rate * 10))
+    qkv = torch.randn(B, S, 3 * d, generator=gen).to(cuda)
+    valid = _dense_valid(B, S, block, gen).to(cuda)
+    g = torch.randn(B, S, d, generator=gen).to(cuda)
+    instance = dense_fwd_geometry(B, S, block, hd, H, True, rate).instance
+    assert instance == ("tile" if (block or S) <= 128 else "long")
+    before = attention_dense.launches
+    counts = dict(attention_dense.instances)
+    served = attention_dense(qkv, valid, H, block, rate, seed)
+    out, m, l = attention_dense_with_stats(qkv, valid, H, block, rate, seed)
+    dqkv = attention_dense_bwd(qkv, valid, H, g, block, rate, seed,
+                               (out, m, l))
+    torch.cuda.synchronize()
+    assert attention_dense.launches == before + 2
+    assert attention_dense.instances == dict(
+        counts, **{instance: counts[instance] + 2})
+    assert torch.equal(served, out)
+    want = attention_dense_plain(qkv, valid, H, block, rate, seed)
+    assert (out - want).abs().max().item() <= K2_TOL
+    _check_stats(m, l, qkv, _k4_meet(valid, block), H)
+    ref = attention_dense_bwd_plain(qkv, valid, H, g, block, rate, seed)
+    assert (dqkv - ref).abs().max().item() <= GRAD_TOL * max(
+        1.0, ref.abs().max().item())
+    dead = ~_live(valid, block)
+    assert not out[dead].any() and not dqkv[dead].any()
+    if rate == 0.0:
+        assert (out[~dead].abs().sum(-1) > 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("S", [513, 1001])
+@pytest.mark.parametrize("form", ["prefix_cls", "permuted"])
+def test_flash_attention_long_forward_stats(cuda, form, S, hd, rate):
+    """K5's long forward at code2's row widths and heads of 32, 64 and 128,
+    key-padding (a row without a valid key) and segment tags: the output
+    against the plain version (queries without a key exactly 0), m and l
+    against the plain scores, K5-bwd from them against autograd."""
+    from graphtrans_tpu_torch.ops.kernels import (flash_attention,
+                                                  flash_attention_bwd,
+                                                  flash_attention_bwd_plain,
+                                                  flash_attention_plain)
+    from graphtrans_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_with_stats)
+
+    B, H, seed = 3, 2, 55
+    d = H * hd
+    gen = torch.Generator().manual_seed(S + hd + len(form) + int(rate * 10))
+    segq, segk = (t.to(cuda) for t in _k5_tags(form, B, S, gen))
+    qkv = torch.randn(B, S, 3 * d, generator=gen).to(cuda)
+    g = torch.randn(B, S, d, generator=gen).to(cuda)
+    before = flash_attention.launches
+    out, m, l = flash_attention_with_stats(qkv, segq, segk, H, rate, seed)
+    dqkv = flash_attention_bwd(qkv, segq, segk, H, g, rate, seed, (out, m, l))
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(qkv, segq, segk, H, rate, seed)
+    assert (out - want).abs().max().item() <= K2_TOL
+    meet = ((segq[:, :, None] == segk[:, None, :])
+            & (segk >= 0)[:, None, :])
+    _check_stats(m, l, qkv, meet, H)
+    live = meet.any(-1)
+    assert not out[~live].any()
+    ref = flash_attention_bwd_plain(qkv, segq, segk, H, g, rate, seed)
+    assert (dqkv - ref).abs().max().item() <= GRAD_TOL * max(
+        1.0, ref.abs().max().item())
+    assert not dqkv[..., :d][~live].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("S,block,hd", [(300, 150, 64), (400, 130, 32),
+                                        (1001, 0, 64), (513, 0, 128),
+                                        (257, 0, 128)])
+def test_attention_smalls_long_forward(cuda, S, block, hd, rate):
+    """K9's long forward: graph blocks wider than tile_max (150; 130 with a
+    partial last block), code2's rows of 1001 and 513, and rows of 257 at
+    hd 128 (above its 112): the output against the plain version (a block
+    without a valid key exactly 0), m and l against the plain scores, K9-bwd
+    from them against autograd; the launch counted as the long instance."""
+    from graphtrans_tpu_torch.ops.kernels import (attention_smalls,
+                                                  attention_smalls_bwd,
+                                                  attention_smalls_bwd_plain,
+                                                  attention_smalls_plain)
+    from graphtrans_tpu_torch.ops.kernels.attention_smalls import (
+        attention_smalls_with_stats)
+
+    H, seed = 2, 31
+    d = H * hd
+    gen = torch.Generator().manual_seed(S + block + hd + int(rate * 10))
+    qkv, valid = _smalls_case(S, block, d, gen, cuda, B=3)
+    g = torch.randn(3, S, d, generator=gen).to(cuda)
+    counts = dict(attention_smalls.instances)
+    out, m, l = attention_smalls_with_stats(qkv, valid, H, block, rate, seed)
+    dqkv = attention_smalls_bwd(qkv, valid, H, g, block, rate, seed,
+                                (out, m, l))
+    torch.cuda.synchronize()
+    assert attention_smalls.instances == dict(counts,
+                                              long=counts["long"] + 1)
+    want = attention_smalls_plain(qkv, valid, H, block, rate, seed)
+    assert (out - want).abs().max().item() <= K2_TOL
+    _check_stats(m, l, qkv, _k4_meet(valid, block), H)
+    ref = attention_smalls_bwd_plain(qkv, valid, H, g, block, rate, seed)
+    assert (dqkv - ref).abs().max().item() <= GRAD_TOL * max(
+        1.0, ref.abs().max().item())
+    dead = ~_live(valid, block)
+    assert not out[dead].any() and not dqkv[dead].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,block", [(37, 99, 33), (20, 98, 49)])
+def test_transformer_layer_forward_through_the_tile_instance(cuda, B, S,
+                                                             block):
+    """K10's layer launches K4's forward at its tile instance (rows of 3 x
+    33 and 2 x 49 tokens, d 256, 4 heads, stride H + 3 for its seeds): the
+    layer with dropout against the plain one; K4's own count does not move
+    (K10 counts its chain)."""
+    from graphtrans_tpu_torch.ops.kernels import (attention_dense,
+                                                  transformer_layer,
+                                                  transformer_layer_plain)
+    from graphtrans_tpu_torch.ops.kernels.attention_packed import (
+        dense_fwd_geometry)
+
+    d, ff, H = 256, 512, 4
+    assert dense_fwd_geometry(B, S, block, d // H, H, True,
+                              0.3).instance == "tile"
+    gen = torch.Generator().manual_seed(B + S)
+    x, valid, params = _layer_case(B, S, d, ff, block, gen, cuda)
+    before = attention_dense.launches, transformer_layer.launches
+    got = transformer_layer(x, valid, params, H, block, 0.3, 17)
+    torch.cuda.synchronize()
+    assert (attention_dense.launches, transformer_layer.launches) == (
+        before[0], before[1] + 1)
+    want = transformer_layer_plain(x, valid, params, H, block, 0.3, 17)
+    assert (got - want).abs().max().item() <= K2_TOL
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2100, 256), (7, 513, 512), (3, 128)])
 def test_byte_dropout_kernel_matches_plain(cuda, shape):

@@ -19,6 +19,7 @@ from graphtrans_tpu_torch.data import loader as tl  # noqa: E402
 from graphtrans_tpu_torch.data import mol as tm  # noqa: E402
 from graphtrans_tpu_torch.data import synthetic as ts  # noqa: E402
 from graphtrans_tpu_torch.ops import pack as tp  # noqa: E402
+from _heap import release_freed_heap  # noqa: E402,F401
 
 SNAPSHOT = "data_snapshots"
 

@@ -17,6 +17,7 @@ from graphtrans_tpu_torch.ops.kernels import (  # noqa: E402
     flash_hil_seg, flash_hil_seg_bwd, flash_hil_seg_plain)
 from graphtrans_tpu_torch.ops.kernels.flash_hil import (  # noqa: E402
     flash_hil_keep_mask)
+from _heap import release_freed_heap  # noqa: E402,F401
 
 TOL = 3e-5  # f32 online softmax over up to 1024 keys in another order
 GRAD_TOL = 5e-4  # dqkv, times max(1, max |reference|)

@@ -20,6 +20,7 @@ from graphtrans_tpu_torch.nn.encoders import BOND_FEATURE_DIMS  # noqa: E402
 from graphtrans_tpu_torch.ops import dense_mp  # noqa: E402
 from graphtrans_tpu_torch.ops.kernels import (  # noqa: E402
     gin_agg, gin_agg_bwd, gin_agg_bwd_plain, gin_agg_plain)
+from _heap import release_freed_heap  # noqa: E402,F401
 
 TOL = 1e-5  # f32, sums of <= Em terms in another order
 

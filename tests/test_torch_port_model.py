@@ -26,6 +26,7 @@ from graphtrans_tpu_torch.data.batch import collate  # noqa: E402
 from graphtrans_tpu_torch.data.synthetic import make_mol_dataset  # noqa: E402
 from graphtrans_tpu_torch.models.gnn_transformer import GNNTransformer  # noqa: E402
 from graphtrans_tpu_torch.utils.flax_weights import load_flax_variables  # noqa: E402
+from _heap import release_freed_heap  # noqa: E402,F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CONFIG = REPO / "configs/molpcba/gnn-transformer/JK=cat/pooling=cls+gin+norm_input.yml"

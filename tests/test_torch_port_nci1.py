@@ -49,6 +49,7 @@ from graphtrans_tpu_torch.utils.config import parse_with_config  # noqa: E402
 from graphtrans_tpu_torch.utils.flax_weights import (  # noqa: E402
     load_flax_variables)
 from test_torch_port_model import _random_stats  # noqa: E402
+from _heap import release_freed_heap  # noqa: E402,F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CONFIG = REPO / ("configs/NCI1/gnn-transformer/no-virtual/"

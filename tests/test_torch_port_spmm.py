@@ -19,6 +19,7 @@ from graphtrans_tpu_torch.ops.kernels import (  # noqa: E402
     SrcOrder, spmm, spmm_bwd, spmm_bwd_plain, spmm_plain, src_order)
 from graphtrans_tpu_torch.ops.segment import (  # noqa: E402
     out_degree, segment_sum)
+from _heap import release_freed_heap  # noqa: E402,F401
 
 TOL = 2e-5  # each row sums a dozen or fewer f32 terms of order 1
 

@@ -46,6 +46,7 @@ from graphtrans_tpu_torch.trainers.base_trainer import (  # noqa: E402
     make_train_step, train)
 from graphtrans_tpu_torch.utils.flax_weights import load_flax_variables  # noqa: E402
 from tests.test_torch_port_model import CONFIGS, _hp, _random_stats  # noqa: E402
+from _heap import release_freed_heap  # noqa: E402,F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CONFIG = REPO / "configs/molpcba/gnn-transformer/JK=cat/pooling=cls+gin+norm_input.yml"

@@ -42,6 +42,7 @@ from graphtrans_tpu_torch.ops.kernels import (  # noqa: E402
 from graphtrans_tpu_torch.utils.flax_weights import (  # noqa: E402
     load_flax_variables)
 from test_torch_port_code2 import _tier_graphs  # noqa: E402
+from _heap import release_freed_heap  # noqa: E402,F401
 
 # the module (the package exports its wrapper under the same name)
 tfa_mod = importlib.import_module(

@@ -54,6 +54,7 @@ from graphtrans_tpu_torch.utils.config import parse_with_config  # noqa: E402
 from graphtrans_tpu_torch.utils.flax_weights import (  # noqa: E402
     load_flax_variables)
 from test_torch_port_code2 import _tier_graphs  # noqa: E402
+from _heap import release_freed_heap  # noqa: E402,F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 MOL_CONFIG = REPO / "configs/molpcba/transformer/pooling=cls.yml"
