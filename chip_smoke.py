@@ -4,10 +4,11 @@ NVIDIA card.
 usage: python3 chip_smoke.py [--trace trace.json] [--baseline DIR]
 
 ``--baseline DIR`` names a checkout of an earlier commit (its
-graphtrans_tpu_torch/ tree; for one run, never committed): phases 9a, 10a
-and 11a then build its K4, K5 and K9 (forward, serving and training) and
-K4-bwd, K5-bwd and K9-bwd from its own sources and time them beside this
-tree's, in turns (earlier, this, this, earlier), on the same inputs.
+graphtrans_tpu_torch/ tree; for one run, never committed): phases 8a, 9a,
+10a and 11a then build its K3-bwd, K4, K5 and K9 (forward, serving and
+training), K4-bwd, K5-bwd, K9-bwd, K10 and K10-bwd from its own sources and
+time them beside this tree's, in turns (earlier, this, this, earlier), on
+the same inputs.
 
 Phases, each printing one line (any failure raises and exits non-zero):
   0. the card (nvidia-smi name and power limit) and torch; TF32 off;
@@ -46,7 +47,8 @@ Phases, each printing one line (any failure raises and exits non-zero):
   8. code2 training: (a) holds K3 with dropout and the backward kernels
      K3-bwd and K7-bwd against their plain versions and autograd at the
      snapshot's train-batch shape and the 512-graph shape, and times them
-     beside bound, plain backward and library yardstick; (b) trains the
+     beside bound, plain backward and library yardstick (with
+     ``--baseline``, K3-bwd also beside the earlier design's); (b) trains the
      published code2 config at full width on the snapshot through ``python
      -m graphtrans_tpu_torch.main`` (2 epochs, batches of 16), counting
      launches, checking finite losses and moved parameters, and holds one
@@ -96,9 +98,10 @@ Phases, each printing one line (any failure raises and exits non-zero):
      rows of 98,
      against their plain versions and autograd, timed beside bound, plain
      version and library yardstick (K9-bwd also at code2's rows cut to 257,
-     its wide instance; with ``--baseline``, K9 and K9-bwd also beside the
-     earlier design's); (b) serves the molpcba Transformer-only
-     yml through predict under --attn_backend smalls and packed_smalls and
+     its wide instance; with ``--baseline``, K9, K9-bwd, K10 and K10-bwd
+     also beside the earlier design's); (b) serves the molpcba
+     Transformer-only yml through predict under --attn_backend smalls and
+     packed_smalls and
      under packed_layer set in process (launches per backend, K4's
      forward inside K10 on its tile instance, logits
      against the plain versions and against auto), trains it 2 epochs
@@ -275,7 +278,8 @@ def time_ms(fn, iters: int, reps: int = 5) -> float:
     return statistics.median(per)
 
 
-BASELINE_KERNELS = ("attention_packed", "attention_smalls", "flash_attention")
+BASELINE_KERNELS = ("attention_packed", "attention_smalls", "flash_attention",
+                    "flash_hil", "transformer_layer")
 
 
 def load_baseline(root):
@@ -330,6 +334,16 @@ def _ms(x) -> str:
 def _bound(nbytes: int, flops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _tc_bound(nbytes: int, tc_flops: float, simt_flops: float):
+    """As _bound with ``tc_flops`` on the tensor cores in TF32 (a 3xTF32
+    product counts three passes) and ``simt_flops`` on the f32 units: the
+    two kinds of unit run side by side, so the bound is the larger of the
+    bytes' time and each unit's."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(tc_flops / TF32_TC_FLOPS, simt_flops / F32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -740,6 +754,24 @@ def k2_bwd_bound(qkv, seg, nhead: int):
     # the softmax and dropout arithmetic
     nbytes = (2 * qkv.numel() * 4 + seg.numel() * 4 + R * W * (d3 // 3) * 4)
     return _bound(nbytes, pairs * nhead * (10 * hd + 8))
+
+
+def k3_bwd_bound(qkv, seg, nhead: int, tensor_cores: bool = True):
+    """K3-bwd reads qkv, seg, the cotangent and the forward's out, m and l,
+    and writes dqkv; per same-segment pair and head the products of
+    k2_bwd_bound (10*hd flops) and the softmax and dropout arithmetic (8).
+    By default the products are timed as the long-row backward runs them,
+    3xTF32 on the tensor cores (``tensor_cores=False``: the f32 SIMT bound,
+    printed beside it)."""
+    R, W, d3 = qkv.shape
+    hd = d3 // 3 // nhead
+    _, counts = torch.unique(seg[seg >= 0], return_counts=True)
+    pairs = int((counts.long() ** 2).sum().item()) * nhead
+    nbytes = (2 * qkv.numel() + seg.numel() + 2 * R * W * (d3 // 3)
+              + 2 * R * W * nhead) * 4
+    if not tensor_cores:
+        return _bound(nbytes, pairs * (10 * hd + 8))
+    return _tc_bound(nbytes, 3 * pairs * 10 * hd, pairs * 8)
 
 
 def sdpa_bwd_ms(qkv, seg, nhead: int, g, rate: float) -> float:
@@ -1330,10 +1362,12 @@ def k7_bwd_bound(args):
     return _bound(nbytes, 4 * valid * d)
 
 
-def phase8_kernels(device, d_gnn: int, d_model: int, nhead: int, bench):
+def phase8_kernels(device, d_gnn: int, d_model: int, nhead: int, bench,
+                   base=None):
     """(a) K3 with dropout, K3-bwd and K7-bwd against their plain versions
     at the code2 snapshot's train-batch shape and at the 512-graph bench
-    shape; times beside bound, plain backward and library yardstick."""
+    shape; times beside bound, plain backward and library yardstick, K3-bwd
+    also beside ``base``'s (the earlier design) in turns."""
     from graphtrans_tpu_torch import predict
     from graphtrans_tpu_torch.data.loader import iterate_batches
     from graphtrans_tpu_torch.ops.kernels import (SrcOrder, flash_hil_seg,
@@ -1370,14 +1404,18 @@ def phase8_kernels(device, d_gnn: int, d_model: int, nhead: int, bench):
         seed = 7654321
         g = torch.randn(R, W, d_model, generator=gen).to(device)
         saved = flash_hil_seg_with_stats(qkv, seg, nhead, DROPOUT, seed)
-        k3b = dict(ms=time_ms(lambda: flash_hil_seg_bwd(
-                       qkv, seg, nhead, g, DROPOUT, seed, saved=saved),
-                       iters=20),
+        ms, earlier = turns_ms(
+            lambda: flash_hil_seg_bwd(qkv, seg, nhead, g, DROPOUT, seed,
+                                      saved=saved),
+            base and (lambda: base["flash_hil"].flash_hil_seg_bwd(
+                qkv, seg, nhead, g, DROPOUT, seed, saved=saved)), 20)
+        k3b = dict(ms=ms, earlier_ms=earlier,
                    plain_ms=_plain_bwd_ms(
                        lambda t: flash_hil_seg_plain(t, seg, nhead, DROPOUT,
                                                      seed), [qkv], g),
                    library_ms=sdpa_bwd_ms(qkv, seg, nhead, g, DROPOUT))
-        k3b["bound_ms"], k3b["bound_by"] = k2_bwd_bound(qkv, seg, nhead)
+        k3b["bound_ms"], k3b["bound_by"] = k3_bwd_bound(qkv, seg, nhead)
+        simt = k3_bwd_bound(qkv, seg, nhead, tensor_cores=False)[0]
         fwd = {what: time_ms(fn, iters=20) for what, fn in (
             ("serving", lambda: flash_hil_seg(qkv, seg, nhead)),
             ("training", lambda: flash_hil_seg_with_stats(
@@ -1398,6 +1436,11 @@ def phase8_kernels(device, d_gnn: int, d_model: int, nhead: int, bench):
         k3b["shape"] = f"R={R} W={W} d={d3 // 3} H={nhead} rate={DROPOUT}"
         k7b["shape"] = (f"N={a[0].shape[0]} E={a[2].shape[0]} valid="
                         f"{int(a[4].sum().item())} d={d_gnn}")
+        print(f"[8a] {name} K3-bwd flash_hil_seg_bwd [{k3b['shape']}]: "
+              f"kernel {k3b['ms']:.4f} ms against "
+              f"{_ms(k3b['earlier_ms'])} for the earlier design, in turns; "
+              f"bound {k3b['bound_ms']:.4f} ms with the products on the "
+              f"tensor cores in 3xTF32, {simt:.4f} ms at the f32 SIMT peak")
         for kname, t, lib in (
                 ("K3-bwd flash_hil_seg_bwd", k3b,
                  f"{k3b['library_ms']:.4f} ms (SDPA backward, bool seg "
@@ -1683,10 +1726,7 @@ def _fwd_bound(nbytes: int, pairs: int, hd: int, tensor_cores: bool):
     side, so the bound is the larger of the bytes' time and each unit's."""
     if not tensor_cores:
         return _bound(nbytes, pairs * (4 * hd + 4))
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(3 * pairs * 4 * hd / TF32_TC_FLOPS, pairs * 4 / F32_FLOPS) \
-        * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return _tc_bound(nbytes, 3 * pairs * 4 * hd, pairs * 4)
 
 
 def k4_bound(qkv, valid, nhead: int, block: int, tensor_cores: bool = False):
@@ -2227,10 +2267,7 @@ def k4_bwd_bound(qkv, valid, nhead: int, block: int, mask_bytes=None,
         * 4 + (valid.numel() if mask_bytes is None else mask_bytes)
     if not tensor_cores:
         return _bound(nbytes, pairs * (10 * hd + 8))
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(3 * pairs * 10 * hd / TF32_TC_FLOPS, pairs * 8 / F32_FLOPS) \
-        * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return _tc_bound(nbytes, 3 * pairs * 10 * hd, pairs * 8)
 
 
 def k5_bwd_bound(qkv, valid, nhead: int, tensor_cores: bool = True):
@@ -2720,26 +2757,33 @@ def library_layer(x, valid, params, nhead: int, block: int, rate: float):
 
 
 def k10_bound(x, valid, params, nhead: int, block: int,
-              backward: bool = False):
+              backward: bool = False, tensor_cores: bool = True):
     """The forward reads x, the mask and the parameters and writes y; its
     products need 2 T (3d^2 + d^2 + 2 d ff) flops, the attention the
     same-block pairs' (K4's). The backward reads x, the cotangent, the
     parameters and what the forward kept (qkv, ao, m, l, both LayerNorms'
     xhat and 1/sigma, y1, the FF activation) and writes dx and the twelve
     gradients, with twice the forward's product flops and K4-bwd's pair
-    flops."""
+    flops. By default the products are timed as layer_gemm runs them,
+    3xTF32 (three TF32 passes) on the tensor cores, the attention on the
+    f32 units (``tensor_cores=False``: all at the f32 SIMT peak, printed
+    beside it)."""
     B, S, d = x.shape
     T, ff, hd = B * S, params[6].shape[0], d // nhead
     pbytes = sum(p.numel() for p in params) * 4
     gemm = 2 * T * (3 * d * d + d * d + 2 * d * ff)
     pairs = int((valid.reshape(B, S // block, block).sum(-1) * block).sum()
                 .item())
-    if not backward:
-        return _bound(2 * T * d * 4 + pbytes + valid.numel(),
-                      gemm + pairs * nhead * (4 * hd + 4))
-    kept = 3 * d + d + 2 * nhead + d + 1 + d + ff + d + 1    # a token's
-    return _bound((3 * T * d + T * kept) * 4 + 2 * pbytes + valid.numel(),
-                  2 * gemm + pairs * nhead * (10 * hd + 8))
+    if backward:
+        kept = 3 * d + d + 2 * nhead + d + 1 + d + ff + d + 1    # a token's
+        nbytes = (3 * T * d + T * kept) * 4 + 2 * pbytes + valid.numel()
+        gemm, attn = 2 * gemm, pairs * nhead * (10 * hd + 8)
+    else:
+        nbytes = 2 * T * d * 4 + pbytes + valid.numel()
+        attn = pairs * nhead * (4 * hd + 4)
+    if not tensor_cores:
+        return _bound(nbytes, gemm + attn)
+    return _tc_bound(nbytes, 3 * gemm, attn)
 
 
 def phase11_kernels(device, mol_bench, code2_bench, base=None):
@@ -2886,16 +2930,24 @@ def phase11_kernels(device, mol_bench, code2_bench, base=None):
                                             max(errs["k10_bwd"], e))
         _, saved = transformer_layer_saved(x, v, params, nhead, block,
                                            DROPOUT, seed)
+        old = base and base["transformer_layer"]
         with torch.no_grad():
-            t = dict(ms=time_ms(lambda: transformer_layer(
-                         x, v, params, nhead, block), iters=5),
+            ms, earlier = turns_ms(
+                lambda: transformer_layer(x, v, params, nhead, block),
+                old and (lambda: old.transformer_layer(x, v, params, nhead,
+                                                       block)), 5)
+            t = dict(ms=ms, earlier_ms=earlier,
                      plain_ms=time_ms(lambda: transformer_layer_plain(
                          x, v, params, nhead, block), iters=3),
                      library_ms=time_ms(lambda: library_layer(
                          x, v, params, nhead, block, 0.0), iters=5))
+        bwd_ms, bwd_earlier = turns_ms(
+            lambda: transformer_layer_bwd(x, v, params, nhead, block, g,
+                                          DROPOUT, seed, saved),
+            old and (lambda: old.transformer_layer_bwd(
+                x, v, params, nhead, block, g, DROPOUT, seed, saved)), 5)
         t.update(
-            bwd_ms=time_ms(lambda: transformer_layer_bwd(
-                x, v, params, nhead, block, g, DROPOUT, seed, saved), iters=5),
+            bwd_ms=bwd_ms, bwd_earlier_ms=bwd_earlier,
             bwd_plain_ms=_plain_bwd_ms(
                 lambda xx, *ps: transformer_layer_plain(
                     xx, v, ps, nhead, block, DROPOUT, seed), [x, *params], g),
@@ -2905,6 +2957,11 @@ def phase11_kernels(device, mol_bench, code2_bench, base=None):
         t["bound_ms"], t["bound_by"] = k10_bound(x, v, params, nhead, block)
         t["bwd_bound_ms"], t["bwd_bound_by"] = k10_bound(
             x, v, params, nhead, block, backward=True)
+        t["simt_bound_ms"] = k10_bound(x, v, params, nhead, block,
+                                       tensor_cores=False)[0]
+        t["bwd_simt_bound_ms"] = k10_bound(x, v, params, nhead, block,
+                                           backward=True,
+                                           tensor_cores=False)[0]
         t["shape"] = (f"B={x.shape[0]} S={x.shape[1]} d={d} ff={ff} "
                       f"H={nhead} block {block}")
         ltimed[name] = t
@@ -2916,24 +2973,29 @@ def phase11_kernels(device, mol_bench, code2_bench, base=None):
           f"{GRAD_TOL}) at rates 0 and {DROPOUT}, at {list(k10_cases)}")
     for name, t in ltimed.items():
         print(f"[11a] {name} K10 transformer_layer [{t['shape']}]: kernel "
+              f"chain {t['ms']:.4f} ms against {_ms(t['earlier_ms'])} for "
+              f"the earlier design, in turns; K10-bwd (dropout {DROPOUT}) "
+              f"{t['bwd_ms']:.4f} ms against {_ms(t['bwd_earlier_ms'])}")
+        print(f"[11a] {name} K10 transformer_layer [{t['shape']}]: kernel "
               f"chain {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
-              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}; products on the "
+              f"tensor cores in 3xTF32; {t['simt_bound_ms']:.4f} ms at the "
+              f"f32 SIMT peak), library "
               f"{t['library_ms']:.4f} ms (F.linear, SDPA, F.layer_norm); "
               f"K10-bwd (dropout {DROPOUT}) {t['bwd_ms']:.4f} ms, plain "
               f"backward {t['bwd_plain_ms']:.4f} ms, bound "
-              f"{t['bwd_bound_ms']:.4f} ms ({t['bwd_bound_by']}), library "
-              f"backward {t['bwd_library_ms']:.4f} ms")
+              f"{t['bwd_bound_ms']:.4f} ms ({t['bwd_bound_by']}; "
+              f"{t['bwd_simt_bound_ms']:.4f} ms at the f32 SIMT peak), "
+              f"library backward {t['bwd_library_ms']:.4f} ms")
     pick = lambda t, pre: dict(ms=t[pre + "ms"], plain_ms=t[pre + "plain_ms"],
                                bound_ms=t[pre + "bound_ms"],
                                bound_by=t[pre + "bound_by"],
                                library_ms=t[pre + "library_ms"])
     k9 = timed["bench4096 smalls S 33"]
     k10 = ltimed["bench4096 [1366, 99] block 33"]
-    return dict(errs=errs, timed=(dict(pick(k9, ""),
-                                       earlier_ms=k9["earlier_ms"]),
-                                  dict(pick(k9, "bwd_"),
-                                       earlier_ms=k9["bwd_earlier_ms"]),
-                                  pick(k10, ""), pick(k10, "bwd_")))
+    return dict(errs=errs, timed=tuple(
+        dict(pick(t, pre), earlier_ms=t[pre + "earlier_ms"])
+        for t, pre in ((k9, ""), (k9, "bwd_"), (k10, ""), (k10, "bwd_"))))
 
 
 # The wrapper each backend's molpcba Transformer-only layers launch: rows of
@@ -4173,9 +4235,9 @@ def main(argv=None) -> int:
     p.add_argument("--trace", default=None,
                    help="write phase 5's chrome trace to this file")
     p.add_argument("--baseline", default=None,
-                   help="a checkout of an earlier commit whose K4-bwd, "
-                        "K5-bwd, K9 and K9-bwd phases 10a and 11a time beside "
-                        "this tree's")
+                   help="a checkout of an earlier commit whose K3-bwd, K4, "
+                        "K5, K4-bwd, K5-bwd, K9, K9-bwd, K10 and K10-bwd "
+                        "phases 8a-11a time beside this tree's")
     opts = p.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4230,7 +4292,7 @@ def main(argv=None) -> int:
     phase7_forward(device, bench, bench_tasks, smi)
 
     code2_train = phase8_kernels(device, args.gnn_emb_dim, args.d_model,
-                                 args.nhead, bench)
+                                 args.nhead, bench, base)
     with tempfile.TemporaryDirectory() as tmp:
         code2_train_launches = phase8_train(device, tmp)
     phase8_step512(device, bench, bench_tasks, smi)

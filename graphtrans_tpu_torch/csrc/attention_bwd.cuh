@@ -1,13 +1,15 @@
-// The long-row attention backward: K5-bwd (flash_attention.cu) and K9-bwd's
-// long instance (attention_smalls.cu), over qkv [B, S, 3d] with heads in
-// lanes, from the forward's output and its softmax statistics m and l
-// ([B, S, H], with attention_fwd.cuh's meaning). Also the mask policies,
-// block_range and the staging, ranking and 3xTF32 pieces that the long
-// forward (attention_fwd.cuh) shares.
+// The long-row attention backward: K5-bwd (flash_attention.cu), K9-bwd's
+// long instance (attention_smalls.cu) and K3-bwd (flash_hil.cu), over qkv
+// [B, S, 3d] with heads in lanes, from the forward's output and its softmax
+// statistics m and l ([B, S, H], with attention_fwd.cuh's meaning). Also
+// the mask policies, block_range and the staging and ranking pieces that
+// the long forward (attention_fwd.cuh) shares; the 3xTF32 pieces are
+// mma_tf32.cuh's.
 //
 // The mask is a pair of tags (policy Tags): query i attends key j iff
-// qtag(i) == ktag(j) >= 0. K5's are its segq and segk; K9's (and K4's) are
-// the query's block and, for a valid key, the key's block (0 for block 0).
+// qtag(i) == ktag(j) >= 0. K5's are its segq and segk, K3's its seg twice;
+// K9's (and K4's) are the query's block and, for a valid key, the key's
+// block (0 for block 0).
 // The dropout mask (policy Keep: members on and inv_keep, and
 // keep(b, h, H, S, i, j) with the row's own token indices) is drawn again
 // from the forward's seed; nothing is stored.
@@ -74,6 +76,7 @@
 #include <math.h>
 
 #include "attention_tile.cuh"
+#include "mma_tf32.cuh"
 
 namespace attn {
 
@@ -95,7 +98,7 @@ __device__ __forceinline__ void block_range(int tag, int* range, int& lo,
   hi = range[1];
 }
 
-// K5's tags: segq and segk [B, S] int32.
+// K5's tags: segq and segk [B, S] int32; K3's: its seg twice.
 struct SegTags {
   const int* q;
   const int* k;
@@ -142,72 +145,12 @@ namespace lr {
 
 constexpr int T = LONG_T, NT = LONG_THREADS;
 
-// 16 bytes from global to shared memory, asynchronously; zeros where !ok
-// (src must still be a valid address).
-__device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// x rounded to TF32 (10 mantissa bits, to nearest, ties away), as bits.
-__device__ __forceinline__ unsigned tf32(float x) {
-  unsigned r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-// x = hi + lo, both TF32: the 3xTF32 split.
-__device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-// c += a b for one m16n8k8 tile, a row-major 16 x 8, b col-major 8 x 8, on
-// TF32 inputs with f32 sums.
-__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
-                                    const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// A fragment of a 16 x 8 tile at (m0, k0) of a matrix whose element (m, k)
-// sits at p[m * rs + k * cs], split into TF32 hi and lo parts. lane =
-// 4 g + t holds (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4).
-__device__ __forceinline__ void frag_a(const float* p, int rs, int cs,
-                                       int m0, int k0, unsigned (&hi)[4],
-                                       unsigned (&lo)[4]) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const float* q = p + (m0 + g) * rs + (k0 + t) * cs;
-  split(q[0], hi[0], lo[0]);
-  split(q[8 * rs], hi[1], lo[1]);
-  split(q[4 * cs], hi[2], lo[2]);
-  split(q[8 * rs + 4 * cs], hi[3], lo[3]);
-}
-// B fragment of an 8 x 8 tile at (k0, n0), element (k, n) at p[k * rs + n *
-// cs]: lane 4 g + t holds (t, g), (t + 4, g).
-__device__ __forceinline__ void frag_b(const float* p, int rs, int cs,
-                                       int k0, int n0, unsigned (&hi)[2],
-                                       unsigned (&lo)[2]) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const float* q = p + (k0 + t) * rs + (n0 + g) * cs;
-  split(q[0], hi[0], lo[0]);
-  split(q[4 * rs], hi[1], lo[1]);
-}
-// c += a b in 3xTF32: hi*hi + hi*lo + lo*hi (lo*lo, ~2^-22 of the product,
-// is dropped), so the sums keep f32 accuracy.
-__device__ __forceinline__ void mma3(float (&c)[4], const unsigned (&ah)[4],
-                                     const unsigned (&al)[4],
-                                     const unsigned (&bh)[2],
-                                     const unsigned (&bl)[2]) {
-  mma(c, al, bh);
-  mma(c, ah, bl);
-  mma(c, ah, bh);
-}
+// cp.async staging and the 3xTF32 products (mma_tf32.cuh)
+using tc::cp16;
+using tc::cp_wait;
+using tc::frag_a;
+using tc::frag_b;
+using tc::mma3;
 
 // The shared tiles of a block.
 template <int HD>

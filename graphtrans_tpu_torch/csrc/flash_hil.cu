@@ -24,19 +24,26 @@
 // (seed, r, h, i, j); nothing is stored. Where a gradient is wanted the
 // forward also writes m and l per (row, query, head).
 //
-// Backward, two kernels (the JAX package's _dq_kernel and _dkv_kernel):
-// dq: one block per (row, head, BQ queries), one thread per query; it
-// computes delta_i = dO_i . O_i for its head (written for the dk/dv
-// kernel), then streams the keys as the forward does and sums
-// ds_ij k_j with ds = p (dp_dropped - delta) and p from the saved m, l.
-// dk/dv: one block per (row, head, BK keys), one thread per key; the
-// queries (Q_h, dO_h, m, 1/l, delta, seg) stream through shared memory BQ
-// at a time, query blocks whose segments cannot meet the key block's are
-// skipped, and each key sums ds_ij q_i and p_dropped_ij dO_i. Every output
-// cell has one writer: no atomics; padding tokens write exact zeros.
+// Backward: the long-row pair of attention_bwd.cuh (the JAX package's
+// _dq_kernel and _dkv_kernel), under K3's own kernels with seg as both tag
+// arrays (attn::SegTags{seg, seg}: the mask seg[i] == seg[j] >= 0) and the
+// mask above as its Keep policy. A dq kernel over 64-query tiles (it also
+// writes delta_i = dO_i . O_i) walks the keys whose segment meets one of
+// its queries', gathered 64 at a time by rank; a dk/dv kernel over chunks
+// of 64 valid keys by rank walks the query tiles whose segments can meet
+// them. A tile or chunk may straddle segments: the pair mask separates
+// them. The pair tiles' products run as 3xTF32 mma.sync on the tensor
+// cores from cp.async-staged shared tiles. It reads the forward's m and l,
+// which K3's forward writes with attention_fwd.cuh's meaning (m the max
+// scaled score, l the sum of the undropped exp(s - m), m = -inf and l = 0
+// for a query without a key). Every output cell has one writer: no
+// atomics; padding tokens write exact zeros.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "attention_bwd.cuh"
+#include "hash.cuh"
 
 namespace {
 
@@ -50,18 +57,10 @@ struct Dropout {
   unsigned thresh;   // keep iff bits < thresh
   float inv_keep;    // 1 / (1 - rate)
   unsigned seed;
-};
 
-// murmur-style finalizer of (position, seed): graphtrans_tpu/ops/pallas/
-// prng.py:_hash_bits_u32, in u32 arithmetic
-__device__ __forceinline__ unsigned hash_bits(unsigned pos, unsigned seed) {
-  unsigned x = pos * 2654435761u + seed * 0x9E3779B9u;
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  return x ^ (x >> 16);
-}
+  // the long backward's Keep policy: keep (r, h, i, j)
+  __device__ bool operator()(long r, int h, int H, int, int i, int j) const;
+};
 
 // rh = r*H + h; u32 arithmetic wraps as the reference's int32 does
 __device__ __forceinline__ bool keep(const Dropout& dr, unsigned rh, int i,
@@ -71,7 +70,12 @@ __device__ __forceinline__ bool keep(const Dropout& dr, unsigned rh, int i,
       (unsigned)(j / MASK_BK);
   const unsigned pos =
       (unsigned)(i % MASK_BQ) * MASK_BK + (unsigned)(j % MASK_BK);
-  return hash_bits(pos, s) < dr.thresh;
+  return prng::hash_bits(pos, s) < dr.thresh;
+}
+
+__device__ bool Dropout::operator()(long r, int h, int H, int, int i,
+                                    int j) const {
+  return keep(*this, (unsigned)r * (unsigned)H + (unsigned)h, i, j);
 }
 
 // Fills lo/hi with the min and max valid segment id of the block's tokens
@@ -181,196 +185,31 @@ flash_hil_fwd_kernel(const float* __restrict__ qkv,
   }
 }
 
+// K3's backward kernels over the long-row bodies of attention_bwd.cuh.
 template <int HD>
-__global__ void __launch_bounds__(BQ)
-flash_hil_dq_kernel(const float* __restrict__ qkv,
-                    const int* __restrict__ seg,
-                    const float* __restrict__ out,
-                    const float* __restrict__ gout,
-                    const float* __restrict__ stat_m,
-                    const float* __restrict__ stat_l,
-                    float* __restrict__ delta, float* __restrict__ dqkv,
-                    int W, int d, float scale, Dropout dr) {
-  __shared__ float ks[BK * HD];
-  __shared__ float vs[BK * HD];
-  __shared__ int ss[BK];
-  __shared__ int qrange[2];
-
-  const long r = blockIdx.x;
-  const int h = blockIdx.y;
-  const int H = gridDim.y;
-  const int i = blockIdx.z * BQ + threadIdx.x;
-  const long d3 = 3L * d;
-  const float* row = qkv + r * W * d3;
-  const int* srow = seg + r * W;
-  const unsigned rh = (unsigned)r * H + (unsigned)h;
-
-  const int si = i < W ? srow[i] : -1;
-  int qmin, qmax;
-  block_range(si, qrange, qmin, qmax);
-
-  float q[HD], g[HD], acc[HD];
-#pragma unroll
-  for (int c = 0; c < HD; ++c) acc[c] = 0.f;
-  float m = 0.f, li = 0.f, de = 0.f;
-  if (si >= 0) {
-    const float* qi = row + i * d3 + h * HD;
-    const float* gi = gout + (r * W + i) * d + h * HD;
-    const float* oi = out + (r * W + i) * d + h * HD;
-#pragma unroll
-    for (int c = 0; c < HD; ++c) {
-      q[c] = qi[c] * scale;
-      g[c] = gi[c];
-      de = fmaf(g[c], oi[c], de);
-    }
-    m = stat_m[(r * W + i) * H + h];
-    li = 1.f / fmaxf(stat_l[(r * W + i) * H + h], 1e-16f);
-  }
-  if (i < W) delta[(r * W + i) * H + h] = de;
-
-  if (qmax >= 0) {
-    for (int k0 = 0; k0 < W; k0 += BK) {
-      const int j = k0 + threadIdx.x;
-      const int sj = j < W ? srow[j] : -1;
-      const bool meets = sj >= qmin && sj <= qmax;
-      if (!__syncthreads_or(meets)) continue;
-      ss[threadIdx.x] = sj;
-      for (int idx = threadIdx.x; idx < BK * HD; idx += BQ) {
-        const int jj = idx / HD, c = idx % HD;
-        const bool in = k0 + jj < W;
-        const float* kr = row + (long)(k0 + jj) * d3 + h * HD + c;
-        ks[idx] = in ? kr[d] : 0.f;
-        vs[idx] = in ? kr[2 * d] : 0.f;
-      }
-      __syncthreads();
-      if (si >= 0) {
-        for (int jj = 0; jj < BK; ++jj) {
-          if (ss[jj] != si) continue;
-          const float* kj = ks + jj * HD;
-          const float* vj = vs + jj * HD;
-          float s = 0.f, dp = 0.f;
-#pragma unroll
-          for (int c = 0; c < HD; ++c) {
-            s = fmaf(q[c], kj[c], s);
-            dp = fmaf(g[c], vj[c], dp);
-          }
-          if (dr.on) dp = keep(dr, rh, i, k0 + jj) ? dp * dr.inv_keep : 0.f;
-          const float ds = expf(s - m) * li * (dp - de);
-#pragma unroll
-          for (int c = 0; c < HD; ++c) acc[c] = fmaf(ds, kj[c], acc[c]);
-        }
-      }
-      __syncthreads();
-    }
-  }
-  if (i < W) {
-    float* dq = dqkv + (r * W + i) * d3 + h * HD;
-#pragma unroll
-    for (int c = 0; c < HD; ++c) dq[c] = acc[c] * scale;
-  }
+__global__ void __launch_bounds__(attn::LONG_THREADS, attn::long_blocks(HD))
+flash_hil_bwd_dq_kernel(const float* __restrict__ qkv, attn::SegTags tags,
+                        const float* __restrict__ out,
+                        const float* __restrict__ gout,
+                        const float* __restrict__ stat_m,
+                        const float* __restrict__ stat_l,
+                        float* __restrict__ delta, float* __restrict__ dqkv,
+                        int W, int d, float scale, Dropout dr) {
+  attn::lr::long_dq<HD>(qkv, tags, out, gout, stat_m, stat_l, delta, dqkv, W,
+                        d, scale, dr);
 }
 
 template <int HD>
-__global__ void __launch_bounds__(BK)
-flash_hil_dkv_kernel(const float* __restrict__ qkv,
-                     const int* __restrict__ seg,
-                     const float* __restrict__ gout,
-                     const float* __restrict__ stat_m,
-                     const float* __restrict__ stat_l,
-                     const float* __restrict__ delta,
-                     float* __restrict__ dqkv, int W, int d, float scale,
-                     Dropout dr) {
-  __shared__ float qs[BQ * HD];  // q * scale
-  __shared__ float gs[BQ * HD];  // dO
-  __shared__ float ms[BQ], lis[BQ], des[BQ];
-  __shared__ int ss[BQ];
-  __shared__ int krange[2];
-
-  const long r = blockIdx.x;
-  const int h = blockIdx.y;
-  const int H = gridDim.y;
-  const int t = threadIdx.x;
-  const int j = blockIdx.z * BK + t;
-  const long d3 = 3L * d;
-  const float* row = qkv + r * W * d3;
-  const int* srow = seg + r * W;
-  const unsigned rh = (unsigned)r * H + (unsigned)h;
-
-  const int sj = j < W ? srow[j] : -1;
-  int kmin, kmax;
-  block_range(sj, krange, kmin, kmax);
-
-  float k[HD], v[HD], dk[HD], dv[HD];
-#pragma unroll
-  for (int c = 0; c < HD; ++c) dk[c] = dv[c] = 0.f;
-  if (sj >= 0) {
-    const float* kj = row + j * d3 + d + h * HD;
-#pragma unroll
-    for (int c = 0; c < HD; ++c) {
-      k[c] = kj[c];
-      v[c] = kj[d + c];
-    }
-  }
-
-  if (kmax >= 0) {  // the block holds a valid key
-    for (int q0 = 0; q0 < W; q0 += BQ) {
-      const int i = q0 + t;  // BQ == blockDim.x
-      const int si = i < W ? srow[i] : -1;
-      const bool meets = si >= kmin && si <= kmax;
-      if (!__syncthreads_or(meets)) continue;
-      ss[t] = si;
-      if (si >= 0) {
-        const long at = (r * W + i) * H + h;
-        ms[t] = stat_m[at];
-        lis[t] = 1.f / fmaxf(stat_l[at], 1e-16f);
-        des[t] = delta[at];
-      } else {
-        ms[t] = lis[t] = des[t] = 0.f;
-      }
-      for (int idx = t; idx < BQ * HD; idx += BK) {
-        const int ii = idx / HD, c = idx % HD;
-        const bool in = q0 + ii < W;
-        qs[idx] = in ? row[(long)(q0 + ii) * d3 + h * HD + c] * scale : 0.f;
-        gs[idx] = in ? gout[(r * W + q0 + ii) * d + h * HD + c] : 0.f;
-      }
-      __syncthreads();
-      if (sj >= 0) {
-        for (int ii = 0; ii < BQ; ++ii) {
-          if (ss[ii] != sj) continue;
-          const float* qi = qs + ii * HD;
-          const float* gi = gs + ii * HD;
-          float s = 0.f, dp = 0.f;
-#pragma unroll
-          for (int c = 0; c < HD; ++c) {
-            s = fmaf(qi[c], k[c], s);
-            dp = fmaf(gi[c], v[c], dp);
-          }
-          const float p = expf(s - ms[ii]) * lis[ii];
-          float pd = p;
-          if (dr.on) {
-            const bool kp = keep(dr, rh, q0 + ii, j);
-            pd = kp ? p * dr.inv_keep : 0.f;
-            dp = kp ? dp * dr.inv_keep : 0.f;
-          }
-          const float ds = p * (dp - des[ii]);
-#pragma unroll
-          for (int c = 0; c < HD; ++c) {
-            dk[c] = fmaf(ds, qi[c], dk[c]);  // q * scale: d s / d k
-            dv[c] = fmaf(pd, gi[c], dv[c]);
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-  if (j < W) {
-    float* dkj = dqkv + (r * W + j) * d3 + d + h * HD;
-#pragma unroll
-    for (int c = 0; c < HD; ++c) {
-      dkj[c] = dk[c];
-      dkj[d + c] = dv[c];
-    }
-  }
+__global__ void __launch_bounds__(attn::LONG_THREADS, attn::long_blocks(HD))
+flash_hil_bwd_dkv_kernel(const float* __restrict__ qkv, attn::SegTags tags,
+                         const float* __restrict__ gout,
+                         const float* __restrict__ stat_m,
+                         const float* __restrict__ stat_l,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dqkv, int W, int d, float scale,
+                         Dropout dr) {
+  attn::lr::long_dkv<HD>(qkv, tags, gout, stat_m, stat_l, delta, dqkv, W, d,
+                         scale, dr);
 }
 
 template <bool DROP, bool STATS>
@@ -432,14 +271,9 @@ extern "C" int flash_hil_bwd(const float* qkv, const int* seg, const float* out,
                              cudaStream_t stream) {
   if (d != H * 32 || R <= 0 || W <= 0) return cudaErrorInvalidValue;
   const Dropout dr = make_dropout(drop, thresh, inv_keep, seed);
-  const float scale = 1.f / sqrtf(32.f);
-  dim3 qgrid(R, H, (W + BQ - 1) / BQ);
-  flash_hil_dq_kernel<32><<<qgrid, BQ, 0, stream>>>(
-      qkv, seg, out, gout, stat_m, stat_l, delta, dqkv, W, d, scale, dr);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  dim3 kgrid(R, H, (W + BK - 1) / BK);
-  flash_hil_dkv_kernel<32><<<kgrid, BK, 0, stream>>>(
-      qkv, seg, gout, stat_m, stat_l, delta, dqkv, W, d, scale, dr);
-  return cudaGetLastError();
+  return attn::launch_long_bwd<32>(flash_hil_bwd_dq_kernel<32>,
+                                   flash_hil_bwd_dkv_kernel<32>, qkv,
+                                   attn::SegTags{seg, seg}, out, gout, stat_m,
+                                   stat_l, delta, dqkv, R, W, d, H, dr,
+                                   stream);
 }

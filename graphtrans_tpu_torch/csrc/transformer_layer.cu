@@ -5,15 +5,32 @@
 // launches with K4's attention kernels (attention_packed.cu) between them.
 //
 // Three kinds of kernel, each launched by a C entry below:
-// - layer_gemm: C = op(A) op(B) in f32 on a 128 x 128 tile a block, 8 deep,
-//   256 threads of 8 x 8 outputs, the tiles double-buffered in shared memory
-//   through registers. A is [M, K] or (transposed) [K, M]; B is [K, N] or
-//   (transposed, nn.Linear's [out, in]) [N, K]. Its epilogue adds a bias,
-//   takes relu, drops out, adds a residual, or masks by relu's derivative.
-//   A weight gradient (A transposed, K = every row of the batch) splits K
-//   over gridDim.z blocks that each write their own partial product; the
-//   partials are summed in a fixed order (layer_sum): no atomics, so a run
-//   gives the same bits every time.
+// - layer_gemm: C = op(A) op(B) with f32 accuracy on the tensor cores. A is
+//   [M, K] or (transposed) [K, M]; B is [K, N] or (transposed, nn.Linear's
+//   [out, in]) [N, K]. Its epilogue adds a bias, takes relu, drops out, adds
+//   a residual, or masks by relu's derivative. A weight gradient (A
+//   transposed, K = every row of the batch) splits K over gridDim.z blocks
+//   that each write their own partial product; the partials are summed in a
+//   fixed order (layer_sum): no atomics, so a run gives the same bits every
+//   time. What bounds it: operations. At 4096 molecules ([1366, 99, 256],
+//   ff 512) the forward's four products are 141.8 GFLOP: 2.12 ms at the f32
+//   SIMT peak (67 TFLOP/s), 0.86 ms as 3xTF32 at the TF32 tensor-core peak
+//   (495 TFLOP/s, three passes). The design: a block of 4 warps takes a
+//   128 x 64 tile of C, a warp 64 x 32 of it (4 x 4 m16n8 tiles, 64
+//   accumulators a thread and 64 more for the current slice's sums); the
+//   K dimension passes in slices of BK = 32 through a ring of 3 stages in
+//   dynamic shared memory (90 KB at most, 30 KB a stage), filled by
+//   16-byte cp.async copies (ragged rows and columns zero-filled) while the
+//   block multiplies an earlier stage. Tiles are kept in the global layout,
+//   their rows padded (40, 132 or 68 floats) so that the fragment loads of
+//   a half-warp hit different banks. Each product is mma.sync m16n8k8 in
+//   3xTF32 (mma_tf32.cuh: every operand split into a TF32 high part and a
+//   TF32 remainder, three products summed in f32; single-pass TF32 would
+//   lose f32 accuracy), and a slice's sums reach the accumulators through
+//   f32 adds (the tensor cores' own adds truncate). Two blocks share an SM,
+//   so one's barriers and epilogue overlap the other's products. What it
+//   replaces: a 128 x 128 x 8 f32 SIMT tile, double-buffered through
+//   registers, that took 5.2 of K10's 5.98 ms.
 // - layer_norm_fwd / layer_norm_bwd: a warp a row of d = 128 * V columns
 //   (V float4s a lane), the reference's fast variance max(E[h^2] - mu^2, 0)
 //   and eps. The backward also drops out its result for the next product
@@ -31,10 +48,14 @@
 #include <math.h>
 
 #include "hash.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 8, THREADS = 256;
+// layer_gemm: a BM x BN tile of C a block of THREADS, K in slices of BK
+constexpr int BM = 128, BN = 64, BK = 32, THREADS = 128;
+constexpr int STAGES = 3;      // the ring of shared stages of layer_gemm
+constexpr int MIN_BLOCKS = 2;  // blocks an SM
 constexpr int TILE_ROWS = 8;  // packed rows a tile of the reference (BT)
 
 struct Drop {
@@ -84,100 +105,202 @@ __device__ __forceinline__ float epilogue(float acc, long m, int n, int N,
   return acc;
 }
 
+// x = hi + lo, both TF32, rounded to nearest with ties away from zero (as
+// cvt.rna rounds finite values, tc::split): hi by adding half a TF32 ulp to
+// the bits and clearing the 13 below it, lo likewise from x - hi, exact in
+// f32. Integer adds and masks take fewer instructions than cvt.rna.
+__device__ __forceinline__ void split_rna(float x, unsigned& hi,
+                                          unsigned& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+}
+
+// A stage of the ring: the A tile (128 rows), then the B tile (64). A tile
+// whose rows run along k ([rows][BK + 8]: A [M, K] or B [N, K]) has a
+// stride of 40 floats (8 mod 32 banks); one whose rows are k ([BK][cols +
+// 4]: A [K, M] or B [K, N]) of 132 or 68 (4 mod 32). The fragment loads
+// take k = 2q and 2q + 1 where the mma's k slots are q and q + 4 (both
+// operands alike, so the sum over the eight k is unchanged): one 8-byte
+// load a row where rows run along k. Either way the lanes of a half-warp
+// hit different banks.
+__host__ __device__ constexpr int ld_of(bool krows, int rows) {
+  return krows ? rows + 4 : BK + 8;
+}
+__host__ __device__ constexpr int tile_floats(bool krows, int rows) {
+  return krows ? BK * (rows + 4) : rows * (BK + 8);
+}
+__host__ __device__ constexpr int gemm_bytes(bool at, bool bt) {
+  return STAGES * (tile_floats(at, BM) + tile_floats(!bt, BN)) * 4;
+}
+
+// Stages a ROWS x BK tile of P with 16-byte cp.async copies: with KROWS the
+// BK rows k0.. of P [K, X] (columns x0..), else the rows x0.. of P [X, K]
+// (k0..). Chunks outside [0, X) x [k0, kend) are zero-filled (X and, for
+// rows along k, K are multiples of 4, so a chunk is wholly in or out).
+template <bool KROWS, int ROWS>
+__device__ __forceinline__ void stage_tile(float* dst,
+                                           const float* __restrict__ P,
+                                           long X, int K, long x0, int k0,
+                                           int kend) {
+  constexpr int LD = ld_of(KROWS, ROWS), CHUNKS = ROWS * BK / 4;
+#pragma unroll
+  for (int q = 0; q < CHUNKS / THREADS; ++q) {
+    const int idx = threadIdx.x + q * THREADS;
+    if (KROWS) {  // BK rows of ROWS / 4 chunks
+      const int r = idx / (ROWS / 4), c = idx % (ROWS / 4) * 4;
+      const bool ok = k0 + r < kend && x0 + c < X;
+      tc::cp16(dst + r * LD + c, ok ? P + (long)(k0 + r) * X + x0 + c : P,
+               ok);
+    } else {      // ROWS rows of BK / 4 chunks
+      const int r = idx >> 3, c = (idx & 7) * 4;
+      const bool ok = x0 + r < X && k0 + c < kend;
+      tc::cp16(dst + r * LD + c, ok ? P + (x0 + r) * (long)K + k0 + c : P,
+               ok);
+    }
+  }
+}
+
 // C [M, N] = sum over k in this block's split of A(i, k) B(k, j), with
 // A(i, k) = AT ? A[k*M + i] : A[i*K + k] and B(k, j) = BT ? B[j*K + k] :
 // B[k*N + j]; split z (blockIdx.z) covers k in [z*kchunk, (z+1)*kchunk)
-// and writes C + z*M*N.
+// and writes C + z*M*N. A block takes a BM x BN tile of C; warp w its
+// 64 x 32 sub-tile at rows (w % 2) * 64, columns (w / 2) * 32, as 4 x 4
+// m16n8 accumulator tiles. The BK-deep slices of A and B pass through a
+// ring of STAGES shared stages: while the block multiplies one, the
+// cp.async copies of the next STAGES - 1 are in flight, and the other
+// block on the SM multiplies or writes its tile. Each product is 3xTF32
+// (tc::mma3). A slice's twelve mma.sync sum into tiles of their own,
+// which are then added to the accumulators with f32 adds: the tensor cores
+// align and add their terms without rounding (toward zero), an error of up
+// to an ulp of the running sum each mma that grows with K when every mma
+// lands on the running sum (3 K / 8 of them) and stays at f32's level when
+// only K / 32 rounded adds do.
 template <bool AT, bool BT, int EPI>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 layer_gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
                   float* __restrict__ C, int M, int N, int K, int kchunk,
                   const float* __restrict__ bias,
                   const float* __restrict__ res, Drop dr) {
-  __shared__ float4 As4[2][BK][BM / 4];
-  __shared__ float4 Bs4[2][BK][BN / 4];
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  constexpr int A_FLOATS = tile_floats(AT, BM);
+  constexpr int STAGE = A_FLOATS + tile_floats(!BT, BN);
+  constexpr int LDA = ld_of(AT, BM), LDB = ld_of(!BT, BN);
 
-  const int t = threadIdx.x;
+  const int t = threadIdx.x, w = t >> 5;
   const long m0 = (long)blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
   const int kbeg = blockIdx.z * kchunk;
   const int kend = min(K, kbeg + kchunk);
+  const int nk = kbeg < kend ? (kend - kbeg + BK - 1) / BK : 0;
   C += (long)blockIdx.z * M * N;
 
-  // the four elements of the A and B tiles this thread loads
-  const int a_i = AT ? (t & 31) * 4 : t >> 1;   // first row of the tile
-  const int a_k = AT ? t >> 5 : (t & 1) * 4;    // first k of the tile
-  const int b_j = BT ? t >> 1 : (t & 31) * 4;
-  const int b_k = BT ? (t & 1) * 4 : t >> 5;
-  float ra[4], rb[4];
-
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const long i = m0 + a_i + (AT ? q : 0);
-      const int k = k0 + a_k + (AT ? 0 : q);
-      ra[q] = (i < M && k < kend) ? (AT ? A[(long)k * M + i] : A[i * K + k])
-                                  : 0.f;
-      const int j = n0 + b_j + (BT ? 0 : q);
-      const int kb = k0 + b_k + (BT ? q : 0);
-      rb[q] = (j < N && kb < kend)
-                  ? (BT ? B[(long)j * K + kb] : B[(long)kb * N + j])
-                  : 0.f;
-    }
-  };
-  auto store = [&](int buf) {
-    float* As = reinterpret_cast<float*>(As4[buf]);
-    float* Bs = reinterpret_cast<float*>(Bs4[buf]);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      As[(a_k + (AT ? 0 : q)) * BM + a_i + (AT ? q : 0)] = ra[q];
-      Bs[(b_k + (BT ? q : 0)) * BN + b_j + (BT ? 0 : q)] = rb[q];
-    }
+  auto load = [&](int st, int kt) {
+    float* s = smem + st * STAGE;
+    const int k0 = kbeg + kt * BK;
+    stage_tile<AT, BM>(s, A, M, K, m0, k0, kend);
+    stage_tile<!BT, BN>(s + A_FLOATS, B, N, K, n0, k0, kend);
   };
 
-  const int tx = t & 15, ty = t >> 4;  // columns tx*4 (+64), rows ty*4 (+64)
-  float acc[8][8];
+  // lane 4 g + q: A(m, k) rows g and g + 8, B(k, n) column g, k = 2q and
+  // 2q + 1 in the mma's k slots q and q + 4
+  const int wm = (w & 1) * 64, wn = (w >> 1) * 32;
+  const int g = (t & 31) >> 2, q = t & 3;
+  float acc[4][4][4];
 #pragma unroll
-  for (int a = 0; a < 8; ++a)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
-
-  int buf = 0;
-  if (kbeg < kend) {
-    load(kbeg);
-    store(0);
-  }
-  __syncthreads();
-  for (int k0 = kbeg; k0 < kend; k0 += BK) {
-    const bool more = k0 + BK < kend;
-    if (more) load(k0 + BK);
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 a0 = As4[buf][k][ty], a1 = As4[buf][k][16 + ty];
-      const float4 b0 = Bs4[buf][k][tx], b1 = Bs4[buf][k][16 + tx];
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int a = 0; a < 8; ++a)
-#pragma unroll
-        for (int b = 0; b < 8; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
-    }
-    if (more) store(buf ^ 1);
-    __syncthreads();
-    buf ^= 1;
-  }
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
 #pragma unroll
-  for (int a = 0; a < 8; ++a) {
-    const long m = m0 + (a < 4 ? ty * 4 + a : 64 + ty * 4 + a - 4);
-    if (m >= M) continue;
-#pragma unroll
-    for (int b = 0; b < 8; ++b) {
-      const int n = n0 + (b < 4 ? tx * 4 + b : 64 + tx * 4 + b - 4);
-      if (n < N)
-        C[m * N + n] = epilogue<EPI>(acc[a][b], m, n, N, bias, res, dr);
-    }
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nk) load(st, st);
+    tc::cp_commit();
   }
+  for (int kt = 0; kt < nk; ++kt) {
+    tc::cp_wait_group<STAGES - 2>();  // slice kt has landed
+    __syncthreads();  // ... for every thread, and slice kt - 1 is consumed
+    if (kt + STAGES - 1 < nk) load((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
+    tc::cp_commit();
+    const float* As = smem + (kt % STAGES) * STAGE;
+    const float* Bs = As + A_FLOATS;
+    float part[4][4][4];  // the slice's sums, added to acc in f32 at its end
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 8) {
+      unsigned bh[4][2], bl[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {  // B(k, n): Bs[n][k] or Bs[k][n]
+        const int n = wn + 8 * j + g;
+        float2 v;
+        if (BT) {
+          v = *reinterpret_cast<const float2*>(Bs + n * LDB + kk + 2 * q);
+        } else {
+          v.x = Bs[(kk + 2 * q) * LDB + n];
+          v.y = Bs[(kk + 2 * q + 1) * LDB + n];
+        }
+        split_rna(v.x, bh[j][0], bl[j][0]);
+        split_rna(v.y, bh[j][1], bl[j][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {  // A(m, k): As[k][m] or As[m][k]
+        const int m = wm + 16 * i + g;
+        float a[4];  // (m, 2q), (m + 8, 2q), (m, 2q + 1), (m + 8, 2q + 1)
+        if (AT) {
+          const float* p = As + (kk + 2 * q) * LDA + m;
+          a[0] = p[0];
+          a[1] = p[8];
+          a[2] = p[LDA];
+          a[3] = p[LDA + 8];
+        } else {
+          const float2 v0 =
+              *reinterpret_cast<const float2*>(As + m * LDA + kk + 2 * q);
+          const float2 v1 = *reinterpret_cast<const float2*>(
+              As + (m + 8) * LDA + kk + 2 * q);
+          a[0] = v0.x;
+          a[1] = v1.x;
+          a[2] = v0.y;
+          a[3] = v1.y;
+        }
+        unsigned ah[4], al[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_rna(a[e], ah[e], al[e]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) tc::mma3(part[i][j], ah, al, bh[j], bl[j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+  }
+
+  // lane 4 g + q holds (g, 2q), (g, 2q + 1), (g + 8, 2q), (g + 8, 2q + 1) of
+  // each m16n8 tile of C; N % 4 == 0, so n < N implies n + 1 < N
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const long m = m0 + wm + 16 * i + g + 8 * r;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + wn + 8 * j + 2 * q;
+        if (n >= N) continue;
+        *reinterpret_cast<float2*>(C + m * N + n) = make_float2(
+            epilogue<EPI>(acc[i][j][2 * r], m, n, N, bias, res, dr),
+            epilogue<EPI>(acc[i][j][2 * r + 1], m, n + 1, N, bias, res, dr));
+      }
+    }
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -342,26 +465,47 @@ __global__ void layer_sum_kernel(const float* __restrict__ part,
   out[i] = s;
 }
 
+// One instance's launch; its shared-memory limit is raised once, before its
+// first launch (two blocks an SM need the SM's whole shared carveout).
+template <bool AT, bool BT, int EPI>
+cudaError_t launch_epi(dim3 grid, const float* A, const float* B, float* C,
+                       int M, int N, int K, int kchunk, const float* bias,
+                       const float* res, Drop dr, cudaStream_t stream) {
+  constexpr int smem = gemm_bytes(AT, BT);
+  static const cudaError_t set = [] {
+    cudaError_t e = cudaFuncSetAttribute(
+        layer_gemm_kernel<AT, BT, EPI>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(layer_gemm_kernel<AT, BT, EPI>,
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
+                                cudaSharedmemCarveoutMaxShared);
+  }();
+  if (set != cudaSuccess) return set;
+  layer_gemm_kernel<AT, BT, EPI><<<grid, THREADS, smem, stream>>>(
+      A, B, C, M, N, K, kchunk, bias, res, dr);
+  return cudaGetLastError();
+}
+
 template <bool AT, bool BT>
 int launch_gemm(const float* A, const float* B, float* C, int M, int N, int K,
                 int splits, int epi, const float* bias, const float* res,
                 Drop dr, cudaStream_t stream) {
   const int kchunk = ((K + splits - 1) / splits + BK - 1) / BK * BK;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
 #define LAUNCH(E)                                                           \
-  layer_gemm_kernel<AT, BT, E><<<grid, THREADS, 0, stream>>>(              \
-      A, B, C, M, N, K, kchunk, bias, res, dr)
+  return launch_epi<AT, BT, E>(grid, A, B, C, M, N, K, kchunk, bias, res,  \
+                               dr, stream)
   switch (epi) {
-    case EPI_NONE: LAUNCH(EPI_NONE); break;
-    case EPI_BIAS: LAUNCH(EPI_BIAS); break;
-    case EPI_BIAS_DROP_RES: LAUNCH(EPI_BIAS_DROP_RES); break;
-    case EPI_BIAS_RELU_DROP: LAUNCH(EPI_BIAS_RELU_DROP); break;
-    case EPI_RES: LAUNCH(EPI_RES); break;
-    case EPI_DRELU: LAUNCH(EPI_DRELU); break;
+    case EPI_NONE: LAUNCH(EPI_NONE);
+    case EPI_BIAS: LAUNCH(EPI_BIAS);
+    case EPI_BIAS_DROP_RES: LAUNCH(EPI_BIAS_DROP_RES);
+    case EPI_BIAS_RELU_DROP: LAUNCH(EPI_BIAS_RELU_DROP);
+    case EPI_RES: LAUNCH(EPI_RES);
+    case EPI_DRELU: LAUNCH(EPI_DRELU);
     default: return cudaErrorInvalidValue;
   }
 #undef LAUNCH
-  return cudaGetLastError();
 }
 
 Drop make_drop(int on, unsigned thresh, float inv_keep, int seed, int S,
@@ -394,6 +538,14 @@ extern "C" int layer_gemm(const float* A, const float* B, float* C, int M,
                           unsigned thresh, float inv_keep, int seed, int S,
                           int stride, cudaStream_t stream) {
   if (M <= 0 || N <= 0 || K <= 0 || splits <= 0 || (layout != 2 && splits > 1))
+    return cudaErrorInvalidValue;
+  // 16-byte cp.async copies and float2 stores: every row of A, B, C and res
+  // starts 16-byte aligned, and a row's contiguous length is a multiple of 4
+  const auto aligned = [](const float* p) {
+    return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+  };
+  if (!aligned(A) || !aligned(B) || !aligned(C) || (res && !aligned(res)) ||
+      N % 4 || (layout == 2 ? M % 4 : K % 4))
     return cudaErrorInvalidValue;
   const Drop dr = make_drop(drop, thresh, inv_keep, seed, S, stride);
   switch (layout) {

@@ -29,7 +29,7 @@ broadcasts work around Mosaic's 128 lanes at hd=32; the card works per
 What bounds it on the H100: operations. It must read qkv and write out,
 ``R*W*4d*4`` bytes (about 16 MB a W=1024 row at d=128), while the
 same-segment pairs need ``4*hd*H`` flops each forward and ``10*hd*H``
-backward; a 1024 row holds a few large graphs. Design
+backward; a 1024 row holds a few large graphs. Forward
 (``csrc/flash_hil.cu``): one block per (row, head, 128 queries), one thread
 per query with q and the output accumulator in registers; keys stream
 through shared memory 128 at a time, and a key block whose segment ids
@@ -37,10 +37,25 @@ cannot meet the query block's is skipped whole (segments in a packed row
 are contiguous, ``ops/pack.py``). Where a gradient is wanted the forward
 also writes the softmax statistics m and l ``[R, W, H]``, as every
 launch with dropout does (dropout is for training); the serving launch
-writes none. The backward is two kernels: dq (one thread per query,
-keys streamed; it also writes delta) and dk/dv (one block per (row, head,
-128 keys), one thread per key, queries streamed through shared memory,
-query blocks that cannot meet skipped). Every output cell has one writer.
+writes none.
+
+The backward is the long-row pair of ``csrc/attention_bwd.cuh`` that K5-bwd
+and K9-bwd's long instance run, under K3's own two kernels, with seg as
+both tag arrays and K3's mask as its dropout policy. At code2's bench512
+(R=15, W=1024, 4 heads of 32) its bound is the pairs' products, ~0.06 ms
+as 3xTF32 on the tensor cores against 0.16 ms at the f32 SIMT peak; the
+kernels it replaces ran one thread per query (per key), one shared load
+per FMA on the f32 units, and walked 128-key positional tiles key by key.
+The design: a dq kernel over 64-query tiles (it also writes delta = dO .
+O) walks only the keys whose segment meets one of its queries', gathered
+64 at a time by rank; a dk/dv kernel over chunks of 64 valid keys by rank
+walks the query tiles whose segments can meet them. A tile or chunk that
+straddles segments takes keys of both, and the pair mask separates them.
+Each step is a 64 x 64 pair tile staged with ``cp.async``, its products as
+3xTF32 ``mma.sync`` (f32 accuracy). Every output cell has one writer:
+padding tokens get exact zeros, and a run gives the same bits every time.
+The launch is the long backward's (``attention_smalls.bwd_geometry``'s long
+instance at hd 32).
 """
 
 from __future__ import annotations

@@ -33,21 +33,28 @@ tokens with ``d % 128 == 0``.
 
 What bounds it on the H100: operations. At 4096 molecules (1366 rows of 99
 tokens, d 256, ff 512) the products need 2 T (3d^2 + d^2 + 2 d ff) = 1.42e11
-flops forward, ~2.1 ms at 67 TFLOP/s in f32, and twice that backward; the
-bytes (~1.1 GB forward) take ~0.3 ms. Design: a chain of hand-written
-launches, not one kernel: a 99 x 768 qkv tile does not fit a block's shared
-memory, and each product wants a grid of its own. ``csrc/
-transformer_layer.cu``: a tiled f32 product with its epilogue fused (bias,
-relu, dropout, residual), a LayerNorm a warp a row, and deterministic
-column sums; the attention is K4's forward and backward kernels
-(``csrc/attention_packed.cu``) with K10's seed stride. The backward keeps
-the forward's intermediates (qkv, the attention output and statistics,
-the LayerNorms' normalised inputs and 1/sigma, y1 and the dropped FF
-activation) instead of recomputing them, which the TPU kernel did for its
-VMEM; weight gradients are products split over rows into partials that one
-pass sums in order, as are the column sums, so a kernel run gives the same
-bits every time. No library call computes any product, LayerNorm or
-dropout on this route.
+flops forward, ~2.1 ms at 67 TFLOP/s in f32 outside the tensor cores and
+~0.86 ms as 3xTF32 on them (three TF32 passes at 495 TFLOP/s), and twice
+that backward; the bytes (~1.1 GB forward) take ~0.3 ms. Design: a chain of
+hand-written launches, not one kernel: a 99 x 768 qkv tile does not fit a
+block's shared memory, and each product wants a grid of its own.
+``csrc/transformer_layer.cu``: a tiled product with its epilogue fused
+(bias, relu, dropout, residual), a LayerNorm a warp a row, and
+deterministic column sums; the attention is K4's forward and backward
+kernels (``csrc/attention_packed.cu``) with K10's seed stride. The product
+runs on the tensor cores with f32 accuracy: 128 x 64 tiles of C, K in
+slices of 32 through a ring of three ``cp.async`` stages in shared memory,
+each product ``mma.sync`` m16n8k8 in 3xTF32 (every operand split into a
+TF32 high part and remainder, three products summed in f32), a slice's
+sums added to the accumulators in f32;
+``gemm_geometry`` mirrors its launch. The backward keeps the forward's
+intermediates (qkv, the attention output and statistics, the LayerNorms'
+normalised inputs and 1/sigma, y1 and the dropped FF activation) instead
+of recomputing them, which the TPU kernel did for its VMEM; weight
+gradients are products split over rows into partials that one pass sums
+in order, as are the column sums, so a kernel run gives the same bits
+every time. No library call computes any product, LayerNorm or dropout on
+this route.
 """
 
 from __future__ import annotations
@@ -74,6 +81,12 @@ NT, NN, TN = 0, 1, 2
 EPI_NONE, EPI_BIAS, EPI_BIAS_DROP_RES, EPI_BIAS_RELU_DROP, EPI_RES, \
     EPI_DRELU = range(6)
 BLOCKS_SM = 528      # blocks a split product or column sum aims for
+# layer_gemm's launch (csrc/transformer_layer.cu): a GEMM_BM x GEMM_BN tile of
+# C a block, K in slices of GEMM_BK through GEMM_STAGES shared stages, two
+# blocks an SM
+GEMM_BM, GEMM_BN, GEMM_BK = 128, 64, 32
+GEMM_STAGES, GEMM_THREADS, GEMM_MIN_BLOCKS = 3, 128, 2
+SM_SHARED = 233472   # shared bytes an SM (228 KB), 1 KB of it per block
 
 
 def layer_keep(B: int, S: int, width: int, nhead: int, rate: float,
@@ -197,6 +210,23 @@ def _drop_args(rate: float, seed: int, stream: int, nhead: int, S: int):
     s = (int(seed) + nhead + stream + 2**31) % 2**32 - 2**31
     return (int(on), ctypes.c_uint(keep_threshold(rate) if on else 0),
             ctypes.c_float(1.0 / (1.0 - rate)), s, S, nhead + STREAMS)
+
+
+def gemm_geometry(M: int, N: int, K: int, layout: int, splits: int = 1):
+    """layer_gemm's launch for C [M, N] over a reduction of K in
+    ``layout`` (NT, NN, TN) with ``splits`` partials: (grid, threads, dynamic
+    shared bytes, K a split, blocks an SM by shared memory and launch
+    bounds). A stage holds the A tile (GEMM_BM rows of C) and the B tile
+    (GEMM_BN columns), each as rows of GEMM_BK + 8 floats where its rows run
+    along K, else GEMM_BK rows of its width + 4."""
+    tile = lambda krows, rows: (GEMM_BK * (rows + 4) if krows
+                                else rows * (GEMM_BK + 8))
+    smem = GEMM_STAGES * (tile(layout == TN, GEMM_BM)
+                          + tile(layout != NT, GEMM_BN)) * 4
+    kchunk = -(-(-(-K // splits)) // GEMM_BK) * GEMM_BK
+    grid = (-(-N // GEMM_BN), -(-M // GEMM_BM), splits)
+    blocks = min(GEMM_MIN_BLOCKS, SM_SHARED // (smem + 1024))
+    return grid, GEMM_THREADS, smem, kchunk, blocks
 
 
 _NO_DROP = (0, ctypes.c_uint(0), ctypes.c_float(1.0), 0, 1, 1)

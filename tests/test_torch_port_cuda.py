@@ -7,6 +7,7 @@ and no JAX (``--noconftest`` skips tests/conftest.py, which imports JAX):
 """
 
 import argparse
+import importlib
 
 import pytest
 
@@ -446,6 +447,53 @@ def test_flash_hil_dropout_and_bwd_kernels_match_plain(cuda, W, rate):
     assert (dqkv - want).abs().max().item() <= GRAD_TOL * max(
         1.0, want.abs().max().item())
     assert not dqkv[seg < 0].any() and not out[seg < 0].any()
+
+
+def _k3_straddle_case(W, cuda):
+    """Three rows of width W, 4 heads of 32: row 0 segments of sizes that
+    straddle the long backward's 64-token tiles (single tokens among them)
+    and a padding tail; row 1 all padding, so its tiles and chunks hold no
+    valid key (a K3 query always attends itself: a valid segment has
+    keys); row 2 segments of 97."""
+    gen = torch.Generator().manual_seed(W)
+    seg = torch.full((3, W), -1, dtype=torch.int32)
+    s = g = 0
+    for n in [1, 63, 2, 130, 1, 65, 200, 3, 129, 31, 1, 250]:
+        if s + n > W - 5:
+            break
+        seg[0, s:s + n] = g
+        s, g = s + n, g + 1
+    seg[2, :W - 40] = torch.arange(W - 40) // 97 + g
+    return torch.randn(3, W, 384, generator=gen).to(cuda), seg.to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1024, 1001, 448])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_flash_hil_long_bwd_matches_plain(cuda, W, rate):
+    """K3-bwd on the long-row backward (seg as both tags, K3's own mask
+    policy) against autograd through the plain version at code2's W=1024
+    and at widths that are no multiple of 64: segments that straddle the
+    64-token tiles and chunks, an all-padding row; padding tokens exactly
+    zero, and two runs give the same bits."""
+    from graphtrans_tpu_torch.ops.kernels import (flash_hil_seg_bwd,
+                                                  flash_hil_seg_bwd_plain)
+    from graphtrans_tpu_torch.ops.kernels.flash_hil import (
+        flash_hil_seg_with_stats)
+
+    qkv, seg = _k3_straddle_case(W, cuda)
+    g = torch.randn(3, W, 128, generator=torch.Generator().manual_seed(W + 1)
+                    ).to(cuda)
+    seed = 2**31 - 5
+    saved = flash_hil_seg_with_stats(qkv, seg, 4, rate, seed)
+    dqkv = flash_hil_seg_bwd(qkv, seg, 4, g, rate, seed, saved=saved)
+    again = flash_hil_seg_bwd(qkv, seg, 4, g, rate, seed, saved=saved)
+    torch.cuda.synchronize()
+    want = flash_hil_seg_bwd_plain(qkv, seg, 4, g, rate, seed)
+    assert (dqkv - want).abs().max().item() <= GRAD_TOL * max(
+        1.0, want.abs().max().item())
+    assert not dqkv[seg < 0].any()
+    assert torch.equal(dqkv, again)
 
 
 @pytest.mark.cuda
@@ -1350,6 +1398,125 @@ def test_transformer_layer_kernels_match_plain(cuda, B, S, d, ff, H, block,
         assert (mine - ref).abs().max().item() <= GRAD_TOL * max(
             1.0, ref.abs().max().item()), i
         assert torch.equal(mine, again[i]), i
+
+
+def _epilogue_ref(epi, acc, bias, res, keep, inv_keep):
+    """layer_gemm's epilogue (csrc/transformer_layer.cu:epilogue) applied to
+    a product ``acc``; ``keep`` the drop mask of its elements (None: no
+    dropout)."""
+    tl = importlib.import_module("graphtrans_tpu_torch.ops.kernels."
+                                 "transformer_layer")
+    drop = (lambda t: t) if keep is None else (
+        lambda t: torch.where(keep, t * inv_keep, torch.zeros_like(t)))
+    if epi == tl.EPI_BIAS:
+        return acc + bias
+    if epi == tl.EPI_BIAS_DROP_RES:
+        return res + drop(acc + bias)
+    if epi == tl.EPI_BIAS_RELU_DROP:
+        return drop(torch.relu(acc + bias))
+    if epi == tl.EPI_RES:
+        return acc + res
+    if epi == tl.EPI_DRELU:
+        return torch.where(res > 0, acc * (1.0 if keep is None else inv_keep),
+                           torch.zeros_like(acc))
+    return acc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("epi", range(6))
+@pytest.mark.parametrize("layout", [0, 1, 2])
+def test_layer_gemm_matches_a_float64_product(cuda, layout, epi, rate):
+    """layer_gemm (3xTF32 on the tensor cores) at each layout and epilogue,
+    with M, N and K ragged against its 128 x 64 x 32 tiles, against the
+    float64 product of the same operands with the epilogue in float64: its
+    error within 4x the error of torch's float32 product (TF32 off) on the
+    same operands (TF32 off, torch's default), plus one float32 rounding
+    of the largest value. Two runs give the same bits."""
+    tl = importlib.import_module("graphtrans_tpu_torch.ops.kernels."
+                                 "transformer_layer")
+    assert not torch.backends.cuda.matmul.allow_tf32   # torch's default
+    gen = torch.Generator().manual_seed(100 * layout + 10 * epi
+                                        + int(rate * 10))
+    S, H = 7, 4                                   # rows r*S + t, 4 heads
+    M, N, K = (196, 200, 1043) if layout == tl.TN else (1043, 196, 100)
+    a = torch.randn(*((K, M) if layout == tl.TN else (M, K)), generator=gen)
+    b = torch.randn(*((N, K) if layout == tl.NT else (K, N)), generator=gen)
+    bias = torch.randn(N, generator=gen)
+    res = torch.randn(M, N, generator=gen)
+    A = a.T if layout == tl.TN else a
+    B = b.T if layout == tl.NT else b
+    seed = 12345
+    keep = None
+    if rate > 0.0 and epi in (tl.EPI_BIAS_DROP_RES, tl.EPI_BIAS_RELU_DROP,
+                              tl.EPI_DRELU):
+        keep = tl.layer_keep(M // S, S, N, H, rate, seed, 1, "cpu").view(M, N)
+    drop = (tl._drop_args(rate, seed, 1, H, S) if rate > 0.0
+            else tl._NO_DROP)
+    ref = _epilogue_ref(epi, A.double() @ B.double(), bias.double(),
+                        res.double(), keep, 1.0 / (1.0 - rate))
+    lib = tl._load()
+    args = [t.to(cuda) for t in (a, b, bias, res)]
+    got = tl._gemm(lib, args[0], args[1], M, N, K, layout, epi, args[2],
+                   args[3], drop)
+    again = tl._gemm(lib, args[0], args[1], M, N, K, layout, epi, args[2],
+                     args[3], drop)
+    plain = _epilogue_ref(epi, (A.to(cuda) @ B.to(cuda)), args[2], args[3],
+                          None if keep is None else keep.to(cuda),
+                          1.0 / (1.0 - rate))
+    torch.cuda.synchronize()
+    err = (got.cpu().double() - ref).abs().max().item()
+    err_f32 = (plain.cpu().double() - ref).abs().max().item()
+    assert err <= 4 * err_f32 + 2**-24 * ref.abs().max().item(), (err,
+                                                                  err_f32)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 3, 44])
+def test_layer_gemm_weight_grad_splits(cuda, splits):
+    """The weight-gradient layout (A [K, M] transposed, K the batch's rows)
+    split over K into partials: each partial and their in-order sum
+    (layer_sum) against float64; splits whose K range is empty write
+    zeros."""
+    tl = importlib.import_module("graphtrans_tpu_torch.ops.kernels."
+                                 "transformer_layer")
+    gen = torch.Generator().manual_seed(splits)
+    M, N, K = 256, 132, 2050
+    g, x = (torch.randn(K, M, generator=gen), torch.randn(K, N, generator=gen))
+    lib = tl._load()
+    part = tl._gemm(lib, g.to(cuda), x.to(cuda), M, N, K, tl.TN,
+                    splits=splits)
+    torch.cuda.synchronize()
+    _, _, _, kchunk, _ = tl.gemm_geometry(M, N, K, tl.TN, splits)
+    part = part.view(splits, M, N).cpu().double()
+    for z in range(splits):
+        k0, k1 = min(K, z * kchunk), min(K, (z + 1) * kchunk)
+        want = g[k0:k1].double().T @ x[k0:k1].double()
+        assert (part[z] - want).abs().max().item() <= 1e-5 * max(
+            1.0, want.abs().max().item()), z
+    want = g.double().T @ x.double()
+    assert (part.sum(0) - want).abs().max().item() <= 1e-5 * want.abs().max(
+        ).item()
+
+
+@pytest.mark.cuda
+def test_layer_gemm_refuses_misaligned_rows(cuda):
+    """A row length that breaks 16-byte cp.async copies (K % 4 in layouts 0
+    and 1, M % 4 in layout 2, N % 4 in all) is refused, not read past."""
+    tl = importlib.import_module("graphtrans_tpu_torch.ops.kernels."
+                                 "transformer_layer")
+    lib = tl._load()
+    x = torch.randn(64, 99, device=cuda)
+    w = torch.randn(128, 99, device=cuda)
+    with pytest.raises(RuntimeError, match="layer_gemm"):
+        tl._gemm(lib, x, w, 64, 128, 99, tl.NT)
+    with pytest.raises(RuntimeError, match="layer_gemm"):
+        tl._gemm(lib, torch.randn(99, 66, device=cuda),
+                 torch.randn(99, 64, device=cuda), 66, 64, 99, tl.TN)
+    with pytest.raises(RuntimeError, match="layer_gemm"):
+        tl._gemm(lib, torch.randn(64, 96, device=cuda),
+                 torch.randn(96, 98, device=cuda), 64, 98, 96, tl.NN)
 
 
 @pytest.mark.cuda
