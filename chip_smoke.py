@@ -4,11 +4,11 @@ NVIDIA card.
 usage: python3 chip_smoke.py [--trace trace.json] [--baseline DIR]
 
 ``--baseline DIR`` names a checkout of an earlier commit (its
-graphtrans_tpu_torch/ tree; for one run, never committed): phases 8a, 9a,
-10a and 11a then build its K3-bwd, K4, K5 and K9 (forward, serving and
-training), K4-bwd, K5-bwd, K9-bwd, K10 and K10-bwd from its own sources and
-time them beside this tree's, in turns (earlier, this, this, earlier), on
-the same inputs.
+graphtrans_tpu_torch/ tree; for one run, never committed): phases 2, 6a,
+7a, 8a, 9a, 10a and 11a then build its K2, K3-bwd, K4, K5 and K9 (forward,
+serving and training), K2-bwd, K4-bwd, K5-bwd, K9-bwd, K10 and K10-bwd from
+its own sources and time them beside this tree's, in turns (earlier, this,
+this, earlier), on the same inputs.
 
 Phases, each printing one line (any failure raises and exits non-zero):
   0. the card (nvidia-smi name and power limit) and torch; TF32 off;
@@ -38,7 +38,9 @@ Phases, each printing one line (any failure raises and exits non-zero):
   7. code2 serving (the published GCN-virtual config, flat layout, packing
      tiers 1024/512, 384, 128): (a) holds K3 (flash_hil_seg) and K7 (spmm)
      against their plain versions at the code2 snapshot's shapes and at the
-     512-graph bench shape, and times them; (b) serves the code2 snapshot's
+     512-graph bench shape, and times them; K2 at the bench batch's 384 and
+     128 tiers, held and timed beside bound, plain version and SDPA; (b)
+     serves the code2 snapshot's
      valid and test splits through ``python -m graphtrans_tpu_torch.predict``
      (batches of 16), counting K2, K3 and K7 launches, checking records and
      F1, and holds the logits through the kernels against the plain
@@ -48,7 +50,8 @@ Phases, each printing one line (any failure raises and exits non-zero):
      K3-bwd and K7-bwd against their plain versions and autograd at the
      snapshot's train-batch shape and the 512-graph shape, and times them
      beside bound, plain backward and library yardstick (with
-     ``--baseline``, K3-bwd also beside the earlier design's); (b) trains the
+     ``--baseline``, K3-bwd also beside the earlier design's); K2 with
+     dropout and K2-bwd at the bench batch's 384 and 128 tiers; (b) trains the
      published code2 config at full width on the snapshot through ``python
      -m graphtrans_tpu_torch.main`` (2 epochs, batches of 16), counting
      launches, checking finite losses and moved parameters, and holds one
@@ -317,6 +320,25 @@ def turns_ms(new, old, iters: int):
     return (n1 + n2) / 2, (o1 + o2) / 2
 
 
+def same_bits(what: str, new, old, checked: list):
+    """With ``old`` (the parent's kernel, under ``--baseline``): raise
+    unless ``new()`` and ``old()`` give the same bits on the same inputs,
+    output by output, and add ``what`` to ``checked``."""
+    if old is None:
+        return
+    a, b = new(), old()
+    a, b = ((t if isinstance(t, (tuple, list)) else (t,)) for t in (a, b))
+    for i, (x, y) in enumerate(zip(a, b, strict=True)):
+        if (x is None) != (y is None) or (x is not None
+                                          and not torch.equal(x, y)):
+            diff = (None if x is None or y is None
+                    else (x - y).abs().max().item())
+            raise AssertionError(f"{what}: output {i} differs from the "
+                                 f"parent's kernel's on the same inputs "
+                                 f"(max |diff| {diff})")
+    checked.append(what)
+
+
 def alternating_ms(fns, rounds: int, iters: int):
     """Each of ``fns`` timed with ``time_ms`` once a round, in the same
     order every round, over ``rounds`` rounds: a list of ms per fn."""
@@ -431,13 +453,31 @@ def k1_bound(args):
     return _bound(nbytes, flops)
 
 
-def k2_bound(qkv, seg, nhead: int):
+def k2_bound(qkv, seg, nhead: int, tensor_cores: bool = False):
+    """K2 reads qkv and seg and writes out; the operations of _fwd_bound for
+    the same-segment pairs of every head, f32 SIMT as the tile instance
+    (rows of up to 128) computes them, or with ``tensor_cores`` 3xTF32 as
+    the long instance's forward does."""
     R, W, d3 = qkv.shape
     hd = d3 // 3 // nhead
     _, counts = torch.unique(seg[seg >= 0], return_counts=True)
     pairs = int((counts.long() ** 2).sum().item())   # same-segment (q, k)
     nbytes = (qkv.numel() * 4 + seg.numel() * 4 + R * W * (d3 // 3) * 4)
-    return _bound(nbytes, pairs * nhead * (4 * hd + 4))
+    return _fwd_bound(nbytes, pairs * nhead, hd, tensor_cores)
+
+
+def k2_instances() -> str:
+    """K2's and K2-bwd's launches since the last reset by instance ("tile",
+    "long"), for a main path's launch line; raises if they do not add up to
+    the launch counts."""
+    from graphtrans_tpu_torch.ops import kernels
+
+    for fn in (kernels.attention_seg, kernels.attention_seg_bwd):
+        if sum(fn.instances.values()) != fn.launches:
+            raise AssertionError(f"{fn.__name__}: instances {fn.instances} "
+                                 f"do not add up to {fn.launches} launches")
+    return (f"; K2 by instance {dict(kernels.attention_seg.instances)}, "
+            f"K2-bwd {dict(kernels.attention_seg_bwd.instances)}")
 
 
 def sdpa_mask_ms(qkv, mask, nhead: int, iters: int = 20) -> float:
@@ -458,7 +498,7 @@ def sdpa_ms(qkv, seg, nhead: int) -> float:
     return sdpa_mask_ms(qkv, mask, nhead)
 
 
-def phase2(device, d_gnn: int, d_model: int, nhead: int, big):
+def phase2(device, d_gnn: int, d_model: int, nhead: int, big, base=None):
     from graphtrans_tpu_torch.data.loader import iterate_batches
     from graphtrans_tpu_torch.data.mol import load_mol_splits
     from graphtrans_tpu_torch.ops.kernels import (attention_seg,
@@ -490,7 +530,11 @@ def phase2(device, d_gnn: int, d_model: int, nhead: int, big):
                   library_ms=None)
         k1["bound_ms"], k1["bound_by"] = k1_bound(args)
         qkv, seg = k2_inputs(b, d_model, gen, device, pad_rows=0)
-        k2 = dict(ms=time_ms(lambda: attention_seg(qkv, seg, nhead), iters=20),
+        ms, earlier = turns_ms(
+            lambda: attention_seg(qkv, seg, nhead),
+            base and (lambda: base["attention_packed"].attention_seg(
+                qkv, seg, nhead)), 20)
+        k2 = dict(ms=ms, earlier_ms=earlier,
                   plain_ms=time_ms(
                       lambda: attention_seg_plain(qkv, seg, nhead), iters=5),
                   library_ms=sdpa_ms(qkv, seg, nhead))
@@ -501,9 +545,12 @@ def phase2(device, d_gnn: int, d_model: int, nhead: int, big):
         for kname, t in (("K1 gin_agg", k1), ("K2 attention_seg", k2)):
             lib = ("-" if t["library_ms"] is None
                    else f"{t['library_ms']:.4f}")
+            earlier = ("" if "earlier_ms" not in t else
+                       f" (the parent's {_ms(t['earlier_ms'])}, in turns)")
             print(f"[2] {name} {kname} [{t['shape']}]: kernel "
-                  f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
-                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library {lib} ms")
+                  f"{t['ms']:.4f} ms{earlier}, plain {t['plain_ms']:.4f} ms, "
+                  f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), library "
+                  f"{lib} ms")
         rows.append((k1, k2))
     return dict(k1_err=k1_err, k2_err=k2_err, timed=rows[-1])
 
@@ -539,13 +586,14 @@ def phase3(device, tmp: str):
     secs = time.perf_counter() - t0
     launches = {"gin_agg": kernels.gin_agg.launches,
                 "attention_seg": kernels.attention_seg.launches}
+    by_instance = k2_instances()
     want = {"gin_agg": GIN_LAYERS_PER_FORWARD * batches,
             "attention_seg": ENCODER_LAYERS_PER_FORWARD * batches}
     if launches != want:
         raise AssertionError(f"launches {launches}, expected {want}")
     print(f"[3] served {records} graphs of the molpcba snapshot in {batches} "
           f"batches of <= {BATCH} ({secs:.2f} s with model builds); "
-          f"launches {launches} = 5 and 4 per batch")
+          f"launches {launches} = 5 and 4 per batch{by_instance}")
 
     args = _args()
     layout = predict.serving_layout(splits, args, num_tasks)
@@ -705,14 +753,15 @@ def check_k1_bwd(args, gout):
 def check_k2_train(qkv, seg, nhead: int, rate: float, seed: int, gen):
     """K2 forward with dropout ``rate`` and K2-bwd against the plain
     version (the same mask) and its autograd."""
-    from graphtrans_tpu_torch.ops.kernels import (attention_seg,
-                                                  attention_seg_bwd,
+    from graphtrans_tpu_torch.ops.kernels import (attention_seg_bwd,
                                                   attention_seg_bwd_plain,
                                                   attention_seg_plain)
+    from graphtrans_tpu_torch.ops.kernels.attention_packed import (
+        attention_seg_with_stats)
 
-    out = attention_seg(qkv, seg, nhead, rate, seed)
+    out, m, l = attention_seg_with_stats(qkv, seg, nhead, rate, seed)
     g = torch.randn(out.shape, generator=gen).to(qkv.device)
-    dqkv = attention_seg_bwd(qkv, seg, nhead, g, rate, seed)
+    dqkv = attention_seg_bwd(qkv, seg, nhead, g, (out, m, l), rate, seed)
     torch.cuda.synchronize()
     f_err = (out - attention_seg_plain(qkv, seg, nhead, rate, seed)
              ).abs().max().item()
@@ -744,25 +793,21 @@ def k1_bwd_bound(args, gout):
     return _bound(nbytes, flops)
 
 
-def k2_bwd_bound(qkv, seg, nhead: int):
-    R, W, d3 = qkv.shape
-    hd = d3 // 3 // nhead
-    _, counts = torch.unique(seg[seg >= 0], return_counts=True)
-    pairs = int((counts.long() ** 2).sum().item())
-    # qkv, seg and dO in, dqkv out; per same-segment pair and head: the
-    # score, dp = dO.v, and the dq, dk and dv products (2*hd each), plus
-    # the softmax and dropout arithmetic
-    nbytes = (2 * qkv.numel() * 4 + seg.numel() * 4 + R * W * (d3 // 3) * 4)
-    return _bound(nbytes, pairs * nhead * (10 * hd + 8))
+def k2_bwd_bound(qkv, seg, nhead: int, tensor_cores: bool = False):
+    """K2-bwd reads what K3-bwd reads (k3_bwd_bound), the forward's out, m
+    and l among them; its products f32 SIMT as the tile instance (rows of
+    up to 128) computes them, or with ``tensor_cores`` 3xTF32 as the long
+    instance's long-row pair does."""
+    return k3_bwd_bound(qkv, seg, nhead, tensor_cores)
 
 
 def k3_bwd_bound(qkv, seg, nhead: int, tensor_cores: bool = True):
     """K3-bwd reads qkv, seg, the cotangent and the forward's out, m and l,
-    and writes dqkv; per same-segment pair and head the products of
-    k2_bwd_bound (10*hd flops) and the softmax and dropout arithmetic (8).
-    By default the products are timed as the long-row backward runs them,
-    3xTF32 on the tensor cores (``tensor_cores=False``: the f32 SIMT bound,
-    printed beside it)."""
+    and writes dqkv; per same-segment pair and head the score, dp = dO.v
+    and the dq, dk and dv products (2*hd flops each) and the softmax and
+    dropout arithmetic (8). By default the products are timed as the
+    long-row backward runs them, 3xTF32 on the tensor cores
+    (``tensor_cores=False``: the f32 SIMT bound, printed beside it)."""
     R, W, d3 = qkv.shape
     hd = d3 // 3 // nhead
     _, counts = torch.unique(seg[seg >= 0], return_counts=True)
@@ -800,15 +845,49 @@ def sdpa_bwd_mask_ms(qkv, mask, nhead: int, g, rate: float,
                        iters=iters)
 
 
-def phase6_kernels(device, d_gnn: int, d_model: int, nhead: int, big):
-    """(a) K1-bwd and K2-bwd (and K2 with dropout) against autograd through
-    the plain versions at the serving and 4096-graph shapes; times."""
-    from graphtrans_tpu_torch.data.loader import iterate_batches
-    from graphtrans_tpu_torch.data.mol import load_mol_splits
+def time_k2_train(qkv, seg, nhead: int, g, seed: int, base=None):
+    """K2-bwd at the training dropout rate from the forward's saved
+    statistics, beside plain backward, SDPA's backward, bound and (with
+    ``base``) the parent's backward in turns; and K2's training forward
+    (dropout, statistics) beside the parent's, and the serving forward."""
     from graphtrans_tpu_torch.ops.kernels import (attention_seg,
                                                   attention_seg_bwd,
-                                                  attention_seg_plain,
-                                                  gin_agg_bwd, gin_agg_plain)
+                                                  attention_seg_plain)
+    from graphtrans_tpu_torch.ops.kernels.attention_packed import (
+        attention_seg_with_stats, seg_instance)
+
+    saved = attention_seg_with_stats(qkv, seg, nhead, DROPOUT, seed)
+    old = base and base["attention_packed"]
+    ms, earlier = turns_ms(
+        lambda: attention_seg_bwd(qkv, seg, nhead, g, saved, DROPOUT,
+                                  seed),
+        old and (lambda: old.attention_seg_bwd(qkv, seg, nhead, g, DROPOUT,
+                                               seed)), 20)
+    k2 = dict(ms=ms, earlier_ms=earlier,
+              plain_ms=_plain_bwd_ms(
+                  lambda t: attention_seg_plain(t, seg, nhead, DROPOUT, seed),
+                  [qkv], g),
+              library_ms=sdpa_bwd_ms(qkv, seg, nhead, g, DROPOUT))
+    long = seg_instance(qkv.shape[1]) == "long"
+    k2["bound_ms"], k2["bound_by"] = k2_bwd_bound(qkv, seg, nhead, long)
+    if long:
+        k2["f32_simt_bound_ms"] = k2_bwd_bound(qkv, seg, nhead)[0]
+    fwd_drop = turns_ms(
+        lambda: attention_seg_with_stats(qkv, seg, nhead, DROPOUT, seed),
+        old and (lambda: old.attention_seg(qkv, seg, nhead, DROPOUT, seed)),
+        20)
+    fwd_plain = time_ms(lambda: attention_seg(qkv, seg, nhead), iters=20)
+    return k2, fwd_drop, fwd_plain
+
+
+def phase6_kernels(device, d_gnn: int, d_model: int, nhead: int, big,
+                   base=None):
+    """(a) K1-bwd and K2-bwd (and K2 with dropout) against autograd through
+    the plain versions at the serving and 4096-graph shapes; times, K2 and
+    K2-bwd beside ``base``'s (the parent's) in turns."""
+    from graphtrans_tpu_torch.data.loader import iterate_batches
+    from graphtrans_tpu_torch.data.mol import load_mol_splits
+    from graphtrans_tpu_torch.ops.kernels import gin_agg_bwd, gin_agg_plain
     from graphtrans_tpu_torch.predict import serving_layout
 
     gen = torch.Generator().manual_seed(SEED + 6)
@@ -846,16 +925,8 @@ def phase6_kernels(device, d_gnn: int, d_model: int, nhead: int, big):
         seed = 7654321
         g = torch.randn(qkv.shape[0], qkv.shape[1], d_model,
                         generator=gen).to(device)
-        k2 = dict(ms=time_ms(lambda: attention_seg_bwd(
-                      qkv, seg, nhead, g, DROPOUT, seed), iters=20),
-                  plain_ms=_plain_bwd_ms(
-                      lambda t: attention_seg_plain(t, seg, nhead, DROPOUT,
-                                                    seed), [qkv], g),
-                  library_ms=sdpa_bwd_ms(qkv, seg, nhead, g, DROPOUT))
-        k2["bound_ms"], k2["bound_by"] = k2_bwd_bound(qkv, seg, nhead)
-        fwd_drop = time_ms(lambda: attention_seg(qkv, seg, nhead, DROPOUT,
-                                                 seed), iters=20)
-        fwd_plain = time_ms(lambda: attention_seg(qkv, seg, nhead), iters=20)
+        k2, fwd_drop, fwd_plain = time_k2_train(qkv, seg, nhead, g, seed,
+                                                base)
         k1["shape"] = "G={} Sm={} Em={} d={}".format(
             *inp["x"].shape[:2], inp["src"].shape[1], d_gnn)
         k2["shape"] = (f"R={qkv.shape[0]} W={qkv.shape[1]} d={d_model} "
@@ -868,8 +939,10 @@ def phase6_kernels(device, d_gnn: int, d_model: int, nhead: int, big):
                   f"{t['ms']:.4f} ms, plain backward {t['plain_ms']:.4f} ms, "
                   f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), library "
                   f"{lib} ms")
-        print(f"[6a] {name} K2 forward with dropout {DROPOUT}: "
-              f"{fwd_drop:.4f} ms (without: {fwd_plain:.4f} ms)")
+        print(f"[6a] {name} K2-bwd: the parent's {_ms(k2['earlier_ms'])}, "
+              f"in turns; K2 forward with dropout {DROPOUT} and saved "
+              f"statistics (training) {fwd_drop[0]:.4f} ms (the parent's "
+              f"{_ms(fwd_drop[1])}), without dropout {fwd_plain:.4f} ms")
         rows.append((k1, k2))
     print(f"[6a] backward kernels agree with autograd through their plain "
           f"versions: K1-bwd max err {k1_err:.3g} (<= {GRAD_TOL}; dT and "
@@ -924,6 +997,7 @@ def phase6_train(device, tmp: str):
         res = train_main.main(argv)
     secs = time.perf_counter() - t0
     launches = kernels.launch_counts()
+    by_instance = k2_instances()
     for line in out.getvalue().splitlines():
         print(f"[6b] main: {line}")
     steps = sum(r["steps"] for r in res["epochs"])
@@ -951,7 +1025,8 @@ def phase6_train(device, tmp: str):
           f"graphtrans_tpu_torch.main: losses "
           f"{[round(r['loss'], 6) for r in res['epochs']]}, "
           f"{len(params) - len(still)} of {len(params)} parameter tensors "
-          f"moved; launches {launches} = 5, 5, 4 and 4 per step")
+          f"moved; launches {launches} = 5, 5, 4 and 4 per step"
+          f"{by_instance}")
 
     layout = serving_layout(splits, args, num_tasks, BATCH)
     batch = next(iterate_batches(
@@ -1090,7 +1165,81 @@ def k7_bound(args):
     return _bound(nbytes, 4 * valid * d)
 
 
-def phase7_kernels(device, d_gnn: int, d_model: int, nhead: int, bench):
+def k2_tier_inputs(batch, tier: str, d: int, gen: torch.Generator, device):
+    """K2's arguments on one packing tier of ``batch`` (random qkv): code2's
+    "pack2" (rows of 384) and "pack3" (rows of 128)."""
+    R, W = getattr(batch, f"{tier}_rows"), getattr(batch, f"{tier}_w")
+    seg = torch.as_tensor(getattr(batch, f"{tier}_seg")).reshape(R, W)
+    return torch.randn(R, W, 3 * d, generator=gen).to(device), seg.to(device)
+
+
+def _simt(t) -> str:
+    """The f32 SIMT bound printed beside a tensor-core bound, where kept."""
+    return ("" if "f32_simt_bound_ms" not in t else
+            f"; products on the tensor cores in 3xTF32, "
+            f"{t['f32_simt_bound_ms']:.4f} ms at the f32 SIMT peak")
+
+
+def time_k2_tiers(tag: str, device, d_model: int, nhead: int, bench,
+                  gen: torch.Generator, base, train: bool):
+    """K2 (serving) or K2-bwd (training, dropout 0.3) at the code2 bench
+    batch's two K2 tiers: held against the plain version, then timed beside
+    the parent's (with ``base``, in turns), plain version, bound and SDPA."""
+    from graphtrans_tpu_torch.ops.kernels import (attention_seg,
+                                                  attention_seg_plain)
+    from graphtrans_tpu_torch.ops.kernels.attention_packed import (
+        seg_instance)
+
+    old = base and base["attention_packed"]
+    rows = {}
+    for tier in ("pack2", "pack3"):
+        qkv, seg = k2_tier_inputs(bench, tier, d_model, gen, device)
+        R, W = seg.shape
+        shape = f"R={R} W={W} d={d_model} H={nhead}"
+        if train:
+            f_err, b_err, g = check_k2_train(qkv, seg, nhead, DROPOUT,
+                                             2**31 - 3, gen)
+            t, fwd_drop, fwd_plain = time_k2_train(qkv, seg, nhead, g,
+                                                   7654321, base)
+            print(f"[{tag}] bench{CODE2_BENCH} K2-bwd attention_seg_bwd "
+                  f"({seg_instance(W)}) [{shape} rate={DROPOUT}]: kernel "
+                  f"{t['ms']:.4f} ms (the parent's {_ms(t['earlier_ms'])}, "
+                  f"in turns), plain backward {t['plain_ms']:.4f} ms, bound "
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}{_simt(t)}), "
+                  f"library "
+                  f"{t['library_ms']:.4f} ms (SDPA backward, bool seg mask, "
+                  f"dropout {DROPOUT}); training forward {fwd_drop[0]:.4f} "
+                  f"ms (the parent's {_ms(fwd_drop[1])}); within "
+                  f"{f_err:.3g} (forward) and {b_err:.3g} (backward) of the "
+                  f"plain version")
+        else:
+            err = check_k2(qkv, seg, nhead)
+            ms, earlier = turns_ms(
+                lambda: attention_seg(qkv, seg, nhead),
+                old and (lambda: old.attention_seg(qkv, seg, nhead)), 20)
+            t = dict(ms=ms, earlier_ms=earlier,
+                     plain_ms=time_ms(
+                         lambda: attention_seg_plain(qkv, seg, nhead),
+                         iters=5),
+                     library_ms=sdpa_ms(qkv, seg, nhead))
+            long = seg_instance(W) == "long"
+            t["bound_ms"], t["bound_by"] = k2_bound(qkv, seg, nhead, long)
+            if long:
+                t["f32_simt_bound_ms"] = k2_bound(qkv, seg, nhead)[0]
+            print(f"[{tag}] bench{CODE2_BENCH} K2 attention_seg "
+                  f"({seg_instance(W)}) [{shape}]: kernel {t['ms']:.4f} ms "
+                  f"(the parent's {_ms(t['earlier_ms'])}, in turns), plain "
+                  f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                  f"({t['bound_by']}{_simt(t)}), library "
+                  f"{t['library_ms']:.4f} ms "
+                  f"(SDPA, bool seg mask); max |diff| {err:.3g} (<= "
+                  f"{K2_TOL}), padding queries exactly 0")
+        rows[W] = t
+    return rows
+
+
+def phase7_kernels(device, d_gnn: int, d_model: int, nhead: int, bench,
+                   base=None):
     """(a) K3 and K7 against their plain versions at the code2 snapshot's
     shapes (the train split's first batch of 16: W=1024 rows; the test
     split's: W=512) and at the 512-graph bench shape; times at the train
@@ -1144,7 +1293,8 @@ def phase7_kernels(device, d_gnn: int, d_model: int, nhead: int, bench):
             print(f"[7a] {name} {kname} [{t['shape']}]: kernel "
                   f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
                   f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library {lib}")
-    return dict(k3_err=k3_err, k7_err=k7_err, timed=(k3, k7))
+    k2 = time_k2_tiers("7a", device, d_model, nhead, bench, gen, base, False)
+    return dict(k3_err=k3_err, k7_err=k7_err, timed=(k3, k7), k2=k2)
 
 
 def phase7_serve(device, tmp: str):
@@ -1192,6 +1342,7 @@ def phase7_serve(device, tmp: str):
         results[split] = (res, widths)
     secs = time.perf_counter() - t0
     launches = kernels.launch_counts()
+    by_instance = k2_instances()
     want = dict(dict.fromkeys(launches, 0), **want)   # every other: 0
     want = dict(want, gin_agg=0, gin_agg_bwd=0, attention_seg_bwd=0,
                 flash_hil_seg_bwd=0, spmm_bwd=0, attention_dense=0,
@@ -1209,7 +1360,7 @@ def phase7_serve(device, tmp: str):
     print(f"[7b] launches {launches} over {batches} batches ({secs:.2f} s "
           f"with model builds): per batch K7 {launches['spmm'] / batches:g}, "
           f"K3 {launches['flash_hil_seg'] / batches:g}, K2 "
-          f"{launches['attention_seg'] / batches:g}")
+          f"{launches['attention_seg'] / batches:g}{by_instance}")
 
     model = predict.build_model(args, num_tasks, device, code)
     err, n_wide = 0.0, 0
@@ -1454,7 +1605,8 @@ def phase8_kernels(device, d_gnn: int, d_model: int, nhead: int, bench,
               f"with dropout {DROPOUT} and saved statistics (training) "
               f"{fwd['training']:.4f} ms; K7-bwd's SrcOrder (sort and "
               f"searchsorted, once per batch) {order_ms:.4f} ms")
-    return dict(k3_err=k3_err, k7_err=k7_err, timed=(k3b, k7b))
+    k2 = time_k2_tiers("8a", device, d_model, nhead, bench, gen, base, True)
+    return dict(k3_err=k3_err, k7_err=k7_err, timed=(k3b, k7b), k2=k2)
 
 
 @contextlib.contextmanager
@@ -1507,6 +1659,7 @@ def phase8_train(device, tmp: str):
         res = train_main.main(argv)
     secs = time.perf_counter() - t0
     launches = kernels.launch_counts()
+    by_instance = k2_instances()
     for line in out.getvalue().splitlines():
         print(f"[8b] main: {line}")
     steps = sum(r["steps"] for r in res["epochs"])
@@ -1537,7 +1690,7 @@ def phase8_train(device, tmp: str):
           f"graphtrans_tpu_torch.main: losses "
           f"{[round(r['loss'], 6) for r in res['epochs']]}, all "
           f"{len(params)} parameter tensors moved; launches {launches} = "
-          f"K2 8, K3 4, K7 5 per step, each with its backward")
+          f"K2 8, K3 4, K7 5 per step, each with its backward{by_instance}")
 
     layout = predict.serving_layout(splits, args, num_tasks, CODE2_BATCH,
                                     split="train", seed=SEED)
@@ -1936,6 +2089,7 @@ def phase9_kernels(device, mol_bench, code2_bench, base=None):
                 "bench512 S 1001": dense_valid(code2_bench)}
     k4_err = k5_err = 0.0
     timed = {}
+    same = []         # cases whose bits equal the parent's (--baseline)
     for name, valid in k4_cases.items():
         qkv, v, block = k4_inputs(valid, d, gen, device)
         if int(name.split()[-1]) != block or qkv.shape[1] % max(block, 1):
@@ -1950,6 +2104,9 @@ def phase9_kernels(device, mol_bench, code2_bench, base=None):
             lambda: attention_dense(qkv, v, nhead, block),
             base and (lambda: base["attention_packed"].attention_dense(
                 qkv, v, nhead, block)), 20)
+        same_bits(f"K4 {name}", lambda: attention_dense(qkv, v, nhead, block),
+                  base and (lambda: base["attention_packed"].attention_dense(
+                      qkv, v, nhead, block)), same)
         t = dict(ms=ms, earlier_ms=earlier,
                  instance=dense_fwd_geometry(*qkv.shape[:2], block,
                                              d // nhead, nhead, False,
@@ -1993,6 +2150,9 @@ def phase9_kernels(device, mol_bench, code2_bench, base=None):
           f"{K2_TOL}), with m and l within {stats_err:.3g} of the plain "
           f"scores; queries without a key exactly 0, every other query "
           f"(padding queries included) non-zero")
+    if base:
+        print(f"[9a] --baseline: the same bits as the parent's kernel on the "
+              f"same inputs at {same}")
     for (kname, name), t in timed.items():
         print(f"[9a] {name} {kname} ({t['instance']} instance) "
               f"[{t['shape']}]: kernel {t['ms']:.4f} ms against "
@@ -2330,6 +2490,7 @@ def phase10_kernels(device, mol_bench, code2_bench, base=None):
                 "bench512 S 1001": dense_valid(code2_bench)}
     k4_err = k4_ferr = k5_err = k5_ferr = 0.0
     timed = {}
+    same = []         # cases whose bits equal the parent's (--baseline)
     for name, valid in k4_cases.items():
         qkv, v, block = k4_inputs(valid, d, gen, device)
         if int(name.split()[-1]) != block:
@@ -2348,6 +2509,17 @@ def phase10_kernels(device, mol_bench, code2_bench, base=None):
                                         seed, saved),
             base and (lambda: base["attention_packed"].attention_dense_bwd(
                 qkv, v, nhead, g, block, DROPOUT, seed, saved)), 10)
+        old = base and base["attention_packed"]
+        same_bits(f"K4-bwd {name}",
+                  lambda: attention_dense_bwd(qkv, v, nhead, g, block,
+                                              DROPOUT, seed, saved),
+                  old and (lambda: old.attention_dense_bwd(
+                      qkv, v, nhead, g, block, DROPOUT, seed, saved)), same)
+        same_bits(f"K4 training forward {name}",
+                  lambda: attention_dense_with_stats(qkv, v, nhead, block,
+                                                     DROPOUT, seed),
+                  old and (lambda: old.attention_dense_with_stats(
+                      qkv, v, nhead, block, DROPOUT, seed)), same)
         t = dict(ms=ms, earlier_ms=earlier,
                  instance=dense_bwd_geometry(*qkv.shape[:2], block,
                                              d // nhead, nhead).instance,
@@ -2406,6 +2578,9 @@ def phase10_kernels(device, mol_bench, code2_bench, base=None):
           f"first 64 rows) of max(1, max|ref|) from autograd through the "
           f"plain versions (<= {GRAD_TOL}); dead blocks, queries without a "
           f"key and padding keys get exactly 0")
+    if base:
+        print(f"[10a] --baseline: the same bits as the parent's kernels on "
+              f"the same inputs at {same}")
     for (kname, name), t in timed.items():
         if "instance" in t:
             print(f"[10a] {name} {kname} ({t['instance']} instance) "
@@ -2831,6 +3006,7 @@ def phase11_kernels(device, mol_bench, code2_bench, base=None):
                     dense_valid(code2_bench, 149), 2, 64)}
     errs = collections.defaultdict(float)
     timed = {}
+    same = []         # cases whose bits equal the parent's (--baseline)
     for name, (valid, packed, rows) in k9_cases.items():
         if packed is True:
             qkv, v, block = k4_inputs(valid, d, gen, device)
@@ -2862,6 +3038,21 @@ def phase11_kernels(device, mol_bench, code2_bench, base=None):
             base and (lambda: base["attention_smalls"].attention_smalls_bwd(
                 qkv, v, nhead, g, block, DROPOUT, seed, saved)),
             3 if rows else 10)
+        old = base and base["attention_smalls"]
+        same_bits(f"K9 {name}",
+                  lambda: attention_smalls(qkv, v, nhead, block),
+                  old and (lambda: old.attention_smalls(qkv, v, nhead,
+                                                        block)), same)
+        same_bits(f"K9 training forward {name}",
+                  lambda: attention_smalls_with_stats(qkv, v, nhead, block,
+                                                      DROPOUT, seed),
+                  old and (lambda: old.attention_smalls_with_stats(
+                      qkv, v, nhead, block, DROPOUT, seed)), same)
+        same_bits(f"K9-bwd {name}",
+                  lambda: attention_smalls_bwd(qkv, v, nhead, g, block,
+                                               DROPOUT, seed, saved),
+                  old and (lambda: old.attention_smalls_bwd(
+                      qkv, v, nhead, g, block, DROPOUT, seed, saved)), same)
         t = dict(ms=ms, earlier_ms=earlier,
                  instance=fwd_geometry(*qkv.shape[:2], block, d // nhead,
                                        nhead, False, 0.0).instance,
@@ -2946,6 +3137,17 @@ def phase11_kernels(device, mol_bench, code2_bench, base=None):
                                           DROPOUT, seed, saved),
             old and (lambda: old.transformer_layer_bwd(
                 x, v, params, nhead, block, g, DROPOUT, seed, saved)), 5)
+        with torch.no_grad():
+            same_bits(f"K10 {name}",
+                      lambda: transformer_layer(x, v, params, nhead, block),
+                      old and (lambda: old.transformer_layer(
+                          x, v, params, nhead, block)), same)
+        same_bits(f"K10-bwd {name}",
+                  lambda: transformer_layer_bwd(x, v, params, nhead, block,
+                                                g, DROPOUT, seed, saved),
+                  old and (lambda: old.transformer_layer_bwd(
+                      x, v, params, nhead, block, g, DROPOUT, seed, saved)),
+                  same)
         t.update(
             bwd_ms=bwd_ms, bwd_earlier_ms=bwd_earlier,
             bwd_plain_ms=_plain_bwd_ms(
@@ -2971,6 +3173,9 @@ def phase11_kernels(device, mol_bench, code2_bench, base=None):
           f"gradients, on the kernel's relu decisions) with autograd through "
           f"it within {errs['k10_bwd']:.3g} of max(1, max|ref|) (<= "
           f"{GRAD_TOL}) at rates 0 and {DROPOUT}, at {list(k10_cases)}")
+    if base:
+        print(f"[11a] --baseline: the same bits as the parent's kernels on "
+              f"the same inputs at {same}")
     for name, t in ltimed.items():
         print(f"[11a] {name} K10 transformer_layer [{t['shape']}]: kernel "
               f"chain {t['ms']:.4f} ms against {_ms(t['earlier_ms'])} for "
@@ -3517,6 +3722,7 @@ def phase12_serve(device, tmp: str):
         accs[split] = round(res["acc"], 6)
     secs = time.perf_counter() - t0
     launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    by_instance = k2_instances()
     want = {"dense_agg": args.gnn_num_layer * batches,
             "attention_seg": args.num_encoder_layers * batches}
     if launches != want:
@@ -3526,7 +3732,8 @@ def phase12_serve(device, tmp: str):
           f"{batches} batches of <= {args.batch_size}; {secs:.2f} s with "
           f"model builds) through graphtrans_tpu_torch.predict: accuracy "
           f"{accs} (random weights); launches {launches} = "
-          f"{args.gnn_num_layer} and {args.num_encoder_layers} a batch")
+          f"{args.gnn_num_layer} and {args.num_encoder_layers} a batch"
+          f"{by_instance}")
 
     layout = predict.serving_layout(splits, args, num_tasks)
     model = predict.build_model(args, num_tasks, device, data)
@@ -3596,6 +3803,7 @@ def phase12_train(device, tmp: str):
                 os.path.join(tmp, tag)])
         secs = time.perf_counter() - t0
         got = {k: v for k, v in kernels.launch_counts().items() if v}
+        by_instance = k2_instances()
         for line in out.getvalue().splitlines():
             print(f"[12b] main: {line}")
         steps = sum(r["steps"] for r in res["epochs"])
@@ -3626,7 +3834,7 @@ def phase12_train(device, tmp: str):
               f"graphtrans_tpu_torch.main: losses "
               f"{[round(r['loss'], 6) for r in res['epochs']]}, "
               f"{len(params) - len(still)} of {len(params)} parameter "
-              f"tensors moved; launches {got}")
+              f"tensors moved; launches {got}{by_instance}")
         launches.update(got)
 
     layout = predict.serving_layout(splits, args, num_tasks, args.batch_size,
@@ -4054,6 +4262,7 @@ def phase13_serve(device, tmp: str):
                     * (len(widths) - wide) * n)
         results[split] = res
     launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    by_instance = k2_instances()
     if launches != dict(want):
         raise AssertionError(f"code2 blocked serving launches {launches}, "
                              f"expected {dict(want)} (K7 none)")
@@ -4063,7 +4272,7 @@ def phase13_serve(device, tmp: str):
           f"batches of <= {CODE2_BATCH}, no plan overflow in any split): F1 "
           f"{ {s: round(r['F1'], 6) for s, r in results.items()} }; launches "
           f"{launches}: K8 {launches['blocked_gather_message_scatter'] / batches:g}"
-          f" a batch, K7 0")
+          f" a batch, K7 0{by_instance}")
 
     err_plain = err_k7 = 0.0
     emb_same = True
@@ -4123,6 +4332,7 @@ def phase13_serve(device, tmp: str):
             if tag == "kernels":
                 step_launches = {k: v for k, v in
                                  kernels.launch_counts().items() if v}
+                by_instance = k2_instances()
             got[tag] = (loss, {n: p.grad for n, p in
                                model.named_parameters()})
     want = {"blocked_gather_message_scatter": 5,
@@ -4142,7 +4352,8 @@ def phase13_serve(device, tmp: str):
                                  f"{errs[tag][1]}")
     print(f"[13b] one code2 train step on the blocked route (main.build_run, "
           f"set_block_spmm on, deterministic algorithms): launches "
-          f"{step_launches}; loss {lk:.6f}; against the plain versions loss "
+          f"{step_launches}{by_instance}; loss {lk:.6f}; against the plain "
+          f"versions loss "
           f"|diff| {errs['plain'][0]:.3g}, gradients {errs['plain'][1]:.3g}; "
           f"against the K7 route {errs['k7'][0]:.3g}, {errs['k7'][1]:.3g} "
           f"of max(1, max|ref|) (<= {LOGITS_TOL}, {GRAD_TOL})")
@@ -4235,9 +4446,9 @@ def main(argv=None) -> int:
     p.add_argument("--trace", default=None,
                    help="write phase 5's chrome trace to this file")
     p.add_argument("--baseline", default=None,
-                   help="a checkout of an earlier commit whose K3-bwd, K4, "
-                        "K5, K4-bwd, K5-bwd, K9, K9-bwd, K10 and K10-bwd "
-                        "phases 8a-11a time beside this tree's")
+                   help="a checkout of an earlier commit whose K2, K2-bwd, "
+                        "K3-bwd, K4, K5, K4-bwd, K5-bwd, K9, K9-bwd, K10 and "
+                        "K10-bwd phases 2, 6a-11a time beside this tree's")
     opts = p.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4271,12 +4482,13 @@ def main(argv=None) -> int:
     big = mol_bench_batch(4096, SEED)
     print(f"[2] collated the 4096-graph batch in "
           f"{time.perf_counter() - t0:.1f} s")
-    timing = phase2(device, args.gnn_emb_dim, args.d_model, args.nhead, big)
+    timing = phase2(device, args.gnn_emb_dim, args.d_model, args.nhead, big,
+                    base)
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase3(device, tmp)
     phase5(*phase4(device, big, smi), smi, opts.trace)
     train = phase6_kernels(device, args.gnn_emb_dim, args.d_model, args.nhead,
-                           big)
+                           big, base)
     with tempfile.TemporaryDirectory() as tmp:
         train_launches = phase6_train(device, tmp)
     phase6_step4096(device, big, smi)
@@ -4286,7 +4498,7 @@ def main(argv=None) -> int:
     print(f"[7] collated the {CODE2_BENCH}-graph code2 batch in "
           f"{time.perf_counter() - t0:.1f} s")
     code2 = phase7_kernels(device, args.gnn_emb_dim, args.d_model,
-                           args.nhead, bench)
+                           args.nhead, bench, base)
     with tempfile.TemporaryDirectory() as tmp:
         code2_launches = phase7_serve(device, tmp)
     phase7_forward(device, bench, bench_tasks, smi)

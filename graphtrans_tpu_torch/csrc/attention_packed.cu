@@ -9,17 +9,41 @@
 // valid [B, S] -> out [B, S, d]; key j is attendable by query i iff
 // valid[j] and, with block > 0, i / block == j / block.
 //
-// K2's forward: one block per (row, head), one thread per query. K_h, V_h
-// and the row's seg are staged in shared memory and read as broadcasts; q
-// and the output stay in registers and the softmax runs online (running
-// max and denominator) in one pass over the keys of the query's segment.
 // Dropout (torch semantics: normalise by the undropped denominator, then
 // drop and scale by 1/(1-rate)) keeps (i, j) iff hash(pos, seed') <
 // thresh, with pos = ((r % bt)*W + i)*sp + j and seed' = seed + (r /
 // bt)*stride + h (stride H; H + 3 when K4's kernels run inside K10's
 // layer, transformer_layer.cu): the counter hash of the JAX package's
 // interpret mode, so forward, backward and the plain version draw the same
-// mask from (seed, r, h, i, j) and nothing is stored.
+// mask from (seed, r, h, i, j) and nothing is stored. The Dropout policy
+// below is the Keep of every body K2 and K4 run.
+//
+// K2 does the work of each graph once: one attention problem per (row,
+// graph segment, head). Rows of up to 128 tokens (every molecule row,
+// NCI1's, code2's 128 tier) take the whole-span bodies of
+// attention_tile.cuh with SegRuns as the span source: one block of 256
+// threads per (row, head) finds the row's segments from seg itself (no
+// host synchronisation), stages the row's Q, K, V (and dO) once, and runs
+// each segment as one problem: the scores once into a shared tile, an
+// exact two-pass softmax and O = P_drop V / l (forward); delta = dO.O, p,
+// dp and ds of each pair once with one dropout draw, then dQ, dK and dV
+// (backward); all by register-blocked 4 x 4 micro-tiles, one writer a cell.
+// A row in which one graph id forms two runs takes the whole row as one
+// problem under K2's mask itself. Wider rows (129-384 tokens: code2's 384
+// tier, graphs of 129-384 tokens) take the long-row forward of
+// attention_fwd.cuh and the long-row pair of attention_bwd.cuh with seg
+// as both tags (K3-bwd's SegTags), which take any seg. Where a gradient is
+// wanted the forward writes m and l [R, W, H] (attention_fwd.cuh's
+// meaning) and the backward reads them. The wrapper's seg_fwd_geometry and
+// seg_bwd_geometry pick the instance by W; the entries check the launch.
+// What it replaces: one block per (row, head) with one thread per query
+// walking all W keys of the row, each key one hd-long dependent FMA chain,
+// other graphs' keys skipped only after their tag was read, the whole
+// row's K and V staged for every head; and a backward that recomputed m, l
+// and delta and computed s = q.k and the dropout hash of every pair twice.
+// Bound on the H100: memory (qkv, seg in, out back: 0.072 ms at 923 rows
+// of 128, d 128; the backward 0.127 ms); about a fifth of a molecule
+// row's W x W pairs share a segment.
 //
 // K4's forward has two instances, picked by the span width (a graph block,
 // or the row at block 0) in the wrapper's dense_fwd_geometry: spans of up
@@ -30,19 +54,9 @@
 // several spans a block where one is small); wider ones (block 0, rows of
 // 129-384) the long-row forward of attention_fwd.cuh (K5's: keys gathered
 // by rank, products on the tensor cores in 3xTF32) with K4's mask as its
-// tags. Both draw K2's mask through the Dropout policy below (as K4's
+// tags. Both draw K2's mask through the Dropout policy (as K4's
 // backward does) and, where a gradient is wanted, write m and l per (row,
-// query, head) with attention_fwd.cuh's meaning. What they replace: one
-// block per (row, head), a thread per query walking its block's keys with
-// one hd-long dependent FMA chain per key and the whole row's K and V staged
-// for every head (168 registers a thread at hd 64).
-//
-// K2's backward: Q_h, K_h, V_h and dO_h of the row in shared memory. Pass
-// A, one thread per query: recompute the running max m_i and denominator
-// l_i and delta_i = sum_j p_ij dp_ij in one online pass, then dq_i in a
-// second pass. Pass B, one thread per key: dk_j and dv_j as sums over the
-// queries of its segment, with m, 1/l and delta of every query from shared
-// memory. Every output cell has one writer: no atomics.
+// query, head) with attention_fwd.cuh's meaning.
 //
 // K4's backward runs on attention_tile.cuh, one fused kernel per span (a
 // graph block, or the row at block 0): delta = dO.O, p, dp and ds of each
@@ -55,13 +69,12 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attention_bwd.cuh"
 #include "attention_fwd.cuh"
 #include "attention_tile.cuh"
 #include "hash.cuh"
 
 namespace {
-
-using prng::hash_bits;
 
 struct Dropout {
   int on;            // 0: rate 0, the identity
@@ -72,236 +85,19 @@ struct Dropout {
   int sp;            // W rounded up to 128
   int stride;        // seeds a tile: H (K2, K4), H + 3 (K10's layer)
 
-  // keep (i, j) of a row whose tile seed is hseed = seed + (r / bt)*stride + h
-  // and whose place in its tile is rowpos = r % bt (both hoisted out of
-  // K2's loops)
-  __device__ bool at(unsigned hseed, unsigned rowpos, int i, int j,
-                     int W) const {
-    const unsigned pos = (rowpos * W + i) * (unsigned)sp + j;
-    return hash_bits(pos, hseed) < thresh;
-  }
-
-  // keep (r, h, i, j): the Keep policy of attention_tile.cuh (K4-bwd)
+  // keep (r, h, i, j) of a row of W tokens: the Keep policy of the bodies
   __device__ bool operator()(long r, int h, int H, int W, int i,
                              int j) const {
-    return at((unsigned)seed + (unsigned)(r / bt) * stride + h,
-              (unsigned)(r % bt), i, j, W);
+    const unsigned hseed = (unsigned)seed + (unsigned)(r / bt) * stride + h;
+    const unsigned pos = ((unsigned)(r % bt) * W + i) * (unsigned)sp + j;
+    return prng::hash_bits(pos, hseed) < thresh;
   }
 };
 
-constexpr int W_MAX = 384;  // widest row (K2: threads a block)
-
-// K2's forward: one block per (row, head), one thread per query; a padding
-// query (seg -1) attends nothing and writes zeros.
-template <int HD>
-__global__ void attention_seg_fwd_kernel(const float* __restrict__ qkv,
-                                         const int* __restrict__ seg,
-                                         float* __restrict__ out, int W,
-                                         int d, float scale, Dropout dr) {
-  extern __shared__ float smem[];
-  float* ks = smem;                                  // [W][HD]
-  float* vs = ks + W * HD;                           // [W][HD]
-  int* ss = reinterpret_cast<int*>(vs + W * HD);     // [W]
-
-  const long r = blockIdx.x;
-  const int h = blockIdx.y;
-  const int i = threadIdx.x;  // blockDim.x == W
-  const long d3 = 3L * d;
-  const float* row = qkv + r * W * d3;
-  const unsigned hseed =
-      (unsigned)dr.seed + (unsigned)(r / dr.bt) * dr.stride + (unsigned)h;
-  const unsigned rowpos = (unsigned)(r % dr.bt);
-
-  for (int idx = i; idx < W * HD; idx += blockDim.x) {
-    const int j = idx / HD, c = idx % HD;
-    ks[idx] = row[j * d3 + d + h * HD + c];
-    vs[idx] = row[j * d3 + 2 * d + h * HD + c];
-  }
-  ss[i] = seg[r * W + i];
-  __syncthreads();
-
-  const int ti = ss[i];
-  float o[HD];
-#pragma unroll
-  for (int c = 0; c < HD; ++c) o[c] = 0.f;
-  if (ti >= 0) {
-    float q[HD];
-    const float* qi = row + i * d3 + h * HD;
-#pragma unroll
-    for (int c = 0; c < HD; ++c) q[c] = qi[c] * scale;
-    float m = -INFINITY, l = 0.f;
-    for (int j = 0; j < W; ++j) {
-      if (ss[j] != ti) continue;
-      const float* kj = ks + j * HD;
-      float s = 0.f;
-#pragma unroll
-      for (int c = 0; c < HD; ++c) s = fmaf(q[c], kj[c], s);
-      if (s > m) {
-        const float a = expf(m - s);  // 0 on the first key (m = -inf)
-        l *= a;
-#pragma unroll
-        for (int c = 0; c < HD; ++c) o[c] *= a;
-        m = s;
-      }
-      const float p = expf(s - m);
-      l += p;
-      if (dr.on && !dr.at(hseed, rowpos, i, j, W)) continue;
-      const float* vj = vs + j * HD;
-#pragma unroll
-      for (int c = 0; c < HD; ++c) o[c] = fmaf(p, vj[c], o[c]);
-    }
-    const float inv = (dr.on ? dr.inv_keep : 1.f) / fmaxf(l, 1e-16f);
-#pragma unroll
-    for (int c = 0; c < HD; ++c) o[c] *= inv;
-  }
-  float* oi = out + (r * W + i) * d + h * HD;
-#pragma unroll
-  for (int c = 0; c < HD; ++c) oi[c] = o[c];
-}
-
-template <int HD>
-__global__ void __launch_bounds__(384)
-attention_seg_bwd_kernel(const float* __restrict__ qkv,
-                         const int* __restrict__ seg,
-                         const float* __restrict__ gout,
-                         float* __restrict__ dqkv, int W, int d, float scale,
-                         Dropout dr) {
-  extern __shared__ float smem[];
-  float* qs = smem;                                  // [W][HD]
-  float* ks = qs + W * HD;                           // [W][HD]
-  float* vs = ks + W * HD;                           // [W][HD]
-  float* gs = vs + W * HD;                           // [W][HD] dO
-  float* mrow = gs + W * HD;                         // [W] running max
-  float* linv = mrow + W;                            // [W] 1 / denominator
-  float* delta = linv + W;                           // [W] sum_j p dp
-  int* ss = reinterpret_cast<int*>(delta + W);       // [W]
-
-  const long r = blockIdx.x;
-  const int h = blockIdx.y;
-  const int t = threadIdx.x;  // blockDim.x == W
-  const long d3 = 3L * d;
-  const float* row = qkv + r * W * d3;
-  const float* grow = gout + r * W * d;
-  float* drow = dqkv + r * W * d3;
-  const unsigned hseed =
-      (unsigned)dr.seed + (unsigned)(r / dr.bt) * dr.stride + (unsigned)h;
-  const unsigned rowpos = (unsigned)(r % dr.bt);
-
-  for (int idx = t; idx < W * HD; idx += blockDim.x) {
-    const int j = idx / HD, c = idx % HD;
-    qs[idx] = row[j * d3 + h * HD + c];
-    ks[idx] = row[j * d3 + d + h * HD + c];
-    vs[idx] = row[j * d3 + 2 * d + h * HD + c];
-    gs[idx] = grow[j * d + h * HD + c];
-  }
-  ss[t] = seg[r * W + t];
-  __syncthreads();
-
-  // pass A: thread t is query i
-  {
-    const int i = t, si = ss[i];
-    float acc[HD];
-#pragma unroll
-    for (int c = 0; c < HD; ++c) acc[c] = 0.f;
-    float m = 0.f, li = 0.f, de = 0.f;
-    if (si >= 0) {
-      float q[HD], g[HD];
-#pragma unroll
-      for (int c = 0; c < HD; ++c) {
-        q[c] = qs[i * HD + c] * scale;
-        g[c] = gs[i * HD + c];
-      }
-      float l = 0.f, a_dp = 0.f;
-      m = -INFINITY;
-      for (int j = 0; j < W; ++j) {
-        if (ss[j] != si) continue;
-        float s = 0.f, dp = 0.f;
-#pragma unroll
-        for (int c = 0; c < HD; ++c) {
-          s = fmaf(q[c], ks[j * HD + c], s);
-          dp = fmaf(g[c], vs[j * HD + c], dp);
-        }
-        if (dr.on) dp = dr.at(hseed, rowpos, i, j, W) ? dp * dr.inv_keep : 0.f;
-        if (s > m) {
-          const float a = expf(m - s);
-          l *= a;
-          a_dp *= a;
-          m = s;
-        }
-        const float e = expf(s - m);
-        l += e;
-        a_dp = fmaf(e, dp, a_dp);
-      }
-      li = 1.f / fmaxf(l, 1e-16f);
-      de = a_dp * li;
-      for (int j = 0; j < W; ++j) {
-        if (ss[j] != si) continue;
-        float s = 0.f, dp = 0.f;
-#pragma unroll
-        for (int c = 0; c < HD; ++c) {
-          s = fmaf(q[c], ks[j * HD + c], s);
-          dp = fmaf(g[c], vs[j * HD + c], dp);
-        }
-        if (dr.on) dp = dr.at(hseed, rowpos, i, j, W) ? dp * dr.inv_keep : 0.f;
-        const float ds = expf(s - m) * li * (dp - de);
-#pragma unroll
-        for (int c = 0; c < HD; ++c) acc[c] = fmaf(ds, ks[j * HD + c], acc[c]);
-      }
-    }
-    mrow[i] = m;
-    linv[i] = li;
-    delta[i] = de;
-    float* dq = drow + i * d3 + h * HD;
-#pragma unroll
-    for (int c = 0; c < HD; ++c) dq[c] = acc[c] * scale;
-  }
-  __syncthreads();
-
-  // pass B: thread t is key j
-  {
-    const int j = t, sj = ss[j];
-    float dk[HD], dv[HD];
-#pragma unroll
-    for (int c = 0; c < HD; ++c) dk[c] = dv[c] = 0.f;
-    if (sj >= 0) {
-      float k[HD], v[HD];
-#pragma unroll
-      for (int c = 0; c < HD; ++c) {
-        k[c] = ks[j * HD + c];
-        v[c] = vs[j * HD + c];
-      }
-      for (int i = 0; i < W; ++i) {
-        if (ss[i] != sj) continue;
-        float s = 0.f, dp = 0.f;
-#pragma unroll
-        for (int c = 0; c < HD; ++c) {
-          s = fmaf(qs[i * HD + c] * scale, k[c], s);
-          dp = fmaf(gs[i * HD + c], v[c], dp);
-        }
-        const float p = expf(s - mrow[i]) * linv[i];
-        float pd = p;
-        if (dr.on) {
-          const bool kp = dr.at(hseed, rowpos, i, j, W);
-          pd = kp ? p * dr.inv_keep : 0.f;
-          dp = kp ? dp * dr.inv_keep : 0.f;
-        }
-        const float ds = p * (dp - delta[i]);
-#pragma unroll
-        for (int c = 0; c < HD; ++c) {
-          dk[c] = fmaf(ds, qs[i * HD + c], dk[c]);
-          dv[c] = fmaf(pd, gs[i * HD + c], dv[c]);
-        }
-      }
-    }
-    float* dkj = drow + j * d3 + d + h * HD;
-    float* dvj = drow + j * d3 + 2 * d + h * HD;
-#pragma unroll
-    for (int c = 0; c < HD; ++c) {
-      dkj[c] = dk[c] * scale;
-      dvj[c] = dv[c];
-    }
-  }
-}
+constexpr int W_MAX = 384;         // the widest row K2 and K4 take
+constexpr int SEG_TILE_MAX = tile::SEG_W_MAX;  // K2: the tile kernels' rows
+constexpr int SEG_FWD_THREADS = 256;  // K2's tile forward: two blocks an SM
+constexpr int SEG_BWD_THREADS = 512;  // K2's tile backward: one block an SM
 
 // K4's backward: spans of up to tile::SHORT_MAX tokens, `group` a block.
 template <int HD>
@@ -329,38 +125,6 @@ attention_dense_bwd_wide_kernel(
                      block, npad, scale, dr);
 }
 
-// K2's forward: K/V of the row (98 KB at hd 32, W 384) take dynamic shared
-// memory past the 48 KB default, hence the attribute.
-int launch_seg_fwd(const float* qkv, const int* seg, float* out, int R, int W,
-                   int d, int H, Dropout dr, cudaStream_t stream) {
-  constexpr int HD = 32;
-  const size_t smem = (size_t)2 * W * HD * sizeof(float) + W * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_seg_fwd_kernel<HD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(R, H);
-  attention_seg_fwd_kernel<HD><<<grid, W, smem, stream>>>(
-      qkv, seg, out, W, d, 1.f / sqrtf((float)HD), dr);
-  return cudaGetLastError();
-}
-
-template <int HD>
-int launch_bwd(const float* qkv, const int* seg, const float* gout,
-               float* dqkv, int R, int W, int d, int H, Dropout dr,
-               cudaStream_t stream) {
-  const size_t smem =
-      (size_t)4 * W * HD * sizeof(float) + 3 * W * sizeof(float) +
-      W * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_seg_bwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(R, H);
-  attention_seg_bwd_kernel<HD><<<grid, W, smem, stream>>>(
-      qkv, seg, gout, dqkv, W, d, 1.f / sqrtf((float)HD), dr);
-  return cudaGetLastError();
-}
 
 using tile::Launch;
 
@@ -508,6 +272,177 @@ int launch_dense_bwd(const float* qkv, const unsigned char* valid,
   return cudaErrorInvalidValue;
 }
 
+
+// ---- K2 ------------------------------------------------------------------
+
+// K2's forward on rows of up to SEG_TILE_MAX tokens: one block per (row,
+// head), the row's graph segments its problems.
+template <int HD, bool DROP, bool STATS>
+__global__ void __launch_bounds__(SEG_FWD_THREADS)
+attention_seg_fwd_tile_kernel(const float* __restrict__ qkv,
+                              const int* __restrict__ seg,
+                              float* __restrict__ out,
+                              float* __restrict__ stat_m,
+                              float* __restrict__ stat_l, int W, int d, int H,
+                              int score, float scale, Dropout dr) {
+  tile::SegRuns<HD, false> src(seg, nullptr, nullptr, nullptr, stat_m, stat_l,
+                               out, W, H, score);
+  tile::fwd_tile<HD, DROP, STATS>(src, qkv, out, stat_m, stat_l, W, d, H,
+                                  scale, dr);
+}
+
+// K2's forward on wider rows: one block per (row, head, 64 queries), seg
+// as both tags.
+template <int HD, bool DROP, bool STATS>
+__global__ void __launch_bounds__(attn::LONG_FWD_THREADS,
+                                  attn::long_fwd_blocks(HD))
+attention_seg_fwd_long_kernel(const float* __restrict__ qkv,
+                              attn::SegTags tags, float* __restrict__ out,
+                              float* __restrict__ stat_m,
+                              float* __restrict__ stat_l, int W, int d,
+                              float scale, Dropout dr) {
+  attn::long_fwd<HD, DROP, STATS>(qkv, tags, out, stat_m, stat_l, W, d, scale,
+                                  dr);
+}
+
+// K2's backward on rows of up to SEG_TILE_MAX tokens: one block per (row,
+// head).
+template <int HD>
+__global__ void __launch_bounds__(SEG_BWD_THREADS)
+attention_seg_bwd_tile_kernel(const float* __restrict__ qkv,
+                              const int* __restrict__ seg,
+                              const float* __restrict__ out,
+                              const float* __restrict__ gout,
+                              const float* __restrict__ stat_m,
+                              const float* __restrict__ stat_l,
+                              float* __restrict__ dqkv, int W, int d, int H,
+                              int score, float scale, Dropout dr) {
+  tile::SegRuns<HD, true> src(seg, gout, stat_m, stat_l, nullptr, nullptr,
+                              dqkv, W, H, score);
+  tile::bwd_tile<HD>(src, qkv, out, dqkv, W, d, H, scale, dr);
+}
+
+// K2's backward on wider rows: the long-row pair (dq, then dk/dv).
+template <int HD>
+__global__ void __launch_bounds__(attn::LONG_THREADS, attn::long_blocks(HD))
+attention_seg_bwd_dq_kernel(const float* __restrict__ qkv, attn::SegTags tags,
+                            const float* __restrict__ out,
+                            const float* __restrict__ gout,
+                            const float* __restrict__ stat_m,
+                            const float* __restrict__ stat_l,
+                            float* __restrict__ delta,
+                            float* __restrict__ dqkv, int W, int d,
+                            float scale, Dropout dr) {
+  attn::lr::long_dq<HD>(qkv, tags, out, gout, stat_m, stat_l, delta, dqkv, W,
+                        d, scale, dr);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(attn::LONG_THREADS, attn::long_blocks(HD))
+attention_seg_bwd_dkv_kernel(const float* __restrict__ qkv,
+                             attn::SegTags tags,
+                             const float* __restrict__ gout,
+                             const float* __restrict__ stat_m,
+                             const float* __restrict__ stat_l,
+                             const float* __restrict__ delta,
+                             float* __restrict__ dqkv, int W, int d,
+                             float scale, Dropout dr) {
+  attn::lr::long_dkv<HD>(qkv, tags, gout, stat_m, stat_l, delta, dqkv, W, d,
+                         scale, dr);
+}
+
+// The tile instance's launch, as attention_packed.py:seg_fwd_geometry and
+// seg_bwd_geometry compute it: a block per (row, head).
+bool seg_tile_launch_ok(const Launch& L, int R, int W, int H, int hd,
+                        bool bwd) {
+  return W <= SEG_TILE_MAX && L.pad == tile::round4(W) && L.group == 1 &&
+         (long)L.gx == (long)R * H && L.gy == 1 && L.gz == 1 &&
+         L.threads == (bwd ? SEG_BWD_THREADS : SEG_FWD_THREADS) &&
+         L.smem == tile::seg_tile_words(W, hd, bwd) * 4 &&
+         L.smem <= tile::SMEM_MAX;
+}
+
+// Launches K2's forward (instance 1 the tile kernel, 3 the long one) after
+// checking the wrapper's seg_fwd_geometry; each kernel's shared-memory
+// attribute is raised once, before its first launch.
+template <int HD, bool DROP, bool STATS>
+int launch_seg_fwd(const float* qkv, const int* seg, float* out,
+                   float* stat_m, float* stat_l, int R, int W, int d, int H,
+                   Dropout dr, const Launch& L, cudaStream_t stream) {
+  const float scale = 1.f / sqrtf((float)HD);
+  if (L.instance == 1) {
+    if (!seg_tile_launch_ok(L, R, W, H, HD, false))
+      return cudaErrorInvalidValue;
+    static const cudaError_t set = [] {  // two blocks an SM at W 128
+      const auto k = attention_seg_fwd_tile_kernel<HD, DROP, STATS>;
+      const cudaError_t e = cudaFuncSetAttribute(
+          k, cudaFuncAttributeMaxDynamicSharedMemorySize, tile::SMEM_MAX);
+      if (e != cudaSuccess) return e;
+      return cudaFuncSetAttribute(
+          k, cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared);
+    }();
+    if (set != cudaSuccess) return set;
+    attention_seg_fwd_tile_kernel<HD, DROP, STATS>
+        <<<L.gx, L.threads, L.smem, stream>>>(qkv, seg, out, stat_m, stat_l,
+                                              W, d, H,
+                                              tile::seg_score_floats(W),
+                                              scale, dr);
+    return cudaGetLastError();
+  }
+  if (L.instance == 3) {
+    if (W <= SEG_TILE_MAX || !attn::long_fwd_launch_ok(L, R, W, H, HD))
+      return cudaErrorInvalidValue;
+    static const cudaError_t set = cudaFuncSetAttribute(
+        attention_seg_fwd_long_kernel<HD, DROP, STATS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        attn::long_fwd_bytes(HD));
+    if (set != cudaSuccess) return set;
+    attention_seg_fwd_long_kernel<HD, DROP, STATS>
+        <<<dim3(L.gx, L.gy, L.gz), L.threads, L.smem, stream>>>(
+            qkv, attn::SegTags{seg, seg}, out, stat_m, stat_l, W, d, scale,
+            dr);
+    return cudaGetLastError();
+  }
+  return cudaErrorInvalidValue;
+}
+
+// Launches K2's backward (instance 1 the tile kernel, 3 the long pair,
+// which passes delta [R, W, H] from its dq kernel to its dk/dv kernel)
+// after checking the wrapper's seg_bwd_geometry.
+template <int HD>
+int launch_seg_bwd(const float* qkv, const int* seg, const float* out,
+                   const float* gout, const float* stat_m,
+                   const float* stat_l, float* delta, float* dqkv, int R,
+                   int W, int d, int H, Dropout dr, const Launch& L,
+                   cudaStream_t stream) {
+  const float scale = 1.f / sqrtf((float)HD);
+  if (L.instance == 1) {
+    if (!seg_tile_launch_ok(L, R, W, H, HD, true))
+      return cudaErrorInvalidValue;
+    static const cudaError_t set = cudaFuncSetAttribute(
+        attention_seg_bwd_tile_kernel<HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, tile::SMEM_MAX);
+    if (set != cudaSuccess) return set;
+    attention_seg_bwd_tile_kernel<HD><<<L.gx, L.threads, L.smem, stream>>>(
+        qkv, seg, out, gout, stat_m, stat_l, dqkv, W, d, H,
+        tile::seg_score_floats(W), scale, dr);
+    return cudaGetLastError();
+  }
+  if (L.instance == 3) {
+    if (W <= SEG_TILE_MAX || delta == nullptr || L.pad != attn::LONG_T ||
+        L.group != 1 || L.gx != R || L.gy != H ||
+        L.gz != (W + attn::LONG_T - 1) / attn::LONG_T ||
+        L.threads != attn::LONG_THREADS || L.smem != attn::long_dkv_bytes(HD))
+      return cudaErrorInvalidValue;
+    return attn::launch_long_bwd<HD>(
+        attention_seg_bwd_dq_kernel<HD>, attention_seg_bwd_dkv_kernel<HD>,
+        qkv, attn::SegTags{seg, seg}, out, gout, stat_m, stat_l, delta, dqkv,
+        R, W, d, H, dr, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
 Dropout make_dropout(int on, unsigned thresh, float inv_keep, int seed,
                      int bt, int sp, int stride) {
   Dropout dr;
@@ -527,17 +462,34 @@ extern "C" const char* error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Returns cudaGetLastError() after the launch (0 = launched). drop = 0 is
+// K2 forward: seg [R, W] int32; heads of width 32; W <= 384. Returns
+// cudaGetLastError() after the launch (0 = launched). drop = 0 is
 // attention without dropout; otherwise (thresh, inv_keep, seed, bt, sp)
-// define the keep mask as above.
+// define the keep mask as above (stride H). stat_m and stat_l ([R, W, H])
+// may be null without dropout: the statistics are then not written
+// (serving). The launch (instance, pad, group, grid, threads, smem) is the
+// wrapper's seg_fwd_geometry; one that does not match (R, W, H) is refused.
 extern "C" int attention_seg_fwd(const float* qkv, const int* seg, float* out,
-                                 int R, int W, int d, int H, int drop,
-                                 unsigned thresh, float inv_keep, int seed,
-                                 int bt, int sp, cudaStream_t stream) {
-  if (d != H * 32 || W > W_MAX) return cudaErrorInvalidValue;  // hd 32
-  return launch_seg_fwd(qkv, seg, out, R, W, d, H,
-                        make_dropout(drop, thresh, inv_keep, seed, bt, sp, H),
-                        stream);
+                                 float* stat_m, float* stat_l, int R, int W,
+                                 int d, int H, int drop, unsigned thresh,
+                                 float inv_keep, int seed, int bt, int sp,
+                                 int instance, int pad, int group, int gx,
+                                 int gy, int gz, int threads, int smem,
+                                 cudaStream_t stream) {
+  if (R <= 0 || W <= 0 || W > W_MAX || H <= 0 || d != H * 32)
+    return cudaErrorInvalidValue;
+  if ((stat_m == nullptr) != (stat_l == nullptr)) return cudaErrorInvalidValue;
+  if (drop && stat_m == nullptr) return cudaErrorInvalidValue;
+  const Dropout dr = make_dropout(drop, thresh, inv_keep, seed, bt, sp, H);
+  const Launch L{instance, pad, group, gx, gy, gz, threads, smem};
+  if (dr.on)
+    return launch_seg_fwd<32, true, true>(qkv, seg, out, stat_m, stat_l, R, W,
+                                          d, H, dr, L, stream);
+  if (stat_m)
+    return launch_seg_fwd<32, false, true>(qkv, seg, out, stat_m, stat_l, R,
+                                           W, d, H, dr, L, stream);
+  return launch_seg_fwd<32, false, false>(qkv, seg, out, stat_m, stat_l, R, W,
+                                          d, H, dr, L, stream);
 }
 
 // K4 forward: valid [B, S] one byte each (0/1: torch's bool), block 0 or
@@ -603,13 +555,26 @@ extern "C" int attention_dense_bwd(const float* qkv,
   return cudaErrorInvalidValue;
 }
 
+
+// K2 backward: dqkv [R, W, 3d] for the cotangent gout [R, W, d] of
+// attention_seg_fwd's out, from its saved m and l, with K2's dropout
+// (stride H). delta [R, W, H] is scratch for the long instance (written by
+// its dq kernel, read by its dk/dv kernel on the same stream) and may be
+// null for the tile instance. The launch is the wrapper's
+// seg_bwd_geometry; one that does not match (R, W, H) is refused.
 extern "C" int attention_seg_bwd(const float* qkv, const int* seg,
-                                 const float* gout, float* dqkv, int R, int W,
+                                 const float* out, const float* gout,
+                                 const float* stat_m, const float* stat_l,
+                                 float* delta, float* dqkv, int R, int W,
                                  int d, int H, int drop, unsigned thresh,
                                  float inv_keep, int seed, int bt, int sp,
+                                 int instance, int pad, int group, int gx,
+                                 int gy, int gz, int threads, int smem,
                                  cudaStream_t stream) {
-  if (d != H * 32) return cudaErrorInvalidValue;
-  return launch_bwd<32>(qkv, seg, gout, dqkv, R, W, d, H,
-                        make_dropout(drop, thresh, inv_keep, seed, bt, sp, H),
-                        stream);
+  if (R <= 0 || W <= 0 || W > W_MAX || H <= 0 || d != H * 32)
+    return cudaErrorInvalidValue;
+  const Dropout dr = make_dropout(drop, thresh, inv_keep, seed, bt, sp, H);
+  const Launch L{instance, pad, group, gx, gy, gz, threads, smem};
+  return launch_seg_bwd<32>(qkv, seg, out, gout, stat_m, stat_l, delta, dqkv,
+                            R, W, d, H, dr, L, stream);
 }

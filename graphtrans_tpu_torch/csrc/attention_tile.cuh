@@ -1,14 +1,16 @@
-// Attention over one whole attention block at a time: K4's backward
-// (attention_packed.cu), and K9's forward on short spans and its backward
-// up to 384 tokens (attention_smalls.cu), over qkv [B, S, 3d] with heads in
-// lanes.
+// Attention over one whole attention block at a time: K4's forward and
+// backward (attention_packed.cu), K9's forward on short spans and its
+// backward up to 384 tokens (attention_smalls.cu), and K2's forward and
+// backward on rows of up to 128 tokens (attention_packed.cu), over qkv
+// [B, S, 3d] with heads in lanes.
 //
 // An attention block ("span") is the token range whose queries and keys
 // meet under K4's mask: with block > 0 one graph block of a packed row,
 // [g*block, min(S, (g+1)*block)); with block 0 the whole row. Key j of a
 // span is attendable iff valid[j]; every query of the span attends the
 // span's valid keys (a padding query too), and a span without a valid key
-// gives zeros. A problem is one (row, span, head).
+// gives zeros. A problem is one (row, span, head). K2's spans are the
+// graph segments of a packed row (SegRuns, below).
 //
 // What it replaces. K4's backward ran the streaming pair of
 // attention_bwd.cuh (K5's, built for rows of 1001): a dq kernel and a
@@ -59,11 +61,18 @@
 // Dropout is a policy (Keep: members on and inv_keep, and
 // keep(b, h, H, S, i, j) with i, j the row's own token indices), drawn
 // once per pair from the caller's seed schedule; nothing is stored.
+//
+// The whole-span bodies (fwd_tile, bwd_tile) take their problems from a
+// span source, a policy: FixedSpans for K4 and K9 (spans of one width,
+// `group` problems a block), SegRuns for K2 (one block per (row, head),
+// the row's graph segments, found by the block from seg itself).
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "mma_tf32.cuh"
 
 namespace tile {
 
@@ -290,85 +299,555 @@ __device__ __forceinline__ void zero(float (&a)[4][4]) {
     for (int y = 0; y < 4; ++y) a[x][y] = 0.f;
 }
 
-// ---- the short backward: spans of up to SHORT_MAX tokens, whole --------
+// ---- span sources --------------------------------------------------------
 //
-// dqkv for `group` problems a block from the forward's out, m and l
-// ([B, S, H]) and the cotangent gout. np: the span width rounded up to 4.
-template <int HD, class Keep>
-__device__ __forceinline__ void bwd_short(
-    const float* __restrict__ qkv, const unsigned char* __restrict__ valid,
-    const float* __restrict__ out, const float* __restrict__ gout,
-    const float* __restrict__ stat_m, const float* __restrict__ stat_l,
-    float* __restrict__ dqkv, int B, int S, int d, int H, int block, int np,
-    int group, float scale, Keep keep) {
-  constexpr int LD = HD + 4, C4 = HD / 4;
-  extern __shared__ float4 smem4[];
-  float* const smem = reinterpret_cast<float*>(smem4);
-  const int t = threadIdx.x, nt = blockDim.x;
-  const int nr = np / 4, sld = np + 4, per = bwd_short_floats(np, HD);
-  const Spans sp = spans_of(S, block);
-  const long p0 = (long)blockIdx.x * group;
-  const long left = (long)B * sp.count * H - p0;
-  const int ng = left < group ? (int)left : group;  // problems of this block
-  const long d3 = 3L * d;
-  // a problem's shared tiles
-  auto Qs = [&](int g) { return smem + g * per; };
-  auto Ks = [&](int g) { return smem + g * per + np * LD; };
-  auto Vs = [&](int g) { return smem + g * per + 2 * np * LD; };
-  auto Gs = [&](int g) { return smem + g * per + 3 * np * LD; };
-  auto Ps = [&](int g) { return smem + g * per + 4 * np * LD; };
-  auto Ds = [&](int g) { return smem + g * per + 4 * np * LD + np * sld; };
-  auto Ms = [&](int g) { return smem + g * per + 4 * np * LD + 2 * np * sld; };
-  // per row: m, 1/l, delta, key mask (Ms(g) + 0, np, 2np, 3np)
+// A span source stages a block's problems in shared memory (load, all
+// threads; the body's barrier follows; after_pairs and wait may bring the
+// forward's V in once Q is no longer read) and says where their tiles lie:
+//  - count(), problem(g): the block's problems; pad(g): np, the rows of
+//    problem g's tiles (its n tokens rounded up to 4);
+//  - Q(g), K(g), V(g) and, for the backward, G(g) (dO): row 0 of its
+//    staged head slices, rows of HD + 4 floats; rows n..np-1 hold finite
+//    values (zeros, or the next tokens' rows) that the mask keeps out;
+//  - P(g) and, for the backward, D(g): its np x sld(g) score tiles;
+//  - per query row i < n: inv(g)[i] (the forward's 1/l) or m(g)[i],
+//    li(g)[i], de(g)[i] (the backward's m, 1/l and delta);
+//  - mask(g): a functor, (i, j) -> query i may attend key j (i < n, j < np);
+//  - pair_items(), pair_at(w, g, r): the pair phase's work items, nr^2 a
+//    problem (nr = np / 4); row_items(c), row_at(c, w, g, r): a phase of
+//    c * nr items a problem.
 
-  for (int g = 0; g < ng; ++g) {
-    const Problem pr = problem_at(p0 + g, S, sp, H);
-    const long tok0 = pr.b * S + pr.s0;
-    const float* row = qkv + tok0 * d3 + pr.h * HD;
-    float* const dst[4] = {Qs(g), Ks(g), Vs(g), Gs(g)};
-    const float* const src[4] = {row, row + d, row + 2 * d,
-                                 gout + tok0 * d + pr.h * HD};
-    const long ld[4] = {d3, d3, d3, d};
-    stage<HD, 4>(dst, src, ld, pr.n, np, t, nt);
-    float* st = Ms(g);
-    for (int i = t; i < np; i += nt) {
-      float m = 0.f, li = 0.f, kv = 0.f;
-      if (i < pr.n) {
-        const long at = (tok0 + i) * H + pr.h;
-        m = stat_m[at];
-        li = 1.f / fmaxf(stat_l[at], 1e-16f);
-        kv = valid[tok0 + i] ? 1.f : 0.f;
+// K4's and K9's key mask: key j of the span is valid
+struct KeyMask {
+  const float* kv;
+  __device__ bool operator()(int, int j) const { return kv[j] != 0.f; }
+};
+
+// K2's mask on a problem's tags: query i attends key j iff
+// tag[i] == tag[j] >= 0
+struct TagMask {
+  const int* tg;
+  __device__ bool operator()(int i, int j) const {
+    return tg[j] >= 0 && tg[i] == tg[j];
+  }
+};
+
+// K4 and K9: spans of one width (spans_of(S, block)), `group` (row, span,
+// head) problems a block, each in its own region of per floats.
+template <int HD, bool BWD>
+struct FixedSpans {
+  static constexpr int LD = HD + 4;
+  const unsigned char* valid;
+  const float* gout;    // the backward's cotangent, m and l
+  const float* stat_m;
+  const float* stat_l;
+  float* smem;
+  Spans sp;
+  long p0;
+  int S, H, np, nr, ng, per;
+
+  __device__ FixedSpans(const unsigned char* valid_, const float* gout_,
+                        const float* stat_m_, const float* stat_l_, int B,
+                        int S_, int H_, int block, int np_, int group)
+      : valid(valid_), gout(gout_), stat_m(stat_m_), stat_l(stat_l_),
+        S(S_), H(H_), np(np_), nr(np_ / 4) {
+    extern __shared__ float4 smem4[];
+    smem = reinterpret_cast<float*>(smem4);
+    per = BWD ? bwd_short_floats(np, HD) : fwd_floats(np, HD);
+    sp = spans_of(S, block);
+    p0 = (long)blockIdx.x * group;
+    const long left = (long)B * sp.count * H - p0;
+    ng = left < group ? (int)left : group;
+  }
+
+  __device__ int count() const { return ng; }
+  __device__ Problem problem(int g) const {
+    return problem_at(p0 + g, S, sp, H);
+  }
+  __device__ int pad(int) const { return np; }
+  __device__ int sld(int) const { return np + 4; }
+  __device__ float* Q(int g) const { return smem + g * per; }
+  __device__ float* K(int g) const { return Q(g) + np * LD; }
+  __device__ float* V(int g) const { return Q(g) + 2 * np * LD; }
+  __device__ float* G(int g) const { return Q(g) + 3 * np * LD; }
+  __device__ float* P(int g) const { return Q(g) + (BWD ? 4 : 3) * np * LD; }
+  __device__ float* D(int g) const { return P(g) + np * (np + 4); }
+  // per row: the forward's 1/l and key mask; the backward's m, 1/l,
+  // delta and key mask
+  __device__ float* rows(int g) const {
+    return P(g) + (BWD ? 2 : 1) * np * (np + 4);
+  }
+  __device__ float* inv(int g) const { return rows(g); }
+  __device__ float* m(int g) const { return rows(g); }
+  __device__ float* li(int g) const { return rows(g) + np; }
+  __device__ float* de(int g) const { return rows(g) + 2 * np; }
+  __device__ KeyMask mask(int g) const {
+    return KeyMask{rows(g) + (BWD ? 3 : 1) * np};
+  }
+  __device__ int pair_items() const { return ng * nr * nr; }
+  __device__ void pair_at(int w, int& g, int& r) const {
+    g = w / (nr * nr);
+    r = w % (nr * nr);
+  }
+  __device__ void after_pairs(const float*, int) const {}
+  __device__ void wait() const {}
+  __device__ int row_items(int c) const { return ng * c * nr; }
+  __device__ void row_at(int c, int w, int& g, int& r) const {
+    g = w / (c * nr);
+    r = w % (c * nr);
+  }
+
+  __device__ void load(const float* __restrict__ qkv, int d) {
+    const int t = threadIdx.x, nt = blockDim.x;
+    const long d3 = 3L * d;
+    for (int g = 0; g < ng; ++g) {
+      const Problem pr = problem(g);
+      const long tok0 = pr.b * S + pr.s0;
+      const float* row = qkv + tok0 * d3 + pr.h * HD;
+      float* kv = rows(g) + (BWD ? 3 : 1) * np;
+      if constexpr (BWD) {
+        float* const dst[4] = {Q(g), K(g), V(g), G(g)};
+        const float* const src[4] = {row, row + d, row + 2 * d,
+                                     gout + tok0 * d + pr.h * HD};
+        const long ld[4] = {d3, d3, d3, d};
+        stage<HD, 4>(dst, src, ld, pr.n, np, t, nt);
+        float* st = rows(g);
+        for (int i = t; i < np; i += nt) {
+          float mm = 0.f, l = 0.f, k = 0.f;
+          if (i < pr.n) {
+            const long at = (tok0 + i) * H + pr.h;
+            mm = stat_m[at];
+            l = 1.f / fmaxf(stat_l[at], 1e-16f);
+            k = valid[tok0 + i] ? 1.f : 0.f;
+          }
+          st[i] = mm;
+          st[np + i] = l;
+          kv[i] = k;
+        }
+      } else {
+        float* const dst[3] = {Q(g), K(g), V(g)};
+        const float* const src[3] = {row, row + d, row + 2 * d};
+        const long ld[3] = {d3, d3, d3};
+        stage<HD, 3>(dst, src, ld, pr.n, np, t, nt);
+        for (int j = t; j < np; j += nt)
+          kv[j] = (j < pr.n && valid[tok0 + j]) ? 1.f : 0.f;
       }
-      st[i] = m;
-      st[np + i] = li;
-      st[3 * np + i] = kv;
     }
   }
+};
+
+// K2's blocks on rows of W <= SEG_W_MAX tokens: the rows staged (the
+// row's W tokens, then zero rows), and the score tiles' floats. A
+// segment's tile rows hold an odd number of float4 (seg_sld), so the
+// softmax's four threads a row, eight rows a warp, read distinct banks. A
+// segment of n tokens takes np x seg_sld(np) floats (np: n rounded up to
+// 4); seg_score_floats is the most any split of W tokens into segments
+// takes (a knapsack over the segment lengths, on the host: the launch
+// passes it to the kernel).
+constexpr int SEG_W_MAX = 128;
+__host__ __device__ inline int seg_rows(int W) { return round4(W) + 4; }
+__host__ __device__ inline int seg_sld(int np) { return 4 * ((np / 4 + 1) | 1); }
+struct SegScoreTable {  // best[w]: the most floats w tokens can take
+  int best[SEG_W_MAX + 1];
+  SegScoreTable() {
+    best[0] = 0;
+    for (int w = 1; w <= SEG_W_MAX; ++w) {
+      best[w] = 0;
+      for (int n = 1; n <= w; ++n) {
+        const int np = round4(n), v = best[w - n] + np * seg_sld(np);
+        if (v > best[w]) best[w] = v;
+      }
+    }
+  }
+};
+__host__ inline int seg_score_floats(int W) {
+  static const SegScoreTable table;  // filled once, at the first launch
+  return round4(table.best[W < SEG_W_MAX ? W : SEG_W_MAX]);
+}
+// 4-byte words of shared memory of a K2 tile block: the row's head
+// slices (forward: Q, then V in its place, and K; backward: Q, K, V, dO),
+// the score tiles (P; and dS), per token 1/l (m, 1/l, delta); then ints:
+// per token its tag, per segment its first token, its length, the prefix
+// counts of nr and nr^2 and its score tile's offset, and the block's
+// counts. At W 128 the forward takes 110 KB (two blocks an SM), the
+// backward 213 KB.
+__host__ inline int seg_tile_words(int W, int hd, bool bwd) {
+  const int R4 = seg_rows(W);
+  return (bwd ? 4 : 2) * R4 * (hd + 4) + (bwd ? 2 : 1) * seg_score_floats(W) +
+         (bwd ? 3 : 1) * R4 + R4 + 5 * (W + 1) + 4;
+}
+
+// K2: one block per (row, head) of a packed row of W tokens (blockIdx.x =
+// row * H + head). Its problems are the row's runs of one graph id >= 0
+// (ops/pack.py writes each graph and its CLS as one run), found by the
+// block while its row's slices land (cp.async): warp 0 ranks the runs'
+// first and last tokens with ballots, 32 tokens at a time; no host
+// synchronisation. A row whose ids each form one
+// run gives one problem a run, its padding tokens (seg -1) written as
+// zeros here. A row in which some id forms two runs (the JAX kernel's mask
+// allows it) takes the whole row as one problem under TagMask, which is
+// K2's mask itself. The row's head slices are staged once, contiguous, so
+// a run's tiles start at its first token's row.
+template <int HD, bool BWD>
+struct SegRuns {
+  static constexpr int LD = HD + 4, C4 = HD / 4;
+  const int* seg;
+  const float* gout;     // backward: the cotangent, the forward's m and l
+  const float* rd_m;
+  const float* rd_l;
+  float* wr_m;           // forward: m and l of padding tokens (or null)
+  float* wr_l;
+  float* zero_rows;      // out (forward) or dqkv (backward)
+  float *Qr, *Pr, *tokf;
+  int *tg, *s0, *len, *cnr, *cnr2, *off, *meta;
+  long b;
+  int h, H, W, R4, SC, ng;
+
+  __device__ SegRuns(const int* seg_, const float* gout_, const float* rd_m_,
+                     const float* rd_l_, float* wr_m_, float* wr_l_,
+                     float* zero_rows_, int W_, int H_, int score)
+      : seg(seg_), gout(gout_), rd_m(rd_m_), rd_l(rd_l_), wr_m(wr_m_),
+        wr_l(wr_l_), zero_rows(zero_rows_), H(H_), W(W_), SC(score), ng(0) {
+    extern __shared__ float4 smem4[];
+    b = blockIdx.x / H;
+    h = blockIdx.x % H;
+    R4 = seg_rows(W);
+    Qr = reinterpret_cast<float*>(smem4);
+    Pr = Qr + (BWD ? 4 : 2) * R4 * LD;
+    tokf = Pr + (BWD ? 2 : 1) * SC;
+    tg = reinterpret_cast<int*>(tokf + (BWD ? 3 : 1) * R4);
+    s0 = tg + R4;
+    len = s0 + W + 1;
+    cnr = len + W + 1;
+    cnr2 = cnr + W + 1;
+    off = cnr2 + W + 1;
+    meta = off + W + 1;
+  }
+
+  __device__ int count() const { return ng; }
+  __device__ Problem problem(int g) const { return Problem{b, h, s0[g], len[g]}; }
+  __device__ int pad(int g) const { return 4 * (cnr[g + 1] - cnr[g]); }
+  __device__ int sld(int g) const { return seg_sld(pad(g)); }
+  __device__ float* Q(int g) const { return Qr + s0[g] * LD; }
+  __device__ float* K(int g) const { return Q(g) + R4 * LD; }
+  // the forward's V lands in Q's place once the scores are out
+  __device__ float* V(int g) const { return Q(g) + (BWD ? 2 : 0) * R4 * LD; }
+  __device__ float* G(int g) const { return Q(g) + 3 * R4 * LD; }
+  __device__ float* P(int g) const { return Pr + off[g]; }
+  __device__ float* D(int g) const { return P(g) + SC; }
+  __device__ float* inv(int g) const { return tokf + s0[g]; }
+  __device__ float* m(int g) const { return tokf + s0[g]; }
+  __device__ float* li(int g) const { return tokf + R4 + s0[g]; }
+  __device__ float* de(int g) const { return tokf + 2 * R4 + s0[g]; }
+  __device__ TagMask mask(int g) const { return TagMask{tg + s0[g]}; }
+  __device__ int pair_items() const { return cnr2[ng]; }
+  __device__ void pair_at(int w, int& g, int& r) const {
+    g = last_at_most(cnr2, w);
+    r = w - cnr2[g];
+  }
+  __device__ int row_items(int c) const { return c * cnr[ng]; }
+  __device__ void row_at(int c, int w, int& g, int& r) const {
+    g = last_at_most(cnr, w / c);
+    r = w - c * cnr[g];
+  }
+  // the last g < ng with pre[g] <= x (pre rises strictly: every problem
+  // has a token)
+  __device__ int last_at_most(const int* pre, int x) const {
+    int lo = 0, hi = ng - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (pre[mid] <= x)
+        lo = mid;
+      else
+        hi = mid - 1;
+    }
+    return lo;
+  }
+
+  // rows [0, R4) of N head slices (src[k]: token 0's first channel, ld[k]
+  // floats between tokens) into rows of LD floats at dst[k], 16-byte
+  // cp.async copies, zeros past W
+  template <int N>
+  __device__ void copy_rows(float* const (&dst)[N],
+                            const float* const (&src)[N],
+                            const long (&ld)[N]) const {
+    for (int idx = threadIdx.x; idx < R4 * C4; idx += blockDim.x) {
+      const int r = idx / C4, c = idx % C4 * 4;
+      const long tok = r < W ? r : 0;
+#pragma unroll
+      for (int k = 0; k < N; ++k)
+        tc::cp16(dst[k] + r * LD + c, src[k] + tok * ld[k] + c, r < W);
+    }
+  }
+
+  // the forward: V into Q's place (the pair phase is over), landing while
+  // the softmax runs; wait() before the products
+  __device__ void after_pairs(const float* __restrict__ qkv, int d) const {
+    if constexpr (!BWD) {
+      float* const dst[1] = {Qr};
+      const float* const src[1] = {qkv + b * W * 3L * d + h * HD + 2 * d};
+      const long ld[1] = {3L * d};
+      copy_rows<1>(dst, src, ld);
+    }
+  }
+  __device__ void wait() const { tc::cp_wait(); }
+
+  __device__ void load(const float* __restrict__ qkv, int d) {
+    const int t = threadIdx.x, nt = blockDim.x;
+    const long d3 = 3L * d, base = b * W;
+    {  // the row's head slices (the forward's Q and K; the backward's Q, K,
+       // V and dO), landing while the runs are found
+      const float* row = qkv + base * d3 + h * HD;
+      if constexpr (BWD) {
+        float* const dst[4] = {Qr, Qr + R4 * LD, Qr + 2 * R4 * LD,
+                               Qr + 3 * R4 * LD};
+        const float* const src[4] = {row, row + d, row + 2 * d,
+                                     gout + base * d + h * HD};
+        const long ld[4] = {d3, d3, d3, d};
+        copy_rows<4>(dst, src, ld);
+      } else {
+        float* const dst[2] = {Qr, Qr + R4 * LD};
+        const float* const src[2] = {row, row + d};
+        const long ld[2] = {d3, d3};
+        copy_rows<2>(dst, src, ld);
+      }
+    }
+    for (int i = t; i < R4; i += nt) tg[i] = i < W ? seg[base + i] : -1;
+    __syncthreads();
+    if (t < 32) {  // s0[k]: run k's first token; len[k]: one past its last
+      int ns = 0, ne = 0;
+      const unsigned below = (1u << t) - 1u;
+      for (int c = 0; c < W; c += 32) {
+        const int i = c + t;
+        const int v = i < W ? tg[i] : -1;
+        const bool first = v >= 0 && (i == 0 || tg[i - 1] != v);
+        const bool last = v >= 0 && tg[i + 1] != v;  // tg[W] = -1
+        const unsigned bf = __ballot_sync(0xffffffffu, first);
+        const unsigned bl = __ballot_sync(0xffffffffu, last);
+        if (first) s0[ns + __popc(bf & below)] = i;
+        if (last) len[ne + __popc(bl & below)] = i + 1;
+        ns += __popc(bf);
+        ne += __popc(bl);
+      }
+      if (t == 0) meta[0] = ns;
+    }
+    __syncthreads();
+    const int runs = meta[0];
+    bool twice = false;  // an id in two runs
+    for (int k = t; k < runs; k += nt) {
+      const int id = tg[s0[k]];
+      for (int k2 = k + 1; k2 < runs; ++k2) twice |= tg[s0[k2]] == id;
+      len[k] -= s0[k];
+    }
+    const bool general = __syncthreads_or(twice);
+    if (t == 0) {
+      const int n = general ? 1 : runs;
+      if (general) {
+        s0[0] = 0;
+        len[0] = W;
+      }
+      int a = 0, q = 0, o = 0;
+      for (int k = 0; k < n; ++k) {
+        cnr[k] = a;
+        cnr2[k] = q;
+        off[k] = o;
+        const int r = (len[k] + 3) >> 2;
+        a += r;
+        q += r * r;
+        o += 4 * r * seg_sld(4 * r);
+      }
+      cnr[n] = a;
+      cnr2[n] = q;
+      meta[1] = n;
+    }
+    if constexpr (BWD) {
+      for (int i = t; i < R4; i += nt) {
+        float mm = 0.f, l = 0.f;
+        if (i < W && tg[i] >= 0) {
+          const long at = (base + i) * H + h;
+          mm = rd_m[at];
+          l = 1.f / fmaxf(rd_l[at], 1e-16f);
+        }
+        tokf[i] = mm;
+        tokf[R4 + i] = l;
+      }
+    }
+    if (!general) {  // padding tokens: in no problem
+      const float4 z4 = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int idx = t; idx < W * C4; idx += nt) {
+        const int i = idx / C4, c = idx % C4 * 4;
+        if (tg[i] >= 0) continue;
+        if constexpr (BWD) {
+          float* o = zero_rows + (base + i) * d3 + h * HD + c;
+          st4(o, z4);
+          st4(o + d, z4);
+          st4(o + 2 * d, z4);
+        } else {
+          st4(zero_rows + (base + i) * d + h * HD + c, z4);
+          if (wr_m && c == 0) {
+            wr_m[(base + i) * H + h] = -INFINITY;
+            wr_l[(base + i) * H + h] = 0.f;
+          }
+        }
+      }
+    }
+    tc::cp_wait();
+    __syncthreads();
+    ng = meta[1];
+  }
+};
+
+// ---- the forward on whole spans ----------------------------------------
+//
+// out for the span source's problems: the scores once into a shared tile,
+// an exact two-pass softmax per query row (max, then the sum of undropped
+// exp(s - m)), then O = P_drop V / l. STATS writes m (the max scaled
+// score) and l [B, S, H] as attention_fwd.cuh defines them; a query with
+// no attendable key writes zeros, m = -inf and l = 0.
+template <int HD, bool DROP, bool STATS, class Src, class Keep>
+__device__ __forceinline__ void fwd_tile(Src& src,
+                                         const float* __restrict__ qkv,
+                                         float* __restrict__ out,
+                                         float* __restrict__ stat_m,
+                                         float* __restrict__ stat_l, int S,
+                                         int d, int H, float scale,
+                                         const Keep& keep) {
+  constexpr int C4 = HD / 4;
+  const int t = threadIdx.x, nt = blockDim.x;
+  src.load(qkv, d);
+  __syncthreads();
+
+  const int pairs = src.pair_items();
+  for (int w = t; w < pairs; w += nt) {
+    int g, r;
+    src.pair_at(w, g, r);
+    const int nr = src.pad(g) / 4, sld = src.sld(g);
+    const int ti = r / nr, tj = r % nr;
+    float s[4][4], unused[4][4];
+    dots<HD, false>(src.Q(g), src.K(g), nullptr, nullptr, ti, tj, nr, s,
+                    unused);
+    const auto meets = src.mask(g);
+    float* P = src.P(g);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int i = ti + a * nr, j = tj + b * nr;
+        P[i * sld + j] = meets(i, j) ? s[a][b] * scale : -INFINITY;
+      }
+  }
+  __syncthreads();
+  src.after_pairs(qkv, d);
+
+  // four threads a row (aligned lanes of one warp): max, then sum
+  const int rows4 = src.row_items(16);
+  for (int w = t; w < rows4; w += nt) {
+    int g, r;
+    src.row_at(16, w, g, r);
+    const int np = src.pad(g), i = r / 4, part = r % 4;
+    const unsigned quad = 0xFu << (threadIdx.x & 28u);
+    const Problem pr = src.problem(g);
+    float* P = src.P(g) + i * src.sld(g);
+    float m = -INFINITY;
+    for (int j = part; j < np; j += 4) m = fmaxf(m, P[j]);
+    m = fmaxf(m, __shfl_xor_sync(quad, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(quad, m, 2));
+    float l = 0.f;
+    for (int j = part; j < np; j += 4) {
+      float e = m == -INFINITY ? 0.f : expf(P[j] - m);
+      l += e;
+      if constexpr (DROP)
+        if (e != 0.f && !keep(pr.b, pr.h, H, S, pr.s0 + i, pr.s0 + j))
+          e = 0.f;
+      P[j] = e;
+    }
+    l += __shfl_xor_sync(quad, l, 1);
+    l += __shfl_xor_sync(quad, l, 2);
+    if (part == 0 && i < pr.n) {
+      src.inv(g)[i] = (DROP ? keep.inv_keep : 1.f) / fmaxf(l, 1e-16f);
+      if (STATS) {
+        const long at = (pr.b * S + pr.s0 + i) * H + pr.h;
+        stat_m[at] = m;
+        stat_l[at] = l;
+      }
+    }
+  }
+  src.wait();
+  __syncthreads();
+
+  const int prods = src.row_items(C4);
+  for (int w = t; w < prods; w += nt) {
+    int g, r;
+    src.row_at(C4, w, g, r);
+    const int i0 = r / C4 * 4, c0 = r % C4 * 4;
+    const Problem pr = src.problem(g);
+    float acc[4][4];
+    zero(acc);
+    rows_times<HD>(src.P(g), src.V(g), src.sld(g), round4(pr.n), i0, c0,
+                   acc);
+    float* o = out + (pr.b * S + pr.s0) * d + pr.h * HD + c0;
+    const float* inv = src.inv(g);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      if (i0 + a >= pr.n) break;
+      const float li = inv[i0 + a];
+      st4(o + (i0 + a) * d, make_float4(acc[a][0] * li, acc[a][1] * li,
+                                        acc[a][2] * li, acc[a][3] * li));
+    }
+  }
+}
+
+// ---- the backward on whole spans ---------------------------------------
+//
+// dqkv for the span source's problems from the forward's out, m and l
+// ([B, S, H]) and the cotangent: delta = dO.O, then p, dp and ds of each
+// pair once (one dropout draw) into the score tiles, then dK, dV by (key,
+// channel) and dQ by (query, channel) micro-tiles.
+template <int HD, class Src, class Keep>
+__device__ __forceinline__ void bwd_tile(Src& src,
+                                         const float* __restrict__ qkv,
+                                         const float* __restrict__ out,
+                                         float* __restrict__ dqkv, int S,
+                                         int d, int H, float scale,
+                                         const Keep& keep) {
+  constexpr int LD = HD + 4, C4 = HD / 4;
+  const int t = threadIdx.x, nt = blockDim.x;
+  const long d3 = 3L * d;
+  src.load(qkv, d);
   __syncthreads();
   // delta_i = dO_i . O_i: dO from the staged tile, O from memory
-  for (int w = t; w < ng * np; w += nt) {
-    const int g = w / np, i = w % np;
-    const Problem pr = problem_at(p0 + g, S, sp, H);
-    float de = 0.f;
+  const int rows = src.row_items(4);
+  for (int w = t; w < rows; w += nt) {
+    int g, i;
+    src.row_at(4, w, g, i);
+    const Problem pr = src.problem(g);
     if (i < pr.n) {
       const float* o = out + (pr.b * S + pr.s0 + i) * d + pr.h * HD;
-      const float* gi = Gs(g) + i * LD;
+      const float* gi = src.G(g) + i * LD;
+      float de = 0.f;
 #pragma unroll
       for (int c = 0; c < HD; c += 4) de = dot4(ld4(o + c), ld4(gi + c), de);
+      src.de(g)[i] = de;
     }
-    Ms(g)[2 * np + i] = de;
   }
   __syncthreads();
 
   // each pair once: P_drop and dS into the score tiles
-  for (int w = t; w < ng * nr * nr; w += nt) {
-    const int g = w / (nr * nr), ti = w % (nr * nr) / nr, tj = w % nr;
-    const Problem pr = problem_at(p0 + g, S, sp, H);
-    const float* st = Ms(g);
+  const int pairs = src.pair_items();
+  for (int w = t; w < pairs; w += nt) {
+    int g, r;
+    src.pair_at(w, g, r);
+    const int nr = src.pad(g) / 4, sld = src.sld(g);
+    const int ti = r / nr, tj = r % nr;
+    const Problem pr = src.problem(g);
+    const float* mr = src.m(g);
+    const float* lr = src.li(g);
+    const float* dr = src.de(g);
+    const auto meets = src.mask(g);
     float s[4][4], dp[4][4];
-    dots<HD, true>(Qs(g), Ks(g), Gs(g), Vs(g), ti, tj, nr, s, dp);
-    float* P = Ps(g);
-    float* D = Ds(g);
+    dots<HD, true>(src.Q(g), src.K(g), src.G(g), src.V(g), ti, tj, nr, s, dp);
+    float* P = src.P(g);
+    float* D = src.D(g);
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
       const int i = ti + a * nr;
@@ -376,11 +855,11 @@ __device__ __forceinline__ void bwd_short(
       for (int b = 0; b < 4; ++b) {
         const int j = tj + b * nr;
         float pd = 0.f, ds = 0.f;
-        if (i < pr.n && st[3 * np + j] != 0.f) {
+        if (i < pr.n && meets(i, j)) {
           const bool kept =
               !keep.on || keep(pr.b, pr.h, H, S, pr.s0 + i, pr.s0 + j);
-          pair_grad(s[a][b] * scale, dp[a][b], st[i], st[np + i],
-                    st[2 * np + i], kept, keep, pd, ds);
+          pair_grad(s[a][b] * scale, dp[a][b], mr[i], lr[i], dr[i], kept,
+                    keep, pd, ds);
         }
         P[i * sld + j] = pd;
         D[i * sld + j] = ds;
@@ -390,18 +869,20 @@ __device__ __forceinline__ void bwd_short(
   __syncthreads();
 
   // the products: dK, dV by (key, channel) and dQ by (query, channel)
-  const int half = nr * C4;
-  for (int w = t; w < ng * 2 * half; w += nt) {
-    const int g = w / (2 * half), r = w % (2 * half);
-    const Problem pr = problem_at(p0 + g, S, sp, H);
+  const int prods = src.row_items(2 * C4);
+  for (int w = t; w < prods; w += nt) {
+    int g, r;
+    src.row_at(2 * C4, w, g, r);
+    const int nr = src.pad(g) / 4, sld = src.sld(g), half = nr * C4;
+    const Problem pr = src.problem(g);
     float* base = dqkv + (pr.b * S + pr.s0) * d3 + pr.h * HD;
     float acc[4][4], acc2[4][4];
     zero(acc);
     if (r < half) {
       const int j0 = r / C4 * 4, c0 = r % C4 * 4;
       zero(acc2);
-      keys_times<HD>(Ps(g), Ds(g), Gs(g), Qs(g), sld, pr.n, j0, c0, acc,
-                     acc2);
+      keys_times<HD>(src.P(g), src.D(g), src.G(g), src.Q(g), sld, pr.n, j0,
+                     c0, acc, acc2);
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
         if (j0 + b >= pr.n) break;
@@ -413,7 +894,7 @@ __device__ __forceinline__ void bwd_short(
       }
     } else {
       const int i0 = (r - half) / C4 * 4, c0 = (r - half) % C4 * 4;
-      rows_times<HD>(Ds(g), Ks(g), sld, round4(pr.n), i0, c0, acc);
+      rows_times<HD>(src.D(g), src.K(g), sld, round4(pr.n), i0, c0, acc);
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
         if (i0 + a >= pr.n) break;
@@ -423,6 +904,33 @@ __device__ __forceinline__ void bwd_short(
       }
     }
   }
+}
+
+// K4's and K9's short backward: spans of up to SHORT_MAX tokens, `group`
+// problems a block, np the span width rounded up to 4.
+template <int HD, class Keep>
+__device__ __forceinline__ void bwd_short(
+    const float* __restrict__ qkv, const unsigned char* __restrict__ valid,
+    const float* __restrict__ out, const float* __restrict__ gout,
+    const float* __restrict__ stat_m, const float* __restrict__ stat_l,
+    float* __restrict__ dqkv, int B, int S, int d, int H, int block, int np,
+    int group, float scale, Keep keep) {
+  FixedSpans<HD, true> src(valid, gout, stat_m, stat_l, B, S, H, block, np,
+                           group);
+  bwd_tile<HD>(src, qkv, out, dqkv, S, d, H, scale, keep);
+}
+
+// K4's and K9's forward on spans of up to 128 tokens, `group` a block.
+template <int HD, bool DROP, bool STATS, class Keep>
+__device__ __forceinline__ void fwd_short(
+    const float* __restrict__ qkv, const unsigned char* __restrict__ valid,
+    float* __restrict__ out, float* __restrict__ stat_m,
+    float* __restrict__ stat_l, int B, int S, int d, int H, int block,
+    int np, int group, float scale, Keep keep) {
+  FixedSpans<HD, false> src(valid, nullptr, nullptr, nullptr, B, S, H, block,
+                            np, group);
+  fwd_tile<HD, DROP, STATS>(src, qkv, out, stat_m, stat_l, S, d, H, scale,
+                            keep);
 }
 
 // ---- the wide backward: spans of up to 384 tokens, 64-token tiles ------
@@ -573,115 +1081,5 @@ __device__ __forceinline__ void bwd_wide(
   }
 }
 
-// ---- the forward on short spans ----------------------------------------
-//
-// out for `group` problems a block: the scores once into a shared tile, an
-// exact two-pass softmax per query row (max, then the sum of undropped
-// exp(s - m)), then O = P_drop V / l. STATS writes m (the max scaled score)
-// and l [B, S, H] as attention_fwd.cuh defines them; a query with no
-// attendable key writes zeros, m = -inf and l = 0.
-template <int HD, bool DROP, bool STATS, class Keep>
-__device__ __forceinline__ void fwd_short(
-    const float* __restrict__ qkv, const unsigned char* __restrict__ valid,
-    float* __restrict__ out, float* __restrict__ stat_m,
-    float* __restrict__ stat_l, int B, int S, int d, int H, int block,
-    int np, int group, float scale, Keep keep) {
-  constexpr int LD = HD + 4;
-  extern __shared__ float4 smem4[];
-  float* const smem = reinterpret_cast<float*>(smem4);
-  const int t = threadIdx.x, nt = blockDim.x;
-  const int nr = np / 4, sld = np + 4, per = fwd_floats(np, HD);
-  const Spans sp = spans_of(S, block);
-  const long p0 = (long)blockIdx.x * group;
-  const long left = (long)B * sp.count * H - p0;
-  const int ng = left < group ? (int)left : group;  // problems of this block
-  const long d3 = 3L * d;
-  auto Qs = [&](int g) { return smem + g * per; };
-  auto Ks = [&](int g) { return smem + g * per + np * LD; };
-  auto Vs = [&](int g) { return smem + g * per + 2 * np * LD; };
-  auto Ps = [&](int g) { return smem + g * per + 3 * np * LD; };
-  // per row: 1/l (times 1/(1-rate)), key mask
-  auto Ls = [&](int g) { return smem + g * per + 3 * np * LD + np * sld; };
-
-  for (int g = 0; g < ng; ++g) {
-    const Problem pr = problem_at(p0 + g, S, sp, H);
-    const long tok0 = pr.b * S + pr.s0;
-    const float* row = qkv + tok0 * d3 + pr.h * HD;
-    float* const dst[3] = {Qs(g), Ks(g), Vs(g)};
-    const float* const src[3] = {row, row + d, row + 2 * d};
-    const long ld[3] = {d3, d3, d3};
-    stage<HD, 3>(dst, src, ld, pr.n, np, t, nt);
-    for (int j = t; j < np; j += nt)
-      Ls(g)[np + j] = (j < pr.n && valid[tok0 + j]) ? 1.f : 0.f;
-  }
-  __syncthreads();
-
-  for (int w = t; w < ng * nr * nr; w += nt) {
-    const int g = w / (nr * nr), ti = w % (nr * nr) / nr, tj = w % nr;
-    float s[4][4], unused[4][4];
-    dots<HD, false>(Qs(g), Ks(g), nullptr, nullptr, ti, tj, nr, s, unused);
-    const float* kv = Ls(g) + np;
-    float* P = Ps(g);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int j = tj + b * nr;
-        P[(ti + a * nr) * sld + j] =
-            kv[j] != 0.f ? s[a][b] * scale : -INFINITY;
-      }
-  }
-  __syncthreads();
-
-  // four threads a row (aligned lanes of one warp): max, then sum
-  for (int w = t; w < ng * np * 4; w += nt) {
-    const int g = w / (4 * np), i = w % (4 * np) / 4, part = w % 4;
-    const unsigned quad = 0xFu << (threadIdx.x & 28u);
-    const Problem pr = problem_at(p0 + g, S, sp, H);
-    float* P = Ps(g) + i * sld;
-    float m = -INFINITY;
-    for (int j = part; j < np; j += 4) m = fmaxf(m, P[j]);
-    m = fmaxf(m, __shfl_xor_sync(quad, m, 1));
-    m = fmaxf(m, __shfl_xor_sync(quad, m, 2));
-    float l = 0.f;
-    for (int j = part; j < np; j += 4) {
-      float e = m == -INFINITY ? 0.f : expf(P[j] - m);
-      l += e;
-      if constexpr (DROP)
-        if (e != 0.f && !keep(pr.b, pr.h, H, S, pr.s0 + i, pr.s0 + j))
-          e = 0.f;
-      P[j] = e;
-    }
-    l += __shfl_xor_sync(quad, l, 1);
-    l += __shfl_xor_sync(quad, l, 2);
-    if (part == 0) {
-      Ls(g)[i] = (DROP ? keep.inv_keep : 1.f) / fmaxf(l, 1e-16f);
-      if (STATS && i < pr.n) {
-        const long at = (pr.b * S + pr.s0 + i) * H + pr.h;
-        stat_m[at] = m;
-        stat_l[at] = l;
-      }
-    }
-  }
-  __syncthreads();
-
-  constexpr int C4 = HD / 4;
-  for (int w = t; w < ng * nr * C4; w += nt) {
-    const int g = w / (nr * C4), r = w % (nr * C4);
-    const int i0 = r / C4 * 4, c0 = r % C4 * 4;
-    const Problem pr = problem_at(p0 + g, S, sp, H);
-    float acc[4][4];
-    zero(acc);
-    rows_times<HD>(Ps(g), Vs(g), sld, round4(pr.n), i0, c0, acc);
-    float* o = out + (pr.b * S + pr.s0) * d + pr.h * HD + c0;
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      if (i0 + a >= pr.n) break;
-      const float li = Ls(g)[i0 + a];
-      st4(o + (i0 + a) * d, make_float4(acc[a][0] * li, acc[a][1] * li,
-                                        acc[a][2] * li, acc[a][3] * li));
-    }
-  }
-}
 
 }  // namespace tile

@@ -34,13 +34,23 @@ at 3.35 TB/s) and the backward ~424 MB (qkv, seg, dO in, dqkv back), while
 the same-segment (query, key) pairs need ~1.6 GFLOP forward and ~4 GFLOP
 backward of f32 work: a row holds several small graphs, so most of the
 W x W score matrix is masked out. Design (``csrc/attention_packed.cu``):
-one block per (row, head). Forward: one thread per query; K_h, V_h and the
-row's segment ids in shared memory, read as broadcasts; q and the output
-accumulator in registers with an online softmax. Backward: Q_h, K_h, V_h
-and dO_h in shared memory; a pass with one thread per query recomputes the
-softmax statistics and delta and writes dq, then a pass with one thread per
-key writes dk and dv. Keys (queries) of other segments are skipped; every
-output cell has one writer, so there are no atomics.
+the work of each graph once, one attention problem per (row, graph
+segment, head). Rows of up to ``SEG_TILE_MAX`` (128) tokens take the
+whole-span bodies of ``csrc/attention_tile.cuh`` (K4's and K9's) with the
+row's segments as their span source: one block per (row, head) finds the
+runs of one graph id in seg itself (no host synchronisation), stages the
+row's Q, K, V (and dO) once and runs each segment as one problem, several
+segments a block; a row in which an id forms two runs (the JAX mask allows
+it) takes the whole row as one problem under K2's mask itself. Wider rows
+(code2's 384 tier) take the long-row forward and backward of
+``csrc/attention_fwd.cuh`` and ``csrc/attention_bwd.cuh`` with seg as both
+tags, as K3-bwd does. The forward writes the softmax statistics m and l
+``[R, W, H]`` where a gradient is wanted (``attention_seg_with_stats``);
+the backward reads them with the forward's output, computes delta = dO.O,
+then p, dp and ds of each pair once (one dropout draw), then dQ, dK and
+dV; every output cell has one writer, so there are no atomics.
+``seg_fwd_geometry`` and ``seg_bwd_geometry`` pick the instance by W and
+compute the launch; the C entries refuse one they cannot run.
 
 K4 replaces ``graphtrans_tpu/ops/pallas/attention_packed.py:
 attention_packed_qkv`` (forward ``_call_fwd``, backward ``_call_bwd``, mask
@@ -87,6 +97,7 @@ launch; the C entry refuses one it cannot run. Heads of width 32 and 64.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from dataclasses import dataclass
 
@@ -232,6 +243,9 @@ def _check(qkv, seg, nhead, rate, gout=None):
                          f"{tuple(gout.shape)} does not match the output")
     if not all(t.is_contiguous() for t in (qkv, seg, gout) if t is not None):
         raise ValueError("attention_seg: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in (qkv, gout) if t is not None):
+        raise ValueError("attention_seg: qkv and gout must be 16-byte "
+                         "aligned (the kernels load four floats at a time)")
 
 
 def _dropout_args(W: int, rate: float, seed: int):
@@ -247,19 +261,33 @@ def _stream(t: torch.Tensor):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def _launch_fwd(qkv, seg, nhead, rate, seed):
+def attention_seg_with_stats(qkv: torch.Tensor, seg: torch.Tensor,
+                             nhead: int, rate: float = 0.0, seed: int = 0,
+                             stats: bool = True):
+    """K2's forward kernel on CUDA tensors: (out [R, W, d], m, l), with the
+    softmax statistics m and l [R, W, H] that the backward reads (None,
+    None when ``stats`` is False and ``rate`` 0: the serving launch writes
+    none; with dropout the kernel always writes them). The instance
+    (``seg_fwd_geometry``) is counted in ``attention_seg.instances``."""
+    _check(qkv, seg, nhead, rate)
     R, W, d3 = qkv.shape
     out = torch.empty((R, W, d3 // 3), dtype=qkv.dtype, device=qkv.device)
+    m = l = None
+    if stats or rate > 0.0:
+        m = torch.empty((R, W, nhead), dtype=torch.float32, device=qkv.device)
+        l = torch.empty_like(m)
     if out.numel() == 0:
-        return out
+        return out, m, l
+    geo = seg_fwd_geometry(R, W, HEAD_DIM, nhead)
+    ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
     lib = _load()
     err = lib.attention_seg_fwd(
-        ctypes.c_void_p(qkv.data_ptr()), ctypes.c_void_p(seg.data_ptr()),
-        ctypes.c_void_p(out.data_ptr()), R, W, d3 // 3, nhead,
-        *_dropout_args(W, rate, seed), _stream(qkv))
+        ptr(qkv), ptr(seg), ptr(out), ptr(m), ptr(l), R, W, d3 // 3, nhead,
+        *_dropout_args(W, rate, seed), *geo.args(), _stream(qkv))
     _build.check(lib, err, "attention_seg_fwd")
     attention_seg.launches += 1
-    return out
+    attention_seg.instances[geo.instance] += 1
+    return out, m, l
 
 
 class _AttentionSeg(torch.autograd.Function):
@@ -267,16 +295,18 @@ class _AttentionSeg(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, qkv, seg, nhead, rate, seed):
-        ctx.save_for_backward(qkv, seg)
+        out, m, l = attention_seg_with_stats(qkv, seg, nhead, rate, seed)
+        ctx.save_for_backward(qkv, seg, out, m, l)
         ctx.args = (nhead, rate, seed)
-        return _launch_fwd(qkv, seg, nhead, rate, seed)
+        return out
 
     @staticmethod
     def backward(ctx, gout):
-        qkv, seg = ctx.saved_tensors
+        qkv, seg, out, m, l = ctx.saved_tensors
         nhead, rate, seed = ctx.args
-        return (attention_seg_bwd(qkv, seg, nhead, gout.contiguous(), rate,
-                                  seed), None, None, None, None)
+        return (attention_seg_bwd(qkv, seg, nhead, gout.contiguous(),
+                                  (out, m, l), rate, seed),
+                None, None, None, None)
 
 
 def attention_seg(qkv: torch.Tensor, seg: torch.Tensor, nhead: int,
@@ -289,42 +319,60 @@ def attention_seg(qkv: torch.Tensor, seg: torch.Tensor, nhead: int,
         return attention_seg_plain(qkv, seg, nhead, rate, seed)
     if qkv.device.type != "cuda":
         raise ValueError(f"attention_seg: unsupported device {qkv.device}")
-    _check(qkv, seg, nhead, rate)
     if torch.is_grad_enabled() and qkv.requires_grad:
         return _AttentionSeg.apply(qkv, seg, nhead, rate, seed)
-    return _launch_fwd(qkv, seg, nhead, rate, seed)
+    return attention_seg_with_stats(qkv, seg, nhead, rate, seed,
+                                    stats=False)[0]
 
 
 attention_seg.launches = 0
+attention_seg.instances = {"tile": 0, "long": 0}   # launches by instance
 
 
 def attention_seg_bwd(qkv: torch.Tensor, seg: torch.Tensor, nhead: int,
-                      gout: torch.Tensor, rate: float = 0.0,
+                      gout: torch.Tensor, saved, rate: float = 0.0,
                       seed: int = 0) -> torch.Tensor:
     """K2 backward: dqkv [R, W, 3d] for the cotangent ``gout`` [R, W, d]
     of ``attention_seg(qkv, seg, nhead, rate, seed)``, the dropout mask
-    drawn again from ``seed``. CPU tensors take
-    ``attention_seg_bwd_plain``; CUDA tensors launch the kernel or raise."""
+    drawn again from ``seed``. ``saved`` is the forward's (out, m, l) from
+    ``attention_seg_with_stats``, which the kernels read. CPU tensors take
+    ``attention_seg_bwd_plain``, which recomputes them and ignores
+    ``saved`` (None will do); CUDA tensors launch the kernel (the instance
+    ``seg_bwd_geometry`` picks, counted in ``attention_seg_bwd.instances``)
+    or raise."""
     if qkv.device.type == "cpu":
         return attention_seg_bwd_plain(qkv, seg, nhead, gout, rate, seed)
     if qkv.device.type != "cuda":
         raise ValueError(f"attention_seg_bwd: unsupported device {qkv.device}")
     _check(qkv, seg, nhead, rate, gout)
     R, W, d3 = qkv.shape
+    out, m, l = saved
+    if not (out.shape == gout.shape
+            and tuple(m.shape) == tuple(l.shape) == (R, W, nhead)):
+        raise ValueError("attention_seg_bwd: needs the forward's (out, m, "
+                         "l) from attention_seg_with_stats")
+    if out.data_ptr() % 16:
+        raise ValueError("attention_seg_bwd: the forward's output must be "
+                         "16-byte aligned")
     dqkv = torch.empty_like(qkv)
     if dqkv.numel() == 0:
         return dqkv
+    geo = seg_bwd_geometry(R, W, HEAD_DIM, nhead)
+    delta = torch.empty_like(m) if geo.instance == "long" else None
+    ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
     lib = _load()
     err = lib.attention_seg_bwd(
-        ctypes.c_void_p(qkv.data_ptr()), ctypes.c_void_p(seg.data_ptr()),
-        ctypes.c_void_p(gout.data_ptr()), ctypes.c_void_p(dqkv.data_ptr()),
-        R, W, d3 // 3, nhead, *_dropout_args(W, rate, seed), _stream(qkv))
+        *(ptr(t) for t in (qkv, seg, out, gout, m, l, delta, dqkv)),
+        R, W, d3 // 3, nhead, *_dropout_args(W, rate, seed), *geo.args(),
+        _stream(qkv))
     _build.check(lib, err, "attention_seg_bwd")
     attention_seg_bwd.launches += 1
+    attention_seg_bwd.instances[geo.instance] += 1
     return dqkv
 
 
 attention_seg_bwd.launches = 0
+attention_seg_bwd.instances = {"tile": 0, "long": 0}   # launches by instance
 
 
 # ---- launch geometry of the kernels on csrc/attention_tile.cuh ------------
@@ -411,6 +459,15 @@ def long_fwd_bytes(hd: int) -> int:
                 + (1 + 2 * bufs) * LONG_T + 8)
 
 
+def long_bwd_bytes(hd: int) -> int:
+    """Shared bytes of the long backward's dk/dv kernel (its dq kernel takes
+    one score tile less): Q, dO, K, V tiles of 64 rows, the dS and P_drop
+    score tiles, per-row statistics, tags and token indices, and the prefix
+    count's scratch (``csrc/attention_bwd.cuh:long_dkv_bytes``)."""
+    return 4 * (4 * LONG_T * (hd + 4) + 2 * LONG_T * (LONG_T + 8)
+                + 6 * LONG_T + 16)
+
+
 def long_fwd_geometry(B: int, S: int, hd: int, nhead: int,
                       spans: tuple = None) -> Geometry:
     """The long forward's launch (K5's, and K4's and K9's above the tile
@@ -419,6 +476,75 @@ def long_fwd_geometry(B: int, S: int, hd: int, nhead: int,
     return Geometry("long", spans or ((0, S),), LONG_T, 1,
                     (B, nhead, -(-S // LONG_T)), LONG_FWD_THREADS,
                     long_fwd_bytes(hd))
+
+
+SEG_TILE_MAX = 128   # K2: rows of up to this take the tile kernels
+SEG_FWD_THREADS = 256   # threads a block of K2's tile forward
+SEG_BWD_THREADS = 512   # threads a block of K2's tile backward
+
+
+def seg_sld(pad: int) -> int:
+    """Floats a row of a K2 segment's score tile of ``pad`` rows: an odd
+    number of float4, so the softmax's eight rows a warp read distinct
+    banks (``csrc/attention_tile.cuh:seg_sld``)."""
+    return 4 * ((pad // 4 + 1) | 1)
+
+
+@functools.lru_cache(maxsize=None)
+def seg_score_floats(W: int) -> int:
+    """The most score floats a row of W tokens can need: a segment of n
+    tokens takes pad x seg_sld(pad) (pad: n rounded up to 4), maximised
+    over every split of the row into segments (a knapsack over the
+    lengths; ``csrc/attention_tile.cuh:seg_score_floats``)."""
+    best = [0] * (W + 1)
+    for w in range(1, W + 1):
+        best[w] = max(best[w - n] + _round(n, 4) * seg_sld(_round(n, 4))
+                      for n in range(1, w + 1))
+    return _round(best[W], 4)
+
+
+def seg_tile_bytes(W: int, hd: int, bwd: bool) -> int:
+    """Shared bytes of a K2 tile block on rows of W tokens: the row's head
+    slices of round4(W) + 4 rows (forward: Q, with V later in its place,
+    and K; backward: Q, K, V, dO), the score tiles (P; and dS), per token
+    1/l (m, 1/l, delta) and tag, per segment its first token, length,
+    prefix counts and score offset
+    (``csrc/attention_tile.cuh:seg_tile_words``)."""
+    rows = _round(W, 4) + 4
+    return 4 * ((4 if bwd else 2) * rows * (hd + 4)
+                + (2 if bwd else 1) * seg_score_floats(W)
+                + (3 if bwd else 1) * rows + rows + 5 * (W + 1) + 4)
+
+
+def seg_instance(W: int) -> str:
+    """The instance K2's forward and backward take on rows of W tokens:
+    "tile" (the row's segments, each a whole-span problem) up to
+    SEG_TILE_MAX, "long" (the long-row bodies under seg as both tags)
+    above. A row of W tokens holds segments of at most W."""
+    return "tile" if W <= SEG_TILE_MAX else "long"
+
+
+@functools.lru_cache(maxsize=None)
+def seg_fwd_geometry(R: int, W: int, hd: int, nhead: int) -> Geometry:
+    """K2's forward launch for R rows of W tokens: the tile instance, a
+    block of SEG_FWD_THREADS per (row, head), or the long forward's."""
+    if seg_instance(W) == "tile":
+        return Geometry("tile", ((0, W),), _round(W, 4), 1, (R * nhead, 1, 1),
+                        SEG_FWD_THREADS, seg_tile_bytes(W, hd, False))
+    return long_fwd_geometry(R, W, hd, nhead)
+
+
+@functools.lru_cache(maxsize=None)
+def seg_bwd_geometry(R: int, W: int, hd: int, nhead: int) -> Geometry:
+    """K2-bwd's launch for R rows of W tokens: the tile instance, a block
+    of SEG_BWD_THREADS per (row, head), or the long-row pair's (a block of
+    LONG_THREADS per (row, head, LONG_T tokens), the dk/dv kernel's shared
+    bytes)."""
+    if seg_instance(W) == "tile":
+        return Geometry("tile", ((0, W),), _round(W, 4), 1, (R * nhead, 1, 1),
+                        SEG_BWD_THREADS, seg_tile_bytes(W, hd, True))
+    return Geometry("long", ((0, W),), LONG_T, 1, (R, nhead, -(-W // LONG_T)),
+                    LONG_THREADS, long_bwd_bytes(hd))
 
 
 def dense_fwd_geometry(B: int, S: int, block: int, hd: int, nhead: int,
@@ -712,12 +838,14 @@ def _load():
                                             + [ctypes.c_int] * 9
                                             + [ctypes.c_void_p])
         lib.attention_dense_bwd.restype = ctypes.c_int
-        lib.attention_seg_fwd.argtypes = ([ctypes.c_void_p] * 3
+        lib.attention_seg_fwd.argtypes = ([ctypes.c_void_p] * 5
                                           + [ctypes.c_int] * 4 + drop
+                                          + [ctypes.c_int] * 8
                                           + [ctypes.c_void_p])
         lib.attention_seg_fwd.restype = ctypes.c_int
-        lib.attention_seg_bwd.argtypes = ([ctypes.c_void_p] * 4
+        lib.attention_seg_bwd.argtypes = ([ctypes.c_void_p] * 8
                                           + [ctypes.c_int] * 4 + drop
+                                          + [ctypes.c_int] * 8
                                           + [ctypes.c_void_p])
         lib.attention_seg_bwd.restype = ctypes.c_int
     return lib

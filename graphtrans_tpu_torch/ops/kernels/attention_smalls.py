@@ -70,7 +70,7 @@ from .attention_packed import (LONG_T, LONG_THREADS, SHORT_MAX, SMEM_MAX,
                                _stream, attention_dense_plain,
                                bwd_short_bytes, bwd_wide_bytes,
                                dense_fwd_geometry, fwd_tile_bytes, hash_bits,
-                               keep_drop, keep_threshold, row_spans,
+                               keep_drop, long_bwd_bytes, keep_threshold, row_spans,
                                tile_launch, tile_max)
 from .flash_attention import HEAD_DIMS, PLAIN_SCORE_BYTES, _dropout_args
 
@@ -80,15 +80,6 @@ WIDE_HEAD_DIMS = (32, 64)  # the head widths of the wide backward
 # K9's forward launch is K4's at any S: the tile instance up to tile_max(hd)
 # tokens, the long one above
 fwd_geometry = dense_fwd_geometry
-
-
-def long_bwd_bytes(hd: int) -> int:
-    """Shared bytes of the long backward's dk/dv kernel (its dq kernel takes
-    one score tile less): Q, dO, K, V tiles of 64 rows, the dS and P_drop
-    score tiles, per-row statistics, tags and token indices, and the prefix
-    count's scratch (``csrc/attention_bwd.cuh:long_dkv_bytes``)."""
-    return 4 * (4 * LONG_T * (hd + 4) + 2 * LONG_T * (LONG_T + 8)
-                + 6 * LONG_T + 16)
 
 
 def bwd_geometry(B: int, S: int, block: int, hd: int,

@@ -101,8 +101,8 @@ def test_plain_fwd_and_grad_match_jax_interpret_kernel(rate, seed):
         assert not np.allclose(got.numpy(), attention_seg_plain(
             t_qkv, t_seg, 4).numpy(), atol=1e-3)
     before = attention_seg_bwd.launches          # CPU: plain, uncounted
-    again = attention_seg_bwd(t_qkv, t_seg, 4, torch.from_numpy(g), rate,
-                              seed)
+    again = attention_seg_bwd(t_qkv, t_seg, 4, torch.from_numpy(g), None,
+                              rate, seed)
     assert attention_seg_bwd.launches == before
     torch.testing.assert_close(again, dqkv, atol=1e-6, rtol=0)
 

@@ -251,6 +251,71 @@ def test_graph_packed_rows_hold_whole_blocks():
             assert len(spans) == gb and all(b - a == S for a, b in spans)
 
 
+@pytest.mark.parametrize("n", [1, 64, 65, 128, 129, 384])
+def test_k2_geometry_by_segment_length(n):
+    """K2's launches on rows as wide as a segment of n tokens: rows of up
+    to 128 tokens (every molecule, NCI1 and code2 128-tier row, so every
+    segment of up to 128 tokens) take the tile instance, a block of 256
+    (forward) or 512 threads (backward) per (row, head); wider rows the
+    long forward and the long-row pair, by 64-token tiles. Shared memory
+    fits the H100's 227 KB."""
+    R, nhead, hd = 923, 4, 32
+    fwd = ap.seg_fwd_geometry(R, n, hd, nhead)
+    bwd = ap.seg_bwd_geometry(R, n, hd, nhead)
+    want = "tile" if n <= 128 else "long"
+    assert ap.seg_instance(n) == fwd.instance == bwd.instance == want
+    for geo in (fwd, bwd):
+        assert 0 < geo.smem <= SMEM_MAX
+        assert geo.threads % 32 == 0 and geo.group == 1
+        if want == "tile":
+            assert geo.grid == (R * nhead, 1, 1)
+            assert geo.threads == (512 if geo is bwd else 256)
+            assert geo.pad == -(-n // 4) * 4
+        else:
+            assert geo.grid == (R, nhead, -(-n // 64)) and geo.pad == 64
+    if want == "tile":
+        assert fwd.smem == ap.seg_tile_bytes(n, hd, False)
+        assert bwd.smem == ap.seg_tile_bytes(n, hd, True)
+    else:
+        assert fwd == ap.long_fwd_geometry(R, n, hd, nhead)
+        assert bwd.smem == asm.long_bwd_bytes(hd) and bwd.threads == 256
+    assert ap.seg_tile_bytes(128, hd, True) <= SMEM_MAX   # the widest tile
+
+
+def test_k2_score_tiles_fit_their_bound():
+    """The tile instance sizes its score tiles for the worst split of a
+    row: the sum over segments of pad x seg_sld(pad), pad = n rounded up
+    to 4, is at most seg_score_floats(W) for every split of W <= 128 tokens
+    into segments (exhaustive up to W 14, then the extremes and random
+    splits); each tile's rows hold an odd number of float4."""
+    gen = torch.Generator().manual_seed(0)
+    r4 = lambda n: -(-n // 4) * 4
+    need = lambda parts: sum(r4(n) * ap.seg_sld(r4(n)) for n in parts)
+
+    def splits(W):
+        if W == 0:
+            yield []
+            return
+        for first in range(1, W + 1):
+            for rest in splits(W - first):
+                yield [first] + rest
+
+    assert all(ap.seg_sld(p) % 8 == 4 and ap.seg_sld(p) >= p + 4
+               for p in range(4, 129, 4))
+    for W in range(1, 15):
+        for parts in splits(W):
+            assert need(parts) <= ap.seg_score_floats(W)
+    for W in range(15, 129):
+        cases = [[W], [1] * W, [W - 2, 2], [W - 1, 1], [4] * (W // 4)]
+        for _ in range(50):
+            k = int(torch.randint(1, W, (1,), generator=gen))
+            cut = torch.randperm(W - 1, generator=gen)[:k].sort().values + 1
+            edges = [0] + cut.tolist() + [W]
+            cases.append([b - a for a, b in zip(edges, edges[1:])])
+        for parts in cases:
+            assert need(parts) <= ap.seg_score_floats(W)
+
+
 def _c_params(source: str, entry: str) -> int:
     text = (CSRC / source).read_text()
     sig = re.search(r'extern "C" int ' + entry + r"\((.*?)\)\s*\{", text,
@@ -279,6 +344,8 @@ def test_ctypes_signatures_match_the_c_entries(monkeypatch):
     for lib, source, entry in (
             (packed, "attention_packed.cu", "attention_dense_bwd"),
             (packed, "attention_packed.cu", "attention_dense_fwd"),
+            (packed, "attention_packed.cu", "attention_seg_fwd"),
+            (packed, "attention_packed.cu", "attention_seg_bwd"),
             (smalls, "attention_smalls.cu", "attention_smalls_fwd"),
             (smalls, "attention_smalls.cu", "attention_smalls_bwd"),
             (flash, "flash_attention.cu", "flash_attention_fwd"),

@@ -21,6 +21,8 @@ from graphtrans_tpu_torch.ops.kernels import (  # noqa: E402
     attention_seg, attention_seg_bwd, attention_seg_bwd_plain,
     attention_seg_plain, gin_agg, gin_agg_bwd, gin_agg_bwd_plain,
     gin_agg_plain, set_kernels)
+from graphtrans_tpu_torch.ops.kernels.attention_packed import (  # noqa: E402
+    attention_seg_with_stats, seg_instance)
 
 K1_TOL, K2_TOL, LOGITS_TOL = 1e-5, 2e-5, 1e-4
 GRAD_TOL = 5e-4  # gradients (the SMOKE_TPU.json bound)
@@ -109,9 +111,9 @@ def test_attention_seg_bwd_kernel_matches_plain(cuda, W, d, H, rate):
     g = torch.randn(qkv.shape[0], W, d,
                     generator=torch.Generator().manual_seed(3)).to(cuda)
     seed = 987654321
-    out = attention_seg(qkv, seg, H, rate, seed)
+    out, m, l = attention_seg_with_stats(qkv, seg, H, rate, seed)
     before = attention_seg_bwd.launches
-    dqkv = attention_seg_bwd(qkv, seg, H, g, rate, seed)
+    dqkv = attention_seg_bwd(qkv, seg, H, g, (out, m, l), rate, seed)
     torch.cuda.synchronize()
     assert attention_seg_bwd.launches == before + 1
     want = attention_seg_plain(qkv, seg, H, rate, seed)
@@ -146,6 +148,77 @@ def test_attention_seg_kernel_matches_plain(cuda, W, d, H):
     assert attention_seg.launches == before + 1
     assert (got - attention_seg_plain(qkv, seg, H)).abs().max().item() <= K2_TOL
     assert not got[seg < 0].any()
+
+
+# K2's rows by segment length: 1, 27, 64, 65, 128 (and 129, 384 on wide
+# rows), an id in two runs (7), padding gaps and an all-padding row
+K2_SEGMENTS = {
+    37: [[10, (3, -1), 9, 12, (3, -1)], [(5, 2), 5, (5, 2), (22, -1)], [37]],
+    128: [[1] * 9 + [27] * 4 + [(11, -1)], [64, 64], [65, (63, -1)], [128],
+          [(20, 7), 10, (15, 7), (83, -1)], [(128, -1)]],
+    384: [[129, 128, (127, -1)], [384], [1, 27, 64, 65, 127, (100, -1)],
+          [(150, 7), 100, (100, 7), (34, -1)], [(384, -1)]],
+}
+
+
+def _k2_segments(W, cuda):
+    seg = torch.full((len(K2_SEGMENTS[W]), W), -1, dtype=torch.int32)
+    g = 1000
+    for r, runs in enumerate(K2_SEGMENTS[W]):
+        s = 0
+        for run in runs:
+            n, gid = run if isinstance(run, tuple) else (run, None)
+            if gid != -1:
+                seg[r, s:s + n] = g if gid is None else gid
+            g, s = g + 1, s + n
+    gen = torch.Generator().manual_seed(W)
+    return (torch.randn(len(seg), W, 384, generator=gen).to(cuda),
+            seg.to(cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [37, 128, 384])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_attention_seg_segments_match_plain(cuda, W, rate):
+    """K2 and K2-bwd on rows of every segment length around the
+    instances' limits, an id in two runs and an all-padding row: within
+    K2_TOL (forward) and GRAD_TOL of max(1, max |ref|) (backward) of the
+    plain version, m and l their log-sum-exp, padding rows exactly 0, the
+    same bits on two runs, launches counted by instance."""
+    H, seed = 4, 2**31 - 11
+    qkv, seg = _k2_segments(W, cuda)
+    g = torch.randn(qkv.shape[0], W, 128,
+                    generator=torch.Generator().manual_seed(5)).to(cuda)
+    inst = seg_instance(W)
+    f0, b0 = attention_seg.instances[inst], attention_seg_bwd.instances[inst]
+    runs = []
+    for _ in range(2):
+        out, m, l = attention_seg_with_stats(qkv, seg, H, rate, seed)
+        dqkv = attention_seg_bwd(qkv, seg, H, g, (out, m, l), rate, seed)
+        runs.append((out, m, l, dqkv))
+    torch.cuda.synchronize()
+    assert attention_seg.instances[inst] == f0 + 2
+    assert attention_seg_bwd.instances[inst] == b0 + 2
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    out, m, l, dqkv = runs[0]
+    want = attention_seg_plain(qkv, seg, H, rate, seed)
+    assert (out - want).abs().max().item() <= K2_TOL
+    want_d = attention_seg_bwd_plain(qkv, seg, H, g, rate, seed)
+    assert ((dqkv - want_d).abs().max().item()
+            <= GRAD_TOL * max(1.0, want_d.abs().max().item()))
+    pad = seg < 0
+    assert not out[pad].any() and not dqkv[pad].any()
+    q, k = (t.reshape(len(seg), W, H, 32).transpose(1, 2)
+            for t in (qkv[..., :128], qkv[..., 128:256]))
+    s = q @ k.transpose(-1, -2) / 32 ** 0.5
+    meet = (seg[:, :, None] == seg[:, None, :]) & ~pad[:, None, :]
+    lse = torch.logsumexp(s.masked_fill(~meet[:, None], -float("inf")), -1)
+    lse = lse.transpose(1, 2)[~pad]
+    assert (m[~pad] + l[~pad].log() - lse).abs().max().item() <= 1e-5
+    serving = attention_seg(qkv, seg, H)
+    assert (serving - attention_seg_plain(qkv, seg, H)).abs().max().item() \
+        <= K2_TOL
 
 
 @pytest.mark.cuda
