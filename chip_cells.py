@@ -1,7 +1,8 @@
-"""Times the end-to-end cells that K2 runs on, for two checkouts of the
-port in turns on one NVIDIA card: molpcba train4096 (phase 6c of
-chip_smoke.py), code2 bench512's forward and its train step (7c, 8c), and
-NCI1 bench4096's forward and train steps (12c).
+"""Times the GraphTrans end-to-end cells for two checkouts of the port in
+turns on one NVIDIA card: molpcba train4096 (phase 6c of chip_smoke.py:
+K1, K1-bwd, K2, K2-bwd), code2 bench512's forward and its train step (7c,
+8c: K3, K3-bwd, K7, K7-bwd, K2), and NCI1 bench4096's forward and train
+steps (12c: K6, K6-bwd, K2).
 
 usage: python3 chip_cells.py EARLIER THIS
 

@@ -5,10 +5,11 @@ usage: python3 chip_smoke.py [--trace trace.json] [--baseline DIR]
 
 ``--baseline DIR`` names a checkout of an earlier commit (its
 graphtrans_tpu_torch/ tree; for one run, never committed): phases 2, 6a,
-7a, 8a, 9a, 10a and 11a then build its K2, K3-bwd, K4, K5 and K9 (forward,
-serving and training), K2-bwd, K4-bwd, K5-bwd, K9-bwd, K10 and K10-bwd from
-its own sources and time them beside this tree's, in turns (earlier, this,
-this, earlier), on the same inputs.
+7a, 8a, 9a, 10a and 11a then build its K1-bwd, K2, K3, K3-bwd, K4, K5 and
+K9 (forward, serving and training), K2-bwd, K4-bwd, K5-bwd, K9-bwd, K10
+and K10-bwd from its own sources and time them beside this tree's, in
+turns (earlier, this, this, earlier), on the same inputs; phases 2 and 12a
+hold K1's forward, K6 and K6-bwd to its bits.
 
 Phases, each printing one line (any failure raises and exits non-zero):
   0. the card (nvidia-smi name and power limit) and torch; TF32 off;
@@ -240,7 +241,7 @@ LAYERS = (
     ("attention_seg_fwd", "K2 attention_seg"),
     ("attention_dense_fwd", "K4 attention_dense (K10's too)"),
     ("gin_agg_bwd", "K1-bwd gin_agg_bwd"),
-    ("sum_rows", "K1-bwd gin_agg_bwd"),     # K6-bwd's too at d > 128
+    ("sum_rows", "K6-bwd dense_agg_bwd (dw slices)"),
     ("attention_seg_bwd", "K2-bwd attention_seg_bwd"),
     ("multi_tensor", "AdamW (foreach)"),
     ("gemm", "matmul (Linear layers)"),
@@ -281,8 +282,9 @@ def time_ms(fn, iters: int, reps: int = 5) -> float:
     return statistics.median(per)
 
 
-BASELINE_KERNELS = ("attention_packed", "attention_smalls", "flash_attention",
-                    "flash_hil", "transformer_layer")
+BASELINE_KERNELS = ("attention_packed", "attention_smalls", "dense_agg",
+                    "flash_attention", "flash_hil", "gin_agg",
+                    "transformer_layer")
 
 
 def load_baseline(root):
@@ -521,10 +523,14 @@ def phase2(device, d_gnn: int, d_model: int, nhead: int, big, base=None):
           f"K1 max |diff| {k1_err:.3g} (<= {K1_TOL}), K2 max |diff| "
           f"{k2_err:.3g} (<= {K2_TOL}), padding queries exactly 0")
 
-    rows = []
+    rows, same = [], []
     for name, b in (("serve64", serve), ("bench4096", big)):
         inp = k1_inputs(b, d_gnn, gen, device)
-        _, args = check_k1(inp, with_w=False)
+        for with_w in (True, False):
+            _, args = check_k1(inp, with_w)
+            same_bits(f"K1 {name} ({'w' if with_w else 'scale'})",
+                      lambda: gin_agg(*args),
+                      base and (lambda: base["gin_agg"].gin_agg(*args)), same)
         k1 = dict(ms=time_ms(lambda: gin_agg(*args), iters=20),
                   plain_ms=time_ms(lambda: gin_agg_plain(*args), iters=5),
                   library_ms=None)
@@ -552,6 +558,9 @@ def phase2(device, d_gnn: int, d_model: int, nhead: int, big, base=None):
                   f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), library "
                   f"{lib} ms")
         rows.append((k1, k2))
+    if base:
+        print(f"[2] --baseline: K1's forward gives the parent's bits on the "
+              f"same inputs at {same}")
     return dict(k1_err=k1_err, k2_err=k2_err, timed=rows[-1])
 
 
@@ -861,8 +870,8 @@ def time_k2_train(qkv, seg, nhead: int, g, seed: int, base=None):
     ms, earlier = turns_ms(
         lambda: attention_seg_bwd(qkv, seg, nhead, g, saved, DROPOUT,
                                   seed),
-        old and (lambda: old.attention_seg_bwd(qkv, seg, nhead, g, DROPOUT,
-                                               seed)), 20)
+        old and (lambda: old.attention_seg_bwd(qkv, seg, nhead, g, saved,
+                                               DROPOUT, seed)), 20)
     k2 = dict(ms=ms, earlier_ms=earlier,
               plain_ms=_plain_bwd_ms(
                   lambda t: attention_seg_plain(t, seg, nhead, DROPOUT, seed),
@@ -888,6 +897,7 @@ def phase6_kernels(device, d_gnn: int, d_model: int, nhead: int, big,
     from graphtrans_tpu_torch.data.loader import iterate_batches
     from graphtrans_tpu_torch.data.mol import load_mol_splits
     from graphtrans_tpu_torch.ops.kernels import gin_agg_bwd, gin_agg_plain
+    from graphtrans_tpu_torch.ops.kernels.gin_agg import bwd_geometry
     from graphtrans_tpu_torch.predict import serving_layout
 
     gen = torch.Generator().manual_seed(SEED + 6)
@@ -915,7 +925,10 @@ def phase6_kernels(device, d_gnn: int, d_model: int, nhead: int, big,
         args = (inp["x"], inp["src"], inp["dst"], inp["emask"], inp["attr"],
                 inp["tbl"], None, inp["scale"])
         fixed = args[1:5]
-        k1 = dict(ms=time_ms(lambda: gin_agg_bwd(*args, gout), iters=20),
+        ms, earlier = turns_ms(
+            lambda: gin_agg_bwd(*args, gout),
+            base and (lambda: base["gin_agg"].gin_agg_bwd(*args, gout)), 20)
+        k1 = dict(ms=ms, earlier_ms=earlier,
                   plain_ms=_plain_bwd_ms(
                       lambda x, t, sc: gin_agg_plain(x, *fixed, t, None, sc),
                       [args[0], args[5], args[7]], gout),
@@ -939,6 +952,13 @@ def phase6_kernels(device, d_gnn: int, d_model: int, nhead: int, big,
                   f"{t['ms']:.4f} ms, plain backward {t['plain_ms']:.4f} ms, "
                   f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), library "
                   f"{lib} ms")
+        geo = bwd_geometry(
+            *inp["x"].shape[:2], inp["src"].shape[1], inp["attr"].shape[1],
+            inp["tbl"].shape[0], d_gnn, False,
+            torch.cuda.get_device_properties(device).multi_processor_count)
+        print(f"[6a] {name} K1-bwd: the parent's {_ms(k1['earlier_ms'])}, "
+              f"in turns; launch: vec {geo.vec}, gpb {geo.gpb}, grid "
+              f"{geo.grid} x {geo.threads}, {geo.smem} B")
         print(f"[6a] {name} K2-bwd: the parent's {_ms(k2['earlier_ms'])}, "
               f"in turns; K2 forward with dropout {DROPOUT} and saved "
               f"statistics (training) {fwd_drop[0]:.4f} ms (the parent's "
@@ -1145,13 +1165,11 @@ def check_k7(args):
     return err
 
 
-def k3_bound(qkv, seg, nhead: int):
-    R, W, d3 = qkv.shape
-    hd = d3 // 3 // nhead
-    _, counts = torch.unique(seg[seg >= 0], return_counts=True)
-    pairs = int((counts.long() ** 2).sum().item())   # same-segment (q, k)
-    nbytes = qkv.numel() * 4 + seg.numel() * 4 + R * W * (d3 // 3) * 4
-    return _bound(nbytes, 4 * hd * nhead * pairs)
+def k3_bound(qkv, seg, nhead: int, tensor_cores: bool = True):
+    """K3 reads and writes what K2 does (k2_bound); by default its products
+    are timed as the long forward runs them, 3xTF32 on the tensor cores
+    (``tensor_cores=False``: the f32 SIMT bound, printed beside it)."""
+    return k2_bound(qkv, seg, nhead, tensor_cores)
 
 
 def k7_bound(args):
@@ -1271,12 +1289,16 @@ def phase7_kernels(device, d_gnn: int, d_model: int, nhead: int, bench,
     for name, b in (("serve16", serve[0]), (f"bench{CODE2_BENCH}", bench)):
         qkv, seg = k3_inputs(b, d_model, gen, device)
         R, W, d3 = qkv.shape
-        k3 = dict(ms=time_ms(lambda: flash_hil_seg(qkv, seg, nhead),
-                             iters=20),
+        ms, earlier = turns_ms(
+            lambda: flash_hil_seg(qkv, seg, nhead),
+            base and (lambda: base["flash_hil"].flash_hil_seg(qkv, seg,
+                                                              nhead)), 20)
+        k3 = dict(ms=ms, earlier_ms=earlier,
                   plain_ms=time_ms(
                       lambda: flash_hil_seg_plain(qkv, seg, nhead), iters=5),
                   library_ms=sdpa_ms(qkv, seg, nhead))
         k3["bound_ms"], k3["bound_by"] = k3_bound(qkv, seg, nhead)
+        k3["f32_simt_bound_ms"] = k3_bound(qkv, seg, nhead, False)[0]
         a = k7_inputs(b, d_gnn, gen, device)
         k7 = dict(ms=time_ms(lambda: spmm(*a), iters=20),
                   plain_ms=time_ms(lambda: spmm_plain(*a), iters=5),
@@ -1290,9 +1312,12 @@ def phase7_kernels(device, d_gnn: int, d_model: int, nhead: int, bench,
                  "bool seg mask)"),
                 ("K7 spmm", k7, "- (no single PyTorch call computes the "
                  "gather, relu message, weight and scatter-sum)")):
+            earlier = ("" if "earlier_ms" not in t else
+                       f" (the parent's {_ms(t['earlier_ms'])}, in turns)")
             print(f"[7a] {name} {kname} [{t['shape']}]: kernel "
-                  f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
-                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library {lib}")
+                  f"{t['ms']:.4f} ms{earlier}, plain {t['plain_ms']:.4f} ms, "
+                  f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}{_simt(t)}), "
+                  f"library {lib}")
     k2 = time_k2_tiers("7a", device, d_model, nhead, bench, gen, base, False)
     return dict(k3_err=k3_err, k7_err=k7_err, timed=(k3, k7), k2=k2)
 
@@ -1462,7 +1487,7 @@ def check_k3_train(qkv, seg, nhead: int, rate: float, seed: int, gen):
     saved = flash_hil_seg_with_stats(qkv, seg, nhead, rate, seed)
     out = saved[0]
     g = torch.randn(out.shape, generator=gen).to(qkv.device)
-    dqkv = flash_hil_seg_bwd(qkv, seg, nhead, g, rate, seed, saved=saved)
+    dqkv = flash_hil_seg_bwd(qkv, seg, nhead, g, saved, rate, seed)
     torch.cuda.synchronize()
     f_err = (out - flash_hil_seg_plain(qkv, seg, nhead, rate, seed)
              ).abs().max().item()
@@ -1556,8 +1581,8 @@ def phase8_kernels(device, d_gnn: int, d_model: int, nhead: int, bench,
         g = torch.randn(R, W, d_model, generator=gen).to(device)
         saved = flash_hil_seg_with_stats(qkv, seg, nhead, DROPOUT, seed)
         ms, earlier = turns_ms(
-            lambda: flash_hil_seg_bwd(qkv, seg, nhead, g, DROPOUT, seed,
-                                      saved=saved),
+            lambda: flash_hil_seg_bwd(qkv, seg, nhead, g, saved, DROPOUT,
+                                      seed),
             base and (lambda: base["flash_hil"].flash_hil_seg_bwd(
                 qkv, seg, nhead, g, DROPOUT, seed, saved=saved)), 20)
         k3b = dict(ms=ms, earlier_ms=earlier,
@@ -1567,10 +1592,16 @@ def phase8_kernels(device, d_gnn: int, d_model: int, nhead: int, bench,
                    library_ms=sdpa_bwd_ms(qkv, seg, nhead, g, DROPOUT))
         k3b["bound_ms"], k3b["bound_by"] = k3_bwd_bound(qkv, seg, nhead)
         simt = k3_bwd_bound(qkv, seg, nhead, tensor_cores=False)[0]
-        fwd = {what: time_ms(fn, iters=20) for what, fn in (
-            ("serving", lambda: flash_hil_seg(qkv, seg, nhead)),
-            ("training", lambda: flash_hil_seg_with_stats(
-                qkv, seg, nhead, DROPOUT, seed)))}
+        old = base and base["flash_hil"]
+        fwd = {what: turns_ms(fn, old and (lambda: fn(old)), 20)
+               for what, fn in (
+                   ("serving", lambda m=None: (m.flash_hil_seg if m else
+                                               flash_hil_seg)(qkv, seg,
+                                                              nhead)),
+                   ("training", lambda m=None: (
+                       m.flash_hil_seg_with_stats if m else
+                       flash_hil_seg_with_stats)(qkv, seg, nhead, DROPOUT,
+                                                 seed)))}
         a = k7_inputs(b, d_gnn, gen, device)
         g7 = torch.randn(a[0].shape, generator=gen).to(device)
         N7 = a[0].shape[0]
@@ -1601,9 +1632,11 @@ def phase8_kernels(device, d_gnn: int, d_model: int, nhead: int, bench,
                   f"{t['ms']:.4f} ms, plain backward {t['plain_ms']:.4f} ms, "
                   f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), library "
                   f"{lib}")
-        print(f"[8a] {name} K3 forward: serving {fwd['serving']:.4f} ms, "
-              f"with dropout {DROPOUT} and saved statistics (training) "
-              f"{fwd['training']:.4f} ms; K7-bwd's SrcOrder (sort and "
+        print(f"[8a] {name} K3 forward: serving {fwd['serving'][0]:.4f} ms "
+              f"(the parent's {_ms(fwd['serving'][1])}, in turns), with "
+              f"dropout {DROPOUT} and saved statistics (training) "
+              f"{fwd['training'][0]:.4f} ms (the parent's "
+              f"{_ms(fwd['training'][1])}); K7-bwd's SrcOrder (sort and "
               f"searchsorted, once per batch) {order_ms:.4f} ms")
     k2 = time_k2_tiers("8a", device, d_model, nhead, bench, gen, base, True)
     return dict(k3_err=k3_err, k7_err=k7_err, timed=(k3b, k7b), k2=k2)
@@ -3620,11 +3653,12 @@ def onehot_agg(x, src, dst, emask, emb, w, relu: bool = True):
     return torch.bmm(oh_dst.transpose(1, 2), m)
 
 
-def phase12_kernels(device, d_gnn: int, bench):
+def phase12_kernels(device, d_gnn: int, bench, base=None):
     """(a) K6 and K6-bwd against their plain versions at the yml's batch
     (the train split's first batch of 128) and the 4096-graph batch, with
-    relu on and off and with and without w; times at the main path's
-    arguments beside bound, plain version and the one-hot bmm yardstick."""
+    relu on and off and with and without w (under ``base``: the parent's
+    bits); times at the main path's arguments beside bound, plain version
+    and the one-hot bmm yardstick."""
     from graphtrans_tpu_torch import predict
     from graphtrans_tpu_torch.data.loader import iterate_batches
     from graphtrans_tpu_torch.ops.kernels import (dense_agg, dense_agg_bwd,
@@ -3636,7 +3670,8 @@ def phase12_kernels(device, d_gnn: int, bench):
     serve = next(iterate_batches(splits["train"], **predict.serving_layout(
         splits, args, num_tasks, split="train")))
     f_err = b_err = 0.0
-    rows = []
+    rows, same = [], []
+    old = base and base["dense_agg"]
     for name, b in (("serve128", serve), ("bench4096", bench)):
         main_args = k6_inputs(b, d_gnn, gen, device)
         gout = torch.randn(main_args[0].shape, generator=gen).to(device)
@@ -3646,6 +3681,16 @@ def phase12_kernels(device, d_gnn: int, bench):
                                  (False, False)):
                 f, e = check_k6(inp, relu, with_w, gout)
                 f_err, b_err = max(f_err, f), max(b_err, e)
+                a = inp[:5] + (inp[5] if with_w else None,)
+                what = f"{name} (relu {relu}, w {with_w})"
+                same_bits(f"K6 {what}", lambda: dense_agg(*a, relu=relu),
+                          old and (lambda: old.dense_agg(*a, relu=relu)),
+                          same)
+                same_bits(f"K6-bwd {what}",
+                          lambda: dense_agg_bwd(*a, gout, relu=relu),
+                          old and (lambda: old.dense_agg_bwd(*a, gout,
+                                                             relu=relu)),
+                          same)
         fixed = main_args[1:4]
         k6 = dict(ms=time_ms(lambda: dense_agg(*main_args), iters=20),
                   plain_ms=time_ms(lambda: dense_agg_plain(*main_args),
@@ -3681,6 +3726,9 @@ def phase12_kernels(device, d_gnn: int, bench):
           f"|diff| {f_err:.3g} (<= {K6_TOL}), backward max err {b_err:.3g} "
           f"(<= {GRAD_TOL} of max(1, max|ref|)); unreached rows and masked "
           f"demb exactly 0")
+    if base:
+        print(f"[12a] --baseline: the same bits as the parent's kernels on "
+              f"the same inputs at {len(same)} cases: {', '.join(same)}")
     return dict(k6_err=f_err, k6b_err=b_err, timed=rows[-1])
 
 
@@ -4446,9 +4494,11 @@ def main(argv=None) -> int:
     p.add_argument("--trace", default=None,
                    help="write phase 5's chrome trace to this file")
     p.add_argument("--baseline", default=None,
-                   help="a checkout of an earlier commit whose K2, K2-bwd, "
-                        "K3-bwd, K4, K5, K4-bwd, K5-bwd, K9, K9-bwd, K10 and "
-                        "K10-bwd phases 2, 6a-11a time beside this tree's")
+                   help="a checkout of an earlier commit whose K1-bwd, K2, "
+                        "K2-bwd, K3, K3-bwd, K4, K5, K4-bwd, K5-bwd, K9, "
+                        "K9-bwd, K10 and K10-bwd phases 2, 6a-11a time beside "
+                        "this tree's (K1, K4, K4-bwd, K6, K6-bwd, K9, K9-bwd, "
+                        "K10, K10-bwd also bit for bit)")
     opts = p.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4534,7 +4584,7 @@ def main(argv=None) -> int:
     nci1_bench = tu_bench_batch(NCI1_BENCH, SEED)
     print(f"[12] collated the {NCI1_BENCH}-graph NCI1 batch in "
           f"{time.perf_counter() - t0:.1f} s")
-    nci1 = phase12_kernels(device, _nci1_args().gnn_emb_dim, nci1_bench)
+    nci1 = phase12_kernels(device, _nci1_args().gnn_emb_dim, nci1_bench, base)
     with tempfile.TemporaryDirectory() as tmp:
         nci1_launches = phase12_serve(device, tmp)
         nci1_train_launches = phase12_train(device, tmp)

@@ -86,18 +86,15 @@ dense_agg_bwd_kernel(const float* __restrict__ x, const int* __restrict__ src,
   const bool live = c0 + t < d;
   const long base = g * Sm * d + c0 + t;
 
-  float unused = 0.f;
-  strided::stage_bwd_rows(xs, gs, dxs, x, gout, base, Sm, d, live, t, false,
-                          0.f, unused);
+  strided::stage_bwd_rows(xs, gs, dxs, x, gout, base, Sm, d, live, t);
   strided::stage_edges(src, dst, emask, w, g, Em, t, es, ed, ew,
                        [](int) {});
   __syncthreads();
 
   const long eoff = g * Em * d + c0 + t;
-  strided::walk_bwd<RELU, HAS_W, strided::EU>(
-      xs, gs, dxs, es, ed, ew, wsum, true, Em, t,
+  strided::walk_bwd<RELU, HAS_W>(
+      xs, gs, dxs, es, ed, ew, wsum, Em, t,
       [&](int e) { return live ? emb[eoff + (long)e * d] : 0.f; },
-      [](int, float) {},
       [&](int e, float dm) {
         if (live) demb[eoff + (long)e * d] = dm;
       });

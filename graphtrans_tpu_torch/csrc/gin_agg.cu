@@ -12,16 +12,23 @@
 // walk is strided_agg.cuh's, shared with K6). src, dst and attr must be in
 // range on every edge slot, masked ones included.
 //
-// Backward: one block per (chunk of GPB graphs, channel slice) walks its
-// graphs in order with the same per-channel ownership: dx of each graph is
-// finished in shared memory and written once; dT and dscale accumulate in
-// the block across its chunk and are written as per-chunk partials, which
-// sum_rows then adds up in chunk order. dw (a sum over channels) is reduced
-// across the block's warps per edge and written per channel slice, then
-// summed over the slices. No atomics: every sum has a fixed order.
+// Backward (K1-bwd, below): one block per (chunk of graphs, slice of
+// channels; one slice of all d at the throughput batches), the grid sized
+// to the card by gin_agg.py:bwd_geometry. Each thread owns VEC neighbouring
+// channels (16-byte accesses where d % 4 == 0). A graph's gout rows (and
+// its x, where a block walks one graph) land by cp.async while its edge
+// lists load; where a block walks a chunk of graphs, x streams through a
+// ring of XRING rows ahead of the walk. The valid
+// edges are sorted by source row in shared memory, so dx of a row is
+// summed in registers and written once. dT and dscale accumulate in the
+// block across its chunk and leave as per-block partials that a second
+// kernel adds in a fixed order with the whole card; dw (a sum over
+// channels) is reduced across the block's warps per edge. No atomics:
+// every sum has a fixed order, and a run gives the same bits every time.
 
 #include <cuda_runtime.h>
 
+#include "mma_tf32.cuh"
 #include "strided_agg.cuh"
 
 namespace {
@@ -85,80 +92,444 @@ gin_agg_fwd_kernel(const float* __restrict__ x, const int* __restrict__ src,
   }
 }
 
+// ---- the backward ---------------------------------------------------------
+//
 // dmsg[e] = gout[dst[e]] * w[e] * (pre[e] > 0) on valid edges, with
 // pre = x[src] + sum_f T[attr_f]; dx = scale*gout + scatter of dmsg to src;
 // dT[attr_f] += dmsg; dw[e] = sum_c gout[dst[e]] * relu(pre[e]);
 // dscale = sum gout * x.
-__global__ void __launch_bounds__(CT)
+
+constexpr int BWD_MAX_THREADS = 256;  // threads a block (gin_agg.py)
+constexpr int BWD_MAX_F = 4;          // table rows an edge sums
+constexpr int XRING = 8;              // rows of x in flight in a ring
+constexpr int SMEM_MAX = 232448;      // dynamic shared bytes a block may take
+constexpr int TAIL_THREADS = 256;     // the cross-block sums' block
+constexpr int TAIL_COLS = 32;         // dT columns a tail block adds
+constexpr int TAIL_GROUPS = TAIL_THREADS / TAIL_COLS;
+
+// Shared bytes of a backward block (gin_agg.py:bwd_smem): the sorted edge
+// records [Em][8] ints (src, dst, the F table rows, w); one graph's gout
+// slice [Sm][sc], xr rows of x [xr][sc] (the slice, or a ring of XRING),
+// the bond table's gradient [V][sc]; per edge
+// slot the staged lists (src, dst, F table rows, sort key) and the slot's
+// sorted position; with w the staged weights and the per-warp dw sums
+// [threads/32][Em]; 32 floats of scratch.
+__host__ __device__ inline long bwd_smem(int Sm, int Em, int F, int V, int sc,
+                                         int threads, bool has_w, int xr) {
+  long words = 8L * Em + (long)(Sm + xr + V) * sc + (long)Em * (F + 4) + 32;
+  if (has_w) words += (long)Em * (1 + threads / 32);
+  return 4 * words;
+}
+
+template <int VEC>
+struct Vec {
+  float v[VEC];
+};
+
+template <int VEC>
+__device__ __forceinline__ Vec<VEC> zero_vec() {
+  Vec<VEC> r;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) r.v[j] = 0.f;
+  return r;
+}
+
+// VEC floats at p (aligned to VEC floats), shared or global
+template <int VEC>
+__device__ __forceinline__ Vec<VEC> load_vec(const float* p) {
+  Vec<VEC> r;
+  if constexpr (VEC == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    r.v[0] = q.x, r.v[1] = q.y, r.v[2] = q.z, r.v[3] = q.w;
+  } else {
+    r.v[0] = *p;
+  }
+  return r;
+}
+
+// the same from global memory that no kernel writes meanwhile (the bond
+// table), through the read-only cache
+template <int VEC>
+__device__ __forceinline__ Vec<VEC> load_vec_ro(const float* p) {
+  Vec<VEC> r;
+  if constexpr (VEC == 4) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    r.v[0] = q.x, r.v[1] = q.y, r.v[2] = q.z, r.v[3] = q.w;
+  } else {
+    r.v[0] = __ldg(p);
+  }
+  return r;
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_vec(float* p, const Vec<VEC>& r) {
+  if constexpr (VEC == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(r.v[0], r.v[1], r.v[2], r.v[3]);
+  else
+    *p = r.v[0];
+}
+
+// One block per (chunk of gpb graphs, slice of sc channels); thread t owns
+// channels c0 + VEC t .. + VEC - 1 of every row, so no cell has two writers,
+// and reads its own columns of the shared rows only (no barrier guards
+// them). A graph's gout slice lands by cp.async while its edge lists are
+// loaded (the other blocks on the SM walk meanwhile); its valid edges are
+// sorted by (src, slot) in shared memory (each slot's rank among the keys
+// src * Em + slot) into records of eight ints, so the walk visits the rows
+// in order and a row's edges in slot order: x is read once a row, and dx
+// of a row is summed in registers from scale*gout in the order of the
+// forward's scatter and written once. Where a block walks one graph (a
+// small batch) x lands whole with gout (xr = Sm); where it walks a chunk,
+// x streams through a ring of XRING rows that cp.async keeps in flight
+// ahead of the walk (xr = XRING), so a block holds gout and a few rows of
+// x and three blocks share an SM at the bench batch. Per edge, a lane
+// loads the record and gout[dst] from shared memory and the table rows
+// through the read-only cache; every lane loads, so a warp takes no
+// branch on its lanes.
+// dT: each of the NF table-row features keeps the run of its last row's
+// sum in registers, added into the block's shared [V][sc] when the row
+// changes (consecutive edges share bond types); dscale per thread. Both
+// leave as per-block partials for the tail kernel after the chunk; dw is
+// reduced over the block's warps per edge and written per channel slice. The relu decision uses the forward's sum: pre
+// = x[src] + (T[attr_0] + T[attr_1] + ...), in that order.
+template <int VEC, bool HAS_W, int NF>
+__global__ void __launch_bounds__(BWD_MAX_THREADS)
 gin_agg_bwd_kernel(const float* __restrict__ x, const int* __restrict__ src,
                    const int* __restrict__ dst, const bool* __restrict__ emask,
                    const int* __restrict__ attr, const float* __restrict__ tbl,
                    const float* __restrict__ w, const float* __restrict__ scale,
                    const float* __restrict__ gout, float* __restrict__ dx,
-                   float* __restrict__ dtbl_part, float* __restrict__ dw_part,
-                   float* __restrict__ dsc_part, int G, int Sm, int Em, int F,
-                   int V, int d, int gpb) {
-  extern __shared__ float smem[];
-  float* xs = smem;                 // [Sm][CT]
-  float* gs = xs + Sm * CT;         // [Sm][CT] gout
-  float* dxs = gs + Sm * CT;        // [Sm][CT] dx accumulator
-  float* ts = dxs + Sm * CT;        // [V][CT]
-  float* dts = ts + V * CT;         // [V][CT] dT accumulator (whole chunk)
-  int* es = reinterpret_cast<int*>(dts + V * CT);  // [Em] src
-  int* ed = es + Em;                // [Em] dst, -1 = masked edge
-  float* ew = reinterpret_cast<float*>(ed + Em);   // [Em] weight
-  int* ea = reinterpret_cast<int*>(ew + Em);       // [F][Em] table rows
-  float* wsum = reinterpret_cast<float*>(ea + F * Em);  // [CT/32][Em]
+                   float* __restrict__ dtbl_part, float* __restrict__ dw_out,
+                   float* __restrict__ dsc_part, int G, int Sm, int Em, int V,
+                   int d, int gpb, int sc, int xr) {
+  using VecT = Vec<VEC>;
+  extern __shared__ int4 smem4[];
+  int4* const rec = smem4;               // [Em][2]: sorted edge records
+  float* const gsm = reinterpret_cast<float*>(rec + 2 * Em);  // [Sm][sc]
+  float* const xbuf = gsm + (long)Sm * sc;   // [xr][sc] rows of x
+  float* const dts = xbuf + xr * sc;         // [V][sc] dT
+  int* const rs = reinterpret_cast<int*>(dts + V * sc);  // staged src
+  int* const rd = rs + Em;        // dst
+  int* const ra = rd + Em;        // [NF][Em] table rows
+  int* const key = ra + NF * Em;  // src * Em + slot; INT_MAX on a masked slot
+  int* const pos = key + Em;      // a slot's sorted position, -1 if masked
+  float* const rw = reinterpret_cast<float*>(pos + Em);  // with w: staged w
+  float* const wsum = rw + (HAS_W ? Em : 0);             // [warps][Em]
+  float* const red = wsum + (HAS_W ? (blockDim.x / 32) * Em : 0);  // [32]
 
-  const int chunk = blockIdx.x;
-  const int slice = blockIdx.y;
-  const int c0 = slice * CT;
-  const int t = threadIdx.x;
-  const bool live = c0 + t < d;
-  const float sc = scale ? *scale : 0.f;
-
-  for (int v = 0; v < V; ++v) {
-    ts[v * CT + t] = live ? tbl[(long)v * d + c0 + t] : 0.f;
-    dts[v * CT + t] = 0.f;
-  }
-  auto add_dtbl = [&](int e, float dm) {
-    for (int f = 0; f < F; ++f) dts[ea[f * Em + e] * CT + t] += dm;
-  };
-  float dsc = 0.f;
-  const long g0 = (long)chunk * gpb;
+  const int t = threadIdx.x, T = blockDim.x, warps = T / 32;
+  const int cl = t * VEC;                 // this thread's first column
+  const int c = blockIdx.y * sc + cl;     // and channel
+  const bool own = cl < sc;               // lanes past the slice hold none
+  const bool live = own && c < d;         // VEC divides d: all or none
+  const int cc = live ? c : 0;            // an address for the zero copies
+  const long chunk = blockIdx.x;
+  const long g0 = chunk * gpb;
   const long g1 = g0 + gpb < G ? g0 + gpb : (long)G;
-  for (long g = g0; g < g1; ++g) {
-    __syncthreads();  // the previous graph's edge lists and wsum are read
-    const long base = g * Sm * d + c0 + t;
-    strided::stage_bwd_rows(xs, gs, dxs, x, gout, base, Sm, d, live, t,
-                            scale != nullptr, sc, dsc);
-    strided::stage_edges(src, dst, emask, w, g, Em, t, es, ed, ew,
-                         [&](int e) {
-      for (int f = 0; f < F; ++f) ea[f * Em + e] = attr[(g * F + f) * Em + e];
-    });
-    __syncthreads();
+  const float scv = scale ? *scale : 0.f;
+  const int ccl = own ? cl : 0;           // a column for the discarded loads
+  const float* const gs = gsm + ccl;      // this thread's columns
+  float* const xs = xbuf + ccl;
+  const bool ring = xr < Sm;
+  const float* const tblc = tbl + cc;     // its table column (V*d < 2^31)
 
-    strided::walk_bwd<true, true, 1>(xs, gs, dxs, es, ed, ew, wsum,
-                                     w != nullptr, Em, t,
-                                     TableEmb{ts, ea, Em, F, t}, add_dtbl,
-                                     [](int, float) {});
-    if (live) {
-      float* dg = dx + base;
-      for (int s = 0; s < Sm; ++s) dg[(long)s * d] = dxs[s * CT + t];
+  if (own)
+    for (int v = 0; v < V; ++v) store_vec(dts + v * sc + cl, zero_vec<VEC>());
+  // dT's runs: per feature the table row of the run and its sum
+  int crow[NF];
+  VecT cacc[NF];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    crow[f] = -1;
+    cacc[f] = zero_vec<VEC>();
+  }
+  auto flush = [&](int f) {
+    if (own && crow[f] >= 0) {
+      float* p = dts + crow[f] * sc + cl;
+      VecT q = load_vec<VEC>(p);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) q.v[j] += cacc[f].v[j];
+      store_vec(p, q);
     }
-    if (w) {
+  };
+
+  float dsc[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) dsc[j] = 0.f;
+  for (long g = g0; g < g1; ++g) {
+    __syncthreads();  // every thread is done with g - 1's lists
+    const float* const xg = x + g * Sm * d + cc;
+    if (own) {  // graph g's gout (and x if it fits), this thread's channels
+      const float* gg = gout + g * Sm * d + cc;
+      for (int r = 0; r < Sm; ++r) {
+        tc::cp_floats<VEC>(gsm + r * sc + cl, gg + (long)r * d, live);
+        if (!ring) tc::cp_floats<VEC>(xs + r * sc, xg + (long)r * d, live);
+      }
+    }
+    tc::cp_commit();
+    // row r of graph g's x into the ring: a group a row, empty past the last
+    auto stage_x = [&](int r) {
+      if (own && r < Sm)
+        tc::cp_floats<VEC>(xs + (r % XRING) * sc, xg + (long)r * d, live);
+      tc::cp_commit();
+    };
+
+    // graph g's edge lists, then the valid slots sorted by (src, slot)
+    int nv = 0;
+    for (int e0 = 0; e0 < Em; e0 += T) {
+      const int e = e0 + t;
+      bool valid = false;
+      if (e < Em) {
+        const long ge = g * Em + e;
+        const int sv = src[ge];
+        valid = emask[ge];
+        rs[e] = sv;
+        rd[e] = dst[ge];
+#pragma unroll
+        for (int f = 0; f < NF; ++f)
+          ra[f * Em + e] = attr[(g * NF + f) * Em + e];
+        if (HAS_W) rw[e] = w[ge];
+        key[e] = valid ? sv * Em + e : 0x7fffffff;
+      }
+      nv += __syncthreads_count(valid);
+    }
+    for (int e = t; e < Em; e += T) {
+      const int k = key[e];
+      int p = -1;
+      if (k != 0x7fffffff) {
+        p = 0;
+#pragma unroll 8
+        for (int j = 0; j < Em; ++j) p += key[j] < k;
+        int r8[8] = {rs[e], rd[e], 0, 0, 0, 0, 0, 0};
+#pragma unroll
+        for (int f = 0; f < NF; ++f) r8[2 + f] = ra[f * Em + e];
+        if (HAS_W) r8[6] = __float_as_int(rw[e]);
+        rec[2 * p] = make_int4(r8[0], r8[1], r8[2], r8[3]);
+        rec[2 * p + 1] = make_int4(r8[4], r8[5], r8[6], r8[7]);
+      }
+      pos[e] = p;
+    }
+    __syncthreads();
+    tc::cp_wait_group<0>();  // graph g's gout (and x)
+    if (ring)
+      for (int r = 0; r < XRING; ++r) stage_x(r);
+
+    float* const dxg = dx + g * Sm * d + c;
+    VecT acc, xv;
+    auto open_row = [&](int r) {
+      if (ring)  // row r's x, the oldest group in flight
+        tc::cp_wait_group<XRING - 1>();
+      xv = load_vec<VEC>(xs + (ring ? r % XRING : r) * sc);
+      const VecT gv = load_vec<VEC>(gs + r * sc);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        acc.v[j] = scale ? scv * gv.v[j] : 0.f;
+        if (scale && own) dsc[j] = fmaf(gv.v[j], xv.v[j], dsc[j]);
+      }
+    };
+    auto close_row = [&](int r) {
+      if (live) store_vec(dxg + (long)r * d, acc);
+      if (ring) stage_x(r + XRING);  // into row r's slot: x is in registers
+    };
+
+    // the walk: row by row, a row's edges in slot order. Every lane loads
+    // (a lane past the slice at channel 0, its sums discarded), so a warp
+    // takes no branch on its lanes.
+    int row = 0;
+    open_row(0);
+    for (int k = 0; k < nv; ++k) {
+      const int4 r0 = rec[2 * k];
+      const int4 r1 =
+          (NF > 2 || HAS_W) ? rec[2 * k + 1] : make_int4(0, 0, 0, 0);
+      const int a[4] = {r0.z, r0.w, r1.x, r1.y};
+      VecT emb = load_vec_ro<VEC>(tblc + a[0] * d);  // the forward's order:
+#pragma unroll                                    // T[a0] + T[a1] + ...
+      for (int f = 1; f < NF; ++f) {
+        const VecT q = load_vec_ro<VEC>(tblc + a[f] * d);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) emb.v[j] += q.v[j];
+      }
+      const VecT gm = load_vec<VEC>(gs + r0.y * sc);
+      while (row < r0.x) {  // then xv holds x[src]
+        close_row(row);
+        open_row(++row);
+      }
+      const float we = HAS_W ? __int_as_float(r1.z) : 1.f;
+      VecT dm;
+      float part = 0.f;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const float pre = xv.v[j] + emb.v[j];
+        const float m = HAS_W ? gm.v[j] * we : gm.v[j];
+        dm.v[j] = pre > 0.f ? m : 0.f;
+        acc.v[j] += dm.v[j];
+        if (HAS_W) part += own ? gm.v[j] * fmaxf(pre, 0.f) : 0.f;
+      }
+      // dT[attr_f] += dmsg: into the feature's run, or a new run
+#pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        if (a[f] == crow[f]) {
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) cacc[f].v[j] += dm.v[j];
+        } else {
+          flush(f);
+          crow[f] = a[f];
+          cacc[f] = dm;
+        }
+      }
+      if (HAS_W) {
+        for (int o = 16; o > 0; o >>= 1)
+          part += __shfl_down_sync(0xffffffffu, part, o);
+        if ((t & 31) == 0) wsum[(t >> 5) * Em + k] = part;
+      }
+    }
+    close_row(row);
+    while (++row < Sm) {
+      open_row(row);
+      close_row(row);
+    }
+    if (ring) tc::cp_wait_group<0>();  // the ring's last (empty) groups
+    if (HAS_W) {  // each slot's dw over the slice: its warps' sums in order
       __syncthreads();
-      strided::write_dw(wsum, dw_part, g, G, slice, Em, t);
+      for (int e = t; e < Em; e += T) {
+        const int p = pos[e];
+        float v = 0.f;
+        if (p >= 0)
+          for (int i = 0; i < warps; ++i) v += wsum[i * Em + p];
+        dw_out[((long)blockIdx.y * G + g) * Em + e] = v;
+      }
     }
   }
-  if (live) {
+#pragma unroll
+  for (int f = 0; f < NF; ++f) flush(f);
+
+  if (live)
     for (int v = 0; v < V; ++v)
-      dtbl_part[((long)chunk * V + v) * d + c0 + t] = dts[v * CT + t];
-    if (scale) dsc_part[(long)chunk * d + c0 + t] = dsc;
+      store_vec(dtbl_part + (chunk * V + v) * d + c,
+                load_vec<VEC>(dts + v * sc + cl));
+  if (scale) {  // the block's dscale: each warp's tree, then warps in order
+    float p = 0.f;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) p += dsc[j];
+    for (int o = 16; o > 0; o >>= 1) p += __shfl_down_sync(0xffffffffu, p, o);
+    if ((t & 31) == 0) red[t >> 5] = p;
+    __syncthreads();
+    if (t == 0) {
+      float s = 0.f;
+      for (int i = 0; i < warps; ++i) s += red[i];
+      dsc_part[chunk * gridDim.y + blockIdx.y] = s;
+    }
   }
 }
 
-using strided::sum_rows;
+// The cross-block sums of the backward, each in a fixed order (no atomics):
+// blocks [0, bt) add the P chunks' dT partials [P, m], TAIL_COLS columns a
+// block, each column's rows split over TAIL_GROUPS threads whose sums are
+// added in group order; blocks [bt, bt + bw) add the n channel slices' dw
+// partials [n, mw] in slice order, one element a thread; with dscale, the
+// last block adds the Q blocks' partials, a tree over the block.
+__global__ void __launch_bounds__(TAIL_THREADS)
+gin_agg_bwd_sum_kernel(const float* __restrict__ dtp, float* __restrict__ dt,
+                       int P, int m, const float* __restrict__ dwp,
+                       float* __restrict__ dw, int n, long mw,
+                       const float* __restrict__ dsp, float* __restrict__ ds,
+                       int Q, int bt, int bw) {
+  __shared__ float part[TAIL_THREADS];
+  const int t = threadIdx.x;
+  int b = blockIdx.x;
+  if (b < bt) {
+    const int col = b * TAIL_COLS + t % TAIL_COLS, grp = t / TAIL_COLS;
+    float s = 0.f;
+    if (col < m)
+      for (int i = grp; i < P; i += TAIL_GROUPS) s += dtp[(long)i * m + col];
+    part[t] = s;
+    __syncthreads();
+    if (grp == 0 && col < m) {
+      float v = part[t];
+      for (int k = 1; k < TAIL_GROUPS; ++k) v += part[k * TAIL_COLS + t];
+      dt[col] = v;
+    }
+    return;
+  }
+  b -= bt;
+  if (b < bw) {
+    const long j = (long)b * TAIL_THREADS + t;
+    if (j < mw) {
+      float v = dwp[j];
+      for (int i = 1; i < n; ++i) v += dwp[i * mw + j];
+      dw[j] = v;
+    }
+    return;
+  }
+  float s = 0.f;
+  for (int i = t; i < Q; i += TAIL_THREADS) s += dsp[i];
+  part[t] = s;
+  __syncthreads();
+  for (int o = TAIL_THREADS / 2; o > 0; o >>= 1) {
+    if (t < o) part[t] += part[t + o];
+    __syncthreads();
+  }
+  if (t == 0) *ds = part[0];
+}
+
+// The wrapper's launch (gin_agg.py:bwd_geometry) covers every channel once
+// with slices of sc channels (VEC dividing d and sc), a warp's lanes all
+// in the slice but the last warp's, and needs the shared bytes it names.
+bool bwd_launch_ok(int Sm, int Em, int F, int V, int d, bool has_w, int vec,
+                   int gpb, int slices, int sc, int threads, int smem,
+                   int xr) {
+  if (!(vec == 1 || vec == 4) || d % vec || sc <= 0 || sc % vec) return false;
+  if (slices < 1 || (long)slices * sc < d || (long)(slices - 1) * sc >= d)
+    return false;
+  const int lanes = sc / vec;
+  if (threads % 32 || threads > BWD_MAX_THREADS || lanes > threads ||
+      lanes <= threads - 32)
+    return false;
+  if (gpb < 1 || F < 1 || F > BWD_MAX_F || (long)V * d > 0x7fffffff)
+    return false;
+  if (!(xr == Sm || (xr == XRING && Sm > XRING))) return false;
+  return smem <= SMEM_MAX &&
+         smem == bwd_smem(Sm, Em, F, V, sc, threads, has_w, xr);
+}
+
+struct BwdArgs {
+  const float* x;
+  const int *src, *dst;
+  const bool* emask;
+  const int* attr;
+  const float *tbl, *w, *scale, *gout;
+  float *dx, *dtbl_part, *dw_out, *dsc_part;
+  int G, Sm, Em, V, d, gpb, slices, sc, threads, smem, xr;
+};
+
+template <int VEC, bool HAS_W, int NF>
+cudaError_t launch_bwd_main(const BwdArgs& A, cudaStream_t stream) {
+  const auto kernel = gin_agg_bwd_kernel<VEC, HAS_W, NF>;
+  static const cudaError_t set = [&] {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
+                                cudaSharedmemCarveoutMaxShared);
+  }();
+  if (set != cudaSuccess) return set;
+  kernel<<<dim3((A.G + A.gpb - 1) / A.gpb, A.slices), A.threads, A.smem,
+           stream>>>(A.x, A.src, A.dst, A.emask, A.attr, A.tbl, A.w, A.scale,
+                     A.gout, A.dx, A.dtbl_part, A.dw_out, A.dsc_part, A.G,
+                     A.Sm, A.Em, A.V, A.d, A.gpb, A.sc, A.xr);
+  return cudaGetLastError();
+}
+
+template <int VEC, bool HAS_W>
+cudaError_t launch_bwd_f(const BwdArgs& A, int F, cudaStream_t stream) {
+  switch (F) {
+    case 1: return launch_bwd_main<VEC, HAS_W, 1>(A, stream);
+    case 2: return launch_bwd_main<VEC, HAS_W, 2>(A, stream);
+    case 3: return launch_bwd_main<VEC, HAS_W, 3>(A, stream);
+    default: return launch_bwd_main<VEC, HAS_W, 4>(A, stream);
+  }
+}
 
 }  // namespace
 
@@ -185,38 +556,53 @@ extern "C" int gin_agg_fwd(const float* x, const int* src, const int* dst,
   return cudaGetLastError();
 }
 
-// Scratch (allocated by the caller): dtbl_part [ceil(G/gpb), V, d];
-// with w, dw_part [ceil(d/CT), G, Em]; with scale, dsc_part [ceil(G/gpb), d]
-// and dsc_col [d]. Outputs dtbl [V, d], dw [G, Em], dscale [1].
+// The backward: the main kernel, then the cross-block sums. Scratch
+// (allocated by the caller): dtbl_part [ceil(G/gpb), V, d]; with scale,
+// dsc_part [ceil(G/gpb) * slices]; with w and slices > 1, dw_part [slices,
+// G, Em] (with one slice dw itself is written). Outputs dx, dtbl [V, d],
+// dw [G, Em], dscale [1]. The launch (vec, gpb, slices, sc, threads, smem,
+// xr) is the wrapper's bwd_geometry; one that does not cover (G, d), or
+// whose pointers are not aligned to vec floats, is refused.
 extern "C" int gin_agg_bwd(const float* x, const int* src, const int* dst,
                            const bool* emask, const int* attr,
                            const float* tbl, const float* w,
                            const float* scale, const float* gout, float* dx,
                            float* dtbl, float* dw, float* dscale,
                            float* dtbl_part, float* dw_part, float* dsc_part,
-                           float* dsc_col, int G, int Sm, int Em, int F, int V,
-                           int d, int gpb, cudaStream_t stream) {
-  const size_t smem = (size_t)(3 * Sm + 2 * V) * CT * sizeof(float) +
-                      (size_t)Em * (3 + F) * sizeof(int) +
-                      (w ? (size_t)(CT / 32) * Em * sizeof(float) : 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      gin_agg_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
+                           int G, int Sm, int Em, int F, int V, int d, int vec,
+                           int gpb, int slices, int sc, int threads, int smem,
+                           int xr, cudaStream_t stream) {
+  if (G <= 0 || Sm <= 0 || Em < 0 || V < 0 || d <= 0 ||
+      !bwd_launch_ok(Sm, Em, F, V, d, w != nullptr, vec, gpb, slices, sc,
+                     threads, smem, xr))
+    return cudaErrorInvalidValue;
+  const unsigned long align = 4ul * vec;
+  if (((unsigned long)x | (unsigned long)tbl | (unsigned long)gout |
+       (unsigned long)dx | (unsigned long)dtbl_part) % align)
+    return cudaErrorInvalidValue;
+  float* dw_out = slices == 1 ? dw : dw_part;
+  if (w && dw_out == nullptr) return cudaErrorInvalidValue;
   const int chunks = (G + gpb - 1) / gpb;
-  const int slices = (d + CT - 1) / CT;
-  dim3 grid(chunks, slices);
-  gin_agg_bwd_kernel<<<grid, CT, smem, stream>>>(
-      x, src, dst, emask, attr, tbl, w, scale, gout, dx, dtbl_part, dw_part,
-      dsc_part, G, Sm, Em, F, V, d, gpb);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = sum_rows(dtbl_part, dtbl, chunks, (long)V * d, stream)))
-    return err;
-  if (w && (err = sum_rows(dw_part, dw, slices, (long)G * Em, stream)))
-    return err;
-  if (scale) {
-    if ((err = sum_rows(dsc_part, dsc_col, chunks, d, stream))) return err;
-    if ((err = sum_rows(dsc_col, dscale, d, 1, stream))) return err;
-  }
-  return cudaSuccess;
+  const BwdArgs A{x,  src,       dst,    emask,    attr, tbl,    w,
+                  scale, gout, dx, dtbl_part, dw_out, dsc_part, G, Sm,
+                  Em, V,    d,  gpb,       slices, sc,       threads, smem,
+                  xr};
+  const cudaError_t err =
+      vec == 4 ? (w ? launch_bwd_f<4, true>(A, F, stream)
+                    : launch_bwd_f<4, false>(A, F, stream))
+               : (w ? launch_bwd_f<1, true>(A, F, stream)
+                    : launch_bwd_f<1, false>(A, F, stream));
+  if (err != cudaSuccess) return err;
+  const int m = V * d;
+  const int bt = (m + TAIL_COLS - 1) / TAIL_COLS;
+  const long mw = (long)G * Em;
+  const int bw =
+      w && slices > 1 ? (int)((mw + TAIL_THREADS - 1) / TAIL_THREADS) : 0;
+  const int blocks = bt + bw + (scale ? 1 : 0);
+  if (blocks == 0) return cudaSuccess;
+  gin_agg_bwd_sum_kernel<<<blocks, TAIL_THREADS, 0, stream>>>(
+      dtbl_part, dtbl, chunks, m, dw_part, dw, slices, mw, dsc_part, dscale,
+      chunks * slices, bt, bw);
+  return cudaGetLastError();
 }
+

@@ -1,6 +1,7 @@
 // The 3xTF32 tensor-core pieces that the hand-written products share: the
 // long-row attention kernels (attention_bwd.cuh, attention_fwd.cuh) and K10's
-// GEMM (transformer_layer.cu). 16-byte cp.async copies into shared memory,
+// GEMM (transformer_layer.cu); K1-bwd (gin_agg.cu) uses its cp.async
+// copies. 16- and 4-byte cp.async copies into shared memory,
 // TF32 rounding and the 3xTF32 split, mma.sync m16n8k8 on TF32 inputs with
 // f32 sums, and its A and B fragments read from shared tiles of any strides.
 
@@ -16,6 +17,21 @@ __device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
                "l"(src), "r"(ok ? 16 : 0));
+}
+// 4 bytes, as cp16 (cp.async.cg copies 16 bytes only, so this one is .ca).
+__device__ __forceinline__ void cp4(float* dst, const float* src, bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+// VEC (4 or 1) floats: cp16 or cp4.
+template <int VEC>
+__device__ __forceinline__ void cp_floats(float* dst, const float* src,
+                                          bool ok) {
+  if constexpr (VEC == 4)
+    cp16(dst, src, ok);
+  else
+    cp4(dst, src, ok);
 }
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");

@@ -1,17 +1,18 @@
-// The strided-layout message sum shared by K1 (gin_agg.cu) and K6
-// (dense_agg.cu):
+// The strided-layout message sum shared by K1's forward (gin_agg.cu) and K6
+// (dense_agg.cu; K1's backward has its own body there):
 //
 //   out[g,s,c] = sum_{e: mask[g,e], dst[g,e]=s}
 //                w[g,e] * relu(x[g,src[g,e],c] + emb_e[c])
 //
-// and its backward. One block per (graph, slice of CT channels); thread t
-// owns channel c0+t. The graph's x slice (in the backward also gout's and
-// a dx accumulator) and its edge lists sit in shared memory, and each
-// thread walks the edges in order, adding into its own column, so no cell
-// has two writers and every sum has a fixed order. The kernels differ only
-// in how an edge's embedding is made (policy Emb: emb(e) is channel t of
-// edge e's embedding; K1 sums table rows in shared memory, K6 loads emb),
-// fetched a few edges ahead of their adds; a masked slot fetches nothing.
+// and K6's backward. One block per (graph, slice of CT channels);
+// thread t owns channel c0+t. The graph's x slice (in the backward also
+// gout's and a dx accumulator) and its edge lists sit in shared memory, and
+// each thread walks the edges in order, adding into its own column, so no
+// cell has two writers and every sum has a fixed order. The kernels differ
+// only in how an edge's embedding is made (policy Emb: emb(e) is channel t
+// of edge e's embedding; K1 sums table rows in shared memory, K6 loads
+// emb), fetched a few edges ahead of their adds; a masked slot fetches
+// nothing.
 // dw (a sum over channels) is reduced across the block's warps per edge,
 // written per channel slice, and the slices summed in order by sum_rows.
 
@@ -37,29 +38,23 @@ __device__ __forceinline__ void stage_fwd_rows(float* xs, float* acc,
 }
 
 // The backward's rows, both loads of a row issued together: x and gout of
-// channel t (at base + r*d) into xs and gs, dxs set to sc*gout (0 unless
-// scaled), and gout*x added to dsc in row order (K1's dscale).
+// channel t (at base + r*d) into xs and gs, and dxs zeroed.
 __device__ __forceinline__ void stage_bwd_rows(float* xs, float* gs,
                                                float* dxs, const float* x,
                                                const float* gout, long base,
                                                int Sm, int d, bool live,
-                                               int t, bool scaled, float sc,
-                                               float& dsc) {
+                                               int t) {
   for (int r = 0; r < Sm; ++r) {
-    const float xv = live ? x[base + (long)r * d] : 0.f;
-    const float gv = live ? gout[base + (long)r * d] : 0.f;
-    xs[r * CT + t] = xv;
-    gs[r * CT + t] = gv;
-    dxs[r * CT + t] = scaled ? sc * gv : 0.f;
-    dsc = fmaf(gv, xv, dsc);
+    xs[r * CT + t] = live ? x[base + (long)r * d] : 0.f;
+    gs[r * CT + t] = live ? gout[base + (long)r * d] : 0.f;
+    dxs[r * CT + t] = 0.f;
   }
 }
 
 // Graph g's edge lists into shared memory: es = src, ed = dst (-1 on a
 // masked slot), ew = w (1 where w is null). more(e) stages a kernel's own
 // per-edge lists in the same pass, so all of an edge's loads are in flight
-// together: K1's backward stages graph after graph in one block, and a
-// second pass puts one more memory latency on each graph.
+// together.
 template <class More>
 __device__ __forceinline__ void stage_edges(const int* src, const int* dst,
                                             const bool* emask, const float* w,
@@ -111,48 +106,41 @@ __device__ __forceinline__ void warp_sums(float v, float* wsum, int e,
 
 // The backward's walk over the edges in order. On a valid edge, with pre =
 // x[src] + emb(e): dmsg = gout[dst] (*w; 0 where pre <= 0 under relu) is
-// added into dxs at src, and with want_dw gout[dst]*relu(pre) is summed
-// over the block's channels into wsum [CT/32][Em]. on_msg(e, dmsg) runs
-// where a message passed (K1: dT), on_slot(e, dmsg) on every slot, dmsg 0
-// on a masked one (K6: demb). ed[e] is the same for every thread, so the
-// warp shuffles never diverge. With U > 1, U edges' embeddings are fetched
-// before their adds (K6: EU loads from device memory); with U = 1 each is
-// made where it is used (K1's table sums, from shared memory, measured
-// faster so).
-template <bool RELU, bool HAS_W, int U, class Emb, class OnMsg, class OnSlot>
+// added into dxs at src, and gout[dst]*relu(pre) is summed over the
+// block's channels into wsum [CT/32][Em] (HAS_W); on_slot(e, dmsg) runs on
+// every slot, dmsg 0 on a masked one (K6: demb). ed[e] is the same for
+// every thread, so the warp shuffles never diverge. EU edges' embeddings
+// are fetched before their adds.
+template <bool RELU, bool HAS_W, class Emb, class OnSlot>
 __device__ __forceinline__ void walk_bwd(const float* xs, const float* gs,
                                          float* dxs, const int* es,
                                          const int* ed, const float* ew,
-                                         float* wsum, bool want_dw, int Em,
-                                         int t, Emb emb, OnMsg on_msg,
+                                         float* wsum, int Em, int t, Emb emb,
                                          OnSlot on_slot) {
-  for (int e0 = 0; e0 < Em; e0 += U) {
-    float ev[U];
-    if (U > 1) {
+  for (int e0 = 0; e0 < Em; e0 += EU) {
+    float ev[EU];
 #pragma unroll
-      for (int k = 0; k < U; ++k) {
-        const int e = e0 + k;
-        ev[k] = (e < Em && ed[e] >= 0) ? emb(e) : 0.f;
-      }
+    for (int k = 0; k < EU; ++k) {
+      const int e = e0 + k;
+      ev[k] = (e < Em && ed[e] >= 0) ? emb(e) : 0.f;
     }
 #pragma unroll
-    for (int k = 0; k < U; ++k) {
+    for (int k = 0; k < EU; ++k) {
       const int e = e0 + k;
       if (e >= Em) break;
       const int dd = ed[e];
       float part = 0.f, dm = 0.f;
       if (dd >= 0) {
         const int ss = es[e];
-        const float pre = xs[ss * CT + t] + (U > 1 ? ev[k] : emb(e));
+        const float pre = xs[ss * CT + t] + ev[k];
         const float gm = gs[dd * CT + t];
         part = gm * (RELU ? fmaxf(pre, 0.f) : pre);
         dm = HAS_W ? gm * ew[e] : gm;
         if (RELU && !(pre > 0.f)) dm = 0.f;
         dxs[ss * CT + t] += dm;
-        if (!RELU || pre > 0.f) on_msg(e, dm);
       }
       on_slot(e, dm);
-      if (HAS_W && want_dw) warp_sums(part, wsum, e, Em, t);
+      if (HAS_W) warp_sums(part, wsum, e, Em, t);
     }
   }
 }

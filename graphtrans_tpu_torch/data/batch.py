@@ -271,14 +271,16 @@ def collate(
         edge_src[edge_off:edge_off + e] = ei[0] + node_off
         edge_dst[edge_off:edge_off + e] = ei[1] + node_off
         if edge_dim > 0:
-            edge_attr[edge_off:edge_off + e] = g["edge_attr"].reshape(e, -1)
+            edge_attr[edge_off:edge_off + e] = g["edge_attr"].reshape(
+                e, edge_dim)
         edge_mask[edge_off:edge_off + e] = True
         if dense is not None:
             dense["edge_src_dense"][i, :e] = ei[0]
             dense["edge_dst_dense"][i, :e] = ei[1]
             dense["edge_mask_dense"][i, :e] = True
             if edge_dim > 0:
-                dense["edge_attr_dense"][i, :e] = g["edge_attr"].reshape(e, -1)
+                dense["edge_attr_dense"][i, :e] = g["edge_attr"].reshape(
+                    e, edge_dim)
 
         graph_mask[i] = True
         num_nodes[i] = n

@@ -1,6 +1,5 @@
-"""K3: segment-masked attention over wide packed rows (the W=1024 tier of
-code2), streaming the keys in blocks with an online softmax, with attention
-dropout, and its backward.
+"""K3: segment-masked attention over wide packed rows (code2's tiers of 512
+and 1024 tokens), with attention dropout, and its backward.
 
 The contract is K2's (``attention_packed.py``) for rows of any width:
 qkv ``[R, W, 3d]`` with heads in lanes, seg ``[R, W]`` int32 graph ids (-1 =
@@ -29,33 +28,41 @@ broadcasts work around Mosaic's 128 lanes at hd=32; the card works per
 What bounds it on the H100: operations. It must read qkv and write out,
 ``R*W*4d*4`` bytes (about 16 MB a W=1024 row at d=128), while the
 same-segment pairs need ``4*hd*H`` flops each forward and ``10*hd*H``
-backward; a 1024 row holds a few large graphs. Forward
-(``csrc/flash_hil.cu``): one block per (row, head, 128 queries), one thread
-per query with q and the output accumulator in registers; keys stream
-through shared memory 128 at a time, and a key block whose segment ids
-cannot meet the query block's is skipped whole (segments in a packed row
-are contiguous, ``ops/pack.py``). Where a gradient is wanted the forward
-also writes the softmax statistics m and l ``[R, W, H]``, as every
-launch with dropout does (dropout is for training); the serving launch
-writes none.
+backward; a 1024 row holds a few large graphs. At code2's bench512 (R=15,
+W=1024, 4 heads of 32) the forward's bound is its products as 3xTF32 on
+the tensor cores, about 0.024 ms (0.061 ms at the f32 SIMT peak).
+
+Forward (``csrc/flash_hil.cu``): the long-row forward of
+``csrc/attention_fwd.cuh`` that K5 and K2's 384 tier run, under K3's own
+kernel with seg as both tag arrays and K3's mask as its dropout policy.
+The kernel it replaces ran one thread per query, each key one 32-long
+dependent FMA chain from shared memory, and walked 128-key positional
+blocks key by key; at code2's serving batch (R=4) its 128 blocks left
+the card part idle, and it lost to SDPA. The design: one block of four
+warps per (row, head, 64 queries); the keys whose segment meets one of
+the tile's are ranked by a block-wide prefix count and gathered 64 at a
+time with ``cp.async``; each warp owns 16 query rows whole, their scores,
+online softmax and P V in registers, the products as 3xTF32 ``mma.sync``
+(f32 accuracy). The launch is ``fwd_geometry``
+(``attention_packed.long_fwd_geometry`` at hd 32), which the C entry
+checks. Where a gradient is wanted the forward also writes the softmax
+statistics m and l ``[R, W, H]``, as every launch with dropout does
+(dropout is for training); the serving launch writes none.
 
 The backward is the long-row pair of ``csrc/attention_bwd.cuh`` that K5-bwd
 and K9-bwd's long instance run, under K3's own two kernels, with seg as
-both tag arrays and K3's mask as its dropout policy. At code2's bench512
-(R=15, W=1024, 4 heads of 32) its bound is the pairs' products, ~0.06 ms
-as 3xTF32 on the tensor cores against 0.16 ms at the f32 SIMT peak; the
-kernels it replaces ran one thread per query (per key), one shared load
-per FMA on the f32 units, and walked 128-key positional tiles key by key.
-The design: a dq kernel over 64-query tiles (it also writes delta = dO .
-O) walks only the keys whose segment meets one of its queries', gathered
-64 at a time by rank; a dk/dv kernel over chunks of 64 valid keys by rank
-walks the query tiles whose segments can meet them. A tile or chunk that
-straddles segments takes keys of both, and the pair mask separates them.
-Each step is a 64 x 64 pair tile staged with ``cp.async``, its products as
-3xTF32 ``mma.sync`` (f32 accuracy). Every output cell has one writer:
-padding tokens get exact zeros, and a run gives the same bits every time.
-The launch is the long backward's (``attention_smalls.bwd_geometry``'s long
-instance at hd 32).
+both tag arrays and K3's mask as its dropout policy. At bench512 its bound
+is the pairs' products, ~0.06 ms as 3xTF32 on the tensor cores against
+0.16 ms at the f32 SIMT peak. The design: a dq kernel over 64-query tiles
+(it also writes delta = dO . O) walks only the keys whose segment meets
+one of its queries', gathered 64 at a time by rank; a dk/dv kernel over
+chunks of 64 valid keys by rank walks the query tiles whose segments can
+meet them. A tile or chunk that straddles segments takes keys of both, and
+the pair mask separates them. Each step is a 64 x 64 pair tile staged with
+``cp.async``, its products as 3xTF32 ``mma.sync``. Every output cell has
+one writer: padding tokens get exact zeros, and a run gives the same bits
+every time. The launch is the long backward's
+(``attention_smalls.bwd_geometry``'s long instance at hd 32).
 """
 
 from __future__ import annotations
@@ -65,8 +72,9 @@ import ctypes
 import torch
 
 from . import _build
-from .attention_packed import (HEAD_DIM, _stream, attention_seg_plain,
-                               keep_threshold)
+from .attention_packed import (HEAD_DIM, Geometry, _stream,
+                               attention_seg_plain, keep_threshold,
+                               long_fwd_geometry)
 from .flash_attention import tile_keep_mask
 
 MASK_BQ, MASK_BK = 512, 128   # the JAX kernel's blocks, which seed its mask
@@ -125,6 +133,12 @@ def _check(qkv, seg, nhead, rate, gout=None):
         raise ValueError("flash_hil_seg: inputs must be contiguous")
 
 
+def fwd_geometry(R: int, W: int, nhead: int) -> Geometry:
+    """K3's forward launch for R rows of W tokens: the long forward's, a
+    block of four warps per (row, head, 64 queries)."""
+    return long_fwd_geometry(R, W, HEAD_DIM, nhead)
+
+
 def _dropout_args(rate: float, seed: int):
     on = rate > 0.0
     seed32 = (int(seed) + 2**31) % 2**32 - 2**31   # the int32 it wraps to
@@ -152,7 +166,8 @@ def flash_hil_seg_with_stats(qkv: torch.Tensor, seg: torch.Tensor,
     lib = _load()
     err = lib.flash_hil_fwd(
         ptr(qkv), ptr(seg), ptr(out), ptr(m), ptr(l), R, W, d3 // 3, nhead,
-        *_dropout_args(rate, seed), _stream(qkv))
+        *_dropout_args(rate, seed), *fwd_geometry(R, W, nhead).args(),
+        _stream(qkv))
     _build.check(lib, err, "flash_hil_fwd")
     flash_hil_seg.launches += 1
     return out, m, l
@@ -172,8 +187,8 @@ class _FlashHilSeg(torch.autograd.Function):
     def backward(ctx, gout):
         qkv, seg, out, m, l = ctx.saved_tensors
         nhead, rate, seed = ctx.args
-        return (flash_hil_seg_bwd(qkv, seg, nhead, gout.contiguous(), rate,
-                                  seed, saved=(out, m, l)),
+        return (flash_hil_seg_bwd(qkv, seg, nhead, gout.contiguous(),
+                                  (out, m, l), rate, seed),
                 None, None, None, None)
 
 
@@ -188,7 +203,6 @@ def flash_hil_seg(qkv: torch.Tensor, seg: torch.Tensor, nhead: int,
     if qkv.device.type != "cuda":
         raise ValueError(f"flash_hil_seg: unsupported device {qkv.device}")
     if torch.is_grad_enabled() and qkv.requires_grad:
-        _check(qkv, seg, nhead, rate)
         return _FlashHilSeg.apply(qkv, seg, nhead, rate, seed)
     return flash_hil_seg_with_stats(qkv, seg, nhead, rate, seed,
                                     stats=False)[0]
@@ -198,14 +212,14 @@ flash_hil_seg.launches = 0
 
 
 def flash_hil_seg_bwd(qkv: torch.Tensor, seg: torch.Tensor, nhead: int,
-                      gout: torch.Tensor, rate: float = 0.0, seed: int = 0,
-                      saved=None) -> torch.Tensor:
+                      gout: torch.Tensor, saved, rate: float = 0.0,
+                      seed: int = 0) -> torch.Tensor:
     """K3 backward: dqkv [R, W, 3d] for the cotangent ``gout`` [R, W, d] of
     ``flash_hil_seg(qkv, seg, nhead, rate, seed)``, the dropout mask drawn
     again from ``seed``. ``saved`` is the forward's (out, m, l) from
     ``flash_hil_seg_with_stats``, which the kernels read. CPU tensors take
-    ``flash_hil_seg_bwd_plain`` (no ``saved``); CUDA tensors launch the dq
-    and dk/dv kernels or raise."""
+    ``flash_hil_seg_bwd_plain`` (which ignores ``saved``); CUDA tensors
+    launch the dq and dk/dv kernels or raise."""
     if qkv.device.type == "cpu":
         return flash_hil_seg_bwd_plain(qkv, seg, nhead, gout, rate, seed)
     if qkv.device.type != "cuda":
@@ -240,6 +254,7 @@ def _load():
         drop = [ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_int]
         lib.flash_hil_fwd.argtypes = ([ctypes.c_void_p] * 5
                                       + [ctypes.c_int] * 4 + drop
+                                      + [ctypes.c_int] * 8
                                       + [ctypes.c_void_p])
         lib.flash_hil_fwd.restype = ctypes.c_int
         lib.flash_hil_bwd.argtypes = ([ctypes.c_void_p] * 8

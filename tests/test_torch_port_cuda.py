@@ -7,6 +7,7 @@ and no JAX (``--noconftest`` skips tests/conftest.py, which imports JAX):
 """
 
 import argparse
+import functools
 import importlib
 
 import pytest
@@ -78,27 +79,90 @@ def _k1_args(b, d, with_w, with_scale, cuda):
             torch.tensor([1.25], device=cuda) if with_scale else None)
 
 
+@functools.lru_cache(maxsize=None)
+def _k1_batch(G):
+    """G graph slots (the last two padding where G > 2): molecules of up to
+    48 nodes in 144 edge slots, or at G 4097 the bench batch's stride 32
+    and 96 slots; graphs of 1 node up, so one-node graphs (no edges) share
+    chunks with full ones; masked slots and padding rows in every graph."""
+    Sm, Em = (32, 96) if G > 1000 else (48, 144)
+    graphs = make_mol_dataset(num_graphs=max(1, G - 2), num_tasks=4,
+                              min_nodes=1, max_nodes=Sm, seed=G)
+    return collate(graphs, G, G * Sm, G * Em, num_tasks=4, y_dtype="float32",
+                   node_stride=Sm, dense_edge_cap=Em)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [40, 300])
+@pytest.mark.parametrize("G", [1, 65, 4097])
+@pytest.mark.parametrize("d", [40, 128, 300])
 @pytest.mark.parametrize("with_w,with_scale", [(False, True), (True, False),
                                                (True, True)])
-def test_gin_agg_bwd_kernel_matches_plain(cuda, d, with_w, with_scale):
-    """dx, dT, dw and dscale of K1's backward kernel against autograd
-    through the plain version."""
-    b = _batch().to(cuda)
+def test_gin_agg_bwd_kernel_matches_plain(cuda, G, d, with_w, with_scale):
+    """dx, dT, dw and dscale of K1's backward kernels against autograd
+    through the plain version (5e-4 of max(1, max|ref|)) at one graph, at
+    serve64's 65 and at the bench batch's 4097: dx on padding rows exactly
+    scale*gout (0 without a scale), dw on masked slots exactly 0, the same
+    bits on two runs."""
+    b = _k1_batch(G).to(cuda)
     args = _k1_args(b, d, with_w, with_scale, cuda)
     gout = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(
         7)).to(cuda)
     before = gin_agg_bwd.launches
     got = gin_agg_bwd(*args, gout)
+    again = gin_agg_bwd(*args, gout)
     torch.cuda.synchronize()
-    assert gin_agg_bwd.launches == before + 1
+    assert gin_agg_bwd.launches == before + 2
     want = gin_agg_bwd_plain(*args, gout)
-    for name, g, w in zip(("dx", "dT", "dw", "dscale"), got, want):
+    for name, g, w, a in zip(("dx", "dT", "dw", "dscale"), got, want, again):
         assert (g is None) == (w is None), name
         if g is not None:
             err = (g - w).abs().max().item()
             assert err <= GRAD_TOL * max(1.0, w.abs().max().item()), name
+            assert torch.equal(g, a), name
+    pad = ~b.node_mask.reshape(args[0].shape[:2])
+    scale = args[7].item() if with_scale else 0.0
+    assert torch.equal(got[0][pad], scale * gout[pad])
+    if with_w:
+        assert not got[2][~b.edge_mask_dense].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [65, 4097])
+@pytest.mark.parametrize("d", [42, 300])
+def test_gin_agg_bwd_launches_agree(cuda, G, d):
+    """The same work on 16-byte aligned tensors and on copies one float
+    off (4 channels a thread where d allows, else 1) matches autograd
+    through the plain version, w and scale given; dx has the same bits
+    under each launch (a row's sum has one order)."""
+    from graphtrans_tpu_torch.ops.kernels.gin_agg import bwd_geometry
+
+    b = _k1_batch(G).to(cuda)
+    args = _k1_args(b, d, True, True, cuda)
+    gout = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(
+        3)).to(cuda)
+    want = gin_agg_bwd_plain(*args, gout)
+
+    def shifted(t):     # a contiguous copy whose address is 4 bytes off
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    off = list(args)
+    off[0], off[5] = shifted(args[0]), shifted(args[5])
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    shape = (G, b.node_stride, args[1].shape[1], args[4].shape[1],
+             args[5].shape[0], d, True, sms)
+    vecs = [bwd_geometry(*shape, align).vec for align in (4, 1)]
+    assert vecs == ([4, 1] if d % 4 == 0 else [1, 1])
+    dx = None
+    for a, g_out in ((args, gout), (off, shifted(gout))):
+        got = gin_agg_bwd(*a, g_out)
+        for name, g, w in zip(("dx", "dT", "dw", "dscale"), got, want):
+            err = (g - w).abs().max().item()
+            assert err <= GRAD_TOL * max(1.0, w.abs().max().item()), name
+        dx = got[0] if dx is None else dx
+        assert torch.equal(got[0], dx)
 
 
 @pytest.mark.cuda
@@ -510,7 +574,7 @@ def test_flash_hil_dropout_and_bwd_kernels_match_plain(cuda, W, rate):
     seed = 2**31 - 7
     saved = flash_hil_seg_with_stats(qkv, seg, 4, rate, seed)
     before = flash_hil_seg_bwd.launches
-    dqkv = flash_hil_seg_bwd(qkv, seg, 4, g, rate, seed, saved=saved)
+    dqkv = flash_hil_seg_bwd(qkv, seg, 4, g, saved, rate, seed)
     torch.cuda.synchronize()
     assert flash_hil_seg_bwd.launches == before + 1
     out = saved[0]
@@ -520,6 +584,73 @@ def test_flash_hil_dropout_and_bwd_kernels_match_plain(cuda, W, rate):
     assert (dqkv - want).abs().max().item() <= GRAD_TOL * max(
         1.0, want.abs().max().item())
     assert not dqkv[seg < 0].any() and not out[seg < 0].any()
+
+
+K3_SEGMENTS = {   # rows of (length, graph id: None a new one, -1 padding)
+    512: [[1, 64, 385, (62, -1)], [(512, -1)],
+          [(100, 7), 200, (100, 7), 1, (111, -1)]],
+    1024: [[1024], [1, 64, 385, 1, 64, 385, (124, -1)], [(1024, -1)],
+           [(300, 9), 400, (300, 9), (24, -1)]],
+}
+
+
+def _k3_segments(W, cuda):
+    seg = torch.full((len(K3_SEGMENTS[W]), W), -1, dtype=torch.int32)
+    g = 1000
+    for r, runs in enumerate(K3_SEGMENTS[W]):
+        s = 0
+        for run in runs:
+            n, gid = run if isinstance(run, tuple) else (run, None)
+            if gid != -1:
+                seg[r, s:s + n] = g if gid is None else gid
+            g, s = g + 1, s + n
+    gen = torch.Generator().manual_seed(W + 1)
+    return (torch.randn(len(seg), W, 384, generator=gen).to(cuda),
+            seg.to(cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [512, 1024])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_flash_hil_segments_match_plain(cuda, W, rate):
+    """K3's forward (the long forward under seg as both tags) on segments
+    of 1, 64, 385 and 1024 tokens, an all-padding row and one graph id in
+    two runs: within K3_TOL of the plain version, m and l the plain
+    softmax statistics (m = -inf, l = 0 and the output exactly 0 on
+    padding queries), the same bits on two runs, and K3-bwd on these m
+    and l within GRAD_TOL of autograd through the plain version."""
+    from graphtrans_tpu_torch.ops.kernels import (flash_hil_seg,
+                                                  flash_hil_seg_bwd,
+                                                  flash_hil_seg_bwd_plain,
+                                                  flash_hil_seg_plain)
+    from graphtrans_tpu_torch.ops.kernels.flash_hil import (
+        flash_hil_seg_with_stats)
+
+    H, seed = 4, 2**31 - 13
+    qkv, seg = _k3_segments(W, cuda)
+    g = torch.randn(qkv.shape[0], W, 128,
+                    generator=torch.Generator().manual_seed(W)).to(cuda)
+    before = flash_hil_seg.launches
+    runs = [flash_hil_seg_with_stats(qkv, seg, H, rate, seed)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert flash_hil_seg.launches == before + 2
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    out, m, l = runs[0]
+    assert (out - flash_hil_seg_plain(qkv, seg, H, rate, seed)
+            ).abs().max().item() <= K3_TOL
+    pad = seg < 0
+    assert not out[pad].any()
+    meet = (seg[:, :, None] == seg[:, None, :]) & ~pad[:, None, :]
+    _check_stats(m, l, qkv, meet, H)
+    dqkv = flash_hil_seg_bwd(qkv, seg, H, g, (out, m, l), rate, seed)
+    want = flash_hil_seg_bwd_plain(qkv, seg, H, g, rate, seed)
+    assert (dqkv - want).abs().max().item() <= GRAD_TOL * max(
+        1.0, want.abs().max().item())
+    assert not dqkv[pad].any()
+    serving = flash_hil_seg(qkv, seg, H, rate, seed)
+    assert torch.equal(serving, out)
 
 
 def _k3_straddle_case(W, cuda):
@@ -559,8 +690,8 @@ def test_flash_hil_long_bwd_matches_plain(cuda, W, rate):
                     ).to(cuda)
     seed = 2**31 - 5
     saved = flash_hil_seg_with_stats(qkv, seg, 4, rate, seed)
-    dqkv = flash_hil_seg_bwd(qkv, seg, 4, g, rate, seed, saved=saved)
-    again = flash_hil_seg_bwd(qkv, seg, 4, g, rate, seed, saved=saved)
+    dqkv = flash_hil_seg_bwd(qkv, seg, 4, g, saved, rate, seed)
+    again = flash_hil_seg_bwd(qkv, seg, 4, g, saved, rate, seed)
     torch.cuda.synchronize()
     want = flash_hil_seg_bwd_plain(qkv, seg, 4, g, rate, seed)
     assert (dqkv - want).abs().max().item() <= GRAD_TOL * max(

@@ -120,6 +120,32 @@ def test_collate_matches_jax(layout):
     assert tt.edge_mask_dense is None or tt.edge_mask_dense.dtype == torch.bool
 
 
+@pytest.mark.parametrize("layout", ["strided_packed", "flat"])
+def test_collate_takes_a_graph_without_edges(layout):
+    """A one-atom molecule (no bonds, edge_attr of shape [0, 3]) between
+    two others: its node is in the batch, none of its edge slots is valid,
+    and the other graphs' edges are collated as without it."""
+    graphs = ts.make_mol_dataset(num_graphs=2, num_tasks=4, min_nodes=3,
+                                 max_nodes=30, seed=5)
+    lone = dict(graphs[0], x=graphs[0]["x"][:1],
+                edge_index=np.zeros((2, 0), np.int64),
+                edge_attr=np.zeros((0, 3), np.int8))
+    kw = (dict(node_stride=32, dense_edge_cap=96, seq_pack_w=128)
+          if layout == "strided_packed" else {})
+    caps = (3, 3 * 32, 512)
+    got = tb.collate([graphs[0], lone, graphs[1]], *caps, num_tasks=4,
+                     y_dtype="float32", **kw)
+    ref = tb.collate(graphs, *caps, num_tasks=4, y_dtype="float32", **kw)
+    assert got.num_nodes[1] == 1 and got.graph_mask[1]
+    e = int(ref.edge_mask.sum())
+    assert int(got.edge_mask.sum()) == e
+    np.testing.assert_array_equal(got.edge_attr[:e], ref.edge_attr[:e])
+    if layout == "strided_packed":
+        assert not got.edge_mask_dense[1].any()
+        np.testing.assert_array_equal(got.edge_attr_dense[[0, 2]],
+                                      ref.edge_attr_dense[:2])
+
+
 def test_collate_rejects_later_options():
     graphs = ts.make_mol_dataset(num_graphs=2, num_tasks=1, seed=0)
     with pytest.raises(NotImplementedError, match="slice 11 \\(PNA"):

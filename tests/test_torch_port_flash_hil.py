@@ -60,6 +60,28 @@ def test_plain_matches_jax_interpret_kernel(S):
     np.testing.assert_array_equal(again.numpy(), got.numpy())
 
 
+FWD_TOL = 2e-5  # the forward at code2's test tier, W 512
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_plain_matches_jax_interpret_kernel_at_w512(rate):
+    """Code2's tier of 512: a segment of 390 tokens (wider than K2's tiers,
+    so only K3 takes it), single tokens, a padding tail, an all-padding
+    row and a row of short segments, with the schedule's dropout: within
+    FWD_TOL of the interpret kernel, padding queries exactly 0."""
+    rng = np.random.default_rng(512)
+    qkv = rng.standard_normal((3, 512, 384)).astype(np.float32)
+    seg = np.full((3, 512), -1, np.int32)
+    seg[0, :390], seg[0, 390], seg[0, 391:451] = 0, 1, 2
+    seg[2, :500] = 3 + np.arange(500) // 50
+    want = np.asarray(flash_hil_seg_qkv(jnp.asarray(qkv), jnp.asarray(seg),
+                                        SEED, 4, rate, rate > 0, True))
+    got = flash_hil_seg_plain(torch.from_numpy(qkv), torch.from_numpy(seg), 4,
+                              rate, SEED).numpy()
+    np.testing.assert_allclose(got, want, atol=FWD_TOL, rtol=0)
+    assert not got[seg < 0].any() and not got[1].any()
+
+
 @pytest.mark.parametrize("S", [640, 1024])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_plain_fwd_and_grad_match_jax_interpret_kernel(S, rate):
@@ -83,7 +105,7 @@ def test_plain_fwd_and_grad_match_jax_interpret_kernel(S, rate):
     # CPU tensors take the plain backward through the wrapper, uncounted
     before = flash_hil_seg_bwd.launches
     again = flash_hil_seg_bwd(torch.from_numpy(qkv), torch.from_numpy(seg),
-                              4, torch.from_numpy(g), rate, SEED)
+                              4, torch.from_numpy(g), None, rate, SEED)
     assert flash_hil_seg_bwd.launches == before
     np.testing.assert_allclose(again.numpy(), leaf.grad.numpy(), atol=1e-6,
                                rtol=0)

@@ -17,6 +17,7 @@ key and dropout."""
 
 import importlib
 import math
+from pathlib import Path
 
 import pytest
 
@@ -30,6 +31,8 @@ asm = importlib.import_module("graphtrans_tpu_torch.ops.kernels."
                               "attention_smalls")
 fa = importlib.import_module("graphtrans_tpu_torch.ops.kernels."
                              "flash_attention")
+fh = importlib.import_module("graphtrans_tpu_torch.ops.kernels.flash_hil")
+CSRC = Path(__file__).resolve().parents[1] / "graphtrans_tpu_torch" / "csrc"
 
 SMEM_MAX = 232448
 ALGO_TOL = 1e-9    # both sides in float64: sums in another order
@@ -89,6 +92,40 @@ def test_long_forward_shared_memory():
     assert max(sizes) <= SMEM_MAX
     single = ap.long_fwd_bytes(128) - 4 * 2 * T * (128 + 4 + 1)
     assert 228 * 1024 // (single + 1024) == 1
+
+
+@pytest.mark.parametrize("W", [512, 1024, 1536])
+def test_k3_forward_launch_is_the_long_forward(W):
+    """K3's forward at code2's tiers of 512 and 1024 and at a wider row: the
+    long forward's launch at hd 32, a block of 128 threads (four warps of
+    16 queries) per (row, head, 64 queries), four blocks' shared memory an
+    SM; its C entry launches only flash_hil_fwd_long_kernel, after
+    attn::long_fwd_launch_ok, and the per-query kernel it replaced is
+    gone."""
+    R, nhead = 15, 4
+    geo = fh.fwd_geometry(R, W, nhead)
+    assert geo == ap.long_fwd_geometry(R, W, 32, nhead)
+    assert geo.instance == "long" and geo.spans == ((0, W),)
+    assert geo.grid == (R, nhead, -(-W // T)) and geo.threads == 128
+    assert geo.smem == ap.long_fwd_bytes(32) <= SMEM_MAX
+    assert 228 * 1024 // (geo.smem + 1024) == 4
+    assert geo.args() == (3, T, 1, R, nhead, -(-W // T), 128, geo.smem)
+    src = (CSRC / "flash_hil.cu").read_text()
+    assert "attn::long_fwd_launch_ok(L, R, W, H, 32)" in src
+    assert "attn::long_fwd<HD, DROP, STATS>" in src
+    assert src.count("<<<") == 1 and "flash_hil_fwd_long_kernel" in src
+    for gone in ("flash_hil_fwd_kernel", "block_range", " BQ = ", " BK = "):
+        assert gone not in src
+
+
+@pytest.mark.parametrize("d,nhead", [(128, 2), (256, 4), (96, 4)])
+def test_k3_refuses_other_head_widths(d, nhead):
+    """K3 is built for heads of width 32: its launch path raises on any
+    other before it reaches the card."""
+    qkv = torch.zeros(1, 512, 3 * d)
+    seg = torch.zeros(1, 512, dtype=torch.int32)
+    with pytest.raises(ValueError, match="head width"):
+        fh.flash_hil_seg_with_stats(qkv, seg, nhead)
 
 
 @pytest.mark.parametrize("backend,S,block", [
@@ -264,6 +301,26 @@ def test_long_forward_matches_k9(S, block, rate):
     assert (got - want).abs().max().item() <= ALGO_TOL
     assert not got[1, :width].any()
     _check_stats(m, l, qkv, qtag, ktag, H)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_long_forward_matches_k3(rate):
+    """K3 on the long forward (seg as both tags) at code2's tier of 512: a
+    segment of 400 tokens (seven query tiles, seven key chunks), single
+    tokens, padding tails, an all-padding row, one graph id in two runs,
+    with K3's 512 x 128 dropout schedule: the plain version's output, m
+    and l their log-sum-exp, padding queries exactly 0."""
+    B, S, d, H, seed = 3, 512, 64, 2, 2**31 - 9
+    seg = torch.full((B, S), -1, dtype=torch.int32)
+    seg[0, :400], seg[0, 400], seg[0, 401:465] = 0, 1, 2
+    seg[2, :100], seg[2, 100:300], seg[2, 300:390] = 5, 6, 5
+    qkv = _qkv(B, S, d, 15)
+    keep = fh.flash_hil_keep_mask(B, S, H, rate, seed) if rate else None
+    got, m, l = _long_fwd(qkv, seg.long(), seg.long(), H, keep, rate)
+    want = fh.flash_hil_seg_plain(qkv, seg, H, rate, seed)
+    assert (got - want).abs().max().item() <= ALGO_TOL
+    assert not got[seg < 0].any() and (got[seg >= 0].abs().sum(-1) > 0).all()
+    _check_stats(m, l, qkv, seg.long(), seg.long(), H)
 
 
 def test_first_chunk_without_a_key_changes_nothing():
