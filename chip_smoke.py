@@ -5,11 +5,12 @@ usage: python3 chip_smoke.py [--trace trace.json] [--baseline DIR]
 
 ``--baseline DIR`` names a checkout of an earlier commit (its
 graphtrans_tpu_torch/ tree; for one run, never committed): phases 2, 6a,
-7a, 8a, 9a, 10a and 11a then build its K1-bwd, K2, K3, K3-bwd, K4, K5 and
-K9 (forward, serving and training), K2-bwd, K4-bwd, K5-bwd, K9-bwd, K10
-and K10-bwd from its own sources and time them beside this tree's, in
-turns (earlier, this, this, earlier), on the same inputs; phases 2 and 12a
-hold K1's forward, K6 and K6-bwd to its bits.
+7a, 8a, 9a, 10a, 11a and 13a then build its K1, K1-bwd, K2, K3, K3-bwd,
+K4, K5 and K9 (forward, serving and training), K2-bwd, K4-bwd, K5-bwd,
+K7-bwd, K9-bwd, K10 and K10-bwd from its own sources and time them beside
+this tree's, in turns (earlier, this, this, earlier), on the same inputs;
+phases 2, 6a, 8a, 12a and 13a hold K1, K1-bwd, K7-bwd, K6 and K6-bwd to
+its bits.
 
 Phases, each printing one line (any failure raises and exits non-zero):
   0. the card (nvidia-smi name and power limit) and torch; TF32 off;
@@ -283,7 +284,7 @@ def time_ms(fn, iters: int, reps: int = 5) -> float:
 
 
 BASELINE_KERNELS = ("attention_packed", "attention_smalls", "dense_agg",
-                    "flash_attention", "flash_hil", "gin_agg",
+                    "flash_attention", "flash_hil", "gin_agg", "spmm",
                     "transformer_layer")
 
 
@@ -339,6 +340,65 @@ def same_bits(what: str, new, old, checked: list):
                                  f"parent's kernel's on the same inputs "
                                  f"(max |diff| {diff})")
     checked.append(what)
+
+
+L2_FLUSH_BYTES = 256 << 20  # over five times the H100's 50 MB L2
+
+
+def device_ms(fn, names, per_call: int = 1, iters: int = 20):
+    """Device ms per call of ``fn`` from torch.profiler: the self device
+    time of the kernels whose names hold any of ``names``, over ``iters``
+    profiled calls after a warm-up, each call after a write of
+    L2_FLUSH_BYTES, so that its inputs come from HBM (a cold L2, as on the
+    main path, where other layers run between two calls). Unlike
+    ``time_ms`` it leaves out the host's pacing of back-to-back calls (a
+    wrapper's checks and launches). ``per_call`` is the kernels a call
+    launches: where the profiler recorded another number of launches (a
+    dropped record) the time is None, not measured, and the count is
+    printed."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    seen = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and any(n in e.key for n in names)]
+    count = sum(e.count for e in seen)
+    if count != per_call * iters:
+        print(f"    (profiler: {count} launches of {names} recorded, "
+              f"{per_call * iters} made: device time not measured)")
+        return None
+    return sum(e.self_device_time_total for e in seen) / 1e3 / iters
+
+
+def host_us(new, old, iters: int = 200):
+    """(this, earlier): host µs a call of ``new`` and ``old`` (None without
+    it), in turns (old, new, new, old): the wall time of ``iters``
+    back-to-back calls that wait for nothing on the card (their launches
+    queue), after a warm-up. Where a call's device time is shorter, this
+    is what paces a run of calls."""
+    def one(fn):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        secs = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return secs / iters * 1e6
+    if old is None:
+        return one(new), None
+    o1, n1, n2, o2 = (one(f) for f in (old, new, new, old))
+    return (n1 + n2) / 2, (o1 + o2) / 2
 
 
 def alternating_ms(fns, rounds: int, iters: int):
@@ -500,6 +560,32 @@ def sdpa_ms(qkv, seg, nhead: int) -> float:
     return sdpa_mask_ms(qkv, mask, nhead)
 
 
+def print_k1_launch(name: str, args, device, gin_agg, base=None):
+    """K1's forward launch at ``args`` (fwd_geometry), its device time from
+    the profiler, cold L2, and its host time a call (``host_us``), each
+    beside the parent's with ``base``: the CUDA-event time printed after
+    it is the larger of the two where calls run back to back."""
+    from graphtrans_tpu_torch.ops.kernels import gin_agg as k1_mod
+
+    mod = sys.modules[k1_mod.__module__]
+    x, src, dst, emask, attr, tbl, w, scale = args
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    geo = mod.fwd_geometry(*x.shape[:2], src.shape[1], attr.shape[1],
+                           tbl.shape[0], x.shape[2], w is not None, sms)
+    old_fn = base and (lambda: base["gin_agg"].gin_agg(*args))
+    dev = device_ms(lambda: gin_agg(*args), ("gin_agg_fwd",))
+    host = host_us(lambda: gin_agg(*args), old_fn)
+    line = (f"[2] {name} K1 launch: vec {geo.vec}, gpb {geo.gpb}, grid "
+            f"{geo.grid} x {geo.threads}, {geo.smem} B; device time "
+            f"{_ms(dev)} a launch (profiler, cold L2)")
+    if base:
+        line += f", the parent's {_ms(device_ms(old_fn, ('gin_agg_fwd',)))}"
+    line += f"; host {host[0]:.1f} µs a call"
+    if base:
+        line += f" (the parent's {host[1]:.1f}, in turns)"
+    print(line)
+
+
 def phase2(device, d_gnn: int, d_model: int, nhead: int, big, base=None):
     from graphtrans_tpu_torch.data.loader import iterate_batches
     from graphtrans_tpu_torch.data.mol import load_mol_splits
@@ -523,7 +609,7 @@ def phase2(device, d_gnn: int, d_model: int, nhead: int, big, base=None):
           f"K1 max |diff| {k1_err:.3g} (<= {K1_TOL}), K2 max |diff| "
           f"{k2_err:.3g} (<= {K2_TOL}), padding queries exactly 0")
 
-    rows, same = [], []
+    rows, same, k1_by_shape = [], [], {}
     for name, b in (("serve64", serve), ("bench4096", big)):
         inp = k1_inputs(b, d_gnn, gen, device)
         for with_w in (True, False):
@@ -531,10 +617,16 @@ def phase2(device, d_gnn: int, d_model: int, nhead: int, big, base=None):
             same_bits(f"K1 {name} ({'w' if with_w else 'scale'})",
                       lambda: gin_agg(*args),
                       base and (lambda: base["gin_agg"].gin_agg(*args)), same)
-        k1 = dict(ms=time_ms(lambda: gin_agg(*args), iters=20),
+        # timed as the main path calls it: the GIN scale, no edge weight
+        ms, earlier = turns_ms(
+            lambda: gin_agg(*args),
+            base and (lambda: base["gin_agg"].gin_agg(*args)), 20)
+        k1 = dict(ms=ms, earlier_ms=earlier,
                   plain_ms=time_ms(lambda: gin_agg_plain(*args), iters=5),
                   library_ms=None)
         k1["bound_ms"], k1["bound_by"] = k1_bound(args)
+        k1_by_shape[name] = k1
+        print_k1_launch(name, args, device, gin_agg, base)
         qkv, seg = k2_inputs(b, d_model, gen, device, pad_rows=0)
         ms, earlier = turns_ms(
             lambda: attention_seg(qkv, seg, nhead),
@@ -558,6 +650,10 @@ def phase2(device, d_gnn: int, d_model: int, nhead: int, big, base=None):
                   f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), library "
                   f"{lib} ms")
         rows.append((k1, k2))
+    print(f"[2] K1 gin_agg at both shapes, in turns with the parent's kernel: "
+          + "; ".join(f"{n} {t['ms']:.4f} ms (the parent's "
+                      f"{_ms(t['earlier_ms'])}, bound {t['bound_ms']:.4f})"
+                      for n, t in k1_by_shape.items()))
     if base:
         print(f"[2] --baseline: K1's forward gives the parent's bits on the "
               f"same inputs at {same}")
@@ -905,7 +1001,7 @@ def phase6_kernels(device, d_gnn: int, d_model: int, nhead: int, big,
     serve = next(iterate_batches(splits["train"],
                                  **serving_layout(splits, _args(), num_tasks)))
     k1_err = k1_abs = k2_ferr = k2_err = 0.0
-    rows = []
+    rows, same = [], []
     for name, b in (("serve64", serve), ("bench4096", big)):
         inp = k1_inputs(b, d_gnn, gen, device)
         gout = torch.randn(inp["x"].shape, generator=gen).to(device)
@@ -915,6 +1011,10 @@ def phase6_kernels(device, d_gnn: int, d_model: int, nhead: int, big,
                     inp["scale"] if with_scale else None)
             err, err_abs = check_k1_bwd(args, gout)
             k1_err, k1_abs = max(k1_err, err), max(k1_abs, err_abs)
+            same_bits(f"K1-bwd {name} (w {with_w}, scale {with_scale})",
+                      lambda: gin_agg_bwd(*args, gout),
+                      base and (lambda: base["gin_agg"].gin_agg_bwd(
+                          *args, gout)), same)
         qkv, seg = k2_inputs(b, d_model, gen, device)
         for rate, seed in ((0.0, 0), (DROPOUT, 1234567 + len(rows))):
             f, e, _ = check_k2_train(qkv, seg, nhead, rate, seed, gen)
@@ -956,9 +1056,13 @@ def phase6_kernels(device, d_gnn: int, d_model: int, nhead: int, big,
             *inp["x"].shape[:2], inp["src"].shape[1], inp["attr"].shape[1],
             inp["tbl"].shape[0], d_gnn, False,
             torch.cuda.get_device_properties(device).multi_processor_count)
+        dev = device_ms(lambda: gin_agg_bwd(*args, gout), ("gin_agg_bwd",),
+                        per_call=2)
         print(f"[6a] {name} K1-bwd: the parent's {_ms(k1['earlier_ms'])}, "
               f"in turns; launch: vec {geo.vec}, gpb {geo.gpb}, grid "
-              f"{geo.grid} x {geo.threads}, {geo.smem} B")
+              f"{geo.grid} x {geo.threads}, {geo.smem} B; device time "
+              f"{_ms(dev)} a call (profiler, cold L2: main and tail "
+              f"kernels) against {k1['ms']:.4f} ms from CUDA events")
         print(f"[6a] {name} K2-bwd: the parent's {_ms(k2['earlier_ms'])}, "
               f"in turns; K2 forward with dropout {DROPOUT} and saved "
               f"statistics (training) {fwd_drop[0]:.4f} ms (the parent's "
@@ -969,6 +1073,9 @@ def phase6_kernels(device, d_gnn: int, d_model: int, nhead: int, big,
           f"dscale relative to max(1, max|ref|); max |diff| {k1_abs:.3g}), "
           f"K2 with dropout {DROPOUT}: forward {k2_ferr:.3g} (<= {K2_TOL}), "
           f"K2-bwd {k2_err:.3g} (<= {GRAD_TOL}); padding tokens exactly 0")
+    if base:
+        print(f"[6a] --baseline: K1-bwd gives the parent's bits (dx, dT, dw, "
+              f"dscale) on the same inputs at {same}")
     return dict(k1_err=k1_err, k2_err=k2_err, timed=rows[-1])
 
 
@@ -1524,6 +1631,40 @@ def check_k7_bwd(args, gen):
     return err
 
 
+def time_k7_bwd(a, g, order, base):
+    """K7-bwd on K7's arguments ``a`` (relu_add, the GCN norm) as the main
+    path calls it: (ms, the parent's ms in turns or None, (device ms, the
+    parent's) from the profiler with a cold L2, each None where not
+    measured, what gave the parent's bits). With ``base`` its outputs must
+    have the parent's bits: each row's terms are added in the same (perm)
+    order."""
+    from graphtrans_tpu_torch.ops.kernels import spmm_bwd
+
+    new = lambda: spmm_bwd(*a[:5], g, order, a[5])
+    old = base and (lambda: base["spmm"].spmm_bwd(*a[:5], g, order, a[5]))
+    checked = []
+    same_bits(f"K7-bwd N={a[0].shape[0]}", new, old, checked)
+    ms, earlier = turns_ms(new, old, 20)
+    dev = (device_ms(new, ("spmm_bwd",)),
+           old and device_ms(old, ("spmm_bwd",)))
+    return ms, earlier, dev, checked
+
+
+def print_k7_bwd_turns(tag: str, by_shape: dict, same: list, base):
+    """One line: K7-bwd at each shape beside the parent's, and the shapes
+    whose outputs had the parent's bits under ``--baseline``."""
+    print(f"[{tag}] K7-bwd spmm_bwd at both shapes, in turns with the "
+          f"parent's kernel: " + "; ".join(
+              f"{n} {t['ms']:.4f} ms (the parent's {_ms(t['earlier_ms'])}, "
+              f"bound {t['bound_ms']:.4f}; device time "
+              f"{_ms(t['device_ms'])} a launch from the profiler, cold L2, "
+              f"the parent's {_ms(t['earlier_device_ms'])})"
+              for n, t in by_shape.items()))
+    if base:
+        print(f"[{tag}] --baseline: K7-bwd gives the parent's bits (dx and "
+              f"d_emb) on the same inputs at {same}")
+
+
 def k7_bwd_bound(args):
     """x and g read once, as k7_bound reads x once (the kernel gathers g
     per edge only because it walks the edges by source); per valid edge
@@ -1574,6 +1715,7 @@ def phase8_kernels(device, d_gnn: int, d_model: int, nhead: int, bench,
           f"d_emb rows exactly 0 (train16 W={train16.pack_w}, bench"
           f"{CODE2_BENCH})")
 
+    same, k7_by_shape = [], {}
     for name, b in (("train16", train16), (f"bench{CODE2_BENCH}", bench)):
         qkv, seg = k3_inputs(b, d_model, gen, device)
         R, W, d3 = qkv.shape
@@ -1584,7 +1726,7 @@ def phase8_kernels(device, d_gnn: int, d_model: int, nhead: int, bench,
             lambda: flash_hil_seg_bwd(qkv, seg, nhead, g, saved, DROPOUT,
                                       seed),
             base and (lambda: base["flash_hil"].flash_hil_seg_bwd(
-                qkv, seg, nhead, g, DROPOUT, seed, saved=saved)), 20)
+                qkv, seg, nhead, g, saved, DROPOUT, seed)), 20)
         k3b = dict(ms=ms, earlier_ms=earlier,
                    plain_ms=_plain_bwd_ms(
                        lambda t: flash_hil_seg_plain(t, seg, nhead, DROPOUT,
@@ -1605,16 +1747,19 @@ def phase8_kernels(device, d_gnn: int, d_model: int, nhead: int, bench,
         a = k7_inputs(b, d_gnn, gen, device)
         g7 = torch.randn(a[0].shape, generator=gen).to(device)
         N7 = a[0].shape[0]
-        order_ms = time_ms(lambda: SrcOrder(a[2], a[4], N7).get(), iters=20)
+        order_ms = time_ms(lambda: SrcOrder(a[2], a[4], N7).runs(), iters=20)
         order = SrcOrder(a[2], a[4], N7)
-        order.get()                      # built once per batch, not timed
-        k7b = dict(ms=time_ms(lambda: spmm_bwd(*a[:5], g7, order, a[5]),
-                              iters=20),
+        order.runs()                     # built once per batch, not timed
+        ms, earlier, dev, k7_same = time_k7_bwd(a, g7, order, base)
+        same.extend(k7_same)
+        k7b = dict(ms=ms, earlier_ms=earlier, device_ms=dev[0],
+                   earlier_device_ms=dev[1],
                    plain_ms=_plain_bwd_ms(
                        lambda x, e: spmm_plain(x, e, *a[2:]), list(a[:2]),
                        g7),
                    library_ms=None)
         k7b["bound_ms"], k7b["bound_by"] = k7_bwd_bound(a)
+        k7_by_shape[name] = k7b
         k3b["shape"] = f"R={R} W={W} d={d3 // 3} H={nhead} rate={DROPOUT}"
         k7b["shape"] = (f"N={a[0].shape[0]} E={a[2].shape[0]} valid="
                         f"{int(a[4].sum().item())} d={d_gnn}")
@@ -1637,7 +1782,8 @@ def phase8_kernels(device, d_gnn: int, d_model: int, nhead: int, bench,
               f"dropout {DROPOUT} and saved statistics (training) "
               f"{fwd['training'][0]:.4f} ms (the parent's "
               f"{_ms(fwd['training'][1])}); K7-bwd's SrcOrder (sort and "
-              f"searchsorted, once per batch) {order_ms:.4f} ms")
+              f"searchsorted, and its runs, once per batch) {order_ms:.4f} ms")
+    print_k7_bwd_turns("8a", k7_by_shape, same, base)
     k2 = time_k2_tiers("8a", device, d_model, nhead, bench, gen, base, True)
     return dict(k3_err=k3_err, k7_err=k7_err, timed=(k3b, k7b), k2=k2)
 
@@ -4114,7 +4260,7 @@ def k12_bound(msg, dst, N: int):
     return _bound(E * d * 4 + E * 4 + N * d * 4, E * d)
 
 
-def phase13_kernels(device, d_gnn: int, bench):
+def phase13_kernels(device, d_gnn: int, bench, base=None):
     """(a) K8, K8-demb and K8-dx against their plain versions at the code2
     snapshot's train batch of 16 and the 512-graph bench batch, both with
     block plans at chunk_capacity(edge cap, node cap) (relu_add with the
@@ -4158,7 +4304,7 @@ def phase13_kernels(device, d_gnn: int, bench):
           f"d_emb {b_err['demb']:.3g}, dx {b_err['dx']:.3g} (<= {GRAD_TOL}) "
           f"of max(1, max|ref|); pad slots' d_emb exactly 0")
 
-    rows = {}
+    rows, k7b_rows, same = {}, {}, []
     for name, b in (("train16", train16), (f"bench{CODE2_BENCH}", bench)):
         a = k8_inputs(b, d_gnn, gen, device)
         x, ef, eb, pf, pb, wf, wb = (a[k] for k in ("x", "ef", "eb", "pf",
@@ -4190,10 +4336,13 @@ def phase13_kernels(device, d_gnn: int, bench):
         dx["bound_ms"], dx["bound_by"] = k8_bound(a, "dx")
         k7a = k7_inputs(b, d_gnn, gen, device)
         order = SrcOrder(k7a[2], k7a[4], k7a[0].shape[0])
-        order.get()
+        order.runs()
         k7_ms = time_ms(lambda: spmm(*k7a), iters=20)
-        k7b_ms = time_ms(lambda: spmm_bwd(*k7a[:5], g, order, k7a[5]),
-                         iters=20)
+        k7b_ms, k7b_earlier, dev, k7_same = time_k7_bwd(k7a, g, order, base)
+        same.extend(k7_same)
+        k7b_rows[name] = dict(ms=k7b_ms, earlier_ms=k7b_earlier,
+                              bound_ms=k7_bwd_bound(k7a)[0], device_ms=dev[0],
+                              earlier_device_ms=dev[1])
         real, slots = _slots_moved(a)
         shape = (f"N={x.shape[0]} C={pf['blk_out'].numel()} slots={slots} "
                  f"real={real} d={d_gnn}")
@@ -4210,6 +4359,7 @@ def phase13_kernels(device, d_gnn: int, bench):
               f"K8-demb + K8-dx {demb['ms'] + dx['ms']:.4f}; autograd through "
               f"K8's plain version {autograd_ms:.4f} ms")
         rows = dict(fwd=fwd, demb=demb, dx=dx)
+    print_k7_bwd_turns("13a", k7b_rows, same, base)
 
     # K12: the standalone op as its user calls it, once, counted from 0
     tb = bench.to(device)
@@ -4494,11 +4644,12 @@ def main(argv=None) -> int:
     p.add_argument("--trace", default=None,
                    help="write phase 5's chrome trace to this file")
     p.add_argument("--baseline", default=None,
-                   help="a checkout of an earlier commit whose K1-bwd, K2, "
-                        "K2-bwd, K3, K3-bwd, K4, K5, K4-bwd, K5-bwd, K9, "
-                        "K9-bwd, K10 and K10-bwd phases 2, 6a-11a time beside "
-                        "this tree's (K1, K4, K4-bwd, K6, K6-bwd, K9, K9-bwd, "
-                        "K10, K10-bwd also bit for bit)")
+                   help="a checkout of an earlier commit whose K1, K1-bwd, "
+                        "K2, K2-bwd, K3, K3-bwd, K4, K5, K4-bwd, K5-bwd, "
+                        "K7-bwd, K9, K9-bwd, K10 and K10-bwd phases 2, 6a-11a "
+                        "and 13a time beside this tree's (K1, K1-bwd, K4, "
+                        "K4-bwd, K6, K6-bwd, K7-bwd, K9, K9-bwd, K10, "
+                        "K10-bwd also bit for bit)")
     opts = p.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4594,7 +4745,7 @@ def main(argv=None) -> int:
     bench_bsp, bsp_tasks = code2_bench_batch(CODE2_BENCH, SEED, bsp=True)
     print(f"[13] collated the {CODE2_BENCH}-graph code2 batch with both "
           f"block plans in {time.perf_counter() - t0:.1f} s")
-    bsp = phase13_kernels(device, args.gnn_emb_dim, bench_bsp)
+    bsp = phase13_kernels(device, args.gnn_emb_dim, bench_bsp, base)
     with tempfile.TemporaryDirectory() as tmp:
         bsp_launches, bsp_step_launches = phase13_serve(device, tmp)
     phase13_cost(device, bench_bsp, bsp_tasks, smi)

@@ -5,12 +5,17 @@
 //   out[g,s,c] = scale*x[g,s,c] + sum_{e: mask[g,e], dst[g,e]=s}
 //                w[g,e] * relu(x[g,src[g,e],c] + sum_f T[attr[g,f,e], c])
 //
-// Forward: one block per (graph g, slice of CT channels); thread t owns
-// channel c0+t. The graph's x slice, an accumulator and the bond table slice
-// live in shared memory; each thread walks the graph's edges in order and
-// adds into its own accumulator column, so no cell has two writers (the
-// walk is strided_agg.cuh's, shared with K6). src, dst and attr must be in
-// range on every edge slot, masked ones included.
+// Forward (below): one block per (chunk of graphs, slice of channels; one
+// slice of all d at the throughput batches), the grid sized to the card by
+// gin_agg.py:fwd_geometry under the same rules as the backward's. Each
+// thread owns VEC neighbouring channels (16-byte accesses where d % 4 ==
+// 0). A graph's x slice lands in shared memory by cp.async, issued when
+// the walk of the graph before ends, so it lands while the graph's edges
+// are sorted. The valid edges are sorted by (dst, slot) in shared
+// memory once for all of d, masked slots dropped, so each output row is
+// summed in registers in the parent design's order and written once with
+// scale*x added. src, dst and attr must be in range on every edge slot,
+// masked ones included.
 //
 // Backward (K1-bwd, below): one block per (chunk of graphs, slice of
 // channels; one slice of all d at the throughput batches), the grid sized
@@ -29,66 +34,234 @@
 #include <cuda_runtime.h>
 
 #include "mma_tf32.cuh"
-#include "strided_agg.cuh"
+#include "vec.cuh"
 
 namespace {
 
-using strided::CT;
+constexpr int SMEM_MAX = 232448;      // dynamic shared bytes a block may take
 
-// Channel t of edge e's bond embedding, T[attr_0] + T[attr_1] + ..., added
-// in the plain version's order: the backward's relu mask must not flip on a
-// rounding difference.
-struct TableEmb {
-  const float* ts;
-  const int* ea;
-  int Em, F, t;
-  __device__ __forceinline__ float operator()(int e) const {
-    float v = ts[ea[e] * CT + t];
-    for (int f = 1; f < F; ++f) v += ts[ea[f * Em + e] * CT + t];
-    return v;
-  }
-};
+using vio::load_vec;
+using vio::load_vec_ro;
+using vio::store_vec;
+using vio::Vec;
+using vio::zero_vec;
 
-__global__ void __launch_bounds__(CT)
+// ---- the forward ----------------------------------------------------------
+
+constexpr int MAX_THREADS = 256;  // threads a block, either way (gin_agg.py)
+constexpr int FWD_EU = 4;         // edges whose loads a thread issues together
+
+// Shared bytes of a forward block (gin_agg.py:fwd_smem): one graph's x
+// slice [Sm][sc], then per edge slot its sorted record (src | dst << 16,
+// the F table rows, with w the weight) and its sort key.
+__host__ __device__ inline long fwd_smem(int Sm, int Em, int F, int sc,
+                                         bool has_w) {
+  return 4 * ((long)Sm * sc + (long)Em * (2 + F + (has_w ? 1 : 0)));
+}
+
+// One block per (chunk of gpb graphs, slice of sc channels); thread t owns
+// channels c0 + VEC t .. + VEC - 1 of every row, so no cell has two writers,
+// and reads its own columns of the x buffer only (no barrier guards them).
+// Per graph: the keys dst * Em + slot of the valid slots, then each valid
+// slot's rank among them (a stable sort by (dst, slot)) places its record,
+// read from global memory, in a sorted list; the walk visits the records in
+// order, so the edges of each row come together in slot order (the order in
+// which the parent design added them into a shared accumulator), FWD_EU
+// records' table rows and x rows loaded before their adds. A row is closed
+// when the walk passes it: out = acc (+ scale * x), written once from
+// registers. The next graph's x is issued when this walk ends and lands
+// while its edges are sorted. NF = F for 1 to 4 table rows an edge, 0 for
+// any F.
+template <int VEC, bool HAS_W, int NF>
+__global__ void __launch_bounds__(MAX_THREADS)
 gin_agg_fwd_kernel(const float* __restrict__ x, const int* __restrict__ src,
                    const int* __restrict__ dst, const bool* __restrict__ emask,
                    const int* __restrict__ attr, const float* __restrict__ tbl,
                    const float* __restrict__ w, const float* __restrict__ scale,
-                   float* __restrict__ out, int Sm, int Em, int F, int V,
-                   int d) {
-  extern __shared__ float smem[];
-  float* xs = smem;                 // [Sm][CT]
-  float* acc = xs + Sm * CT;        // [Sm][CT]
-  float* ts = acc + Sm * CT;        // [V][CT]
-  int* es = reinterpret_cast<int*>(ts + V * CT);  // [Em] src
-  int* ed = es + Em;                // [Em] dst, -1 = masked edge
-  float* ew = reinterpret_cast<float*>(ed + Em);  // [Em] weight
-  int* ea = reinterpret_cast<int*>(ew + Em);      // [F][Em] table rows
+                   float* __restrict__ out, int G, int Sm, int Em, int Fr,
+                   int d, int gpb, int sc) {
+  using VecT = Vec<VEC>;
+  const int F = NF ? NF : Fr;
+  const int R = 1 + F + (HAS_W ? 1 : 0);  // ints a record
+  extern __shared__ int4 smem4[];
+  float* const xbuf = reinterpret_cast<float*>(smem4);  // [Sm][sc]
+  int* const rec = reinterpret_cast<int*>(xbuf + (long)Sm * sc);
+  int* const key = rec + (long)Em * R;  // [Em]; INT_MAX on a masked slot
 
-  const long g = blockIdx.x;
-  const int c0 = blockIdx.y * CT;
-  const int t = threadIdx.x;
-  const bool live = c0 + t < d;
+  const int t = threadIdx.x, T = blockDim.x;
+  const int cl = t * VEC;               // this thread's first column
+  const int c = blockIdx.y * sc + cl;   // and channel
+  const bool own = cl < sc;             // lanes past the slice hold none
+  const bool live = own && c < d;       // VEC divides d: all or none
+  const int cc = live ? c : 0;          // an address for the zero copies
+  const int ccl = own ? cl : 0;         // a column for the discarded loads
+  const long g0 = (long)blockIdx.x * gpb;
+  const long g1 = g0 + gpb < G ? g0 + gpb : (long)G;
+  const float scv = scale ? *scale : 0.f;
+  const float* const tblc = tbl + cc;   // its table column
 
-  strided::stage_fwd_rows(xs, acc, x + g * Sm * d + c0 + t, Sm, d, live, t);
-  for (int v = 0; v < V; ++v) ts[v * CT + t] = live ? tbl[(long)v * d + c0 + t] : 0.f;
-  // The table-row indices in a pass of their own: here (a block stages one
-  // graph) that measured faster than one pass; the backward, which stages
-  // graph after graph, takes them in stage_edges' pass.
-  strided::stage_edges(src, dst, emask, w, g, Em, t, es, ed, ew, [](int) {});
-  for (int e = t; e < Em; e += CT)
-    for (int f = 0; f < F; ++f) ea[f * Em + e] = attr[(g * F + f) * Em + e];
-  __syncthreads();
-  if (!live) return;
+  // graph g's x slice, this thread's channels, into the buffer: one group
+  auto stage_x = [&](long g) {
+    if (own) {
+      const float* xg = x + g * Sm * d + cc;
+      for (int r = 0; r < Sm; ++r)
+        tc::cp_floats<VEC>(xbuf + r * sc + cl, xg + (long)r * d, live);
+    }
+    tc::cp_commit();
+  };
+  stage_x(g0);
 
-  strided::walk_fwd<true, true>(xs, acc, es, ed, ew, Em, t,
-                                TableEmb{ts, ea, Em, F, t});
-  const float sc = scale ? *scale : 0.f;
-  float* og = out + g * Sm * d + c0 + t;
-  for (int s = 0; s < Sm; ++s) {
-    float o = acc[s * CT + t];
-    if (scale) o += sc * xs[s * CT + t];
-    og[(long)s * d] = o;
+  for (long g = g0; g < g1; ++g) {
+    __syncthreads();  // every thread is done with g - 1's records
+
+    // the valid slots' keys, then each one's rank places its record
+    int nv = 0;
+    for (int e0 = 0; e0 < Em; e0 += T) {
+      const int e = e0 + t;
+      bool valid = false;
+      if (e < Em) {
+        const long ge = g * Em + e;
+        valid = emask[ge];
+        key[e] = valid ? dst[ge] * Em + e : 0x7fffffff;
+      }
+      nv += __syncthreads_count(valid);
+    }
+    for (int e = t; e < Em; e += T) {
+      const int k = key[e];
+      if (k == 0x7fffffff) continue;
+      const long ge = g * Em + e;
+      const int sv = src[ge];  // loaded before the rank, used after
+      int av[NF ? NF : 1];
+      if constexpr (NF > 0) {
+#pragma unroll
+        for (int f = 0; f < NF; ++f) av[f] = attr[(g * NF + f) * Em + e];
+      }
+      const float wv = HAS_W ? w[ge] : 0.f;
+      int p = 0;
+#pragma unroll 8
+      for (int j = 0; j < Em; ++j) p += key[j] < k;
+      int* r = rec + (long)p * R;
+      r[0] = (int)((unsigned)sv | (unsigned)(k / Em) << 16);
+      if constexpr (NF > 0) {
+#pragma unroll
+        for (int f = 0; f < NF; ++f) r[1 + f] = av[f];
+      } else {
+        for (int f = 0; f < F; ++f) r[1 + f] = attr[(g * F + f) * Em + e];
+      }
+      if (HAS_W) r[1 + F] = __float_as_int(wv);
+    }
+    __syncthreads();
+    tc::cp_wait_group<0>();  // graph g's x (this thread's own copies)
+
+    const float* const xs = xbuf + ccl;
+    float* const og = out + g * Sm * d + cc;
+    VecT acc = zero_vec<VEC>();
+    int row = 0;
+    auto close_to = [&](int s) {  // write the rows before s
+      for (; row < s; ++row) {
+        VecT o = acc;
+        if (scale) {
+          const VecT xr = load_vec<VEC>(xs + row * sc);
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) o.v[j] += scv * xr.v[j];
+        }
+        if (live) store_vec(og + (long)row * d, o);
+        acc = zero_vec<VEC>();
+      }
+    };
+
+    // the walk. Every lane loads (a lane past the slice at column 0, its
+    // sums discarded), so a warp takes no branch on its lanes.
+    for (int k0 = 0; k0 < nv; k0 += FWD_EU) {
+      VecT ev[FWD_EU], xv[FWD_EU];
+      int du[FWD_EU];
+      float wu[FWD_EU];
+#pragma unroll
+      for (int u = 0; u < FWD_EU; ++u) {
+        const int k = k0 + u < nv ? k0 + u : nv - 1;
+        const int* rk = rec + (long)k * R;
+        const int sd = rk[0];
+        du[u] = (int)((unsigned)sd >> 16);
+        wu[u] = HAS_W ? __int_as_float(rk[1 + F]) : 1.f;
+        ev[u] = load_vec_ro<VEC>(tblc + (long)rk[1] * d);  // the parent's
+        for (int f = 1; f < F; ++f) {                    // order: T[a0] +
+          const VecT q = load_vec_ro<VEC>(tblc + (long)rk[1 + f] * d);
+#pragma unroll                                             // T[a1] + ...
+          for (int j = 0; j < VEC; ++j) ev[u].v[j] += q.v[j];
+        }
+        xv[u] = load_vec<VEC>(xs + (sd & 0xffff) * sc);
+      }
+#pragma unroll
+      for (int u = 0; u < FWD_EU; ++u) {
+        if (k0 + u >= nv) break;
+        close_to(du[u]);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          float m = xv[u].v[j] + ev[u].v[j];
+          m = fmaxf(m, 0.f);
+          if (HAS_W) m *= wu[u];
+          acc.v[j] += m;
+        }
+      }
+    }
+    close_to(Sm);
+    if (g + 1 < g1) stage_x(g + 1);  // its x, after the walk
+  }
+}
+
+// The wrapper's launch (gin_agg.py:fwd_geometry): slices of sc channels
+// covering d once (VEC dividing d and sc), a warp's lanes all in the slice
+// but the last warp's, the shared bytes it names.
+bool fwd_launch_ok(int Sm, int Em, int F, int V, int d, bool has_w, int vec,
+                   int gpb, int slices, int sc, int threads, int smem) {
+  if (!(vec == 1 || vec == 4) || d % vec || sc <= 0 || sc % vec) return false;
+  if (slices < 1 || (long)slices * sc < d || (long)(slices - 1) * sc >= d)
+    return false;
+  const int lanes = sc / vec;
+  if (threads % 32 || threads > MAX_THREADS || lanes > threads ||
+      lanes <= threads - 32)
+    return false;
+  if (gpb < 1 || F < 1 || V < 1 || Sm > 65536 || (long)Sm * Em >= 0x7fffffff)
+    return false;
+  return smem <= SMEM_MAX && smem == fwd_smem(Sm, Em, F, sc, has_w);
+}
+
+struct FwdArgs {
+  const float* x;
+  const int *src, *dst;
+  const bool* emask;
+  const int* attr;
+  const float *tbl, *w, *scale;
+  float* out;
+  int G, Sm, Em, F, d, gpb, slices, sc, threads, smem;
+};
+
+template <int VEC, bool HAS_W, int NF>
+cudaError_t launch_fwd_main(const FwdArgs& A, cudaStream_t stream) {
+  const auto kernel = gin_agg_fwd_kernel<VEC, HAS_W, NF>;
+  static const cudaError_t set = [&] {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
+                                cudaSharedmemCarveoutMaxShared);
+  }();
+  if (set != cudaSuccess) return set;
+  kernel<<<dim3((A.G + A.gpb - 1) / A.gpb, A.slices), A.threads, A.smem,
+           stream>>>(A.x, A.src, A.dst, A.emask, A.attr, A.tbl, A.w, A.scale,
+                     A.out, A.G, A.Sm, A.Em, A.F, A.d, A.gpb, A.sc);
+  return cudaGetLastError();
+}
+
+template <int VEC, bool HAS_W>
+cudaError_t launch_fwd_f(const FwdArgs& A, cudaStream_t stream) {
+  switch (A.F) {
+    case 1: return launch_fwd_main<VEC, HAS_W, 1>(A, stream);
+    case 2: return launch_fwd_main<VEC, HAS_W, 2>(A, stream);
+    case 3: return launch_fwd_main<VEC, HAS_W, 3>(A, stream);
+    case 4: return launch_fwd_main<VEC, HAS_W, 4>(A, stream);
+    default: return launch_fwd_main<VEC, HAS_W, 0>(A, stream);
   }
 }
 
@@ -102,7 +275,6 @@ gin_agg_fwd_kernel(const float* __restrict__ x, const int* __restrict__ src,
 constexpr int BWD_MAX_THREADS = 256;  // threads a block (gin_agg.py)
 constexpr int BWD_MAX_F = 4;          // table rows an edge sums
 constexpr int XRING = 8;              // rows of x in flight in a ring
-constexpr int SMEM_MAX = 232448;      // dynamic shared bytes a block may take
 constexpr int TAIL_THREADS = 256;     // the cross-block sums' block
 constexpr int TAIL_COLS = 32;         // dT columns a tail block adds
 constexpr int TAIL_GROUPS = TAIL_THREADS / TAIL_COLS;
@@ -119,54 +291,6 @@ __host__ __device__ inline long bwd_smem(int Sm, int Em, int F, int V, int sc,
   long words = 8L * Em + (long)(Sm + xr + V) * sc + (long)Em * (F + 4) + 32;
   if (has_w) words += (long)Em * (1 + threads / 32);
   return 4 * words;
-}
-
-template <int VEC>
-struct Vec {
-  float v[VEC];
-};
-
-template <int VEC>
-__device__ __forceinline__ Vec<VEC> zero_vec() {
-  Vec<VEC> r;
-#pragma unroll
-  for (int j = 0; j < VEC; ++j) r.v[j] = 0.f;
-  return r;
-}
-
-// VEC floats at p (aligned to VEC floats), shared or global
-template <int VEC>
-__device__ __forceinline__ Vec<VEC> load_vec(const float* p) {
-  Vec<VEC> r;
-  if constexpr (VEC == 4) {
-    const float4 q = *reinterpret_cast<const float4*>(p);
-    r.v[0] = q.x, r.v[1] = q.y, r.v[2] = q.z, r.v[3] = q.w;
-  } else {
-    r.v[0] = *p;
-  }
-  return r;
-}
-
-// the same from global memory that no kernel writes meanwhile (the bond
-// table), through the read-only cache
-template <int VEC>
-__device__ __forceinline__ Vec<VEC> load_vec_ro(const float* p) {
-  Vec<VEC> r;
-  if constexpr (VEC == 4) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-    r.v[0] = q.x, r.v[1] = q.y, r.v[2] = q.z, r.v[3] = q.w;
-  } else {
-    r.v[0] = __ldg(p);
-  }
-  return r;
-}
-
-template <int VEC>
-__device__ __forceinline__ void store_vec(float* p, const Vec<VEC>& r) {
-  if constexpr (VEC == 4)
-    *reinterpret_cast<float4*>(p) = make_float4(r.v[0], r.v[1], r.v[2], r.v[3]);
-  else
-    *p = r.v[0];
 }
 
 // One block per (chunk of gpb graphs, slice of sc channels); thread t owns
@@ -537,23 +661,30 @@ extern "C" const char* error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Returns cudaGetLastError() after the launch (0 = launched).
+// Returns cudaGetLastError() after the launch (0 = launched). The launch
+// (vec, gpb, slices, sc, threads, smem) is the wrapper's
+// fwd_geometry; one that does not cover (G, d), or whose pointers are not
+// aligned to vec floats, is refused.
 extern "C" int gin_agg_fwd(const float* x, const int* src, const int* dst,
                            const bool* emask, const int* attr,
                            const float* tbl, const float* w,
                            const float* scale, float* out, int G, int Sm,
-                           int Em, int F, int V, int d, cudaStream_t stream) {
-  const size_t smem = (size_t)(2 * Sm + V) * CT * sizeof(float) +
-                      (size_t)Em * (3 + F) * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      gin_agg_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(G, (d + CT - 1) / CT);
-  gin_agg_fwd_kernel<<<grid, CT, smem, stream>>>(x, src, dst, emask, attr,
-                                                 tbl, w, scale, out, Sm, Em,
-                                                 F, V, d);
-  return cudaGetLastError();
+                           int Em, int F, int V, int d, int vec, int gpb,
+                           int slices, int sc, int threads, int smem,
+                           cudaStream_t stream) {
+  if (G <= 0 || Sm <= 0 || Em < 0 || d <= 0 ||
+      !fwd_launch_ok(Sm, Em, F, V, d, w != nullptr, vec, gpb, slices, sc,
+                     threads, smem))
+    return cudaErrorInvalidValue;
+  const unsigned long align = 4ul * vec;
+  if (((unsigned long)x | (unsigned long)tbl | (unsigned long)out) % align)
+    return cudaErrorInvalidValue;
+  const FwdArgs A{x,  src, dst, emask, attr,   tbl, w,       scale, out, G,
+                  Sm, Em,  F,   d,     gpb,    slices, sc, threads, smem};
+  return vec == 4 ? (w ? launch_fwd_f<4, true>(A, stream)
+                       : launch_fwd_f<4, false>(A, stream))
+                  : (w ? launch_fwd_f<1, true>(A, stream)
+                       : launch_fwd_f<1, false>(A, stream));
 }
 
 // The backward: the main kernel, then the cross-block sums. Scratch

@@ -1,5 +1,5 @@
-// The strided-layout message sum shared by K1's forward (gin_agg.cu) and K6
-// (dense_agg.cu; K1's backward has its own body there):
+// The strided-layout message sum of K6 (dense_agg.cu; K1's forward and
+// backward have their own bodies in gin_agg.cu since PRs 16 and 15):
 //
 //   out[g,s,c] = sum_{e: mask[g,e], dst[g,e]=s}
 //                w[g,e] * relu(x[g,src[g,e],c] + emb_e[c])
@@ -10,9 +10,8 @@
 // each thread walks the edges in order, adding into its own column, so no
 // cell has two writers and every sum has a fixed order. The kernels differ
 // only in how an edge's embedding is made (policy Emb: emb(e) is channel t
-// of edge e's embedding; K1 sums table rows in shared memory, K6 loads
-// emb), fetched a few edges ahead of their adds; a masked slot fetches
-// nothing.
+// of edge e's embedding; K6 loads emb), fetched a few edges ahead of their
+// adds; a masked slot fetches nothing.
 // dw (a sum over channels) is reduced across the block's warps per edge,
 // written per channel slice, and the slices summed in order by sum_rows.
 

@@ -95,3 +95,9 @@ def check(lib: ctypes.CDLL, err: int, what: str):
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}: "
                            f"{lib.error_string(err).decode()}")
+
+
+def align(*tensors) -> int:
+    """The widest vector, in floats, that every tensor's address allows:
+    4 where all are 16-byte aligned, else 1."""
+    return 4 if all(t.data_ptr() % 16 == 0 for t in tensors) else 1

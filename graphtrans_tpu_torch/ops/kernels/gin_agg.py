@@ -21,18 +21,30 @@ What bounds it on the H100: memory. The forward must read x and write out
 (2*G*Sm*d*4 bytes, ~315 MB for 4097 graphs of stride 32 at d=300), the
 backward read x and gout and write dx (~472 MB), each doing a few flops per
 valid edge and channel, against the card's ~20 f32 flops per byte of
-bandwidth. Forward (``csrc/gin_agg.cu``): a block owns a 128-channel slice
-of one graph; the graph's x slice, an accumulator and the 13-row bond
-table sit in shared memory, the edge lists are staged once, and each
-thread owns one channel and walks the edges in order. No two threads write
-one cell, so there are no atomics and every sum has a fixed order.
+bandwidth.
 
-Backward: the grid is sized to the card (``bwd_geometry``): at the
-throughput batch a block covers all of d for a chunk of graphs, a few
-hundred blocks, one wave; at a small batch the channels are split into
-slices so that every SM gets a block. A thread owns ``vec`` neighbouring
+Both directions take a grid sized to the card, by one set of rules
+(``fwd_geometry``, ``bwd_geometry``): at the throughput batch a block
+covers all of d for a chunk of graphs, a few hundred blocks, one wave; at
+a small batch, or where a block's shared memory could not hold a graph,
+the channels are split into slices. A thread owns ``vec`` neighbouring
 channels (16-byte copies and loads where d % 4 == 0, so d=300 leaves 21
-of 96 lanes idle, not a third of each 128-channel slice). A graph's gout
+of 96 lanes idle, not a third of each 128-channel slice).
+
+Forward (``csrc/gin_agg.cu``): a graph's x slice lands in shared memory by
+``cp.async``; where a block walks a chunk of graphs, the next graph's x is
+issued when the walk ends and lands while that graph's edges are sorted
+(a second buffer, so that it lands during the walk, would leave two blocks
+an SM instead of five at the bench batch, and measured slower: PERF.md
+§6). Its valid edges
+are sorted by (dst, slot) in shared memory once for all of d (masked slots
+dropped), so each output row is summed in registers, its edges in slot
+order as the parent design added them into a shared accumulator, and
+written once with ``scale*x`` added: the parent's bits. The bond table's
+rows come through the read-only cache, each edge's T[a0] + T[a1] + ... in
+``TableEmb``'s order.
+
+Backward: a graph's gout
 rows land by ``cp.async``, and its x with them where a block walks one
 graph; where it walks a chunk, x streams through a ring of a few rows
 ahead of the walk, so three blocks share an SM at the bench batch (x
@@ -58,11 +70,10 @@ import torch
 
 from . import _build
 
-_CT = 128  # channels a forward block (csrc/gin_agg.cu)
 _SMEM_MAX = 232448  # bytes of shared memory a block can use on Hopper
 SM_SHARED = 228 * 1024  # shared memory of an SM; a block reserves 1 KB more
 SMS = 132  # SMs of the H100 SXM, where the card cannot be asked
-BWD_MAX_THREADS = 256  # threads a backward block (csrc/gin_agg.cu)
+BWD_MAX_THREADS = 256  # threads a block, forward or backward (csrc/gin_agg.cu)
 BWD_MAX_F = 4  # table rows an edge sums in the backward
 MIN_SLICE_LANES = 8  # lanes a channel slice keeps when the grid is split
 
@@ -116,19 +127,20 @@ def _check(x, src, dst, emask, attr, tbl, w, scale, gout=None):
         want.append((scale, torch.float32, (1,)))
     if gout is not None:
         want.append((gout, torch.float32, (G, Sm, d)))
-    for t, dtype, shape in want:
-        if t.device != x.device:
-            raise ValueError(f"gin_agg: tensors on {t.device} and {x.device}")
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"gin_agg: expected {dtype} {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError("gin_agg: inputs must be contiguous")
-    V = tbl.shape[0]
-    smem = (2 * Sm + V) * _CT * 4 + Em * (3 + F) * 4
-    if smem > _SMEM_MAX:
-        raise ValueError(f"gin_agg: stride {Sm} and {Em} edge slots need "
-                         f"{smem} bytes of shared memory (max {_SMEM_MAX})")
+    dev = x.device
+    for t, dtype, shape in want:   # one test a tensor: at serve64 the
+        if (t.dtype != dtype or t.shape != shape or t.device != dev
+                or not t.is_contiguous()):   # host paces the calls
+            _refuse(t, dtype, shape, dev)
+
+
+def _refuse(t, dtype, shape, dev):
+    if t.device != dev:
+        raise ValueError(f"gin_agg: tensors on {t.device} and {dev}")
+    if t.dtype != dtype or tuple(t.shape) != shape:
+        raise ValueError(f"gin_agg: expected {dtype} {shape}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    raise ValueError("gin_agg: inputs must be contiguous")
 
 
 XRING = 8  # rows of x in flight in a backward block's ring (csrc/gin_agg.cu)
@@ -177,6 +189,48 @@ def _round(n: int, k: int) -> int:
     return -(-n // k) * k
 
 
+def _slices(G: int, d: int, sms: int, align: int, smem_of, what: str):
+    """The rules K1's forward and backward launches share: (vec, lanes a
+    slice, slices, threads). A thread takes ``vec`` channels: 4 where d
+    and the addresses (``align`` floats) allow, else 1. The channels split
+    into slices only where the graphs alone would leave SMs without a
+    block (a slice keeps at least MIN_SLICE_LANES lanes: at d 40 one slice
+    of 10 lanes), or where a block's shared bytes ``smem_of(channels,
+    threads)`` pass its limit; a slice is a whole number of warps, its
+    last warp maybe part idle."""
+    vec = 4 if d % 4 == 0 and align % 4 == 0 else 1
+    lanes = -(-d // vec)
+    per = -(-lanes // max(1, min(-(-sms // G), lanes // MIN_SLICE_LANES)))
+    while True:   # lanes a slice
+        slices = -(-lanes // per)
+        threads = _round(per, 32)
+        if (threads <= BWD_MAX_THREADS
+                and smem_of(per * vec, threads) <= _SMEM_MAX):
+            return vec, per, slices, threads
+        if per == 1:
+            raise ValueError(f"{what} need more than {_SMEM_MAX} bytes of "
+                             f"shared memory")
+        per = min(per - 1, -(-lanes // (slices + 1)))
+
+
+def _per_sm(smem: int) -> int:
+    """Blocks of ``smem`` shared bytes that an SM holds at once."""
+    return SM_SHARED // (smem + 1024)
+
+
+def _one_wave(G: int, slices: int, smem: int, sms: int) -> bool:
+    """Whether a block for each graph and slice fits the card at once."""
+    return smem <= _SMEM_MAX and G * slices <= sms * _per_sm(smem)
+
+
+def _chunks(G: int, slices: int, smem: int, sms: int):
+    """(graphs a block, blocks along the graphs): as many blocks as the
+    shared memory lets the card hold take every graph in one wave."""
+    chunks = max(1, min(G, sms * _per_sm(smem) // slices))
+    gpb = -(-G // chunks)
+    return gpb, -(-G // gpb)
+
+
 @functools.lru_cache(maxsize=None)
 def bwd_geometry(G: int, Sm: int, Em: int, F: int, V: int, d: int,
                  has_w: bool, sms: int = SMS, align: int = 4) -> BwdGeometry:
@@ -184,55 +238,98 @@ def bwd_geometry(G: int, Sm: int, Em: int, F: int, V: int, d: int,
     table rows an edge, at width d, on a card of ``sms`` SMs; ``align`` is
     the widest vector (in floats) that the tensors' addresses allow.
 
-    A thread takes ``vec`` channels: 4 where d and the addresses allow,
-    else 1. The channels split into slices only where the graphs
-    alone would leave SMs without a block (a slice keeps at least
-    MIN_SLICE_LANES lanes: at d 40 one slice of 10 lanes), or where one
-    block's shared memory could not hold a graph; a slice is a whole
-    number of warps, its last warp maybe part idle. Where a block of each
-    graph (and slice) fits the card at once, a block walks one graph and
-    holds its x whole; else x streams through a ring of XRING rows, and the
-    graphs a block are chosen so that as many blocks as the shared memory
-    lets an SM hold take every graph in one wave."""
+    Vector width and channel slices by ``_slices`` (with x as a ring of
+    XRING rows). Where a block of each graph (and slice) fits the card at
+    once, a block walks one graph and holds its x whole; else x streams
+    through a ring of XRING rows, and the graphs a block are chosen so
+    that as many blocks as the shared memory lets an SM hold take every
+    graph in one wave."""
     if not 1 <= F <= BWD_MAX_F:
         raise ValueError(f"gin_agg_bwd: {F} table rows an edge (1 to "
                          f"{BWD_MAX_F})")
-    vec = 4 if d % 4 == 0 and align % 4 == 0 else 1
-    lanes = -(-d // vec)
-    per = -(-lanes // max(1, min(-(-sms // G), lanes // MIN_SLICE_LANES)))
     ring = min(XRING, Sm)
-    while True:   # lanes a slice
-        slices = -(-lanes // per)
-        threads = _round(per, 32)
-        smem = bwd_smem(Sm, Em, F, V, per * vec, threads, has_w, ring)
-        if threads <= BWD_MAX_THREADS and smem <= _SMEM_MAX:
-            break
-        if per == 1:
-            raise ValueError(f"gin_agg_bwd: stride {Sm} and {Em} edge slots "
-                             f"need more than {_SMEM_MAX} bytes of shared "
-                             f"memory")
-        per = min(per - 1, -(-lanes // (slices + 1)))
+    vec, per, slices, threads = _slices(
+        G, d, sms, align,
+        lambda ch, th: bwd_smem(Sm, Em, F, V, ch, th, has_w, ring),
+        f"gin_agg_bwd: stride {Sm} and {Em} edge slots")
+    smem, xrows = bwd_smem(Sm, Em, F, V, per * vec, threads, has_w, ring), ring
     whole = bwd_smem(Sm, Em, F, V, per * vec, threads, has_w, Sm)
-    xrows = ring
-    if whole <= _SMEM_MAX and G * slices <= sms * (SM_SHARED // (whole + 1024)):
+    if _one_wave(G, slices, whole, sms):
         smem, xrows = whole, Sm
-    chunks = max(1, min(G, sms * (SM_SHARED // (smem + 1024)) // slices))
-    gpb = -(-G // chunks)
-    return BwdGeometry(vec, gpb, -(-G // gpb), slices, per * vec, threads,
-                       smem, xrows)
+    gpb, chunks = _chunks(G, slices, smem, sms)
+    return BwdGeometry(vec, gpb, chunks, slices, per * vec, threads, smem,
+                       xrows)
 
 
-def _align(*tensors) -> int:
-    """4 where every address is 16-byte aligned, else 1 (floats)."""
-    return 4 if all(t.data_ptr() % 16 == 0 for t in tensors) else 1
+def fwd_smem(Sm: int, Em: int, F: int, channels: int, has_w: bool) -> int:
+    """Shared bytes of a K1 forward block (``csrc/gin_agg.cu:fwd_smem``):
+    one graph's x slice, and per edge slot its sort key and its sorted
+    record (src and dst in one word, the F table rows, with w the
+    weight)."""
+    return 4 * (Sm * channels + Em * (2 + F + int(has_w)))
+
+
+@dataclass(frozen=True)
+class FwdGeometry:
+    """One launch of K1's forward: ``vec`` neighbouring channels a thread,
+    ``gpb`` graphs a block (``chunks`` blocks along the graphs),
+    ``slices`` channel slices of ``channels`` each (``grid`` = (chunks,
+    slices)), ``threads`` a block and its dynamic shared bytes. ``args``
+    are the ints the C entry checks and launches."""
+    vec: int
+    gpb: int
+    chunks: int
+    slices: int
+    channels: int
+    threads: int
+    smem: int
+
+    @property
+    def grid(self) -> tuple:
+        return (self.chunks, self.slices)
+
+    def args(self) -> tuple:
+        return (self.vec, self.gpb, self.slices, self.channels, self.threads,
+                self.smem)
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_geometry(G: int, Sm: int, Em: int, F: int, V: int, d: int,
+                 has_w: bool, sms: int = SMS, align: int = 4) -> FwdGeometry:
+    """K1's forward launch, the arguments as ``bwd_geometry``'s. Vector
+    width and channel slices by ``_slices``. Where a block of each graph
+    (and slice) fits the card at once, a block walks one graph; else it
+    walks a chunk of graphs (as many blocks as the shared memory lets an
+    SM hold, one wave). Every shape that fits one lane's channels takes a
+    launch: stride 128 at d 300 splits no channel."""
+    if F < 1:
+        raise ValueError(f"gin_agg: {F} table rows an edge (at least 1)")
+    if Sm > 65536 or Sm * Em >= 2**31 - 1:
+        raise ValueError(f"gin_agg: stride {Sm} and {Em} edge slots do not "
+                         f"fit a sort key (stride at most 65536)")
+    vec, per, slices, threads = _slices(
+        G, d, sms, align, lambda ch, th: fwd_smem(Sm, Em, F, ch, has_w),
+        f"gin_agg: stride {Sm} and {Em} edge slots")
+    smem = fwd_smem(Sm, Em, F, per * vec, has_w)
+    gpb, chunks = _chunks(G, slices, smem, sms)
+    return FwdGeometry(vec, gpb, chunks, slices, per * vec, threads, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _sms(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    """The card's SMs, asked once a card: at serve64 the host's work a call
+    paces the calls (PERF.md §6)."""
+    return _sms_of(device.index if device.index is not None
+                   else torch.cuda.current_device())
 
 
 def _ptr(t: Optional[torch.Tensor]):
-    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+    """A tensor's address for a ``c_void_p`` argument (None: NULL)."""
+    return t.data_ptr() if t is not None else None
 
 
 def _stream(t: torch.Tensor):
@@ -244,11 +341,14 @@ def _launch_fwd(x, src, dst, emask, attr, tbl, w, scale):
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
+    Em, F, V = src.shape[1], attr.shape[1], tbl.shape[0]
+    geo = fwd_geometry(G, Sm, Em, F, V, d, w is not None, _sms(x.device),
+                       _build.align(x, tbl, out))
     lib = _load()
     err = lib.gin_agg_fwd(
         _ptr(x), _ptr(src), _ptr(dst), _ptr(emask), _ptr(attr), _ptr(tbl),
-        _ptr(w), _ptr(scale), _ptr(out), G, Sm, src.shape[1], attr.shape[1],
-        tbl.shape[0], d, _stream(x))
+        _ptr(w), _ptr(scale), _ptr(out), G, Sm, Em, F, V, d, *geo.args(),
+        _stream(x))
     _build.check(lib, err, "gin_agg_fwd")
     gin_agg.launches += 1
     return out
@@ -316,7 +416,7 @@ def gin_agg_bwd(x, src, dst, emask, attr, tbl, w, scale, gout):
             dscale.zero_()
         return dx, dtbl, dw, dscale
     geo = bwd_geometry(G, Sm, Em, F, V, d, w is not None, _sms(x.device),
-                       _align(x, gout, tbl))
+                       _build.align(x, gout, tbl))
     dtbl_part = new(geo.chunks, V, d)
     dw_part = new(geo.slices, G, Em) if w is not None and geo.slices > 1 \
         else None
@@ -338,8 +438,8 @@ gin_agg_bwd.launches = 0
 def _load():
     lib = _build.load("gin_agg")
     if lib.gin_agg_fwd.argtypes is None:
-        lib.gin_agg_fwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-                                    + [ctypes.c_void_p])
+        lib.gin_agg_fwd.argtypes = ([ctypes.c_void_p] * 9
+                                    + [ctypes.c_int] * 12 + [ctypes.c_void_p])
         lib.gin_agg_fwd.restype = ctypes.c_int
         lib.gin_agg_bwd.argtypes = ([ctypes.c_void_p] * 16
                                     + [ctypes.c_int] * 13 + [ctypes.c_void_p])

@@ -38,19 +38,30 @@ over channels, accumulators in registers; each output row has one writer,
 so there are no atomics and the sum has a fixed order. A lane loads the src
 and weight of 8 edges at once and edges of weight 0 (the padding tail) are
 skipped 32 at a time by a ballot, so the padding node's long edge list
-(some 25k edges at 512 graphs) costs a few dozen load steps. Backward, one
-warp per source row over the edges in src-major order (``SrcOrder``: a
-stable device sort of the valid edges by src and a ``searchsorted`` row
-pointer; ``src_order(batch)`` keeps one on the batch, so every layer shares
-it), x's row and dx's accumulators in registers, reading the g row of each
-edge's dst and writing its d_emb row; masked
-edges are in no row, and separate warps write their zero d_emb rows 32
-slots at a time. One writer per output cell, a fixed order, no atomics.
+(some 25k edges at 512 graphs) costs a few dozen load steps.
+
+Backward: the valid edges in src-major order (``SrcOrder``: a stable
+device sort of the valid edges by src and a ``searchsorted`` row pointer;
+``src_order(batch)`` keeps one on the batch, so every layer shares it) are
+cut into runs of whole source rows (``edge_runs``: about ``RUN_COST`` units
+of work a run, an edge ``EDGE_COST``, a row one; code2's rows hold a few
+edges each, so a run holds some 8 edges and 3 rows). A warp walks a run: its lanes load the src, dst and weight of 32 edges at once, then it
+issues the g, emb and x rows of 2-4 edges together (16-byte loads where d
+and the addresses allow, ``bwd_launch``) before it adds any, so many edges'
+rows are in flight a warp rather than one; it writes each edge's d_emb
+row, sums dx of the current row in registers in perm order and writes each
+row's dx once (a row with no edge gets zeros). Masked edges are in no row,
+and separate warps write their zero d_emb rows, 16 bytes a lane. The
+kernel folds the mask and ``edge_weight`` itself, so the wrapper launches
+nothing before it (at code2's train batch of 16 back-to-back calls are
+paced by the host). One writer per output cell, the parent design's order
+of terms (the same bits), no atomics.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -90,17 +101,46 @@ def spmm_bwd_plain(x, emb, src, dst, emask, g, edge_weight=None,
         return torch.autograd.grad(out, (xl, el), g)
 
 
+RUN_COST = 32  # units of work a backward run (a row 1, an edge EDGE_COST)
+EDGE_COST = 3  # an edge's rows (g, emb, d_emb) against a row's dx
+
+
+def edge_runs(sptr: torch.Tensor, num_edges: int) -> torch.Tensor:
+    """Cuts the source rows [0, N) into the runs K7's backward walks, a warp
+    each: ``rptr`` int32 [nruns + 1], run r the rows [rptr[r], rptr[r+1]).
+    A row costs 1 and each of its edges EDGE_COST; run r takes the rows
+    whose cost before them (``EDGE_COST * sptr[s] + s``) lies in [r, r+1) *
+    RUN_COST, so no row is split and a run is about RUN_COST long, more
+    where one row alone is longer. ``nruns`` follows from ``num_edges``
+    (the edge slots, at least the valid edges), so it is known on the
+    host; the runs past the valid edges' cost are empty. RUN_COST 32 beat
+    16, 64 and 128 on the H100 (PERF.md §6)."""
+    return _edge_runs(sptr, num_edges, RUN_COST)
+
+
+def _edge_runs(sptr: torch.Tensor, num_edges: int,
+               run_cost: int) -> torch.Tensor:
+    N = sptr.shape[0] - 1
+    cost = torch.arange(N, dtype=torch.long, device=sptr.device).add_(
+        sptr[:N], alpha=EDGE_COST)
+    nruns = max(1, -(-(EDGE_COST * num_edges + N) // run_cost))
+    bounds = torch.arange(0, (nruns + 1) * run_cost, run_cost,
+                          dtype=torch.long, device=sptr.device)
+    return torch.searchsorted(cost, bounds, out_int32=True)
+
+
 class SrcOrder:
     """The src-major edge order K7's backward walks: ``perm`` [E] lists the
     valid edges of each source row s at ``[sptr[s], sptr[s+1])`` in their
     batch order (a stable sort; masked edges sort past row N-1 and are in
-    no row). Computed on the device at first use, then shared: one per
-    batch serves every layer."""
+    no row), and ``runs()`` the rows cut into runs (``edge_runs``).
+    Computed on the device at first use, then shared: one per batch serves
+    every layer."""
 
     def __init__(self, src: torch.Tensor, emask: torch.Tensor,
                  num_nodes: int):
         self.src, self.emask, self.num_nodes = src, emask, num_nodes
-        self._order = None
+        self._order = self._runs = None
 
     def get(self):
         if self._order is None:
@@ -112,6 +152,11 @@ class SrcOrder:
                                    device=skey.device), out_int32=True)
             self._order = (perm.to(torch.int32), sptr)
         return self._order
+
+    def runs(self) -> torch.Tensor:
+        if self._runs is None:
+            self._runs = edge_runs(self.get()[1], self.src.shape[0])
+        return self._runs
 
 
 def src_order(batch) -> SrcOrder:
@@ -165,6 +210,23 @@ def _launch_fwd(x, emb, src, dst, w, message):
     _build.check(lib, err, "spmm_fwd")
     spmm.launches += 1
     return out
+
+
+BWD_MAX_VPL = 4  # loads a lane a row in the backward (csrc/spmm.cu)
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_launch(d: int, align: int = 4):
+    """K7-bwd's (vec, vpl, slices) at width d: ``vec`` floats a load (4
+    where d and the addresses, ``align`` floats, allow; else 1), ``vpl``
+    loads a lane a row, so a warp covers 32 * vec * vpl channels, and
+    ``slices`` such warps' widths (grid y) to cover d: one slice up to
+    d 512 with vec 4."""
+    vec = 4 if d % 4 == 0 and align % 4 == 0 else 1
+    lanes = -(-d // vec)
+    slices = -(-lanes // (32 * BWD_MAX_VPL))
+    vpl = -(-lanes // (32 * slices))
+    return vec, vpl, slices
 
 
 def _stream(t: torch.Tensor):
@@ -232,7 +294,13 @@ def spmm_bwd(x: torch.Tensor, emb: torch.Tensor, src: torch.Tensor,
     """K7 backward: (dx [N, d], d_emb [E, d]) for the cotangent ``g`` of
     ``spmm(x, emb, src, dst, emask, edge_weight, message)``; the kernel
     walks ``order``, the ``SrcOrder`` of these edges. CPU tensors take
-    ``spmm_bwd_plain``; CUDA tensors launch the kernel or raise."""
+    ``spmm_bwd_plain``; CUDA tensors launch the kernel or raise. An
+    ``order`` of another node or edge count raises on either: the kernel
+    writes the dx rows of ``order``'s nodes only."""
+    if order.num_nodes != x.shape[0] or order.src.shape[0] != src.shape[0]:
+        raise ValueError(f"spmm_bwd: order is of {order.num_nodes} nodes and "
+                         f"{order.src.shape[0]} edges, the call of "
+                         f"{x.shape[0]} and {src.shape[0]}")
     if x.device.type == "cpu":
         return spmm_bwd_plain(x, emb, src, dst, emask, g, edge_weight,
                               message)
@@ -245,12 +313,16 @@ def spmm_bwd(x: torch.Tensor, emb: torch.Tensor, src: torch.Tensor,
     if N == 0 or d == 0:
         return dx, demb
     perm, sptr = order.get()
-    w = _folded_weight(emask, edge_weight)
+    rptr = order.runs()
+    vec, vpl, slices = bwd_launch(d, _build.align(x, emb, g))  # dx, demb: new
     lib = _load()
-    err = lib.spmm_bwd(
-        *(ctypes.c_void_p(t.data_ptr())
-          for t in (x, emb, dst, perm, sptr, w, g, dx, demb)),
-        N, E, d, int(message == "relu_add"), _stream(x))
+    err = lib.spmm_bwd(     # ints: ctypes makes each a c_void_p; the kernel
+        *(t.data_ptr()      # folds emask * edge_weight itself
+          for t in (x, emb, src, dst, perm, sptr, rptr, emask)),
+        edge_weight.data_ptr() if edge_weight is not None else None,
+        *(t.data_ptr() for t in (g, dx, demb)),
+        N, E, d, rptr.shape[0] - 1, int(message == "relu_add"), vec, vpl,
+        slices, _stream(x))
     _build.check(lib, err, "spmm_bwd")
     spmm_bwd.launches += 1
     return dx, demb
@@ -265,7 +337,7 @@ def _load():
         lib.spmm_fwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
                                  + [ctypes.c_void_p])
         lib.spmm_fwd.restype = ctypes.c_int
-        lib.spmm_bwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+        lib.spmm_bwd.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
                                  + [ctypes.c_void_p])
         lib.spmm_bwd.restype = ctypes.c_int
     return lib

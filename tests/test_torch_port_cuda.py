@@ -7,6 +7,7 @@ and no JAX (``--noconftest`` skips tests/conftest.py, which imports JAX):
 """
 
 import argparse
+import dataclasses
 import functools
 import importlib
 
@@ -90,6 +91,94 @@ def _k1_batch(G):
                               min_nodes=1, max_nodes=Sm, seed=G)
     return collate(graphs, G, G * Sm, G * Em, num_tasks=4, y_dtype="float32",
                    node_stride=Sm, dense_edge_cap=Em)
+
+
+@functools.lru_cache(maxsize=None)
+def _k1_fwd_batch(G, Sm):
+    """G graph slots of stride Sm and 3 Sm edge slots (the last two padding
+    where G > 2): molecules of 1 node up, so graphs with no edges share
+    chunks with full ones, and one graph (slot 1) whose slots are all
+    masked where G > 1."""
+    graphs = make_mol_dataset(num_graphs=max(1, G - 2), num_tasks=4,
+                              min_nodes=1, max_nodes=Sm, seed=G + Sm)
+    b = collate(graphs, G, G * Sm, G * 3 * Sm, num_tasks=4,
+                y_dtype="float32", node_stride=Sm, dense_edge_cap=3 * Sm)
+    if G > 1:
+        mask = b.edge_mask_dense.copy()
+        mask[1] = False
+        b = dataclasses.replace(b, edge_mask_dense=mask)
+    return b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 64, 4097])
+@pytest.mark.parametrize("Sm", [32, 48, 128])
+@pytest.mark.parametrize("d", [40, 128, 256, 300])
+def test_gin_agg_fwd_kernel_matches_plain(cuda, G, Sm, d):
+    """K1's forward against the plain version (K1_TOL) with and without w
+    and scale, at one graph, 64 and the bench batch's 4097, strides 32, 48
+    and 128: graphs with no edges and one whose slots are all masked, the
+    launch fwd_geometry picks (channels split at 1 and 64 graphs); the same
+    bits on two runs; padding node rows scale*x (0 without a scale)."""
+    from graphtrans_tpu_torch.ops.kernels.gin_agg import fwd_geometry
+
+    b = _k1_fwd_batch(G, Sm).to(cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    geo = fwd_geometry(G, Sm, 3 * Sm, 3, sum(BOND_FEATURE_DIMS), d, False,
+                       sms)
+    assert (geo.slices > 1) == (G < 100 and d >= 64)
+    for with_w, with_scale in ((False, True), (True, False), (True, True),
+                               (False, False)):
+        args = _k1_args(b, d, with_w, with_scale, cuda)
+        before = gin_agg.launches
+        got, again = gin_agg(*args), gin_agg(*args)
+        torch.cuda.synchronize()
+        assert gin_agg.launches == before + 2
+        assert torch.equal(got, again)
+        assert (got - gin_agg_plain(*args)).abs().max().item() <= K1_TOL
+        pad = ~b.node_mask.reshape(G, Sm)
+        want = args[0][pad] * (args[7].item() if with_scale else 0.0)
+        assert torch.allclose(got[pad], want, rtol=0, atol=K1_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [65, 4097])
+@pytest.mark.parametrize("d", [42, 300])
+def test_gin_agg_fwd_launches_agree(cuda, G, d, monkeypatch):
+    """The same work under each launch: fwd_geometry's, the one it picks
+    for a card of 16 SMs (other chunks of graphs and channel slices), and
+    (d % 4 == 0) copies one float off 16-byte alignment (one channel a
+    thread): each within K1_TOL of the plain version, all with the same
+    bits (a row's terms have one order under every launch)."""
+    k1 = importlib.import_module("graphtrans_tpu_torch.ops.kernels.gin_agg")
+    fwd_geometry = k1.fwd_geometry
+    b = _k1_batch(G).to(cuda)
+    args = _k1_args(b, d, True, True, cuda)
+    want = gin_agg_plain(*args)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    shape = (G, b.node_stride, args[1].shape[1], args[4].shape[1],
+             args[5].shape[0], d, True)
+    outs = [gin_agg(*args)]
+    assert fwd_geometry(*shape, 16) != fwd_geometry(*shape, sms)
+    with monkeypatch.context() as m:
+        m.setattr(k1, "_sms", lambda device: 16)
+        outs.append(gin_agg(*args))
+
+    def shifted(t):     # a contiguous copy whose address is 4 bytes off
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    off = list(args)
+    off[0], off[5] = shifted(args[0]), shifted(args[5])
+    assert fwd_geometry(*shape, sms, align=1).vec == 1
+    outs.append(gin_agg(*off))
+    torch.cuda.synchronize()
+    assert len(outs) == 3
+    for got in outs:
+        assert (got - want).abs().max().item() <= K1_TOL
+        assert torch.equal(got, outs[0])
 
 
 @pytest.mark.cuda
@@ -726,6 +815,69 @@ def test_spmm_bwd_kernel_matches_plain(cuda, d, message, weighted):
         assert (a - b).abs().max().item() <= GRAD_TOL * max(
             1.0, b.abs().max().item())
     assert not got[1][~mask].any()
+
+
+def _k7_hub_case(d, cuda, N=3000, E=12000, n_valid=9000):
+    """_k7_case's edges with a hub (source row 7 holds 3000 valid edges),
+    zero weights inside rows (every fifth edge of row 11, all of row 12),
+    a masked edge mid-list, source rows N-600 .. N-2 with no edge, and a
+    masked padding tail."""
+    gen = torch.Generator().manual_seed(d + 1)
+    dst = torch.sort(torch.randint(0, N - 500, (n_valid,), generator=gen))[0]
+    src = torch.randint(0, N - 600, (n_valid,), generator=gen)
+    src[torch.randperm(n_valid, generator=gen)[:3000]] = 7
+    pad = torch.full((E - n_valid,), N - 1)
+    dst, src = torch.cat([dst, pad]), torch.cat([src, pad])
+    mask = torch.arange(E) < n_valid
+    mask[5] = False
+    w = torch.rand(E, generator=gen) + 0.1
+    w[torch.nonzero(src == 11).flatten()[::5]] = 0.0
+    w[src == 12] = 0.0
+    return [t.to(cuda) for t in (
+        torch.randn(N, d, generator=gen), torch.randn(E, d, generator=gen),
+        src.int(), dst.int(), mask, w)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 128, 300, 512])
+@pytest.mark.parametrize("message", ["relu_add", "add"])
+def test_spmm_bwd_runs_match_plain(cuda, d, message):
+    """K7-bwd's walk over runs of whole source rows against autograd
+    through the plain version (5e-4 of max(1, max|ref|)): rows with no
+    edge (dx exactly 0), a row of 3000 edges, zero weights inside a row
+    and a whole row of them, masked edges (d_emb rows exactly 0); the
+    same bits on two runs, and on copies one float off 16-byte alignment
+    (one float a load)."""
+    from graphtrans_tpu_torch.ops.kernels import (SrcOrder, spmm_bwd,
+                                                  spmm_bwd_plain)
+
+    x, emb, src, dst, mask, w = _k7_hub_case(d, cuda)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(d)
+                    ).to(cuda)
+    order = SrcOrder(src, mask, x.shape[0])
+    before = spmm_bwd.launches
+    got = spmm_bwd(x, emb, src, dst, mask, g, order, w, message)
+    again = spmm_bwd(x, emb, src, dst, mask, g, order, w, message)
+    torch.cuda.synchronize()
+    assert spmm_bwd.launches == before + 2
+    want = spmm_bwd_plain(x, emb, src, dst, mask, g, w, message)
+    for a, b, c in zip(got, want, again):
+        assert (a - b).abs().max().item() <= GRAD_TOL * max(
+            1.0, b.abs().max().item())
+        assert torch.equal(a, c)
+    assert not got[1][~mask].any() and not got[1][w == 0].any()
+    assert not got[0][x.shape[0] - 600:x.shape[0] - 1].any()
+
+    def shifted(t):     # a contiguous copy whose address is 4 bytes off
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    off = spmm_bwd(shifted(x), shifted(emb), src, dst, mask, shifted(g),
+                   order, w, message)
+    for a, c in zip(got, off):
+        assert torch.equal(a, c)
 
 
 @pytest.fixture

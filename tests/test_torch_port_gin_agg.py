@@ -348,8 +348,8 @@ def _c_params(entry: str) -> int:
 
 def test_ctypes_signatures_match_the_c_entries(monkeypatch):
     """The argtypes that gin_agg.py sets have as many entries as K1's C
-    entries have parameters, and the launch's seven ints follow the
-    tensors' shape."""
+    entries have parameters, and each launch's ints (six forward, seven
+    backward) follow the tensors' shape."""
     from graphtrans_tpu_torch.ops.kernels import _build
 
     monkeypatch.setattr(_build, "load", lambda name: types.SimpleNamespace(
@@ -359,3 +359,189 @@ def test_ctypes_signatures_match_the_c_entries(monkeypatch):
     for entry in ("gin_agg_fwd", "gin_agg_bwd"):
         assert len(getattr(lib, entry).argtypes) == _c_params(entry), entry
     assert len(k1.bwd_geometry(9, 48, 144, 3, 13, 300, True).args()) == 7
+    assert len(k1.fwd_geometry(9, 48, 144, 3, 13, 300, True).args()) == 6
+
+
+# ---- K1's forward launch and walk (csrc/gin_agg.cu), on the CPU -----------
+
+
+def _parent_accepts(Sm, Em, F, V):
+    """The shared bytes the earlier forward kernel needed (its wrapper's
+    check): x, an accumulator and the table in 128-channel slices, and the
+    staged edge lists."""
+    return (2 * Sm + V) * 128 * 4 + Em * (3 + F) * 4 <= SMEM_MAX
+
+
+def _covers(geo, G, d):
+    """Every channel in one lane of one slice, every graph in one chunk,
+    the last warp of a slice the only one with idle lanes."""
+    lanes = geo.channels // geo.vec
+    assert geo.channels % geo.vec == 0 and geo.threads % 32 == 0
+    assert geo.threads - 32 < lanes <= geo.threads <= k1.BWD_MAX_THREADS
+    seen = np.zeros(d, int)
+    for sl in range(geo.slices):
+        for lane in range(lanes):
+            c = sl * geo.channels + lane * geo.vec
+            seen[c:min(c + geo.vec, d)] += 1
+    assert (seen == 1).all() and (geo.slices - 1) * geo.channels < d
+    graphs = np.zeros(G, int)
+    for chunk in range(geo.chunks):
+        graphs[chunk * geo.gpb:(chunk + 1) * geo.gpb] += 1
+    assert (graphs == 1).all() and (geo.chunks - 1) * geo.gpb < G
+
+
+@pytest.mark.parametrize("has_w", [False, True])
+@pytest.mark.parametrize("Sm,Em", [(32, 96), (48, 80), (128, 384)])
+@pytest.mark.parametrize("d", [40, 128, 300])
+@pytest.mark.parametrize("G", [1, 65, 4097])
+def test_fwd_geometry_covers_every_graph_and_channel(G, d, Sm, Em, has_w):
+    """fwd_geometry at one graph, serve64's 65 and the bench batch's 4097:
+    every graph and channel once, the shared bytes the C entry computes
+    within a block's limit, and the blocks one wave of what the shared
+    memory lets the card hold. At 4097 graphs of stride 32 and d 300 a
+    block covers all of d (96 threads): five blocks an SM, 7 graphs a
+    block."""
+    geo = k1.fwd_geometry(G, Sm, Em, 3, 13, d, has_w)
+    assert geo.vec == 4 and geo.grid == (geo.chunks, geo.slices)
+    _covers(geo, G, d)
+    assert geo.smem == k1.fwd_smem(Sm, Em, 3, geo.channels,
+                                   has_w) <= SMEM_MAX
+    per_sm = k1.SM_SHARED // (geo.smem + 1024)
+    assert geo.chunks * geo.slices <= SMS * per_sm or geo.gpb == 1
+    if geo.gpb > 1:    # not a block fewer would do
+        assert (geo.chunks - 1) * geo.slices < SMS * per_sm
+    if G == 65:        # the channels split so that every SM gets a block
+        assert (geo.chunks * geo.slices >= SMS
+                or -(-d // 4) < 2 * k1.MIN_SLICE_LANES)
+    if G == 4097 and d == 300 and Sm == 32:
+        assert geo.slices == 1 and geo.threads == 96
+        assert (per_sm, geo.gpb) == (5, 7)
+
+
+@pytest.mark.parametrize("G", [1, 4097])
+@pytest.mark.parametrize("F", [1, 3, 4, 6])
+@pytest.mark.parametrize("Sm", [1, 32, 128, 220])
+def test_fwd_geometry_takes_every_shape_the_parent_took(Sm, F, G):
+    """Every (Sm, Em, F, V, d) that the earlier forward's check accepted
+    gets a launch within a block's shared memory, the largest edge count
+    it allowed included: where a graph does not fit a block, the channels
+    split, down to one lane a slice; stride 128 at d 300 splits none at
+    the bench batch."""
+    for V in (1, 13, 64):
+        top = (SMEM_MAX - (2 * Sm + V) * 128 * 4) // ((3 + F) * 4)
+        for Em in sorted({0, 1, 96, top // 2, top}):
+            if Em < 0 or not _parent_accepts(Sm, Em, F, V):
+                continue
+            for d in (4, 40, 42, 300):
+                for has_w in (False, True):
+                    geo = k1.fwd_geometry(G, Sm, Em, F, V, d, has_w)
+                    _covers(geo, G, d)
+                    assert geo.smem <= SMEM_MAX
+    geo = k1.fwd_geometry(4097, 128, 384, 3, 13, 300, False)
+    assert geo.slices == 1 and geo.channels == 300
+    with pytest.raises(ValueError, match="table rows"):
+        k1.fwd_geometry(G, Sm, 96, 0, 13, 300, False)
+    with pytest.raises(ValueError, match="shared memory"):
+        k1.fwd_geometry(G, 40000, 96, 3, 13, 300, False)
+
+
+def test_fwd_geometry_vector_width_follows_width_and_addresses():
+    """4 channels a thread where d and the addresses allow, else 1: at
+    d 300 on addresses that are not 16-byte aligned, serve64 takes three
+    slices of 100 lanes, one warp short of four a slice."""
+    geo = lambda d, **k: k1.fwd_geometry(65, 48, 80, 3, 13, d, False, **k)
+    assert [geo(d).vec for d in (300, 42, 45)] == [4, 1, 1]
+    assert geo(300, align=2).vec == 1 and geo(300, align=1).vec == 1
+    assert geo(300, align=1).threads == 128 and geo(300, align=1).slices == 3
+    assert geo(300, align=1).channels == 100 and geo(42).channels == 14
+
+
+def _fwd_inputs(d, seed=3):
+    """_case's inputs as numpy, with one graph whose slots are all masked
+    and a weight of exactly 0 on a valid slot."""
+    c = _case(d, seed=seed)
+    b = c["batch"]
+    emask = np.array(b.edge_mask_dense)
+    emask[1] = False
+    w = c["w"].copy()
+    w[0, np.nonzero(emask[0])[0][1]] = 0.0
+    return (c["x"], np.asarray(b.edge_src_dense), np.asarray(b.edge_dst_dense),
+            emask, c["attr"], c["tbl"], w, np.float32(c["scale"]))
+
+
+def _emb(tbl, a):
+    """T[a0] + T[a1] + ..., in that order (TableEmb's)."""
+    v = tbl[a[0]].copy()
+    for f in range(1, len(a)):
+        v = v + tbl[a[f]]
+    return v
+
+
+def _emulate_parent_fwd(x, src, dst, emask, attr, tbl, w, scale):
+    """The earlier forward's arithmetic in float32: each valid slot in
+    order adds w * relu(x[src] + T-sum) into a shared accumulator row."""
+    G, Sm, d = x.shape
+    out = np.zeros_like(x)
+    for g in range(G):
+        for e in np.nonzero(emask[g])[0]:
+            m = np.maximum(x[g, src[g, e]] + _emb(tbl, attr[g, :, e]),
+                           np.float32(0))
+            if w is not None:
+                m = m * w[g, e]
+            out[g, dst[g, e]] = out[g, dst[g, e]] + m
+    return out if scale is None else out + scale * x
+
+
+def _emulate_fwd(x, src, dst, emask, attr, tbl, w, scale):
+    """The new forward's walk in float32, graph by graph: the valid slots'
+    keys dst * Em + slot, each one's rank places its record (src | dst <<
+    16, the table rows, w), and the walk over the sorted records closes a
+    row (its sum, plus scale * x) when it passes it."""
+    G, Sm, d = x.shape
+    Em = src.shape[1]
+    out = np.full_like(x, np.nan)
+    for g in range(G):
+        key = np.where(emask[g], dst[g].astype(np.int64) * Em + np.arange(Em),
+                       2**31 - 1)
+        rec, recw = {}, {}
+        for e in np.nonzero(emask[g])[0]:
+            p = int((key < key[e]).sum())
+            assert p not in rec            # a rank is one slot's
+            rec[p] = (int(src[g, e]) | int(key[e] // Em) << 16,
+                      attr[g, :, e])
+            recw[p] = None if w is None else w[g, e]
+        assert sorted(rec) == list(range(len(rec)))
+        acc, row = np.zeros(d, np.float32), 0
+        for k in range(len(rec) + 1):
+            dd = Sm if k == len(rec) else rec[k][0] >> 16
+            while row < dd:
+                out[g, row] = acc if scale is None else acc + scale * x[g, row]
+                acc, row = np.zeros(d, np.float32), row + 1
+            if k == len(rec):
+                break
+            m = np.maximum(x[g, rec[k][0] & 0xFFFF] + _emb(tbl, rec[k][1]),
+                           np.float32(0))
+            if recw[k] is not None:
+                m = m * recw[k]
+            acc = acc + m
+    return out
+
+
+@pytest.mark.parametrize("with_w,with_scale", [(False, True), (True, False),
+                                               (True, True)])
+def test_fwd_walk_gives_the_parent_order(with_w, with_scale):
+    """The new forward's algorithm, emulated in float32, gives the earlier
+    forward's bits (each row's terms in slot order: the sort by (dst,
+    slot) is stable) and agrees with the plain version, on a batch with
+    padding graphs, a graph whose slots are all masked and a zero weight."""
+    x, src, dst, emask, attr, tbl, w, scale = _fwd_inputs(8)
+    w = w if with_w else None
+    scale = scale if with_scale else None
+    got = _emulate_fwd(x, src, dst, emask, attr, tbl, w, scale)
+    np.testing.assert_array_equal(
+        got, _emulate_parent_fwd(x, src, dst, emask, attr, tbl, w, scale))
+    t = torch.from_numpy
+    want = gin_agg_plain(t(x), t(src), t(dst), t(emask), t(attr), t(tbl),
+                         None if w is None else t(w),
+                         None if scale is None else torch.tensor([scale]))
+    np.testing.assert_allclose(got, want.numpy(), atol=TOL, rtol=0)

@@ -6,6 +6,11 @@ autograd backward against the XLA route's ``jax.vjp`` (the JAX package has
 no backward kernel). The CUDA kernels are held against the plain versions
 on the card in test_torch_port_cuda.py."""
 
+import importlib
+import re
+import types
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -22,6 +27,8 @@ from graphtrans_tpu_torch.ops.segment import (  # noqa: E402
 from _heap import release_freed_heap  # noqa: E402,F401
 
 TOL = 2e-5  # each row sums a dozen or fewer f32 terms of order 1
+k7 = importlib.import_module("graphtrans_tpu_torch.ops.kernels.spmm")
+CSRC = Path(__file__).resolve().parents[1] / "graphtrans_tpu_torch" / "csrc"
 
 
 def _case(N=512, E=512, d=128, seed=0):
@@ -163,3 +170,165 @@ def test_src_order_is_made_once_per_batch():
     assert src_order(batch) is order and order.num_nodes == 32
     assert order.src is batch.edge_src and order.emask is batch.edge_mask
     assert src_order(host.to("cpu")) is not order
+
+
+# ---- K7-bwd's runs and walk (csrc/spmm.cu), on the CPU --------------------
+
+
+def _hub_case(d=8, seed=11):
+    """_case's edges plus a hub (source row 3 with 600 valid edges), a
+    zero weight inside a row and a masked edge mid-list; rows 250..N-2
+    have no edge leaving them."""
+    x, emb, src, dst, mask, w = _case(N=512, E=1400, d=d, seed=seed)
+    rng = np.random.default_rng(seed)
+    src[300:900] = 3
+    dst[:900] = np.sort(rng.integers(0, 200, 900))
+    mask[:900] = True
+    w[:900] = rng.uniform(0.1, 1.0, 900)
+    w[src == 5] = 0.0                          # a row of zero weights
+    w[np.nonzero(src == 7)[0][:1]] = 0.0       # one inside a row
+    mask[17] = False
+    return x, emb, src, dst, mask, w
+
+
+@pytest.mark.parametrize("run_cost", [1, 7, k7.RUN_COST, 10**6])
+def test_edge_runs_cut_the_rows_whole(run_cost):
+    """The runs partition the rows [0, N) in order, and run r takes the
+    rows whose cost before them (EDGE_COST per edge, 1 per row) lies in
+    [r, r+1) * run_cost: no row is split, and a run is longer than
+    run_cost only by its last row. The hub's run takes all its edges and
+    leaves the runs its cost spans empty."""
+    _, _, src, _, mask, _ = _hub_case()
+    N = 512
+    perm, sptr = SrcOrder(torch.from_numpy(src), torch.from_numpy(mask),
+                          N).get()
+    rptr = k7._edge_runs(sptr, src.shape[0], run_cost).numpy()
+    sp = sptr.numpy().astype(np.int64)
+    assert rptr.dtype == np.int32 and rptr[0] == 0 and rptr[-1] == N
+    assert (np.diff(rptr) >= 0).all()
+    cost = k7.EDGE_COST * sp[:N] + np.arange(N)
+    for r in range(len(rptr) - 1):
+        rows = np.arange(rptr[r], rptr[r + 1])
+        assert ((cost[rows] >= r * run_cost)
+                & (cost[rows] < (r + 1) * run_cost)).all()
+    if run_cost == k7.RUN_COST:
+        assert (k7.edge_runs(sptr, src.shape[0]).numpy() == rptr).all()
+        hub = np.searchsorted(rptr, 3, side="right") - 1
+        assert sp[rptr[hub + 1]] - sp[rptr[hub]] >= 600
+        assert (np.diff(rptr) == 0).sum() >= 600 * k7.EDGE_COST // run_cost - 1
+
+
+def test_src_order_runs_are_edge_runs_made_once():
+    """SrcOrder's runs are edge_runs of its row pointer, made once."""
+    _, _, src, _, mask, _ = _hub_case()
+    t = torch.from_numpy
+    order = SrcOrder(t(src), t(mask), 512)
+    sptr = order.get()[1]
+    assert torch.equal(order.runs(), k7.edge_runs(sptr, src.shape[0]))
+    assert order.runs() is order.runs()
+
+
+@pytest.mark.parametrize("nodes,edges", [(511, 1400), (513, 1400),
+                                         (512, 1399)])
+def test_bwd_refuses_an_order_of_other_edges(nodes, edges):
+    """spmm_bwd raises where ``order`` was made for another node or edge
+    count than the call's (the kernel would leave dx rows unwritten)."""
+    x, emb, src, dst, mask, w = (torch.from_numpy(a) for a in _hub_case())
+    g = torch.ones_like(x)
+    order = SrcOrder(src[:edges], mask[:edges], nodes)
+    with pytest.raises(ValueError, match="order is of"):
+        spmm_bwd(x, emb, src, dst, mask, g, order, w)
+
+
+def _emulate_bwd(x, emb, src, dst, mask, w, g, relu, order):
+    """K7-bwd as csrc/spmm.cu runs it, in float32: each run walked by one
+    warp over perm, writing an edge's d_emb row where its weight is not 0
+    and each row's dx once (its sum in perm order, zero without edges);
+    the slot warps write the zero d_emb rows of weight-0 edges. Returns dx,
+    d_emb and how many times each row of them was written."""
+    perm, sptr = (t.numpy() for t in order.get())
+    rptr = order.runs().numpy()
+    N, d = x.shape
+    E = emb.shape[0]
+    dx, demb = np.full((N, d), np.nan, np.float32), np.full((E, d), np.nan,
+                                                           np.float32)
+    nx, ne = np.zeros(N, int), np.zeros(E, int)
+    for r in range(len(rptr) - 1):
+        row, acc = rptr[r], np.zeros(d, np.float32)
+        for k in list(range(sptr[rptr[r]], sptr[rptr[r + 1]])) + [None]:
+            s = rptr[r + 1] if k is None else src[perm[k]]
+            while row < s:
+                dx[row], acc = acc, np.zeros(d, np.float32)
+                nx[row] += 1
+                row += 1
+            if k is None or w[perm[k]] == 0:
+                continue
+            e = perm[k]
+            gate = g[dst[e]] * w[e]
+            if relu:
+                gate = np.where(x[s] + emb[e] > 0, gate, np.float32(0))
+            demb[e] = gate
+            ne[e] += 1
+            acc = acc + gate
+    for e in np.nonzero(w == 0)[0]:
+        demb[e] = 0.0
+        ne[e] += 1
+    return dx, demb, nx, ne
+
+
+@pytest.mark.parametrize("message", ["relu_add", "add"])
+def test_bwd_walk_over_runs_matches_plain(message):
+    """The runs' walk, emulated, writes every dx row and every d_emb row
+    exactly once and agrees with autograd through the plain version, on
+    rows with no edge, a hub of 600 edges, zero weights (a whole row and
+    one inside a row) and masked edges (exact-zero d_emb rows)."""
+    x, emb, src, dst, mask, w = _hub_case()
+    w = w * mask
+    g = np.random.default_rng(5).standard_normal(x.shape).astype(np.float32)
+    t = torch.from_numpy
+    order = SrcOrder(t(src), t(mask), x.shape[0])
+    dx, demb, nx, ne = _emulate_bwd(x, emb, src, dst, mask, w, g,
+                                    message == "relu_add", order)
+    assert (nx == 1).all() and (ne == 1).all()
+    want = spmm_bwd_plain(t(x), t(emb), t(src), t(dst), t(mask), t(g),
+                          t(w), message)
+    for name, a, b in zip(("dx", "d_emb"), (dx, demb), want):
+        np.testing.assert_allclose(a, b.numpy(), rtol=0, err_msg=name,
+                                   atol=1e-5 * max(1.0, b.abs().max().item()))
+    assert not demb[~mask].any() and not demb[w == 0].any()
+    assert not dx[250:511].any()
+
+
+@pytest.mark.parametrize("d", [4, 40, 42, 128, 300, 512, 1000])
+@pytest.mark.parametrize("align", [1, 4])
+def test_bwd_launch_covers_every_channel(d, align):
+    """Slices of 32 * vec * vpl channels cover d once: one slice up to
+    d 512 with 16-byte loads, vec 1 where d or the addresses do not allow
+    them."""
+    vec, vpl, slices = k7.bwd_launch(d, align)
+    assert vec == (4 if d % 4 == 0 and align == 4 else 1)
+    assert 1 <= vpl <= k7.BWD_MAX_VPL
+    width = 32 * vec * vpl
+    assert slices * width >= d > (slices - 1) * width
+    if vec == 4 and d <= 512:
+        assert slices == 1
+
+
+def _c_params(entry: str) -> int:
+    text = (CSRC / "spmm.cu").read_text()
+    sig = re.search(r'extern "C" int ' + entry + r"\((.*?)\)\s*\{", text,
+                    re.S)
+    return len(sig.group(1).split(","))
+
+
+def test_ctypes_signatures_match_the_c_entries(monkeypatch):
+    """The argtypes that spmm.py sets have as many entries as K7's C
+    entries (forward and backward) have parameters."""
+    from graphtrans_tpu_torch.ops.kernels import _build
+
+    monkeypatch.setattr(_build, "load", lambda name: types.SimpleNamespace(
+        spmm_fwd=types.SimpleNamespace(argtypes=None),
+        spmm_bwd=types.SimpleNamespace(argtypes=None)))
+    lib = k7._load()
+    for entry in ("spmm_fwd", "spmm_bwd"):
+        assert len(getattr(lib, entry).argtypes) == _c_params(entry), entry
