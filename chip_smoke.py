@@ -7,10 +7,10 @@ usage: python3 chip_smoke.py [--trace trace.json] [--baseline DIR]
 graphtrans_tpu_torch/ tree; for one run, never committed): phases 2, 6a,
 7a, 8a, 9a, 10a, 11a and 13a then build its K1, K1-bwd, K2, K3, K3-bwd,
 K4, K5 and K9 (forward, serving and training), K2-bwd, K4-bwd, K5-bwd,
-K7-bwd, K9-bwd, K10 and K10-bwd from its own sources and time them beside
-this tree's, in turns (earlier, this, this, earlier), on the same inputs;
-phases 2, 6a, 8a, 12a and 13a hold K1, K1-bwd, K7-bwd, K6 and K6-bwd to
-its bits.
+K7, K7-bwd, K9-bwd, K10, K10-bwd and K12 from its own sources and time
+them beside this tree's, in turns (earlier, this, this, earlier; K12 in
+the alternating rounds of 13a), on the same inputs; phases 2, 6a, 7a, 8a,
+12a and 13a hold K1, K1-bwd, K7, K7-bwd, K6 and K6-bwd to its bits.
 
 Phases, each printing one line (any failure raises and exits non-zero):
   0. the card (nvidia-smi name and power limit) and torch; TF32 off;
@@ -40,7 +40,10 @@ Phases, each printing one line (any failure raises and exits non-zero):
   7. code2 serving (the published GCN-virtual config, flat layout, packing
      tiers 1024/512, 384, 128): (a) holds K3 (flash_hil_seg) and K7 (spmm)
      against their plain versions at the code2 snapshot's shapes and at the
-     512-graph bench shape, and times them; K2 at the bench batch's 384 and
+     512-graph bench shape, and times them (K7 as the GCN layer calls it,
+     with the batch's DstOrder, whose one-time cost prints apart, its
+     device time from the profiler, and a batch's worth: a new DstOrder
+     and 5 calls, in turns with the parent's 5 calls); K2 at the bench batch's 384 and
      128 tiers, held and timed beside bound, plain version and SDPA; (b)
      serves the code2 snapshot's
      valid and test splits through ``python -m graphtrans_tpu_torch.predict``
@@ -138,8 +141,10 @@ Phases, each printing one line (any failure raises and exits non-zero):
      chunk_capacity(edge cap, node cap), and K12 (segment_sum_mxu, a
      standalone op: its one call, counted) at [196608, 128], and times
      them beside bound, plain version and yardstick (K7 and K7-bwd at the
-     same batch; index_add_ for K12, the two in alternating turns over
-     K12_ROUNDS rounds); (b) serves the code2 valid and test
+     same batch; index_add_ for K12, the two, and with ``--baseline`` the
+     parent's K12, in alternating turns over K12_ROUNDS rounds; K12's
+     device time from the profiler, and the same bits in a second call);
+     (b) serves the code2 valid and test
      splits through ``predict.predict_split`` with the model of
      ``predict.build_model`` under ``set_block_spmm(model, "on")`` (no
      batch overflows its plans; 5 K8 and no K7 launches a batch), holds
@@ -235,7 +240,7 @@ LAYERS = (
     ("radixsort", "sort (index backward, K7-bwd's src order)"),
     ("flash_hil_fwd", "K3 flash_hil_seg"),
     ("flash_attention_fwd", "K5 flash_attention"),
-    ("spmm_kernel", "K7 spmm (aggregation)"),
+    ("spmm_fwd", "K7 spmm (aggregation)"),
     ("dense_agg_fwd", "K6 dense_agg (aggregation)"),
     ("dense_agg_bwd", "K6-bwd dense_agg_bwd"),
     ("gin_agg_fwd", "K1 gin_agg (aggregation)"),
@@ -284,8 +289,8 @@ def time_ms(fn, iters: int, reps: int = 5) -> float:
 
 
 BASELINE_KERNELS = ("attention_packed", "attention_smalls", "dense_agg",
-                    "flash_attention", "flash_hil", "gin_agg", "spmm",
-                    "transformer_layer")
+                    "flash_attention", "flash_hil", "gin_agg", "scatter_mxu",
+                    "spmm", "transformer_layer")
 
 
 def load_baseline(root):
@@ -345,7 +350,8 @@ def same_bits(what: str, new, old, checked: list):
 L2_FLUSH_BYTES = 256 << 20  # over five times the H100's 50 MB L2
 
 
-def device_ms(fn, names, per_call: int = 1, iters: int = 20):
+def device_ms(fn, names, per_call: int = 1, iters: int = 20,
+              tries: int = 4):
     """Device ms per call of ``fn`` from torch.profiler: the self device
     time of the kernels whose names hold any of ``names``, over ``iters``
     profiled calls after a warm-up, each call after a write of
@@ -353,9 +359,11 @@ def device_ms(fn, names, per_call: int = 1, iters: int = 20):
     main path, where other layers run between two calls). Unlike
     ``time_ms`` it leaves out the host's pacing of back-to-back calls (a
     wrapper's checks and launches). ``per_call`` is the kernels a call
-    launches: where the profiler recorded another number of launches (a
-    dropped record) the time is None, not measured, and the count is
-    printed."""
+    launches, each under a name of its own. The profiler drops some
+    records (why is not known), so a profile that recorded another number
+    of launches than ``per_call * iters`` is taken again, up to ``tries``
+    profiles; where none is whole the time is None, not measured, and the
+    mean over the launches recorded prints apart, as no reading."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
@@ -363,20 +371,28 @@ def device_ms(fn, names, per_call: int = 1, iters: int = 20):
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    seen = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and any(n in e.key for n in names)]
-    count = sum(e.count for e in seen)
-    if count != per_call * iters:
-        print(f"    (profiler: {count} launches of {names} recorded, "
-              f"{per_call * iters} made: device time not measured)")
-        return None
-    return sum(e.self_device_time_total for e in seen) / 1e3 / iters
+    counts, means = [], []
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        seen = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and any(n in e.key for n in names)]
+        count = sum(e.count for e in seen)
+        if count == per_call * iters:
+            return sum(e.self_device_time_total for e in seen) / 1e3 / iters
+        counts.append(count)
+        if len(seen) == per_call:
+            means.append(sum(e.self_device_time_total / e.count
+                             for e in seen) / 1e3)
+    print(f"    (profiler: {counts} launches of {names} recorded in "
+          f"{tries} profiles of {per_call * iters}: device time not "
+          f"measured; apart, not a reading: the mean over those recorded "
+          f"{', '.join(f'{m:.4f}' for m in means) or '-'} ms)")
+    return None
 
 
 def host_us(new, old, iters: int = 200):
@@ -1363,6 +1379,44 @@ def time_k2_tiers(tag: str, device, d_model: int, nhead: int, bench,
     return rows
 
 
+def time_k7(name: str, a, base):
+    """K7 on its arguments ``a`` (relu_add, the GCN norm) as the GCN layer
+    calls it, with the batch's DstOrder built once beforehand (its cost
+    timed apart): ms in turns with the parent's kernel under ``--baseline``
+    (whose bits it must give: the same order of terms), device ms from the
+    profiler with a cold L2 (each None where not measured), and the shapes
+    whose bits were checked. Also a batch's worth, in turns: a new
+    DstOrder and GCN_LAYERS_PER_FORWARD calls, against the parent's as
+    many calls."""
+    from graphtrans_tpu_torch.ops.kernels import DstOrder, spmm
+
+    N = a[0].shape[0]
+    order_ms = time_ms(lambda: DstOrder(a[3], a[4], N).runs(), iters=20)
+    rows = DstOrder(a[3], a[4], N)
+    rows.runs()                          # built once per batch, not timed
+    new = lambda: spmm(*a, rows=rows)
+    old = base and (lambda: base["spmm"].spmm(*a))
+
+    def batch():
+        per = DstOrder(a[3], a[4], N)
+        for _ in range(GCN_LAYERS_PER_FORWARD):
+            spmm(*a, rows=per)
+
+    def old_batch():
+        for _ in range(GCN_LAYERS_PER_FORWARD):
+            old()
+
+    checked = []
+    same_bits(f"K7 {name}", new, old, checked)
+    ms, earlier = turns_ms(new, old, 20)
+    batch_ms, earlier_batch = turns_ms(batch, old and old_batch, 10)
+    return dict(ms=ms, earlier_ms=earlier, library_ms=None, order_ms=order_ms,
+                batch_ms=batch_ms, earlier_batch_ms=earlier_batch,
+                device_ms=device_ms(new, ("spmm_fwd",)),
+                earlier_device_ms=old and device_ms(
+                    old, ("spmm_fwd", "spmm_kernel"))), checked
+
+
 def phase7_kernels(device, d_gnn: int, d_model: int, nhead: int, bench,
                    base=None):
     """(a) K3 and K7 against their plain versions at the code2 snapshot's
@@ -1372,7 +1426,7 @@ def phase7_kernels(device, d_gnn: int, d_model: int, nhead: int, bench,
     from graphtrans_tpu_torch import predict
     from graphtrans_tpu_torch.data.loader import iterate_batches
     from graphtrans_tpu_torch.ops.kernels import (flash_hil_seg,
-                                                  flash_hil_seg_plain, spmm,
+                                                  flash_hil_seg_plain,
                                                   spmm_plain)
 
     gen = torch.Generator().manual_seed(SEED + 7)
@@ -1393,6 +1447,7 @@ def phase7_kernels(device, d_gnn: int, d_model: int, nhead: int, bench,
           f"queries exactly 0; K7 max |diff| / max(1, max|ref|) "
           f"{k7_err:.3g} (<= {K7_TOL})")
 
+    same_k7 = []      # shapes where K7 gave the parent's bits
     for name, b in (("serve16", serve[0]), (f"bench{CODE2_BENCH}", bench)):
         qkv, seg = k3_inputs(b, d_model, gen, device)
         R, W, d3 = qkv.shape
@@ -1407,9 +1462,9 @@ def phase7_kernels(device, d_gnn: int, d_model: int, nhead: int, bench,
         k3["bound_ms"], k3["bound_by"] = k3_bound(qkv, seg, nhead)
         k3["f32_simt_bound_ms"] = k3_bound(qkv, seg, nhead, False)[0]
         a = k7_inputs(b, d_gnn, gen, device)
-        k7 = dict(ms=time_ms(lambda: spmm(*a), iters=20),
-                  plain_ms=time_ms(lambda: spmm_plain(*a), iters=5),
-                  library_ms=None)
+        k7, same = time_k7(name, a, base)
+        same_k7.extend(same)
+        k7["plain_ms"] = time_ms(lambda: spmm_plain(*a), iters=5)
         k7["bound_ms"], k7["bound_by"] = k7_bound(a)
         k3["shape"] = f"R={R} W={W} d={d3 // 3} H={nhead}"
         k7["shape"] = (f"N={a[0].shape[0]} E={a[2].shape[0]} valid="
@@ -1425,6 +1480,20 @@ def phase7_kernels(device, d_gnn: int, d_model: int, nhead: int, bench,
                   f"{t['ms']:.4f} ms{earlier}, plain {t['plain_ms']:.4f} ms, "
                   f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}{_simt(t)}), "
                   f"library {lib}")
+        print(f"[7a] {name} K7 spmm as the GCN layer calls it (the batch's "
+              f"DstOrder): device time {_ms(k7['device_ms'])} a launch from "
+              f"the profiler, cold L2 (the parent's "
+              f"{_ms(k7['earlier_device_ms'])}); the DstOrder (row pointer, "
+              f"live edges before each row, runs; once per batch) "
+              f"{k7['order_ms']:.4f} ms")
+        print(f"[7a] {name} K7 a batch's worth, as the GCN forward runs it "
+              f"(a new DstOrder and {GCN_LAYERS_PER_FORWARD} calls): "
+              f"{k7['batch_ms']:.4f} ms (the parent's "
+              f"{GCN_LAYERS_PER_FORWARD} calls {_ms(k7['earlier_batch_ms'])},"
+              f" in turns)")
+    if base:
+        print(f"[7a] --baseline: K7 gives the parent's bits on the same "
+              f"inputs at {same_k7}")
     k2 = time_k2_tiers("7a", device, d_model, nhead, bench, gen, base, False)
     return dict(k3_err=k3_err, k7_err=k7_err, timed=(k3, k7), k2=k2)
 
@@ -4271,7 +4340,7 @@ def phase13_kernels(device, d_gnn: int, bench, base=None):
     from graphtrans_tpu_torch.data.loader import iterate_batches
     from graphtrans_tpu_torch.ops import kernels
     from graphtrans_tpu_torch.ops.kernels import (
-        SrcOrder, blocked_gather_message_scatter,
+        DstOrder, SrcOrder, blocked_gather_message_scatter,
         blocked_gather_message_scatter_bwd_plain,
         blocked_gather_message_scatter_demb,
         blocked_gather_message_scatter_demb_plain,
@@ -4337,7 +4406,9 @@ def phase13_kernels(device, d_gnn: int, bench, base=None):
         k7a = k7_inputs(b, d_gnn, gen, device)
         order = SrcOrder(k7a[2], k7a[4], k7a[0].shape[0])
         order.runs()
-        k7_ms = time_ms(lambda: spmm(*k7a), iters=20)
+        rows = DstOrder(k7a[3], k7a[4], k7a[0].shape[0])
+        rows.runs()
+        k7_ms = time_ms(lambda: spmm(*k7a, rows=rows), iters=20)
         k7b_ms, k7b_earlier, dev, k7_same = time_k7_bwd(k7a, g, order, base)
         same.extend(k7_same)
         k7b_rows[name] = dict(ms=k7b_ms, earlier_ms=k7b_earlier,
@@ -4374,34 +4445,48 @@ def phase13_kernels(device, d_gnn: int, bench, base=None):
         want = segment_sum_mxu_plain(msg, dst, N)
     k12_err = _rel_err(got, want)
     out = torch.zeros(N, 128, device=device)
-    turns = alternating_ms(
-        (lambda: segment_sum_mxu(msg, dst, N),
-         lambda: out.zero_().index_add_(0, dst.long(), msg)),
-        K12_ROUNDS, 20)
+    fns = [lambda: segment_sum_mxu(msg, dst, N),
+           lambda: out.zero_().index_add_(0, dst.long(), msg)]
+    if base:        # the parent's K12, in the same rounds
+        fns.append(lambda: base["scatter_mxu"].segment_sum_mxu(msg, dst, N))
+    turns = alternating_ms(fns, K12_ROUNDS, 20)
     k12 = dict(ms=statistics.median(turns[0]),
+               earlier_ms=statistics.median(turns[2]) if base else None,
                plain_ms=time_ms(lambda: segment_sum_mxu_plain(msg, dst, N),
                                 iters=5),
-               library_ms=statistics.median(turns[1]))
+               library_ms=statistics.median(turns[1]),
+               device_ms=device_ms(fns[0], ("segment_sum_kernel",)),
+               earlier_device_ms=base and device_ms(fns[2], *(
+                   (("segment_sum_kernel",), 1)
+                   if hasattr(base["scatter_mxu"], "SPAN") else
+                   (("piece_sum_kernel", "row_sum_kernel"), 2))))
+    again = segment_sum_mxu(msg, dst, N)
     if k12_err > K8_TOL or k12_launches != 1 or not torch.isfinite(got).all():
         raise AssertionError(f"K12 disagrees with its plain version: "
                              f"{k12_err} (<= {K8_TOL}), {k12_launches} "
                              f"launches")
+    if not torch.equal(got, again):
+        raise AssertionError("K12 gave other bits in a second call")
     if segment_sum_mxu(msg[:, :100].contiguous(), dst, N) is not None:
         raise AssertionError("K12 took a shape the JAX function refuses")
     k12["bound_ms"], k12["bound_by"] = k12_bound(msg, dst, N)
     k12["shape"] = f"E={msg.shape[0]} d=128 N={N}"
     print(f"[13a] K12 segment_sum_mxu [{k12['shape']}]: {k12_err:.3g} of "
-          f"max(1, max|ref|) from its plain version (<= {K8_TOL}), None at "
-          f"d=100; kernel {k12['ms']:.4f} ms, plain {k12['plain_ms']:.4f} "
-          f"ms, bound {k12['bound_ms']:.4f} ms ({k12['bound_by']}), library "
-          f"{k12['library_ms']:.4f} ms (index_add_ into zeros); "
-          f"{k12_launches} launch in its standalone call (no model path "
-          f"calls it)")
-    for what, per in (("K12 segment_sum_mxu", turns[0]),
-                      ("index_add_", turns[1])):
-        print(f"[13a] K12 in alternating turns ({K12_ROUNDS} rounds, K12 "
-              f"then index_add_): {what} median {statistics.median(per):.4f} "
-              f"ms, min {min(per):.4f}, max {max(per):.4f}, spread "
+          f"max(1, max|ref|) from its plain version (<= {K8_TOL}), the same "
+          f"bits in a second call, None at d=100; kernel {k12['ms']:.4f} ms "
+          f"(the parent's {_ms(k12['earlier_ms'])}, in the same rounds), "
+          f"plain {k12['plain_ms']:.4f} ms, bound {k12['bound_ms']:.4f} ms "
+          f"({k12['bound_by']}), library {k12['library_ms']:.4f} ms "
+          f"(index_add_ into zeros); device time {_ms(k12['device_ms'])} a "
+          f"call from the profiler, cold L2 (the parent's "
+          f"{_ms(k12['earlier_device_ms'])}); {k12_launches} launch in its "
+          f"standalone call (no model path calls it)")
+    whats = ["K12 segment_sum_mxu", "index_add_", "the parent's K12"]
+    for what, per in zip(whats, turns):
+        print(f"[13a] K12 in alternating turns ({K12_ROUNDS} rounds, "
+              f"{', then '.join(whats[:len(turns)])}): {what} median "
+              f"{statistics.median(per):.4f} ms, min {min(per):.4f}, max "
+              f"{max(per):.4f}, spread "
               f"{(max(per) - min(per)) / statistics.median(per):.1%}: "
               f"{', '.join(f'{x:.4f}' for x in per)}")
     return dict(f_err=f_err, b_err=b_err, k12_err=k12_err,
@@ -4646,10 +4731,10 @@ def main(argv=None) -> int:
     p.add_argument("--baseline", default=None,
                    help="a checkout of an earlier commit whose K1, K1-bwd, "
                         "K2, K2-bwd, K3, K3-bwd, K4, K5, K4-bwd, K5-bwd, "
-                        "K7-bwd, K9, K9-bwd, K10 and K10-bwd phases 2, 6a-11a "
-                        "and 13a time beside this tree's (K1, K1-bwd, K4, "
-                        "K4-bwd, K6, K6-bwd, K7-bwd, K9, K9-bwd, K10, "
-                        "K10-bwd also bit for bit)")
+                        "K7, K7-bwd, K9, K9-bwd, K10, K10-bwd and K12 phases "
+                        "2, 6a-11a and 13a time beside this tree's (K1, "
+                        "K1-bwd, K4, K4-bwd, K6, K6-bwd, K7, K7-bwd, K9, "
+                        "K9-bwd, K10, K10-bwd also bit for bit)")
     opts = p.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():

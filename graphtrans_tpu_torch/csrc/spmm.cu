@@ -1,21 +1,29 @@
 // K7: the flat-layout message-passing sum over dst-sorted edges, and its
-// backward (below spmm_kernel). Wrapper, plain version and design note:
+// backward (below spmm_fwd_kernel). Wrapper, plain version and design note:
 // graphtrans_tpu_torch/ops/kernels/spmm.py.
 //
-// out[i] = sum_{e in [ptr[i], ptr[i+1])} w[e] * msg(x[src[e]], emb[e]),
-// msg = relu(x + emb) or x + emb. x [N, d], emb [E, d] f32; src [E] and the
-// CSR row pointer ptr [N+1] (from the dst-sorted edges) int32; w [E] f32
-// with the edge mask folded in.
+// out[i] = sum_{e: dst[e] = i} w[e] * msg(x[src[e]], emb[e]),
+// msg = relu(x + emb) or x + emb, w = emask * ew (ew [E] may be null: 1).
+// x [N, d], emb [E, d] f32; src, dst [E] int32, dst sorted.
 //
-// One warp per destination row. The warp walks its row's edge range in
-// order, 32 * GROUPS edges at a time: each lane loads the src and weight of
-// GROUPS edges at once (all in flight together), then per group of 32 a
-// ballot keeps the edges of nonzero weight, and the warp visits them one
-// by one with the lanes striding over the channels (CPL channels a lane in
-// registers, coalesced 128-byte row reads of x[src] and emb). Every output
-// row has one writer and a fixed order of terms: no atomics,
-// deterministic. Masked edges (weight 0: the padding tail of a batch, tens
-// of thousands on the padding node's row) cost one wide load step per 256.
+// Forward: the destination rows are cut into runs (rptr: the batch's
+// DstOrder, made once and shared by every layer; edge_runs of dptr, the
+// live edges before each row, so a run holds about RUN_COST units of work,
+// a live edge EDGE_COST and a row one). A warp walks a run's edges in
+// batch order, from ptr[first row] (row i's edges lie at [ptr[i],
+// ptr[i+1]): dst is sorted): its lanes load the mask, src, dst and weight
+// of 32 edges at once, then the warp takes U edges at a time, shuffles
+// their indices to every lane and issues the x[src] and emb rows of all U
+// before it adds any (VEC floats a load, VPL loads a lane a row). It sums
+// the current row in registers in edge order, skipping masked edges and
+// edges of weight 0 (their rows are not loaded), each product rounded
+// before its add as the plain version rounds it, and writes each row once
+// when the walk passes it (zero for a row with no live edge). The walk
+// ends at the run's last live edge (it counts them down from dptr): the
+// padding tail (tens of thousands of masked edges on the padding node's
+// row) is never walked. The weight is folded here, so the wrapper
+// launches nothing before the kernel. Grid y: slices of 32 * VEC * VPL
+// channels. One writer per output cell, no atomics.
 
 #include <cuda_runtime.h>
 
@@ -24,60 +32,106 @@
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int GROUPS = 8;  // 32-edge groups whose src and weight load at once
 
-template <int CPL>
-__global__ void spmm_kernel(const float* __restrict__ x,
-                            const float* __restrict__ emb,
-                            const int* __restrict__ src,
-                            const int* __restrict__ ptr,
-                            const float* __restrict__ w,
-                            float* __restrict__ out, int N, int d, int relu) {
-  const long row = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+using vio::load_vec;
+using vio::store_vec;
+using vio::Vec;
+
+constexpr int RUN_THREADS = 256;  // 8 warps a block
+constexpr int MAX_VPL = 4;        // loads a lane a row (spmm.py:bwd_launch)
+
+template <int VEC, int VPL>
+__global__ void __launch_bounds__(RUN_THREADS)
+spmm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ emb,
+                const int* __restrict__ src, const int* __restrict__ dst,
+                const bool* __restrict__ emask, const int* __restrict__ ptr,
+                const int* __restrict__ dptr, const int* __restrict__ rptr,
+                const float* __restrict__ ew, float* __restrict__ out, int d,
+                int nruns, int relu) {
+  using V = Vec<VEC>;
+  constexpr int U = VEC * VPL <= 8 ? 4 : 2;  // edges whose rows load together
+  const long warp = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
-  if (row >= N) return;  // the whole warp leaves together
-  const int beg = ptr[row], end = ptr[row + 1];
-  for (int c0 = 0; c0 < d; c0 += 32 * CPL) {
-    float acc[CPL];
+  if (warp >= nruns) return;
+  int col[VPL];  // this lane's channels: col[j] .. col[j] + VEC - 1
+  bool has[VPL];  // VEC divides d: all of them or none
 #pragma unroll
-    for (int j = 0; j < CPL; ++j) acc[j] = 0.f;
-    for (int e0 = beg; e0 < end; e0 += 32 * GROUPS) {
-      float we[GROUPS];
-      int se[GROUPS];
+  for (int j = 0; j < VPL; ++j) {
+    col[j] = blockIdx.y * 32 * VEC * VPL + (lane + 32 * j) * VEC;
+    has[j] = col[j] < d;
+  }
+  const V zero = vio::zero_vec<VEC>();
+  const int r_lo = rptr[warp], r_hi = rptr[warp + 1];
+  if (r_lo >= r_hi) return;
+  const int e_hi = ptr[r_hi];
+  int left = dptr[r_hi] - dptr[r_lo];  // live edges not yet reached
+
+  V acc[VPL];  // out of row `row`, the first row not yet written
 #pragma unroll
-      for (int u = 0; u < GROUPS; ++u) {
-        const int e = e0 + 32 * u + lane;
-        we[u] = e < end ? w[e] : 0.f;
-        se[u] = e < end ? src[e] : 0;
+  for (int j = 0; j < VPL; ++j) acc[j] = zero;
+  int row = r_lo;
+  auto write_to = [&](int r) {  // write the rows before r
+    for (; row < r; ++row) {
+#pragma unroll
+      for (int j = 0; j < VPL; ++j) {
+        if (has[j]) store_vec(out + (long)row * d + col[j], acc[j]);
+        acc[j] = zero;
+      }
+    }
+  };
+
+  for (int e0 = ptr[r_lo]; e0 < e_hi && left > 0; e0 += 32) {
+    const int e = e0 + lane;
+    const bool live = e < e_hi && emask[e];
+    const unsigned lv = __ballot_sync(FULL, live);
+    if (!lv) continue;  // masked edges only
+    left -= __popc(lv);
+    int ps = 0, pd = 0;
+    float pw = 0.f;  // masked: weight 0
+    if (live) {
+      ps = src[e];
+      pd = dst[e];
+      pw = ew ? ew[e] : 1.f;
+    }
+    const int n = 32 - __clz(lv);  // past the chunk's last live edge
+    for (int i0 = 0; i0 < n; i0 += U) {
+      V xv[U][VPL], ev[U][VPL];
+      int du[U];
+      float wu[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {  // every edge's rows in flight first
+        const int i = (i0 + u) & 31;
+        const long eu = e0 + i;
+        const long su = __shfl_sync(FULL, ps, i);
+        du[u] = __shfl_sync(FULL, pd, i);
+        wu[u] = i0 + u < n ? __shfl_sync(FULL, pw, i) : 0.f;
+#pragma unroll
+        for (int j = 0; j < VPL; ++j) {
+          const bool ld = has[j] && wu[u] != 0.f;
+          xv[u][j] = ld ? load_vec<VEC>(x + su * d + col[j]) : zero;
+          ev[u][j] = ld ? load_vec<VEC>(emb + eu * d + col[j]) : zero;
+        }
       }
 #pragma unroll
-      for (int u = 0; u < GROUPS; ++u) {
-        unsigned live = __ballot_sync(FULL, we[u] != 0.f);
-        while (live) {
-          const int k = __ffs(live) - 1;
-          live &= live - 1;
-          const float wk = __shfl_sync(FULL, we[u], k);
-          const long sk = __shfl_sync(FULL, se[u], k);
-          const float* xr = x + sk * d;
-          const float* er = emb + (long)(e0 + 32 * u + k) * d;
+      for (int u = 0; u < U; ++u) {  // then their sums, in edge order
+        if (i0 + u >= n) break;
+        if (wu[u] == 0.f) continue;  // masked or weight 0: not loaded
+        write_to(du[u]);
 #pragma unroll
-          for (int j = 0; j < CPL; ++j) {
-            const int c = c0 + lane + 32 * j;
-            if (c < d) {
-              float m = xr[c] + er[c];
-              if (relu) m = fmaxf(m, 0.f);
-              acc[j] += __fmul_rn(m, wk);  // rounded product, as the plain version
-            }
+        for (int j = 0; j < VPL; ++j) {
+          if (!has[j]) continue;
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) {
+            float m = xv[u][j].v[i] + ev[u][j].v[i];
+            if (relu) m = fmaxf(m, 0.f);
+            acc[j].v[i] += __fmul_rn(m, wu[u]);  // rounded, as the plain
+                                                 // version rounds it
           }
         }
       }
     }
-#pragma unroll
-    for (int j = 0; j < CPL; ++j) {
-      const int c = c0 + lane + 32 * j;
-      if (c < d) out[row * d + c] = acc[j];
-    }
   }
+  write_to(r_hi);
 }
 
 // Backward: with a_e = x[src_e] + emb_e and g = dOut,
@@ -100,15 +154,9 @@ __global__ void spmm_kernel(const float* __restrict__ x,
 // here (mask * ew), so the wrapper launches nothing before the kernel.
 // Grid y: slices of 32 * VEC * VPL channels. One writer per output cell, a
 // fixed order of terms (the parent design's: the same bits), no atomics.
-using vio::load_vec;
-using vio::store_vec;
-using vio::Vec;
-
-constexpr int BWD_THREADS = 256;  // 8 warps a block
-constexpr int BWD_MAX_VPL = 4;    // loads a lane a row (spmm.py:bwd_launch)
 
 template <int VEC, int VPL>
-__global__ void __launch_bounds__(BWD_THREADS, 2)  // two blocks an SM
+__global__ void __launch_bounds__(RUN_THREADS, 2)  // two blocks an SM
 spmm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ emb,
                 const int* __restrict__ src, const int* __restrict__ dst,
                 const int* __restrict__ perm, const int* __restrict__ sptr,
@@ -219,15 +267,43 @@ spmm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ emb,
   write_to(r_hi);
 }
 
-template <int CPL>
-int launch(const float* x, const float* emb, const int* src, const int* ptr,
-           const float* w, float* out, int N, int d, int relu,
-           cudaStream_t stream) {
-  const int threads = 256;  // 8 rows a block
-  const long blocks = ((long)N * 32 + threads - 1) / threads;
-  spmm_kernel<CPL><<<(unsigned)blocks, threads, 0, stream>>>(
-      x, emb, src, ptr, w, out, N, d, relu);
+struct FwdArgs {
+  const float *x, *emb;
+  const int *src, *dst;
+  const bool* emask;
+  const int *ptr, *dptr, *rptr;
+  const float* ew;
+  float* out;
+  int d, nruns, relu, slices;
+};
+
+template <int VEC, int VPL>
+int launch_fwd(const FwdArgs& A, cudaStream_t stream) {
+  const long blocks = ((long)A.nruns * 32 + RUN_THREADS - 1) / RUN_THREADS;
+  spmm_fwd_kernel<VEC, VPL><<<dim3((unsigned)blocks, A.slices), RUN_THREADS,
+                              0, stream>>>(A.x, A.emb, A.src, A.dst, A.emask,
+                                           A.ptr, A.dptr, A.rptr, A.ew, A.out,
+                                           A.d, A.nruns, A.relu);
   return cudaGetLastError();
+}
+
+template <int VEC>
+int launch_fwd_vpl(const FwdArgs& A, int vpl, cudaStream_t stream) {
+  switch (vpl) {
+    case 1: return launch_fwd<VEC, 1>(A, stream);
+    case 2: return launch_fwd<VEC, 2>(A, stream);
+    case 3: return launch_fwd<VEC, 3>(A, stream);
+    default: return launch_fwd<VEC, 4>(A, stream);
+  }
+}
+
+// (vec, vpl, slices) as spmm.py:bwd_launch gives them for width d: slices
+// of 32 * vec * vpl channels covering d once, vec dividing d
+bool launch_ok(int d, int vec, int vpl, int slices) {
+  if (!(vec == 1 || vec == 4) || d % vec || vpl < 1 || vpl > MAX_VPL)
+    return false;
+  const long width = 32L * vec * vpl;
+  return slices >= 1 && slices * width >= d && (slices - 1) * width < d;
 }
 
 struct BwdArgs {
@@ -242,8 +318,8 @@ struct BwdArgs {
 template <int VEC, int VPL>
 int launch_bwd(const BwdArgs& A, cudaStream_t stream) {
   const long warps = (long)A.nruns + (A.E + 31) / 32;
-  const long blocks = (warps * 32 + BWD_THREADS - 1) / BWD_THREADS;
-  spmm_bwd_kernel<VEC, VPL><<<dim3((unsigned)blocks, A.slices), BWD_THREADS,
+  const long blocks = (warps * 32 + RUN_THREADS - 1) / RUN_THREADS;
+  spmm_bwd_kernel<VEC, VPL><<<dim3((unsigned)blocks, A.slices), RUN_THREADS,
                               0, stream>>>(A.x, A.emb, A.src, A.dst, A.perm,
                                            A.sptr, A.rptr, A.emask, A.ew, A.g,
                                            A.dx, A.demb, A.E, A.d, A.nruns,
@@ -267,22 +343,33 @@ extern "C" const char* error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Returns cudaGetLastError() after the launch (0 = launched). relu = 1 for
-// the relu_add message, 0 for add.
+// out [N, d] over the edges of weight emask * ew (ew [E] may be null: 1):
+// row i's edges lie at [ptr[i], ptr[i+1]) (dst sorted), dptr [N + 1]
+// counts the live (emask) edges before each row, and rptr [nruns + 1] cuts
+// the rows [0, N) into runs (rptr[0] = 0, rptr[nruns] = N,
+// non-decreasing). relu = 1 for the relu_add message, 0 for add. The
+// launch (vec, vpl, slices) is the wrapper's bwd_launch, every row pointer
+// aligned to vec floats; another is refused. Returns cudaGetLastError()
+// after the launch (0 = launched).
 extern "C" int spmm_fwd(const float* x, const float* emb, const int* src,
-                        const int* ptr, const float* w, float* out, int N,
-                        int d, int relu, cudaStream_t stream) {
-  if (N <= 0 || d <= 0) return cudaErrorInvalidValue;
-  if (d <= 128) return launch<4>(x, emb, src, ptr, w, out, N, d, relu, stream);
-  if (d <= 256) return launch<8>(x, emb, src, ptr, w, out, N, d, relu, stream);
-  if (d <= 384)
-    return launch<12>(x, emb, src, ptr, w, out, N, d, relu, stream);
-  return launch<16>(x, emb, src, ptr, w, out, N, d, relu, stream);
+                        const int* dst, const bool* emask, const int* ptr,
+                        const int* dptr, const int* rptr, const float* ew,
+                        float* out, int N, int d, int nruns, int relu,
+                        int vec, int vpl, int slices, cudaStream_t stream) {
+  if (N <= 0 || d <= 0 || nruns < 1 || !launch_ok(d, vec, vpl, slices))
+    return cudaErrorInvalidValue;
+  if (((unsigned long)x | (unsigned long)emb | (unsigned long)out) %
+      (4ul * vec))
+    return cudaErrorInvalidValue;
+  const FwdArgs A{x,   emb, src,   dst,  emask, ptr,   dptr,
+                  rptr, ew, out,   d,    nruns, relu,  slices};
+  return vec == 4 ? launch_fwd_vpl<4>(A, vpl, stream)
+                  : launch_fwd_vpl<1>(A, vpl, stream);
 }
 
 // dx [N, d] and d_emb [E, d] for the cotangent g [N, d] of spmm_fwd's out,
 // whose weight was emask * ew (ew [E] may be null: 1), folded here as
-// spmm_fwd's wrapper folds it. perm [E] lists the valid edges of each
+// spmm_fwd folds it. perm [E] lists the valid edges of each
 // source row s at [sptr[s], sptr[s+1]), in a fixed order. rptr [nruns + 1]
 // cuts the rows [0, N) into runs (rptr[0] = 0, rptr[nruns] = N,
 // non-decreasing). The launch (vec, vpl, slices) is the wrapper's
@@ -295,11 +382,8 @@ extern "C" int spmm_bwd(const float* x, const float* emb, const int* src,
                         const float* g, float* dx, float* demb, int N, int E,
                         int d, int nruns, int relu, int vec, int vpl,
                         int slices, cudaStream_t stream) {
-  if (N <= 0 || d <= 0 || E < 0 || nruns < 1) return cudaErrorInvalidValue;
-  if (!(vec == 1 || vec == 4) || d % vec || vpl < 1 || vpl > BWD_MAX_VPL)
-    return cudaErrorInvalidValue;
-  const long width = 32L * vec * vpl;
-  if (slices < 1 || slices * width < d || (slices - 1) * width >= d)
+  if (N <= 0 || d <= 0 || E < 0 || nruns < 1 ||
+      !launch_ok(d, vec, vpl, slices))
     return cudaErrorInvalidValue;
   const unsigned long align = 4ul * vec;
   if (((unsigned long)x | (unsigned long)emb | (unsigned long)g |

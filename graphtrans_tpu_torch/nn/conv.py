@@ -14,8 +14,9 @@ the degree and the norm from per-graph reductions and gathers
 batch's block plans when it carries them and the model's switch is on
 (``ops/block_plan.py:set_block_spmm``; the edge encoder then encodes the
 attributes in each plan's chunk order, and the norm is gathered per
-slot), else in kernel K7 over the dst-sorted edges (its backward walks the
-batch's ``src_order``, shared by every layer): the JAX package's
+slot), else in kernel K7 over the dst-sorted edges (it walks the batch's
+``dst_order`` and its backward the batch's ``src_order``, each made once
+and shared by every layer): the JAX package's
 precedence, strided, then blocked, then flat. The degree, the norm and
 the self term are plain PyTorch.
 """
@@ -27,8 +28,8 @@ from torch import nn
 
 from ..ops import block_plan, dense_mp
 from ..ops.kernels import (blocked_gather_message_scatter,
-                           blocked_gather_message_scatter_plain, spmm,
-                           spmm_plain, src_order)
+                           blocked_gather_message_scatter_plain, dst_order,
+                           spmm, spmm_plain, src_order)
 from ..ops.segment import out_degree
 from .encoders import BondEncoder
 from .init import normal_
@@ -107,7 +108,8 @@ class GCNConv(nn.Module):
                 emb = self.edge_encoder(batch.edge_attr).to(x.dtype)
                 args = (x, emb, batch.edge_src, batch.edge_dst,
                         batch.edge_mask, norm, "relu_add")
-                agg = (spmm(*args, order=src_order(batch)) if self.use_kernel
+                agg = (spmm(*args, order=src_order(batch),
+                            rows=dst_order(batch)) if self.use_kernel
                        else spmm_plain(*args))
             inv_deg = (1.0 / deg)[:, None]
         out = agg + torch.relu(x + self.root_emb) * inv_deg

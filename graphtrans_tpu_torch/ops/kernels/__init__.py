@@ -38,8 +38,8 @@ from .flash_hil import (flash_hil_seg, flash_hil_seg_bwd,
                         flash_hil_seg_bwd_plain, flash_hil_seg_plain)
 from .gin_agg import gin_agg, gin_agg_bwd, gin_agg_bwd_plain, gin_agg_plain
 from .scatter_mxu import segment_sum_mxu, segment_sum_mxu_plain
-from .spmm import (SrcOrder, spmm, spmm_bwd, spmm_bwd_plain, spmm_plain,
-                   src_order)
+from .spmm import (DstOrder, SrcOrder, dst_order, spmm, spmm_bwd,
+                   spmm_bwd_plain, spmm_plain, src_order)
 from .transformer_layer import (transformer_layer, transformer_layer_bwd,
                                 transformer_layer_bwd_plain,
                                 transformer_layer_plain)
@@ -89,6 +89,7 @@ __all__ = ["attention_dense", "attention_dense_bwd",
            "blocked_gather_message_scatter_plain",
            "byte_dropout", "byte_dropout_plain", "dense_agg",
            "dense_agg_bwd", "dense_agg_bwd_plain", "dense_agg_plain",
+           "dst_order", "DstOrder",
            "flash_attention", "flash_attention_bwd",
            "flash_attention_bwd_plain", "flash_attention_plain",
            "flash_hil_seg", "flash_hil_seg_bwd", "flash_hil_seg_bwd_plain",

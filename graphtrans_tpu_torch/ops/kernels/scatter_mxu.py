@@ -13,17 +13,27 @@ The TPU kernel streams aligned 256-edge tiles of msg per 256-row node
 block and adds each tile as a one-hot MXU product; both are TPU idioms.
 
 What bounds it on the H100: memory, msg read once and out written once
-(at [196608, 128] f32, 134 MB). Design (``csrc/scatter_mxu.cu``): the row
-pointer comes from ``torch.searchsorted(dst, arange(N + 1))`` on the card
-(edges outside [0, N) fall outside every row), and each row's edges are
-cut into pieces of 128, numbered by a ``cumsum`` (one piece for a row
-without edges). One warp per piece sums its edges in order, lanes over
-the channels, 4 edges' loads in flight; then one warp per row sums its
-pieces in order. A collated batch's padding node owns tens of thousands
-of edges (24846 at the 512-graph code2 batch), which one warp alone walked
-in 3.29 ms (NVIDIA H100 80GB HBM3, 700.00 W, ``chip_smoke.py`` phase 13a):
-the pieces spread it over 195 warps. One writer per output, a fixed
-order, no atomics; the two launches count as one.
+(at [196608, 128] f32, 134 MB). Design (``csrc/scatter_mxu.cu``), one
+launch with no PyTorch op before it: the wrapper only allocates ``out``
+and a scratch of (2 d + 2) floats a warp with ``torch.empty`` (an int32
+dst is taken as it is). The kernel
+cuts the work as a merge path over the edges and the N row ends (an edge
+and a row each one item, SPAN items a warp), so a row without edges costs
+a zero row's write and the padding node's long row (24846 edges at the
+512-graph code2 batch, 3.29 ms when one warp walked it alone) spreads over
+some two hundred warps. A warp finds its ends by a search over dst, moves
+an end that cuts a row to the row's end when that lies within 32 edges,
+and sums its rows from 0 in edge order with 16-byte loads, 2-8 edges'
+rows in flight: a row inside one warp gets the sequential sum's bits. A row cut
+between warps leaves one part a warp; the block that finishes last (a
+ticket after ``__threadfence``) sums each such row's parts in warp order,
+by one warp, or, past 32 parts (the padding node's row), by the whole
+block as 8 in-order range sums (0.0628 ms against 0.0732 with one warp
+for every row at the 512-graph batch, PERF.md §6). The ticket is a counter of the caller's stream
+(``_ticket``: zeroed at the stream's first call, and set back to 0 by the
+kernel), so calls on two streams at once count apart. One writer per
+output row, a fixed order of terms, no atomics on out: two calls give the
+same bits.
 """
 
 from __future__ import annotations
@@ -37,6 +47,8 @@ from . import _build
 
 NODE_BLOCK = 256   # the JAX kernel's tiles, which set the shape contract
 EDGE_TILE = 256
+SPAN = 128         # merge-path items (edges and row ends) a warp, as the
+                   # kernel's (csrc/scatter_mxu.cu)
 
 
 def _refused(msg: torch.Tensor, num_nodes: int) -> bool:
@@ -79,24 +91,21 @@ def segment_sum_mxu(msg: torch.Tensor, edge_dst: torch.Tensor,
     if d > 512:
         raise ValueError(f"segment_sum_mxu: d {d} > 512")
     msg = msg.to(torch.float32).contiguous()
+    if msg.data_ptr() % 16:              # float4 loads
+        msg = msg.clone()
     dst = edge_dst.to(torch.int32).contiguous()
     N = num_nodes
-    ptr = torch.searchsorted(
-        dst, torch.arange(N + 1, dtype=torch.int32, device=msg.device),
-        out_int32=True)
-    lib = _load()
-    L = lib.segment_sum_piece_len()
-    pieces = ((ptr[1:] - ptr[:-1] + L - 1) // L).clamp_(min=1)
-    pptr = torch.zeros(N + 1, dtype=torch.int32, device=msg.device)
-    pptr[1:] = torch.cumsum(pieces, 0, dtype=torch.int32)
-    P = N + -(-E // L)                   # at least pptr[N]
-    partial = torch.empty(P, d, dtype=torch.float32, device=msg.device)
     out = torch.empty(N, d, dtype=torch.float32, device=msg.device)
+    if N == 0:
+        return out
+    lib = _load()
+    nwarps = -(-(N + E) // SPAN)
+    scratch = torch.empty(nwarps * (2 * d + 2), dtype=torch.float32,
+                          device=msg.device)
+    stream = torch.cuda.current_stream(msg.device).cuda_stream
     err = lib.segment_sum_mxu(
-        *(ctypes.c_void_p(t.data_ptr()) for t in (msg, ptr, pptr, partial,
-                                                  out)),
-        N, P, d,
-        ctypes.c_void_p(torch.cuda.current_stream(msg.device).cuda_stream))
+        msg.data_ptr(), dst.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        _ticket(msg.device, stream).data_ptr(), N, E, d, stream)
     _build.check(lib, err, "segment_sum_mxu")
     segment_sum_mxu.launches += 1
     return out
@@ -104,13 +113,29 @@ def segment_sum_mxu(msg: torch.Tensor, edge_dst: torch.Tensor,
 
 segment_sum_mxu.launches = 0
 
+_tickets = {}   # (device, stream): the kernel's ticket counter
+
+
+def _ticket(device: torch.device, stream: int) -> torch.Tensor:
+    """K12's ticket counter for calls on ``stream``: made zero at the
+    stream's first call and kept (the kernel's last block sets it back to
+    0), so calls on two streams at once count apart and every later call
+    launches nothing before the kernel."""
+    key = (device, stream)
+    if key not in _tickets:
+        _tickets[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _tickets[key]
+
 
 def _load():
     lib = _build.load("scatter_mxu")
     if lib.segment_sum_mxu.argtypes is None:
-        lib.segment_sum_mxu.argtypes = ([ctypes.c_void_p] * 5
-                                        + [ctypes.c_int, ctypes.c_long,
-                                           ctypes.c_int, ctypes.c_void_p])
+        lib.segment_sum_mxu.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_long,
+                                     ctypes.c_int, ctypes.c_void_p])
         lib.segment_sum_mxu.restype = ctypes.c_int
-        lib.segment_sum_piece_len.restype = ctypes.c_int
+        lib.segment_sum_span.restype = ctypes.c_int
+        if lib.segment_sum_span() != SPAN:
+            raise RuntimeError("segment_sum_mxu: csrc/scatter_mxu.cu's SPAN "
+                               f"is {lib.segment_sum_span()}, not {SPAN}")
     return lib

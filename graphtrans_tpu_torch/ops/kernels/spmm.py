@@ -33,29 +33,36 @@ of x (through the src gather) and a row of emb and does 4 flops a channel,
 then writes N rows once: at the 512-graph code2 shape (d=300) about 0.4 GB
 and 0.2 GFLOP; the backward must read x and g once and a row of emb per
 valid edge, and write d_emb and dx, about 0.68 GB. Design (``csrc/spmm.cu``):
-forward, one warp per destination row walks its edge range in order, lanes
-over channels, accumulators in registers; each output row has one writer,
-so there are no atomics and the sum has a fixed order. A lane loads the src
-and weight of 8 edges at once and edges of weight 0 (the padding tail) are
-skipped 32 at a time by a ballot, so the padding node's long edge list
-(some 25k edges at 512 graphs) costs a few dozen load steps.
+forward and backward each walk the valid edges in one major order, cut into
+runs of whole rows (``edge_runs``: about ``RUN_COST`` units of work a run,
+an edge ``EDGE_COST``, a row one; code2's rows hold a few edges each, so a
+run holds some 8 edges and 3 rows), a warp a run. Its lanes load the
+indices and weight of 32 edges at once, then it issues the rows of 2-4
+edges together (16-byte loads where d and the addresses allow,
+``bwd_launch``) before it adds any, so many edges' rows are in flight a
+warp rather than one. The kernels fold the mask and ``edge_weight``
+themselves, so a call with its batch's orders launches nothing before its
+kernel (at code2's serving and train batches of 16 back-to-back calls are
+paced by the host). One writer per output cell, no atomics.
+
+Forward: ``DstOrder`` (``dst_order(batch)``, one per batch for every
+layer) holds the row pointer of the dst-sorted edges, the live edges
+before each row (a cumsum of the mask) and the runs, cut by live edges:
+six small ops, no sort, nothing back to the host. The warp walks its
+run's edges in batch order, sums each destination row in registers in
+edge order, skipping masked edges and edges of weight 0, each product
+rounded before its add, and writes the row once (zeros for a row with no
+live edge). It stops at the run's last live edge, so the padding tail
+(some 25k masked edges on the padding node's row at 512 graphs) is never
+walked and no run pays for it.
 
 Backward: the valid edges in src-major order (``SrcOrder``: a stable
 device sort of the valid edges by src and a ``searchsorted`` row pointer;
-``src_order(batch)`` keeps one on the batch, so every layer shares it) are
-cut into runs of whole source rows (``edge_runs``: about ``RUN_COST`` units
-of work a run, an edge ``EDGE_COST``, a row one; code2's rows hold a few
-edges each, so a run holds some 8 edges and 3 rows). A warp walks a run: its lanes load the src, dst and weight of 32 edges at once, then it
-issues the g, emb and x rows of 2-4 edges together (16-byte loads where d
-and the addresses allow, ``bwd_launch``) before it adds any, so many edges'
-rows are in flight a warp rather than one; it writes each edge's d_emb
-row, sums dx of the current row in registers in perm order and writes each
-row's dx once (a row with no edge gets zeros). Masked edges are in no row,
-and separate warps write their zero d_emb rows, 16 bytes a lane. The
-kernel folds the mask and ``edge_weight`` itself, so the wrapper launches
-nothing before it (at code2's train batch of 16 back-to-back calls are
-paced by the host). One writer per output cell, the parent design's order
-of terms (the same bits), no atomics.
+``src_order(batch)`` keeps one on the batch). The warp writes each edge's
+d_emb row, sums dx of the current row in registers in perm order and
+writes each row's dx once (a row with no edge gets zeros). Masked edges
+are in no row, and separate warps write their zero d_emb rows, 16 bytes a
+lane.
 """
 
 from __future__ import annotations
@@ -121,12 +128,20 @@ def edge_runs(sptr: torch.Tensor, num_edges: int) -> torch.Tensor:
 def _edge_runs(sptr: torch.Tensor, num_edges: int,
                run_cost: int) -> torch.Tensor:
     N = sptr.shape[0] - 1
-    cost = torch.arange(N, dtype=torch.long, device=sptr.device).add_(
-        sptr[:N], alpha=EDGE_COST)
+    long = torch.long
+    cost = torch.add(_arange(N, 1, long, sptr.device), sptr[:N],
+                     alpha=EDGE_COST)
     nruns = max(1, -(-(EDGE_COST * num_edges + N) // run_cost))
-    bounds = torch.arange(0, (nruns + 1) * run_cost, run_cost,
-                          dtype=torch.long, device=sptr.device)
-    return torch.searchsorted(cost, bounds, out_int32=True)
+    return torch.searchsorted(
+        cost, _arange(nruns + 1, run_cost, long, sptr.device), out_int32=True)
+
+
+@functools.lru_cache(maxsize=64)
+def _arange(n: int, step: int, dtype: torch.dtype,
+            device: torch.device) -> torch.Tensor:
+    """arange(0, n * step, step) on ``device``, made once a shape (a
+    batch's orders then launch no arange)."""
+    return torch.arange(0, n * step, step, dtype=dtype, device=device)
 
 
 class SrcOrder:
@@ -140,6 +155,7 @@ class SrcOrder:
     def __init__(self, src: torch.Tensor, emask: torch.Tensor,
                  num_nodes: int):
         self.src, self.emask, self.num_nodes = src, emask, num_nodes
+        self.num_edges = src.shape[0]
         self._order = self._runs = None
 
     def get(self):
@@ -155,7 +171,7 @@ class SrcOrder:
 
     def runs(self) -> torch.Tensor:
         if self._runs is None:
-            self._runs = edge_runs(self.get()[1], self.src.shape[0])
+            self._runs = edge_runs(self.get()[1], self.num_edges)
         return self._runs
 
 
@@ -169,6 +185,59 @@ def src_order(batch) -> SrcOrder:
                          batch.num_node_slots)
         object.__setattr__(batch, "_src_order", order)   # a frozen dataclass
     return order
+
+
+class DstOrder:
+    """The dst-major order K7's forward walks: ``ptr`` [N + 1] int32, row
+    i's edges at ``[ptr[i], ptr[i+1])`` (dst must be sorted), ``dptr`` [N +
+    1] int32, the live (masked-in) edges before row i, and ``runs()`` the
+    rows cut into runs (``edge_runs`` of ``dptr``: a run costs its live
+    edges, so the masked tail costs nothing). Nothing is sorted and nothing
+    comes back to the host. Computed on the device at first use, then
+    shared: one per batch serves every layer."""
+
+    def __init__(self, dst: torch.Tensor, emask: torch.Tensor,
+                 num_nodes: int):
+        self.dst, self.emask, self.num_nodes = dst, emask, num_nodes
+        self.num_edges = dst.shape[0]
+        self._order = self._runs = None
+
+    def get(self):
+        if self._order is None:
+            N, E, dev = self.num_nodes, self.num_edges, self.dst.device
+            live = torch.zeros(E + 1, dtype=torch.int32, device=dev)
+            torch.cumsum(self.emask, 0, dtype=torch.int32, out=live[1:])
+            ptr = torch.searchsorted(
+                self.dst, _arange(N + 1, 1, self.dst.dtype, dev),
+                out_int32=True)
+            self._order = (ptr, live.index_select(0, ptr))
+        return self._order
+
+    def runs(self) -> torch.Tensor:
+        if self._runs is None:
+            self._runs = edge_runs(self.get()[1], self.num_edges)
+        return self._runs
+
+
+def dst_order(batch) -> DstOrder:
+    """The ``DstOrder`` of a batch's flat edges, made at the first call and
+    kept on the batch, as ``src_order`` keeps its ``SrcOrder``."""
+    order = batch.__dict__.get("_dst_order")
+    if order is None:
+        order = DstOrder(batch.edge_dst, batch.edge_mask,
+                         batch.num_node_slots)
+        object.__setattr__(batch, "_dst_order", order)   # a frozen dataclass
+    return order
+
+
+def _same_edges(order, what: str, x: torch.Tensor, n_edges: int):
+    """Raise where ``order`` (a SrcOrder or DstOrder) was made for another
+    node or edge count than the call's (the kernel would leave rows
+    unwritten)."""
+    if order.num_nodes != x.shape[0] or order.num_edges != n_edges:
+        raise ValueError(f"{what}: order is of {order.num_nodes} nodes and "
+                         f"{order.num_edges} edges, the call of "
+                         f"{x.shape[0]} and {n_edges}")
 
 
 def _check(x, emb, src, dst, emask, edge_weight, message, g=None):
@@ -193,34 +262,36 @@ def _check(x, emb, src, dst, emask, edge_weight, message, g=None):
         raise ValueError(f"spmm: message {message!r} not in {MESSAGES}")
 
 
-def _launch_fwd(x, emb, src, dst, w, message):
+def _launch_fwd(x, emb, src, dst, emask, edge_weight, message,
+                rows: DstOrder):
     N, d = x.shape
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
-    ptr = torch.searchsorted(
-        dst, torch.arange(N + 1, dtype=torch.int32, device=x.device),
-        out_int32=True)
+    ptr, dptr = rows.get()
+    rptr = rows.runs()
+    vec, vpl, slices = bwd_launch(d, _build.align(x, emb))   # out: new
     lib = _load()
-    err = lib.spmm_fwd(
-        ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(emb.data_ptr()),
-        ctypes.c_void_p(src.data_ptr()), ctypes.c_void_p(ptr.data_ptr()),
-        ctypes.c_void_p(w.data_ptr()), ctypes.c_void_p(out.data_ptr()), N, d,
-        int(message == "relu_add"), _stream(x))
+    err = lib.spmm_fwd(     # ints: ctypes makes each a c_void_p; the kernel
+        *(t.data_ptr()      # folds emask * edge_weight itself
+          for t in (x, emb, src, dst, emask, ptr, dptr, rptr)),
+        edge_weight.data_ptr() if edge_weight is not None else None,
+        out.data_ptr(), N, d, rptr.shape[0] - 1, int(message == "relu_add"),
+        vec, vpl, slices, _stream(x))
     _build.check(lib, err, "spmm_fwd")
     spmm.launches += 1
     return out
 
 
-BWD_MAX_VPL = 4  # loads a lane a row in the backward (csrc/spmm.cu)
+BWD_MAX_VPL = 4  # loads a lane a row (csrc/spmm.cu MAX_VPL)
 
 
 @functools.lru_cache(maxsize=None)
 def bwd_launch(d: int, align: int = 4):
-    """K7-bwd's (vec, vpl, slices) at width d: ``vec`` floats a load (4
-    where d and the addresses, ``align`` floats, allow; else 1), ``vpl``
-    loads a lane a row, so a warp covers 32 * vec * vpl channels, and
-    ``slices`` such warps' widths (grid y) to cover d: one slice up to
+    """K7's and K7-bwd's (vec, vpl, slices) at width d: ``vec`` floats a
+    load (4 where d and the addresses, ``align`` floats, allow; else 1),
+    ``vpl`` loads a lane a row, so a warp covers 32 * vec * vpl channels,
+    and ``slices`` such warps' widths (grid y) to cover d: one slice up to
     d 512 with vec 4."""
     vec = 4 if d % 4 == 0 and align % 4 == 0 else 1
     lanes = -(-d // vec)
@@ -238,35 +309,43 @@ class _Spmm(torch.autograd.Function):
     d_emb)."""
 
     @staticmethod
-    def forward(ctx, x, emb, src, dst, emask, edge_weight, message, order):
+    def forward(ctx, x, emb, src, dst, emask, edge_weight, message, order,
+                rows):
         ctx.save_for_backward(x, emb, src, dst, emask, edge_weight)
         ctx.message, ctx.order = message, order
-        return _launch_fwd(x, emb, src, dst,
-                           _folded_weight(emask, edge_weight), message)
+        return _launch_fwd(x, emb, src, dst, emask, edge_weight, message,
+                           rows)
 
     @staticmethod
     def backward(ctx, g):
         x, emb, src, dst, emask, edge_weight = ctx.saved_tensors
         dx, demb = spmm_bwd(x, emb, src, dst, emask, g.contiguous(),
                             ctx.order, edge_weight, ctx.message)
-        return dx, demb, None, None, None, None, None, None
+        return dx, demb, None, None, None, None, None, None, None
 
 
 def spmm(x: torch.Tensor, emb: torch.Tensor, src: torch.Tensor,
          dst: torch.Tensor, emask: torch.Tensor,
          edge_weight: Optional[torch.Tensor] = None,
          message: str = "relu_add",
-         order: Optional[SrcOrder] = None) -> torch.Tensor:
+         order: Optional[SrcOrder] = None,
+         rows: Optional[DstOrder] = None) -> torch.Tensor:
     """K7 forward. CPU tensors take ``spmm_plain``; CUDA tensors launch the
     kernel or raise. Every edge must hold src and dst in ``[0, N)`` and dst
-    must be sorted. Where a gradient is wanted the result carries K7's
-    backward kernel (``spmm_bwd``), which walks ``order``, the ``SrcOrder``
-    of these edges (``src_order(batch)`` for a batch's)."""
+    must be sorted. The kernel walks ``rows``, the ``DstOrder`` of these
+    edges (``dst_order(batch)`` for a batch's, so that a call launches
+    nothing before the kernel); without it the call makes one. Where a
+    gradient is wanted the result carries K7's backward kernel
+    (``spmm_bwd``), which walks ``order``, the ``SrcOrder`` of these edges
+    (``src_order(batch)`` for a batch's)."""
     if x.device.type == "cpu":
         return spmm_plain(x, emb, src, dst, emask, edge_weight, message)
     if x.device.type != "cuda":
         raise ValueError(f"spmm: unsupported device {x.device}")
     _check(x, emb, src, dst, emask, edge_weight, message)
+    if rows is None:
+        rows = DstOrder(dst, emask, x.shape[0])
+    _same_edges(rows, "spmm", x, src.shape[0])
     if torch.is_grad_enabled() and (x.requires_grad or emb.requires_grad
                                     or (edge_weight is not None
                                         and edge_weight.requires_grad)):
@@ -279,9 +358,8 @@ def spmm(x: torch.Tensor, emb: torch.Tensor, src: torch.Tensor,
             raise ValueError("spmm: a gradient needs order, the SrcOrder of "
                              "these edges (src_order(batch) for a batch's)")
         return _Spmm.apply(x, emb, src, dst, emask, edge_weight, message,
-                           order)
-    return _launch_fwd(x, emb, src, dst, _folded_weight(emask, edge_weight),
-                       message)
+                           order, rows)
+    return _launch_fwd(x, emb, src, dst, emask, edge_weight, message, rows)
 
 
 spmm.launches = 0
@@ -297,10 +375,7 @@ def spmm_bwd(x: torch.Tensor, emb: torch.Tensor, src: torch.Tensor,
     ``spmm_bwd_plain``; CUDA tensors launch the kernel or raise. An
     ``order`` of another node or edge count raises on either: the kernel
     writes the dx rows of ``order``'s nodes only."""
-    if order.num_nodes != x.shape[0] or order.src.shape[0] != src.shape[0]:
-        raise ValueError(f"spmm_bwd: order is of {order.num_nodes} nodes and "
-                         f"{order.src.shape[0]} edges, the call of "
-                         f"{x.shape[0]} and {src.shape[0]}")
+    _same_edges(order, "spmm_bwd", x, src.shape[0])
     if x.device.type == "cpu":
         return spmm_bwd_plain(x, emb, src, dst, emask, g, edge_weight,
                               message)
@@ -334,7 +409,7 @@ spmm_bwd.launches = 0
 def _load():
     lib = _build.load("spmm")
     if lib.spmm_fwd.argtypes is None:
-        lib.spmm_fwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+        lib.spmm_fwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                                  + [ctypes.c_void_p])
         lib.spmm_fwd.restype = ctypes.c_int
         lib.spmm_bwd.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8

@@ -2334,3 +2334,180 @@ def test_segment_sum_mxu_kernel_matches_plain(cuda, N, E, d):
     assert segment_sum_mxu(msg[:, :100].contiguous(), dst, N) is None
     with pytest.raises(ValueError, match="gradient"):
         segment_sum_mxu(msg.clone().requires_grad_(), dst, N)
+
+
+# ---- K7's forward over runs of rows, K12 on the merge path ----------------
+
+
+def _only_kernel_launched(fn, kernel: str, calls: int = 5):
+    """Whether ``calls`` calls of ``fn`` (after a warm-up call) launched no
+    CUDA work but kernels named ``kernel``, at least one recorded, from
+    torch.profiler. The profiler may drop a kernel's record, so the count
+    can fall short of ``calls``; a launch of any other op in any call
+    shows under its own name."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert names and len(names) <= calls, names
+    assert all(kernel in n for n in names), names
+
+
+def _k7_tail_case(d, cuda, N=3000, live=9000, tail=30000):
+    """dst-sorted edges: live ones over rows 0..N-501 with masks mid-row
+    (every 9th), a hub (row 5 with 600 more), zero weights (one inside row
+    11, all of row 12), rows N-500..N-2 with no edge, and a masked padding
+    tail of ``tail`` edges on node N-1 (whose row of x is zero)."""
+    gen = torch.Generator().manual_seed(d + 2)
+    dst = torch.sort(torch.cat([
+        torch.randint(0, N - 500, (live - 600,), generator=gen),
+        torch.full((600,), 5)]))[0]
+    src = torch.randint(0, N - 1, (live,), generator=gen)
+    pad = torch.full((tail,), N - 1)
+    dst, src = torch.cat([dst, pad]), torch.cat([src, pad])
+    E = live + tail
+    mask = torch.arange(E) < live
+    mask[:live:9] = False
+    w = torch.rand(E, generator=gen) + 0.1
+    w[torch.nonzero((dst == 11) & mask).flatten()[:1]] = 0.0
+    w[dst == 12] = 0.0
+    x = torch.randn(N, d, generator=gen)
+    x[N - 1] = 0
+    return [t.to(cuda) for t in (
+        x, torch.randn(E, d, generator=gen), src.int(), dst.int(), mask, w)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [300, 128, 64, 45])
+@pytest.mark.parametrize("message", ["relu_add", "add"])
+def test_spmm_runs_match_plain_and_walk(cuda, d, message):
+    """K7's forward over runs of whole destination rows, with and without
+    the batch's DstOrder: within 1e-5 of max(1, max|ref|) of the plain
+    version, the CPU walk's bits (tests/_port_walks.py), the same bits in
+    both calls; rows with no live edge exactly 0; a call with the order
+    launches one kernel and no PyTorch op before it. d 45: one float a
+    load."""
+    from _port_walks import k7_fwd_walk
+
+    from graphtrans_tpu_torch.ops.kernels import DstOrder, spmm, spmm_plain
+
+    x, emb, src, dst, mask, w = _k7_tail_case(d, cuda)
+    N = x.shape[0]
+    rows = DstOrder(dst, mask, N)
+    before = spmm.launches
+    got = spmm(x, emb, src, dst, mask, w, message, rows=rows)
+    again = spmm(x, emb, src, dst, mask, w, message)
+    torch.cuda.synchronize()
+    assert spmm.launches == before + 2
+    assert torch.equal(got, again)
+    want = spmm_plain(x, emb, src, dst, mask, w, message)
+    assert (got - want).abs().max().item() <= 1e-5 * max(
+        1.0, want.abs().max().item())
+    assert not got[N - 500:].any() and not got[12].any()
+    host = [t.cpu() for t in (x, emb, src, dst, mask, w)]
+    walk, writes, _ = k7_fwd_walk(*(t.numpy() for t in host),
+                                  message == "relu_add",
+                                  DstOrder(host[3], host[4], N))
+    assert (writes == 1).all()
+    assert torch.equal(got.cpu(), torch.from_numpy(walk))
+    _only_kernel_launched(
+        lambda: spmm(x, emb, src, dst, mask, w, message, rows=rows),
+        "spmm_fwd")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,E,d,long_row",
+                         [(1024, 4096, 128, None), (65536, 196608, 128, None),
+                          (512, 1024, 256, None), (1024, 32768, 512, 30000)])
+def test_segment_sum_mxu_merge_path(cuda, N, E, d, long_row):
+    """K12 over sorted dsts with out-of-range edges at both ends, rows
+    without edges (the last 50 among them), a row of 600 edges and, in
+    the last case, one of 30000: within 1e-5 of max(1, max|ref|) of the
+    plain version, the CPU walk's bits where it is small, identical bits
+    in two calls, one launch and no PyTorch op launched before it."""
+    from _port_walks import k12_walk
+
+    from graphtrans_tpu_torch.ops.kernels import (segment_sum_mxu,
+                                                  segment_sum_mxu_plain)
+    from graphtrans_tpu_torch.ops.kernels.scatter_mxu import SPAN
+
+    gen = torch.Generator().manual_seed(N + d)
+    extra = [torch.full((600,), 7)] + (
+        [torch.full((long_row,), 200)] if long_row else [])
+    rest = E - 600 - (long_row or 0) - 40
+    dst = torch.sort(torch.cat([
+        torch.randint(0, N - 50, (rest,), generator=gen), *extra,
+        torch.full((20,), -1), torch.full((20,), N)]))[0].int()
+    msg = torch.randn(E, d, generator=gen)
+    dc, mc = dst.to(cuda), msg.to(cuda)
+    before = segment_sum_mxu.launches
+    got = segment_sum_mxu(mc, dc, N)
+    again = segment_sum_mxu(mc, dc.long(), N)
+    torch.cuda.synchronize()
+    assert segment_sum_mxu.launches == before + 2
+    assert torch.equal(got, again)
+    want = segment_sum_mxu_plain(msg, dst, N)
+    assert (got.cpu() - want).abs().max().item() <= 1e-5 * max(
+        1.0, want.abs().max().item())
+    assert not got[N - 50:].any()
+    if E <= 32768:
+        walk, writes, cut = k12_walk(msg.numpy(), dst.numpy(), N, SPAN)
+        assert (writes == 1).all() and 7 in cut
+        assert torch.equal(got.cpu(), torch.from_numpy(walk))
+    _only_kernel_launched(lambda: segment_sum_mxu(mc, dc, N),
+                          "segment_sum_kernel")
+
+
+@pytest.mark.cuda
+def test_segment_sum_mxu_many_long_rows(cuda):
+    """K12 with 70 rows of 4608 edges, each cut into some 36 pieces: the
+    last block's scan meets them in two windows of 2048 warps and joins
+    each with the whole block, in 8 ranges; the CPU walk's bits hold for
+    every row."""
+    from _port_walks import k12_walk
+
+    from graphtrans_tpu_torch.ops.kernels import segment_sum_mxu
+    from graphtrans_tpu_torch.ops.kernels.scatter_mxu import SPAN
+
+    N, rows, per = 1024, 70, 4608
+    dst = (torch.arange(rows * per) // per * 13).int()
+    msg = torch.randn(rows * per, 128,
+                      generator=torch.Generator().manual_seed(70))
+    got = segment_sum_mxu(msg.to(cuda), dst.to(cuda), N)
+    walk, writes, cut = k12_walk(msg.numpy(), dst.numpy(), N, SPAN)
+    assert (writes == 1).all() and len(cut) == rows
+    assert torch.equal(got.cpu(), torch.from_numpy(walk))
+
+
+@pytest.mark.cuda
+def test_segment_sum_mxu_two_streams_at_once(cuda):
+    """K12 called on two streams at once, over and over (each stream has
+    its own ticket counter): every result has the bits of the same call
+    on one stream, the padding-like long row included."""
+    from graphtrans_tpu_torch.ops.kernels import segment_sum_mxu
+
+    N, E = 65536, 196608
+    gen = torch.Generator().manual_seed(2)
+    dst = torch.sort(torch.cat([torch.randint(0, N, (E - 25000,),
+                                              generator=gen),
+                                torch.full((25000,), N - 1)]))[0].int()
+    dc = dst.to(cuda)
+    msgs = [torch.randn(E, 128, generator=gen).to(cuda) for _ in range(2)]
+    want = [segment_sum_mxu(m, dc, N) for m in msgs]
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(20):
+        for k, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                got[k].append(segment_sum_mxu(msgs[k], dc, N))
+    torch.cuda.synchronize()
+    for k in range(2):
+        for out in got[k]:
+            assert torch.equal(out, want[k])

@@ -314,21 +314,28 @@ def test_bwd_launch_covers_every_channel(d, align):
         assert slices == 1
 
 
-def _c_params(entry: str) -> int:
-    text = (CSRC / "spmm.cu").read_text()
+def _c_params(entry: str, source: str = "spmm.cu") -> int:
+    text = (CSRC / source).read_text()
     sig = re.search(r'extern "C" int ' + entry + r"\((.*?)\)\s*\{", text,
                     re.S)
     return len(sig.group(1).split(","))
 
 
 def test_ctypes_signatures_match_the_c_entries(monkeypatch):
-    """The argtypes that spmm.py sets have as many entries as K7's C
-    entries (forward and backward) have parameters."""
+    """The argtypes that spmm.py and scatter_mxu.py set have as many
+    entries as K7's C entries (forward and backward) and K12's have
+    parameters."""
     from graphtrans_tpu_torch.ops.kernels import _build
 
+    k12 = importlib.import_module(
+        "graphtrans_tpu_torch.ops.kernels.scatter_mxu")
+    entry = lambda: types.SimpleNamespace(argtypes=None)  # noqa: E731
     monkeypatch.setattr(_build, "load", lambda name: types.SimpleNamespace(
-        spmm_fwd=types.SimpleNamespace(argtypes=None),
-        spmm_bwd=types.SimpleNamespace(argtypes=None)))
+        spmm_fwd=entry(), spmm_bwd=entry(), segment_sum_mxu=entry(),
+        segment_sum_span=lambda: k12.SPAN))
     lib = k7._load()
-    for entry in ("spmm_fwd", "spmm_bwd"):
-        assert len(getattr(lib, entry).argtypes) == _c_params(entry), entry
+    for name in ("spmm_fwd", "spmm_bwd"):
+        assert len(getattr(lib, name).argtypes) == _c_params(name), name
+    lib = k12._load()
+    assert len(lib.segment_sum_mxu.argtypes) == _c_params(
+        "segment_sum_mxu", "scatter_mxu.cu")
