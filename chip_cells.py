@@ -1,8 +1,9 @@
 """Times the GraphTrans end-to-end cells for two checkouts of the port in
 turns on one NVIDIA card: molpcba train4096 (phase 6c of chip_smoke.py:
 K1, K1-bwd, K2, K2-bwd), code2 bench512's forward and its train step (7c,
-8c: K3, K3-bwd, K7, K7-bwd, K2), and NCI1 bench4096's forward and train
-steps (12c: K6, K6-bwd, K2).
+8c: K3, K3-bwd, K7, K7-bwd, K2), NCI1 bench4096's forward and train
+steps (12c: K6, K6-bwd, K2), and code2 bench512's forward and train step
+on the blocked route beside the K7 route (13c: K8, K8-demb, K8-dx).
 
 usage: python3 chip_cells.py EARLIER THIS
 
@@ -43,6 +44,8 @@ def run_cells(root: str):
     cs.phase7_forward(device, bench, tasks, smi)
     cs.phase8_step512(device, bench, tasks, smi)
     cs.phase12_cost(device, tu_bench_batch(cs.NCI1_BENCH, cs.SEED), smi)
+    bsp, bsp_tasks = code2_bench_batch(cs.CODE2_BENCH, cs.SEED, bsp=True)
+    cs.phase13_cost(device, bsp, bsp_tasks, smi)
     print(f"== {root}: done; {cs._smi(cs.CLOCKS)}", flush=True)
 
 

@@ -5,12 +5,13 @@ usage: python3 chip_smoke.py [--trace trace.json] [--baseline DIR]
 
 ``--baseline DIR`` names a checkout of an earlier commit (its
 graphtrans_tpu_torch/ tree; for one run, never committed): phases 2, 6a,
-7a, 8a, 9a, 10a, 11a and 13a then build its K1, K1-bwd, K2, K3, K3-bwd,
-K4, K5 and K9 (forward, serving and training), K2-bwd, K4-bwd, K5-bwd,
-K7, K7-bwd, K9-bwd, K10, K10-bwd and K12 from its own sources and time
-them beside this tree's, in turns (earlier, this, this, earlier; K12 in
-the alternating rounds of 13a), on the same inputs; phases 2, 6a, 7a, 8a,
-12a and 13a hold K1, K1-bwd, K7, K7-bwd, K6 and K6-bwd to its bits.
+7a-13a then build its K1, K1-bwd, K2, K3, K3-bwd, K4, K5 and K9 (forward,
+serving and training), K2-bwd, K4-bwd, K5-bwd, K6-bwd, K7, K7-bwd, K8,
+K9-bwd, K10, K10-bwd and K12 from its own sources and time them beside
+this tree's, in turns (earlier, this, this, earlier; K12 in the
+alternating rounds of 13a), on the same inputs; phases 2, 6a, 7a, 8a, 12a
+and 13a hold K1, K1-bwd, K7, K7-bwd, K6, K6-bwd (dx and demb; dw within
+K6_TOL) and K8's forward to its bits.
 
 Phases, each printing one line (any failure raises and exits non-zero):
   0. the card (nvidia-smi name and power limit) and torch; TF32 off;
@@ -122,38 +123,47 @@ Phases, each printing one line (any failure raises and exits non-zero):
      l=3+cosine.yml: GCN 5 x 128 without a virtual node on the strided
      layout, JK=last, 3 encoder layers of 128 on packed rows of 128, 2
      classes; the synthetic TU fallback, 400 graphs): (a) holds K6
-     (dense_agg) and K6-bwd against their plain versions and autograd at
-     the yml's batch of 128 and a 4096-graph batch, relu on and off, with
-     and without w, and times them at the main path's arguments beside
-     bound, plain version and the JAX package's one-hot bmm formulation;
+     (dense_agg) and K6-bwd (its full and dx-only instances) against their
+     plain versions and autograd at the yml's batch of 128 and a
+     4096-graph batch, relu on and off, with and without w, and times them
+     at the main path's arguments beside bound, plain version and the JAX
+     package's one-hot bmm formulation (K6-bwd's dx-only instance, which
+     the NCI1 step launches, and its full instance, each against the
+     parent's kernel in turns under ``--baseline``);
      (b) serves the three splits through ``python -m
      graphtrans_tpu_torch.predict`` (records, accuracy, 5 K6 and 3 K2
      launches a batch, logits against the plain versions) and the
      Transformer-only NCI1 yml's test split (K4), trains both ymls 2 epochs
-     through ``python -m graphtrans_tpu_torch.main`` (launches, losses,
-     moved parameters) and holds one NCI1 step through the kernels against
-     the plain route; (c) times and profiles the forward and the train step
+     through ``python -m graphtrans_tpu_torch.main`` (launches, every
+     K6-bwd launch the dx-only instance, losses, moved parameters) and
+     holds one NCI1 step through the kernels against the plain route; (c) times and profiles the forward and the train step
      of the 4096-graph batch, and times the step at the yml's batch;
  13. code2 GCN through the block plans (K8) and K12: (a) holds K8
-     (blocked_gather_message_scatter), K8-demb and K8-dx against their
-     plain versions and autograd at the code2 snapshot's train batch of 16
-     and the 512-graph batch, both collated with plans at
-     chunk_capacity(edge cap, node cap), and K12 (segment_sum_mxu, a
-     standalone op: its one call, counted) at [196608, 128], and times
-     them beside bound, plain version and yardstick (K7 and K7-bwd at the
-     same batch; index_add_ for K12, the two, and with ``--baseline`` the
-     parent's K12, in alternating turns over K12_ROUNDS rounds; K12's
-     device time from the profiler, and the same bits in a second call);
-     (b) serves the code2 valid and test
-     splits through ``predict.predict_split`` with the model of
+     (blocked_gather_message_scatter: its forward over the batch's
+     SlotOrder, the same bits with a new order and without the src-major
+     plan), K8-demb and K8-dx against their plain versions and autograd
+     at the code2 snapshot's train batch of 16 and the 512-graph batch,
+     both collated with plans at chunk_capacity(edge cap, node cap), and
+     K12 (segment_sum_mxu, a standalone op: its one call, counted) at
+     [196608, 128], and times them beside bound, plain version and
+     yardstick (K8's forward as the GCN layer calls it, its SlotOrder
+     apart, a batch's worth, a new order and 5 calls, and its device time
+     from the profiler, each in turns with the parent's kernel under
+     ``--baseline``; K7 and K7-bwd at the same batch; index_add_ for K12,
+     the two, and with ``--baseline`` the parent's K12, in alternating
+     turns over K12_ROUNDS rounds; K12's device time from the profiler,
+     and the same bits in a second call); (b) serves the code2 valid and
+     test splits through ``predict.predict_split`` with the model of
      ``predict.build_model`` under ``set_block_spmm(model, "on")`` (no
-     batch overflows its plans; 5 K8 and no K7 launches a batch), holds
-     the logits of all three splits against the plain versions and the K7
-     route, checks the two emb copies bitwise equal on every real slot,
-     and takes one train step of ``main.build_run``'s model (5 K8, 5
-     K8-demb, 5 K8-dx) against the plain versions and the K7 route; (c)
-     times and profiles the 512-graph forward and train step on the
-     blocked route, with peak memory, beside the K7 route.
+     batch overflows its plans; 5 K8 and no K7 launches a batch, the edge
+     encoder once a layer, on the dst-major plan's slots), holds the
+     logits of all three splits against the plain versions and the K7
+     route, and takes one train step of ``main.build_run``'s model (5 K8,
+     5 K8-demb, 5 K8-dx; the two emb copies each layer's encoder makes
+     bitwise equal on every real slot) against the plain versions and the
+     K7 route; (c) times the 512-graph forward and train step on the
+     blocked route, with peak memory, beside the K7 route, and profiles
+     both routes' forward and the blocked step.
 Then the script's wall seconds, a {"kernels": [...]} line, the nvidia-smi
 line, and the contract line
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without
@@ -233,11 +243,12 @@ LAYERS = (
     ("flash_hil_dq", "K3-bwd flash_hil_seg_bwd"),
     ("flash_hil_dkv", "K3-bwd flash_hil_seg_bwd"),
     ("spmm_bwd", "K7-bwd spmm_bwd"),
-    ("block_walk<false", "K8 blocked_gather_message_scatter"),
+    ("blocked_fwd", "K8 blocked_gather_message_scatter"),
     ("block_walk<true", "K8-dx blocked_gather_message_scatter_dx"),
     ("block_demb", "K8-demb blocked_gather_message_scatter_demb"),
     ("segment_sum_kernel", "K12 segment_sum_mxu"),
-    ("radixsort", "sort (index backward, K7-bwd's src order)"),
+    ("radixsort", "sort (index backward, K7-bwd's src order, K8's slot "
+     "order)"),
     ("flash_hil_fwd", "K3 flash_hil_seg"),
     ("flash_attention_fwd", "K5 flash_attention"),
     ("spmm_fwd", "K7 spmm (aggregation)"),
@@ -288,9 +299,9 @@ def time_ms(fn, iters: int, reps: int = 5) -> float:
     return statistics.median(per)
 
 
-BASELINE_KERNELS = ("attention_packed", "attention_smalls", "dense_agg",
-                    "flash_attention", "flash_hil", "gin_agg", "scatter_mxu",
-                    "spmm", "transformer_layer")
+BASELINE_KERNELS = ("attention_packed", "attention_smalls", "block_spmm",
+                    "dense_agg", "flash_attention", "flash_hil", "gin_agg",
+                    "scatter_mxu", "spmm", "transformer_layer")
 
 
 def load_baseline(root):
@@ -556,6 +567,14 @@ def k2_instances() -> str:
                                  f"do not add up to {fn.launches} launches")
     return (f"; K2 by instance {dict(kernels.attention_seg.instances)}, "
             f"K2-bwd {dict(kernels.attention_seg_bwd.instances)}")
+
+
+def k6_bwd_instances() -> str:
+    """K6-bwd's launches by instance, for the main-path launch lines."""
+    from graphtrans_tpu_torch.ops.kernels import dense_agg_bwd
+
+    n = {k: v for k, v in dense_agg_bwd.instances.items() if v}
+    return f"; K6-bwd by instance {n}" if n else ""
 
 
 def sdpa_mask_ms(qkv, mask, nhead: int, iters: int = 20) -> float:
@@ -3802,9 +3821,10 @@ def k6_inputs(batch, d: int, gen: torch.Generator, device,
 
 
 def check_k6(args, relu: bool, with_w: bool, gout):
-    """K6 against its plain version (1e-5) and K6-bwd against autograd
-    through it (dx, demb, dw relative to max(1, max |reference|)); padding
-    node rows of the forward exactly 0."""
+    """K6 against its plain version (1e-5) and K6-bwd's full instance
+    against autograd through it (dx, demb, dw relative to max(1, max
+    |reference|)); its dx-only instance gives None for demb and dw and the
+    full instance's dx bits; padding node rows of the forward exactly 0."""
     from graphtrans_tpu_torch.ops.dense_mp import dense_degree
     from graphtrans_tpu_torch.ops.kernels import (dense_agg, dense_agg_bwd,
                                                   dense_agg_bwd_plain,
@@ -3813,6 +3833,8 @@ def check_k6(args, relu: bool, with_w: bool, gout):
     args = args[:5] + (args[5] if with_w else None,)
     got = dense_agg(*args, relu=relu)
     grads = dense_agg_bwd(*args, gout, relu=relu)
+    dx_only = dense_agg_bwd(*args, gout, relu=relu, need_demb=False,
+                            need_dw=False)
     torch.cuda.synchronize()
     f_err = (got - dense_agg_plain(*args, relu=relu)).abs().max().item()
     want = dense_agg_bwd_plain(*args, gout, relu=relu)
@@ -3823,6 +3845,10 @@ def check_k6(args, relu: bool, with_w: bool, gout):
         raise AssertionError(f"K6 (relu {relu}, w {with_w}): forward |diff| "
                              f"{f_err} (<= {K6_TOL}), backward {b_err} (<= "
                              f"{GRAD_TOL})")
+    if dx_only[1:] != (None, None) or not torch.equal(dx_only[0], grads[0]):
+        raise AssertionError(f"K6-bwd's dx-only instance (relu {relu}, w "
+                             f"{with_w}) gave other outputs than dx, or "
+                             f"other dx bits than the full instance")
     reached = dense_degree(args[2], args[3], args[0].shape[1]) > 0
     if got[~reached].any() or grads[1][~args[3]].any():
         raise AssertionError("K6: rows no valid edge reaches, or masked "
@@ -3830,14 +3856,43 @@ def check_k6(args, relu: bool, with_w: bool, gout):
     return f_err, b_err
 
 
-def k6_bound(args, gout=None):
+def k6_bwd_parent_bits(what: str, a, gout, relu: bool, old, checked: list):
+    """With ``old`` (the parent's dense_agg module, under ``--baseline``):
+    raise unless K6-bwd's full instance gives the parent kernel's dx and
+    demb bits and its dw within K6_TOL of max(1, max|parent's|), and the
+    dx-only instance its dx bits; returns the dw error (0 without w)."""
+    from graphtrans_tpu_torch.ops.kernels import dense_agg_bwd
+
+    if old is None:
+        return 0.0
+    dx, demb, dw = dense_agg_bwd(*a, gout, relu=relu)
+    dx_only = dense_agg_bwd(*a, gout, relu=relu, need_demb=False,
+                            need_dw=False)[0]
+    pdx, pdemb, pdw = old.dense_agg_bwd(*a, gout, relu=relu)
+    for name, x, y in (("dx", dx, pdx), ("dx-only dx", dx_only, pdx),
+                       ("demb", demb, pdemb)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"K6-bwd {what}: {name} differs from the "
+                                 f"parent's kernel's on the same inputs "
+                                 f"(max |diff| "
+                                 f"{(x - y).abs().max().item()})")
+    dw_err = 0.0 if dw is None else _rel_err(dw, pdw)
+    if dw_err > K6_TOL:
+        raise AssertionError(f"K6-bwd {what}: dw {dw_err} from the parent's "
+                             f"kernel's (<= {K6_TOL})")
+    checked.append(f"K6-bwd {what}")
+    return dw_err
+
+
+def k6_bound(args, gout=None, full: bool = True):
     """K6's (with ``gout``: K6-bwd's) bound: x (and gout) read and the
     output (dx) written once, the edge lists read once, and the emb row of
     each valid edge read once (a masked slot's is never needed, as in
-    ``k7_bound``); the backward writes demb in full (zeros on masked
-    slots) and dw. Per valid edge and channel the forward's add, relu,
-    weight product and sum, the backward's add, relu and its mask, the dw
-    product and sum, the weight product and the dx sum."""
+    ``k7_bound``); the full backward also writes demb in full (zeros on
+    masked slots) and dw, the dx-only instance neither. Per valid edge and
+    channel the forward's add, relu, weight product and sum; the
+    backward's add, relu mask, weight product and dx sum, and in the full
+    instance the dw product and sum."""
     x, src, dst, emask, emb, w = args
     edges = int(emask.sum().item()) * x.shape[-1]
     nbytes = 2 * x.numel() * 4 + edges * 4 + sum(
@@ -3845,7 +3900,10 @@ def k6_bound(args, gout=None):
         if t is not None)
     if gout is None:
         return _bound(nbytes, edges * (3 + (w is not None)))
-    nbytes += gout.numel() * 4 + emb.numel() * 4                 # demb
+    nbytes += gout.numel() * 4
+    if not full:
+        return _bound(nbytes, edges * (3 + (w is not None)))
+    nbytes += emb.numel() * 4                                       # demb
     if w is not None:
         nbytes += w.numel() * 4                                     # dw
     return _bound(nbytes, edges * (4 + 3 * (w is not None)))
@@ -3869,11 +3927,14 @@ def onehot_agg(x, src, dst, emask, emb, w, relu: bool = True):
 
 
 def phase12_kernels(device, d_gnn: int, bench, base=None):
-    """(a) K6 and K6-bwd against their plain versions at the yml's batch
-    (the train split's first batch of 128) and the 4096-graph batch, with
-    relu on and off and with and without w (under ``base``: the parent's
-    bits); times at the main path's arguments beside bound, plain version
-    and the one-hot bmm yardstick."""
+    """(a) K6 and K6-bwd (both instances) against their plain versions at
+    the yml's batch (the train split's first batch of 128) and the
+    4096-graph batch, with relu on and off and with and without w (under
+    ``base``: K6's and K6-bwd's dx and demb bits of the parent's kernels,
+    K6-bwd's dw within K6_TOL); times at the main path's arguments beside
+    bound, plain version and the one-hot bmm yardstick: K6-bwd's dx-only
+    instance, which the NCI1 step launches, and its full instance, each
+    in turns with the parent's kernel (which always computes all three)."""
     from graphtrans_tpu_torch import predict
     from graphtrans_tpu_torch.data.loader import iterate_batches
     from graphtrans_tpu_torch.ops.kernels import (dense_agg, dense_agg_bwd,
@@ -3884,7 +3945,7 @@ def phase12_kernels(device, d_gnn: int, bench, base=None):
     splits, num_tasks, _ = predict.load_splits(args)
     serve = next(iterate_batches(splits["train"], **predict.serving_layout(
         splits, args, num_tasks, split="train")))
-    f_err = b_err = 0.0
+    f_err = b_err = dw_err = 0.0
     rows, same = [], []
     old = base and base["dense_agg"]
     for name, b in (("serve128", serve), ("bench4096", bench)):
@@ -3901,49 +3962,61 @@ def phase12_kernels(device, d_gnn: int, bench, base=None):
                 same_bits(f"K6 {what}", lambda: dense_agg(*a, relu=relu),
                           old and (lambda: old.dense_agg(*a, relu=relu)),
                           same)
-                same_bits(f"K6-bwd {what}",
-                          lambda: dense_agg_bwd(*a, gout, relu=relu),
-                          old and (lambda: old.dense_agg_bwd(*a, gout,
-                                                             relu=relu)),
-                          same)
+                dw_err = max(dw_err, k6_bwd_parent_bits(what, a, gout, relu,
+                                                        old, same))
         fixed = main_args[1:4]
         k6 = dict(ms=time_ms(lambda: dense_agg(*main_args), iters=20),
                   plain_ms=time_ms(lambda: dense_agg_plain(*main_args),
                                    iters=5),
                   library_ms=time_ms(lambda: onehot_agg(*main_args), iters=5))
         k6["bound_ms"], k6["bound_by"] = k6_bound(main_args)
-        leaves = [main_args[0], main_args[4], main_args[5]]
-        with torch.enable_grad():
-            lib_leaves = [t.detach().requires_grad_() for t in leaves]
-            lib_out = onehot_agg(lib_leaves[0], *fixed, *lib_leaves[1:])
-            lib_bwd = time_ms(lambda: torch.autograd.grad(
-                lib_out, lib_leaves, gout, retain_graph=True), iters=5)
-        k6b = dict(ms=time_ms(lambda: dense_agg_bwd(*main_args, gout),
-                              iters=20),
-                   plain_ms=_plain_bwd_ms(
-                       lambda x, e, w: dense_agg_plain(x, *fixed, e, w),
-                       leaves, gout),
-                   library_ms=lib_bwd)
-        k6b["bound_ms"], k6b["bound_by"] = k6_bound(main_args, gout)
+        old_bwd = old and (lambda: old.dense_agg_bwd(*main_args, gout))
+        x, emb, w = main_args[0], main_args[4], main_args[5]
+        timed = {}
+        for inst, leaves, bind, kw in (      # the leaves autograd asks for
+                ("dx", [x], lambda f: lambda xl: f(xl, *fixed, emb, w),
+                 dict(need_demb=False, need_dw=False)),
+                ("dx+demb+dw", [x, emb, w],
+                 lambda f: lambda xl, el, wl: f(xl, *fixed, el, wl), {})):
+            ms, earlier = turns_ms(
+                lambda: dense_agg_bwd(*main_args, gout, **kw), old_bwd, 20)
+            t = dict(ms=ms, earlier_ms=earlier, instance=inst,
+                     plain_ms=_plain_bwd_ms(bind(dense_agg_plain), leaves,
+                                            gout),
+                     library_ms=_plain_bwd_ms(bind(onehot_agg), leaves, gout))
+            t["bound_ms"], t["bound_by"] = k6_bound(main_args, gout,
+                                                    full=len(leaves) == 3)
+            timed[inst] = t
         shape = "G={} Sm={} Em={} d={}".format(
             *main_args[0].shape[:2], main_args[1].shape[1], d_gnn)
+        k6b = timed["dx"]
         for kname, t, plain in (("K6 dense_agg", k6, "plain"),
-                                ("K6-bwd dense_agg_bwd", k6b,
-                                 "plain backward")):
+                                ("K6-bwd dense_agg_bwd, dx-only instance",
+                                 k6b, "plain backward (dx)"),
+                                ("K6-bwd dense_agg_bwd, full instance",
+                                 timed["dx+demb+dw"],
+                                 "plain backward (dx, demb, dw)")):
             t["shape"] = shape
+            turn = ("" if "earlier_ms" not in t else
+                    f" (the parent's kernel, dx, demb and dw, in turns: "
+                    f"{_ms(t['earlier_ms'])})")
             print(f"[12a] {name} {kname} [{shape}, relu, w = GCN norm, emb "
-                  f"0]: kernel {t['ms']:.4f} ms, {plain} {t['plain_ms']:.4f} "
-                  f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
-                  f"library (one-hot bmm pair) {t['library_ms']:.4f} ms")
+                  f"0]: kernel {t['ms']:.4f} ms{turn}, {plain} "
+                  f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                  f"({t['bound_by']}), library (one-hot bmm pair) "
+                  f"{t['library_ms']:.4f} ms")
         rows.append((k6, k6b))
     print(f"[12a] K6 and K6-bwd agree with their plain versions (relu on "
           f"and off, w given and not, random and zero emb): forward max "
           f"|diff| {f_err:.3g} (<= {K6_TOL}), backward max err {b_err:.3g} "
-          f"(<= {GRAD_TOL} of max(1, max|ref|)); unreached rows and masked "
+          f"(<= {GRAD_TOL} of max(1, max|ref|)); K6-bwd's dx-only instance "
+          f"gives the full instance's dx bits; unreached rows and masked "
           f"demb exactly 0")
     if base:
         print(f"[12a] --baseline: the same bits as the parent's kernels on "
-              f"the same inputs at {len(same)} cases: {', '.join(same)}")
+              f"the same inputs (K6-bwd: dx, the dx-only instance's dx and "
+              f"demb; dw within {dw_err:.3g} of max(1, max|ref|), <= "
+              f"{K6_TOL}) at {len(same)} cases: {', '.join(same)}")
     return dict(k6_err=f_err, k6b_err=b_err, timed=rows[-1])
 
 
@@ -4066,7 +4139,7 @@ def phase12_train(device, tmp: str):
                 os.path.join(tmp, tag)])
         secs = time.perf_counter() - t0
         got = {k: v for k, v in kernels.launch_counts().items() if v}
-        by_instance = k2_instances()
+        by_instance = k2_instances() + k6_bwd_instances()
         for line in out.getvalue().splitlines():
             print(f"[12b] main: {line}")
         steps = sum(r["steps"] for r in res["epochs"])
@@ -4080,6 +4153,11 @@ def phase12_train(device, tmp: str):
         if steps == 0 or got != want:
             raise AssertionError(f"NCI1 {tag} training launches {got}, "
                                  f"expected {want}")
+        k6b = kernels.dense_agg_bwd.instances
+        if k6b["dx"] != got.get("dense_agg_bwd", 0):
+            raise AssertionError(f"NCI1 {tag} training: K6-bwd launches by "
+                                 f"instance {k6b}, every one dx-only "
+                                 f"expected (no gradient of emb or w)")
         if not all(math.isfinite(r["loss"]) for r in res["epochs"]):
             raise AssertionError(f"epoch losses not finite: {res['epochs']}")
         init, _ = _trainer(cargs, num_tasks, device, data=data)
@@ -4237,8 +4315,10 @@ def k8_inputs(batch, d: int, gen: torch.Generator, device):
     """K8's arguments as a GCN layer gets them: random node rows (zero on
     padding rows), one random embedding row per edge laid out in each
     plan's chunk order (as the edge encoder makes both copies; pad slots
-    0), and the GCN norm per slot (``bsp_slot_weight``)."""
+    0), the GCN norm per slot (``bsp_slot_weight``) and the batch's
+    SlotOrder (``rows``, its runs made)."""
     from graphtrans_tpu_torch.nn.conv import bsp_slot_weight
+    from graphtrans_tpu_torch.ops.kernels import slot_order
     from graphtrans_tpu_torch.ops.segment import out_degree
 
     tb = batch.to(device)
@@ -4253,13 +4333,17 @@ def k8_inputs(batch, d: int, gen: torch.Generator, device):
         emb[real] = per_edge[perm[real]]
         embs.append(emb)
     dis = (out_degree(tb.edge_src, x.shape[0], tb.edge_mask) + 1.0) ** -0.5
+    rows = slot_order(tb)
+    rows.runs()                          # built once per batch, not timed
     return dict(x=x, ef=embs[0], eb=embs[1], pf=tb.bsp_fwd, pb=tb.bsp_bwd,
                 wf=bsp_slot_weight(tb.bsp_fwd, dis, False).contiguous(),
-                wb=bsp_slot_weight(tb.bsp_bwd, dis, True).contiguous())
+                wb=bsp_slot_weight(tb.bsp_bwd, dis, True).contiguous(),
+                rows=rows)
 
 
 def check_k8(a, message: str, with_w: bool, gen):
-    """K8 against its plain version (1e-5 of max(1, max|ref|)), its d_emb
+    """K8 against its plain version (1e-5 of max(1, max|ref|)), the same
+    bits with a new SlotOrder and without the src-major plan, its d_emb
     and dx kernels against autograd through the plain version (5e-4 of
     max(1, max|ref|)); slots that are not real get exact-zero d_emb rows.
     The plain versions sum with index_add_ under deterministic
@@ -4274,7 +4358,17 @@ def check_k8(a, message: str, with_w: bool, gen):
     x, ef, eb, pf, pb = (a[k] for k in ("x", "ef", "eb", "pf", "pb"))
     wf, wb = (a["wf"], a["wb"]) if with_w else (None, None)
     g = torch.randn(x.shape, generator=gen).to(x.device)
-    out = blocked_gather_message_scatter(x, ef, eb, pf, pb, wf, wb, message)
+    out = blocked_gather_message_scatter(x, ef, eb, pf, pb, wf, wb, message,
+                                         rows=a["rows"])
+    for again in (   # a new order; without a gradient, no src-major plan
+            blocked_gather_message_scatter(x, ef, eb, pf, pb, wf, wb,
+                                           message),
+            blocked_gather_message_scatter(x, ef, None, pf, None, wf, None,
+                                           message, rows=a["rows"])):
+        if not torch.equal(again, out):
+            raise AssertionError(f"K8 ({message}, w {with_w}) gave other "
+                                 f"bits with a new SlotOrder or without the "
+                                 f"src-major plan")
     demb = blocked_gather_message_scatter_demb(x, g, ef, pf, wf, message)
     dx = blocked_gather_message_scatter_dx(x, g, eb, pb, wb, message)
     torch.cuda.synchronize()
@@ -4329,6 +4423,54 @@ def k12_bound(msg, dst, N: int):
     return _bound(E * d * 4 + E * 4 + N * d * 4, E * d)
 
 
+def time_k8(name: str, a, base):
+    """K8's forward on its arguments ``a`` (relu_add, the GCN norm) as the
+    GCN layer calls it, with the batch's SlotOrder (its cost timed apart):
+    ms in turns with the parent's kernel under ``--baseline`` (whose bits
+    it must give, relu_add with w and add without), device ms from the
+    profiler with a cold L2 (None where not measured), and the cases whose
+    bits were checked. Also a batch's worth, in turns: a new SlotOrder and
+    GCN_LAYERS_PER_FORWARD calls, against the parent's as many calls."""
+    from graphtrans_tpu_torch.ops.kernels import (
+        SlotOrder, blocked_gather_message_scatter)
+
+    x, ef, eb, pf, pb, wf, wb, rows = (a[k] for k in (
+        "x", "ef", "eb", "pf", "pb", "wf", "wb", "rows"))
+    N, E = x.shape[0], rows.num_edges
+    order_ms = time_ms(lambda: SlotOrder(pf, N, E).runs(), iters=20)
+    new = lambda: blocked_gather_message_scatter(x, ef, eb, pf, pb, wf, wb,
+                                                 rows=rows)
+    old = base and (lambda: base["block_spmm"].blocked_gather_message_scatter(
+        x, ef, eb, pf, pb, wf, wb))
+    checked = []
+    same_bits(f"K8 {name} (relu_add, w)", new, old, checked)
+    same_bits(f"K8 {name} (add)",
+              lambda: blocked_gather_message_scatter(
+                  x, ef, eb, pf, pb, message="add", rows=rows),
+              old and (lambda: base["block_spmm"]
+                       .blocked_gather_message_scatter(x, ef, eb, pf, pb,
+                                                       message="add")),
+              checked)
+
+    def batch():
+        per = SlotOrder(pf, N, E)
+        for _ in range(GCN_LAYERS_PER_FORWARD):
+            blocked_gather_message_scatter(x, ef, eb, pf, pb, wf, wb,
+                                           rows=per)
+
+    def old_batch():
+        for _ in range(GCN_LAYERS_PER_FORWARD):
+            old()
+
+    ms, earlier = turns_ms(new, old, 20)
+    batch_ms, earlier_batch = turns_ms(batch, old and old_batch, 10)
+    return dict(ms=ms, earlier_ms=earlier, order_ms=order_ms,
+                batch_ms=batch_ms, earlier_batch_ms=earlier_batch,
+                device_ms=device_ms(new, ("blocked_fwd",)),
+                earlier_device_ms=old and device_ms(old, ("block_walk",))
+                ), checked
+
+
 def phase13_kernels(device, d_gnn: int, bench, base=None):
     """(a) K8, K8-demb and K8-dx against their plain versions at the code2
     snapshot's train batch of 16 and the 512-graph bench batch, both with
@@ -4373,18 +4515,17 @@ def phase13_kernels(device, d_gnn: int, bench, base=None):
           f"d_emb {b_err['demb']:.3g}, dx {b_err['dx']:.3g} (<= {GRAD_TOL}) "
           f"of max(1, max|ref|); pad slots' d_emb exactly 0")
 
-    rows, k7b_rows, same = {}, {}, []
+    rows, k7b_rows, same, k8_checked = {}, {}, [], []
     for name, b in (("train16", train16), (f"bench{CODE2_BENCH}", bench)):
         a = k8_inputs(b, d_gnn, gen, device)
         x, ef, eb, pf, pb, wf, wb = (a[k] for k in ("x", "ef", "eb", "pf",
                                                      "pb", "wf", "wb"))
         g = torch.randn(x.shape, generator=gen).to(device)
-        fwd = dict(ms=time_ms(lambda: blocked_gather_message_scatter(
-                       x, ef, eb, pf, pb, wf, wb), iters=20),
-                   plain_ms=time_ms(
-                       lambda: blocked_gather_message_scatter_plain(
-                           x, ef, eb, pf, pb, wf, wb), iters=5),
-                   library_ms=None)
+        fwd, k8_same = time_k8(name, a, base)
+        k8_checked.extend(k8_same)
+        fwd.update(plain_ms=time_ms(
+            lambda: blocked_gather_message_scatter_plain(
+                x, ef, eb, pf, pb, wf, wb), iters=5), library_ms=None)
         demb = dict(ms=time_ms(lambda: blocked_gather_message_scatter_demb(
                         x, g, ef, pf, wf), iters=20),
                     plain_ms=time_ms(
@@ -4400,6 +4541,16 @@ def phase13_kernels(device, d_gnn: int, bench, base=None):
         autograd_ms = time_ms(
             lambda: blocked_gather_message_scatter_bwd_plain(
                 x, ef, eb, pf, pb, g, wf, wb), iters=5)
+        old8 = base and base["block_spmm"]     # K8-demb and K8-dx unchanged
+        same_bits(f"K8-demb {name}",
+                  lambda: blocked_gather_message_scatter_demb(x, g, ef, pf,
+                                                              wf),
+                  old8 and (lambda: old8.blocked_gather_message_scatter_demb(
+                      x, g, ef, pf, wf)), k8_checked)
+        same_bits(f"K8-dx {name}",
+                  lambda: blocked_gather_message_scatter_dx(x, g, eb, pb, wb),
+                  old8 and (lambda: old8.blocked_gather_message_scatter_dx(
+                      x, g, eb, pb, wb)), k8_checked)
         fwd["bound_ms"], fwd["bound_by"] = k8_bound(a)
         demb["bound_ms"], demb["bound_by"] = k8_bound(a, "demb")
         dx["bound_ms"], dx["bound_by"] = k8_bound(a, "dx")
@@ -4421,16 +4572,30 @@ def phase13_kernels(device, d_gnn: int, bench, base=None):
                                 ("K8-demb", demb, "plain"),
                                 ("K8-dx", dx, "plain")):
             t["shape"] = shape
-            print(f"[13a] {name} {kname} [{shape}]: kernel {t['ms']:.4f} ms, "
-                  f"{plain} {t['plain_ms']:.4f} ms, bound "
+            turn = ("" if "earlier_ms" not in t else
+                    f" (the parent's kernel in turns: "
+                    f"{_ms(t['earlier_ms'])})")
+            print(f"[13a] {name} {kname} [{shape}]: kernel {t['ms']:.4f} ms"
+                  f"{turn}, {plain} {t['plain_ms']:.4f} ms, bound "
                   f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library none "
                   f"(no single PyTorch call)")
+        print(f"[13a] {name} K8 fwd: its SlotOrder {fwd['order_ms']:.4f} ms "
+              f"once a batch (host-paced); a batch's worth, a new order and "
+              f"{GCN_LAYERS_PER_FORWARD} calls, {fwd['batch_ms']:.4f} ms "
+              f"(the parent's {GCN_LAYERS_PER_FORWARD} calls "
+              f"{_ms(fwd['earlier_batch_ms'])}, in turns); device time "
+              f"{_ms(fwd['device_ms'])} a launch from the profiler, cold L2 "
+              f"(the parent's {_ms(fwd['earlier_device_ms'])})")
         print(f"[13a] {name} yardsticks at the same batch: K7 {k7_ms:.4f} ms "
               f"against K8 {fwd['ms']:.4f}; K7-bwd {k7b_ms:.4f} ms against "
               f"K8-demb + K8-dx {demb['ms'] + dx['ms']:.4f}; autograd through "
               f"K8's plain version {autograd_ms:.4f} ms")
         rows = dict(fwd=fwd, demb=demb, dx=dx)
     print_k7_bwd_turns("13a", k7b_rows, same, base)
+    if base:
+        print(f"[13a] --baseline: K8's forward, K8-demb and K8-dx give "
+              f"the parent kernels' bits on the same inputs at "
+              f"{len(k8_checked)} cases: {', '.join(k8_checked)}")
 
     # K12: the standalone op as its user calls it, once, counted from 0
     tb = bench.to(device)
@@ -4494,6 +4659,25 @@ def phase13_kernels(device, d_gnn: int, bench, base=None):
                                                   rows["dx"], k12))
 
 
+def same_emb_copies(host, batch, copies, device) -> int:
+    """The layers of a train step on ``batch`` (``host``: the same batch
+    on the host) whose edge encoder made both plans' emb copies
+    (``copies``: (attributes, emb) of each call, in call order) with equal
+    bits on every real slot, each slot matched to its edge through the
+    plans' slot -> edge maps."""
+    pf, pb = (p.to(device) for p in _perms(host))
+    by_edge = torch.full((host.edge_src.shape[0],), -1, dtype=torch.long,
+                         device=device)
+    by_edge[pb[pb >= 0]] = torch.nonzero(pb >= 0)[:, 0]
+    real = pf >= 0
+    fwd = [e for a, e in copies if a is batch.edge_attr_bsp_fwd]
+    bwd = [e for a, e in copies if a is batch.edge_attr_bsp_bwd]
+    if len(fwd) != len(bwd) or len(fwd) + len(bwd) != len(copies):
+        return 0
+    return sum(torch.equal(ef[real], eb[by_edge[pf[real]]])
+               for ef, eb in zip(fwd, bwd))
+
+
 def phase13_serve(device, tmp: str):
     """(b) The code2 flagship built by ``predict.build_model`` with
     ``set_block_spmm(model, "on")`` serves the snapshot's valid and test
@@ -4521,6 +4705,10 @@ def phase13_serve(device, tmp: str):
                              f"block plans")
     model = set_block_spmm(predict.build_model(args, num_tasks, device, code),
                            "on")
+    encoded = []                  # the edge encoders' calls while serving
+    hooks = [c.edge_encoder.register_forward_hook(
+        lambda m, inp, out: encoded.append(inp[0].shape[0]))
+        for c in model.gnn_node.convs]
     kernels.reset_launches()                 # the blocked serving path
     want = collections.Counter()
     results = {}
@@ -4546,20 +4734,26 @@ def phase13_serve(device, tmp: str):
         results[split] = res
     launches = {k: v for k, v in kernels.launch_counts().items() if v}
     by_instance = k2_instances()
+    for h in hooks:
+        h.remove()
     if launches != dict(want):
         raise AssertionError(f"code2 blocked serving launches {launches}, "
                              f"expected {dict(want)} (K7 none)")
     batches = sum(r["batches"] for r in results.values())
+    if len(encoded) != GCN_LAYERS_PER_FORWARD * batches:
+        raise AssertionError(f"code2 blocked serving: {len(encoded)} edge "
+                             f"encoder calls in {batches} batches, one a "
+                             f"layer (the dst-major plan's) expected")
     print(f"[13b] served the code2 valid and test splits on the blocked route "
           f"({sum(r['records'] for r in results.values())} graphs, {batches} "
           f"batches of <= {CODE2_BATCH}, no plan overflow in any split): F1 "
           f"{ {s: round(r['F1'], 6) for s, r in results.items()} }; launches "
           f"{launches}: K8 {launches['blocked_gather_message_scatter'] / batches:g}"
-          f" a batch, K7 0{by_instance}")
+          f" a batch, K7 0{by_instance}; the edge encoder {len(encoded)} "
+          f"times, {len(encoded) // batches} a batch: the dst-major plan's "
+          f"slots only")
 
     err_plain = err_k7 = 0.0
-    emb_same = True
-    enc = model.gnn_node.convs[0].edge_encoder
     with torch.inference_mode():
         for split in ("train", "valid", "test"):
             for b in iterate_batches(splits[split], **layouts[split]):
@@ -4574,33 +4768,21 @@ def phase13_serve(device, tmp: str):
                     raise AssertionError("code2 blocked logits not finite")
                 err_plain = max(err_plain, (got - plain).abs().max().item())
                 err_k7 = max(err_k7, (got - k7).abs().max().item())
-                ef = enc(tb.edge_attr_bsp_fwd)
-                eb = enc(tb.edge_attr_bsp_bwd)
-                pf, pb = (p.to(device) for p in _perms(b))
-                by_edge = torch.full((b.edge_src.shape[0],), -1,
-                                     dtype=torch.long, device=device)
-                by_edge[pb[pb >= 0]] = torch.nonzero(pb >= 0)[:, 0]
-                real = pf >= 0
-                emb_same &= torch.equal(ef[real], eb[by_edge[pf[real]]])
     if err_plain > LOGITS_TOL or err_k7 > LOGITS_TOL:
         raise AssertionError(f"code2 blocked logits: {err_plain} from the "
                              f"plain versions, {err_k7} from the K7 route "
                              f"(<= {LOGITS_TOL})")
     print(f"[13b] code2 logits on the blocked route over all three splits: "
           f"max |diff| {err_plain:.3g} from the plain versions and "
-          f"{err_k7:.3g} from the K7 route (<= {LOGITS_TOL}); the dst- and "
-          f"src-major emb copies bitwise equal on every real slot: "
-          f"{emb_same}")
-    if not emb_same:
-        raise AssertionError("the two emb copies differ on a real slot: "
-                             "d_emb's and dx's relu decisions may disagree")
+          f"{err_k7:.3g} from the K7 route (<= {LOGITS_TOL})")
 
     targs = _code2_train_args()
     tlayout = _bsp_layout(predict.serving_layout(
         splits, targs, num_tasks, CODE2_BATCH, split="train", seed=SEED))
-    batch = next(iterate_batches(
+    host = next(iterate_batches(
         splits["train"], order=shuffled_order(len(splits["train"]), SEED, 0),
-        **tlayout)).to(device)
+        **tlayout))
+    batch = host.to(device)
     if batch.bsp_fwd is None:
         raise AssertionError("the code2 train batch overflowed its plans")
     got = {}
@@ -4610,12 +4792,19 @@ def phase13_serve(device, tmp: str):
                              ("k7", True, "off")):
             model, step = _trainer(targs, num_tasks, device, kernels_on=on,
                                    data=code, bsp=bsp)
+            copies = []      # (attributes, emb) of each edge encoder call
+            hooks = [c.edge_encoder.register_forward_hook(
+                lambda m, inp, out: copies.append((inp[0], out.detach())))
+                for c in model.gnn_node.convs] if tag == "kernels" else []
             kernels.reset_launches()         # the blocked training path
             loss = step(batch).item()
+            for h in hooks:
+                h.remove()
             if tag == "kernels":
                 step_launches = {k: v for k, v in
                                  kernels.launch_counts().items() if v}
                 by_instance = k2_instances()
+                emb_same = same_emb_copies(host, batch, copies, device)
             got[tag] = (loss, {n: p.grad for n, p in
                                model.named_parameters()})
     want = {"blocked_gather_message_scatter": 5,
@@ -4633,6 +4822,14 @@ def phase13_serve(device, tmp: str):
             raise AssertionError(f"code2 blocked step against {tag}: loss "
                                  f"|diff| {errs[tag][0]}, gradients "
                                  f"{errs[tag][1]}")
+    if emb_same != GCN_LAYERS_PER_FORWARD:
+        raise AssertionError(f"the step's two emb copies: {emb_same} layers "
+                             f"of {GCN_LAYERS_PER_FORWARD} built both and "
+                             f"agree on every real slot; d_emb's and dx's "
+                             f"relu decisions may disagree")
+    print(f"[13b] the train step's edge encoders built both plans' emb "
+          f"copies in each of its {emb_same} layers, bitwise equal on every "
+          f"real slot")
     print(f"[13b] one code2 train step on the blocked route (main.build_run, "
           f"set_block_spmm on, deterministic algorithms): launches "
           f"{step_launches}{by_instance}; loss {lk:.6f}; against the plain "
@@ -4647,7 +4844,8 @@ def phase13_cost(device, bench, num_tasks: int, smi: str):
     """(c) The code2 forward and train step on the 512-graph batch with
     block plans, on the blocked route and on the K7 route in the same call
     (median of 10 after 3 warm-ups, peak memory), and a torch.profiler
-    split of the blocked forward and step."""
+    split of both routes' forward (busy and Linear ms) and of the blocked
+    step."""
     import types
 
     from graphtrans_tpu_torch.models.gnn_transformer import (
@@ -4681,17 +4879,16 @@ def phase13_cost(device, bench, num_tasks: int, smi: str):
               f"{ms:.3f} ms over 10 (min {lo:.3f}, max {hi:.3f}), "
               f"{n / ms * 1e3:.0f} graphs/s, peak memory {peak:.2f} GiB on "
               f"{smi}")
-        if mode == "on":
-            with torch.inference_mode():
-                with torch.profiler.profile(activities=acts) as prof:
-                    t0 = time.perf_counter()
-                    for _ in range(PROFILED_FORWARDS):
-                        model(tb)
-                    torch.cuda.synchronize()
-                    wall = ((time.perf_counter() - t0) * 1e3
-                            / PROFILED_FORWARDS)
-            _print_split("[13c]", "code2 blocked forward", prof,
-                         PROFILED_FORWARDS, wall, smi, graphs=n)
+        with torch.inference_mode():
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                for _ in range(PROFILED_FORWARDS):
+                    model(tb)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / PROFILED_FORWARDS
+        _print_split("[13c]", "code2 blocked forward" if mode == "on"
+                     else "code2 forward, K7 route", prof, PROFILED_FORWARDS,
+                     wall, smi, graphs=n)
     del model
     targs = _code2_train_args()
     for bsp in ("on", "off"):
@@ -4731,10 +4928,11 @@ def main(argv=None) -> int:
     p.add_argument("--baseline", default=None,
                    help="a checkout of an earlier commit whose K1, K1-bwd, "
                         "K2, K2-bwd, K3, K3-bwd, K4, K5, K4-bwd, K5-bwd, "
-                        "K7, K7-bwd, K9, K9-bwd, K10, K10-bwd and K12 phases "
-                        "2, 6a-11a and 13a time beside this tree's (K1, "
-                        "K1-bwd, K4, K4-bwd, K6, K6-bwd, K7, K7-bwd, K9, "
-                        "K9-bwd, K10, K10-bwd also bit for bit)")
+                        "K6-bwd, K7, K7-bwd, K8, K9, K9-bwd, K10, K10-bwd "
+                        "and K12 phases 2 and 6a-13a time beside this "
+                        "tree's (K1, K1-bwd, K4, K4-bwd, K6, K6-bwd, K7, "
+                        "K7-bwd, K8, K9, K9-bwd, K10, K10-bwd also bit for "
+                        "bit)")
     opts = p.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4961,10 +5159,12 @@ def main(argv=None) -> int:
              source="graphtrans_tpu_torch/csrc/dense_agg.cu",
              replaces="graphtrans_tpu/ops/pallas/dense_agg.py:140",
              launches=nci1_train_launches["dense_agg_bwd"],
+             # the NCI1 step's launches, every one the dx-only instance
+             # (phase 12b); ms and bound are that instance's
              # relative to max(1, max |reference|), as check_k6 holds it
              max_abs_err=nci1["k6b_err"], **k6b),
         dict(name="blocked_gms_fwd", route="cuda",
-             source="graphtrans_tpu_torch/csrc/block_spmm.cu",
+             source="graphtrans_tpu_torch/csrc/spmm.cu",
              replaces="graphtrans_tpu/ops/pallas/block_spmm.py:184",
              launches=bsp_launches["blocked_gather_message_scatter"],
              # relative to max(1, max |reference|), as check_k8 holds it

@@ -1,6 +1,7 @@
-// K8: the flat message-passing sum over the blocked-CSR chunk plans, and
-// its backward (d_emb and dx). Wrapper, plain versions and design note:
-// graphtrans_tpu_torch/ops/kernels/block_spmm.py.
+// K8's backward, d_emb and dx, over the blocked-CSR chunk plans. Wrapper,
+// plain versions and design note: graphtrans_tpu_torch/ops/kernels/
+// block_spmm.py. K8's forward runs on K7's forward body (spmm.cu:
+// blocked_fwd_kernel) over the batch's SlotOrder.
 //
 // A plan cuts the node axis into blocks of NB rows and lists C chunks of
 // EB edge slots, grouped by major block (blk_out ascending): slot (c, s)
@@ -9,7 +10,8 @@
 // gives run[b] = the first chunk of major block b (run[nblk] = C) and
 // live[c] = the count of real slots of chunk c.
 //
-// walk (forward with the dst-major plan, dx with the src-major one): one
+// walk (dx with the src-major plan; the DX = false instance, a forward
+// over the dst-major plan, is not launched): one
 // block per (major block, slice of CT channels), one thread per channel,
 // the block's NB x CT sums in shared memory. The block first lists the
 // chunks of its run that hold a real slot (CT chunk counts at a time, so
@@ -19,8 +21,6 @@
 // them U at a time with all U rows' loads in flight. Each thread owns its
 // column of the sums: no atomics, and the terms of a row add up in slot
 // order.
-//   forward: out[maj] += w * msg(x[min] + emb[slot]),
-//            msg = relu or identity;
 //   dx:      dx[maj]  += w * g[min] * 1[x[maj] + emb[slot] > 0]   (relu),
 //            with the src-major plan (major = src, minor = dst).
 // demb (dst-major plan): one warp per slot, lanes over channels,
@@ -226,21 +226,7 @@ extern "C" const char* error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Forward: out [nblk*NB, d] from x [nblk*NB, d] and the dst-major plan's
-// emb [C*EB, d]. w may be null (no weight). relu = 1 for relu_add.
-// Returns cudaGetLastError() after the launch (0 = launched).
-extern "C" int block_spmm_fwd(const float* x, const float* emb,
-                              const int* blk_in, const int* loc_out,
-                              const int* loc_in, const float* mask,
-                              const float* w, const int* run,
-                              const int* live, float* out, int nblk, int d,
-                              int relu, cudaStream_t stream) {
-  if (nblk <= 0 || d <= 0) return cudaErrorInvalidValue;
-  return walk<false>(x, nullptr, emb, blk_in, loc_out, loc_in, mask, w, run,
-                     live, out, nblk, d, relu, stream);
-}
-
-// dx [nblk*NB, d] for the cotangent g of block_spmm_fwd's out, over the
+// dx [nblk*NB, d] for the cotangent g of K8's forward, over the
 // src-major plan and its emb copy (x read at the major, src, rows).
 extern "C" int block_spmm_dx(const float* x, const float* g,
                              const float* emb, const int* blk_in,
@@ -254,7 +240,7 @@ extern "C" int block_spmm_dx(const float* x, const float* g,
 }
 
 // d_emb [C*EB, d] (0 on slots that are not real) for the cotangent g of
-// block_spmm_fwd's out, over the dst-major plan.
+// K8's forward, over the dst-major plan.
 extern "C" int block_spmm_demb(const float* x, const float* g,
                                const float* emb, const int* blk_out,
                                const int* blk_in, const int* loc_out,

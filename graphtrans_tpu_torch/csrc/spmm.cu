@@ -1,6 +1,8 @@
 // K7: the flat-layout message-passing sum over dst-sorted edges, and its
 // backward (below spmm_fwd_kernel). Wrapper, plain version and design note:
-// graphtrans_tpu_torch/ops/kernels/spmm.py.
+// graphtrans_tpu_torch/ops/kernels/spmm.py. K8's forward
+// (ops/kernels/block_spmm.py) runs on the same forward body
+// (blocked_fwd_kernel).
 //
 // out[i] = sum_{e: dst[e] = i} w[e] * msg(x[src[e]], emb[e]),
 // msg = relu(x + emb) or x + emb, w = emask * ew (ew [E] may be null: 1).
@@ -24,7 +26,13 @@
 // row) is never walked. The weight is folded here, so the wrapper
 // launches nothing before the kernel. Grid y: slices of 32 * VEC * VPL
 // channels. One writer per output cell, no atomics.
-
+//
+// K8's forward (blocked_fwd_kernel) walks the same way over the positions
+// of a SlotOrder (block_spmm.py): the real slots of the dst-major block
+// plan grouped by major row, in slot order within each row, every
+// position live. Position k holds the edge src[k] -> dst[k]; its emb row
+// and weight are those of its slot, slot[k]. A row's terms are added in
+// slot order.
 #include <cuda_runtime.h>
 
 #include "vec.cuh"
@@ -40,14 +48,17 @@ using vio::Vec;
 constexpr int RUN_THREADS = 256;  // 8 warps a block
 constexpr int MAX_VPL = 4;        // loads a lane a row (spmm.py:bwd_launch)
 
-template <int VEC, int VPL>
-__global__ void __launch_bounds__(RUN_THREADS)
-spmm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ emb,
-                const int* __restrict__ src, const int* __restrict__ dst,
-                const bool* __restrict__ emask, const int* __restrict__ ptr,
-                const int* __restrict__ dptr, const int* __restrict__ rptr,
-                const float* __restrict__ ew, float* __restrict__ out, int d,
-                int nruns, int relu) {
+// The forward's walk, one warp a run. SLOTS: the edges are the positions
+// of a SlotOrder (every one live, emb and ew indexed by slot[k]); else the
+// batch's edges (emask, emb and ew indexed by the edge).
+template <int VEC, int VPL, bool SLOTS>
+__device__ __forceinline__ void fwd_walk(
+    const float* __restrict__ x, const float* __restrict__ emb,
+    const int* __restrict__ src, const int* __restrict__ dst,
+    const bool* __restrict__ emask, const int* __restrict__ slot,
+    const int* __restrict__ ptr, const int* __restrict__ dptr,
+    const int* __restrict__ rptr, const float* __restrict__ ew,
+    float* __restrict__ out, int d, int nruns, int relu) {
   using V = Vec<VEC>;
   constexpr int U = VEC * VPL <= 8 ? 4 : 2;  // edges whose rows load together
   const long warp = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
@@ -82,16 +93,17 @@ spmm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ emb,
 
   for (int e0 = ptr[r_lo]; e0 < e_hi && left > 0; e0 += 32) {
     const int e = e0 + lane;
-    const bool live = e < e_hi && emask[e];
+    const bool live = e < e_hi && (SLOTS || emask[e]);
     const unsigned lv = __ballot_sync(FULL, live);
     if (!lv) continue;  // masked edges only
     left -= __popc(lv);
-    int ps = 0, pd = 0;
+    int ps = 0, pd = 0, pe = e;
     float pw = 0.f;  // masked: weight 0
     if (live) {
       ps = src[e];
       pd = dst[e];
-      pw = ew ? ew[e] : 1.f;
+      if (SLOTS) pe = slot[e];
+      pw = ew ? ew[pe] : 1.f;
     }
     const int n = 32 - __clz(lv);  // past the chunk's last live edge
     for (int i0 = 0; i0 < n; i0 += U) {
@@ -101,7 +113,7 @@ spmm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ emb,
 #pragma unroll
       for (int u = 0; u < U; ++u) {  // every edge's rows in flight first
         const int i = (i0 + u) & 31;
-        const long eu = e0 + i;
+        const long eu = SLOTS ? __shfl_sync(FULL, pe, i) : e0 + i;
         const long su = __shfl_sync(FULL, ps, i);
         du[u] = __shfl_sync(FULL, pd, i);
         wu[u] = i0 + u < n ? __shfl_sync(FULL, pw, i) : 0.f;
@@ -132,6 +144,31 @@ spmm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ emb,
     }
   }
   write_to(r_hi);
+}
+
+template <int VEC, int VPL>
+__global__ void __launch_bounds__(RUN_THREADS)
+spmm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ emb,
+                const int* __restrict__ src, const int* __restrict__ dst,
+                const bool* __restrict__ emask, const int* __restrict__ ptr,
+                const int* __restrict__ dptr, const int* __restrict__ rptr,
+                const float* __restrict__ ew, float* __restrict__ out, int d,
+                int nruns, int relu) {
+  fwd_walk<VEC, VPL, false>(x, emb, src, dst, emask, nullptr, ptr, dptr,
+                            rptr, ew, out, d, nruns, relu);
+}
+
+// K8's forward: every position live, so the live positions before a row
+// are its row pointer (dptr = ptr).
+template <int VEC, int VPL>
+__global__ void __launch_bounds__(RUN_THREADS)
+blocked_fwd_kernel(const float* __restrict__ x, const float* __restrict__ emb,
+                   const int* __restrict__ src, const int* __restrict__ dst,
+                   const int* __restrict__ slot, const int* __restrict__ ptr,
+                   const int* __restrict__ rptr, const float* __restrict__ ew,
+                   float* __restrict__ out, int d, int nruns, int relu) {
+  fwd_walk<VEC, VPL, true>(x, emb, src, dst, nullptr, slot, ptr, ptr, rptr,
+                           ew, out, d, nruns, relu);
 }
 
 // Backward: with a_e = x[src_e] + emb_e and g = dOut,
@@ -270,7 +307,8 @@ spmm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ emb,
 struct FwdArgs {
   const float *x, *emb;
   const int *src, *dst;
-  const bool* emask;
+  const bool* emask;  // K7's; null for K8
+  const int* slot;    // K8's; null for K7
   const int *ptr, *dptr, *rptr;
   const float* ew;
   float* out;
@@ -280,10 +318,15 @@ struct FwdArgs {
 template <int VEC, int VPL>
 int launch_fwd(const FwdArgs& A, cudaStream_t stream) {
   const long blocks = ((long)A.nruns * 32 + RUN_THREADS - 1) / RUN_THREADS;
-  spmm_fwd_kernel<VEC, VPL><<<dim3((unsigned)blocks, A.slices), RUN_THREADS,
-                              0, stream>>>(A.x, A.emb, A.src, A.dst, A.emask,
-                                           A.ptr, A.dptr, A.rptr, A.ew, A.out,
-                                           A.d, A.nruns, A.relu);
+  const dim3 grid((unsigned)blocks, A.slices);
+  if (A.slot)
+    blocked_fwd_kernel<VEC, VPL><<<grid, RUN_THREADS, 0, stream>>>(
+        A.x, A.emb, A.src, A.dst, A.slot, A.ptr, A.rptr, A.ew, A.out, A.d,
+        A.nruns, A.relu);
+  else
+    spmm_fwd_kernel<VEC, VPL><<<grid, RUN_THREADS, 0, stream>>>(
+        A.x, A.emb, A.src, A.dst, A.emask, A.ptr, A.dptr, A.rptr, A.ew, A.out,
+        A.d, A.nruns, A.relu);
   return cudaGetLastError();
 }
 
@@ -361,8 +404,30 @@ extern "C" int spmm_fwd(const float* x, const float* emb, const int* src,
   if (((unsigned long)x | (unsigned long)emb | (unsigned long)out) %
       (4ul * vec))
     return cudaErrorInvalidValue;
-  const FwdArgs A{x,   emb, src,   dst,  emask, ptr,   dptr,
-                  rptr, ew, out,   d,    nruns, relu,  slices};
+  const FwdArgs A{x,    emb, src, dst, emask, nullptr, ptr,
+                  dptr, rptr, ew, out, d,     nruns,   relu, slices};
+  return vec == 4 ? launch_fwd_vpl<4>(A, vpl, stream)
+                  : launch_fwd_vpl<1>(A, vpl, stream);
+}
+
+// K8's forward: out [N, d] over the positions of a SlotOrder. Position k
+// is the edge src[k] -> dst[k] of slot slot[k], whose emb row [C*EB, d]
+// and weight w [C*EB] (may be null: 1) it reads; row i's positions lie at
+// [ptr[i], ptr[i+1]), and rptr [nruns + 1] cuts the rows [0, N) into runs
+// as spmm_fwd's. relu and the launch (vec, vpl, slices) as spmm_fwd's.
+extern "C" int blocked_fwd(const float* x, const float* emb, const int* src,
+                           const int* dst, const int* slot, const int* ptr,
+                           const int* rptr, const float* w, float* out, int N,
+                           int d, int nruns, int relu, int vec, int vpl,
+                           int slices, cudaStream_t stream) {
+  if (N <= 0 || d <= 0 || nruns < 1 || !slot ||
+      !launch_ok(d, vec, vpl, slices))
+    return cudaErrorInvalidValue;
+  if (((unsigned long)x | (unsigned long)emb | (unsigned long)out) %
+      (4ul * vec))
+    return cudaErrorInvalidValue;
+  const FwdArgs A{x,   emb, src, dst, nullptr, slot,  ptr,
+                  ptr, rptr, w,  out, d,       nruns, relu, slices};
   return vec == 4 ? launch_fwd_vpl<4>(A, vpl, stream)
                   : launch_fwd_vpl<1>(A, vpl, stream);
 }

@@ -1,19 +1,18 @@
-// The strided-layout message sum of K6 (dense_agg.cu; K1's forward and
-// backward have their own bodies in gin_agg.cu since PRs 16 and 15):
+// The strided-layout message sum of K6's forward (dense_agg.cu; K1's
+// forward and backward have their own bodies in gin_agg.cu, and K6's
+// backward its own in dense_agg.cu):
 //
 //   out[g,s,c] = sum_{e: mask[g,e], dst[g,e]=s}
 //                w[g,e] * relu(x[g,src[g,e],c] + emb_e[c])
 //
-// and K6's backward. One block per (graph, slice of CT channels);
-// thread t owns channel c0+t. The graph's x slice (in the backward also
-// gout's and a dx accumulator) and its edge lists sit in shared memory, and
-// each thread walks the edges in order, adding into its own column, so no
-// cell has two writers and every sum has a fixed order. The kernels differ
-// only in how an edge's embedding is made (policy Emb: emb(e) is channel t
-// of edge e's embedding; K6 loads emb), fetched a few edges ahead of their
-// adds; a masked slot fetches nothing.
-// dw (a sum over channels) is reduced across the block's warps per edge,
-// written per channel slice, and the slices summed in order by sum_rows.
+// One block per (graph, slice of CT channels); thread t owns channel
+// c0+t. The graph's x slice, an accumulator and its edge lists sit in
+// shared memory, and each thread walks the edges in order, adding into its
+// own column, so no cell has two writers and every sum has a fixed order.
+// An edge's embedding comes from a policy (Emb: emb(e) is channel t of
+// edge e's embedding; K6 loads emb), fetched a few edges ahead of its add;
+// a masked slot fetches nothing. sum_rows adds K6-bwd's per-slice dw
+// partials in order.
 
 #pragma once
 
@@ -33,20 +32,6 @@ __device__ __forceinline__ void stage_fwd_rows(float* xs, float* acc,
   for (int r = 0; r < Sm; ++r) {
     xs[r * CT + t] = live ? col[(long)r * d] : 0.f;
     acc[r * CT + t] = 0.f;
-  }
-}
-
-// The backward's rows, both loads of a row issued together: x and gout of
-// channel t (at base + r*d) into xs and gs, and dxs zeroed.
-__device__ __forceinline__ void stage_bwd_rows(float* xs, float* gs,
-                                               float* dxs, const float* x,
-                                               const float* gout, long base,
-                                               int Sm, int d, bool live,
-                                               int t) {
-  for (int r = 0; r < Sm; ++r) {
-    xs[r * CT + t] = live ? x[base + (long)r * d] : 0.f;
-    gs[r * CT + t] = live ? gout[base + (long)r * d] : 0.f;
-    dxs[r * CT + t] = 0.f;
   }
 }
 
@@ -93,67 +78,6 @@ __device__ __forceinline__ void walk_fwd(const float* xs, float* acc,
       if (HAS_W) m *= ew[e];
       acc[dd * CT + t] += m;
     }
-  }
-}
-
-// Sums v over each warp; lane 0 writes the warp's sum to wsum[warp][e].
-__device__ __forceinline__ void warp_sums(float v, float* wsum, int e,
-                                          int Em, int t) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  if ((t & 31) == 0) wsum[(t >> 5) * Em + e] = v;
-}
-
-// The backward's walk over the edges in order. On a valid edge, with pre =
-// x[src] + emb(e): dmsg = gout[dst] (*w; 0 where pre <= 0 under relu) is
-// added into dxs at src, and gout[dst]*relu(pre) is summed over the
-// block's channels into wsum [CT/32][Em] (HAS_W); on_slot(e, dmsg) runs on
-// every slot, dmsg 0 on a masked one (K6: demb). ed[e] is the same for
-// every thread, so the warp shuffles never diverge. EU edges' embeddings
-// are fetched before their adds.
-template <bool RELU, bool HAS_W, class Emb, class OnSlot>
-__device__ __forceinline__ void walk_bwd(const float* xs, const float* gs,
-                                         float* dxs, const int* es,
-                                         const int* ed, const float* ew,
-                                         float* wsum, int Em, int t, Emb emb,
-                                         OnSlot on_slot) {
-  for (int e0 = 0; e0 < Em; e0 += EU) {
-    float ev[EU];
-#pragma unroll
-    for (int k = 0; k < EU; ++k) {
-      const int e = e0 + k;
-      ev[k] = (e < Em && ed[e] >= 0) ? emb(e) : 0.f;
-    }
-#pragma unroll
-    for (int k = 0; k < EU; ++k) {
-      const int e = e0 + k;
-      if (e >= Em) break;
-      const int dd = ed[e];
-      float part = 0.f, dm = 0.f;
-      if (dd >= 0) {
-        const int ss = es[e];
-        const float pre = xs[ss * CT + t] + ev[k];
-        const float gm = gs[dd * CT + t];
-        part = gm * (RELU ? fmaxf(pre, 0.f) : pre);
-        dm = HAS_W ? gm * ew[e] : gm;
-        if (RELU && !(pre > 0.f)) dm = 0.f;
-        dxs[ss * CT + t] += dm;
-      }
-      on_slot(e, dm);
-      if (HAS_W) warp_sums(part, wsum, e, Em, t);
-    }
-  }
-}
-
-// After a __syncthreads that follows walk_bwd: each edge's dw over the
-// block's channels (its warps' sums, in order) into this channel slice's
-// partial dw_part [slices, G, Em].
-__device__ __forceinline__ void write_dw(const float* wsum, float* dw_part,
-                                         long g, int G, int slice, int Em,
-                                         int t) {
-  for (int e = t; e < Em; e += CT) {
-    float s = 0.f;
-    for (int k = 0; k < CT / 32; ++k) s += wsum[k * Em + e];
-    dw_part[((long)slice * G + g) * Em + e] = s;
   }
 }
 

@@ -13,11 +13,12 @@ the degree and the norm from per-graph reductions and gathers
 (``dense_mp``). On the flat layout (code2) it runs in kernel K8 over the
 batch's block plans when it carries them and the model's switch is on
 (``ops/block_plan.py:set_block_spmm``; the edge encoder then encodes the
-attributes in each plan's chunk order, and the norm is gathered per
-slot), else in kernel K7 over the dst-sorted edges (it walks the batch's
-``dst_order`` and its backward the batch's ``src_order``, each made once
-and shared by every layer): the JAX package's
-precedence, strided, then blocked, then flat. The degree, the norm and
+attributes in the dst-major plan's chunk order, and in the src-major
+plan's too where a gradient is wanted, the norm is gathered per slot, and
+K8 walks the batch's ``slot_order``), else in kernel K7 over the
+dst-sorted edges (it walks the batch's ``dst_order`` and its backward the
+batch's ``src_order``, each made once and shared by every layer): the JAX
+package's precedence, strided, then blocked, then flat. The degree, the norm and
 the self term are plain PyTorch.
 """
 
@@ -29,7 +30,7 @@ from torch import nn
 from ..ops import block_plan, dense_mp
 from ..ops.kernels import (blocked_gather_message_scatter,
                            blocked_gather_message_scatter_plain, dst_order,
-                           spmm, spmm_plain, src_order)
+                           slot_order, spmm, spmm_plain, src_order)
 from ..ops.segment import out_degree
 from .encoders import BondEncoder
 from .init import normal_
@@ -117,16 +118,22 @@ class GCNConv(nn.Module):
 
     def _blocked(self, batch, x: torch.Tensor, dis: torch.Tensor):
         """The aggregation [N, d] in K8 over the batch's block plans: the
-        edge encoder on each plan's chunk-ordered attributes, the norm per
-        slot of each plan."""
+        edge encoder on the dst-major plan's chunk-ordered attributes and
+        the norm per slot; the src-major plan's (which only K8's dx reads)
+        only where autograd will want a gradient of x or of the encoder."""
         emb_f = self.edge_encoder(batch.edge_attr_bsp_fwd).to(x.dtype)
-        emb_b = self.edge_encoder(batch.edge_attr_bsp_bwd).to(x.dtype)
         w_f = bsp_slot_weight(batch.bsp_fwd, dis, False)
-        w_b = bsp_slot_weight(batch.bsp_bwd, dis, True)
-        fn = (blocked_gather_message_scatter if self.use_kernel
-              else blocked_gather_message_scatter_plain)
-        return fn(x, emb_f, emb_b, batch.bsp_fwd, batch.bsp_bwd, w_f, w_b,
-                  "relu_add")
+        emb_b = w_b = plan_b = None
+        if torch.is_grad_enabled() and (x.requires_grad
+                                        or emb_f.requires_grad):
+            emb_b = self.edge_encoder(batch.edge_attr_bsp_bwd).to(x.dtype)
+            w_b = bsp_slot_weight(batch.bsp_bwd, dis, True)
+            plan_b = batch.bsp_bwd
+        args = (x, emb_f, emb_b, batch.bsp_fwd, plan_b, w_f, w_b, "relu_add")
+        if self.use_kernel:
+            return blocked_gather_message_scatter(*args,
+                                                  rows=slot_order(batch))
+        return blocked_gather_message_scatter_plain(*args)
 
     def _strided(self, batch, x: torch.Tensor):
         """(aggregation [N, d] in K6, 1/deg [N, 1]) on the strided layout:

@@ -21,13 +21,13 @@ from .attention_packed import (attention_dense, attention_dense_bwd,
 from .attention_smalls import (attention_smalls, attention_smalls_bwd,
                                attention_smalls_bwd_plain,
                                attention_smalls_plain)
-from .block_spmm import (blocked_gather_message_scatter,
+from .block_spmm import (SlotOrder, blocked_gather_message_scatter,
                          blocked_gather_message_scatter_bwd_plain,
                          blocked_gather_message_scatter_demb,
                          blocked_gather_message_scatter_demb_plain,
                          blocked_gather_message_scatter_dx,
                          blocked_gather_message_scatter_dx_plain,
-                         blocked_gather_message_scatter_plain)
+                         blocked_gather_message_scatter_plain, slot_order)
 from .dense_agg import (dense_agg, dense_agg_bwd, dense_agg_bwd_plain,
                         dense_agg_plain)
 from .dropout import byte_dropout, byte_dropout_plain
@@ -96,7 +96,8 @@ __all__ = ["attention_dense", "attention_dense_bwd",
            "flash_hil_seg_plain", "gin_agg", "gin_agg_bwd",
            "gin_agg_bwd_plain", "gin_agg_plain", "key_padding_segs",
            "launch_counts", "reset_launches", "segment_sum_mxu",
-           "segment_sum_mxu_plain", "set_kernels", "spmm",
+           "segment_sum_mxu_plain", "set_kernels", "slot_order", "SlotOrder",
+           "spmm",
            "spmm_bwd", "spmm_bwd_plain", "spmm_plain", "src_order",
            "SrcOrder", "transformer_layer", "transformer_layer_bwd",
            "transformer_layer_bwd_plain", "transformer_layer_plain",

@@ -31,16 +31,33 @@ What bounds it on the H100: memory. Per real slot the forward reads a row
 of emb and gathers a row of x, and writes the N rows once; at the
 512-graph code2 batch (N = 65536, d = 300, 171762 real slots of 1245184)
 that is about 0.36 GB. d_emb must write all C*EB rows (1.49 GB there), dx
-reads like the forward. Design (``csrc/block_spmm.cu``): forward and dx,
-one block per (major block, 128 channels) walks its run of chunks
-(``run`` from ``searchsorted(blk_out)``), skips the chunks with no real
-slot (``live``, a count per chunk; the pad chunks at the plan's tail all
-revisit the last block) 128 at a time, lists each chunk's real slots in
-slot order, and adds their messages into a 128 x 128 sum in shared
-memory, one thread per channel: no atomics, a fixed order. d_emb, one
-warp per slot, writes zero rows for the slots that are not real. The
-wrapper computes ``run`` and ``live`` on the card (two small torch ops a
-launch) and allocates with ``torch.empty``.
+reads like the forward.
+
+Forward (``csrc/spmm.cu:blocked_fwd_kernel``, K7's forward body): the
+batch's ``SlotOrder`` (``slot_order(batch)``, made once a batch and shared
+by the five layers) lists the real slots of the dst-major plan grouped by
+major row (the edge's dst), in slot order within each row, with each
+position's minor and major row and a row pointer; pad slots and pad chunks
+are in no row. A warp walks a run of whole rows (``spmm.edge_runs`` of
+the row pointer), issues the x and emb rows of several positions before
+it adds any (16-byte loads where d % 4 == 0), sums each row in registers
+and writes it once, zero for a row no real slot reaches. A row's terms
+are added in slot order, each product rounded before its add, as the
+plain version's ``index_add_`` adds them on the CPU. No shared
+accumulator, no atomics, no barrier; nothing launched before the kernel
+but the order, once a batch.
+
+d_emb and dx (``csrc/block_spmm.cu``): dx, one block per (major block,
+128 channels) walks its run of chunks (``run`` from
+``searchsorted(blk_out)``), skips the chunks with no real slot (``live``,
+a count per chunk; the pad chunks at the plan's tail all revisit the last
+block) 128 at a time, lists each chunk's real slots in slot order, and
+adds their messages into a 128 x 128 sum in shared memory, one thread per
+channel: no atomics, a fixed order. d_emb, one warp per slot, writes zero
+rows for the slots that are not real. The wrapper computes ``run`` and
+``live`` on the card (two small torch ops a launch) and allocates with
+``torch.empty``. Without a gradient only the dst-major plan is read: the
+src-major plan, its emb copy and weight may be None.
 """
 
 from __future__ import annotations
@@ -51,7 +68,7 @@ from typing import Optional
 import torch
 
 from ..block_plan import EB, NB, slot_rows
-from . import _build
+from . import _build, spmm
 
 MESSAGES = ("relu_add", "add")
 _PLAN = (("blk_out", torch.int32, 1), ("blk_in", torch.int32, 1),
@@ -163,6 +180,57 @@ def _refuse_weight_grad(w_fwd, w_bwd):
             "not compute (the GCN norm is structural): pass w.detach()")
 
 
+class SlotOrder:
+    """The walk order of K8's forward over a dst-major plan: ``get()``
+    gives (``slot``, ``src``, ``dst``, ``ptr``), int32 on the plan's
+    device: positions ``[ptr[i], ptr[i+1])`` hold the real slots whose
+    major row (the edge's dst) is i, in slot order, position k the slot
+    ``slot[k]`` of the edge ``src[k] -> dst[k]``; the slots that are not
+    real sort past row N-1 and are in no row. ``runs()`` cuts the rows into
+    runs (``spmm.edge_runs``; ``num_edges``, at least the real slots and
+    known on the host, sets how many: a batch's edge slots). One stable
+    sort, made on the device at first use, then shared: one per batch
+    serves every layer."""
+
+    def __init__(self, plan: dict, num_nodes: int,
+                 num_edges: Optional[int] = None):
+        self.plan, self.num_nodes = plan, num_nodes
+        self.num_slots = plan["mask"].numel()
+        self.num_edges = self.num_slots if num_edges is None else num_edges
+        self._order = self._runs = None
+
+    def get(self):
+        if self._order is None:
+            p, N = self.plan, self.num_nodes
+            rows = lambda blk, loc: (blk[:, None] * NB + loc).reshape(-1)
+            key = torch.where(p["mask"].reshape(-1) > 0,
+                              rows(p["blk_out"], p["loc_out"]), N)
+            dst, slot = torch.sort(key, stable=True)
+            src = rows(p["blk_in"], p["loc_in"]).index_select(0, slot)
+            ptr = torch.searchsorted(
+                dst, spmm._arange(N + 1, 1, dst.dtype, dst.device),
+                out_int32=True)
+            self._order = (slot.to(torch.int32), src, dst, ptr)
+        return self._order
+
+    def runs(self) -> torch.Tensor:
+        if self._runs is None:
+            self._runs = spmm.edge_runs(self.get()[3], self.num_edges)
+        return self._runs
+
+
+def slot_order(batch) -> SlotOrder:
+    """The ``SlotOrder`` of a batch's dst-major plan, made at the first
+    call and kept on the batch, as ``spmm.dst_order`` keeps its
+    ``DstOrder``."""
+    order = batch.__dict__.get("_slot_order")
+    if order is None:
+        order = SlotOrder(batch.bsp_fwd, batch.num_node_slots,
+                          batch.edge_src.shape[0])
+        object.__setattr__(batch, "_slot_order", order)  # a frozen dataclass
+    return order
+
+
 def _walk_args(plan, nblk: int):
     """run [nblk + 1] (each major block's first chunk) and live [C] (real
     slots per chunk), on the card."""
@@ -182,30 +250,15 @@ def _stream(t: torch.Tensor):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def _launch_walk(name, gat, xmaj, emb, plan, w, relu):
-    N, d = gat.shape
-    out = torch.empty_like(gat)
-    run, live = _walk_args(plan, N // NB)
-    lib = _load()
-    args = [] if xmaj is None else [xmaj]
-    err = getattr(lib, name)(
-        *(_ptr(t) for t in [*args, gat, emb, plan["blk_in"],
-                            plan["loc_out"], plan["loc_in"], plan["mask"],
-                            w, run, live, out]),
-        N // NB, d, int(relu), _stream(gat))
-    _build.check(lib, err, name)
-    return out
-
-
 class _Blocked(torch.autograd.Function):
     """K8 on CUDA tensors with the d_emb and dx kernels as its gradient."""
 
     @staticmethod
     def forward(ctx, x, emb_fwd, emb_bwd, w_fwd, w_bwd, plan_fwd, plan_bwd,
-                message):
+                message, rows):
         ctx.save_for_backward(x, emb_fwd, emb_bwd, w_fwd, w_bwd)
         ctx.plans, ctx.message = (plan_fwd, plan_bwd), message
-        return _forward(x, emb_fwd, plan_fwd, w_fwd, message)
+        return _forward(x, emb_fwd, w_fwd, message, rows)
 
     @staticmethod
     def backward(ctx, g):
@@ -219,42 +272,74 @@ class _Blocked(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = blocked_gather_message_scatter_dx(
                 x, g, emb_bwd, plan_bwd, w_bwd, ctx.message)
-        return dx, demb, None, None, None, None, None, None
+        return dx, demb, None, None, None, None, None, None, None
 
 
-def _forward(x, emb_fwd, plan_fwd, w_fwd, message):
-    out = _launch_walk("block_spmm_fwd", x, None, emb_fwd, plan_fwd, w_fwd,
-                       message == "relu_add")
+def _forward(x, emb_fwd, w_fwd, message, rows: SlotOrder):
+    N, d = x.shape
+    out = torch.empty_like(x)
+    slot, src, dst, ptr = rows.get()
+    rptr = rows.runs()
+    vec, vpl, slices = spmm.bwd_launch(d, _build.align(x, emb_fwd))
+    lib = spmm._load()           # K8's forward runs on K7's forward body
+    err = lib.blocked_fwd(
+        *(_ptr(t) for t in (x, emb_fwd, src, dst, slot, ptr, rptr, w_fwd,
+                            out)),
+        N, d, rptr.shape[0] - 1, int(message == "relu_add"), vec, vpl,
+        slices, _stream(x))
+    _build.check(lib, err, "blocked_fwd")
     blocked_gather_message_scatter.launches += 1
     return out
 
 
 def blocked_gather_message_scatter(
-        x: torch.Tensor, emb_fwd: torch.Tensor, emb_bwd: torch.Tensor,
-        plan_fwd: dict, plan_bwd: dict, w_fwd: Optional[torch.Tensor] = None,
-        w_bwd: Optional[torch.Tensor] = None,
-        message: str = "relu_add") -> torch.Tensor:
+        x: torch.Tensor, emb_fwd: torch.Tensor,
+        emb_bwd: Optional[torch.Tensor], plan_fwd: dict,
+        plan_bwd: Optional[dict], w_fwd: Optional[torch.Tensor] = None,
+        w_bwd: Optional[torch.Tensor] = None, message: str = "relu_add",
+        rows: Optional[SlotOrder] = None) -> torch.Tensor:
     """K8 forward, with the JAX signature. CPU tensors take the plain
     version; CUDA tensors launch the kernel or raise. ``plan_fwd`` and
     ``plan_bwd`` are the batch's dst- and src-major plans as tensors on
     x's device (``blk_out`` grouped ascending, as ``build_block_plan``
-    makes it); w_fwd and w_bwd both given or both None. Where x or emb_fwd
-    wants a gradient the result carries the d_emb and dx kernels."""
+    makes it). The kernel walks ``rows``, the ``SlotOrder`` of
+    ``plan_fwd`` (``slot_order(batch)`` for a batch's, so that a call
+    launches nothing before the kernel); without it the call makes one.
+    Where x or emb_fwd wants a gradient the result carries the d_emb and
+    dx kernels, and the src-major plan, its emb copy and (with w_fwd) its
+    weight are needed; without a gradient they may be None."""
     _message(message)
-    if (w_fwd is None) != (w_bwd is None):
+    grad = torch.is_grad_enabled() and (x.requires_grad
+                                        or emb_fwd.requires_grad)
+    if (emb_bwd is None) != (plan_bwd is None) or (emb_bwd is None
+                                                   and w_bwd is not None):
+        raise ValueError("block_spmm: give the src-major plan, its emb "
+                         "copy and its weight together, or none of them")
+    if emb_bwd is not None and (w_fwd is None) != (w_bwd is None):
         raise ValueError("block_spmm: give both slot weights or neither")
+    if grad and emb_bwd is None:
+        raise ValueError("block_spmm: a gradient needs the src-major plan, "
+                         "its emb copy and weight (dx walks them)")
     _refuse_weight_grad(w_fwd, w_bwd)
     if x.device.type == "cpu":
         return blocked_gather_message_scatter_plain(
             x, emb_fwd, emb_bwd, plan_fwd, plan_bwd, w_fwd, w_bwd, message)
     if x.device.type != "cuda":
         raise ValueError(f"block_spmm: unsupported device {x.device}")
-    _check(x, [(emb_fwd, plan_fwd, w_fwd), (emb_bwd, plan_bwd, w_bwd)])
-    if torch.is_grad_enabled() and (x.requires_grad or emb_fwd.requires_grad
-                                    or emb_bwd.requires_grad):
+    pairs = [(emb_fwd, plan_fwd, w_fwd)]
+    if emb_bwd is not None:
+        pairs.append((emb_bwd, plan_bwd, w_bwd))
+    _check(x, pairs)
+    if rows is None:
+        rows = SlotOrder(plan_fwd, x.shape[0])
+    if rows.num_nodes != x.shape[0] or rows.num_slots != emb_fwd.shape[0]:
+        raise ValueError(f"block_spmm: rows is the order of {rows.num_nodes} "
+                         f"nodes and {rows.num_slots} slots, the call's of "
+                         f"{x.shape[0]} and {emb_fwd.shape[0]}")
+    if grad:
         return _Blocked.apply(x, emb_fwd, emb_bwd, w_fwd, w_bwd, plan_fwd,
-                              plan_bwd, message)
-    return _forward(x, emb_fwd, plan_fwd, w_fwd, message)
+                              plan_bwd, message, rows)
+    return _forward(x, emb_fwd, w_fwd, message, rows)
 
 
 blocked_gather_message_scatter.launches = 0
@@ -303,7 +388,16 @@ def blocked_gather_message_scatter_dx(
     if x.device.type != "cuda":
         raise ValueError(f"block_spmm: unsupported device {x.device}")
     _check(x, [(emb_bwd, plan_bwd, w_bwd)], g)
-    dx = _launch_walk("block_spmm_dx", g, x, emb_bwd, plan_bwd, w_bwd, relu)
+    N, d = x.shape
+    dx = torch.empty_like(x)
+    run, live = _walk_args(plan_bwd, N // NB)
+    lib = _load()
+    err = lib.block_spmm_dx(
+        *(_ptr(t) for t in (x, g, emb_bwd, plan_bwd["blk_in"],
+                            plan_bwd["loc_out"], plan_bwd["loc_in"],
+                            plan_bwd["mask"], w_bwd, run, live, dx)),
+        N // NB, d, int(relu), _stream(x))
+    _build.check(lib, err, "block_spmm_dx")
     blocked_gather_message_scatter_dx.launches += 1
     return dx
 
@@ -313,17 +407,13 @@ blocked_gather_message_scatter_dx.launches = 0
 
 def _load():
     lib = _build.load("block_spmm")
-    if lib.block_spmm_fwd.argtypes is None:
-        lib.block_spmm_fwd.argtypes = ([ctypes.c_void_p] * 10
-                                       + [ctypes.c_int] * 3
-                                       + [ctypes.c_void_p])
+    if lib.block_spmm_dx.argtypes is None:
         lib.block_spmm_dx.argtypes = ([ctypes.c_void_p] * 11
                                       + [ctypes.c_int] * 3
                                       + [ctypes.c_void_p])
         lib.block_spmm_demb.argtypes = ([ctypes.c_void_p] * 10
                                         + [ctypes.c_int] * 3
                                         + [ctypes.c_void_p])
-        for f in (lib.block_spmm_fwd, lib.block_spmm_dx,
-                  lib.block_spmm_demb):
+        for f in (lib.block_spmm_dx, lib.block_spmm_demb):
             f.restype = ctypes.c_int
     return lib

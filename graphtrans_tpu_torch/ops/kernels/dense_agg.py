@@ -23,30 +23,49 @@ multiple of 16); both exist for the TPU only. Here any G and any d run.
 What bounds it on the H100: memory. The forward must read x and the emb
 rows of valid edges and write out: at 4096 NCI1-like graphs (stride 48,
 160 edge slots of which 68 valid on average, d=128) about 0.35 GB against
-a few flops per valid edge and channel; the backward reads x, gout and the
-valid emb rows and writes dx and demb (in full), about 0.79 GB. Design
-(``csrc/dense_agg.cu`` over ``csrc/strided_agg.cuh``, the walk it shares
-with K1), K1's layout without the table lookup: a block owns
-a 128-channel slice of one graph; the graph's x slice (and in the backward
-gout's) and an accumulator sit in shared memory, the edge lists are staged
-once, and each thread owns one channel and walks the edges in order, the
-embedding loads of 8 edges issued before their adds. No two threads write
-one cell, so there are no atomics and every sum has a fixed order. dw, a
-sum over channels, is reduced across the block's warps per edge and summed
-over the channel slices in order.
+a few flops per valid edge and channel. The backward reads x, gout and the
+valid emb rows and writes dx, about 0.45 GB; demb (written in full) and
+dw add 0.34 GB where autograd asks for them, which NCI1 never does (its
+edge embeddings are zeros without a gradient, its weight the structural
+GCN norm).
+
+Forward (``csrc/dense_agg.cu`` over ``csrc/strided_agg.cuh``), K1's
+earlier layout without the table lookup: a block owns a 128-channel slice
+of one graph; the graph's x slice and an accumulator sit in shared memory,
+the edge lists are staged once, and each thread owns one channel and walks
+the edges in order, the embedding loads of 8 edges issued before their
+adds. No two threads write one cell, so there are no atomics and every
+sum has a fixed order.
+
+Backward (``csrc/dense_agg.cu:dense_agg_bwd_kernel``): a warp a graph
+(and slice of 32 * vec * vpl channels, ``bwd_geometry``: one slice up to
+d 512), so a few thousand graphs fill the card in one wave. The warp
+sorts its graph's valid slots by (src, slot) in shared memory, once for
+all of its channels, then walks them as K7-bwd walks its runs: the
+gout[dst], emb and x[src] rows of several edges in flight (16-byte loads
+where d % 4 == 0), dx of each row summed in registers in slot order and
+written once. ``dense_agg_bwd`` computes only what it is asked for: the
+dx-only instance writes neither demb nor dw; the full one writes demb (0
+on masked slots) and reduces dw, a sum over channels, over the warp's
+lanes per edge (per channel slice, the slices summed in order). Launches
+count by instance in ``dense_agg_bwd.instances``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
 from . import _build
+from .gin_agg import SMS, _sms
+from .spmm import bwd_launch
 
-_CT = 128  # channels per block (csrc/dense_agg.cu)
 _SMEM_MAX = 232448  # bytes of shared memory a block can use on Hopper
+BWD_WARPS = 8  # warps a backward block at most (csrc/dense_agg.cu)
 
 
 def dense_agg_plain(x, src, dst, emask, emb, w=None,
@@ -65,17 +84,67 @@ def dense_agg_plain(x, src, dst, emask, emb, w=None,
         1, dst.long()[..., None].expand(G, Em, d), m)
 
 
-def dense_agg_bwd_plain(x, src, dst, emask, emb, w, gout, relu: bool = True):
+def dense_agg_bwd_plain(x, src, dst, emask, emb, w, gout, relu: bool = True,
+                        need_demb: bool = True, need_dw: bool = True):
     """Plain version of K6's backward: autograd through ``dense_agg_plain``.
-    Returns (dx, demb, dw or None), as ``dense_agg_bwd``."""
+    Returns (dx, demb or None, dw or None), as ``dense_agg_bwd``: demb
+    where ``need_demb``, dw where w is given and ``need_dw``."""
     with torch.enable_grad():
-        leaves = [t.detach().requires_grad_() if t is not None else None
-                  for t in (x, emb, w)]
+        leaves = [t.detach().requires_grad_() if t is not None and need
+                  else t for t, need in ((x, True), (emb, need_demb),
+                                         (w, need_dw))]
         out = dense_agg_plain(leaves[0], src, dst, emask, leaves[1],
                               leaves[2], relu)
-        want = [t for t in leaves if t is not None]
+        want = [t for t in leaves if t is not None and t.requires_grad]
         got = iter(torch.autograd.grad(out, want, gout))
-    return tuple(next(got) if t is not None else None for t in leaves)
+    return tuple(next(got) if t is not None and t.requires_grad else None
+                 for t in leaves)
+
+
+@dataclass(frozen=True)
+class BwdGeometry:
+    """One launch of K6-bwd: ``vec`` neighbouring channels a load, ``vpl``
+    loads a lane a row, ``slices`` channel slices of 32 * vec * vpl
+    (``bwd_launch``, K7-bwd's rule), ``warps`` graphs a block (a warp a
+    graph; ceil(G / warps) blocks) and the block's dynamic shared bytes.
+    ``args`` are the ints the C entry checks and launches."""
+    vec: int
+    vpl: int
+    slices: int
+    warps: int
+    smem: int
+
+    def args(self) -> tuple:
+        return (self.vec, self.vpl, self.slices, self.warps, self.smem)
+
+
+def bwd_smem(Em: int, warps: int) -> int:
+    """Shared bytes of a K6-bwd block (``csrc/dense_agg.cu:bwd_smem``): per
+    warp and edge slot a compacted key, a sorted key, its dst and w."""
+    return 16 * Em * warps
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_geometry(G: int, Sm: int, Em: int, d: int, sms: int = SMS,
+                 align: int = 4) -> BwdGeometry:
+    """K6-bwd's launch for G graphs of stride Sm with Em edge slots at
+    width d on a card of ``sms`` SMs (``align``: the widest vector, in
+    floats, the tensors' addresses allow). A warp takes one graph and
+    slice; a block takes up to BWD_WARPS graphs, fewer where the graphs
+    would leave SMs without a block (G 129: 129 blocks of one warp), and
+    fewer where its shared memory would pass the limit."""
+    if Sm > 32767 or Em > 65536:
+        raise ValueError(f"dense_agg_bwd: stride {Sm} and {Em} edge slots "
+                         f"do not fit a sort key (at most 32767 and 65536)")
+    vec, vpl, slices = bwd_launch(d, align)
+    warps = max(1, min(BWD_WARPS, -(-G // sms)))
+    while warps > 1 and bwd_smem(Em, warps) > _SMEM_MAX:
+        warps -= 1
+    if bwd_smem(Em, warps) > _SMEM_MAX:
+        raise ValueError(f"dense_agg_bwd: {Em} edge slots need "
+                         f"{bwd_smem(Em, 1)} bytes of shared memory (max "
+                         f"{_SMEM_MAX})")
+    return BwdGeometry(vec, vpl, slices, warps, bwd_smem(Em, warps))
 
 
 def _check(x, src, dst, emask, emb, w, gout=None):
@@ -98,10 +167,12 @@ def _check(x, src, dst, emask, emb, w, gout=None):
         if not t.is_contiguous():
             raise ValueError("dense_agg: inputs must be contiguous")
     lib = _load()
-    smem = lib.dense_agg_smem(Sm, Em, int(gout is not None))
-    if smem > _SMEM_MAX:
-        raise ValueError(f"dense_agg: stride {Sm} and {Em} edge slots need "
-                         f"{smem} bytes of shared memory (max {_SMEM_MAX})")
+    if gout is None:
+        smem = lib.dense_agg_smem(Sm, Em)
+        if smem > _SMEM_MAX:
+            raise ValueError(f"dense_agg: stride {Sm} and {Em} edge slots "
+                             f"need {smem} bytes of shared memory (max "
+                             f"{_SMEM_MAX})")
     return lib
 
 
@@ -139,8 +210,10 @@ class _DenseAgg(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gout):
         x, src, dst, emask, emb, w = ctx.saved_tensors
-        dx, demb, dw = dense_agg_bwd(x, src, dst, emask, emb, w,
-                                     gout.contiguous(), ctx.relu)
+        dx, demb, dw = dense_agg_bwd(
+            x, src, dst, emask, emb, w, gout.contiguous(), ctx.relu,
+            need_demb=ctx.needs_input_grad[4],
+            need_dw=ctx.needs_input_grad[5])
         return dx, None, None, None, demb, dw, None
 
 
@@ -165,49 +238,66 @@ def dense_agg(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
 dense_agg.launches = 0
 
 
-def dense_agg_bwd(x, src, dst, emask, emb, w, gout, relu: bool = True):
-    """K6 backward on CUDA tensors: (dx [G,Sm,d], demb [G,Em,d], dw [G,Em]
-    or None) for the cotangent ``gout`` of ``dense_agg``. CPU tensors take
-    ``dense_agg_bwd_plain``."""
+def dense_agg_bwd(x, src, dst, emask, emb, w, gout, relu: bool = True,
+                  need_demb: bool = True, need_dw: bool = True):
+    """K6 backward: (dx [G,Sm,d], demb [G,Em,d] or None, dw [G,Em] or
+    None) for the cotangent ``gout`` of ``dense_agg``; demb where
+    ``need_demb``, dw where w is given and ``need_dw`` (``_DenseAgg``
+    passes what autograd asks for). CPU tensors take
+    ``dense_agg_bwd_plain``; CUDA tensors launch the kernel's instance
+    (dx only, or with demb and dw) or raise."""
+    need_dw = need_dw and w is not None
     if x.device.type == "cpu":
-        return dense_agg_bwd_plain(x, src, dst, emask, emb, w, gout, relu)
+        return dense_agg_bwd_plain(x, src, dst, emask, emb, w, gout, relu,
+                                   need_demb, need_dw)
     if x.device.type != "cuda":
         raise ValueError(f"dense_agg_bwd: unsupported device {x.device}")
     lib = _check(x, src, dst, emask, emb, w, gout)
     G, Sm, d = x.shape
     Em = src.shape[1]
-    dx, demb = torch.empty_like(x), torch.empty_like(emb)
-    dw = torch.empty_like(w) if w is not None else None
+    dx = torch.empty_like(x)
+    demb = torch.empty_like(emb) if need_demb else None
+    dw = torch.empty_like(w) if need_dw else None
     if G == 0 or d == 0 or Sm == 0 or Em == 0:
         for t in (dx, demb, dw):
             if t is not None:
                 t.zero_()
         return dx, demb, dw
-    slices = -(-d // _CT)
-    dw_part = (None if w is None else dw if slices == 1
-               else torch.empty(slices, G, Em, dtype=torch.float32,
-                                device=x.device))
+    geo = bwd_geometry(G, Sm, Em, d, _sms(x.device),
+                       _build.align(x, emb, gout))   # dx, demb: new
+    dw_part = (torch.empty(geo.slices, G, Em, dtype=torch.float32,
+                           device=x.device)
+               if need_dw and geo.slices > 1 else None)
     err = lib.dense_agg_bwd(
         _ptr(x), _ptr(src), _ptr(dst), _ptr(emask), _ptr(emb), _ptr(w),
         _ptr(gout), _ptr(dx), _ptr(demb), _ptr(dw), _ptr(dw_part), G, Sm, Em,
-        d, int(relu), _stream(x))
+        d, int(relu), *geo.args(), _stream(x))
     _build.check(lib, err, "dense_agg_bwd")
     dense_agg_bwd.launches += 1
+    dense_agg_bwd.instances[instance(need_demb, need_dw)] += 1
     return dx, demb, dw
 
 
+def instance(need_demb: bool, need_dw: bool) -> str:
+    """The name of K6-bwd's instance that computes dx and what is asked."""
+    return "+".join(["dx"] + ["demb"] * need_demb + ["dw"] * need_dw)
+
+
 dense_agg_bwd.launches = 0
+dense_agg_bwd.instances = {instance(a, b): 0 for a in (False, True)
+                           for b in (False, True)}   # launches by instance
 
 
 def _load():
     lib = _build.load("dense_agg")
     if lib.dense_agg_fwd.argtypes is None:
-        lib.dense_agg_smem.argtypes = [ctypes.c_int] * 3
+        lib.dense_agg_smem.argtypes = [ctypes.c_int] * 2
         lib.dense_agg_smem.restype = ctypes.c_long
         lib.dense_agg_fwd.argtypes = ([ctypes.c_void_p] * 7
                                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         lib.dense_agg_fwd.restype = ctypes.c_int
         lib.dense_agg_bwd.argtypes = ([ctypes.c_void_p] * 11
-                                      + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                                      + [ctypes.c_int] * 10
+                                      + [ctypes.c_void_p])
         lib.dense_agg_bwd.restype = ctypes.c_int
     return lib

@@ -415,4 +415,7 @@ def _load():
         lib.spmm_bwd.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
                                  + [ctypes.c_void_p])
         lib.spmm_bwd.restype = ctypes.c_int
+        lib.blocked_fwd.argtypes = ([ctypes.c_void_p] * 9
+                                    + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        lib.blocked_fwd.restype = ctypes.c_int
     return lib

@@ -1,9 +1,10 @@
-"""The walks of two CUDA kernels of the port, K7's forward
-(``csrc/spmm.cu:spmm_fwd_kernel``) and K12 (``csrc/scatter_mxu.cu``),
-emulated in numpy float32 with the kernels' order of terms, so that the
-CPU tests can hold each walk against the JAX package and the card tests
-can hold each kernel to the walk's bits. Imports numpy only (the card's
-machine has no JAX)."""
+"""The walks of CUDA kernels of the port, K7's forward
+(``csrc/spmm.cu:spmm_fwd_kernel``), K8's forward (``blocked_fwd_kernel``,
+the same body over a SlotOrder), K12 (``csrc/scatter_mxu.cu``) and K6-bwd
+(``csrc/dense_agg.cu:dense_agg_bwd_kernel``), emulated in numpy float32
+with the kernels' order of terms, so that the CPU tests can hold each walk
+against the JAX package and the card tests can hold each kernel to the
+walk's bits. Imports numpy only (the card's machine has no JAX)."""
 
 import numpy as np
 
@@ -55,6 +56,60 @@ def k7_fwd_walk(x, emb, src, dst, mask, w, relu, order):
             e0 += 32
         write_to(r_hi)
     return out, writes, walked
+
+
+class _Positions:
+    """A SlotOrder seen as K7's DstOrder: every position live, so the live
+    positions before a row are its row pointer."""
+
+    def __init__(self, order):
+        self.order = order
+
+    def get(self):
+        ptr = self.order.get()[3]
+        return ptr, ptr
+
+    def runs(self):
+        return self.order.runs()
+
+
+def k8_fwd_walk(x, emb, w, relu, order):
+    """K8's forward as the kernel runs it: K7's forward walk over the
+    positions of the SlotOrder ``order``, position k the edge src[k] ->
+    dst[k] with the emb row and weight of its slot (``w`` [C*EB] or
+    None). Returns what ``k7_fwd_walk`` returns."""
+    slot, src, dst, _ = (t.numpy() for t in order.get())
+    return k7_fwd_walk(x, emb[slot], src, dst, np.ones(slot.shape[0], bool),
+                       None if w is None else w[slot], relu,
+                       _Positions(order))
+
+
+def k6_bwd_walk(x, src, dst, emask, emb, w, gout, relu):
+    """K6-bwd's dx as the kernel runs it: per graph the valid slots sorted
+    by (src, slot), each row's dmsg = gout[dst] * w (rounded; 0 where x[src]
+    + emb <= 0 under relu) summed from 0 in that order, every row written
+    once (zero where no valid edge leaves it). ``w`` [G, Em] or None.
+    Returns dx [G, Sm, d] and how many times each row was written."""
+    G, Sm, d = x.shape
+    dx = np.full((G, Sm, d), np.nan, F32)
+    writes = np.zeros((G, Sm), int)
+    for g in range(G):
+        valid = np.nonzero(emask[g])[0]
+        row, acc = 0, np.zeros(d, F32)
+        for e in sorted(valid, key=lambda e: (src[g, e], e)):
+            while row < src[g, e]:
+                dx[g, row], acc = acc, np.zeros(d, F32)
+                writes[g, row] += 1
+                row += 1
+            dm = gout[g, dst[g, e]] * (F32(1) if w is None else F32(w[g, e]))
+            if relu:
+                dm = np.where(x[g, row] + emb[g, e] > 0, dm, F32(0))
+            acc = acc + dm
+        while row < Sm:
+            dx[g, row], acc = acc, np.zeros(d, F32)
+            writes[g, row] += 1
+            row += 1
+    return dx, writes
 
 
 def _row_of(dst, N):

@@ -2511,3 +2511,137 @@ def test_segment_sum_mxu_two_streams_at_once(cuda):
     for k in range(2):
         for out in got[k]:
             assert torch.equal(out, want[k])
+
+
+# ---- K8's forward over a SlotOrder, K6-bwd's instances -------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [300, 128, 45])
+@pytest.mark.parametrize("message", ["relu_add", "add"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_blocked_fwd_matches_slot_walk(cuda, d, message, weighted):
+    """K8's forward on K7's body over the batch's SlotOrder: the CPU
+    walk's bits (tests/_port_walks.py), every row written once; the same
+    bits with a new order and without the src-major plan (no gradient);
+    within 1e-5 of max(1, max|ref|) of the plain version; a call with the
+    order launches one kernel and no PyTorch op before it. d 45: one float
+    a load."""
+    from _port_walks import k8_fwd_walk
+
+    from graphtrans_tpu_torch.ops.kernels import (
+        SlotOrder, blocked_gather_message_scatter,
+        blocked_gather_message_scatter_plain, slot_order)
+
+    b, x, (ef, eb), (wf, wb) = _k8_case(d, cuda, seed=2)
+    if not weighted:
+        wf = wb = None
+    pf, pb = b.bsp_fwd, b.bsp_bwd
+    rows = slot_order(b)
+    assert slot_order(b) is rows and rows.num_edges == b.edge_src.shape[0]
+    before = blocked_gather_message_scatter.launches
+    got = blocked_gather_message_scatter(x, ef, eb, pf, pb, wf, wb, message,
+                                         rows=rows)
+    again = blocked_gather_message_scatter(x, ef, None, pf, None, wf, None,
+                                           message)
+    torch.cuda.synchronize()
+    assert blocked_gather_message_scatter.launches == before + 2
+    assert torch.equal(got, again)
+    want = blocked_gather_message_scatter_plain(x, ef, eb, pf, pb, wf, wb,
+                                                message)
+    assert (got - want).abs().max().item() <= 1e-5 * max(
+        1.0, want.abs().max().item())
+    host = SlotOrder({k: v.cpu() for k, v in pf.items()}, x.shape[0],
+                     rows.num_edges)
+    walk, writes, _ = k8_fwd_walk(
+        x.cpu().numpy(), ef.cpu().numpy(),
+        None if wf is None else wf.cpu().numpy(), message == "relu_add",
+        host)
+    assert (writes == 1).all()
+    assert torch.equal(got.cpu(), torch.from_numpy(walk))
+    _only_kernel_launched(
+        lambda: blocked_gather_message_scatter(x, ef, eb, pf, pb, wf, wb,
+                                               message, rows=rows),
+        "blocked_fwd")
+
+
+@pytest.mark.cuda
+def test_blocked_needs_the_src_major_plan_for_a_gradient(cuda):
+    """Without the src-major plan K8 serves, and refuses a call that wants
+    a gradient; the model's blocked layer under inference encodes the
+    dst-major plan's slots only and gives the logits of the layer that
+    encodes both."""
+    from graphtrans_tpu_torch.ops.kernels import (
+        blocked_gather_message_scatter)
+
+    b, x, (ef, eb), (wf, wb) = _k8_case(128, cuda, seed=3)
+    xl = x.clone().requires_grad_()
+    with pytest.raises(ValueError, match="src-major"):
+        blocked_gather_message_scatter(xl, ef, None, b.bsp_fwd, None, wf)
+    with pytest.raises(ValueError, match="together"):
+        blocked_gather_message_scatter(x, ef, eb, b.bsp_fwd, None, wf, wb)
+    with torch.no_grad():
+        blocked_gather_message_scatter(xl, ef, None, b.bsp_fwd, None, wf)
+
+
+def _dense_agg_leaves(args, need):
+    """K6's arguments with x, and emb and w where ``need`` names them,
+    as leaves that want a gradient."""
+    x, src, dst, emask, emb, w = args
+    return (x.clone().requires_grad_(), src, dst, emask,
+            emb.clone().requires_grad_("demb" in need),
+            None if w is None else w.clone().requires_grad_("dw" in need))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,d", [(129, 128), (37, 200), (9, 600)])
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("with_w", [False, True])
+def test_dense_agg_bwd_instances_match_walk(cuda, G, d, relu, with_w):
+    """K6-bwd's dx-only and full instances (one channel slice and, at d
+    600, two, whose dw partials add up in order): None where demb or dw is
+    not asked for; the same dx bits in every instance, the CPU walk's bits
+    (tests/_port_walks.py: each product rounded before its add); demb and
+    dw against autograd through the plain version; launches counted by
+    instance; through autograd, the instance that the leaves ask for."""
+    from _port_walks import k6_bwd_walk
+
+    from graphtrans_tpu_torch.ops.kernels import (dense_agg, dense_agg_bwd,
+                                                  dense_agg_bwd_plain)
+
+    args = _k6_case(G, d, with_w, cuda, seed=5)
+    gout = torch.randn(args[0].shape, generator=torch.Generator()
+                       .manual_seed(G)).to(cuda)
+    want = dense_agg_bwd_plain(*args, gout, relu=relu)
+    outs = {}
+    for need_demb in (False, True):
+        for need_dw in (False, True):
+            before = dict(dense_agg_bwd.instances)
+            got = dense_agg_bwd(*args, gout, relu=relu, need_demb=need_demb,
+                                need_dw=need_dw)
+            torch.cuda.synchronize()
+            name = "+".join(["dx"] + ["demb"] * need_demb
+                            + ["dw"] * (need_dw and with_w))
+            assert dense_agg_bwd.instances[name] == before[name] + 1
+            assert (got[1] is None) == (not need_demb)
+            assert (got[2] is None) == (not (need_dw and with_w))
+            for g, w in zip(got[1:], want[1:]):
+                if g is not None:
+                    assert (g - w).abs().max().item() <= GRAD_TOL * max(
+                        1.0, w.abs().max().item())
+            outs[name] = got[0]
+    assert all(torch.equal(dx, outs["dx"]) for dx in outs.values())
+    host = [None if t is None else t.cpu().numpy() for t in args]
+    walk, writes = k6_bwd_walk(*host, gout.cpu().numpy(), relu)
+    assert (writes == 1).all()
+    assert torch.equal(outs["dx"].cpu(), torch.from_numpy(walk))
+    for need in ((), ("demb",), ("demb", "dw")):
+        leaves = _dense_agg_leaves(args, need)
+        before = dict(dense_agg_bwd.instances)
+        dense_agg(*leaves, relu=relu).backward(gout)
+        torch.cuda.synchronize()
+        name = "+".join(["dx", *(n for n in need
+                                 if n == "demb" or with_w)])
+        assert {k: v - before[k] for k, v in dense_agg_bwd.instances.items()
+                } == {k: int(k == name) for k in before}
+        assert torch.equal(leaves[0].grad, outs["dx"])
