@@ -7,11 +7,12 @@ usage: python3 chip_smoke.py [--trace trace.json] [--baseline DIR]
 graphtrans_tpu_torch/ tree; for one run, never committed): phases 2, 6a,
 7a-13a then build its K1, K1-bwd, K2, K3, K3-bwd, K4, K5 and K9 (forward,
 serving and training), K2-bwd, K4-bwd, K5-bwd, K6-bwd, K7, K7-bwd, K8,
-K9-bwd, K10, K10-bwd and K12 from its own sources and time them beside
-this tree's, in turns (earlier, this, this, earlier; K12 in the
-alternating rounds of 13a), on the same inputs; phases 2, 6a, 7a, 8a, 12a
-and 13a hold K1, K1-bwd, K7, K7-bwd, K6, K6-bwd (dx and demb; dw within
-K6_TOL) and K8's forward to its bits.
+K6, K8-dx, K9-bwd, K10, K10-bwd and K12 from its own sources and time
+them beside this tree's, in turns (earlier, this, this, earlier; K12 in
+the alternating rounds of 13a), on the same inputs; phases 2, 6a, 7a, 8a,
+12a and 13a hold K1, K1-bwd, K7, K7-bwd, K6-bwd (dx and demb; dw within
+K6_TOL), K8's forward and K8-dx to its bits, and 12a reports K6's largest
+difference from it (0: its bits).
 
 Phases, each printing one line (any failure raises and exits non-zero):
   0. the card (nvidia-smi name and power limit) and torch; TF32 off;
@@ -123,19 +124,23 @@ Phases, each printing one line (any failure raises and exits non-zero):
      l=3+cosine.yml: GCN 5 x 128 without a virtual node on the strided
      layout, JK=last, 3 encoder layers of 128 on packed rows of 128, 2
      classes; the synthetic TU fallback, 400 graphs): (a) holds K6
-     (dense_agg) and K6-bwd (its full and dx-only instances) against their
-     plain versions and autograd at the yml's batch of 128 and a
-     4096-graph batch, relu on and off, with and without w, and times them
-     at the main path's arguments beside bound, plain version and the JAX
-     package's one-hot bmm formulation (K6-bwd's dx-only instance, which
-     the NCI1 step launches, and its full instance, each against the
-     parent's kernel in turns under ``--baseline``);
+     (dense_agg: its instance with emb and its emb-less one, which takes
+     emb None for NCI1's zero edge embeddings) and K6-bwd (its full and
+     dx-only instances) against their plain versions and autograd at the
+     yml's batch of 128 and a 4096-graph batch, relu on and off, with and
+     without w, and times them at the main path's arguments beside bound,
+     plain version and the JAX package's one-hot bmm formulation (both K6
+     instances, K6-bwd's dx-only instance, which the NCI1 step launches,
+     and its full instance, each against the parent's kernel in turns
+     under ``--baseline``), and K6's two launches (channel slices of 32 and
+     K7's vector rule) in turns from 129 to 4097 graphs;
      (b) serves the three splits through ``python -m
      graphtrans_tpu_torch.predict`` (records, accuracy, 5 K6 and 3 K2
-     launches a batch, logits against the plain versions) and the
-     Transformer-only NCI1 yml's test split (K4), trains both ymls 2 epochs
-     through ``python -m graphtrans_tpu_torch.main`` (launches, every
-     K6-bwd launch the dx-only instance, losses, moved parameters) and
+     launches a batch, every K6 launch emb-less, logits against the plain
+     versions) and the Transformer-only NCI1 yml's test split (K4), trains
+     both ymls 2 epochs through ``python -m graphtrans_tpu_torch.main``
+     (launches, every K6 launch emb-less and every K6-bwd launch the
+     dx-only instance, losses, moved parameters) and
      holds one NCI1 step through the kernels against the plain route; (c) times and profiles the forward and the train step
      of the 4096-graph batch, and times the step at the yml's batch;
  13. code2 GCN through the block plans (K8) and K12: (a) holds K8
@@ -146,10 +151,12 @@ Phases, each printing one line (any failure raises and exits non-zero):
      both collated with plans at chunk_capacity(edge cap, node cap), and
      K12 (segment_sum_mxu, a standalone op: its one call, counted) at
      [196608, 128], and times them beside bound, plain version and
-     yardstick (K8's forward as the GCN layer calls it, its SlotOrder
-     apart, a batch's worth, a new order and 5 calls, and its device time
-     from the profiler, each in turns with the parent's kernel under
-     ``--baseline``; K7 and K7-bwd at the same batch; index_add_ for K12,
+     yardstick (K8's forward and K8-dx as the GCN layer calls them, each
+     with its SlotOrder timed apart (K8-dx's of the src-major plan,
+     reading the dst-major copies through fwd_slot), a batch's worth, a
+     new order and 5 calls, and its device time from the profiler, each in
+     turns with the parent's kernel under ``--baseline``, whose bits they
+     must give; K7 and K7-bwd at the same batch; index_add_ for K12,
      the two, and with ``--baseline`` the parent's K12, in alternating
      turns over K12_ROUNDS rounds; K12's device time from the profiler,
      and the same bits in a second call); (b) serves the code2 valid and
@@ -159,9 +166,10 @@ Phases, each printing one line (any failure raises and exits non-zero):
      encoder once a layer, on the dst-major plan's slots), holds the
      logits of all three splits against the plain versions and the K7
      route, and takes one train step of ``main.build_run``'s model (5 K8,
-     5 K8-demb, 5 K8-dx; the two emb copies each layer's encoder makes
-     bitwise equal on every real slot) against the plain versions and the
-     K7 route; (c) times the 512-graph forward and train step on the
+     5 K8-demb, 5 K8-dx; the edge encoder once a layer, on the dst-major
+     plan's slots, the rows K8-dx reads through fwd_slot bitwise equal to
+     the src-major copy on every real slot) against the plain versions and
+     the K7 route; (c) times the 512-graph forward and train step on the
      blocked route, with peak memory, beside the K7 route, and profiles
      both routes' forward and the blocked step.
 Then the script's wall seconds, a {"kernels": [...]} line, the nvidia-smi
@@ -244,7 +252,7 @@ LAYERS = (
     ("flash_hil_dkv", "K3-bwd flash_hil_seg_bwd"),
     ("spmm_bwd", "K7-bwd spmm_bwd"),
     ("blocked_fwd", "K8 blocked_gather_message_scatter"),
-    ("block_walk<true", "K8-dx blocked_gather_message_scatter_dx"),
+    ("blocked_dx", "K8-dx blocked_gather_message_scatter_dx"),
     ("block_demb", "K8-demb blocked_gather_message_scatter_demb"),
     ("segment_sum_kernel", "K12 segment_sum_mxu"),
     ("radixsort", "sort (index backward, K7-bwd's src order, K8's slot "
@@ -404,6 +412,42 @@ def device_ms(fn, names, per_call: int = 1, iters: int = 20,
           f"measured; apart, not a reading: the mean over those recorded "
           f"{', '.join(f'{m:.4f}' for m in means) or '-'} ms)")
     return None
+
+
+def queued_ms(fn, iters: int = 20) -> float:
+    """Device ms a call of ``fn``: the median over ``iters`` calls of CUDA
+    events recorded around each call, each call queued behind a sleep
+    kernel (``torch.cuda._sleep``, about 0.5 ms) and a write of
+    L2_FLUSH_BYTES, so that the host's work a call (the wrapper's checks
+    and launch) is done before the card reaches it and its inputs come
+    from HBM: what the card spends on the call, where back-to-back calls
+    are paced by the host and the profiler drops records."""
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    marks = []
+    for _ in range(iters):
+        torch.cuda._sleep(1_000_000)
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        marks.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in marks)
+
+
+def queued_turns(new, old):
+    """(this, earlier) ``queued_ms`` of ``new`` and ``old`` (None without
+    it), in turns (old, new, new, old)."""
+    if old is None:
+        return queued_ms(new), None
+    o1, n1, n2, o2 = (queued_ms(f) for f in (old, new, new, old))
+    return (n1 + n2) / 2, (o1 + o2) / 2
 
 
 def host_us(new, old, iters: int = 200):
@@ -3800,10 +3844,12 @@ def _nci1_args(config: str = None, train: bool = False, extra=()):
 
 
 def k6_inputs(batch, d: int, gen: torch.Generator, device,
-              zero_emb: bool = True):
+              emb: str = "none"):
     """K6's arguments as a GCN layer of NCI1 gets them: random node rows
-    (zero on padding rows), the edge embeddings of ``ZeroEdgeEncoder``
-    (``zero_emb``; else random), and the GCN norm as the edge weight."""
+    (zero on padding rows), no edge embeddings (``emb`` "none": the
+    layer passes None for ``ZeroEdgeEncoder``'s zeros; "zeros": the zero
+    tensor the parent's layer made; "random"), and the GCN norm as the
+    edge weight."""
     from graphtrans_tpu_torch.ops.dense_mp import dense_degree, dense_gather
 
     G, Sm = batch.num_graph_slots, batch.node_stride
@@ -3814,17 +3860,30 @@ def k6_inputs(batch, d: int, gen: torch.Generator, device,
     dis = ((dense_degree(src, emask, Sm) + 1.0) ** -0.5)[..., None]
     norm = (dense_gather(dis, src, emask) * dense_gather(dis, dst, emask))
     Em = src.shape[1]
-    emb = (torch.zeros(G, Em, d) if zero_emb
-           else torch.randn(G, Em, d, generator=gen))
-    return (x.reshape(G, Sm, d).to(device), src, dst, emask, emb.to(device),
-            norm[..., 0].contiguous())
+    e = {"none": None, "zeros": torch.zeros(G, Em, d),
+         "random": torch.randn(G, Em, d, generator=gen)}[emb]
+    return (x.reshape(G, Sm, d).to(device), src, dst, emask,
+            None if e is None else e.to(device), norm[..., 0].contiguous())
+
+
+def _zero_emb(args):
+    """K6's arguments with a zero emb tensor where emb is None (what the
+    parent's kernels take, and the plain versions' zeros)."""
+    x, src = args[0], args[1]
+    if args[4] is not None:
+        return args
+    zeros = torch.zeros(x.shape[0], src.shape[1], x.shape[2],
+                        device=x.device)
+    return args[:4] + (zeros,) + args[5:]
 
 
 def check_k6(args, relu: bool, with_w: bool, gout):
-    """K6 against its plain version (1e-5) and K6-bwd's full instance
-    against autograd through it (dx, demb, dw relative to max(1, max
-    |reference|)); its dx-only instance gives None for demb and dw and the
-    full instance's dx bits; padding node rows of the forward exactly 0."""
+    """K6 against its plain version (1e-5), and with emb None against the
+    same kernel given a zero emb tensor (the same bits); K6-bwd's full
+    instance against autograd through it (dx, demb, dw relative to max(1,
+    max |reference|)); its dx-only instance gives None for demb and dw and
+    the full instance's dx bits; padding node rows of the forward exactly
+    0."""
     from graphtrans_tpu_torch.ops.dense_mp import dense_degree
     from graphtrans_tpu_torch.ops.kernels import (dense_agg, dense_agg_bwd,
                                                   dense_agg_bwd_plain,
@@ -3849,18 +3908,42 @@ def check_k6(args, relu: bool, with_w: bool, gout):
         raise AssertionError(f"K6-bwd's dx-only instance (relu {relu}, w "
                              f"{with_w}) gave other outputs than dx, or "
                              f"other dx bits than the full instance")
+    if args[4] is None:
+        zero = _zero_emb(args)
+        if not (torch.equal(got, dense_agg(*zero, relu=relu))
+                and torch.equal(grads[0], dense_agg_bwd(
+                    *zero, gout, relu=relu, need_demb=False)[0])):
+            raise AssertionError(f"K6 (relu {relu}, w {with_w}): emb None "
+                                 f"gave other bits than a zero emb tensor")
     reached = dense_degree(args[2], args[3], args[0].shape[1]) > 0
-    if got[~reached].any() or grads[1][~args[3]].any():
+    if got[~reached].any() or (grads[1] is not None
+                               and grads[1][~args[3]].any()):
         raise AssertionError("K6: rows no valid edge reaches, or masked "
                              "slots' demb, are not 0")
     return f_err, b_err
+
+
+def k6_parent_diff(a, relu: bool, old):
+    """With ``old`` (the parent's dense_agg module, under ``--baseline``):
+    K6's largest |difference| from the parent kernel's output on the same
+    inputs (the parent given zeros where emb is None), relative to max(1,
+    max|parent's|); 0 means the same bits. None without ``old``."""
+    from graphtrans_tpu_torch.ops.kernels import dense_agg
+
+    if old is None:
+        return None
+    got = dense_agg(*a, relu=relu)
+    ref = old.dense_agg(*_zero_emb(a), relu=relu)
+    return 0.0 if torch.equal(got, ref) else _rel_err(got, ref)
 
 
 def k6_bwd_parent_bits(what: str, a, gout, relu: bool, old, checked: list):
     """With ``old`` (the parent's dense_agg module, under ``--baseline``):
     raise unless K6-bwd's full instance gives the parent kernel's dx and
     demb bits and its dw within K6_TOL of max(1, max|parent's|), and the
-    dx-only instance its dx bits; returns the dw error (0 without w)."""
+    dx-only instance its dx bits (the parent given zeros where emb is
+    None, and then no demb compared); returns the dw error (0 without
+    w)."""
     from graphtrans_tpu_torch.ops.kernels import dense_agg_bwd
 
     if old is None:
@@ -3868,9 +3951,11 @@ def k6_bwd_parent_bits(what: str, a, gout, relu: bool, old, checked: list):
     dx, demb, dw = dense_agg_bwd(*a, gout, relu=relu)
     dx_only = dense_agg_bwd(*a, gout, relu=relu, need_demb=False,
                             need_dw=False)[0]
-    pdx, pdemb, pdw = old.dense_agg_bwd(*a, gout, relu=relu)
-    for name, x, y in (("dx", dx, pdx), ("dx-only dx", dx_only, pdx),
-                       ("demb", demb, pdemb)):
+    pdx, pdemb, pdw = old.dense_agg_bwd(*_zero_emb(a), gout, relu=relu)
+    pairs = [("dx", dx, pdx), ("dx-only dx", dx_only, pdx)]
+    if demb is not None:
+        pairs.append(("demb", demb, pdemb))
+    for name, x, y in pairs:
         if not torch.equal(x, y):
             raise AssertionError(f"K6-bwd {what}: {name} differs from the "
                                  f"parent's kernel's on the same inputs "
@@ -3887,15 +3972,16 @@ def k6_bwd_parent_bits(what: str, a, gout, relu: bool, old, checked: list):
 def k6_bound(args, gout=None, full: bool = True):
     """K6's (with ``gout``: K6-bwd's) bound: x (and gout) read and the
     output (dx) written once, the edge lists read once, and the emb row of
-    each valid edge read once (a masked slot's is never needed, as in
-    ``k7_bound``); the full backward also writes demb in full (zeros on
-    masked slots) and dw, the dx-only instance neither. Per valid edge and
-    channel the forward's add, relu, weight product and sum; the
-    backward's add, relu mask, weight product and dx sum, and in the full
-    instance the dw product and sum."""
+    each valid edge read once where emb is given (a masked slot's is never
+    needed, as in ``k7_bound``; none in the emb-less instance); the full
+    backward also writes demb in full (zeros on masked slots) and dw, the
+    dx-only instance neither. Per valid edge and channel the forward's
+    add, relu, weight product and sum; the backward's add, relu mask,
+    weight product and dx sum, and in the full instance the dw product and
+    sum."""
     x, src, dst, emask, emb, w = args
     edges = int(emask.sum().item()) * x.shape[-1]
-    nbytes = 2 * x.numel() * 4 + edges * 4 + sum(
+    nbytes = 2 * x.numel() * 4 + (edges * 4 if emb is not None else 0) + sum(
         t.numel() * t.element_size() for t in (src, dst, emask, w)
         if t is not None)
     if gout is None:
@@ -3926,107 +4012,177 @@ def onehot_agg(x, src, dst, emask, emb, w, relu: bool = True):
     return torch.bmm(oh_dst.transpose(1, 2), m)
 
 
+K6_SWEEP = (129, 264, 528, 792, 1056, 2112)   # graphs of 12a's sweep
+
+
 def phase12_kernels(device, d_gnn: int, bench, base=None):
-    """(a) K6 and K6-bwd (both instances) against their plain versions at
-    the yml's batch (the train split's first batch of 128) and the
-    4096-graph batch, with relu on and off and with and without w (under
-    ``base``: K6's and K6-bwd's dx and demb bits of the parent's kernels,
-    K6-bwd's dw within K6_TOL); times at the main path's arguments beside
-    bound, plain version and the one-hot bmm yardstick: K6-bwd's dx-only
-    instance, which the NCI1 step launches, and its full instance, each
-    in turns with the parent's kernel (which always computes all three)."""
+    """(a) K6 (both instances: with emb and emb-less) and K6-bwd (both
+    instances) against their plain versions at the yml's batch (the train
+    split's first batch of 128) and the 4096-graph batch, with relu on and
+    off and with and without w, random and no emb (emb None: the same bits
+    as a zero emb tensor); under ``base``, K6's largest difference from
+    the parent's kernel (0: its bits), K6-bwd's dx and demb bits of the
+    parent's, its dw within K6_TOL. Times at the main path's arguments
+    beside bound, plain version and the one-hot bmm yardstick: K6's
+    emb-less instance, which the NCI1 layers launch, and its instance with
+    emb, K6-bwd's dx-only instance, which the NCI1 step launches, and its
+    full instance, each in turns with the parent's kernel (given zeros
+    where emb is None; its K6-bwd always computes all three). At the
+    4096-graph batch also K6's two launches (slices of 32 channels, and
+    K7's vector rule) in turns over the first G graphs, for G in K6_SWEEP
+    and 4097 (the split threshold, FWD_SPLIT_PER_SM)."""
     from graphtrans_tpu_torch import predict
     from graphtrans_tpu_torch.data.loader import iterate_batches
     from graphtrans_tpu_torch.ops.kernels import (dense_agg, dense_agg_bwd,
                                                   dense_agg_plain)
 
+    k6mod = sys.modules["graphtrans_tpu_torch.ops.kernels.dense_agg"]
     gen = torch.Generator().manual_seed(SEED + 12)
     args = _nci1_args()
     splits, num_tasks, _ = predict.load_splits(args)
     serve = next(iterate_batches(splits["train"], **predict.serving_layout(
         splits, args, num_tasks, split="train")))
     f_err = b_err = dw_err = 0.0
-    rows, same = [], []
+    rows, same, fwd_diff = [], [], {}
     old = base and base["dense_agg"]
     for name, b in (("serve128", serve), ("bench4096", bench)):
         main_args = k6_inputs(b, d_gnn, gen, device)
+        rand_args = k6_inputs(b, d_gnn, gen, device, emb="random")
         gout = torch.randn(main_args[0].shape, generator=gen).to(device)
-        for inp in (k6_inputs(b, d_gnn, gen, device, zero_emb=False),
-                    main_args):
+        for inp, kind in ((rand_args, "emb"), (main_args, "emb-less")):
             for relu, with_w in ((True, True), (True, False), (False, True),
                                  (False, False)):
                 f, e = check_k6(inp, relu, with_w, gout)
                 f_err, b_err = max(f_err, f), max(b_err, e)
                 a = inp[:5] + (inp[5] if with_w else None,)
-                what = f"{name} (relu {relu}, w {with_w})"
-                same_bits(f"K6 {what}", lambda: dense_agg(*a, relu=relu),
-                          old and (lambda: old.dense_agg(*a, relu=relu)),
-                          same)
+                what = f"{name} {kind} (relu {relu}, w {with_w})"
+                diff = k6_parent_diff(a, relu, old)
+                if diff is not None:
+                    fwd_diff[what] = diff
                 dw_err = max(dw_err, k6_bwd_parent_bits(what, a, gout, relu,
                                                         old, same))
-        fixed = main_args[1:4]
-        k6 = dict(ms=time_ms(lambda: dense_agg(*main_args), iters=20),
-                  plain_ms=time_ms(lambda: dense_agg_plain(*main_args),
-                                   iters=5),
-                  library_ms=time_ms(lambda: onehot_agg(*main_args), iters=5))
-        k6["bound_ms"], k6["bound_by"] = k6_bound(main_args)
-        old_bwd = old and (lambda: old.dense_agg_bwd(*main_args, gout))
-        x, emb, w = main_args[0], main_args[4], main_args[5]
-        timed = {}
-        for inst, leaves, bind, kw in (      # the leaves autograd asks for
-                ("dx", [x], lambda f: lambda xl: f(xl, *fixed, emb, w),
-                 dict(need_demb=False, need_dw=False)),
-                ("dx+demb+dw", [x, emb, w],
-                 lambda f: lambda xl, el, wl: f(xl, *fixed, el, wl), {})):
-            ms, earlier = turns_ms(
-                lambda: dense_agg_bwd(*main_args, gout, **kw), old_bwd, 20)
-            t = dict(ms=ms, earlier_ms=earlier, instance=inst,
-                     plain_ms=_plain_bwd_ms(bind(dense_agg_plain), leaves,
-                                            gout),
-                     library_ms=_plain_bwd_ms(bind(onehot_agg), leaves, gout))
-            t["bound_ms"], t["bound_by"] = k6_bound(main_args, gout,
-                                                    full=len(leaves) == 3)
-            timed[inst] = t
+        zero_args = _zero_emb(main_args)
         shape = "G={} Sm={} Em={} d={}".format(
             *main_args[0].shape[:2], main_args[1].shape[1], d_gnn)
+        k6 = {}
+        for inst, a, pa in (("emb-less", main_args, zero_args),
+                            ("emb", rand_args, rand_args)):
+            new_fn = lambda: dense_agg(*a)
+            old_fn = old and (lambda: old.dense_agg(*pa))
+            ms, earlier = turns_ms(new_fn, old_fn, 20)
+            host, earlier_host = host_us(new_fn, old_fn)
+            dev, earlier_dev = queued_turns(new_fn, old_fn)
+            t = dict(ms=ms, earlier_ms=earlier, instance=inst, shape=shape,
+                     host_us=host, earlier_host_us=earlier_host,
+                     device_ms=dev, earlier_device_ms=earlier_dev,
+                     plain_ms=time_ms(lambda: dense_agg_plain(*a), iters=5),
+                     library_ms=time_ms(lambda: onehot_agg(*pa), iters=5))
+            t["bound_ms"], t["bound_by"] = k6_bound(a)
+            k6[inst] = t
+        x, w = main_args[0], main_args[5]
+        fixed, zeros = main_args[1:4], zero_args[4]
+        old_bwd = old and (lambda: old.dense_agg_bwd(*zero_args, gout))
+        timed = {}
+        for inst, a, leaves, plain_fn, lib_fn, kw in (
+                ("dx", main_args, [x],
+                 lambda xl: dense_agg_plain(xl, *fixed, None, w),
+                 lambda xl: onehot_agg(xl, *fixed, zeros, w),
+                 dict(need_demb=False, need_dw=False)),
+                ("dx+demb+dw", zero_args, [x, zeros, w],
+                 lambda xl, el, wl: dense_agg_plain(xl, *fixed, el, wl),
+                 lambda xl, el, wl: onehot_agg(xl, *fixed, el, wl), {})):
+            ms, earlier = turns_ms(
+                lambda: dense_agg_bwd(*a, gout, **kw), old_bwd, 20)
+            t = dict(ms=ms, earlier_ms=earlier, instance=inst, shape=shape,
+                     plain_ms=_plain_bwd_ms(plain_fn, leaves, gout),
+                     library_ms=_plain_bwd_ms(lib_fn, leaves, gout))
+            t["bound_ms"], t["bound_by"] = k6_bound(a, gout,
+                                                    full=len(leaves) == 3)
+            timed[inst] = t
         k6b = timed["dx"]
-        for kname, t, plain in (("K6 dense_agg", k6, "plain"),
-                                ("K6-bwd dense_agg_bwd, dx-only instance",
-                                 k6b, "plain backward (dx)"),
-                                ("K6-bwd dense_agg_bwd, full instance",
-                                 timed["dx+demb+dw"],
-                                 "plain backward (dx, demb, dw)")):
-            t["shape"] = shape
-            turn = ("" if "earlier_ms" not in t else
-                    f" (the parent's kernel, dx, demb and dw, in turns: "
-                    f"{_ms(t['earlier_ms'])})")
-            print(f"[12a] {name} {kname} [{shape}, relu, w = GCN norm, emb "
-                  f"0]: kernel {t['ms']:.4f} ms{turn}, {plain} "
+        for kname, t, plain in (
+                ("K6 dense_agg, emb-less instance (emb None)", k6["emb-less"],
+                 "plain"),
+                ("K6 dense_agg, instance with emb (random emb)", k6["emb"],
+                 "plain"),
+                ("K6-bwd dense_agg_bwd, dx-only instance (emb None)", k6b,
+                 "plain backward (dx)"),
+                ("K6-bwd dense_agg_bwd, full instance (zero emb)",
+                 timed["dx+demb+dw"], "plain backward (dx, demb, dw)")):
+            turn = ("" if t["earlier_ms"] is None else
+                    f" (the parent's kernel in turns, given zeros where emb "
+                    f"is None{'; dx, demb and dw' if 'bwd' in kname else ''}"
+                    f": {_ms(t['earlier_ms'])})")
+            print(f"[12a] {name} {kname} [{shape}, relu, w = GCN norm]: "
+                  f"kernel {t['ms']:.4f} ms{turn}, {plain} "
                   f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-                  f"({t['bound_by']}), library (one-hot bmm pair) "
+                  f"({t['bound_by']}), library (one-hot bmm pair, zero emb) "
                   f"{t['library_ms']:.4f} ms")
-        rows.append((k6, k6b))
+        for inst, t in k6.items():
+            print(f"[12a] {name} K6 {inst}: device time {_ms(t['device_ms'])}"
+                  f" a call queued behind a sleep, cold L2 (the parent's "
+                  f"{_ms(t['earlier_device_ms'])}, in turns); host "
+                  f"{t['host_us']:.1f} µs a call (the parent's "
+                  + ("-" if t["earlier_host_us"] is None
+                     else f"{t['earlier_host_us']:.1f}") + ", in turns)")
+        rows.append((k6["emb-less"], k6b))
+    sweep = []
+    split_per_sm = k6mod.FWD_SPLIT_PER_SM
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    try:
+        for G in K6_SWEEP + (main_args[0].shape[0],):
+            a = tuple(None if t is None else t[:G].contiguous()
+                      for t in main_args)
+
+            def launch(split):
+                def call():
+                    k6mod.FWD_SPLIT_PER_SM = split
+                    return dense_agg(*a)
+                return call
+            wide_ms, split_ms = turns_ms(launch(0), launch(10 ** 6), 20)
+            wide_dev, split_dev = queued_turns(launch(0), launch(10 ** 6))
+            sweep.append((G, split_ms, wide_ms, split_dev, wide_dev))
+    finally:
+        k6mod.FWD_SPLIT_PER_SM = split_per_sm
+    print(f"[12a] K6's emb-less launches over the first G graphs of the "
+          f"4096-graph batch (G: slices of 32 channels, a float a lane / "
+          f"K7's vector rule: ms in turns; device ms a call queued behind "
+          f"a sleep, cold L2, in turns; the port splits below "
+          f"{split_per_sm} graphs an SM, {split_per_sm * sms} here): "
+          + "; ".join(f"{G}: {a:.4f} / {b:.4f}, device {_ms(c)} / {_ms(e)}"
+                      for G, a, b, c, e in sweep))
     print(f"[12a] K6 and K6-bwd agree with their plain versions (relu on "
-          f"and off, w given and not, random and zero emb): forward max "
+          f"and off, w given and not, random emb and none): forward max "
           f"|diff| {f_err:.3g} (<= {K6_TOL}), backward max err {b_err:.3g} "
-          f"(<= {GRAD_TOL} of max(1, max|ref|)); K6-bwd's dx-only instance "
-          f"gives the full instance's dx bits; unreached rows and masked "
-          f"demb exactly 0")
+          f"(<= {GRAD_TOL} of max(1, max|ref|)); emb None gives a zero emb "
+          f"tensor's bits; K6-bwd's dx-only instance gives the full "
+          f"instance's dx bits; unreached rows and masked demb exactly 0")
     if base:
-        print(f"[12a] --baseline: the same bits as the parent's kernels on "
-              f"the same inputs (K6-bwd: dx, the dx-only instance's dx and "
-              f"demb; dw within {dw_err:.3g} of max(1, max|ref|), <= "
-              f"{K6_TOL}) at {len(same)} cases: {', '.join(same)}")
-    return dict(k6_err=f_err, k6b_err=b_err, timed=rows[-1])
+        bits = [k for k, v in fwd_diff.items() if v == 0.0]
+        diff = {k: v for k, v in fwd_diff.items() if v != 0.0}
+        print(f"[12a] --baseline: K6 gives the parent kernel's bits in "
+              f"{len(bits)} of {len(fwd_diff)} cases"
+              + (f"; largest difference {max(diff.values()):.3g} of max(1, "
+                 f"max|parent's|) (<= {K6_TOL}), in "
+                 f"{', '.join(diff)}" if diff else "")
+              + f"; K6-bwd the parent's bits (dx, the dx-only instance's "
+              f"dx and demb; dw within {dw_err:.3g} of max(1, max|ref|), "
+              f"<= {K6_TOL}) at {len(same)} cases: {', '.join(same)}")
+        if diff and max(diff.values()) > K6_TOL:
+            raise AssertionError(f"K6 differs from the parent's kernel by "
+                                 f"more than {K6_TOL}: {diff}")
+    return dict(k6_err=f_err, k6b_err=b_err, timed=rows[-1],
+                k6_serve=rows[0][0])
 
 
 def phase12_serve(device, tmp: str):
     """(b) The NCI1 GraphTrans yml served through ``python -m
     graphtrans_tpu_torch.predict`` (three splits of the synthetic fallback,
     batches of 128, random weights at full width): records, accuracy and
-    K6/K2 launches counted from 0; the logits through the kernels against
-    the plain versions; then the Transformer-only NCI1 yml's test split
-    (K4)."""
+    K6/K2 launches counted from 0, every K6 launch emb-less; the logits
+    through the kernels against the plain versions; then the
+    Transformer-only NCI1 yml's test split (K4). Returns the GraphTrans
+    launches and K6's by instance."""
     from graphtrans_tpu_torch import predict
     from graphtrans_tpu_torch.data.loader import iterate_batches
     from graphtrans_tpu_torch.ops import kernels
@@ -4064,12 +4220,17 @@ def phase12_serve(device, tmp: str):
     if launches != want:
         raise AssertionError(f"NCI1 serving launches {launches}, expected "
                              f"{want}")
+    k6_by = dict(kernels.dense_agg.instances)
+    if k6_by != {"emb": 0, "emb-less": launches["dense_agg"]}:
+        raise AssertionError(f"NCI1 serving: K6 launches by instance "
+                             f"{k6_by}, every one emb-less expected (no "
+                             f"zero edge tensor)")
     print(f"[12b] served {records} synthetic NCI1 graphs (3 splits, "
           f"{batches} batches of <= {args.batch_size}; {secs:.2f} s with "
           f"model builds) through graphtrans_tpu_torch.predict: accuracy "
           f"{accs} (random weights); launches {launches} = "
           f"{args.gnn_num_layer} and {args.num_encoder_layers} a batch"
-          f"{by_instance}")
+          f"{by_instance}; K6 by instance {k6_by}")
 
     layout = predict.serving_layout(splits, args, num_tasks)
     model = predict.build_model(args, num_tasks, device, data)
@@ -4107,7 +4268,7 @@ def phase12_serve(device, tmp: str):
           f"packed row, d_model {tf.d_model}): accuracy {res['acc']:.6f}; "
           f"launches "
           f"{tf_launches} = {tf.num_encoder_layers} a batch")
-    return launches
+    return launches, k6_by
 
 
 def phase12_train(device, tmp: str):
@@ -4158,6 +4319,13 @@ def phase12_train(device, tmp: str):
             raise AssertionError(f"NCI1 {tag} training: K6-bwd launches by "
                                  f"instance {k6b}, every one dx-only "
                                  f"expected (no gradient of emb or w)")
+        k6_by = kernels.dense_agg.instances
+        if k6_by["emb-less"] != got.get("dense_agg", 0) or k6_by["emb"]:
+            raise AssertionError(f"NCI1 {tag} training: K6 launches by "
+                                 f"instance {k6_by}, every one emb-less "
+                                 f"expected (no zero edge tensor)")
+        if config == NCI1_CONFIG:
+            by_instance += f"; K6 by instance {dict(k6_by)}"
         if not all(math.isfinite(r["loss"]) for r in res["epochs"]):
             raise AssertionError(f"epoch losses not finite: {res['epochs']}")
         init, _ = _trainer(cargs, num_tasks, device, data=data)
@@ -4314,11 +4482,13 @@ def _perms(batch):
 def k8_inputs(batch, d: int, gen: torch.Generator, device):
     """K8's arguments as a GCN layer gets them: random node rows (zero on
     padding rows), one random embedding row per edge laid out in each
-    plan's chunk order (as the edge encoder makes both copies; pad slots
-    0), the GCN norm per slot (``bsp_slot_weight``) and the batch's
-    SlotOrder (``rows``, its runs made)."""
+    plan's chunk order (the dst-major copy, as the edge encoder makes it,
+    and the src-major copy that the parent's K8-dx read; pad slots 0), the
+    GCN norm per slot in each order (``bsp_slot_weight``), the batch's
+    SlotOrder (``rows``) and its src-major one through ``fwd_slot``
+    (``rows_b``, which K8-dx walks), their runs made."""
     from graphtrans_tpu_torch.nn.conv import bsp_slot_weight
-    from graphtrans_tpu_torch.ops.kernels import slot_order
+    from graphtrans_tpu_torch.ops.kernels import slot_order, src_slot_order
     from graphtrans_tpu_torch.ops.segment import out_degree
 
     tb = batch.to(device)
@@ -4333,20 +4503,23 @@ def k8_inputs(batch, d: int, gen: torch.Generator, device):
         emb[real] = per_edge[perm[real]]
         embs.append(emb)
     dis = (out_degree(tb.edge_src, x.shape[0], tb.edge_mask) + 1.0) ** -0.5
-    rows = slot_order(tb)
+    rows, rows_b = slot_order(tb), src_slot_order(tb)
     rows.runs()                          # built once per batch, not timed
+    rows_b.runs()
     return dict(x=x, ef=embs[0], eb=embs[1], pf=tb.bsp_fwd, pb=tb.bsp_bwd,
                 wf=bsp_slot_weight(tb.bsp_fwd, dis, False).contiguous(),
                 wb=bsp_slot_weight(tb.bsp_bwd, dis, True).contiguous(),
-                rows=rows)
+                rows=rows, rows_b=rows_b)
 
 
 def check_k8(a, message: str, with_w: bool, gen):
     """K8 against its plain version (1e-5 of max(1, max|ref|)), the same
     bits with a new SlotOrder and without the src-major plan, its d_emb
     and dx kernels against autograd through the plain version (5e-4 of
-    max(1, max|ref|)); slots that are not real get exact-zero d_emb rows.
-    The plain versions sum with index_add_ under deterministic
+    max(1, max|ref|)); slots that are not real get exact-zero d_emb rows;
+    dx through the src-major order's ``fwd_slot`` (the dst-major copies,
+    as the GCN layer calls it) the bits of dx reading the src-major
+    copies. The plain versions sum with index_add_ under deterministic
     algorithms."""
     from graphtrans_tpu_torch.ops.kernels import (
         blocked_gather_message_scatter,
@@ -4370,7 +4543,13 @@ def check_k8(a, message: str, with_w: bool, gen):
                                  f"bits with a new SlotOrder or without the "
                                  f"src-major plan")
     demb = blocked_gather_message_scatter_demb(x, g, ef, pf, wf, message)
-    dx = blocked_gather_message_scatter_dx(x, g, eb, pb, wb, message)
+    dx = blocked_gather_message_scatter_dx(x, g, ef, pb, wf, message,
+                                           rows=a["rows_b"])
+    if not torch.equal(dx, blocked_gather_message_scatter_dx(x, g, eb, pb,
+                                                             wb, message)):
+        raise AssertionError(f"K8-dx ({message}, w {with_w}) through "
+                             f"fwd_slot gave other bits than with the "
+                             f"src-major copies")
     torch.cuda.synchronize()
     with deterministic():
         want = blocked_gather_message_scatter_plain(x, ef, eb, pf, pb, wf,
@@ -4426,11 +4605,12 @@ def k12_bound(msg, dst, N: int):
 def time_k8(name: str, a, base):
     """K8's forward on its arguments ``a`` (relu_add, the GCN norm) as the
     GCN layer calls it, with the batch's SlotOrder (its cost timed apart):
-    ms in turns with the parent's kernel under ``--baseline`` (whose bits
-    it must give, relu_add with w and add without), device ms from the
-    profiler with a cold L2 (None where not measured), and the cases whose
-    bits were checked. Also a batch's worth, in turns: a new SlotOrder and
-    GCN_LAYERS_PER_FORWARD calls, against the parent's as many calls."""
+    ms in turns with the parent's kernel under ``--baseline`` (with its own
+    order made once, where it walks one; its bits it must give, relu_add
+    with w and add without), device ms from the profiler with a cold L2
+    (None where not measured), and the cases whose bits were checked. Also
+    a batch's worth, in turns: a new SlotOrder and GCN_LAYERS_PER_FORWARD
+    calls, against the parent's as many calls (and its new order)."""
     from graphtrans_tpu_torch.ops.kernels import (
         SlotOrder, blocked_gather_message_scatter)
 
@@ -4440,17 +4620,20 @@ def time_k8(name: str, a, base):
     order_ms = time_ms(lambda: SlotOrder(pf, N, E).runs(), iters=20)
     new = lambda: blocked_gather_message_scatter(x, ef, eb, pf, pb, wf, wb,
                                                  rows=rows)
-    old = base and (lambda: base["block_spmm"].blocked_gather_message_scatter(
-        x, ef, eb, pf, pb, wf, wb))
+    old8 = base and base["block_spmm"]
+    own = {}              # the parent's own order, where it walks one
+    if old8 and hasattr(old8, "SlotOrder"):
+        own = dict(rows=old8.SlotOrder(pf, N, E))
+        own["rows"].runs()
+    old = old8 and (lambda: old8.blocked_gather_message_scatter(
+        x, ef, eb, pf, pb, wf, wb, **own))
     checked = []
     same_bits(f"K8 {name} (relu_add, w)", new, old, checked)
     same_bits(f"K8 {name} (add)",
               lambda: blocked_gather_message_scatter(
                   x, ef, eb, pf, pb, message="add", rows=rows),
-              old and (lambda: base["block_spmm"]
-                       .blocked_gather_message_scatter(x, ef, eb, pf, pb,
-                                                       message="add")),
-              checked)
+              old8 and (lambda: old8.blocked_gather_message_scatter(
+                  x, ef, eb, pf, pb, message="add", **own)), checked)
 
     def batch():
         per = SlotOrder(pf, N, E)
@@ -4459,16 +4642,67 @@ def time_k8(name: str, a, base):
                                            rows=per)
 
     def old_batch():
+        per = own and dict(rows=old8.SlotOrder(pf, N, E))
         for _ in range(GCN_LAYERS_PER_FORWARD):
-            old()
+            old8.blocked_gather_message_scatter(x, ef, eb, pf, pb, wf, wb,
+                                                **per)
 
     ms, earlier = turns_ms(new, old, 20)
     batch_ms, earlier_batch = turns_ms(batch, old and old_batch, 10)
     return dict(ms=ms, earlier_ms=earlier, order_ms=order_ms,
                 batch_ms=batch_ms, earlier_batch_ms=earlier_batch,
                 device_ms=device_ms(new, ("blocked_fwd",)),
-                earlier_device_ms=old and device_ms(old, ("block_walk",))
+                earlier_device_ms=old and device_ms(old, ("blocked_fwd",))
                 ), checked
+
+
+def time_k8_dx(name: str, a, g, base):
+    """K8-dx on its arguments ``a`` as the GCN layer's backward calls it
+    (relu_add, the GCN norm, the batch's src-major SlotOrder through
+    ``fwd_slot``, whose cost is timed apart): ms in turns with the parent's
+    kernel under ``--baseline`` (which reads the src-major copies, and
+    whose bits it must give, relu_add with w and add without), device ms
+    a call queued behind a sleep with a cold L2 (``queued_turns``; the
+    profiler drops the parent's records), and the cases whose bits were
+    checked. Also a training batch's worth, in turns: a new order and
+    GCN_LAYERS_PER_FORWARD calls against the parent's as many calls."""
+    from graphtrans_tpu_torch.ops.kernels import (
+        SlotOrder, blocked_gather_message_scatter_dx)
+
+    x, ef, eb, pb, wf, wb, rows_b = (a[k] for k in (
+        "x", "ef", "eb", "pb", "wf", "wb", "rows_b"))
+    N, E = x.shape[0], rows_b.num_edges
+    order_ms = time_ms(lambda: SlotOrder(pb, N, E,
+                                         slot_map=pb["fwd_slot"]).runs(),
+                       iters=20)
+    new = lambda: blocked_gather_message_scatter_dx(x, g, ef, pb, wf,
+                                                    rows=rows_b)
+    old8 = base and base["block_spmm"]
+    old = old8 and (lambda: old8.blocked_gather_message_scatter_dx(
+        x, g, eb, pb, wb))
+    checked = []
+    same_bits(f"K8-dx {name} (relu_add, w)", new, old, checked)
+    same_bits(f"K8-dx {name} (add)",
+              lambda: blocked_gather_message_scatter_dx(
+                  x, g, ef, pb, message="add", rows=rows_b),
+              old8 and (lambda: old8.blocked_gather_message_scatter_dx(
+                  x, g, eb, pb, message="add")), checked)
+
+    def batch():
+        per = SlotOrder(pb, N, E, slot_map=pb["fwd_slot"])
+        for _ in range(GCN_LAYERS_PER_FORWARD):
+            blocked_gather_message_scatter_dx(x, g, ef, pb, wf, rows=per)
+
+    def old_batch():
+        for _ in range(GCN_LAYERS_PER_FORWARD):
+            old()
+
+    ms, earlier = turns_ms(new, old, 20)
+    batch_ms, earlier_batch = turns_ms(batch, old and old_batch, 10)
+    dev, earlier_dev = queued_turns(new, old)
+    return dict(ms=ms, earlier_ms=earlier, order_ms=order_ms,
+                batch_ms=batch_ms, earlier_batch_ms=earlier_batch,
+                device_ms=dev, earlier_device_ms=earlier_dev), checked
 
 
 def phase13_kernels(device, d_gnn: int, bench, base=None):
@@ -4482,14 +4716,12 @@ def phase13_kernels(device, d_gnn: int, bench, base=None):
     from graphtrans_tpu_torch.data.loader import iterate_batches
     from graphtrans_tpu_torch.ops import kernels
     from graphtrans_tpu_torch.ops.kernels import (
-        DstOrder, SrcOrder, blocked_gather_message_scatter,
-        blocked_gather_message_scatter_bwd_plain,
+        DstOrder, SrcOrder, blocked_gather_message_scatter_bwd_plain,
         blocked_gather_message_scatter_demb,
         blocked_gather_message_scatter_demb_plain,
-        blocked_gather_message_scatter_dx,
         blocked_gather_message_scatter_dx_plain,
         blocked_gather_message_scatter_plain, segment_sum_mxu,
-        segment_sum_mxu_plain, spmm, spmm_bwd)
+        segment_sum_mxu_plain, spmm)
 
     gen = torch.Generator().manual_seed(SEED + 13)
     args = _code2_args()
@@ -4532,25 +4764,20 @@ def phase13_kernels(device, d_gnn: int, bench, base=None):
                         lambda: blocked_gather_message_scatter_demb_plain(
                             x, g, ef, pf, wf), iters=5),
                     library_ms=None)
-        dx = dict(ms=time_ms(lambda: blocked_gather_message_scatter_dx(
-                      x, g, eb, pb, wb), iters=20),
-                  plain_ms=time_ms(
-                      lambda: blocked_gather_message_scatter_dx_plain(
-                          x, g, eb, pb, wb), iters=5),
-                  library_ms=None)
+        dx, dx_same = time_k8_dx(name, a, g, base)
+        k8_checked.extend(dx_same)
+        dx.update(plain_ms=time_ms(
+            lambda: blocked_gather_message_scatter_dx_plain(
+                x, g, eb, pb, wb), iters=5), library_ms=None)
         autograd_ms = time_ms(
             lambda: blocked_gather_message_scatter_bwd_plain(
                 x, ef, eb, pf, pb, g, wf, wb), iters=5)
-        old8 = base and base["block_spmm"]     # K8-demb and K8-dx unchanged
+        old8 = base and base["block_spmm"]     # K8-demb unchanged
         same_bits(f"K8-demb {name}",
                   lambda: blocked_gather_message_scatter_demb(x, g, ef, pf,
                                                               wf),
                   old8 and (lambda: old8.blocked_gather_message_scatter_demb(
                       x, g, ef, pf, wf)), k8_checked)
-        same_bits(f"K8-dx {name}",
-                  lambda: blocked_gather_message_scatter_dx(x, g, eb, pb, wb),
-                  old8 and (lambda: old8.blocked_gather_message_scatter_dx(
-                      x, g, eb, pb, wb)), k8_checked)
         fwd["bound_ms"], fwd["bound_by"] = k8_bound(a)
         demb["bound_ms"], demb["bound_by"] = k8_bound(a, "demb")
         dx["bound_ms"], dx["bound_by"] = k8_bound(a, "dx")
@@ -4586,6 +4813,14 @@ def phase13_kernels(device, d_gnn: int, bench, base=None):
               f"{_ms(fwd['earlier_batch_ms'])}, in turns); device time "
               f"{_ms(fwd['device_ms'])} a launch from the profiler, cold L2 "
               f"(the parent's {_ms(fwd['earlier_device_ms'])})")
+        print(f"[13a] {name} K8-dx: its src-major SlotOrder through "
+              f"fwd_slot {dx['order_ms']:.4f} ms once a batch (host-paced); "
+              f"a training batch's worth, a new order and "
+              f"{GCN_LAYERS_PER_FORWARD} calls, {dx['batch_ms']:.4f} ms (the "
+              f"parent's {GCN_LAYERS_PER_FORWARD} calls "
+              f"{_ms(dx['earlier_batch_ms'])}, in turns); device time "
+              f"{_ms(dx['device_ms'])} a call queued behind a sleep, cold "
+              f"L2 (the parent's {_ms(dx['earlier_device_ms'])}, in turns)")
         print(f"[13a] {name} yardsticks at the same batch: K7 {k7_ms:.4f} ms "
               f"against K8 {fwd['ms']:.4f}; K7-bwd {k7b_ms:.4f} ms against "
               f"K8-demb + K8-dx {demb['ms'] + dx['ms']:.4f}; autograd through "
@@ -4593,9 +4828,10 @@ def phase13_kernels(device, d_gnn: int, bench, base=None):
         rows = dict(fwd=fwd, demb=demb, dx=dx)
     print_k7_bwd_turns("13a", k7b_rows, same, base)
     if base:
-        print(f"[13a] --baseline: K8's forward, K8-demb and K8-dx give "
-              f"the parent kernels' bits on the same inputs at "
-              f"{len(k8_checked)} cases: {', '.join(k8_checked)}")
+        print(f"[13a] --baseline: K8's forward, K8-demb and K8-dx (reading "
+              f"the dst-major copies through fwd_slot; the parent's the "
+              f"src-major copies) give the parent kernels' bits on the same "
+              f"inputs at {len(k8_checked)} cases: {', '.join(k8_checked)}")
 
     # K12: the standalone op as its user calls it, once, counted from 0
     tb = bench.to(device)
@@ -4659,23 +4895,30 @@ def phase13_kernels(device, d_gnn: int, bench, base=None):
                                                   rows["dx"], k12))
 
 
-def same_emb_copies(host, batch, copies, device) -> int:
-    """The layers of a train step on ``batch`` (``host``: the same batch
-    on the host) whose edge encoder made both plans' emb copies
-    (``copies``: (attributes, emb) of each call, in call order) with equal
-    bits on every real slot, each slot matched to its edge through the
-    plans' slot -> edge maps."""
-    pf, pb = (p.to(device) for p in _perms(host))
-    by_edge = torch.full((host.edge_src.shape[0],), -1, dtype=torch.long,
-                         device=device)
-    by_edge[pb[pb >= 0]] = torch.nonzero(pb >= 0)[:, 0]
-    real = pf >= 0
-    fwd = [e for a, e in copies if a is batch.edge_attr_bsp_fwd]
-    bwd = [e for a, e in copies if a is batch.edge_attr_bsp_bwd]
-    if len(fwd) != len(bwd) or len(fwd) + len(bwd) != len(copies):
+def src_major_rows(encoder, batch):
+    """What ``encoder`` (a ``LinearEdgeEncoder``) gives for the src-major
+    plan's attributes with its weights of the moment: the copy the
+    parent's step made for K8-dx. Calls its inner Linear, so that a
+    forward hook on the encoder can call it."""
+    with torch.no_grad():
+        lin = encoder.lin
+        return lin(batch.edge_attr_bsp_bwd.to(lin.weight.dtype))
+
+
+def emb_through_fwd_slot(batch, copies) -> int:
+    """The layers of a train step on ``batch`` (``copies``: (attributes,
+    emb, the encoder's src-major rows at that moment) of each edge encoder
+    call, in call order) whose encoder ran on the dst-major plan's
+    attributes alone and whose rows read through the src-major plan's
+    ``fwd_slot`` equal the src-major rows bit for bit on every real slot:
+    what K8-dx reads is what the parent's read. 0 where any call encoded
+    anything else."""
+    if any(a is not batch.edge_attr_bsp_fwd for a, _, _ in copies):
         return 0
-    return sum(torch.equal(ef[real], eb[by_edge[pf[real]]])
-               for ef, eb in zip(fwd, bwd))
+    fwd_slot = batch.bsp_bwd["fwd_slot"].long()
+    real = batch.bsp_bwd["mask"].reshape(-1) > 0
+    return sum(torch.equal(ef[fwd_slot[real]], eb.to(ef.dtype)[real])
+               for _, ef, eb in copies)
 
 
 def phase13_serve(device, tmp: str):
@@ -4683,10 +4926,11 @@ def phase13_serve(device, tmp: str):
     ``set_block_spmm(model, "on")`` serves the snapshot's valid and test
     splits through ``predict.predict_split`` in batches of 16 with block
     plans (none overflows): 5 K8 and no K7 launch a batch; logits against
-    the plain versions and the K7 route; the two emb copies equal on every
-    real slot; then one train step of ``main.build_run``'s model and step
-    (5 K8, 5 K8-demb, 5 K8-dx) against the plain versions and the K7
-    route."""
+    the plain versions and the K7 route; then one train step of
+    ``main.build_run``'s model and step (5 K8, 5 K8-demb, 5 K8-dx; the
+    edge encoder once a layer, on the dst-major plan's attributes, its
+    rows through fwd_slot the src-major copy's bits) against the plain
+    versions and the K7 route."""
     from graphtrans_tpu_torch import predict
     from graphtrans_tpu_torch.data.loader import iterate_batches, shuffled_order
     from graphtrans_tpu_torch.ops import kernels
@@ -4792,9 +5036,10 @@ def phase13_serve(device, tmp: str):
                              ("k7", True, "off")):
             model, step = _trainer(targs, num_tasks, device, kernels_on=on,
                                    data=code, bsp=bsp)
-            copies = []      # (attributes, emb) of each edge encoder call
+            copies = []      # (attributes, emb, src-major rows) a call
             hooks = [c.edge_encoder.register_forward_hook(
-                lambda m, inp, out: copies.append((inp[0], out.detach())))
+                lambda m, inp, out: copies.append(
+                    (inp[0], out.detach(), src_major_rows(m, batch))))
                 for c in model.gnn_node.convs] if tag == "kernels" else []
             kernels.reset_launches()         # the blocked training path
             loss = step(batch).item()
@@ -4804,7 +5049,8 @@ def phase13_serve(device, tmp: str):
                 step_launches = {k: v for k, v in
                                  kernels.launch_counts().items() if v}
                 by_instance = k2_instances()
-                emb_same = same_emb_copies(host, batch, copies, device)
+                enc_calls = len(copies)
+                emb_same = emb_through_fwd_slot(batch, copies)
             got[tag] = (loss, {n: p.grad for n, p in
                                model.named_parameters()})
     want = {"blocked_gather_message_scatter": 5,
@@ -4822,14 +5068,20 @@ def phase13_serve(device, tmp: str):
             raise AssertionError(f"code2 blocked step against {tag}: loss "
                                  f"|diff| {errs[tag][0]}, gradients "
                                  f"{errs[tag][1]}")
-    if emb_same != GCN_LAYERS_PER_FORWARD:
-        raise AssertionError(f"the step's two emb copies: {emb_same} layers "
-                             f"of {GCN_LAYERS_PER_FORWARD} built both and "
-                             f"agree on every real slot; d_emb's and dx's "
-                             f"relu decisions may disagree")
-    print(f"[13b] the train step's edge encoders built both plans' emb "
-          f"copies in each of its {emb_same} layers, bitwise equal on every "
-          f"real slot")
+    if emb_same != GCN_LAYERS_PER_FORWARD or enc_calls != emb_same:
+        raise AssertionError(f"the step's edge encoders: {enc_calls} "
+                             f"calls; {emb_same} layers of "
+                             f"{GCN_LAYERS_PER_FORWARD} encoded the "
+                             f"dst-major plan alone with rows through "
+                             f"fwd_slot equal to the src-major copy's; "
+                             f"K8-dx's relu decisions may differ from the "
+                             f"parent's")
+    print(f"[13b] the train step's edge encoders ran {enc_calls} times, "
+          f"once a layer, on the dst-major plan's attributes only (no "
+          f"src-major encoder run, no src-major weight); in each of its "
+          f"{emb_same} layers the rows K8-dx reads through fwd_slot equal, "
+          f"bit for bit on every real slot, the src-major copy the parent "
+          f"made")
     print(f"[13b] one code2 train step on the blocked route (main.build_run, "
           f"set_block_spmm on, deterministic algorithms): launches "
           f"{step_launches}{by_instance}; loss {lk:.6f}; against the plain "
@@ -4927,12 +5179,12 @@ def main(argv=None) -> int:
                    help="write phase 5's chrome trace to this file")
     p.add_argument("--baseline", default=None,
                    help="a checkout of an earlier commit whose K1, K1-bwd, "
-                        "K2, K2-bwd, K3, K3-bwd, K4, K5, K4-bwd, K5-bwd, "
-                        "K6-bwd, K7, K7-bwd, K8, K9, K9-bwd, K10, K10-bwd "
-                        "and K12 phases 2 and 6a-13a time beside this "
-                        "tree's (K1, K1-bwd, K4, K4-bwd, K6, K6-bwd, K7, "
-                        "K7-bwd, K8, K9, K9-bwd, K10, K10-bwd also bit for "
-                        "bit)")
+                        "K2, K2-bwd, K3, K3-bwd, K4, K5, K4-bwd, K5-bwd, K6, "
+                        "K6-bwd, K7, K7-bwd, K8, K8-dx, K9, K9-bwd, K10, "
+                        "K10-bwd and K12 phases 2 and 6a-13a time beside "
+                        "this tree's (K1, K1-bwd, K4, K4-bwd, K6-bwd, K7, "
+                        "K7-bwd, K8, K8-dx, K9, K9-bwd, K10, K10-bwd also "
+                        "bit for bit; K6 its largest difference)")
     opts = p.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5020,7 +5272,7 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.1f} s")
     nci1 = phase12_kernels(device, _nci1_args().gnn_emb_dim, nci1_bench, base)
     with tempfile.TemporaryDirectory() as tmp:
-        nci1_launches = phase12_serve(device, tmp)
+        nci1_launches, nci1_k6_instances = phase12_serve(device, tmp)
         nci1_train_launches = phase12_train(device, tmp)
     phase12_cost(device, nci1_bench, smi)
 
@@ -5153,8 +5405,10 @@ def main(argv=None) -> int:
         dict(name="dense_agg_fwd", route="cuda",
              source="graphtrans_tpu_torch/csrc/dense_agg.cu",
              replaces="graphtrans_tpu/ops/pallas/dense_agg.py:168",
-             launches=nci1_launches["dense_agg"], max_abs_err=nci1["k6_err"],
-             **k6),
+             launches=nci1_launches["dense_agg"],
+             # every NCI1 launch emb-less (12b); ms and bound are that
+             # instance's at the 4096-graph batch
+             instances=nci1_k6_instances, max_abs_err=nci1["k6_err"], **k6),
         dict(name="dense_agg_bwd", route="cuda",
              source="graphtrans_tpu_torch/csrc/dense_agg.cu",
              replaces="graphtrans_tpu/ops/pallas/dense_agg.py:140",
@@ -5175,7 +5429,7 @@ def main(argv=None) -> int:
              launches=bsp_step_launches["blocked_gather_message_scatter_demb"],
              max_abs_err=bsp["b_err"]["demb"], **k8d),
         dict(name="blocked_gms_dx", route="cuda",
-             source="graphtrans_tpu_torch/csrc/block_spmm.cu",
+             source="graphtrans_tpu_torch/csrc/spmm.cu",
              replaces="graphtrans_tpu/ops/pallas/block_spmm.py:108",
              launches=bsp_step_launches["blocked_gather_message_scatter_dx"],
              max_abs_err=bsp["b_err"]["dx"], **k8x),

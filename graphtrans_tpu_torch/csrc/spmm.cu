@@ -32,7 +32,8 @@
 // plan grouped by major row, in slot order within each row, every
 // position live. Position k holds the edge src[k] -> dst[k]; its emb row
 // and weight are those of its slot, slot[k]. A row's terms are added in
-// slot order.
+// slot order. K8's dx (blocked_dx_kernel, below the backward) walks a
+// SlotOrder of the src-major plan as the backward walks its runs.
 #include <cuda_runtime.h>
 
 #include "vec.cuh"
@@ -304,6 +305,128 @@ spmm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ emb,
   write_to(r_hi);
 }
 
+// K8-dx: dx[s] = sum over the real slots of the src-major block plan whose
+// major row is s of w * 1[x[s] + emb > 0] * g[dst] (relu_add; w * g[dst]
+// for add), walked over the positions of a SlotOrder of that plan
+// (block_spmm.py): row s's positions at [ptr[s], ptr[s+1]), in slot order,
+// every position live, position k the edge major[k] (its src) -> minor[k]
+// (its dst), whose emb row and weight are read at slot[k] (the dst-major
+// plan's slot of the same edge where the order maps its slots, so that
+// emb and w are the dst-major copies). The source rows are cut into runs
+// (rptr, edge_runs of ptr), a warp a run, as the backward above: 32
+// positions' records a step, then the g[dst] and emb rows of U positions
+// in flight before any is used, and x of a row loaded once, with the rows
+// of its first position. dx of the current row is summed in registers in
+// slot order, each product rounded before its add, as the plain version
+// and the parent's shared sums have it, and written once (zero for a row
+// no real slot leaves). No d_emb: K8's d_emb is its own kernel
+// (block_spmm.cu). Under add, neither x nor emb is read.
+template <int VEC, int VPL>
+__global__ void __launch_bounds__(RUN_THREADS, 2)  // two blocks an SM
+blocked_dx_kernel(const float* __restrict__ x, const float* __restrict__ emb,
+                  const int* __restrict__ minor,
+                  const int* __restrict__ major,
+                  const int* __restrict__ slot, const int* __restrict__ ptr,
+                  const int* __restrict__ rptr, const float* __restrict__ ew,
+                  const float* __restrict__ g, float* __restrict__ dx, int d,
+                  int nruns, int relu) {
+  using V = Vec<VEC>;
+  constexpr int U = VEC * VPL <= 8 ? 4 : 2;  // positions whose rows load
+                                             // together
+  const long warp = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp >= nruns) return;
+  int col[VPL];  // this lane's channels: col[j] .. col[j] + VEC - 1
+  bool has[VPL];  // VEC divides d: all of them or none
+#pragma unroll
+  for (int j = 0; j < VPL; ++j) {
+    col[j] = blockIdx.y * 32 * VEC * VPL + (lane + 32 * j) * VEC;
+    has[j] = col[j] < d;
+  }
+  const V zero = vio::zero_vec<VEC>();
+  const int r_lo = rptr[warp], r_hi = rptr[warp + 1];
+  if (r_lo >= r_hi) return;
+  const int k_lo = ptr[r_lo], k_hi = ptr[r_hi];
+
+  V acc[VPL];  // dx of row `row`, the first row not yet written
+#pragma unroll
+  for (int j = 0; j < VPL; ++j) acc[j] = zero;
+  int row = r_lo;
+  auto write_to = [&](int s) {  // write dx of the rows before s
+    for (; row < s; ++row) {
+#pragma unroll
+      for (int j = 0; j < VPL; ++j) {
+        if (has[j]) store_vec(dx + (long)row * d + col[j], acc[j]);
+        acc[j] = zero;
+      }
+    }
+  };
+  V xc[VPL];  // x of row xrow (relu_add)
+#pragma unroll
+  for (int j = 0; j < VPL; ++j) xc[j] = zero;
+  int xrow = -1;
+
+  for (int k0 = k_lo; k0 < k_hi; k0 += 32) {
+    const int k = k0 + lane;
+    int pe = 0, pm = 0, pr = 0;
+    float pw = 0.f;
+    if (k < k_hi) {
+      pe = slot[k];
+      pm = minor[k];
+      pr = major[k];
+      pw = ew ? ew[pe] : 1.f;
+    }
+    const int n = min(32, k_hi - k0);
+    for (int i0 = 0; i0 < n; i0 += U) {
+      V gv[U][VPL], ev[U][VPL], xv[U][VPL];
+      int ru[U];
+      float wu[U];
+      int prev = xrow;  // the row whose x the position before u reads
+#pragma unroll
+      for (int u = 0; u < U; ++u) {  // every position's rows in flight first
+        const int i = (i0 + u) & 31;
+        const long eu = __shfl_sync(FULL, pe, i);
+        const long mu = __shfl_sync(FULL, pm, i);
+        ru[u] = __shfl_sync(FULL, pr, i);
+        wu[u] = __shfl_sync(FULL, pw, i);
+        const bool in = i0 + u < n;
+        const bool nx = relu && in && ru[u] != prev;  // a row's first: its x
+        if (in) prev = ru[u];
+#pragma unroll
+        for (int j = 0; j < VPL; ++j) {
+          const bool ld = has[j] && in;
+          gv[u][j] = ld ? load_vec<VEC>(g + mu * d + col[j]) : zero;
+          ev[u][j] = ld && relu ? load_vec<VEC>(emb + eu * d + col[j]) : zero;
+          xv[u][j] = has[j] && nx
+                         ? load_vec<VEC>(x + (long)ru[u] * d + col[j])
+                         : zero;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {  // then their sums, in slot order
+        if (i0 + u >= n) break;
+        write_to(ru[u]);
+        if (relu && ru[u] != xrow) {  // the same test as the loads'
+          xrow = ru[u];
+#pragma unroll
+          for (int j = 0; j < VPL; ++j) xc[j] = xv[u][j];
+        }
+#pragma unroll
+        for (int j = 0; j < VPL; ++j) {
+          if (!has[j]) continue;
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) {
+            float m = __fmul_rn(gv[u][j].v[i], wu[u]);  // as autograd rounds
+            if (relu && !(xc[j].v[i] + ev[u][j].v[i] > 0.f)) m = 0.f;
+            acc[j].v[i] += m;
+          }
+        }
+      }
+    }
+  }
+  write_to(r_hi);
+}
+
 struct FwdArgs {
   const float *x, *emb;
   const int *src, *dst;
@@ -377,6 +500,34 @@ int launch_bwd_vpl(const BwdArgs& A, int vpl, cudaStream_t stream) {
     case 2: return launch_bwd<VEC, 2>(A, stream);
     case 3: return launch_bwd<VEC, 3>(A, stream);
     default: return launch_bwd<VEC, 4>(A, stream);
+  }
+}
+
+struct DxArgs {
+  const float *x, *emb;
+  const int *minor, *major, *slot, *ptr, *rptr;
+  const float *ew, *g;
+  float* dx;
+  int d, nruns, relu, slices;
+};
+
+template <int VEC, int VPL>
+int launch_dx(const DxArgs& A, cudaStream_t stream) {
+  const long blocks = ((long)A.nruns * 32 + RUN_THREADS - 1) / RUN_THREADS;
+  blocked_dx_kernel<VEC, VPL><<<dim3((unsigned)blocks, A.slices),
+                                RUN_THREADS, 0, stream>>>(
+      A.x, A.emb, A.minor, A.major, A.slot, A.ptr, A.rptr, A.ew, A.g, A.dx,
+      A.d, A.nruns, A.relu);
+  return cudaGetLastError();
+}
+
+template <int VEC>
+int launch_dx_vpl(const DxArgs& A, int vpl, cudaStream_t stream) {
+  switch (vpl) {
+    case 1: return launch_dx<VEC, 1>(A, stream);
+    case 2: return launch_dx<VEC, 2>(A, stream);
+    case 3: return launch_dx<VEC, 3>(A, stream);
+    default: return launch_dx<VEC, 4>(A, stream);
   }
 }
 
@@ -458,4 +609,27 @@ extern "C" int spmm_bwd(const float* x, const float* emb, const int* src,
                   g,     dx,  demb, E,  d,    nruns, relu, slices};
   return vec == 4 ? launch_bwd_vpl<4>(A, vpl, stream)
                   : launch_bwd_vpl<1>(A, vpl, stream);
+}
+
+// K8's dx [N, d] for the cotangent g [N, d] of its forward, over the
+// positions of a SlotOrder of the src-major plan: position k is the edge
+// major[k] -> minor[k] whose emb row [*, d] and weight w (may be null: 1)
+// are read at slot[k]; row s's positions lie at [ptr[s], ptr[s+1]), and
+// rptr [nruns + 1] cuts the rows [0, N) into runs as spmm_bwd's. relu and
+// the launch (vec, vpl, slices) as spmm_fwd's.
+extern "C" int blocked_dx(const float* x, const float* emb, const int* minor,
+                          const int* major, const int* slot, const int* ptr,
+                          const int* rptr, const float* w, const float* g,
+                          float* dx, int N, int d, int nruns, int relu,
+                          int vec, int vpl, int slices, cudaStream_t stream) {
+  if (N <= 0 || d <= 0 || nruns < 1 || !slot ||
+      !launch_ok(d, vec, vpl, slices))
+    return cudaErrorInvalidValue;
+  if (((unsigned long)x | (unsigned long)emb | (unsigned long)g |
+       (unsigned long)dx) % (4ul * vec))
+    return cudaErrorInvalidValue;
+  const DxArgs A{x,  emb, minor, major, slot, ptr,  rptr,
+                 w,  g,   dx,    d,     nruns, relu, slices};
+  return vec == 4 ? launch_dx_vpl<4>(A, vpl, stream)
+                  : launch_dx_vpl<1>(A, vpl, stream);
 }

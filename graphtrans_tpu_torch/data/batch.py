@@ -69,7 +69,7 @@ class GraphBatch:
     edge_mask_dense: Any = None  # [G, Em] bool
     edge_attr_dense: Any = None  # [G, Em, Fe]
     bsp_fwd: Any = None          # dst-major block plan (dict of arrays)
-    bsp_bwd: Any = None          # src-major block plan
+    bsp_bwd: Any = None          # src-major block plan (+ fwd_slot)
     edge_attr_bsp_fwd: Any = None  # [C*EB, Fe] edge_attr in bsp_fwd's order
     edge_attr_bsp_bwd: Any = None  # [C*EB, Fe] in bsp_bwd's order
     pack_node: Any = None        # [R*W] int32 slot -> flat node row (N = none)
@@ -170,7 +170,8 @@ def collate(
     ``seq_pack_rows*`` pin each tier's row count (``PackOverflow`` when a
     batch needs more). ``max_seq_len`` adds ``y_arr [G, max_seq_len]``.
     ``bsp_chunks_cap > 0`` adds the dst- and src-major block plans of K8
-    and the edge attributes in each plan's chunk order, in the flat layout
+    (the src-major one with ``fwd_slot``, each slot's dst-major slot) and
+    the edge attributes in each plan's chunk order, in the flat layout
     when ``num_nodes_cap`` is a multiple of 128; a batch whose plan needs
     more chunks gets none (``bsp_fwd`` None) and takes K7."""
     for name, value in later.items():
@@ -313,11 +314,13 @@ def collate(
         plan_b = block_plan.build_block_plan(edge_src, edge_dst, edge_mask, N,
                                              bsp_chunks_cap, major="src")
         if plan_f is not None and plan_b is not None:
+            perm_f, perm_b = plan_f.pop("perm"), plan_b.pop("perm")
+            plan_b["fwd_slot"] = block_plan.slot_map(perm_b, perm_f)
             bsp = dict(
-                edge_attr_bsp_fwd=block_plan.permute_edge_data(
-                    edge_attr, plan_f.pop("perm")),
-                edge_attr_bsp_bwd=block_plan.permute_edge_data(
-                    edge_attr, plan_b.pop("perm")),
+                edge_attr_bsp_fwd=block_plan.permute_edge_data(edge_attr,
+                                                               perm_f),
+                edge_attr_bsp_bwd=block_plan.permute_edge_data(edge_attr,
+                                                               perm_b),
                 bsp_fwd=plan_f, bsp_bwd=plan_b)
 
     pack = {}

@@ -10,12 +10,14 @@ out_degree(src) + 1; out = sum_{j->i} deg^-1/2[src] deg^-1/2[dst]
 relu(x_j + edge_emb) + relu(x + root_emb)/deg. On the strided layout
 (NCI1) the aggregation runs in kernel K6 over each graph's edge slots, with
 the degree and the norm from per-graph reductions and gathers
-(``dense_mp``). On the flat layout (code2) it runs in kernel K8 over the
+(``dense_mp``); NCI1's zero edge embeddings are not made (K6's emb-less
+instance). On the flat layout (code2) it runs in kernel K8 over the
 batch's block plans when it carries them and the model's switch is on
 (``ops/block_plan.py:set_block_spmm``; the edge encoder then encodes the
-attributes in the dst-major plan's chunk order, and in the src-major
-plan's too where a gradient is wanted, the norm is gathered per slot, and
-K8 walks the batch's ``slot_order``), else in kernel K7 over the
+attributes in the dst-major plan's chunk order, the norm is gathered per
+slot, K8 walks the batch's ``slot_order`` and, where a gradient is
+wanted, its dx the batch's ``src_slot_order``, reading the same emb and
+norm rows), else in kernel K7 over the
 dst-sorted edges (it walks the batch's ``dst_order`` and its backward the
 batch's ``src_order``, each made once and shared by every layer): the JAX
 package's precedence, strided, then blocked, then flat. The degree, the norm and
@@ -30,9 +32,10 @@ from torch import nn
 from ..ops import block_plan, dense_mp
 from ..ops.kernels import (blocked_gather_message_scatter,
                            blocked_gather_message_scatter_plain, dst_order,
-                           slot_order, spmm, spmm_plain, src_order)
+                           slot_order, spmm, spmm_plain, src_order,
+                           src_slot_order)
 from ..ops.segment import out_degree
-from .encoders import BondEncoder
+from .encoders import BondEncoder, ZeroEdgeEncoder
 from .init import normal_
 from .norm import MaskedBatchNorm
 
@@ -119,26 +122,28 @@ class GCNConv(nn.Module):
     def _blocked(self, batch, x: torch.Tensor, dis: torch.Tensor):
         """The aggregation [N, d] in K8 over the batch's block plans: the
         edge encoder on the dst-major plan's chunk-ordered attributes and
-        the norm per slot; the src-major plan's (which only K8's dx reads)
-        only where autograd will want a gradient of x or of the encoder."""
+        the norm per slot, once. Where autograd will want a gradient of x
+        or of the encoder, K8's dx walks the src-major plan's
+        ``src_slot_order`` and reads those same rows through its
+        ``fwd_slot``: no src-major copy is made."""
         emb_f = self.edge_encoder(batch.edge_attr_bsp_fwd).to(x.dtype)
         w_f = bsp_slot_weight(batch.bsp_fwd, dis, False)
-        emb_b = w_b = plan_b = None
-        if torch.is_grad_enabled() and (x.requires_grad
-                                        or emb_f.requires_grad):
-            emb_b = self.edge_encoder(batch.edge_attr_bsp_bwd).to(x.dtype)
-            w_b = bsp_slot_weight(batch.bsp_bwd, dis, True)
-            plan_b = batch.bsp_bwd
-        args = (x, emb_f, emb_b, batch.bsp_fwd, plan_b, w_f, w_b, "relu_add")
+        grad = torch.is_grad_enabled() and (x.requires_grad
+                                            or emb_f.requires_grad)
+        plan_b = batch.bsp_bwd if grad else None
+        args = (x, emb_f, None, batch.bsp_fwd, plan_b, w_f, None, "relu_add")
         if self.use_kernel:
-            return blocked_gather_message_scatter(*args,
-                                                  rows=slot_order(batch))
+            return blocked_gather_message_scatter(
+                *args, rows=slot_order(batch),
+                rows_bwd=src_slot_order(batch) if grad else None)
         return blocked_gather_message_scatter_plain(*args)
 
     def _strided(self, batch, x: torch.Tensor):
         """(aggregation [N, d] in K6, 1/deg [N, 1]) on the strided layout:
         the degree is a per-graph count over the src slots, the per-edge
-        norm gathers deg^-1/2 at src and dst (zero on masked slots)."""
+        norm gathers deg^-1/2 at src and dst (zero on masked slots). A
+        ``ZeroEdgeEncoder``'s zeros are not made: K6 takes None, its
+        emb-less instance."""
         G, Sm = batch.num_graph_slots, batch.node_stride
         src, dst = batch.edge_src_dense, batch.edge_dst_dense
         emask = batch.edge_mask_dense
@@ -146,7 +151,8 @@ class GCNConv(nn.Module):
         dis = (deg ** -0.5)[..., None]
         norm = (dense_mp.dense_gather(dis, src, emask)
                 * dense_mp.dense_gather(dis, dst, emask))[..., 0]
-        emb = self.edge_encoder(batch.edge_attr_dense).to(x.dtype)
+        emb = (None if isinstance(self.edge_encoder, ZeroEdgeEncoder)
+               else self.edge_encoder(batch.edge_attr_dense).to(x.dtype))
         agg = dense_mp.gather_message_scatter_dense(
             x, batch, emb, norm, kernel=self.use_kernel)
         return agg, (1.0 / deg).reshape(G * Sm, 1)

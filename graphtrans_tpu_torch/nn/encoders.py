@@ -106,7 +106,9 @@ class LinearNodeEncoder(nn.Module):
 class ZeroEdgeEncoder(nn.Module):
     """The edge "encoder" of datasets without edge features: zeros
     ``[..., emb_dim]`` from the attribute tensor's leading shape, so a
-    message is ``relu(x_j)`` as in the reference TU path. No parameters."""
+    message is ``relu(x_j)`` as in the reference TU path. No parameters.
+    ``GCNConv`` on the strided layout does not call it: K6 takes None for
+    these zeros, so the layer makes no ``[G, Em, emb_dim]`` tensor."""
 
     def __init__(self, emb_dim: int):
         super().__init__()

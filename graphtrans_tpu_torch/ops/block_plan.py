@@ -2,8 +2,9 @@
 copied from ``graphtrans_tpu/ops/block_plan.py`` (``NB``, ``EB``,
 ``chunk_capacity``, ``build_block_plan``, ``permute_edge_data``; the
 scatter-free and ELL plans there have no kernel and stay behind), the
-per-model switch that turns the route on, and ``slot_rows``, the node rows
-of a plan's slots on the device.
+per-model switch that turns the route on, ``slot_rows``, the node rows
+of a plan's slots on the device, and ``slot_map``, which matches the slots
+of the two plans.
 
 The node axis is cut into blocks of ``NB`` rows. A plan groups the valid
 edges by (major block, minor block) pairs and cuts each pair's run into
@@ -19,6 +20,9 @@ Plan arrays (C = chunk capacity):
   mask    [C, EB] f32  1.0 on a real edge slot
   perm    [C*EB] i64   edge index per slot (-1 pad), host only: it puts
                        per-edge data in chunk order (``permute_edge_data``)
+The port's ``collate`` keeps one more array on the src-major plan:
+  fwd_slot [C*EB] i32  the dst-major plan's slot of the same edge (-1 pad;
+                       ``slot_map``), K8-dx's way to the dst-major emb copy
 Pad chunks past the last real one revisit the last major block with
 ``is_first`` 0 and an all-zero mask.
 
@@ -127,6 +131,23 @@ def build_block_plan(src, dst, emask, n_slots: int, chunks_cap: int,
         blk_in[n_chunks:] = blk_in[n_chunks - 1]
     return {"blk_out": blk_out, "blk_in": blk_in, "is_first": is_first,
             "loc_out": loc_out, "loc_in": loc_in, "mask": mask, "perm": perm}
+
+
+def slot_map(perm_from, perm_to):
+    """For each slot of one plan (``perm_from``, its slot -> edge map), the
+    slot of another plan of the same edges (``perm_to``) that holds the
+    same edge: int32 [C*EB], -1 on pad slots. ``collate`` keeps the
+    src-major plan's as its ``fwd_slot``, through which K8-dx reads the
+    dst-major plan's emb and weight rows."""
+    perm_from, perm_to = np.asarray(perm_from), np.asarray(perm_to)
+    size = int(max(perm_from.max(initial=-1), perm_to.max(initial=-1))) + 1
+    at = np.full(size, -1, np.int64)
+    real = perm_to >= 0
+    at[perm_to[real]] = np.flatnonzero(real)
+    out = np.full(perm_from.shape[0], -1, np.int32)
+    real = perm_from >= 0
+    out[real] = at[perm_from[real]]
+    return out
 
 
 def permute_edge_data(arr, perm, fill=0):

@@ -72,20 +72,22 @@ def dense_gather(x_dense: torch.Tensor, edge_idx: torch.Tensor,
 
 
 def gather_message_scatter_dense(
-        x: torch.Tensor, batch, edge_emb: torch.Tensor,
+        x: torch.Tensor, batch, edge_emb: Optional[torch.Tensor],
         edge_weight: Optional[torch.Tensor] = None,
         kernel: bool = True) -> torch.Tensor:
     """Flat-in / flat-out ``relu_add`` aggregation over the strided layout:
     x [N = G*Sm, d], edge_emb [G, Em, d] (the encoder applied to
-    ``edge_attr_dense``), edge_weight [G, Em] or None -> [N, d], the sum of
-    ``w * relu(x_src + emb)`` in K6. ``kernel=False`` takes K6's plain
-    version on any device."""
+    ``edge_attr_dense``) or None (zero embeddings: none is made),
+    edge_weight [G, Em] or None -> [N, d], the sum of ``w * relu(x_src +
+    emb)`` in K6. ``kernel=False`` takes K6's plain version on any
+    device."""
     Sm = batch.node_stride
     G = batch.num_graph_slots
     d = x.shape[-1]
     fn = dense_agg if kernel else dense_agg_plain
+    emb = None if edge_emb is None else edge_emb.contiguous()
     out = fn(x.reshape(G, Sm, d), batch.edge_src_dense, batch.edge_dst_dense,
-             batch.edge_mask_dense, edge_emb.contiguous(), edge_weight)
+             batch.edge_mask_dense, emb, edge_weight)
     return out.reshape(G * Sm, d)
 
 

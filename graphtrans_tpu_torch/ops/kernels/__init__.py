@@ -27,7 +27,8 @@ from .block_spmm import (SlotOrder, blocked_gather_message_scatter,
                          blocked_gather_message_scatter_demb_plain,
                          blocked_gather_message_scatter_dx,
                          blocked_gather_message_scatter_dx_plain,
-                         blocked_gather_message_scatter_plain, slot_order)
+                         blocked_gather_message_scatter_plain, slot_order,
+                         src_slot_order)
 from .dense_agg import (dense_agg, dense_agg_bwd, dense_agg_bwd_plain,
                         dense_agg_plain)
 from .dropout import byte_dropout, byte_dropout_plain
@@ -99,6 +100,7 @@ __all__ = ["attention_dense", "attention_dense_bwd",
            "segment_sum_mxu_plain", "set_kernels", "slot_order", "SlotOrder",
            "spmm",
            "spmm_bwd", "spmm_bwd_plain", "spmm_plain", "src_order",
+           "src_slot_order",
            "SrcOrder", "transformer_layer", "transformer_layer_bwd",
            "transformer_layer_bwd_plain", "transformer_layer_plain",
            "WRAPPERS"]

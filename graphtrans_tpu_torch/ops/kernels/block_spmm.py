@@ -15,10 +15,15 @@ w_bwd ``[C*EB]`` or None. A node no real slot reaches gets a zero row. The
 backward gives ``d_emb[slot] = w * 1[x[min] + emb_fwd > 0] * g[maj]``
 over the dst-major plan (0 on slots that are not real: the edge
 encoder's bias gradient sums every slot) and dx over the src-major plan,
-whose major rows are the srcs: ``dx[src] = sum w * 1[x[src] + emb_bwd >
-0] * g[dst]``. emb_bwd gets no gradient (emb_fwd carries the whole d_emb;
-both copies come from one encoder), and w none: the GCN norm is
-structural, and a call whose w requires a gradient raises.
+whose major rows are the srcs: ``dx[src] = sum w * 1[x[src] + emb > 0] *
+g[dst]``, emb and w the src-major copies where they are given (as the JAX
+kernel reads them) and else the dst-major ones, read through the
+src-major plan's ``fwd_slot`` (each slot's dst-major slot, from
+``collate``): both copies come from one encoder applied to the same
+attribute row, and both weights are ``vals[src] * vals[dst]``, so the
+values are the same. emb_bwd gets no gradient (emb_fwd carries the whole
+d_emb), and w none: the GCN norm is structural, and a call whose w
+requires a gradient raises.
 
 Replaces ``graphtrans_tpu/ops/pallas/block_spmm.py:
 blocked_gather_message_scatter`` (``_fwd_kernel``, ``_demb_kernel``,
@@ -31,7 +36,7 @@ What bounds it on the H100: memory. Per real slot the forward reads a row
 of emb and gathers a row of x, and writes the N rows once; at the
 512-graph code2 batch (N = 65536, d = 300, 171762 real slots of 1245184)
 that is about 0.36 GB. d_emb must write all C*EB rows (1.49 GB there), dx
-reads like the forward.
+reads like the forward and g besides.
 
 Forward (``csrc/spmm.cu:blocked_fwd_kernel``, K7's forward body): the
 batch's ``SlotOrder`` (``slot_order(batch)``, made once a batch and shared
@@ -47,17 +52,19 @@ plain version's ``index_add_`` adds them on the CPU. No shared
 accumulator, no atomics, no barrier; nothing launched before the kernel
 but the order, once a batch.
 
-d_emb and dx (``csrc/block_spmm.cu``): dx, one block per (major block,
-128 channels) walks its run of chunks (``run`` from
-``searchsorted(blk_out)``), skips the chunks with no real slot (``live``,
-a count per chunk; the pad chunks at the plan's tail all revisit the last
-block) 128 at a time, lists each chunk's real slots in slot order, and
-adds their messages into a 128 x 128 sum in shared memory, one thread per
-channel: no atomics, a fixed order. d_emb, one warp per slot, writes zero
-rows for the slots that are not real. The wrapper computes ``run`` and
-``live`` on the card (two small torch ops a launch) and allocates with
-``torch.empty``. Without a gradient only the dst-major plan is read: the
-src-major plan, its emb copy and weight may be None.
+dx (``csrc/spmm.cu:blocked_dx_kernel``, K7-bwd's walk, dx only): a
+``SlotOrder`` of the src-major plan, made once a batch where a gradient is
+wanted (``src_slot_order(batch)``, whose positions name the dst-major
+slot of their edge through ``fwd_slot``, so that the training step makes
+no src-major emb copy and no src-major weight). A warp walks a run of
+whole source rows, reads g[dst] and emb and w through each position's
+slot, loads x of a row once, sums dx in registers in slot order and
+writes each row once, zero for a row no real slot leaves: the order of
+terms of the parent's shared sums, so the same bits.
+
+d_emb (``csrc/block_spmm.cu``), one warp per slot, writes zero rows for
+the slots that are not real. Without a gradient only the dst-major plan
+is read: the src-major plan, its emb copy and weight may be None.
 """
 
 from __future__ import annotations
@@ -132,10 +139,17 @@ def blocked_gather_message_scatter_demb_plain(x, g, emb_fwd, plan_fwd,
 
 def blocked_gather_message_scatter_dx_plain(x, g, emb_bwd, plan_bwd,
                                             w_bwd=None,
-                                            message: str = "relu_add"):
+                                            message: str = "relu_add",
+                                            slot=None):
     """Plain version of the dx kernel (src-major plan: major rows are the
-    srcs, minor rows the dsts), [N, d]."""
+    srcs, minor rows the dsts), [N, d]. ``slot`` [C*EB] (where given) is
+    the row of emb_bwd and w_bwd each slot reads: with the plan's
+    ``fwd_slot``, they are the dst-major copies."""
     relu = _message(message)
+    if slot is not None:
+        at = slot.long().clamp(min=0)            # pad slots: masked below
+        emb_bwd = emb_bwd.index_select(0, at)
+        w_bwd = None if w_bwd is None else w_bwd.index_select(0, at)
     src, dst = slot_rows(plan_bwd)
     gate = g.index_select(0, dst)
     if w_bwd is not None:
@@ -181,20 +195,24 @@ def _refuse_weight_grad(w_fwd, w_bwd):
 
 
 class SlotOrder:
-    """The walk order of K8's forward over a dst-major plan: ``get()``
-    gives (``slot``, ``src``, ``dst``, ``ptr``), int32 on the plan's
-    device: positions ``[ptr[i], ptr[i+1])`` hold the real slots whose
-    major row (the edge's dst) is i, in slot order, position k the slot
-    ``slot[k]`` of the edge ``src[k] -> dst[k]``; the slots that are not
-    real sort past row N-1 and are in no row. ``runs()`` cuts the rows into
-    runs (``spmm.edge_runs``; ``num_edges``, at least the real slots and
-    known on the host, sets how many: a batch's edge slots). One stable
-    sort, made on the device at first use, then shared: one per batch
-    serves every layer."""
+    """The walk order of a block plan's real slots: ``get()`` gives
+    (``slot``, ``src``, ``dst``, ``ptr``), int32 on the plan's device:
+    positions ``[ptr[i], ptr[i+1])`` hold the real slots whose major row
+    is i (the edge's dst in a dst-major plan, K8's forward; its src in a
+    src-major one, K8-dx), in slot order, position k the edge between
+    minor row ``src[k]`` and major row ``dst[k]`` and the slot ``slot[k]``,
+    or with ``slot_map`` (``[C*EB]``) ``slot_map`` of it: the slot of the
+    same edge in another plan, whose emb and weight rows the kernel then
+    reads. The slots that are not real sort past row N-1 and are in no
+    row. ``runs()`` cuts the rows into runs (``spmm.edge_runs``;
+    ``num_edges``, at least the real slots and known on the host, sets how
+    many: a batch's edge slots). One stable sort, made on the device at
+    first use, then shared: one per batch serves every layer."""
 
     def __init__(self, plan: dict, num_nodes: int,
-                 num_edges: Optional[int] = None):
-        self.plan, self.num_nodes = plan, num_nodes
+                 num_edges: Optional[int] = None,
+                 slot_map: Optional[torch.Tensor] = None):
+        self.plan, self.num_nodes, self.slot_map = plan, num_nodes, slot_map
         self.num_slots = plan["mask"].numel()
         self.num_edges = self.num_slots if num_edges is None else num_edges
         self._order = self._runs = None
@@ -210,7 +228,9 @@ class SlotOrder:
             ptr = torch.searchsorted(
                 dst, spmm._arange(N + 1, 1, dst.dtype, dst.device),
                 out_int32=True)
-            self._order = (slot.to(torch.int32), src, dst, ptr)
+            slot = (slot.to(torch.int32) if self.slot_map is None
+                    else self.slot_map.index_select(0, slot))
+            self._order = (slot, src, dst, ptr)
         return self._order
 
     def runs(self) -> torch.Tensor:
@@ -231,15 +251,18 @@ def slot_order(batch) -> SlotOrder:
     return order
 
 
-def _walk_args(plan, nblk: int):
-    """run [nblk + 1] (each major block's first chunk) and live [C] (real
-    slots per chunk), on the card."""
-    blk_out = plan["blk_out"]
-    run = torch.searchsorted(
-        blk_out, torch.arange(nblk + 1, dtype=torch.int32,
-                              device=blk_out.device), out_int32=True)
-    live = (plan["mask"] > 0).sum(1, dtype=torch.int32)
-    return run, live
+def src_slot_order(batch) -> SlotOrder:
+    """The ``SlotOrder`` of a batch's src-major plan that K8-dx walks, its
+    positions naming the dst-major slot of their edge (``bsp_bwd
+    ["fwd_slot"]``), so that dx reads emb_fwd and w_fwd: made at the first
+    call and kept on the batch, as ``slot_order``."""
+    order = batch.__dict__.get("_src_slot_order")
+    if order is None:
+        order = SlotOrder(batch.bsp_bwd, batch.num_node_slots,
+                          batch.edge_src.shape[0],
+                          slot_map=batch.bsp_bwd["fwd_slot"])
+        object.__setattr__(batch, "_src_slot_order", order)
+    return order
 
 
 def _ptr(t):
@@ -255,9 +278,10 @@ class _Blocked(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, emb_fwd, emb_bwd, w_fwd, w_bwd, plan_fwd, plan_bwd,
-                message, rows):
+                message, rows, rows_bwd):
         ctx.save_for_backward(x, emb_fwd, emb_bwd, w_fwd, w_bwd)
         ctx.plans, ctx.message = (plan_fwd, plan_bwd), message
+        ctx.rows_bwd = rows_bwd
         return _forward(x, emb_fwd, w_fwd, message, rows)
 
     @staticmethod
@@ -270,9 +294,11 @@ class _Blocked(torch.autograd.Function):
             demb = blocked_gather_message_scatter_demb(
                 x, g, emb_fwd, plan_fwd, w_fwd, ctx.message)
         if ctx.needs_input_grad[0]:
+            emb, w = (emb_fwd, w_fwd) if emb_bwd is None else (emb_bwd,
+                                                                w_bwd)
             dx = blocked_gather_message_scatter_dx(
-                x, g, emb_bwd, plan_bwd, w_bwd, ctx.message)
-        return dx, demb, None, None, None, None, None, None, None
+                x, g, emb, plan_bwd, w, ctx.message, rows=ctx.rows_bwd)
+        return dx, demb, None, None, None, None, None, None, None, None
 
 
 def _forward(x, emb_fwd, w_fwd, message, rows: SlotOrder):
@@ -292,12 +318,20 @@ def _forward(x, emb_fwd, w_fwd, message, rows: SlotOrder):
     return out
 
 
+def _same_nodes(rows: SlotOrder, x, slots: int, what: str):
+    if rows.num_nodes != x.shape[0] or rows.num_slots != slots:
+        raise ValueError(f"block_spmm: {what} is the order of "
+                         f"{rows.num_nodes} nodes and {rows.num_slots} "
+                         f"slots, the call's of {x.shape[0]} and {slots}")
+
+
 def blocked_gather_message_scatter(
         x: torch.Tensor, emb_fwd: torch.Tensor,
         emb_bwd: Optional[torch.Tensor], plan_fwd: dict,
         plan_bwd: Optional[dict], w_fwd: Optional[torch.Tensor] = None,
         w_bwd: Optional[torch.Tensor] = None, message: str = "relu_add",
-        rows: Optional[SlotOrder] = None) -> torch.Tensor:
+        rows: Optional[SlotOrder] = None,
+        rows_bwd: Optional[SlotOrder] = None) -> torch.Tensor:
     """K8 forward, with the JAX signature. CPU tensors take the plain
     version; CUDA tensors launch the kernel or raise. ``plan_fwd`` and
     ``plan_bwd`` are the batch's dst- and src-major plans as tensors on
@@ -306,20 +340,30 @@ def blocked_gather_message_scatter(
     ``plan_fwd`` (``slot_order(batch)`` for a batch's, so that a call
     launches nothing before the kernel); without it the call makes one.
     Where x or emb_fwd wants a gradient the result carries the d_emb and
-    dx kernels, and the src-major plan, its emb copy and (with w_fwd) its
-    weight are needed; without a gradient they may be None."""
+    dx kernels, and the src-major plan is needed: dx walks ``rows_bwd``, a
+    ``SlotOrder`` of it, reading emb_bwd and w_bwd at each position's own
+    slot where emb_bwd is given, else emb_fwd and w_fwd through the plan's
+    ``fwd_slot`` (``src_slot_order(batch)``, made once a batch); without
+    it the call makes one. Without a gradient the src-major plan, its emb
+    copy and weight may be None."""
     _message(message)
     grad = torch.is_grad_enabled() and (x.requires_grad
                                         or emb_fwd.requires_grad)
-    if (emb_bwd is None) != (plan_bwd is None) or (emb_bwd is None
-                                                   and w_bwd is not None):
-        raise ValueError("block_spmm: give the src-major plan, its emb "
-                         "copy and its weight together, or none of them")
+    if ((emb_bwd is not None and plan_bwd is None)
+            or (emb_bwd is None and w_bwd is not None)):
+        raise ValueError("block_spmm: give the src-major emb copy with its "
+                         "plan and its weight with the copy, together")
     if emb_bwd is not None and (w_fwd is None) != (w_bwd is None):
         raise ValueError("block_spmm: give both slot weights or neither")
-    if grad and emb_bwd is None:
+    if grad and (plan_bwd is None or (emb_bwd is None
+                                      and "fwd_slot" not in plan_bwd)):
         raise ValueError("block_spmm: a gradient needs the src-major plan, "
-                         "its emb copy and weight (dx walks them)")
+                         "with its fwd_slot or with its emb copy and "
+                         "weight (dx walks them)")
+    if grad and rows_bwd is not None and (
+            (rows_bwd.slot_map is None) != (emb_bwd is not None)):
+        raise ValueError("block_spmm: rows_bwd names the dst-major slots "
+                         "exactly where emb_bwd is not given")
     _refuse_weight_grad(w_fwd, w_bwd)
     if x.device.type == "cpu":
         return blocked_gather_message_scatter_plain(
@@ -332,14 +376,14 @@ def blocked_gather_message_scatter(
     _check(x, pairs)
     if rows is None:
         rows = SlotOrder(plan_fwd, x.shape[0])
-    if rows.num_nodes != x.shape[0] or rows.num_slots != emb_fwd.shape[0]:
-        raise ValueError(f"block_spmm: rows is the order of {rows.num_nodes} "
-                         f"nodes and {rows.num_slots} slots, the call's of "
-                         f"{x.shape[0]} and {emb_fwd.shape[0]}")
-    if grad:
-        return _Blocked.apply(x, emb_fwd, emb_bwd, w_fwd, w_bwd, plan_fwd,
-                              plan_bwd, message, rows)
-    return _forward(x, emb_fwd, w_fwd, message, rows)
+    _same_nodes(rows, x, emb_fwd.shape[0], "rows")
+    if not grad:
+        return _forward(x, emb_fwd, w_fwd, message, rows)
+    if rows_bwd is None:
+        rows_bwd = SlotOrder(plan_bwd, x.shape[0], slot_map=(
+            None if emb_bwd is not None else plan_bwd["fwd_slot"]))
+    return _Blocked.apply(x, emb_fwd, emb_bwd, w_fwd, w_bwd, plan_fwd,
+                          plan_bwd, message, rows, rows_bwd)
 
 
 blocked_gather_message_scatter.launches = 0
@@ -375,29 +419,41 @@ blocked_gather_message_scatter_demb.launches = 0
 
 
 def blocked_gather_message_scatter_dx(
-        x: torch.Tensor, g: torch.Tensor, emb_bwd: torch.Tensor,
-        plan_bwd: dict, w_bwd: Optional[torch.Tensor] = None,
-        message: str = "relu_add") -> torch.Tensor:
+        x: torch.Tensor, g: torch.Tensor, emb: torch.Tensor,
+        plan_bwd: dict, w: Optional[torch.Tensor] = None,
+        message: str = "relu_add",
+        rows: Optional[SlotOrder] = None) -> torch.Tensor:
     """K8's dx [N, d] for the cotangent g of its forward, over the
-    src-major plan. CPU tensors take the plain version; CUDA tensors
-    launch the kernel or raise."""
+    src-major plan. The kernel walks ``rows``, a ``SlotOrder`` of
+    ``plan_bwd``, and reads emb [C*EB, d] and w [C*EB] at the slot each
+    position names: its own (``SlotOrder(plan_bwd, N)``, made where
+    ``rows`` is None: emb and w are the src-major copies, as the JAX
+    kernel reads them) or, with the order's ``slot_map`` (``fwd_slot``,
+    ``src_slot_order(batch)``), the dst-major plan's: emb_fwd and w_fwd.
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
     relu = _message(message)
     if x.device.type == "cpu":
         return blocked_gather_message_scatter_dx_plain(
-            x, g, emb_bwd, plan_bwd, w_bwd, message)
+            x, g, emb, plan_bwd, w, message,
+            None if rows is None else rows.slot_map)
     if x.device.type != "cuda":
         raise ValueError(f"block_spmm: unsupported device {x.device}")
-    _check(x, [(emb_bwd, plan_bwd, w_bwd)], g)
+    _check(x, [(emb, plan_bwd, w)], g)
     N, d = x.shape
+    if rows is None:
+        rows = SlotOrder(plan_bwd, N)
+    _same_nodes(rows, x, emb.shape[0], "rows")
     dx = torch.empty_like(x)
-    run, live = _walk_args(plan_bwd, N // NB)
-    lib = _load()
-    err = lib.block_spmm_dx(
-        *(_ptr(t) for t in (x, g, emb_bwd, plan_bwd["blk_in"],
-                            plan_bwd["loc_out"], plan_bwd["loc_in"],
-                            plan_bwd["mask"], w_bwd, run, live, dx)),
-        N // NB, d, int(relu), _stream(x))
-    _build.check(lib, err, "block_spmm_dx")
+    slot, minor, major, ptr = rows.get()
+    rptr = rows.runs()
+    vec, vpl, slices = spmm.bwd_launch(d, _build.align(x, emb, g))  # dx: new
+    lib = spmm._load()           # K8-dx runs on K7-bwd's walk
+    err = lib.blocked_dx(
+        *(_ptr(t) for t in (x, emb, minor, major, slot, ptr, rptr, w, g,
+                            dx)),
+        N, d, rptr.shape[0] - 1, int(relu), vec, vpl, slices, _stream(x))
+    _build.check(lib, err, "blocked_dx")
     blocked_gather_message_scatter_dx.launches += 1
     return dx
 
@@ -407,13 +463,9 @@ blocked_gather_message_scatter_dx.launches = 0
 
 def _load():
     lib = _build.load("block_spmm")
-    if lib.block_spmm_dx.argtypes is None:
-        lib.block_spmm_dx.argtypes = ([ctypes.c_void_p] * 11
-                                      + [ctypes.c_int] * 3
-                                      + [ctypes.c_void_p])
+    if lib.block_spmm_demb.argtypes is None:
         lib.block_spmm_demb.argtypes = ([ctypes.c_void_p] * 10
                                         + [ctypes.c_int] * 3
                                         + [ctypes.c_void_p])
-        for f in (lib.block_spmm_dx, lib.block_spmm_demb):
-            f.restype = ctypes.c_int
+        lib.block_spmm_demb.restype = ctypes.c_int
     return lib

@@ -63,6 +63,10 @@ d_emb row, sums dx of the current row in registers in perm order and
 writes each row's dx once (a row with no edge gets zeros). Masked edges
 are in no row, and separate warps write their zero d_emb rows, 16 bytes a
 lane.
+
+K8's forward and dx (``ops/kernels/block_spmm.py``) run on these two walks
+over the positions of a block plan's ``SlotOrder`` (``blocked_fwd``,
+``blocked_dx``).
 """
 
 from __future__ import annotations
@@ -418,4 +422,7 @@ def _load():
         lib.blocked_fwd.argtypes = ([ctypes.c_void_p] * 9
                                     + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         lib.blocked_fwd.restype = ctypes.c_int
+        lib.blocked_dx.argtypes = ([ctypes.c_void_p] * 10
+                                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        lib.blocked_dx.restype = ctypes.c_int
     return lib

@@ -1,10 +1,12 @@
 """The walks of CUDA kernels of the port, K7's forward
 (``csrc/spmm.cu:spmm_fwd_kernel``), K8's forward (``blocked_fwd_kernel``,
-the same body over a SlotOrder), K12 (``csrc/scatter_mxu.cu``) and K6-bwd
-(``csrc/dense_agg.cu:dense_agg_bwd_kernel``), emulated in numpy float32
-with the kernels' order of terms, so that the CPU tests can hold each walk
-against the JAX package and the card tests can hold each kernel to the
-walk's bits. Imports numpy only (the card's machine has no JAX)."""
+the same body over a SlotOrder), K8-dx (``blocked_dx_kernel``, K7-bwd's
+walk over a SlotOrder of the src-major plan), K12
+(``csrc/scatter_mxu.cu``), K6 and K6-bwd (``csrc/dense_agg.cu:
+dense_agg_fwd_kernel``, ``dense_agg_bwd_kernel``), emulated in numpy
+float32 with the kernels' order of terms, so that the CPU tests can hold
+each walk against the JAX package and the card tests can hold each kernel
+to the walk's bits. Imports numpy only (the card's machine has no JAX)."""
 
 import numpy as np
 
@@ -84,12 +86,78 @@ def k8_fwd_walk(x, emb, w, relu, order):
                        _Positions(order))
 
 
+def k8_dx_walk(x, g, emb, w, relu, order):
+    """K8-dx as the kernel runs it: each run of ``order.runs()`` walked by
+    one warp over the positions of ``order`` (a SlotOrder of the src-major
+    plan), every row summed from 0 in slot order, position k adding
+    g[src[k]] * w[slot[k]] (rounded; 0 where x[dst[k]] + emb[slot[k]] <= 0
+    under relu), where src and dst are the order's minor and major rows
+    (the edge's dst and src) and ``w`` [*] or None; every row written once,
+    zero where no real slot leaves it. Returns dx and how many times each
+    row was written."""
+    slot, minor, major, ptr = (t.numpy() for t in order.get())
+    rptr = order.runs().numpy()
+    N, d = x.shape
+    dx = np.full((N, d), np.nan, F32)
+    writes = np.zeros(N, int)
+    for r in range(len(rptr) - 1):
+        r_lo, r_hi = rptr[r], rptr[r + 1]
+        row, acc = r_lo, np.zeros(d, F32)
+        for k in range(ptr[r_lo], ptr[r_hi]):
+            while row < major[k]:
+                dx[row], acc = acc, np.zeros(d, F32)
+                writes[row] += 1
+                row += 1
+            s = slot[k]
+            m = g[minor[k]] * (F32(1) if w is None else F32(w[s]))
+            if relu:
+                m = np.where(x[major[k]] + emb[s] > 0, m, F32(0))
+            acc = acc + m
+        while row < r_hi:
+            dx[row], acc = acc, np.zeros(d, F32)
+            writes[row] += 1
+            row += 1
+    return dx, writes
+
+
+def k6_fwd_walk(x, src, dst, emask, emb, w, relu):
+    """K6's forward as the kernel runs it: per graph the valid slots sorted
+    by (dst, slot), each row's m = x[src] (+ emb, where ``emb`` is not
+    None; relu under relu) times w (rounded) summed from 0 in that order,
+    every row written once (zero where no valid edge reaches it). ``w``
+    [G, Em] or None. Returns out [G, Sm, d] and how many times each row
+    was written."""
+    G, Sm, d = x.shape
+    out = np.full((G, Sm, d), np.nan, F32)
+    writes = np.zeros((G, Sm), int)
+    for g in range(G):
+        valid = np.nonzero(emask[g])[0]
+        row, acc = 0, np.zeros(d, F32)
+        for e in sorted(valid, key=lambda e: (dst[g, e], e)):
+            while row < dst[g, e]:
+                out[g, row], acc = acc, np.zeros(d, F32)
+                writes[g, row] += 1
+                row += 1
+            m = x[g, src[g, e]]
+            if emb is not None:
+                m = m + emb[g, e]
+            if relu:
+                m = np.maximum(m, F32(0))
+            acc = acc + m * (F32(1) if w is None else F32(w[g, e]))
+        while row < Sm:
+            out[g, row], acc = acc, np.zeros(d, F32)
+            writes[g, row] += 1
+            row += 1
+    return out, writes
+
+
 def k6_bwd_walk(x, src, dst, emask, emb, w, gout, relu):
     """K6-bwd's dx as the kernel runs it: per graph the valid slots sorted
     by (src, slot), each row's dmsg = gout[dst] * w (rounded; 0 where x[src]
     + emb <= 0 under relu) summed from 0 in that order, every row written
-    once (zero where no valid edge leaves it). ``w`` [G, Em] or None.
-    Returns dx [G, Sm, d] and how many times each row was written."""
+    once (zero where no valid edge leaves it). ``w`` [G, Em] or None,
+    ``emb`` [G, Em, d] or None (zero embeddings). Returns dx [G, Sm, d]
+    and how many times each row was written."""
     G, Sm, d = x.shape
     dx = np.full((G, Sm, d), np.nan, F32)
     writes = np.zeros((G, Sm), int)
@@ -103,7 +171,8 @@ def k6_bwd_walk(x, src, dst, emask, emb, w, gout, relu):
                 row += 1
             dm = gout[g, dst[g, e]] * (F32(1) if w is None else F32(w[g, e]))
             if relu:
-                dm = np.where(x[g, row] + emb[g, e] > 0, dm, F32(0))
+                pre = x[g, row] if emb is None else x[g, row] + emb[g, e]
+                dm = np.where(pre > 0, dm, F32(0))
             acc = acc + dm
         while row < Sm:
             dx[g, row], acc = acc, np.zeros(d, F32)

@@ -124,7 +124,9 @@ def test_block_plan_and_permute_match_jax(major, case):
 @pytest.mark.parametrize("cap", ["fit", "overflow"])
 def test_collate_bsp_fields_match_jax(cap):
     """Every field of the port's collate with ``bsp_chunks_cap`` against
-    the JAX collate's (a cap of 3 chunks overflows: no plan, no copies)."""
+    the JAX collate's (a cap of 3 chunks overflows: no plan, no copies);
+    the src-major plan has one array more, ``fwd_slot``: each real slot's
+    dst-major slot of the same edge, -1 on pad slots."""
     graphs, _ = _graphs()
     kw = _bsp_kw(None if cap == "fit" else 3)
     want = jb.collate(graphs, *CAPS, **kw)
@@ -133,8 +135,10 @@ def test_collate_bsp_fields_match_jax(cap):
     for f in dataclasses.fields(got):
         a, b = getattr(want, f.name), getattr(got, f.name)
         if isinstance(b, dict):
-            assert sorted(a) == sorted(b), f.name
-            for k in b:
+            assert sorted(set(b) - set(a)) == (
+                ["fwd_slot"] if f.name == "bsp_bwd" else []), f.name
+            assert set(a) <= set(b), f.name
+            for k in a:
                 np.testing.assert_array_equal(np.asarray(a[k]), b[k])
                 assert np.asarray(a[k]).dtype == b[k].dtype, (f.name, k)
         elif isinstance(b, np.ndarray):
@@ -142,6 +146,15 @@ def test_collate_bsp_fields_match_jax(cap):
             assert np.asarray(a).dtype == b.dtype, f.name
         else:
             assert a == b or (a is None and b is None), f.name
+    if cap == "fit":
+        C = got.bsp_fwd["blk_out"].shape[0]
+        pf, pb = (jbp.build_block_plan(want.edge_src, want.edge_dst,
+                                       want.edge_mask, CAPS[1], C, major)
+                  ["perm"] for major in ("dst", "src"))
+        fwd_slot = got.bsp_bwd["fwd_slot"]
+        real = pb >= 0
+        assert fwd_slot.dtype == np.int32 and (fwd_slot[~real] == -1).all()
+        np.testing.assert_array_equal(pf[fwd_slot[real]], pb[real])
     # a node cap off the block size gets no plans
     assert tb.collate(graphs, 7, 650, 2048, **kw).bsp_fwd is None
 
@@ -149,9 +162,9 @@ def test_collate_bsp_fields_match_jax(cap):
 def test_batch_to_moves_the_plans():
     graphs, _ = _graphs()
     b = tb.collate(graphs, *CAPS, **_bsp_kw()).to("cpu")
-    for plan in (b.bsp_fwd, b.bsp_bwd):
-        assert sorted(plan) == ["blk_in", "blk_out", "is_first", "loc_in",
-                                "loc_out", "mask"]
+    for plan, more in ((b.bsp_fwd, []), (b.bsp_bwd, ["fwd_slot"])):
+        assert sorted(plan) == sorted(["blk_in", "blk_out", "is_first",
+                                       "loc_in", "loc_out", "mask"] + more)
         assert all(isinstance(v, torch.Tensor) for v in plan.values())
         assert plan["blk_out"].dtype == torch.int32
     assert isinstance(b.edge_attr_bsp_bwd, torch.Tensor)

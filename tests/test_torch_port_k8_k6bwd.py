@@ -250,7 +250,7 @@ def test_k6_bwd_geometry():
     geo = k6.bwd_geometry(4097, 48, 160, 128)
     assert (geo.vec, geo.vpl, geo.slices, geo.warps) == (4, 1, 1, 8)
     assert -(-4097 // geo.warps) == 513
-    assert geo.smem == k6.bwd_smem(160, 8) == 16 * 160 * 8
+    assert geo.smem == k6.warp_smem(160, 8) == 16 * 160 * 8
     assert geo.args() == (4, 1, 1, 8, geo.smem)
     assert k6.bwd_geometry(129, 48, 160, 128).warps == 1
     assert k6.bwd_geometry(264, 48, 160, 128).warps == 2
@@ -274,9 +274,10 @@ def _gcn_case(d=16):
 
 def test_blocked_gcn_encodes_the_src_major_plan_only_for_a_gradient():
     """The blocked GCN layer runs its edge encoder on the dst-major plan's
-    slots alone under no_grad and inference_mode, on both plans' where a
-    gradient of h or of the encoder is wanted, and gives the same output
-    either way."""
+    slots alone, once a call, under no_grad and inference_mode and where a
+    gradient of h or of the encoder is wanted (K8-dx reads those rows
+    through the src-major plan's ``fwd_slot``: the src-major plan is
+    encoded for no gradient), and gives the same output either way."""
     b, h, conv = _gcn_case()
     seen = []
     conv.edge_encoder.register_forward_hook(
@@ -295,8 +296,7 @@ def test_blocked_gcn_encodes_the_src_major_plan_only_for_a_gradient():
             p.requires_grad_(needs == "encoder")
         hl = h.clone().requires_grad_(needs == "h")
         out = conv(b, hl)
-        assert [a is b.edge_attr_bsp_fwd for a in seen] == [True, False]
-        assert seen[1] is b.edge_attr_bsp_bwd
+        assert [a is b.edge_attr_bsp_fwd for a in seen] == [True]
         torch.testing.assert_close(out.detach(), served, rtol=0, atol=0)
         out.square().sum().backward()
     for p in conv.edge_encoder.parameters():
@@ -331,8 +331,8 @@ def test_blocked_wrapper_needs_the_src_major_plan_for_a_gradient():
 
 
 def test_ctypes_signatures_match_the_c_entries(monkeypatch):
-    """The argtypes that dense_agg.py and block_spmm.py set have as many
-    entries as their C entries have parameters."""
+    """The argtypes that dense_agg.py, block_spmm.py and spmm.py set have
+    as many entries as their C entries have parameters."""
     import pathlib
     import re
     import types
@@ -342,14 +342,15 @@ def test_ctypes_signatures_match_the_c_entries(monkeypatch):
     k8 = importlib.import_module(
         "graphtrans_tpu_torch.ops.kernels.block_spmm")
     csrc = pathlib.Path(_build.SRC_DIR)
-    entries = {"dense_agg": ("dense_agg_fwd", "dense_agg_bwd",
-                             "dense_agg_smem"),
-               "block_spmm": ("block_spmm_dx", "block_spmm_demb")}
+    entries = {"dense_agg": ("dense_agg_fwd", "dense_agg_bwd"),
+               "block_spmm": ("block_spmm_demb",),
+               "spmm": ("spmm_fwd", "spmm_bwd", "blocked_fwd", "blocked_dx")}
+    modules = {"dense_agg": k6, "block_spmm": k8, "spmm": k7}
     for source, names in entries.items():
         fake = types.SimpleNamespace(**{
             n: types.SimpleNamespace(argtypes=None) for n in names})
         monkeypatch.setattr(_build, "load", lambda name, f=fake: f)
-        lib = (k6 if source == "dense_agg" else k8)._load()
+        lib = modules[source]._load()
         text = (csrc / f"{source}.cu").read_text()
         for n in names:
             sig = re.search(r'extern "C" \w+ ' + n + r"\((.*?)\)\s*\{", text,

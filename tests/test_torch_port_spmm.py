@@ -323,8 +323,8 @@ def _c_params(entry: str, source: str = "spmm.cu") -> int:
 
 def test_ctypes_signatures_match_the_c_entries(monkeypatch):
     """The argtypes that spmm.py and scatter_mxu.py set have as many
-    entries as K7's C entries (forward and backward, and K8's forward on
-    K7's body) and K12's have parameters."""
+    entries as K7's C entries (forward and backward, and K8's forward and
+    dx on K7's bodies) and K12's have parameters."""
     from graphtrans_tpu_torch.ops.kernels import _build
 
     k12 = importlib.import_module(
@@ -332,9 +332,10 @@ def test_ctypes_signatures_match_the_c_entries(monkeypatch):
     entry = lambda: types.SimpleNamespace(argtypes=None)  # noqa: E731
     monkeypatch.setattr(_build, "load", lambda name: types.SimpleNamespace(
         spmm_fwd=entry(), spmm_bwd=entry(), blocked_fwd=entry(),
-        segment_sum_mxu=entry(), segment_sum_span=lambda: k12.SPAN))
+        blocked_dx=entry(), segment_sum_mxu=entry(),
+        segment_sum_span=lambda: k12.SPAN))
     lib = k7._load()
-    for name in ("spmm_fwd", "spmm_bwd", "blocked_fwd"):
+    for name in ("spmm_fwd", "spmm_bwd", "blocked_fwd", "blocked_dx"):
         assert len(getattr(lib, name).argtypes) == _c_params(name), name
     lib = k12._load()
     assert len(lib.segment_sum_mxu.argtypes) == _c_params(
