@@ -1,6 +1,8 @@
 """Times the GraphTrans end-to-end cells for two checkouts of the port in
 turns on one NVIDIA card: molpcba train4096 (phase 6c of chip_smoke.py:
-K1, K1-bwd, K2, K2-bwd), code2 bench512's forward and its train step (7c,
+K1, K1-bwd, K2, K2-bwd) and, where the tree has phase 14, train4096 in
+bf16 beside f32 in turns (14d: the bf16 instances of the same kernels),
+code2 bench512's forward and its train step (7c,
 8c: K3, K3-bwd, K7, K7-bwd, K2), NCI1 bench4096's forward and train
 steps (12c: K6, K6-bwd, K2), and code2 bench512's forward and train step
 on the blocked route beside the K7 route (13c: K8, K8-demb, K8-dx).
@@ -39,7 +41,10 @@ def run_cells(root: str):
     smi = cs._smi()
     print(f"== {root}: built in {_build.build():.1f} s; {smi}; "
           f"{cs.CLOCKS}: {cs._smi(cs.CLOCKS)}", flush=True)
-    cs.phase6_step4096(device, mol_bench_batch(4096, cs.SEED), smi)
+    big = mol_bench_batch(4096, cs.SEED)
+    cs.phase6_step4096(device, big, smi)
+    if hasattr(cs, "phase14_cost"):
+        cs.phase14_cost(device, big, smi)
     bench, tasks = code2_bench_batch(cs.CODE2_BENCH, cs.SEED)
     cs.phase7_forward(device, bench, tasks, smi)
     cs.phase8_step512(device, bench, tasks, smi)

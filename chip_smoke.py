@@ -270,6 +270,7 @@ LAYERS = (
     ("attention_seg_bwd", "K2-bwd attention_seg_bwd"),
     ("multi_tensor", "AdamW (foreach)"),
     ("gemm", "matmul (Linear layers)"),
+    ("nvjet", "matmul (Linear layers)"),
     ("layer_norm", "LayerNorm"),
     ("index", "gather / index_select / index_add / index_copy"),
     ("embedding", "embedding lookup"),
@@ -595,7 +596,8 @@ def k2_bound(qkv, seg, nhead: int, tensor_cores: bool = False):
     hd = d3 // 3 // nhead
     _, counts = torch.unique(seg[seg >= 0], return_counts=True)
     pairs = int((counts.long() ** 2).sum().item())   # same-segment (q, k)
-    nbytes = (qkv.numel() * 4 + seg.numel() * 4 + R * W * (d3 // 3) * 4)
+    e = qkv.element_size()
+    nbytes = (qkv.numel() * e + seg.numel() * 4 + R * W * (d3 // 3) * e)
     return _fwd_bound(nbytes, pairs * nhead, hd, tensor_cores)
 
 
@@ -894,7 +896,8 @@ def _print_split(tag: str, what: str, prof, n: int, wall: float, smi: str,
 
 def _rel_err(got, want) -> float:
     """max |got - want| over max(1, max |want|): the error of a sum over
-    the whole batch, in proportion to its size."""
+    the whole batch, in proportion to its size (bf16 taken as float)."""
+    got, want = got.float(), want.float()
     return ((got - want).abs().max().item()
             / max(1.0, want.abs().max().item()))
 
@@ -964,9 +967,11 @@ def k1_bwd_bound(args, gout):
     G, Sm, d = x.shape
     F = attr.shape[1]
     nbytes = sum(t.numel() * t.element_size() for t in args if t is not None)
-    nbytes += gout.numel() * 4 + x.numel() * 4 + tbl.numel() * 4   # dx, dT
+    nbytes += (gout.numel() * gout.element_size()                  # gout, dx,
+               + x.numel() * x.element_size()                      # dT
+               + tbl.numel() * tbl.element_size())
     if w is not None:
-        nbytes += w.numel() * 4                                      # dw
+        nbytes += w.numel() * w.element_size()                       # dw
     # per valid edge and channel: pre (F adds), the dmsg product, the dx
     # and F dT accumulations (+ the dw product and sum); per node cell the
     # scale*gout prologue and the dscale product and sum
@@ -5173,6 +5178,345 @@ def phase13_cost(device, bench, num_tasks: int, smi: str):
     torch.cuda.empty_cache()
 
 
+# ---- phase 14: bf16 training of the molpcba GraphTrans -----------------------
+
+BF16 = torch.bfloat16
+BF16_TC_FLOPS = 989e12    # H100 SXM bf16 on the tensor cores, dense
+# bf16 kernels against their plain bf16 versions, of max(1, max |plain|):
+# outputs within two bf16 ulps at 1, gradients within four (two rounding
+# points each, sums in other orders on either side)
+BF16_OUT_TOL, BF16_GRAD_TOL = 7.8e-3, 1.6e-2
+# the bf16 step through the kernels against the plain versions: loss,
+# gradients of max(1, max |plain|) (the bound tests/test_torch_port_bf16.py
+# holds the step to against the JAX package)
+BF16_STEP_TOL = (2e-2, 5e-2)
+BF16_STEPS_EPOCHS = 3   # the snapshot's 192 train graphs: a step an epoch
+
+
+def _bf16(args):
+    """K1's arguments with x, the table and w in bf16 (scale stays f32)."""
+    x, src, dst, emask, attr, tbl, w, scale = args
+    return (x.to(BF16), src, dst, emask, attr, tbl.to(BF16),
+            None if w is None else w.to(BF16), scale)
+
+
+def check_k1_bf16(inp, gout):
+    """K1 and K1-bwd in bf16 against their plain bf16 versions, with w or
+    the GIN scale, and both for the backward: relative errors (fwd, bwd)."""
+    from graphtrans_tpu_torch.ops.kernels import (gin_agg, gin_agg_bwd,
+                                                  gin_agg_bwd_plain,
+                                                  gin_agg_plain)
+
+    f_err = b_err = 0.0
+    for with_w, with_scale in ((False, True), (True, False), (True, True)):
+        args = _bf16((inp["x"], inp["src"], inp["dst"], inp["emask"],
+                      inp["attr"], inp["tbl"], inp["w"] if with_w else None,
+                      inp["scale"] if with_scale else None))
+        got = gin_agg(*args)
+        grads = gin_agg_bwd(*args, gout)
+        torch.cuda.synchronize()
+        if got.dtype != BF16 or got[~inp["node_mask"]].any():
+            raise AssertionError("K1 bf16: not bf16, or padding rows not 0")
+        f_err = max(f_err, _rel_err(got, gin_agg_plain(*args)))
+        for name, g, w in zip(("dx", "dT", "dw", "dscale"), grads,
+                              gin_agg_bwd_plain(*args, gout)):
+            if g is None:
+                continue
+            if not torch.isfinite(g.float()).all() or g.dtype != w.dtype:
+                raise AssertionError(f"K1-bwd bf16: {name} not finite, or "
+                                     f"{g.dtype} against {w.dtype}")
+            b_err = max(b_err, _rel_err(g, w))
+    if f_err > BF16_OUT_TOL or b_err > BF16_GRAD_TOL:
+        raise AssertionError(f"K1 bf16 against its plain version: forward "
+                             f"{f_err} (<= {BF16_OUT_TOL}), backward {b_err} "
+                             f"(<= {BF16_GRAD_TOL})")
+    return f_err, b_err
+
+
+def check_k2_bf16(qkv, seg, nhead: int, gen):
+    """K2 and K2-bwd in bf16, at rate 0 and the training rate, against
+    their plain bf16 versions (the same masks): relative errors."""
+    from graphtrans_tpu_torch.ops.kernels import (attention_seg,
+                                                  attention_seg_bwd,
+                                                  attention_seg_bwd_plain,
+                                                  attention_seg_plain)
+    from graphtrans_tpu_torch.ops.kernels.attention_packed import (
+        attention_seg_with_stats)
+
+    f_err = b_err = 0.0
+    for rate, seed in ((0.0, 0), (DROPOUT, 24681357)):
+        out, m, l = attention_seg_with_stats(qkv, seg, nhead, rate, seed)
+        g = torch.randn(out.shape, generator=gen).to(qkv.device, BF16)
+        dqkv = attention_seg_bwd(qkv, seg, nhead, g, (out, m, l), rate, seed)
+        serve = attention_seg(qkv, seg, nhead) if rate == 0 else out
+        torch.cuda.synchronize()
+        if out.dtype != BF16 or dqkv.dtype != BF16:
+            raise AssertionError("K2 bf16: outputs are not bf16")
+        if out[seg < 0].any() or dqkv[seg < 0].any() or not torch.equal(
+                serve, out):
+            raise AssertionError("K2 bf16: padding tokens not 0, or the "
+                                 "serving launch differs from the training "
+                                 "one")
+        f_err = max(f_err, _rel_err(out, attention_seg_plain(qkv, seg, nhead,
+                                                         rate, seed)))
+        b_err = max(b_err, _rel_err(dqkv, attention_seg_bwd_plain(
+            qkv, seg, nhead, g, rate, seed)))
+    if f_err > BF16_OUT_TOL or b_err > BF16_GRAD_TOL:
+        raise AssertionError(f"K2 bf16 against its plain version: forward "
+                             f"{f_err} (<= {BF16_OUT_TOL}), backward {b_err} "
+                             f"(<= {BF16_GRAD_TOL})")
+    return f_err, b_err
+
+
+def k2_bf16_bwd_bound(qkv, seg, nhead: int):
+    """K2-bwd's bf16 instance reads qkv, seg, the cotangent and the
+    forward's m and l (not its out: delta is summed from the pairs) and
+    writes dqkv; the operations of k3_bwd_bound on the f32 SIMT units, as
+    the tile body computes them."""
+    R, W, d3 = qkv.shape
+    hd = d3 // 3 // nhead
+    _, counts = torch.unique(seg[seg >= 0], return_counts=True)
+    pairs = int((counts.long() ** 2).sum().item()) * nhead
+    e = qkv.element_size()
+    nbytes = (2 * qkv.numel() * e + seg.numel() * 4 + R * W * (d3 // 3) * e
+              + 2 * R * W * nhead * 4)
+    return _bound(nbytes, pairs * (10 * hd + 8))
+
+
+def phase14_kernels(device, d_gnn: int, d_model: int, nhead: int, big):
+    """(a) K1, K1-bwd, K2 and K2-bwd in bf16 against their plain bf16
+    versions at serve64 and bench4096, timed as the bf16 step calls them
+    (K1 with the GIN scale, K2 at the training rate) beside the f32
+    instance in turns, bound (bf16 bytes), plain version and, for K2 and
+    K2-bwd, SDPA in bf16 with the bool segment mask."""
+    from graphtrans_tpu_torch.data.loader import iterate_batches
+    from graphtrans_tpu_torch.data.mol import load_mol_splits
+    from graphtrans_tpu_torch.ops.kernels import (attention_seg_bwd, gin_agg,
+                                                  gin_agg_bwd, gin_agg_plain)
+    from graphtrans_tpu_torch.ops.kernels.attention_packed import (
+        attention_seg_plain, attention_seg_with_stats)
+    from graphtrans_tpu_torch.predict import serving_layout
+
+    gen = torch.Generator().manual_seed(SEED + 14)
+    splits, num_tasks = load_mol_splits(SNAPSHOT, "ogbg-molpcba")
+    serve = next(iterate_batches(splits["train"],
+                                 **serving_layout(splits, _args(), num_tasks)))
+    errs = dict.fromkeys(("k1", "k1b", "k2", "k2b"), 0.0)
+    rows = None
+    for name, b in (("serve64", serve), ("bench4096", big)):
+        inp = k1_inputs(b, d_gnn, gen, device)
+        gout = torch.randn(inp["x"].shape, generator=gen).to(device, BF16)
+        f, e = check_k1_bf16(inp, gout)
+        errs["k1"], errs["k1b"] = max(errs["k1"], f), max(errs["k1b"], e)
+        qkv, seg = k2_inputs(b, d_model, gen, device)
+        f, e = check_k2_bf16(qkv.to(BF16), seg, nhead, gen)
+        errs["k2"], errs["k2b"] = max(errs["k2"], f), max(errs["k2b"], e)
+
+        a32 = (inp["x"], inp["src"], inp["dst"], inp["emask"], inp["attr"],
+               inp["tbl"], None, inp["scale"])
+        a16, g32 = _bf16(a32), gout.float()
+        fixed = a16[1:5]
+        k1 = dict(plain_ms=time_ms(lambda: gin_agg_plain(*a16), iters=5),
+                  library_ms=None)
+        k1["ms"], k1["f32_ms"] = turns_ms(lambda: gin_agg(*a16),
+                                          lambda: gin_agg(*a32), 20)
+        k1["bound_ms"], k1["bound_by"] = k1_bound(a16)
+        k1b = dict(plain_ms=_plain_bwd_ms(
+            lambda x, t, sc: gin_agg_plain(x, *fixed, t, None, sc),
+            [a16[0], a16[5], a16[7]], gout), library_ms=None)
+        k1b["ms"], k1b["f32_ms"] = turns_ms(
+            lambda: gin_agg_bwd(*a16, gout), lambda: gin_agg_bwd(*a32, g32),
+            20)
+        k1b["bound_ms"], k1b["bound_by"] = k1_bwd_bound(a16, gout)
+        qkv, seg = k2_inputs(b, d_model, gen, device, pad_rows=0)
+        q16, seed = qkv.to(BF16), 13572468
+        g16 = torch.randn(qkv.shape[0], qkv.shape[1], d_model,
+                          generator=gen).to(device, BF16)
+        g32 = g16.float()
+        k2 = dict(plain_ms=time_ms(lambda: attention_seg_plain(
+            q16, seg, nhead, DROPOUT, seed), iters=5),
+            library_ms=sdpa_ms(q16, seg, nhead))
+        k2["ms"], k2["f32_ms"] = turns_ms(
+            lambda: attention_seg_with_stats(q16, seg, nhead, DROPOUT, seed),
+            lambda: attention_seg_with_stats(qkv, seg, nhead, DROPOUT, seed),
+            20)
+        k2["bound_ms"], k2["bound_by"] = k2_bound(q16, seg, nhead)
+        s16 = attention_seg_with_stats(q16, seg, nhead, DROPOUT, seed)
+        s32 = attention_seg_with_stats(qkv, seg, nhead, DROPOUT, seed)
+        k2b = dict(plain_ms=_plain_bwd_ms(
+            lambda t: attention_seg_plain(t, seg, nhead, DROPOUT, seed),
+            [q16], g16), library_ms=sdpa_bwd_ms(q16, seg, nhead, g16,
+                                                DROPOUT))
+        k2b["ms"], k2b["f32_ms"] = turns_ms(
+            lambda: attention_seg_bwd(q16, seg, nhead, g16, s16, DROPOUT,
+                                      seed),
+            lambda: attention_seg_bwd(qkv, seg, nhead, g32, s32, DROPOUT,
+                                      seed), 20)
+        k2b["bound_ms"], k2b["bound_by"] = k2_bf16_bwd_bound(q16, seg, nhead)
+        shape = "G={} Sm={} Em={} d={}".format(*inp["x"].shape[:2],
+                                                inp["src"].shape[1], d_gnn)
+        k2shape = f"R={qkv.shape[0]} W={qkv.shape[1]} d={d_model} H={nhead}"
+        for kname, t, sh in (("K1 gin_agg", k1, shape),
+                             ("K1-bwd gin_agg_bwd", k1b, shape),
+                             ("K2 attention_seg (rate 0.3, stats)", k2,
+                              k2shape),
+                             ("K2-bwd attention_seg_bwd (rate 0.3)", k2b,
+                              k2shape)):
+            t["shape"] = sh
+            lib = ("-" if t["library_ms"] is None
+                   else f"{t['library_ms']:.4f}")
+            print(f"[14a] {name} {kname} bf16 [{sh}]: kernel "
+                  f"{t['ms']:.4f} ms (the f32 instance {t['f32_ms']:.4f}, in "
+                  f"turns), plain {t['plain_ms']:.4f} ms, bound "
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library {lib} "
+                  f"ms (SDPA in bf16, bool seg mask)")
+        rows = (k1, k1b, k2, k2b)
+    print(f"[14a] bf16 kernels agree with their plain bf16 versions, of "
+          f"max(1, max|plain|): K1 {errs['k1']:.3g}, K2 {errs['k2']:.3g} "
+          f"(<= {BF16_OUT_TOL}); K1-bwd {errs['k1b']:.3g}, K2-bwd "
+          f"{errs['k2b']:.3g} (<= {BF16_GRAD_TOL}); padding tokens exactly 0")
+    return dict(errs=errs, timed=rows)
+
+
+def _bf16_want(steps: int) -> dict:
+    """The bf16 step's launches by instance: 5 K1, 5 K1-bwd, 4 K2 and 4
+    K2-bwd a step, all bf16."""
+    return {"gin_agg": {"f32": 0, "bf16": 5 * steps},
+            "gin_agg_bwd": {"f32": 0, "bf16": 5 * steps},
+            "attention_seg": {"tile": 0, "long": 0, "tile_bf16": 4 * steps},
+            "attention_seg_bwd": {"tile": 0, "long": 0,
+                                  "tile_bf16": 4 * steps}}
+
+
+def phase14_train(device, tmp: str):
+    """(b) The counts set to 0, ``main --precision bf16`` at the yml's
+    batch (256) for BF16_STEPS_EPOCHS epochs on the snapshot, the counts
+    read: every K1, K1-bwd, K2 and K2-bwd launch the bf16 instance; (c)
+    finite losses, every parameter moved (float32 masters); one bf16 step
+    through the kernels against the plain versions on the card under
+    deterministic algorithms."""
+    import io
+
+    from graphtrans_tpu_torch import main as train_main
+    from graphtrans_tpu_torch.data.loader import iterate_batches, shuffled_order
+    from graphtrans_tpu_torch.data.mol import load_mol_splits
+    from graphtrans_tpu_torch.ops import kernels
+    from graphtrans_tpu_torch.predict import serving_layout
+
+    argv = ["--configs", CONFIG, "--data_root", SNAPSHOT, "--epochs",
+            str(BF16_STEPS_EPOCHS), "--seed", str(SEED), "--precision",
+            "bf16", "--save_path", tmp]
+    out = io.StringIO()
+    kernels.reset_launches()                 # the bf16 path starts here
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res = train_main.main(argv)
+    secs = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    by_inst = {fn.__name__: dict(fn.instances) for fn in (
+        kernels.gin_agg, kernels.gin_agg_bwd, kernels.attention_seg,
+        kernels.attention_seg_bwd)}
+    for line in out.getvalue().splitlines():
+        print(f"[14b] main: {line}")
+    steps = sum(r["steps"] for r in res["epochs"])
+    want = {**dict.fromkeys(launches, 0), "gin_agg": 5 * steps,
+            "gin_agg_bwd": 5 * steps, "attention_seg": 4 * steps,
+            "attention_seg_bwd": 4 * steps}
+    if steps == 0 or launches != want or by_inst != _bf16_want(steps):
+        raise AssertionError(f"bf16 training launches {launches} by instance "
+                             f"{by_inst}, expected {want}, "
+                             f"{_bf16_want(steps)}")
+    print(f"[14b] the bf16 step's launches ({steps} steps): {launches}; by "
+          f"instance {by_inst}: 5 K1, 5 K1-bwd, 4 K2 and 4 K2-bwd a step, "
+          f"every one the bf16 instance")
+    if not all(math.isfinite(r["loss"]) for r in res["epochs"]):
+        raise AssertionError(f"bf16 epoch losses not finite: {res['epochs']}")
+    args = _train_args(["--precision", "bf16"])
+    splits, num_tasks = load_mol_splits(SNAPSHOT, "ogbg-molpcba")
+    init, _ = _trainer(args, num_tasks, device)
+    trained = torch.load(res["saved"], map_location=device, weights_only=True)
+    params = dict(init.named_parameters())
+    still = [n for n, p in params.items() if torch.equal(p, trained[n])]
+    wrong = [n for n, p in trained.items() if p.dtype != torch.float32
+             and p.is_floating_point()]
+    if still or wrong:
+        raise AssertionError(f"bf16 training: parameters that did not move "
+                             f"{still}; state not float32 {wrong}")
+    print(f"[14c] trained {steps} bf16 steps at the yml's batch size "
+          f"({secs:.2f} s with the model build) through "
+          f"graphtrans_tpu_torch.main --precision bf16: losses "
+          f"{[round(r['loss'], 6) for r in res['epochs']]}, all "
+          f"{len(params)} parameter tensors moved, the saved state float32")
+
+    layout = serving_layout(splits, args, num_tasks, args.batch_size)
+    batch = next(iterate_batches(
+        splits["train"], order=shuffled_order(len(splits["train"]), SEED, 0),
+        **layout)).to(device)
+    got = []
+    with deterministic():
+        for on in (True, False):
+            model, step = _trainer(args, num_tasks, device, kernels_on=on)
+            loss = step(batch)
+            got.append((loss.item(), loss.dtype,
+                        {n: p.grad for n, p in model.named_parameters()}))
+    (lk, dt, gk), (lp, _, gp) = got
+    g_err = max(_rel_err(gk[n], gp[n]) for n in gk)
+    dtypes = {g.dtype for g in gk.values()} | {dt}
+    if (abs(lk - lp) > BF16_STEP_TOL[0] * max(1.0, abs(lp))
+            or g_err > BF16_STEP_TOL[1] or dtypes != {torch.float32}):
+        raise AssertionError(f"bf16 step through the kernels: loss "
+                             f"{lk} vs {lp}, gradients {g_err} (<= "
+                             f"{BF16_STEP_TOL[1]}), dtypes {dtypes}")
+    print(f"[14c] one bf16 step (dropout {args.gnn_dropout}/"
+          f"{args.transformer_dropout}, same seeds, deterministic "
+          f"algorithms) through the kernels vs the plain bf16 versions on "
+          f"the card: loss {lk:.6f} vs {lp:.6f} (|diff| {abs(lk - lp):.3g} "
+          f"<= {BF16_STEP_TOL[0]} of max(1, |ref|)), gradients "
+          f"{g_err:.3g} of max(1, max|ref|) (<= {BF16_STEP_TOL[1]}); loss "
+          f"and gradients float32")
+    return launches, by_inst
+
+
+def phase14_cost(device, big, smi: str):
+    """(d) The 4096-graph train step in f32 and in bf16 in turns (f32,
+    bf16, bf16, f32): median ms, peak memory; then each profiled: idle
+    share and device time by layer."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    tb = big.to(device)
+    n = int(big.graph_mask.sum())
+    runs, profiled = {"f32": [], "bf16": []}, set()
+    for prec in ("f32", "bf16", "bf16", "f32"):
+        args = _train_args(["--precision", prec])
+        model, step = _trainer(args, 128, device)
+        _median_ms(lambda: step(tb), 3)                     # warm-up
+        torch.cuda.reset_peak_memory_stats(device)
+        ms, lo, hi, loss = _median_ms(lambda: step(tb), TIMED_STEPS)
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        if not torch.isfinite(loss):
+            raise AssertionError(f"4096-graph {prec} step: loss not finite")
+        runs[prec].append(ms)
+        print(f"[14d] {prec} train step of {n} graphs: median {ms:.3f} ms "
+              f"over {TIMED_STEPS} (min {lo:.3f}, max {hi:.3f}), "
+              f"{n / ms * 1e3:.0f} graphs/s, peak memory {peak:.2f} GiB on "
+              f"{smi}")
+        if prec not in profiled:
+            profiled.add(prec)
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                for _ in range(PROFILED_STEPS):
+                    step(tb)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+            _print_split("[14d]", f"{prec} train step", prof, PROFILED_STEPS,
+                         wall, smi)
+        del model, step
+        torch.cuda.empty_cache()
+    f32, bf = statistics.mean(runs["f32"]), statistics.mean(runs["bf16"])
+    print(f"[14d] train4096: bf16 {bf:.3f} ms against f32 {f32:.3f} ms in "
+          f"turns ({f32 / bf:.3f}x) on {smi}")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--trace", default=None,
@@ -5285,6 +5629,12 @@ def main(argv=None) -> int:
         bsp_launches, bsp_step_launches = phase13_serve(device, tmp)
     phase13_cost(device, bench_bsp, bsp_tasks, smi)
 
+    bf16 = phase14_kernels(device, args.gnn_emb_dim, args.d_model,
+                           args.nhead, big)
+    with tempfile.TemporaryDirectory() as tmp:
+        bf16_launches, bf16_instances = phase14_train(device, tmp)
+    phase14_cost(device, big, smi)
+
     k1, k2 = timing["timed"]
     k1b, k2b = train["timed"]
     k3, k7 = code2["timed"]
@@ -5294,6 +5644,7 @@ def main(argv=None) -> int:
     k9, k9b, k10, k10b = switch["timed"]
     k6, k6b = nci1["timed"]
     k8, k8d, k8x, k12 = bsp["timed"]
+    k1h, k1bh, k2h, k2bh = bf16["timed"]
     rows = [
         dict(name="gin_agg_fwd", route="cuda",
              source="graphtrans_tpu_torch/csrc/gin_agg.cu",
@@ -5433,6 +5784,31 @@ def main(argv=None) -> int:
              replaces="graphtrans_tpu/ops/pallas/block_spmm.py:108",
              launches=bsp_step_launches["blocked_gather_message_scatter_dx"],
              max_abs_err=bsp["b_err"]["dx"], **k8x),
+        dict(name="gin_agg_fwd_bf16", route="cuda",
+             source="graphtrans_tpu_torch/csrc/gin_agg.cu",
+             replaces="graphtrans_tpu/ops/pallas/gin_agg.py:237 (bf16)",
+             launches=bf16_instances["gin_agg"]["bf16"],
+             # of max(1, max |plain bf16|), as check_k1_bf16 holds it
+             max_abs_err=bf16["errs"]["k1"], **k1h),
+        dict(name="gin_agg_bwd_bf16", route="cuda",
+             source="graphtrans_tpu_torch/csrc/gin_agg.cu",
+             replaces="graphtrans_tpu/ops/pallas/gin_agg.py:287 (bf16)",
+             launches=bf16_instances["gin_agg_bwd"]["bf16"],
+             max_abs_err=bf16["errs"]["k1b"], **k1bh),
+        dict(name="attention_seg_fwd_bf16", route="cuda",
+             source="graphtrans_tpu_torch/csrc/attention_packed.cu",
+             header="graphtrans_tpu_torch/csrc/attention_tile.cuh",
+             replaces="graphtrans_tpu/ops/pallas/attention_packed.py:420 "
+                      "(bf16)",
+             launches=bf16_instances["attention_seg"]["tile_bf16"],
+             max_abs_err=bf16["errs"]["k2"], **k2h),
+        dict(name="attention_seg_bwd_bf16", route="cuda",
+             source="graphtrans_tpu_torch/csrc/attention_packed.cu",
+             header="graphtrans_tpu_torch/csrc/attention_tile.cuh",
+             replaces="graphtrans_tpu/ops/pallas/attention_packed.py:393 "
+                      "(bf16)",
+             launches=bf16_instances["attention_seg_bwd"]["tile_bf16"],
+             max_abs_err=bf16["errs"]["k2b"], **k2bh),
         dict(name="segment_sum_mxu", route="cuda",
              source="graphtrans_tpu_torch/csrc/scatter_mxu.cu",
              replaces="graphtrans_tpu/ops/pallas/scatter_mxu.py:69",
@@ -5442,7 +5818,7 @@ def main(argv=None) -> int:
     ]
     print(f"[wall] {CLOCKS} at the end: {_smi(CLOCKS)}")
     print(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
-          f"(phases 0-13, the kernels' build included)")
+          f"(phases 0-14, the kernels' build included)")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

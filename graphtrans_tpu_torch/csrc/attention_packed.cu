@@ -322,6 +322,39 @@ attention_seg_bwd_tile_kernel(const float* __restrict__ qkv,
   tile::bwd_tile<HD>(src, qkv, out, dqkv, W, d, H, scale, dr);
 }
 
+// K2's bf16 instances, on rows of up to SEG_TILE_MAX tokens: the tile
+// kernels' blocks and launches over bf16 qkv, gout, out and dqkv, with the
+// bf16 bodies (attention_tile.cuh: fwd_tile_bf16, bwd_tile_bf16).
+template <int HD, bool DROP, bool STATS>
+__global__ void __launch_bounds__(SEG_FWD_THREADS)
+attention_seg_fwd_tile_bf16_kernel(const tile::bf16* __restrict__ qkv,
+                                   const int* __restrict__ seg,
+                                   tile::bf16* __restrict__ out,
+                                   float* __restrict__ stat_m,
+                                   float* __restrict__ stat_l, int W, int d,
+                                   int H, int score, float scale,
+                                   Dropout dr) {
+  tile::SegRuns<HD, false, tile::bf16> src(seg, nullptr, nullptr, nullptr,
+                                           stat_m, stat_l, out, W, H, score);
+  tile::fwd_tile_bf16<HD, DROP, STATS>(src, qkv, out, stat_m, stat_l, W, d, H,
+                                       scale, dr);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(SEG_BWD_THREADS)
+attention_seg_bwd_tile_bf16_kernel(const tile::bf16* __restrict__ qkv,
+                                   const int* __restrict__ seg,
+                                   const tile::bf16* __restrict__ gout,
+                                   const float* __restrict__ stat_m,
+                                   const float* __restrict__ stat_l,
+                                   tile::bf16* __restrict__ dqkv, int W,
+                                   int d, int H, int score, float scale,
+                                   Dropout dr) {
+  tile::SegRuns<HD, true, tile::bf16> src(seg, gout, stat_m, stat_l, nullptr,
+                                          nullptr, dqkv, W, H, score);
+  tile::bwd_tile_bf16<HD>(src, qkv, dqkv, W, d, H, scale, dr);
+}
+
 // K2's backward on wider rows: the long-row pair (dq, then dk/dv).
 template <int HD>
 __global__ void __launch_bounds__(attn::LONG_THREADS, attn::long_blocks(HD))
@@ -441,6 +474,51 @@ int launch_seg_bwd(const float* qkv, const int* seg, const float* out,
         R, W, d, H, dr, stream);
   }
   return cudaErrorInvalidValue;
+}
+
+// Launches K2's bf16 forward or backward (the tile instance, code 1, the
+// only one: rows of up to SEG_TILE_MAX tokens) after checking the
+// wrapper's seg_fwd_geometry / seg_bwd_geometry, which are the f32
+// instance's: the tiles in shared memory are float either way.
+template <int HD, bool DROP, bool STATS>
+int launch_seg_fwd_bf16(const tile::bf16* qkv, const int* seg,
+                        tile::bf16* out, float* stat_m, float* stat_l, int R,
+                        int W, int d, int H, Dropout dr, const Launch& L,
+                        cudaStream_t stream) {
+  if (L.instance != 1 || !seg_tile_launch_ok(L, R, W, H, HD, false))
+    return cudaErrorInvalidValue;
+  const auto k = attention_seg_fwd_tile_bf16_kernel<HD, DROP, STATS>;
+  static const cudaError_t set = [&] {
+    const cudaError_t e = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, tile::SMEM_MAX);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(k,
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
+                                cudaSharedmemCarveoutMaxShared);
+  }();
+  if (set != cudaSuccess) return set;
+  k<<<L.gx, L.threads, L.smem, stream>>>(qkv, seg, out, stat_m, stat_l, W, d,
+                                         H, tile::seg_score_floats(W),
+                                         1.f / sqrtf((float)HD), dr);
+  return cudaGetLastError();
+}
+
+template <int HD>
+int launch_seg_bwd_bf16(const tile::bf16* qkv, const int* seg,
+                        const tile::bf16* gout, const float* stat_m,
+                        const float* stat_l, tile::bf16* dqkv, int R, int W,
+                        int d, int H, Dropout dr, const Launch& L,
+                        cudaStream_t stream) {
+  if (L.instance != 1 || !seg_tile_launch_ok(L, R, W, H, HD, true))
+    return cudaErrorInvalidValue;
+  static const cudaError_t set = cudaFuncSetAttribute(
+      attention_seg_bwd_tile_bf16_kernel<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, tile::SMEM_MAX);
+  if (set != cudaSuccess) return set;
+  attention_seg_bwd_tile_bf16_kernel<HD><<<L.gx, L.threads, L.smem, stream>>>(
+      qkv, seg, gout, stat_m, stat_l, dqkv, W, d, H,
+      tile::seg_score_floats(W), 1.f / sqrtf((float)HD), dr);
+  return cudaGetLastError();
 }
 
 Dropout make_dropout(int on, unsigned thresh, float inv_keep, int seed,
@@ -577,4 +655,57 @@ extern "C" int attention_seg_bwd(const float* qkv, const int* seg,
   const Launch L{instance, pad, group, gx, gy, gz, threads, smem};
   return launch_seg_bwd<32>(qkv, seg, out, gout, stat_m, stat_l, delta, dqkv,
                             R, W, d, H, dr, L, stream);
+}
+
+// K2's bf16 instances (the bf16 step): qkv, out, gout and dqkv bf16, m and
+// l float, rows of up to 128 tokens (the tile instance); the arguments as
+// attention_seg_fwd's and attention_seg_bwd's (the backward reads out and
+// delta not: its delta is summed from the pairs, and there is no long
+// instance). A launch these cannot run is refused.
+extern "C" int attention_seg_fwd_bf16(const tile::bf16* qkv, const int* seg,
+                                      tile::bf16* out, float* stat_m,
+                                      float* stat_l, int R, int W, int d,
+                                      int H, int drop, unsigned thresh,
+                                      float inv_keep, int seed, int bt,
+                                      int sp, int instance, int pad,
+                                      int group, int gx, int gy, int gz,
+                                      int threads, int smem,
+                                      cudaStream_t stream) {
+  if (R <= 0 || W <= 0 || W > SEG_TILE_MAX || H <= 0 || d != H * 32)
+    return cudaErrorInvalidValue;
+  if ((stat_m == nullptr) != (stat_l == nullptr)) return cudaErrorInvalidValue;
+  if (drop && stat_m == nullptr) return cudaErrorInvalidValue;
+  const Dropout dr = make_dropout(drop, thresh, inv_keep, seed, bt, sp, H);
+  const Launch L{instance, pad, group, gx, gy, gz, threads, smem};
+  if (dr.on)
+    return launch_seg_fwd_bf16<32, true, true>(qkv, seg, out, stat_m, stat_l,
+                                               R, W, d, H, dr, L, stream);
+  if (stat_m)
+    return launch_seg_fwd_bf16<32, false, true>(qkv, seg, out, stat_m, stat_l,
+                                                R, W, d, H, dr, L, stream);
+  return launch_seg_fwd_bf16<32, false, false>(qkv, seg, out, stat_m, stat_l,
+                                               R, W, d, H, dr, L, stream);
+}
+
+extern "C" int attention_seg_bwd_bf16(const tile::bf16* qkv, const int* seg,
+                                      const tile::bf16* out,
+                                      const tile::bf16* gout,
+                                      const float* stat_m,
+                                      const float* stat_l, float* delta,
+                                      tile::bf16* dqkv, int R, int W, int d,
+                                      int H, int drop, unsigned thresh,
+                                      float inv_keep, int seed, int bt,
+                                      int sp, int instance, int pad,
+                                      int group, int gx, int gy, int gz,
+                                      int threads, int smem,
+                                      cudaStream_t stream) {
+  (void)out;
+  (void)delta;
+  if (R <= 0 || W <= 0 || W > SEG_TILE_MAX || H <= 0 || d != H * 32 ||
+      stat_m == nullptr || stat_l == nullptr)
+    return cudaErrorInvalidValue;
+  const Dropout dr = make_dropout(drop, thresh, inv_keep, seed, bt, sp, H);
+  const Launch L{instance, pad, group, gx, gy, gz, threads, smem};
+  return launch_seg_bwd_bf16<32>(qkv, seg, gout, stat_m, stat_l, dqkv, R, W,
+                                 d, H, dr, L, stream);
 }

@@ -69,12 +69,16 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "mma_tf32.cuh"
+#include "vec.cuh"
 
 namespace tile {
+
+using vio::bf16;
 
 constexpr int THREADS = 256;     // the most threads a block of any instance
 constexpr int WIDE = 64;         // rows of a tile of the wide backward
@@ -145,6 +149,18 @@ __device__ __forceinline__ void st4(float* p, float4 v) {
 }
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+}
+// four bf16 (8 bytes) as floats; four floats rounded to bf16 (nearest
+// even): vec.cuh's accesses
+__device__ __forceinline__ float4 ld4(const bf16* p) {
+  const vio::Vec<4> v = vio::load_vec<4>(p);
+  return make_float4(v.v[0], v.v[1], v.v[2], v.v[3]);
+}
+__device__ __forceinline__ void st4(bf16* p, float4 v) {
+  vio::store_vec(p, vio::Vec<4>{{v.x, v.y, v.z, v.w}});
+}
+__device__ __forceinline__ float round_bf16(float x) {
+  return vio::round_to<bf16>(x);
 }
 
 // Rows [0, n) of N head slices (src[k]: row 0's first channel, ld[k]
@@ -487,25 +503,28 @@ __host__ inline int seg_tile_words(int W, int hd, bool bwd) {
 // zeros here. A row in which some id forms two runs (the JAX kernel's mask
 // allows it) takes the whole row as one problem under TagMask, which is
 // K2's mask itself. The row's head slices are staged once, contiguous, so
-// a run's tiles start at its first token's row.
-template <int HD, bool BWD>
+// a run's tiles start at its first token's row. E is the type of qkv, the
+// cotangent and the outputs: float (staged by cp.async), or bf16 (K2's
+// bf16 instances: loaded, widened and stored as floats, so the tiles are
+// the f32 instance's).
+template <int HD, bool BWD, class E = float>
 struct SegRuns {
   static constexpr int LD = HD + 4, C4 = HD / 4;
   const int* seg;
-  const float* gout;     // backward: the cotangent, the forward's m and l
+  const E* gout;         // backward: the cotangent, the forward's m and l
   const float* rd_m;
   const float* rd_l;
   float* wr_m;           // forward: m and l of padding tokens (or null)
   float* wr_l;
-  float* zero_rows;      // out (forward) or dqkv (backward)
+  E* zero_rows;          // out (forward) or dqkv (backward)
   float *Qr, *Pr, *tokf;
   int *tg, *s0, *len, *cnr, *cnr2, *off, *meta;
   long b;
   int h, H, W, R4, SC, ng;
 
-  __device__ SegRuns(const int* seg_, const float* gout_, const float* rd_m_,
+  __device__ SegRuns(const int* seg_, const E* gout_, const float* rd_m_,
                      const float* rd_l_, float* wr_m_, float* wr_l_,
-                     float* zero_rows_, int W_, int H_, int score)
+                     E* zero_rows_, int W_, int H_, int score)
       : seg(seg_), gout(gout_), rd_m(rd_m_), rd_l(rd_l_), wr_m(wr_m_),
         wr_l(wr_l_), zero_rows(zero_rows_), H(H_), W(W_), SC(score), ng(0) {
     extern __shared__ float4 smem4[];
@@ -565,49 +584,55 @@ struct SegRuns {
   }
 
   // rows [0, R4) of N head slices (src[k]: token 0's first channel, ld[k]
-  // floats between tokens) into rows of LD floats at dst[k], 16-byte
-  // cp.async copies, zeros past W
+  // elements between tokens) into rows of LD floats at dst[k], zeros past
+  // W: 16-byte cp.async copies (float), or 8-byte loads widened to floats
+  // (bf16)
   template <int N>
   __device__ void copy_rows(float* const (&dst)[N],
-                            const float* const (&src)[N],
+                            const E* const (&src)[N],
                             const long (&ld)[N]) const {
     for (int idx = threadIdx.x; idx < R4 * C4; idx += blockDim.x) {
       const int r = idx / C4, c = idx % C4 * 4;
       const long tok = r < W ? r : 0;
 #pragma unroll
-      for (int k = 0; k < N; ++k)
-        tc::cp16(dst[k] + r * LD + c, src[k] + tok * ld[k] + c, r < W);
+      for (int k = 0; k < N; ++k) {
+        if constexpr (sizeof(E) == 4)
+          tc::cp16(dst[k] + r * LD + c, src[k] + tok * ld[k] + c, r < W);
+        else
+          st4(dst[k] + r * LD + c, r < W ? ld4(src[k] + tok * ld[k] + c)
+                                         : make_float4(0.f, 0.f, 0.f, 0.f));
+      }
     }
   }
 
   // the forward: V into Q's place (the pair phase is over), landing while
   // the softmax runs; wait() before the products
-  __device__ void after_pairs(const float* __restrict__ qkv, int d) const {
+  __device__ void after_pairs(const E* __restrict__ qkv, int d) const {
     if constexpr (!BWD) {
       float* const dst[1] = {Qr};
-      const float* const src[1] = {qkv + b * W * 3L * d + h * HD + 2 * d};
+      const E* const src[1] = {qkv + b * W * 3L * d + h * HD + 2 * d};
       const long ld[1] = {3L * d};
       copy_rows<1>(dst, src, ld);
     }
   }
   __device__ void wait() const { tc::cp_wait(); }
 
-  __device__ void load(const float* __restrict__ qkv, int d) {
+  __device__ void load(const E* __restrict__ qkv, int d) {
     const int t = threadIdx.x, nt = blockDim.x;
     const long d3 = 3L * d, base = b * W;
     {  // the row's head slices (the forward's Q and K; the backward's Q, K,
        // V and dO), landing while the runs are found
-      const float* row = qkv + base * d3 + h * HD;
+      const E* row = qkv + base * d3 + h * HD;
       if constexpr (BWD) {
         float* const dst[4] = {Qr, Qr + R4 * LD, Qr + 2 * R4 * LD,
                                Qr + 3 * R4 * LD};
-        const float* const src[4] = {row, row + d, row + 2 * d,
-                                     gout + base * d + h * HD};
+        const E* const src[4] = {row, row + d, row + 2 * d,
+                                 gout + base * d + h * HD};
         const long ld[4] = {d3, d3, d3, d};
         copy_rows<4>(dst, src, ld);
       } else {
         float* const dst[2] = {Qr, Qr + R4 * LD};
-        const float* const src[2] = {row, row + d};
+        const E* const src[2] = {row, row + d};
         const long ld[2] = {d3, d3};
         copy_rows<2>(dst, src, ld);
       }
@@ -678,7 +703,7 @@ struct SegRuns {
         const int i = idx / C4, c = idx % C4 * 4;
         if (tg[i] >= 0) continue;
         if constexpr (BWD) {
-          float* o = zero_rows + (base + i) * d3 + h * HD + c;
+          E* o = zero_rows + (base + i) * d3 + h * HD + c;
           st4(o, z4);
           st4(o + d, z4);
           st4(o + 2 * d, z4);
@@ -901,6 +926,249 @@ __device__ __forceinline__ void bwd_tile(Src& src,
         st4(base + (i0 + a) * d3 + c0,
             make_float4(acc[a][0] * scale, acc[a][1] * scale,
                         acc[a][2] * scale, acc[a][3] * scale));
+      }
+    }
+  }
+}
+
+// ---- the bf16 bodies (K2's bf16 instances) ----------------------------
+//
+// The same phases on the same float tiles, staged from bf16, with the
+// rounding points of the JAX kernel in bf16 (graphtrans_tpu/ops/pallas/
+// attention_packed.py:152-206, :238-285). The products stay on the f32
+// micro-tiles, fed from the bf16 values widened in shared memory: the
+// work of a molecule row is a few small segments, whose pair and product
+// phases are bound by the staging and the softmax's barriers, not by the
+// FMAs (PERF.md section 6), so the tensor cores' m16n8k16 would buy little
+// here and would put a second tile layout beside the f32 instance's.
+
+// The forward: the scores once into the tile (as fwd_tile), an exact
+// two-pass softmax per query row, then each probability normalised by the
+// undropped sum, dropped and scaled, and rounded to bf16 once in the tile;
+// O = P V summed in float32 and rounded once. m and l as fwd_tile's.
+template <int HD, bool DROP, bool STATS, class Src, class Keep>
+__device__ __forceinline__ void fwd_tile_bf16(Src& src,
+                                              const bf16* __restrict__ qkv,
+                                              bf16* __restrict__ out,
+                                              float* __restrict__ stat_m,
+                                              float* __restrict__ stat_l,
+                                              int S, int d, int H,
+                                              float scale, const Keep& keep) {
+  constexpr int C4 = HD / 4;
+  const int t = threadIdx.x, nt = blockDim.x;
+  src.load(qkv, d);
+  __syncthreads();
+
+  const int pairs = src.pair_items();
+  for (int w = t; w < pairs; w += nt) {
+    int g, r;
+    src.pair_at(w, g, r);
+    const int nr = src.pad(g) / 4, sld = src.sld(g);
+    const int ti = r / nr, tj = r % nr;
+    float s[4][4], unused[4][4];
+    dots<HD, false>(src.Q(g), src.K(g), nullptr, nullptr, ti, tj, nr, s,
+                    unused);
+    const auto meets = src.mask(g);
+    float* P = src.P(g);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int i = ti + a * nr, j = tj + b * nr;
+        P[i * sld + j] = meets(i, j) ? s[a][b] * scale : -INFINITY;
+      }
+  }
+  __syncthreads();
+  src.after_pairs(qkv, d);
+
+  // four threads a row: max, the undropped sum, then p = e / l, dropped
+  // and scaled, rounded to bf16
+  const int rows4 = src.row_items(16);
+  for (int w = t; w < rows4; w += nt) {
+    int g, r;
+    src.row_at(16, w, g, r);
+    const int np = src.pad(g), i = r / 4, part = r % 4;
+    const unsigned quad = 0xFu << (threadIdx.x & 28u);
+    const Problem pr = src.problem(g);
+    float* P = src.P(g) + i * src.sld(g);
+    float m = -INFINITY;
+    for (int j = part; j < np; j += 4) m = fmaxf(m, P[j]);
+    m = fmaxf(m, __shfl_xor_sync(quad, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(quad, m, 2));
+    float l = 0.f;
+    for (int j = part; j < np; j += 4) {
+      const float e = m == -INFINITY ? 0.f : expf(P[j] - m);
+      l += e;
+      P[j] = e;
+    }
+    l += __shfl_xor_sync(quad, l, 1);
+    l += __shfl_xor_sync(quad, l, 2);
+    const float den = fmaxf(l, 1e-16f);
+    for (int j = part; j < np; j += 4) {
+      float p = P[j] / den;
+      if constexpr (DROP)
+        p = (p != 0.f && keep(pr.b, pr.h, H, S, pr.s0 + i, pr.s0 + j))
+                ? p * keep.inv_keep
+                : 0.f;
+      P[j] = round_bf16(p);
+    }
+    if (STATS && part == 0 && i < pr.n) {
+      const long at = (pr.b * S + pr.s0 + i) * H + pr.h;
+      stat_m[at] = m;
+      stat_l[at] = l;
+    }
+  }
+  src.wait();
+  __syncthreads();
+
+  const int prods = src.row_items(C4);
+  for (int w = t; w < prods; w += nt) {
+    int g, r;
+    src.row_at(C4, w, g, r);
+    const int i0 = r / C4 * 4, c0 = r % C4 * 4;
+    const Problem pr = src.problem(g);
+    float acc[4][4];
+    zero(acc);
+    rows_times<HD>(src.P(g), src.V(g), src.sld(g), round4(pr.n), i0, c0,
+                   acc);
+    bf16* o = out + (pr.b * S + pr.s0) * d + pr.h * HD + c0;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      if (i0 + a >= pr.n) break;
+      st4(o + (i0 + a) * d,
+          make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]));
+    }
+  }
+}
+
+// The backward from the forward's m and l: p and the dropped dp of each
+// pair once (one dropout draw; a dropped pair's p keeps its sign bit set),
+// delta_i = sum_j p_ij dp_ij over the row, as the JAX kernel forms it from
+// the undropped p (not dO.O: the forward's O was rounded); then P_drop and
+// dS = p (dp - delta) * scale each rounded to bf16 once in the tiles; dK
+// = dS^T Q, dV = P_drop^T dO and dQ = dS K summed in float32, each rounded
+// once.
+template <int HD, class Src, class Keep>
+__device__ __forceinline__ void bwd_tile_bf16(Src& src,
+                                              const bf16* __restrict__ qkv,
+                                              bf16* __restrict__ dqkv, int S,
+                                              int d, int H, float scale,
+                                              const Keep& keep) {
+  constexpr int C4 = HD / 4;
+  const int t = threadIdx.x, nt = blockDim.x;
+  const long d3 = 3L * d;
+  src.load(qkv, d);
+  __syncthreads();
+
+  const int pairs = src.pair_items();
+  for (int w = t; w < pairs; w += nt) {
+    int g, r;
+    src.pair_at(w, g, r);
+    const int nr = src.pad(g) / 4, sld = src.sld(g);
+    const int ti = r / nr, tj = r % nr;
+    const Problem pr = src.problem(g);
+    const float* mr = src.m(g);
+    const float* lr = src.li(g);
+    const auto meets = src.mask(g);
+    float s[4][4], dp[4][4];
+    dots<HD, true>(src.Q(g), src.K(g), src.G(g), src.V(g), ti, tj, nr, s, dp);
+    float* P = src.P(g);
+    float* D = src.D(g);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int i = ti + a * nr;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int j = tj + b * nr;
+        float pv = 0.f, dv = 0.f;
+        if (i < pr.n && meets(i, j)) {
+          const bool kept =
+              !keep.on || keep(pr.b, pr.h, H, S, pr.s0 + i, pr.s0 + j);
+          const float p = expf(s[a][b] * scale - mr[i]) * lr[i];
+          pv = kept ? p : -p;
+          dv = kept ? (keep.on ? dp[a][b] * keep.inv_keep : dp[a][b]) : 0.f;
+        }
+        P[i * sld + j] = pv;
+        D[i * sld + j] = dv;
+      }
+    }
+  }
+  __syncthreads();
+
+  // delta of each query row: four threads a row
+  const int rows4 = src.row_items(16);
+  for (int w = t; w < rows4; w += nt) {
+    int g, r;
+    src.row_at(16, w, g, r);
+    const int np = src.pad(g), i = r / 4, part = r % 4, sld = src.sld(g);
+    const unsigned quad = 0xFu << (threadIdx.x & 28u);
+    const float* P = src.P(g) + i * sld;
+    const float* D = src.D(g) + i * sld;
+    float de = 0.f;
+    for (int j = part; j < np; j += 4) de = fmaf(fabsf(P[j]), D[j], de);
+    de += __shfl_xor_sync(quad, de, 1);
+    de += __shfl_xor_sync(quad, de, 2);
+    if (part == 0 && i < src.problem(g).n) src.de(g)[i] = de;
+  }
+  __syncthreads();
+
+  // P_drop and dS, rounded to bf16 in the tiles
+  for (int w = t; w < pairs; w += nt) {
+    int g, r;
+    src.pair_at(w, g, r);
+    const int nr = src.pad(g) / 4, sld = src.sld(g);
+    const int ti = r / nr, tj = r % nr;
+    const int n = src.problem(g).n;
+    const float* dr = src.de(g);
+    float* P = src.P(g);
+    float* D = src.D(g);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int i = ti + a * nr;
+      const float de = i < n ? dr[i] : 0.f;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int at = i * sld + tj + b * nr;
+        const float pv = P[at], p = fabsf(pv);
+        const float pd = signbit(pv) ? 0.f : (keep.on ? p * keep.inv_keep : p);
+        P[at] = round_bf16(pd);
+        D[at] = round_bf16(p * (D[at] - de) * scale);
+      }
+    }
+  }
+  __syncthreads();
+
+  // the products: dK, dV by (key, channel) and dQ by (query, channel)
+  const int prods = src.row_items(2 * C4);
+  for (int w = t; w < prods; w += nt) {
+    int g, r;
+    src.row_at(2 * C4, w, g, r);
+    const int nr = src.pad(g) / 4, sld = src.sld(g), half = nr * C4;
+    const Problem pr = src.problem(g);
+    bf16* base = dqkv + (pr.b * S + pr.s0) * d3 + pr.h * HD;
+    float acc[4][4], acc2[4][4];
+    zero(acc);
+    if (r < half) {
+      const int j0 = r / C4 * 4, c0 = r % C4 * 4;
+      zero(acc2);
+      keys_times<HD>(src.P(g), src.D(g), src.G(g), src.Q(g), sld, pr.n, j0,
+                     c0, acc, acc2);
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        if (j0 + b >= pr.n) break;
+        bf16* o = base + (j0 + b) * d3 + c0;
+        st4(o + d, make_float4(acc[b][0], acc[b][1], acc[b][2], acc[b][3]));
+        st4(o + 2 * d,
+            make_float4(acc2[b][0], acc2[b][1], acc2[b][2], acc2[b][3]));
+      }
+    } else {
+      const int i0 = (r - half) / C4 * 4, c0 = (r - half) % C4 * 4;
+      rows_times<HD>(src.D(g), src.K(g), sld, round4(pr.n), i0, c0, acc);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        if (i0 + a >= pr.n) break;
+        st4(base + (i0 + a) * d3 + c0,
+            make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]));
       }
     }
   }

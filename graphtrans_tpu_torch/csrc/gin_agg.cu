@@ -30,6 +30,16 @@
 // kernel adds in a fixed order with the whole card; dw (a sum over
 // channels) is reduced across the block's warps per edge. No atomics:
 // every sum has a fixed order, and a run gives the same bits every time.
+//
+// bf16 instances (the bf16 step): x, T, w, gout, out and dx are bf16, read
+// and written VEC elements at a time (8-byte accesses at VEC 4, so d =
+// 300, 600 bytes a row, keeps the f32 instance's lanes), staged in shared
+// memory as bf16 (half the f32 instance's bytes); every sum is float32.
+// They round where the JAX kernel rounds in bf16 (graphtrans_tpu/ops/
+// pallas/gin_agg.py:126-166, :169-222): a message relu(x_src + sum T) * w
+// once before its destination sum, out once; dmsg (gout * w, relu and
+// mask applied) once before the dx and dT sums, dx once; dT and dw leave
+// the cross-block sums rounded once; dscale stays float32.
 
 #include <cuda_runtime.h>
 
@@ -37,6 +47,11 @@
 #include "vec.cuh"
 
 namespace {
+
+using vio::bf16;
+using vio::cp_elems;
+using vio::round_to;
+using vio::to_float;
 
 constexpr int SMEM_MAX = 232448;      // dynamic shared bytes a block may take
 
@@ -51,12 +66,19 @@ using vio::zero_vec;
 constexpr int MAX_THREADS = 256;  // threads a block, either way (gin_agg.py)
 constexpr int FWD_EU = 4;         // edges whose loads a thread issues together
 
+// bytes of n elements of `esize` bytes, rounded up to whole words
+__host__ __device__ inline long words_of(long n, int esize) {
+  return (n * esize + 3) / 4 * 4;
+}
+
 // Shared bytes of a forward block (gin_agg.py:fwd_smem): one graph's x
-// slice [Sm][sc], then per edge slot its sorted record (src | dst << 16,
-// the F table rows, with w the weight) and its sort key.
+// slice [Sm][sc] in the instance's element type (esize bytes), then per
+// edge slot its sorted record (src | dst << 16, the F table rows, with w
+// the weight) and its sort key.
 __host__ __device__ inline long fwd_smem(int Sm, int Em, int F, int sc,
-                                         bool has_w) {
-  return 4 * ((long)Sm * sc + (long)Em * (2 + F + (has_w ? 1 : 0)));
+                                         bool has_w, int esize) {
+  return words_of((long)Sm * sc, esize) +
+         4L * Em * (2 + F + (has_w ? 1 : 0));
 }
 
 // One block per (chunk of gpb graphs, slice of sc channels); thread t owns
@@ -71,21 +93,22 @@ __host__ __device__ inline long fwd_smem(int Sm, int Em, int F, int sc,
 // when the walk passes it: out = acc (+ scale * x), written once from
 // registers. The next graph's x is issued when this walk ends and lands
 // while its edges are sorted. NF = F for 1 to 4 table rows an edge, 0 for
-// any F.
-template <int VEC, bool HAS_W, int NF>
+// any F. E: float, or bf16 (a message rounded before its sum, out once).
+template <class E, int VEC, bool HAS_W, int NF>
 __global__ void __launch_bounds__(MAX_THREADS)
-gin_agg_fwd_kernel(const float* __restrict__ x, const int* __restrict__ src,
+gin_agg_fwd_kernel(const E* __restrict__ x, const int* __restrict__ src,
                    const int* __restrict__ dst, const bool* __restrict__ emask,
-                   const int* __restrict__ attr, const float* __restrict__ tbl,
-                   const float* __restrict__ w, const float* __restrict__ scale,
-                   float* __restrict__ out, int G, int Sm, int Em, int Fr,
-                   int d, int gpb, int sc) {
+                   const int* __restrict__ attr, const E* __restrict__ tbl,
+                   const E* __restrict__ w, const float* __restrict__ scale,
+                   E* __restrict__ out, int G, int Sm, int Em, int Fr, int d,
+                   int gpb, int sc) {
   using VecT = Vec<VEC>;
   const int F = NF ? NF : Fr;
   const int R = 1 + F + (HAS_W ? 1 : 0);  // ints a record
   extern __shared__ int4 smem4[];
-  float* const xbuf = reinterpret_cast<float*>(smem4);  // [Sm][sc]
-  int* const rec = reinterpret_cast<int*>(xbuf + (long)Sm * sc);
+  E* const xbuf = reinterpret_cast<E*>(smem4);  // [Sm][sc]
+  int* const rec = reinterpret_cast<int*>(
+      reinterpret_cast<char*>(smem4) + words_of((long)Sm * sc, sizeof(E)));
   int* const key = rec + (long)Em * R;  // [Em]; INT_MAX on a masked slot
 
   const int t = threadIdx.x, T = blockDim.x;
@@ -98,14 +121,14 @@ gin_agg_fwd_kernel(const float* __restrict__ x, const int* __restrict__ src,
   const long g0 = (long)blockIdx.x * gpb;
   const long g1 = g0 + gpb < G ? g0 + gpb : (long)G;
   const float scv = scale ? *scale : 0.f;
-  const float* const tblc = tbl + cc;   // its table column
+  const E* const tblc = tbl + cc;       // its table column
 
   // graph g's x slice, this thread's channels, into the buffer: one group
   auto stage_x = [&](long g) {
     if (own) {
-      const float* xg = x + g * Sm * d + cc;
+      const E* xg = x + g * Sm * d + cc;
       for (int r = 0; r < Sm; ++r)
-        tc::cp_floats<VEC>(xbuf + r * sc + cl, xg + (long)r * d, live);
+        cp_elems<VEC>(xbuf + r * sc + cl, xg + (long)r * d, live);
     }
     tc::cp_commit();
   };
@@ -136,7 +159,7 @@ gin_agg_fwd_kernel(const float* __restrict__ x, const int* __restrict__ src,
 #pragma unroll
         for (int f = 0; f < NF; ++f) av[f] = attr[(g * NF + f) * Em + e];
       }
-      const float wv = HAS_W ? w[ge] : 0.f;
+      const float wv = HAS_W ? to_float(w[ge]) : 0.f;
       int p = 0;
 #pragma unroll 8
       for (int j = 0; j < Em; ++j) p += key[j] < k;
@@ -153,8 +176,8 @@ gin_agg_fwd_kernel(const float* __restrict__ x, const int* __restrict__ src,
     __syncthreads();
     tc::cp_wait_group<0>();  // graph g's x (this thread's own copies)
 
-    const float* const xs = xbuf + ccl;
-    float* const og = out + g * Sm * d + cc;
+    const E* const xs = xbuf + ccl;
+    E* const og = out + g * Sm * d + cc;
     VecT acc = zero_vec<VEC>();
     int row = 0;
     auto close_to = [&](int s) {  // write the rows before s
@@ -200,7 +223,7 @@ gin_agg_fwd_kernel(const float* __restrict__ x, const int* __restrict__ src,
           float m = xv[u].v[j] + ev[u].v[j];
           m = fmaxf(m, 0.f);
           if (HAS_W) m *= wu[u];
-          acc.v[j] += m;
+          acc.v[j] += round_to<E>(m);
         }
       }
     }
@@ -213,7 +236,8 @@ gin_agg_fwd_kernel(const float* __restrict__ x, const int* __restrict__ src,
 // covering d once (VEC dividing d and sc), a warp's lanes all in the slice
 // but the last warp's, the shared bytes it names.
 bool fwd_launch_ok(int Sm, int Em, int F, int V, int d, bool has_w, int vec,
-                   int gpb, int slices, int sc, int threads, int smem) {
+                   int gpb, int slices, int sc, int threads, int smem,
+                   int esize) {
   if (!(vec == 1 || vec == 4) || d % vec || sc <= 0 || sc % vec) return false;
   if (slices < 1 || (long)slices * sc < d || (long)(slices - 1) * sc >= d)
     return false;
@@ -223,22 +247,24 @@ bool fwd_launch_ok(int Sm, int Em, int F, int V, int d, bool has_w, int vec,
     return false;
   if (gpb < 1 || F < 1 || V < 1 || Sm > 65536 || (long)Sm * Em >= 0x7fffffff)
     return false;
-  return smem <= SMEM_MAX && smem == fwd_smem(Sm, Em, F, sc, has_w);
+  return smem <= SMEM_MAX && smem == fwd_smem(Sm, Em, F, sc, has_w, esize);
 }
 
+template <class E>
 struct FwdArgs {
-  const float* x;
+  const E* x;
   const int *src, *dst;
   const bool* emask;
   const int* attr;
-  const float *tbl, *w, *scale;
-  float* out;
+  const E *tbl, *w;
+  const float* scale;
+  E* out;
   int G, Sm, Em, F, d, gpb, slices, sc, threads, smem;
 };
 
-template <int VEC, bool HAS_W, int NF>
-cudaError_t launch_fwd_main(const FwdArgs& A, cudaStream_t stream) {
-  const auto kernel = gin_agg_fwd_kernel<VEC, HAS_W, NF>;
+template <class E, int VEC, bool HAS_W, int NF>
+cudaError_t launch_fwd_main(const FwdArgs<E>& A, cudaStream_t stream) {
+  const auto kernel = gin_agg_fwd_kernel<E, VEC, HAS_W, NF>;
   static const cudaError_t set = [&] {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
@@ -254,14 +280,14 @@ cudaError_t launch_fwd_main(const FwdArgs& A, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int VEC, bool HAS_W>
-cudaError_t launch_fwd_f(const FwdArgs& A, cudaStream_t stream) {
+template <class E, int VEC, bool HAS_W>
+cudaError_t launch_fwd_f(const FwdArgs<E>& A, cudaStream_t stream) {
   switch (A.F) {
-    case 1: return launch_fwd_main<VEC, HAS_W, 1>(A, stream);
-    case 2: return launch_fwd_main<VEC, HAS_W, 2>(A, stream);
-    case 3: return launch_fwd_main<VEC, HAS_W, 3>(A, stream);
-    case 4: return launch_fwd_main<VEC, HAS_W, 4>(A, stream);
-    default: return launch_fwd_main<VEC, HAS_W, 0>(A, stream);
+    case 1: return launch_fwd_main<E, VEC, HAS_W, 1>(A, stream);
+    case 2: return launch_fwd_main<E, VEC, HAS_W, 2>(A, stream);
+    case 3: return launch_fwd_main<E, VEC, HAS_W, 3>(A, stream);
+    case 4: return launch_fwd_main<E, VEC, HAS_W, 4>(A, stream);
+    default: return launch_fwd_main<E, VEC, HAS_W, 0>(A, stream);
   }
 }
 
@@ -282,15 +308,17 @@ constexpr int TAIL_GROUPS = TAIL_THREADS / TAIL_COLS;
 // Shared bytes of a backward block (gin_agg.py:bwd_smem): the sorted edge
 // records [Em][8] ints (src, dst, the F table rows, w); one graph's gout
 // slice [Sm][sc], xr rows of x [xr][sc] (the slice, or a ring of XRING),
-// the bond table's gradient [V][sc]; per edge
-// slot the staged lists (src, dst, F table rows, sort key) and the slot's
-// sorted position; with w the staged weights and the per-warp dw sums
-// [threads/32][Em]; 32 floats of scratch.
+// both in the instance's element type (esize bytes), and the bond table's
+// gradient [V][sc] in float (bf16: before gout, so it keeps 16-byte
+// alignment); per edge slot the staged lists (src, dst, F table rows, sort
+// key) and the slot's sorted position; with w the staged weights and the
+// per-warp dw sums [threads/32][Em]; 32 floats of scratch.
 __host__ __device__ inline long bwd_smem(int Sm, int Em, int F, int V, int sc,
-                                         int threads, bool has_w, int xr) {
-  long words = 8L * Em + (long)(Sm + xr + V) * sc + (long)Em * (F + 4) + 32;
+                                         int threads, bool has_w, int xr,
+                                         int esize) {
+  long words = 8L * Em + (long)V * sc + (long)Em * (F + 4) + 32;
   if (has_w) words += (long)Em * (1 + threads / 32);
-  return 4 * words;
+  return 4 * words + words_of((long)(Sm + xr) * sc, esize);
 }
 
 // One block per (chunk of gpb graphs, slice of sc channels); thread t owns
@@ -315,24 +343,32 @@ __host__ __device__ inline long bwd_smem(int Sm, int Em, int F, int V, int sc,
 // changes (consecutive edges share bond types); dscale per thread. Both
 // leave as per-block partials for the tail kernel after the chunk; dw is
 // reduced over the block's warps per edge and written per channel slice. The relu decision uses the forward's sum: pre
-// = x[src] + (T[attr_0] + T[attr_1] + ...), in that order.
-template <int VEC, bool HAS_W, int NF>
+// = x[src] + (T[attr_0] + T[attr_1] + ...), in that order. E: float, or
+// bf16 (dmsg rounded before the dx and dT sums, dx once).
+template <class E, int VEC, bool HAS_W, int NF>
 __global__ void __launch_bounds__(BWD_MAX_THREADS)
-gin_agg_bwd_kernel(const float* __restrict__ x, const int* __restrict__ src,
+gin_agg_bwd_kernel(const E* __restrict__ x, const int* __restrict__ src,
                    const int* __restrict__ dst, const bool* __restrict__ emask,
-                   const int* __restrict__ attr, const float* __restrict__ tbl,
-                   const float* __restrict__ w, const float* __restrict__ scale,
-                   const float* __restrict__ gout, float* __restrict__ dx,
+                   const int* __restrict__ attr, const E* __restrict__ tbl,
+                   const E* __restrict__ w, const float* __restrict__ scale,
+                   const E* __restrict__ gout, E* __restrict__ dx,
                    float* __restrict__ dtbl_part, float* __restrict__ dw_out,
                    float* __restrict__ dsc_part, int G, int Sm, int Em, int V,
                    int d, int gpb, int sc, int xr) {
   using VecT = Vec<VEC>;
+  constexpr bool F32 = sizeof(E) == 4;
   extern __shared__ int4 smem4[];
   int4* const rec = smem4;               // [Em][2]: sorted edge records
-  float* const gsm = reinterpret_cast<float*>(rec + 2 * Em);  // [Sm][sc]
-  float* const xbuf = gsm + (long)Sm * sc;   // [xr][sc] rows of x
-  float* const dts = xbuf + xr * sc;         // [V][sc] dT
-  int* const rs = reinterpret_cast<int*>(dts + V * sc);  // staged src
+  // f32: gout, x, dT; bf16: dT, gout, x
+  float* const dt16 = reinterpret_cast<float*>(rec + 2 * Em);
+  E* const gsm = F32 ? reinterpret_cast<E*>(rec + 2 * Em)
+                     : reinterpret_cast<E*>(dt16 + V * sc);  // [Sm][sc]
+  E* const xbuf = gsm + (long)Sm * sc;   // [xr][sc] rows of x
+  float* const dts = F32 ? reinterpret_cast<float*>(xbuf + xr * sc) : dt16;
+  char* const after =
+      F32 ? reinterpret_cast<char*>(dts + V * sc)
+          : reinterpret_cast<char*>(gsm) + words_of((long)(Sm + xr) * sc, 2);
+  int* const rs = reinterpret_cast<int*>(after);  // staged src
   int* const rd = rs + Em;        // dst
   int* const ra = rd + Em;        // [NF][Em] table rows
   int* const key = ra + NF * Em;  // src * Em + slot; INT_MAX on a masked slot
@@ -352,10 +388,10 @@ gin_agg_bwd_kernel(const float* __restrict__ x, const int* __restrict__ src,
   const long g1 = g0 + gpb < G ? g0 + gpb : (long)G;
   const float scv = scale ? *scale : 0.f;
   const int ccl = own ? cl : 0;           // a column for the discarded loads
-  const float* const gs = gsm + ccl;      // this thread's columns
-  float* const xs = xbuf + ccl;
+  const E* const gs = gsm + ccl;          // this thread's columns
+  E* const xs = xbuf + ccl;
   const bool ring = xr < Sm;
-  const float* const tblc = tbl + cc;     // its table column (V*d < 2^31)
+  const E* const tblc = tbl + cc;         // its table column (V*d < 2^31)
 
   if (own)
     for (int v = 0; v < V; ++v) store_vec(dts + v * sc + cl, zero_vec<VEC>());
@@ -382,19 +418,19 @@ gin_agg_bwd_kernel(const float* __restrict__ x, const int* __restrict__ src,
   for (int j = 0; j < VEC; ++j) dsc[j] = 0.f;
   for (long g = g0; g < g1; ++g) {
     __syncthreads();  // every thread is done with g - 1's lists
-    const float* const xg = x + g * Sm * d + cc;
+    const E* const xg = x + g * Sm * d + cc;
     if (own) {  // graph g's gout (and x if it fits), this thread's channels
-      const float* gg = gout + g * Sm * d + cc;
+      const E* gg = gout + g * Sm * d + cc;
       for (int r = 0; r < Sm; ++r) {
-        tc::cp_floats<VEC>(gsm + r * sc + cl, gg + (long)r * d, live);
-        if (!ring) tc::cp_floats<VEC>(xs + r * sc, xg + (long)r * d, live);
+        cp_elems<VEC>(gsm + r * sc + cl, gg + (long)r * d, live);
+        if (!ring) cp_elems<VEC>(xs + r * sc, xg + (long)r * d, live);
       }
     }
     tc::cp_commit();
     // row r of graph g's x into the ring: a group a row, empty past the last
     auto stage_x = [&](int r) {
       if (own && r < Sm)
-        tc::cp_floats<VEC>(xs + (r % XRING) * sc, xg + (long)r * d, live);
+        cp_elems<VEC>(xs + (r % XRING) * sc, xg + (long)r * d, live);
       tc::cp_commit();
     };
 
@@ -412,7 +448,7 @@ gin_agg_bwd_kernel(const float* __restrict__ x, const int* __restrict__ src,
 #pragma unroll
         for (int f = 0; f < NF; ++f)
           ra[f * Em + e] = attr[(g * NF + f) * Em + e];
-        if (HAS_W) rw[e] = w[ge];
+        if (HAS_W) rw[e] = to_float(w[ge]);
         key[e] = valid ? sv * Em + e : 0x7fffffff;
       }
       nv += __syncthreads_count(valid);
@@ -438,7 +474,7 @@ gin_agg_bwd_kernel(const float* __restrict__ x, const int* __restrict__ src,
     if (ring)
       for (int r = 0; r < XRING; ++r) stage_x(r);
 
-    float* const dxg = dx + g * Sm * d + c;
+    E* const dxg = dx + g * Sm * d + c;
     VecT acc, xv;
     auto open_row = [&](int r) {
       if (ring)  // row r's x, the oldest group in flight
@@ -485,7 +521,7 @@ gin_agg_bwd_kernel(const float* __restrict__ x, const int* __restrict__ src,
       for (int j = 0; j < VEC; ++j) {
         const float pre = xv.v[j] + emb.v[j];
         const float m = HAS_W ? gm.v[j] * we : gm.v[j];
-        dm.v[j] = pre > 0.f ? m : 0.f;
+        dm.v[j] = pre > 0.f ? round_to<E>(m) : 0.f;
         acc.v[j] += dm.v[j];
         if (HAS_W) part += own ? gm.v[j] * fmaxf(pre, 0.f) : 0.f;
       }
@@ -551,11 +587,13 @@ gin_agg_bwd_kernel(const float* __restrict__ x, const int* __restrict__ src,
 // block, each column's rows split over TAIL_GROUPS threads whose sums are
 // added in group order; blocks [bt, bt + bw) add the n channel slices' dw
 // partials [n, mw] in slice order, one element a thread; with dscale, the
-// last block adds the Q blocks' partials, a tree over the block.
+// last block adds the Q blocks' partials, a tree over the block. dT and
+// dw are written in E (bf16: each float32 sum rounded once).
+template <class E>
 __global__ void __launch_bounds__(TAIL_THREADS)
-gin_agg_bwd_sum_kernel(const float* __restrict__ dtp, float* __restrict__ dt,
+gin_agg_bwd_sum_kernel(const float* __restrict__ dtp, E* __restrict__ dt,
                        int P, int m, const float* __restrict__ dwp,
-                       float* __restrict__ dw, int n, long mw,
+                       E* __restrict__ dw, int n, long mw,
                        const float* __restrict__ dsp, float* __restrict__ ds,
                        int Q, int bt, int bw) {
   __shared__ float part[TAIL_THREADS];
@@ -571,7 +609,10 @@ gin_agg_bwd_sum_kernel(const float* __restrict__ dtp, float* __restrict__ dt,
     if (grp == 0 && col < m) {
       float v = part[t];
       for (int k = 1; k < TAIL_GROUPS; ++k) v += part[k * TAIL_COLS + t];
-      dt[col] = v;
+      if constexpr (sizeof(E) == 4)
+        dt[col] = v;
+      else
+        dt[col] = __float2bfloat16_rn(v);
     }
     return;
   }
@@ -581,7 +622,10 @@ gin_agg_bwd_sum_kernel(const float* __restrict__ dtp, float* __restrict__ dt,
     if (j < mw) {
       float v = dwp[j];
       for (int i = 1; i < n; ++i) v += dwp[i * mw + j];
-      dw[j] = v;
+      if constexpr (sizeof(E) == 4)
+        dw[j] = v;
+      else
+        dw[j] = __float2bfloat16_rn(v);
     }
     return;
   }
@@ -601,7 +645,7 @@ gin_agg_bwd_sum_kernel(const float* __restrict__ dtp, float* __restrict__ dt,
 // in the slice but the last warp's, and needs the shared bytes it names.
 bool bwd_launch_ok(int Sm, int Em, int F, int V, int d, bool has_w, int vec,
                    int gpb, int slices, int sc, int threads, int smem,
-                   int xr) {
+                   int xr, int esize) {
   if (!(vec == 1 || vec == 4) || d % vec || sc <= 0 || sc % vec) return false;
   if (slices < 1 || (long)slices * sc < d || (long)(slices - 1) * sc >= d)
     return false;
@@ -613,22 +657,26 @@ bool bwd_launch_ok(int Sm, int Em, int F, int V, int d, bool has_w, int vec,
     return false;
   if (!(xr == Sm || (xr == XRING && Sm > XRING))) return false;
   return smem <= SMEM_MAX &&
-         smem == bwd_smem(Sm, Em, F, V, sc, threads, has_w, xr);
+         smem == bwd_smem(Sm, Em, F, V, sc, threads, has_w, xr, esize);
 }
 
+template <class E>
 struct BwdArgs {
-  const float* x;
+  const E* x;
   const int *src, *dst;
   const bool* emask;
   const int* attr;
-  const float *tbl, *w, *scale, *gout;
-  float *dx, *dtbl_part, *dw_out, *dsc_part;
+  const E *tbl, *w;
+  const float* scale;
+  const E* gout;
+  E* dx;
+  float *dtbl_part, *dw_out, *dsc_part;
   int G, Sm, Em, V, d, gpb, slices, sc, threads, smem, xr;
 };
 
-template <int VEC, bool HAS_W, int NF>
-cudaError_t launch_bwd_main(const BwdArgs& A, cudaStream_t stream) {
-  const auto kernel = gin_agg_bwd_kernel<VEC, HAS_W, NF>;
+template <class E, int VEC, bool HAS_W, int NF>
+cudaError_t launch_bwd_main(const BwdArgs<E>& A, cudaStream_t stream) {
+  const auto kernel = gin_agg_bwd_kernel<E, VEC, HAS_W, NF>;
   static const cudaError_t set = [&] {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
@@ -645,14 +693,84 @@ cudaError_t launch_bwd_main(const BwdArgs& A, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int VEC, bool HAS_W>
-cudaError_t launch_bwd_f(const BwdArgs& A, int F, cudaStream_t stream) {
+template <class E, int VEC, bool HAS_W>
+cudaError_t launch_bwd_f(const BwdArgs<E>& A, int F, cudaStream_t stream) {
   switch (F) {
-    case 1: return launch_bwd_main<VEC, HAS_W, 1>(A, stream);
-    case 2: return launch_bwd_main<VEC, HAS_W, 2>(A, stream);
-    case 3: return launch_bwd_main<VEC, HAS_W, 3>(A, stream);
-    default: return launch_bwd_main<VEC, HAS_W, 4>(A, stream);
+    case 1: return launch_bwd_main<E, VEC, HAS_W, 1>(A, stream);
+    case 2: return launch_bwd_main<E, VEC, HAS_W, 2>(A, stream);
+    case 3: return launch_bwd_main<E, VEC, HAS_W, 3>(A, stream);
+    default: return launch_bwd_main<E, VEC, HAS_W, 4>(A, stream);
   }
+}
+
+// The forward of either instance (the C entries below).
+template <class E>
+int fwd_entry(const E* x, const int* src, const int* dst, const bool* emask,
+              const int* attr, const E* tbl, const E* w, const float* scale,
+              E* out, int G, int Sm, int Em, int F, int V, int d, int vec,
+              int gpb, int slices, int sc, int threads, int smem,
+              cudaStream_t stream) {
+  constexpr int ES = sizeof(E);
+  if (G <= 0 || Sm <= 0 || Em < 0 || d <= 0 ||
+      !fwd_launch_ok(Sm, Em, F, V, d, w != nullptr, vec, gpb, slices, sc,
+                     threads, smem, ES))
+    return cudaErrorInvalidValue;
+  const unsigned long align = (unsigned long)ES * vec;
+  if (((unsigned long)x | (unsigned long)tbl | (unsigned long)out) % align)
+    return cudaErrorInvalidValue;
+  const FwdArgs<E> A{x,  src, dst, emask, attr,   tbl, w,       scale, out, G,
+                     Sm, Em,  F,   d,     gpb,    slices, sc, threads, smem};
+  return vec == 4 ? (w ? launch_fwd_f<E, 4, true>(A, stream)
+                       : launch_fwd_f<E, 4, false>(A, stream))
+                  : (w ? launch_fwd_f<E, 1, true>(A, stream)
+                       : launch_fwd_f<E, 1, false>(A, stream));
+}
+
+// The backward of either instance: the main kernel, then the cross-block
+// sums. dw goes through dw_part (float) whenever the main kernel cannot
+// write it: with slices > 1, or in bf16.
+template <class E>
+int bwd_entry(const E* x, const int* src, const int* dst, const bool* emask,
+              const int* attr, const E* tbl, const E* w, const float* scale,
+              const E* gout, E* dx, E* dtbl, E* dw, float* dscale,
+              float* dtbl_part, float* dw_part, float* dsc_part, int G,
+              int Sm, int Em, int F, int V, int d, int vec, int gpb,
+              int slices, int sc, int threads, int smem, int xr,
+              cudaStream_t stream) {
+  constexpr int ES = sizeof(E);
+  if (G <= 0 || Sm <= 0 || Em < 0 || V < 0 || d <= 0 ||
+      !bwd_launch_ok(Sm, Em, F, V, d, w != nullptr, vec, gpb, slices, sc,
+                     threads, smem, xr, ES))
+    return cudaErrorInvalidValue;
+  const unsigned long align = (unsigned long)ES * vec;
+  if (((unsigned long)x | (unsigned long)tbl | (unsigned long)gout |
+       (unsigned long)dx | (unsigned long)dtbl_part) % align)
+    return cudaErrorInvalidValue;
+  const bool direct = ES == 4 && slices == 1;  // dw written by the kernel
+  float* dw_out = direct ? reinterpret_cast<float*>(dw) : dw_part;
+  if (w && dw_out == nullptr) return cudaErrorInvalidValue;
+  const int chunks = (G + gpb - 1) / gpb;
+  const BwdArgs<E> A{x,  src,       dst,    emask,    attr, tbl,    w,
+                     scale, gout, dx, dtbl_part, dw_out, dsc_part, G, Sm,
+                     Em, V,    d,  gpb,       slices, sc,       threads, smem,
+                     xr};
+  const cudaError_t err =
+      vec == 4 ? (w ? launch_bwd_f<E, 4, true>(A, F, stream)
+                    : launch_bwd_f<E, 4, false>(A, F, stream))
+               : (w ? launch_bwd_f<E, 1, true>(A, F, stream)
+                    : launch_bwd_f<E, 1, false>(A, F, stream));
+  if (err != cudaSuccess) return err;
+  const int m = V * d;
+  const int bt = (m + TAIL_COLS - 1) / TAIL_COLS;
+  const long mw = (long)G * Em;
+  const int bw =
+      w && !direct ? (int)((mw + TAIL_THREADS - 1) / TAIL_THREADS) : 0;
+  const int blocks = bt + bw + (scale ? 1 : 0);
+  if (blocks == 0) return cudaSuccess;
+  gin_agg_bwd_sum_kernel<E><<<blocks, TAIL_THREADS, 0, stream>>>(
+      dtbl_part, dtbl, chunks, m, dw_part, dw, slices, mw, dsc_part, dscale,
+      chunks * slices, bt, bw);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -664,7 +782,8 @@ extern "C" const char* error_string(int err) {
 // Returns cudaGetLastError() after the launch (0 = launched). The launch
 // (vec, gpb, slices, sc, threads, smem) is the wrapper's
 // fwd_geometry; one that does not cover (G, d), or whose pointers are not
-// aligned to vec floats, is refused.
+// aligned to vec elements, is refused. gin_agg_fwd_bf16: x, tbl, w and out
+// bf16 (scale float).
 extern "C" int gin_agg_fwd(const float* x, const int* src, const int* dst,
                            const bool* emask, const int* attr,
                            const float* tbl, const float* w,
@@ -672,28 +791,31 @@ extern "C" int gin_agg_fwd(const float* x, const int* src, const int* dst,
                            int Em, int F, int V, int d, int vec, int gpb,
                            int slices, int sc, int threads, int smem,
                            cudaStream_t stream) {
-  if (G <= 0 || Sm <= 0 || Em < 0 || d <= 0 ||
-      !fwd_launch_ok(Sm, Em, F, V, d, w != nullptr, vec, gpb, slices, sc,
-                     threads, smem))
-    return cudaErrorInvalidValue;
-  const unsigned long align = 4ul * vec;
-  if (((unsigned long)x | (unsigned long)tbl | (unsigned long)out) % align)
-    return cudaErrorInvalidValue;
-  const FwdArgs A{x,  src, dst, emask, attr,   tbl, w,       scale, out, G,
-                  Sm, Em,  F,   d,     gpb,    slices, sc, threads, smem};
-  return vec == 4 ? (w ? launch_fwd_f<4, true>(A, stream)
-                       : launch_fwd_f<4, false>(A, stream))
-                  : (w ? launch_fwd_f<1, true>(A, stream)
-                       : launch_fwd_f<1, false>(A, stream));
+  return fwd_entry<float>(x, src, dst, emask, attr, tbl, w, scale, out, G, Sm,
+                          Em, F, V, d, vec, gpb, slices, sc, threads, smem,
+                          stream);
+}
+
+extern "C" int gin_agg_fwd_bf16(const bf16* x, const int* src, const int* dst,
+                                const bool* emask, const int* attr,
+                                const bf16* tbl, const bf16* w,
+                                const float* scale, bf16* out, int G, int Sm,
+                                int Em, int F, int V, int d, int vec, int gpb,
+                                int slices, int sc, int threads, int smem,
+                                cudaStream_t stream) {
+  return fwd_entry<bf16>(x, src, dst, emask, attr, tbl, w, scale, out, G, Sm,
+                         Em, F, V, d, vec, gpb, slices, sc, threads, smem,
+                         stream);
 }
 
 // The backward: the main kernel, then the cross-block sums. Scratch
 // (allocated by the caller): dtbl_part [ceil(G/gpb), V, d]; with scale,
-// dsc_part [ceil(G/gpb) * slices]; with w and slices > 1, dw_part [slices,
-// G, Em] (with one slice dw itself is written). Outputs dx, dtbl [V, d],
-// dw [G, Em], dscale [1]. The launch (vec, gpb, slices, sc, threads, smem,
-// xr) is the wrapper's bwd_geometry; one that does not cover (G, d), or
-// whose pointers are not aligned to vec floats, is refused.
+// dsc_part [ceil(G/gpb) * slices]; with w and slices > 1 (bf16: with w),
+// dw_part [slices, G, Em] (else dw itself is written). Outputs dx, dtbl
+// [V, d], dw [G, Em] in the instance's type, dscale [1] float. The launch
+// (vec, gpb, slices, sc, threads, smem, xr) is the wrapper's bwd_geometry;
+// one that does not cover (G, d), or whose pointers are not aligned to vec
+// elements, is refused.
 extern "C" int gin_agg_bwd(const float* x, const int* src, const int* dst,
                            const bool* emask, const int* attr,
                            const float* tbl, const float* w,
@@ -703,37 +825,24 @@ extern "C" int gin_agg_bwd(const float* x, const int* src, const int* dst,
                            int G, int Sm, int Em, int F, int V, int d, int vec,
                            int gpb, int slices, int sc, int threads, int smem,
                            int xr, cudaStream_t stream) {
-  if (G <= 0 || Sm <= 0 || Em < 0 || V < 0 || d <= 0 ||
-      !bwd_launch_ok(Sm, Em, F, V, d, w != nullptr, vec, gpb, slices, sc,
-                     threads, smem, xr))
-    return cudaErrorInvalidValue;
-  const unsigned long align = 4ul * vec;
-  if (((unsigned long)x | (unsigned long)tbl | (unsigned long)gout |
-       (unsigned long)dx | (unsigned long)dtbl_part) % align)
-    return cudaErrorInvalidValue;
-  float* dw_out = slices == 1 ? dw : dw_part;
-  if (w && dw_out == nullptr) return cudaErrorInvalidValue;
-  const int chunks = (G + gpb - 1) / gpb;
-  const BwdArgs A{x,  src,       dst,    emask,    attr, tbl,    w,
-                  scale, gout, dx, dtbl_part, dw_out, dsc_part, G, Sm,
-                  Em, V,    d,  gpb,       slices, sc,       threads, smem,
-                  xr};
-  const cudaError_t err =
-      vec == 4 ? (w ? launch_bwd_f<4, true>(A, F, stream)
-                    : launch_bwd_f<4, false>(A, F, stream))
-               : (w ? launch_bwd_f<1, true>(A, F, stream)
-                    : launch_bwd_f<1, false>(A, F, stream));
-  if (err != cudaSuccess) return err;
-  const int m = V * d;
-  const int bt = (m + TAIL_COLS - 1) / TAIL_COLS;
-  const long mw = (long)G * Em;
-  const int bw =
-      w && slices > 1 ? (int)((mw + TAIL_THREADS - 1) / TAIL_THREADS) : 0;
-  const int blocks = bt + bw + (scale ? 1 : 0);
-  if (blocks == 0) return cudaSuccess;
-  gin_agg_bwd_sum_kernel<<<blocks, TAIL_THREADS, 0, stream>>>(
-      dtbl_part, dtbl, chunks, m, dw_part, dw, slices, mw, dsc_part, dscale,
-      chunks * slices, bt, bw);
-  return cudaGetLastError();
+  return bwd_entry<float>(x, src, dst, emask, attr, tbl, w, scale, gout, dx,
+                          dtbl, dw, dscale, dtbl_part, dw_part, dsc_part, G,
+                          Sm, Em, F, V, d, vec, gpb, slices, sc, threads,
+                          smem, xr, stream);
 }
 
+extern "C" int gin_agg_bwd_bf16(const bf16* x, const int* src, const int* dst,
+                                const bool* emask, const int* attr,
+                                const bf16* tbl, const bf16* w,
+                                const float* scale, const bf16* gout,
+                                bf16* dx, bf16* dtbl, bf16* dw, float* dscale,
+                                float* dtbl_part, float* dw_part,
+                                float* dsc_part, int G, int Sm, int Em, int F,
+                                int V, int d, int vec, int gpb, int slices,
+                                int sc, int threads, int smem, int xr,
+                                cudaStream_t stream) {
+  return bwd_entry<bf16>(x, src, dst, emask, attr, tbl, w, scale, gout, dx,
+                         dtbl, dw, dscale, dtbl_part, dw_part, dsc_part, G,
+                         Sm, Em, F, V, d, vec, gpb, slices, sc, threads, smem,
+                         xr, stream);
+}

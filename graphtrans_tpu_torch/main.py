@@ -35,9 +35,18 @@ generators (``nn/dropout.py:Generators``). With ``--scheduler plateau`` the
 lr stays at ``--lr``: the plateau scheduler steps on a valid metric, and
 evaluation arrives with slice 12, as do split metrics, multi-run, resume
 and checkpoints, FLAG and ``onecycle``; the parallel modes arrive with
-slice 13 and bf16 (``--precision bf16``) with slice 10. A flag that asks
-for one of these raises NotImplementedError naming its slice. The run is
-f32.
+slice 13. A flag that asks for one of these raises NotImplementedError
+naming its slice.
+
+The run is f32 unless ``--precision bf16`` (the root ``main.py``'s flag):
+then the forward and backward run in bfloat16 on a copy of the float32
+master parameters, with the loss, BatchNorm's statistics, the gradients
+and AdamW's state in float32 (``train/precision.py``, the JAX trainer's
+cast); K1, K1-bwd, K2 and K2-bwd run their bf16 instances, and cuBLAS sums
+the bf16 products in float32. bf16 runs the molpcba GraphTrans configs
+(GIN on the strided layout) under ``--attn_backend auto``; every other
+model, dataset and backend raises NotImplementedError naming slice 10
+(``utils/config.py:check_ported``).
 """
 
 from __future__ import annotations
@@ -82,7 +91,7 @@ def build_run(args, num_tasks: int, device, steps_per_epoch: int,
     set_attn_backend(model, args.attn_backend)
     optimizer = build_optimizer(model, args, steps_per_epoch)
     step = make_train_step(model, dataset_loss(args.dataset), optimizer,
-                           Generators.seeded(seed, device))
+                           Generators.seeded(seed, device), args.precision)
     return model, optimizer, step
 
 
@@ -112,6 +121,7 @@ def main(argv: Optional[list] = None) -> dict:
         rec = {"epoch": epoch, "steps": stats.get("steps", 0), "loss": loss,
                "lr": optimizer.lr, "seconds": secs,
                "graphs_per_s": stats.get("graphs", 0) / max(secs, 1e-9),
+               "precision": args.precision,
                "device": (torch.cuda.get_device_name(device) if on_card
                           else "cpu")}
         print(json.dumps(rec), flush=True)

@@ -18,6 +18,7 @@ from ..data import dataset_kind
 from ..nn.encoders import AtomEncoder, ASTNodeEncoder, LinearNodeEncoder
 from ..nn.transformer import TransformerNodeEncoder
 from ..ops.dense import nodes_to_dense
+from ..train.precision import refuse_bf16
 from .gnn_transformer import _ENCODER, _check_supported
 from .heads import PredictionHead
 
@@ -48,6 +49,7 @@ class TransformerModule(nn.Module):
         else:
             h = self.node_encoder(batch.node_feat)
         h = h.masked_fill(~batch.node_mask[:, None], 0.0)
+        refuse_bf16(h, "the Transformer-only model (K4, K5, K9, K10)")
         S = min(batch.max_nodes_dense, self.max_input_len)
         dense, valid = nodes_to_dense(h, batch.node_graph, batch.node_pos,
                                       batch.node_mask, batch.num_graph_slots,

@@ -3,7 +3,8 @@
 GINConv runs on the strided layout: out = MLP((1+eps)*x + sum_{j->i}
 relu(x_j + bond_emb)), MLP = Linear(d,2d) -> masked BN -> ReLU ->
 Linear(2d,d); the aggregation, the bond lookup and the (1+eps)*x combine
-all run in kernel K1.
+all run in kernel K1 (in bf16 under the bf16 step, the scale 1+eps
+rounded to bf16 first).
 
 GCNConv (OGB's GCN as the reference writes it): x = Linear(h); deg =
 out_degree(src) + 1; out = sum_{j->i} deg^-1/2[src] deg^-1/2[dst]
@@ -35,6 +36,7 @@ from ..ops.kernels import (blocked_gather_message_scatter,
                            slot_order, spmm, spmm_plain, src_order,
                            src_slot_order)
 from ..ops.segment import out_degree
+from ..train.precision import refuse_bf16
 from .encoders import BondEncoder, ZeroEdgeEncoder
 from .init import normal_
 from .norm import MaskedBatchNorm
@@ -60,8 +62,10 @@ class GINConv(nn.Module):
                 "layout serves GCN (code2)")
         tables, dims = self.edge_encoder.tables(
             batch.edge_attr_dense.shape[-1])
+        # (1 + eps) in eps's dtype, then float32 (graphtrans_tpu/nn/
+        # conv.py:199): under bf16 the scale is rounded to bf16 first
         out = dense_mp.gather_message_scatter_dense_tables(
-            h, batch, tables, dims, eps_scale=1.0 + self.eps,
+            h, batch, tables, dims, eps_scale=(1.0 + self.eps).float(),
             kernel=self.use_kernel)
         out = torch.relu(self.mlp_bn(self.lin1(out), batch.node_mask))
         return self.lin2(out).masked_fill(~batch.node_mask[:, None], 0.0)
@@ -97,6 +101,8 @@ class GCNConv(nn.Module):
         normal_(self.root_emb, 1.0, gen)
 
     def forward(self, batch, h: torch.Tensor) -> torch.Tensor:
+        refuse_bf16(h, "GCNConv (code2, NCI1, the blocked route: K6, K7, "
+                    "K8)")
         mask = batch.node_mask[:, None]
         x = self.lin(h).masked_fill(~mask, 0.0)
         if batch.node_stride > 0:

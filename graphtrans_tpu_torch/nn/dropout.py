@@ -2,7 +2,8 @@
 
 ``ByteDropout`` copies ``graphtrans_tpu/nn/dropout.py:ByteDropout``: one
 uniform byte per element, kept iff ``byte >= t`` with ``t = round(rate*256)``,
-and a kept element scaled by ``1/(1 - t/256)`` (rate 0.3 keeps 179/256).
+and a kept element scaled by ``1/(1 - t/256)`` (rate 0.3 keeps 179/256),
+that scale rounded to x's dtype first, as the JAX module does.
 The bytes come from an explicit ``torch.Generator`` on the activation's
 device. Rate 0, and eval mode, are exact identities.
 
@@ -28,6 +29,7 @@ import torch
 from torch import nn
 
 from ..ops.kernels import byte_dropout, byte_dropout_plain
+from ..train.precision import refuse_bf16
 
 FUSED = False          # route large lane-aligned tensors to K11
 MIN_SIZE = 1 << 18     # graphtrans_tpu/nn/dropout.py:_PALLAS_MIN_SIZE
@@ -76,9 +78,14 @@ class ByteDropout(nn.Module):
             raise ValueError("ByteDropout in training mode needs the run's "
                              "Generators")
         if fused_route(x):
+            refuse_bf16(x, "K11 (the fused byte dropout)")
             fn = byte_dropout if self.use_kernel else byte_dropout_plain
             return fn(x, gen.kernel_seed(), t)
         bits = torch.randint(0, 256, x.shape, dtype=torch.uint8,
                              device=x.device, generator=gen.device)
         scale = 1.0 / (1.0 - t / 256.0)
+        if x.dtype == torch.bfloat16:
+            # jnp.asarray(scale, x.dtype): in bf16, 1/(1 - 77/256) is
+            # 1.4296875, and x * scale is rounded once
+            scale = float(torch.tensor(scale, dtype=x.dtype))
         return torch.where(bits >= t, x * scale, torch.zeros_like(x))

@@ -81,7 +81,8 @@ class ASTNodeEncoder(nn.Module):
 
 
 class LinearEdgeEncoder(nn.Module):
-    """code2's augmented edge attributes [E, 2] -> [E, emb_dim]."""
+    """code2's augmented edge attributes [E, 2] -> [E, emb_dim], taken in
+    the weight's dtype, as TDense takes a float input."""
 
     def __init__(self, emb_dim: int, device=None):
         super().__init__()
@@ -93,14 +94,15 @@ class LinearEdgeEncoder(nn.Module):
 
 class LinearNodeEncoder(nn.Module):
     """TU node features (one-hot node labels, float) [N, in_dim] ->
-    [N, emb_dim], an f32 Linear."""
+    [N, emb_dim], a Linear that takes its input in its weight's dtype (the
+    JAX package's TDense casts a float input to its kernel's dtype)."""
 
     def __init__(self, in_dim: int, emb_dim: int, device=None):
         super().__init__()
         self.lin = nn.Linear(in_dim, emb_dim, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.lin(x.to(torch.float32))
+        return self.lin(x.to(self.lin.weight.dtype))
 
 
 class ZeroEdgeEncoder(nn.Module):

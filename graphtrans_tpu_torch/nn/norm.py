@@ -6,7 +6,11 @@ single-pass formula: biased variance ``max(E[x^2] - E[x]^2, 0)`` normalises,
 and the running variance takes the unbiased estimate
 ``var * cnt / max(cnt - 1, 1)``, at momentum 0.1. In eval
 mode the running statistics normalise. Padded rows are zeroed again
-afterwards so the padded-rows-are-zero invariant holds."""
+afterwards so the padded-rows-are-zero invariant holds. A bfloat16 x (the
+bf16 step) is normalised as the JAX module does it: the statistics in
+float32 from x, the normalisation in float32 with the bf16 scale and bias
+promoted, the result rounded once to x's dtype; the running statistics
+are float32 buffers either way."""
 
 from __future__ import annotations
 
@@ -28,6 +32,12 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features, device=device))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.bfloat16:
+            return self._forward(x.float(), mask, self.weight.float(),
+                                 self.bias.float()).to(x.dtype)
+        return self._forward(x, mask, self.weight, self.bias)
+
+    def _forward(self, x, mask, weight, bias):
         if self.training:
             m = mask.to(x.dtype)[:, None]
             cnt = m.sum()
@@ -44,5 +54,5 @@ class MaskedBatchNorm(nn.Module):
                                        + MOMENTUM * unbiased)
         else:
             mean, var = self.running_mean, self.running_var
-        y = (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        y = (x - mean) * torch.rsqrt(var + self.eps) * weight + bias
         return y.masked_fill(~mask[:, None], 0.0)

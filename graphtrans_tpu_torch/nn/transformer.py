@@ -22,7 +22,12 @@ plain masked softmax, and under ``packed_layer`` the whole layer is K10
 runs inside the kernels from one seed per layer per step; on the plain
 route it is ``ByteDropout`` on the probabilities, as the JAX package drops
 ``att`` (``:376``), and under ``chunked`` an exact-probability Bernoulli
-mask (``:74-78``), drawn from the run's device generator."""
+mask (``:74-78``), drawn from the run's device generator.
+
+In bf16 (the bf16 step) the packed rows run on K2's bf16 instance (rows of
+up to 128 tokens) or the plain route; LayerNorm takes its statistics in
+float32 and rounds its output once, as flax's does; every other route
+raises NotImplementedError naming slice 10."""
 
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from ..ops.kernels import (attention_dense, attention_dense_plain,
                            key_padding_segs, transformer_layer,
                            transformer_layer_plain)
 from ..ops.kernels.attention_packed import keep_drop
+from ..train.precision import refuse_bf16
 from .dropout import ByteDropout
 from .init import normal_, xavier_uniform_
 
@@ -144,6 +150,8 @@ class MultiheadSelfAttention(nn.Module):
         rate = self.dropout if self.training else 0.0
         qkv = self.in_proj(x)
         kernel = self.use_kernel
+        if route not in ("k2", "plain"):
+            refuse_bf16(qkv, f"attention route {route}")
         if route in ("k2", "k3"):
             fn = {"k2": (attention_seg, attention_seg_plain),
                   "k3": (flash_hil_seg, flash_hil_seg_plain)}[route][
@@ -165,7 +173,11 @@ class MultiheadSelfAttention(nn.Module):
 
     def _plain(self, qkv, route, seg, valid, block, rate, gen):
         """The masked softmax in PyTorch: ByteDropout on the probabilities,
-        or under ``chunked`` an exact-probability Bernoulli mask."""
+        or under ``chunked`` an exact-probability Bernoulli mask. In bf16
+        (packed rows, the JAX package's XLA route) the scores and softmax
+        are float32 and the probabilities are rounded to bf16 before the
+        dropout and the product (``attention_seg_plain`` with ``kernel``
+        False)."""
         drop = None
         if rate > 0.0 and route == "chunked":
             if gen is None:
@@ -177,7 +189,8 @@ class MultiheadSelfAttention(nn.Module):
         elif rate > 0.0:
             drop = lambda p: self.attn_drop(p, gen)
         if seg is not None:
-            return attention_seg_plain(qkv, seg, self.nhead, drop=drop)
+            return attention_seg_plain(qkv, seg, self.nhead, drop=drop,
+                                       kernel=False)
         return attention_dense_plain(qkv, valid, self.nhead, block, drop=drop)
 
 
@@ -203,6 +216,7 @@ class TransformerEncoderLayer(nn.Module):
     def forward(self, x: torch.Tensor, route: str, seg=None, gen=None,
                 valid=None, block: int = 0) -> torch.Tensor:
         if route == "k10":
+            refuse_bf16(x, "attention route k10")
             return self._fused(x, valid, block, gen)
         a = self.self_attn(x, route, seg, gen, valid, block)
         x = self.norm1(x + self.drop(a, gen))

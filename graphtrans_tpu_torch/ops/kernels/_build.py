@@ -18,6 +18,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -98,6 +100,20 @@ def check(lib: ctypes.CDLL, err: int, what: str):
 
 
 def align(*tensors) -> int:
-    """The widest vector, in floats, that every tensor's address allows:
-    4 where all are 16-byte aligned, else 1."""
-    return 4 if all(t.data_ptr() % 16 == 0 for t in tensors) else 1
+    """The widest vector, in elements, that every tensor's address allows:
+    4 where each is aligned to 4 of its elements (16 bytes in float32, 8 in
+    bf16), else 1."""
+    return 4 if all(t.data_ptr() % (4 * t.element_size()) == 0
+                    for t in tensors) else 1
+
+
+def entry(lib: ctypes.CDLL, name: str, dtype: torch.dtype):
+    """The C entry ``name`` of a kernel's float32 instance, or for another
+    ``dtype`` (bf16) ``name``_bf16, whose parameters are the f32 entry's
+    (pointers and ints): typed from it at its first use."""
+    if dtype == torch.float32:
+        return getattr(lib, name)
+    fn = getattr(lib, name + "_bf16")
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = getattr(lib, name).argtypes, ctypes.c_int
+    return fn

@@ -104,6 +104,8 @@ from dataclasses import dataclass
 import torch
 
 from . import _build
+from .rounding import round_grad, round_value
+from ...train.precision import later_slice
 
 W_MAX = 384          # wider packed rows take flash_hil_seg (K3)
 HEAD_DIM = 32        # the head width csrc/attention_packed.cu compiles
@@ -175,38 +177,88 @@ def masked_attention(qkv: torch.Tensor, nhead: int, mask: torch.Tensor,
     ``masked_softmax``: scores scaled by ``1/sqrt(hd)``, the row max
     subtracted, the sum clamped at 1e-16 (a query with no key gets zeros),
     then ``drop`` (a function of the probabilities ``[R, H, W, W]``, e.g.
-    ``keep_drop``) if given. Output ``[R, W, d]``."""
+    ``keep_drop``) if given. Output ``[R, W, d]``. In bf16 it rounds as
+    the JAX package's XLA route does (``graphtrans_tpu/nn/transformer.py:
+    259-265``): scores and softmax in float32, the probabilities rounded to
+    bf16 before ``drop``, the product with V in bf16."""
     R, W, d3 = qkv.shape
     d = d3 // 3
     hd = d // nhead
     q, k, v = (t.reshape(R, W, nhead, hd).transpose(1, 2)
                for t in qkv.split(d, dim=-1))                 # [R, H, W, hd]
-    s = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
-    s = s.masked_fill(~mask, -1e30)
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True).detach()).masked_fill(
-        ~mask, 0.0)
-    p = e / e.sum(dim=-1, keepdim=True).clamp_min(1e-16)
+    if qkv.dtype == torch.bfloat16:
+        s = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(
+            hd)
+        p = _softmax(s, mask).to(qkv.dtype)
+        if drop is not None:
+            p = drop(p)
+        return torch.matmul(p, v).transpose(1, 2).reshape(R, W, d)
+    p = _softmax(torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd), mask)
     if drop is not None:
         p = drop(p)
     return torch.matmul(p, v).transpose(1, 2).reshape(R, W, d)
 
 
+def _softmax(s: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``masked_attention``'s softmax of float32 scores under ``mask``."""
+    s = s.masked_fill(~mask, -1e30)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True).detach()).masked_fill(
+        ~mask, 0.0)
+    return e / e.sum(dim=-1, keepdim=True).clamp_min(1e-16)
+
+
+def seg_mask(seg: torch.Tensor) -> torch.Tensor:
+    """K2's mask of seg ``[R, W]``: bool ``[R, 1, W, W]``, query i attends
+    key j iff ``seg[i] == seg[j] >= 0``."""
+    seg = seg.long()
+    return ((seg[:, :, None] == seg[:, None, :])
+            & (seg >= 0)[:, None, :])[:, None]
+
+
+def _attention_k2_bf16(qkv: torch.Tensor, nhead: int, mask: torch.Tensor,
+                       drop) -> torch.Tensor:
+    """K2 in bf16, as the JAX kernel computes it in bf16
+    (``graphtrans_tpu/ops/pallas/attention_packed.py:152-206``, ``:238-285``):
+    q.k from the bf16 operands summed in float32, times the f32 scale;
+    softmax, dropout and normalisation in float32, the dropped, normalised
+    p rounded to bf16 once; p.v summed in float32 and rounded once.
+    Backward (autograd through the float32 ops): dv = pd^T g and dp = g v^T
+    in float32, ds from the undropped float32 p, times the scale, rounded to
+    bf16 once; dq = ds k and dk = ds^T q in float32, each rounded once."""
+    R, W, d3 = qkv.shape
+    d = d3 // 3
+    hd = d // nhead
+    q, k, v = (t.float().reshape(R, W, nhead, hd).transpose(1, 2)
+               for t in qkv.split(d, dim=-1))                 # [R, H, W, hd]
+    scale = torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
+    s = round_grad(torch.matmul(q, k.transpose(-1, -2)), qkv.dtype) * scale
+    p = _softmax(s, mask)
+    if drop is not None:
+        p = drop(p)
+    p = round_value(p, qkv.dtype)
+    out = torch.matmul(p, v).transpose(1, 2).reshape(R, W, d)
+    return out.to(qkv.dtype)
+
+
 def attention_seg_plain(qkv: torch.Tensor, seg: torch.Tensor, nhead: int,
                         rate: float = 0.0, seed: int = 0,
-                        keep=None, drop=None) -> torch.Tensor:
+                        keep=None, drop=None,
+                        kernel: bool = True) -> torch.Tensor:
     """Plain PyTorch version of K2: same arguments, same result (the same
     dropout mask); autograd differentiates it. ``keep`` (bool [R, H, W, W])
     replaces K2's mask at ``rate > 0`` (K3 draws its own); ``drop`` (a
-    function of the probabilities) replaces both, as the encoder's plain
-    route does with ``ByteDropout``."""
+    function of the probabilities) replaces both. qkv f32, or bf16: then it
+    rounds where the bf16 kernels round (``_attention_k2_bf16``), or with
+    ``kernel`` False where the JAX package's XLA route rounds (the
+    encoder's plain route, ``masked_attention``)."""
     R, W, _ = qkv.shape
-    seg = seg.long()
-    mask = ((seg[:, :, None] == seg[:, None, :])
-            & (seg >= 0)[:, None, :])[:, None]               # [R, 1, W, W]
+    mask = seg_mask(seg)                                     # [R, 1, W, W]
     if drop is None and rate > 0.0:
         if keep is None:
             keep = keep_mask(R, W, nhead, rate, seed, qkv.device)
         drop = keep_drop(keep, rate)
+    if qkv.dtype == torch.bfloat16 and kernel:
+        return _attention_k2_bf16(qkv, nhead, mask, drop)
     return masked_attention(qkv, nhead, mask, drop)
 
 
@@ -231,12 +283,16 @@ def _check(qkv, seg, nhead, rate, gout=None):
         raise ValueError(f"attention_seg: rows of {W} > {W_MAX} tokens")
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"attention_seg: dropout rate {rate} not in [0, 1)")
-    if qkv.dtype != torch.float32 or seg.dtype != torch.int32:
-        raise ValueError("attention_seg: expected float32 qkv, int32 seg")
+    if qkv.dtype not in DTYPES or seg.dtype != torch.int32:
+        raise ValueError("attention_seg: expected float32 or bfloat16 qkv, "
+                         "int32 seg")
+    if qkv.dtype == torch.bfloat16 and W > SEG_TILE_MAX:
+        raise later_slice(f"K2 on rows of {W} > {SEG_TILE_MAX} tokens (the "
+                          f"long instance, code2)")
     if tuple(seg.shape) != (R, W) or seg.device != qkv.device:
         raise ValueError(f"attention_seg: seg {tuple(seg.shape)} on "
                          f"{seg.device} does not match qkv")
-    if gout is not None and (gout.dtype != torch.float32
+    if gout is not None and (gout.dtype != qkv.dtype
                              or tuple(gout.shape) != (R, W, d)
                              or gout.device != qkv.device):
         raise ValueError(f"attention_seg_bwd: gout {gout.dtype} "
@@ -245,7 +301,8 @@ def _check(qkv, seg, nhead, rate, gout=None):
         raise ValueError("attention_seg: inputs must be contiguous")
     if any(t.data_ptr() % 16 for t in (qkv, gout) if t is not None):
         raise ValueError("attention_seg: qkv and gout must be 16-byte "
-                         "aligned (the kernels load four floats at a time)")
+                         "aligned (the kernels load four elements at a "
+                         "time)")
 
 
 def _dropout_args(W: int, rate: float, seed: int):
@@ -281,13 +338,23 @@ def attention_seg_with_stats(qkv: torch.Tensor, seg: torch.Tensor,
     geo = seg_fwd_geometry(R, W, HEAD_DIM, nhead)
     ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
     lib = _load()
-    err = lib.attention_seg_fwd(
+    entry = _build.entry(lib, "attention_seg_fwd", qkv.dtype)
+    err = entry(
         ptr(qkv), ptr(seg), ptr(out), ptr(m), ptr(l), R, W, d3 // 3, nhead,
         *_dropout_args(W, rate, seed), *geo.args(), _stream(qkv))
-    _build.check(lib, err, "attention_seg_fwd")
+    _build.check(lib, err, entry.__name__)
     attention_seg.launches += 1
-    attention_seg.instances[geo.instance] += 1
+    attention_seg.instances[_instance(geo, qkv)] += 1
     return out, m, l
+
+
+DTYPES = (torch.float32, torch.bfloat16)   # K2's and K2-bwd's instances
+
+
+def _instance(geo, qkv: torch.Tensor) -> str:
+    """The counted instance: "tile", "long" or "tile_bf16"."""
+    return (geo.instance if qkv.dtype == torch.float32
+            else geo.instance + "_bf16")
 
 
 class _AttentionSeg(torch.autograd.Function):
@@ -326,7 +393,8 @@ def attention_seg(qkv: torch.Tensor, seg: torch.Tensor, nhead: int,
 
 
 attention_seg.launches = 0
-attention_seg.instances = {"tile": 0, "long": 0}   # launches by instance
+# launches by instance
+attention_seg.instances = {"tile": 0, "long": 0, "tile_bf16": 0}
 
 
 def attention_seg_bwd(qkv: torch.Tensor, seg: torch.Tensor, nhead: int,
@@ -361,18 +429,20 @@ def attention_seg_bwd(qkv: torch.Tensor, seg: torch.Tensor, nhead: int,
     delta = torch.empty_like(m) if geo.instance == "long" else None
     ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
     lib = _load()
-    err = lib.attention_seg_bwd(
+    entry = _build.entry(lib, "attention_seg_bwd", qkv.dtype)
+    err = entry(
         *(ptr(t) for t in (qkv, seg, out, gout, m, l, delta, dqkv)),
         R, W, d3 // 3, nhead, *_dropout_args(W, rate, seed), *geo.args(),
         _stream(qkv))
-    _build.check(lib, err, "attention_seg_bwd")
+    _build.check(lib, err, entry.__name__)
     attention_seg_bwd.launches += 1
-    attention_seg_bwd.instances[geo.instance] += 1
+    attention_seg_bwd.instances[_instance(geo, qkv)] += 1
     return dqkv
 
 
 attention_seg_bwd.launches = 0
-attention_seg_bwd.instances = {"tile": 0, "long": 0}   # launches by instance
+# launches by instance
+attention_seg_bwd.instances = {"tile": 0, "long": 0, "tile_bf16": 0}
 
 
 # ---- launch geometry of the kernels on csrc/attention_tile.cuh ------------

@@ -69,6 +69,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from .rounding import round_grad, round_value
 
 _SMEM_MAX = 232448  # bytes of shared memory a block can use on Hopper
 SM_SHARED = 228 * 1024  # shared memory of an SM; a block reserves 1 KB more
@@ -80,8 +81,12 @@ MIN_SLICE_LANES = 8  # lanes a channel slice keeps when the grid is split
 
 def gin_agg_plain(x, src, dst, emask, attr, tbl, w=None, scale=None):
     """Plain PyTorch version of K1: same arguments, same result; autograd
-    differentiates it. x [G,Sm,d] f32; src/dst/emask [G,Em]; attr [G,F,Em]
-    int; tbl [V,d]; w [G,Em] or None; scale a 1-element tensor or None."""
+    differentiates it. x [G,Sm,d] f32 or bf16; src/dst/emask [G,Em];
+    attr [G,F,Em] int; tbl [V,d] and w [G,Em] or None in x's dtype; scale
+    a 1-element f32 tensor or None. bf16 inputs take ``_gin_agg_bf16``,
+    which rounds where the bf16 kernels round."""
+    if x.dtype == torch.bfloat16:
+        return _gin_agg_bf16(x, src, dst, emask, attr, tbl, w, scale)
     G, Sm, d = x.shape
     Em = src.shape[1]
     attr = attr.long()
@@ -100,6 +105,37 @@ def gin_agg_plain(x, src, dst, emask, attr, tbl, w=None, scale=None):
     return out
 
 
+def _gin_agg_bf16(x, src, dst, emask, attr, tbl, w, scale):
+    """K1 in bf16, as the JAX kernel computes it in bf16
+    (``graphtrans_tpu/ops/pallas/gin_agg.py:_fwd_kernel``, ``_bwd_kernel``):
+    the pre-activation x_src + sum_f T[attr_f] summed in float32, relu, times
+    w in float32; each message rounded to bf16 once, summed in float32 at
+    its destination, ``scale*x`` added in float32 and the result rounded
+    once. Backward (autograd through the float32 ops): dmsg = gout[dst]
+    (times w, masked by relu and the mask) rounded to bf16 once; dx its sum
+    at the source plus ``scale*gout`` in float32, rounded once; dT summed in
+    float32 and rounded to T's dtype; dw a float32 sum over channels,
+    rounded to w's dtype; dscale a float32 sum."""
+    G, Sm, d = x.shape
+    Em = src.shape[1]
+    attr = attr.long()
+    xf, tf = x.float(), tbl.float()
+    emb = tf[attr[:, 0]]
+    for f in range(1, attr.shape[1]):
+        emb = emb + tf[attr[:, f]]                           # [G, Em, d]
+    xs = torch.gather(xf, 1, src.long()[..., None].expand(G, Em, d))
+    pre = round_grad(xs + emb, x.dtype)                     # dmsg's rounding
+    m = torch.relu(pre)
+    if w is not None:
+        m = m * w.float()[..., None]
+    m = round_value(m.masked_fill(~emask[..., None], 0.0), x.dtype)
+    out = torch.zeros_like(xf).scatter_add_(
+        1, dst.long()[..., None].expand(G, Em, d), m)
+    if scale is not None:
+        out = out + scale.reshape(()) * xf
+    return out.to(x.dtype)
+
+
 def gin_agg_bwd_plain(x, src, dst, emask, attr, tbl, w, scale, gout):
     """Plain version of K1's backward: autograd through ``gin_agg_plain``.
     Returns (dx, dT, dw or None, dscale or None), as ``gin_agg_bwd``."""
@@ -113,20 +149,27 @@ def gin_agg_bwd_plain(x, src, dst, emask, attr, tbl, w, scale, gout):
     return tuple(next(got) if t is not None else None for t in leaves)
 
 
+DTYPES = (torch.float32, torch.bfloat16)   # the kernels' instances
+
+
 def _check(x, src, dst, emask, attr, tbl, w, scale, gout=None):
+    """x, tbl, w and gout in one dtype of DTYPES (the f32 or the bf16
+    instance; mixed dtypes raise), scale f32, the rest as the kernels read
+    them; every tensor on x's device and contiguous."""
     G, Sm, d = x.shape
     Em = src.shape[1]
     F = attr.shape[1]
-    want = [(x, torch.float32, (G, Sm, d)), (src, torch.int32, (G, Em)),
+    dt = x.dtype if x.dtype in DTYPES else torch.float32
+    want = [(x, dt, (G, Sm, d)), (src, torch.int32, (G, Em)),
             (dst, torch.int32, (G, Em)), (emask, torch.bool, (G, Em)),
             (attr, torch.int32, (G, F, Em)),
-            (tbl, torch.float32, (tbl.shape[0], d))]
+            (tbl, dt, (tbl.shape[0], d))]
     if w is not None:
-        want.append((w, torch.float32, (G, Em)))
+        want.append((w, dt, (G, Em)))
     if scale is not None:
         want.append((scale, torch.float32, (1,)))
     if gout is not None:
-        want.append((gout, torch.float32, (G, Sm, d)))
+        want.append((gout, dt, (G, Sm, d)))
     dev = x.device
     for t, dtype, shape in want:   # one test a tensor: at serve64 the
         if (t.dtype != dtype or t.shape != shape or t.device != dev
@@ -146,17 +189,23 @@ def _refuse(t, dtype, shape, dev):
 XRING = 8  # rows of x in flight in a backward block's ring (csrc/gin_agg.cu)
 
 
+def _word_bytes(n: int, esize: int) -> int:
+    """Bytes of n elements of ``esize`` bytes, rounded up to whole words."""
+    return -(-n * esize // 4) * 4
+
+
 def bwd_smem(Sm: int, Em: int, F: int, V: int, channels: int, threads: int,
-             has_w: bool, xrows: int) -> int:
+             has_w: bool, xrows: int, esize: int = 4) -> int:
     """Shared bytes of a K1-bwd block (``csrc/gin_agg.cu:bwd_smem``): the
-    sorted edge records, one graph's gout slice, ``xrows`` rows of x (the
-    slice, or a ring of XRING), the bond table's gradient, the staged edge
+    sorted edge records, one graph's gout slice and ``xrows`` rows of x
+    (the slice, or a ring of XRING) in elements of ``esize`` bytes (4: the
+    f32 instance, 2: bf16), the bond table's gradient, the staged edge
     lists, with ``w`` the weights and per-warp dw sums, and 32 floats of
     scratch."""
-    words = 8 * Em + (Sm + xrows + V) * channels + Em * (F + 4) + 32
+    words = 8 * Em + V * channels + Em * (F + 4) + 32
     if has_w:
         words += Em * (1 + threads // 32)
-    return 4 * words
+    return 4 * words + _word_bytes((Sm + xrows) * channels, esize)
 
 
 @dataclass(frozen=True)
@@ -233,10 +282,12 @@ def _chunks(G: int, slices: int, smem: int, sms: int):
 
 @functools.lru_cache(maxsize=None)
 def bwd_geometry(G: int, Sm: int, Em: int, F: int, V: int, d: int,
-                 has_w: bool, sms: int = SMS, align: int = 4) -> BwdGeometry:
+                 has_w: bool, sms: int = SMS, align: int = 4,
+                 esize: int = 4) -> BwdGeometry:
     """K1-bwd's launch for G graphs of stride Sm with Em edge slots and F
     table rows an edge, at width d, on a card of ``sms`` SMs; ``align`` is
-    the widest vector (in floats) that the tensors' addresses allow.
+    the widest vector (in elements) that the tensors' addresses allow,
+    ``esize`` the bytes of an element (4: the f32 instance, 2: bf16).
 
     Vector width and channel slices by ``_slices`` (with x as a ring of
     XRING rows). Where a block of each graph (and slice) fits the card at
@@ -250,10 +301,11 @@ def bwd_geometry(G: int, Sm: int, Em: int, F: int, V: int, d: int,
     ring = min(XRING, Sm)
     vec, per, slices, threads = _slices(
         G, d, sms, align,
-        lambda ch, th: bwd_smem(Sm, Em, F, V, ch, th, has_w, ring),
+        lambda ch, th: bwd_smem(Sm, Em, F, V, ch, th, has_w, ring, esize),
         f"gin_agg_bwd: stride {Sm} and {Em} edge slots")
-    smem, xrows = bwd_smem(Sm, Em, F, V, per * vec, threads, has_w, ring), ring
-    whole = bwd_smem(Sm, Em, F, V, per * vec, threads, has_w, Sm)
+    smem = bwd_smem(Sm, Em, F, V, per * vec, threads, has_w, ring, esize)
+    xrows = ring
+    whole = bwd_smem(Sm, Em, F, V, per * vec, threads, has_w, Sm, esize)
     if _one_wave(G, slices, whole, sms):
         smem, xrows = whole, Sm
     gpb, chunks = _chunks(G, slices, smem, sms)
@@ -261,12 +313,14 @@ def bwd_geometry(G: int, Sm: int, Em: int, F: int, V: int, d: int,
                        xrows)
 
 
-def fwd_smem(Sm: int, Em: int, F: int, channels: int, has_w: bool) -> int:
+def fwd_smem(Sm: int, Em: int, F: int, channels: int, has_w: bool,
+             esize: int = 4) -> int:
     """Shared bytes of a K1 forward block (``csrc/gin_agg.cu:fwd_smem``):
-    one graph's x slice, and per edge slot its sort key and its sorted
-    record (src and dst in one word, the F table rows, with w the
-    weight)."""
-    return 4 * (Sm * channels + Em * (2 + F + int(has_w)))
+    one graph's x slice in elements of ``esize`` bytes, and per edge slot
+    its sort key and its sorted record (src and dst in one word, the F
+    table rows, with w the weight)."""
+    return (_word_bytes(Sm * channels, esize)
+            + 4 * Em * (2 + F + int(has_w)))
 
 
 @dataclass(frozen=True)
@@ -295,7 +349,8 @@ class FwdGeometry:
 
 @functools.lru_cache(maxsize=None)
 def fwd_geometry(G: int, Sm: int, Em: int, F: int, V: int, d: int,
-                 has_w: bool, sms: int = SMS, align: int = 4) -> FwdGeometry:
+                 has_w: bool, sms: int = SMS, align: int = 4,
+                 esize: int = 4) -> FwdGeometry:
     """K1's forward launch, the arguments as ``bwd_geometry``'s. Vector
     width and channel slices by ``_slices``. Where a block of each graph
     (and slice) fits the card at once, a block walks one graph; else it
@@ -308,9 +363,10 @@ def fwd_geometry(G: int, Sm: int, Em: int, F: int, V: int, d: int,
         raise ValueError(f"gin_agg: stride {Sm} and {Em} edge slots do not "
                          f"fit a sort key (stride at most 65536)")
     vec, per, slices, threads = _slices(
-        G, d, sms, align, lambda ch, th: fwd_smem(Sm, Em, F, ch, has_w),
+        G, d, sms, align,
+        lambda ch, th: fwd_smem(Sm, Em, F, ch, has_w, esize),
         f"gin_agg: stride {Sm} and {Em} edge slots")
-    smem = fwd_smem(Sm, Em, F, per * vec, has_w)
+    smem = fwd_smem(Sm, Em, F, per * vec, has_w, esize)
     gpb, chunks = _chunks(G, slices, smem, sms)
     return FwdGeometry(vec, gpb, chunks, slices, per * vec, threads, smem)
 
@@ -343,14 +399,16 @@ def _launch_fwd(x, src, dst, emask, attr, tbl, w, scale):
         return out
     Em, F, V = src.shape[1], attr.shape[1], tbl.shape[0]
     geo = fwd_geometry(G, Sm, Em, F, V, d, w is not None, _sms(x.device),
-                       _build.align(x, tbl, out))
+                       _build.align(x, tbl, out), x.element_size())
     lib = _load()
-    err = lib.gin_agg_fwd(
+    entry = _build.entry(lib, "gin_agg_fwd", x.dtype)
+    err = entry(
         _ptr(x), _ptr(src), _ptr(dst), _ptr(emask), _ptr(attr), _ptr(tbl),
         _ptr(w), _ptr(scale), _ptr(out), G, Sm, Em, F, V, d, *geo.args(),
         _stream(x))
-    _build.check(lib, err, "gin_agg_fwd")
+    _build.check(lib, err, entry.__name__)
     gin_agg.launches += 1
+    gin_agg.instances[_INSTANCE[x.dtype]] += 1
     return out
 
 
@@ -391,6 +449,7 @@ def gin_agg(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
 
 
 gin_agg.launches = 0
+gin_agg.instances = {"f32": 0, "bf16": 0}   # launches by instance
 
 
 def gin_agg_bwd(x, src, dst, emask, attr, tbl, w, scale, gout):
@@ -405,10 +464,11 @@ def gin_agg_bwd(x, src, dst, emask, attr, tbl, w, scale, gout):
     _check(x, src, dst, emask, attr, tbl, w, scale, gout)
     G, Sm, d = x.shape
     V, Em, F = tbl.shape[0], src.shape[1], attr.shape[1]
-    new = lambda *shape: torch.empty(shape, dtype=torch.float32,
-                                     device=x.device)
-    dx, dtbl = new(G, Sm, d), new(V, d)
-    dw = new(G, Em) if w is not None else None
+    f32 = x.dtype == torch.float32
+    new = lambda *shape, dtype=torch.float32: torch.empty(
+        shape, dtype=dtype, device=x.device)
+    dx, dtbl = new(G, Sm, d, dtype=x.dtype), new(V, d, dtype=x.dtype)
+    dw = new(G, Em, dtype=x.dtype) if w is not None else None
     dscale = new(1) if scale is not None else None
     if G == 0 or d == 0:
         dtbl.zero_()
@@ -416,23 +476,29 @@ def gin_agg_bwd(x, src, dst, emask, attr, tbl, w, scale, gout):
             dscale.zero_()
         return dx, dtbl, dw, dscale
     geo = bwd_geometry(G, Sm, Em, F, V, d, w is not None, _sms(x.device),
-                       _build.align(x, gout, tbl))
+                       _build.align(x, gout, tbl), x.element_size())
     dtbl_part = new(geo.chunks, V, d)
-    dw_part = new(geo.slices, G, Em) if w is not None and geo.slices > 1 \
-        else None
+    dw_part = (new(geo.slices, G, Em)
+               if w is not None and (geo.slices > 1 or not f32) else None)
     dsc_part = new(geo.chunks * geo.slices) if scale is not None else None
     lib = _load()
-    err = lib.gin_agg_bwd(
+    entry = _build.entry(lib, "gin_agg_bwd", x.dtype)
+    err = entry(
         _ptr(x), _ptr(src), _ptr(dst), _ptr(emask), _ptr(attr), _ptr(tbl),
         _ptr(w), _ptr(scale), _ptr(gout), _ptr(dx), _ptr(dtbl), _ptr(dw),
         _ptr(dscale), _ptr(dtbl_part), _ptr(dw_part), _ptr(dsc_part), G, Sm,
         Em, F, V, d, *geo.args(), _stream(x))
-    _build.check(lib, err, "gin_agg_bwd")
+    _build.check(lib, err, entry.__name__)
     gin_agg_bwd.launches += 1
+    gin_agg_bwd.instances[_INSTANCE[x.dtype]] += 1
     return dx, dtbl, dw, dscale
 
 
 gin_agg_bwd.launches = 0
+gin_agg_bwd.instances = {"f32": 0, "bf16": 0}   # launches by instance
+_INSTANCE = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
 
 
 def _load():

@@ -2790,3 +2790,150 @@ def test_blocked_dx_matches_walk(cuda, d, message, weighted):
         lambda: blocked_gather_message_scatter_dx(x, g, ef, pb, wf, message,
                                                   rows=rows),
         "blocked_dx")
+
+
+# ---- the bf16 step: K1, K1-bwd, K2 and K2-bwd in bf16 ---------------------
+
+BF16 = torch.bfloat16
+# of max(1, max |plain bf16|): outputs two bf16 ulps at 1, gradients four
+BF16_OUT_TOL, BF16_GRAD_TOL = 7.8e-3, 1.6e-2
+
+
+def _rel_bf16(got, want) -> float:
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max().item()
+            / max(1.0, want.abs().max().item()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 65, 4097])
+@pytest.mark.parametrize("d", [40, 42, 300])
+@pytest.mark.parametrize("with_w,with_scale", [(False, True), (True, False),
+                                               (True, True)])
+def test_gin_agg_bf16_kernels_match_plain(cuda, G, d, with_w, with_scale):
+    """K1 and K1-bwd's bf16 instances against their plain bf16 versions
+    (the JAX kernel's rounding points): out within BF16_OUT_TOL and dx,
+    dT, dw (bf16) and dscale (f32) within BF16_GRAD_TOL of max(1,
+    max|plain|), at one graph, 65 and the bench batch's 4097, 4 channels a
+    thread (d 40, 300) and 1 (d 42); counted by instance; padding rows of
+    out exactly 0; the same bits on two runs."""
+    b = _k1_batch(G).to(cuda)
+    a = _k1_args(b, d, with_w, with_scale, cuda)
+    args = (a[0].to(BF16), *a[1:5], a[5].to(BF16),
+            None if a[6] is None else a[6].to(BF16), a[7])
+    gout = torch.randn(a[0].shape, generator=torch.Generator().manual_seed(
+        8)).to(cuda, BF16)
+    f0, b0 = gin_agg.instances["bf16"], gin_agg_bwd.instances["bf16"]
+    out = gin_agg(*args)
+    got = gin_agg_bwd(*args, gout)
+    again = gin_agg_bwd(*args, gout)
+    torch.cuda.synchronize()
+    assert gin_agg.instances["bf16"] == f0 + 1
+    assert gin_agg_bwd.instances["bf16"] == b0 + 2
+    assert out.dtype == BF16
+    assert _rel_bf16(out, gin_agg_plain(*args)) <= BF16_OUT_TOL
+    assert not out.reshape(-1, d)[~b.node_mask].any()
+    want = gin_agg_bwd_plain(*args, gout)
+    for name, g, w, r in zip(("dx", "dT", "dw", "dscale"), got, want, again):
+        assert (g is None) == (w is None), name
+        if g is not None:
+            assert g.dtype == w.dtype, name
+            assert _rel_bf16(g, w) <= BF16_GRAD_TOL, name
+            assert torch.equal(g, r), name
+
+
+@pytest.mark.cuda
+def test_bf16_wrappers_refuse_mixed_dtypes(cuda):
+    """A bf16 x with an f32 table, or a bf16 qkv with an f32 cotangent,
+    raises: no wrapper widens or narrows an input silently."""
+    b = _k1_batch(65).to(cuda)
+    a = _k1_args(b, 40, False, True, cuda)
+    with pytest.raises(ValueError):
+        gin_agg(a[0].to(BF16), *a[1:])
+    qkv, seg = _k2_segments(128, cuda)
+    q16 = qkv.to(BF16)
+    out, m, l = attention_seg_with_stats(q16, seg, 4, 0.0, 0)
+    with pytest.raises(ValueError):
+        attention_seg_bwd(q16, seg, 4, out.float(), (out, m, l))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [37, 128])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_attention_seg_bf16_kernels_match_plain(cuda, W, rate):
+    """K2 and K2-bwd's bf16 instances (the tile instance, rows of up to
+    128) on rows of every segment length, an id in two runs and an
+    all-padding row, against their plain bf16 versions (the same masks):
+    out within BF16_OUT_TOL, dqkv within BF16_GRAD_TOL of max(1,
+    max|plain|); the serving launch's bits; padding tokens exactly 0; the
+    same bits on two runs; counted as tile_bf16; rows of 129 or more
+    refused (slice 10)."""
+    H, seed = 4, 2**31 - 13
+    qkv, seg = _k2_segments(W, cuda)
+    q16 = qkv.to(BF16)
+    g = torch.randn(qkv.shape[0], W, 128,
+                    generator=torch.Generator().manual_seed(6)).to(cuda, BF16)
+    f0 = attention_seg.instances["tile_bf16"]
+    b0 = attention_seg_bwd.instances["tile_bf16"]
+    runs = []
+    for _ in range(2):
+        out, m, l = attention_seg_with_stats(q16, seg, H, rate, seed)
+        dqkv = attention_seg_bwd(q16, seg, H, g, (out, m, l), rate, seed)
+        runs.append((out, m, l, dqkv))
+    torch.cuda.synchronize()
+    assert attention_seg.instances["tile_bf16"] == f0 + 2
+    assert attention_seg_bwd.instances["tile_bf16"] == b0 + 2
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    out, m, l, dqkv = runs[0]
+    assert out.dtype == dqkv.dtype == BF16
+    assert _rel_bf16(out, attention_seg_plain(q16, seg, H, rate, seed)) \
+        <= BF16_OUT_TOL
+    assert _rel_bf16(dqkv, attention_seg_bwd_plain(q16, seg, H, g, rate,
+                                                   seed)) <= BF16_GRAD_TOL
+    pad = seg < 0
+    assert not out[pad].any() and not dqkv[pad].any()
+    if rate == 0.0:
+        assert torch.equal(attention_seg(q16, seg, H), out)
+    wide, wseg = _k2_segments(384, cuda)
+    with pytest.raises(NotImplementedError, match="slice 10"):
+        attention_seg(wide.to(BF16), wseg, H)
+
+
+@pytest.mark.cuda
+def test_bf16_train_step_kernels_match_plain(cuda, deterministic):
+    """One bf16 AdamW step (dropout on, the same seeds) through the bf16
+    kernels against the plain bf16 versions: the loss within 2e-2 of
+    max(1, |ref|), the float32 gradients within 5e-2 of max(1, max|ref|)
+    (the bounds tests/test_torch_port_bf16.py holds the step to against
+    the JAX package); the launches the bf16 instances."""
+    from graphtrans_tpu_torch.nn.dropout import Generators
+    from graphtrans_tpu_torch.ops.kernels import reset_launches
+    from graphtrans_tpu_torch.train.losses import binary_multitask_loss
+    from graphtrans_tpu_torch.train.optim import build_optimizer
+    from graphtrans_tpu_torch.trainers.base_trainer import make_train_step
+
+    b = _batch(seed=4).to(cuda)
+    args = argparse.Namespace(lr=1e-4, weight_decay=0.0, grad_clip=None,
+                              scheduler=None, epochs=1)
+    out = []
+    for kernels in (True, False):
+        model = set_kernels(_train_model(cuda), kernels)
+        opt = build_optimizer(model, args, 1)
+        step = make_train_step(model, binary_multitask_loss, opt,
+                               Generators.seeded(11, cuda), "bf16")
+        reset_launches()
+        loss = step(b)
+        out.append((loss, {n: p.grad.clone() for n, p in
+                           model.named_parameters()}))
+        if kernels:
+            assert gin_agg.instances == {"f32": 0, "bf16": 3}
+            assert gin_agg_bwd.instances == {"f32": 0, "bf16": 3}
+            assert attention_seg.instances["tile_bf16"] == 2
+            assert attention_seg_bwd.instances["tile_bf16"] == 2
+    (lk, gk), (lp, gp) = out
+    assert lk.dtype == torch.float32
+    assert abs(lk.item() - lp.item()) <= 2e-2 * max(1.0, abs(lp.item()))
+    for name in gk:
+        assert gk[name].dtype == torch.float32, name
+        assert _rel_bf16(gk[name], gp[name]) <= 5e-2, name
