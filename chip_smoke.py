@@ -12,7 +12,10 @@ them beside this tree's, in turns (earlier, this, this, earlier; K12 in
 the alternating rounds of 13a), on the same inputs; phases 2, 6a, 7a, 8a,
 12a and 13a hold K1, K1-bwd, K7, K7-bwd, K6-bwd (dx and demb; dw within
 K6_TOL), K8's forward and K8-dx to its bits, and 12a reports K6's largest
-difference from it (0: its bits).
+difference from it (0: its bits); phase 14a times its K2 and K2-bwd bf16
+instances beside this tree's and the f32 instances, in turns, prints their
+errors against the plain bf16 versions, and holds this tree's f32 K2 and
+K2-bwd to its bits.
 
 Phases, each printing one line (any failure raises and exits non-zero):
   0. the card (nvidia-smi name and power limit) and torch; TF32 off;
@@ -171,7 +174,15 @@ Phases, each printing one line (any failure raises and exits non-zero):
      the src-major copy on every real slot) against the plain versions and
      the K7 route; (c) times the 512-graph forward and train step on the
      blocked route, with peak memory, beside the K7 route, and profiles
-     both routes' forward and the blocked step.
+     both routes' forward and the blocked step;
+ 14. (a) K1, K1-bwd, K2 and K2-bwd in bf16 against their plain bf16
+     versions at serve64 and bench4096 (K2's pair: bf16 rows, a warp a
+     16-query tile, bf16 mma.sync), timed as the bf16 step calls them
+     beside the f32 instance in turns, bound, plain version and, for K2
+     and K2-bwd, SDPA in bf16; (b) trains the molpcba GraphTrans yml in
+     bf16 through main (every K1, K1-bwd, K2 and K2-bwd launch the bf16
+     instance); (c) a bf16 step against the plain versions; (d) the
+     4096-graph train step in f32 and bf16 in turns, profiled.
 Then the script's wall seconds, a {"kernels": [...]} line, the nvidia-smi
 line, and the contract line
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without
@@ -338,6 +349,16 @@ def load_baseline(root):
     return mods
 
 
+def rounds_ms(fns, iters: int):
+    """ms of each of ``fns`` timed in turns: each in order, then in reverse
+    order, the mean of its two ``time_ms``; None where ``fns`` has None."""
+    live = [f for f in fns if f is not None]
+    got = {}
+    for f in live + live[::-1]:
+        got.setdefault(id(f), []).append(time_ms(f, iters=iters))
+    return [None if f is None else statistics.mean(got[id(f)]) for f in fns]
+
+
 def turns_ms(new, old, iters: int):
     """(this ms, earlier ms): ``new`` and ``old`` timed in turns (old, new,
     new, old), each the mean of its two ``time_ms``; earlier None without
@@ -493,13 +514,14 @@ def _bound(nbytes: int, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _tc_bound(nbytes: int, tc_flops: float, simt_flops: float):
-    """As _bound with ``tc_flops`` on the tensor cores in TF32 (a 3xTF32
-    product counts three passes) and ``simt_flops`` on the f32 units: the
-    two kinds of unit run side by side, so the bound is the larger of the
-    bytes' time and each unit's."""
+def _tc_bound(nbytes: int, tc_flops: float, simt_flops: float,
+              tc_peak: float = TF32_TC_FLOPS):
+    """As _bound with ``tc_flops`` on the tensor cores at ``tc_peak`` (TF32
+    by default: a 3xTF32 product counts three passes) and ``simt_flops`` on
+    the f32 units: the two kinds of unit run side by side, so the bound is
+    the larger of the bytes' time and each unit's."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(tc_flops / TF32_TC_FLOPS, simt_flops / F32_FLOPS) * 1e3
+    t_ops = max(tc_flops / tc_peak, simt_flops / F32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -5233,22 +5255,23 @@ def check_k1_bf16(inp, gout):
     return f_err, b_err
 
 
-def check_k2_bf16(qkv, seg, nhead: int, gen):
+def check_k2_bf16(qkv, seg, nhead: int, gen, mod=None):
     """K2 and K2-bwd in bf16, at rate 0 and the training rate, against
-    their plain bf16 versions (the same masks): relative errors."""
-    from graphtrans_tpu_torch.ops.kernels import (attention_seg,
-                                                  attention_seg_bwd,
-                                                  attention_seg_bwd_plain,
+    their plain bf16 versions (the same masks): relative errors. ``mod`` is
+    the kernels' module (the port's attention_packed by default; the
+    parent's under ``--baseline``); the plain versions are the port's."""
+    from graphtrans_tpu_torch.ops.kernels import (attention_seg_bwd_plain,
                                                   attention_seg_plain)
-    from graphtrans_tpu_torch.ops.kernels.attention_packed import (
-        attention_seg_with_stats)
+    from graphtrans_tpu_torch.ops.kernels import attention_packed
 
+    mod = mod or attention_packed
     f_err = b_err = 0.0
     for rate, seed in ((0.0, 0), (DROPOUT, 24681357)):
-        out, m, l = attention_seg_with_stats(qkv, seg, nhead, rate, seed)
+        out, m, l = mod.attention_seg_with_stats(qkv, seg, nhead, rate, seed)
         g = torch.randn(out.shape, generator=gen).to(qkv.device, BF16)
-        dqkv = attention_seg_bwd(qkv, seg, nhead, g, (out, m, l), rate, seed)
-        serve = attention_seg(qkv, seg, nhead) if rate == 0 else out
+        dqkv = mod.attention_seg_bwd(qkv, seg, nhead, g, (out, m, l), rate,
+                                     seed)
+        serve = mod.attention_seg(qkv, seg, nhead) if rate == 0 else out
         torch.cuda.synchronize()
         if out.dtype != BF16 or dqkv.dtype != BF16:
             raise AssertionError("K2 bf16: outputs are not bf16")
@@ -5268,27 +5291,48 @@ def check_k2_bf16(qkv, seg, nhead: int, gen):
     return f_err, b_err
 
 
+def _seg_pairs(seg, nhead: int) -> int:
+    """The same-segment (query, key) pairs of every head."""
+    _, counts = torch.unique(seg[seg >= 0], return_counts=True)
+    return int((counts.long() ** 2).sum().item()) * nhead
+
+
+def k2_bf16_bound(qkv, seg, nhead: int):
+    """K2's bf16 training launch reads qkv and seg and writes out, m and l;
+    per same-segment pair its two products (4 hd flops) on the bf16 tensor
+    cores, as the kernel runs them, and the softmax (4) on the f32 units."""
+    R, W, d3 = qkv.shape
+    hd = d3 // 3 // nhead
+    pairs = _seg_pairs(seg, nhead)
+    nbytes = (qkv.numel() * 2 + seg.numel() * 4 + R * W * (d3 // 3) * 2
+              + 2 * R * W * nhead * 4)
+    return _tc_bound(nbytes, pairs * 4 * hd, pairs * 4, BF16_TC_FLOPS)
+
+
 def k2_bf16_bwd_bound(qkv, seg, nhead: int):
     """K2-bwd's bf16 instance reads qkv, seg, the cotangent and the
     forward's m and l (not its out: delta is summed from the pairs) and
-    writes dqkv; the operations of k3_bwd_bound on the f32 SIMT units, as
-    the tile body computes them."""
+    writes dqkv; per pair its five products (s, dp, dQ, dK, dV: 10 hd
+    flops) on the bf16 tensor cores, as the kernel runs them, and 8 on the
+    f32 units."""
     R, W, d3 = qkv.shape
     hd = d3 // 3 // nhead
-    _, counts = torch.unique(seg[seg >= 0], return_counts=True)
-    pairs = int((counts.long() ** 2).sum().item()) * nhead
-    e = qkv.element_size()
-    nbytes = (2 * qkv.numel() * e + seg.numel() * 4 + R * W * (d3 // 3) * e
+    pairs = _seg_pairs(seg, nhead)
+    nbytes = (2 * qkv.numel() * 2 + seg.numel() * 4 + R * W * (d3 // 3) * 2
               + 2 * R * W * nhead * 4)
-    return _bound(nbytes, pairs * (10 * hd + 8))
+    return _tc_bound(nbytes, pairs * 10 * hd, pairs * 8, BF16_TC_FLOPS)
 
 
-def phase14_kernels(device, d_gnn: int, d_model: int, nhead: int, big):
+def phase14_kernels(device, d_gnn: int, d_model: int, nhead: int, big,
+                    base=None):
     """(a) K1, K1-bwd, K2 and K2-bwd in bf16 against their plain bf16
     versions at serve64 and bench4096, timed as the bf16 step calls them
     (K1 with the GIN scale, K2 at the training rate) beside the f32
     instance in turns, bound (bf16 bytes), plain version and, for K2 and
-    K2-bwd, SDPA in bf16 with the bool segment mask."""
+    K2-bwd, SDPA in bf16 with the bool segment mask. With ``base`` the
+    parent's K2 and K2-bwd bf16 instances too: their errors, and their
+    times in the same turns; and the f32 instances of K2 and K2-bwd held to
+    the parent's bits."""
     from graphtrans_tpu_torch.data.loader import iterate_batches
     from graphtrans_tpu_torch.data.mol import load_mol_splits
     from graphtrans_tpu_torch.ops.kernels import (attention_seg_bwd, gin_agg,
@@ -5297,12 +5341,13 @@ def phase14_kernels(device, d_gnn: int, d_model: int, nhead: int, big):
         attention_seg_plain, attention_seg_with_stats)
     from graphtrans_tpu_torch.predict import serving_layout
 
+    old = base and base["attention_packed"]
     gen = torch.Generator().manual_seed(SEED + 14)
     splits, num_tasks = load_mol_splits(SNAPSHOT, "ogbg-molpcba")
     serve = next(iterate_batches(splits["train"],
                                  **serving_layout(splits, _args(), num_tasks)))
     errs = dict.fromkeys(("k1", "k1b", "k2", "k2b"), 0.0)
-    rows = None
+    rows, checked = None, []
     for name, b in (("serve64", serve), ("bench4096", big)):
         inp = k1_inputs(b, d_gnn, gen, device)
         gout = torch.randn(inp["x"].shape, generator=gen).to(device, BF16)
@@ -5311,6 +5356,12 @@ def phase14_kernels(device, d_gnn: int, d_model: int, nhead: int, big):
         qkv, seg = k2_inputs(b, d_model, gen, device)
         f, e = check_k2_bf16(qkv.to(BF16), seg, nhead, gen)
         errs["k2"], errs["k2b"] = max(errs["k2"], f), max(errs["k2b"], e)
+        line = (f"[14a] {name} K2 bf16 {f:.3g}, K2-bwd bf16 {e:.3g} of "
+                f"max(1, max|plain bf16|)")
+        if old:
+            fo, eo = check_k2_bf16(qkv.to(BF16), seg, nhead, gen, old)
+            line += f" (the parent's pair {fo:.3g}, {eo:.3g})"
+        print(line)
 
         a32 = (inp["x"], inp["src"], inp["dst"], inp["emask"], inp["attr"],
                inp["tbl"], None, inp["scale"])
@@ -5336,23 +5387,39 @@ def phase14_kernels(device, d_gnn: int, d_model: int, nhead: int, big):
         k2 = dict(plain_ms=time_ms(lambda: attention_seg_plain(
             q16, seg, nhead, DROPOUT, seed), iters=5),
             library_ms=sdpa_ms(q16, seg, nhead))
-        k2["ms"], k2["f32_ms"] = turns_ms(
+        k2["ms"], k2["f32_ms"], k2["earlier_ms"] = rounds_ms([
             lambda: attention_seg_with_stats(q16, seg, nhead, DROPOUT, seed),
             lambda: attention_seg_with_stats(qkv, seg, nhead, DROPOUT, seed),
-            20)
-        k2["bound_ms"], k2["bound_by"] = k2_bound(q16, seg, nhead)
+            old and (lambda: old.attention_seg_with_stats(
+                q16, seg, nhead, DROPOUT, seed))], 20)
+        k2["bound_ms"], k2["bound_by"] = k2_bf16_bound(q16, seg, nhead)
         s16 = attention_seg_with_stats(q16, seg, nhead, DROPOUT, seed)
         s32 = attention_seg_with_stats(qkv, seg, nhead, DROPOUT, seed)
         k2b = dict(plain_ms=_plain_bwd_ms(
             lambda t: attention_seg_plain(t, seg, nhead, DROPOUT, seed),
             [q16], g16), library_ms=sdpa_bwd_ms(q16, seg, nhead, g16,
                                                 DROPOUT))
-        k2b["ms"], k2b["f32_ms"] = turns_ms(
+        k2b["ms"], k2b["f32_ms"], k2b["earlier_ms"] = rounds_ms([
             lambda: attention_seg_bwd(q16, seg, nhead, g16, s16, DROPOUT,
                                       seed),
             lambda: attention_seg_bwd(qkv, seg, nhead, g32, s32, DROPOUT,
-                                      seed), 20)
+                                      seed),
+            old and (lambda: old.attention_seg_bwd(q16, seg, nhead, g16, s16,
+                                                   DROPOUT, seed))], 20)
         k2b["bound_ms"], k2b["bound_by"] = k2_bf16_bwd_bound(q16, seg, nhead)
+        if old:
+            same_bits(f"K2 f32 training forward {name}",
+                      lambda: attention_seg_with_stats(qkv, seg, nhead,
+                                                       DROPOUT, seed),
+                      lambda: old.attention_seg_with_stats(qkv, seg, nhead,
+                                                           DROPOUT, seed),
+                      checked)
+            same_bits(f"K2-bwd f32 {name}",
+                      lambda: attention_seg_bwd(qkv, seg, nhead, g32, s32,
+                                                DROPOUT, seed),
+                      lambda: old.attention_seg_bwd(qkv, seg, nhead, g32,
+                                                    s32, DROPOUT, seed),
+                      checked)
         shape = "G={} Sm={} Em={} d={}".format(*inp["x"].shape[:2],
                                                 inp["src"].shape[1], d_gnn)
         k2shape = f"R={qkv.shape[0]} W={qkv.shape[1]} d={d_model} H={nhead}"
@@ -5365,9 +5432,11 @@ def phase14_kernels(device, d_gnn: int, d_model: int, nhead: int, big):
             t["shape"] = sh
             lib = ("-" if t["library_ms"] is None
                    else f"{t['library_ms']:.4f}")
+            parent = ("" if t.get("earlier_ms") is None else
+                      f", the parent's bf16 {t['earlier_ms']:.4f}")
             print(f"[14a] {name} {kname} bf16 [{sh}]: kernel "
-                  f"{t['ms']:.4f} ms (the f32 instance {t['f32_ms']:.4f}, in "
-                  f"turns), plain {t['plain_ms']:.4f} ms, bound "
+                  f"{t['ms']:.4f} ms (the f32 instance {t['f32_ms']:.4f}"
+                  f"{parent}, in turns), plain {t['plain_ms']:.4f} ms, bound "
                   f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library {lib} "
                   f"ms (SDPA in bf16, bool seg mask)")
         rows = (k1, k1b, k2, k2b)
@@ -5375,6 +5444,9 @@ def phase14_kernels(device, d_gnn: int, d_model: int, nhead: int, big):
           f"max(1, max|plain|): K1 {errs['k1']:.3g}, K2 {errs['k2']:.3g} "
           f"(<= {BF16_OUT_TOL}); K1-bwd {errs['k1b']:.3g}, K2-bwd "
           f"{errs['k2b']:.3g} (<= {BF16_GRAD_TOL}); padding tokens exactly 0")
+    if old:
+        print(f"[14a] --baseline: the f32 instances give the parent's bits "
+              f"on the same inputs at {checked}")
     return dict(errs=errs, timed=rows)
 
 
@@ -5528,7 +5600,9 @@ def main(argv=None) -> int:
                         "K10-bwd and K12 phases 2 and 6a-13a time beside "
                         "this tree's (K1, K1-bwd, K4, K4-bwd, K6-bwd, K7, "
                         "K7-bwd, K8, K8-dx, K9, K9-bwd, K10, K10-bwd also "
-                        "bit for bit; K6 its largest difference)")
+                        "bit for bit; K6 its largest difference), and "
+                        "whose bf16 K2 pair phase 14a times (its f32 K2 "
+                        "pair bit for bit)")
     opts = p.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5630,7 +5704,7 @@ def main(argv=None) -> int:
     phase13_cost(device, bench_bsp, bsp_tasks, smi)
 
     bf16 = phase14_kernels(device, args.gnn_emb_dim, args.d_model,
-                           args.nhead, big)
+                           args.nhead, big, base)
     with tempfile.TemporaryDirectory() as tmp:
         bf16_launches, bf16_instances = phase14_train(device, tmp)
     phase14_cost(device, big, smi)

@@ -36,6 +36,11 @@
 // wanted the forward writes m and l [R, W, H] (attention_fwd.cuh's
 // meaning) and the backward reads them. The wrapper's seg_fwd_geometry and
 // seg_bwd_geometry pick the instance by W; the entries check the launch.
+// The bf16 instances (rows of up to 128, the bf16 step) have bodies of
+// their own (attention_tile.cuh: fwd_seg16, bwd_seg16): bf16 rows in
+// shared memory, a warp a 16-query tile of a segment, its scores in
+// registers and every product on bf16 mma.sync (launch:
+// seg_bf16_geometry).
 // What it replaces: one block per (row, head) with one thread per query
 // walking all W keys of the row, each key one hd-long dependent FMA chain,
 // other graphs' keys skipped only after their tag was read, the whole
@@ -91,6 +96,20 @@ struct Dropout {
     const unsigned hseed = (unsigned)seed + (unsigned)(r / bt) * stride + h;
     const unsigned pos = ((unsigned)(r % bt) * W + i) * (unsigned)sp + j;
     return prng::hash_bits(pos, hseed) < thresh;
+  }
+
+  // The same mask for one (row r, head h) with the seed and the row's
+  // first position computed once (K2's bf16 bodies: a block a row and
+  // head): row(r, h, W)(i, j) == (*this)(r, h, H, W, i, j).
+  struct Row {
+    unsigned hseed, base, sp, thresh;
+    __device__ bool operator()(int i, int j) const {
+      return prng::hash_bits((base + i) * sp + j, hseed) < thresh;
+    }
+  };
+  __device__ Row row(long r, int h, int W) const {
+    return Row{(unsigned)seed + (unsigned)(r / bt) * stride + h,
+               (unsigned)(r % bt) * W, (unsigned)sp, thresh};
   }
 };
 
@@ -322,37 +341,32 @@ attention_seg_bwd_tile_kernel(const float* __restrict__ qkv,
   tile::bwd_tile<HD>(src, qkv, out, dqkv, W, d, H, scale, dr);
 }
 
-// K2's bf16 instances, on rows of up to SEG_TILE_MAX tokens: the tile
-// kernels' blocks and launches over bf16 qkv, gout, out and dqkv, with the
-// bf16 bodies (attention_tile.cuh: fwd_tile_bf16, bwd_tile_bf16).
-template <int HD, bool DROP, bool STATS>
-__global__ void __launch_bounds__(SEG_FWD_THREADS)
-attention_seg_fwd_tile_bf16_kernel(const tile::bf16* __restrict__ qkv,
-                                   const int* __restrict__ seg,
-                                   tile::bf16* __restrict__ out,
-                                   float* __restrict__ stat_m,
-                                   float* __restrict__ stat_l, int W, int d,
-                                   int H, int score, float scale,
-                                   Dropout dr) {
-  tile::SegRuns<HD, false, tile::bf16> src(seg, nullptr, nullptr, nullptr,
-                                           stat_m, stat_l, out, W, H, score);
-  tile::fwd_tile_bf16<HD, DROP, STATS>(src, qkv, out, stat_m, stat_l, W, d, H,
-                                       scale, dr);
+// K2's bf16 instances, on rows of up to SEG_TILE_MAX tokens: a block of
+// tile::SEG16_THREADS per (row, head), the bodies fwd_seg16 and bwd_seg16
+// of attention_tile.cuh (a warp a 16-query tile, bf16 mma.sync). Registers
+// for five blocks an SM forward (its shared memory allows six), four
+// backward.
+template <bool DROP, bool STATS>
+__global__ void __launch_bounds__(tile::SEG16_THREADS, 5)
+attention_seg_fwd_bf16_kernel(const tile::bf16* __restrict__ qkv,
+                              const int* __restrict__ seg,
+                              tile::bf16* __restrict__ out,
+                              float* __restrict__ stat_m,
+                              float* __restrict__ stat_l, int W, int d, int H,
+                              float scale, Dropout dr) {
+  tile::fwd_seg16<DROP, STATS>(seg, qkv, out, stat_m, stat_l, W, d, H, scale,
+                               dr);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(SEG_BWD_THREADS)
-attention_seg_bwd_tile_bf16_kernel(const tile::bf16* __restrict__ qkv,
-                                   const int* __restrict__ seg,
-                                   const tile::bf16* __restrict__ gout,
-                                   const float* __restrict__ stat_m,
-                                   const float* __restrict__ stat_l,
-                                   tile::bf16* __restrict__ dqkv, int W,
-                                   int d, int H, int score, float scale,
-                                   Dropout dr) {
-  tile::SegRuns<HD, true, tile::bf16> src(seg, gout, stat_m, stat_l, nullptr,
-                                          nullptr, dqkv, W, H, score);
-  tile::bwd_tile_bf16<HD>(src, qkv, dqkv, W, d, H, scale, dr);
+__global__ void __launch_bounds__(tile::SEG16_THREADS, 4)
+attention_seg_bwd_bf16_kernel(const tile::bf16* __restrict__ qkv,
+                              const int* __restrict__ seg,
+                              const tile::bf16* __restrict__ gout,
+                              const float* __restrict__ stat_m,
+                              const float* __restrict__ stat_l,
+                              tile::bf16* __restrict__ dqkv, int W, int d,
+                              int H, float scale, Dropout dr) {
+  tile::bwd_seg16(seg, qkv, gout, stat_m, stat_l, dqkv, W, d, H, scale, dr);
 }
 
 // K2's backward on wider rows: the long-row pair (dq, then dk/dv).
@@ -476,48 +490,57 @@ int launch_seg_bwd(const float* qkv, const int* seg, const float* out,
   return cudaErrorInvalidValue;
 }
 
-// Launches K2's bf16 forward or backward (the tile instance, code 1, the
-// only one: rows of up to SEG_TILE_MAX tokens) after checking the
-// wrapper's seg_fwd_geometry / seg_bwd_geometry, which are the f32
-// instance's: the tiles in shared memory are float either way.
-template <int HD, bool DROP, bool STATS>
+// The bf16 instances' launch, as attention_packed.py:seg_bf16_geometry
+// computes it: code 1, the rows staged, a block of tile::SEG16_THREADS per
+// (row, head), tile::seg16_bytes of shared memory.
+bool seg16_launch_ok(const Launch& L, int R, int W, int H, bool bwd) {
+  return W <= SEG_TILE_MAX && L.instance == 1 &&
+         L.pad == tile::seg16_rows(W) && L.group == 1 &&
+         (long)L.gx == (long)R * H && L.gy == 1 && L.gz == 1 &&
+         L.threads == tile::SEG16_THREADS &&
+         L.smem == tile::seg16_bytes(W, bwd) && L.smem <= tile::SMEM_MAX;
+}
+
+// Lets kernel k take up to `bytes` of dynamic shared memory, with the SM's
+// carveout at its most shared (so that four blocks fit).
+template <class Kernel>
+cudaError_t allow_smem(Kernel k, int bytes) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(k,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+// Launches K2's bf16 forward or backward after checking the wrapper's
+// seg_bf16_geometry; the attributes are set once, before the first launch.
+template <bool DROP, bool STATS>
 int launch_seg_fwd_bf16(const tile::bf16* qkv, const int* seg,
                         tile::bf16* out, float* stat_m, float* stat_l, int R,
                         int W, int d, int H, Dropout dr, const Launch& L,
                         cudaStream_t stream) {
-  if (L.instance != 1 || !seg_tile_launch_ok(L, R, W, H, HD, false))
-    return cudaErrorInvalidValue;
-  const auto k = attention_seg_fwd_tile_bf16_kernel<HD, DROP, STATS>;
-  static const cudaError_t set = [&] {
-    const cudaError_t e = cudaFuncSetAttribute(
-        k, cudaFuncAttributeMaxDynamicSharedMemorySize, tile::SMEM_MAX);
-    if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(k,
-                                cudaFuncAttributePreferredSharedMemoryCarveout,
-                                cudaSharedmemCarveoutMaxShared);
-  }();
+  if (!seg16_launch_ok(L, R, W, H, false)) return cudaErrorInvalidValue;
+  const auto k = attention_seg_fwd_bf16_kernel<DROP, STATS>;
+  static const cudaError_t set =
+      allow_smem(k, tile::seg16_bytes(SEG_TILE_MAX, false));
   if (set != cudaSuccess) return set;
   k<<<L.gx, L.threads, L.smem, stream>>>(qkv, seg, out, stat_m, stat_l, W, d,
-                                         H, tile::seg_score_floats(W),
-                                         1.f / sqrtf((float)HD), dr);
+                                         H, 1.f / sqrtf(32.f), dr);
   return cudaGetLastError();
 }
 
-template <int HD>
 int launch_seg_bwd_bf16(const tile::bf16* qkv, const int* seg,
                         const tile::bf16* gout, const float* stat_m,
                         const float* stat_l, tile::bf16* dqkv, int R, int W,
                         int d, int H, Dropout dr, const Launch& L,
                         cudaStream_t stream) {
-  if (L.instance != 1 || !seg_tile_launch_ok(L, R, W, H, HD, true))
-    return cudaErrorInvalidValue;
-  static const cudaError_t set = cudaFuncSetAttribute(
-      attention_seg_bwd_tile_bf16_kernel<HD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, tile::SMEM_MAX);
+  if (!seg16_launch_ok(L, R, W, H, true)) return cudaErrorInvalidValue;
+  static const cudaError_t set = allow_smem(
+      attention_seg_bwd_bf16_kernel, tile::seg16_bytes(SEG_TILE_MAX, true));
   if (set != cudaSuccess) return set;
-  attention_seg_bwd_tile_bf16_kernel<HD><<<L.gx, L.threads, L.smem, stream>>>(
-      qkv, seg, gout, stat_m, stat_l, dqkv, W, d, H,
-      tile::seg_score_floats(W), 1.f / sqrtf((float)HD), dr);
+  attention_seg_bwd_bf16_kernel<<<L.gx, L.threads, L.smem, stream>>>(
+      qkv, seg, gout, stat_m, stat_l, dqkv, W, d, H, 1.f / sqrtf(32.f), dr);
   return cudaGetLastError();
 }
 
@@ -678,13 +701,13 @@ extern "C" int attention_seg_fwd_bf16(const tile::bf16* qkv, const int* seg,
   const Dropout dr = make_dropout(drop, thresh, inv_keep, seed, bt, sp, H);
   const Launch L{instance, pad, group, gx, gy, gz, threads, smem};
   if (dr.on)
-    return launch_seg_fwd_bf16<32, true, true>(qkv, seg, out, stat_m, stat_l,
-                                               R, W, d, H, dr, L, stream);
+    return launch_seg_fwd_bf16<true, true>(qkv, seg, out, stat_m, stat_l, R, W,
+                                           d, H, dr, L, stream);
   if (stat_m)
-    return launch_seg_fwd_bf16<32, false, true>(qkv, seg, out, stat_m, stat_l,
-                                                R, W, d, H, dr, L, stream);
-  return launch_seg_fwd_bf16<32, false, false>(qkv, seg, out, stat_m, stat_l,
-                                               R, W, d, H, dr, L, stream);
+    return launch_seg_fwd_bf16<false, true>(qkv, seg, out, stat_m, stat_l, R, W,
+                                            d, H, dr, L, stream);
+  return launch_seg_fwd_bf16<false, false>(qkv, seg, out, stat_m, stat_l, R, W,
+                                           d, H, dr, L, stream);
 }
 
 extern "C" int attention_seg_bwd_bf16(const tile::bf16* qkv, const int* seg,
@@ -706,6 +729,6 @@ extern "C" int attention_seg_bwd_bf16(const tile::bf16* qkv, const int* seg,
     return cudaErrorInvalidValue;
   const Dropout dr = make_dropout(drop, thresh, inv_keep, seed, bt, sp, H);
   const Launch L{instance, pad, group, gx, gy, gz, threads, smem};
-  return launch_seg_bwd_bf16<32>(qkv, seg, gout, stat_m, stat_l, dqkv, R, W,
-                                 d, H, dr, L, stream);
+  return launch_seg_bwd_bf16(qkv, seg, gout, stat_m, stat_l, dqkv, R, W, d,
+                             H, dr, L, stream);
 }

@@ -66,6 +66,11 @@
 // span source, a policy: FixedSpans for K4 and K9 (spans of one width,
 // `group` problems a block), SegRuns for K2 (one block per (row, head),
 // the row's graph segments, found by the block from seg itself).
+//
+// K2's bf16 instances (fwd_seg16, bwd_seg16, after bwd_tile) are bodies
+// of their own: bf16 rows in shared memory, a warp a 16-query tile, the
+// scores in registers and the products on the tensor cores (bf16
+// mma.sync).
 
 #pragma once
 
@@ -149,18 +154,6 @@ __device__ __forceinline__ void st4(float* p, float4 v) {
 }
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
-}
-// four bf16 (8 bytes) as floats; four floats rounded to bf16 (nearest
-// even): vec.cuh's accesses
-__device__ __forceinline__ float4 ld4(const bf16* p) {
-  const vio::Vec<4> v = vio::load_vec<4>(p);
-  return make_float4(v.v[0], v.v[1], v.v[2], v.v[3]);
-}
-__device__ __forceinline__ void st4(bf16* p, float4 v) {
-  vio::store_vec(p, vio::Vec<4>{{v.x, v.y, v.z, v.w}});
-}
-__device__ __forceinline__ float round_bf16(float x) {
-  return vio::round_to<bf16>(x);
 }
 
 // Rows [0, n) of N head slices (src[k]: row 0's first channel, ld[k]
@@ -493,6 +486,43 @@ __host__ inline int seg_tile_words(int W, int hd, bool bwd) {
          (bwd ? 3 : 1) * R4 + R4 + 5 * (W + 1) + 4;
 }
 
+// The runs of one graph id >= 0 in a row's tags tg[0, W) (tg[W] = -1;
+// every thread of the block calls it once the tags are written): warp 0
+// ranks the runs' first and last tokens with ballots, 32 tokens at a time,
+// into s0[k] (run k's first token) and len[k] (its length), and meta[0]
+// (the count). Returns whether some id forms two runs.
+__device__ inline bool find_runs(const int* tg, int W, int* s0, int* len,
+                                 int* meta) {
+  const int t = threadIdx.x, nt = blockDim.x;
+  __syncthreads();
+  if (t < 32) {  // s0[k]: run k's first token; len[k]: one past its last
+    int ns = 0, ne = 0;
+    const unsigned below = (1u << t) - 1u;
+    for (int c = 0; c < W; c += 32) {
+      const int i = c + t;
+      const int v = i < W ? tg[i] : -1;
+      const bool first = v >= 0 && (i == 0 || tg[i - 1] != v);
+      const bool last = v >= 0 && tg[i + 1] != v;  // tg[W] = -1
+      const unsigned bf = __ballot_sync(0xffffffffu, first);
+      const unsigned bl = __ballot_sync(0xffffffffu, last);
+      if (first) s0[ns + __popc(bf & below)] = i;
+      if (last) len[ne + __popc(bl & below)] = i + 1;
+      ns += __popc(bf);
+      ne += __popc(bl);
+    }
+    if (t == 0) meta[0] = ns;
+  }
+  __syncthreads();
+  const int runs = meta[0];
+  bool twice = false;  // an id in two runs
+  for (int k = t; k < runs; k += nt) {
+    const int id = tg[s0[k]];
+    for (int k2 = k + 1; k2 < runs; ++k2) twice |= tg[s0[k2]] == id;
+    len[k] -= s0[k];
+  }
+  return __syncthreads_or(twice);
+}
+
 // K2: one block per (row, head) of a packed row of W tokens (blockIdx.x =
 // row * H + head). Its problems are the row's runs of one graph id >= 0
 // (ops/pack.py writes each graph and its CLS as one run), found by the
@@ -503,28 +533,26 @@ __host__ inline int seg_tile_words(int W, int hd, bool bwd) {
 // zeros here. A row in which some id forms two runs (the JAX kernel's mask
 // allows it) takes the whole row as one problem under TagMask, which is
 // K2's mask itself. The row's head slices are staged once, contiguous, so
-// a run's tiles start at its first token's row. E is the type of qkv, the
-// cotangent and the outputs: float (staged by cp.async), or bf16 (K2's
-// bf16 instances: loaded, widened and stored as floats, so the tiles are
-// the f32 instance's).
-template <int HD, bool BWD, class E = float>
+// a run's tiles start at its first token's row (staged by cp.async).
+template <int HD, bool BWD>
 struct SegRuns {
   static constexpr int LD = HD + 4, C4 = HD / 4;
   const int* seg;
-  const E* gout;         // backward: the cotangent, the forward's m and l
+  const float* gout;     // backward: the cotangent, the forward's m and l
   const float* rd_m;
   const float* rd_l;
   float* wr_m;           // forward: m and l of padding tokens (or null)
   float* wr_l;
-  E* zero_rows;          // out (forward) or dqkv (backward)
+  float* zero_rows;      // out (forward) or dqkv (backward)
   float *Qr, *Pr, *tokf;
   int *tg, *s0, *len, *cnr, *cnr2, *off, *meta;
   long b;
   int h, H, W, R4, SC, ng;
 
-  __device__ SegRuns(const int* seg_, const E* gout_, const float* rd_m_,
-                     const float* rd_l_, float* wr_m_, float* wr_l_,
-                     E* zero_rows_, int W_, int H_, int score)
+  __device__ SegRuns(const int* seg_, const float* gout_,
+                     const float* rd_m_, const float* rd_l_, float* wr_m_,
+                     float* wr_l_, float* zero_rows_, int W_, int H_,
+                     int score)
       : seg(seg_), gout(gout_), rd_m(rd_m_), rd_l(rd_l_), wr_m(wr_m_),
         wr_l(wr_l_), zero_rows(zero_rows_), H(H_), W(W_), SC(score), ng(0) {
     extern __shared__ float4 smem4[];
@@ -584,89 +612,57 @@ struct SegRuns {
   }
 
   // rows [0, R4) of N head slices (src[k]: token 0's first channel, ld[k]
-  // elements between tokens) into rows of LD floats at dst[k], zeros past
-  // W: 16-byte cp.async copies (float), or 8-byte loads widened to floats
-  // (bf16)
+  // floats between tokens) into rows of LD floats at dst[k], zeros past W:
+  // 16-byte cp.async copies
   template <int N>
   __device__ void copy_rows(float* const (&dst)[N],
-                            const E* const (&src)[N],
+                            const float* const (&src)[N],
                             const long (&ld)[N]) const {
     for (int idx = threadIdx.x; idx < R4 * C4; idx += blockDim.x) {
       const int r = idx / C4, c = idx % C4 * 4;
       const long tok = r < W ? r : 0;
 #pragma unroll
-      for (int k = 0; k < N; ++k) {
-        if constexpr (sizeof(E) == 4)
-          tc::cp16(dst[k] + r * LD + c, src[k] + tok * ld[k] + c, r < W);
-        else
-          st4(dst[k] + r * LD + c, r < W ? ld4(src[k] + tok * ld[k] + c)
-                                         : make_float4(0.f, 0.f, 0.f, 0.f));
-      }
+      for (int k = 0; k < N; ++k)
+        tc::cp16(dst[k] + r * LD + c, src[k] + tok * ld[k] + c, r < W);
     }
   }
 
   // the forward: V into Q's place (the pair phase is over), landing while
   // the softmax runs; wait() before the products
-  __device__ void after_pairs(const E* __restrict__ qkv, int d) const {
+  __device__ void after_pairs(const float* __restrict__ qkv, int d) const {
     if constexpr (!BWD) {
       float* const dst[1] = {Qr};
-      const E* const src[1] = {qkv + b * W * 3L * d + h * HD + 2 * d};
+      const float* const src[1] = {qkv + b * W * 3L * d + h * HD + 2 * d};
       const long ld[1] = {3L * d};
       copy_rows<1>(dst, src, ld);
     }
   }
   __device__ void wait() const { tc::cp_wait(); }
 
-  __device__ void load(const E* __restrict__ qkv, int d) {
+  __device__ void load(const float* __restrict__ qkv, int d) {
     const int t = threadIdx.x, nt = blockDim.x;
     const long d3 = 3L * d, base = b * W;
     {  // the row's head slices (the forward's Q and K; the backward's Q, K,
        // V and dO), landing while the runs are found
-      const E* row = qkv + base * d3 + h * HD;
+      const float* row = qkv + base * d3 + h * HD;
       if constexpr (BWD) {
         float* const dst[4] = {Qr, Qr + R4 * LD, Qr + 2 * R4 * LD,
                                Qr + 3 * R4 * LD};
-        const E* const src[4] = {row, row + d, row + 2 * d,
+        const float* const src[4] = {row, row + d, row + 2 * d,
                                  gout + base * d + h * HD};
         const long ld[4] = {d3, d3, d3, d};
         copy_rows<4>(dst, src, ld);
       } else {
         float* const dst[2] = {Qr, Qr + R4 * LD};
-        const E* const src[2] = {row, row + d};
+        const float* const src[2] = {row, row + d};
         const long ld[2] = {d3, d3};
         copy_rows<2>(dst, src, ld);
       }
     }
     for (int i = t; i < R4; i += nt) tg[i] = i < W ? seg[base + i] : -1;
-    __syncthreads();
-    if (t < 32) {  // s0[k]: run k's first token; len[k]: one past its last
-      int ns = 0, ne = 0;
-      const unsigned below = (1u << t) - 1u;
-      for (int c = 0; c < W; c += 32) {
-        const int i = c + t;
-        const int v = i < W ? tg[i] : -1;
-        const bool first = v >= 0 && (i == 0 || tg[i - 1] != v);
-        const bool last = v >= 0 && tg[i + 1] != v;  // tg[W] = -1
-        const unsigned bf = __ballot_sync(0xffffffffu, first);
-        const unsigned bl = __ballot_sync(0xffffffffu, last);
-        if (first) s0[ns + __popc(bf & below)] = i;
-        if (last) len[ne + __popc(bl & below)] = i + 1;
-        ns += __popc(bf);
-        ne += __popc(bl);
-      }
-      if (t == 0) meta[0] = ns;
-    }
-    __syncthreads();
-    const int runs = meta[0];
-    bool twice = false;  // an id in two runs
-    for (int k = t; k < runs; k += nt) {
-      const int id = tg[s0[k]];
-      for (int k2 = k + 1; k2 < runs; ++k2) twice |= tg[s0[k2]] == id;
-      len[k] -= s0[k];
-    }
-    const bool general = __syncthreads_or(twice);
+    const bool general = find_runs(tg, W, s0, len, meta);
     if (t == 0) {
-      const int n = general ? 1 : runs;
+      const int n = general ? 1 : meta[0];
       if (general) {
         s0[0] = 0;
         len[0] = W;
@@ -703,7 +699,7 @@ struct SegRuns {
         const int i = idx / C4, c = idx % C4 * 4;
         if (tg[i] >= 0) continue;
         if constexpr (BWD) {
-          E* o = zero_rows + (base + i) * d3 + h * HD + c;
+          float* o = zero_rows + (base + i) * d3 + h * HD + c;
           st4(o, z4);
           st4(o + d, z4);
           st4(o + 2 * d, z4);
@@ -931,246 +927,658 @@ __device__ __forceinline__ void bwd_tile(Src& src,
   }
 }
 
-// ---- the bf16 bodies (K2's bf16 instances) ----------------------------
+// ---- K2's bf16 instances: warps own 16-query tiles ---------------------
 //
-// The same phases on the same float tiles, staged from bf16, with the
-// rounding points of the JAX kernel in bf16 (graphtrans_tpu/ops/pallas/
-// attention_packed.py:152-206, :238-285). The products stay on the f32
-// micro-tiles, fed from the bf16 values widened in shared memory: the
-// work of a molecule row is a few small segments, whose pair and product
-// phases are bound by the staging and the softmax's barriers, not by the
-// FMAs (PERF.md section 6), so the tensor cores' m16n8k16 would buy little
-// here and would put a second tile layout beside the f32 instance's.
+// What they compute: K2 with the rounding points of the JAX kernel in bf16
+// (graphtrans_tpu/ops/pallas/attention_packed.py:152-206, :238-285): q.k
+// from bf16 operands summed in float32, then scaled; the softmax, its
+// normalisation by the undropped sum and the dropout in float32; p rounded
+// to bf16 once; p.v summed in float32 and rounded once. The backward: p
+// from the forward's m and l, dp = dO.v, delta_i = sum_j p_ij dp_ij from
+// the undropped p and the dropped dp (the JAX rule, not dO.O: the forward's
+// O was rounded), P_drop and dS = p (dp - delta) * scale each rounded once;
+// dQ = dS K, dK = dS^T Q and dV = P_drop^T dO summed in float32, each
+// rounded once.
+//
+// The design. A block of SEG16_THREADS threads (four warps) per (row,
+// head), and no score tile in shared memory. SegTiles copies the row's
+// head slices into shared memory as bf16 by 16-byte cp.async, rows of
+// SEG16_LD bf16 (80 bytes, so the eight rows an ldmatrix reads hit
+// distinct banks), while warp 0 finds the row's runs (find_runs). A
+// segment of n tokens is cut into 16-query tiles, its keys padded to
+// 16 ceil(n / 16) (the padding keys, and other segments' keys where a tile
+// reads past the segment, masked by their tags), and a warp takes a tile
+// at a time. Every product is a bf16 mma.sync m16n8k16 with float32 sums:
+// operands from shared memory by ldmatrix (.trans for the B operands of
+// P V, dS K, P_drop^T dO and dS^T Q); the probabilities and dS go from the
+// scores' accumulators straight into A fragments (two m16n8 accumulators
+// are one m16k16 A fragment). The forward keeps a tile's score rows (up to
+// 64 keys, 32 floats a thread; a wider problem computes them again in each
+// sweep) in registers: the row max and the sum by quad shuffles, then p,
+// then O = P V, with no barrier after the staging.
+// The backward runs two passes with one barrier between them: by query
+// tile, p and the dropped dp (kept in registers for the first SEG16_KEEP
+// key tiles, recomputed past them), delta by quad shuffles, then dS and
+// dQ; then by key tile, over the segment's query tiles, p, P_drop and dS
+// again for dK and dV. Each output row has one writer and no sum needs an
+// atomic, so the bits repeat from run to run. Outputs leave as 16-byte
+// stores after a transpose within each quad.
 
-// The forward: the scores once into the tile (as fwd_tile), an exact
-// two-pass softmax per query row, then each probability normalised by the
-// undropped sum, dropped and scaled, and rounded to bf16 once in the tile;
-// O = P V summed in float32 and rounded once. m and l as fwd_tile's.
-template <int HD, bool DROP, bool STATS, class Src, class Keep>
-__device__ __forceinline__ void fwd_tile_bf16(Src& src,
-                                              const bf16* __restrict__ qkv,
-                                              bf16* __restrict__ out,
-                                              float* __restrict__ stat_m,
-                                              float* __restrict__ stat_l,
-                                              int S, int d, int H,
-                                              float scale, const Keep& keep) {
-  constexpr int C4 = HD / 4;
-  const int t = threadIdx.x, nt = blockDim.x;
-  src.load(qkv, d);
-  __syncthreads();
+constexpr int SEG16_THREADS = 128;      // four warps a block, both bodies
+constexpr int SEG16_HD = 32;            // the head width (K2's)
+constexpr int SEG16_LD = SEG16_HD + 8;  // bf16 a staged row
+constexpr int SEG16_FWD_KEEP = 4;  // key tiles whose scores the forward
+                                   // keeps (problems of <= 64 tokens)
+constexpr int SEG16_KEEP = 3;  // key tiles whose p and dp the backward's
+                               // query pass keeps (problems of <= 48)
 
-  const int pairs = src.pair_items();
-  for (int w = t; w < pairs; w += nt) {
-    int g, r;
-    src.pair_at(w, g, r);
-    const int nr = src.pad(g) / 4, sld = src.sld(g);
-    const int ti = r / nr, tj = r % nr;
-    float s[4][4], unused[4][4];
-    dots<HD, false>(src.Q(g), src.K(g), nullptr, nullptr, ti, tj, nr, s,
-                    unused);
-    const auto meets = src.mask(g);
-    float* P = src.P(g);
+__host__ __device__ inline int round16(int n) { return (n + 15) / 16 * 16; }
+// rows staged: a segment's last tile reads up to 15 rows past its end
+__host__ __device__ inline int seg16_rows(int W) { return round16(W) + 16; }
+// Bytes of shared memory of a K2 bf16 block on rows of W tokens: the head
+// slices in bf16 (forward Q, K, V; backward also dO), the backward's m,
+// 1/l and delta per row, the tags per row, per run its first token, its
+// length and its tiles' prefix count, and the block's two counts. At W 128
+// the forward takes 36,700 bytes, the backward 49,948.
+__host__ __device__ inline int seg16_bytes(int W, bool bwd) {
+  const int R = seg16_rows(W);
+  return (bwd ? 4 : 3) * R * SEG16_LD * 2 + (bwd ? 3 : 0) * R * 4 + R * 4 +
+         3 * (W + 1) * 4 + 16;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+// four 8 x 8 bf16 matrices; lane l gives row l % 8 of matrix l / 8 (16
+// bytes); lane 4g + q receives row g, columns 2q and 2q + 1 of each (with
+// .trans: rows 2q and 2q + 1 of column g)
+__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm4t(unsigned (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+// c += a b for one m16n8k16 tile: a row-major 16 x 16 and b col-major 16 x
+// 8, bf16, sums in float32
+__device__ __forceinline__ void mma16(float (&c)[4], const unsigned (&a)[4],
+                                      unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// (lo, hi) rounded to bf16 (nearest even), lo in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+// the A fragment of a 16 x 16 tile whose two 16 x 8 halves are the
+// accumulators c[0] and c[1], rounded to bf16
+__device__ __forceinline__ void a_frag(unsigned (&a)[4],
+                                       const float (&c)[2][4]) {
+  a[0] = pack_bf16(c[0][0], c[0][1]);
+  a[1] = pack_bf16(c[0][2], c[0][3]);
+  a[2] = pack_bf16(c[1][0], c[1][1]);
+  a[3] = pack_bf16(c[1][2], c[1][3]);
+}
+__device__ __forceinline__ unsigned pick4(const unsigned (&w)[4], int k) {
+  return k == 0 ? w[0] : k == 1 ? w[1] : k == 2 ? w[2] : w[3];
+}
+// One row of 32 bf16 channels held as an m16n8 accumulator row holds it:
+// lane 4g + q has channels 8k + 2q and 8k + 2q + 1 in w[k]; returned:
+// channels 8q .. 8q + 7, one 16-byte store a lane
+__device__ __forceinline__ uint4 quad_row(const unsigned (&w)[4]) {
+  const int q = threadIdx.x & 3;
+  unsigned y[4];  // y[s]: the word of lane q ^ s, channels 8q + 2(q ^ s)
+  y[0] = pick4(w, q);
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+  for (int s = 1; s < 4; ++s)
+    y[s] = __shfl_xor_sync(0xffffffffu, pick4(w, q ^ s), s);
+  return make_uint4(pick4(y, q), pick4(y, q ^ 1), pick4(y, q ^ 2),
+                    pick4(y, q ^ 3));
+}
+// rows g and g + 8 (lane 4g + q) of a 16 x 32 float32 accumulator (four
+// m16n8 tiles), rounded to bf16, at dst + row * ld: those below nrows
+__device__ __forceinline__ void store_rows16(bf16* dst, long ld,
+                                             const float (&acc)[4][4],
+                                             int nrows) {
+  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+  unsigned lo[4], hi[4];
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int i = ti + a * nr, j = tj + b * nr;
-        P[i * sld + j] = meets(i, j) ? s[a][b] * scale : -INFINITY;
+  for (int k = 0; k < 4; ++k) {
+    lo[k] = pack_bf16(acc[k][0], acc[k][1]);
+    hi[k] = pack_bf16(acc[k][2], acc[k][3]);
+  }
+  const uint4 a = quad_row(lo), b = quad_row(hi);
+  if (g < nrows) *reinterpret_cast<uint4*>(dst + g * ld + 8 * q) = a;
+  if (g + 8 < nrows)
+    *reinterpret_cast<uint4*>(dst + (g + 8) * ld + 8 * q) = b;
+}
+__device__ __forceinline__ void cp16(bf16* dst, const bf16* src, bool ok) {
+  tc::cp16(reinterpret_cast<float*>(dst), reinterpret_cast<const float*>(src),
+           ok);
+}
+
+// K2's bf16 span source, a block per (row, head) (blockIdx.x = row * H +
+// head): the row's head slices in bf16, rows of SEG16_LD from its first
+// token (forward: Q, K, V; backward: Q, K, V, dO and, per token, the
+// forward's m and 1/l), zeros past W, and its runs. A row whose ids each
+// form one run gives one problem a run, its padding tokens (seg -1)
+// written as zeros here (out, and m = -inf, l = 0 with the statistics; or
+// the three slices of dqkv); a row in which some id forms two runs is one
+// problem of W tokens under the tag mask. Work items: the problems'
+// 16-token tiles, problem g's from ct[g].
+template <bool BWD>
+struct SegTiles {
+  static constexpr int LD = SEG16_LD, HD = SEG16_HD;
+  bf16 *Q, *K, *V, *G;
+  float *mrow, *lrow, *drow;  // backward, per token: m, 1/l, delta
+  int *tg, *s0, *len, *ct, *meta;
+  long b;
+  int h, H, W, R, ng;
+
+  __device__ SegTiles(int W_, int H_) : H(H_), W(W_), ng(0) {
+    extern __shared__ float4 smem4[];
+    b = blockIdx.x / H;
+    h = blockIdx.x % H;
+    R = seg16_rows(W);
+    Q = reinterpret_cast<bf16*>(smem4);
+    K = Q + R * LD;
+    V = K + R * LD;
+    G = V + R * LD;
+    float* f = reinterpret_cast<float*>(V + (BWD ? 2 : 1) * R * LD);
+    mrow = f;
+    lrow = f + R;
+    drow = f + 2 * R;
+    tg = reinterpret_cast<int*>(f + (BWD ? 3 : 0) * R);
+    s0 = tg + R;
+    len = s0 + W + 1;
+    ct = len + W + 1;
+    meta = ct + W + 1;
+  }
+
+  __device__ int items() const { return ct[ng]; }
+  // work item w: problem g (the last with ct[g] <= w; every problem has a
+  // tile), its tile k
+  __device__ void item(int w, int& g, int& k) const {
+    int lo = 0, hi = ng - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (ct[mid] <= w)
+        lo = mid;
+      else
+        hi = mid - 1;
+    }
+    g = lo;
+    k = w - ct[lo];
+  }
+
+  __device__ void load(const int* __restrict__ seg,
+                       const bf16* __restrict__ qkv,
+                       const bf16* __restrict__ gout,
+                       const float* __restrict__ rd_m,
+                       const float* __restrict__ rd_l, bf16* zero_rows,
+                       float* wr_m, float* wr_l, int d) {
+    const int t = threadIdx.x, nt = blockDim.x;
+    const long d3 = 3L * d, base = b * W;
+    {  // the head slices, landing while the runs are found
+      const bf16* row = qkv + base * d3 + h * HD;
+      for (int idx = t; idx < R * 4; idx += nt) {
+        const int r = idx >> 2, c = (idx & 3) * 8;
+        const bool ok = r < W;
+        const long tok = ok ? r : 0;
+        cp16(Q + r * LD + c, row + tok * d3 + c, ok);
+        cp16(K + r * LD + c, row + tok * d3 + d + c, ok);
+        cp16(V + r * LD + c, row + tok * d3 + 2 * d + c, ok);
+        if constexpr (BWD)
+          cp16(G + r * LD + c, gout + (base + tok) * d + h * HD + c, ok);
       }
+    }
+    for (int i = t; i < R; i += nt) tg[i] = i < W ? seg[base + i] : -1;
+    const bool general = find_runs(tg, W, s0, len, meta);
+    if (t == 0) {
+      const int n = general ? 1 : meta[0];
+      if (general) {
+        s0[0] = 0;
+        len[0] = W;
+      }
+      int a = 0;
+      for (int k = 0; k < n; ++k) {
+        ct[k] = a;
+        a += (len[k] + 15) >> 4;
+      }
+      ct[n] = a;
+      meta[1] = n;
+    }
+    if constexpr (BWD) {
+      for (int i = t; i < R; i += nt) {
+        float mm = 0.f, l = 0.f;
+        if (i < W && tg[i] >= 0) {
+          const long at = (base + i) * H + h;
+          mm = rd_m[at];
+          l = 1.f / fmaxf(rd_l[at], 1e-16f);
+        }
+        mrow[i] = mm;
+        lrow[i] = l;
+      }
+    }
+    if (!general) {  // padding tokens: in no problem
+      const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+      for (int idx = t; idx < W * 4; idx += nt) {
+        const int i = idx >> 2, c = (idx & 3) * 8;
+        if (tg[i] >= 0) continue;
+        if constexpr (BWD) {
+          bf16* o = zero_rows + (base + i) * d3 + h * HD + c;
+          *reinterpret_cast<uint4*>(o) = z;
+          *reinterpret_cast<uint4*>(o + d) = z;
+          *reinterpret_cast<uint4*>(o + 2 * d) = z;
+        } else {
+          *reinterpret_cast<uint4*>(zero_rows + (base + i) * d + h * HD + c) =
+              z;
+          if (wr_m && c == 0) {
+            wr_m[(base + i) * H + h] = -INFINITY;
+            wr_l[(base + i) * H + h] = 0.f;
+          }
+        }
+      }
+    }
+    tc::cp_wait();
+    __syncthreads();
+    ng = meta[1];
   }
-  __syncthreads();
-  src.after_pairs(qkv, d);
+};
 
-  // four threads a row: max, the undropped sum, then p = e / l, dropped
-  // and scaled, rounded to bf16
-  const int rows4 = src.row_items(16);
-  for (int w = t; w < rows4; w += nt) {
-    int g, r;
-    src.row_at(16, w, g, r);
-    const int np = src.pad(g), i = r / 4, part = r % 4;
-    const unsigned quad = 0xFu << (threadIdx.x & 28u);
-    const Problem pr = src.problem(g);
-    float* P = src.P(g) + i * src.sld(g);
-    float m = -INFINITY;
-    for (int j = part; j < np; j += 4) m = fmaxf(m, P[j]);
-    m = fmaxf(m, __shfl_xor_sync(quad, m, 1));
-    m = fmaxf(m, __shfl_xor_sync(quad, m, 2));
-    float l = 0.f;
-    for (int j = part; j < np; j += 4) {
-      const float e = m == -INFINITY ? 0.f : expf(P[j] - m);
-      l += e;
-      P[j] = e;
-    }
-    l += __shfl_xor_sync(quad, l, 1);
-    l += __shfl_xor_sync(quad, l, 2);
-    const float den = fmaxf(l, 1e-16f);
-    for (int j = part; j < np; j += 4) {
-      float p = P[j] / den;
-      if constexpr (DROP)
-        p = (p != 0.f && keep(pr.b, pr.h, H, S, pr.s0 + i, pr.s0 + j))
-                ? p * keep.inv_keep
-                : 0.f;
-      P[j] = round_bf16(p);
-    }
-    if (STATS && part == 0 && i < pr.n) {
-      const long at = (pr.b * S + pr.s0 + i) * H + pr.h;
-      stat_m[at] = m;
-      stat_l[at] = l;
-    }
-  }
-  src.wait();
-  __syncthreads();
-
-  const int prods = src.row_items(C4);
-  for (int w = t; w < prods; w += nt) {
-    int g, r;
-    src.row_at(C4, w, g, r);
-    const int i0 = r / C4 * 4, c0 = r % C4 * 4;
-    const Problem pr = src.problem(g);
-    float acc[4][4];
-    zero(acc);
-    rows_times<HD>(src.P(g), src.V(g), src.sld(g), round4(pr.n), i0, c0,
-                   acc);
-    bf16* o = out + (pr.b * S + pr.s0) * d + pr.h * HD + c0;
+// The masked, scaled scores of one 16-key tile (keys k0..) of a query tile
+// (A fragments qa of Q; per row its tag): c[hf], keys k0 + 8 hf .. + 7, an
+// m16n8 accumulator; -inf where the pair does not meet. mx: the running
+// row maxima of the thread's two rows.
+__device__ __forceinline__ void scores16(const bf16* K, const int* tg,
+                                         const unsigned (&qa)[2][4], int k0,
+                                         const int (&tag)[2], float scale,
+                                         float (&c)[2][4], float (&mx)[2]) {
+  constexpr int LD = SEG16_LD;
+  const int lane = threadIdx.x & 31, q = lane & 3;
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      if (i0 + a >= pr.n) break;
-      st4(o + (i0 + a) * d,
-          make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]));
+  for (int hf = 0; hf < 2; ++hf) {
+    const int kk = k0 + 8 * hf;
+    unsigned kb[4];
+    ldsm4(kb, K + (kk + (lane & 7)) * LD + 8 * (lane >> 3));
+    float(&a)[4] = c[hf];
+    a[0] = a[1] = a[2] = a[3] = 0.f;
+    mma16(a, qa[0], kb[0], kb[1]);
+    mma16(a, qa[1], kb[2], kb[3]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int tj = tg[kk + 2 * q + (e & 1)];
+      a[e] = (tj >= 0 && tj == tag[e >> 1]) ? a[e] * scale : -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], a[e]);
     }
   }
 }
 
-// The backward from the forward's m and l: p and the dropped dp of each
-// pair once (one dropout draw; a dropped pair's p keeps its sign bit set),
-// delta_i = sum_j p_ij dp_ij over the row, as the JAX kernel forms it from
-// the undropped p (not dO.O: the forward's O was rounded); then P_drop and
-// dS = p (dp - delta) * scale each rounded to bf16 once in the tiles; dK
-// = dS^T Q, dV = P_drop^T dO and dQ = dS K summed in float32, each rounded
-// once.
-template <int HD, class Src, class Keep>
-__device__ __forceinline__ void bwd_tile_bf16(Src& src,
-                                              const bf16* __restrict__ qkv,
-                                              bf16* __restrict__ dqkv, int S,
-                                              int d, int H, float scale,
-                                              const Keep& keep) {
-  constexpr int C4 = HD / 4;
-  const int t = threadIdx.x, nt = blockDim.x;
-  const long d3 = 3L * d;
-  src.load(qkv, d);
-  __syncthreads();
-
-  const int pairs = src.pair_items();
-  for (int w = t; w < pairs; w += nt) {
-    int g, r;
-    src.pair_at(w, g, r);
-    const int nr = src.pad(g) / 4, sld = src.sld(g);
-    const int ti = r / nr, tj = r % nr;
-    const Problem pr = src.problem(g);
-    const float* mr = src.m(g);
-    const float* lr = src.li(g);
-    const auto meets = src.mask(g);
-    float s[4][4], dp[4][4];
-    dots<HD, true>(src.Q(g), src.K(g), src.G(g), src.V(g), ti, tj, nr, s, dp);
-    float* P = src.P(g);
-    float* D = src.D(g);
+// c = exp(c - mx) (0 for a row with no key), summed into l
+__device__ __forceinline__ void exps16(float (&c)[2][4], const float (&mx)[2],
+                                       float (&l)[2]) {
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = ti + a * nr;
+  for (int hf = 0; hf < 2; ++hf)
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int j = tj + b * nr;
-        float pv = 0.f, dv = 0.f;
-        if (i < pr.n && meets(i, j)) {
-          const bool kept =
-              !keep.on || keep(pr.b, pr.h, H, S, pr.s0 + i, pr.s0 + j);
-          const float p = expf(s[a][b] * scale - mr[i]) * lr[i];
-          pv = kept ? p : -p;
-          dv = kept ? (keep.on ? dp[a][b] * keep.inv_keep : dp[a][b]) : 0.f;
-        }
-        P[i * sld + j] = pv;
-        D[i * sld + j] = dv;
-      }
+    for (int e = 0; e < 4; ++e) {
+      const float m = mx[e >> 1];
+      const float x = m == -INFINITY ? 0.f : expf(c[hf][e] - m);
+      c[hf][e] = x;
+      l[e >> 1] += x;
     }
-  }
-  __syncthreads();
+}
 
-  // delta of each query row: four threads a row
-  const int rows4 = src.row_items(16);
-  for (int w = t; w < rows4; w += nt) {
-    int g, r;
-    src.row_at(16, w, g, r);
-    const int np = src.pad(g), i = r / 4, part = r % 4, sld = src.sld(g);
-    const unsigned quad = 0xFu << (threadIdx.x & 28u);
-    const float* P = src.P(g) + i * sld;
-    const float* D = src.D(g) + i * sld;
-    float de = 0.f;
-    for (int j = part; j < np; j += 4) de = fmaf(fabsf(P[j]), D[j], de);
-    de += __shfl_xor_sync(quad, de, 1);
-    de += __shfl_xor_sync(quad, de, 2);
-    if (part == 0 && i < src.problem(g).n) src.de(g)[i] = de;
-  }
-  __syncthreads();
-
-  // P_drop and dS, rounded to bf16 in the tiles
-  for (int w = t; w < pairs; w += nt) {
-    int g, r;
-    src.pair_at(w, g, r);
-    const int nr = src.pad(g) / 4, sld = src.sld(g);
-    const int ti = r / nr, tj = r % nr;
-    const int n = src.problem(g).n;
-    const float* dr = src.de(g);
-    float* P = src.P(g);
-    float* D = src.D(g);
+// o += P V over one 16-key tile: p = e * inv (e the tile's exps), dropped
+// and scaled (kept: the row's mask; rows r0 + g, r0 + g + 8), rounded to
+// bf16 into an A fragment
+template <bool DROP, class Row>
+__device__ __forceinline__ void pv16(const bf16* V, float (&c)[2][4],
+                                     const float (&inv)[2], const Row& kept,
+                                     float inv_keep, int r0, int k0,
+                                     float (&o)[4][4]) {
+  constexpr int LD = SEG16_LD;
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = ti + a * nr;
-      const float de = i < n ? dr[i] : 0.f;
+  for (int hf = 0; hf < 2; ++hf)
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int at = i * sld + tj + b * nr;
-        const float pv = P[at], p = fabsf(pv);
-        const float pd = signbit(pv) ? 0.f : (keep.on ? p * keep.inv_keep : p);
-        P[at] = round_bf16(pd);
-        D[at] = round_bf16(p * (D[at] - de) * scale);
-      }
+    for (int e = 0; e < 4; ++e) {
+      float p = c[hf][e] * inv[e >> 1];
+      if constexpr (DROP)
+        p = (p != 0.f &&
+             kept(r0 + g + 8 * (e >> 1), k0 + 8 * hf + 2 * q + (e & 1)))
+                ? p * inv_keep
+                : 0.f;
+      c[hf][e] = p;
     }
-  }
-  __syncthreads();
-
-  // the products: dK, dV by (key, channel) and dQ by (query, channel)
-  const int prods = src.row_items(2 * C4);
-  for (int w = t; w < prods; w += nt) {
-    int g, r;
-    src.row_at(2 * C4, w, g, r);
-    const int nr = src.pad(g) / 4, sld = src.sld(g), half = nr * C4;
-    const Problem pr = src.problem(g);
-    bf16* base = dqkv + (pr.b * S + pr.s0) * d3 + pr.h * HD;
-    float acc[4][4], acc2[4][4];
-    zero(acc);
-    if (r < half) {
-      const int j0 = r / C4 * 4, c0 = r % C4 * 4;
-      zero(acc2);
-      keys_times<HD>(src.P(g), src.D(g), src.G(g), src.Q(g), sld, pr.n, j0,
-                     c0, acc, acc2);
+  unsigned pa[4];
+  a_frag(pa, c);
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        if (j0 + b >= pr.n) break;
-        bf16* o = base + (j0 + b) * d3 + c0;
-        st4(o + d, make_float4(acc[b][0], acc[b][1], acc[b][2], acc[b][3]));
-        st4(o + 2 * d,
-            make_float4(acc2[b][0], acc2[b][1], acc2[b][2], acc2[b][3]));
+  for (int cc = 0; cc < 2; ++cc) {
+    unsigned vb[4];
+    ldsm4t(vb, V + (k0 + (lane & 15)) * LD + 16 * cc + 8 * (lane >> 4));
+    mma16(o[2 * cc], pa, vb[0], vb[1]);
+    mma16(o[2 * cc + 1], pa, vb[2], vb[3]);
+  }
+}
+
+__device__ __forceinline__ void quad_max(float (&x)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    x[r] = fmaxf(x[r], __shfl_xor_sync(0xffffffffu, x[r], 1));
+    x[r] = fmaxf(x[r], __shfl_xor_sync(0xffffffffu, x[r], 2));
+  }
+}
+__device__ __forceinline__ void quad_sum(float (&x)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    x[r] += __shfl_xor_sync(0xffffffffu, x[r], 1);
+    x[r] += __shfl_xor_sync(0xffffffffu, x[r], 2);
+  }
+}
+
+// The forward: out for the row's problems, a warp a 16-query tile; STATS
+// writes m (the max scaled score) and l (the undropped sum) [R, W, H], as
+// fwd_tile does; a query with no attendable key writes zeros, m = -inf
+// and l = 0. A tile of up to SEG16_FWD_KEEP key tiles keeps its scores in
+// registers; a wider one (a problem of more than 64 tokens) computes them
+// again in each of its three sweeps (max, sum, P V), with the same
+// arithmetic in the same order.
+template <bool DROP, bool STATS, class Keep>
+__device__ __forceinline__ void fwd_seg16(const int* __restrict__ seg,
+                                          const bf16* __restrict__ qkv,
+                                          bf16* __restrict__ out,
+                                          float* __restrict__ stat_m,
+                                          float* __restrict__ stat_l, int W,
+                                          int d, int H, float scale,
+                                          const Keep& keep) {
+  constexpr int LD = SEG16_LD, HD = SEG16_HD, KEEP = SEG16_FWD_KEEP;
+  SegTiles<false> src(W, H);
+  src.load(seg, qkv, nullptr, nullptr, nullptr, out,
+           STATS ? stat_m : nullptr, stat_l, d);
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const int* tg = src.tg;
+  const auto kept = keep.row(src.b, src.h, W);
+  for (int w = threadIdx.x >> 5; w < src.items(); w += blockDim.x >> 5) {
+    int pg, tile;
+    src.item(w, pg, tile);
+    const int s0 = src.s0[pg], n = src.len[pg], nkt = (n + 15) >> 4;
+    const int r0 = s0 + 16 * tile;  // the tile's first query
+    unsigned qa[2][4];
+    ldsm4(qa[0], src.Q + (r0 + (lane & 15)) * LD + 8 * (lane >> 4));
+    ldsm4(qa[1], src.Q + (r0 + (lane & 15)) * LD + 16 + 8 * (lane >> 4));
+    const int tag[2] = {tg[r0 + g], tg[r0 + g + 8]};
+    float mx[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float o[4][4] = {};
+    if (nkt <= KEEP) {
+      float s[KEEP][2][4];
+#pragma unroll
+      for (int kt = 0; kt < KEEP; ++kt) {
+        if (kt >= nkt) break;
+        scores16(src.K, tg, qa, s0 + 16 * kt, tag, scale, s[kt], mx);
+      }
+      quad_max(mx);
+#pragma unroll
+      for (int kt = 0; kt < KEEP; ++kt) {
+        if (kt >= nkt) break;
+        exps16(s[kt], mx, l);
+      }
+      quad_sum(l);
+      const float inv[2] = {1.f / fmaxf(l[0], 1e-16f),
+                            1.f / fmaxf(l[1], 1e-16f)};
+#pragma unroll
+      for (int kt = 0; kt < KEEP; ++kt) {
+        if (kt >= nkt) break;
+        pv16<DROP>(src.V, s[kt], inv, kept, keep.inv_keep, r0, s0 + 16 * kt,
+                   o);
       }
     } else {
-      const int i0 = (r - half) / C4 * 4, c0 = (r - half) % C4 * 4;
-      rows_times<HD>(src.D(g), src.K(g), sld, round4(pr.n), i0, c0, acc);
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        if (i0 + a >= pr.n) break;
-        st4(base + (i0 + a) * d3 + c0,
-            make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]));
+      float c[2][4], unused[2] = {0.f, 0.f};
+      for (int kt = 0; kt < nkt; ++kt)
+        scores16(src.K, tg, qa, s0 + 16 * kt, tag, scale, c, mx);
+      quad_max(mx);
+      for (int kt = 0; kt < nkt; ++kt) {
+        scores16(src.K, tg, qa, s0 + 16 * kt, tag, scale, c, unused);
+        exps16(c, mx, l);
+      }
+      quad_sum(l);
+      const float inv[2] = {1.f / fmaxf(l[0], 1e-16f),
+                            1.f / fmaxf(l[1], 1e-16f)};
+      for (int kt = 0; kt < nkt; ++kt) {
+        scores16(src.K, tg, qa, s0 + 16 * kt, tag, scale, c, unused);
+        exps16(c, mx, unused);
+        pv16<DROP>(src.V, c, inv, kept, keep.inv_keep, r0, s0 + 16 * kt, o);
       }
     }
+    const int left = n - 16 * tile;  // the tile's rows in the problem
+    store_rows16(out + (src.b * W + r0) * d + src.h * HD, d, o, left);
+    if (STATS && q == 0)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (g + 8 * r < left) {
+          const long at = (src.b * W + r0 + g + 8 * r) * H + src.h;
+          stat_m[at] = mx[r];
+          stat_l[at] = l[r];
+        }
+  }
+}
+
+// The backward's (query, key) 16 x 16 tile at queries r0.., keys k0.. (the
+// query tile's A fragments qa of Q and ga of dO; per row its tag, m and
+// 1/l): p from the forward's scaled scores (0 where the pair does not
+// meet), and dp = dO.v, dropped; both laid out as scores16's.
+template <class Keep>
+__device__ __forceinline__ void pd_tile16(
+    const SegTiles<true>& src, const unsigned (&qa)[2][4],
+    const unsigned (&ga)[2][4], int r0, int k0, const int (&tag)[2],
+    const float (&m)[2], const float (&li)[2], float scale, const Keep& keep,
+    const typename Keep::Row& kept, float (&p)[2][4], float (&dp)[2][4]) {
+  constexpr int LD = SEG16_LD;
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  float unused[2] = {0.f, 0.f};
+  scores16(src.K, src.tg, qa, k0, tag, scale, p, unused);
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int kk = k0 + 8 * hf;
+    unsigned vb[4];
+    ldsm4(vb, src.V + (kk + (lane & 7)) * LD + 8 * (lane >> 3));
+    float(&t)[4] = dp[hf];
+    t[0] = t[1] = t[2] = t[3] = 0.f;
+    mma16(t, ga[0], vb[0], vb[1]);
+    mma16(t, ga[1], vb[2], vb[3]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      const float x = expf(p[hf][e] - m[r]) * li[r];  // exp(-inf) = 0
+      p[hf][e] = x;
+      if (keep.on)
+        t[e] = (x != 0.f && kept(r0 + g + 8 * r, kk + 2 * q + (e & 1)))
+                   ? t[e] * keep.inv_keep
+                   : 0.f;
+    }
+  }
+}
+
+// dq += dS K over keys k0.. of a query tile: dS = p (dp - delta) * scale,
+// rounded to bf16 into an A fragment
+__device__ __forceinline__ void dq_tile16(const SegTiles<true>& src, int k0,
+                                          const float (&p)[2][4],
+                                          const float (&dp)[2][4],
+                                          const float (&de)[2], float scale,
+                                          float (&dq)[4][4]) {
+  constexpr int LD = SEG16_LD;
+  const int lane = threadIdx.x & 31;
+  float ds[2][4];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      ds[hf][e] = p[hf][e] * (dp[hf][e] - de[e >> 1]) * scale;
+  unsigned a[4];
+  a_frag(a, ds);
+#pragma unroll
+  for (int cc = 0; cc < 2; ++cc) {
+    unsigned kb[4];
+    ldsm4t(kb, src.K + (k0 + (lane & 15)) * LD + 16 * cc + 8 * (lane >> 4));
+    mma16(dq[2 * cc], a, kb[0], kb[1]);
+    mma16(dq[2 * cc + 1], a, kb[2], kb[3]);
+  }
+}
+
+// The backward: dqkv for the row's problems from the forward's m and l.
+// Pass 1, a warp a 16-query tile: p and the dropped dp of its pairs,
+// delta, dS and dQ; pass 2, a warp a 16-key tile: over the problem's query
+// tiles, p, P_drop and dS of its pairs again, dK = dS^T Q and dV =
+// P_drop^T dO.
+template <class Keep>
+__device__ __forceinline__ void bwd_seg16(const int* __restrict__ seg,
+                                          const bf16* __restrict__ qkv,
+                                          const bf16* __restrict__ gout,
+                                          const float* __restrict__ stat_m,
+                                          const float* __restrict__ stat_l,
+                                          bf16* __restrict__ dqkv, int W,
+                                          int d, int H, float scale,
+                                          const Keep& keep) {
+  constexpr int LD = SEG16_LD, HD = SEG16_HD, KEEP = SEG16_KEEP;
+  SegTiles<true> src(W, H);
+  src.load(seg, qkv, gout, stat_m, stat_l, dqkv, nullptr, nullptr, d);
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const long d3 = 3L * d;
+  const int* tg = src.tg;
+  const auto kept = keep.row(src.b, src.h, W);
+  for (int w = warp; w < src.items(); w += nw) {  // pass 1: query tiles
+    int pg, tile;
+    src.item(w, pg, tile);
+    const int s0 = src.s0[pg], n = src.len[pg], nkt = (n + 15) >> 4;
+    const int r0 = s0 + 16 * tile, left = n - 16 * tile;
+    unsigned qa[2][4], ga[2][4];
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const int at = (r0 + (lane & 15)) * LD + 16 * ks + 8 * (lane >> 4);
+      ldsm4(qa[ks], src.Q + at);
+      ldsm4(ga[ks], src.G + at);
+    }
+    const int tag[2] = {tg[r0 + g], tg[r0 + g + 8]};
+    const float m[2] = {src.mrow[r0 + g], src.mrow[r0 + g + 8]};
+    const float li[2] = {src.lrow[r0 + g], src.lrow[r0 + g + 8]};
+    float pk[KEEP][2][4], dk[KEEP][2][4];
+    float de[2] = {0.f, 0.f};
+#pragma unroll
+    for (int kt = 0; kt < KEEP; ++kt) {
+      if (kt >= nkt) break;
+      pd_tile16(src, qa, ga, r0, s0 + 16 * kt, tag, m, li, scale, keep,
+                kept, pk[kt], dk[kt]);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          de[e >> 1] = fmaf(pk[kt][hf][e], dk[kt][hf][e], de[e >> 1]);
+    }
+    for (int kt = KEEP; kt < nkt; ++kt) {
+      float p[2][4], dp[2][4];
+      pd_tile16(src, qa, ga, r0, s0 + 16 * kt, tag, m, li, scale, keep,
+                kept, p, dp);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          de[e >> 1] = fmaf(p[hf][e], dp[hf][e], de[e >> 1]);
+    }
+    quad_sum(de);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (q == 0 && g + 8 * r < left) src.drow[r0 + g + 8 * r] = de[r];
+    float dq[4][4] = {};
+#pragma unroll
+    for (int kt = 0; kt < KEEP; ++kt) {
+      if (kt >= nkt) break;
+      dq_tile16(src, s0 + 16 * kt, pk[kt], dk[kt], de, scale, dq);
+    }
+    for (int kt = KEEP; kt < nkt; ++kt) {
+      float p[2][4], dp[2][4];
+      pd_tile16(src, qa, ga, r0, s0 + 16 * kt, tag, m, li, scale, keep,
+                kept, p, dp);
+      dq_tile16(src, s0 + 16 * kt, p, dp, de, scale, dq);
+    }
+    store_rows16(dqkv + (src.b * W + r0) * d3 + src.h * HD, d3, dq, left);
+  }
+  __syncthreads();  // every delta is in drow
+
+  for (int w = warp; w < src.items(); w += nw) {  // pass 2: key tiles
+    int pg, kt;
+    src.item(w, pg, kt);
+    const int s0 = src.s0[pg], n = src.len[pg], nqt = (n + 15) >> 4;
+    const int k0 = s0 + 16 * kt;
+    unsigned ka[2][4], va[2][4];
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const int at = (k0 + (lane & 15)) * LD + 16 * ks + 8 * (lane >> 4);
+      ldsm4(ka[ks], src.K + at);
+      ldsm4(va[ks], src.V + at);
+    }
+    const int ktag[2] = {tg[k0 + g], tg[k0 + g + 8]};
+    float dk[4][4] = {}, dv[4][4] = {};
+    for (int qt = 0; qt < nqt; ++qt) {
+      float pd[2][4], ds[2][4];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int i0 = s0 + 16 * qt + 8 * hf;
+        unsigned qb[4], gb[4];
+        ldsm4(qb, src.Q + (i0 + (lane & 7)) * LD + 8 * (lane >> 3));
+        ldsm4(gb, src.G + (i0 + (lane & 7)) * LD + 8 * (lane >> 3));
+        float s[4] = {0.f, 0.f, 0.f, 0.f}, t[4] = {0.f, 0.f, 0.f, 0.f};
+        mma16(s, ka[0], qb[0], qb[1]);  // s^T: keys x queries
+        mma16(s, ka[1], qb[2], qb[3]);
+        mma16(t, va[0], gb[0], gb[1]);  // dp^T
+        mma16(t, va[1], gb[2], gb[3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, i = i0 + 2 * q + (e & 1), ti = tg[i];
+          float pv = 0.f, dsv = 0.f;
+          if (i - s0 < n && ti >= 0 && ti == ktag[r]) {
+            const float p = expf(s[e] * scale - src.mrow[i]) * src.lrow[i];
+            float dpv = t[e];
+            pv = p;
+            if (keep.on) {
+              const bool on = kept(i, k0 + g + 8 * r);
+              pv = on ? p * keep.inv_keep : 0.f;
+              dpv = on ? dpv * keep.inv_keep : 0.f;
+            }
+            dsv = p * (dpv - src.drow[i]) * scale;
+          }
+          pd[hf][e] = pv;
+          ds[hf][e] = dsv;
+        }
+      }
+      unsigned pa[4], sa[4];
+      a_frag(pa, pd);
+      a_frag(sa, ds);
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        const int at =
+            (s0 + 16 * qt + (lane & 15)) * LD + 16 * cc + 8 * (lane >> 4);
+        unsigned gt[4], qt4[4];
+        ldsm4t(gt, src.G + at);
+        ldsm4t(qt4, src.Q + at);
+        mma16(dv[2 * cc], pa, gt[0], gt[1]);
+        mma16(dv[2 * cc + 1], pa, gt[2], gt[3]);
+        mma16(dk[2 * cc], sa, qt4[0], qt4[1]);
+        mma16(dk[2 * cc + 1], sa, qt4[2], qt4[3]);
+      }
+    }
+    bf16* o = dqkv + (src.b * W + k0) * d3 + src.h * HD;
+    store_rows16(o + d, d3, dk, n - 16 * kt);
+    store_rows16(o + 2 * d, d3, dv, n - 16 * kt);
   }
 }
 

@@ -50,7 +50,13 @@ the backward reads them with the forward's output, computes delta = dO.O,
 then p, dp and ds of each pair once (one dropout draw), then dQ, dK and
 dV; every output cell has one writer, so there are no atomics.
 ``seg_fwd_geometry`` and ``seg_bwd_geometry`` pick the instance by W and
-compute the launch; the C entries refuse one they cannot run.
+compute the launch; the C entries refuse one they cannot run. The bf16
+instances (the bf16 step; rows of up to 128) have bodies of their own: the
+row's head slices staged as bf16, a warp a 16-query tile of a segment, the
+tile's score rows in registers, every product a bf16 ``mma.sync`` with
+float32 sums, and a backward in two passes (by query tile: delta, dS and
+dQ; by key tile: dK and dV) with no atomics (launch:
+``seg_bf16_geometry``).
 
 K4 replaces ``graphtrans_tpu/ops/pallas/attention_packed.py:
 attention_packed_qkv`` (forward ``_call_fwd``, backward ``_call_bwd``, mask
@@ -335,7 +341,7 @@ def attention_seg_with_stats(qkv: torch.Tensor, seg: torch.Tensor,
         l = torch.empty_like(m)
     if out.numel() == 0:
         return out, m, l
-    geo = seg_fwd_geometry(R, W, HEAD_DIM, nhead)
+    geo = _seg_geometry(qkv, nhead, False)
     ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
     lib = _load()
     entry = _build.entry(lib, "attention_seg_fwd", qkv.dtype)
@@ -349,6 +355,17 @@ def attention_seg_with_stats(qkv: torch.Tensor, seg: torch.Tensor,
 
 
 DTYPES = (torch.float32, torch.bfloat16)   # K2's and K2-bwd's instances
+
+
+def _seg_geometry(qkv: torch.Tensor, nhead: int, bwd: bool):
+    """The launch of K2 (K2-bwd with ``bwd``) on qkv [R, W, 3d]: the f32
+    instances' (``seg_fwd_geometry``, ``seg_bwd_geometry``) or the bf16
+    ones' (``seg_bf16_geometry``)."""
+    R, W, _ = qkv.shape
+    if qkv.dtype == torch.bfloat16:
+        return seg_bf16_geometry(R, W, nhead, bwd)
+    return (seg_bwd_geometry if bwd else seg_fwd_geometry)(R, W, HEAD_DIM,
+                                                           nhead)
 
 
 def _instance(geo, qkv: torch.Tensor) -> str:
@@ -425,7 +442,7 @@ def attention_seg_bwd(qkv: torch.Tensor, seg: torch.Tensor, nhead: int,
     dqkv = torch.empty_like(qkv)
     if dqkv.numel() == 0:
         return dqkv
-    geo = seg_bwd_geometry(R, W, HEAD_DIM, nhead)
+    geo = _seg_geometry(qkv, nhead, True)
     delta = torch.empty_like(m) if geo.instance == "long" else None
     ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
     lib = _load()
@@ -615,6 +632,41 @@ def seg_bwd_geometry(R: int, W: int, hd: int, nhead: int) -> Geometry:
                         SEG_BWD_THREADS, seg_tile_bytes(W, hd, True))
     return Geometry("long", ((0, W),), LONG_T, 1, (R, nhead, -(-W // LONG_T)),
                     LONG_THREADS, long_bwd_bytes(hd))
+
+
+SEG_BF16_THREADS = 128   # threads (four warps) a block of K2's bf16 pair
+SEG_BF16_LD = HEAD_DIM + 8   # bf16 a staged row of K2's bf16 pair
+
+
+def seg_bf16_rows(W: int) -> int:
+    """Rows a K2 bf16 block stages on rows of W tokens: a segment's last
+    16-query tile reads up to 15 rows past its end
+    (``csrc/attention_tile.cuh:seg16_rows``)."""
+    return _round(W, 16) + 16
+
+
+def seg_bf16_bytes(W: int, bwd: bool) -> int:
+    """Shared bytes of a K2 bf16 block on rows of W tokens: the head slices
+    in bf16, rows of SEG_BF16_LD (forward Q, K, V; backward also dO), the
+    backward's m, 1/l and delta per row, the tags per row, per run its
+    first token, length and tiles' prefix count, and the block's two counts
+    (``csrc/attention_tile.cuh:seg16_bytes``)."""
+    rows = seg_bf16_rows(W)
+    return ((4 if bwd else 3) * rows * SEG_BF16_LD * 2
+            + (3 if bwd else 0) * rows * 4 + rows * 4 + 3 * (W + 1) * 4 + 16)
+
+
+@functools.lru_cache(maxsize=None)
+def seg_bf16_geometry(R: int, W: int, nhead: int, bwd: bool) -> Geometry:
+    """The launch of K2's bf16 forward (K2-bwd's with ``bwd``) for R rows of
+    W <= SEG_TILE_MAX tokens: a block of SEG_BF16_THREADS per (row, head),
+    whose warps take the segments' 16-query tiles; ``pad`` the rows
+    staged."""
+    if W > SEG_TILE_MAX:
+        raise ValueError(f"K2's bf16 pair takes rows of up to {SEG_TILE_MAX} "
+                         f"tokens, not {W}")
+    return Geometry("tile", ((0, W),), seg_bf16_rows(W), 1, (R * nhead, 1, 1),
+                    SEG_BF16_THREADS, seg_bf16_bytes(W, bwd))
 
 
 def dense_fwd_geometry(B: int, S: int, block: int, hd: int, nhead: int,

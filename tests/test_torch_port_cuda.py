@@ -114,12 +114,15 @@ def _k1_fwd_batch(G, Sm):
 @pytest.mark.parametrize("G", [1, 64, 4097])
 @pytest.mark.parametrize("Sm", [32, 48, 128])
 @pytest.mark.parametrize("d", [40, 128, 256, 300])
-def test_gin_agg_fwd_kernel_matches_plain(cuda, G, Sm, d):
+def test_gin_agg_fwd_kernel_matches_plain(cuda, deterministic, G, Sm, d):
     """K1's forward against the plain version (K1_TOL) with and without w
     and scale, at one graph, 64 and the bench batch's 4097, strides 32, 48
     and 128: graphs with no edges and one whose slots are all masked, the
     launch fwd_geometry picks (channels split at 1 and 64 graphs); the same
-    bits on two runs; padding node rows scale*x (0 without a scale)."""
+    bits on two runs; padding node rows scale*x (0 without a scale). The
+    plain version runs under deterministic algorithms: its scatter_add_
+    otherwise sums with atomics in no fixed order, and moved by up to
+    1.14e-5 from run to run."""
     from graphtrans_tpu_torch.ops.kernels.gin_agg import fwd_geometry
 
     b = _k1_fwd_batch(G, Sm).to(cuda)
@@ -314,10 +317,12 @@ K2_SEGMENTS = {
 }
 
 
-def _k2_segments(W, cuda):
-    seg = torch.full((len(K2_SEGMENTS[W]), W), -1, dtype=torch.int32)
+def _k2_segments(W, cuda, extra=()):
+    """qkv (random) and seg of the rows K2_SEGMENTS[W], then ``extra``."""
+    rows = K2_SEGMENTS[W] + list(extra)
+    seg = torch.full((len(rows), W), -1, dtype=torch.int32)
     g = 1000
-    for r, runs in enumerate(K2_SEGMENTS[W]):
+    for r, runs in enumerate(rows):
         s = 0
         for run in runs:
             n, gid = run if isinstance(run, tuple) else (run, None)
@@ -2857,21 +2862,60 @@ def test_bf16_wrappers_refuse_mixed_dtypes(cuda):
         attention_seg_bwd(q16, seg, 4, out.float(), (out, m, l))
 
 
+# rows of 128 whose segments cross the bf16 pair's 16-token tile borders
+K2_TILE_ROWS = [[1, 15, 16, 17, 33, 46], [48, 48, (32, -1)],
+                [17] * 7 + [9], [15] * 8 + [8], [33, 33, 33, 29]]
+
+
+def _serve64_k2(cuda):
+    """qkv (random) and seg of the molpcba snapshot's first serving batch
+    of 64 graphs (chip_smoke.py's serve64)."""
+    import pathlib
+
+    from graphtrans_tpu_torch import predict
+    from graphtrans_tpu_torch.data.loader import iterate_batches
+    from graphtrans_tpu_torch.data.mol import load_mol_splits
+    from graphtrans_tpu_torch.utils.config import parse_with_config
+
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    snap = str(repo / "data_snapshots")
+    args = parse_with_config(predict.build_parser(), [
+        "--configs", str(repo / "configs/molpcba/gnn-transformer/JK=cat/"
+                         "pooling=cls+gin+norm_input.yml"),
+        "--data_root", snap, "--batch_size", "64"])
+    splits, num_tasks = load_mol_splits(snap, "ogbg-molpcba")
+    b = next(iterate_batches(splits["train"], **predict.serving_layout(
+        splits, args, num_tasks)))
+    seg = torch.as_tensor(b.pack_seg).reshape(b.pack_rows, b.pack_w)
+    gen = torch.Generator().manual_seed(64)
+    return (torch.randn(b.pack_rows, b.pack_w, 384, generator=gen).to(cuda),
+            seg.to(cuda))
+
+
+def _k2_bf16_case(case, cuda):
+    if case == "serve64":
+        return _serve64_k2(cuda)
+    W = int(case)
+    return _k2_segments(W, cuda, K2_TILE_ROWS if W == 128 else ())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("W", [37, 128])
+@pytest.mark.parametrize("case", ["37", "128", "serve64"])
 @pytest.mark.parametrize("rate", [0.0, 0.3])
-def test_attention_seg_bf16_kernels_match_plain(cuda, W, rate):
-    """K2 and K2-bwd's bf16 instances (the tile instance, rows of up to
-    128) on rows of every segment length, an id in two runs and an
-    all-padding row, against their plain bf16 versions (the same masks):
-    out within BF16_OUT_TOL, dqkv within BF16_GRAD_TOL of max(1,
-    max|plain|); the serving launch's bits; padding tokens exactly 0; the
-    same bits on two runs; counted as tile_bf16; rows of 129 or more
-    refused (slice 10)."""
+def test_attention_seg_bf16_kernels_match_plain(cuda, case, rate):
+    """K2 and K2-bwd's bf16 instances (rows of up to 128: a warp a
+    16-query tile) on rows of every segment length, segments of 1, 15, 16,
+    17, 33, 46 and 48 tokens and runs that cross the 16-token tile borders,
+    an id in two runs, an all-padding row, and the molpcba snapshot's
+    serve64 batch, against their plain bf16 versions (the same masks): out
+    within BF16_OUT_TOL, dqkv within BF16_GRAD_TOL of max(1, max|plain|);
+    the serving launch's bits; padding tokens exactly 0; the same bits on
+    two runs; counted as tile_bf16; rows of 129 or more refused (slice
+    10)."""
     H, seed = 4, 2**31 - 13
-    qkv, seg = _k2_segments(W, cuda)
+    qkv, seg = _k2_bf16_case(case, cuda)
     q16 = qkv.to(BF16)
-    g = torch.randn(qkv.shape[0], W, 128,
+    g = torch.randn(qkv.shape[0], qkv.shape[1], 128,
                     generator=torch.Generator().manual_seed(6)).to(cuda, BF16)
     f0 = attention_seg.instances["tile_bf16"]
     b0 = attention_seg_bwd.instances["tile_bf16"]
