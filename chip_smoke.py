@@ -183,6 +183,20 @@ Phases, each printing one line (any failure raises and exits non-zero):
      bf16 through main (every K1, K1-bwd, K2 and K2-bwd launch the bf16
      instance); (c) a bf16 step against the plain versions; (d) the
      4096-graph train step in f32 and bf16 in turns, profiled.
+ 15. (a) K2's long instance (code2's tier of 384), K3, K7 and their
+     backwards in bf16 (the bf16 long forward and long pair: bf16 rows, a
+     warp 16 rows whole, bf16 mma.sync; K7 and K7-bwd with float32 sums)
+     against their plain bf16 versions at the code2 snapshot's train
+     batch of 16 and bench512, timed as the bf16 step calls them beside
+     the f32 instance in turns, bound, plain version and, for K2 and K3,
+     SDPA in bf16 (with ``--baseline``: the f32 long launches of K2, K3,
+     K5 and K9 and the f32 K7 and K7-bwd held to the parent's bits); (b)
+     trains the code2 GraphTrans yml in bf16 through main (every K2, K3
+     and K7 launch and every backward launch the bf16 instance, counted by
+     instance); (c) the saved float32 masters served by predict, and a
+     bf16 step against the plain versions under deterministic algorithms;
+     (d) the 512-graph code2 train step in f32 and bf16 in turns,
+     profiled.
 Then the script's wall seconds, a {"kernels": [...]} line, the nvidia-smi
 line, and the contract line
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without
@@ -259,8 +273,7 @@ LAYERS = (
     ("attention_dense_bwd", "K4-bwd attention_dense_bwd (K10's too)"),
     ("flash_attention_bwd", "K5-bwd flash_attention_bwd"),
     ("byte_dropout", "K11 byte_dropout"),
-    ("flash_hil_dq", "K3-bwd flash_hil_seg_bwd"),
-    ("flash_hil_dkv", "K3-bwd flash_hil_seg_bwd"),
+    ("flash_hil_bwd", "K3-bwd flash_hil_seg_bwd"),
     ("spmm_bwd", "K7-bwd spmm_bwd"),
     ("blocked_fwd", "K8 blocked_gather_message_scatter"),
     ("blocked_dx", "K8-dx blocked_gather_message_scatter_dx"),
@@ -1388,11 +1401,13 @@ def k3_bound(qkv, seg, nhead: int, tensor_cores: bool = True):
 def k7_bound(args):
     """x and the output once, and per valid edge its emb row, src, dst and
     weight (the padding tail's emb rows are never needed); 4 flops per
-    valid edge and channel (add, relu, scale, sum)."""
+    valid edge and channel (add, relu, scale, sum). Rows of x's element
+    size (bf16: 2 bytes)."""
     x, emb, src, dst, emask, w = args
     N, d = x.shape
+    e = x.element_size()
     valid = int(emask.sum().item())
-    nbytes = 2 * N * d * 4 + valid * (d * 4 + 3 * 4) + emask.numel()
+    nbytes = 2 * N * d * e + valid * (d * e + 3 * 4) + emask.numel()
     return _bound(nbytes, 4 * valid * d)
 
 
@@ -1833,8 +1848,9 @@ def k7_bwd_bound(args):
     x, emb, src, dst, emask, w = args[:6]
     N, d = x.shape
     E = emask.numel()
+    e = x.element_size()
     valid = int(emask.sum().item())
-    nbytes = 3 * N * d * 4 + valid * (d * 4 + 3 * 4) + E * d * 4
+    nbytes = 3 * N * d * e + valid * (d * e + 3 * 4) + E * d * e
     return _bound(nbytes, 4 * valid * d)
 
 
@@ -5255,6 +5271,36 @@ def check_k1_bf16(inp, gout):
     return f_err, b_err
 
 
+def check_attn_bf16(name: str, fwd, bwd, plain, bwd_plain, qkv, seg,
+                    nhead: int, gen, serve=None):
+    """A bf16 attention pair (K2's long instance, K3) at rate 0 and the
+    training rate against its plain bf16 version (the same masks):
+    relative errors (forward, backward); outputs bf16, padding tokens
+    exactly 0, and at rate 0 the serving launch's bits (``serve``)."""
+    f_err = b_err = 0.0
+    for rate, seed in ((0.0, 0), (DROPOUT, 24681357)):
+        out, m, l = fwd(qkv, seg, nhead, rate, seed)
+        g = torch.randn(out.shape, generator=gen).to(qkv.device, BF16)
+        dqkv = bwd(qkv, seg, nhead, g, (out, m, l), rate, seed)
+        same = serve is None or rate > 0 or torch.equal(serve(qkv, seg,
+                                                               nhead), out)
+        torch.cuda.synchronize()
+        if out.dtype != BF16 or dqkv.dtype != BF16:
+            raise AssertionError(f"{name} bf16: outputs are not bf16")
+        if out[seg < 0].any() or dqkv[seg < 0].any() or not same:
+            raise AssertionError(f"{name} bf16: padding tokens not 0, or the "
+                                 f"serving launch differs from the training "
+                                 f"one")
+        f_err = max(f_err, _rel_err(out, plain(qkv, seg, nhead, rate, seed)))
+        b_err = max(b_err, _rel_err(dqkv, bwd_plain(qkv, seg, nhead, g, rate,
+                                                    seed)))
+    if f_err > BF16_OUT_TOL or b_err > BF16_GRAD_TOL:
+        raise AssertionError(f"{name} bf16 against its plain version: "
+                             f"forward {f_err} (<= {BF16_OUT_TOL}), backward "
+                             f"{b_err} (<= {BF16_GRAD_TOL})")
+    return f_err, b_err
+
+
 def check_k2_bf16(qkv, seg, nhead: int, gen, mod=None):
     """K2 and K2-bwd in bf16, at rate 0 and the training rate, against
     their plain bf16 versions (the same masks): relative errors. ``mod`` is
@@ -5265,30 +5311,10 @@ def check_k2_bf16(qkv, seg, nhead: int, gen, mod=None):
     from graphtrans_tpu_torch.ops.kernels import attention_packed
 
     mod = mod or attention_packed
-    f_err = b_err = 0.0
-    for rate, seed in ((0.0, 0), (DROPOUT, 24681357)):
-        out, m, l = mod.attention_seg_with_stats(qkv, seg, nhead, rate, seed)
-        g = torch.randn(out.shape, generator=gen).to(qkv.device, BF16)
-        dqkv = mod.attention_seg_bwd(qkv, seg, nhead, g, (out, m, l), rate,
-                                     seed)
-        serve = mod.attention_seg(qkv, seg, nhead) if rate == 0 else out
-        torch.cuda.synchronize()
-        if out.dtype != BF16 or dqkv.dtype != BF16:
-            raise AssertionError("K2 bf16: outputs are not bf16")
-        if out[seg < 0].any() or dqkv[seg < 0].any() or not torch.equal(
-                serve, out):
-            raise AssertionError("K2 bf16: padding tokens not 0, or the "
-                                 "serving launch differs from the training "
-                                 "one")
-        f_err = max(f_err, _rel_err(out, attention_seg_plain(qkv, seg, nhead,
-                                                         rate, seed)))
-        b_err = max(b_err, _rel_err(dqkv, attention_seg_bwd_plain(
-            qkv, seg, nhead, g, rate, seed)))
-    if f_err > BF16_OUT_TOL or b_err > BF16_GRAD_TOL:
-        raise AssertionError(f"K2 bf16 against its plain version: forward "
-                             f"{f_err} (<= {BF16_OUT_TOL}), backward {b_err} "
-                             f"(<= {BF16_GRAD_TOL})")
-    return f_err, b_err
+    return check_attn_bf16("K2", mod.attention_seg_with_stats,
+                           mod.attention_seg_bwd, attention_seg_plain,
+                           attention_seg_bwd_plain, qkv, seg, nhead, gen,
+                           mod.attention_seg)
 
 
 def _seg_pairs(seg, nhead: int) -> int:
@@ -5455,9 +5481,10 @@ def _bf16_want(steps: int) -> dict:
     K2-bwd a step, all bf16."""
     return {"gin_agg": {"f32": 0, "bf16": 5 * steps},
             "gin_agg_bwd": {"f32": 0, "bf16": 5 * steps},
-            "attention_seg": {"tile": 0, "long": 0, "tile_bf16": 4 * steps},
+            "attention_seg": {"tile": 0, "long": 0, "tile_bf16": 4 * steps,
+                              "long_bf16": 0},
             "attention_seg_bwd": {"tile": 0, "long": 0,
-                                  "tile_bf16": 4 * steps}}
+                                  "tile_bf16": 4 * steps, "long_bf16": 0}}
 
 
 def phase14_train(device, tmp: str):
@@ -5589,6 +5616,446 @@ def phase14_cost(device, big, smi: str):
           f"turns ({f32 / bf:.3f}x) on {smi}")
 
 
+# ---- phase 15: bf16 training of the code2 GraphTrans ------------------------
+
+
+def _k7_bf16(a):
+    """K7's arguments as the bf16 GCN layer gets them: x and emb bf16, the
+    GCN norm bf16 (formed in x's dtype, widened by the wrapper)."""
+    x, emb, src, dst, emask, w = a
+    return (x.to(BF16), emb.to(BF16), src, dst, emask, w.to(BF16))
+
+
+def check_k7_bf16(a, gen):
+    """K7 and K7-bwd in bf16 (relu_add and add) against their plain bf16
+    versions: relative errors (forward, backward); masked edges' d_emb
+    rows exactly 0."""
+    from graphtrans_tpu_torch.ops.kernels import (SrcOrder, spmm, spmm_bwd,
+                                                  spmm_bwd_plain, spmm_plain)
+
+    x, emb, src, dst, emask, w = a
+    order = SrcOrder(src, emask, x.shape[0])
+    f_err = b_err = 0.0
+    for message in ("relu_add", "add"):
+        g = torch.randn(x.shape, generator=gen).to(x.device, BF16)
+        got = spmm(*a, message)
+        grads = spmm_bwd(x, emb, src, dst, emask, g, order, w, message)
+        torch.cuda.synchronize()
+        if got.dtype != BF16 or any(t.dtype != BF16 for t in grads):
+            raise AssertionError("K7 bf16: outputs are not bf16")
+        if grads[1][~emask].any():
+            raise AssertionError("K7-bwd bf16: masked edges' d_emb rows are "
+                                 "not zero")
+        f_err = max(f_err, _rel_err(got, spmm_plain(*a, message)))
+        b_err = max(b_err, *(_rel_err(t, r) for t, r in zip(
+            grads, spmm_bwd_plain(x, emb, src, dst, emask, g, w, message))))
+    if f_err > BF16_OUT_TOL or b_err > BF16_GRAD_TOL:
+        raise AssertionError(f"K7 bf16 against its plain version: forward "
+                             f"{f_err} (<= {BF16_OUT_TOL}), backward {b_err} "
+                             f"(<= {BF16_GRAD_TOL})")
+    return f_err, b_err
+
+
+def k3_bf16_bwd_bound(qkv, seg, nhead: int):
+    """K3-bwd's bf16 instance reads what K2-bwd's does (k2_bf16_bwd_bound)
+    and the forward's out (delta = dO . O, as the JAX kernel forms it)."""
+    R, W, d3 = qkv.shape
+    hd = d3 // 3 // nhead
+    pairs = _seg_pairs(seg, nhead)
+    nbytes = (2 * qkv.numel() * 2 + seg.numel() * 4
+              + 2 * R * W * (d3 // 3) * 2 + 2 * R * W * nhead * 4)
+    return _tc_bound(nbytes, pairs * 10 * hd, pairs * 8, BF16_TC_FLOPS)
+
+
+def long_f32_bits(device, gen, base, checked: list):
+    """Under ``--baseline``: the f32 long launches of K5 (code2's rows of
+    1001: a key prefix and the CLS key) and K9 (its long instance at S
+    1001), forward and backward at the training rate, give the parent's
+    bits on the same inputs."""
+    from graphtrans_tpu_torch.ops.kernels import (attention_smalls_bwd,
+                                                  flash_attention_bwd,
+                                                  key_padding_segs)
+    from graphtrans_tpu_torch.ops.kernels.attention_smalls import (
+        attention_smalls_with_stats)
+    from graphtrans_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_with_stats)
+
+    B, S, d, H, seed = 16, 1001, 256, 4, 97531
+    n = torch.randint(1, S - 1, (B,), generator=gen)
+    valid = torch.arange(S)[None, :] < n[:, None]
+    valid[:, -1] = True
+    qkv = torch.randn(B, S, 3 * d, generator=gen).to(device)
+    g = torch.randn(B, S, d, generator=gen).to(device)
+    valid = valid.to(device)
+    segs = key_padding_segs(valid)
+    old5, old9 = base["flash_attention"], base["attention_smalls"]
+    s5 = flash_attention_with_stats(qkv, *segs, H, DROPOUT, seed)
+    same_bits("K5 f32 training forward S=1001",
+              lambda: flash_attention_with_stats(qkv, *segs, H, DROPOUT, seed),
+              lambda: old5.flash_attention_with_stats(qkv, *segs, H, DROPOUT,
+                                                      seed), checked)
+    same_bits("K5-bwd f32 S=1001",
+              lambda: flash_attention_bwd(qkv, *segs, H, g, DROPOUT, seed,
+                                          saved=s5),
+              lambda: old5.flash_attention_bwd(qkv, *segs, H, g, DROPOUT,
+                                               seed, saved=s5), checked)
+    s9 = attention_smalls_with_stats(qkv, valid, H, 0, DROPOUT, seed)
+    same_bits("K9 f32 long training forward S=1001",
+              lambda: attention_smalls_with_stats(qkv, valid, H, 0, DROPOUT,
+                                                  seed),
+              lambda: old9.attention_smalls_with_stats(qkv, valid, H, 0,
+                                                       DROPOUT, seed), checked)
+    same_bits("K9-bwd f32 long S=1001",
+              lambda: attention_smalls_bwd(qkv, valid, H, g, 0, DROPOUT, seed,
+                                           saved=s9),
+              lambda: old9.attention_smalls_bwd(qkv, valid, H, g, 0, DROPOUT,
+                                                seed, saved=s9), checked)
+
+
+def phase15_kernels(device, d_gnn: int, d_model: int, nhead: int, bench,
+                    base=None):
+    """(a) K2's long instance (the code2 tier of 384), K3, K7 and their
+    backwards in bf16 against their plain bf16 versions at the code2
+    snapshot's first train batch of 16 (tiers 1024, 384, 128) and at
+    bench512; timed as the bf16 step calls them (the attention at the
+    training rate, K7 with the batch's orders) beside the f32 instance in
+    turns, bound (bf16 bytes, or products on the bf16 tensor cores), plain
+    bf16 version and, for K2's long instance and K3, SDPA in bf16 with the
+    bool segment mask. With ``base`` the f32 long launches of K2, K3, K5
+    and K9 and the f32 K7 and K7-bwd give the parent's bits."""
+    from graphtrans_tpu_torch import predict
+    from graphtrans_tpu_torch.data.loader import iterate_batches
+    from graphtrans_tpu_torch.ops.kernels import (
+        DstOrder, SrcOrder, attention_seg, attention_seg_bwd,
+        attention_seg_bwd_plain, attention_seg_plain, flash_hil_seg,
+        flash_hil_seg_bwd, flash_hil_seg_bwd_plain, flash_hil_seg_plain,
+        spmm, spmm_bwd, spmm_plain)
+    from graphtrans_tpu_torch.ops.kernels.attention_packed import (
+        attention_seg_with_stats)
+    from graphtrans_tpu_torch.ops.kernels.flash_hil import (
+        flash_hil_seg_with_stats)
+
+    gen = torch.Generator().manual_seed(SEED + 15)
+    args = _code2_args()
+    splits, num_tasks, _ = predict.load_splits(args)
+    train16 = next(iterate_batches(splits["train"], **predict.serving_layout(
+        splits, args, num_tasks, split="train")))
+    errs = dict.fromkeys(("k2", "k2b", "k3", "k3b", "k7", "k7b"), 0.0)
+    checked, rows = [], None
+    for name, b in (("train16", train16), (f"bench{CODE2_BENCH}", bench)):
+        q2, s2 = k2_tier_inputs(b, "pack2", d_model, gen, device)
+        q3, s3 = k3_inputs(b, d_model, gen, device)
+        a7 = k7_inputs(b, d_gnn, gen, device)
+        h2, h3, h7 = q2.to(BF16), q3.to(BF16), _k7_bf16(a7)
+        got = {}
+        got["k2"], got["k2b"] = check_attn_bf16(
+            "K2 long", attention_seg_with_stats, attention_seg_bwd,
+            attention_seg_plain, attention_seg_bwd_plain, h2, s2, nhead, gen,
+            attention_seg)
+        got["k3"], got["k3b"] = check_attn_bf16(
+            "K3", flash_hil_seg_with_stats, flash_hil_seg_bwd,
+            flash_hil_seg_plain, flash_hil_seg_bwd_plain, h3, s3, nhead, gen,
+            flash_hil_seg)
+        got["k7"], got["k7b"] = check_k7_bf16(h7, gen)
+        for k, v in got.items():
+            errs[k] = max(errs[k], v)
+        print(f"[15a] {name}: K2 long bf16 {got['k2']:.3g}, K2-bwd long bf16 "
+              f"{got['k2b']:.3g}, K3 bf16 {got['k3']:.3g}, K3-bwd bf16 "
+              f"{got['k3b']:.3g}, K7 bf16 {got['k7']:.3g}, K7-bwd bf16 "
+              f"{got['k7b']:.3g} of max(1, max|plain bf16|)")
+
+        seed = 13572468
+        timed = {}
+        for key, (q, sg, fwd, bwd, plain, dkind) in {
+                "k2": (q2, s2, attention_seg_with_stats, attention_seg_bwd,
+                       attention_seg_plain, "attention_packed"),
+                "k3": (q3, s3, flash_hil_seg_with_stats, flash_hil_seg_bwd,
+                       flash_hil_seg_plain, "flash_hil")}.items():
+            q16 = q.to(BF16)
+            R, W, d3 = q.shape
+            g16 = torch.randn(R, W, d3 // 3, generator=gen).to(device, BF16)
+            g32 = g16.float()
+            f = dict(plain_ms=time_ms(lambda: plain(q16, sg, nhead, DROPOUT,
+                                                    seed), iters=3),
+                     library_ms=sdpa_ms(q16, sg, nhead))
+            f["ms"], f["f32_ms"] = rounds_ms([
+                lambda: fwd(q16, sg, nhead, DROPOUT, seed),
+                lambda: fwd(q, sg, nhead, DROPOUT, seed)], 20)
+            f["bound_ms"], f["bound_by"] = k2_bf16_bound(q16, sg, nhead)
+            s16 = fwd(q16, sg, nhead, DROPOUT, seed)
+            s32 = fwd(q, sg, nhead, DROPOUT, seed)
+            bw = dict(plain_ms=_plain_bwd_ms(
+                lambda t: plain(t, sg, nhead, DROPOUT, seed), [q16], g16),
+                library_ms=sdpa_bwd_ms(q16, sg, nhead, g16, DROPOUT))
+            bw["ms"], bw["f32_ms"] = rounds_ms([
+                lambda: bwd(q16, sg, nhead, g16, s16, DROPOUT, seed),
+                lambda: bwd(q, sg, nhead, g32, s32, DROPOUT, seed)], 20)
+            bw["bound_ms"], bw["bound_by"] = (
+                k2_bf16_bwd_bound if key == "k2" else k3_bf16_bwd_bound)(
+                    q16, sg, nhead)
+            if base:
+                old = base[dkind]
+                ofwd = getattr(old, fwd.__name__)
+                obwd = getattr(old, bwd.__name__)
+                same_bits(f"{key.upper()} f32 training forward {name}",
+                          lambda: fwd(q, sg, nhead, DROPOUT, seed),
+                          lambda: ofwd(q, sg, nhead, DROPOUT, seed), checked)
+                same_bits(f"{key.upper()}-bwd f32 {name}",
+                          lambda: bwd(q, sg, nhead, g32, s32, DROPOUT, seed),
+                          lambda: obwd(q, sg, nhead, g32, s32, DROPOUT, seed),
+                          checked)
+            shape = f"R={R} W={W} d={d3 // 3} H={nhead} rate={DROPOUT}"
+            f["shape"] = bw["shape"] = shape
+            timed[key], timed[key + "b"] = f, bw
+
+        N = a7[0].shape[0]
+        dst_rows = DstOrder(a7[3], a7[4], N)
+        src_rows = SrcOrder(a7[2], a7[4], N)
+        dst_rows.runs(), src_rows.runs()         # once per batch, not timed
+        g7 = torch.randn(a7[0].shape, generator=gen).to(device, BF16)
+        k7 = dict(plain_ms=time_ms(lambda: spmm_plain(*h7), iters=5),
+                  library_ms=None)
+        k7["ms"], k7["f32_ms"] = rounds_ms([
+            lambda: spmm(*h7, rows=dst_rows),
+            lambda: spmm(*a7, rows=dst_rows)], 20)
+        k7["bound_ms"], k7["bound_by"] = k7_bound(h7)
+        k7b = dict(plain_ms=_plain_bwd_ms(
+            lambda x, e: spmm_plain(x, e, *h7[2:]), list(h7[:2]), g7),
+            library_ms=None)
+        k7b["ms"], k7b["f32_ms"] = rounds_ms([
+            lambda: spmm_bwd(*h7[:5], g7, src_rows, h7[5]),
+            lambda: spmm_bwd(*a7[:5], g7.float(), src_rows, a7[5])], 20)
+        k7b["bound_ms"], k7b["bound_by"] = k7_bwd_bound(h7)
+        if base:
+            old = base["spmm"]
+            same_bits(f"K7 f32 {name}", lambda: spmm(*a7, rows=dst_rows),
+                      lambda: old.spmm(*a7), checked)
+            same_bits(f"K7-bwd f32 {name}",
+                      lambda: spmm_bwd(*a7[:5], g7.float(), src_rows, a7[5]),
+                      lambda: old.spmm_bwd(*a7[:5], g7.float(), src_rows,
+                                           a7[5]), checked)
+        k7["shape"] = k7b["shape"] = (f"N={N} E={a7[2].shape[0]} valid="
+                                      f"{int(a7[4].sum().item())} d={d_gnn}")
+        timed["k7"], timed["k7b"] = k7, k7b
+        for key, kname in (("k2", "K2 attention_seg, long instance"),
+                           ("k2b", "K2-bwd attention_seg_bwd, long instance"),
+                           ("k3", "K3 flash_hil_seg"),
+                           ("k3b", "K3-bwd flash_hil_seg_bwd"),
+                           ("k7", "K7 spmm (the batch's DstOrder)"),
+                           ("k7b", "K7-bwd spmm_bwd (the batch's SrcOrder)")):
+            t = timed[key]
+            lib = ("-" if t["library_ms"] is None else
+                   f"{t['library_ms']:.4f} ms (SDPA in bf16, bool seg mask"
+                   f"{', backward' if key.endswith('b') else ''})")
+            print(f"[15a] {name} {kname} bf16 [{t['shape']}]: kernel "
+                  f"{t['ms']:.4f} ms (the f32 instance {t['f32_ms']:.4f}, in "
+                  f"turns), plain bf16 {t['plain_ms']:.4f} ms, bound "
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library {lib}")
+        rows = timed
+    if base:
+        long_f32_bits(device, gen, base, checked)
+        print(f"[15a] --baseline: the f32 instances give the parent's bits "
+              f"on the same inputs at {checked}")
+    print(f"[15a] bf16 kernels agree with their plain bf16 versions, of "
+          f"max(1, max|plain|): K2 long {errs['k2']:.3g}, K3 {errs['k3']:.3g}, "
+          f"K7 {errs['k7']:.3g} (<= {BF16_OUT_TOL}); K2-bwd long "
+          f"{errs['k2b']:.3g}, K3-bwd {errs['k3b']:.3g}, K7-bwd "
+          f"{errs['k7b']:.3g} (<= {BF16_GRAD_TOL}); padding tokens and masked "
+          f"edges' d_emb rows exactly 0")
+    return dict(errs=errs, timed=rows)
+
+
+def _code2_bf16_want(steps: int) -> dict:
+    """The code2 bf16 step's launches by instance, every one bf16: a train
+    batch packs into three tiers (1024, 384, 128), so the 4 encoder layers
+    run K3 on one, K2's long instance on one and its tile instance on one,
+    and the 5 GCN layers run K7; each with its backward."""
+    k2 = {"tile": 0, "long": 0, "tile_bf16": 4 * steps,
+          "long_bf16": 4 * steps}
+    return {"attention_seg": k2, "attention_seg_bwd": dict(k2),
+            "flash_hil_seg": {"f32": 0, "bf16": 4 * steps},
+            "flash_hil_seg_bwd": {"f32": 0, "bf16": 4 * steps},
+            "spmm": {"f32": 0, "bf16": 5 * steps},
+            "spmm_bwd": {"f32": 0, "bf16": 5 * steps}}
+
+
+def phase15_train(device, tmp: str, bench, bench_tasks: int):
+    """(b) The counts set to 0, ``main --precision bf16`` on the code2
+    JK=cat yml (batches of 16, TRAIN_EPOCHS epochs) over the snapshot, the
+    counts read: every K2, K3 and K7 launch and every backward launch the
+    bf16 instance; finite losses, every parameter moved, the saved state
+    float32, which ``predict --weights`` serves in float32 (the f32
+    instances); (c) one bf16 step through the kernels against the plain
+    bf16 versions on the card under deterministic algorithms, at the
+    512-graph batch (within BF16_STEP_TOL) and at the snapshot's first
+    train batch of 16, beside the plain bf16 step's distance from the f32
+    step."""
+    import io
+    import types
+
+    from graphtrans_tpu_torch import main as train_main
+    from graphtrans_tpu_torch import predict
+    from graphtrans_tpu_torch.data.loader import iterate_batches, shuffled_order
+    from graphtrans_tpu_torch.ops import kernels
+
+    argv = ["--configs", CODE2_CONFIG, "--data_root", SNAPSHOT, "--epochs",
+            str(TRAIN_EPOCHS), "--batch_size", str(CODE2_BATCH), "--seed",
+            str(SEED), "--precision", "bf16", "--save_path", tmp]
+    counted = (kernels.attention_seg, kernels.attention_seg_bwd,
+               kernels.flash_hil_seg, kernels.flash_hil_seg_bwd,
+               kernels.spmm, kernels.spmm_bwd)
+    out = io.StringIO()
+    kernels.reset_launches()                 # the code2 bf16 path
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res = train_main.main(argv)
+    secs = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    by_inst = {fn.__name__: dict(fn.instances) for fn in counted}
+    for line in out.getvalue().splitlines():
+        print(f"[15b] main: {line}")
+    steps = sum(r["steps"] for r in res["epochs"])
+    want = {**dict.fromkeys(launches, 0),
+            "attention_seg": 8 * steps, "attention_seg_bwd": 8 * steps,
+            "flash_hil_seg": 4 * steps, "flash_hil_seg_bwd": 4 * steps,
+            "spmm": 5 * steps, "spmm_bwd": 5 * steps}
+    if (steps == 0 or launches != want
+            or by_inst != _code2_bf16_want(steps)):
+        raise AssertionError(f"code2 bf16 training launches {launches} by "
+                             f"instance {by_inst}, expected {want}, "
+                             f"{_code2_bf16_want(steps)}")
+    print(f"[15b] the code2 bf16 step's launches ({steps} steps): "
+          f"{launches}; by instance {by_inst}: K2 8 (4 tile, 4 long), K3 4, "
+          f"K7 5 a step, each with its backward, every one the bf16 "
+          f"instance")
+    if not all(math.isfinite(r["loss"]) for r in res["epochs"]):
+        raise AssertionError(f"bf16 epoch losses not finite: {res['epochs']}")
+    args = _code2_train_args()
+    args.precision = "bf16"
+    splits, num_tasks, code = predict.load_splits(args)
+    init, _ = _trainer(args, num_tasks, device, data=code)
+    trained = torch.load(res["saved"], map_location=device, weights_only=True)
+    params = dict(init.named_parameters())
+    still = [n for n, p in params.items() if torch.equal(p, trained[n])]
+    wrong = [n for n, p in trained.items() if p.dtype != torch.float32
+             and p.is_floating_point()]
+    if still or wrong:
+        raise AssertionError(f"code2 bf16 training: parameters that did not "
+                             f"move {still}; state not float32 {wrong}")
+    kernels.reset_launches()
+    served = predict.main([
+        "--configs", CODE2_CONFIG, "--data_root", SNAPSHOT, "--split",
+        "test", "--batch_size", str(CODE2_BATCH), "--weights", res["saved"],
+        "--out", os.path.join(tmp, "code2_bf16.jsonl")])
+    serve_inst = {fn.__name__: dict(fn.instances) for fn in counted[::2]}
+    if (any(v.get("bf16", 0) or v.get("tile_bf16", 0) or v.get("long_bf16", 0)
+            for v in serve_inst.values())
+            or not 0.0 <= served["F1"] <= 1.0):
+        raise AssertionError(f"predict on the bf16 run's weights: launches "
+                             f"{serve_inst}, F1 {served['F1']}")
+    print(f"[15c] trained code2 {TRAIN_EPOCHS} epochs ({steps} bf16 steps of "
+          f"<= {CODE2_BATCH} graphs, {secs:.2f} s with the model build) "
+          f"through graphtrans_tpu_torch.main --precision bf16: losses "
+          f"{[round(r['loss'], 6) for r in res['epochs']]}, all "
+          f"{len(params)} parameter tensors moved, the saved state float32; "
+          f"predict --weights served its {served['records']} test graphs in "
+          f"f32 (launches by instance {serve_inst}), F1 {served['F1']:.4f}")
+
+    layout = predict.serving_layout(splits, args, num_tasks, CODE2_BATCH,
+                                    split="train", seed=SEED)
+    batch = next(iterate_batches(
+        splits["train"], order=shuffled_order(len(splits["train"]), SEED, 0),
+        **layout)).to(device)
+    sizes = types.SimpleNamespace(num_nodetypes=20, num_nodeattributes=100,
+                                  max_seq_len=5)       # make_code_dataset's
+    for name, b, tasks, data in (
+            (f"bench{CODE2_BENCH}", bench.to(device), bench_tasks, sizes),
+            (f"train{CODE2_BATCH}", batch, num_tasks, code)):
+        got = {}
+        with deterministic():
+            for tag, prec, on in (("kernels", "bf16", True),
+                                  ("plain", "bf16", False),
+                                  ("f32", "f32", False)):
+                args.precision = prec
+                model, step = _trainer(args, tasks, device, kernels_on=on,
+                                       data=data)
+                loss = step(b)
+                got[tag] = (loss.item(), loss.dtype,
+                            {n: p.grad for n, p in model.named_parameters()})
+        args.precision = "bf16"
+        (lk, dt, gk), (lp, _, gp), (_, _, gf) = got.values()
+        g_err = max(_rel_err(gk[n], gp[n]) for n in gk)
+        noise = max(_rel_err(gp[n], gf[n]) for n in gp)
+        dtypes = {g.dtype for g in gk.values()} | {dt}
+        # at 16 graphs the virtual node's BatchNorm over 16 graph rows
+        # makes the bf16 step's gradients noise-sized (the plain bf16 route
+        # is up to ~1.5 of max(1, max|ref|) from the f32 step): there the
+        # kernels may move them by up to a quarter of that
+        g_tol = (BF16_STEP_TOL[1] if name.startswith("bench")
+                 else max(BF16_STEP_TOL[1], noise / 4))
+        if (abs(lk - lp) > BF16_STEP_TOL[0] * max(1.0, abs(lp))
+                or g_err > g_tol or dtypes != {torch.float32}):
+            raise AssertionError(f"code2 bf16 step through the kernels at "
+                                 f"{name}: loss {lk} vs {lp}, gradients "
+                                 f"{g_err} (<= {g_tol}), dtypes {dtypes}")
+        print(f"[15c] one code2 bf16 step at {name} (W={b.pack_w}/"
+              f"{b.pack2_w}/{b.pack3_w}, attention dropout "
+              f"{args.transformer_dropout}, same seeds, deterministic "
+              f"algorithms) through the kernels vs the plain bf16 versions "
+              f"on the card: loss {lk:.6f} vs {lp:.6f} (|diff| "
+              f"{abs(lk - lp):.3g} <= {BF16_STEP_TOL[0]} of max(1, |ref|)), "
+              f"gradients {g_err:.3g} of max(1, max|ref|) (<= {g_tol:.3g}); "
+              f"the plain bf16 step's gradients {noise:.3g} from the f32 "
+              f"step's; loss and gradients float32")
+    return launches, by_inst
+
+
+def phase15_cost(device, bench, num_tasks: int, smi: str):
+    """(d) The code2 train step on the 512-graph batch in f32 and in bf16
+    in turns (f32, bf16, bf16, f32): median ms, peak memory; then each
+    profiled: idle share and device time by layer."""
+    import types
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    sizes = types.SimpleNamespace(num_nodetypes=20, num_nodeattributes=100,
+                                  max_seq_len=5)       # make_code_dataset's
+    tb = bench.to(device)
+    n = int(bench.graph_mask.sum())
+    runs, profiled = {"f32": [], "bf16": []}, set()
+    for prec in ("f32", "bf16", "bf16", "f32"):
+        args = _code2_train_args()
+        args.precision = prec
+        model, step = _trainer(args, num_tasks, device, data=sizes)
+        _median_ms(lambda: step(tb), 3)                     # warm-up
+        torch.cuda.reset_peak_memory_stats(device)
+        ms, lo, hi, loss = _median_ms(lambda: step(tb), TIMED_STEPS)
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        if not torch.isfinite(loss):
+            raise AssertionError(f"code2 512-graph {prec} step: loss not "
+                                 f"finite")
+        runs[prec].append(ms)
+        print(f"[15d] code2 {prec} train step of {n} graphs: median "
+              f"{ms:.3f} ms over {TIMED_STEPS} (min {lo:.3f}, max {hi:.3f}), "
+              f"{n / ms * 1e3:.0f} graphs/s, peak memory {peak:.2f} GiB on "
+              f"{smi}")
+        if prec not in profiled:
+            profiled.add(prec)
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                for _ in range(PROFILED_STEPS):
+                    step(tb)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+            _print_split("[15d]", f"code2 {prec} train step", prof,
+                         PROFILED_STEPS, wall, smi, graphs=n)
+        del model, step
+        torch.cuda.empty_cache()
+    f32, bf = statistics.mean(runs["f32"]), statistics.mean(runs["bf16"])
+    print(f"[15d] code2 train{CODE2_BENCH}: bf16 {bf:.3f} ms against f32 "
+          f"{f32:.3f} ms in turns ({f32 / bf:.3f}x) on {smi}")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--trace", default=None,
@@ -5602,7 +6069,9 @@ def main(argv=None) -> int:
                         "K7-bwd, K8, K8-dx, K9, K9-bwd, K10, K10-bwd also "
                         "bit for bit; K6 its largest difference), and "
                         "whose bf16 K2 pair phase 14a times (its f32 K2 "
-                        "pair bit for bit)")
+                        "pair bit for bit), and whose f32 long launches of "
+                        "K2, K3, K5 and K9 and f32 K7 and K7-bwd phase 15a "
+                        "holds to its bits")
     opts = p.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5709,6 +6178,12 @@ def main(argv=None) -> int:
         bf16_launches, bf16_instances = phase14_train(device, tmp)
     phase14_cost(device, big, smi)
 
+    code2_bf16 = phase15_kernels(device, args.gnn_emb_dim, args.d_model,
+                                 args.nhead, bench, base)
+    with tempfile.TemporaryDirectory() as tmp:
+        _, c2_instances = phase15_train(device, tmp, bench, bench_tasks)
+    phase15_cost(device, bench, bench_tasks, smi)
+
     k1, k2 = timing["timed"]
     k1b, k2b = train["timed"]
     k3, k7 = code2["timed"]
@@ -5719,6 +6194,8 @@ def main(argv=None) -> int:
     k6, k6b = nci1["timed"]
     k8, k8d, k8x, k12 = bsp["timed"]
     k1h, k1bh, k2h, k2bh = bf16["timed"]
+    c2 = code2_bf16["timed"]
+    c2e = code2_bf16["errs"]
     rows = [
         dict(name="gin_agg_fwd", route="cuda",
              source="graphtrans_tpu_torch/csrc/gin_agg.cu",
@@ -5883,6 +6360,44 @@ def main(argv=None) -> int:
                       "(bf16)",
              launches=bf16_instances["attention_seg_bwd"]["tile_bf16"],
              max_abs_err=bf16["errs"]["k2b"], **k2bh),
+        # the code2 bf16 step (phase 15): K2's long instance and K3 share
+        # the bf16 long forward, their backwards the bf16 long pair
+        dict(name="attention_seg_fwd_long_bf16", route="cuda",
+             source="graphtrans_tpu_torch/csrc/attention_packed.cu",
+             header="graphtrans_tpu_torch/csrc/attention_fwd.cuh",
+             replaces="graphtrans_tpu/ops/pallas/attention_packed.py:420 "
+                      "(bf16, rows of 129-384)",
+             launches=c2_instances["attention_seg"]["long_bf16"],
+             max_abs_err=c2e["k2"], **c2["k2"]),
+        dict(name="attention_seg_bwd_long_bf16", route="cuda",
+             source="graphtrans_tpu_torch/csrc/attention_packed.cu",
+             header="graphtrans_tpu_torch/csrc/attention_bwd.cuh",
+             replaces="graphtrans_tpu/ops/pallas/attention_packed.py:393 "
+                      "(bf16, rows of 129-384)",
+             launches=c2_instances["attention_seg_bwd"]["long_bf16"],
+             max_abs_err=c2e["k2b"], **c2["k2b"]),
+        dict(name="flash_hil_fwd_bf16", route="cuda",
+             source="graphtrans_tpu_torch/csrc/flash_hil.cu",
+             header="graphtrans_tpu_torch/csrc/attention_fwd.cuh",
+             replaces="graphtrans_tpu/ops/pallas/flash_hil.py:319 (bf16)",
+             launches=c2_instances["flash_hil_seg"]["bf16"],
+             max_abs_err=c2e["k3"], **c2["k3"]),
+        dict(name="flash_hil_bwd_bf16", route="cuda",
+             source="graphtrans_tpu_torch/csrc/flash_hil.cu",
+             header="graphtrans_tpu_torch/csrc/attention_bwd.cuh",
+             replaces="graphtrans_tpu/ops/pallas/flash_hil.py:398/419 (bf16)",
+             launches=c2_instances["flash_hil_seg_bwd"]["bf16"],
+             max_abs_err=c2e["k3b"], **c2["k3b"]),
+        dict(name="spmm_fwd_bf16", route="cuda",
+             source="graphtrans_tpu_torch/csrc/spmm.cu",
+             replaces="graphtrans_tpu/ops/pallas/spmm.py:104 (bf16)",
+             launches=c2_instances["spmm"]["bf16"],
+             max_abs_err=c2e["k7"], **c2["k7"]),
+        dict(name="spmm_bwd_bf16", route="cuda",
+             source="graphtrans_tpu_torch/csrc/spmm.cu",
+             replaces="none (JAX trains through ops/scatter.py; bf16)",
+             launches=c2_instances["spmm_bwd"]["bf16"],
+             max_abs_err=c2e["k7b"], **c2["k7b"]),
         dict(name="segment_sum_mxu", route="cuda",
              source="graphtrans_tpu_torch/csrc/scatter_mxu.cu",
              replaces="graphtrans_tpu/ops/pallas/scatter_mxu.py:69",
@@ -5892,7 +6407,7 @@ def main(argv=None) -> int:
     ]
     print(f"[wall] {CLOCKS} at the end: {_smi(CLOCKS)}")
     print(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
-          f"(phases 0-14, the kernels' build included)")
+          f"(phases 0-15, the kernels' build included)")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

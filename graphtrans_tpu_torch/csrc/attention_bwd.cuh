@@ -591,4 +591,469 @@ cudaError_t launch_long_bwd(LongDq<Tags, Keep> dq, LongDkv<Tags, Keep> dkv,
   return cudaGetLastError();
 }
 
+
+// ---- the bf16 instances of the long-row pair ------------------------------
+//
+// What they compute: K2's long-row backward (rows of 129-384, code2's 384
+// tier) and K3-bwd in bf16, with the rounding points of the JAX kernels in
+// bf16 on the TPU (graphtrans_tpu/ops/pallas/attention_packed.py:238-286;
+// flash_hil.py:_dq_kernel, _dkv_kernel at Precision.DEFAULT, one bf16 MXU
+// pass): p = exp(s - m) / l from the forward's m and l and dp = dO.v in
+// float32 from the bf16 operands, dropped; dS = p (dp - delta) * scale and
+// P_drop each rounded to bf16 before their products; dQ = dS K, dK = dS^T
+// Q and dV = P_drop^T dO summed in float32 and rounded once. delta is K2's
+// sum of the pairs' p dp (DELTA_PAIRS, as the bf16 tile instance sums it)
+// or K3's dO . O over the forward's rounded output. Their Keep policy has,
+// besides on and inv_keep, row(b, h, H, S): a functor (i, j) -> kept with
+// the row's seed computed once a block (K2's Dropout::row, K3's).
+//
+// The design: the long f32 pair's cut (a dq kernel over 64-query tiles, a
+// dk/dv kernel over chunks of 64 valid keys by rank, the other side
+// gathered 64 rows at a time by rank, every output cell one writer) with
+// the bf16 tile instance's products: bf16 rows staged by cp.async (rows of
+// tile::SEG16_LD bf16: the eight rows an ldmatrix reads hit distinct
+// banks), a warp owns 16 rows of the block's tile whole, every product a
+// bf16 mma.sync m16n8k16 with float32 sums (one where the f32 pair does
+// three), operands by ldmatrix (.trans for dS K, P_drop^T dO and dS^T Q),
+// and p and dS moved from the score accumulators into the next product's
+// A fragment in registers (two m16n8 accumulators are one m16k16 A
+// fragment): no score tile in shared memory. The dq kernel with
+// DELTA_PAIRS walks its keys twice (delta, then dS and dQ). A block takes
+// LONG16_THREADS threads and long16_bytes() of shared memory (22,044
+// bytes: under the 48 KB that needs no attribute), so registers, not
+// shared memory, bound the blocks an SM.
+
+constexpr int LONG16_THREADS = 128;        // four warps, 16 rows each
+constexpr int LONG16_HD = tile::SEG16_HD;  // heads of 32 (K2's, K3's)
+constexpr int LONG16_LD = tile::SEG16_LD;  // bf16 a staged row
+
+// Shared bytes of a bf16 long kernel (the two of this pair and the
+// forward, attention_fwd.cuh): four 64-row bf16 tiles (the block's own
+// two, the walked two), per query m, 1/l and delta, per row two tags and a
+// token index, the prefix count's scratch.
+__host__ __device__ constexpr int long16_bytes() {
+  return 4 * LONG_T * LONG16_LD * 2 + 6 * LONG_T * 4 +
+         (LONG16_THREADS / 32 + 1 + 2) * 4;
+}
+
+// A wrapper's launch of a bf16 long kernel: a block of LONG16_THREADS per
+// (row, head, 64 tokens), `smem` its shared bytes.
+__host__ inline bool long16_launch_ok(const tile::Launch& L, int B, int S,
+                                      int H, int smem) {
+  return L.pad == LONG_T && L.group == 1 && L.gx == B && L.gy == H &&
+         L.gz == (S + LONG_T - 1) / LONG_T && L.threads == LONG16_THREADS &&
+         L.smem == smem;
+}
+
+namespace lr {
+
+// The shared tiles of a bf16 long kernel: X0, X1 the block's own rows
+// (dq: Q, dO; dk/dv: K, V; the forward: Q), Y0, Y1 the walked rows (dq
+// and the forward: K, V; dk/dv: Q, dO); m, li, de per query (dq: its own; dk/dv: the walked tile's);
+// otag, wtag the own and the walked rows' tags; kix the gathered rows'
+// tokens.
+struct Tiles16 {
+  tile::bf16 *X0, *X1, *Y0, *Y1;
+  float *m, *li, *de;
+  int *otag, *wtag, *kix, *scan, *range;
+
+  __device__ explicit Tiles16(float4* s) {
+    constexpr int R = LONG_T * LONG16_LD;
+    X0 = reinterpret_cast<tile::bf16*>(s);
+    X1 = X0 + R;
+    Y0 = X1 + R;
+    Y1 = Y0 + R;
+    m = reinterpret_cast<float*>(Y1 + R);
+    li = m + LONG_T;
+    de = li + LONG_T;
+    otag = reinterpret_cast<int*>(de + LONG_T);
+    wtag = otag + LONG_T;
+    kix = wtag + LONG_T;
+    scan = kix + LONG_T;
+    range = scan + LONG16_THREADS / 32 + 1;
+  }
+};
+
+// Rows [0, T) of two bf16 head slices into rows of LONG16_LD bf16, row r
+// from the token row(r) (src[k] + row(r) * ld[k]; d1 may be null), zeros
+// for r >= n: cp.async, all threads of the block.
+template <class Row>
+__device__ __forceinline__ void stage16(tile::bf16* d0, tile::bf16* d1,
+                                        const tile::bf16* s0, long ld0,
+                                        const tile::bf16* s1, long ld1,
+                                        Row row, int n) {
+  for (int idx = threadIdx.x; idx < T * 4; idx += blockDim.x) {
+    const int r = idx >> 2, c = (idx & 3) * 8;
+    const bool ok = r < n;
+    const long tok = ok ? row(r) : 0;
+    tile::cp16(d0 + r * LONG16_LD + c, s0 + tok * ld0 + c, ok);
+    if (d1) tile::cp16(d1 + r * LONG16_LD + c, s1 + tok * ld1 + c, ok);
+  }
+}
+
+// A fragments of 16 rows (m0..) of a staged tile: channels 0-15, 16-31.
+__device__ __forceinline__ void a_rows16(unsigned (&a)[2][4],
+                                         const tile::bf16* X, int m0) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+    tile::ldsm4(a[ks], X + (m0 + (lane & 15)) * LONG16_LD + 16 * ks +
+                           8 * (lane >> 4));
+}
+
+// acc += A B over 16 staged rows (k0..) of B, 32 channels: A an m16k16
+// fragment, B k-major rows (ldmatrix .trans).
+__device__ __forceinline__ void times_rows16(float (&acc)[4][4],
+                                             const unsigned (&a)[4],
+                                             const tile::bf16* B, int k0) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int cc = 0; cc < 2; ++cc) {
+    unsigned r[4];
+    tile::ldsm4t(r, B + (k0 + (lane & 15)) * LONG16_LD + 16 * cc +
+                        8 * (lane >> 4));
+    tile::mma16(acc[2 * cc], a, r[0], r[1]);
+    tile::mma16(acc[2 * cc + 1], a, r[2], r[3]);
+  }
+}
+
+// c = A B^T for 16 rows x 8 staged rows (n0..) of B, over 32 channels: A
+// the m16k16 fragments of channels 0-15 and 16-31.
+__device__ __forceinline__ void dots8(float (&c)[4], const unsigned (&a)[2][4],
+                                      const tile::bf16* B, int n0) {
+  const int lane = threadIdx.x & 31;
+  unsigned r[4];
+  tile::ldsm4(r, B + (n0 + (lane & 7)) * LONG16_LD + 8 * (lane >> 3));
+  c[0] = c[1] = c[2] = c[3] = 0.f;
+  tile::mma16(c, a[0], r[0], r[1]);
+  tile::mma16(c, a[1], r[2], r[3]);
+}
+
+// Rows g and g + 8 (lane 4g + q) of a 16 x 32 float32 accumulator,
+// rounded to bf16, at p0 and p1 (where ok0, ok1): 16 bytes a lane.
+__device__ __forceinline__ void store_pair16(tile::bf16* p0, tile::bf16* p1,
+                                             const float (&acc)[4][4],
+                                             bool ok0, bool ok1) {
+  const int q = threadIdx.x & 3;
+  unsigned lo[4], hi[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    lo[k] = tile::pack_bf16(acc[k][0], acc[k][1]);
+    hi[k] = tile::pack_bf16(acc[k][2], acc[k][3]);
+  }
+  const uint4 a = tile::quad_row(lo), b = tile::quad_row(hi);
+  if (ok0) *reinterpret_cast<uint4*>(p0 + 8 * q) = a;
+  if (ok1) *reinterpret_cast<uint4*>(p1 + 8 * q) = b;
+}
+
+// dq: one block per (row, head, T queries), a warp 16 of them. Writes dq
+// for the tile's queries and delta [B, S, H] (every query of the tile, 0
+// for one without keys) for the dk/dv kernel.
+template <bool DELTA_PAIRS, class Tags, class Keep>
+__device__ __forceinline__ void long_dq16(
+    const tile::bf16* __restrict__ qkv, Tags tags,
+    const tile::bf16* __restrict__ out, const tile::bf16* __restrict__ gout,
+    const float* __restrict__ stat_m, const float* __restrict__ stat_l,
+    float* __restrict__ delta, tile::bf16* __restrict__ dqkv, int S, int d,
+    float scale, Keep keep) {
+  using tile::bf16;
+  constexpr int HD = LONG16_HD;
+  extern __shared__ float4 smem4[];
+  const Tiles16 s(smem4);
+  const long b = blockIdx.x;
+  const int h = blockIdx.y, H = gridDim.y, t = threadIdx.x;
+  const int q0 = blockIdx.z * T, nq = min(T, S - q0);
+  const long d3 = 3L * d, base = b * S;
+  const bf16* row = qkv + base * d3 + h * HD;
+  const bf16* grow = gout + base * d + h * HD;
+  stage16(s.X0, s.X1, row, d3, grow, d, [&](int r) { return (long)(q0 + r); },
+          nq);
+  int tag = -1;
+  if (t < T) {
+    float m = 0.f, li = 0.f;
+    if (t < nq) tag = tags.qtag(base, q0 + t);
+    if (tag >= 0) {  // a valid query attends itself: l > 0, m finite
+      const long at = (base + q0 + t) * H + h;
+      m = stat_m[at];
+      li = 1.f / fmaxf(stat_l[at], 1e-16f);
+    }
+    s.otag[t] = tag;
+    s.m[t] = m;
+    s.li[t] = li;
+  }
+  if constexpr (!DELTA_PAIRS) {  // delta = dO . O, two threads a query
+    const int r = t >> 1, part = t & 1;
+    float de = 0.f;
+    if (r < nq) {
+      const long at = (base + q0 + r) * d + h * HD + 16 * part;
+#pragma unroll
+      for (int c = 0; c < 16; c += 8) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(out + at + c);
+        const uint4 gv = *reinterpret_cast<const uint4*>(gout + at + c);
+        const unsigned* o2 = reinterpret_cast<const unsigned*>(&ov);
+        const unsigned* g2 = reinterpret_cast<const unsigned*>(&gv);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float2 a = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(o2 + k));
+          const float2 e = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(g2 + k));
+          de = fmaf(a.x, e.x, de);
+          de = fmaf(a.y, e.y, de);
+        }
+      }
+    }
+    de += __shfl_xor_sync(0xffffffffu, de, 1);
+    if (part == 0 && r < T) {
+      s.de[r] = de;
+      if (r < nq) delta[(base + q0 + r) * H + h] = de;
+    }
+  }
+  int qmin, qmax;
+  block_range(tag, s.range, qmin, qmax);
+  cp_wait();
+  __syncthreads();
+
+  const int lane = t & 31, m0 = (t >> 5) * 16, g = lane >> 2, q = lane & 3;
+  unsigned qa[2][4], ga[2][4];
+  a_rows16(qa, s.X0, m0);
+  a_rows16(ga, s.X1, m0);
+  const int tg[2] = {s.otag[m0 + g], s.otag[m0 + g + 8]};
+  const float mr[2] = {s.m[m0 + g], s.m[m0 + g + 8]};
+  const float lr_[2] = {s.li[m0 + g], s.li[m0 + g + 8]};
+  float de[2] = {0.f, 0.f};
+  if constexpr (!DELTA_PAIRS) {
+    de[0] = s.de[m0 + g];
+    de[1] = s.de[m0 + g + 8];
+  }
+  float dq[4][4] = {};
+  if (qmax >= 0) {  // uniform: the tile holds a query that can attend
+    auto sel = [&](int j) {
+      const int k = tags.ktag(base, j);
+      return k >= qmin && k <= qmax;  // qmin >= 0
+    };
+    int total;
+    const int before = rank_keys(S, sel, s.scan, total);
+    const int chunks = (total + T - 1) / T;
+    const int steps = DELTA_PAIRS ? 2 * chunks : chunks;
+    const auto kept = keep.row(b, h, H, S);  // the row's seed, once
+    for (int st = 0; st < steps; ++st) {
+      const bool sums = DELTA_PAIRS && st < chunks;  // delta's sweep
+      const int r0 = (st < chunks ? st : st - chunks) * T;
+      const int nk = min(T, total - r0), nkt = (nk + 15) >> 4;
+      list_keys(S, sel, before, r0, s.kix);
+      __syncthreads();
+      stage16(s.Y0, s.Y1, row + d, d3, row + 2 * d, d3,
+              [&](int r) { return (long)s.kix[r]; }, nk);
+      if (t < T) s.wtag[t] = t < nk ? tags.ktag(base, s.kix[t]) : -1;
+      cp_wait();
+      __syncthreads();
+      for (int kt = 0; kt < nkt; ++kt) {  // 16 keys a step
+        float p[2][4], dp[2][4], unused[2] = {0.f, 0.f};
+        tile::scores16(s.Y0, s.wtag, qa, 16 * kt, tg, scale, p, unused);
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int kk = 16 * kt + 8 * hf;
+          dots8(dp[hf], ga, s.Y1, kk);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const float x = expf(p[hf][e] - mr[r]) * lr_[r];  // exp(-inf) = 0
+            p[hf][e] = x;
+            if (keep.on)
+              dp[hf][e] = (x != 0.f &&
+                           kept(q0 + m0 + g + 8 * r,
+                                s.kix[kk + 2 * q + (e & 1)]))
+                              ? dp[hf][e] * keep.inv_keep
+                              : 0.f;
+          }
+        }
+        if (sums) {
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              de[e >> 1] = fmaf(p[hf][e], dp[hf][e], de[e >> 1]);
+          continue;
+        }
+        float ds[2][4];
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            ds[hf][e] = p[hf][e] * (dp[hf][e] - de[e >> 1]) * scale;
+        unsigned a[4];
+        tile::a_frag(a, ds);
+        times_rows16(dq, a, s.Y0, 16 * kt);
+      }
+      if (DELTA_PAIRS && st == chunks - 1) tile::quad_sum(de);
+      __syncthreads();  // kix, the tags and Y are overwritten next
+    }
+  }
+  if constexpr (DELTA_PAIRS)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (q == 0 && m0 + g + 8 * r < nq)
+        delta[(base + q0 + m0 + g + 8 * r) * H + h] = de[r];
+  tile::store_rows16(dqkv + (base + q0 + m0) * d3 + h * HD, d3, dq, nq - m0);
+}
+
+// dk, dv: one block per (row, head, z): the z-th chunk of T valid keys by
+// rank, a warp 16 of them, and the padding keys among tokens [zT, zT + T)
+// (exact zeros). dk_j = sum_i dS_ij q_i, dv_j = sum_i P_drop_ij dO_i over
+// the query tiles whose tags can meet the chunk's; delta from the dq
+// kernel.
+template <class Tags, class Keep>
+__device__ __forceinline__ void long_dkv16(
+    const tile::bf16* __restrict__ qkv, Tags tags,
+    const tile::bf16* __restrict__ gout, const float* __restrict__ stat_m,
+    const float* __restrict__ stat_l, const float* __restrict__ delta,
+    tile::bf16* __restrict__ dqkv, int S, int d, float scale, Keep keep) {
+  using tile::bf16;
+  constexpr int HD = LONG16_HD;
+  extern __shared__ float4 smem4[];
+  const Tiles16 s(smem4);
+  const long b = blockIdx.x;
+  const int h = blockIdx.y, H = gridDim.y, t = threadIdx.x;
+  const int z = blockIdx.z;
+  const long d3 = 3L * d, base = b * S;
+  const bf16* row = qkv + base * d3 + h * HD;
+  const bf16* grow = gout + base * d + h * HD;
+  bf16* drow = dqkv + base * d3 + h * HD;
+
+  const uint4 z4 = make_uint4(0u, 0u, 0u, 0u);
+  for (int idx = t; idx < T * 4; idx += blockDim.x) {  // padding keys
+    const int j = z * T + (idx >> 2), c = (idx & 3) * 8;
+    if (j < S && tags.ktag(base, j) < 0) {
+      *reinterpret_cast<uint4*>(drow + j * d3 + d + c) = z4;
+      *reinterpret_cast<uint4*>(drow + j * d3 + 2 * d + c) = z4;
+    }
+  }
+  auto sel = [&](int j) { return tags.ktag(base, j) >= 0; };
+  int total;
+  const int before = rank_keys(S, sel, s.scan, total);
+  const int r0 = z * T;
+  if (r0 >= total) return;  // uniform: no chunk z
+  const int nk = min(T, total - r0);
+  list_keys(S, sel, before, r0, s.kix);
+  __syncthreads();
+  stage16(s.X0, s.X1, row + d, d3, row + 2 * d, d3,
+          [&](int r) { return (long)s.kix[r]; }, nk);
+  int tag = -1;
+  if (t < T) {
+    tag = t < nk ? tags.ktag(base, s.kix[t]) : -1;
+    s.otag[t] = tag;
+  }
+  int kmin, kmax;
+  block_range(tag, s.range, kmin, kmax);  // kmax >= 0: nk > 0
+  cp_wait();
+  __syncthreads();
+
+  const int lane = t & 31, m0 = (t >> 5) * 16, g = lane >> 2, q = lane & 3;
+  unsigned ka[2][4], va[2][4];
+  a_rows16(ka, s.X0, m0);
+  a_rows16(va, s.X1, m0);
+  const int ktg[2] = {s.otag[m0 + g], s.otag[m0 + g + 8]};
+  const bool ok0 = m0 + g < nk, ok1 = m0 + g + 8 < nk;
+  const int kj[2] = {ok0 ? s.kix[m0 + g] : 0, ok1 ? s.kix[m0 + g + 8] : 0};
+  float dk[4][4] = {}, dv[4][4] = {};
+  const auto kept = keep.row(b, h, H, S);  // the row's seed, once
+  for (int q0 = 0; q0 < S; q0 += T) {
+    const int nq = min(T, S - q0);
+    int qt = -1;
+    if (t < nq) qt = tags.qtag(base, q0 + t);
+    if (!__syncthreads_or(qt >= kmin && qt <= kmax)) continue;  // uniform
+    stage16(s.Y0, s.Y1, row, d3, grow, d,
+            [&](int r) { return (long)(q0 + r); }, nq);
+    if (t < T) {
+      float m = 0.f, li = 0.f, de = 0.f;
+      if (qt >= 0) {
+        const long at = (base + q0 + t) * H + h;
+        m = stat_m[at];
+        li = 1.f / fmaxf(stat_l[at], 1e-16f);
+        de = delta[at];
+      }
+      s.wtag[t] = qt;
+      s.m[t] = m;
+      s.li[t] = li;
+      s.de[t] = de;
+    }
+    cp_wait();
+    __syncthreads();
+    const int nqt = (nq + 15) >> 4;
+    for (int it = 0; it < nqt; ++it) {  // 16 queries a step
+      float pd[2][4], ds[2][4];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int i0 = 16 * it + 8 * hf;
+        float sc[4], tp[4];
+        dots8(sc, ka, s.Y0, i0);  // s^T: keys x queries
+        dots8(tp, va, s.Y1, i0);  // dp^T
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, i = i0 + 2 * q + (e & 1), ti = s.wtag[i];
+          float pv = 0.f, dsv = 0.f;
+          if (ti >= 0 && ti == ktg[r]) {
+            const float p = expf(sc[e] * scale - s.m[i]) * s.li[i];
+            float dpv = tp[e];
+            pv = p;
+            if (keep.on) {
+              const bool on = kept(q0 + i, kj[r]);
+              pv = on ? p * keep.inv_keep : 0.f;
+              dpv = on ? dpv * keep.inv_keep : 0.f;
+            }
+            dsv = p * (dpv - s.de[i]) * scale;
+          }
+          pd[hf][e] = pv;
+          ds[hf][e] = dsv;
+        }
+      }
+      unsigned pa[4], sa[4];
+      tile::a_frag(pa, pd);
+      tile::a_frag(sa, ds);
+      times_rows16(dv, pa, s.Y1, 16 * it);
+      times_rows16(dk, sa, s.Y0, 16 * it);
+    }
+    // the next tile's __syncthreads_or guards Y and the per-query values
+  }
+  bf16* o0 = drow + (long)kj[0] * d3;
+  bf16* o1 = drow + (long)kj[1] * d3;
+  store_pair16(o0 + d, o1 + d, dk, ok0, ok1);
+  store_pair16(o0 + 2 * d, o1 + 2 * d, dv, ok0, ok1);
+}
+
+}  // namespace lr
+
+// The two __global__ kernels of a caller's bf16 pair (its own, with its
+// own launch bounds) over lr::long_dq16 and lr::long_dkv16.
+template <class Tags, class Keep>
+using LongDq16 = void (*)(const tile::bf16*, Tags, const tile::bf16*,
+                          const tile::bf16*, const float*, const float*,
+                          float*, tile::bf16*, int, int, float, Keep);
+template <class Tags, class Keep>
+using LongDkv16 = void (*)(const tile::bf16*, Tags, const tile::bf16*,
+                           const float*, const float*, const float*,
+                           tile::bf16*, int, int, float, Keep);
+
+// Launches the bf16 dq kernel, then the dk/dv kernel, on one stream (delta
+// [B, S, H] passes between them). Returns cudaGetLastError() after each.
+template <class Tags, class Keep>
+cudaError_t launch_long_bwd16(LongDq16<Tags, Keep> dq,
+                              LongDkv16<Tags, Keep> dkv,
+                              const tile::bf16* qkv, Tags tags,
+                              const tile::bf16* out, const tile::bf16* gout,
+                              const float* stat_m, const float* stat_l,
+                              float* delta, tile::bf16* dqkv, int B, int S,
+                              int d, int H, Keep keep, cudaStream_t stream) {
+  const float scale = 1.f / sqrtf((float)LONG16_HD);
+  const dim3 grid(B, H, (S + LONG_T - 1) / LONG_T);
+  dq<<<grid, LONG16_THREADS, long16_bytes(), stream>>>(
+      qkv, tags, out, gout, stat_m, stat_l, delta, dqkv, S, d, scale, keep);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dkv<<<grid, LONG16_THREADS, long16_bytes(), stream>>>(
+      qkv, tags, gout, stat_m, stat_l, delta, dqkv, S, d, scale, keep);
+  return cudaGetLastError();
+}
+
 }  // namespace attn

@@ -324,4 +324,186 @@ __device__ __forceinline__ void long_fwd(const float* __restrict__ qkv,
   }
 }
 
+
+// ---- the bf16 instances of the long forward --------------------------------
+//
+// What they compute: K2's forward on rows of 129-384 tokens (code2's 384
+// tier) and K3's forward in bf16, with the rounding points of the JAX
+// kernels in bf16 on the TPU. Both take q.k from the bf16 operands summed in
+// float32, then scaled, and keep m and l (the max scaled score, the sum of
+// the undropped exp(s - m)) in float32. NORM (K2,
+// graphtrans_tpu/ops/pallas/attention_packed.py:152-206): the normalised p
+// = exp(s - m) / l, dropped and rescaled, rounded to bf16 once before P V,
+// whose float32 sum is rounded once; the keys are walked twice (m and l,
+// then P V). K3 (flash_hil.py:_fwd_kernel at Precision.DEFAULT, one bf16
+// MXU pass): the online softmax's unnormalised p = exp(s - m_running),
+// dropped and rescaled, rounded to bf16 before P V, the accumulator
+// rescaled by alpha = exp(m_old - m_new) in float32 and normalised by 1/l
+// in float32 at the end, then rounded once.
+//
+// The design: the long f32 forward's cut (a block per (row, head, 64
+// queries), the keys whose tag meets one of the tile's ranked by a
+// block-wide prefix count and gathered 64 at a time) with the bf16 tile
+// instance's products: bf16 rows by cp.async, a warp owns 16 query rows
+// whole (their scores for a chunk of 64 keys, 32 floats a thread, their
+// softmax and O in registers), every product one bf16 mma.sync m16n8k16
+// with float32 sums, p moved from the score accumulators into the A
+// fragment of P V in registers. Shared memory as the bf16 long pair's
+// (long16_bytes(), under 48 KB).
+
+// One block of LONG16_THREADS per (row, head, T queries): out, and with
+// STATS m and l [B, S, H] (m = -inf, l = 0 for a query with no key, whose
+// output is exact zeros).
+template <bool NORM, bool DROP, bool STATS, class Tags, class Keep>
+__device__ __forceinline__ void long_fwd16(const tile::bf16* __restrict__ qkv,
+                                           Tags tags,
+                                           tile::bf16* __restrict__ out,
+                                           float* __restrict__ stat_m,
+                                           float* __restrict__ stat_l, int S,
+                                           int d, float scale, Keep keep) {
+  using namespace lr;
+  using tile::bf16;
+  constexpr int HD = LONG16_HD;
+  constexpr float M0 = -1e30f;  // the running max before the first key
+  extern __shared__ float4 smem4[];
+  const Tiles16 s(smem4);
+  const long b = blockIdx.x;
+  const int h = blockIdx.y, H = gridDim.y, t = threadIdx.x;
+  const int q0 = blockIdx.z * T, nq = min(T, S - q0);
+  const long d3 = 3L * d, base = b * S;
+  const bf16* row = qkv + base * d3 + h * HD;
+
+  int tag = -1;
+  if (t < T) {
+    tag = t < nq ? tags.qtag(base, q0 + t) : -1;
+    s.otag[t] = tag;
+  }
+  int qmin, qmax;
+  block_range(tag, s.range, qmin, qmax);
+
+  const int lane = t & 31, m0 = (t >> 5) * 16, g = lane >> 2, q = lane & 3;
+  float mx[2] = {M0, M0}, l[2] = {0.f, 0.f};
+  float o[4][4] = {};
+  if (qmax >= 0) {  // uniform: the tile holds a query that can attend
+    stage16(s.X0, nullptr, row, d3, row, d3,
+            [&](int r) { return (long)(q0 + r); }, nq);
+    const int tg[2] = {s.otag[m0 + g], s.otag[m0 + g + 8]};
+    auto sel = [&](int j) {
+      const int k = tags.ktag(base, j);
+      return k >= qmin && k <= qmax;  // qmin >= 0
+    };
+    int total;
+    const int before = rank_keys(S, sel, s.scan, total);
+    const int chunks = (total + T - 1) / T;
+    const int steps = NORM ? 2 * chunks : chunks;
+    unsigned qa[2][4];
+    float inv[2] = {0.f, 0.f};
+    const auto kept = keep.row(b, h, H, S);  // the row's seed, once
+    for (int st = 0; st < steps; ++st) {
+      const bool pv = !NORM || st >= chunks;  // this sweep multiplies by V
+      const int r0 = (st < chunks ? st : st - chunks) * T;
+      const int nk = min(T, total - r0), nkt = (nk + 15) >> 4;
+      list_keys(S, sel, before, r0, s.kix);
+      __syncthreads();
+      stage16(s.Y0, pv ? s.Y1 : nullptr, row + d, d3, row + 2 * d, d3,
+              [&](int r) { return (long)s.kix[r]; }, nk);
+      if (t < T) s.wtag[t] = t < nk ? tags.ktag(base, s.kix[t]) : -1;
+      cp_wait();  // and Q's copies, with the first chunk
+      __syncthreads();
+      if (st == 0) a_rows16(qa, s.X0, m0);
+      if (NORM && st == chunks) {  // m and l are whole: p's normaliser
+        inv[0] = 1.f / fmaxf(l[0], 1e-16f);
+        inv[1] = 1.f / fmaxf(l[1], 1e-16f);
+      }
+      float sc[4][2][4], cm[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int kt = 0; kt < 4; ++kt) {
+        if (kt >= nkt) break;
+        tile::scores16(s.Y0, s.wtag, qa, 16 * kt, tg, scale, sc[kt], cm);
+      }
+      float a[2] = {1.f, 1.f};
+      if (!NORM || !pv) {  // the online max and sum
+        tile::quad_max(cm);
+        float sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float mn = fmaxf(mx[r], cm[r]);  // finite: mx >= M0
+          a[r] = expf(mx[r] - mn);
+          mx[r] = mn;
+        }
+#pragma unroll
+        for (int kt = 0; kt < 4; ++kt) {
+          if (kt >= nkt) break;
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float p = expf(sc[kt][hf][e] - mx[e >> 1]);  // 0: no pair
+              sc[kt][hf][e] = p;
+              sum[e >> 1] += p;
+            }
+        }
+        tile::quad_sum(sum);
+        l[0] = l[0] * a[0] + sum[0];
+        l[1] = l[1] * a[1] + sum[1];
+      }
+      if (!pv) {
+        __syncthreads();  // kix, the tags and Y are overwritten next
+        continue;
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {  // K3: the accumulator follows m
+        o[nt][0] *= a[0];
+        o[nt][1] *= a[0];
+        o[nt][2] *= a[1];
+        o[nt][3] *= a[1];
+      }
+#pragma unroll
+      for (int kt = 0; kt < 4; ++kt) {  // O += P V, p rounded to bf16
+        if (kt >= nkt) break;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = sc[kt][hf][e];
+            if constexpr (NORM)
+              p = expf(p - mx[e >> 1]) * inv[e >> 1];
+            if constexpr (DROP)
+              p = (p != 0.f &&
+                   kept(q0 + m0 + g + 8 * (e >> 1),
+                        s.kix[16 * kt + 8 * hf + 2 * q + (e & 1)]))
+                      ? p * keep.inv_keep
+                      : 0.f;
+            sc[kt][hf][e] = p;
+          }
+        unsigned pa[4];
+        tile::a_frag(pa, sc[kt]);
+        times_rows16(o, pa, s.Y1, 16 * kt);
+      }
+      __syncthreads();  // kix, the tags and Y are overwritten next
+    }
+    cp_wait();  // no chunk: Q's copies
+    if constexpr (!NORM) {
+      const float li[2] = {1.f / fmaxf(l[0], 1e-16f),
+                           1.f / fmaxf(l[1], 1e-16f)};
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        o[nt][0] *= li[0];
+        o[nt][1] *= li[0];
+        o[nt][2] *= li[1];
+        o[nt][3] *= li[1];
+      }
+    }
+  }
+  tile::store_rows16(out + (base + q0 + m0) * d + h * HD, d, o, nq - m0);
+  if (STATS && q == 0)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (m0 + g + 8 * r < nq) {
+        const long at = (base + q0 + m0 + g + 8 * r) * H + h;
+        stat_m[at] = l[r] > 0.f ? mx[r] : -INFINITY;
+        stat_l[at] = l[r];
+      }
+}
+
 }  // namespace attn

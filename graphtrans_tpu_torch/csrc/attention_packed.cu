@@ -36,11 +36,14 @@
 // wanted the forward writes m and l [R, W, H] (attention_fwd.cuh's
 // meaning) and the backward reads them. The wrapper's seg_fwd_geometry and
 // seg_bwd_geometry pick the instance by W; the entries check the launch.
-// The bf16 instances (rows of up to 128, the bf16 step) have bodies of
-// their own (attention_tile.cuh: fwd_seg16, bwd_seg16): bf16 rows in
-// shared memory, a warp a 16-query tile of a segment, its scores in
-// registers and every product on bf16 mma.sync (launch:
-// seg_bf16_geometry).
+// The bf16 instances (the bf16 step) have bodies of their own (launch:
+// seg_bf16_geometry): rows of up to 128 attention_tile.cuh's fwd_seg16 and
+// bwd_seg16 (bf16 rows in shared memory, a warp a 16-query tile of a
+// segment, its scores in registers, every product on bf16 mma.sync); rows
+// of 129-384 the bf16 long forward and pair (attention_fwd.cuh:
+// long_fwd16, attention_bwd.cuh: long_dq16, long_dkv16) with seg as both
+// tags, p normalised before it is rounded and delta summed from the pairs,
+// as the JAX kernel in bf16.
 // What it replaces: one block per (row, head) with one thread per query
 // walking all W keys of the row, each key one hd-long dependent FMA chain,
 // other graphs' keys skipped only after their tag was read, the whole
@@ -111,6 +114,9 @@ struct Dropout {
     return Row{(unsigned)seed + (unsigned)(r / bt) * stride + h,
                (unsigned)(r % bt) * W, (unsigned)sp, thresh};
   }
+  // the bf16 long bodies' form (their Keep also serves K3, whose mask
+  // needs H; here the seeds' stride holds it)
+  __device__ Row row(long r, int h, int, int W) const { return row(r, h, W); }
 };
 
 constexpr int W_MAX = 384;         // the widest row K2 and K4 take
@@ -369,6 +375,50 @@ attention_seg_bwd_bf16_kernel(const tile::bf16* __restrict__ qkv,
   tile::bwd_seg16(seg, qkv, gout, stat_m, stat_l, dqkv, W, d, H, scale, dr);
 }
 
+// K2's bf16 instances on wider rows (129-384, code2's 384 tier): the bf16
+// long forward (attention_fwd.cuh: long_fwd16, p normalised before it is
+// rounded) and the bf16 long pair (attention_bwd.cuh: long_dq16 with delta
+// summed from the pairs, long_dkv16), seg as both tags. Registers for four
+// blocks an SM.
+template <bool DROP, bool STATS>
+__global__ void __launch_bounds__(attn::LONG16_THREADS, 4)
+attention_seg_fwd_long_bf16_kernel(const tile::bf16* __restrict__ qkv,
+                                   attn::SegTags tags,
+                                   tile::bf16* __restrict__ out,
+                                   float* __restrict__ stat_m,
+                                   float* __restrict__ stat_l, int W, int d,
+                                   float scale, Dropout dr) {
+  attn::long_fwd16<true, DROP, STATS>(qkv, tags, out, stat_m, stat_l, W, d,
+                                      scale, dr);
+}
+
+__global__ void __launch_bounds__(attn::LONG16_THREADS, 4)
+attention_seg_bwd_dq_bf16_kernel(const tile::bf16* __restrict__ qkv,
+                                 attn::SegTags tags,
+                                 const tile::bf16* __restrict__ out,
+                                 const tile::bf16* __restrict__ gout,
+                                 const float* __restrict__ stat_m,
+                                 const float* __restrict__ stat_l,
+                                 float* __restrict__ delta,
+                                 tile::bf16* __restrict__ dqkv, int W, int d,
+                                 float scale, Dropout dr) {
+  attn::lr::long_dq16<true>(qkv, tags, out, gout, stat_m, stat_l, delta, dqkv,
+                            W, d, scale, dr);
+}
+
+__global__ void __launch_bounds__(attn::LONG16_THREADS, 4)
+attention_seg_bwd_dkv_bf16_kernel(const tile::bf16* __restrict__ qkv,
+                                  attn::SegTags tags,
+                                  const tile::bf16* __restrict__ gout,
+                                  const float* __restrict__ stat_m,
+                                  const float* __restrict__ stat_l,
+                                  const float* __restrict__ delta,
+                                  tile::bf16* __restrict__ dqkv, int W, int d,
+                                  float scale, Dropout dr) {
+  attn::lr::long_dkv16(qkv, tags, gout, stat_m, stat_l, delta, dqkv, W, d,
+                       scale, dr);
+}
+
 // K2's backward on wider rows: the long-row pair (dq, then dk/dv).
 template <int HD>
 __global__ void __launch_bounds__(attn::LONG_THREADS, attn::long_blocks(HD))
@@ -514,12 +564,25 @@ cudaError_t allow_smem(Kernel k, int bytes) {
 }
 
 // Launches K2's bf16 forward or backward after checking the wrapper's
-// seg_bf16_geometry; the attributes are set once, before the first launch.
+// seg_bf16_geometry (instance 1: rows of up to SEG_TILE_MAX on the tile
+// bodies; 3: wider rows on the bf16 long bodies); the tile kernels'
+// attributes are set once, before the first launch (the long ones take
+// under 48 KB and need none).
 template <bool DROP, bool STATS>
 int launch_seg_fwd_bf16(const tile::bf16* qkv, const int* seg,
                         tile::bf16* out, float* stat_m, float* stat_l, int R,
                         int W, int d, int H, Dropout dr, const Launch& L,
                         cudaStream_t stream) {
+  if (L.instance == 3) {
+    if (W <= SEG_TILE_MAX ||
+        !attn::long16_launch_ok(L, R, W, H, attn::long16_bytes()))
+      return cudaErrorInvalidValue;
+    attention_seg_fwd_long_bf16_kernel<DROP, STATS>
+        <<<dim3(L.gx, L.gy, L.gz), L.threads, L.smem, stream>>>(
+            qkv, attn::SegTags{seg, seg}, out, stat_m, stat_l, W, d,
+            1.f / sqrtf(32.f), dr);
+    return cudaGetLastError();
+  }
   if (!seg16_launch_ok(L, R, W, H, false)) return cudaErrorInvalidValue;
   const auto k = attention_seg_fwd_bf16_kernel<DROP, STATS>;
   static const cudaError_t set =
@@ -531,10 +594,20 @@ int launch_seg_fwd_bf16(const tile::bf16* qkv, const int* seg,
 }
 
 int launch_seg_bwd_bf16(const tile::bf16* qkv, const int* seg,
-                        const tile::bf16* gout, const float* stat_m,
-                        const float* stat_l, tile::bf16* dqkv, int R, int W,
-                        int d, int H, Dropout dr, const Launch& L,
+                        const tile::bf16* out, const tile::bf16* gout,
+                        const float* stat_m, const float* stat_l,
+                        float* delta, tile::bf16* dqkv, int R, int W, int d,
+                        int H, Dropout dr, const Launch& L,
                         cudaStream_t stream) {
+  if (L.instance == 3) {
+    if (W <= SEG_TILE_MAX || delta == nullptr ||
+        !attn::long16_launch_ok(L, R, W, H, attn::long16_bytes()))
+      return cudaErrorInvalidValue;
+    return attn::launch_long_bwd16<attn::SegTags, Dropout>(
+        attention_seg_bwd_dq_bf16_kernel, attention_seg_bwd_dkv_bf16_kernel,
+        qkv, attn::SegTags{seg, seg}, out, gout, stat_m, stat_l, delta, dqkv,
+        R, W, d, H, dr, stream);
+  }
   if (!seg16_launch_ok(L, R, W, H, true)) return cudaErrorInvalidValue;
   static const cudaError_t set = allow_smem(
       attention_seg_bwd_bf16_kernel, tile::seg16_bytes(SEG_TILE_MAX, true));
@@ -681,10 +754,12 @@ extern "C" int attention_seg_bwd(const float* qkv, const int* seg,
 }
 
 // K2's bf16 instances (the bf16 step): qkv, out, gout and dqkv bf16, m and
-// l float, rows of up to 128 tokens (the tile instance); the arguments as
-// attention_seg_fwd's and attention_seg_bwd's (the backward reads out and
-// delta not: its delta is summed from the pairs, and there is no long
-// instance). A launch these cannot run is refused.
+// l float; rows of up to 128 tokens take the tile instance, rows of
+// 129-384 the long one (seg_bf16_geometry); the arguments as
+// attention_seg_fwd's and attention_seg_bwd's (the backward reads no out:
+// its delta is summed from the pairs; delta [R, W, H] is the long pair's
+// scratch, null for the tile instance). A launch these cannot run is
+// refused.
 extern "C" int attention_seg_fwd_bf16(const tile::bf16* qkv, const int* seg,
                                       tile::bf16* out, float* stat_m,
                                       float* stat_l, int R, int W, int d,
@@ -694,7 +769,7 @@ extern "C" int attention_seg_fwd_bf16(const tile::bf16* qkv, const int* seg,
                                       int group, int gx, int gy, int gz,
                                       int threads, int smem,
                                       cudaStream_t stream) {
-  if (R <= 0 || W <= 0 || W > SEG_TILE_MAX || H <= 0 || d != H * 32)
+  if (R <= 0 || W <= 0 || W > W_MAX || H <= 0 || d != H * 32)
     return cudaErrorInvalidValue;
   if ((stat_m == nullptr) != (stat_l == nullptr)) return cudaErrorInvalidValue;
   if (drop && stat_m == nullptr) return cudaErrorInvalidValue;
@@ -722,13 +797,11 @@ extern "C" int attention_seg_bwd_bf16(const tile::bf16* qkv, const int* seg,
                                       int group, int gx, int gy, int gz,
                                       int threads, int smem,
                                       cudaStream_t stream) {
-  (void)out;
-  (void)delta;
-  if (R <= 0 || W <= 0 || W > SEG_TILE_MAX || H <= 0 || d != H * 32 ||
+  if (R <= 0 || W <= 0 || W > W_MAX || H <= 0 || d != H * 32 ||
       stat_m == nullptr || stat_l == nullptr)
     return cudaErrorInvalidValue;
   const Dropout dr = make_dropout(drop, thresh, inv_keep, seed, bt, sp, H);
   const Launch L{instance, pad, group, gx, gy, gz, threads, smem};
-  return launch_seg_bwd_bf16(qkv, seg, gout, stat_m, stat_l, dqkv, R, W, d,
-                             H, dr, L, stream);
+  return launch_seg_bwd_bf16(qkv, seg, out, gout, stat_m, stat_l, delta, dqkv,
+                             R, W, d, H, dr, L, stream);
 }

@@ -34,6 +34,11 @@
 // straddle segments: the pair mask separates them. It reads the forward's m
 // and l. Every output cell has one writer: no atomics; padding tokens write
 // exact zeros.
+//
+// bf16 (the bf16 step): the bf16 long forward and pair of attention_fwd.cuh
+// and attention_bwd.cuh (long_fwd16 with the online softmax, long_dq16 with
+// delta = dO . O, long_dkv16), rounding where the TPU's MXU rounds under the
+// JAX kernel's Precision.DEFAULT: the unnormalised p, dS and P_drop.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -61,6 +66,24 @@ struct Dropout {
     const unsigned pos =
         (unsigned)(i % MASK_BQ) * MASK_BK + (unsigned)(j % MASK_BK);
     return prng::hash_bits(pos, s) < thresh;
+  }
+
+  // The same mask for one (row r, head h), its seed's row part computed
+  // once (the bf16 long bodies): row(r, h, H, W)(i, j) == (*this)(r, h, H,
+  // W, i, j).
+  struct Row {
+    unsigned base, thresh;  // seed + (r H + h) * 16384 * 1024
+    __device__ bool operator()(int i, int j) const {
+      const unsigned s = base + (unsigned)(i / MASK_BQ) * 1024u +
+                         (unsigned)(j / MASK_BK);
+      const unsigned pos =
+          (unsigned)(i % MASK_BQ) * MASK_BK + (unsigned)(j % MASK_BK);
+      return prng::hash_bits(pos, s) < thresh;
+    }
+  };
+  __device__ Row row(long r, int h, int H, int) const {
+    const unsigned rh = (unsigned)r * (unsigned)H + (unsigned)h;
+    return Row{seed + rh * 16384u * 1024u, thresh};
   }
 };
 
@@ -104,6 +127,66 @@ flash_hil_bwd_dkv_kernel(const float* __restrict__ qkv, attn::SegTags tags,
                          Dropout dr) {
   attn::lr::long_dkv<HD>(qkv, tags, gout, stat_m, stat_l, delta, dqkv, W, d,
                          scale, dr);
+}
+
+// K3's bf16 instances (the bf16 step): the bf16 long forward
+// (attention_fwd.cuh: long_fwd16, the online softmax's unnormalised p
+// rounded before P V, as the TPU's MXU rounds it) and the bf16 long pair
+// (attention_bwd.cuh: long_dq16 with delta = dO . O over the rounded
+// output, as _bwd_rule forms it, and long_dkv16), seg as both tags.
+// Registers for four blocks an SM.
+template <bool DROP, bool STATS>
+__global__ void __launch_bounds__(attn::LONG16_THREADS, 4)
+flash_hil_fwd_bf16_kernel(const tile::bf16* __restrict__ qkv,
+                          attn::SegTags tags, tile::bf16* __restrict__ out,
+                          float* __restrict__ stat_m,
+                          float* __restrict__ stat_l, int W, int d,
+                          float scale, Dropout dr) {
+  attn::long_fwd16<false, DROP, STATS>(qkv, tags, out, stat_m, stat_l, W, d,
+                                       scale, dr);
+}
+
+__global__ void __launch_bounds__(attn::LONG16_THREADS, 4)
+flash_hil_bwd_dq_bf16_kernel(const tile::bf16* __restrict__ qkv,
+                             attn::SegTags tags,
+                             const tile::bf16* __restrict__ out,
+                             const tile::bf16* __restrict__ gout,
+                             const float* __restrict__ stat_m,
+                             const float* __restrict__ stat_l,
+                             float* __restrict__ delta,
+                             tile::bf16* __restrict__ dqkv, int W, int d,
+                             float scale, Dropout dr) {
+  attn::lr::long_dq16<false>(qkv, tags, out, gout, stat_m, stat_l, delta,
+                             dqkv, W, d, scale, dr);
+}
+
+__global__ void __launch_bounds__(attn::LONG16_THREADS, 4)
+flash_hil_bwd_dkv_bf16_kernel(const tile::bf16* __restrict__ qkv,
+                              attn::SegTags tags,
+                              const tile::bf16* __restrict__ gout,
+                              const float* __restrict__ stat_m,
+                              const float* __restrict__ stat_l,
+                              const float* __restrict__ delta,
+                              tile::bf16* __restrict__ dqkv, int W, int d,
+                              float scale, Dropout dr) {
+  attn::lr::long_dkv16(qkv, tags, gout, stat_m, stat_l, delta, dqkv, W, d,
+                       scale, dr);
+}
+
+// The bf16 forward's launch, as flash_hil.py:fwd_geometry gives it for
+// bf16 (attention_packed.py:long16_geometry).
+template <bool DROP, bool STATS>
+int launch_fwd_bf16(const tile::bf16* qkv, const int* seg, tile::bf16* out,
+                    float* stat_m, float* stat_l, int R, int W, int d, int H,
+                    Dropout dr, const tile::Launch& L, cudaStream_t stream) {
+  if (L.instance != 3 ||
+      !attn::long16_launch_ok(L, R, W, H, attn::long16_bytes()))
+    return cudaErrorInvalidValue;
+  flash_hil_fwd_bf16_kernel<DROP, STATS>
+      <<<dim3(L.gx, L.gy, L.gz), L.threads, L.smem, stream>>>(
+          qkv, attn::SegTags{seg, seg}, out, stat_m, stat_l, W, d,
+          1.f / sqrtf(32.f), dr);
+  return cudaGetLastError();
 }
 
 // Launches the forward after checking the wrapper's launch (flash_hil.py:
@@ -185,4 +268,44 @@ extern "C" int flash_hil_bwd(const float* qkv, const int* seg, const float* out,
                                    attn::SegTags{seg, seg}, out, gout, stat_m,
                                    stat_l, delta, dqkv, R, W, d, H, dr,
                                    stream);
+}
+
+// K3's bf16 instances (the bf16 step): qkv, out, gout and dqkv bf16, m and
+// l float; the arguments as flash_hil_fwd's and flash_hil_bwd's. delta
+// [R, W, H] is scratch, as flash_hil_bwd's.
+extern "C" int flash_hil_fwd_bf16(const tile::bf16* qkv, const int* seg,
+                                  tile::bf16* out, float* stat_m,
+                                  float* stat_l, int R, int W, int d, int H,
+                                  int drop, unsigned thresh, float inv_keep,
+                                  int seed, int instance, int pad, int group,
+                                  int gx, int gy, int gz, int threads,
+                                  int smem, cudaStream_t stream) {
+  if (d != H * 32 || R <= 0 || W <= 0) return cudaErrorInvalidValue;
+  if ((stat_m == nullptr) != (stat_l == nullptr)) return cudaErrorInvalidValue;
+  if (drop && stat_m == nullptr) return cudaErrorInvalidValue;
+  const Dropout dr = make_dropout(drop, thresh, inv_keep, seed);
+  const tile::Launch L{instance, pad, group, gx, gy, gz, threads, smem};
+  if (drop)
+    return launch_fwd_bf16<true, true>(qkv, seg, out, stat_m, stat_l, R, W, d,
+                                       H, dr, L, stream);
+  if (stat_m)
+    return launch_fwd_bf16<false, true>(qkv, seg, out, stat_m, stat_l, R, W,
+                                        d, H, dr, L, stream);
+  return launch_fwd_bf16<false, false>(qkv, seg, out, stat_m, stat_l, R, W, d,
+                                       H, dr, L, stream);
+}
+
+extern "C" int flash_hil_bwd_bf16(const tile::bf16* qkv, const int* seg,
+                                  const tile::bf16* out,
+                                  const tile::bf16* gout, const float* stat_m,
+                                  const float* stat_l, float* delta,
+                                  tile::bf16* dqkv, int R, int W, int d, int H,
+                                  int drop, unsigned thresh, float inv_keep,
+                                  int seed, cudaStream_t stream) {
+  if (d != H * 32 || R <= 0 || W <= 0) return cudaErrorInvalidValue;
+  const Dropout dr = make_dropout(drop, thresh, inv_keep, seed);
+  return attn::launch_long_bwd16<attn::SegTags, Dropout>(
+      flash_hil_bwd_dq_bf16_kernel, flash_hil_bwd_dkv_bf16_kernel, qkv,
+      attn::SegTags{seg, seg}, out, gout, stat_m, stat_l, delta, dqkv, R, W, d,
+      H, dr, stream);
 }

@@ -6,7 +6,9 @@
 //
 // out[i] = sum_{e: dst[e] = i} w[e] * msg(x[src[e]], emb[e]),
 // msg = relu(x + emb) or x + emb, w = emask * ew (ew [E] may be null: 1).
-// x [N, d], emb [E, d] f32; src, dst [E] int32, dst sorted.
+// x [N, d], emb [E, d] f32, or bf16 in the bf16 instances (spmm_fwd_bf16,
+// spmm_bwd_bf16: the same walks, float32 sums, rows rounded once); src,
+// dst [E] int32, dst sorted.
 //
 // Forward: the destination rows are cut into runs (rptr: the batch's
 // DstOrder, made once and shared by every layer; edge_runs of dptr, the
@@ -42,6 +44,7 @@ namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
 
+using vio::bf16;
 using vio::load_vec;
 using vio::store_vec;
 using vio::Vec;
@@ -51,15 +54,17 @@ constexpr int MAX_VPL = 4;        // loads a lane a row (spmm.py:bwd_launch)
 
 // The forward's walk, one warp a run. SLOTS: the edges are the positions
 // of a SlotOrder (every one live, emb and ew indexed by slot[k]); else the
-// batch's edges (emask, emb and ew indexed by the edge).
-template <int VEC, int VPL, bool SLOTS>
+// batch's edges (emask, emb and ew indexed by the edge). E: the element
+// type of x, emb and out (float, or bf16: widened on the load, the sums in
+// float32, each row rounded once on its store).
+template <int VEC, int VPL, bool SLOTS, class E>
 __device__ __forceinline__ void fwd_walk(
-    const float* __restrict__ x, const float* __restrict__ emb,
+    const E* __restrict__ x, const E* __restrict__ emb,
     const int* __restrict__ src, const int* __restrict__ dst,
     const bool* __restrict__ emask, const int* __restrict__ slot,
     const int* __restrict__ ptr, const int* __restrict__ dptr,
     const int* __restrict__ rptr, const float* __restrict__ ew,
-    float* __restrict__ out, int d, int nruns, int relu) {
+    E* __restrict__ out, int d, int nruns, int relu) {
   using V = Vec<VEC>;
   constexpr int U = VEC * VPL <= 8 ? 4 : 2;  // edges whose rows load together
   const long warp = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
@@ -147,13 +152,13 @@ __device__ __forceinline__ void fwd_walk(
   write_to(r_hi);
 }
 
-template <int VEC, int VPL>
+template <int VEC, int VPL, class E>
 __global__ void __launch_bounds__(RUN_THREADS)
-spmm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ emb,
+spmm_fwd_kernel(const E* __restrict__ x, const E* __restrict__ emb,
                 const int* __restrict__ src, const int* __restrict__ dst,
                 const bool* __restrict__ emask, const int* __restrict__ ptr,
                 const int* __restrict__ dptr, const int* __restrict__ rptr,
-                const float* __restrict__ ew, float* __restrict__ out, int d,
+                const float* __restrict__ ew, E* __restrict__ out, int d,
                 int nruns, int relu) {
   fwd_walk<VEC, VPL, false>(x, emb, src, dst, emask, nullptr, ptr, dptr,
                             rptr, ew, out, d, nruns, relu);
@@ -193,15 +198,18 @@ blocked_fwd_kernel(const float* __restrict__ x, const float* __restrict__ emb,
 // Grid y: slices of 32 * VEC * VPL channels. One writer per output cell, a
 // fixed order of terms (the parent design's: the same bits), no atomics.
 
-template <int VEC, int VPL>
+// El: the element type of x, emb, g, dx and d_emb (float, or bf16:
+// widened on the load, dx summed in float32 and rounded once a row, each
+// d_emb row rounded once).
+template <int VEC, int VPL, class El>
 __global__ void __launch_bounds__(RUN_THREADS, 2)  // two blocks an SM
-spmm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ emb,
+spmm_bwd_kernel(const El* __restrict__ x, const El* __restrict__ emb,
                 const int* __restrict__ src, const int* __restrict__ dst,
                 const int* __restrict__ perm, const int* __restrict__ sptr,
                 const int* __restrict__ rptr, const bool* __restrict__ emask,
-                const float* __restrict__ ew, const float* __restrict__ g,
-                float* __restrict__ dx,
-                float* __restrict__ demb, int E, int d, int nruns, int relu) {
+                const float* __restrict__ ew, const El* __restrict__ g,
+                El* __restrict__ dx,
+                El* __restrict__ demb, int E, int d, int nruns, int relu) {
   using V = Vec<VEC>;
   constexpr int U = VEC * VPL <= 8 ? 4 : 2;  // edges whose rows load together
   const long warp = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
@@ -226,7 +234,7 @@ spmm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ emb,
     while (dead) {
       const int k = __ffs(dead) - 1;
       dead &= dead - 1;
-      float* row = demb + (e0 + k) * d;
+      El* row = demb + (e0 + k) * d;
 #pragma unroll
       for (int j = 0; j < VPL; ++j)
         if (has[j]) store_vec(row + col[j], zero);
@@ -427,34 +435,38 @@ blocked_dx_kernel(const float* __restrict__ x, const float* __restrict__ emb,
   write_to(r_hi);
 }
 
+template <class E>
 struct FwdArgs {
-  const float *x, *emb;
+  const E *x, *emb;
   const int *src, *dst;
   const bool* emask;  // K7's; null for K8
-  const int* slot;    // K8's; null for K7
+  const int* slot;    // K8's (float only); null for K7
   const int *ptr, *dptr, *rptr;
   const float* ew;
-  float* out;
+  E* out;
   int d, nruns, relu, slices;
 };
 
-template <int VEC, int VPL>
-int launch_fwd(const FwdArgs& A, cudaStream_t stream) {
+template <int VEC, int VPL, class E>
+int launch_fwd(const FwdArgs<E>& A, cudaStream_t stream) {
   const long blocks = ((long)A.nruns * 32 + RUN_THREADS - 1) / RUN_THREADS;
   const dim3 grid((unsigned)blocks, A.slices);
-  if (A.slot)
-    blocked_fwd_kernel<VEC, VPL><<<grid, RUN_THREADS, 0, stream>>>(
-        A.x, A.emb, A.src, A.dst, A.slot, A.ptr, A.rptr, A.ew, A.out, A.d,
-        A.nruns, A.relu);
-  else
-    spmm_fwd_kernel<VEC, VPL><<<grid, RUN_THREADS, 0, stream>>>(
-        A.x, A.emb, A.src, A.dst, A.emask, A.ptr, A.dptr, A.rptr, A.ew, A.out,
-        A.d, A.nruns, A.relu);
+  if constexpr (sizeof(E) == 4) {
+    if (A.slot) {
+      blocked_fwd_kernel<VEC, VPL><<<grid, RUN_THREADS, 0, stream>>>(
+          A.x, A.emb, A.src, A.dst, A.slot, A.ptr, A.rptr, A.ew, A.out, A.d,
+          A.nruns, A.relu);
+      return cudaGetLastError();
+    }
+  }
+  spmm_fwd_kernel<VEC, VPL, E><<<grid, RUN_THREADS, 0, stream>>>(
+      A.x, A.emb, A.src, A.dst, A.emask, A.ptr, A.dptr, A.rptr, A.ew, A.out,
+      A.d, A.nruns, A.relu);
   return cudaGetLastError();
 }
 
-template <int VEC>
-int launch_fwd_vpl(const FwdArgs& A, int vpl, cudaStream_t stream) {
+template <int VEC, class E>
+int launch_fwd_vpl(const FwdArgs<E>& A, int vpl, cudaStream_t stream) {
   switch (vpl) {
     case 1: return launch_fwd<VEC, 1>(A, stream);
     case 2: return launch_fwd<VEC, 2>(A, stream);
@@ -472,29 +484,30 @@ bool launch_ok(int d, int vec, int vpl, int slices) {
   return slices >= 1 && slices * width >= d && (slices - 1) * width < d;
 }
 
+template <class El>
 struct BwdArgs {
-  const float *x, *emb;
+  const El *x, *emb;
   const int *src, *dst, *perm, *sptr, *rptr;
   const bool* emask;
-  const float *ew, *g;
-  float *dx, *demb;
+  const float* ew;
+  const El* g;
+  El *dx, *demb;
   int E, d, nruns, relu, slices;
 };
 
-template <int VEC, int VPL>
-int launch_bwd(const BwdArgs& A, cudaStream_t stream) {
+template <int VEC, int VPL, class El>
+int launch_bwd(const BwdArgs<El>& A, cudaStream_t stream) {
   const long warps = (long)A.nruns + (A.E + 31) / 32;
   const long blocks = (warps * 32 + RUN_THREADS - 1) / RUN_THREADS;
-  spmm_bwd_kernel<VEC, VPL><<<dim3((unsigned)blocks, A.slices), RUN_THREADS,
-                              0, stream>>>(A.x, A.emb, A.src, A.dst, A.perm,
-                                           A.sptr, A.rptr, A.emask, A.ew, A.g,
-                                           A.dx, A.demb, A.E, A.d, A.nruns,
-                                           A.relu);
+  spmm_bwd_kernel<VEC, VPL, El><<<dim3((unsigned)blocks, A.slices),
+                                  RUN_THREADS, 0, stream>>>(
+      A.x, A.emb, A.src, A.dst, A.perm, A.sptr, A.rptr, A.emask, A.ew, A.g,
+      A.dx, A.demb, A.E, A.d, A.nruns, A.relu);
   return cudaGetLastError();
 }
 
-template <int VEC>
-int launch_bwd_vpl(const BwdArgs& A, int vpl, cudaStream_t stream) {
+template <int VEC, class El>
+int launch_bwd_vpl(const BwdArgs<El>& A, int vpl, cudaStream_t stream) {
   switch (vpl) {
     case 1: return launch_bwd<VEC, 1>(A, stream);
     case 2: return launch_bwd<VEC, 2>(A, stream);
@@ -545,20 +558,44 @@ extern "C" const char* error_string(int err) {
 // launch (vec, vpl, slices) is the wrapper's bwd_launch, every row pointer
 // aligned to vec floats; another is refused. Returns cudaGetLastError()
 // after the launch (0 = launched).
+template <class E>
+int spmm_fwd_entry(const E* x, const E* emb, const int* src, const int* dst,
+                   const bool* emask, const int* ptr, const int* dptr,
+                   const int* rptr, const float* ew, E* out, int N, int d,
+                   int nruns, int relu, int vec, int vpl, int slices,
+                   cudaStream_t stream) {
+  if (N <= 0 || d <= 0 || nruns < 1 || !launch_ok(d, vec, vpl, slices))
+    return cudaErrorInvalidValue;
+  if (((unsigned long)x | (unsigned long)emb | (unsigned long)out) %
+      (sizeof(E) * vec))
+    return cudaErrorInvalidValue;
+  const FwdArgs<E> A{x,    emb,  src, dst, emask, nullptr, ptr,
+                     dptr, rptr, ew,  out, d,     nruns,   relu, slices};
+  return vec == 4 ? launch_fwd_vpl<4>(A, vpl, stream)
+                  : launch_fwd_vpl<1>(A, vpl, stream);
+}
+
 extern "C" int spmm_fwd(const float* x, const float* emb, const int* src,
                         const int* dst, const bool* emask, const int* ptr,
                         const int* dptr, const int* rptr, const float* ew,
                         float* out, int N, int d, int nruns, int relu,
                         int vec, int vpl, int slices, cudaStream_t stream) {
-  if (N <= 0 || d <= 0 || nruns < 1 || !launch_ok(d, vec, vpl, slices))
-    return cudaErrorInvalidValue;
-  if (((unsigned long)x | (unsigned long)emb | (unsigned long)out) %
-      (4ul * vec))
-    return cudaErrorInvalidValue;
-  const FwdArgs A{x,    emb, src, dst, emask, nullptr, ptr,
-                  dptr, rptr, ew, out, d,     nruns,   relu, slices};
-  return vec == 4 ? launch_fwd_vpl<4>(A, vpl, stream)
-                  : launch_fwd_vpl<1>(A, vpl, stream);
+  return spmm_fwd_entry(x, emb, src, dst, emask, ptr, dptr, rptr, ew, out, N,
+                        d, nruns, relu, vec, vpl, slices, stream);
+}
+
+// K7's bf16 instance (the bf16 step): x, emb and out bf16, the weight
+// float32 (ew [E] may be null: 1); the sums in float32, each row rounded
+// once (graphtrans_tpu/ops/pallas/spmm.py:156-164); the arguments and the
+// launch as spmm_fwd's, the pointers aligned to vec bf16.
+extern "C" int spmm_fwd_bf16(const bf16* x, const bf16* emb, const int* src,
+                             const int* dst, const bool* emask,
+                             const int* ptr, const int* dptr, const int* rptr,
+                             const float* ew, bf16* out, int N, int d,
+                             int nruns, int relu, int vec, int vpl,
+                             int slices, cudaStream_t stream) {
+  return spmm_fwd_entry(x, emb, src, dst, emask, ptr, dptr, rptr, ew, out, N,
+                        d, nruns, relu, vec, vpl, slices, stream);
 }
 
 // K8's forward: out [N, d] over the positions of a SlotOrder. Position k
@@ -577,8 +614,8 @@ extern "C" int blocked_fwd(const float* x, const float* emb, const int* src,
   if (((unsigned long)x | (unsigned long)emb | (unsigned long)out) %
       (4ul * vec))
     return cudaErrorInvalidValue;
-  const FwdArgs A{x,   emb, src, dst, nullptr, slot,  ptr,
-                  ptr, rptr, w,  out, d,       nruns, relu, slices};
+  const FwdArgs<float> A{x,   emb,  src, dst, nullptr, slot,  ptr,
+                         ptr, rptr, w,   out, d,       nruns, relu, slices};
   return vec == 4 ? launch_fwd_vpl<4>(A, vpl, stream)
                   : launch_fwd_vpl<1>(A, vpl, stream);
 }
@@ -592,23 +629,48 @@ extern "C" int blocked_fwd(const float* x, const float* emb, const int* src,
 // bwd_launch: slices of 32 * vec * vpl channels covering d once, vec
 // dividing d and every row pointer aligned to vec floats; another is
 // refused.
+template <class El>
+int spmm_bwd_entry(const El* x, const El* emb, const int* src, const int* dst,
+                   const int* perm, const int* sptr, const int* rptr,
+                   const bool* emask, const float* ew, const El* g, El* dx,
+                   El* demb, int N, int E, int d, int nruns, int relu,
+                   int vec, int vpl, int slices, cudaStream_t stream) {
+  if (N <= 0 || d <= 0 || E < 0 || nruns < 1 ||
+      !launch_ok(d, vec, vpl, slices))
+    return cudaErrorInvalidValue;
+  const unsigned long align = sizeof(El) * vec;
+  if (((unsigned long)x | (unsigned long)emb | (unsigned long)g |
+       (unsigned long)dx | (unsigned long)demb) % align)
+    return cudaErrorInvalidValue;
+  const BwdArgs<El> A{x,  emb,  src, dst, perm,  sptr, rptr,  emask, ew,
+                      g,  dx,   demb, E,  d,     nruns, relu, slices};
+  return vec == 4 ? launch_bwd_vpl<4>(A, vpl, stream)
+                  : launch_bwd_vpl<1>(A, vpl, stream);
+}
+
 extern "C" int spmm_bwd(const float* x, const float* emb, const int* src,
                         const int* dst, const int* perm, const int* sptr,
                         const int* rptr, const bool* emask, const float* ew,
                         const float* g, float* dx, float* demb, int N, int E,
                         int d, int nruns, int relu, int vec, int vpl,
                         int slices, cudaStream_t stream) {
-  if (N <= 0 || d <= 0 || E < 0 || nruns < 1 ||
-      !launch_ok(d, vec, vpl, slices))
-    return cudaErrorInvalidValue;
-  const unsigned long align = 4ul * vec;
-  if (((unsigned long)x | (unsigned long)emb | (unsigned long)g |
-       (unsigned long)dx | (unsigned long)demb) % align)
-    return cudaErrorInvalidValue;
-  const BwdArgs A{x,     emb, src, dst, perm, sptr, rptr,  emask, ew,
-                  g,     dx,  demb, E,  d,    nruns, relu, slices};
-  return vec == 4 ? launch_bwd_vpl<4>(A, vpl, stream)
-                  : launch_bwd_vpl<1>(A, vpl, stream);
+  return spmm_bwd_entry(x, emb, src, dst, perm, sptr, rptr, emask, ew, g, dx,
+                        demb, N, E, d, nruns, relu, vec, vpl, slices, stream);
+}
+
+// K7-bwd's bf16 instance (the bf16 step): x, emb, g, dx and d_emb bf16,
+// the weight float32; dx summed in float32 over a source row's edges and
+// rounded once, each d_emb row rounded once; the arguments and the launch
+// as spmm_bwd's, the pointers aligned to vec bf16.
+extern "C" int spmm_bwd_bf16(const bf16* x, const bf16* emb, const int* src,
+                             const int* dst, const int* perm,
+                             const int* sptr, const int* rptr,
+                             const bool* emask, const float* ew,
+                             const bf16* g, bf16* dx, bf16* demb, int N,
+                             int E, int d, int nruns, int relu, int vec,
+                             int vpl, int slices, cudaStream_t stream) {
+  return spmm_bwd_entry(x, emb, src, dst, perm, sptr, rptr, emask, ew, g, dx,
+                        demb, N, E, d, nruns, relu, vec, vpl, slices, stream);
 }
 
 // K8's dx [N, d] for the cotangent g [N, d] of its forward, over the

@@ -42,11 +42,15 @@ The run is f32 unless ``--precision bf16`` (the root ``main.py``'s flag):
 then the forward and backward run in bfloat16 on a copy of the float32
 master parameters, with the loss, BatchNorm's statistics, the gradients
 and AdamW's state in float32 (``train/precision.py``, the JAX trainer's
-cast); K1, K1-bwd, K2 and K2-bwd run their bf16 instances, and cuBLAS sums
-the bf16 products in float32. bf16 runs the molpcba GraphTrans configs
-(GIN on the strided layout) under ``--attn_backend auto``; every other
-model, dataset and backend raises NotImplementedError naming slice 10
-(``utils/config.py:check_ported``).
+cast); the kernels of the path run their bf16 instances (molpcba: K1,
+K1-bwd, K2 and K2-bwd; code2: K7, K7-bwd, K2, K2-bwd, K3 and K3-bwd), and
+cuBLAS sums the bf16 products in float32. bf16 runs the molpcba
+GraphTrans configs (GIN on the strided layout) and the code2 GraphTrans
+configs (GCN on the flat layout) under ``--attn_backend auto``; every
+other model, dataset and backend, and the blocked route, raise
+NotImplementedError naming slice 10 (``utils/config.py:check_ported``;
+``set_block_spmm``'s route in ``nn/conv.py``). ``--save_path`` writes
+the float32 masters, which ``predict --weights`` serves in float32.
 """
 
 from __future__ import annotations

@@ -22,7 +22,12 @@ norm rows), else in kernel K7 over the
 dst-sorted edges (it walks the batch's ``dst_order`` and its backward the
 batch's ``src_order``, each made once and shared by every layer): the JAX
 package's precedence, strided, then blocked, then flat. The degree, the norm and
-the self term are plain PyTorch.
+the self term are plain PyTorch. Under the bf16 step the flat route runs in
+bf16 as the JAX layer does under the cast (``graphtrans_tpu/nn/conv.py:
+253-270``): the degree, its inverse square root, the norm and the self
+term in x's dtype (a degree above 256 rounds, in both), K7 in bf16 with
+float32 sums; the strided and the blocked routes refuse bf16 (slice 10's
+part 4).
 """
 
 from __future__ import annotations
@@ -101,8 +106,6 @@ class GCNConv(nn.Module):
         normal_(self.root_emb, 1.0, gen)
 
     def forward(self, batch, h: torch.Tensor) -> torch.Tensor:
-        refuse_bf16(h, "GCNConv (code2, NCI1, the blocked route: K6, K7, "
-                    "K8)")
         mask = batch.node_mask[:, None]
         x = self.lin(h).masked_fill(~mask, 0.0)
         if batch.node_stride > 0:
@@ -132,6 +135,7 @@ class GCNConv(nn.Module):
         or of the encoder, K8's dx walks the src-major plan's
         ``src_slot_order`` and reads those same rows through its
         ``fwd_slot``: no src-major copy is made."""
+        refuse_bf16(x, "GCNConv on the blocked route (K8)")
         emb_f = self.edge_encoder(batch.edge_attr_bsp_fwd).to(x.dtype)
         w_f = bsp_slot_weight(batch.bsp_fwd, dis, False)
         grad = torch.is_grad_enabled() and (x.requires_grad
@@ -150,6 +154,7 @@ class GCNConv(nn.Module):
         norm gathers deg^-1/2 at src and dst (zero on masked slots). A
         ``ZeroEdgeEncoder``'s zeros are not made: K6 takes None, its
         emb-less instance."""
+        refuse_bf16(x, "GCNConv on the strided layout (NCI1: K6)")
         G, Sm = batch.num_graph_slots, batch.node_stride
         src, dst = batch.edge_src_dense, batch.edge_dst_dense
         emask = batch.edge_mask_dense

@@ -150,7 +150,7 @@ class MultiheadSelfAttention(nn.Module):
         rate = self.dropout if self.training else 0.0
         qkv = self.in_proj(x)
         kernel = self.use_kernel
-        if route not in ("k2", "plain"):
+        if route not in ("k2", "k3", "plain"):
             refuse_bf16(qkv, f"attention route {route}")
         if route in ("k2", "k3"):
             fn = {"k2": (attention_seg, attention_seg_plain),

@@ -51,12 +51,19 @@ then p, dp and ds of each pair once (one dropout draw), then dQ, dK and
 dV; every output cell has one writer, so there are no atomics.
 ``seg_fwd_geometry`` and ``seg_bwd_geometry`` pick the instance by W and
 compute the launch; the C entries refuse one they cannot run. The bf16
-instances (the bf16 step; rows of up to 128) have bodies of their own: the
-row's head slices staged as bf16, a warp a 16-query tile of a segment, the
-tile's score rows in registers, every product a bf16 ``mma.sync`` with
-float32 sums, and a backward in two passes (by query tile: delta, dS and
-dQ; by key tile: dK and dV) with no atomics (launch:
-``seg_bf16_geometry``).
+instances (the bf16 step) have bodies of their own, picked by W in
+``seg_bf16_geometry``. Rows of up to 128: the row's head slices staged as
+bf16, a warp a 16-query tile of a segment, the tile's score rows in
+registers, every product a bf16 ``mma.sync`` with float32 sums, and a
+backward in two passes (by query tile: delta, dS and dQ; by key tile: dK
+and dV) with no atomics. Rows of 129-384 (code2's 384 tier): the long
+bodies' cut with those products (``csrc/attention_fwd.cuh:long_fwd16``,
+``csrc/attention_bwd.cuh:long_dq16``, ``long_dkv16``): a block per (row,
+head, 64 queries) gathers the keys that can meet its queries 64 at a
+time as bf16 rows, a warp owns 16 query rows whole; the forward walks the
+keys twice (m and l, then the normalised p rounded once before P V) and
+the dq kernel twice (delta summed from the pairs, then dS and dQ), a dk/dv
+kernel over chunks of 64 valid keys walks the query tiles.
 
 K4 replaces ``graphtrans_tpu/ops/pallas/attention_packed.py:
 attention_packed_qkv`` (forward ``_call_fwd``, backward ``_call_bwd``, mask
@@ -111,7 +118,6 @@ import torch
 
 from . import _build
 from .rounding import round_grad, round_value
-from ...train.precision import later_slice
 
 W_MAX = 384          # wider packed rows take flash_hil_seg (K3)
 HEAD_DIM = 32        # the head width csrc/attention_packed.cu compiles
@@ -292,9 +298,6 @@ def _check(qkv, seg, nhead, rate, gout=None):
     if qkv.dtype not in DTYPES or seg.dtype != torch.int32:
         raise ValueError("attention_seg: expected float32 or bfloat16 qkv, "
                          "int32 seg")
-    if qkv.dtype == torch.bfloat16 and W > SEG_TILE_MAX:
-        raise later_slice(f"K2 on rows of {W} > {SEG_TILE_MAX} tokens (the "
-                          f"long instance, code2)")
     if tuple(seg.shape) != (R, W) or seg.device != qkv.device:
         raise ValueError(f"attention_seg: seg {tuple(seg.shape)} on "
                          f"{seg.device} does not match qkv")
@@ -369,7 +372,7 @@ def _seg_geometry(qkv: torch.Tensor, nhead: int, bwd: bool):
 
 
 def _instance(geo, qkv: torch.Tensor) -> str:
-    """The counted instance: "tile", "long" or "tile_bf16"."""
+    """The counted instance: "tile", "long", "tile_bf16" or "long_bf16"."""
     return (geo.instance if qkv.dtype == torch.float32
             else geo.instance + "_bf16")
 
@@ -411,7 +414,8 @@ def attention_seg(qkv: torch.Tensor, seg: torch.Tensor, nhead: int,
 
 attention_seg.launches = 0
 # launches by instance
-attention_seg.instances = {"tile": 0, "long": 0, "tile_bf16": 0}
+attention_seg.instances = {"tile": 0, "long": 0, "tile_bf16": 0,
+                           "long_bf16": 0}
 
 
 def attention_seg_bwd(qkv: torch.Tensor, seg: torch.Tensor, nhead: int,
@@ -459,7 +463,8 @@ def attention_seg_bwd(qkv: torch.Tensor, seg: torch.Tensor, nhead: int,
 
 attention_seg_bwd.launches = 0
 # launches by instance
-attention_seg_bwd.instances = {"tile": 0, "long": 0, "tile_bf16": 0}
+attention_seg_bwd.instances = {"tile": 0, "long": 0, "tile_bf16": 0,
+                               "long_bf16": 0}
 
 
 # ---- launch geometry of the kernels on csrc/attention_tile.cuh ------------
@@ -659,14 +664,34 @@ def seg_bf16_bytes(W: int, bwd: bool) -> int:
 @functools.lru_cache(maxsize=None)
 def seg_bf16_geometry(R: int, W: int, nhead: int, bwd: bool) -> Geometry:
     """The launch of K2's bf16 forward (K2-bwd's with ``bwd``) for R rows of
-    W <= SEG_TILE_MAX tokens: a block of SEG_BF16_THREADS per (row, head),
-    whose warps take the segments' 16-query tiles; ``pad`` the rows
-    staged."""
+    W tokens: up to SEG_TILE_MAX the tile instance, a block of
+    SEG_BF16_THREADS per (row, head), whose warps take the segments'
+    16-query tiles (``pad`` the rows staged); wider rows the bf16 long
+    bodies' (``long16_geometry``; both kernels of the backward take it)."""
     if W > SEG_TILE_MAX:
-        raise ValueError(f"K2's bf16 pair takes rows of up to {SEG_TILE_MAX} "
-                         f"tokens, not {W}")
+        return long16_geometry(R, W, nhead)
     return Geometry("tile", ((0, W),), seg_bf16_rows(W), 1, (R * nhead, 1, 1),
                     SEG_BF16_THREADS, seg_bf16_bytes(W, bwd))
+
+
+LONG16_THREADS = 128   # four warps, 16 rows each: the bf16 long kernels
+
+
+def long16_bytes() -> int:
+    """Shared bytes of a bf16 long kernel (K2's wide rows, K3): four 64-row
+    tiles of SEG_BF16_LD bf16, per query m, 1/l and delta, per row two tags
+    and a token index, the prefix count's scratch
+    (``csrc/attention_bwd.cuh:long16_bytes``)."""
+    return (4 * LONG_T * SEG_BF16_LD * 2 + 6 * LONG_T * 4
+            + (LONG16_THREADS // 32 + 1 + 2) * 4)
+
+
+def long16_geometry(R: int, W: int, nhead: int) -> Geometry:
+    """The launch of the bf16 long forward and of each kernel of the bf16
+    long pair (K2 on rows of 129-384, K3 at any width): a block of
+    LONG16_THREADS per (row, head, LONG_T tokens)."""
+    return Geometry("long", ((0, W),), LONG_T, 1, (R, nhead, -(-W // LONG_T)),
+                    LONG16_THREADS, long16_bytes())
 
 
 def dense_fwd_geometry(B: int, S: int, block: int, hd: int, nhead: int,

@@ -63,18 +63,41 @@ the pair mask separates them. Each step is a 64 x 64 pair tile staged with
 one writer: padding tokens get exact zeros, and a run gives the same bits
 every time. The launch is the long backward's
 (``attention_smalls.bwd_geometry``'s long instance at hd 32).
+
+bf16 (the bf16 step): the JAX kernel asks for ``Precision.DEFAULT``
+(``flash_hil.py:50-52``), one bf16 pass of the TPU's MXU, so the operands
+of every product are rounded to bf16 there: the online softmax's
+unnormalised p (dropped and rescaled) before P V, and in the backward dS
+and P_drop. The instance rounds at those points: q.k from the bf16
+operands in float32, m and l in float32, p = exp(s - m_running) rounded
+before P V, the accumulator rescaled and normalised by 1/l in float32,
+the output rounded once; backward p = exp(s - m) / l and dp in float32,
+delta = dO . O over the rounded output (``_bwd_rule``), dS = p (dp -
+delta) * scale and P_drop rounded, dQ, dK, dV summed in float32 and
+rounded once. The plain bf16 version (``_FlashHilBf16``) rounds at the
+same points, p against the row's final max. (In interpret mode on the CPU
+the JAX kernel's DEFAULT products are exact float32: it rounds none of
+these.) The kernels are the bf16 long bodies K2's 384 tier runs in bf16
+(``attention_packed.long16_geometry``; ``csrc/attention_fwd.cuh:
+long_fwd16`` with the online softmax, ``csrc/attention_bwd.cuh:long_dq16``
+with delta = dO . O, ``long_dkv16``): bf16 rows by ``cp.async``, a warp 16
+query (key) rows whole, every product one bf16 ``mma.sync`` with float32
+sums, p and dS moved into the next product's A fragment in registers.
+Launches count by dtype in ``flash_hil_seg.instances`` and
+``flash_hil_seg_bwd.instances``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from . import _build
 from .attention_packed import (HEAD_DIM, Geometry, _stream,
                                attention_seg_plain, keep_threshold,
-                               long_fwd_geometry)
+                               long16_geometry, long_fwd_geometry, seg_mask)
 from .flash_attention import tile_keep_mask
 
 MASK_BQ, MASK_BK = 512, 128   # the JAX kernel's blocks, which seed its mask
@@ -92,12 +115,78 @@ def flash_hil_seg_plain(qkv: torch.Tensor, seg: torch.Tensor, nhead: int,
                         rate: float = 0.0, seed: int = 0) -> torch.Tensor:
     """Plain PyTorch version of K3: K2's plain segment-masked softmax
     attention over rows of any width, with flash_hil's dropout mask;
-    autograd differentiates it."""
+    autograd differentiates it. A bf16 qkv rounds at K3's points
+    (``_FlashHilBf16``)."""
     keep = None
     if rate > 0.0:
         R, W, _ = qkv.shape
         keep = flash_hil_keep_mask(R, W, nhead, rate, seed, qkv.device)
+    if qkv.dtype == torch.bfloat16:
+        return _FlashHilBf16.apply(qkv, seg, nhead, keep, rate)
     return attention_seg_plain(qkv, seg, nhead, rate, keep=keep)
+
+
+def _heads(t: torch.Tensor, nhead: int) -> torch.Tensor:
+    """[R, W, H*hd] -> float32 [R, H, W, hd]."""
+    R, W, d = t.shape
+    return t.float().reshape(R, W, nhead, d // nhead).transpose(1, 2)
+
+
+class _FlashHilBf16(torch.autograd.Function):
+    """K3 in bf16 with the JAX kernel's rounding points on the TPU (module
+    note): forward and backward written out in float32 over the bf16
+    inputs, each rounding point an explicit cast. ``keep`` (bool [R, H, W,
+    W]) the dropout mask at ``rate``, or None."""
+
+    @staticmethod
+    def _probs(qkv, seg, nhead):
+        """(q, k, v [R, H, W, hd] float32, the scale, the undropped exp(s -
+        m) [R, H, W, W] (0 off the mask) and l [R, H, W, 1])."""
+        q, k, v = (_heads(t, nhead) for t in qkv.split(qkv.shape[-1] // 3,
+                                                      dim=-1))
+        scale = torch.tensor(1.0 / math.sqrt(q.shape[-1]),
+                             dtype=torch.float32)
+        mask = seg_mask(seg)                                  # [R, 1, W, W]
+        s = (torch.matmul(q, k.transpose(-1, -2)) * scale).masked_fill(
+            ~mask, -1e30)
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True)).masked_fill(~mask,
+                                                                    0.0)
+        return q, k, v, scale, e, e.sum(dim=-1, keepdim=True)
+
+    @staticmethod
+    def forward(ctx, qkv, seg, nhead, keep, rate):
+        q, k, v, scale, e, l = _FlashHilBf16._probs(qkv, seg, nhead)
+        drop = None if keep is None else keep.float() * (1.0 / (1.0 - rate))
+        pu = e if drop is None else e * drop
+        acc = torch.matmul(pu.to(qkv.dtype).float(), v)
+        out = (acc / l.clamp_min(1e-16)).to(qkv.dtype)
+        R, W, _ = qkv.shape
+        out = out.transpose(1, 2).reshape(R, W, -1)
+        ctx.save_for_backward(qkv, seg, out, keep)
+        ctx.nhead, ctx.rate = nhead, rate
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, seg, out, keep = ctx.saved_tensors
+        nhead, dt = ctx.nhead, qkv.dtype
+        q, k, v, scale, e, l = _FlashHilBf16._probs(qkv, seg, nhead)
+        p = e / l.clamp_min(1e-16)
+        gh = _heads(g.to(dt), nhead)
+        delta = (gh * _heads(out, nhead)).sum(dim=-1, keepdim=True)
+        dp = torch.matmul(gh, v.transpose(-1, -2))
+        pd = p
+        if keep is not None:
+            drop = keep.float() * (1.0 / (1.0 - ctx.rate))
+            dp, pd = dp * drop, p * drop
+        ds = (p * (dp - delta) * scale).to(dt).float()
+        dq = torch.matmul(ds, k)
+        dk = torch.matmul(ds.transpose(-1, -2), q)
+        dv = torch.matmul(pd.to(dt).float().transpose(-1, -2), gh)
+        R, W, _ = qkv.shape
+        dqkv = torch.cat([t.transpose(1, 2).reshape(R, W, -1)
+                          for t in (dq, dk, dv)], dim=-1).to(dt)
+        return dqkv, None, None, None, None
 
 
 def flash_hil_seg_bwd_plain(qkv, seg, nhead, gout, rate=0.0, seed=0):
@@ -119,23 +208,36 @@ def _check(qkv, seg, nhead, rate, gout=None):
                          f"kernel is built for {HEAD_DIM}")
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"flash_hil_seg: dropout rate {rate} not in [0, 1)")
-    if qkv.dtype != torch.float32 or seg.dtype != torch.int32:
-        raise ValueError("flash_hil_seg: expected float32 qkv, int32 seg")
+    if qkv.dtype not in DTYPES or seg.dtype != torch.int32:
+        raise ValueError("flash_hil_seg: expected float32 or bfloat16 qkv, "
+                         "int32 seg")
     if tuple(seg.shape) != (R, W) or seg.device != qkv.device:
         raise ValueError(f"flash_hil_seg: seg {tuple(seg.shape)} on "
                          f"{seg.device} does not match qkv")
-    if gout is not None and (gout.dtype != torch.float32
+    if gout is not None and (gout.dtype != qkv.dtype
                              or tuple(gout.shape) != (R, W, d)
                              or gout.device != qkv.device):
         raise ValueError(f"flash_hil_seg_bwd: gout {gout.dtype} "
                          f"{tuple(gout.shape)} does not match the output")
     if not all(t.is_contiguous() for t in (qkv, seg, gout) if t is not None):
         raise ValueError("flash_hil_seg: inputs must be contiguous")
+    if qkv.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 for t in (qkv, gout) if t is not None):
+        raise ValueError("flash_hil_seg: bf16 qkv and gout must be 16-byte "
+                         "aligned (the bf16 kernels copy 8 elements at a "
+                         "time)")
 
 
-def fwd_geometry(R: int, W: int, nhead: int) -> Geometry:
+DTYPES = (torch.float32, torch.bfloat16)   # K3's and K3-bwd's instances
+
+
+def fwd_geometry(R: int, W: int, nhead: int,
+                 dtype: torch.dtype = torch.float32) -> Geometry:
     """K3's forward launch for R rows of W tokens: the long forward's, a
-    block of four warps per (row, head, 64 queries)."""
+    block of four warps per (row, head, 64 queries); in bf16 the bf16 long
+    forward's (``long16_geometry``)."""
+    if dtype == torch.bfloat16:
+        return long16_geometry(R, W, nhead)
     return long_fwd_geometry(R, W, HEAD_DIM, nhead)
 
 
@@ -164,13 +266,20 @@ def flash_hil_seg_with_stats(qkv: torch.Tensor, seg: torch.Tensor,
         return out, m, l
     ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
     lib = _load()
-    err = lib.flash_hil_fwd(
+    entry = _build.entry(lib, "flash_hil_fwd", qkv.dtype)
+    err = entry(
         ptr(qkv), ptr(seg), ptr(out), ptr(m), ptr(l), R, W, d3 // 3, nhead,
-        *_dropout_args(rate, seed), *fwd_geometry(R, W, nhead).args(),
-        _stream(qkv))
-    _build.check(lib, err, "flash_hil_fwd")
+        *_dropout_args(rate, seed),
+        *fwd_geometry(R, W, nhead, qkv.dtype).args(), _stream(qkv))
+    _build.check(lib, err, entry.__name__)
     flash_hil_seg.launches += 1
+    flash_hil_seg.instances[_instance(qkv)] += 1
     return out, m, l
+
+
+def _instance(qkv: torch.Tensor) -> str:
+    """The counted instance: "f32" or "bf16"."""
+    return "bf16" if qkv.dtype == torch.bfloat16 else "f32"
 
 
 class _FlashHilSeg(torch.autograd.Function):
@@ -209,6 +318,7 @@ def flash_hil_seg(qkv: torch.Tensor, seg: torch.Tensor, nhead: int,
 
 
 flash_hil_seg.launches = 0
+flash_hil_seg.instances = {"f32": 0, "bf16": 0}   # launches by dtype
 
 
 def flash_hil_seg_bwd(qkv: torch.Tensor, seg: torch.Tensor, nhead: int,
@@ -234,18 +344,24 @@ def flash_hil_seg_bwd(qkv: torch.Tensor, seg: torch.Tensor, nhead: int,
     dqkv = torch.empty_like(qkv)
     if dqkv.numel() == 0:
         return dqkv
+    if qkv.dtype == torch.bfloat16 and out.data_ptr() % 16:
+        raise ValueError("flash_hil_seg_bwd: the forward's bf16 output must "
+                         "be 16-byte aligned")
     delta = torch.empty_like(m)
     lib = _load()
-    err = lib.flash_hil_bwd(
+    entry = _build.entry(lib, "flash_hil_bwd", qkv.dtype)
+    err = entry(
         *(ctypes.c_void_p(t.data_ptr())
           for t in (qkv, seg, out, gout, m, l, delta, dqkv)),
         R, W, d3 // 3, nhead, *_dropout_args(rate, seed), _stream(qkv))
-    _build.check(lib, err, "flash_hil_bwd")
+    _build.check(lib, err, entry.__name__)
     flash_hil_seg_bwd.launches += 1
+    flash_hil_seg_bwd.instances[_instance(qkv)] += 1
     return dqkv
 
 
 flash_hil_seg_bwd.launches = 0
+flash_hil_seg_bwd.instances = {"f32": 0, "bf16": 0}   # launches by dtype
 
 
 def _load():

@@ -67,6 +67,21 @@ lane.
 K8's forward and dx (``ops/kernels/block_spmm.py``) run on these two walks
 over the positions of a block plan's ``SlotOrder`` (``blocked_fwd``,
 ``blocked_dx``).
+
+bf16 (the bf16 step): x, emb and the cotangent bf16, the weight float32
+(a bf16 ``edge_weight``, the GCN norm under the cast, widened as the JAX
+kernel widens it, ``spmm.py:120-123``). The forward's message and its
+weighted sum are float32 and the output is rounded once
+(``graphtrans_tpu/ops/pallas/spmm.py:156-164``: HIGHEST on float32
+copies, then x's dtype); the backward sums dx in float32 over a source
+row's edges and rounds it once, and rounds each d_emb row once. The JAX
+package takes that kernel only at widths that are multiples of 128
+(code2's 300 goes to ``ops/scatter.py:93-105``, which sums in bf16); the
+port's K7 rounds as the kernel does at every width. The kernels are the
+f32 ones templated on the element type (``csrc/spmm.cu``, 8-byte bf16
+accesses where the f32 kernel makes 16-byte ones, so the launch is the
+same); launches count by dtype in ``spmm.instances`` and
+``spmm_bwd.instances``.
 """
 
 from __future__ import annotations
@@ -92,14 +107,18 @@ def _folded_weight(emask: torch.Tensor,
 
 def spmm_plain(x, emb, src, dst, emask, edge_weight=None,
                message: str = "relu_add") -> torch.Tensor:
-    """Plain PyTorch version of K7: same arguments, same result."""
-    m = x.index_select(0, src.long()) + emb
+    """Plain PyTorch version of K7: same arguments, same result. The
+    message and the sum are float32, the result rounded once to x's dtype
+    (bf16: the kernel's rounding; autograd then rounds dx and d_emb once
+    each)."""
+    m = x.float().index_select(0, src.long()) + emb.float()
     if message == "relu_add":
         m = torch.relu(m)
     elif message != "add":
         raise ValueError(f"spmm: message {message!r} not in {MESSAGES}")
     m = m * _folded_weight(emask, edge_weight)[:, None]
-    return torch.zeros_like(x).index_add_(0, dst.long(), m)
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    return out.index_add_(0, dst.long(), m).to(x.dtype)
 
 
 def spmm_bwd_plain(x, emb, src, dst, emask, g, edge_weight=None,
@@ -244,16 +263,21 @@ def _same_edges(order, what: str, x: torch.Tensor, n_edges: int):
                          f"{x.shape[0]} and {n_edges}")
 
 
+DTYPES = (torch.float32, torch.bfloat16)   # K7's and K7-bwd's instances
+
+
 def _check(x, emb, src, dst, emask, edge_weight, message, g=None):
     N, d = x.shape
     E = src.shape[0]
-    want = [(x, torch.float32, (N, d)), (emb, torch.float32, (E, d)),
+    dt = x.dtype if x.dtype in DTYPES else torch.float32
+    want = [(x, dt, (N, d)), (emb, dt, (E, d)),
             (src, torch.int32, (E,)), (dst, torch.int32, (E,)),
             (emask, torch.bool, (E,))]
     if edge_weight is not None:
-        want.append((edge_weight, torch.float32, (E,)))
+        want.append((edge_weight, edge_weight.dtype if edge_weight.dtype
+                     in DTYPES else torch.float32, (E,)))
     if g is not None:
-        want.append((g, torch.float32, (N, d)))
+        want.append((g, dt, (N, d)))
     for t, dtype, shape in want:
         if t.device != x.device:
             raise ValueError(f"spmm: tensors on {t.device} and {x.device}")
@@ -266,6 +290,17 @@ def _check(x, emb, src, dst, emask, edge_weight, message, g=None):
         raise ValueError(f"spmm: message {message!r} not in {MESSAGES}")
 
 
+def _weight32(edge_weight):
+    """The kernel's float32 weight: a bf16 one (the GCN norm under the
+    cast) widened, as the JAX kernel widens it."""
+    return None if edge_weight is None else edge_weight.float()
+
+
+def _instance(x: torch.Tensor) -> str:
+    """The counted instance: "f32" or "bf16"."""
+    return "bf16" if x.dtype == torch.bfloat16 else "f32"
+
+
 def _launch_fwd(x, emb, src, dst, emask, edge_weight, message,
                 rows: DstOrder):
     N, d = x.shape
@@ -274,16 +309,19 @@ def _launch_fwd(x, emb, src, dst, emask, edge_weight, message,
         return out
     ptr, dptr = rows.get()
     rptr = rows.runs()
+    edge_weight = _weight32(edge_weight)
     vec, vpl, slices = bwd_launch(d, _build.align(x, emb))   # out: new
     lib = _load()
-    err = lib.spmm_fwd(     # ints: ctypes makes each a c_void_p; the kernel
+    entry = _build.entry(lib, "spmm_fwd", x.dtype)
+    err = entry(            # ints: ctypes makes each a c_void_p; the kernel
         *(t.data_ptr()      # folds emask * edge_weight itself
           for t in (x, emb, src, dst, emask, ptr, dptr, rptr)),
         edge_weight.data_ptr() if edge_weight is not None else None,
         out.data_ptr(), N, d, rptr.shape[0] - 1, int(message == "relu_add"),
         vec, vpl, slices, _stream(x))
-    _build.check(lib, err, "spmm_fwd")
+    _build.check(lib, err, entry.__name__)
     spmm.launches += 1
+    spmm.instances[_instance(x)] += 1
     return out
 
 
@@ -367,6 +405,7 @@ def spmm(x: torch.Tensor, emb: torch.Tensor, src: torch.Tensor,
 
 
 spmm.launches = 0
+spmm.instances = {"f32": 0, "bf16": 0}   # launches by dtype
 
 
 def spmm_bwd(x: torch.Tensor, emb: torch.Tensor, src: torch.Tensor,
@@ -393,21 +432,25 @@ def spmm_bwd(x: torch.Tensor, emb: torch.Tensor, src: torch.Tensor,
         return dx, demb
     perm, sptr = order.get()
     rptr = order.runs()
+    edge_weight = _weight32(edge_weight)
     vec, vpl, slices = bwd_launch(d, _build.align(x, emb, g))  # dx, demb: new
     lib = _load()
-    err = lib.spmm_bwd(     # ints: ctypes makes each a c_void_p; the kernel
+    entry = _build.entry(lib, "spmm_bwd", x.dtype)
+    err = entry(            # ints: ctypes makes each a c_void_p; the kernel
         *(t.data_ptr()      # folds emask * edge_weight itself
           for t in (x, emb, src, dst, perm, sptr, rptr, emask)),
         edge_weight.data_ptr() if edge_weight is not None else None,
         *(t.data_ptr() for t in (g, dx, demb)),
         N, E, d, rptr.shape[0] - 1, int(message == "relu_add"), vec, vpl,
         slices, _stream(x))
-    _build.check(lib, err, "spmm_bwd")
+    _build.check(lib, err, entry.__name__)
     spmm_bwd.launches += 1
+    spmm_bwd.instances[_instance(x)] += 1
     return dx, demb
 
 
 spmm_bwd.launches = 0
+spmm_bwd.instances = {"f32": 0, "bf16": 0}   # launches by dtype
 
 
 def _load():

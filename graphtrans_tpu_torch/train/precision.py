@@ -12,10 +12,15 @@ rounds (``nn/norm.py``, ``nn/dropout.py``, ``nn/conv.py``, the kernels'
 plain versions): ``torch.autocast`` is not used, since it casts op by op
 and keeps other ops in float32 than the JAX package does.
 
-The bf16 step runs on the paths of slice 10's first part: the molpcba
-GraphTrans (GIN with its bond tables on the strided layout, K1 and K2
-under ``--attn_backend auto``). Every other path raises
-NotImplementedError naming slice 10 (``later_slice``)."""
+The bf16 step runs on the paths of slice 10's parts 1 and 2, the
+GraphTrans model under ``--attn_backend auto``: molpcba (GIN with its bond
+tables on the strided layout: K1 and K2) and code2 (GCN on the flat
+layout: K7, K2 on rows of up to 384, K3 above). Every other path raises
+NotImplementedError naming slice 10 (``later_slice``, through
+``refuse_bf16`` in ``nn/conv.py``: the strided GCN and the blocked route,
+part 4; ``nn/transformer.py``: the routes of K4, K5, K9 and K10, and
+``models/transformer.py``: the Transformer-only model, part 3;
+``nn/dropout.py``: K11)."""
 
 from __future__ import annotations
 

@@ -97,18 +97,27 @@ DATASET_DEFAULTS = {"ogbg-molhiv": _MOL, "ogbg-molpcba": _MOL,
                     "NCI1": _TU, "NCI109": _TU}
 
 
+# the (dataset kind, gnn_type) pairs of the GraphTrans model that run in
+# bf16: slice 10's first part (GIN on the molecule datasets, the strided
+# layout: K1, K2) and its second (GCN on code2, the flat layout: K7, K2,
+# K3)
+BF16_PATHS = (("mol", "gin"), ("code2", "gcn"))
+
+
 def _bf16_refusal(args):
     """Why ``--precision bf16`` cannot run this config yet, or None: slice
-    10's first part runs the GraphTrans model with GIN on the molecule
-    datasets (the strided layout) under ``--attn_backend auto``."""
+    10's parts 1 and 2 run the GraphTrans model on ``BF16_PATHS`` under
+    ``--attn_backend auto``."""
     from ..data import dataset_kind
 
     if getattr(args, "model_type", "gnn-transformer") != "gnn-transformer":
         return f"model_type {args.model_type}"
-    if dataset_kind(getattr(args, "dataset", "ogbg-molpcba")) != "mol":
+    kind = dataset_kind(getattr(args, "dataset", "ogbg-molpcba"))
+    if kind not in dict(BF16_PATHS):
         return f"dataset {args.dataset}"
-    if getattr(args, "gnn_type", "gin") != "gin":
-        return f"gnn_type {args.gnn_type}"
+    gnn_type = getattr(args, "gnn_type", "gin")
+    if (kind, gnn_type) not in BF16_PATHS:
+        return f"gnn_type {gnn_type} on {kind}"
     if getattr(args, "attn_backend", "auto") != "auto":
         return f"--attn_backend {args.attn_backend}"
     return None
@@ -150,8 +159,8 @@ def check_ported(args):
         if why is not None:
             raise NotImplementedError(
                 f"--precision bf16 with {why}: bf16 arrives there with "
-                f"slice 10 (its first part runs the molpcba GraphTrans "
-                f"under --attn_backend auto)")
+                f"slice 10 (its parts 1 and 2 run the molpcba and code2 "
+                f"GraphTrans under --attn_backend auto)")
 
 
 def parse_with_config(parser: argparse.ArgumentParser, argv=None):

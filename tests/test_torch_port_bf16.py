@@ -424,7 +424,7 @@ def test_main_bf16_without_cuda_raises():
 
 
 @pytest.mark.parametrize("config,flags", [
-    ("configs/code2/gnn-transformer/JK=cat/pooling=cls+norm_input.yml", []),
+    ("configs/code2/transformer/pooling=cls.yml", []),
     ("configs/NCI1/gnn-transformer/no-virtual/"
      "gd=128+gdp=0.1+tdp=0.1+l=3+cosine.yml", ["--runs", "1"]),
     ("configs/molpcba/transformer/pooling=cls.yml", []),
@@ -432,8 +432,10 @@ def test_main_bf16_without_cuda_raises():
      ["--attn_backend", "smalls"]),
 ])
 def test_main_bf16_refuses_later_paths(config, flags):
-    """code2, NCI1, the Transformer-only model and a backend other than
-    auto raise NotImplementedError naming slice 10."""
+    """The Transformer-only model (code2's and molpcba's), NCI1 and a
+    backend other than auto raise NotImplementedError naming slice 10 (the
+    code2 GraphTrans ymls train in bf16 since slice 10's part 2:
+    test_torch_port_code2_bf16.py)."""
     with pytest.raises(NotImplementedError, match="slice 10"):
         tmain.main(["--configs", str(REPO / config), "--data_root",
                     str(REPO / "data_snapshots"), "--epochs", "1",
@@ -467,32 +469,46 @@ def test_check_ported_names_the_models_slice_first(config, flags, slice_,
 
 
 def test_bf16_refuses_the_blocked_route_and_other_kernels():
-    """In process, where no flag checks: the GCN layer (code2's K7 and
-    the blocked route's K8, NCI1's K6), the attention routes other than K2
-    and the plain one, and K2's long instance raise NotImplementedError
-    naming slice 10 on bf16 inputs."""
+    """In process, where no flag checks: the GCN layer on the blocked
+    route (K8, under ``set_block_spmm``) and on the strided layout (NCI1's
+    K6), the attention routes other than K2, K3 and the plain one, and
+    K10's layer route raise NotImplementedError naming slice 10 on bf16
+    inputs (code2's flat GCN, K7, and K3 run in bf16 since its part 2)."""
+    import types
+
     from graphtrans_tpu_torch.nn.conv import GCNConv
-    from graphtrans_tpu_torch.nn.encoders import LinearEdgeEncoder
+    from graphtrans_tpu_torch.nn.encoders import (LinearEdgeEncoder,
+                                                  ZeroEdgeEncoder)
     from graphtrans_tpu_torch.ops.block_plan import set_block_spmm
 
-    conv = GCNConv(8, LinearEdgeEncoder(8))
+    conv = GCNConv(8, LinearEdgeEncoder(8)).to(BF)
     set_block_spmm(conv, "on")
+    flat = types.SimpleNamespace(
+        node_mask=torch.ones(4, dtype=torch.bool), node_stride=0,
+        edge_src=torch.zeros(2, dtype=torch.int32),
+        edge_mask=torch.ones(2, dtype=torch.bool), bsp_fwd=object())
     with pytest.raises(NotImplementedError, match="slice 10"):
-        conv(None, torch.zeros(4, 8, dtype=BF))
+        conv(flat, torch.zeros(4, 8, dtype=BF))
+    strided = types.SimpleNamespace(node_mask=torch.ones(4, dtype=torch.bool),
+                                    node_stride=4)
+    with pytest.raises(NotImplementedError, match="slice 10"):
+        GCNConv(8, ZeroEdgeEncoder(8)).to(BF)(strided,
+                                              torch.zeros(4, 8, dtype=BF))
     attn = ttr.MultiheadSelfAttention(128, 4).to(BF)
-    for route in ("k3", "k4", "k5", "k9", "chunked"):
+    for route in ("k4", "k5", "k9", "chunked"):
         with pytest.raises(NotImplementedError, match="slice 10"):
             attn(torch.zeros(1, 8, 128, dtype=BF), route)
-    qkv = torch.zeros(1, 256, 384, dtype=BF)
-    from graphtrans_tpu_torch.ops.kernels.attention_packed import _check
+    layer = ttr.TransformerEncoderLayer(128, 4, 256).to(BF)
     with pytest.raises(NotImplementedError, match="slice 10"):
-        _check(qkv, torch.zeros(1, 256, dtype=torch.int32), 4, 0.0)
+        layer(torch.zeros(1, 8, 128, dtype=BF), "k10")
 
 
 @pytest.mark.parametrize("source,entry", [
     ("gin_agg.cu", "gin_agg_fwd"), ("gin_agg.cu", "gin_agg_bwd"),
     ("attention_packed.cu", "attention_seg_fwd"),
-    ("attention_packed.cu", "attention_seg_bwd")])
+    ("attention_packed.cu", "attention_seg_bwd"),
+    ("flash_hil.cu", "flash_hil_fwd"), ("flash_hil.cu", "flash_hil_bwd"),
+    ("spmm.cu", "spmm_fwd"), ("spmm.cu", "spmm_bwd")])
 def test_bf16_entries_take_the_f32_entries_parameters(source, entry):
     """Each bf16 C entry has the f32 entry's parameters, one for one (the
     wrappers give it the f32 entry's argtypes), its float tensors bf16."""

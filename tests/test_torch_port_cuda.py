@@ -2910,8 +2910,8 @@ def test_attention_seg_bf16_kernels_match_plain(cuda, case, rate):
     serve64 batch, against their plain bf16 versions (the same masks): out
     within BF16_OUT_TOL, dqkv within BF16_GRAD_TOL of max(1, max|plain|);
     the serving launch's bits; padding tokens exactly 0; the same bits on
-    two runs; counted as tile_bf16; rows of 129 or more refused (slice
-    10)."""
+    two runs; counted as tile_bf16; rows of 129 or more take the long
+    bf16 instance (counted as long_bf16)."""
     H, seed = 4, 2**31 - 13
     qkv, seg = _k2_bf16_case(case, cuda)
     q16 = qkv.to(BF16)
@@ -2940,8 +2940,10 @@ def test_attention_seg_bf16_kernels_match_plain(cuda, case, rate):
     if rate == 0.0:
         assert torch.equal(attention_seg(q16, seg, H), out)
     wide, wseg = _k2_segments(384, cuda)
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        attention_seg(wide.to(BF16), wseg, H)
+    l0, t0 = (attention_seg.instances[k] for k in ("long_bf16", "tile_bf16"))
+    attention_seg(wide.to(BF16), wseg, H)   # rows of 384: the long instance
+    assert attention_seg.instances["long_bf16"] == l0 + 1
+    assert attention_seg.instances["tile_bf16"] == t0
 
 
 @pytest.mark.cuda
@@ -2975,6 +2977,200 @@ def test_bf16_train_step_kernels_match_plain(cuda, deterministic):
             assert gin_agg_bwd.instances == {"f32": 0, "bf16": 3}
             assert attention_seg.instances["tile_bf16"] == 2
             assert attention_seg_bwd.instances["tile_bf16"] == 2
+    (lk, gk), (lp, gp) = out
+    assert lk.dtype == torch.float32
+    assert abs(lk.item() - lp.item()) <= 2e-2 * max(1.0, abs(lp.item()))
+    for name in gk:
+        assert gk[name].dtype == torch.float32, name
+        assert _rel_bf16(gk[name], gp[name]) <= 5e-2, name
+
+
+# ---- the code2 bf16 step: K2's long pair, K3, K3-bwd, K7, K7-bwd in bf16 --
+
+# rows of 256 and 384 whose segments cross the 16-token tiles and the long
+# bodies' 64-token tiles and chunks: single tokens, 15, 17, 63, 65, 129,
+# an id in two runs, padding gaps, an all-padding row
+K2_LONG_ROWS = {
+    256: [[1, 15, 17, 63, 65, 94, (1, -1)], [256], [(256, -1)],
+          [(40, 7), 17, (40, 7), 64, (95, -1)]],
+    384: [[129, 128, (127, -1)], [1, 15, 17, 63, 65, 129, 94],
+          [(150, 7), 100, (100, 7), (34, -1)], [(384, -1)]],
+}
+
+
+def _k2_long_case(W, cuda):
+    seg = torch.full((len(K2_LONG_ROWS[W]), W), -1, dtype=torch.int32)
+    g = 1000
+    for r, runs in enumerate(K2_LONG_ROWS[W]):
+        s = 0
+        for run in runs:
+            n, gid = run if isinstance(run, tuple) else (run, None)
+            if gid != -1:
+                seg[r, s:s + n] = g if gid is None else gid
+            g, s = g + 1, s + n
+    gen = torch.Generator().manual_seed(W + 7)
+    return (torch.randn(len(seg), W, 384, generator=gen).to(cuda, BF16),
+            seg.to(cuda))
+
+
+def _bf16_pair_check(fwd, bwd, plain, bwd_plain, qkv, seg, H, rate, seed,
+                     counters, inst):
+    """Forward with statistics and backward twice (the same bits), the
+    serving launch's bits, padding exactly 0, counts by instance, and the
+    plain bf16 versions within BF16_OUT_TOL and BF16_GRAD_TOL."""
+    g = torch.randn(qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3,
+                    generator=torch.Generator().manual_seed(9)).to(
+                        qkv.device, BF16)
+    before = [c.instances[inst] for c in counters]
+    runs = []
+    for _ in range(2):
+        out, m, l = fwd(qkv, seg, H, rate, seed)
+        runs.append((out, m, l, bwd(qkv, seg, H, g, (out, m, l), rate, seed)))
+    torch.cuda.synchronize()
+    assert [c.instances[inst] for c in counters] == [b + 2 for b in before]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    out, m, l, dqkv = runs[0]
+    assert out.dtype == dqkv.dtype == BF16
+    assert m.dtype == l.dtype == torch.float32
+    assert _rel_bf16(out, plain(qkv, seg, H, rate, seed)) <= BF16_OUT_TOL
+    assert _rel_bf16(dqkv, bwd_plain(qkv, seg, H, g, rate, seed)) \
+        <= BF16_GRAD_TOL
+    pad = seg < 0
+    assert not out[pad].any() and not dqkv[pad].any()
+    assert (m[pad] == -float("inf")).all() and not l[pad].any()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [256, 384])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_attention_seg_long_bf16_kernels_match_plain(cuda, W, rate):
+    """K2 and K2-bwd's long bf16 instance (rows of 129-384: the bf16 long
+    forward, p normalised before it is rounded, and the bf16 long pair,
+    delta summed from the pairs) on segments that cross the 16- and
+    64-token tiles, an id in two runs and an all-padding row, against the
+    plain bf16 versions (the same masks): out within BF16_OUT_TOL, dqkv
+    within BF16_GRAD_TOL of max(1, max|plain|); padding tokens exactly 0
+    (m = -inf, l = 0); the same bits on two runs and from the serving
+    launch; counted as long_bf16."""
+    qkv, seg = _k2_long_case(W, cuda)
+    out = _bf16_pair_check(attention_seg_with_stats, attention_seg_bwd,
+                           attention_seg_plain, attention_seg_bwd_plain, qkv,
+                           seg, 4, rate, 2**31 - 29,
+                           (attention_seg, attention_seg_bwd), "long_bf16")
+    if rate == 0.0:
+        assert torch.equal(attention_seg(qkv, seg, 4), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["512", "1024", "straddle1024",
+                                  "straddle448"])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_flash_hil_bf16_kernels_match_plain(cuda, case, rate):
+    """K3 and K3-bwd's bf16 instances (the bf16 long forward's online
+    softmax, its unnormalised p rounded before P V; the bf16 long pair,
+    delta = dO . O) on segments of 1, 64, 385 and 1024 tokens, an id in two
+    runs, all-padding rows and segments straddling the 64-token tiles,
+    against the plain bf16 versions (the same masks): within BF16_OUT_TOL
+    and BF16_GRAD_TOL; padding exactly 0; the same bits on two runs and
+    from the serving launch; counted as bf16."""
+    from graphtrans_tpu_torch.ops.kernels import (flash_hil_seg,
+                                                  flash_hil_seg_bwd,
+                                                  flash_hil_seg_bwd_plain,
+                                                  flash_hil_seg_plain)
+    from graphtrans_tpu_torch.ops.kernels.flash_hil import (
+        flash_hil_seg_with_stats)
+
+    if case.startswith("straddle"):
+        qkv, seg = _k3_straddle_case(int(case[8:]), cuda)
+    else:
+        qkv, seg = _k3_segments(int(case), cuda)
+    qkv = qkv.to(BF16)
+    out = _bf16_pair_check(flash_hil_seg_with_stats, flash_hil_seg_bwd,
+                           flash_hil_seg_plain, flash_hil_seg_bwd_plain, qkv,
+                           seg, 4, rate, 2**31 - 31,
+                           (flash_hil_seg, flash_hil_seg_bwd), "bf16")
+    if rate == 0.0:
+        assert torch.equal(flash_hil_seg(qkv, seg, 4), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [300, 128, 42])
+@pytest.mark.parametrize("message", ["relu_add", "add"])
+@pytest.mark.parametrize("weight", [None, "f32", "bf16"])
+def test_spmm_bf16_kernels_match_plain(cuda, d, message, weight):
+    """K7 and K7-bwd's bf16 instances (x, emb and g bf16, the weight f32 or
+    the bf16 GCN norm widened; sums in float32, out, dx and d_emb rounded
+    once) against their plain bf16 versions at 4 channels a thread (d 300,
+    128) and 1 (d 42): out within BF16_OUT_TOL, dx and d_emb within
+    BF16_GRAD_TOL of max(1, max|plain|); rows with no valid edge and the
+    masked edges' d_emb rows exactly 0; counted as bf16."""
+    from graphtrans_tpu_torch.ops.kernels import (SrcOrder, spmm, spmm_bwd,
+                                                  spmm_bwd_plain, spmm_plain)
+
+    x, emb, src, dst, mask, w = _k7_case(d, cuda)
+    x, emb = x.to(BF16), emb.to(BF16)
+    w = None if weight is None else w.to(BF16 if weight == "bf16"
+                                         else torch.float32)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(d)).to(
+        cuda, BF16)
+    order = SrcOrder(src, mask, x.shape[0])
+    f0, b0 = spmm.instances["bf16"], spmm_bwd.instances["bf16"]
+    got = spmm(x, emb, src, dst, mask, w, message)
+    dx, demb = spmm_bwd(x, emb, src, dst, mask, g, order, w, message)
+    torch.cuda.synchronize()
+    assert spmm.instances["bf16"] == f0 + 1
+    assert spmm_bwd.instances["bf16"] == b0 + 1
+    assert got.dtype == dx.dtype == demb.dtype == BF16
+    assert _rel_bf16(got, spmm_plain(x, emb, src, dst, mask, w, message)) \
+        <= BF16_OUT_TOL
+    wdx, wdemb = spmm_bwd_plain(x, emb, src, dst, mask, g, w, message)
+    assert _rel_bf16(dx, wdx) <= BF16_GRAD_TOL
+    assert _rel_bf16(demb, wdemb) <= BF16_GRAD_TOL
+    assert not got[x.shape[0] - 500:].any()      # rows with no valid edge
+    assert not demb[~mask].any()
+
+
+@pytest.mark.cuda
+def test_code2_bf16_train_step_kernels_match_plain(cuda, deterministic):
+    """One bf16 AdamW step of the code2 model (attention dropout 0.3, the
+    same seeds) through the bf16 kernels against the plain bf16 versions:
+    the loss within 2e-2 of max(1, |ref|), the float32 gradients within
+    5e-2 of max(1, max|ref|) (the bounds the CPU step test holds the port
+    to against the JAX package); every K2, K3 and K7 launch and every
+    backward launch the bf16 instance."""
+    from graphtrans_tpu_torch.nn.dropout import Generators
+    from graphtrans_tpu_torch.ops.kernels import (flash_hil_seg,
+                                                  flash_hil_seg_bwd,
+                                                  reset_launches, spmm,
+                                                  spmm_bwd)
+    from graphtrans_tpu_torch.train.losses import seq_token_loss
+    from graphtrans_tpu_torch.train.optim import build_optimizer
+    from graphtrans_tpu_torch.trainers.base_trainer import make_train_step
+
+    batch, num_tasks = _code2_batch(seed=2)
+    b = batch.to(cuda)
+    args = argparse.Namespace(lr=1e-4, weight_decay=0.0, grad_clip=None,
+                              scheduler=None, epochs=1)
+    out = []
+    for kernels in (True, False):
+        model = set_kernels(_code2_train_model(num_tasks, cuda), kernels)
+        step = make_train_step(model, seq_token_loss,
+                               build_optimizer(model, args, 1),
+                               Generators.seeded(11, cuda), "bf16")
+        reset_launches()
+        loss = step(b)
+        out.append((loss, {n: p.grad.clone() for n, p in
+                           model.named_parameters()}))
+        if kernels:
+            for fn, n in ((spmm, 3), (spmm_bwd, 3), (flash_hil_seg, 2),
+                          (flash_hil_seg_bwd, 2)):
+                assert fn.instances == {"f32": 0, "bf16": n}, fn.__name__
+            for fn in (attention_seg, attention_seg_bwd):
+                assert fn.instances["tile"] == fn.instances["long"] == 0
+                assert fn.launches == (fn.instances["tile_bf16"]
+                                       + fn.instances["long_bf16"])
     (lk, gk), (lp, gp) = out
     assert lk.dtype == torch.float32
     assert abs(lk.item() - lp.item()) <= 2e-2 * max(1.0, abs(lp.item()))

@@ -99,8 +99,9 @@ def test_k3_forward_launch_is_the_long_forward(W):
     """K3's forward at code2's tiers of 512 and 1024 and at a wider row: the
     long forward's launch at hd 32, a block of 128 threads (four warps of
     16 queries) per (row, head, 64 queries), four blocks' shared memory an
-    SM; its C entry launches only flash_hil_fwd_long_kernel, after
-    attn::long_fwd_launch_ok, and the per-query kernel it replaced is
+    SM; its f32 C entry launches only flash_hil_fwd_long_kernel, after
+    attn::long_fwd_launch_ok (the bf16 entry its own kernel, after
+    attn::long16_launch_ok), and the per-query kernel it replaced is
     gone."""
     R, nhead = 15, 4
     geo = fh.fwd_geometry(R, W, nhead)
@@ -113,7 +114,9 @@ def test_k3_forward_launch_is_the_long_forward(W):
     src = (CSRC / "flash_hil.cu").read_text()
     assert "attn::long_fwd_launch_ok(L, R, W, H, 32)" in src
     assert "attn::long_fwd<HD, DROP, STATS>" in src
-    assert src.count("<<<") == 1 and "flash_hil_fwd_long_kernel" in src
+    assert src.count("<<<") == 2 and "flash_hil_fwd_long_kernel" in src
+    assert "flash_hil_fwd_bf16_kernel" in src
+    assert "attn::long16_launch_ok(L, R, W, H, attn::long16_bytes())" in src
     for gone in ("flash_hil_fwd_kernel", "block_range", " BQ = ", " BK = "):
         assert gone not in src
 
