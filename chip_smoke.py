@@ -184,19 +184,29 @@ Phases, each printing one line (any failure raises and exits non-zero):
      instance); (c) a bf16 step against the plain versions; (d) the
      4096-graph train step in f32 and bf16 in turns, profiled.
  15. (a) K2's long instance (code2's tier of 384), K3, K7 and their
-     backwards in bf16 (the bf16 long forward and long pair: bf16 rows, a
-     warp 16 rows whole, bf16 mma.sync; K7 and K7-bwd with float32 sums)
+     backwards in bf16 (the bf16 long forward: query tiles inside one
+     graph's run, K2's keys staged once, K3's through a ring of chunks;
+     the bf16 long pair; bf16 mma.sync; K7 and K7-bwd with float32 sums)
      against their plain bf16 versions at the code2 snapshot's train
-     batch of 16 and bench512, timed as the bf16 step calls them beside
-     the f32 instance in turns, bound, plain version and, for K2 and K3,
-     SDPA in bf16 (with ``--baseline``: the f32 long launches of K2, K3,
-     K5 and K9 and the f32 K7 and K7-bwd held to the parent's bits); (b)
-     trains the code2 GraphTrans yml in bf16 through main (every K2, K3
-     and K7 launch and every backward launch the bf16 instance, counted by
-     instance); (c) the saved float32 masters served by predict, and a
-     bf16 step against the plain versions under deterministic algorithms;
-     (d) the 512-graph code2 train step in f32 and bf16 in turns,
-     profiled.
+     batch of 16 and bench512 (padding 0, m = -inf, l = 0), timed as the
+     bf16 step calls them beside the f32 instance in turns (the forwards
+     also beside, with ``--baseline``, the parent's bf16 forward; K2 and
+     K3 by ``queued_ms``, a call at a time behind a sleep, cold L2, so
+     that the host's pace does not set their time at the batch of 16;
+     also back to back), bound, plain version and, for
+     K2 and K3, SDPA in bf16; the forwards' residency (registers, shared
+     bytes, blocks an SM; no spills, or it fails); with ``--baseline``
+     the forwards' largest
+     difference from the parent's, the f32 long launches of K2, K3, K5
+     and K9, the f32 K7 and K7-bwd, and the bf16 long pair given this
+     forward's out, m and l held to the parent's bits; (b) trains the
+     code2 GraphTrans yml in bf16 through main (every K2, K3 and K7 launch
+     and every backward launch the bf16 instance, counted by instance);
+     (c) the saved float32 masters served by predict, and a bf16 step
+     against the plain versions under deterministic algorithms; (d) the
+     512-graph code2 train step in f32 and bf16 in turns (with
+     ``--baseline`` also the bf16 step on the parent's K2 and K3
+     forwards), profiled, with the K2 and K3 forwards' share.
 Then the script's wall seconds, a {"kernels": [...]} line, the nvidia-smi
 line, and the contract line
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without
@@ -362,13 +372,14 @@ def load_baseline(root):
     return mods
 
 
-def rounds_ms(fns, iters: int):
-    """ms of each of ``fns`` timed in turns: each in order, then in reverse
-    order, the mean of its two ``time_ms``; None where ``fns`` has None."""
+def rounds_ms(fns, iters: int, timer=time_ms):
+    """ms of each of ``fns`` timed in turns by ``timer``: each in order,
+    then in reverse order, the mean of its two times; None where ``fns`` has
+    None."""
     live = [f for f in fns if f is not None]
     got = {}
     for f in live + live[::-1]:
-        got.setdefault(id(f), []).append(time_ms(f, iters=iters))
+        got.setdefault(id(f), []).append(timer(f, iters=iters))
     return [None if f is None else statistics.mean(got[id(f)]) for f in fns]
 
 
@@ -658,22 +669,24 @@ def k6_bwd_instances() -> str:
     return f"; K6-bwd by instance {n}" if n else ""
 
 
-def sdpa_mask_ms(qkv, mask, nhead: int, iters: int = 20) -> float:
+def sdpa_mask_ms(qkv, mask, nhead: int, iters: int = 20,
+                 timer=time_ms) -> float:
     """Yardstick only: torch's scaled_dot_product_attention with a boolean
-    mask [B, 1, S or 1, S] on the same inputs (never called by the port)."""
+    mask [B, 1, S or 1, S] on the same inputs (never called by the port),
+    timed by ``timer``."""
     B, S, d3 = qkv.shape
     d = d3 // 3
     q, k, v = (t.reshape(B, S, nhead, d // nhead).transpose(1, 2).contiguous()
                for t in qkv.split(d, dim=-1))
     f = torch.nn.functional.scaled_dot_product_attention
-    return time_ms(lambda: f(q, k, v, attn_mask=mask), iters=iters)
+    return timer(lambda: f(q, k, v, attn_mask=mask), iters=iters)
 
 
-def sdpa_ms(qkv, seg, nhead: int) -> float:
+def sdpa_ms(qkv, seg, nhead: int, timer=time_ms) -> float:
     """``sdpa_mask_ms`` with the segment mask of K2 and K3."""
     mask = ((seg[:, :, None] == seg[:, None, :])
             & (seg >= 0)[:, None, :])[:, None]
-    return sdpa_mask_ms(qkv, mask, nhead)
+    return sdpa_mask_ms(qkv, mask, nhead, timer=timer)
 
 
 def print_k1_launch(name: str, args, device, gin_agg, base=None):
@@ -924,6 +937,7 @@ def _print_split(tag: str, what: str, prof, n: int, wall: float, smi: str,
         print(f"{tag}   {layer:32s} {ms:9.3f} ms  {ms / busy:6.1%}")
     for name, ms, cnt in sorted(kernels, key=lambda k: -k[1])[:10]:
         print(f"{tag}   top {ms:9.3f} ms {cnt:5.0f}x  {name[:100]}")
+    return busy, by_layer
 
 
 # ---- phase 6: training -----------------------------------------------------
@@ -1043,18 +1057,19 @@ def k3_bwd_bound(qkv, seg, nhead: int, tensor_cores: bool = True):
     return _tc_bound(nbytes, 3 * pairs * 10 * hd, pairs * 8)
 
 
-def sdpa_bwd_ms(qkv, seg, nhead: int, g, rate: float) -> float:
+def sdpa_bwd_ms(qkv, seg, nhead: int, g, rate: float,
+                timer=time_ms) -> float:
     """``sdpa_bwd_mask_ms`` with the segment mask of K2 and K3."""
     mask = ((seg[:, :, None] == seg[:, None, :])
             & (seg >= 0)[:, None, :])[:, None]
-    return sdpa_bwd_mask_ms(qkv, mask, nhead, g, rate, iters=10)
+    return sdpa_bwd_mask_ms(qkv, mask, nhead, g, rate, iters=10, timer=timer)
 
 
 def sdpa_bwd_mask_ms(qkv, mask, nhead: int, g, rate: float,
-                     iters: int = 3) -> float:
+                     iters: int = 3, timer=time_ms) -> float:
     """Yardstick only: the backward of torch's scaled_dot_product_attention
     with a boolean mask and the same dropout rate on the same inputs (never
-    called by the port)."""
+    called by the port), timed by ``timer``."""
     B, S, d3 = qkv.shape
     d = d3 // 3
     heads = lambda t: t.reshape(B, S, nhead, d // nhead).transpose(1, 2)
@@ -1064,9 +1079,9 @@ def sdpa_bwd_mask_ms(qkv, mask, nhead: int, g, rate: float,
     with torch.enable_grad():
         out = torch.nn.functional.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, dropout_p=rate)
-        return time_ms(lambda: torch.autograd.grad(out, (q, k, v), gh,
-                                                   retain_graph=True),
-                       iters=iters)
+        return timer(lambda: torch.autograd.grad(out, (q, k, v), gh,
+                                                 retain_graph=True),
+                     iters=iters)
 
 
 def time_k2_train(qkv, seg, nhead: int, g, seed: int, base=None):
@@ -5276,7 +5291,8 @@ def check_attn_bf16(name: str, fwd, bwd, plain, bwd_plain, qkv, seg,
     """A bf16 attention pair (K2's long instance, K3) at rate 0 and the
     training rate against its plain bf16 version (the same masks):
     relative errors (forward, backward); outputs bf16, padding tokens
-    exactly 0, and at rate 0 the serving launch's bits (``serve``)."""
+    exactly 0 with m = -inf and l = 0, and at rate 0 the serving launch's
+    bits (``serve``)."""
     f_err = b_err = 0.0
     for rate, seed in ((0.0, 0), (DROPOUT, 24681357)):
         out, m, l = fwd(qkv, seg, nhead, rate, seed)
@@ -5287,8 +5303,11 @@ def check_attn_bf16(name: str, fwd, bwd, plain, bwd_plain, qkv, seg,
         torch.cuda.synchronize()
         if out.dtype != BF16 or dqkv.dtype != BF16:
             raise AssertionError(f"{name} bf16: outputs are not bf16")
-        if out[seg < 0].any() or dqkv[seg < 0].any() or not same:
-            raise AssertionError(f"{name} bf16: padding tokens not 0, or the "
+        pad = seg < 0
+        if (out[pad].any() or dqkv[pad].any() or not same
+                or not (m[pad] == -math.inf).all() or l[pad].any()):
+            raise AssertionError(f"{name} bf16: padding tokens not 0 (or "
+                                 f"their m not -inf, l not 0), or the "
                                  f"serving launch differs from the training "
                                  f"one")
         f_err = max(f_err, _rel_err(out, plain(qkv, seg, nhead, rate, seed)))
@@ -5667,6 +5686,31 @@ def k3_bf16_bwd_bound(qkv, seg, nhead: int):
     return _tc_bound(nbytes, pairs * 10 * hd, pairs * 8, BF16_TC_FLOPS)
 
 
+def fwd16_residency(mod, entry: str, smem: int) -> dict:
+    """The residency of a bf16 long forward's training instance from its
+    C entry ``entry`` in the library of kernel module ``mod``: registers
+    and local (spilled) bytes a thread and blocks an SM at ``smem`` shared
+    bytes a block. Raises if it spills."""
+    import ctypes
+
+    from graphtrans_tpu_torch.ops.kernels import _build
+
+    lib = mod._load()
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    got = [ctypes.c_int(0) for _ in range(3)]
+    _build.check(lib, fn(smem, *(ctypes.cast(ctypes.pointer(v),
+                                             ctypes.c_void_p) for v in got)),
+                 entry)
+    r = dict(zip(("regs", "local_bytes", "blocks_per_sm"),
+                 (v.value for v in got)), smem=smem)
+    if r["local_bytes"]:
+        raise AssertionError(f"{entry}: {r['local_bytes']} local bytes a "
+                             f"thread (spills)")
+    return r
+
+
 def long_f32_bits(device, gen, base, checked: list):
     """Under ``--baseline``: the f32 long launches of K5 (code2's rows of
     1001: a key prefix and the CLS key) and K9 (its long instance at S
@@ -5735,7 +5779,14 @@ def phase15_kernels(device, d_gnn: int, d_model: int, nhead: int, bench,
     from graphtrans_tpu_torch.ops.kernels.flash_hil import (
         flash_hil_seg_with_stats)
 
+    from graphtrans_tpu_torch.ops.kernels import attention_packed, flash_hil
+
     gen = torch.Generator().manual_seed(SEED + 15)
+    resid16 = {"k2": (attention_packed,
+                      "attention_seg_fwd_long_bf16_residency", True),
+               "k3": (flash_hil, "flash_hil_fwd_bf16_residency", False)}
+    n_sms = torch.cuda.get_device_properties(device).multi_processor_count
+    smi = _smi()
     args = _code2_args()
     splits, num_tasks, _ = predict.load_splits(args)
     train16 = next(iterate_batches(splits["train"], **predict.serving_layout(
@@ -5777,25 +5828,46 @@ def phase15_kernels(device, d_gnn: int, d_model: int, nhead: int, bench,
             g32 = g16.float()
             f = dict(plain_ms=time_ms(lambda: plain(q16, sg, nhead, DROPOUT,
                                                     seed), iters=3),
-                     library_ms=sdpa_ms(q16, sg, nhead))
-            f["ms"], f["f32_ms"] = rounds_ms([
-                lambda: fwd(q16, sg, nhead, DROPOUT, seed),
-                lambda: fwd(q, sg, nhead, DROPOUT, seed)], 20)
+                     library_ms=sdpa_ms(q16, sg, nhead, queued_ms))
+            old = base[dkind] if base else None
+            ofwd = getattr(old, fwd.__name__) if old else None
+            # in turns: this forward, the f32 instance and the parent's
+            # bf16 forward (--baseline), each call queued behind a sleep
+            # (at the batch of 16 the host takes longer to make a call than
+            # the card to run it); back to back, as the host makes them,
+            # beside
+            fns = [lambda: fwd(q16, sg, nhead, DROPOUT, seed),
+                   lambda: fwd(q, sg, nhead, DROPOUT, seed),
+                   ofwd and (lambda: ofwd(q16, sg, nhead, DROPOUT, seed))]
+            f["ms"], f["f32_ms"], f["parent_ms"] = rounds_ms(fns, 20,
+                                                             queued_ms)
+            f["paced_ms"] = time_ms(fns[0], iters=20)
             f["bound_ms"], f["bound_by"] = k2_bf16_bound(q16, sg, nhead)
             s16 = fwd(q16, sg, nhead, DROPOUT, seed)
             s32 = fwd(q, sg, nhead, DROPOUT, seed)
+            mod, entry, norm = resid16[key]
+            f["residency"] = fwd16_residency(
+                mod, entry, attention_packed.long16_fwd_bytes(W, norm))
+            f["grid"] = (flash_hil.fwd_geometry(R, W, nhead, BF16) if key ==
+                         "k3" else attention_packed.seg_bf16_geometry(
+                             R, W, nhead, False)).grid
+            if ofwd:
+                # the largest difference of the training launch's output from
+                # the parent's (K3's p follows the chunk starts)
+                f["parent_diff"] = _rel_err(
+                    s16[0], ofwd(q16, sg, nhead, DROPOUT, seed)[0])
             bw = dict(plain_ms=_plain_bwd_ms(
                 lambda t: plain(t, sg, nhead, DROPOUT, seed), [q16], g16),
-                library_ms=sdpa_bwd_ms(q16, sg, nhead, g16, DROPOUT))
+                library_ms=sdpa_bwd_ms(q16, sg, nhead, g16, DROPOUT,
+                                       queued_ms))
             bw["ms"], bw["f32_ms"] = rounds_ms([
                 lambda: bwd(q16, sg, nhead, g16, s16, DROPOUT, seed),
-                lambda: bwd(q, sg, nhead, g32, s32, DROPOUT, seed)], 20)
+                lambda: bwd(q, sg, nhead, g32, s32, DROPOUT, seed)], 20,
+                queued_ms)
             bw["bound_ms"], bw["bound_by"] = (
                 k2_bf16_bwd_bound if key == "k2" else k3_bf16_bwd_bound)(
                     q16, sg, nhead)
             if base:
-                old = base[dkind]
-                ofwd = getattr(old, fwd.__name__)
                 obwd = getattr(old, bwd.__name__)
                 same_bits(f"{key.upper()} f32 training forward {name}",
                           lambda: fwd(q, sg, nhead, DROPOUT, seed),
@@ -5804,6 +5876,11 @@ def phase15_kernels(device, d_gnn: int, d_model: int, nhead: int, bench,
                           lambda: bwd(q, sg, nhead, g32, s32, DROPOUT, seed),
                           lambda: obwd(q, sg, nhead, g32, s32, DROPOUT, seed),
                           checked)
+                same_bits(f"{key.upper()}-bwd bf16 {name} (this forward's "
+                          f"out, m, l)",
+                          lambda: bwd(q16, sg, nhead, g16, s16, DROPOUT, seed),
+                          lambda: obwd(q16, sg, nhead, g16, s16, DROPOUT,
+                                       seed), checked)
             shape = f"R={R} W={W} d={d3 // 3} H={nhead} rate={DROPOUT}"
             f["shape"] = bw["shape"] = shape
             timed[key], timed[key + "b"] = f, bw
@@ -5847,10 +5924,32 @@ def phase15_kernels(device, d_gnn: int, d_model: int, nhead: int, bench,
             lib = ("-" if t["library_ms"] is None else
                    f"{t['library_ms']:.4f} ms (SDPA in bf16, bool seg mask"
                    f"{', backward' if key.endswith('b') else ''})")
+            parent = ("" if t.get("parent_ms") is None else
+                      f", the parent's bf16 forward {t['parent_ms']:.4f}")
+            queued = ("" if key == "k7" or key == "k7b" else
+                      ", each call queued, cold L2")
+            paced = ("" if t.get("paced_ms") is None else
+                     f"; back to back, as the host makes the calls, "
+                     f"{t['paced_ms']:.4f} ms a call")
             print(f"[15a] {name} {kname} bf16 [{t['shape']}]: kernel "
-                  f"{t['ms']:.4f} ms (the f32 instance {t['f32_ms']:.4f}, in "
-                  f"turns), plain bf16 {t['plain_ms']:.4f} ms, bound "
-                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library {lib}")
+                  f"{t['ms']:.4f} ms (the f32 instance {t['f32_ms']:.4f}"
+                  f"{parent}, in turns{queued}{paced}), plain bf16 "
+                  f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                  f"({t['bound_by']}), library {lib} on {smi}")
+            if "residency" in t:
+                r = t["residency"]
+                blocks = math.prod(t["grid"])
+                waves = blocks / (r["blocks_per_sm"] * n_sms)
+                print(f"[15a] {name} {kname} bf16 residency (training "
+                      f"launch): {r['regs']} registers a thread, "
+                      f"{r['local_bytes']} local bytes a thread (no "
+                      f"spills), {r['smem']} shared bytes a block, "
+                      f"{r['blocks_per_sm']} blocks an SM, {blocks} blocks "
+                      f"in {waves:.2f} waves")
+            if t.get("parent_diff") is not None:
+                print(f"[15a] {name} {kname} bf16: the training launch's "
+                      f"output differs from the parent's by at most "
+                      f"{t['parent_diff']:.3g} of max(1, max|parent|)")
         rows = timed
     if base:
         long_f32_bits(device, gen, base, checked)
@@ -6010,10 +6109,33 @@ def phase15_train(device, tmp: str, bench, bench_tasks: int):
     return launches, by_inst
 
 
-def phase15_cost(device, bench, num_tasks: int, smi: str):
+@contextlib.contextmanager
+def parent_forwards(base):
+    """The bf16 step with the parent's K2 and K3 forward kernels: this
+    tree's forward entries (``attention_seg_with_stats``,
+    ``flash_hil_seg_with_stats``, which the wrappers call) replaced by the
+    parent's for the duration; the backward kernels stay this tree's."""
+    from graphtrans_tpu_torch.ops.kernels import attention_packed, flash_hil
+
+    saved = (attention_packed.attention_seg_with_stats,
+             flash_hil.flash_hil_seg_with_stats)
+    attention_packed.attention_seg_with_stats = (
+        base["attention_packed"].attention_seg_with_stats)
+    flash_hil.flash_hil_seg_with_stats = (
+        base["flash_hil"].flash_hil_seg_with_stats)
+    try:
+        yield
+    finally:
+        (attention_packed.attention_seg_with_stats,
+         flash_hil.flash_hil_seg_with_stats) = saved
+
+
+def phase15_cost(device, bench, num_tasks: int, smi: str, base=None):
     """(d) The code2 train step on the 512-graph batch in f32 and in bf16
-    in turns (f32, bf16, bf16, f32): median ms, peak memory; then each
-    profiled: idle share and device time by layer."""
+    in turns (f32, bf16, bf16, f32; with ``base`` f32, the parent, bf16,
+    bf16, the parent, f32, "the parent" being the bf16 step on the parent's
+    K2 and K3 forward kernels): median ms, peak memory; then each profiled:
+    idle share, device time by layer, and the K2 and K3 forwards' share."""
     import types
 
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -6022,38 +6144,55 @@ def phase15_cost(device, bench, num_tasks: int, smi: str):
                                   max_seq_len=5)       # make_code_dataset's
     tb = bench.to(device)
     n = int(bench.graph_mask.sum())
-    runs, profiled = {"f32": [], "bf16": []}, set()
-    for prec in ("f32", "bf16", "bf16", "f32"):
+    order = (("f32", "parent", "bf16", "bf16", "parent", "f32") if base
+             else ("f32", "bf16", "bf16", "f32"))
+    runs, profiled = collections.defaultdict(list), set()
+    for what in order:
         args = _code2_train_args()
-        args.precision = prec
+        args.precision = "f32" if what == "f32" else "bf16"
         model, step = _trainer(args, num_tasks, device, data=sizes)
-        _median_ms(lambda: step(tb), 3)                     # warm-up
-        torch.cuda.reset_peak_memory_stats(device)
-        ms, lo, hi, loss = _median_ms(lambda: step(tb), TIMED_STEPS)
-        peak = torch.cuda.max_memory_allocated(device) / 2**30
-        if not torch.isfinite(loss):
-            raise AssertionError(f"code2 512-graph {prec} step: loss not "
-                                 f"finite")
-        runs[prec].append(ms)
-        print(f"[15d] code2 {prec} train step of {n} graphs: median "
-              f"{ms:.3f} ms over {TIMED_STEPS} (min {lo:.3f}, max {hi:.3f}), "
-              f"{n / ms * 1e3:.0f} graphs/s, peak memory {peak:.2f} GiB on "
-              f"{smi}")
-        if prec not in profiled:
-            profiled.add(prec)
-            with torch.profiler.profile(activities=acts) as prof:
-                t0 = time.perf_counter()
-                for _ in range(PROFILED_STEPS):
-                    step(tb)
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
-            _print_split("[15d]", f"code2 {prec} train step", prof,
-                         PROFILED_STEPS, wall, smi, graphs=n)
+        with (parent_forwards(base) if what == "parent"
+              else contextlib.nullcontext()):
+            _median_ms(lambda: step(tb), 3)                     # warm-up
+            torch.cuda.reset_peak_memory_stats(device)
+            ms, lo, hi, loss = _median_ms(lambda: step(tb), TIMED_STEPS)
+            peak = torch.cuda.max_memory_allocated(device) / 2**30
+            if not torch.isfinite(loss):
+                raise AssertionError(f"code2 512-graph {what} step: loss not "
+                                     f"finite")
+            runs[what].append(ms)
+            label = ("bf16 (the parent's K2, K3 forwards)" if what == "parent"
+                     else what)
+            print(f"[15d] code2 {label} train step of {n} graphs: median "
+                  f"{ms:.3f} ms over {TIMED_STEPS} (min {lo:.3f}, max "
+                  f"{hi:.3f}), {n / ms * 1e3:.0f} graphs/s, peak memory "
+                  f"{peak:.2f} GiB on {smi}")
+            if what not in profiled:
+                profiled.add(what)
+                with torch.profiler.profile(activities=acts) as prof:
+                    t0 = time.perf_counter()
+                    for _ in range(PROFILED_STEPS):
+                        step(tb)
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+                busy, by_layer = _print_split("[15d]", f"code2 {label} train "
+                                              f"step", prof, PROFILED_STEPS,
+                                              wall, smi, graphs=n)
+                print(f"[15d] code2 {label} train step: K2 forward "
+                      f"{by_layer['K2 attention_seg']:.3f} ms "
+                      f"({by_layer['K2 attention_seg'] / busy:.1%} of busy), "
+                      f"K3 forward {by_layer['K3 flash_hil_seg']:.3f} ms "
+                      f"({by_layer['K3 flash_hil_seg'] / busy:.1%})")
         del model, step
         torch.cuda.empty_cache()
     f32, bf = statistics.mean(runs["f32"]), statistics.mean(runs["bf16"])
     print(f"[15d] code2 train{CODE2_BENCH}: bf16 {bf:.3f} ms against f32 "
           f"{f32:.3f} ms in turns ({f32 / bf:.3f}x) on {smi}")
+    if base:
+        par = statistics.mean(runs["parent"])
+        print(f"[15d] code2 train{CODE2_BENCH} bf16: {bf:.3f} ms against "
+              f"{par:.3f} ms on the parent's K2 and K3 forwards in turns "
+              f"({par / bf:.3f}x) on {smi}")
 
 
 def main(argv=None) -> int:
@@ -6069,9 +6208,11 @@ def main(argv=None) -> int:
                         "K7-bwd, K8, K8-dx, K9, K9-bwd, K10, K10-bwd also "
                         "bit for bit; K6 its largest difference), and "
                         "whose bf16 K2 pair phase 14a times (its f32 K2 "
-                        "pair bit for bit), and whose f32 long launches of "
-                        "K2, K3, K5 and K9 and f32 K7 and K7-bwd phase 15a "
-                        "holds to its bits")
+                        "pair bit for bit), whose f32 long launches of "
+                        "K2, K3, K5 and K9, f32 K7 and K7-bwd and bf16 long "
+                        "pair phase 15a holds to its bits, and whose bf16 "
+                        "long forwards phase 15a and 15d time beside this "
+                        "tree's")
     opts = p.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -6182,7 +6323,7 @@ def main(argv=None) -> int:
                                  args.nhead, bench, base)
     with tempfile.TemporaryDirectory() as tmp:
         _, c2_instances = phase15_train(device, tmp, bench, bench_tasks)
-    phase15_cost(device, bench, bench_tasks, smi)
+    phase15_cost(device, bench, bench_tasks, smi, base)
 
     k1, k2 = timing["timed"]
     k1b, k2b = train["timed"]

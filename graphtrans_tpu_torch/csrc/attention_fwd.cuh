@@ -339,153 +339,429 @@ __device__ __forceinline__ void long_fwd(const float* __restrict__ qkv,
 // MXU pass): the online softmax's unnormalised p = exp(s - m_running),
 // dropped and rescaled, rounded to bf16 before P V, the accumulator
 // rescaled by alpha = exp(m_old - m_new) in float32 and normalised by 1/l
-// in float32 at the end, then rounded once.
+// in float32 at the end, then rounded once. A query with no key writes
+// exact zeros, m = -inf and l = 0.
 //
-// The design: the long f32 forward's cut (a block per (row, head, 64
-// queries), the keys whose tag meets one of the tile's ranked by a
-// block-wide prefix count and gathered 64 at a time) with the bf16 tile
-// instance's products: bf16 rows by cp.async, a warp owns 16 query rows
-// whole (their scores for a chunk of 64 keys, 32 floats a thread, their
-// softmax and O in registers), every product one bf16 mma.sync m16n8k16
-// with float32 sums, p moved from the score accumulators into the A
-// fragment of P V in registers. Shared memory as the bf16 long pair's
-// (long16_bytes(), under 48 KB).
+// What bounds them on the H100: at code2's bench512 the products are a few
+// GFLOP (microseconds on the bf16 tensor cores) and the bytes a few MB
+// (~10 us at 3.35 TB/s); what is left is instruction throughput and
+// latency: an exp and a dropout hash of a dozen integer operations a pair
+// on the SM's scalar pipes, and the chains of scores, row reductions by
+// shuffles and P V a chunk. The first body took 0.14-0.16 ms there: it
+// ranked a tile's keys by a block-wide prefix count, listed them again
+// from device memory for every chunk of 64, waited for each chunk's
+// gather in one buffer behind three barriers, staged both graphs' keys for
+// a tile that straddled two, gathered K2's keys twice, and hashed each
+// pair from scratch.
+//
+// The design. A block of four warps per (row, head, tile slot); a warp
+// owns 16 query rows whole (their scores for a chunk of 64 keys, their
+// softmax and O in registers; every product a bf16 mma.sync m16n8k16 with
+// float32 sums, p moved from the score accumulators into the A fragment of
+// P V). The block reads the row's tags into shared memory and finds its
+// runs of one graph id (tile::find_runs, as K2's tile bodies do; no host
+// synchronisation). A row whose ids each form one run (ops/pack.py packs
+// each graph and its CLS as one run) is cut by runs: a run of n tokens into
+// ceil(n / 64) query tiles, which the row's Z slots take in turn
+// (slot z tiles z, z + Z, ...; Z is one more than the row's positional
+// tiles, so a row of two runs still takes one tile a slot). A tile's keys
+// are its run's tokens, a box of consecutive rows copied by 16-byte
+// cp.async, and every pair of the tile meets: a whole chunk (all but a
+// run's last) takes no mask and no bounds check. Each slot also writes the
+// zeros of its share of the row's padding tokens. A row where some id forms
+// two runs (fwd16_general, out of line) keeps the positional tiles and, as
+// before, the keys whose tag lies between the tile's least and greatest
+// query tag, masked pair by pair: their token indices by rank are listed
+// once a tile in shared memory. K2's keys (rows of at most 384) are staged
+// whole, each chunk of 64 of K its own cp.async group and V behind them:
+// the first sweep (m and l) takes chunk c as soon as it has landed, one
+// barrier a chunk; the second (P V, a 16-key tile at a time) reads shared
+// memory only, with no barrier, so each key is gathered once. K3's
+// keys stream through a ring of FWD16_STAGES chunk buffers: chunks c + 1
+// and c + 2 load while chunk c's scores and P V run, one barrier a chunk.
+// exp(s - m) is one FFMA and the SFU's ex2 (exp_ml); the dropout hash of a
+// pair is its row's part plus its key's (the mask policy's Split), a key's
+// part shared by a thread's two rows. Chunks start at the run's first
+// token; K3's p is rounded against the running max, so its bits follow
+// those starts. Residency: no spills; K2 takes up to 168 registers a
+// thread (its shared memory allows three blocks an SM at W 384), K3 as
+// many with dropout (three blocks) and 128 without (four).
 
-// One block of LONG16_THREADS per (row, head, T queries): out, and with
-// STATS m and l [B, S, H] (m = -inf, l = 0 for a query with no key, whose
-// output is exact zeros).
-template <bool NORM, bool DROP, bool STATS, class Tags, class Keep>
-__device__ __forceinline__ void long_fwd16(const tile::bf16* __restrict__ qkv,
-                                           Tags tags,
-                                           tile::bf16* __restrict__ out,
-                                           float* __restrict__ stat_m,
-                                           float* __restrict__ stat_l, int S,
-                                           int d, float scale, Keep keep) {
-  using namespace lr;
-  using tile::bf16;
-  constexpr int HD = LONG16_HD;
-  constexpr float M0 = -1e30f;  // the running max before the first key
-  extern __shared__ float4 smem4[];
-  const Tiles16 s(smem4);
-  const long b = blockIdx.x;
-  const int h = blockIdx.y, H = gridDim.y, t = threadIdx.x;
-  const int q0 = blockIdx.z * T, nq = min(T, S - q0);
-  const long d3 = 3L * d, base = b * S;
-  const bf16* row = qkv + base * d3 + h * HD;
+constexpr int FWD16_STAGES = 3;  // K3's ring: chunk buffers of K and V
+constexpr int FWD16_MISC = 16;   // ints of a block's scratch
 
-  int tag = -1;
-  if (t < T) {
-    tag = t < nq ? tags.qtag(base, q0 + t) : -1;
-    s.otag[t] = tag;
+// Key rows (K and V) a block stages: K2 (NORM) a row's keys whole, K3 its
+// ring.
+__host__ __device__ constexpr int fwd16_key_rows(int W, bool norm) {
+  return norm ? (W + LONG_T - 1) / LONG_T * LONG_T : FWD16_STAGES * LONG_T;
+}
+
+
+// Shared bytes of a block on rows of W tokens: Q, K and V as bf16 rows of
+// LONG16_LD; per staged key its tag; the row's tags and a -1 past them; its
+// runs' first tokens and lengths (the key list, in a row where an id forms
+// two runs); the scratch.
+__host__ __device__ constexpr int fwd16_bytes(int W, bool norm) {
+  return (LONG_T + 2 * fwd16_key_rows(W, norm)) * LONG16_LD * 2 +
+         (fwd16_key_rows(W, norm) + 3 * W + 1 + FWD16_MISC) * 4;
+}
+
+// A wrapper's launch of the bf16 long forward: a block of LONG16_THREADS
+// per (row, head, tile slot), ceil(W / LONG_T) + 1 slots a row.
+__host__ inline bool fwd16_launch_ok(const tile::Launch& L, int B, int W,
+                                     int H, bool norm) {
+  return L.pad == LONG_T && L.group == 1 && L.gx == B && L.gy == H &&
+         L.gz == (W + LONG_T - 1) / LONG_T + 1 &&
+         L.threads == LONG16_THREADS && L.smem == fwd16_bytes(W, norm) &&
+         L.smem <= tile::SMEM_MAX;
+}
+
+namespace lr {
+
+template <bool B>
+struct Bool {  // a compile-time flag as an argument
+  static constexpr bool value = B;
+};
+
+// At most n cp.async groups still in flight (above 7: 7, which waits for
+// more).
+__device__ __forceinline__ void cp_wait_upto(int n) {
+  switch (n) {
+    case 0: cp_wait_group<0>(); break;
+    case 1: cp_wait_group<1>(); break;
+    case 2: cp_wait_group<2>(); break;
+    case 3: cp_wait_group<3>(); break;
+    case 4: cp_wait_group<4>(); break;
+    case 5: cp_wait_group<5>(); break;
+    case 6: cp_wait_group<6>(); break;
+    default: cp_wait_group<7>(); break;
   }
-  int qmin, qmax;
-  block_range(tag, s.range, qmin, qmax);
+}
 
-  const int lane = t & 31, m0 = (t >> 5) * 16, g = lane >> 2, q = lane & 3;
+// The shared memory of a block of the bf16 long forward.
+struct Fwd16Tiles {
+  tile::bf16 *Q, *K, *V;  // LONG_T query rows; the staged key rows
+  int* ktag;              // per staged key row: its tag
+  int* tg;                // the row's tags, tg[W] = -1
+  int *s0, *len;          // runs: first token, length (s0: the key list)
+  int* misc;              // [0] runs; [2, 4) block_range; [4, ...) scan
+
+  __device__ Fwd16Tiles(float4* s, int W, bool norm) {
+    const int kr = fwd16_key_rows(W, norm);
+    Q = reinterpret_cast<tile::bf16*>(s);
+    K = Q + LONG_T * LONG16_LD;
+    V = K + kr * LONG16_LD;
+    ktag = reinterpret_cast<int*>(V + kr * LONG16_LD);
+    tg = ktag + kr;
+    s0 = tg + W + 1;
+    len = s0 + W;
+    misc = len + W;
+  }
+};
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// e^x for x = s - m, given s and ml = m log2(e): one FFMA and the SFU's
+// ex2 (relative error below 2^-22; e^-inf = 0), as flash attention
+// kernels take it, in place of expf's dozen instructions a pair.
+__device__ __forceinline__ float exp_ml(float s, float ml) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(fmaf(s, LOG2E, -ml)));
+  return y;
+}
+
+// 1 / x for x >= 1e-16 (the normalisers): the SFU's reciprocal, within an
+// ulp, with no call into the division's slow path (whose register saves
+// would spill)
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The scaled scores of one 16-key tile (keys k0..) of a staged chunk as
+// tile::scores16 computes them, -inf for the keys from nk on (past the run;
+// FULL: none, the chunk is whole): every other pair of a tile inside one
+// run meets.
+template <bool FULL>
+__device__ __forceinline__ void run_scores16(const tile::bf16* K,
+                                             const unsigned (&qa)[2][4],
+                                             int k0, int nk, float scale,
+                                             float (&c)[2][4],
+                                             float (&mx)[2]) {
+  const int lane = threadIdx.x & 31, q = lane & 3;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int kk = k0 + 8 * hf;
+    unsigned kb[4];
+    tile::ldsm4(kb, K + (kk + (lane & 7)) * LONG16_LD + 8 * (lane >> 3));
+    float(&a)[4] = c[hf];
+    a[0] = a[1] = a[2] = a[3] = 0.f;
+    tile::mma16(a, qa[0], kb[0], kb[1]);
+    tile::mma16(a, qa[1], kb[2], kb[3]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      a[e] = FULL || kk + 2 * q + (e & 1) < nk ? a[e] * scale : -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], a[e]);
+    }
+  }
+}
+
+// One query tile: queries q0 .. q0 + nq - 1, `total` keys, key r the token
+// kix[r] under the tags (GEN) or k0 + r. Writes out, and with STATS m and
+// l, of the tile's queries. Every thread of the block calls it; a warp
+// whose rows all lie past nq stages and waits, nothing more.
+template <bool NORM, bool GEN, bool DROP, bool STATS, class Split>
+__device__ __forceinline__ void fwd16_tile(
+    const Fwd16Tiles& s, const tile::bf16* __restrict__ row, int d,
+    tile::bf16* __restrict__ out, float* __restrict__ stat_m,
+    float* __restrict__ stat_l, int W, int q0, int nq, const int* kix,
+    int k0, int total, float scale, const Split& kept, float inv_keep) {
+  using tile::bf16;
+  constexpr int LD = LONG16_LD, NTH = LONG16_THREADS, QB = LONG_T;
+  constexpr int NS = FWD16_STAGES;
+  constexpr float M0 = -1e30f;  // the running max before the first key
+  const int t = threadIdx.x, lane = t & 31, m0 = (t >> 5) * 16;
+  const int g = lane >> 2, q = lane & 3, d3 = 3 * d;  // offsets in a row
+  const bool live = m0 < nq;  // uniform in the warp
+  const int chunks = (total + T - 1) / T;
+  auto tok = [&](int r) -> int {
+    if constexpr (GEN)
+      return kix[r];
+    else
+      return k0 + r;
+  };
+  int tag[2] = {0, 0};  // GEN: the rows' tags (-1 past nq)
+  if constexpr (GEN) {
+    tag[0] = m0 + g < nq ? s.tg[q0 + m0 + g] : -1;
+    tag[1] = m0 + g + 8 < nq ? s.tg[q0 + m0 + g + 8] : -1;
+  }
   float mx[2] = {M0, M0}, l[2] = {0.f, 0.f};
   float o[4][4] = {};
-  if (qmax >= 0) {  // uniform: the tile holds a query that can attend
-    stage16(s.X0, nullptr, row, d3, row, d3,
-            [&](int r) { return (long)(q0 + r); }, nq);
-    const int tg[2] = {s.otag[m0 + g], s.otag[m0 + g + 8]};
-    auto sel = [&](int j) {
-      const int k = tags.ktag(base, j);
-      return k >= qmin && k <= qmax;  // qmin >= 0
-    };
-    int total;
-    const int before = rank_keys(S, sel, s.scan, total);
-    const int chunks = (total + T - 1) / T;
-    const int steps = NORM ? 2 * chunks : chunks;
-    unsigned qa[2][4];
-    float inv[2] = {0.f, 0.f};
-    const auto kept = keep.row(b, h, H, S);  // the row's seed, once
-    for (int st = 0; st < steps; ++st) {
-      const bool pv = !NORM || st >= chunks;  // this sweep multiplies by V
-      const int r0 = (st < chunks ? st : st - chunks) * T;
-      const int nk = min(T, total - r0), nkt = (nk + 15) >> 4;
-      list_keys(S, sel, before, r0, s.kix);
-      __syncthreads();
-      stage16(s.Y0, pv ? s.Y1 : nullptr, row + d, d3, row + 2 * d, d3,
-              [&](int r) { return (long)s.kix[r]; }, nk);
-      if (t < T) s.wtag[t] = t < nk ? tags.ktag(base, s.kix[t]) : -1;
-      cp_wait();  // and Q's copies, with the first chunk
-      __syncthreads();
-      if (st == 0) a_rows16(qa, s.X0, m0);
-      if (NORM && st == chunks) {  // m and l are whole: p's normaliser
-        inv[0] = 1.f / fmaxf(l[0], 1e-16f);
-        inv[1] = 1.f / fmaxf(l[1], 1e-16f);
-      }
-      float sc[4][2][4], cm[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int kt = 0; kt < 4; ++kt) {
-        if (kt >= nkt) break;
-        tile::scores16(s.Y0, s.wtag, qa, 16 * kt, tg, scale, sc[kt], cm);
-      }
-      float a[2] = {1.f, 1.f};
-      if (!NORM || !pv) {  // the online max and sum
-        tile::quad_max(cm);
-        float sum[2] = {0.f, 0.f};
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const float mn = fmaxf(mx[r], cm[r]);  // finite: mx >= M0
-          a[r] = expf(mx[r] - mn);
-          mx[r] = mn;
-        }
-#pragma unroll
-        for (int kt = 0; kt < 4; ++kt) {
-          if (kt >= nkt) break;
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const float p = expf(sc[kt][hf][e] - mx[e >> 1]);  // 0: no pair
-              sc[kt][hf][e] = p;
-              sum[e >> 1] += p;
-            }
-        }
-        tile::quad_sum(sum);
-        l[0] = l[0] * a[0] + sum[0];
-        l[1] = l[1] * a[1] + sum[1];
-      }
-      if (!pv) {
-        __syncthreads();  // kix, the tags and Y are overwritten next
-        continue;
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {  // K3: the accumulator follows m
-        o[nt][0] *= a[0];
-        o[nt][1] *= a[0];
-        o[nt][2] *= a[1];
-        o[nt][3] *= a[1];
-      }
-#pragma unroll
-      for (int kt = 0; kt < 4; ++kt) {  // O += P V, p rounded to bf16
-        if (kt >= nkt) break;
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            float p = sc[kt][hf][e];
-            if constexpr (NORM)
-              p = expf(p - mx[e >> 1]) * inv[e >> 1];
-            if constexpr (DROP)
-              p = (p != 0.f &&
-                   kept(q0 + m0 + g + 8 * (e >> 1),
-                        s.kix[16 * kt + 8 * hf + 2 * q + (e & 1)]))
-                      ? p * keep.inv_keep
-                      : 0.f;
-            sc[kt][hf][e] = p;
-          }
-        unsigned pa[4];
-        tile::a_frag(pa, sc[kt]);
-        times_rows16(o, pa, s.Y1, 16 * kt);
-      }
-      __syncthreads();  // kix, the tags and Y are overwritten next
+  unsigned qa[2][4];
+  unsigned at[2] = {0u, 0u};  // DROP: the rows' parts of the mask's hash
+  if constexpr (DROP) {
+    at[0] = kept.at(q0 + m0 + g);
+    at[1] = kept.at(q0 + m0 + g + 8);
+  }
+
+  // rows r0 .. r0 + rows - 1 of the tile's keys (zeros from total on): K
+  // into Kd, V into Vd (either may be null), their tags into kt (GEN)
+  auto stage_keys = [&](bf16* Kd, bf16* Vd, int* kt, int r0, int rows) {
+    for (int idx = t; idx < rows * 4; idx += NTH) {
+      const int r = idx >> 2, c = (idx & 3) * 8;
+      const bool ok = r0 + r < total;
+      const int tk = ok ? tok(r0 + r) : 0;
+      if (Kd) tile::cp16(Kd + r * LD + c, row + d + tk * d3 + c, ok);
+      if (Vd) tile::cp16(Vd + r * LD + c, row + 2 * d + tk * d3 + c, ok);
     }
-    cp_wait();  // no chunk: Q's copies
-    if constexpr (!NORM) {
-      const float li[2] = {1.f / fmaxf(l[0], 1e-16f),
-                           1.f / fmaxf(l[1], 1e-16f)};
+    if constexpr (GEN)
+      if (kt)
+        for (int r = t; r < rows; r += NTH)
+          kt[r] = r0 + r < total ? s.tg[tok(r0 + r)] : -1;
+  };
+  auto stage_q = [&] {
+    for (int idx = t; idx < QB * 4; idx += NTH) {
+      const int r = idx >> 2, c = (idx & 3) * 8;
+      const bool ok = r < nq;
+      tile::cp16(s.Q + r * LD + c, row + (ok ? q0 + r : 0) * d3 + c, ok);
+    }
+  };
+  // the masked, scaled scores of the warp's rows and key tile k of a chunk
+  // (nk keys at K; `full`: nk is the chunk's T); cm: their running row max
+  auto score_tile = [&](const bf16* K, const int* kt, int k, int nk,
+                        bool full, float (&c)[2][4], float (&cm)[2]) {
+    if constexpr (GEN)
+      tile::scores16(K, kt, qa, 16 * k, tag, scale, c, cm);
+    else if (full)
+      run_scores16<true>(K, qa, 16 * k, nk, scale, c, cm);
+    else
+      run_scores16<false>(K, qa, 16 * k, nk, scale, c, cm);
+  };
+  // a chunk's scores, its key tiles' in sc
+  auto scores = [&](const bf16* K, const int* kt, int nk,
+                    float (&sc)[4][2][4], float (&cm)[2]) {
+    const int nkt = (nk + 15) >> 4;
+    const bool full = nk == T;  // uniform: a whole chunk, no key to mask
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (k >= nkt) break;
+      score_tile(K, kt, k, nk, full, sc[k], cm);
+    }
+  };
+  // the online max and sum over a chunk's scores: sc becomes exp(s - m),
+  // a the rescale of what came before
+  auto online = [&](float (&sc)[4][2][4], float (&cm)[2], int nkt,
+                    float (&a)[2]) {
+    tile::quad_max(cm);
+    float sum[2] = {0.f, 0.f};
+    float ml[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mn = fmaxf(mx[r], cm[r]);  // finite: mx >= M0
+      ml[r] = mn * LOG2E;
+      a[r] = exp_ml((mx[r] - mn), 0.f);  // exactly 1 where m stays
+      mx[r] = mn;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (k >= nkt) break;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp_ml(sc[k][hf][e], ml[e >> 1]);  // 0: no pair
+          sc[k][hf][e] = p;
+          sum[e >> 1] += p;
+        }
+    }
+    tile::quad_sum(sum);
+    l[0] = l[0] * a[0] + sum[0];
+    l[1] = l[1] * a[1] + sum[1];
+  };
+  // O += P V over key tile k of a chunk whose keys start at r0 (rq = r0 +
+  // 2 q): p (K2: exp(s - m) / l) dropped, rounded to bf16. The mask's hash
+  // takes a key's part once for both of the thread's rows.
+  auto pv_tile = [&](float (&c)[2][4], const bf16* V, int rq, int k,
+                     const float (&inv)[2], const float (&ml)[2]) {
+    unsigned cj[2][2] = {};  // DROP: [half][column] the keys' parts
+    if constexpr (DROP) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const int r = rq + 16 * k + 8 * hf + cc;
+          cj[hf][cc] = kept.col(r < total ? tok(r) : 0);
+        }
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = c[hf][e];
+        if constexpr (NORM) p = exp_ml(p, ml[e >> 1]) * inv[e >> 1];
+        if constexpr (DROP)
+          p = kept.keeps(at[e >> 1] + cj[hf][e & 1]) ? p * inv_keep : 0.f;
+        c[hf][e] = p;
+      }
+    unsigned pa[4];
+    tile::a_frag(pa, c);
+    times_rows16(o, pa, V, 16 * k);
+  };
+  // rq: the first key of a chunk's thread columns, opaque to the compiler
+  // so that it keeps no per-key sums alive across chunks
+  auto key_base = [&](int r0) {
+    int rq = r0 + 2 * q;
+    asm volatile("" : "+r"(rq));
+    return rq;
+  };
+
+  if (chunks > 0) {
+    stage_q();  // lands with the first chunk's group
+    if constexpr (NORM) {
+      // every key once: chunk c's K in group c, then V in one group
+      for (int c = 0; c < chunks; ++c) {
+        stage_keys(s.K + c * T * LD, nullptr, s.ktag + c * T, c * T, T);
+        cp_commit();
+      }
+      stage_keys(nullptr, s.V, nullptr, 0, chunks * T);
+      cp_commit();
+      for (int c = 0; c < chunks; ++c) {  // m and l
+        cp_wait_upto(chunks - c);  // chunk c's K (and Q) have landed
+        __syncthreads();
+        if (!live) continue;
+        a_rows16(qa, s.Q, m0);  // reread a chunk: no registers held
+        const int nk = min(T, total - c * T);
+        auto body = [&](auto whole) {  // whole: nk is T (no key masked)
+          constexpr bool FULL = decltype(whole)::value;
+          float sc[4][2][4], cm[2] = {-INFINITY, -INFINITY}, a[2];
+          scores(s.K + c * T * LD, s.ktag + c * T, FULL ? T : nk, sc, cm);
+          online(sc, cm, FULL ? 4 : (nk + 15) >> 4, a);
+        };
+        if (nk == T)
+          body(Bool<true>{});
+        else
+          body(Bool<false>{});
+      }
+      cp_wait_group<0>();  // V
+      __syncthreads();
+      if (live) {  // P V, p normalised by the final m and l
+        const float inv[2] = {rcp(fmaxf(l[0], 1e-16f)),
+                              rcp(fmaxf(l[1], 1e-16f))};
+        const float ml[2] = {mx[0] * LOG2E, mx[1] * LOG2E};
+#pragma unroll 1
+        for (int c = 0; c < chunks; ++c) {
+          a_rows16(qa, s.Q, m0);
+          const int nk = min(T, total - c * T), rq = key_base(c * T);
+          const bf16* K = s.K + c * T * LD;
+          const bf16* V = s.V + c * T * LD;
+          auto body = [&](auto whole) {  // a key tile at a time: m, l known
+            constexpr bool FULL = decltype(whole)::value;
+            const int nkt = FULL ? 4 : (nk + 15) >> 4;
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              if (k >= nkt) break;
+              float sc[2][4], unused[2] = {0.f, 0.f};
+              score_tile(K, s.ktag + c * T, k, nk, FULL, sc, unused);
+              pv_tile(sc, V, rq, k, inv, ml);
+            }
+          };
+          if (nk == T)
+            body(Bool<true>{});
+          else
+            body(Bool<false>{});
+        }
+      }
+    } else {
+      // the ring: chunk c in slot c % NS, loaded NS - 1 chunks ahead
+#pragma unroll
+      for (int c = 0; c < NS - 1; ++c) {
+        if (c < chunks)
+          stage_keys(s.K + c * T * LD, s.V + c * T * LD, s.ktag + c * T,
+                     c * T, T);
+        cp_commit();
+      }
+      for (int c = 0; c < chunks; ++c) {
+        cp_wait_group<NS - 2>();  // chunk c (and Q) have landed
+        __syncthreads();          // and slot (c - 1) % NS is free
+        if (c + NS - 1 < chunks) {
+          const int sl = (c + NS - 1) % NS;
+          stage_keys(s.K + sl * T * LD, s.V + sl * T * LD, s.ktag + sl * T,
+                     (c + NS - 1) * T, T);
+        }
+        cp_commit();
+        if (!live) continue;
+        a_rows16(qa, s.Q, m0);  // reread a chunk: no registers held
+        const int sl = c % NS, nk = min(T, total - c * T);
+        const int rq = key_base(c * T);
+        auto body = [&](auto whole) {  // whole: nk is T (no key masked)
+          constexpr bool FULL = decltype(whole)::value;
+          const int nkt = FULL ? 4 : (nk + 15) >> 4;
+          float sc[4][2][4], cm[2] = {-INFINITY, -INFINITY}, a[2];
+          scores(s.K + sl * T * LD, s.ktag + sl * T, FULL ? T : nk, sc, cm);
+          online(sc, cm, nkt, a);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {  // the accumulator follows m
+            o[nt][0] *= a[0];
+            o[nt][1] *= a[0];
+            o[nt][2] *= a[1];
+            o[nt][3] *= a[1];
+          }
+          const float one[2] = {1.f, 1.f};
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            if (k >= nkt) break;
+            pv_tile(sc[k], s.V + sl * T * LD, rq, k, one, one);
+          }
+        };
+        if (nk == T)
+          body(Bool<true>{});
+        else
+          body(Bool<false>{});
+      }
+      cp_wait_group<0>();
+      const float li[2] = {rcp(fmaxf(l[0], 1e-16f)),
+                           rcp(fmaxf(l[1], 1e-16f))};
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
         o[nt][0] *= li[0];
@@ -495,15 +771,121 @@ __device__ __forceinline__ void long_fwd16(const tile::bf16* __restrict__ qkv,
       }
     }
   }
-  tile::store_rows16(out + (base + q0 + m0) * d + h * HD, d, o, nq - m0);
+  if (!live) return;
+  // the tile's first row of the output, from the block's coordinates
+  const long r0 = (long)blockIdx.x * W + q0 + m0;
+  const int h = blockIdx.y, H = gridDim.y;
+  tile::store_rows16(out + r0 * d + h * LONG16_HD, d, o, nq - m0);
   if (STATS && q == 0)
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       if (m0 + g + 8 * r < nq) {
-        const long at = (base + q0 + m0 + g + 8 * r) * H + h;
+        const long at = (r0 + g + 8 * r) * H + h;
         stat_m[at] = l[r] > 0.f ? mx[r] : -INFINITY;
         stat_l[at] = l[r];
       }
+}
+
+// A row where an id forms two runs, out of line so that its registers do
+// not weigh on the runs' tiles (it takes only the kernel's arguments, and
+// finds the rest again): slot z takes the positional tiles z, z + Z, ...; a
+// tile's keys are those whose tag lies between its least and greatest
+// query tag, listed by rank once, masked pair by pair.
+template <bool NORM, bool DROP, bool STATS, class Keep>
+__device__ __noinline__ void fwd16_general(const tile::bf16* __restrict__ qkv,
+                                           tile::bf16* __restrict__ out,
+                                           float* __restrict__ stat_m,
+                                           float* __restrict__ stat_l, int W,
+                                           int d, float scale, Keep keep) {
+  constexpr int NTH = LONG16_THREADS, QB = LONG_T;
+  extern __shared__ float4 smem4[];
+  const Fwd16Tiles s(smem4, W, NORM);
+  const int t = threadIdx.x, h = blockIdx.y;
+  const tile::bf16* row =
+      qkv + (long)blockIdx.x * W * 3 * d + h * LONG16_HD;
+  const auto kept = keep.split(blockIdx.x, h, gridDim.y, W);
+  for (int zt = blockIdx.z; zt * QB < W; zt += gridDim.z) {
+    const int q0 = zt * QB, nq = min(QB, W - q0);
+    __syncthreads();  // the previous tile's reads of the shared tiles
+    int qmin, qmax;
+    block_range(t < nq ? s.tg[q0 + t] : -1, s.misc + 2, qmin, qmax);
+    int total = 0;
+    if (qmax >= 0) {  // uniform: the tile holds a query that can attend
+      auto sel = [&](int j) {
+        const int k = s.tg[j];
+        return k >= qmin && k <= qmax;  // qmin >= 0
+      };
+      int r = rank_keys(W, sel, s.misc + 4, total);
+      const int per = (W + NTH - 1) / NTH, j0 = min(W, t * per);
+      const int j1 = min(W, j0 + per);
+      for (int j = j0; j < j1; ++j)  // the key list, once a tile
+        if (sel(j)) s.s0[r++] = j;
+      __syncthreads();
+    }
+    fwd16_tile<NORM, true, DROP, STATS>(s, row, d, out, stat_m, stat_l, W,
+                                        q0, nq, s.s0, 0, total, scale, kept,
+                                        keep.inv_keep);
+  }
+}
+
+}  // namespace lr
+
+// One block of four warps per (row, head, tile slot) on rows of W tokens,
+// seg [B, W] the graph ids (the mask: seg[i] == seg[j] >= 0): out, and
+// with STATS m and l [B, W, H] (m = -inf, l = 0 for a query with no key,
+// whose output is exact zeros).
+template <bool NORM, bool DROP, bool STATS, class Keep>
+__device__ __forceinline__ void long_fwd16(const tile::bf16* __restrict__ qkv,
+                                           const int* __restrict__ seg,
+                                           tile::bf16* __restrict__ out,
+                                           float* __restrict__ stat_m,
+                                           float* __restrict__ stat_l, int W,
+                                           int d, float scale, Keep keep) {
+  using namespace lr;
+  constexpr int NTH = LONG16_THREADS, QB = LONG_T;
+  extern __shared__ float4 smem4[];
+  const Fwd16Tiles s(smem4, W, NORM);
+  const int t = threadIdx.x;
+  for (int i = t; i <= W; i += NTH)
+    s.tg[i] = i < W ? seg[(long)blockIdx.x * W + i] : -1;
+  if (tile::find_runs(s.tg, W, s.s0, s.len, s.misc)) {  // an id in two runs
+    fwd16_general<NORM, DROP, STATS>(qkv, out, stat_m, stat_l, W, d, scale,
+                                     keep);
+    return;
+  }
+  const long b = blockIdx.x, base = b * W;
+  const int h = blockIdx.y, H = gridDim.y, z = blockIdx.z, Z = gridDim.z;
+  const tile::bf16* row = qkv + base * 3 * d + h * LONG16_HD;
+  const auto kept = keep.split(b, h, H, W);  // the row's seed, once
+  {  // this slot's share of the row's padding tokens: zeros
+    const int per = (W + Z - 1) / Z, p0 = min(W, z * per);
+    const int p1 = min(W, p0 + per);
+    for (int idx = t; idx < (p1 - p0) * 4; idx += NTH) {
+      const int i = p0 + (idx >> 2), c = (idx & 3) * 8;
+      if (s.tg[i] >= 0) continue;
+      *reinterpret_cast<uint4*>(out + (base + i) * d + h * LONG16_HD + c) =
+          make_uint4(0u, 0u, 0u, 0u);
+      if (STATS && c == 0) {
+        stat_m[(base + i) * H + h] = -INFINITY;
+        stat_l[(base + i) * H + h] = 0.f;
+      }
+    }
+  }
+  const int runs = s.misc[0];
+  for (int it = z;; it += Z) {  // the runs' tiles, this slot's in turn
+    int k = 0, first = 0;
+    for (; k < runs; ++k) {
+      const int n = (s.len[k] + QB - 1) / QB;
+      if (it < first + n) break;
+      first += n;
+    }
+    if (k == runs) break;
+    const int k0 = s.s0[k], n = s.len[k], q0 = k0 + (it - first) * QB;
+    __syncthreads();  // the previous tile's reads of the shared tiles
+    fwd16_tile<NORM, false, DROP, STATS>(s, row, d, out, stat_m, stat_l, W,
+                                         q0, min(QB, k0 + n - q0), nullptr,
+                                         k0, n, scale, kept, keep.inv_keep);
+  }
 }
 
 }  // namespace attn

@@ -40,10 +40,11 @@
 // seg_bf16_geometry): rows of up to 128 attention_tile.cuh's fwd_seg16 and
 // bwd_seg16 (bf16 rows in shared memory, a warp a 16-query tile of a
 // segment, its scores in registers, every product on bf16 mma.sync); rows
-// of 129-384 the bf16 long forward and pair (attention_fwd.cuh:
-// long_fwd16, attention_bwd.cuh: long_dq16, long_dkv16) with seg as both
-// tags, p normalised before it is rounded and delta summed from the pairs,
-// as the JAX kernel in bf16.
+// of 129-384 the bf16 long forward (attention_fwd.cuh: long_fwd16, query
+// tiles inside one graph's run, the run's keys staged once for both
+// sweeps, p normalised before it is rounded) and the bf16 long pair
+// (attention_bwd.cuh: long_dq16, long_dkv16, seg as both tags, delta
+// summed from the pairs), as the JAX kernel in bf16.
 // What it replaces: one block per (row, head) with one thread per query
 // walking all W keys of the row, each key one hd-long dependent FMA chain,
 // other graphs' keys skipped only after their tag was read, the whole
@@ -117,6 +118,24 @@ struct Dropout {
   // the bf16 long bodies' form (their Keep also serves K3, whose mask
   // needs H; here the seeds' stride holds it)
   __device__ Row row(long r, int h, int, int W) const { return row(r, h, W); }
+  // The bf16 long forward's form: the hash input of (i, j) split as a
+  // query's part and a key's, x(i, j) = at(i) + col(j) (mod 2^32), so a
+  // key's part serves both of a thread's rows; keeps(x) == Row(i, j).
+  struct Split {
+    unsigned hseed, base, sp, thresh;
+    __device__ unsigned at(int i) const {
+      return (base + i) * sp * prng::POS_MUL + hseed * prng::SEED_MUL;
+    }
+    __device__ unsigned col(int j) const { return j * prng::POS_MUL; }
+    __device__ bool keeps(unsigned x) const { return prng::mix(x) < thresh; }
+  };
+  __device__ Split split(long r, int h, int, int W) const {
+    // row's seed and base in 32 bits (r < 2^32): no 64-bit division, whose
+    // call would spill the caller's registers
+    const unsigned ru = (unsigned)r, b = (unsigned)bt;
+    return Split{(unsigned)seed + ru / b * stride + h, ru % b * W,
+                 (unsigned)sp, thresh};
+  }
 };
 
 constexpr int W_MAX = 384;         // the widest row K2 and K4 take
@@ -376,19 +395,21 @@ attention_seg_bwd_bf16_kernel(const tile::bf16* __restrict__ qkv,
 }
 
 // K2's bf16 instances on wider rows (129-384, code2's 384 tier): the bf16
-// long forward (attention_fwd.cuh: long_fwd16, p normalised before it is
-// rounded) and the bf16 long pair (attention_bwd.cuh: long_dq16 with delta
-// summed from the pairs, long_dkv16), seg as both tags. Registers for four
-// blocks an SM.
+// long forward (attention_fwd.cuh: long_fwd16, a tile's keys staged whole
+// and walked twice from shared memory, p normalised before it is rounded)
+// and the bf16 long pair (attention_bwd.cuh: long_dq16 with delta summed
+// from the pairs, long_dkv16), seg as both tags. Registers for three
+// blocks an SM forward (its shared memory allows three at W 384; up to 168
+// registers a thread, so that nothing spills), four backward.
 template <bool DROP, bool STATS>
-__global__ void __launch_bounds__(attn::LONG16_THREADS, 4)
+__global__ void __launch_bounds__(attn::LONG16_THREADS, 3)
 attention_seg_fwd_long_bf16_kernel(const tile::bf16* __restrict__ qkv,
-                                   attn::SegTags tags,
+                                   const int* __restrict__ seg,
                                    tile::bf16* __restrict__ out,
                                    float* __restrict__ stat_m,
                                    float* __restrict__ stat_l, int W, int d,
                                    float scale, Dropout dr) {
-  attn::long_fwd16<true, DROP, STATS>(qkv, tags, out, stat_m, stat_l, W, d,
+  attn::long_fwd16<true, DROP, STATS>(qkv, seg, out, stat_m, stat_l, W, d,
                                       scale, dr);
 }
 
@@ -565,22 +586,23 @@ cudaError_t allow_smem(Kernel k, int bytes) {
 
 // Launches K2's bf16 forward or backward after checking the wrapper's
 // seg_bf16_geometry (instance 1: rows of up to SEG_TILE_MAX on the tile
-// bodies; 3: wider rows on the bf16 long bodies); the tile kernels'
-// attributes are set once, before the first launch (the long ones take
-// under 48 KB and need none).
+// bodies; 3: wider rows on the bf16 long bodies); the attributes of the
+// tile kernels and of the long forward are set once, before the first
+// launch (the long pair takes under 48 KB and needs none).
 template <bool DROP, bool STATS>
 int launch_seg_fwd_bf16(const tile::bf16* qkv, const int* seg,
                         tile::bf16* out, float* stat_m, float* stat_l, int R,
                         int W, int d, int H, Dropout dr, const Launch& L,
                         cudaStream_t stream) {
   if (L.instance == 3) {
-    if (W <= SEG_TILE_MAX ||
-        !attn::long16_launch_ok(L, R, W, H, attn::long16_bytes()))
+    if (W <= SEG_TILE_MAX || !attn::fwd16_launch_ok(L, R, W, H, true))
       return cudaErrorInvalidValue;
-    attention_seg_fwd_long_bf16_kernel<DROP, STATS>
-        <<<dim3(L.gx, L.gy, L.gz), L.threads, L.smem, stream>>>(
-            qkv, attn::SegTags{seg, seg}, out, stat_m, stat_l, W, d,
-            1.f / sqrtf(32.f), dr);
+    const auto k = attention_seg_fwd_long_bf16_kernel<DROP, STATS>;
+    static const cudaError_t set =
+        allow_smem(k, attn::fwd16_bytes(W_MAX, true));
+    if (set != cudaSuccess) return set;
+    k<<<dim3(L.gx, L.gy, L.gz), L.threads, L.smem, stream>>>(
+        qkv, seg, out, stat_m, stat_l, W, d, 1.f / sqrtf(32.f), dr);
     return cudaGetLastError();
   }
   if (!seg16_launch_ok(L, R, W, H, false)) return cudaErrorInvalidValue;
@@ -804,4 +826,21 @@ extern "C" int attention_seg_bwd_bf16(const tile::bf16* qkv, const int* seg,
   const Launch L{instance, pad, group, gx, gy, gz, threads, smem};
   return launch_seg_bwd_bf16(qkv, seg, out, gout, stat_m, stat_l, delta, dqkv,
                              R, W, d, H, dr, L, stream);
+}
+
+// The residency of K2's bf16 long forward (its training launch, with
+// dropout and statistics) at `smem` shared bytes a block: registers a
+// thread, local memory a thread (spills), blocks an SM.
+extern "C" int attention_seg_fwd_long_bf16_residency(int smem, int* regs,
+                                                     int* local,
+                                                     int* blocks) {
+  const auto k = attention_seg_fwd_long_bf16_kernel<true, true>;
+  cudaError_t e = allow_smem(k, attn::fwd16_bytes(W_MAX, true));
+  cudaFuncAttributes a;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, k);
+  if (e != cudaSuccess) return e;
+  *regs = a.numRegs;
+  *local = (int)a.localSizeBytes;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, k, attn::LONG16_THREADS, smem);
 }

@@ -36,9 +36,11 @@
 // exact zeros.
 //
 // bf16 (the bf16 step): the bf16 long forward and pair of attention_fwd.cuh
-// and attention_bwd.cuh (long_fwd16 with the online softmax, long_dq16 with
-// delta = dO . O, long_dkv16), rounding where the TPU's MXU rounds under the
-// JAX kernel's Precision.DEFAULT: the unnormalised p, dS and P_drop.
+// and attention_bwd.cuh (long_fwd16 with the online softmax, query tiles
+// inside one graph's run and its keys streamed through a ring of chunk
+// buffers; long_dq16 with delta = dO . O, long_dkv16), rounding where the
+// TPU's MXU rounds under the JAX kernel's Precision.DEFAULT: the
+// unnormalised p, dS and P_drop.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -84,6 +86,24 @@ struct Dropout {
   __device__ Row row(long r, int h, int H, int) const {
     const unsigned rh = (unsigned)r * (unsigned)H + (unsigned)h;
     return Row{seed + rh * 16384u * 1024u, thresh};
+  }
+  // The bf16 long forward's form: the hash input of (i, j) split as a
+  // query's part and a key's, x(i, j) = at(i) + col(j) (mod 2^32), so a
+  // key's part serves both of a thread's rows; keeps(x) == Row(i, j).
+  struct Split {
+    unsigned base, thresh;
+    __device__ unsigned at(unsigned i) const {  // i, j: tokens, >= 0
+      return i % MASK_BQ * MASK_BK * prng::POS_MUL +
+             (base + i / MASK_BQ * 1024u) * prng::SEED_MUL;
+    }
+    __device__ unsigned col(unsigned j) const {
+      return j % MASK_BK * prng::POS_MUL + j / MASK_BK * prng::SEED_MUL;
+    }
+    __device__ bool keeps(unsigned x) const { return prng::mix(x) < thresh; }
+  };
+  __device__ Split split(long r, int h, int H, int W) const {
+    const Row w = row(r, h, H, W);
+    return Split{w.base, w.thresh};
   }
 };
 
@@ -131,18 +151,21 @@ flash_hil_bwd_dkv_kernel(const float* __restrict__ qkv, attn::SegTags tags,
 
 // K3's bf16 instances (the bf16 step): the bf16 long forward
 // (attention_fwd.cuh: long_fwd16, the online softmax's unnormalised p
-// rounded before P V, as the TPU's MXU rounds it) and the bf16 long pair
-// (attention_bwd.cuh: long_dq16 with delta = dO . O over the rounded
-// output, as _bwd_rule forms it, and long_dkv16), seg as both tags.
-// Registers for four blocks an SM.
+// rounded before P V, as the TPU's MXU rounds it; query tiles of 64
+// inside one graph's run, its keys through a ring of chunk buffers) and
+// the bf16 long pair (attention_bwd.cuh: long_dq16 with delta = dO . O
+// over the rounded output, as _bwd_rule forms it, and long_dkv16), seg as
+// both tags. Registers for four blocks an SM, or three with dropout,
+// whose hash needs more (so that nothing spills).
 template <bool DROP, bool STATS>
-__global__ void __launch_bounds__(attn::LONG16_THREADS, 4)
+__global__ void __launch_bounds__(attn::LONG16_THREADS, DROP ? 3 : 4)
 flash_hil_fwd_bf16_kernel(const tile::bf16* __restrict__ qkv,
-                          attn::SegTags tags, tile::bf16* __restrict__ out,
+                          const int* __restrict__ seg,
+                          tile::bf16* __restrict__ out,
                           float* __restrict__ stat_m,
                           float* __restrict__ stat_l, int W, int d,
                           float scale, Dropout dr) {
-  attn::long_fwd16<false, DROP, STATS>(qkv, tags, out, stat_m, stat_l, W, d,
+  attn::long_fwd16<false, DROP, STATS>(qkv, seg, out, stat_m, stat_l, W, d,
                                        scale, dr);
 }
 
@@ -174,18 +197,21 @@ flash_hil_bwd_dkv_bf16_kernel(const tile::bf16* __restrict__ qkv,
 }
 
 // The bf16 forward's launch, as flash_hil.py:fwd_geometry gives it for
-// bf16 (attention_packed.py:long16_geometry).
+// bf16 (attention_packed.py:long16_fwd_geometry); the kernel may take up to
+// tile::SMEM_MAX bytes of dynamic shared memory (its bytes grow with W),
+// set once, before the first launch.
 template <bool DROP, bool STATS>
 int launch_fwd_bf16(const tile::bf16* qkv, const int* seg, tile::bf16* out,
                     float* stat_m, float* stat_l, int R, int W, int d, int H,
                     Dropout dr, const tile::Launch& L, cudaStream_t stream) {
-  if (L.instance != 3 ||
-      !attn::long16_launch_ok(L, R, W, H, attn::long16_bytes()))
+  if (L.instance != 3 || !attn::fwd16_launch_ok(L, R, W, H, false))
     return cudaErrorInvalidValue;
-  flash_hil_fwd_bf16_kernel<DROP, STATS>
-      <<<dim3(L.gx, L.gy, L.gz), L.threads, L.smem, stream>>>(
-          qkv, attn::SegTags{seg, seg}, out, stat_m, stat_l, W, d,
-          1.f / sqrtf(32.f), dr);
+  const auto k = flash_hil_fwd_bf16_kernel<DROP, STATS>;
+  static const cudaError_t set = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, tile::SMEM_MAX);
+  if (set != cudaSuccess) return set;
+  k<<<dim3(L.gx, L.gy, L.gz), L.threads, L.smem, stream>>>(
+      qkv, seg, out, stat_m, stat_l, W, d, 1.f / sqrtf(32.f), dr);
   return cudaGetLastError();
 }
 
@@ -308,4 +334,21 @@ extern "C" int flash_hil_bwd_bf16(const tile::bf16* qkv, const int* seg,
       flash_hil_bwd_dq_bf16_kernel, flash_hil_bwd_dkv_bf16_kernel, qkv,
       attn::SegTags{seg, seg}, out, gout, stat_m, stat_l, delta, dqkv, R, W, d,
       H, dr, stream);
+}
+
+// The residency of K3's bf16 forward (its training launch, with dropout
+// and statistics) at `smem` shared bytes a block: registers a thread, local
+// memory a thread (spills), blocks an SM.
+extern "C" int flash_hil_fwd_bf16_residency(int smem, int* regs, int* local,
+                                            int* blocks) {
+  const auto k = flash_hil_fwd_bf16_kernel<true, true>;
+  cudaError_t e = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, tile::SMEM_MAX);
+  cudaFuncAttributes a;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, k);
+  if (e != cudaSuccess) return e;
+  *regs = a.numRegs;
+  *local = (int)a.localSizeBytes;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, k, attn::LONG16_THREADS, smem);
 }

@@ -56,14 +56,19 @@ instances (the bf16 step) have bodies of their own, picked by W in
 bf16, a warp a 16-query tile of a segment, the tile's score rows in
 registers, every product a bf16 ``mma.sync`` with float32 sums, and a
 backward in two passes (by query tile: delta, dS and dQ; by key tile: dK
-and dV) with no atomics. Rows of 129-384 (code2's 384 tier): the long
-bodies' cut with those products (``csrc/attention_fwd.cuh:long_fwd16``,
-``csrc/attention_bwd.cuh:long_dq16``, ``long_dkv16``): a block per (row,
-head, 64 queries) gathers the keys that can meet its queries 64 at a
-time as bf16 rows, a warp owns 16 query rows whole; the forward walks the
-keys twice (m and l, then the normalised p rounded once before P V) and
-the dq kernel twice (delta summed from the pairs, then dS and dQ), a dk/dv
-kernel over chunks of 64 valid keys walks the query tiles.
+and dV) with no atomics. Rows of 129-384 (code2's 384 tier): the bf16 long
+forward (``csrc/attention_fwd.cuh:long_fwd16``, launch
+``long16_fwd_geometry``): a block per (row, head, tile slot) finds the
+row's runs of one graph id on the device, cuts each run into 64-query
+tiles and stages the run's keys once, a box of consecutive rows, as bf16;
+a warp owns 16 query rows whole; it walks the keys twice from shared
+memory (m and l, then the normalised p rounded once before P V). A row
+where an id forms two runs keeps the positional tiles and the keys ranked
+by tag, listed once a tile. The backward is the long pair
+(``csrc/attention_bwd.cuh:long_dq16``, ``long_dkv16``, launch
+``long16_geometry``): the dq kernel walks the keys twice (delta summed from
+the pairs, then dS and dQ), a dk/dv kernel over chunks of 64 valid keys
+walks the query tiles.
 
 K4 replaces ``graphtrans_tpu/ops/pallas/attention_packed.py:
 attention_packed_qkv`` (forward ``_call_fwd``, backward ``_call_bwd``, mask
@@ -667,9 +672,12 @@ def seg_bf16_geometry(R: int, W: int, nhead: int, bwd: bool) -> Geometry:
     W tokens: up to SEG_TILE_MAX the tile instance, a block of
     SEG_BF16_THREADS per (row, head), whose warps take the segments'
     16-query tiles (``pad`` the rows staged); wider rows the bf16 long
-    bodies' (``long16_geometry``; both kernels of the backward take it)."""
+    forward's (``long16_fwd_geometry``, the keys staged whole) or the bf16
+    long pair's (``long16_geometry``; both kernels of the backward take
+    it)."""
     if W > SEG_TILE_MAX:
-        return long16_geometry(R, W, nhead)
+        return (long16_geometry(R, W, nhead) if bwd
+                else long16_fwd_geometry(R, W, nhead, True))
     return Geometry("tile", ((0, W),), seg_bf16_rows(W), 1, (R * nhead, 1, 1),
                     SEG_BF16_THREADS, seg_bf16_bytes(W, bwd))
 
@@ -687,11 +695,44 @@ def long16_bytes() -> int:
 
 
 def long16_geometry(R: int, W: int, nhead: int) -> Geometry:
-    """The launch of the bf16 long forward and of each kernel of the bf16
-    long pair (K2 on rows of 129-384, K3 at any width): a block of
-    LONG16_THREADS per (row, head, LONG_T tokens)."""
+    """The launch of each kernel of the bf16 long pair (K2-bwd on rows of
+    129-384, K3-bwd at any width): a block of LONG16_THREADS per (row,
+    head, LONG_T tokens)."""
     return Geometry("long", ((0, W),), LONG_T, 1, (R, nhead, -(-W // LONG_T)),
                     LONG16_THREADS, long16_bytes())
+
+
+FWD16_STAGES = 3   # K3's bf16 forward: chunk buffers of its ring
+FWD16_MISC = 16    # ints of a block's scratch in the bf16 long forward
+
+
+def long16_fwd_key_rows(W: int, norm: bool) -> int:
+    """Key rows (K and V each) a block of the bf16 long forward stages:
+    K2's (``norm``) row's keys whole, K3's ring of FWD16_STAGES chunks of
+    LONG_T (``csrc/attention_fwd.cuh:fwd16_key_rows``)."""
+    return _round(W, LONG_T) if norm else FWD16_STAGES * LONG_T
+
+
+def long16_fwd_bytes(W: int, norm: bool) -> int:
+    """Shared bytes of a block of the bf16 long forward on rows of W tokens:
+    Q (LONG_T rows), K and V as bf16 rows of SEG_BF16_LD; per staged key its
+    tag; the row's tags and one past them; its runs' first tokens and
+    lengths; the scratch (``csrc/attention_fwd.cuh:fwd16_bytes``)."""
+    rows = long16_fwd_key_rows(W, norm)
+    return ((LONG_T + 2 * rows) * SEG_BF16_LD * 2
+            + (rows + 3 * W + 1 + FWD16_MISC) * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def long16_fwd_geometry(R: int, W: int, nhead: int, norm: bool) -> Geometry:
+    """The launch of the bf16 long forward (K2 on rows of 129-384 with
+    ``norm``, K3 at any width): a block of LONG16_THREADS per (row, head,
+    tile slot), ``pad`` = LONG_T queries a tile, ceil(W / LONG_T) + 1 slots
+    a row (a row's runs cut into tiles give at most one tile more than its
+    positional tiles where it holds two runs)."""
+    return Geometry("long", ((0, W),), LONG_T, 1,
+                    (R, nhead, -(-W // LONG_T) + 1), LONG16_THREADS,
+                    long16_fwd_bytes(W, norm))
 
 
 def dense_fwd_geometry(B: int, S: int, block: int, hd: int, nhead: int,

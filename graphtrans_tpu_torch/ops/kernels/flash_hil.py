@@ -77,14 +77,18 @@ delta) * scale and P_drop rounded, dQ, dK, dV summed in float32 and
 rounded once. The plain bf16 version (``_FlashHilBf16``) rounds at the
 same points, p against the row's final max. (In interpret mode on the CPU
 the JAX kernel's DEFAULT products are exact float32: it rounds none of
-these.) The kernels are the bf16 long bodies K2's 384 tier runs in bf16
-(``attention_packed.long16_geometry``; ``csrc/attention_fwd.cuh:
-long_fwd16`` with the online softmax, ``csrc/attention_bwd.cuh:long_dq16``
-with delta = dO . O, ``long_dkv16``): bf16 rows by ``cp.async``, a warp 16
-query (key) rows whole, every product one bf16 ``mma.sync`` with float32
-sums, p and dS moved into the next product's A fragment in registers.
-Launches count by dtype in ``flash_hil_seg.instances`` and
-``flash_hil_seg_bwd.instances``.
+these.) The forward is the bf16 long forward K2's 384 tier runs in bf16
+(``csrc/attention_fwd.cuh:long_fwd16`` with the online softmax, launch
+``fwd_geometry``, i.e. ``attention_packed.long16_fwd_geometry``): query
+tiles of 64 inside one graph's run, found on the device, the run's keys
+streamed through a ring of three 64-key chunk buffers by ``cp.async``
+while the tensor cores work, one barrier a chunk; chunks start at the
+run's first token, and p is rounded against the running max. The backward is the bf16 long pair
+(``csrc/attention_bwd.cuh:long_dq16`` with delta = dO . O, ``long_dkv16``):
+bf16 rows by ``cp.async``, a warp 16 query (key) rows whole, every product
+one bf16 ``mma.sync`` with float32 sums, p and dS moved into the next
+product's A fragment in registers. Launches count by dtype in
+``flash_hil_seg.instances`` and ``flash_hil_seg_bwd.instances``.
 """
 
 from __future__ import annotations
@@ -97,7 +101,8 @@ import torch
 from . import _build
 from .attention_packed import (HEAD_DIM, Geometry, _stream,
                                attention_seg_plain, keep_threshold,
-                               long16_geometry, long_fwd_geometry, seg_mask)
+                               long16_fwd_geometry, long_fwd_geometry,
+                               seg_mask)
 from .flash_attention import tile_keep_mask
 
 MASK_BQ, MASK_BK = 512, 128   # the JAX kernel's blocks, which seed its mask
@@ -235,9 +240,9 @@ def fwd_geometry(R: int, W: int, nhead: int,
                  dtype: torch.dtype = torch.float32) -> Geometry:
     """K3's forward launch for R rows of W tokens: the long forward's, a
     block of four warps per (row, head, 64 queries); in bf16 the bf16 long
-    forward's (``long16_geometry``)."""
+    forward's (``long16_fwd_geometry``)."""
     if dtype == torch.bfloat16:
-        return long16_geometry(R, W, nhead)
+        return long16_fwd_geometry(R, W, nhead, False)
     return long_fwd_geometry(R, W, HEAD_DIM, nhead)
 
 

@@ -682,7 +682,7 @@ def test_flash_hil_dropout_and_bwd_kernels_match_plain(cuda, W, rate):
 
 K3_SEGMENTS = {   # rows of (length, graph id: None a new one, -1 padding)
     512: [[1, 64, 385, (62, -1)], [(512, -1)],
-          [(100, 7), 200, (100, 7), 1, (111, -1)]],
+          [(100, 7), 200, (100, 7), 1, (111, -1)], [512], [(7, -1), 505]],
     1024: [[1024], [1, 64, 385, 1, 64, 385, (124, -1)], [(1024, -1)],
            [(300, 9), 400, (300, 9), (24, -1)]],
 }
@@ -2989,12 +2989,14 @@ def test_bf16_train_step_kernels_match_plain(cuda, deterministic):
 
 # rows of 256 and 384 whose segments cross the 16-token tiles and the long
 # bodies' 64-token tiles and chunks: single tokens, 15, 17, 63, 65, 129,
-# an id in two runs, padding gaps, an all-padding row
+# an id in two runs, padding gaps, an all-padding row, a row of one graph
+# of W tokens, and runs longer than K3's ring of three 64-key chunks
 K2_LONG_ROWS = {
     256: [[1, 15, 17, 63, 65, 94, (1, -1)], [256], [(256, -1)],
-          [(40, 7), 17, (40, 7), 64, (95, -1)]],
+          [(40, 7), 17, (40, 7), 64, (95, -1)], [(3, -1), 200, 53]],
     384: [[129, 128, (127, -1)], [1, 15, 17, 63, 65, 129, 94],
-          [(150, 7), 100, (100, 7), (34, -1)], [(384, -1)]],
+          [(150, 7), 100, (100, 7), (34, -1)], [(384, -1)], [384],
+          [193, 191]],
 }
 
 
@@ -3047,13 +3049,14 @@ def _bf16_pair_check(fwd, bwd, plain, bwd_plain, qkv, seg, H, rate, seed,
 @pytest.mark.parametrize("rate", [0.0, 0.3])
 def test_attention_seg_long_bf16_kernels_match_plain(cuda, W, rate):
     """K2 and K2-bwd's long bf16 instance (rows of 129-384: the bf16 long
-    forward, p normalised before it is rounded, and the bf16 long pair,
-    delta summed from the pairs) on segments that cross the 16- and
-    64-token tiles, an id in two runs and an all-padding row, against the
-    plain bf16 versions (the same masks): out within BF16_OUT_TOL, dqkv
-    within BF16_GRAD_TOL of max(1, max|plain|); padding tokens exactly 0
-    (m = -inf, l = 0); the same bits on two runs and from the serving
-    launch; counted as long_bf16."""
+    forward, a run's keys staged whole, p normalised before it is rounded,
+    and the bf16 long pair on its out, m and l, delta summed from the
+    pairs) on segments that cross the 16- and 64-token tiles, an id in two
+    runs, an all-padding row, a row of one graph of W tokens and runs of
+    more than 192 tokens, against the plain bf16 versions (the same masks):
+    out within BF16_OUT_TOL, dqkv within BF16_GRAD_TOL of max(1,
+    max|plain|); padding tokens exactly 0 (m = -inf, l = 0); the same bits
+    on two runs and from the serving launch; counted as long_bf16."""
     qkv, seg = _k2_long_case(W, cuda)
     out = _bf16_pair_check(attention_seg_with_stats, attention_seg_bwd,
                            attention_seg_plain, attention_seg_bwd_plain, qkv,
@@ -3069,9 +3072,11 @@ def test_attention_seg_long_bf16_kernels_match_plain(cuda, W, rate):
 @pytest.mark.parametrize("rate", [0.0, 0.3])
 def test_flash_hil_bf16_kernels_match_plain(cuda, case, rate):
     """K3 and K3-bwd's bf16 instances (the bf16 long forward's online
-    softmax, its unnormalised p rounded before P V; the bf16 long pair,
-    delta = dO . O) on segments of 1, 64, 385 and 1024 tokens, an id in two
-    runs, all-padding rows and segments straddling the 64-token tiles,
+    softmax, its unnormalised p rounded before P V, a run's keys through
+    the ring of chunk buffers; the bf16 long pair on its out, m and l,
+    delta = dO . O) on segments of 1, 64, 385, 505 and 1024 tokens (longer
+    than the ring's three chunks), rows of one graph of W tokens, an id in
+    two runs, all-padding rows and segments straddling the 64-token tiles,
     against the plain bf16 versions (the same masks): within BF16_OUT_TOL
     and BF16_GRAD_TOL; padding exactly 0; the same bits on two runs and
     from the serving launch; counted as bf16."""

@@ -101,8 +101,8 @@ def test_k3_forward_launch_is_the_long_forward(W):
     16 queries) per (row, head, 64 queries), four blocks' shared memory an
     SM; its f32 C entry launches only flash_hil_fwd_long_kernel, after
     attn::long_fwd_launch_ok (the bf16 entry its own kernel, after
-    attn::long16_launch_ok), and the per-query kernel it replaced is
-    gone."""
+    attn::fwd16_launch_ok, at long16_fwd_geometry's launch), and the
+    per-query kernel it replaced is gone."""
     R, nhead = 15, 4
     geo = fh.fwd_geometry(R, W, nhead)
     assert geo == ap.long_fwd_geometry(R, W, 32, nhead)
@@ -116,7 +116,9 @@ def test_k3_forward_launch_is_the_long_forward(W):
     assert "attn::long_fwd<HD, DROP, STATS>" in src
     assert src.count("<<<") == 2 and "flash_hil_fwd_long_kernel" in src
     assert "flash_hil_fwd_bf16_kernel" in src
-    assert "attn::long16_launch_ok(L, R, W, H, attn::long16_bytes())" in src
+    assert "attn::fwd16_launch_ok(L, R, W, H, false)" in src
+    assert (fh.fwd_geometry(R, W, nhead, torch.bfloat16)
+            == ap.long16_fwd_geometry(R, W, nhead, False))
     for gone in ("flash_hil_fwd_kernel", "block_range", " BQ = ", " BK = "):
         assert gone not in src
 
