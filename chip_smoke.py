@@ -184,22 +184,22 @@ Phases, each printing one line (any failure raises and exits non-zero):
      instance); (c) a bf16 step against the plain versions; (d) the
      4096-graph train step in f32 and bf16 in turns, profiled.
  15. (a) K2's long instance (code2's tier of 384), K3, K7 and their
-     backwards in bf16 (the bf16 long forward: query tiles inside one
-     graph's run, K2's keys staged once, K3's through a ring of chunks;
-     the bf16 long pair; bf16 mma.sync; K7 and K7-bwd with float32 sums)
-     against their plain bf16 versions at the code2 snapshot's train
-     batch of 16 and bench512 (padding 0, m = -inf, l = 0), timed as the
-     bf16 step calls them beside the f32 instance in turns (the forwards
-     also beside, with ``--baseline``, the parent's bf16 forward; K2 and
-     K3 by ``queued_ms``, a call at a time behind a sleep, cold L2, so
-     that the host's pace does not set their time at the batch of 16;
-     also back to back), bound, plain version and, for
-     K2 and K3, SDPA in bf16; the forwards' residency (registers, shared
-     bytes, blocks an SM; no spills, or it fails); with ``--baseline``
-     the forwards' largest
-     difference from the parent's, the f32 long launches of K2, K3, K5
-     and K9, the f32 K7 and K7-bwd, and the bf16 long pair given this
-     forward's out, m and l held to the parent's bits; (b) trains the
+     backwards in bf16 (the bf16 long forward and pair: tiles inside one
+     graph's run, K2's partners staged once, K3's through a ring of
+     chunks; bf16 mma.sync; K7 and K7-bwd with float32 sums) against
+     their plain bf16 versions at the code2 snapshot's train batch of 16
+     and bench512 (padding 0, m = -inf, l = 0), timed as the bf16 step
+     calls them beside the f32 instance in turns (the forwards and the
+     pairs also beside, with ``--baseline``, the parent's bf16 forward and
+     pair; K2 and K3 by ``queued_ms``, a call at a time behind a sleep,
+     cold L2, so that the host's pace does not set their time at the batch
+     of 16; the forwards also back to back), bound, plain version and, for
+     K2 and K3, SDPA in bf16; the forwards' and the pairs' residency
+     (registers, shared bytes, blocks an SM, waves; no spills, or it
+     fails); with ``--baseline`` the forwards' and the pairs' largest
+     difference from the parent's (the pairs' on this forward's out, m and
+     l, within BF16_GRAD_TOL), and the f32 long launches of K2, K3, K5 and
+     K9 and the f32 K7 and K7-bwd held to the parent's bits; (b) trains the
      code2 GraphTrans yml in bf16 through main (every K2, K3 and K7 launch
      and every backward launch the bf16 instance, counted by instance);
      (c) the saved float32 masters served by predict, and a bf16 step
@@ -5686,28 +5686,30 @@ def k3_bf16_bwd_bound(qkv, seg, nhead: int):
     return _tc_bound(nbytes, pairs * 10 * hd, pairs * 8, BF16_TC_FLOPS)
 
 
-def fwd16_residency(mod, entry: str, smem: int) -> dict:
-    """The residency of a bf16 long forward's training instance from its
-    C entry ``entry`` in the library of kernel module ``mod``: registers
-    and local (spilled) bytes a thread and blocks an SM at ``smem`` shared
-    bytes a block. Raises if it spills."""
+def long16_residency(mod, entry: str, smem: int, which=None) -> dict:
+    """The residency of a bf16 long kernel from its C entry ``entry`` in
+    the library of kernel module ``mod`` (the forwards' training instance;
+    the pairs' kernel ``which``: 0 dq and 1 dk/dv with dropout, 2 and 3
+    without): registers and local (spilled) bytes a thread and blocks an
+    SM at ``smem`` shared bytes a block. Raises if it spills."""
     import ctypes
 
     from graphtrans_tpu_torch.ops.kernels import _build
 
     lib = mod._load()
     fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
+    lead = [] if which is None else [int(which)]
+    fn.argtypes = [ctypes.c_int] * (len(lead) + 1) + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     got = [ctypes.c_int(0) for _ in range(3)]
-    _build.check(lib, fn(smem, *(ctypes.cast(ctypes.pointer(v),
-                                             ctypes.c_void_p) for v in got)),
-                 entry)
+    _build.check(lib, fn(*lead, smem, *(ctypes.cast(ctypes.pointer(v),
+                                                    ctypes.c_void_p)
+                                        for v in got)), entry)
     r = dict(zip(("regs", "local_bytes", "blocks_per_sm"),
                  (v.value for v in got)), smem=smem)
     if r["local_bytes"]:
-        raise AssertionError(f"{entry}: {r['local_bytes']} local bytes a "
-                             f"thread (spills)")
+        raise AssertionError(f"{entry}({which}): {r['local_bytes']} local "
+                             f"bytes a thread (spills)")
     return r
 
 
@@ -5782,9 +5784,12 @@ def phase15_kernels(device, d_gnn: int, d_model: int, nhead: int, bench,
     from graphtrans_tpu_torch.ops.kernels import attention_packed, flash_hil
 
     gen = torch.Generator().manual_seed(SEED + 15)
-    resid16 = {"k2": (attention_packed,
-                      "attention_seg_fwd_long_bf16_residency", True),
-               "k3": (flash_hil, "flash_hil_fwd_bf16_residency", False)}
+    # the bf16 long kernels' residency entries: the forward's, the pair's
+    resid16 = {"k2": (attention_packed, True,
+                      "attention_seg_fwd_long_bf16_residency",
+                      "attention_seg_bwd_long_bf16_residency"),
+               "k3": (flash_hil, False, "flash_hil_fwd_bf16_residency",
+                      "flash_hil_bwd_bf16_residency")}
     n_sms = torch.cuda.get_device_properties(device).multi_processor_count
     smi = _smi()
     args = _code2_args()
@@ -5845,8 +5850,8 @@ def phase15_kernels(device, d_gnn: int, d_model: int, nhead: int, bench,
             f["bound_ms"], f["bound_by"] = k2_bf16_bound(q16, sg, nhead)
             s16 = fwd(q16, sg, nhead, DROPOUT, seed)
             s32 = fwd(q, sg, nhead, DROPOUT, seed)
-            mod, entry, norm = resid16[key]
-            f["residency"] = fwd16_residency(
+            mod, norm, entry, bwd_entry = resid16[key]
+            f["residency"] = long16_residency(
                 mod, entry, attention_packed.long16_fwd_bytes(W, norm))
             f["grid"] = (flash_hil.fwd_geometry(R, W, nhead, BF16) if key ==
                          "k3" else attention_packed.seg_bf16_geometry(
@@ -5860,15 +5865,29 @@ def phase15_kernels(device, d_gnn: int, d_model: int, nhead: int, bench,
                 lambda t: plain(t, sg, nhead, DROPOUT, seed), [q16], g16),
                 library_ms=sdpa_bwd_ms(q16, sg, nhead, g16, DROPOUT,
                                        queued_ms))
-            bw["ms"], bw["f32_ms"] = rounds_ms([
+            obwd = getattr(old, bwd.__name__) if old else None
+            # in turns, each call queued behind a sleep: this pair, the f32
+            # instance and the parent's bf16 pair (--baseline) on this
+            # forward's out, m and l
+            bw["ms"], bw["f32_ms"], bw["parent_ms"] = rounds_ms([
                 lambda: bwd(q16, sg, nhead, g16, s16, DROPOUT, seed),
-                lambda: bwd(q, sg, nhead, g32, s32, DROPOUT, seed)], 20,
-                queued_ms)
+                lambda: bwd(q, sg, nhead, g32, s32, DROPOUT, seed),
+                obwd and (lambda: obwd(q16, sg, nhead, g16, s16, DROPOUT,
+                                       seed))], 20, queued_ms)
             bw["bound_ms"], bw["bound_by"] = (
                 k2_bf16_bwd_bound if key == "k2" else k3_bf16_bwd_bound)(
                     q16, sg, nhead)
+            # the pair's two kernels: the training instances' residency
+            # (dq, dk/dv), and no spills in the instances without dropout
+            bsmem = attention_packed.long16_bwd_bytes(W, norm)
+            bw["residency"] = [long16_residency(mod, bwd_entry, bsmem, k)
+                               for k in (0, 1)]
+            for k in (2, 3):
+                long16_residency(mod, bwd_entry, bsmem, k)
+            bw["grid"] = (flash_hil.bwd_geometry(R, W, nhead) if key == "k3"
+                          else attention_packed.seg_bf16_geometry(
+                              R, W, nhead, True)).grid
             if base:
-                obwd = getattr(old, bwd.__name__)
                 same_bits(f"{key.upper()} f32 training forward {name}",
                           lambda: fwd(q, sg, nhead, DROPOUT, seed),
                           lambda: ofwd(q, sg, nhead, DROPOUT, seed), checked)
@@ -5876,11 +5895,17 @@ def phase15_kernels(device, d_gnn: int, d_model: int, nhead: int, bench,
                           lambda: bwd(q, sg, nhead, g32, s32, DROPOUT, seed),
                           lambda: obwd(q, sg, nhead, g32, s32, DROPOUT, seed),
                           checked)
-                same_bits(f"{key.upper()}-bwd bf16 {name} (this forward's "
-                          f"out, m, l)",
-                          lambda: bwd(q16, sg, nhead, g16, s16, DROPOUT, seed),
-                          lambda: obwd(q16, sg, nhead, g16, s16, DROPOUT,
-                                       seed), checked)
+                # the bf16 pair's sums follow the runs' chunk starts: its
+                # largest difference from the parent's on this forward's
+                # out, m and l, held to the plain version's tolerance
+                bw["parent_diff"] = _rel_err(
+                    bwd(q16, sg, nhead, g16, s16, DROPOUT, seed),
+                    obwd(q16, sg, nhead, g16, s16, DROPOUT, seed))
+                if bw["parent_diff"] > BF16_GRAD_TOL:
+                    raise AssertionError(
+                        f"{key.upper()}-bwd bf16 {name}: {bw['parent_diff']} "
+                        f"of max(1, max|parent|) from the parent's (<= "
+                        f"{BF16_GRAD_TOL})")
             shape = f"R={R} W={W} d={d3 // 3} H={nhead} rate={DROPOUT}"
             f["shape"] = bw["shape"] = shape
             timed[key], timed[key + "b"] = f, bw
@@ -5925,7 +5950,9 @@ def phase15_kernels(device, d_gnn: int, d_model: int, nhead: int, bench,
                    f"{t['library_ms']:.4f} ms (SDPA in bf16, bool seg mask"
                    f"{', backward' if key.endswith('b') else ''})")
             parent = ("" if t.get("parent_ms") is None else
-                      f", the parent's bf16 forward {t['parent_ms']:.4f}")
+                      f", the parent's bf16 "
+                      f"{'pair' if key.endswith('b') else 'forward'} "
+                      f"{t['parent_ms']:.4f}")
             queued = ("" if key == "k7" or key == "k7b" else
                       ", each call queued, cold L2")
             paced = ("" if t.get("paced_ms") is None else
@@ -5936,16 +5963,18 @@ def phase15_kernels(device, d_gnn: int, d_model: int, nhead: int, bench,
                   f"{parent}, in turns{queued}{paced}), plain bf16 "
                   f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
                   f"({t['bound_by']}), library {lib} on {smi}")
-            if "residency" in t:
-                r = t["residency"]
+            res = t.get("residency")
+            for part, r in ([] if res is None else
+                            zip(("dq kernel", "dk/dv kernel"), res)
+                            if isinstance(res, list) else [("", res)]):
                 blocks = math.prod(t["grid"])
                 waves = blocks / (r["blocks_per_sm"] * n_sms)
-                print(f"[15a] {name} {kname} bf16 residency (training "
-                      f"launch): {r['regs']} registers a thread, "
-                      f"{r['local_bytes']} local bytes a thread (no "
-                      f"spills), {r['smem']} shared bytes a block, "
-                      f"{r['blocks_per_sm']} blocks an SM, {blocks} blocks "
-                      f"in {waves:.2f} waves")
+                print(f"[15a] {name} {kname} bf16{' ' if part else ''}"
+                      f"{part} residency (training launch): {r['regs']} "
+                      f"registers a thread, {r['local_bytes']} local bytes "
+                      f"a thread (no spills), {r['smem']} shared bytes a "
+                      f"block, {r['blocks_per_sm']} blocks an SM, {blocks} "
+                      f"blocks in {waves:.2f} waves")
             if t.get("parent_diff") is not None:
                 print(f"[15a] {name} {kname} bf16: the training launch's "
                       f"output differs from the parent's by at most "
@@ -5954,7 +5983,8 @@ def phase15_kernels(device, d_gnn: int, d_model: int, nhead: int, bench,
     if base:
         long_f32_bits(device, gen, base, checked)
         print(f"[15a] --baseline: the f32 instances give the parent's bits "
-              f"on the same inputs at {checked}")
+              f"on the same inputs at {checked}; the bf16 pairs within "
+              f"{BF16_GRAD_TOL} of max(1, max|parent|) of the parent's")
     print(f"[15a] bf16 kernels agree with their plain bf16 versions, of "
           f"max(1, max|plain|): K2 long {errs['k2']:.3g}, K3 {errs['k3']:.3g}, "
           f"K7 {errs['k7']:.3g} (<= {BF16_OUT_TOL}); K2-bwd long "

@@ -591,104 +591,152 @@ cudaError_t launch_long_bwd(LongDq<Tags, Keep> dq, LongDkv<Tags, Keep> dkv,
   return cudaGetLastError();
 }
 
-
 // ---- the bf16 instances of the long-row pair ------------------------------
 //
 // What they compute: K2's long-row backward (rows of 129-384, code2's 384
 // tier) and K3-bwd in bf16, with the rounding points of the JAX kernels in
-// bf16 on the TPU (graphtrans_tpu/ops/pallas/attention_packed.py:238-286;
-// flash_hil.py:_dq_kernel, _dkv_kernel at Precision.DEFAULT, one bf16 MXU
-// pass): p = exp(s - m) / l from the forward's m and l and dp = dO.v in
-// float32 from the bf16 operands, dropped; dS = p (dp - delta) * scale and
-// P_drop each rounded to bf16 before their products; dQ = dS K, dK = dS^T
-// Q and dV = P_drop^T dO summed in float32 and rounded once. delta is K2's
-// sum of the pairs' p dp (DELTA_PAIRS, as the bf16 tile instance sums it)
-// or K3's dO . O over the forward's rounded output. Their Keep policy has,
-// besides on and inv_keep, row(b, h, H, S): a functor (i, j) -> kept with
-// the row's seed computed once a block (K2's Dropout::row, K3's).
+// bf16 on the TPU (graphtrans_tpu/ops/pallas/attention_packed.py:
+// _bwd_kernel; flash_hil.py:_dq_kernel, _dkv_kernel at Precision.DEFAULT,
+// one bf16 MXU pass): p = exp(s - m) / l from the forward's m and l and dp
+// = dO.v in float32 from the bf16 operands, dropped; dS = p (dp - delta) *
+// scale and P_drop each rounded to bf16 before their products; dQ = dS K,
+// dK = dS^T Q and dV = P_drop^T dO summed in float32 and rounded once.
+// delta is K2's sum of the pairs' p dp (PAIRS, as the bf16 tile instance
+// sums it) or K3's dO . O over the forward's rounded output. Padding tokens
+// get exact zeros; every output cell has one writer, so there are no
+// atomics and the bits repeat from run to run.
 //
-// The design: the long f32 pair's cut (a dq kernel over 64-query tiles, a
-// dk/dv kernel over chunks of 64 valid keys by rank, the other side
-// gathered 64 rows at a time by rank, every output cell one writer) with
-// the bf16 tile instance's products: bf16 rows staged by cp.async (rows of
-// tile::SEG16_LD bf16: the eight rows an ldmatrix reads hit distinct
-// banks), a warp owns 16 rows of the block's tile whole, every product a
-// bf16 mma.sync m16n8k16 with float32 sums (one where the f32 pair does
-// three), operands by ldmatrix (.trans for dS K, P_drop^T dO and dS^T Q),
-// and p and dS moved from the score accumulators into the next product's
-// A fragment in registers (two m16n8 accumulators are one m16k16 A
-// fragment): no score tile in shared memory. The dq kernel with
-// DELTA_PAIRS walks its keys twice (delta, then dS and dQ). A block takes
-// LONG16_THREADS threads and long16_bytes() of shared memory (22,044
-// bytes: under the 48 KB that needs no attribute), so registers, not
-// shared memory, bound the blocks an SM.
+// What bounds them on the H100: at code2's bench512 the five products are
+// ~10 GFLOP (0.010 ms on the bf16 tensor cores) and the bytes ~0.017 ms at
+// 3.35 TB/s; what is left is instruction issue and latency: an exp and a
+// dropout hash a pair in each kernel on the SM's scalar pipes, and the
+// chains of products a key (query) tile. The first bf16 pair took 0.32 ms
+// there, slower than SDPA's backward in bf16: its tiles were positional (a
+// tile straddling two graphs took both graphs' partners pair by pair),
+// every block ranked the row's tags from device memory and listed its
+// partners again for every chunk, each chunk was gathered into one buffer
+// behind two barriers, K2's dq kernel gathered its keys twice, and each
+// pair took expf and the full hash.
+//
+// The design, the bf16 long forward's (attention_fwd.cuh: long_fwd16)
+// applied to both kernels. A block of four warps per (row, head, tile
+// slot) reads the row's tags into shared memory and finds its runs of one
+// graph id (tile::find_runs; no host synchronisation). A row whose ids each form one run (ops/pack.py packs
+// each graph and its CLS as one run) is cut by runs: the dq kernel cuts a
+// run of n tokens into ceil(n / 64) query tiles, the dk/dv kernel into as
+// many key tiles, and the row's Z = ceil(W / 64) + 1 slots take them in
+// turn. A tile's partners are its run's tokens, a box of consecutive rows
+// copied by 16-byte cp.async in chunks of 64 from the run's first token;
+// every chunk but a run's last is whole and takes no mask. Each slot writes
+// the zeros of its share of the row's padding tokens. A warp owns 16 rows
+// of the tile whole: every product a bf16 mma.sync m16n8k16 with float32
+// sums, operands by ldmatrix, and p and dS moved from the score
+// accumulators into the next product's A fragment in registers. K2 (rows of
+// at most 384) stages a tile's partners whole, each chunk its own cp.async
+// group: the dq kernel's delta sweep takes chunk c as soon as it lands,
+// and its dS and dQ sweep reads shared memory only, so each key is gathered
+// once. K3's partners stream through a ring of BWD16_STAGES chunk buffers:
+// chunk c's products run while chunks c + 1 and c + 2 load, one barrier a
+// chunk. The dq kernel writes, per query, a record of four floats: m
+// log2(e), 1 / (l (1 - rate)), delta (1 - rate) and the row's part of the
+// dropout hash; the dk/dv kernel copies a chunk's records with its Q rows,
+// into the 16 bytes of padding each staged row carries. exp(s - m) is one
+// FFMA and the SFU's ex2, 1/l its reciprocal, the dropout's 1 / (1 - rate)
+// rides in 1/l (a kept pair's P_drop is p itself and dS = p (dp - delta (1
+// - rate)) scale), and the dropout hash of a pair is its query's part plus
+// its key's (the mask policy's Split). K2's delta sweep keeps a thread's
+// eight keep bits of a 16-key tile in the padding of the tile's staged K
+// rows, so its dS sweep hashes nothing. A row where an id forms two
+// runs (dq16_general, dkv16_general, out of line) keeps the positional
+// tiles and the partners whose tag lies between the tile's least and
+// greatest tag, listed by rank once a tile and masked pair by pair.
 
 constexpr int LONG16_THREADS = 128;        // four warps, 16 rows each
 constexpr int LONG16_HD = tile::SEG16_HD;  // heads of 32 (K2's, K3's)
 constexpr int LONG16_LD = tile::SEG16_LD;  // bf16 a staged row
+constexpr int BWD16_STAGES = 3;            // K3's ring: partner chunks
+constexpr int BWD16_MISC = 16;             // ints of a block's scratch
 
-// Shared bytes of a bf16 long kernel (the two of this pair and the
-// forward, attention_fwd.cuh): four 64-row bf16 tiles (the block's own
-// two, the walked two), per query m, 1/l and delta, per row two tags and a
-// token index, the prefix count's scratch.
-__host__ __device__ constexpr int long16_bytes() {
-  return 4 * LONG_T * LONG16_LD * 2 + 6 * LONG_T * 4 +
-         (LONG16_THREADS / 32 + 1 + 2) * 4;
+// Partner rows a block stages: K2 (`whole`) a row's tokens rounded up to
+// whole chunks, K3 its ring.
+__host__ __device__ constexpr int bwd16_rows(int W, bool whole) {
+  return whole ? (W + LONG_T - 1) / LONG_T * LONG_T : BWD16_STAGES * LONG_T;
 }
 
-// A wrapper's launch of a bf16 long kernel: a block of LONG16_THREADS per
-// (row, head, 64 tokens), `smem` its shared bytes.
-__host__ inline bool long16_launch_ok(const tile::Launch& L, int B, int S,
-                                      int H, int smem) {
+// Shared bytes of a block of either kernel on rows of W tokens: the tile's
+// own two 64-row slices and the partners' two as bf16 rows of LONG16_LD
+// (a staged Q row carries its query's record in its padding); the row's
+// tags and a -1 past them; its runs' first tokens and lengths (the
+// partner list, in a row where an id forms two runs); the scratch. K2 at
+// W 384 takes 76,356 bytes (three blocks an SM), K3 at W 1024 53,316.
+__host__ __device__ constexpr int bwd16_bytes(int W, bool whole) {
+  return (2 * LONG_T + 2 * bwd16_rows(W, whole)) * LONG16_LD * 2 +
+         (3 * W + 1 + BWD16_MISC) * 4;
+}
+
+// A wrapper's launch of either kernel of the bf16 pair: a block of
+// LONG16_THREADS per (row, head, tile slot), ceil(W / LONG_T) + 1 slots a
+// row, as the bf16 long forward's.
+__host__ inline bool bwd16_launch_ok(const tile::Launch& L, int B, int W,
+                                     int H, bool whole) {
   return L.pad == LONG_T && L.group == 1 && L.gx == B && L.gy == H &&
-         L.gz == (S + LONG_T - 1) / LONG_T && L.threads == LONG16_THREADS &&
-         L.smem == smem;
+         L.gz == (W + LONG_T - 1) / LONG_T + 1 &&
+         L.threads == LONG16_THREADS && L.smem == bwd16_bytes(W, whole) &&
+         L.smem <= tile::SMEM_MAX;
 }
 
 namespace lr {
 
-// The shared tiles of a bf16 long kernel: X0, X1 the block's own rows
-// (dq: Q, dO; dk/dv: K, V; the forward: Q), Y0, Y1 the walked rows (dq
-// and the forward: K, V; dk/dv: Q, dO); m, li, de per query (dq: its own; dk/dv: the walked tile's);
-// otag, wtag the own and the walked rows' tags; kix the gathered rows'
-// tokens.
-struct Tiles16 {
-  tile::bf16 *X0, *X1, *Y0, *Y1;
-  float *m, *li, *de;
-  int *otag, *wtag, *kix, *scan, *range;
+using tc::cp_commit;
+using tc::cp_wait_group;
 
-  __device__ explicit Tiles16(float4* s) {
-    constexpr int R = LONG_T * LONG16_LD;
-    X0 = reinterpret_cast<tile::bf16*>(s);
-    X1 = X0 + R;
-    Y0 = X1 + R;
-    Y1 = Y0 + R;
-    m = reinterpret_cast<float*>(Y1 + R);
-    li = m + LONG_T;
-    de = li + LONG_T;
-    otag = reinterpret_cast<int*>(de + LONG_T);
-    wtag = otag + LONG_T;
-    kix = wtag + LONG_T;
-    scan = kix + LONG_T;
-    range = scan + LONG16_THREADS / 32 + 1;
-  }
+template <bool B>
+struct Bool {  // a compile-time flag as an argument
+  static constexpr bool value = B;
+};
+template <int N>
+struct Int {  // a compile-time int as an argument
+  static constexpr int value = N;
 };
 
-// Rows [0, T) of two bf16 head slices into rows of LONG16_LD bf16, row r
-// from the token row(r) (src[k] + row(r) * ld[k]; d1 may be null), zeros
-// for r >= n: cp.async, all threads of the block.
-template <class Row>
-__device__ __forceinline__ void stage16(tile::bf16* d0, tile::bf16* d1,
-                                        const tile::bf16* s0, long ld0,
-                                        const tile::bf16* s1, long ld1,
-                                        Row row, int n) {
-  for (int idx = threadIdx.x; idx < T * 4; idx += blockDim.x) {
-    const int r = idx >> 2, c = (idx & 3) * 8;
-    const bool ok = r < n;
-    const long tok = ok ? row(r) : 0;
-    tile::cp16(d0 + r * LONG16_LD + c, s0 + tok * ld0 + c, ok);
-    if (d1) tile::cp16(d1 + r * LONG16_LD + c, s1 + tok * ld1 + c, ok);
+// At most n cp.async groups still in flight (above 7: 7, which waits for
+// more).
+__device__ __forceinline__ void cp_wait_upto(int n) {
+  switch (n) {
+    case 0: cp_wait_group<0>(); break;
+    case 1: cp_wait_group<1>(); break;
+    case 2: cp_wait_group<2>(); break;
+    case 3: cp_wait_group<3>(); break;
+    case 4: cp_wait_group<4>(); break;
+    case 5: cp_wait_group<5>(); break;
+    case 6: cp_wait_group<6>(); break;
+    default: cp_wait_group<7>(); break;
   }
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x: the SFU's ex2 (relative error below 2^-22; 2^-inf = 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// e^x for x = s - m, given s and ml = m log2(e): one FFMA and the SFU's
+// ex2, as flash attention kernels take it, in place of expf's dozen
+// instructions a pair.
+__device__ __forceinline__ float exp_ml(float s, float ml) {
+  return ex2(fmaf(s, LOG2E, -ml));
+}
+
+// 1 / x for x >= 1e-16 (the normalisers): the SFU's reciprocal, within an
+// ulp, with no call into the division's slow path (whose register saves
+// would spill)
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // A fragments of 16 rows (m0..) of a staged tile: channels 0-15, 16-31.
@@ -729,330 +777,661 @@ __device__ __forceinline__ void dots8(float (&c)[4], const unsigned (&a)[2][4],
   tile::mma16(c, a[1], r[2], r[3]);
 }
 
-// Rows g and g + 8 (lane 4g + q) of a 16 x 32 float32 accumulator,
-// rounded to bf16, at p0 and p1 (where ok0, ok1): 16 bytes a lane.
-__device__ __forceinline__ void store_pair16(tile::bf16* p0, tile::bf16* p1,
-                                             const float (&acc)[4][4],
-                                             bool ok0, bool ok1) {
-  const int q = threadIdx.x & 3;
-  unsigned lo[4], hi[4];
+// The shared memory of a block of the bf16 pair.
+struct Bwd16Tiles {
+  tile::bf16 *X0, *X1;  // the tile's own rows: dq Q, dO; dk/dv K, V
+  tile::bf16 *Y0, *Y1;  // the partners' rows: dq K, V; dk/dv Q (and its
+                        // record), dO
+  int* tg;              // the row's tags, tg[W] = -1
+  int *s0, *len;        // runs: first token, length (s0: the partner list)
+  int* misc;            // [0] runs; [2, 4) block_range; [4, ...) scan
+
+  __device__ Bwd16Tiles(float4* s, int W, bool whole) {
+    constexpr int R = LONG_T * LONG16_LD;
+    const int pr = bwd16_rows(W, whole) * LONG16_LD;
+    X0 = reinterpret_cast<tile::bf16*>(s);
+    X1 = X0 + R;
+    Y0 = X1 + R;
+    Y1 = Y0 + pr;
+    tg = reinterpret_cast<int*>(Y1 + pr);
+    s0 = tg + W + 1;
+    len = s0 + W;
+    misc = len + W;
+  }
+};
+
+// One (row, head)'s slices: qkv, out, gout and dqkv at the row's first
+// token and the head's lanes; the forward's m and l at the row's first
+// token (stride H); the records of the (row, head)'s tokens.
+struct Bwd16Row {
+  const tile::bf16 *qkv, *out, *gout;
+  const float *m, *l;
+  float4* rec;
+  tile::bf16* dqkv;
+  int d, H;
+
+  __device__ Bwd16Row(const tile::bf16* qkv_, const tile::bf16* out_,
+                      const tile::bf16* gout_, const float* m_,
+                      const float* l_, float* rec_, tile::bf16* dqkv_, int W,
+                      int d_)
+      : d(d_), H(gridDim.y) {
+    const long b = blockIdx.x, base = b * W;
+    const int h = blockIdx.y, c = h * LONG16_HD;
+    qkv = qkv_ + base * 3 * d + c;
+    out = out_ ? out_ + base * d + c : nullptr;
+    gout = gout_ + base * d + c;
+    m = m_ ? m_ + base * H + h : nullptr;
+    l = l_ ? l_ + base * H + h : nullptr;
+    rec = reinterpret_cast<float4*>(rec_) + (b * H + h) * W;
+    dqkv = dqkv_ + base * 3 * d + c;
+  }
+};
+
+// dO . O over a row's 32 channels, lane q of a quad taking channels 8q ..
+// 8q + 7 (the quad's sum by tile::quad_sum)
+__device__ __forceinline__ float dot8(const tile::bf16* o,
+                                      const tile::bf16* g) {
+  const uint4 ov = *reinterpret_cast<const uint4*>(o);
+  const uint4 gv = *reinterpret_cast<const uint4*>(g);
+  const unsigned* o2 = reinterpret_cast<const unsigned*>(&ov);
+  const unsigned* g2 = reinterpret_cast<const unsigned*>(&gv);
+  float s = 0.f;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    lo[k] = tile::pack_bf16(acc[k][0], acc[k][1]);
-    hi[k] = tile::pack_bf16(acc[k][2], acc[k][3]);
+    const float2 a =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o2 + k));
+    const float2 e =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(g2 + k));
+    s = fmaf(a.x, e.x, s);
+    s = fmaf(a.y, e.y, s);
   }
-  const uint4 a = tile::quad_row(lo), b = tile::quad_row(hi);
-  if (ok0) *reinterpret_cast<uint4*>(p0 + 8 * q) = a;
-  if (ok1) *reinterpret_cast<uint4*>(p1 + 8 * q) = b;
+  return s;
 }
 
-// dq: one block per (row, head, T queries), a warp 16 of them. Writes dq
-// for the tile's queries and delta [B, S, H] (every query of the tile, 0
-// for one without keys) for the dk/dv kernel.
-template <bool DELTA_PAIRS, class Tags, class Keep>
-__device__ __forceinline__ void long_dq16(
-    const tile::bf16* __restrict__ qkv, Tags tags,
-    const tile::bf16* __restrict__ out, const tile::bf16* __restrict__ gout,
-    const float* __restrict__ stat_m, const float* __restrict__ stat_l,
-    float* __restrict__ delta, tile::bf16* __restrict__ dqkv, int S, int d,
-    float scale, Keep keep) {
+// One query tile of the dq kernel: queries q0 .. q0 + nq - 1 (nq <= 64),
+// `total` keys, key r the token kix[r] (GEN, masked by the tags) or k0 + r
+// (the tile's run: every pair meets). Writes the tile's dq rows and its
+// queries' records (m log2(e), 1 / (l (1 - rate)), delta (1 - rate), the
+// hash's row part). Every thread of the block calls it; a warp whose rows
+// all lie past nq stages and waits, nothing more.
+template <bool PAIRS, bool GEN, bool DROP, class Split>
+__device__ __forceinline__ void dq16_tile(const Bwd16Tiles& s,
+                                          const Bwd16Row& w, int q0, int nq,
+                                          const int* kix, int k0, int total,
+                                          float scale, const Split& kept,
+                                          float inv_keep) {
   using tile::bf16;
-  constexpr int HD = LONG16_HD;
-  extern __shared__ float4 smem4[];
-  const Tiles16 s(smem4);
-  const long b = blockIdx.x;
-  const int h = blockIdx.y, H = gridDim.y, t = threadIdx.x;
-  const int q0 = blockIdx.z * T, nq = min(T, S - q0);
-  const long d3 = 3L * d, base = b * S;
-  const bf16* row = qkv + base * d3 + h * HD;
-  const bf16* grow = gout + base * d + h * HD;
-  stage16(s.X0, s.X1, row, d3, grow, d, [&](int r) { return (long)(q0 + r); },
-          nq);
-  int tag = -1;
-  if (t < T) {
-    float m = 0.f, li = 0.f;
-    if (t < nq) tag = tags.qtag(base, q0 + t);
-    if (tag >= 0) {  // a valid query attends itself: l > 0, m finite
-      const long at = (base + q0 + t) * H + h;
-      m = stat_m[at];
-      li = 1.f / fmaxf(stat_l[at], 1e-16f);
-    }
-    s.otag[t] = tag;
-    s.m[t] = m;
-    s.li[t] = li;
-  }
-  if constexpr (!DELTA_PAIRS) {  // delta = dO . O, two threads a query
-    const int r = t >> 1, part = t & 1;
-    float de = 0.f;
-    if (r < nq) {
-      const long at = (base + q0 + r) * d + h * HD + 16 * part;
-#pragma unroll
-      for (int c = 0; c < 16; c += 8) {
-        const uint4 ov = *reinterpret_cast<const uint4*>(out + at + c);
-        const uint4 gv = *reinterpret_cast<const uint4*>(gout + at + c);
-        const unsigned* o2 = reinterpret_cast<const unsigned*>(&ov);
-        const unsigned* g2 = reinterpret_cast<const unsigned*>(&gv);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const float2 a = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(o2 + k));
-          const float2 e = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(g2 + k));
-          de = fmaf(a.x, e.x, de);
-          de = fmaf(a.y, e.y, de);
-        }
-      }
-    }
-    de += __shfl_xor_sync(0xffffffffu, de, 1);
-    if (part == 0 && r < T) {
-      s.de[r] = de;
-      if (r < nq) delta[(base + q0 + r) * H + h] = de;
-    }
-  }
-  int qmin, qmax;
-  block_range(tag, s.range, qmin, qmax);
-  cp_wait();
-  __syncthreads();
+  constexpr int LD = LONG16_LD, NTH = LONG16_THREADS, NS = BWD16_STAGES;
+  const int t = threadIdx.x, lane = t & 31, m0 = (t >> 5) * 16;
+  const int g = lane >> 2, q = lane & 3, d = w.d, d3 = 3 * d;
+  const bool live = m0 < nq;  // uniform in the warp
+  const int chunks = (total + T - 1) / T;
+  const float sl = scale * LOG2E;  // s log2(e) from the unscaled q.k
+  const float keep_rate = rcp(inv_keep);  // 1 - rate
+  auto tok = [&](int r) -> int {
+    if constexpr (GEN)
+      return kix[r];
+    else
+      return k0 + r;
+  };
 
-  const int lane = t & 31, m0 = (t >> 5) * 16, g = lane >> 2, q = lane & 3;
-  unsigned qa[2][4], ga[2][4];
-  a_rows16(qa, s.X0, m0);
-  a_rows16(ga, s.X1, m0);
-  const int tg[2] = {s.otag[m0 + g], s.otag[m0 + g + 8]};
-  const float mr[2] = {s.m[m0 + g], s.m[m0 + g + 8]};
-  const float lr_[2] = {s.li[m0 + g], s.li[m0 + g + 8]};
-  float de[2] = {0.f, 0.f};
-  if constexpr (!DELTA_PAIRS) {
-    de[0] = s.de[m0 + g];
-    de[1] = s.de[m0 + g + 8];
+  // the thread's two rows (m0 + g, m0 + g + 8): tag, m log2(e), 1/l times
+  // the dropout's 1 / (1 - rate) (p below is then a kept pair's P_drop),
+  // the hash's row part and, for K3, delta = dO . O times (1 - rate); 0
+  // for a row without keys
+  int tag[2] = {-1, -1};
+  float ml[2] = {0.f, 0.f}, li[2] = {0.f, 0.f}, de[2] = {0.f, 0.f};
+  unsigned at[2] = {0u, 0u};
+  if (live) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = m0 + g + 8 * r, tk = q0 + i;
+      if (i >= nq) continue;
+      tag[r] = s.tg[tk];
+      if (tag[r] >= 0) {  // a valid query attends itself: l >= 1
+        ml[r] = w.m[(long)tk * w.H] * LOG2E;
+        li[r] = rcp(fmaxf(w.l[(long)tk * w.H], 1e-16f)) * inv_keep;
+        if constexpr (!PAIRS)
+          de[r] = dot8(w.out + (long)tk * d + 8 * q,
+                       w.gout + (long)tk * d + 8 * q);
+      }
+      if constexpr (DROP) at[r] = kept.at(tk);
+    }
+    if constexpr (!PAIRS) {
+      tile::quad_sum(de);
+      de[0] *= keep_rate;  // delta (1 - rate)
+      de[1] *= keep_rate;
+    }
   }
-  float dq[4][4] = {};
-  if (qmax >= 0) {  // uniform: the tile holds a query that can attend
-    auto sel = [&](int j) {
-      const int k = tags.ktag(base, j);
-      return k >= qmin && k <= qmax;  // qmin >= 0
-    };
-    int total;
-    const int before = rank_keys(S, sel, s.scan, total);
-    const int chunks = (total + T - 1) / T;
-    const int steps = DELTA_PAIRS ? 2 * chunks : chunks;
-    const auto kept = keep.row(b, h, H, S);  // the row's seed, once
-    for (int st = 0; st < steps; ++st) {
-      const bool sums = DELTA_PAIRS && st < chunks;  // delta's sweep
-      const int r0 = (st < chunks ? st : st - chunks) * T;
-      const int nk = min(T, total - r0), nkt = (nk + 15) >> 4;
-      list_keys(S, sel, before, r0, s.kix);
-      __syncthreads();
-      stage16(s.Y0, s.Y1, row + d, d3, row + 2 * d, d3,
-              [&](int r) { return (long)s.kix[r]; }, nk);
-      if (t < T) s.wtag[t] = t < nk ? tags.ktag(base, s.kix[t]) : -1;
-      cp_wait();
-      __syncthreads();
-      for (int kt = 0; kt < nkt; ++kt) {  // 16 keys a step
-        float p[2][4], dp[2][4], unused[2] = {0.f, 0.f};
-        tile::scores16(s.Y0, s.wtag, qa, 16 * kt, tg, scale, p, unused);
+
+  auto stage_q = [&] {
+    for (int idx = t; idx < T * 4; idx += NTH) {
+      const int r = idx >> 2, c = (idx & 3) * 8;
+      const bool ok = r < nq;
+      const long tk = ok ? q0 + r : 0;
+      tile::cp16(s.X0 + r * LD + c, w.qkv + tk * d3 + c, ok);
+      tile::cp16(s.X1 + r * LD + c, w.gout + tk * d + c, ok);
+    }
+  };
+  // keys r0 .. r0 + T - 1 (zeros from total on) into chunk buffer `slot`
+  auto stage_keys = [&](int slot, int r0) {
+    bf16* K = s.Y0 + slot * T * LD;
+    bf16* V = s.Y1 + slot * T * LD;
+    for (int idx = t; idx < T * 4; idx += NTH) {
+      const int r = idx >> 2, c = (idx & 3) * 8;
+      const bool ok = r0 + r < total;
+      const long tk = ok ? tok(r0 + r) : 0;
+      tile::cp16(K + r * LD + c, w.qkv + tk * d3 + d + c, ok);
+      tile::cp16(V + r * LD + c, w.qkv + tk * d3 + 2 * d + c, ok);
+    }
+  };
+  // The chunk in buffer `slot` (keys r0..): for each of its 16-key tiles k,
+  // fn(k, K, p, dp) with p = exp(s - m) / (l (1 - rate)) (0 where the pair
+  // does not meet) and dp = dO.v where the pair is kept, else 0; FULL: the
+  // chunk is whole (no key masked). The keep bits: MODE 0 hashes each pair,
+  // 1 also saves a thread's eight bits of a key tile in the padding of the
+  // tile's staged K rows, 2 reads them back (K2's second sweep).
+  auto chunk = [&](int slot, int r0, auto whole, auto mode, auto&& fn) {
+    constexpr bool FULL = decltype(whole)::value;
+    constexpr int MODE = decltype(mode)::value;
+    bf16* K = s.Y0 + slot * T * LD;
+    const bf16* V = s.Y1 + slot * T * LD;
+    const int nk = FULL ? T : min(T, total - r0);
+    const int nkt = FULL ? 4 : (nk + 15) >> 4;
+    unsigned qa[2][4], ga[2][4];
+    a_rows16(qa, s.X0, m0);  // reread a chunk: no registers held
+    a_rows16(ga, s.X1, m0);
+#pragma unroll 1
+    for (int k = 0; k < 4; ++k) {
+      if (k >= nkt) break;
+      // the thread's byte of keep bits: rows 16 k + t / 16 of the tile's
+      // K rows, past their channels
+      unsigned char* kb = reinterpret_cast<unsigned char*>(
+                              K + (16 * k + (t >> 4)) * LD + LONG16_HD) +
+                          (t & 15);
+      unsigned bits = 0u;
+      if constexpr (DROP && MODE == 2) bits = *kb;
+      float p[2][4], dp[2][4];
 #pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int kk = 16 * kt + 8 * hf;
-          dots8(dp[hf], ga, s.Y1, kk);
+      for (int hf = 0; hf < 2; ++hf) {
+        const int kk = 16 * k + 8 * hf;  // the half's first key
+        dots8(p[hf], qa, K, kk);
+        dots8(dp[hf], ga, V, kk);
+        unsigned cj[2] = {0u, 0u};  // DROP: the keys' parts of the hash
+        int kt[2] = {0, 0};         // GEN: the keys' tags
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = e >> 1;
-            const float x = expf(p[hf][e] - mr[r]) * lr_[r];  // exp(-inf) = 0
-            p[hf][e] = x;
-            if (keep.on)
-              dp[hf][e] = (x != 0.f &&
-                           kept(q0 + m0 + g + 8 * r,
-                                s.kix[kk + 2 * q + (e & 1)]))
-                              ? dp[hf][e] * keep.inv_keep
-                              : 0.f;
+        for (int cc = 0; cc < 2; ++cc) {
+          const int j = kk + 2 * q + cc;
+          const bool in = FULL || j < nk;
+          if constexpr (GEN) {
+            const int tk = in ? kix[r0 + j] : 0;
+            kt[cc] = in ? s.tg[tk] : -1;
+            if constexpr (DROP && MODE != 2) cj[cc] = kept.col(tk);
+          } else {
+            kt[cc] = in;
+            if constexpr (DROP && MODE != 2) cj[cc] = kept.col(k0 + r0 + j);
           }
         }
-        if (sums) {
 #pragma unroll
-          for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              de[e >> 1] = fmaf(p[hf][e], dp[hf][e], de[e >> 1]);
-          continue;
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, cc = e & 1;
+          bool meet;
+          if constexpr (GEN)
+            meet = tag[r] >= 0 && tag[r] == kt[cc];
+          else
+            meet = FULL || kt[cc];
+          p[hf][e] = meet ? ex2(fmaf(p[hf][e], sl, -ml[r])) * li[r] : 0.f;
+          if constexpr (DROP) {
+            bool on;
+            if constexpr (MODE == 2) {
+              on = bits >> (4 * hf + e) & 1u;
+            } else {
+              on = kept.keeps(at[r] + cj[cc]);
+              if constexpr (MODE == 1) bits |= (unsigned)on << (4 * hf + e);
+            }
+            dp[hf][e] = on ? dp[hf][e] : 0.f;
+          }
         }
-        float ds[2][4];
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            ds[hf][e] = p[hf][e] * (dp[hf][e] - de[e >> 1]) * scale;
-        unsigned a[4];
-        tile::a_frag(a, ds);
-        times_rows16(dq, a, s.Y0, 16 * kt);
       }
-      if (DELTA_PAIRS && st == chunks - 1) tile::quad_sum(de);
-      __syncthreads();  // kix, the tags and Y are overwritten next
+      if constexpr (DROP && MODE == 1) *kb = (unsigned char)bits;
+      fn(k, K, p, dp);
+    }
+  };
+  // delta's sweep (PAIRS): the kept pairs' p dp (1 - rate), taken as p dp
+  // here and scaled with the row's delta below
+  auto sums = [&](int, const bf16*, const float(&p)[2][4],
+                  const float(&dp)[2][4]) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        de[e >> 1] = fmaf(p[hf][e], dp[hf][e], de[e >> 1]);
+  };
+  // dQ += dS K over a 16-key tile, dS = p (dp - delta (1 - rate)) scale
+  // (= p_undropped (dp_dropped - delta) scale) rounded to bf16 in the A
+  // fragment
+  float dq[4][4] = {};
+  auto grads = [&](int k, const bf16* K, float(&p)[2][4],
+                   const float(&dp)[2][4]) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        p[hf][e] = p[hf][e] * (dp[hf][e] - de[e >> 1]) * scale;
+    unsigned a[4];
+    tile::a_frag(a, p);
+    times_rows16(dq, a, K, 16 * k);
+  };
+  // chunk c (keys c T..) in buffer `slot` through fn, the keep bits as
+  // `mode` says
+  auto run_chunk = [&](int slot, int c, auto mode, auto&& fn) {
+    if (total - c * T >= T)
+      chunk(slot, c * T, Bool<true>{}, mode, fn);
+    else
+      chunk(slot, c * T, Bool<false>{}, mode, fn);
+  };
+
+  if (chunks > 0) {
+    stage_q();  // lands with the first chunk's group
+    if constexpr (PAIRS) {
+      // every key once: chunk c's K and V in group c
+      for (int c = 0; c < chunks; ++c) {
+        stage_keys(c, c * T);
+        cp_commit();
+      }
+      for (int c = 0; c < chunks; ++c) {  // delta, saving the keep bits
+        cp_wait_upto(chunks - 1 - c);     // chunk c (and Q, dO) landed
+        __syncthreads();
+        if (live) run_chunk(c, c, Int<1>{}, sums);
+      }
+      if (live) {
+        tile::quad_sum(de);
+        de[0] *= keep_rate;
+        de[1] *= keep_rate;
+#pragma unroll 1
+        for (int c = 0; c < chunks; ++c) run_chunk(c, c, Int<2>{}, grads);
+      }
+    } else {
+      // the ring: chunk c in buffer c % NS, loaded NS - 1 chunks ahead
+#pragma unroll
+      for (int c = 0; c < NS - 1; ++c) {
+        if (c < chunks) stage_keys(c, c * T);
+        cp_commit();
+      }
+      for (int c = 0; c < chunks; ++c) {
+        cp_wait_group<NS - 2>();  // chunk c (and Q, dO) have landed
+        __syncthreads();          // and buffer (c - 1) % NS is free
+        if (c + NS - 1 < chunks)
+          stage_keys((c + NS - 1) % NS, (c + NS - 1) * T);
+        cp_commit();
+        if (live) run_chunk(c % NS, c, Int<0>{}, grads);
+      }
+      cp_wait_group<0>();
     }
   }
-  if constexpr (DELTA_PAIRS)
+  if (!live) return;
+  tile::store_rows16(w.dqkv + (long)(q0 + m0) * d3, d3, dq, nq - m0);
+  if (q == 0)
 #pragma unroll
     for (int r = 0; r < 2; ++r)
-      if (q == 0 && m0 + g + 8 * r < nq)
-        delta[(base + q0 + m0 + g + 8 * r) * H + h] = de[r];
-  tile::store_rows16(dqkv + (base + q0 + m0) * d3 + h * HD, d3, dq, nq - m0);
+      if (m0 + g + 8 * r < nq)
+        w.rec[q0 + m0 + g + 8 * r] =
+            make_float4(ml[r], li[r], de[r], __uint_as_float(at[r]));
 }
 
-// dk, dv: one block per (row, head, z): the z-th chunk of T valid keys by
-// rank, a warp 16 of them, and the padding keys among tokens [zT, zT + T)
-// (exact zeros). dk_j = sum_i dS_ij q_i, dv_j = sum_i P_drop_ij dO_i over
-// the query tiles whose tags can meet the chunk's; delta from the dq
-// kernel.
-template <class Tags, class Keep>
-__device__ __forceinline__ void long_dkv16(
-    const tile::bf16* __restrict__ qkv, Tags tags,
-    const tile::bf16* __restrict__ gout, const float* __restrict__ stat_m,
-    const float* __restrict__ stat_l, const float* __restrict__ delta,
-    tile::bf16* __restrict__ dqkv, int S, int d, float scale, Keep keep) {
+// One key tile of the dk/dv kernel: keys k0 .. k0 + nk - 1 (nk <= 64),
+// `total` queries, query r the token qix[r] (GEN, masked by the tags) or
+// q0 + r (the tile's run). Writes the tile's dk and dv rows from the
+// queries' records (dq16_tile's). Every thread of the block calls it.
+template <bool PAIRS, bool GEN, bool DROP, class Split>
+__device__ __forceinline__ void dkv16_tile(const Bwd16Tiles& s,
+                                           const Bwd16Row& w, int k0, int nk,
+                                           const int* qix, int q0, int total,
+                                           float scale, const Split& kept) {
   using tile::bf16;
-  constexpr int HD = LONG16_HD;
-  extern __shared__ float4 smem4[];
-  const Tiles16 s(smem4);
-  const long b = blockIdx.x;
-  const int h = blockIdx.y, H = gridDim.y, t = threadIdx.x;
-  const int z = blockIdx.z;
-  const long d3 = 3L * d, base = b * S;
-  const bf16* row = qkv + base * d3 + h * HD;
-  const bf16* grow = gout + base * d + h * HD;
-  bf16* drow = dqkv + base * d3 + h * HD;
+  constexpr int LD = LONG16_LD, NTH = LONG16_THREADS, NS = BWD16_STAGES;
+  const int t = threadIdx.x, lane = t & 31, m0 = (t >> 5) * 16;
+  const int g = lane >> 2, q = lane & 3, d = w.d, d3 = 3 * d;
+  const bool live = m0 < nk;  // uniform in the warp
+  const int chunks = (total + T - 1) / T;
+  const float sl = scale * LOG2E;
+  auto tok = [&](int r) -> int {
+    if constexpr (GEN)
+      return qix[r];
+    else
+      return q0 + r;
+  };
+  int ktag[2] = {0, 0};       // GEN: the thread's two keys' tags
+  unsigned cj[2] = {0u, 0u};  // DROP: their parts of the hash
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = m0 + g + 8 * r;
+    if constexpr (GEN) ktag[r] = j < nk ? s.tg[k0 + j] : -1;
+    if constexpr (DROP) cj[r] = kept.col(k0 + j);
+  }
 
-  const uint4 z4 = make_uint4(0u, 0u, 0u, 0u);
-  for (int idx = t; idx < T * 4; idx += blockDim.x) {  // padding keys
-    const int j = z * T + (idx >> 2), c = (idx & 3) * 8;
-    if (j < S && tags.ktag(base, j) < 0) {
-      *reinterpret_cast<uint4*>(drow + j * d3 + d + c) = z4;
-      *reinterpret_cast<uint4*>(drow + j * d3 + 2 * d + c) = z4;
+  auto stage_k = [&] {
+    for (int idx = t; idx < T * 4; idx += NTH) {
+      const int r = idx >> 2, c = (idx & 3) * 8;
+      const bool ok = r < nk;
+      const long tk = ok ? k0 + r : 0;
+      tile::cp16(s.X0 + r * LD + c, w.qkv + tk * d3 + d + c, ok);
+      tile::cp16(s.X1 + r * LD + c, w.qkv + tk * d3 + 2 * d + c, ok);
     }
-  }
-  auto sel = [&](int j) { return tags.ktag(base, j) >= 0; };
-  int total;
-  const int before = rank_keys(S, sel, s.scan, total);
-  const int r0 = z * T;
-  if (r0 >= total) return;  // uniform: no chunk z
-  const int nk = min(T, total - r0);
-  list_keys(S, sel, before, r0, s.kix);
-  __syncthreads();
-  stage16(s.X0, s.X1, row + d, d3, row + 2 * d, d3,
-          [&](int r) { return (long)s.kix[r]; }, nk);
-  int tag = -1;
-  if (t < T) {
-    tag = t < nk ? tags.ktag(base, s.kix[t]) : -1;
-    s.otag[t] = tag;
-  }
-  int kmin, kmax;
-  block_range(tag, s.range, kmin, kmax);  // kmax >= 0: nk > 0
-  cp_wait();
-  __syncthreads();
-
-  const int lane = t & 31, m0 = (t >> 5) * 16, g = lane >> 2, q = lane & 3;
-  unsigned ka[2][4], va[2][4];
-  a_rows16(ka, s.X0, m0);
-  a_rows16(va, s.X1, m0);
-  const int ktg[2] = {s.otag[m0 + g], s.otag[m0 + g + 8]};
-  const bool ok0 = m0 + g < nk, ok1 = m0 + g + 8 < nk;
-  const int kj[2] = {ok0 ? s.kix[m0 + g] : 0, ok1 ? s.kix[m0 + g + 8] : 0};
+  };
+  // queries r0 .. r0 + T - 1 (zeros from total on) into chunk buffer
+  // `slot`: Q rows with the query's record in their padding, dO rows
+  auto stage_part = [&](int slot, int r0) {
+    bf16* Qd = s.Y0 + slot * T * LD;
+    bf16* Gd = s.Y1 + slot * T * LD;
+    for (int idx = t; idx < T * 4; idx += NTH) {
+      const int r = idx >> 2, c = (idx & 3) * 8;
+      const bool ok = r0 + r < total;
+      const long tk = ok ? tok(r0 + r) : 0;
+      tile::cp16(Qd + r * LD + c, w.qkv + tk * d3 + c, ok);
+      tile::cp16(Gd + r * LD + c, w.gout + tk * d + c, ok);
+      if (c == 0)
+        tc::cp16(reinterpret_cast<float*>(Qd + r * LD + LONG16_HD),
+                 reinterpret_cast<const float*>(w.rec + tk), ok);
+    }
+  };
   float dk[4][4] = {}, dv[4][4] = {};
-  const auto kept = keep.row(b, h, H, S);  // the row's seed, once
-  for (int q0 = 0; q0 < S; q0 += T) {
-    const int nq = min(T, S - q0);
-    int qt = -1;
-    if (t < nq) qt = tags.qtag(base, q0 + t);
-    if (!__syncthreads_or(qt >= kmin && qt <= kmax)) continue;  // uniform
-    stage16(s.Y0, s.Y1, row, d3, grow, d,
-            [&](int r) { return (long)(q0 + r); }, nq);
-    if (t < T) {
-      float m = 0.f, li = 0.f, de = 0.f;
-      if (qt >= 0) {
-        const long at = (base + q0 + t) * H + h;
-        m = stat_m[at];
-        li = 1.f / fmaxf(stat_l[at], 1e-16f);
-        de = delta[at];
-      }
-      s.wtag[t] = qt;
-      s.m[t] = m;
-      s.li[t] = li;
-      s.de[t] = de;
-    }
-    cp_wait();
-    __syncthreads();
-    const int nqt = (nq + 15) >> 4;
-    for (int it = 0; it < nqt; ++it) {  // 16 queries a step
+  // The chunk in buffer `slot` (queries r0..): dV += P_drop^T dO and dK +=
+  // dS^T Q over its 16-query tiles; a zero row (past the run) has a zero
+  // record, so its p is 0; FULL: the chunk is whole.
+  auto chunk = [&](int slot, int r0, auto whole) {
+    constexpr bool FULL = decltype(whole)::value;
+    const bf16* Qc = s.Y0 + slot * T * LD;
+    const bf16* Gc = s.Y1 + slot * T * LD;
+    const int nq = FULL ? T : min(T, total - r0);
+    const int nqt = FULL ? 4 : (nq + 15) >> 4;
+    unsigned ka[2][4], va[2][4];
+    a_rows16(ka, s.X0, m0);  // reread a chunk: no registers held
+    a_rows16(va, s.X1, m0);
+#pragma unroll 1
+    for (int it = 0; it < 4; ++it) {
+      if (it >= nqt) break;
       float pd[2][4], ds[2][4];
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
         const int i0 = 16 * it + 8 * hf;
         float sc[4], tp[4];
-        dots8(sc, ka, s.Y0, i0);  // s^T: keys x queries
-        dots8(tp, va, s.Y1, i0);  // dp^T
+        dots8(sc, ka, Qc, i0);  // s^T: keys x queries
+        dots8(tp, va, Gc, i0);  // dp^T
+        float4 rq[2];           // the two queries' records
+        int qt[2] = {0, 0};     // GEN: their tags
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const int i = i0 + 2 * q + cc;
+          rq[cc] = *reinterpret_cast<const float4*>(Qc + i * LD + LONG16_HD);
+          if constexpr (GEN) qt[cc] = FULL || i < nq ? s.tg[qix[r0 + i]] : -1;
+        }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1, i = i0 + 2 * q + (e & 1), ti = s.wtag[i];
-          float pv = 0.f, dsv = 0.f;
-          if (ti >= 0 && ti == ktg[r]) {
-            const float p = expf(sc[e] * scale - s.m[i]) * s.li[i];
-            float dpv = tp[e];
-            pv = p;
-            if (keep.on) {
-              const bool on = kept(q0 + i, kj[r]);
-              pv = on ? p * keep.inv_keep : 0.f;
-              dpv = on ? dpv * keep.inv_keep : 0.f;
-            }
-            dsv = p * (dpv - s.de[i]) * scale;
+          const int r = e >> 1, cc = e & 1;
+          bool meet = true;
+          if constexpr (GEN) meet = qt[cc] >= 0 && qt[cc] == ktag[r];
+          const float p =
+              meet ? ex2(fmaf(sc[e], sl, -rq[cc].x)) * rq[cc].y : 0.f;
+          float pv = p, dpv = tp[e];  // p = p_undropped / (1 - rate)
+          if constexpr (DROP) {
+            const bool on = kept.keeps(__float_as_uint(rq[cc].w) + cj[r]);
+            pv = on ? p : 0.f;
+            dpv = on ? dpv : 0.f;
           }
           pd[hf][e] = pv;
-          ds[hf][e] = dsv;
+          ds[hf][e] = p * (dpv - rq[cc].z) * scale;
         }
       }
       unsigned pa[4], sa[4];
       tile::a_frag(pa, pd);
       tile::a_frag(sa, ds);
-      times_rows16(dv, pa, s.Y1, 16 * it);
-      times_rows16(dk, sa, s.Y0, 16 * it);
+      times_rows16(dv, pa, Gc, 16 * it);
+      times_rows16(dk, sa, Qc, 16 * it);
     }
-    // the next tile's __syncthreads_or guards Y and the per-query values
+  };
+  auto run_chunk = [&](int slot, int c) {
+    if (total - c * T >= T)
+      chunk(slot, c * T, Bool<true>{});
+    else
+      chunk(slot, c * T, Bool<false>{});
+  };
+
+  if (chunks > 0) {
+    stage_k();  // lands with the first chunk's group
+    if constexpr (PAIRS) {
+      // every query once: chunk c in group c
+      for (int c = 0; c < chunks; ++c) {
+        stage_part(c, c * T);
+        cp_commit();
+      }
+      for (int c = 0; c < chunks; ++c) {
+        cp_wait_upto(chunks - 1 - c);  // chunk c (and K, V) landed
+        __syncthreads();
+        if (live) run_chunk(c, c);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < NS - 1; ++c) {
+        if (c < chunks) stage_part(c, c * T);
+        cp_commit();
+      }
+      for (int c = 0; c < chunks; ++c) {
+        cp_wait_group<NS - 2>();  // chunk c (and K, V) have landed
+        __syncthreads();          // and buffer (c - 1) % NS is free
+        if (c + NS - 1 < chunks)
+          stage_part((c + NS - 1) % NS, (c + NS - 1) * T);
+        cp_commit();
+        if (live) run_chunk(c % NS, c);
+      }
+      cp_wait_group<0>();
+    }
   }
-  bf16* o0 = drow + (long)kj[0] * d3;
-  bf16* o1 = drow + (long)kj[1] * d3;
-  store_pair16(o0 + d, o1 + d, dk, ok0, ok1);
-  store_pair16(o0 + 2 * d, o1 + 2 * d, dv, ok0, ok1);
+  if (!live) return;
+  bf16* o = w.dqkv + (long)(k0 + m0) * d3;
+  tile::store_rows16(o + d, d3, dk, nk - m0);
+  tile::store_rows16(o + 2 * d, d3, dv, nk - m0);
+}
+
+// The positional tiles of a row where an id forms two runs (out of line,
+// so that their registers do not weigh on the runs' tiles; they take only
+// the kernel's arguments and find the rest again): slot z takes tiles z, z
+// + Z, ...; a tile's partners are the tokens whose tag lies between its
+// least and greatest tag, listed by rank once a tile into s0, masked pair
+// by pair. total is 0 for a tile of padding only.
+template <class Fn>
+__device__ __forceinline__ void general_tiles(const Bwd16Tiles& s, int W,
+                                              Fn&& fn) {
+  const int t = threadIdx.x;
+  for (int zt = blockIdx.z; zt * LONG_T < W; zt += gridDim.z) {
+    const int r0 = zt * LONG_T, n = min(LONG_T, W - r0);
+    __syncthreads();  // the previous tile's reads of the shared tiles
+    int lo, hi;
+    block_range(t < n ? s.tg[r0 + t] : -1, s.misc + 2, lo, hi);
+    int total = 0;
+    if (hi >= 0) {  // uniform: the tile holds a token that meets another
+      auto sel = [&](int j) {
+        const int k = s.tg[j];
+        return k >= lo && k <= hi;  // lo >= 0
+      };
+      int r = rank_keys(W, sel, s.misc + 4, total);
+      const int per = (W + LONG16_THREADS - 1) / LONG16_THREADS;
+      const int j0 = min(W, t * per), j1 = min(W, j0 + per);
+      for (int j = j0; j < j1; ++j)  // the partner list, once a tile
+        if (sel(j)) s.s0[r++] = j;
+      __syncthreads();
+    }
+    fn(r0, n, total);
+  }
+}
+
+template <bool PAIRS, bool DROP, class Keep>
+__device__ __noinline__ void dq16_general(
+    const tile::bf16* __restrict__ qkv, const tile::bf16* __restrict__ out,
+    const tile::bf16* __restrict__ gout, const float* __restrict__ stat_m,
+    const float* __restrict__ stat_l, float* __restrict__ rec,
+    tile::bf16* __restrict__ dqkv, int W, int d, float scale, Keep keep) {
+  extern __shared__ float4 smem4[];
+  const Bwd16Tiles s(smem4, W, PAIRS);
+  const Bwd16Row w(qkv, out, gout, stat_m, stat_l, rec, dqkv, W, d);
+  const auto kept = keep.split(blockIdx.x, blockIdx.y, gridDim.y, W);
+  general_tiles(s, W, [&](int q0, int nq, int total) {
+    dq16_tile<PAIRS, true, DROP>(s, w, q0, nq, s.s0, 0, total, scale, kept,
+                                 keep.inv_keep);
+  });
+}
+
+template <bool PAIRS, bool DROP, class Keep>
+__device__ __noinline__ void dkv16_general(
+    const tile::bf16* __restrict__ qkv, const tile::bf16* __restrict__ gout,
+    float* __restrict__ rec, tile::bf16* __restrict__ dqkv, int W, int d,
+    float scale, Keep keep) {
+  extern __shared__ float4 smem4[];
+  const Bwd16Tiles s(smem4, W, PAIRS);
+  const Bwd16Row w(qkv, nullptr, gout, nullptr, nullptr, rec, dqkv, W, d);
+  const auto kept = keep.split(blockIdx.x, blockIdx.y, gridDim.y, W);
+  general_tiles(s, W, [&](int k0, int nk, int total) {
+    dkv16_tile<PAIRS, true, DROP>(s, w, k0, nk, s.s0, 0, total, scale,
+                                  kept);
+  });
+}
+
+// The row's tags into shared memory and its runs: false where an id forms
+// two runs. Every thread of the block calls it.
+__device__ __forceinline__ bool bwd16_runs(const Bwd16Tiles& s,
+                                           const int* __restrict__ seg,
+                                           int W) {
+  for (int i = threadIdx.x; i <= W; i += LONG16_THREADS)
+    s.tg[i] = i < W ? seg[(long)blockIdx.x * W + i] : -1;
+  return !tile::find_runs(s.tg, W, s.s0, s.len, s.misc);
+}
+
+// The runs' 64-token tiles of a row whose ids each form one run, this
+// slot's in turn: fn(first token of the tile, its tokens, the run's first
+// token, the run's length). Before, the slot's share of the row's padding
+// tokens goes to zero(token).
+template <class Zero, class Fn>
+__device__ __forceinline__ void run_tiles(const Bwd16Tiles& s, int W,
+                                          Zero&& zero, Fn&& fn) {
+  const int t = threadIdx.x, z = blockIdx.z, Z = gridDim.z;
+  {  // this slot's share of the row's padding tokens
+    const int per = (W + Z - 1) / Z, p0 = min(W, z * per);
+    const int p1 = min(W, p0 + per);
+    for (int idx = t; idx < (p1 - p0) * 4; idx += LONG16_THREADS) {
+      const int i = p0 + (idx >> 2);
+      if (s.tg[i] < 0) zero(i, (idx & 3) * 8);
+    }
+  }
+  const int runs = s.misc[0];
+  for (int it = z;; it += Z) {
+    int k = 0, first = 0;
+    for (; k < runs; ++k) {
+      const int n = (s.len[k] + LONG_T - 1) / LONG_T;
+      if (it < first + n) break;
+      first += n;
+    }
+    if (k == runs) break;
+    const int k0 = s.s0[k], n = s.len[k], r0 = k0 + (it - first) * LONG_T;
+    __syncthreads();  // the previous tile's reads of the shared tiles
+    fn(r0, min(LONG_T, k0 + n - r0), k0, n);
+  }
 }
 
 }  // namespace lr
 
-// The two __global__ kernels of a caller's bf16 pair (its own, with its
-// own launch bounds) over lr::long_dq16 and lr::long_dkv16.
-template <class Tags, class Keep>
-using LongDq16 = void (*)(const tile::bf16*, Tags, const tile::bf16*,
-                          const tile::bf16*, const float*, const float*,
-                          float*, tile::bf16*, int, int, float, Keep);
-template <class Tags, class Keep>
-using LongDkv16 = void (*)(const tile::bf16*, Tags, const tile::bf16*,
-                           const float*, const float*, const float*,
-                           tile::bf16*, int, int, float, Keep);
+// dq: one block of four warps per (row, head, tile slot) on rows of W
+// tokens, seg [B, W] the graph ids: dq of every token (0 for padding) and
+// the records rec [B, H, W, 4] the dk/dv kernel reads (m log2(e), 1/l,
+// delta, the hash's row part). PAIRS: K2 (delta from the pairs, keys staged
+// whole); else K3 (delta = dO . O, keys through the ring).
+template <bool PAIRS, bool DROP, class Keep>
+__device__ __forceinline__ void long_dq16(
+    const tile::bf16* __restrict__ qkv, const int* __restrict__ seg,
+    const tile::bf16* __restrict__ out, const tile::bf16* __restrict__ gout,
+    const float* __restrict__ stat_m, const float* __restrict__ stat_l,
+    float* __restrict__ rec, tile::bf16* __restrict__ dqkv, int W, int d,
+    float scale, Keep keep) {
+  using namespace lr;
+  extern __shared__ float4 smem4[];
+  const Bwd16Tiles s(smem4, W, PAIRS);
+  if (!bwd16_runs(s, seg, W)) {  // an id in two runs
+    dq16_general<PAIRS, DROP>(qkv, out, gout, stat_m, stat_l, rec, dqkv, W, d,
+                              scale, keep);
+    return;
+  }
+  const Bwd16Row w(qkv, out, gout, stat_m, stat_l, rec, dqkv, W, d);
+  const auto kept = keep.split(blockIdx.x, blockIdx.y, gridDim.y, W);
+  run_tiles(
+      s, W,
+      [&](int i, int c) {
+        *reinterpret_cast<uint4*>(w.dqkv + (long)i * 3 * d + c) =
+            make_uint4(0u, 0u, 0u, 0u);
+      },
+      [&](int q0, int nq, int k0, int n) {
+        dq16_tile<PAIRS, false, DROP>(s, w, q0, nq, nullptr, k0, n, scale,
+                                      kept, keep.inv_keep);
+      });
+}
 
-// Launches the bf16 dq kernel, then the dk/dv kernel, on one stream (delta
-// [B, S, H] passes between them). Returns cudaGetLastError() after each.
-template <class Tags, class Keep>
-cudaError_t launch_long_bwd16(LongDq16<Tags, Keep> dq,
-                              LongDkv16<Tags, Keep> dkv,
-                              const tile::bf16* qkv, Tags tags,
+// dk, dv: one block of four warps per (row, head, tile slot): dk and dv of
+// every token (0 for padding) from the dq kernel's records.
+template <bool PAIRS, bool DROP, class Keep>
+__device__ __forceinline__ void long_dkv16(
+    const tile::bf16* __restrict__ qkv, const int* __restrict__ seg,
+    const tile::bf16* __restrict__ gout, float* __restrict__ rec,
+    tile::bf16* __restrict__ dqkv, int W, int d, float scale, Keep keep) {
+  using namespace lr;
+  extern __shared__ float4 smem4[];
+  const Bwd16Tiles s(smem4, W, PAIRS);
+  if (!bwd16_runs(s, seg, W)) {
+    dkv16_general<PAIRS, DROP>(qkv, gout, rec, dqkv, W, d, scale, keep);
+    return;
+  }
+  const Bwd16Row w(qkv, nullptr, gout, nullptr, nullptr, rec, dqkv, W, d);
+  const auto kept = keep.split(blockIdx.x, blockIdx.y, gridDim.y, W);
+  run_tiles(
+      s, W,
+      [&](int i, int c) {
+        tile::bf16* o = w.dqkv + (long)i * 3 * d + c;
+        *reinterpret_cast<uint4*>(o + d) = make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(o + 2 * d) = make_uint4(0u, 0u, 0u, 0u);
+      },
+      [&](int k0, int nk, int r0, int n) {
+        dkv16_tile<PAIRS, false, DROP>(s, w, k0, nk, nullptr, r0, n, scale,
+                                       kept);
+      });
+}
+
+// The two __global__ kernels of a caller's bf16 pair (its own, with its
+// own launch bounds) over long_dq16 and long_dkv16.
+template <class Keep>
+using Dq16 = void (*)(const tile::bf16*, const int*, const tile::bf16*,
+                      const tile::bf16*, const float*, const float*, float*,
+                      tile::bf16*, int, int, float, Keep);
+template <class Keep>
+using Dkv16 = void (*)(const tile::bf16*, const int*, const tile::bf16*,
+                       float*, tile::bf16*, int, int, float, Keep);
+
+// Launches the bf16 dq kernel, then the dk/dv kernel, on one stream (the
+// records rec [B, H, W, 4] pass between them), at the wrapper's launch L
+// (checked by the caller with bwd16_launch_ok). Returns cudaGetLastError()
+// after each.
+template <class Keep>
+cudaError_t launch_long_bwd16(Dq16<Keep> dq, Dkv16<Keep> dkv,
+                              const tile::bf16* qkv, const int* seg,
                               const tile::bf16* out, const tile::bf16* gout,
                               const float* stat_m, const float* stat_l,
-                              float* delta, tile::bf16* dqkv, int B, int S,
-                              int d, int H, Keep keep, cudaStream_t stream) {
+                              float* rec, tile::bf16* dqkv, int W, int d,
+                              const tile::Launch& L, Keep keep,
+                              cudaStream_t stream) {
   const float scale = 1.f / sqrtf((float)LONG16_HD);
-  const dim3 grid(B, H, (S + LONG_T - 1) / LONG_T);
-  dq<<<grid, LONG16_THREADS, long16_bytes(), stream>>>(
-      qkv, tags, out, gout, stat_m, stat_l, delta, dqkv, S, d, scale, keep);
+  const dim3 grid(L.gx, L.gy, L.gz);
+  dq<<<grid, L.threads, L.smem, stream>>>(qkv, seg, out, gout, stat_m, stat_l,
+                                          rec, dqkv, W, d, scale, keep);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dkv<<<grid, LONG16_THREADS, long16_bytes(), stream>>>(
-      qkv, tags, gout, stat_m, stat_l, delta, dqkv, S, d, scale, keep);
+  dkv<<<grid, L.threads, L.smem, stream>>>(qkv, seg, gout, rec, dqkv, W, d,
+                                           scale, keep);
   return cudaGetLastError();
 }
 

@@ -94,20 +94,6 @@ __host__ inline bool long_fwd_launch_ok(const tile::Launch& L, int B, int S,
          L.smem == long_fwd_bytes(hd) && L.smem <= tile::SMEM_MAX;
 }
 
-namespace lr {
-
-// cp.async groups: close the copies issued so far into one group; wait
-// until at most N groups are still in flight.
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait_group() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-}  // namespace lr
-
 // The shared tiles of the long forward.
 template <int HD>
 struct FwdTiles {
@@ -418,26 +404,6 @@ __host__ inline bool fwd16_launch_ok(const tile::Launch& L, int B, int W,
 
 namespace lr {
 
-template <bool B>
-struct Bool {  // a compile-time flag as an argument
-  static constexpr bool value = B;
-};
-
-// At most n cp.async groups still in flight (above 7: 7, which waits for
-// more).
-__device__ __forceinline__ void cp_wait_upto(int n) {
-  switch (n) {
-    case 0: cp_wait_group<0>(); break;
-    case 1: cp_wait_group<1>(); break;
-    case 2: cp_wait_group<2>(); break;
-    case 3: cp_wait_group<3>(); break;
-    case 4: cp_wait_group<4>(); break;
-    case 5: cp_wait_group<5>(); break;
-    case 6: cp_wait_group<6>(); break;
-    default: cp_wait_group<7>(); break;
-  }
-}
-
 // The shared memory of a block of the bf16 long forward.
 struct Fwd16Tiles {
   tile::bf16 *Q, *K, *V;  // LONG_T query rows; the staged key rows
@@ -458,26 +424,6 @@ struct Fwd16Tiles {
     misc = len + W;
   }
 };
-
-constexpr float LOG2E = 1.4426950408889634f;
-
-// e^x for x = s - m, given s and ml = m log2(e): one FFMA and the SFU's
-// ex2 (relative error below 2^-22; e^-inf = 0), as flash attention
-// kernels take it, in place of expf's dozen instructions a pair.
-__device__ __forceinline__ float exp_ml(float s, float ml) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(fmaf(s, LOG2E, -ml)));
-  return y;
-}
-
-// 1 / x for x >= 1e-16 (the normalisers): the SFU's reciprocal, within an
-// ulp, with no call into the division's slow path (whose register saves
-// would spill)
-__device__ __forceinline__ float rcp(float x) {
-  float y;
-  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // The scaled scores of one 16-key tile (keys k0..) of a staged chunk as
 // tile::scores16 computes them, -inf for the keys from nk on (past the run;

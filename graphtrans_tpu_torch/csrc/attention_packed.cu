@@ -43,8 +43,9 @@
 // of 129-384 the bf16 long forward (attention_fwd.cuh: long_fwd16, query
 // tiles inside one graph's run, the run's keys staged once for both
 // sweeps, p normalised before it is rounded) and the bf16 long pair
-// (attention_bwd.cuh: long_dq16, long_dkv16, seg as both tags, delta
-// summed from the pairs), as the JAX kernel in bf16.
+// (attention_bwd.cuh: long_dq16, long_dkv16, query and key tiles inside
+// one graph's run, a tile's partners staged once, delta summed from the
+// pairs), as the JAX kernel in bf16.
 // What it replaces: one block per (row, head) with one thread per query
 // walking all W keys of the row, each key one hd-long dependent FMA chain,
 // other graphs' keys skipped only after their tag was read, the whole
@@ -397,10 +398,11 @@ attention_seg_bwd_bf16_kernel(const tile::bf16* __restrict__ qkv,
 // K2's bf16 instances on wider rows (129-384, code2's 384 tier): the bf16
 // long forward (attention_fwd.cuh: long_fwd16, a tile's keys staged whole
 // and walked twice from shared memory, p normalised before it is rounded)
-// and the bf16 long pair (attention_bwd.cuh: long_dq16 with delta summed
-// from the pairs, long_dkv16), seg as both tags. Registers for three
-// blocks an SM forward (its shared memory allows three at W 384; up to 168
-// registers a thread, so that nothing spills), four backward.
+// and the bf16 long pair (attention_bwd.cuh: long_dq16 and long_dkv16 with
+// PAIRS, delta summed from the pairs, tiles inside one graph's run, a
+// tile's partners staged whole). Registers for three blocks an SM (their
+// shared memory allows three at W 384; up to 168 registers a thread, so
+// that nothing spills).
 template <bool DROP, bool STATS>
 __global__ void __launch_bounds__(attn::LONG16_THREADS, 3)
 attention_seg_fwd_long_bf16_kernel(const tile::bf16* __restrict__ qkv,
@@ -413,31 +415,30 @@ attention_seg_fwd_long_bf16_kernel(const tile::bf16* __restrict__ qkv,
                                       scale, dr);
 }
 
-__global__ void __launch_bounds__(attn::LONG16_THREADS, 4)
+template <bool DROP>
+__global__ void __launch_bounds__(attn::LONG16_THREADS, 3)
 attention_seg_bwd_dq_bf16_kernel(const tile::bf16* __restrict__ qkv,
-                                 attn::SegTags tags,
+                                 const int* __restrict__ seg,
                                  const tile::bf16* __restrict__ out,
                                  const tile::bf16* __restrict__ gout,
                                  const float* __restrict__ stat_m,
                                  const float* __restrict__ stat_l,
-                                 float* __restrict__ delta,
+                                 float* __restrict__ rec,
                                  tile::bf16* __restrict__ dqkv, int W, int d,
                                  float scale, Dropout dr) {
-  attn::lr::long_dq16<true>(qkv, tags, out, gout, stat_m, stat_l, delta, dqkv,
-                            W, d, scale, dr);
+  attn::long_dq16<true, DROP>(qkv, seg, out, gout, stat_m, stat_l, rec, dqkv,
+                              W, d, scale, dr);
 }
 
-__global__ void __launch_bounds__(attn::LONG16_THREADS, 4)
+template <bool DROP>
+__global__ void __launch_bounds__(attn::LONG16_THREADS, 3)
 attention_seg_bwd_dkv_bf16_kernel(const tile::bf16* __restrict__ qkv,
-                                  attn::SegTags tags,
+                                  const int* __restrict__ seg,
                                   const tile::bf16* __restrict__ gout,
-                                  const float* __restrict__ stat_m,
-                                  const float* __restrict__ stat_l,
-                                  const float* __restrict__ delta,
+                                  float* __restrict__ rec,
                                   tile::bf16* __restrict__ dqkv, int W, int d,
                                   float scale, Dropout dr) {
-  attn::lr::long_dkv16(qkv, tags, gout, stat_m, stat_l, delta, dqkv, W, d,
-                       scale, dr);
+  attn::long_dkv16<true, DROP>(qkv, seg, gout, rec, dqkv, W, d, scale, dr);
 }
 
 // K2's backward on wider rows: the long-row pair (dq, then dk/dv).
@@ -586,9 +587,8 @@ cudaError_t allow_smem(Kernel k, int bytes) {
 
 // Launches K2's bf16 forward or backward after checking the wrapper's
 // seg_bf16_geometry (instance 1: rows of up to SEG_TILE_MAX on the tile
-// bodies; 3: wider rows on the bf16 long bodies); the attributes of the
-// tile kernels and of the long forward are set once, before the first
-// launch (the long pair takes under 48 KB and needs none).
+// bodies; 3: wider rows on the bf16 long bodies); the attributes of each
+// kernel are set once, before its first launch.
 template <bool DROP, bool STATS>
 int launch_seg_fwd_bf16(const tile::bf16* qkv, const int* seg,
                         tile::bf16* out, float* stat_m, float* stat_l, int R,
@@ -615,6 +615,27 @@ int launch_seg_fwd_bf16(const tile::bf16* qkv, const int* seg,
   return cudaGetLastError();
 }
 
+// The bf16 long pair on K2's rows of 129-384 (launch checked by the
+// caller); the kernels' attributes are set once, before their first launch.
+template <bool DROP>
+int launch_seg_bwd_long16(const tile::bf16* qkv, const int* seg,
+                          const tile::bf16* out, const tile::bf16* gout,
+                          const float* stat_m, const float* stat_l,
+                          float* rec, tile::bf16* dqkv, int W, int d,
+                          Dropout dr, const Launch& L, cudaStream_t stream) {
+  const auto dq = attention_seg_bwd_dq_bf16_kernel<DROP>;
+  const auto dkv = attention_seg_bwd_dkv_bf16_kernel<DROP>;
+  static const cudaError_t set = [&] {
+    const cudaError_t e = allow_smem(dq, attn::bwd16_bytes(W_MAX, true));
+    return e != cudaSuccess ? e
+                            : allow_smem(dkv, attn::bwd16_bytes(W_MAX, true));
+  }();
+  if (set != cudaSuccess) return set;
+  return attn::launch_long_bwd16<Dropout>(dq, dkv, qkv, seg, out, gout,
+                                          stat_m, stat_l, rec, dqkv, W, d, L,
+                                          dr, stream);
+}
+
 int launch_seg_bwd_bf16(const tile::bf16* qkv, const int* seg,
                         const tile::bf16* out, const tile::bf16* gout,
                         const float* stat_m, const float* stat_l,
@@ -623,12 +644,14 @@ int launch_seg_bwd_bf16(const tile::bf16* qkv, const int* seg,
                         cudaStream_t stream) {
   if (L.instance == 3) {
     if (W <= SEG_TILE_MAX || delta == nullptr ||
-        !attn::long16_launch_ok(L, R, W, H, attn::long16_bytes()))
+        !attn::bwd16_launch_ok(L, R, W, H, true))
       return cudaErrorInvalidValue;
-    return attn::launch_long_bwd16<attn::SegTags, Dropout>(
-        attention_seg_bwd_dq_bf16_kernel, attention_seg_bwd_dkv_bf16_kernel,
-        qkv, attn::SegTags{seg, seg}, out, gout, stat_m, stat_l, delta, dqkv,
-        R, W, d, H, dr, stream);
+    return dr.on ? launch_seg_bwd_long16<true>(qkv, seg, out, gout, stat_m,
+                                               stat_l, delta, dqkv, W, d, dr,
+                                               L, stream)
+                 : launch_seg_bwd_long16<false>(qkv, seg, out, gout, stat_m,
+                                                stat_l, delta, dqkv, W, d, dr,
+                                                L, stream);
   }
   if (!seg16_launch_ok(L, R, W, H, true)) return cudaErrorInvalidValue;
   static const cudaError_t set = allow_smem(
@@ -779,9 +802,9 @@ extern "C" int attention_seg_bwd(const float* qkv, const int* seg,
 // l float; rows of up to 128 tokens take the tile instance, rows of
 // 129-384 the long one (seg_bf16_geometry); the arguments as
 // attention_seg_fwd's and attention_seg_bwd's (the backward reads no out:
-// its delta is summed from the pairs; delta [R, W, H] is the long pair's
-// scratch, null for the tile instance). A launch these cannot run is
-// refused.
+// its delta is summed from the pairs; delta is the long pair's scratch,
+// its records [R, H, W, 4] floats, null for the tile instance). A launch
+// these cannot run is refused.
 extern "C" int attention_seg_fwd_bf16(const tile::bf16* qkv, const int* seg,
                                       tile::bf16* out, float* stat_m,
                                       float* stat_l, int R, int W, int d,
@@ -828,14 +851,13 @@ extern "C" int attention_seg_bwd_bf16(const tile::bf16* qkv, const int* seg,
                              R, W, d, H, dr, L, stream);
 }
 
-// The residency of K2's bf16 long forward (its training launch, with
-// dropout and statistics) at `smem` shared bytes a block: registers a
-// thread, local memory a thread (spills), blocks an SM.
-extern "C" int attention_seg_fwd_long_bf16_residency(int smem, int* regs,
-                                                     int* local,
-                                                     int* blocks) {
-  const auto k = attention_seg_fwd_long_bf16_kernel<true, true>;
-  cudaError_t e = allow_smem(k, attn::fwd16_bytes(W_MAX, true));
+// The residency of kernel k, which may take up to `most` shared bytes, at
+// `smem` shared bytes a block: registers a thread, local memory a thread
+// (spills), blocks an SM.
+template <class Kernel>
+int residency(Kernel k, int most, int smem, int* regs, int* local,
+              int* blocks) {
+  cudaError_t e = allow_smem(k, most);
   cudaFuncAttributes a;
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, k);
   if (e != cudaSuccess) return e;
@@ -843,4 +865,37 @@ extern "C" int attention_seg_fwd_long_bf16_residency(int smem, int* regs,
   *local = (int)a.localSizeBytes;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, k, attn::LONG16_THREADS, smem);
+}
+
+// The residency of K2's bf16 long forward (its training launch, with
+// dropout and statistics) at `smem` shared bytes a block.
+extern "C" int attention_seg_fwd_long_bf16_residency(int smem, int* regs,
+                                                     int* local,
+                                                     int* blocks) {
+  return residency(attention_seg_fwd_long_bf16_kernel<true, true>,
+                   attn::fwd16_bytes(W_MAX, true), smem, regs, local, blocks);
+}
+
+// The residency of a kernel of K2's bf16 long pair at `smem` shared bytes a
+// block: `which` 0 the dq kernel, 1 the dk/dv kernel, with dropout (the
+// training launch); 2 and 3 the same without.
+extern "C" int attention_seg_bwd_long_bf16_residency(int which, int smem,
+                                                     int* regs, int* local,
+                                                     int* blocks) {
+  const int most = attn::bwd16_bytes(W_MAX, true);
+  switch (which) {
+    case 0:
+      return residency(attention_seg_bwd_dq_bf16_kernel<true>, most, smem,
+                       regs, local, blocks);
+    case 1:
+      return residency(attention_seg_bwd_dkv_bf16_kernel<true>, most, smem,
+                       regs, local, blocks);
+    case 2:
+      return residency(attention_seg_bwd_dq_bf16_kernel<false>, most, smem,
+                       regs, local, blocks);
+    case 3:
+      return residency(attention_seg_bwd_dkv_bf16_kernel<false>, most, smem,
+                       regs, local, blocks);
+  }
+  return cudaErrorInvalidValue;
 }

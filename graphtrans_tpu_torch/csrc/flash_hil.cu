@@ -38,9 +38,10 @@
 // bf16 (the bf16 step): the bf16 long forward and pair of attention_fwd.cuh
 // and attention_bwd.cuh (long_fwd16 with the online softmax, query tiles
 // inside one graph's run and its keys streamed through a ring of chunk
-// buffers; long_dq16 with delta = dO . O, long_dkv16), rounding where the
-// TPU's MXU rounds under the JAX kernel's Precision.DEFAULT: the
-// unnormalised p, dS and P_drop.
+// buffers; long_dq16 with delta = dO . O and long_dkv16, query and key
+// tiles inside one graph's run, a tile's partners through a ring of chunk
+// buffers), rounding where the TPU's MXU rounds under the JAX kernel's
+// Precision.DEFAULT: the unnormalised p, dS and P_drop.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -154,9 +155,10 @@ flash_hil_bwd_dkv_kernel(const float* __restrict__ qkv, attn::SegTags tags,
 // rounded before P V, as the TPU's MXU rounds it; query tiles of 64
 // inside one graph's run, its keys through a ring of chunk buffers) and
 // the bf16 long pair (attention_bwd.cuh: long_dq16 with delta = dO . O
-// over the rounded output, as _bwd_rule forms it, and long_dkv16), seg as
-// both tags. Registers for four blocks an SM, or three with dropout,
-// whose hash needs more (so that nothing spills).
+// over the rounded output, as _bwd_rule forms it, and long_dkv16; tiles
+// inside one run, its partners through the ring). Registers for four
+// blocks an SM, or three with dropout, whose hash needs more (so that
+// nothing spills); the pair three.
 template <bool DROP, bool STATS>
 __global__ void __launch_bounds__(attn::LONG16_THREADS, DROP ? 3 : 4)
 flash_hil_fwd_bf16_kernel(const tile::bf16* __restrict__ qkv,
@@ -169,31 +171,67 @@ flash_hil_fwd_bf16_kernel(const tile::bf16* __restrict__ qkv,
                                        scale, dr);
 }
 
-__global__ void __launch_bounds__(attn::LONG16_THREADS, 4)
+template <bool DROP>
+__global__ void __launch_bounds__(attn::LONG16_THREADS, 3)
 flash_hil_bwd_dq_bf16_kernel(const tile::bf16* __restrict__ qkv,
-                             attn::SegTags tags,
+                             const int* __restrict__ seg,
                              const tile::bf16* __restrict__ out,
                              const tile::bf16* __restrict__ gout,
                              const float* __restrict__ stat_m,
                              const float* __restrict__ stat_l,
-                             float* __restrict__ delta,
+                             float* __restrict__ rec,
                              tile::bf16* __restrict__ dqkv, int W, int d,
                              float scale, Dropout dr) {
-  attn::lr::long_dq16<false>(qkv, tags, out, gout, stat_m, stat_l, delta,
-                             dqkv, W, d, scale, dr);
+  attn::long_dq16<false, DROP>(qkv, seg, out, gout, stat_m, stat_l, rec,
+                               dqkv, W, d, scale, dr);
 }
 
-__global__ void __launch_bounds__(attn::LONG16_THREADS, 4)
+template <bool DROP>
+__global__ void __launch_bounds__(attn::LONG16_THREADS, 3)
 flash_hil_bwd_dkv_bf16_kernel(const tile::bf16* __restrict__ qkv,
-                              attn::SegTags tags,
+                              const int* __restrict__ seg,
                               const tile::bf16* __restrict__ gout,
-                              const float* __restrict__ stat_m,
-                              const float* __restrict__ stat_l,
-                              const float* __restrict__ delta,
+                              float* __restrict__ rec,
                               tile::bf16* __restrict__ dqkv, int W, int d,
                               float scale, Dropout dr) {
-  attn::lr::long_dkv16(qkv, tags, gout, stat_m, stat_l, delta, dqkv, W, d,
-                       scale, dr);
+  attn::long_dkv16<false, DROP>(qkv, seg, gout, rec, dqkv, W, d, scale, dr);
+}
+
+// The bf16 pair's launch (flash_hil.py:bwd_geometry mirrors it): a block
+// of four warps per (row, head, tile slot), ceil(W / 64) + 1 slots a row,
+// the partners through the ring; the kernels may take up to
+// tile::SMEM_MAX bytes of dynamic shared memory, set once, before their
+// first launch.
+template <bool DROP>
+int launch_bwd_bf16(const tile::bf16* qkv, const int* seg,
+                    const tile::bf16* out, const tile::bf16* gout,
+                    const float* stat_m, const float* stat_l, float* rec,
+                    tile::bf16* dqkv, int R, int W, int d, int H, Dropout dr,
+                    cudaStream_t stream) {
+  const tile::Launch L{3,
+                       attn::LONG_T,
+                       1,
+                       R,
+                       H,
+                       (W + attn::LONG_T - 1) / attn::LONG_T + 1,
+                       attn::LONG16_THREADS,
+                       attn::bwd16_bytes(W, false)};
+  if (!attn::bwd16_launch_ok(L, R, W, H, false)) return cudaErrorInvalidValue;
+  const auto dq = flash_hil_bwd_dq_bf16_kernel<DROP>;
+  const auto dkv = flash_hil_bwd_dkv_bf16_kernel<DROP>;
+  static const cudaError_t set = [&] {
+    const cudaError_t e = cudaFuncSetAttribute(
+        dq, cudaFuncAttributeMaxDynamicSharedMemorySize, tile::SMEM_MAX);
+    return e != cudaSuccess
+               ? e
+               : cudaFuncSetAttribute(
+                     dkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                     tile::SMEM_MAX);
+  }();
+  if (set != cudaSuccess) return set;
+  return attn::launch_long_bwd16<Dropout>(dq, dkv, qkv, seg, out, gout,
+                                          stat_m, stat_l, rec, dqkv, W, d, L,
+                                          dr, stream);
 }
 
 // The bf16 forward's launch, as flash_hil.py:fwd_geometry gives it for
@@ -321,6 +359,7 @@ extern "C" int flash_hil_fwd_bf16(const tile::bf16* qkv, const int* seg,
                                        H, dr, L, stream);
 }
 
+// delta is the bf16 pair's scratch: its records [R, H, W, 4] floats.
 extern "C" int flash_hil_bwd_bf16(const tile::bf16* qkv, const int* seg,
                                   const tile::bf16* out,
                                   const tile::bf16* gout, const float* stat_m,
@@ -330,18 +369,18 @@ extern "C" int flash_hil_bwd_bf16(const tile::bf16* qkv, const int* seg,
                                   int seed, cudaStream_t stream) {
   if (d != H * 32 || R <= 0 || W <= 0) return cudaErrorInvalidValue;
   const Dropout dr = make_dropout(drop, thresh, inv_keep, seed);
-  return attn::launch_long_bwd16<attn::SegTags, Dropout>(
-      flash_hil_bwd_dq_bf16_kernel, flash_hil_bwd_dkv_bf16_kernel, qkv,
-      attn::SegTags{seg, seg}, out, gout, stat_m, stat_l, delta, dqkv, R, W, d,
-      H, dr, stream);
+  if (drop)
+    return launch_bwd_bf16<true>(qkv, seg, out, gout, stat_m, stat_l, delta,
+                                 dqkv, R, W, d, H, dr, stream);
+  return launch_bwd_bf16<false>(qkv, seg, out, gout, stat_m, stat_l, delta,
+                                dqkv, R, W, d, H, dr, stream);
 }
 
-// The residency of K3's bf16 forward (its training launch, with dropout
-// and statistics) at `smem` shared bytes a block: registers a thread, local
-// memory a thread (spills), blocks an SM.
-extern "C" int flash_hil_fwd_bf16_residency(int smem, int* regs, int* local,
-                                            int* blocks) {
-  const auto k = flash_hil_fwd_bf16_kernel<true, true>;
+// The residency of kernel k at `smem` shared bytes a block (it may take up
+// to tile::SMEM_MAX): registers a thread, local memory a thread (spills),
+// blocks an SM.
+template <class Kernel>
+int residency(Kernel k, int smem, int* regs, int* local, int* blocks) {
   cudaError_t e = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, tile::SMEM_MAX);
   cudaFuncAttributes a;
@@ -351,4 +390,34 @@ extern "C" int flash_hil_fwd_bf16_residency(int smem, int* regs, int* local,
   *local = (int)a.localSizeBytes;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, k, attn::LONG16_THREADS, smem);
+}
+
+// The residency of K3's bf16 forward (its training launch, with dropout
+// and statistics) at `smem` shared bytes a block.
+extern "C" int flash_hil_fwd_bf16_residency(int smem, int* regs, int* local,
+                                            int* blocks) {
+  return residency(flash_hil_fwd_bf16_kernel<true, true>, smem, regs, local,
+                   blocks);
+}
+
+// The residency of a kernel of K3's bf16 pair at `smem` shared bytes a
+// block: `which` 0 the dq kernel, 1 the dk/dv kernel, with dropout (the
+// training launch); 2 and 3 the same without.
+extern "C" int flash_hil_bwd_bf16_residency(int which, int smem, int* regs,
+                                            int* local, int* blocks) {
+  switch (which) {
+    case 0:
+      return residency(flash_hil_bwd_dq_bf16_kernel<true>, smem, regs, local,
+                       blocks);
+    case 1:
+      return residency(flash_hil_bwd_dkv_bf16_kernel<true>, smem, regs, local,
+                       blocks);
+    case 2:
+      return residency(flash_hil_bwd_dq_bf16_kernel<false>, smem, regs, local,
+                       blocks);
+    case 3:
+      return residency(flash_hil_bwd_dkv_bf16_kernel<false>, smem, regs,
+                       local, blocks);
+  }
+  return cudaErrorInvalidValue;
 }

@@ -64,11 +64,15 @@ tiles and stages the run's keys once, a box of consecutive rows, as bf16;
 a warp owns 16 query rows whole; it walks the keys twice from shared
 memory (m and l, then the normalised p rounded once before P V). A row
 where an id forms two runs keeps the positional tiles and the keys ranked
-by tag, listed once a tile. The backward is the long pair
+by tag, listed once a tile. The backward is the bf16 long pair
 (``csrc/attention_bwd.cuh:long_dq16``, ``long_dkv16``, launch
-``long16_geometry``): the dq kernel walks the keys twice (delta summed from
-the pairs, then dS and dQ), a dk/dv kernel over chunks of 64 valid keys
-walks the query tiles.
+``long16_bwd_geometry``), cut the same way: the dq kernel's 64-query tiles
+and the dk/dv kernel's 64-key tiles lie inside one run, and a tile's
+partners, the run's tokens, are staged once as a box of rows. The dq
+kernel walks its keys twice from shared memory (delta summed from the
+pairs, then dS and dQ) and leaves per query a record (m log2(e), 1/l and
+delta with the dropout's scale, the hash's row part, ``long16_records``)
+that the dk/dv kernel copies with its queries' rows.
 
 K4 replaces ``graphtrans_tpu/ops/pallas/attention_packed.py:
 attention_packed_qkv`` (forward ``_call_fwd``, backward ``_call_bwd``, mask
@@ -452,7 +456,10 @@ def attention_seg_bwd(qkv: torch.Tensor, seg: torch.Tensor, nhead: int,
     if dqkv.numel() == 0:
         return dqkv
     geo = _seg_geometry(qkv, nhead, True)
-    delta = torch.empty_like(m) if geo.instance == "long" else None
+    delta = None
+    if geo.instance == "long":   # the long pair's scratch
+        delta = (long16_records(m) if qkv.dtype == torch.bfloat16
+                 else torch.empty_like(m))
     ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
     lib = _load()
     entry = _build.entry(lib, "attention_seg_bwd", qkv.dtype)
@@ -673,33 +680,57 @@ def seg_bf16_geometry(R: int, W: int, nhead: int, bwd: bool) -> Geometry:
     SEG_BF16_THREADS per (row, head), whose warps take the segments'
     16-query tiles (``pad`` the rows staged); wider rows the bf16 long
     forward's (``long16_fwd_geometry``, the keys staged whole) or the bf16
-    long pair's (``long16_geometry``; both kernels of the backward take
-    it)."""
+    long pair's (``long16_bwd_geometry``, the partners staged whole; both
+    kernels of the backward take it)."""
     if W > SEG_TILE_MAX:
-        return (long16_geometry(R, W, nhead) if bwd
+        return (long16_bwd_geometry(R, W, nhead, True) if bwd
                 else long16_fwd_geometry(R, W, nhead, True))
     return Geometry("tile", ((0, W),), seg_bf16_rows(W), 1, (R * nhead, 1, 1),
                     SEG_BF16_THREADS, seg_bf16_bytes(W, bwd))
 
 
 LONG16_THREADS = 128   # four warps, 16 rows each: the bf16 long kernels
+BWD16_STAGES = 3   # K3's bf16 pair: partner chunk buffers of its ring
+BWD16_MISC = 16    # ints of a block's scratch in the bf16 long pair
 
 
-def long16_bytes() -> int:
-    """Shared bytes of a bf16 long kernel (K2's wide rows, K3): four 64-row
-    tiles of SEG_BF16_LD bf16, per query m, 1/l and delta, per row two tags
-    and a token index, the prefix count's scratch
-    (``csrc/attention_bwd.cuh:long16_bytes``)."""
-    return (4 * LONG_T * SEG_BF16_LD * 2 + 6 * LONG_T * 4
-            + (LONG16_THREADS // 32 + 1 + 2) * 4)
+def long16_bwd_rows(W: int, whole: bool) -> int:
+    """Partner rows a block of the bf16 long pair stages: K2's (``whole``)
+    a row's tokens rounded up to whole chunks of LONG_T, K3's ring of
+    BWD16_STAGES chunks (``csrc/attention_bwd.cuh:bwd16_rows``)."""
+    return _round(W, LONG_T) if whole else BWD16_STAGES * LONG_T
 
 
-def long16_geometry(R: int, W: int, nhead: int) -> Geometry:
+def long16_bwd_bytes(W: int, whole: bool) -> int:
+    """Shared bytes of a block of either kernel of the bf16 long pair on rows
+    of W tokens: the tile's own two LONG_T-row slices and the partners' two
+    as bf16 rows of SEG_BF16_LD (a staged Q row carries its query's record
+    in its padding); the row's tags and one past them; its runs' first
+    tokens and lengths; the scratch (``csrc/attention_bwd.cuh:
+    bwd16_bytes``)."""
+    rows = long16_bwd_rows(W, whole)
+    return ((2 * LONG_T + 2 * rows) * SEG_BF16_LD * 2
+            + (3 * W + 1 + BWD16_MISC) * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def long16_bwd_geometry(R: int, W: int, nhead: int, whole: bool) -> Geometry:
     """The launch of each kernel of the bf16 long pair (K2-bwd on rows of
-    129-384, K3-bwd at any width): a block of LONG16_THREADS per (row,
-    head, LONG_T tokens)."""
-    return Geometry("long", ((0, W),), LONG_T, 1, (R, nhead, -(-W // LONG_T)),
-                    LONG16_THREADS, long16_bytes())
+    129-384 with ``whole``, K3-bwd at any width): a block of LONG16_THREADS
+    per (row, head, tile slot), ``pad`` = LONG_T tokens a tile,
+    ceil(W / LONG_T) + 1 slots a row, as the bf16 long forward's."""
+    return Geometry("long", ((0, W),), LONG_T, 1,
+                    (R, nhead, -(-W // LONG_T) + 1), LONG16_THREADS,
+                    long16_bwd_bytes(W, whole))
+
+
+def long16_records(m: torch.Tensor) -> torch.Tensor:
+    """The bf16 long pair's scratch for the statistics m [R, W, H]: per
+    (row, head, token) the record the dq kernel writes and the dk/dv
+    kernel reads (m log2(e), 1 / (l (1 - rate)), delta (1 - rate), the
+    dropout hash's row part), [R, H, W, 4] float32."""
+    R, W, H = m.shape
+    return torch.empty((R, H, W, 4), dtype=torch.float32, device=m.device)
 
 
 FWD16_STAGES = 3   # K3's bf16 forward: chunk buffers of its ring

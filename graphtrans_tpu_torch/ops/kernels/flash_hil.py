@@ -83,11 +83,16 @@ these.) The forward is the bf16 long forward K2's 384 tier runs in bf16
 tiles of 64 inside one graph's run, found on the device, the run's keys
 streamed through a ring of three 64-key chunk buffers by ``cp.async``
 while the tensor cores work, one barrier a chunk; chunks start at the
-run's first token, and p is rounded against the running max. The backward is the bf16 long pair
-(``csrc/attention_bwd.cuh:long_dq16`` with delta = dO . O, ``long_dkv16``):
-bf16 rows by ``cp.async``, a warp 16 query (key) rows whole, every product
-one bf16 ``mma.sync`` with float32 sums, p and dS moved into the next
-product's A fragment in registers. Launches count by dtype in
+run's first token, and p is rounded against the running max. The backward
+is the bf16 long pair (``csrc/attention_bwd.cuh:long_dq16`` with delta =
+dO . O, ``long_dkv16``, launch ``bwd_geometry``, which the C entry
+computes), cut the same way: the dq kernel's query tiles and the dk/dv
+kernel's key tiles lie inside one run, and a tile's partners stream
+through a ring of three chunk buffers (the dk/dv kernel's queries with
+the records the dq kernel leaves: m log2(e), 1/l and delta with the
+dropout's scale, the hash's row part); a warp owns 16 rows whole, every
+product one bf16 ``mma.sync`` with float32 sums, p and dS moved into the
+next product's A fragment in registers. Launches count by dtype in
 ``flash_hil_seg.instances`` and ``flash_hil_seg_bwd.instances``.
 """
 
@@ -101,8 +106,8 @@ import torch
 from . import _build
 from .attention_packed import (HEAD_DIM, Geometry, _stream,
                                attention_seg_plain, keep_threshold,
-                               long16_fwd_geometry, long_fwd_geometry,
-                               seg_mask)
+                               long16_bwd_geometry, long16_fwd_geometry,
+                               long16_records, long_fwd_geometry, seg_mask)
 from .flash_attention import tile_keep_mask
 
 MASK_BQ, MASK_BK = 512, 128   # the JAX kernel's blocks, which seed its mask
@@ -246,6 +251,15 @@ def fwd_geometry(R: int, W: int, nhead: int,
     return long_fwd_geometry(R, W, HEAD_DIM, nhead)
 
 
+def bwd_geometry(R: int, W: int, nhead: int) -> Geometry:
+    """K3-bwd's bf16 launch for R rows of W tokens, each kernel of the bf16
+    long pair: a block of four warps per (row, head, tile slot), its
+    partners through a ring of chunks (``long16_bwd_geometry``). The C
+    entry computes the same launch itself (``csrc/flash_hil.cu:
+    launch_bwd_bf16``), as it computes the f32 pair's."""
+    return long16_bwd_geometry(R, W, nhead, False)
+
+
 def _dropout_args(rate: float, seed: int):
     on = rate > 0.0
     seed32 = (int(seed) + 2**31) % 2**32 - 2**31   # the int32 it wraps to
@@ -352,7 +366,9 @@ def flash_hil_seg_bwd(qkv: torch.Tensor, seg: torch.Tensor, nhead: int,
     if qkv.dtype == torch.bfloat16 and out.data_ptr() % 16:
         raise ValueError("flash_hil_seg_bwd: the forward's bf16 output must "
                          "be 16-byte aligned")
-    delta = torch.empty_like(m)
+    # scratch: delta [R, W, H], or the bf16 pair's records
+    delta = (long16_records(m) if qkv.dtype == torch.bfloat16
+             else torch.empty_like(m))
     lib = _load()
     entry = _build.entry(lib, "flash_hil_bwd", qkv.dtype)
     err = entry(

@@ -2997,22 +2997,37 @@ K2_LONG_ROWS = {
     384: [[129, 128, (127, -1)], [1, 15, 17, 63, 65, 129, 94],
           [(150, 7), 100, (100, 7), (34, -1)], [(384, -1)], [384],
           [193, 191]],
+    # the bf16 long pair's tiles inside runs: runs of a whole number of
+    # 64-token chunks (64, 128, 192), runs of 1 token, and tiles that end
+    # at their run's end beside the next graph's run
+    320: [[128, 1, 64, 127], [64, 64, 1, (191, -1)], [192, 128],
+          [(1, -1), 1, 64, 254]],
 }
+# K3's rows of the same kinds, with runs longer than its ring of three
+# chunks (256, 447, 449)
+K3_RUN_ROWS = {640: [[128, 1, 64, 447], [64, 64, 1, 256, (255, -1)],
+                     [192, 192, 256], [(1, -1), 1, 189, 449]]}
 
 
-def _k2_long_case(W, cuda):
-    seg = torch.full((len(K2_LONG_ROWS[W]), W), -1, dtype=torch.int32)
+def _rows_case(rows, W, seed, cuda):
+    """qkv [len(rows), W, 384] (random) and seg of the rows' runs: n tokens
+    of a new graph id, (n, id) of the given id, (n, -1) padding."""
+    seg = torch.full((len(rows), W), -1, dtype=torch.int32)
     g = 1000
-    for r, runs in enumerate(K2_LONG_ROWS[W]):
+    for r, runs in enumerate(rows):
         s = 0
         for run in runs:
             n, gid = run if isinstance(run, tuple) else (run, None)
             if gid != -1:
                 seg[r, s:s + n] = g if gid is None else gid
             g, s = g + 1, s + n
-    gen = torch.Generator().manual_seed(W + 7)
+    gen = torch.Generator().manual_seed(seed)
     return (torch.randn(len(seg), W, 384, generator=gen).to(cuda, BF16),
             seg.to(cuda))
+
+
+def _k2_long_case(W, cuda):
+    return _rows_case(K2_LONG_ROWS[W], W, W + 7, cuda)
 
 
 def _bf16_pair_check(fwd, bwd, plain, bwd_plain, qkv, seg, H, rate, seed,
@@ -3045,15 +3060,18 @@ def _bf16_pair_check(fwd, bwd, plain, bwd_plain, qkv, seg, H, rate, seed,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("W", [256, 384])
+@pytest.mark.parametrize("W", [256, 384, 320])
 @pytest.mark.parametrize("rate", [0.0, 0.3])
 def test_attention_seg_long_bf16_kernels_match_plain(cuda, W, rate):
     """K2 and K2-bwd's long bf16 instance (rows of 129-384: the bf16 long
     forward, a run's keys staged whole, p normalised before it is rounded,
-    and the bf16 long pair on its out, m and l, delta summed from the
-    pairs) on segments that cross the 16- and 64-token tiles, an id in two
-    runs, an all-padding row, a row of one graph of W tokens and runs of
-    more than 192 tokens, against the plain bf16 versions (the same masks):
+    and the bf16 long pair on its out, m and l, tiles inside one run, a
+    tile's partners staged whole, delta summed from the pairs) on segments
+    that cross the 16- and 64-token tiles, an id in two runs, an
+    all-padding row, a row of one graph of W tokens, runs of more than 192
+    tokens, runs of a whole number of 64-token chunks and of 1 token, and
+    tiles ending at their run's end beside the next graph's run (W 320),
+    against the plain bf16 versions (the same masks):
     out within BF16_OUT_TOL, dqkv within BF16_GRAD_TOL of max(1,
     max|plain|); padding tokens exactly 0 (m = -inf, l = 0); the same bits
     on two runs and from the serving launch; counted as long_bf16."""
@@ -3068,18 +3086,21 @@ def test_attention_seg_long_bf16_kernels_match_plain(cuda, W, rate):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["512", "1024", "straddle1024",
-                                  "straddle448"])
+                                  "straddle448", "runs640"])
 @pytest.mark.parametrize("rate", [0.0, 0.3])
 def test_flash_hil_bf16_kernels_match_plain(cuda, case, rate):
     """K3 and K3-bwd's bf16 instances (the bf16 long forward's online
     softmax, its unnormalised p rounded before P V, a run's keys through
     the ring of chunk buffers; the bf16 long pair on its out, m and l,
-    delta = dO . O) on segments of 1, 64, 385, 505 and 1024 tokens (longer
-    than the ring's three chunks), rows of one graph of W tokens, an id in
-    two runs, all-padding rows and segments straddling the 64-token tiles,
-    against the plain bf16 versions (the same masks): within BF16_OUT_TOL
-    and BF16_GRAD_TOL; padding exactly 0; the same bits on two runs and
-    from the serving launch; counted as bf16."""
+    tiles inside one run, a tile's partners through the ring, delta = dO .
+    O) on segments of 1, 64, 385, 505 and 1024 tokens (longer than the
+    ring's three chunks), rows of one graph of W tokens, an id in two
+    runs, all-padding rows, segments straddling the 64-token tiles, and
+    (runs640) runs of a whole number of 64-token chunks and of 1 token and
+    tiles ending at their run's end beside the next graph's run, against
+    the plain bf16 versions (the same masks): within BF16_OUT_TOL and
+    BF16_GRAD_TOL; padding exactly 0; the same bits on two runs and from
+    the serving launch; counted as bf16."""
     from graphtrans_tpu_torch.ops.kernels import (flash_hil_seg,
                                                   flash_hil_seg_bwd,
                                                   flash_hil_seg_bwd_plain,
@@ -3089,6 +3110,9 @@ def test_flash_hil_bf16_kernels_match_plain(cuda, case, rate):
 
     if case.startswith("straddle"):
         qkv, seg = _k3_straddle_case(int(case[8:]), cuda)
+    elif case.startswith("runs"):
+        W = int(case[4:])
+        qkv, seg = _rows_case(K3_RUN_ROWS[W], W, W + 11, cuda)
     else:
         qkv, seg = _k3_segments(int(case), cuda)
     qkv = qkv.to(BF16)
@@ -3098,6 +3122,34 @@ def test_flash_hil_bf16_kernels_match_plain(cuda, case, rate):
                            (flash_hil_seg, flash_hil_seg_bwd), "bf16")
     if rate == 0.0:
         assert torch.equal(flash_hil_seg(qkv, seg, 4), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,entry,W,whole", [
+    ("attention_packed", "attention_seg_bwd_long_bf16_residency", 384, True),
+    ("flash_hil", "flash_hil_bwd_bf16_residency", 1024, False)])
+def test_bf16_long_bwd_instances_do_not_spill(cuda, kernel, entry, W, whole):
+    """Every instance of the bf16 long pair (dq and dk/dv, with and
+    without dropout) of K2's long instance and K3 takes no local memory
+    (no spills) and fits three blocks an SM at its shared bytes on code2's
+    widest rows."""
+    import ctypes
+
+    from graphtrans_tpu_torch.ops.kernels import _build, attention_packed
+
+    mod = importlib.import_module(
+        f"graphtrans_tpu_torch.ops.kernels.{kernel}")
+    lib = mod._load()
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+    smem = attention_packed.long16_bwd_bytes(W, whole)
+    for which in range(4):
+        got = [ctypes.c_int(-1) for _ in range(3)]
+        _build.check(lib, fn(which, smem, *(ctypes.cast(
+            ctypes.pointer(v), ctypes.c_void_p) for v in got)), entry)
+        regs, local, blocks = (v.value for v in got)
+        assert local == 0, (which, regs, local)
+        assert blocks >= 3, (which, regs, blocks)
 
 
 @pytest.mark.cuda

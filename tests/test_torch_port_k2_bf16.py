@@ -30,7 +30,7 @@ from graphtrans_tpu.ops.pallas.attention_packed import (  # noqa: E402
     attention_packed_seg_qkv)
 from graphtrans_tpu_torch.ops.kernels.attention_packed import (  # noqa: E402
     SEG_BF16_THREADS, SEG_TILE_MAX, SMEM_MAX, attention_seg_bwd_plain,
-    attention_seg_plain, keep_mask, long16_fwd_geometry, long16_geometry,
+    attention_seg_plain, keep_mask, long16_bwd_geometry, long16_fwd_geometry,
     seg_bf16_geometry)
 
 OUT_TOL, GRAD_TOL = 7.8e-3, 1.6e-2
@@ -274,7 +274,7 @@ def test_seg_bf16_geometry(W):
     SMEM_MAX that let at least four blocks share an SM in either
     direction; rows wider than SEG_TILE_MAX take the bf16 long forward's
     launch (long16_fwd_geometry, its keys staged whole) and the bf16 long
-    pair's (long16_geometry)."""
+    pair's (long16_bwd_geometry, its partners staged whole)."""
     R = 5
     for bwd in (False, True):
         geo = seg_bf16_geometry(R, W, H, bwd)
@@ -289,5 +289,6 @@ def test_seg_bf16_geometry(W):
     for bwd in (False, True):
         geo = seg_bf16_geometry(R, SEG_TILE_MAX + 1, H, bwd)
         assert geo.instance == "long" and geo.args()[0] == 3
-        assert geo == (long16_geometry(R, SEG_TILE_MAX + 1, H) if bwd else
+        assert geo == (long16_bwd_geometry(R, SEG_TILE_MAX + 1, H, True)
+                       if bwd else
                        long16_fwd_geometry(R, SEG_TILE_MAX + 1, H, True))
