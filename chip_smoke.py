@@ -207,6 +207,25 @@ Phases, each printing one line (any failure raises and exits non-zero):
      512-graph code2 train step in f32 and bf16 in turns (with
      ``--baseline`` also the bf16 step on the parent's K2 and K3
      forwards), profiled, with the K2 and K3 forwards' share.
+ 16. the Transformer-only model in bf16 (heads of 64): (a) K4's bf16
+     instances (tile at bench4096's packed rows of 3 x 33, long at
+     code2's rows cut to 383), K5's (bench512's rows of 1001) and their
+     backwards (the bf16 key-list bodies; K4-bwd's short instance the
+     whole backward of a graph block in one kernel) against their plain
+     bf16 versions at rates 0 and 0.3 (queries without a key and padding
+     keys exactly 0, m = -inf, l = 0), each timed as the bf16 step calls
+     it, a call at a time behind a sleep with a cold L2, in turns with the
+     f32 instance, beside bound, plain version and SDPA in bf16 under the
+     same bool mask (forward and backward), with each kernel's residency
+     (no spills, or it fails); with ``--baseline`` K2's and K3's bf16
+     instances (heads of 32) held to the parent's bits; (b) trains the
+     molpcba and code2 Transformer-only ymls in bf16 through main (every
+     K4, K4-bwd, K5 and K5-bwd launch the bf16 instance, counted by
+     instance, the attention routes by layer call; finite losses, every
+     parameter moved, the saved state float32) and holds one bf16 step of
+     each through the kernels against the plain bf16 versions under
+     deterministic algorithms; (c) the cells tf-train4096-bf16 and
+     tf-train512-bf16: each step in f32 and bf16 in turns, profiled.
 Then the script's wall seconds, a {"kernels": [...]} line, the nvidia-smi
 line, and the contract line
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without
@@ -6225,6 +6244,456 @@ def phase15_cost(device, bench, num_tasks: int, smi: str, base=None):
               f"({par / bf:.3f}x) on {smi}")
 
 
+# ---- phase 16: bf16 training of the Transformer-only model ------------------
+
+
+def list16_bound(qkv, valid, nhead: int, block: int, mask_bytes: int,
+                 bwd: bool, reads_out: bool = False):
+    """A bf16 key-list launch (K4's and K5's bf16 instances): the forward
+    reads q for every query, K and V for the valid keys and the mask, and
+    writes out (bf16), m and l; the backward reads q and dO for every query,
+    K and V for the valid keys, m, l, the mask and (K5: delta = dO . O,
+    ``reads_out``) the forward's out, and writes dqkv. Per (query, key)
+    pair of a block and head the products (forward 4 hd flops, backward 10
+    hd) on the bf16 tensor cores, as the kernels run them, and the softmax
+    (4; backward 8) on the f32 units."""
+    B, S, d3 = qkv.shape
+    d, hd = d3 // 3, d3 // 3 // nhead
+    keys = int(valid.sum().item())
+    pairs = (int((valid.reshape(B, S // block, block).sum(-1) * block).sum()
+                 .item()) if block else keys * S) * nhead
+    stats = 2 * B * S * nhead * 4
+    if not bwd:
+        nbytes = (2 * B * S + 2 * keys) * d * 2 + mask_bytes + stats
+        return _tc_bound(nbytes, pairs * 4 * hd, pairs * 4, BF16_TC_FLOPS)
+    nbytes = ((2 * B * S + 2 * keys) * d + B * S * d3
+              + (B * S * d if reads_out else 0)) * 2 + mask_bytes + stats
+    return _tc_bound(nbytes, pairs * 10 * hd, pairs * 8, BF16_TC_FLOPS)
+
+
+def check_list16(name: str, fwd, bwd, plain, bwd_plain, qkv, masks, live,
+                 valid, nhead: int, gen, rows: int):
+    """A bf16 key-list pair (K4's or K5's bf16 instance) at rate 0 and the
+    training rate against its plain bf16 version (the same masks) on the
+    first ``rows`` rows: relative errors (forward, backward); outputs bf16;
+    queries without a key exactly 0 with m = -inf and l = 0, padding keys'
+    dk and dv exactly 0; at rate 0 the serving launch's bits."""
+    d = qkv.shape[-1] // 3
+    f_err = b_err = 0.0
+    for rate, seed in ((0.0, 0), (DROPOUT, 24681357)):
+        out, m, l = fwd(qkv, *masks, nhead, rate, seed)
+        g = torch.randn(out.shape, generator=gen).to(qkv.device, BF16)
+        dqkv = bwd(qkv, *masks, nhead, g, rate, seed, (out, m, l))
+        same = rate > 0 or torch.equal(
+            fwd(qkv, *masks, nhead, rate, seed, stats=False)[0], out)
+        torch.cuda.synchronize()
+        if out.dtype != BF16 or dqkv.dtype != BF16:
+            raise AssertionError(f"{name} bf16: outputs are not bf16")
+        if (out[~live].any() or dqkv[~live].any()
+                or dqkv[..., d:][~valid].any() or not same
+                or not (m[~live] == -math.inf).all() or l[~live].any()):
+            raise AssertionError(f"{name} bf16: a query without a key or a "
+                                 f"padding key not 0 (or m not -inf, l not "
+                                 f"0), or the serving launch differs from "
+                                 f"the training one")
+        head = [t[:rows] for t in (qkv, *masks)]
+        f_err = max(f_err, _rel_err(out[:rows],
+                                    plain(*head, nhead, rate, seed)))
+        b_err = max(b_err, _rel_err(dqkv[:rows], bwd_plain(
+            *head, nhead, g[:rows], rate, seed)))
+    if f_err > BF16_OUT_TOL or b_err > BF16_GRAD_TOL:
+        raise AssertionError(f"{name} bf16 against its plain version: "
+                             f"forward {f_err} (<= {BF16_OUT_TOL}), backward "
+                             f"{b_err} (<= {BF16_GRAD_TOL})")
+    return f_err, b_err
+
+
+def k2_k3_bf16_bits(device, big, bench, d_model: int, nhead: int, base,
+                    gen, checked: list):
+    """Under ``--baseline``: K2's bf16 instances (tile at bench4096, long on
+    code2's tier of 384) and K3's, heads of 32, forward and backward at the
+    training rate, give the parent's bits on the same inputs."""
+    from graphtrans_tpu_torch.ops.kernels import (attention_seg_bwd,
+                                                  flash_hil_seg_bwd)
+    from graphtrans_tpu_torch.ops.kernels.attention_packed import (
+        attention_seg_with_stats)
+    from graphtrans_tpu_torch.ops.kernels.flash_hil import (
+        flash_hil_seg_with_stats)
+
+    seed = 97531
+    q2t, s2t = k2_inputs(big, d_model, gen, device)
+    q2l, s2l = k2_tier_inputs(bench, "pack2", d_model, gen, device)
+    q3, s3 = k3_inputs(bench, d_model, gen, device)
+    for what, q, sg, fwd, bwd, mod in (
+            ("K2 bf16 tile bench4096", q2t, s2t, attention_seg_with_stats,
+             attention_seg_bwd, base["attention_packed"]),
+            ("K2 bf16 long bench512", q2l, s2l, attention_seg_with_stats,
+             attention_seg_bwd, base["attention_packed"]),
+            ("K3 bf16 bench512", q3, s3, flash_hil_seg_with_stats,
+             flash_hil_seg_bwd, base["flash_hil"])):
+        q16 = q.to(BF16)
+        g = torch.randn(*q.shape[:2], q.shape[2] // 3,
+                        generator=gen).to(device, BF16)
+        ofwd, obwd = getattr(mod, fwd.__name__), getattr(mod, bwd.__name__)
+        saved = fwd(q16, sg, nhead, DROPOUT, seed)
+        same_bits(f"{what} forward",
+                  lambda: fwd(q16, sg, nhead, DROPOUT, seed),
+                  lambda: ofwd(q16, sg, nhead, DROPOUT, seed), checked)
+        same_bits(f"{what} backward",
+                  lambda: bwd(q16, sg, nhead, g, saved, DROPOUT, seed),
+                  lambda: obwd(q16, sg, nhead, g, saved, DROPOUT, seed),
+                  checked)
+
+
+def phase16_kernels(device, mol_flat, code2_flat, big, bench, base=None):
+    """(a) K4's bf16 instances (tile at bench4096's packed rows of 3 x 33,
+    long at code2's rows cut to 383) and K5's (bench512's rows of 1001),
+    forward and backward, at rate 0 and the training rate against their
+    plain bf16 versions at heads of 64 (the published width); each timed
+    as the bf16 step calls it (the training rate, statistics), a call at a
+    time behind a sleep with a cold L2 (``queued_ms``), in turns with the
+    f32 instance and with SDPA in bf16 under the same bool mask (forward,
+    and backward at the same rate), beside bound (bytes, or products on
+    the bf16 tensor cores) and plain version; each kernel's residency
+    (registers, local bytes, shared bytes, blocks an SM, waves; it fails
+    on spills). With ``base`` K2's and K3's bf16 instances at heads of 32
+    give the parent's bits."""
+    from graphtrans_tpu_torch.ops.kernels import (
+        attention_dense_bwd, attention_dense_bwd_plain,
+        attention_dense_plain, flash_attention_bwd,
+        flash_attention_bwd_plain, flash_attention_plain, key_padding_segs)
+    from graphtrans_tpu_torch.ops.kernels import attention_packed
+    from graphtrans_tpu_torch.ops.kernels.attention_packed import (
+        attention_dense_with_stats, list16_geometry)
+    from graphtrans_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_with_stats)
+
+    # the module (the package exports its wrapper under the same name)
+    flash_mod = sys.modules[flash_attention_with_stats.__module__]
+
+    gen = torch.Generator().manual_seed(SEED + 16)
+    n_sms = torch.cuda.get_device_properties(device).multi_processor_count
+    smi = _smi()
+    d, nhead = _tf_args(TF_MOL_CONFIG).d_model, _tf_args(TF_MOL_CONFIG).nhead
+    seed = 2**31 - 13
+    errs = dict.fromkeys(("k4", "k4b", "k5", "k5b"), 0.0)
+    timed = {}
+    cases = (("K4 tile", "bench4096 block 33", dense_valid(mol_flat)),
+             ("K4 long", "bench512 cut to 383, block 0",
+              dense_valid(code2_flat, 383)),
+             ("K5", "bench512 S 1001", dense_valid(code2_flat)))
+    for kname, name, valid in cases:
+        if kname == "K5":
+            qkv, v = k5_inputs(valid, d, gen, device)
+            block, masks = 0, key_padding_segs(v)
+            live, mod, key = _live(v, 0), flash_mod, "k5"
+            fwd, bwd = flash_attention_with_stats, flash_attention_bwd
+            plain, bwd_plain = (flash_attention_plain,
+                                flash_attention_bwd_plain)
+            mask_bytes = 2 * v.numel() * 4
+            entry, rows = "flash_attention_bf16_residency", 64
+        else:
+            qkv, v, block = k4_inputs(valid, d, gen, device)
+            masks, live = (v,), _live(v, block)
+            mod, key = attention_packed, "k4"
+            fwd = lambda q, vv, H, r, s, stats=True, block=block: (
+                attention_dense_with_stats(q, vv, H, block, r, s, stats))
+            bwd = lambda q, vv, H, g, r, s, saved, block=block: (
+                attention_dense_bwd(q, vv, H, g, block, r, s, saved))
+            plain = lambda q, vv, H, r, s, block=block: (
+                attention_dense_plain(q, vv, H, block, r, s))
+            bwd_plain = lambda q, vv, H, g, r, s, block=block: (
+                attention_dense_bwd_plain(q, vv, H, g, block, r, s))
+            mask_bytes = v.numel()
+            entry, rows = "attention_dense_bf16_residency", 256
+        q16 = qkv.to(BF16)
+        f, e = check_list16(kname, fwd, bwd, plain, bwd_plain, q16, masks,
+                            live, v, nhead, gen, rows)
+        errs[key], errs[key + "b"] = max(errs[key], f), max(errs[key + "b"], e)
+        print(f"[16a] {name} {kname} bf16 {f:.3g}, backward bf16 {e:.3g} of "
+              f"max(1, max|plain bf16|) (rates 0 and {DROPOUT}, the first "
+              f"{min(rows, len(qkv))} of {len(qkv)} rows against the plain "
+              f"version)")
+        if kname == "K5":                 # timed as the model runs
+            q16, qkv, v = q16[:-1].contiguous(), qkv[:-1].contiguous(), v[:-1]
+            masks = key_padding_segs(v)
+        B, S, d3 = qkv.shape
+        g16 = torch.randn(B, S, d, generator=gen).to(device, BF16)
+        g32 = g16.float()
+        s16 = fwd(q16, *masks, nhead, DROPOUT, seed)
+        s32 = fwd(qkv, *masks, nhead, DROPOUT, seed)
+        mask4 = _block_mask(v, block)
+        f = dict(plain_ms=sum(time_ms(lambda r0=r0: plain(
+            q16[r0:r0 + rows], *(m[r0:r0 + rows] for m in masks), nhead,
+            DROPOUT, seed), iters=1, reps=3) for r0 in range(0, B, rows)),
+                 library_ms=sdpa_mask_ms(q16, mask4, nhead, timer=queued_ms))
+        f["ms"], f["f32_ms"] = rounds_ms([
+            lambda: fwd(q16, *masks, nhead, DROPOUT, seed),
+            lambda: fwd(qkv, *masks, nhead, DROPOUT, seed)], 20, queued_ms)
+        f["bound_ms"], f["bound_by"] = list16_bound(q16, v, nhead, block,
+                                                    mask_bytes, False)
+        bw = dict(plain_ms=_chunked_plain_bwd_ms(
+            lambda t, r0: plain(t, *(m[r0:r0 + rows] for m in masks), nhead,
+                                DROPOUT, seed), q16, g16, rows),
+            library_ms=sdpa_bwd_mask_ms(q16, mask4, nhead, g16, DROPOUT,
+                                        iters=10, timer=queued_ms))
+        bw["ms"], bw["f32_ms"] = rounds_ms([
+            lambda: bwd(q16, *masks, nhead, g16, DROPOUT, seed, s16),
+            lambda: bwd(qkv, *masks, nhead, g32, DROPOUT, seed, s32)], 20,
+            queued_ms)
+        bw["bound_ms"], bw["bound_by"] = list16_bound(
+            q16, v, nhead, block, mask_bytes, True, reads_out=kname == "K5")
+        geo = list16_geometry(B, S, block, nhead, False)
+        f["residency"] = [long16_residency(
+            mod, entry, attention_packed.list16_bytes(False), 0)]
+        bgeo = list16_geometry(B, S, block, nhead, True)
+        bw["residency"] = [long16_residency(
+            mod, entry, attention_packed.list16_bytes(True), k)
+            for k in ((3,) if bgeo.instance == "short" else (1, 2))]
+        f["grid"], bw["grid"] = geo.grid, bgeo.grid
+        f["instance"], bw["instance"] = geo.instance, bgeo.instance
+        shape = (f"B={B} S={S} d={d} H={nhead} rate={DROPOUT} valid keys "
+                 f"{int(v.sum().item())}")
+        f["shape"] = bw["shape"] = shape
+        timed[kname], timed[kname + "-bwd"] = f, bw
+        del qkv, q16, s16, s32, g16, g32
+        torch.cuda.empty_cache()
+    for kname, t in timed.items():
+        part = "backward" if kname.endswith("-bwd") else "forward"
+        print(f"[16a] {kname} bf16 {part} ({t['instance']}_bf16) "
+              f"[{t['shape']}]: kernel {t['ms']:.4f} ms (the f32 instance "
+              f"{t['f32_ms']:.4f}, in turns, each call queued, cold L2), "
+              f"plain bf16 {t['plain_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library "
+              f"{t['library_ms']:.4f} ms (SDPA in bf16, bool mask"
+              f"{', backward, dropout ' + str(DROPOUT) if part == 'backward' else ''}"
+              f", queued) on {smi}")
+        names = (("forward",) if part == "forward" else ("one kernel",)
+                 if t["instance"] == "short" else ("dq kernel",
+                                                   "dk/dv kernel"))
+        for part_name, r in zip(names, t["residency"]):
+            blocks = math.prod(t["grid"])
+            waves = blocks / (r["blocks_per_sm"] * n_sms)
+            print(f"[16a] {kname} bf16 {part_name} residency (training "
+                  f"launch): {r['regs']} registers a thread, "
+                  f"{r['local_bytes']} local bytes a thread (no spills), "
+                  f"{r['smem']} shared bytes a block, {r['blocks_per_sm']} "
+                  f"blocks an SM, {blocks} blocks in {waves:.2f} waves")
+    print(f"[16a] bf16 kernels agree with their plain bf16 versions, of "
+          f"max(1, max|plain|): K4 {errs['k4']:.3g}, K5 {errs['k5']:.3g} "
+          f"(<= {BF16_OUT_TOL}); K4-bwd {errs['k4b']:.3g}, K5-bwd "
+          f"{errs['k5b']:.3g} (<= {BF16_GRAD_TOL}); queries without a key "
+          f"and padding keys exactly 0")
+    if base:
+        checked = []
+        k2_k3_bf16_bits(device, big, bench, _args().d_model, _args().nhead,
+                        base, gen, checked)
+        print(f"[16a] --baseline: K2's and K3's bf16 instances (heads of 32) "
+              f"give the parent's bits on the same inputs at {checked}")
+    return dict(errs=errs, timed=timed)
+
+
+def _tf_bf16_want(layers: int, steps: int, kernels: tuple) -> dict:
+    """The Transformer-only bf16 step's launches by instance: ``layers``
+    launches a step of each wrapper in ``kernels`` (K4's tile instance, or
+    K5), every one bf16."""
+    want = {"attention_dense": {"tile": 0, "long": 0, "tile_bf16": 0,
+                                "long_bf16": 0},
+            "attention_dense_bwd": {"short": 0, "wide": 0, "short_bf16": 0,
+                                    "long_bf16": 0},
+            "flash_attention": {"f32": 0, "bf16": 0},
+            "flash_attention_bwd": {"f32": 0, "bf16": 0}}
+    for name, inst in kernels:
+        want[name][inst] = layers * steps
+    return want
+
+
+# the wrappers and instances each yml's bf16 step must launch (phase 16b):
+# molpcba's train rows of 48 + CLS pack 2 graphs (K4's tile instance, its
+# backward's short one), code2's rows of 1000 + CLS take K5
+TF_BF16_KERNELS = {
+    TF_MOL_CONFIG: (("attention_dense", "tile_bf16"),
+                    ("attention_dense_bwd", "short_bf16")),
+    TF_CODE2_CONFIG: (("flash_attention", "bf16"),
+                      ("flash_attention_bwd", "bf16"))}
+
+
+def phase16_train(device, tmp: str):
+    """(b) Both Transformer-only ymls through ``main --precision bf16`` at
+    full width on the snapshot (TRAIN_EPOCHS epochs, the ymls' batch
+    sizes), the counts set to 0 before each and read after: every K4, K4-bwd,
+    K5 and K5-bwd launch by instance, each the bf16 one, and the attention
+    routes the encoder took (``attention_route``, by layer call); finite
+    losses, every parameter moved, the saved state float32; then one bf16
+    step through the kernels against the plain bf16 versions under
+    deterministic algorithms at each yml's first train batch."""
+    import io
+
+    from graphtrans_tpu_torch import main as train_main
+    from graphtrans_tpu_torch import predict
+    from graphtrans_tpu_torch.data.loader import iterate_batches, shuffled_order
+    from graphtrans_tpu_torch.nn import transformer as ttr
+    from graphtrans_tpu_torch.ops import kernels
+
+    counted = (kernels.attention_dense, kernels.attention_dense_bwd,
+               kernels.flash_attention, kernels.flash_attention_bwd)
+    totals = {}
+    route_fn = ttr.attention_route
+    for config, want_kernels in TF_BF16_KERNELS.items():
+        args = _tf_train_args(config, ["--precision", "bf16"])
+        routes = collections.Counter()
+
+        def counting(*a, **k):
+            r = route_fn(*a, **k)
+            routes[r] += args.num_encoder_layers
+            return r
+
+        save = os.path.join(tmp, "bf16_" + os.path.basename(os.path.dirname(
+            os.path.dirname(config))))
+        out = io.StringIO()
+        ttr.attention_route = counting
+        kernels.reset_launches()             # this yml's bf16 training path
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                res = train_main.main([
+                    "--configs", config, "--data_root", SNAPSHOT, "--epochs",
+                    str(TRAIN_EPOCHS), "--seed", str(SEED), "--precision",
+                    "bf16", "--save_path", save])
+        finally:
+            ttr.attention_route = route_fn
+        secs = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        by_inst = {fn.__name__: dict(fn.instances) for fn in counted}
+        for line in out.getvalue().splitlines():
+            print(f"[16b] main: {line}")
+        steps = sum(r["steps"] for r in res["epochs"])
+        layers = args.num_encoder_layers
+        want = {k: layers * steps for k, _ in want_kernels}
+        want_inst = _tf_bf16_want(layers, steps, want_kernels)
+        if steps == 0 or launches != want or by_inst != want_inst:
+            raise AssertionError(f"{args.dataset} Transformer-only bf16 "
+                                 f"training launches {launches} by instance "
+                                 f"{by_inst}, expected {want}, {want_inst}")
+        print(f"[16b] the {args.dataset} Transformer-only bf16 step's "
+              f"launches ({steps} steps): {launches}; by instance {by_inst}: "
+              f"every one the bf16 instance; attention routes by layer call "
+              f"(forward): {dict(routes)}")
+        if not all(math.isfinite(r["loss"]) for r in res["epochs"]):
+            raise AssertionError(f"bf16 epoch losses not finite: "
+                                 f"{res['epochs']}")
+        splits, num_tasks, code = predict.load_splits(args)
+        init, _ = _trainer(args, num_tasks, device, data=code)
+        trained = torch.load(res["saved"], map_location=device,
+                             weights_only=True)
+        params = dict(init.named_parameters())
+        still = [n for n, p in params.items() if torch.equal(p, trained[n])]
+        wrong = [n for n, p in trained.items() if p.dtype != torch.float32
+                 and p.is_floating_point()]
+        if still or wrong:
+            raise AssertionError(f"{args.dataset} bf16 training: parameters "
+                                 f"that did not move {still}; state not "
+                                 f"float32 {wrong}")
+        print(f"[16b] trained the {args.dataset} Transformer-only yml "
+              f"{TRAIN_EPOCHS} epochs in bf16 ({steps} steps of <= "
+              f"{args.batch_size} graphs, attention dropout "
+              f"{args.transformer_dropout}, {secs:.2f} s with the model "
+              f"build) through graphtrans_tpu_torch.main --precision bf16: "
+              f"losses {[round(r['loss'], 6) for r in res['epochs']]}, all "
+              f"{len(params)} parameter tensors moved, the saved state "
+              f"float32")
+        totals[args.dataset] = dict(launches=launches, by_inst=by_inst,
+                                    routes=dict(routes))
+
+        layout = predict.serving_layout(splits, args, num_tasks,
+                                        args.batch_size, split="train",
+                                        seed=SEED)
+        batch = next(iterate_batches(
+            splits["train"], order=shuffled_order(len(splits["train"]), SEED,
+                                                  0), **layout)).to(device)
+        got = []
+        with deterministic():
+            for on in (True, False):
+                model, step = _trainer(args, num_tasks, device,
+                                       kernels_on=on, data=code)
+                loss = step(batch)
+                got.append((loss.item(), loss.dtype,
+                            {n: p.grad for n, p in model.named_parameters()}))
+        (lk, dt, gk), (lp, _, gp) = got
+        g_err = max(_rel_err(gk[n], gp[n]) for n in gk)
+        dtypes = {g.dtype for g in gk.values()} | {dt}
+        if (abs(lk - lp) > BF16_STEP_TOL[0] * max(1.0, abs(lp))
+                or g_err > BF16_STEP_TOL[1] or dtypes != {torch.float32}):
+            raise AssertionError(f"{args.dataset} Transformer-only bf16 step "
+                                 f"through the kernels: loss {lk} vs {lp}, "
+                                 f"gradients {g_err} (<= "
+                                 f"{BF16_STEP_TOL[1]}), dtypes {dtypes}")
+        print(f"[16b] one {args.dataset} Transformer-only bf16 step "
+              f"(attention dropout {args.transformer_dropout}, same seeds, "
+              f"deterministic algorithms) through the kernels vs the plain "
+              f"bf16 versions on the card: loss {lk:.6f} vs {lp:.6f} (|diff| "
+              f"{abs(lk - lp):.3g} <= {BF16_STEP_TOL[0]} of max(1, |ref|)), "
+              f"gradients {g_err:.3g} of max(1, max|ref|) (<= "
+              f"{BF16_STEP_TOL[1]}); loss and gradients float32")
+        del model, step, init, trained
+        torch.cuda.empty_cache()
+    return totals
+
+
+def phase16_cost(device, mol_flat, code2_flat, code2_tasks: int, smi: str):
+    """(c) The cells tf-train4096-bf16 and tf-train512-bf16: the
+    Transformer-only train step on 4096 molecules and on 512 ASTs in f32
+    and in bf16 in turns (f32, bf16, bf16, f32): median ms, graphs/s, peak
+    memory; each precision profiled once: device busy ms, idle share and
+    device time by layer."""
+    import types
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    sizes = types.SimpleNamespace(num_nodetypes=20, num_nodeattributes=100,
+                                  max_seq_len=5)       # make_code_dataset's
+    for cell, config, bench, tasks in (
+            ("tf-train4096", TF_MOL_CONFIG, mol_flat, 128),
+            ("tf-train512", TF_CODE2_CONFIG, code2_flat, code2_tasks)):
+        tb = bench.to(device)
+        n = int(bench.graph_mask.sum())
+        runs, profiled = collections.defaultdict(list), set()
+        for prec in ("f32", "bf16", "bf16", "f32"):
+            args = _tf_train_args(config, ["--precision", prec])
+            model, step = _trainer(args, tasks, device,
+                                   data=sizes if "512" in cell else None)
+            _median_ms(lambda: step(tb), 3)                 # warm-up
+            torch.cuda.reset_peak_memory_stats(device)
+            ms, lo, hi, loss = _median_ms(lambda: step(tb), TIMED_STEPS)
+            peak = torch.cuda.max_memory_allocated(device) / 2**30
+            if not torch.isfinite(loss):
+                raise AssertionError(f"{cell} {prec} step: loss not finite")
+            runs[prec].append(ms)
+            print(f"[16c] {cell}{'-bf16' if prec == 'bf16' else ''} "
+                  f"Transformer-only {prec} train step of {n} graphs: median "
+                  f"{ms:.3f} ms over {TIMED_STEPS} (min {lo:.3f}, max "
+                  f"{hi:.3f}), {n / ms * 1e3:.0f} graphs/s, peak memory "
+                  f"{peak:.2f} GiB on {smi}")
+            if prec not in profiled:
+                profiled.add(prec)
+                with torch.profiler.profile(activities=acts) as prof:
+                    t0 = time.perf_counter()
+                    for _ in range(PROFILED_STEPS):
+                        step(tb)
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+                _print_split("[16c]", f"{cell} Transformer-only {prec} train "
+                             f"step", prof, PROFILED_STEPS, wall, smi,
+                             graphs=n)
+            del model, step
+            torch.cuda.empty_cache()
+        f32, bf = statistics.mean(runs["f32"]), statistics.mean(runs["bf16"])
+        print(f"[16c] {cell}: bf16 {bf:.3f} ms against f32 {f32:.3f} ms in "
+              f"turns ({f32 / bf:.3f}x) on {smi}")
+        del tb
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--trace", default=None,
@@ -6242,7 +6711,8 @@ def main(argv=None) -> int:
                         "K2, K3, K5 and K9, f32 K7 and K7-bwd and bf16 long "
                         "pair phase 15a holds to its bits, and whose bf16 "
                         "long forwards phase 15a and 15d time beside this "
-                        "tree's")
+                        "tree's, and whose bf16 K2 and K3 instances phase "
+                        "16a holds to their bits")
     opts = p.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -6355,6 +6825,11 @@ def main(argv=None) -> int:
         _, c2_instances = phase15_train(device, tmp, bench, bench_tasks)
     phase15_cost(device, bench, bench_tasks, smi, base)
 
+    tf_bf16 = phase16_kernels(device, mol_flat, code2_flat, big, bench, base)
+    with tempfile.TemporaryDirectory() as tmp:
+        tf_bf16_runs = phase16_train(device, tmp)
+    phase16_cost(device, mol_flat, code2_flat, flat_tasks, smi)
+
     k1, k2 = timing["timed"]
     k1b, k2b = train["timed"]
     k3, k7 = code2["timed"]
@@ -6367,6 +6842,14 @@ def main(argv=None) -> int:
     k1h, k1bh, k2h, k2bh = bf16["timed"]
     c2 = code2_bf16["timed"]
     c2e = code2_bf16["errs"]
+    t16, e16 = tf_bf16["timed"], tf_bf16["errs"]
+    mol16 = tf_bf16_runs["ogbg-molpcba"]["by_inst"]
+    code16 = tf_bf16_runs["ogbg-code2"]["by_inst"]
+    keep = ("ms", "f32_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "shape", "residency", "grid")
+    k16 = lambda key: {k: t16[key][k] for k in keep}
+    k4_inst = lambda name: {k: mol16[name][k] + code16[name][k]
+                            for k in mol16[name] if k.endswith("_bf16")}
     rows = [
         dict(name="gin_agg_fwd", route="cuda",
              source="graphtrans_tpu_torch/csrc/gin_agg.cu",
@@ -6569,6 +7052,44 @@ def main(argv=None) -> int:
              replaces="none (JAX trains through ops/scatter.py; bf16)",
              launches=c2_instances["spmm_bwd"]["bf16"],
              max_abs_err=c2e["k7b"], **c2["k7b"]),
+        # the Transformer-only bf16 step (phase 16): K4's two instances and
+        # K5 share the bf16 key-list bodies; the launches are phase 16b's,
+        # the row's times the main path's instance's (K4: its tile
+        # instance; its long one beside, under "long_instance")
+        dict(name="attention_dense_fwd_bf16", route="cuda",
+             source="graphtrans_tpu_torch/csrc/attention_packed.cu",
+             header="graphtrans_tpu_torch/csrc/attention_list16.cuh",
+             replaces="graphtrans_tpu/ops/pallas/attention_packed.py:326 "
+                      "(bf16, hd 64)",
+             launches=sum(k4_inst("attention_dense").values()),
+             instances=k4_inst("attention_dense"),
+             max_abs_err=e16["k4"], long_instance=k16("K4 long"),
+             **k16("K4 tile")),
+        dict(name="attention_dense_bwd_bf16", route="cuda",
+             source="graphtrans_tpu_torch/csrc/attention_packed.cu",
+             header="graphtrans_tpu_torch/csrc/attention_list16.cuh",
+             replaces="graphtrans_tpu/ops/pallas/attention_packed.py:393 "
+                      "(bf16, hd 64)",
+             launches=sum(k4_inst("attention_dense_bwd").values()),
+             instances=k4_inst("attention_dense_bwd"),
+             max_abs_err=e16["k4b"], long_instance=k16("K4 long-bwd"),
+             **k16("K4 tile-bwd")),
+        dict(name="flash_attention_fwd_bf16", route="cuda",
+             source="graphtrans_tpu_torch/csrc/flash_attention.cu",
+             header="graphtrans_tpu_torch/csrc/attention_list16.cuh",
+             replaces="graphtrans_tpu/ops/pallas/flash_attention.py:228 "
+                      "(bf16, hd 64)",
+             launches=code16["flash_attention"]["bf16"]
+             + mol16["flash_attention"]["bf16"],
+             max_abs_err=e16["k5"], **k16("K5")),
+        dict(name="flash_attention_bwd_bf16", route="cuda",
+             source="graphtrans_tpu_torch/csrc/flash_attention.cu",
+             header="graphtrans_tpu_torch/csrc/attention_list16.cuh",
+             replaces="graphtrans_tpu/ops/pallas/flash_attention.py:326/350 "
+                      "(bf16, hd 64)",
+             launches=code16["flash_attention_bwd"]["bf16"]
+             + mol16["flash_attention_bwd"]["bf16"],
+             max_abs_err=e16["k5b"], **k16("K5-bwd")),
         dict(name="segment_sum_mxu", route="cuda",
              source="graphtrans_tpu_torch/csrc/scatter_mxu.cu",
              replaces="graphtrans_tpu/ops/pallas/scatter_mxu.py:69",
@@ -6578,7 +7099,7 @@ def main(argv=None) -> int:
     ]
     print(f"[wall] {CLOCKS} at the end: {_smi(CLOCKS)}")
     print(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
-          f"(phases 0-15, the kernels' build included)")
+          f"(phases 0-16, the kernels' build included)")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -75,12 +75,26 @@
 // wider ones (block 0, rows of up to 384) to attention_dense_bwd_wide_kernel
 // in 64-token tiles. The wrapper (dense_bwd_geometry) picks the instance,
 // grid, threads and shared bytes; the entry checks them before launching.
+//
+// K4's bf16 instances (the bf16 step of the Transformer-only model, heads
+// of 64) run the bf16 key-list bodies of attention_list16.cuh with K4's
+// mask as their tags and K2's rounding (NORM: p normalised before it is
+// rounded, delta summed from the pairs): a block of four warps per (row,
+// head, 64-token tile of a graph block, or of the row at block 0), the
+// block's keys ranked and gathered 64 at a time, every product a bf16
+// mma.sync. The launch is the wrapper's list16_geometry: the forward's
+// instance 1 (the tile instance, spans of up to 128 tokens: the molecule
+// paths' packed rows) and 3 (the long one, rows of 129-384 at block 0)
+// run one body; the backward's instance 1 (the short one, spans of up to
+// 64) runs the whole backward of a span in one kernel (span_bwd16, keys by
+// position), its instance 3 the dq and dk/dv pair.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "attention_bwd.cuh"
 #include "attention_fwd.cuh"
+#include "attention_list16.cuh"
 #include "attention_tile.cuh"
 #include "hash.cuh"
 
@@ -662,6 +676,119 @@ int launch_seg_bwd_bf16(const tile::bf16* qkv, const int* seg,
   return cudaGetLastError();
 }
 
+// ---- K4's bf16 instances -----------------------------------------------
+
+constexpr int DENSE16_HD = 64;  // the head width K4's bf16 instances take
+
+// Registers for four blocks an SM forward and three backward (up to 168 a
+// thread, so that nothing spills; their shared memory allows seven and
+// five).
+template <bool DROP, bool STATS>
+__global__ void __launch_bounds__(attn::LIST16_THREADS, 4)
+attention_dense_fwd_bf16_kernel(const tile::bf16* __restrict__ qkv,
+                                attn::PadTags tags, int span,
+                                tile::bf16* __restrict__ out,
+                                float* __restrict__ stat_m,
+                                float* __restrict__ stat_l, int S, int d,
+                                float scale, Dropout dr) {
+  attn::l16::list_fwd16<DENSE16_HD, true, DROP, STATS>(
+      qkv, tags, span, out, stat_m, stat_l, S, d, scale, dr);
+}
+
+template <bool DROP>
+__global__ void __launch_bounds__(attn::LIST16_THREADS, 3)
+attention_dense_bwd_dq_bf16_kernel(
+    const tile::bf16* __restrict__ qkv, attn::PadTags tags, int span,
+    const tile::bf16* __restrict__ out, const tile::bf16* __restrict__ gout,
+    const float* __restrict__ stat_m, const float* __restrict__ stat_l,
+    float* __restrict__ delta, tile::bf16* __restrict__ dqkv, int S, int d,
+    float scale, Dropout dr) {
+  attn::l16::list_dq16<DENSE16_HD, true, DROP>(qkv, tags, span, out, gout,
+                                               stat_m, stat_l, delta, dqkv,
+                                               S, d, scale, dr);
+}
+
+template <bool DROP>
+__global__ void __launch_bounds__(attn::LIST16_THREADS, 3)
+attention_dense_bwd_dkv_bf16_kernel(
+    const tile::bf16* __restrict__ qkv, attn::PadTags tags, int span,
+    const tile::bf16* __restrict__ gout, const float* __restrict__ stat_m,
+    const float* __restrict__ stat_l, const float* __restrict__ delta,
+    tile::bf16* __restrict__ dqkv, int S, int d, float scale, Dropout dr) {
+  attn::l16::list_dkv16<DENSE16_HD, true, DROP>(qkv, tags, span, gout,
+                                                stat_m, stat_l, delta, dqkv,
+                                                S, d, scale, dr);
+}
+
+// K4-bwd's bf16 short instance: graph blocks of up to 64 tokens (the
+// molecule paths' packed rows), the whole backward of a span in one block.
+template <bool DROP>
+__global__ void __launch_bounds__(attn::LIST16_THREADS, 3)
+attention_dense_bwd_span_bf16_kernel(
+    const tile::bf16* __restrict__ qkv, attn::PadTags tags, int span,
+    const tile::bf16* __restrict__ out, const tile::bf16* __restrict__ gout,
+    const float* __restrict__ stat_m, const float* __restrict__ stat_l,
+    tile::bf16* __restrict__ dqkv, int S, int d, float scale, Dropout dr) {
+  attn::l16::span_bwd16<DENSE16_HD, true, DROP>(
+      qkv, tags, span, out, gout, stat_m, stat_l, dqkv, S, d, scale, dr);
+}
+
+// The span of K4's mask on rows of S tokens: the graph block, or the row.
+int dense_span(int S, int block) { return block > 0 && block < S ? block : S; }
+
+template <bool DROP, bool STATS>
+int launch_dense_fwd_bf16(const tile::bf16* qkv, const unsigned char* valid,
+                          tile::bf16* out, float* stat_m, float* stat_l, int B,
+                          int S, int d, int H, int block, Dropout dr,
+                          const Launch& L, cudaStream_t stream) {
+  const int span = dense_span(S, block);
+  if (!attn::list16_launch_ok(L, B, S, span, H, DENSE16_HD, false))
+    return cudaErrorInvalidValue;
+  const auto k = attention_dense_fwd_bf16_kernel<DROP, STATS>;
+  static const cudaError_t set =
+      allow_smem(k, attn::list16_bytes(DENSE16_HD, false));
+  if (set != cudaSuccess) return set;
+  k<<<dim3(L.gx, L.gy, L.gz), L.threads, L.smem, stream>>>(
+      qkv, attn::PadTags{valid, block}, span, out, stat_m, stat_l, S, d,
+      1.f / sqrtf((float)DENSE16_HD), dr);
+  return cudaGetLastError();
+}
+
+template <bool DROP>
+int launch_dense_bwd_bf16(const tile::bf16* qkv, const unsigned char* valid,
+                          const tile::bf16* out, const tile::bf16* gout,
+                          const float* stat_m, const float* stat_l,
+                          float* delta, tile::bf16* dqkv, int B, int S, int d,
+                          int H, int block, Dropout dr, const Launch& L,
+                          cudaStream_t stream) {
+  const int span = dense_span(S, block);
+  if (!attn::list16_launch_ok(L, B, S, span, H, DENSE16_HD, true))
+    return cudaErrorInvalidValue;
+  const attn::PadTags tags{valid, block};
+  const float scale = 1.f / sqrtf((float)DENSE16_HD);
+  if (L.instance == 1) {  // spans of up to 64: one kernel
+    const auto k = attention_dense_bwd_span_bf16_kernel<DROP>;
+    static const cudaError_t set =
+        allow_smem(k, attn::list16_bytes(DENSE16_HD, true));
+    if (set != cudaSuccess) return set;
+    k<<<dim3(L.gx, L.gy, L.gz), L.threads, L.smem, stream>>>(
+        qkv, tags, span, out, gout, stat_m, stat_l, dqkv, S, d, scale, dr);
+    return cudaGetLastError();
+  }
+  const auto dq = attention_dense_bwd_dq_bf16_kernel<DROP>;
+  const auto dkv = attention_dense_bwd_dkv_bf16_kernel<DROP>;
+  static const cudaError_t set = [&] {
+    const cudaError_t e = allow_smem(dq, attn::list16_bytes(DENSE16_HD, true));
+    return e != cudaSuccess
+               ? e
+               : allow_smem(dkv, attn::list16_bytes(DENSE16_HD, true));
+  }();
+  if (set != cudaSuccess) return set;
+  return attn::launch_list_bwd16(dq, dkv, qkv, tags, span, out, gout, stat_m,
+                                 stat_l, delta, dqkv, S, d, scale, dr, L,
+                                 stream);
+}
+
 Dropout make_dropout(int on, unsigned thresh, float inv_keep, int seed,
                      int bt, int sp, int stride) {
   Dropout dr;
@@ -774,6 +901,57 @@ extern "C" int attention_dense_bwd(const float* qkv,
   return cudaErrorInvalidValue;
 }
 
+
+// K4's bf16 instances (the bf16 step): qkv, out, gout and dqkv bf16, m and
+// l float; heads of 64; the arguments as attention_dense_fwd's and
+// attention_dense_bwd's, the backward with delta [B, S, H] as scratch
+// (written by its dq kernel, read by its dk/dv kernel on the same stream).
+// The launch is the wrapper's list16_geometry; one that does not match (B,
+// S, block, H) is refused.
+extern "C" int attention_dense_fwd_bf16(
+    const tile::bf16* qkv, const unsigned char* valid, tile::bf16* out,
+    float* stat_m, float* stat_l, int B, int S, int d, int H, int block,
+    int drop, unsigned thresh, float inv_keep, int seed, int bt, int sp,
+    int stride, int instance, int pad, int group, int gx, int gy, int gz,
+    int threads, int smem, cudaStream_t stream) {
+  if (B <= 0 || S <= 0 || S > W_MAX || block < 0 || H <= 0 ||
+      d != H * DENSE16_HD || stride < H)
+    return cudaErrorInvalidValue;
+  if ((stat_m == nullptr) != (stat_l == nullptr)) return cudaErrorInvalidValue;
+  if (drop && stat_m == nullptr) return cudaErrorInvalidValue;
+  const Dropout dr = make_dropout(drop, thresh, inv_keep, seed, bt, sp, stride);
+  const Launch L{instance, pad, group, gx, gy, gz, threads, smem};
+  if (dr.on)
+    return launch_dense_fwd_bf16<true, true>(qkv, valid, out, stat_m, stat_l,
+                                             B, S, d, H, block, dr, L, stream);
+  if (stat_m)
+    return launch_dense_fwd_bf16<false, true>(qkv, valid, out, stat_m, stat_l,
+                                              B, S, d, H, block, dr, L,
+                                              stream);
+  return launch_dense_fwd_bf16<false, false>(qkv, valid, out, stat_m, stat_l,
+                                             B, S, d, H, block, dr, L, stream);
+}
+
+extern "C" int attention_dense_bwd_bf16(
+    const tile::bf16* qkv, const unsigned char* valid, const tile::bf16* out,
+    const tile::bf16* gout, const float* stat_m, const float* stat_l,
+    float* delta, tile::bf16* dqkv, int B, int S, int d, int H, int block,
+    int drop, unsigned thresh, float inv_keep, int seed, int bt, int sp,
+    int stride, int instance, int pad, int group, int gx, int gy, int gz,
+    int threads, int smem, cudaStream_t stream) {
+  if (B <= 0 || S <= 0 || S > W_MAX || block < 0 || H <= 0 ||
+      d != H * DENSE16_HD || stride < H || stat_m == nullptr ||
+      stat_l == nullptr || delta == nullptr)
+    return cudaErrorInvalidValue;
+  const Dropout dr = make_dropout(drop, thresh, inv_keep, seed, bt, sp, stride);
+  const Launch L{instance, pad, group, gx, gy, gz, threads, smem};
+  return dr.on ? launch_dense_bwd_bf16<true>(qkv, valid, out, gout, stat_m,
+                                             stat_l, delta, dqkv, B, S, d, H,
+                                             block, dr, L, stream)
+               : launch_dense_bwd_bf16<false>(qkv, valid, out, gout, stat_m,
+                                              stat_l, delta, dqkv, B, S, d, H,
+                                              block, dr, L, stream);
+}
 
 // K2 backward: dqkv [R, W, 3d] for the cotangent gout [R, W, d] of
 // attention_seg_fwd's out, from its saved m and l, with K2's dropout
@@ -895,6 +1073,30 @@ extern "C" int attention_seg_bwd_long_bf16_residency(int which, int smem,
                        regs, local, blocks);
     case 3:
       return residency(attention_seg_bwd_dkv_bf16_kernel<false>, most, smem,
+                       regs, local, blocks);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The residency of a kernel of K4's bf16 instances (with dropout: the
+// training launch) at `smem` shared bytes a block: `which` 0 the forward,
+// 1 the dq kernel, 2 the dk/dv kernel, 3 the short backward's one kernel.
+extern "C" int attention_dense_bf16_residency(int which, int smem, int* regs,
+                                              int* local, int* blocks) {
+  const int fb = attn::list16_bytes(DENSE16_HD, false);
+  const int bb = attn::list16_bytes(DENSE16_HD, true);
+  switch (which) {
+    case 0:
+      return residency(attention_dense_fwd_bf16_kernel<true, true>, fb, smem,
+                       regs, local, blocks);
+    case 1:
+      return residency(attention_dense_bwd_dq_bf16_kernel<true>, bb, smem,
+                       regs, local, blocks);
+    case 2:
+      return residency(attention_dense_bwd_dkv_bf16_kernel<true>, bb, smem,
+                       regs, local, blocks);
+    case 3:
+      return residency(attention_dense_bwd_span_bf16_kernel<true>, bb, smem,
                        regs, local, blocks);
   }
   return cudaErrorInvalidValue;

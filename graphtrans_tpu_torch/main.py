@@ -42,15 +42,18 @@ The run is f32 unless ``--precision bf16`` (the root ``main.py``'s flag):
 then the forward and backward run in bfloat16 on a copy of the float32
 master parameters, with the loss, BatchNorm's statistics, the gradients
 and AdamW's state in float32 (``train/precision.py``, the JAX trainer's
-cast); the kernels of the path run their bf16 instances (molpcba: K1,
-K1-bwd, K2 and K2-bwd; code2: K7, K7-bwd, K2, K2-bwd, K3 and K3-bwd), and
-cuBLAS sums the bf16 products in float32. bf16 runs the molpcba
-GraphTrans configs (GIN on the strided layout) and the code2 GraphTrans
-configs (GCN on the flat layout) under ``--attn_backend auto``; every
-other model, dataset and backend, and the blocked route, raise
-NotImplementedError naming slice 10 (``utils/config.py:check_ported``;
-``set_block_spmm``'s route in ``nn/conv.py``). ``--save_path`` writes
-the float32 masters, which ``predict --weights`` serves in float32.
+cast); the kernels of the path run their bf16 instances (molpcba
+GraphTrans: K1, K1-bwd, K2 and K2-bwd; code2 GraphTrans: K7, K7-bwd, K2,
+K2-bwd, K3 and K3-bwd; the Transformer-only model: K4, K4-bwd, K5 and
+K5-bwd at heads of 64, and the plain route), and cuBLAS sums the bf16
+products in float32. bf16 runs the molpcba GraphTrans configs (GIN on
+the strided layout), the code2 GraphTrans configs (GCN on the flat
+layout) and the Transformer-only configs (molpcba, code2, NCI1 and
+NCI109) under ``--attn_backend auto``; every other model, dataset and
+backend, K11 and the blocked route raise NotImplementedError naming
+slice 10 (``utils/config.py:check_ported``; ``set_block_spmm``'s route
+in ``nn/conv.py``). ``--save_path`` writes the float32 masters, which
+``predict --weights`` serves in float32.
 """
 
 from __future__ import annotations

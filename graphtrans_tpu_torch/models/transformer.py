@@ -4,8 +4,10 @@ go into a dense ``[G, S, d]`` batch (``ops/dense.py``), the encoder runs
 over unpacked rows with a CLS column appended, and the CLS column is read
 out into the prediction head (per-position heads for code2), on the
 molecule datasets, ogbg-code2 and the TU datasets. It serves and
-trains; pooling other than CLS (the ``NodePool`` zoo) arrives with slice
-11."""
+trains, in f32 or (``--precision bf16``, under ``--attn_backend auto``)
+on a bf16 copy of its parameters, the activations bf16 from the node
+encoder on as in the JAX model; pooling other than CLS (the ``NodePool``
+zoo) arrives with slice 11."""
 
 from __future__ import annotations
 
@@ -18,7 +20,6 @@ from ..data import dataset_kind
 from ..nn.encoders import AtomEncoder, ASTNodeEncoder, LinearNodeEncoder
 from ..nn.transformer import TransformerNodeEncoder
 from ..ops.dense import nodes_to_dense
-from ..train.precision import refuse_bf16
 from .gnn_transformer import _ENCODER, _check_supported
 from .heads import PredictionHead
 
@@ -49,7 +50,6 @@ class TransformerModule(nn.Module):
         else:
             h = self.node_encoder(batch.node_feat)
         h = h.masked_fill(~batch.node_mask[:, None], 0.0)
-        refuse_bf16(h, "the Transformer-only model (K4, K5, K9, K10)")
         S = min(batch.max_nodes_dense, self.max_input_len)
         dense, valid = nodes_to_dense(h, batch.node_graph, batch.node_pos,
                                       batch.node_mask, batch.num_graph_slots,

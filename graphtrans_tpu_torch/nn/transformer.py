@@ -24,10 +24,15 @@ route it is ``ByteDropout`` on the probabilities, as the JAX package drops
 ``att`` (``:376``), and under ``chunked`` an exact-probability Bernoulli
 mask (``:74-78``), drawn from the run's device generator.
 
-In bf16 (the bf16 step) the packed rows run on K2's bf16 instance (rows of
-up to 128 tokens) or the plain route; LayerNorm takes its statistics in
-float32 and rounds its output once, as flax's does; every other route
-raises NotImplementedError naming slice 10."""
+In bf16 (the bf16 step) attention runs under the backend auto: packed
+rows on K2's and K3's bf16 instances, unpacked rows (the Transformer-only
+model) on K4's and K5's, at heads of 64 for K4 and K5, or on the plain
+route, which rounds as the JAX package's XLA route does (scores and
+softmax in float32, the probabilities rounded to bf16 before
+``ByteDropout`` and the product with V in bf16). LayerNorm takes its
+statistics in float32 and rounds its output once, as flax's does. The
+routes of K9 and K10 (and ``chunked``) raise NotImplementedError naming
+slice 10."""
 
 from __future__ import annotations
 
@@ -54,6 +59,8 @@ BACKENDS = ("auto", "flash", "smalls", "chunked", "dense", "packed",
             "packed_smalls", "packed_fused", "packed_layer")
 CLI_BACKENDS = BACKENDS[:7]
 PACKING = ("auto", "packed", "packed_smalls", "packed_fused", "packed_layer")
+# the routes that run in bf16 (K5 on unpacked rows only)
+BF16_ROUTES = ("k2", "k3", "k4", "k5", "plain")
 
 
 def graphs_per_row(S: int, backend: str = "auto") -> int:
@@ -150,7 +157,8 @@ class MultiheadSelfAttention(nn.Module):
         rate = self.dropout if self.training else 0.0
         qkv = self.in_proj(x)
         kernel = self.use_kernel
-        if route not in ("k2", "k3", "plain"):
+        if route not in BF16_ROUTES or (route == "k5" and seg is not None):
+            # K5 on packed rows is the flash backend's (part 3b)
             refuse_bf16(qkv, f"attention route {route}")
         if route in ("k2", "k3"):
             fn = {"k2": (attention_seg, attention_seg_plain),
@@ -174,10 +182,11 @@ class MultiheadSelfAttention(nn.Module):
     def _plain(self, qkv, route, seg, valid, block, rate, gen):
         """The masked softmax in PyTorch: ByteDropout on the probabilities,
         or under ``chunked`` an exact-probability Bernoulli mask. In bf16
-        (packed rows, the JAX package's XLA route) the scores and softmax
-        are float32 and the probabilities are rounded to bf16 before the
-        dropout and the product (``attention_seg_plain`` with ``kernel``
-        False)."""
+        (packed and unpacked rows, the JAX package's XLA route,
+        ``graphtrans_tpu/nn/transformer.py:364-376``) the scores and
+        softmax are float32 and the probabilities are rounded to bf16
+        before the dropout and the product (``attention_seg_plain`` and
+        ``attention_dense_plain`` with ``kernel`` False)."""
         drop = None
         if rate > 0.0 and route == "chunked":
             if gen is None:
@@ -191,7 +200,8 @@ class MultiheadSelfAttention(nn.Module):
         if seg is not None:
             return attention_seg_plain(qkv, seg, self.nhead, drop=drop,
                                        kernel=False)
-        return attention_dense_plain(qkv, valid, self.nhead, block, drop=drop)
+        return attention_dense_plain(qkv, valid, self.nhead, block, drop=drop,
+                                     kernel=False)
 
 
 class TransformerEncoderLayer(nn.Module):

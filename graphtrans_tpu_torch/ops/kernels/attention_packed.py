@@ -114,6 +114,23 @@ register-blocked tile products. Spans of up to 64 tokens are taken whole
 ones (block 0, up to 384) in 64-token tiles with the span's dQ sums in
 shared memory (the wide instance). ``dense_bwd_geometry`` computes each
 launch; the C entry refuses one it cannot run. Heads of width 32 and 64.
+
+K4's bf16 instances (the bf16 step of the Transformer-only model) take
+heads of 64 only and round where K2's bf16 instances round (the JAX
+kernels share ``_probs_all`` and ``attn_bwd_math``): the normalised,
+dropped p rounded before P V, delta summed from the pairs, dS rounded
+(``attention_dense_plain`` rounds the same way in bf16). Their bodies are
+``csrc/attention_list16.cuh``'s, at ``list16_geometry``'s launch: a block
+of four warps per (row, head, 64-token tile of a graph block, or of the
+row at block 0), the keys whose tag meets the tile's ranked and gathered
+64 at a time, a warp's 16 rows whole, every product a bf16 ``mma.sync``
+with float32 sums, the dropout hash split into a row's part (the row's
+seed made once a block) and a key's. The forward counts as ``tile_bf16``
+(graph blocks: the molecule paths) or ``long_bf16`` (rows of 129-384);
+the backward as ``short_bf16`` (graph blocks of up to 64 tokens: the
+whole backward of a block in one kernel, its keys by position) or
+``long_bf16`` (a dq kernel, then a dk/dv kernel over chunks of valid
+keys by rank; delta passes between them).
 """
 
 from __future__ import annotations
@@ -766,6 +783,42 @@ def long16_fwd_geometry(R: int, W: int, nhead: int, norm: bool) -> Geometry:
                     long16_fwd_bytes(W, norm))
 
 
+LIST16_THREADS = 128   # four warps, 16 rows each: K4's and K5's bf16 bodies
+LIST16_HD = 64         # the head width they are built for
+
+
+def list16_bytes(bwd: bool) -> int:
+    """Shared bytes of a block of the bf16 key-list bodies at heads of
+    LIST16_HD: three 64-row bf16 tiles forward (Q, K, V), four backward,
+    rows of hd + 8; the backward's m log2(e), 1/l, delta and part of the
+    dropout hash per staged query; per staged query its tag, per key its
+    tag and token; the prefix count's scratch
+    (``csrc/attention_list16.cuh:list16_bytes``)."""
+    return ((4 if bwd else 3) * LONG_T * (LIST16_HD + 8) * 2
+            + (4 * LONG_T * 4 if bwd else 0)
+            + (3 * LONG_T + LIST16_THREADS // 32 + 4) * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def list16_geometry(B: int, S: int, block: int, nhead: int,
+                    bwd: bool) -> Geometry:
+    """The launch of the bf16 key-list bodies (K4's and K5's bf16 instances;
+    K4-bwd's and K5-bwd's with ``bwd``, both kernels of the pair) on B rows
+    of S tokens: the row cut into spans (``row_spans(S, block)``, K5's
+    block 0: the row), a block of LIST16_THREADS per (row, head, 64-token
+    tile of a span). The instance is named by the span width: forward
+    "tile" up to TILE_MAX (the molecule paths' packed rows) and "long"
+    above, one body for both; backward "short" up to LONG_T (the whole
+    backward of a span in one kernel, ``csrc/attention_list16.cuh:
+    span_bwd16``) and "long" above (the dq and dk/dv pair)."""
+    spans = row_spans(S, block)
+    span = spans[0][1] - spans[0][0]
+    tiles = len(spans) * -(-span // LONG_T)
+    short = ("short", LONG_T) if bwd else ("tile", TILE_MAX)
+    return Geometry(short[0] if span <= short[1] else "long", spans, LONG_T,
+                    1, (B, nhead, tiles), LIST16_THREADS, list16_bytes(bwd))
+
+
 def dense_fwd_geometry(B: int, S: int, block: int, hd: int, nhead: int,
                        stats: bool, rate: float) -> Geometry:
     """The forward launch of K4 (and of K9, at any S) for rows of S tokens:
@@ -823,18 +876,25 @@ def dense_bwd_geometry(B: int, S: int, block: int, hd: int,
 # ---- K4: key-padding attention, optionally block-diagonal -----------------
 
 DENSE_HEAD_DIMS = (32, 64)   # the head widths attention_dense compiles
+DENSE_BF16_HEAD_DIMS = (LIST16_HD,)   # and its bf16 instances
 
 
 def attention_dense_plain(qkv: torch.Tensor, key_valid: torch.Tensor,
                           nhead: int, block: int = 0, rate: float = 0.0,
-                          seed: int = 0, drop=None) -> torch.Tensor:
+                          seed: int = 0, drop=None,
+                          kernel: bool = True) -> torch.Tensor:
     """Plain PyTorch version of K4: key j is attendable by query i iff
     ``key_valid[j]`` and, with ``block > 0``, ``i // block == j // block``.
     A padding query attends its block's valid keys; a query whose block
     has no valid key gets exact zeros. At ``rate > 0`` K2's dropout mask
     (``keep_mask``) over the rows of qkv; ``drop`` (a function of the
     probabilities) replaces it, as the encoder's plain route does with
-    ``ByteDropout``. Autograd differentiates it."""
+    ``ByteDropout``. Autograd differentiates it. qkv f32, or bf16: then it
+    rounds where K4's bf16 kernels round, which are K2's points (the JAX
+    kernels share ``_probs_all`` and ``attn_bwd_math``:
+    ``_attention_k2_bf16``), or with ``kernel`` False where the JAX
+    package's XLA route rounds (the encoder's plain route,
+    ``masked_attention``)."""
     B, S, _ = qkv.shape
     mask = key_valid.bool()[:, None, None, :]                 # [B, 1, 1, S]
     if block > 0:
@@ -842,7 +902,10 @@ def attention_dense_plain(qkv: torch.Tensor, key_valid: torch.Tensor,
         mask = mask & (grp[:, None] == grp[None, :])
     if drop is None and rate > 0.0:
         drop = keep_drop(keep_mask(B, S, nhead, rate, seed, qkv.device), rate)
-    return masked_attention(qkv, nhead, mask.expand(-1, 1, S, S), drop)
+    mask = mask.expand(-1, 1, S, S)
+    if qkv.dtype == torch.bfloat16 and kernel:
+        return _attention_k2_bf16(qkv, nhead, mask, drop)
+    return masked_attention(qkv, nhead, mask, drop)
 
 
 def attention_dense_bwd_plain(qkv, key_valid, nhead, gout, block=0, rate=0.0,
@@ -870,14 +933,18 @@ def _check_dense(qkv, key_valid, nhead, block, rate, gout=None):
         raise ValueError(f"attention_dense: block {block} < 0")
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"attention_dense: dropout rate {rate} not in [0, 1)")
-    if qkv.dtype != torch.float32 or key_valid.dtype != torch.bool:
-        raise ValueError("attention_dense: expected float32 qkv, bool "
-                         "key_valid")
+    if qkv.dtype not in DTYPES or key_valid.dtype != torch.bool:
+        raise ValueError("attention_dense: expected float32 or bfloat16 qkv, "
+                         "bool key_valid")
+    if qkv.dtype == torch.bfloat16 and d // nhead not in DENSE_BF16_HEAD_DIMS:
+        raise ValueError(f"attention_dense: head width {d // nhead} in bf16; "
+                         f"the bf16 kernels are built for "
+                         f"{DENSE_BF16_HEAD_DIMS}")
     if tuple(key_valid.shape) != (B, S) or key_valid.device != qkv.device:
         raise ValueError(f"attention_dense: key_valid "
                          f"{tuple(key_valid.shape)} on {key_valid.device} "
                          f"does not match qkv")
-    if gout is not None and (gout.dtype != torch.float32
+    if gout is not None and (gout.dtype != qkv.dtype
                              or tuple(gout.shape) != (B, S, d)
                              or gout.device != qkv.device):
         raise ValueError(f"attention_dense_bwd: gout {gout.dtype} "
@@ -901,12 +968,29 @@ def attention_dense_with_stats(qkv: torch.Tensor, key_valid: torch.Tensor,
     out, m, l = res = dense_fwd_launch(qkv, key_valid, nhead, block, rate,
                                        seed, stats)
     if out.numel():
-        B, S, d3 = qkv.shape
         attention_dense.launches += 1
-        attention_dense.instances[dense_fwd_geometry(
-            B, S, block, d3 // 3 // nhead, nhead, m is not None,
-            rate).instance] += 1
+        attention_dense.instances[_dense_geometry(
+            qkv, nhead, block, False, m is not None, rate).instance
+            + _suffix(qkv)] += 1
     return res
+
+
+def _suffix(qkv: torch.Tensor) -> str:
+    """The counted instance's suffix: "_bf16" for the bf16 instances."""
+    return "_bf16" if qkv.dtype == torch.bfloat16 else ""
+
+
+def _dense_geometry(qkv, nhead, block, bwd, stats=True, rate=0.0):
+    """The launch of K4 (K4-bwd with ``bwd``) on qkv [B, S, 3d]: the f32
+    instances' (``dense_fwd_geometry``, ``dense_bwd_geometry``) or the bf16
+    ones' (``list16_geometry``)."""
+    B, S, d3 = qkv.shape
+    hd = d3 // 3 // nhead
+    if qkv.dtype == torch.bfloat16:
+        return list16_geometry(B, S, block, nhead, bwd)
+    if bwd:
+        return dense_bwd_geometry(B, S, block, hd, nhead)
+    return dense_fwd_geometry(B, S, block, hd, nhead, stats, rate)
 
 
 def dense_fwd_launch(qkv, key_valid, nhead, block, rate, seed, stats,
@@ -925,16 +1009,16 @@ def dense_fwd_launch(qkv, key_valid, nhead, block, rate, seed, stats,
         l = torch.empty_like(m)
     if out.numel() == 0:
         return out, m, l
-    geo = dense_fwd_geometry(B, S, block, d3 // 3 // nhead, nhead, stats,
-                             rate)
+    geo = _dense_geometry(qkv, nhead, block, False, stats, rate)
     valid = key_valid.contiguous()     # the bool itself: one byte a key
     ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
     lib = _load()
-    err = lib.attention_dense_fwd(
+    entry = _build.entry(lib, "attention_dense_fwd", qkv.dtype)
+    err = entry(
         ptr(qkv), ptr(valid), ptr(out), ptr(m), ptr(l), B, S, d3 // 3, nhead,
         block, *_dropout_args(S, rate, seed), stride or nhead, *geo.args(),
         _stream(qkv))
-    _build.check(lib, err, "attention_dense_fwd")
+    _build.check(lib, err, entry.__name__)
     return out, m, l
 
 
@@ -979,7 +1063,9 @@ def attention_dense(qkv: torch.Tensor, key_valid: torch.Tensor, nhead: int,
 
 
 attention_dense.launches = 0
-attention_dense.instances = {"tile": 0, "long": 0}   # launches by instance
+# launches by instance
+attention_dense.instances = {"tile": 0, "long": 0, "tile_bf16": 0,
+                             "long_bf16": 0}
 
 
 def attention_dense_bwd(qkv: torch.Tensor, key_valid: torch.Tensor,
@@ -1009,8 +1095,8 @@ def attention_dense_bwd(qkv: torch.Tensor, key_valid: torch.Tensor,
     dqkv = dense_bwd_launch(qkv, key_valid, nhead, gout, block, rate, seed,
                             saved)
     attention_dense_bwd.launches += 1
-    attention_dense_bwd.instances[dense_bwd_geometry(
-        B, S, block, d3 // 3 // nhead, nhead).instance] += 1
+    attention_dense_bwd.instances[_dense_geometry(
+        qkv, nhead, block, True).instance + _suffix(qkv)] += 1
     return dqkv
 
 
@@ -1026,20 +1112,31 @@ def dense_bwd_launch(qkv, key_valid, nhead, gout, block, rate, seed, saved,
     if out.data_ptr() % 16:
         raise ValueError("attention_dense_bwd: the forward's output must be "
                          "16-byte aligned")
-    geo = dense_bwd_geometry(B, S, block, d3 // 3 // nhead, nhead)
+    geo = _dense_geometry(qkv, nhead, block, True)
     valid = key_valid.contiguous()
     lib = _load()
-    err = lib.attention_dense_bwd(
-        *(ctypes.c_void_p(t.data_ptr())
-          for t in (qkv, valid, out, gout, m, l, dqkv)),
-        B, S, d3 // 3, nhead, block, *_dropout_args(S, rate, seed),
-        stride or nhead, *geo.args(), _stream(qkv))
-    _build.check(lib, err, "attention_dense_bwd")
+    ptrs = [qkv, valid, out, gout, m, l, dqkv]
+    entry = lib.attention_dense_bwd
+    if qkv.dtype == torch.bfloat16:
+        # the f32 entry's parameters with the bf16 pair's delta [B, S, H]
+        # before dqkv
+        ptrs.insert(6, torch.empty_like(m))
+        entry = lib.attention_dense_bwd_bf16
+        if entry.argtypes is None:
+            entry.argtypes = ([ctypes.c_void_p]
+                              + lib.attention_dense_bwd.argtypes)
+            entry.restype = ctypes.c_int
+    err = entry(*(ctypes.c_void_p(t.data_ptr()) for t in ptrs),
+                B, S, d3 // 3, nhead, block, *_dropout_args(S, rate, seed),
+                stride or nhead, *geo.args(), _stream(qkv))
+    _build.check(lib, err, entry.__name__)
     return dqkv
 
 
 attention_dense_bwd.launches = 0
-attention_dense_bwd.instances = {"short": 0, "wide": 0}   # launches by instance
+# launches by instance
+attention_dense_bwd.instances = {"short": 0, "wide": 0, "short_bf16": 0,
+                                 "long_bf16": 0}
 
 
 def _load():

@@ -72,20 +72,41 @@ tiles filled 56 %. Bound: operations (10 hd flops a pair of products;
 ~0.97 ms at bench512 as 3xTF32 on the tensor cores, 2.41 ms at the f32
 SIMT peak); the pair terms are computed in both kernels. Every output cell
 has one writer: no atomics. Heads of width 32, 64 and 128 are compiled.
+
+bf16 (the bf16 step of the Transformer-only model, heads of 64): the JAX
+kernel asks for precision None (DEFAULT, one bf16 MXU pass) on bf16
+inputs, so its products round their operands to bf16 on the TPU: the
+online softmax's unnormalised p (dropped and rescaled) before P V, and in
+the backward dS = p (dp_drop - delta), whose products are scaled after
+their sums, and P_drop; delta = dO . O over the rounded output. The plain
+bf16 version (``OnlineBf16``, K3's, with dS rounded before its scale)
+rounds p against the row's final max; the kernels round it against the
+running one. The kernels are the bf16 key-list bodies of
+``csrc/attention_list16.cuh`` (K4's bf16 instances run them too), at
+``attention_packed.list16_geometry``'s launch over the whole row: a
+block of four warps per (row, head, 64 queries) walks the keys whose tags
+meet its queries', ranked and gathered 64 at a time; the backward is a dq
+kernel (it writes delta) and a dk/dv kernel over chunks of 64 valid keys
+by rank; every product a bf16 ``mma.sync`` with float32 sums. Launches
+count by dtype in ``flash_attention.instances`` and
+``flash_attention_bwd.instances``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from . import _build
-from .attention_packed import (_stream, hash_bits, keep_drop,
-                               keep_threshold, long_fwd_geometry,
-                               masked_attention)
+from .attention_packed import (LIST16_HD, _stream, hash_bits, keep_drop,
+                               keep_threshold, list16_geometry,
+                               long_fwd_geometry, masked_attention)
 
 HEAD_DIMS = (32, 64, 128)     # the head widths the kernel compiles
+BF16_HEAD_DIMS = (LIST16_HD,)  # and its bf16 instances
+DTYPES = (torch.float32, torch.bfloat16)
 PLAIN_SCORE_BYTES = 1 << 30   # the plain version's score budget per chunk
 MASK_TILE = 256               # the JAX kernel's BQ = BK, which seed its mask
 
@@ -123,7 +144,9 @@ def flash_attention_plain(qkv: torch.Tensor, segq: torch.Tensor,
     """Plain PyTorch version of K5: the masked softmax of the JAX package
     over whole rows, with K5's dropout mask at ``rate > 0``, taken a few
     rows at a time so the ``[rows, H, S, S]`` scores stay within
-    ``PLAIN_SCORE_BYTES``. Autograd differentiates it."""
+    ``PLAIN_SCORE_BYTES``. Autograd differentiates it. A bf16 qkv rounds at
+    the points of the JAX kernel in bf16 on the TPU (``OnlineBf16``, as K3
+    rounds, with dS rounded before its scale)."""
     B, S, _ = qkv.shape
     step = max(1, PLAIN_SCORE_BYTES // (nhead * S * S * 4))
     outs = []
@@ -132,13 +155,90 @@ def flash_attention_plain(qkv: torch.Tensor, segq: torch.Tensor,
         sk = segk[b0:b0 + step].long()
         mask = ((sq[:, :, None] == sk[:, None, :])
                 & (sk >= 0)[:, None, :])[:, None]            # [b, 1, S, S]
-        drop = None
+        keep = None
         if rate > 0.0:
             rows = torch.arange(b0, b0 + len(sq), device=qkv.device)
-            drop = keep_drop(tile_keep_mask(rows, S, nhead, rate, seed),
-                             rate)
-        outs.append(masked_attention(qkv[b0:b0 + step], nhead, mask, drop))
+            keep = tile_keep_mask(rows, S, nhead, rate, seed)
+        part = qkv[b0:b0 + step]
+        if qkv.dtype == torch.bfloat16:
+            outs.append(OnlineBf16.apply(part, mask, nhead, keep, rate,
+                                         False))
+        else:
+            drop = None if keep is None else keep_drop(keep, rate)
+            outs.append(masked_attention(part, nhead, mask, drop))
     return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def _heads(t: torch.Tensor, nhead: int) -> torch.Tensor:
+    """[R, W, H*hd] -> float32 [R, H, W, hd]."""
+    R, W, d = t.shape
+    return t.float().reshape(R, W, nhead, d // nhead).transpose(1, 2)
+
+
+class OnlineBf16(torch.autograd.Function):
+    """The flash kernels in bf16 (K3, K5) with the JAX kernels' rounding
+    points on the TPU, where their products take one bf16 MXU pass: forward
+    and backward written out in float32 over the bf16 inputs, each rounding
+    point an explicit cast. Forward: q.k from the bf16 operands, m and l in
+    float32, the unnormalised p = exp(s - m) (here against the row's final
+    max; the kernels round against the running one), dropped and rescaled,
+    rounded before P V, the sum normalised by 1/l in float32 and rounded
+    once. Backward: p = exp(s - m) / l and dp in float32, delta = dO . O
+    over the rounded output, dS = p (dp_drop - delta) rounded, times the
+    scale before it is rounded (``scale_ds``: K3) or after its products'
+    sums (K5), P_drop rounded; dQ, dK, dV summed in float32 and rounded
+    once. ``mask`` bool [R, 1, W, W]; ``keep`` (bool [R, H, W, W]) the
+    dropout mask at ``rate``, or None."""
+
+    @staticmethod
+    def _probs(qkv, mask, nhead):
+        """(q, k, v [R, H, W, hd] float32, the scale, the undropped exp(s -
+        m) [R, H, W, W] (0 off the mask) and l [R, H, W, 1])."""
+        q, k, v = (_heads(t, nhead) for t in qkv.split(qkv.shape[-1] // 3,
+                                                      dim=-1))
+        scale = torch.tensor(1.0 / math.sqrt(q.shape[-1]),
+                             dtype=torch.float32)
+        s = (torch.matmul(q, k.transpose(-1, -2)) * scale).masked_fill(
+            ~mask, -1e30)
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True)).masked_fill(~mask,
+                                                                    0.0)
+        return q, k, v, scale, e, e.sum(dim=-1, keepdim=True)
+
+    @staticmethod
+    def forward(ctx, qkv, mask, nhead, keep, rate, scale_ds):
+        q, k, v, scale, e, l = OnlineBf16._probs(qkv, mask, nhead)
+        drop = None if keep is None else keep.float() * (1.0 / (1.0 - rate))
+        pu = e if drop is None else e * drop
+        acc = torch.matmul(pu.to(qkv.dtype).float(), v)
+        out = (acc / l.clamp_min(1e-16)).to(qkv.dtype)
+        R, W, _ = qkv.shape
+        out = out.transpose(1, 2).reshape(R, W, -1)
+        ctx.save_for_backward(qkv, mask, out, keep)
+        ctx.nhead, ctx.rate, ctx.scale_ds = nhead, rate, scale_ds
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, mask, out, keep = ctx.saved_tensors
+        nhead, dt = ctx.nhead, qkv.dtype
+        q, k, v, scale, e, l = OnlineBf16._probs(qkv, mask, nhead)
+        p = e / l.clamp_min(1e-16)
+        gh = _heads(g.to(dt), nhead)
+        delta = (gh * _heads(out, nhead)).sum(dim=-1, keepdim=True)
+        dp = torch.matmul(gh, v.transpose(-1, -2))
+        pd = p
+        if keep is not None:
+            drop = keep.float() * (1.0 / (1.0 - ctx.rate))
+            dp, pd = dp * drop, p * drop
+        pre, post = (scale, 1.0) if ctx.scale_ds else (1.0, scale)
+        ds = (p * (dp - delta) * pre).to(dt).float()
+        dq = torch.matmul(ds, k) * post
+        dk = torch.matmul(ds.transpose(-1, -2), q) * post
+        dv = torch.matmul(pd.to(dt).float().transpose(-1, -2), gh)
+        R, W, _ = qkv.shape
+        dqkv = torch.cat([t.transpose(1, 2).reshape(R, W, -1)
+                          for t in (dq, dk, dv)], dim=-1).to(dt)
+        return dqkv, None, None, None, None, None
 
 
 def flash_attention_bwd_plain(qkv, segq, segk, nhead, gout, rate=0.0,
@@ -156,21 +256,22 @@ def _check(qkv, segq, segk, nhead, rate, gout=None):
     d = d3 // 3
     if d3 % 3 or d % nhead:
         raise ValueError(f"flash_attention: width {d3} is not 3*nhead*hd")
-    if d // nhead not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head width {d // nhead}; the "
-                         f"kernel is built for {HEAD_DIMS}")
+    dims = BF16_HEAD_DIMS if qkv.dtype == torch.bfloat16 else HEAD_DIMS
+    if d // nhead not in dims:
+        raise ValueError(f"flash_attention: head width {d // nhead} in "
+                         f"{qkv.dtype}; the kernel is built for {dims}")
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"flash_attention: dropout rate {rate} not in "
                          f"[0, 1)")
-    if qkv.dtype != torch.float32:
-        raise ValueError("flash_attention: expected float32 qkv")
+    if qkv.dtype not in DTYPES:
+        raise ValueError("flash_attention: expected float32 or bfloat16 qkv")
     for name, t in (("segq", segq), ("segk", segk)):
         if (t.dtype != torch.int32 or tuple(t.shape) != (B, S)
                 or t.device != qkv.device):
             raise ValueError(f"flash_attention: {name} {t.dtype} "
                              f"{tuple(t.shape)} on {t.device} does not "
                              f"match qkv (int32 [B, S])")
-    if gout is not None and (gout.dtype != torch.float32
+    if gout is not None and (gout.dtype != qkv.dtype
                              or tuple(gout.shape) != (B, S, d)
                              or gout.device != qkv.device):
         raise ValueError(f"flash_attention_bwd: gout {gout.dtype} "
@@ -207,16 +308,25 @@ def flash_attention_with_stats(qkv: torch.Tensor, segq: torch.Tensor,
         l = torch.empty_like(m)
     if out.numel() == 0:
         return out, m, l
-    geo = long_fwd_geometry(B, S, d3 // 3 // nhead, nhead)
+    geo = (list16_geometry(B, S, 0, nhead, False)
+           if qkv.dtype == torch.bfloat16
+           else long_fwd_geometry(B, S, d3 // 3 // nhead, nhead))
     ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
     lib = _load()
-    err = lib.flash_attention_fwd(
+    entry = _build.entry(lib, "flash_attention_fwd", qkv.dtype)
+    err = entry(
         ptr(qkv), ptr(segq), ptr(segk), ptr(out), ptr(m), ptr(l), B, S,
         d3 // 3, nhead, *_dropout_args(rate, seed), *geo.args(),
         _stream(qkv))
-    _build.check(lib, err, "flash_attention_fwd")
+    _build.check(lib, err, entry.__name__)
     flash_attention.launches += 1
+    flash_attention.instances[_instance(qkv)] += 1
     return out, m, l
+
+
+def _instance(qkv: torch.Tensor) -> str:
+    """The counted instance: "f32" or "bf16"."""
+    return "bf16" if qkv.dtype == torch.bfloat16 else "f32"
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -258,6 +368,7 @@ def flash_attention(qkv: torch.Tensor, segq: torch.Tensor,
 
 
 flash_attention.launches = 0
+flash_attention.instances = {"f32": 0, "bf16": 0}   # launches by dtype
 
 
 def flash_attention_bwd(qkv: torch.Tensor, segq: torch.Tensor,
@@ -288,16 +399,19 @@ def flash_attention_bwd(qkv: torch.Tensor, segq: torch.Tensor,
         return dqkv
     delta = torch.empty_like(m)
     lib = _load()
-    err = lib.flash_attention_bwd(
+    entry = _build.entry(lib, "flash_attention_bwd", qkv.dtype)
+    err = entry(
         *(ctypes.c_void_p(t.data_ptr())
           for t in (qkv, segq, segk, out, gout, m, l, delta, dqkv)),
         B, S, d3 // 3, nhead, *_dropout_args(rate, seed), _stream(qkv))
-    _build.check(lib, err, "flash_attention_bwd")
+    _build.check(lib, err, entry.__name__)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.instances[_instance(qkv)] += 1
     return dqkv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.instances = {"f32": 0, "bf16": 0}   # launches by dtype
 
 
 def _load():

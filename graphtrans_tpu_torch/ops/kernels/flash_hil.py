@@ -74,7 +74,7 @@ before P V, the accumulator rescaled and normalised by 1/l in float32,
 the output rounded once; backward p = exp(s - m) / l and dp in float32,
 delta = dO . O over the rounded output (``_bwd_rule``), dS = p (dp -
 delta) * scale and P_drop rounded, dQ, dK, dV summed in float32 and
-rounded once. The plain bf16 version (``_FlashHilBf16``) rounds at the
+rounded once. The plain bf16 version (``flash_attention.OnlineBf16``) rounds at the
 same points, p against the row's final max. (In interpret mode on the CPU
 the JAX kernel's DEFAULT products are exact float32: it rounds none of
 these.) The forward is the bf16 long forward K2's 384 tier runs in bf16
@@ -99,7 +99,6 @@ next product's A fragment in registers. Launches count by dtype in
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
@@ -108,7 +107,7 @@ from .attention_packed import (HEAD_DIM, Geometry, _stream,
                                attention_seg_plain, keep_threshold,
                                long16_bwd_geometry, long16_fwd_geometry,
                                long16_records, long_fwd_geometry, seg_mask)
-from .flash_attention import tile_keep_mask
+from .flash_attention import OnlineBf16, tile_keep_mask
 
 MASK_BQ, MASK_BK = 512, 128   # the JAX kernel's blocks, which seed its mask
 
@@ -126,77 +125,14 @@ def flash_hil_seg_plain(qkv: torch.Tensor, seg: torch.Tensor, nhead: int,
     """Plain PyTorch version of K3: K2's plain segment-masked softmax
     attention over rows of any width, with flash_hil's dropout mask;
     autograd differentiates it. A bf16 qkv rounds at K3's points
-    (``_FlashHilBf16``)."""
+    (``OnlineBf16``, dS rounded with its scale)."""
     keep = None
     if rate > 0.0:
         R, W, _ = qkv.shape
         keep = flash_hil_keep_mask(R, W, nhead, rate, seed, qkv.device)
     if qkv.dtype == torch.bfloat16:
-        return _FlashHilBf16.apply(qkv, seg, nhead, keep, rate)
+        return OnlineBf16.apply(qkv, seg_mask(seg), nhead, keep, rate, True)
     return attention_seg_plain(qkv, seg, nhead, rate, keep=keep)
-
-
-def _heads(t: torch.Tensor, nhead: int) -> torch.Tensor:
-    """[R, W, H*hd] -> float32 [R, H, W, hd]."""
-    R, W, d = t.shape
-    return t.float().reshape(R, W, nhead, d // nhead).transpose(1, 2)
-
-
-class _FlashHilBf16(torch.autograd.Function):
-    """K3 in bf16 with the JAX kernel's rounding points on the TPU (module
-    note): forward and backward written out in float32 over the bf16
-    inputs, each rounding point an explicit cast. ``keep`` (bool [R, H, W,
-    W]) the dropout mask at ``rate``, or None."""
-
-    @staticmethod
-    def _probs(qkv, seg, nhead):
-        """(q, k, v [R, H, W, hd] float32, the scale, the undropped exp(s -
-        m) [R, H, W, W] (0 off the mask) and l [R, H, W, 1])."""
-        q, k, v = (_heads(t, nhead) for t in qkv.split(qkv.shape[-1] // 3,
-                                                      dim=-1))
-        scale = torch.tensor(1.0 / math.sqrt(q.shape[-1]),
-                             dtype=torch.float32)
-        mask = seg_mask(seg)                                  # [R, 1, W, W]
-        s = (torch.matmul(q, k.transpose(-1, -2)) * scale).masked_fill(
-            ~mask, -1e30)
-        e = torch.exp(s - s.amax(dim=-1, keepdim=True)).masked_fill(~mask,
-                                                                    0.0)
-        return q, k, v, scale, e, e.sum(dim=-1, keepdim=True)
-
-    @staticmethod
-    def forward(ctx, qkv, seg, nhead, keep, rate):
-        q, k, v, scale, e, l = _FlashHilBf16._probs(qkv, seg, nhead)
-        drop = None if keep is None else keep.float() * (1.0 / (1.0 - rate))
-        pu = e if drop is None else e * drop
-        acc = torch.matmul(pu.to(qkv.dtype).float(), v)
-        out = (acc / l.clamp_min(1e-16)).to(qkv.dtype)
-        R, W, _ = qkv.shape
-        out = out.transpose(1, 2).reshape(R, W, -1)
-        ctx.save_for_backward(qkv, seg, out, keep)
-        ctx.nhead, ctx.rate = nhead, rate
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        qkv, seg, out, keep = ctx.saved_tensors
-        nhead, dt = ctx.nhead, qkv.dtype
-        q, k, v, scale, e, l = _FlashHilBf16._probs(qkv, seg, nhead)
-        p = e / l.clamp_min(1e-16)
-        gh = _heads(g.to(dt), nhead)
-        delta = (gh * _heads(out, nhead)).sum(dim=-1, keepdim=True)
-        dp = torch.matmul(gh, v.transpose(-1, -2))
-        pd = p
-        if keep is not None:
-            drop = keep.float() * (1.0 / (1.0 - ctx.rate))
-            dp, pd = dp * drop, p * drop
-        ds = (p * (dp - delta) * scale).to(dt).float()
-        dq = torch.matmul(ds, k)
-        dk = torch.matmul(ds.transpose(-1, -2), q)
-        dv = torch.matmul(pd.to(dt).float().transpose(-1, -2), gh)
-        R, W, _ = qkv.shape
-        dqkv = torch.cat([t.transpose(1, 2).reshape(R, W, -1)
-                          for t in (dq, dk, dv)], dim=-1).to(dt)
-        return dqkv, None, None, None, None
 
 
 def flash_hil_seg_bwd_plain(qkv, seg, nhead, gout, rate=0.0, seed=0):

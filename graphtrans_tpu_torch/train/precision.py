@@ -12,15 +12,16 @@ rounds (``nn/norm.py``, ``nn/dropout.py``, ``nn/conv.py``, the kernels'
 plain versions): ``torch.autocast`` is not used, since it casts op by op
 and keeps other ops in float32 than the JAX package does.
 
-The bf16 step runs on the paths of slice 10's parts 1 and 2, the
-GraphTrans model under ``--attn_backend auto``: molpcba (GIN with its bond
-tables on the strided layout: K1 and K2) and code2 (GCN on the flat
-layout: K7, K2 on rows of up to 384, K3 above). Every other path raises
-NotImplementedError naming slice 10 (``later_slice``, through
-``refuse_bf16`` in ``nn/conv.py``: the strided GCN and the blocked route,
-part 4; ``nn/transformer.py``: the routes of K4, K5, K9 and K10, and
-``models/transformer.py``: the Transformer-only model, part 3;
-``nn/dropout.py``: K11)."""
+The bf16 step runs on the paths of slice 10's parts 1, 2 and 3a under
+``--attn_backend auto``: the GraphTrans model on molpcba (GIN with its
+bond tables on the strided layout: K1 and K2) and code2 (GCN on the flat
+layout: K7, K2 on rows of up to 384, K3 above), and the Transformer-only
+model on molpcba, code2 and the TU datasets (K4 on packed and unpacked
+rows of up to 384 tokens, K5 on rows of 512 or more, the plain route
+between; heads of 64). Every other path raises NotImplementedError naming
+slice 10 (``later_slice``, through ``refuse_bf16`` in ``nn/conv.py``: the
+strided GCN and the blocked route, part 4; ``nn/transformer.py``: the
+routes of K9 and K10, and ``nn/dropout.py``: K11, part 3b)."""
 
 from __future__ import annotations
 

@@ -97,27 +97,35 @@ DATASET_DEFAULTS = {"ogbg-molhiv": _MOL, "ogbg-molpcba": _MOL,
                     "NCI1": _TU, "NCI109": _TU}
 
 
-# the (dataset kind, gnn_type) pairs of the GraphTrans model that run in
-# bf16: slice 10's first part (GIN on the molecule datasets, the strided
-# layout: K1, K2) and its second (GCN on code2, the flat layout: K7, K2,
-# K3)
-BF16_PATHS = (("mol", "gin"), ("code2", "gcn"))
+# the paths that run in bf16, by model: the GraphTrans model's (dataset
+# kind, gnn_type) pairs of slice 10's first part (GIN on the molecule
+# datasets, the strided layout: K1, K2) and its second (GCN on code2, the
+# flat layout: K7, K2, K3); and the Transformer-only model's dataset kinds
+# of its part 3a (K4, K5 and the plain route)
+BF16_PATHS = {"gnn-transformer": (("mol", "gin"), ("code2", "gcn")),
+              "transformer": ("mol", "code2", "tu")}
 
 
 def _bf16_refusal(args):
     """Why ``--precision bf16`` cannot run this config yet, or None: slice
-    10's parts 1 and 2 run the GraphTrans model on ``BF16_PATHS`` under
-    ``--attn_backend auto``."""
+    10's parts 1, 2 and 3a run ``BF16_PATHS`` under ``--attn_backend
+    auto``."""
     from ..data import dataset_kind
 
-    if getattr(args, "model_type", "gnn-transformer") != "gnn-transformer":
-        return f"model_type {args.model_type}"
+    model_type = getattr(args, "model_type", "gnn-transformer")
+    paths = BF16_PATHS.get(model_type)
+    if paths is None:
+        return f"model_type {model_type}"
     kind = dataset_kind(getattr(args, "dataset", "ogbg-molpcba"))
-    if kind not in dict(BF16_PATHS):
+    if model_type == "transformer":
+        if kind not in paths:
+            return f"dataset {args.dataset} on model_type transformer"
+    elif kind not in dict(paths):
         return f"dataset {args.dataset}"
-    gnn_type = getattr(args, "gnn_type", "gin")
-    if (kind, gnn_type) not in BF16_PATHS:
-        return f"gnn_type {gnn_type} on {kind}"
+    else:
+        gnn_type = getattr(args, "gnn_type", "gin")
+        if (kind, gnn_type) not in paths:
+            return f"gnn_type {gnn_type} on {kind}"
     if getattr(args, "attn_backend", "auto") != "auto":
         return f"--attn_backend {args.attn_backend}"
     return None
@@ -160,7 +168,9 @@ def check_ported(args):
             raise NotImplementedError(
                 f"--precision bf16 with {why}: bf16 arrives there with "
                 f"slice 10 (its parts 1 and 2 run the molpcba and code2 "
-                f"GraphTrans under --attn_backend auto)")
+                f"GraphTrans, part 3a the Transformer-only model, under "
+                f"--attn_backend auto; part 3b brings the other backends "
+                f"and K11)")
 
 
 def parse_with_config(parser: argparse.ArgumentParser, argv=None):

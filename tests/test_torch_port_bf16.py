@@ -424,18 +424,22 @@ def test_main_bf16_without_cuda_raises():
 
 
 @pytest.mark.parametrize("config,flags", [
-    ("configs/code2/transformer/pooling=cls.yml", []),
+    ("configs/code2/transformer/pooling=cls.yml",
+     ["--attn_backend", "flash"]),
     ("configs/NCI1/gnn-transformer/no-virtual/"
      "gd=128+gdp=0.1+tdp=0.1+l=3+cosine.yml", ["--runs", "1"]),
-    ("configs/molpcba/transformer/pooling=cls.yml", []),
+    ("configs/molpcba/transformer/pooling=cls.yml",
+     ["--attn_backend", "packed_smalls"]),
     ("configs/molpcba/gnn-transformer/JK=cat/pooling=cls+gin+norm_input.yml",
      ["--attn_backend", "smalls"]),
 ])
 def test_main_bf16_refuses_later_paths(config, flags):
-    """The Transformer-only model (code2's and molpcba's), NCI1 and a
+    """The Transformer-only model (code2's and molpcba's) under a backend
+    other than auto, NCI1's GraphTrans and the GraphTrans model under a
     backend other than auto raise NotImplementedError naming slice 10 (the
     code2 GraphTrans ymls train in bf16 since slice 10's part 2:
-    test_torch_port_code2_bf16.py)."""
+    test_torch_port_code2_bf16.py; the Transformer-only ymls under auto
+    since its part 3a: test_torch_port_tf_bf16.py)."""
     with pytest.raises(NotImplementedError, match="slice 10"):
         tmain.main(["--configs", str(REPO / config), "--data_root",
                     str(REPO / "data_snapshots"), "--epochs", "1",
@@ -471,9 +475,10 @@ def test_check_ported_names_the_models_slice_first(config, flags, slice_,
 def test_bf16_refuses_the_blocked_route_and_other_kernels():
     """In process, where no flag checks: the GCN layer on the blocked
     route (K8, under ``set_block_spmm``) and on the strided layout (NCI1's
-    K6), the attention routes other than K2, K3 and the plain one, and
-    K10's layer route raise NotImplementedError naming slice 10 on bf16
-    inputs (code2's flat GCN, K7, and K3 run in bf16 since its part 2)."""
+    K6), the attention routes of K9 and ``chunked``, and K10's layer route
+    raise NotImplementedError naming slice 10 on bf16 inputs (code2's flat
+    GCN, K7, and K3 run in bf16 since its part 2, K4 and K5 since its part
+    3a)."""
     import types
 
     from graphtrans_tpu_torch.nn.conv import GCNConv
@@ -495,7 +500,7 @@ def test_bf16_refuses_the_blocked_route_and_other_kernels():
         GCNConv(8, ZeroEdgeEncoder(8)).to(BF)(strided,
                                               torch.zeros(4, 8, dtype=BF))
     attn = ttr.MultiheadSelfAttention(128, 4).to(BF)
-    for route in ("k4", "k5", "k9", "chunked"):
+    for route in ("k9", "chunked"):
         with pytest.raises(NotImplementedError, match="slice 10"):
             attn(torch.zeros(1, 8, 128, dtype=BF), route)
     layer = ttr.TransformerEncoderLayer(128, 4, 256).to(BF)
@@ -508,7 +513,10 @@ def test_bf16_refuses_the_blocked_route_and_other_kernels():
     ("attention_packed.cu", "attention_seg_fwd"),
     ("attention_packed.cu", "attention_seg_bwd"),
     ("flash_hil.cu", "flash_hil_fwd"), ("flash_hil.cu", "flash_hil_bwd"),
-    ("spmm.cu", "spmm_fwd"), ("spmm.cu", "spmm_bwd")])
+    ("spmm.cu", "spmm_fwd"), ("spmm.cu", "spmm_bwd"),
+    ("attention_packed.cu", "attention_dense_fwd"),
+    ("flash_attention.cu", "flash_attention_fwd"),
+    ("flash_attention.cu", "flash_attention_bwd")])
 def test_bf16_entries_take_the_f32_entries_parameters(source, entry):
     """Each bf16 C entry has the f32 entry's parameters, one for one (the
     wrappers give it the f32 entry's argtypes), its float tensors bf16."""

@@ -3234,3 +3234,221 @@ def test_code2_bf16_train_step_kernels_match_plain(cuda, deterministic):
     for name in gk:
         assert gk[name].dtype == torch.float32, name
         assert _rel_bf16(gk[name], gp[name]) <= 5e-2, name
+
+
+# ---- the bf16 Transformer-only step: K4, K4-bwd, K5 and K5-bwd in bf16 ----
+
+
+def _list16_pair_check(fwd, bwd, plain, bwd_plain, qkv, masks, H, rate,
+                       seed, counters, inst, live, valid):
+    """The bf16 key-list instances: forward with statistics and backward
+    twice (the same bits), counts by instance, the plain bf16 versions
+    within BF16_OUT_TOL and BF16_GRAD_TOL, queries without a key and
+    padding keys exactly 0 (m = -inf, l = 0). ``masks`` are the arguments
+    between qkv and H, ``inst`` the instance of each of ``counters``,
+    ``live`` the queries that attend a key, ``valid`` the keys."""
+    d = qkv.shape[-1] // 3
+    g = torch.randn(qkv.shape[0], qkv.shape[1], d,
+                    generator=torch.Generator().manual_seed(9)).to(
+                        qkv.device, BF16)
+    before = [c.instances[i] for c, i in zip(counters, inst)]
+    runs = []
+    for _ in range(2):
+        out, m, l = fwd(qkv, *masks, H, rate, seed)
+        runs.append((out, m, l, bwd(qkv, *masks, H, g, rate=rate, seed=seed,
+                                    saved=(out, m, l))))
+    torch.cuda.synchronize()
+    assert [c.instances[i] for c, i in zip(counters, inst)] == [
+        b + 2 for b in before]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    out, m, l, dqkv = runs[0]
+    assert out.dtype == dqkv.dtype == BF16
+    assert m.dtype == l.dtype == torch.float32
+    assert _rel_bf16(out, plain(qkv, *masks, H, rate, seed)) <= BF16_OUT_TOL
+    assert _rel_bf16(dqkv, bwd_plain(qkv, *masks, H, g, rate=rate,
+                                     seed=seed)) <= BF16_GRAD_TOL
+    assert not out[~live].any() and not dqkv[~live][:, :d].any()
+    assert (m[~live] == -float("inf")).all() and not l[~live].any()
+    assert not dqkv[..., d:][~valid].any()
+    return out
+
+
+# (B, S, block): K4's tile instance (graph blocks of up to 128 tokens: the
+# molecule paths' packed rows) and its long one (rows of 129-384); the
+# backward's short instance up to 64 tokens, its long pair above (blocks of
+# 128 too)
+K4_BF16_CASES = [(13, 99, 33), (9, 98, 49), (6, 128, 64), (5, 257, 0),
+                 (4, 384, 0), (3, 200, 0), (4, 256, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("B,S,block", K4_BF16_CASES)
+def test_attention_dense_bf16_kernels_match_plain(cuda, B, S, block, rate):
+    """K4 and K4-bwd's bf16 instances (the key-list bodies at heads of 64,
+    K2's rounding: p normalised before it is rounded, delta summed from
+    the pairs) on packed rows of 2-3 graph blocks and rows of 129-384 at
+    block 0, padding keys everywhere, a block (a row) without a valid key,
+    against the plain bf16 versions (the same mask): out within
+    BF16_OUT_TOL, dqkv within BF16_GRAD_TOL of max(1, max|plain|); the
+    same bits on two runs and from the serving launch; the forward counted
+    as tile_bf16 or long_bf16, the backward as short_bf16 (graph blocks of
+    up to 64 tokens, one kernel) or long_bf16."""
+    from graphtrans_tpu_torch.ops.kernels import (attention_dense,
+                                                  attention_dense_bwd,
+                                                  attention_dense_bwd_plain,
+                                                  attention_dense_plain)
+    from graphtrans_tpu_torch.ops.kernels.attention_packed import (
+        attention_dense_with_stats)
+
+    gen = torch.Generator().manual_seed(B * S + block + int(rate * 10))
+    qkv = torch.randn(B, S, 3 * 256, generator=gen).to(cuda, BF16)
+    valid = _dense_valid(B, S, block, gen).to(cuda)
+    span = block or S
+    inst = (("tile" if span <= 128 else "long") + "_bf16",
+            ("short" if span <= 64 else "long") + "_bf16")
+    plain = lambda q, v, H, r, s: attention_dense_plain(q, v, H, block, r, s)
+    bwd_plain = lambda q, v, H, g, rate, seed: attention_dense_bwd_plain(
+        q, v, H, g, block, rate, seed)
+    fwd = lambda q, v, H, r, s: attention_dense_with_stats(q, v, H, block, r,
+                                                           s)
+    bwd = lambda q, v, H, g, rate, seed, saved: attention_dense_bwd(
+        q, v, H, g, block, rate, seed, saved)
+    out = _list16_pair_check(fwd, bwd, plain, bwd_plain, qkv, (valid,), 4,
+                             rate, 2**31 - 77,
+                             (attention_dense, attention_dense_bwd), inst,
+                             _live(valid, block), valid)
+    if rate == 0.0:
+        assert torch.equal(attention_dense(qkv, valid, 4, block), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("S,form", [(1001, "key_padding"), (520, "key_padding"),
+                                    (600, "seg")])
+def test_flash_attention_bf16_kernels_match_plain(cuda, S, form, rate):
+    """K5 and K5-bwd's bf16 instances (the key-list bodies at heads of 64,
+    the JAX kernel's rounding at precision None: the online softmax's
+    unnormalised p rounded before P V, delta = dO . O, dS rounded and
+    scaled after its products) on code2's rows of 1001 and rows of 520 in
+    the key-padding form (a graph's nodes and its CLS column; a row
+    without a valid key) and in the segment form, against the plain bf16
+    versions (the same mask): within BF16_OUT_TOL and BF16_GRAD_TOL; the
+    same bits on two runs and from the serving launch; counted as bf16."""
+    from graphtrans_tpu_torch.ops.kernels import (flash_attention,
+                                                  flash_attention_bwd,
+                                                  flash_attention_bwd_plain,
+                                                  flash_attention_plain,
+                                                  key_padding_segs)
+    from graphtrans_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_with_stats)
+
+    gen = torch.Generator().manual_seed(S + int(rate * 10))
+    B = 3
+    qkv = torch.randn(B, S, 3 * 256, generator=gen).to(cuda, BF16)
+    if form == "key_padding":
+        n = torch.randint(9, 300, (B,), generator=gen)
+        valid = torch.arange(S)[None, :] < n[:, None]
+        valid[:, -1] = True
+        valid[2] = False
+        segq, segk = key_padding_segs(valid.to(cuda))
+        live = valid.any(-1, keepdim=True).expand(B, S)
+    else:
+        seg = (torch.arange(S)[None, :] // torch.randint(
+            40, 400, (B, 1), generator=gen)).int()
+        seg[:, S - 37:] = -1
+        seg[2] = -1
+        segq = segk = seg.to(cuda)
+        valid = live = seg >= 0
+    out = _list16_pair_check(flash_attention_with_stats, flash_attention_bwd,
+                             flash_attention_plain,
+                             flash_attention_bwd_plain, qkv, (segq, segk), 4,
+                             rate, 987654321,
+                             (flash_attention, flash_attention_bwd),
+                             ("bf16", "bf16"),
+                             live.to(cuda), valid.to(cuda))
+    if rate == 0.0:
+        assert torch.equal(flash_attention(qkv, segq, segk, 4), out)
+
+
+def _onehot_keys(B, S, block, n, cuda):
+    """qkv [B, S, 3 * 256] with q = k = 0 and each valid key's V a one-hot
+    row, channel its rank in its span (every head), valid: the first n
+    tokens of each span and its last (at most 64 a span): the output of
+    query i in channel c(j) is p_ij (1/n') times key j's keep bit."""
+    span = block or S
+    valid = torch.zeros(B, S, dtype=torch.bool)
+    qkv = torch.zeros(B, S, 3 * 256)
+    for s0 in range(0, S, span):
+        s1 = min(S, s0 + span)
+        valid[:, s0:min(s1, s0 + n)] = True
+        valid[:, s1 - 1] = True
+    for b in range(B):
+        for s0 in range(0, S, span):
+            idx = torch.nonzero(valid[b, s0:s0 + span]).flatten() + s0
+            for r, j in enumerate(idx.tolist()):
+                for h in range(4):
+                    qkv[b, j, 512 + 64 * h + r] = 1.0
+    return qkv.to(cuda), valid.to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["k4_tile", "k4_long", "k5"])
+def test_bf16_dropout_masks_match_f32_instances(cuda, kernel):
+    """Each bf16 instance draws its f32 instance's dropout mask at rate 0.3:
+    with q = k = 0 and V one-hot by key rank (``_onehot_keys``) the zeros
+    of the output are the mask, and the bf16 instance's zeros equal the
+    f32 instance's and the plain version's (K4: K2's tiling with r the
+    packed row; K5: the 256 x 256 tile schedule)."""
+    from graphtrans_tpu_torch.ops.kernels import (attention_dense,
+                                                  attention_dense_plain,
+                                                  flash_attention,
+                                                  flash_attention_plain,
+                                                  key_padding_segs)
+
+    B, S, block, n = {"k4_tile": (8, 99, 33, 30), "k4_long": (3, 300, 0, 50),
+                      "k5": (3, 1001, 0, 50)}[kernel]
+    qkv, valid = _onehot_keys(B, S, block, n, cuda)
+    seed = 2**31 - 3
+    if kernel == "k5":
+        segs = key_padding_segs(valid)
+        call = lambda fn, q: fn(q, *segs, 4, 0.3, seed)
+        fns = (flash_attention, flash_attention_plain)
+    else:
+        call = lambda fn, q: fn(q, valid, 4, block, 0.3, seed)
+        fns = (attention_dense, attention_dense_plain)
+    kept = [call(fns[0], qkv) != 0, call(fns[0], qkv.to(BF16)) != 0,
+            call(fns[1], qkv) != 0]
+    torch.cuda.synchronize()
+    assert torch.equal(kept[0], kept[1]) and torch.equal(kept[0], kept[2])
+    frac = kept[0][..., :n].float().mean().item()
+    assert abs(frac - 0.7) < 0.05, frac
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,entry", [
+    ("attention_packed", "attention_dense_bf16_residency"),
+    ("flash_attention", "flash_attention_bf16_residency")])
+def test_bf16_list_instances_do_not_spill(cuda, kernel, entry):
+    """Every kernel of K4's and K5's bf16 instances (forward, dq, dk/dv and
+    K4-bwd's short one, their training launch) takes no local memory (no
+    spills) and fits four blocks an SM (the forward) or three (the
+    backward's kernels) at its shared bytes."""
+    import ctypes
+
+    from graphtrans_tpu_torch.ops.kernels import _build, attention_packed
+
+    mod = importlib.import_module(
+        f"graphtrans_tpu_torch.ops.kernels.{kernel}")
+    lib = mod._load()
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+    for which in range(4 if kernel == "attention_packed" else 3):
+        got = [ctypes.c_int(-1) for _ in range(3)]
+        smem = attention_packed.list16_bytes(which > 0)
+        _build.check(lib, fn(which, smem, *(ctypes.cast(
+            ctypes.pointer(v), ctypes.c_void_p) for v in got)), entry)
+        regs, local, blocks = (v.value for v in got)
+        assert local == 0, (which, regs, local)
+        assert blocks >= (4 if which == 0 else 3), (which, regs, blocks)
