@@ -226,6 +226,21 @@ Phases, each printing one line (any failure raises and exits non-zero):
      each through the kernels against the plain bf16 versions under
      deterministic algorithms; (c) the cells tf-train4096-bf16 and
      tf-train512-bf16: each step in f32 and bf16 in turns, profiled.
+ 17. bf16 under every attention backend of the command line: (a) K9's
+     bf16 instances (heads of 64; molpcba's packed rows of 3 x 33 and rows
+     of 33, code2's rows of 1001) and K5's bf16 segment form at heads of
+     32 (code2 bench512's 384 tier) with their backwards against their
+     plain bf16 versions at rates 0 and 0.3, each timed as 16a times K4
+     and K5, in turns with its f32 instance (K5's segment form also with
+     K2's long bf16 instance on the same tier), beside bound, plain
+     version and SDPA in bf16, with residency; (b) trains the molpcba and
+     code2 Transformer-only ymls under smalls, packed_smalls, flash,
+     chunked, dense and packed and the code2 GraphTrans yml under flash in
+     bf16 through main, 2-3 steps each (launches by instance: every K9,
+     K9-bwd, K5 and K5-bwd launch the bf16 instance; every parameter
+     moved) and holds one bf16 step of each kernel route to the plain bf16
+     versions; (c) tf-train4096-bf16 under packed_smalls and smalls, and
+     train512-bf16 under flash, each in turns with auto, profiled.
 Then the script's wall seconds, a {"kernels": [...]} line, the nvidia-smi
 line, and the contract line
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, without
@@ -6443,12 +6458,12 @@ def phase16_kernels(device, mol_flat, code2_flat, big, bench, base=None):
             queued_ms)
         bw["bound_ms"], bw["bound_by"] = list16_bound(
             q16, v, nhead, block, mask_bytes, True, reads_out=kname == "K5")
-        geo = list16_geometry(B, S, block, nhead, False)
+        geo = list16_geometry(B, S, block, nhead, False, d // nhead)
         f["residency"] = [long16_residency(
-            mod, entry, attention_packed.list16_bytes(False), 0)]
-        bgeo = list16_geometry(B, S, block, nhead, True)
+            mod, entry, attention_packed.list16_bytes(False, d // nhead), 0)]
+        bgeo = list16_geometry(B, S, block, nhead, True, d // nhead)
         bw["residency"] = [long16_residency(
-            mod, entry, attention_packed.list16_bytes(True), k)
+            mod, entry, attention_packed.list16_bytes(True, d // nhead), k)
             for k in ((3,) if bgeo.instance == "short" else (1, 2))]
         f["grid"], bw["grid"] = geo.grid, bgeo.grid
         f["instance"], bw["instance"] = geo.instance, bgeo.instance
@@ -6694,6 +6709,399 @@ def phase16_cost(device, mol_flat, code2_flat, code2_tasks: int, smi: str):
         torch.cuda.empty_cache()
 
 
+# ---- phase 17: bf16 training under every attention backend -----------------
+
+
+def phase17_kernels(device, mol_flat, code2_flat, bench):
+    """(a) K9's bf16 instances (heads of 64) on molpcba's Transformer-only
+    packed rows (bench4096, rows of 3 x 33, block 33: packed_smalls), its
+    unpacked rows of 33 (smalls) and code2's rows of 1001 (bench512), and
+    K5's bf16 segment form at heads of 32 on code2 bench512's 384 tier (the
+    GraphTrans model under flash), forward and backward, at rate 0 and the
+    training rate against their plain bf16 versions; each timed as the bf16
+    step calls it, a call at a time behind a sleep with a cold L2
+    (``queued_ms``), in turns with the f32 instance (and on the 384 tier
+    with K2's long bf16 instance, the tier's kernel under auto), beside
+    SDPA in bf16 under the same bool mask, the plain version and the bound;
+    each kernel's residency (it fails on spills)."""
+    from graphtrans_tpu_torch.ops.kernels import (
+        attention_seg_bwd, attention_smalls_bwd, attention_smalls_bwd_plain,
+        attention_smalls_plain, flash_attention_bwd,
+        flash_attention_bwd_plain, flash_attention_plain)
+    from graphtrans_tpu_torch.ops.kernels import attention_packed
+    from graphtrans_tpu_torch.ops.kernels.attention_packed import (
+        attention_seg_with_stats, list16_geometry)
+    from graphtrans_tpu_torch.ops.kernels.attention_smalls import (
+        attention_smalls_with_stats)
+    from graphtrans_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_with_stats)
+
+    smalls_mod = sys.modules[attention_smalls_with_stats.__module__]
+    flash_mod = sys.modules[flash_attention_with_stats.__module__]
+    gen = torch.Generator().manual_seed(SEED + 17)
+    n_sms = torch.cuda.get_device_properties(device).multi_processor_count
+    smi = _smi()
+    d, nhead = _tf_args(TF_MOL_CONFIG).d_model, _tf_args(TF_MOL_CONFIG).nhead
+    d2, nhead2 = _args().d_model, _args().nhead     # the GraphTrans model's
+    seed = 2**31 - 17
+    errs = dict.fromkeys(("k9", "k9b", "k5s", "k5sb"), 0.0)
+    timed = {}
+    mol_valid, code2_valid = dense_valid(mol_flat), dense_valid(code2_flat)
+    cases = (("K9 packed", "bench4096 rows of 3 x 33, block 33", "k9"),
+             ("K9 row", "bench4096 rows of 33, block 0", "k9"),
+             ("K9 long", "bench512 S 1001, block 0", "k9"),
+             ("K5 seg", "bench512 384 tier, heads of 32", "k5s"))
+    for kname, name, key in cases:
+        k2 = None
+        if key == "k5s":
+            qkv, seg = k2_tier_inputs(bench, "pack2", d2, gen, device)
+            H, hd, block = nhead2, d2 // nhead2, 0
+            masks, v = (seg, seg), seg >= 0
+            live = v
+            fwd, bwd = flash_attention_with_stats, flash_attention_bwd
+            plain, bwd_plain = (flash_attention_plain,
+                                flash_attention_bwd_plain)
+            mod, entry, which = (flash_mod, "flash_attention_bf16_residency",
+                                 (3, 4, 5))
+            rows = 64
+            k2 = (lambda q, r, s: attention_seg_with_stats(q, seg, H, r, s),
+                  lambda q, g, r, s, saved: attention_seg_bwd(
+                      q, seg, H, g, saved, r, s))
+        else:
+            if kname == "K9 packed":
+                qkv, v, block = k4_inputs(mol_valid, d, gen, device)
+            else:
+                qkv, v = k5_inputs(mol_valid if kname == "K9 row"
+                                   else code2_valid, d, gen, device)
+                block = 0
+            H, hd, masks, live = nhead, d // nhead, (v,), _live(v, block)
+            fwd = lambda q, vv, H, r, s, stats=True, block=block: (
+                attention_smalls_with_stats(q, vv, H, block, r, s, stats))
+            bwd = lambda q, vv, H, g, r, s, saved, block=block: (
+                attention_smalls_bwd(q, vv, H, g, block, r, s, saved))
+            plain = lambda q, vv, H, r, s, block=block: (
+                attention_smalls_plain(q, vv, H, block, r, s))
+            bwd_plain = lambda q, vv, H, g, r, s, block=block: (
+                attention_smalls_bwd_plain(q, vv, H, g, block, r, s))
+            mod, entry, which = (smalls_mod,
+                                 "attention_smalls_bf16_residency",
+                                 (0, 1, 2, 3))
+            rows = 64 if kname == "K9 long" else 256
+        q16 = qkv.to(BF16)
+        f, e = check_list16(kname, fwd, bwd, plain, bwd_plain, q16, masks,
+                            live, v, H, gen, rows)
+        errs[key], errs[key + "b"] = max(errs[key], f), max(errs[key + "b"], e)
+        print(f"[17a] {name} {kname} bf16 {f:.3g}, backward bf16 {e:.3g} of "
+              f"max(1, max|plain bf16|) (rates 0 and {DROPOUT}, the first "
+              f"{min(rows, len(qkv))} of {len(qkv)} rows against the plain "
+              f"version)")
+        if key == "k9" and kname != "K9 packed":     # timed as the model runs
+            q16, qkv, v = q16[:-1].contiguous(), qkv[:-1].contiguous(), v[:-1]
+            masks = (v,)
+        B, S, d3 = qkv.shape
+        g16 = torch.randn(B, S, d3 // 3, generator=gen).to(device, BF16)
+        g32 = g16.float()
+        s16 = fwd(q16, *masks, H, DROPOUT, seed)
+        s32 = fwd(qkv, *masks, H, DROPOUT, seed)
+        if key == "k5s":
+            mask4 = ((seg[:, :, None] == seg[:, None, :])
+                     & (seg >= 0)[:, None, :])[:, None]
+            mask_bytes = 2 * seg.numel() * 4
+        else:
+            mask4, mask_bytes = _block_mask(v, block), v.numel()
+        f = dict(plain_ms=sum(time_ms(lambda r0=r0: plain(
+            q16[r0:r0 + rows], *(m[r0:r0 + rows] for m in masks), H,
+            DROPOUT, seed), iters=1, reps=3) for r0 in range(0, B, rows)),
+                 library_ms=sdpa_mask_ms(q16, mask4, H, timer=queued_ms))
+        fns = [lambda: fwd(q16, *masks, H, DROPOUT, seed),
+               lambda: fwd(qkv, *masks, H, DROPOUT, seed)]
+        if k2:
+            fns.append(lambda: k2[0](q16, DROPOUT, seed))
+        f["ms"], f["f32_ms"], *rest = rounds_ms(fns, 20, queued_ms)
+        f["k2_ms"] = rest[0] if rest else None
+        bw = dict(plain_ms=_chunked_plain_bwd_ms(
+            lambda t, r0: plain(t, *(m[r0:r0 + rows] for m in masks), H,
+                                DROPOUT, seed), q16, g16, rows),
+            library_ms=sdpa_bwd_mask_ms(q16, mask4, H, g16, DROPOUT,
+                                        iters=10, timer=queued_ms))
+        bfns = [lambda: bwd(q16, *masks, H, g16, DROPOUT, seed, s16),
+                lambda: bwd(qkv, *masks, H, g32, DROPOUT, seed, s32)]
+        if k2:
+            k2s = k2[0](q16, DROPOUT, seed)
+            bfns.append(lambda: k2[1](q16, g16, DROPOUT, seed, k2s))
+        bw["ms"], bw["f32_ms"], *rest = rounds_ms(bfns, 20, queued_ms)
+        bw["k2_ms"] = rest[0] if rest else None
+        if key == "k5s":
+            f["bound_ms"], f["bound_by"] = k2_bf16_bound(q16, seg, H)
+            bw["bound_ms"], bw["bound_by"] = k3_bf16_bwd_bound(q16, seg, H)
+        else:
+            f["bound_ms"], f["bound_by"] = list16_bound(q16, v, H, block,
+                                                        mask_bytes, False)
+            bw["bound_ms"], bw["bound_by"] = list16_bound(
+                q16, v, H, block, mask_bytes, True)
+        geo = list16_geometry(B, S, block, H, False, hd)
+        bgeo = list16_geometry(B, S, block, H, True, hd)
+        f["residency"] = [long16_residency(
+            mod, entry, attention_packed.list16_bytes(False, hd), which[0])]
+        bw["residency"] = [long16_residency(
+            mod, entry, attention_packed.list16_bytes(True, hd), k)
+            for k in ((which[3],) if bgeo.instance == "short"
+                      else which[1:3])]
+        f["grid"], bw["grid"] = geo.grid, bgeo.grid
+        f["instance"], bw["instance"] = geo.instance, bgeo.instance
+        keys = int(v.sum().item())
+        shape = (f"B={B} S={S} d={d3 // 3} H={H} rate={DROPOUT} valid keys "
+                 f"{keys}")
+        f["shape"] = bw["shape"] = shape
+        timed[kname], timed[kname + "-bwd"] = f, bw
+        del qkv, q16, s16, s32, g16, g32
+        torch.cuda.empty_cache()
+    for kname, t in timed.items():
+        part = "backward" if kname.endswith("-bwd") else "forward"
+        k2_note = ("" if t["k2_ms"] is None else
+                   f", K2's long bf16 instance on the tier {t['k2_ms']:.4f}")
+        print(f"[17a] {kname} bf16 {part} ({t['instance']}_bf16) "
+              f"[{t['shape']}]: kernel {t['ms']:.4f} ms (the f32 instance "
+              f"{t['f32_ms']:.4f}{k2_note}, in turns, each call queued, cold "
+              f"L2), plain bf16 {t['plain_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), library "
+              f"{t['library_ms']:.4f} ms (SDPA in bf16, bool mask"
+              f"{', backward, dropout ' + str(DROPOUT) if part == 'backward' else ''}"
+              f", queued) on {smi}")
+        names = (("forward",) if part == "forward" else ("one kernel",)
+                 if t["instance"] == "short" else ("dq kernel",
+                                                   "dk/dv kernel"))
+        for part_name, r in zip(names, t["residency"]):
+            blocks = math.prod(t["grid"])
+            waves = blocks / (r["blocks_per_sm"] * n_sms)
+            print(f"[17a] {kname} bf16 {part_name} residency (training "
+                  f"launch): {r['regs']} registers a thread, "
+                  f"{r['local_bytes']} local bytes a thread (no spills), "
+                  f"{r['smem']} shared bytes a block, {r['blocks_per_sm']} "
+                  f"blocks an SM, {blocks} blocks in {waves:.2f} waves")
+    print(f"[17a] bf16 kernels agree with their plain bf16 versions, of "
+          f"max(1, max|plain|): K9 {errs['k9']:.3g}, K5 segment form "
+          f"{errs['k5s']:.3g} (<= {BF16_OUT_TOL}); K9-bwd {errs['k9b']:.3g}, "
+          f"K5-bwd segment form {errs['k5sb']:.3g} (<= {BF16_GRAD_TOL}); "
+          f"queries without a key and padding keys exactly 0")
+    return dict(errs=errs, timed=timed)
+
+
+# (config, backend, flags, wrappers) of phase 17b: main --precision bf16 on
+# the Transformer-only ymls under every backend but auto (phase 16b) and on
+# the code2 GraphTrans yml under flash, 2-3 steps each, and the wrappers
+# each must launch, once a layer a step (molpcba's train rows of 48 + CLS:
+# K9's tile forward and short backward under smalls and packed_smalls;
+# code2's rows of 1000 + CLS: K9's long instances under smalls, the plain
+# route under packed_smalls, which packs no row of 1001; code2 GraphTrans:
+# K3 on the 1024 tier, K5's segment form on the 384 tier, the plain route
+# on the 128 tier, K7 in every GCN layer)
+_TF17_FLAGS = {TF_MOL_CONFIG: ["--epochs", "2"],
+               TF_CODE2_CONFIG: ["--epochs", "1", "--batch_size", "64"]}
+PHASE17_RUNS = tuple(
+    (config, backend, flags, wrappers)
+    for config, flags in _TF17_FLAGS.items()
+    for backend, wrappers in (
+        ("smalls", ("attention_smalls", "attention_smalls_bwd")),
+        ("packed_smalls", ("attention_smalls", "attention_smalls_bwd")
+         if config == TF_MOL_CONFIG else ()),
+        ("flash", ("flash_attention", "flash_attention_bwd")),
+        ("chunked", ()), ("dense", ()), ("packed", ()))) + (
+    (CODE2_CONFIG, "flash", ["--epochs", "1", "--batch_size", "64"],
+     ("flash_hil_seg", "flash_hil_seg_bwd", "flash_attention",
+      "flash_attention_bwd")),)
+# the bf16-instance names of the wrappers whose launches 17b sorts
+_BF16_INSTANCES = {"attention_smalls": ("tile_bf16", "long_bf16"),
+                   "attention_smalls_bwd": ("short_bf16", "long_bf16"),
+                   "flash_attention": ("bf16",),
+                   "flash_attention_bwd": ("bf16",),
+                   "flash_hil_seg": ("bf16",), "flash_hil_seg_bwd": ("bf16",),
+                   "spmm": ("bf16",), "spmm_bwd": ("bf16",)}
+
+
+def phase17_train(device, tmp: str):
+    """(b) ``main --precision bf16`` under each run of PHASE17_RUNS at full
+    width on the snapshot (2-3 steps), the counts set to 0 before each and
+    read after: each wrapper of the run's routes launched once a layer a
+    step, every other attention wrapper never, every K9, K9-bwd, K5, K5-bwd
+    (and K3, K7) launch the bf16 instance; finite losses, every parameter
+    moved, the saved state float32; then on each run with a kernel route
+    one bf16 step through the kernels against the plain bf16 versions under
+    deterministic algorithms at the run's first train batch (2e-2 on the
+    loss, 5e-2 on the gradients)."""
+    import io
+
+    from graphtrans_tpu_torch import main as train_main
+    from graphtrans_tpu_torch import predict
+    from graphtrans_tpu_torch.data.loader import iterate_batches, shuffled_order
+    from graphtrans_tpu_torch.ops import kernels
+
+    attention = ("attention_seg", "attention_seg_bwd", "flash_hil_seg",
+                 "flash_hil_seg_bwd", "attention_dense", "attention_dense_bwd",
+                 "flash_attention", "flash_attention_bwd", "attention_smalls",
+                 "attention_smalls_bwd", "transformer_layer",
+                 "transformer_layer_bwd")
+    by_name = {fn.__name__: fn for fn in kernels.WRAPPERS}
+    totals = collections.Counter()
+    for config, backend, flags, wrappers in PHASE17_RUNS:
+        graphtrans = config == CODE2_CONFIG
+        extra = ["--precision", "bf16", "--attn_backend", backend, *flags]
+        args = _tf_train_args(config, extra)
+        save = os.path.join(tmp, f"bf16_{backend}")
+        out = io.StringIO()
+        kernels.reset_launches()             # this run's bf16 training path
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            res = train_main.main([
+                "--configs", config, "--data_root", SNAPSHOT, "--seed",
+                str(SEED), *extra, "--save_path", save])
+        secs = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        by_inst = {name: {k: v for k, v in by_name[name].instances.items()
+                          if v} for name in _BF16_INSTANCES
+                   if by_name[name].launches}
+        steps = sum(r["steps"] for r in res["epochs"])
+        layers = args.num_encoder_layers
+        want = {w: layers * steps for w in wrappers}
+        if graphtrans:
+            want.update(spmm=5 * steps, spmm_bwd=5 * steps)
+        got = {k: v for k, v in launches.items()
+               if k in attention or k in want}
+        not_bf16 = {name: {k: v for k, v in inst.items()
+                           if k not in _BF16_INSTANCES[name]}
+                    for name, inst in by_inst.items()}
+        if steps < 2 or got != want or any(not_bf16.values()):
+            raise AssertionError(f"{args.dataset} {args.model_type} bf16 "
+                                 f"under {backend}: launches {launches} by "
+                                 f"instance {by_inst}, expected {want}, every "
+                                 f"one bf16")
+        if not all(math.isfinite(r["loss"]) for r in res["epochs"]):
+            raise AssertionError(f"bf16 under {backend}: epoch losses not "
+                                 f"finite: {res['epochs']}")
+        splits, num_tasks, code = predict.load_splits(args)
+        init, _ = _trainer(args, num_tasks, device, data=code)
+        trained = torch.load(res["saved"], map_location=device,
+                             weights_only=True)
+        params = dict(init.named_parameters())
+        still = [n for n, p in params.items() if torch.equal(p, trained[n])]
+        wrong = [n for n, p in trained.items() if p.dtype != torch.float32
+                 and p.is_floating_point()]
+        if still or wrong:
+            raise AssertionError(f"bf16 under {backend}: parameters that did "
+                                 f"not move {still}; state not float32 "
+                                 f"{wrong}")
+        for w in wrappers:       # K5's: the GraphTrans model's segment form
+            totals[w + (" (GraphTrans)" if graphtrans else "")] += launches[w]
+        print(f"[17b] {args.dataset} {args.model_type} --attn_backend "
+              f"{backend}: {steps} bf16 steps of <= {args.batch_size} graphs "
+              f"in {secs:.2f} s with the model build, losses "
+              f"{[round(r['loss'], 6) for r in res['epochs']]}, all "
+              f"{len(params)} parameter tensors moved, the saved state "
+              f"float32; launches {launches}; by instance {by_inst}: every "
+              f"one the bf16 instance")
+        del init, trained
+        if not wrappers:
+            continue
+        layout = predict.serving_layout(splits, args, num_tasks,
+                                        args.batch_size, split="train",
+                                        seed=SEED)
+        batch = next(iterate_batches(
+            splits["train"], order=shuffled_order(len(splits["train"]), SEED,
+                                                  0), **layout)).to(device)
+        got = []
+        with deterministic():
+            for on in (True, False):
+                model, step = _trainer(args, num_tasks, device,
+                                       kernels_on=on, data=code)
+                loss = step(batch)
+                got.append((loss.item(), loss.dtype,
+                            {n: p.grad for n, p in model.named_parameters()}))
+        (lk, dt, gk), (lp, _, gp) = got
+        g_err = max(_rel_err(gk[n], gp[n]) for n in gk)
+        dtypes = {g.dtype for g in gk.values()} | {dt}
+        if (abs(lk - lp) > BF16_STEP_TOL[0] * max(1.0, abs(lp))
+                or g_err > BF16_STEP_TOL[1] or dtypes != {torch.float32}):
+            raise AssertionError(f"bf16 step under {backend} through the "
+                                 f"kernels: loss {lk} vs {lp}, gradients "
+                                 f"{g_err} (<= {BF16_STEP_TOL[1]}), dtypes "
+                                 f"{dtypes}")
+        print(f"[17b] one {args.dataset} {args.model_type} bf16 step under "
+              f"{backend} (attention dropout {args.transformer_dropout}, same "
+              f"seeds, deterministic algorithms) through the kernels vs the "
+              f"plain bf16 versions on the card: loss {lk:.6f} vs {lp:.6f} "
+              f"(|diff| {abs(lk - lp):.3g} <= {BF16_STEP_TOL[0]} of max(1, "
+              f"|ref|)), gradients {g_err:.3g} of max(1, max|ref|) (<= "
+              f"{BF16_STEP_TOL[1]})")
+        del model, step
+        torch.cuda.empty_cache()
+    print(f"[17b] launches of the bf16 steps under the backends: "
+          f"{dict(totals)}")
+    return totals
+
+
+def phase17_cost(device, mol_flat, bench, bench_tasks: int, smi: str):
+    """(c) The cells tf-train4096-bf16 under packed_smalls and smalls
+    against auto (auto, packed_smalls, smalls, smalls, packed_smalls, auto)
+    and train512-bf16 (the code2 GraphTrans step on bench512) under flash
+    against auto (auto, flash, flash, auto): median ms, graphs/s, peak
+    memory; each profiled once: device busy ms, idle share and device time
+    by layer."""
+    import types
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    sizes = types.SimpleNamespace(num_nodetypes=20, num_nodeattributes=100,
+                                  max_seq_len=5)       # make_code_dataset's
+    for cell, config, b, tasks, order in (
+            ("tf-train4096-bf16", TF_MOL_CONFIG, mol_flat, 128,
+             ("auto", "packed_smalls", "smalls", "smalls", "packed_smalls",
+              "auto")),
+            (f"train{CODE2_BENCH}-bf16", CODE2_CONFIG, bench, bench_tasks,
+             ("auto", "flash", "flash", "auto"))):
+        tb = b.to(device)
+        n = int(b.graph_mask.sum())
+        runs, profiled = collections.defaultdict(list), set()
+        for backend in order:
+            batch = (["--batch_size", str(CODE2_BATCH)]
+                     if config == CODE2_CONFIG else [])
+            args = _tf_train_args(config, ["--precision", "bf16",
+                                           "--attn_backend", backend, *batch])
+            model, step = _trainer(args, tasks, device,
+                                   data=sizes if config != TF_MOL_CONFIG
+                                   else None)
+            _median_ms(lambda: step(tb), 3)                 # warm-up
+            torch.cuda.reset_peak_memory_stats(device)
+            ms, lo, hi, loss = _median_ms(lambda: step(tb), TIMED_STEPS)
+            peak = torch.cuda.max_memory_allocated(device) / 2**30
+            if not torch.isfinite(loss):
+                raise AssertionError(f"{cell} under {backend}: loss not "
+                                     f"finite")
+            runs[backend].append(ms)
+            print(f"[17c] {cell} under {backend}: train step of {n} graphs "
+                  f"median {ms:.3f} ms over {TIMED_STEPS} (min {lo:.3f}, max "
+                  f"{hi:.3f}), {n / ms * 1e3:.0f} graphs/s, peak memory "
+                  f"{peak:.2f} GiB on {smi}")
+            if backend not in profiled:
+                profiled.add(backend)
+                with torch.profiler.profile(activities=acts) as prof:
+                    t0 = time.perf_counter()
+                    for _ in range(PROFILED_STEPS):
+                        step(tb)
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+                _print_split("[17c]", f"{cell} train step under {backend}",
+                             prof, PROFILED_STEPS, wall, smi, graphs=n)
+            del model, step
+            torch.cuda.empty_cache()
+        auto = statistics.mean(runs["auto"])
+        for backend in order[1:len(order) // 2]:
+            ms = statistics.mean(runs[backend])
+            print(f"[17c] {cell}: {backend} {ms:.3f} ms against auto "
+                  f"{auto:.3f} ms in turns ({auto / ms:.3f}x) on {smi}")
+        del tb
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--trace", default=None,
@@ -6830,6 +7238,11 @@ def main(argv=None) -> int:
         tf_bf16_runs = phase16_train(device, tmp)
     phase16_cost(device, mol_flat, code2_flat, flat_tasks, smi)
 
+    backends16 = phase17_kernels(device, mol_flat, code2_flat, bench)
+    with tempfile.TemporaryDirectory() as tmp:
+        backends16_launches = phase17_train(device, tmp)
+    phase17_cost(device, mol_flat, bench, bench_tasks, smi)
+
     k1, k2 = timing["timed"]
     k1b, k2b = train["timed"]
     k3, k7 = code2["timed"]
@@ -6850,6 +7263,9 @@ def main(argv=None) -> int:
     k16 = lambda key: {k: t16[key][k] for k in keep}
     k4_inst = lambda name: {k: mol16[name][k] + code16[name][k]
                             for k in mol16[name] if k.endswith("_bf16")}
+    t17, e17 = backends16["timed"], backends16["errs"]
+    k17 = lambda key, *more: {k: t17[key][k] for k in keep + more}
+    l17 = backends16_launches
     rows = [
         dict(name="gin_agg_fwd", route="cuda",
              source="graphtrans_tpu_torch/csrc/gin_agg.cu",
@@ -7090,6 +7506,45 @@ def main(argv=None) -> int:
              launches=code16["flash_attention_bwd"]["bf16"]
              + mol16["flash_attention_bwd"]["bf16"],
              max_abs_err=e16["k5b"], **k16("K5-bwd")),
+        # the bf16 steps under the other backends (phase 17): K9's bf16
+        # instances (heads of 64) on K4's bf16 key-list bodies; the launches
+        # are phase 17b's (molpcba under smalls and packed_smalls, code2
+        # under smalls), the row's times molpcba's packed rows' (its rows of
+        # 33 and code2's rows of 1001 beside)
+        dict(name="attention_smalls_fwd_bf16", route="cuda",
+             source="graphtrans_tpu_torch/csrc/attention_smalls.cu",
+             header="graphtrans_tpu_torch/csrc/attention_list16.cuh",
+             replaces="graphtrans_tpu/ops/pallas/attention_smallS.py:176 "
+                      "(bf16, hd 64)",
+             launches=l17["attention_smalls"], max_abs_err=e17["k9"],
+             row_instance=k17("K9 row"), long_instance=k17("K9 long"),
+             **k17("K9 packed")),
+        dict(name="attention_smalls_bwd_bf16", route="cuda",
+             source="graphtrans_tpu_torch/csrc/attention_smalls.cu",
+             header="graphtrans_tpu_torch/csrc/attention_list16.cuh",
+             replaces="graphtrans_tpu/ops/pallas/attention_smallS.py:227 "
+                      "(bf16, hd 64)",
+             launches=l17["attention_smalls_bwd"], max_abs_err=e17["k9b"],
+             row_instance=k17("K9 row-bwd"),
+             long_instance=k17("K9 long-bwd"), **k17("K9 packed-bwd")),
+        # K5's segment form in bf16 at heads of 32 (the code2 GraphTrans
+        # step under flash, its 384 tier), K2's long bf16 instance on the
+        # same tier beside (k2_ms)
+        dict(name="flash_attention_seg_fwd_bf16_hd32", route="cuda",
+             source="graphtrans_tpu_torch/csrc/flash_attention.cu",
+             header="graphtrans_tpu_torch/csrc/attention_list16.cuh",
+             replaces="graphtrans_tpu/ops/pallas/flash_attention.py:278 "
+                      "(flash_attention_seg, bf16, hd 32)",
+             launches=l17["flash_attention (GraphTrans)"],
+             max_abs_err=e17["k5s"],
+             **k17("K5 seg", "k2_ms")),
+        dict(name="flash_attention_seg_bwd_bf16_hd32", route="cuda",
+             source="graphtrans_tpu_torch/csrc/flash_attention.cu",
+             header="graphtrans_tpu_torch/csrc/attention_list16.cuh",
+             replaces="graphtrans_tpu/ops/pallas/flash_attention.py:326/350 "
+                      "(flash_attention_seg, bf16, hd 32)",
+             launches=l17["flash_attention_bwd (GraphTrans)"],
+             max_abs_err=e17["k5sb"], **k17("K5 seg-bwd", "k2_ms")),
         dict(name="segment_sum_mxu", route="cuda",
              source="graphtrans_tpu_torch/csrc/scatter_mxu.cu",
              replaces="graphtrans_tpu/ops/pallas/scatter_mxu.py:69",
@@ -7099,7 +7554,7 @@ def main(argv=None) -> int:
     ]
     print(f"[wall] {CLOCKS} at the end: {_smi(CLOCKS)}")
     print(f"[wall] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
-          f"(phases 0-16, the kernels' build included)")
+          f"(phases 0-17, the kernels' build included)")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,14 @@
-// The bf16 key-list attention: K4's and K5's bf16 instances (the bf16 step
-// of the Transformer-only model), forward and backward, over qkv [B, S, 3d]
-// with heads in lanes, heads of HD channels (a template parameter; the
-// entries instantiate 64, the published configs' width, and refuse every
-// other).
+// The bf16 key-list attention: K4's, K5's and K9's bf16 instances (the
+// bf16 step of the Transformer-only model; K5's segment form also that of
+// the GraphTrans model under --attn_backend flash), forward and backward,
+// over qkv [B, S, 3d] with heads in lanes, heads of HD channels (a template
+// parameter; the entries instantiate 64, the published Transformer-only
+// configs' width, and K5's also 32, the GraphTrans configs'; they refuse
+// every other).
 //
 // The mask is a pair of tags (policy Tags, attention_bwd.cuh): query i
-// attends key j iff qtag(i) == ktag(j) >= 0 (K4: PadTags, a query's block
-// and a valid key's block; K5: SegTags, segq and segk). The row is cut
+// attends key j iff qtag(i) == ktag(j) >= 0 (K4 and K9: PadTags, a query's
+// block and a valid key's block; K5: SegTags, segq and segk). The row is cut
 // into spans that no pair crosses: K4's graph blocks (block > 0) or the
 // whole row. Dropout (policy Keep: on, inv_keep and split(b, h, H, S),
 // whose at(i) + col(j) is the hash input of the pair of the row's tokens i
@@ -19,15 +21,18 @@
 // the undropped exp(s - m)) in float32. NORM (K4, graphtrans_tpu/ops/
 // pallas/attention_packed.py:_probs_all, attn_bwd_math): the normalised p =
 // exp(s - m) / l, dropped and rescaled, rounded to bf16 before P V; the
-// backward's delta is summed from the pairs (sum_j p dp_drop), and dS = p
-// (dp_drop - delta) scale is rounded. Otherwise (K5, flash_attention.py at
-// precision None): the online softmax's unnormalised p = exp(s -
-// m_running), dropped and rescaled, rounded before P V, the accumulator
-// rescaled by exp(m_old - m_new) and normalised by 1/l in float32; the
-// backward's delta is dO . O over the rounded output, dS = p (dp_drop -
-// delta) is rounded and its products are scaled after their sums. P_drop
-// is rounded before dV = P_drop^T dO; dQ, dK and dV are summed in float32
-// and rounded once. A query with no key writes zeros (m = -inf, l = 0, dq
+// backward's delta is summed from the pairs (sum_j p dp_drop) (PAIRS), and
+// dS = p (dp_drop - delta) scale is rounded (PRE: the scale before the
+// rounding). K9 (attention_smallS.py: _probs, _fwd_kernel, _bwd_kernel) is
+// NORM and PAIRS without PRE: its dS = p (dp_drop - delta) is rounded and
+// its products are scaled after their sums. Otherwise (K5,
+// flash_attention.py at precision None): the online softmax's unnormalised
+// p = exp(s - m_running), dropped and rescaled, rounded before P V, the
+// accumulator rescaled by exp(m_old - m_new) and normalised by 1/l in
+// float32; the backward's delta is dO . O over the rounded output, dS =
+// p (dp_drop - delta) is rounded and its products are scaled after their
+// sums. P_drop is rounded before dV = P_drop^T dO; dQ, dK and dV are summed
+// in float32 and rounded once. A query with no key writes zeros (m = -inf, l = 0, dq
 // = 0); a padding key gets dk = dv = 0.
 //
 // The design: the f32 long-row kernels' (attention_fwd.cuh: long_fwd;
@@ -552,7 +557,7 @@ __device__ __forceinline__ void delta_rows(const Tiles16<HD>& s,
 // dq: one block per (row, head, tile of up to 64 queries of a span). Writes
 // dq for the tile's queries and delta [B, S, H] for the dk/dv kernel
 // (PAIRS: summed from the pairs; otherwise dO . O).
-template <int HD, bool PAIRS, bool DROP, class Tags, class Keep>
+template <int HD, bool PAIRS, bool PRE, bool DROP, class Tags, class Keep>
 __device__ __forceinline__ void list_dq16(
     const bf16* __restrict__ qkv, Tags tags, int span,
     const bf16* __restrict__ out, const bf16* __restrict__ gout,
@@ -613,7 +618,7 @@ __device__ __forceinline__ void list_dq16(
 #pragma unroll
   for (int nt = 0; nt < NC; ++nt)
     acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  const float pre = PAIRS ? scale : 1.f;
+  const float pre = PRE ? scale : 1.f;
   auto tok = [&](int r) { return x.s0 + s.kix[r]; };
   const auto kept = keep.split(b, h, H, S);  // the row's seed, once
   const unsigned at[2] = {DROP ? kept.at(x.r0 + m0 + g) : 0u,
@@ -660,13 +665,13 @@ __device__ __forceinline__ void list_dq16(
   bf16* o0 = dqkv + (base + x.r0) * d3 + h * HD;
   store_pair<HD>(i0 < x.n ? o0 + (long)i0 * d3 : nullptr,
                  i1 < x.n ? o0 + (long)i1 * d3 : nullptr, acc,
-                 PAIRS ? 1.f : scale, PAIRS ? 1.f : scale);
+                 PRE ? 1.f : scale, PRE ? 1.f : scale);
 }
 
 // dk, dv: one block per (row, head, tile z of a span): the tile's z-th
 // chunk of 64 valid keys of the span by rank, and the padding keys among
 // the tile's tokens (zeros). delta from the dq kernel.
-template <int HD, bool PAIRS, bool DROP, class Tags, class Keep>
+template <int HD, bool PAIRS, bool PRE, bool DROP, class Tags, class Keep>
 __device__ __forceinline__ void list_dkv16(
     const bf16* __restrict__ qkv, Tags tags, int span,
     const bf16* __restrict__ gout, const float* __restrict__ stat_m,
@@ -730,7 +735,7 @@ __device__ __forceinline__ void list_dkv16(
   for (int nt = 0; nt < NC; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[nt][e] = dv[nt][e] = 0.f;
-  const float pre = PAIRS ? scale : 1.f;
+  const float pre = PRE ? scale : 1.f;
 
   for (int q0 = x.s0; q0 < x.s1; q0 += T) {
     const int nq = min(T, x.s1 - q0);
@@ -755,7 +760,7 @@ __device__ __forceinline__ void list_dkv16(
   const int j0 = m0 + g, j1 = j0 + 8;
   bf16* p0 = j0 < nk ? drow + (long)tok(j0) * d3 : nullptr;
   bf16* p1 = j1 < nk ? drow + (long)tok(j1) * d3 : nullptr;
-  const float f = PAIRS ? 1.f : scale;
+  const float f = PRE ? 1.f : scale;
   store_pair<HD>(p0 ? p0 + d : nullptr, p1 ? p1 + d : nullptr, dk, f, f);
   store_pair<HD>(p0 ? p0 + 2 * d : nullptr, p1 ? p1 + 2 * d : nullptr, dv,
                  1.f, 1.f);
@@ -766,7 +771,7 @@ __device__ __forceinline__ void list_dkv16(
 // once, its keys by position (a padding key's tag -1), no ranking; the
 // warps take the span's query rows (delta, then dS and dQ), then, after one
 // barrier, its key rows (dK and dV; a padding key's rows zero).
-template <int HD, bool PAIRS, bool DROP, class Tags, class Keep>
+template <int HD, bool PAIRS, bool PRE, bool DROP, class Tags, class Keep>
 __device__ __forceinline__ void span_bwd16(
     const bf16* __restrict__ qkv, Tags tags, int span,
     const bf16* __restrict__ out, const bf16* __restrict__ gout,
@@ -802,7 +807,7 @@ __device__ __forceinline__ void span_bwd16(
 
   const int lane = t & 31, g = lane >> 2, q = lane & 3, m0 = (t >> 5) * 16;
   const bool live = m0 < n;  // the warp's rows: queries, then keys
-  const float pre = PAIRS ? scale : 1.f;
+  const float pre = PRE ? scale : 1.f;
   auto tok = [&](int r) { return x.s0 + r; };
   const int i0 = m0 + g, i1 = i0 + 8;
   if (live) {
@@ -841,7 +846,7 @@ __device__ __forceinline__ void span_bwd16(
     dq_keys16<HD, false, DROP>(s.Y0, s.Y1, s.kt, n, tok, qa, ga, at, rt,
                                rml, rli, de, scale, pre, kept, keep.inv_keep,
                                unused, acc);
-    const float f = PAIRS ? 1.f : scale;
+    const float f = PRE ? 1.f : scale;
     store_pair<HD>(i0 < n ? drow + (long)i0 * d3 : nullptr,
                    i1 < n ? drow + (long)i1 * d3 : nullptr, acc, f, f);
   }
@@ -857,7 +862,7 @@ __device__ __forceinline__ void span_bwd16(
     for (int e = 0; e < 4; ++e) dk[nt][e] = dv[nt][e] = 0.f;
   dkv_queries16<HD, DROP>(s, s.Y0, s.Y1, m0, s.X0, s.X1, n, kr, kc, scale,
                           pre, kept, keep.inv_keep, dk, dv);
-  const float f = PAIRS ? 1.f : scale;
+  const float f = PRE ? 1.f : scale;
   bf16* p0 = i0 < n ? drow + (long)i0 * d3 : nullptr;
   bf16* p1 = i1 < n ? drow + (long)i1 * d3 : nullptr;
   store_pair<HD>(p0 ? p0 + d : nullptr, p1 ? p1 + d : nullptr, dk, f, f);

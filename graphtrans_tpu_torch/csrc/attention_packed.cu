@@ -703,9 +703,9 @@ attention_dense_bwd_dq_bf16_kernel(
     const float* __restrict__ stat_m, const float* __restrict__ stat_l,
     float* __restrict__ delta, tile::bf16* __restrict__ dqkv, int S, int d,
     float scale, Dropout dr) {
-  attn::l16::list_dq16<DENSE16_HD, true, DROP>(qkv, tags, span, out, gout,
-                                               stat_m, stat_l, delta, dqkv,
-                                               S, d, scale, dr);
+  attn::l16::list_dq16<DENSE16_HD, true, true, DROP>(
+      qkv, tags, span, out, gout, stat_m, stat_l, delta, dqkv, S, d, scale,
+      dr);
 }
 
 template <bool DROP>
@@ -715,9 +715,8 @@ attention_dense_bwd_dkv_bf16_kernel(
     const tile::bf16* __restrict__ gout, const float* __restrict__ stat_m,
     const float* __restrict__ stat_l, const float* __restrict__ delta,
     tile::bf16* __restrict__ dqkv, int S, int d, float scale, Dropout dr) {
-  attn::l16::list_dkv16<DENSE16_HD, true, DROP>(qkv, tags, span, gout,
-                                                stat_m, stat_l, delta, dqkv,
-                                                S, d, scale, dr);
+  attn::l16::list_dkv16<DENSE16_HD, true, true, DROP>(
+      qkv, tags, span, gout, stat_m, stat_l, delta, dqkv, S, d, scale, dr);
 }
 
 // K4-bwd's bf16 short instance: graph blocks of up to 64 tokens (the
@@ -729,7 +728,7 @@ attention_dense_bwd_span_bf16_kernel(
     const tile::bf16* __restrict__ out, const tile::bf16* __restrict__ gout,
     const float* __restrict__ stat_m, const float* __restrict__ stat_l,
     tile::bf16* __restrict__ dqkv, int S, int d, float scale, Dropout dr) {
-  attn::l16::span_bwd16<DENSE16_HD, true, DROP>(
+  attn::l16::span_bwd16<DENSE16_HD, true, true, DROP>(
       qkv, tags, span, out, gout, stat_m, stat_l, dqkv, S, d, scale, dr);
 }
 

@@ -28,12 +28,24 @@
 // + j: the JAX kernel's per-program seeds over its tiles of ht (batch,
 // head) pairs, hashed as its package's interpret mode hashes them. Forward,
 // backward and the plain version draw the same mask; nothing is stored.
+//
+// The bf16 instances (the bf16 step of the Transformer-only model under
+// --attn_backend smalls and packed_smalls, heads of 64) run the bf16
+// key-list bodies of attention_list16.cuh, K4's bf16 instances' launch
+// (list16_geometry: a block of four warps per (row, head, 64-token tile of
+// a span), spans of up to 64 tokens backward in one kernel) with K9's
+// rounding at precision DEFAULT (one bf16 MXU pass): p normalised, dropped
+// and rounded before P V; the backward's delta summed from the pairs with
+// the undropped p, dS = p (dp_drop - delta) rounded, and its products
+// scaled after their sums. Every product is a bf16 mma.sync m16n8k16 with
+// float32 sums; K9's mask under the split hash (SmallsKeep::Split).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "attention_bwd.cuh"
 #include "attention_fwd.cuh"
+#include "attention_list16.cuh"
 #include "attention_tile.cuh"
 #include "hash.cuh"
 
@@ -54,6 +66,23 @@ struct SmallsKeep {
     const unsigned p = (unsigned)b * H + (unsigned)h;
     const unsigned pos = ((p % ht) * S + (unsigned)i) * S + (unsigned)j;
     return prng::hash_bits(pos, seed + p / ht) < thresh;
+  }
+
+  // The same mask with the hash input of (i, j) split as a query's part and
+  // a key's, x(i, j) = at(i) + col(j) (mod 2^32), the (b, h) seed and tile
+  // offset made once (the bf16 key-list bodies): keeps(at(i) + col(j)) ==
+  // (*this)(b, h, H, S, i, j).
+  struct Split {
+    unsigned base, S, seeded, thresh;  // (p % ht) S S; (seed + p/ht) SEED_MUL
+    __device__ unsigned at(unsigned i) const {  // i, j: tokens, >= 0
+      return (base + i * S) * prng::POS_MUL + seeded;
+    }
+    __device__ unsigned col(unsigned j) const { return j * prng::POS_MUL; }
+    __device__ bool keeps(unsigned x) const { return prng::mix(x) < thresh; }
+  };
+  __device__ Split split(long b, int h, int H, int S) const {
+    const unsigned p = (unsigned)b * H + (unsigned)h, s = (unsigned)S;
+    return Split{p % ht * s * s, s, (seed + p / ht) * prng::SEED_MUL, thresh};
   }
 };
 
@@ -273,6 +302,139 @@ int launch_bwd(const float* qkv, const unsigned char* valid, const float* out,
   return cudaErrorInvalidValue;
 }
 
+// ---- the bf16 instances ---------------------------------------------------
+
+constexpr int HD16 = 64;  // the head width K9's bf16 instances take
+
+// K9 in bf16 on the key-list bodies of attention_list16.cuh under K4's tags
+// (PadTags) with K9's rounding: NORM forward (p normalised, dropped and
+// rounded before P V); backward delta from the pairs, dS rounded before its
+// products, which are scaled after their sums (PAIRS without PRE).
+// Registers for four blocks an SM forward and three backward, as K4's.
+template <bool DROP, bool STATS>
+__global__ void __launch_bounds__(attn::LIST16_THREADS, 4)
+attention_smalls_fwd_bf16_kernel(const tile::bf16* __restrict__ qkv,
+                                 attn::PadTags tags, int span,
+                                 tile::bf16* __restrict__ out,
+                                 float* __restrict__ stat_m,
+                                 float* __restrict__ stat_l, int S, int d,
+                                 float scale, SmallsKeep dr) {
+  attn::l16::list_fwd16<HD16, true, DROP, STATS>(qkv, tags, span, out, stat_m,
+                                                 stat_l, S, d, scale, dr);
+}
+
+template <bool DROP>
+__global__ void __launch_bounds__(attn::LIST16_THREADS, 3)
+attention_smalls_bwd_dq_bf16_kernel(
+    const tile::bf16* __restrict__ qkv, attn::PadTags tags, int span,
+    const tile::bf16* __restrict__ out, const tile::bf16* __restrict__ gout,
+    const float* __restrict__ stat_m, const float* __restrict__ stat_l,
+    float* __restrict__ delta, tile::bf16* __restrict__ dqkv, int S, int d,
+    float scale, SmallsKeep dr) {
+  attn::l16::list_dq16<HD16, true, false, DROP>(qkv, tags, span, out, gout,
+                                                stat_m, stat_l, delta, dqkv,
+                                                S, d, scale, dr);
+}
+
+template <bool DROP>
+__global__ void __launch_bounds__(attn::LIST16_THREADS, 3)
+attention_smalls_bwd_dkv_bf16_kernel(
+    const tile::bf16* __restrict__ qkv, attn::PadTags tags, int span,
+    const tile::bf16* __restrict__ gout, const float* __restrict__ stat_m,
+    const float* __restrict__ stat_l, const float* __restrict__ delta,
+    tile::bf16* __restrict__ dqkv, int S, int d, float scale, SmallsKeep dr) {
+  attn::l16::list_dkv16<HD16, true, false, DROP>(qkv, tags, span, gout,
+                                                 stat_m, stat_l, delta, dqkv,
+                                                 S, d, scale, dr);
+}
+
+// K9-bwd's bf16 short instance: spans of up to 64 tokens (the molecule
+// paths' rows and graph blocks), the whole backward of a span in one block.
+template <bool DROP>
+__global__ void __launch_bounds__(attn::LIST16_THREADS, 3)
+attention_smalls_bwd_span_bf16_kernel(
+    const tile::bf16* __restrict__ qkv, attn::PadTags tags, int span,
+    const tile::bf16* __restrict__ out, const tile::bf16* __restrict__ gout,
+    const float* __restrict__ stat_m, const float* __restrict__ stat_l,
+    tile::bf16* __restrict__ dqkv, int S, int d, float scale, SmallsKeep dr) {
+  attn::l16::span_bwd16<HD16, true, false, DROP>(
+      qkv, tags, span, out, gout, stat_m, stat_l, dqkv, S, d, scale, dr);
+}
+
+template <class Kernel>
+cudaError_t allow_smem(Kernel k, int bytes) {
+  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+// The span of K9's mask on rows of S tokens: the graph block, or the row.
+int span_of(int S, int block) { return block > 0 && block < S ? block : S; }
+
+template <bool DROP, bool STATS>
+int launch_fwd_bf16(const tile::bf16* qkv, const unsigned char* valid,
+                    tile::bf16* out, float* stat_m, float* stat_l, int B,
+                    int S, int d, int H, int block, SmallsKeep dr,
+                    const Launch& L, cudaStream_t stream) {
+  const int span = span_of(S, block);
+  if (!attn::list16_launch_ok(L, B, S, span, H, HD16, false))
+    return cudaErrorInvalidValue;
+  const auto k = attention_smalls_fwd_bf16_kernel<DROP, STATS>;
+  static const cudaError_t set = allow_smem(k, attn::list16_bytes(HD16, false));
+  if (set != cudaSuccess) return set;
+  k<<<dim3(L.gx, L.gy, L.gz), L.threads, L.smem, stream>>>(
+      qkv, attn::PadTags{valid, block}, span, out, stat_m, stat_l, S, d,
+      1.f / sqrtf((float)HD16), dr);
+  return cudaGetLastError();
+}
+
+// The wrapper's list16_geometry: instance 1 (spans of up to 64 tokens, one
+// kernel) or 3 (the dq, then the dk/dv kernel; delta passes between them).
+template <bool DROP>
+int launch_bwd_bf16(const tile::bf16* qkv, const unsigned char* valid,
+                    const tile::bf16* out, const tile::bf16* gout,
+                    const float* stat_m, const float* stat_l, float* delta,
+                    tile::bf16* dqkv, int B, int S, int d, int H, int block,
+                    SmallsKeep dr, const Launch& L, cudaStream_t stream) {
+  const int span = span_of(S, block);
+  if (!attn::list16_launch_ok(L, B, S, span, H, HD16, true))
+    return cudaErrorInvalidValue;
+  const attn::PadTags tags{valid, block};
+  const float scale = 1.f / sqrtf((float)HD16);
+  const int bytes = attn::list16_bytes(HD16, true);
+  if (L.instance == 1) {
+    const auto k = attention_smalls_bwd_span_bf16_kernel<DROP>;
+    static const cudaError_t set = allow_smem(k, bytes);
+    if (set != cudaSuccess) return set;
+    k<<<dim3(L.gx, L.gy, L.gz), L.threads, L.smem, stream>>>(
+        qkv, tags, span, out, gout, stat_m, stat_l, dqkv, S, d, scale, dr);
+    return cudaGetLastError();
+  }
+  if (delta == nullptr) return cudaErrorInvalidValue;
+  const auto dq = attention_smalls_bwd_dq_bf16_kernel<DROP>;
+  const auto dkv = attention_smalls_bwd_dkv_bf16_kernel<DROP>;
+  static const cudaError_t set = [&] {
+    const cudaError_t e = allow_smem(dq, bytes);
+    return e != cudaSuccess ? e : allow_smem(dkv, bytes);
+  }();
+  if (set != cudaSuccess) return set;
+  return attn::launch_list_bwd16(dq, dkv, qkv, tags, span, out, gout, stat_m,
+                                 stat_l, delta, dqkv, S, d, scale, dr, L,
+                                 stream);
+}
+
+template <class Kernel>
+int residency(Kernel k, int most, int smem, int* regs, int* local,
+              int* blocks) {
+  cudaError_t e = allow_smem(k, most);
+  cudaFuncAttributes a;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, k);
+  if (e != cudaSuccess) return e;
+  *regs = a.numRegs;
+  *local = (int)a.localSizeBytes;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, k, attn::LIST16_THREADS, smem);
+}
+
 SmallsKeep make_keep(int on, unsigned thresh, float inv_keep, int seed,
                      int S) {
   SmallsKeep dr;
@@ -360,4 +522,76 @@ extern "C" int attention_smalls_bwd(const float* qkv,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// K9's bf16 instances (the bf16 step, heads of 64): qkv, out, gout and dqkv
+// bf16, m, l and delta float; the arguments as attention_smalls_fwd's and
+// attention_smalls_bwd's. The launch is the wrapper's list16_geometry (the
+// forward's instance 1 for spans of up to 128 tokens, 3 above, one body;
+// the backward's 1 for spans of up to 64, one kernel, 3 above, the pair,
+// which needs delta); one that does not match is refused.
+extern "C" int attention_smalls_fwd_bf16(
+    const tile::bf16* qkv, const unsigned char* valid, tile::bf16* out,
+    float* stat_m, float* stat_l, int B, int S, int d, int H, int block,
+    int drop, unsigned thresh, float inv_keep, int seed, int instance,
+    int pad, int group, int gx, int gy, int gz, int threads, int smem,
+    cudaStream_t stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || d != H * HD16 || block < 0)
+    return cudaErrorInvalidValue;
+  if ((stat_m == nullptr) != (stat_l == nullptr)) return cudaErrorInvalidValue;
+  if (drop && stat_m == nullptr) return cudaErrorInvalidValue;
+  const SmallsKeep dr = make_keep(drop, thresh, inv_keep, seed, S);
+  const Launch L{instance, pad, group, gx, gy, gz, threads, smem};
+  if (dr.on)
+    return launch_fwd_bf16<true, true>(qkv, valid, out, stat_m, stat_l, B, S,
+                                       d, H, block, dr, L, stream);
+  if (stat_m)
+    return launch_fwd_bf16<false, true>(qkv, valid, out, stat_m, stat_l, B, S,
+                                        d, H, block, dr, L, stream);
+  return launch_fwd_bf16<false, false>(qkv, valid, out, stat_m, stat_l, B, S,
+                                       d, H, block, dr, L, stream);
+}
+
+extern "C" int attention_smalls_bwd_bf16(
+    const tile::bf16* qkv, const unsigned char* valid, const tile::bf16* out,
+    const tile::bf16* gout, const float* stat_m, const float* stat_l,
+    float* delta, tile::bf16* dqkv, int B, int S, int d, int H, int block,
+    int drop, unsigned thresh, float inv_keep, int seed, int instance,
+    int pad, int group, int gx, int gy, int gz, int threads, int smem,
+    cudaStream_t stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || d != H * HD16 || block < 0 ||
+      stat_m == nullptr || stat_l == nullptr)
+    return cudaErrorInvalidValue;
+  const SmallsKeep dr = make_keep(drop, thresh, inv_keep, seed, S);
+  const Launch L{instance, pad, group, gx, gy, gz, threads, smem};
+  return dr.on ? launch_bwd_bf16<true>(qkv, valid, out, gout, stat_m, stat_l,
+                                       delta, dqkv, B, S, d, H, block, dr, L,
+                                       stream)
+               : launch_bwd_bf16<false>(qkv, valid, out, gout, stat_m, stat_l,
+                                        delta, dqkv, B, S, d, H, block, dr, L,
+                                        stream);
+}
+
+// The residency of a kernel of K9's bf16 instances (with dropout: the
+// training launch) at `smem` shared bytes a block: `which` 0 the forward,
+// 1 the dq kernel, 2 the dk/dv kernel, 3 the short backward.
+extern "C" int attention_smalls_bf16_residency(int which, int smem, int* regs,
+                                               int* local, int* blocks) {
+  const int fb = attn::list16_bytes(HD16, false);
+  const int bb = attn::list16_bytes(HD16, true);
+  switch (which) {
+    case 0:
+      return residency(attention_smalls_fwd_bf16_kernel<true, true>, fb, smem,
+                       regs, local, blocks);
+    case 1:
+      return residency(attention_smalls_bwd_dq_bf16_kernel<true>, bb, smem,
+                       regs, local, blocks);
+    case 2:
+      return residency(attention_smalls_bwd_dkv_bf16_kernel<true>, bb, smem,
+                       regs, local, blocks);
+    case 3:
+      return residency(attention_smalls_bwd_span_bf16_kernel<true>, bb, smem,
+                       regs, local, blocks);
+  }
+  return cudaErrorInvalidValue;
 }

@@ -30,9 +30,11 @@
 // in shared memory with their products as 3xTF32 mma.sync on the tensor
 // cores) under K5's own kernels, with segq and segk as its tags.
 //
-// The bf16 instances (the bf16 step of the Transformer-only model, heads of
-// 64) run the bf16 key-list bodies of attention_list16.cuh with segq and
-// segk as their tags and the JAX kernel's rounding at precision None (one
+// The bf16 instances (the bf16 step: the Transformer-only model's rows at
+// heads of 64, and the GraphTrans model's packed rows of 256-384 tokens
+// under --attn_backend flash, the segment form, at heads of 32) run the
+// bf16 key-list bodies of attention_list16.cuh with segq and segk as their
+// tags and the JAX kernel's rounding at precision None (one
 // bf16 MXU pass): the online softmax's unnormalised p rounded before P V,
 // delta = dO . O over the rounded output, dS rounded and its products
 // scaled after their sums. A block of four warps per (row, head, 64
@@ -182,12 +184,15 @@ int launch_bwd(const float* qkv, attn::SegTags tags, const float* out,
 
 // ---- the bf16 instances ---------------------------------------------------
 
-constexpr int HD16 = 64;  // the head width the bf16 instances take
+// The head widths the bf16 instances take: 64 (the Transformer-only
+// configs') and 32 (the GraphTrans configs', the segment form under
+// --attn_backend flash).
+constexpr bool bf16_head(int hd) { return hd == 32 || hd == 64; }
 
 // Registers for four blocks an SM forward and three backward (up to 168 a
 // thread, so that nothing spills; their shared memory allows seven and
-// five).
-template <bool DROP, bool STATS>
+// five at heads of 64).
+template <int HD, bool DROP, bool STATS>
 __global__ void __launch_bounds__(attn::LIST16_THREADS, 4)
 flash_attention_fwd_bf16_kernel(const tile::bf16* __restrict__ qkv,
                                 attn::SegTags tags, int span,
@@ -195,11 +200,11 @@ flash_attention_fwd_bf16_kernel(const tile::bf16* __restrict__ qkv,
                                 float* __restrict__ stat_m,
                                 float* __restrict__ stat_l, int S, int d,
                                 float scale, Dropout dr) {
-  attn::l16::list_fwd16<HD16, false, DROP, STATS>(qkv, tags, span, out, stat_m,
-                                                  stat_l, S, d, scale, dr);
+  attn::l16::list_fwd16<HD, false, DROP, STATS>(qkv, tags, span, out, stat_m,
+                                                stat_l, S, d, scale, dr);
 }
 
-template <bool DROP>
+template <int HD, bool DROP>
 __global__ void __launch_bounds__(attn::LIST16_THREADS, 3)
 flash_attention_bwd_dq_bf16_kernel(
     const tile::bf16* __restrict__ qkv, attn::SegTags tags, int span,
@@ -207,21 +212,21 @@ flash_attention_bwd_dq_bf16_kernel(
     const float* __restrict__ stat_m, const float* __restrict__ stat_l,
     float* __restrict__ delta, tile::bf16* __restrict__ dqkv, int S, int d,
     float scale, Dropout dr) {
-  attn::l16::list_dq16<HD16, false, DROP>(qkv, tags, span, out, gout, stat_m,
-                                          stat_l, delta, dqkv, S, d, scale,
-                                          dr);
+  attn::l16::list_dq16<HD, false, false, DROP>(qkv, tags, span, out, gout,
+                                               stat_m, stat_l, delta, dqkv,
+                                               S, d, scale, dr);
 }
 
-template <bool DROP>
+template <int HD, bool DROP>
 __global__ void __launch_bounds__(attn::LIST16_THREADS, 3)
 flash_attention_bwd_dkv_bf16_kernel(
     const tile::bf16* __restrict__ qkv, attn::SegTags tags, int span,
     const tile::bf16* __restrict__ gout, const float* __restrict__ stat_m,
     const float* __restrict__ stat_l, const float* __restrict__ delta,
     tile::bf16* __restrict__ dqkv, int S, int d, float scale, Dropout dr) {
-  attn::l16::list_dkv16<HD16, false, DROP>(qkv, tags, span, gout, stat_m,
-                                           stat_l, delta, dqkv, S, d, scale,
-                                           dr);
+  attn::l16::list_dkv16<HD, false, false, DROP>(qkv, tags, span, gout, stat_m,
+                                                stat_l, delta, dqkv, S, d,
+                                                scale, dr);
 }
 
 template <class Kernel>
@@ -230,36 +235,51 @@ cudaError_t allow_smem(Kernel k, int bytes) {
                               bytes);
 }
 
-template <bool DROP, bool STATS>
+template <int HD, bool DROP, bool STATS>
 int launch_fwd_bf16(const tile::bf16* qkv, attn::SegTags tags,
                     tile::bf16* out, float* stat_m, float* stat_l, int B,
                     int S, int d, int H, Dropout dr, const tile::Launch& L,
                     cudaStream_t stream) {
-  if (!attn::list16_launch_ok(L, B, S, S, H, HD16, false))
+  if (!attn::list16_launch_ok(L, B, S, S, H, HD, false))
     return cudaErrorInvalidValue;
-  const auto k = flash_attention_fwd_bf16_kernel<DROP, STATS>;
-  static const cudaError_t set =
-      allow_smem(k, attn::list16_bytes(HD16, false));
+  const auto k = flash_attention_fwd_bf16_kernel<HD, DROP, STATS>;
+  static const cudaError_t set = allow_smem(k, attn::list16_bytes(HD, false));
   if (set != cudaSuccess) return set;
   k<<<dim3(L.gx, L.gy, L.gz), L.threads, L.smem, stream>>>(
-      qkv, tags, S, out, stat_m, stat_l, S, d, 1.f / sqrtf((float)HD16), dr);
+      qkv, tags, S, out, stat_m, stat_l, S, d, 1.f / sqrtf((float)HD), dr);
   return cudaGetLastError();
+}
+
+// The serving instance (no dropout, no statistics), the gradient instance
+// without dropout, and the training one.
+template <int HD>
+int launch_fwd16(const tile::bf16* qkv, attn::SegTags tags, tile::bf16* out,
+                 float* stat_m, float* stat_l, int B, int S, int d, int H,
+                 Dropout dr, const tile::Launch& L, cudaStream_t stream) {
+  if (dr.on)
+    return launch_fwd_bf16<HD, true, true>(qkv, tags, out, stat_m, stat_l, B,
+                                           S, d, H, dr, L, stream);
+  if (stat_m)
+    return launch_fwd_bf16<HD, false, true>(qkv, tags, out, stat_m, stat_l, B,
+                                            S, d, H, dr, L, stream);
+  return launch_fwd_bf16<HD, false, false>(qkv, tags, out, stat_m, stat_l, B,
+                                           S, d, H, dr, L, stream);
 }
 
 // The bf16 pair's launch over the whole row, computed here as the
 // wrapper's list16_geometry computes it (a block per (row, head, 64
 // tokens)).
-template <bool DROP>
+template <int HD, bool DROP>
 int launch_bwd_bf16(const tile::bf16* qkv, attn::SegTags tags,
                     const tile::bf16* out, const tile::bf16* gout,
                     const float* stat_m, const float* stat_l, float* delta,
                     tile::bf16* dqkv, int B, int S, int d, int H, Dropout dr,
                     cudaStream_t stream) {
-  const int bytes = attn::list16_bytes(HD16, true);
+  const int bytes = attn::list16_bytes(HD, true);
   const tile::Launch L{3, attn::LONG_T, 1, B, H, attn::list16_tiles(S, S),
                        attn::LIST16_THREADS, bytes};
-  const auto dq = flash_attention_bwd_dq_bf16_kernel<DROP>;
-  const auto dkv = flash_attention_bwd_dkv_bf16_kernel<DROP>;
+  const auto dq = flash_attention_bwd_dq_bf16_kernel<HD, DROP>;
+  const auto dkv = flash_attention_bwd_dkv_bf16_kernel<HD, DROP>;
   static const cudaError_t set = [&] {
     const cudaError_t e = allow_smem(dq, bytes);
     return e != cudaSuccess ? e : allow_smem(dkv, bytes);
@@ -267,7 +287,21 @@ int launch_bwd_bf16(const tile::bf16* qkv, attn::SegTags tags,
   if (set != cudaSuccess) return set;
   return attn::launch_list_bwd16(dq, dkv, qkv, tags, S, out, gout, stat_m,
                                  stat_l, delta, dqkv, S, d,
-                                 1.f / sqrtf((float)HD16), dr, L, stream);
+                                 1.f / sqrtf((float)HD), dr, L, stream);
+}
+
+template <int HD>
+int launch_bwd16(const tile::bf16* qkv, attn::SegTags tags,
+                 const tile::bf16* out, const tile::bf16* gout,
+                 const float* stat_m, const float* stat_l, float* delta,
+                 tile::bf16* dqkv, int B, int S, int d, int H, Dropout dr,
+                 cudaStream_t stream) {
+  return dr.on ? launch_bwd_bf16<HD, true>(qkv, tags, out, gout, stat_m,
+                                           stat_l, delta, dqkv, B, S, d, H,
+                                           dr, stream)
+               : launch_bwd_bf16<HD, false>(qkv, tags, out, gout, stat_m,
+                                            stat_l, delta, dqkv, B, S, d, H,
+                                            dr, stream);
 }
 
 template <class Kernel>
@@ -362,30 +396,27 @@ extern "C" int flash_attention_bwd(const float* qkv, const int* segq,
 }
 
 // K5's bf16 instances (the bf16 step): qkv, out, gout and dqkv bf16, m, l
-// and delta float; heads of 64; the arguments as flash_attention_fwd's and
-// flash_attention_bwd's. The forward's launch is the wrapper's
-// list16_geometry over the whole row; one that does not match is refused.
+// and delta float; heads of 32 or 64; the arguments as
+// flash_attention_fwd's and flash_attention_bwd's. The forward's launch is
+// the wrapper's list16_geometry over the whole row; one that does not match
+// is refused.
 extern "C" int flash_attention_fwd_bf16(
     const tile::bf16* qkv, const int* segq, const int* segk, tile::bf16* out,
     float* stat_m, float* stat_l, int B, int S, int d, int H, int drop,
     unsigned thresh, float inv_keep, int seed, int instance, int pad,
     int group, int gx, int gy, int gz, int threads, int smem,
     cudaStream_t stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || d != H * HD16)
+  if (B <= 0 || S <= 0 || H <= 0 || d % H || !bf16_head(d / H))
     return cudaErrorInvalidValue;
   if ((stat_m == nullptr) != (stat_l == nullptr)) return cudaErrorInvalidValue;
   if (drop && stat_m == nullptr) return cudaErrorInvalidValue;
   const Dropout dr = make_dropout(drop, thresh, inv_keep, seed);
   const attn::SegTags tags{segq, segk};
   const tile::Launch L{instance, pad, group, gx, gy, gz, threads, smem};
-  if (dr.on)
-    return launch_fwd_bf16<true, true>(qkv, tags, out, stat_m, stat_l, B, S,
-                                       d, H, dr, L, stream);
-  if (stat_m)
-    return launch_fwd_bf16<false, true>(qkv, tags, out, stat_m, stat_l, B, S,
+  return d / H == 32 ? launch_fwd16<32>(qkv, tags, out, stat_m, stat_l, B, S,
+                                        d, H, dr, L, stream)
+                     : launch_fwd16<64>(qkv, tags, out, stat_m, stat_l, B, S,
                                         d, H, dr, L, stream);
-  return launch_fwd_bf16<false, false>(qkv, tags, out, stat_m, stat_l, B, S,
-                                       d, H, dr, L, stream);
 }
 
 extern "C" int flash_attention_bwd_bf16(
@@ -394,33 +425,40 @@ extern "C" int flash_attention_bwd_bf16(
     const float* stat_l, float* delta, tile::bf16* dqkv, int B, int S, int d,
     int H, int drop, unsigned thresh, float inv_keep, int seed,
     cudaStream_t stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || d != H * HD16)
+  if (B <= 0 || S <= 0 || H <= 0 || d % H || !bf16_head(d / H))
     return cudaErrorInvalidValue;
   const Dropout dr = make_dropout(drop, thresh, inv_keep, seed);
   const attn::SegTags tags{segq, segk};
-  return dr.on ? launch_bwd_bf16<true>(qkv, tags, out, gout, stat_m, stat_l,
-                                       delta, dqkv, B, S, d, H, dr, stream)
-               : launch_bwd_bf16<false>(qkv, tags, out, gout, stat_m, stat_l,
+  return d / H == 32 ? launch_bwd16<32>(qkv, tags, out, gout, stat_m, stat_l,
+                                        delta, dqkv, B, S, d, H, dr, stream)
+                     : launch_bwd16<64>(qkv, tags, out, gout, stat_m, stat_l,
                                         delta, dqkv, B, S, d, H, dr, stream);
+}
+
+template <int HD>
+int residency16(int which, int smem, int* regs, int* local, int* blocks) {
+  const int fb = attn::list16_bytes(HD, false);
+  const int bb = attn::list16_bytes(HD, true);
+  switch (which) {
+    case 0:
+      return residency(flash_attention_fwd_bf16_kernel<HD, true, true>, fb,
+                       smem, regs, local, blocks);
+    case 1:
+      return residency(flash_attention_bwd_dq_bf16_kernel<HD, true>, bb, smem,
+                       regs, local, blocks);
+    case 2:
+      return residency(flash_attention_bwd_dkv_bf16_kernel<HD, true>, bb,
+                       smem, regs, local, blocks);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // The residency of a kernel of K5's bf16 instances (with dropout: the
 // training launch) at `smem` shared bytes a block: `which` 0 the forward,
-// 1 the dq kernel, 2 the dk/dv kernel.
+// 1 the dq kernel, 2 the dk/dv kernel, at heads of 64; 3, 4 and 5 the same
+// at heads of 32.
 extern "C" int flash_attention_bf16_residency(int which, int smem, int* regs,
                                               int* local, int* blocks) {
-  const int fb = attn::list16_bytes(HD16, false);
-  const int bb = attn::list16_bytes(HD16, true);
-  switch (which) {
-    case 0:
-      return residency(flash_attention_fwd_bf16_kernel<true, true>, fb, smem,
-                       regs, local, blocks);
-    case 1:
-      return residency(flash_attention_bwd_dq_bf16_kernel<true>, bb, smem,
-                       regs, local, blocks);
-    case 2:
-      return residency(flash_attention_bwd_dkv_bf16_kernel<true>, bb, smem,
-                       regs, local, blocks);
-  }
-  return cudaErrorInvalidValue;
+  return which < 3 ? residency16<64>(which, smem, regs, local, blocks)
+                   : residency16<32>(which - 3, smem, regs, local, blocks);
 }

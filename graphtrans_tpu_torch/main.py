@@ -45,15 +45,21 @@ and AdamW's state in float32 (``train/precision.py``, the JAX trainer's
 cast); the kernels of the path run their bf16 instances (molpcba
 GraphTrans: K1, K1-bwd, K2 and K2-bwd; code2 GraphTrans: K7, K7-bwd, K2,
 K2-bwd, K3 and K3-bwd; the Transformer-only model: K4, K4-bwd, K5 and
-K5-bwd at heads of 64, and the plain route), and cuBLAS sums the bf16
-products in float32. bf16 runs the molpcba GraphTrans configs (GIN on
-the strided layout), the code2 GraphTrans configs (GCN on the flat
-layout) and the Transformer-only configs (molpcba, code2, NCI1 and
-NCI109) under ``--attn_backend auto``; every other model, dataset and
-backend, K11 and the blocked route raise NotImplementedError naming
-slice 10 (``utils/config.py:check_ported``; ``set_block_spmm``'s route
-in ``nn/conv.py``). ``--save_path`` writes the float32 masters, which
-``predict --weights`` serves in float32.
+K5-bwd at heads of 64, and the plain route; under ``smalls`` and
+``packed_smalls`` K9 and K9-bwd at heads of 64, under ``flash`` K5's
+segment form on GraphTrans's rows of 256-384 at heads of 32), and cuBLAS
+sums the bf16 products in float32. bf16 runs the molpcba GraphTrans
+configs (GIN on the strided layout), the code2 GraphTrans configs (GCN on
+the flat layout) and the Transformer-only configs (molpcba, code2, NCI1
+and NCI109) under every ``--attn_backend`` (set on the model before the
+bf16 step's ``functional_call`` runs it); every other model and dataset,
+a head width that no bf16 instance of the config's routes takes (on the
+card), the whole-layer route (``packed_layer``, set in process), K11
+and the blocked route raise NotImplementedError naming slice 10
+(``utils/config.py:check_ported``; ``nn/transformer.py``,
+``nn/dropout.py``, ``set_block_spmm``'s route in ``nn/conv.py``).
+``--save_path`` writes the float32 masters, which ``predict --weights``
+serves in float32.
 """
 
 from __future__ import annotations

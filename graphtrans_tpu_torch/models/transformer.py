@@ -4,7 +4,7 @@ go into a dense ``[G, S, d]`` batch (``ops/dense.py``), the encoder runs
 over unpacked rows with a CLS column appended, and the CLS column is read
 out into the prediction head (per-position heads for code2), on the
 molecule datasets, ogbg-code2 and the TU datasets. It serves and
-trains, in f32 or (``--precision bf16``, under ``--attn_backend auto``)
+trains, in f32 or (``--precision bf16``, under every ``--attn_backend``)
 on a bf16 copy of its parameters, the activations bf16 from the node
 encoder on as in the JAX model; pooling other than CLS (the ``NodePool``
 zoo) arrives with slice 11."""

@@ -135,7 +135,7 @@ class GCNConv(nn.Module):
         or of the encoder, K8's dx walks the src-major plan's
         ``src_slot_order`` and reads those same rows through its
         ``fwd_slot``: no src-major copy is made."""
-        refuse_bf16(x, "GCNConv on the blocked route (K8)")
+        refuse_bf16(x, "GCNConv on the blocked route (K8)", "4")
         emb_f = self.edge_encoder(batch.edge_attr_bsp_fwd).to(x.dtype)
         w_f = bsp_slot_weight(batch.bsp_fwd, dis, False)
         grad = torch.is_grad_enabled() and (x.requires_grad
@@ -154,7 +154,7 @@ class GCNConv(nn.Module):
         norm gathers deg^-1/2 at src and dst (zero on masked slots). A
         ``ZeroEdgeEncoder``'s zeros are not made: K6 takes None, its
         emb-less instance."""
-        refuse_bf16(x, "GCNConv on the strided layout (NCI1: K6)")
+        refuse_bf16(x, "GCNConv on the strided layout (NCI1: K6)", "4")
         G, Sm = batch.num_graph_slots, batch.node_stride
         src, dst = batch.edge_src_dense, batch.edge_dst_dense
         emask = batch.edge_mask_dense

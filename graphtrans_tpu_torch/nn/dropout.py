@@ -78,7 +78,7 @@ class ByteDropout(nn.Module):
             raise ValueError("ByteDropout in training mode needs the run's "
                              "Generators")
         if fused_route(x):
-            refuse_bf16(x, "K11 (the fused byte dropout)")
+            refuse_bf16(x, "K11 (the fused byte dropout)", "3c")
             fn = byte_dropout if self.use_kernel else byte_dropout_plain
             return fn(x, gen.kernel_seed(), t)
         bits = torch.randint(0, 256, x.shape, dtype=torch.uint8,

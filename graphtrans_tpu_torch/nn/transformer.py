@@ -24,15 +24,18 @@ route it is ``ByteDropout`` on the probabilities, as the JAX package drops
 ``att`` (``:376``), and under ``chunked`` an exact-probability Bernoulli
 mask (``:74-78``), drawn from the run's device generator.
 
-In bf16 (the bf16 step) attention runs under the backend auto: packed
-rows on K2's and K3's bf16 instances, unpacked rows (the Transformer-only
-model) on K4's and K5's, at heads of 64 for K4 and K5, or on the plain
-route, which rounds as the JAX package's XLA route does (scores and
-softmax in float32, the probabilities rounded to bf16 before
-``ByteDropout`` and the product with V in bf16). LayerNorm takes its
-statistics in float32 and rounds its output once, as flax's does. The
-routes of K9 and K10 (and ``chunked``) raise NotImplementedError naming
-slice 10."""
+In bf16 (the bf16 step) attention runs under every backend of the command
+line: packed rows on K2's and K3's bf16 instances (heads of 32) and K5's
+segment form (heads of 32 and 64), unpacked rows (the Transformer-only
+model) on K4's, K5's and K9's (heads of 64), or on the plain route, which
+rounds as the JAX package's XLA route does (scores and softmax in
+float32, the probabilities rounded to bf16 before ``ByteDropout`` and the
+product with V in bf16), or under ``chunked`` as its chunked route does
+(scores from the bf16 q and k summed in float32, the probabilities and V
+in float32, the output rounded once). LayerNorm takes its statistics in
+float32 and rounds its output once, as flax's does. The whole-layer
+route of K10 (``packed_layer``, set in process) raises
+NotImplementedError naming slice 10's part 3c."""
 
 from __future__ import annotations
 
@@ -59,8 +62,6 @@ BACKENDS = ("auto", "flash", "smalls", "chunked", "dense", "packed",
             "packed_smalls", "packed_fused", "packed_layer")
 CLI_BACKENDS = BACKENDS[:7]
 PACKING = ("auto", "packed", "packed_smalls", "packed_fused", "packed_layer")
-# the routes that run in bf16 (K5 on unpacked rows only)
-BF16_ROUTES = ("k2", "k3", "k4", "k5", "plain")
 
 
 def graphs_per_row(S: int, backend: str = "auto") -> int:
@@ -157,9 +158,6 @@ class MultiheadSelfAttention(nn.Module):
         rate = self.dropout if self.training else 0.0
         qkv = self.in_proj(x)
         kernel = self.use_kernel
-        if route not in BF16_ROUTES or (route == "k5" and seg is not None):
-            # K5 on packed rows is the flash backend's (part 3b)
-            refuse_bf16(qkv, f"attention route {route}")
         if route in ("k2", "k3"):
             fn = {"k2": (attention_seg, attention_seg_plain),
                   "k3": (flash_hil_seg, flash_hil_seg_plain)}[route][
@@ -186,7 +184,13 @@ class MultiheadSelfAttention(nn.Module):
         ``graphtrans_tpu/nn/transformer.py:364-376``) the scores and
         softmax are float32 and the probabilities are rounded to bf16
         before the dropout and the product (``attention_seg_plain`` and
-        ``attention_dense_plain`` with ``kernel`` False)."""
+        ``attention_dense_plain`` with ``kernel`` False); under ``chunked``
+        (``chunked_masked_attention``, ``:39-91``) the scores come from the
+        bf16 q and k summed in float32, the probabilities and V are
+        float32, and the output is rounded to bf16 once."""
+        dt = qkv.dtype
+        if route == "chunked" and dt == torch.bfloat16:
+            qkv = qkv.float()
         drop = None
         if rate > 0.0 and route == "chunked":
             if gen is None:
@@ -201,7 +205,7 @@ class MultiheadSelfAttention(nn.Module):
             return attention_seg_plain(qkv, seg, self.nhead, drop=drop,
                                        kernel=False)
         return attention_dense_plain(qkv, valid, self.nhead, block, drop=drop,
-                                     kernel=False)
+                                     kernel=False).to(dt)
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -226,7 +230,7 @@ class TransformerEncoderLayer(nn.Module):
     def forward(self, x: torch.Tensor, route: str, seg=None, gen=None,
                 valid=None, block: int = 0) -> torch.Tensor:
         if route == "k10":
-            refuse_bf16(x, "attention route k10")
+            refuse_bf16(x, "attention route k10", "3c")
             return self._fused(x, valid, block, gen)
         a = self.self_attn(x, route, seg, gen, valid, block)
         x = self.norm1(x + self.drop(a, gen))

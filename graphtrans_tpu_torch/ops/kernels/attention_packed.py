@@ -254,7 +254,7 @@ def seg_mask(seg: torch.Tensor) -> torch.Tensor:
 
 
 def _attention_k2_bf16(qkv: torch.Tensor, nhead: int, mask: torch.Tensor,
-                       drop) -> torch.Tensor:
+                       drop, scale_ds: bool = True) -> torch.Tensor:
     """K2 in bf16, as the JAX kernel computes it in bf16
     (``graphtrans_tpu/ops/pallas/attention_packed.py:152-206``, ``:238-285``):
     q.k from the bf16 operands summed in float32, times the f32 scale;
@@ -262,14 +262,19 @@ def _attention_k2_bf16(qkv: torch.Tensor, nhead: int, mask: torch.Tensor,
     p rounded to bf16 once; p.v summed in float32 and rounded once.
     Backward (autograd through the float32 ops): dv = pd^T g and dp = g v^T
     in float32, ds from the undropped float32 p, times the scale, rounded to
-    bf16 once; dq = ds k and dk = ds^T q in float32, each rounded once."""
+    bf16 once; dq = ds k and dk = ds^T q in float32, each rounded once. With
+    ``scale_ds`` False (K9, ``attention_smallS.py:_bwd_kernel``) ds is
+    rounded before the scale, which multiplies dq and dk after their
+    sums."""
     R, W, d3 = qkv.shape
     d = d3 // 3
     hd = d // nhead
     q, k, v = (t.float().reshape(R, W, nhead, hd).transpose(1, 2)
                for t in qkv.split(d, dim=-1))                 # [R, H, W, hd]
     scale = torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
-    s = round_grad(torch.matmul(q, k.transpose(-1, -2)), qkv.dtype) * scale
+    s = torch.matmul(q, k.transpose(-1, -2))
+    s = (round_grad(s, qkv.dtype) * scale if scale_ds
+         else round_grad(s * scale, qkv.dtype))
     p = _softmax(s, mask)
     if drop is not None:
         p = drop(p)
@@ -783,40 +788,45 @@ def long16_fwd_geometry(R: int, W: int, nhead: int, norm: bool) -> Geometry:
                     long16_fwd_bytes(W, norm))
 
 
-LIST16_THREADS = 128   # four warps, 16 rows each: K4's and K5's bf16 bodies
-LIST16_HD = 64         # the head width they are built for
+LIST16_THREADS = 128   # four warps, 16 rows each: the bf16 key-list bodies
+LIST16_HDS = (32, 64)  # the head widths they are built for (K5 takes both)
 
 
-def list16_bytes(bwd: bool) -> int:
+def list16_bytes(bwd: bool, hd: int) -> int:
     """Shared bytes of a block of the bf16 key-list bodies at heads of
-    LIST16_HD: three 64-row bf16 tiles forward (Q, K, V), four backward,
-    rows of hd + 8; the backward's m log2(e), 1/l, delta and part of the
-    dropout hash per staged query; per staged query its tag, per key its
-    tag and token; the prefix count's scratch
+    ``hd``: three 64-row bf16 tiles forward (Q, K, V), four backward, rows
+    of hd + 8; the backward's m log2(e), 1/l, delta and part of the dropout
+    hash per staged query; per staged query its tag, per key its tag and
+    token; the prefix count's scratch
     (``csrc/attention_list16.cuh:list16_bytes``)."""
-    return ((4 if bwd else 3) * LONG_T * (LIST16_HD + 8) * 2
+    if hd not in LIST16_HDS:
+        raise ValueError(f"list16: head width {hd}; the bodies are built for "
+                         f"{LIST16_HDS}")
+    return ((4 if bwd else 3) * LONG_T * (hd + 8) * 2
             + (4 * LONG_T * 4 if bwd else 0)
             + (3 * LONG_T + LIST16_THREADS // 32 + 4) * 4)
 
 
 @functools.lru_cache(maxsize=None)
-def list16_geometry(B: int, S: int, block: int, nhead: int,
-                    bwd: bool) -> Geometry:
-    """The launch of the bf16 key-list bodies (K4's and K5's bf16 instances;
-    K4-bwd's and K5-bwd's with ``bwd``, both kernels of the pair) on B rows
-    of S tokens: the row cut into spans (``row_spans(S, block)``, K5's
-    block 0: the row), a block of LIST16_THREADS per (row, head, 64-token
-    tile of a span). The instance is named by the span width: forward
-    "tile" up to TILE_MAX (the molecule paths' packed rows) and "long"
-    above, one body for both; backward "short" up to LONG_T (the whole
-    backward of a span in one kernel, ``csrc/attention_list16.cuh:
-    span_bwd16``) and "long" above (the dq and dk/dv pair)."""
+def list16_geometry(B: int, S: int, block: int, nhead: int, bwd: bool,
+                    hd: int) -> Geometry:
+    """The launch of the bf16 key-list bodies (K4's, K5's and K9's bf16
+    instances; their backwards' with ``bwd``, both kernels of the pair) on
+    B rows of S tokens at heads of ``hd``: the row cut into spans
+    (``row_spans(S, block)``, block 0: the row), a block of LIST16_THREADS
+    per (row, head, 64-token tile of a span). The instance is named by the
+    span width: forward "tile" up to TILE_MAX (the molecule paths' packed
+    rows) and "long" above, one body for both; backward "short" up to
+    LONG_T (the whole backward of a span in one kernel,
+    ``csrc/attention_list16.cuh:span_bwd16``) and "long" above (the dq and
+    dk/dv pair)."""
     spans = row_spans(S, block)
     span = spans[0][1] - spans[0][0]
     tiles = len(spans) * -(-span // LONG_T)
     short = ("short", LONG_T) if bwd else ("tile", TILE_MAX)
     return Geometry(short[0] if span <= short[1] else "long", spans, LONG_T,
-                    1, (B, nhead, tiles), LIST16_THREADS, list16_bytes(bwd))
+                    1, (B, nhead, tiles), LIST16_THREADS,
+                    list16_bytes(bwd, hd))
 
 
 def dense_fwd_geometry(B: int, S: int, block: int, hd: int, nhead: int,
@@ -876,13 +886,13 @@ def dense_bwd_geometry(B: int, S: int, block: int, hd: int,
 # ---- K4: key-padding attention, optionally block-diagonal -----------------
 
 DENSE_HEAD_DIMS = (32, 64)   # the head widths attention_dense compiles
-DENSE_BF16_HEAD_DIMS = (LIST16_HD,)   # and its bf16 instances
+DENSE_BF16_HEAD_DIMS = (64,)   # and its bf16 instances
 
 
 def attention_dense_plain(qkv: torch.Tensor, key_valid: torch.Tensor,
                           nhead: int, block: int = 0, rate: float = 0.0,
-                          seed: int = 0, drop=None,
-                          kernel: bool = True) -> torch.Tensor:
+                          seed: int = 0, drop=None, kernel: bool = True,
+                          scale_ds: bool = True) -> torch.Tensor:
     """Plain PyTorch version of K4: key j is attendable by query i iff
     ``key_valid[j]`` and, with ``block > 0``, ``i // block == j // block``.
     A padding query attends its block's valid keys; a query whose block
@@ -892,9 +902,9 @@ def attention_dense_plain(qkv: torch.Tensor, key_valid: torch.Tensor,
     ``ByteDropout``. Autograd differentiates it. qkv f32, or bf16: then it
     rounds where K4's bf16 kernels round, which are K2's points (the JAX
     kernels share ``_probs_all`` and ``attn_bwd_math``:
-    ``_attention_k2_bf16``), or with ``kernel`` False where the JAX
-    package's XLA route rounds (the encoder's plain route,
-    ``masked_attention``)."""
+    ``_attention_k2_bf16``; K9's with ``scale_ds`` False), or with
+    ``kernel`` False where the JAX package's XLA route rounds (the
+    encoder's plain route, ``masked_attention``)."""
     B, S, _ = qkv.shape
     mask = key_valid.bool()[:, None, None, :]                 # [B, 1, 1, S]
     if block > 0:
@@ -904,7 +914,7 @@ def attention_dense_plain(qkv: torch.Tensor, key_valid: torch.Tensor,
         drop = keep_drop(keep_mask(B, S, nhead, rate, seed, qkv.device), rate)
     mask = mask.expand(-1, 1, S, S)
     if qkv.dtype == torch.bfloat16 and kernel:
-        return _attention_k2_bf16(qkv, nhead, mask, drop)
+        return _attention_k2_bf16(qkv, nhead, mask, drop, scale_ds)
     return masked_attention(qkv, nhead, mask, drop)
 
 
@@ -987,7 +997,7 @@ def _dense_geometry(qkv, nhead, block, bwd, stats=True, rate=0.0):
     B, S, d3 = qkv.shape
     hd = d3 // 3 // nhead
     if qkv.dtype == torch.bfloat16:
-        return list16_geometry(B, S, block, nhead, bwd)
+        return list16_geometry(B, S, block, nhead, bwd, hd)
     if bwd:
         return dense_bwd_geometry(B, S, block, hd, nhead)
     return dense_fwd_geometry(B, S, block, hd, nhead, stats, rate)

@@ -56,6 +56,21 @@ tokens, where the wide one does not fit a block) the long-row pair of
 (``PadTags``). Each instance is its own ``__global__`` in
 ``csrc/attention_smalls.cu`` with K9's seed schedule as the dropout
 policy. Heads of width 32, 64 and 128.
+
+bf16 (the bf16 step of the Transformer-only model under ``smalls`` and
+``packed_smalls``, heads of 64): the JAX kernel asks for precision DEFAULT
+(one bf16 MXU pass) on bf16 inputs, so its products round their operands
+to bf16 on the TPU: the normalised, dropped p before P V, P_drop before
+dV, and dS = p (dp_drop - delta) (delta from the pairs with the undropped
+p) before dQ and dK, which are scaled after their sums. The plain version
+rounds at the same points (``attention_smalls_plain``). The kernels are
+K4's bf16 instances' key-list bodies (``csrc/attention_list16.cuh``) at
+their launch (``attention_packed.list16_geometry``; the forward one body,
+counted ``tile_bf16`` on spans of up to 128 tokens and ``long_bf16``
+above; the backward ``short_bf16``, a span of up to 64 tokens whole in one
+kernel, or ``long_bf16``, the dq and dk/dv pair), with K9's tags (K4's),
+its dropout schedule split into a query's and a key's part, and its
+rounding of dS. They draw the f32 instances' mask.
 """
 
 from __future__ import annotations
@@ -65,17 +80,19 @@ import ctypes
 import torch
 
 from . import _build
-from .attention_packed import (LONG_T, LONG_THREADS, SHORT_MAX, SMEM_MAX,
-                               TILE_THREADS, WIDE, W_MAX, Geometry, _round,
-                               _stream, attention_dense_plain,
+from .attention_packed import (DTYPES, LONG_T, LONG_THREADS, SHORT_MAX,
+                               SMEM_MAX, TILE_THREADS, WIDE, W_MAX, Geometry,
+                               _round, _stream, attention_dense_plain,
                                bwd_short_bytes, bwd_wide_bytes,
                                dense_fwd_geometry, fwd_tile_bytes, hash_bits,
-                               keep_drop, long_bwd_bytes, keep_threshold, row_spans,
-                               tile_launch, tile_max)
+                               keep_drop, keep_threshold, list16_geometry,
+                               long_bwd_bytes, row_spans, tile_launch,
+                               tile_max)
 from .flash_attention import HEAD_DIMS, PLAIN_SCORE_BYTES, _dropout_args
 
 
 WIDE_HEAD_DIMS = (32, 64)  # the head widths of the wide backward
+BF16_HEAD_DIMS = (64,)     # the head widths of the bf16 instances
 
 # K9's forward launch is K4's at any S: the tile instance up to tile_max(hd)
 # tokens, the long one above
@@ -129,7 +146,13 @@ def attention_smalls_plain(qkv: torch.Tensor, key_valid: torch.Tensor,
     """Plain PyTorch version of K9: K4's masked softmax with K9's dropout
     mask at ``rate > 0``, taken a few rows at a time so the ``[rows, H, S,
     S]`` scores stay within ``PLAIN_SCORE_BYTES``. Autograd differentiates
-    it."""
+    it. A bf16 qkv rounds where the JAX kernel rounds in bf16 on the TPU
+    (``attention_smallS.py:_probs``, ``_fwd_kernel``, ``_bwd_kernel``:
+    scores from the bf16 operands summed in float32, the normalised,
+    dropped p rounded before P V; the backward's delta from the pairs with
+    the undropped p, dS = p (dp_drop - delta) rounded before its products,
+    which are scaled after their sums): ``attention_dense_plain``'s bf16
+    version with ``scale_ds`` False."""
     B, S, _ = qkv.shape
     step = max(1, PLAIN_SCORE_BYTES // (nhead * S * S * 4))
     outs = []
@@ -140,7 +163,7 @@ def attention_smalls_plain(qkv: torch.Tensor, key_valid: torch.Tensor,
             drop = keep_drop(keep_mask(rows, S, nhead, rate, seed), rate)
         outs.append(attention_dense_plain(qkv[b0:b0 + step],
                                           key_valid[b0:b0 + step], nhead,
-                                          block, drop=drop))
+                                          block, drop=drop, scale_ds=False))
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
@@ -160,22 +183,23 @@ def _check(qkv, key_valid, nhead, block, rate, gout=None):
     d = d3 // 3
     if d3 % 3 or d % nhead:
         raise ValueError(f"attention_smalls: width {d3} is not 3*nhead*hd")
-    if d // nhead not in HEAD_DIMS:
-        raise ValueError(f"attention_smalls: head width {d // nhead}; the "
-                         f"kernel is built for {HEAD_DIMS}")
+    dims = BF16_HEAD_DIMS if qkv.dtype == torch.bfloat16 else HEAD_DIMS
+    if d // nhead not in dims:
+        raise ValueError(f"attention_smalls: head width {d // nhead} in "
+                         f"{qkv.dtype}; the kernel is built for {dims}")
     if block < 0:
         raise ValueError(f"attention_smalls: block {block} < 0")
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"attention_smalls: dropout rate {rate} not in "
                          f"[0, 1)")
-    if qkv.dtype != torch.float32 or key_valid.dtype != torch.bool:
-        raise ValueError("attention_smalls: expected float32 qkv, bool "
-                         "key_valid")
+    if qkv.dtype not in DTYPES or key_valid.dtype != torch.bool:
+        raise ValueError("attention_smalls: expected float32 or bfloat16 "
+                         "qkv, bool key_valid")
     if tuple(key_valid.shape) != (B, S) or key_valid.device != qkv.device:
         raise ValueError(f"attention_smalls: key_valid "
                          f"{tuple(key_valid.shape)} on {key_valid.device} "
                          f"does not match qkv")
-    if gout is not None and (gout.dtype != torch.float32
+    if gout is not None and (gout.dtype != qkv.dtype
                              or tuple(gout.shape) != (B, S, d)
                              or gout.device != qkv.device):
         raise ValueError(f"attention_smalls_bwd: gout {gout.dtype} "
@@ -184,7 +208,26 @@ def _check(qkv, key_valid, nhead, block, rate, gout=None):
         raise ValueError("attention_smalls: inputs must be contiguous")
     if any(t.data_ptr() % 16 for t in (qkv, gout) if t is not None):
         raise ValueError("attention_smalls: qkv and gout must be 16-byte "
-                         "aligned (the kernels load four floats at a time)")
+                         "aligned (the kernels load 16 bytes at a time)")
+
+
+def _geometry(qkv: torch.Tensor, nhead: int, block: int, bwd: bool,
+              stats: bool = True, rate: float = 0.0) -> Geometry:
+    """The launch of K9 (K9-bwd with ``bwd``) on qkv [B, S, 3d]: the f32
+    instances' (``fwd_geometry``, ``bwd_geometry``) or the bf16 ones'
+    (``attention_packed.list16_geometry``, K4's bf16 launch)."""
+    B, S, d3 = qkv.shape
+    hd = d3 // 3 // nhead
+    if qkv.dtype == torch.bfloat16:
+        return list16_geometry(B, S, block, nhead, bwd, hd)
+    if bwd:
+        return bwd_geometry(B, S, block, hd, nhead)
+    return fwd_geometry(B, S, block, hd, nhead, stats, rate)
+
+
+def _suffix(qkv: torch.Tensor) -> str:
+    """The counted instance's suffix: "_bf16" for the bf16 instances."""
+    return "_bf16" if qkv.dtype == torch.bfloat16 else ""
 
 
 def attention_smalls_with_stats(qkv: torch.Tensor, key_valid: torch.Tensor,
@@ -195,7 +238,8 @@ def attention_smalls_with_stats(qkv: torch.Tensor, key_valid: torch.Tensor,
     softmax statistics m and l [B, S, H] that the backward reads (None,
     None when ``stats`` is False and ``rate`` 0: the serving launch writes
     none; with dropout the kernel always writes them). The instance
-    (``fwd_geometry``) is counted in ``attention_smalls.instances``."""
+    (``fwd_geometry``; in bf16 ``list16_geometry``) is counted in
+    ``attention_smalls.instances``."""
     _check(qkv, key_valid, nhead, block, rate)
     B, S, d3 = qkv.shape
     out = torch.empty((B, S, d3 // 3), dtype=qkv.dtype, device=qkv.device)
@@ -206,16 +250,17 @@ def attention_smalls_with_stats(qkv: torch.Tensor, key_valid: torch.Tensor,
         l = torch.empty_like(m)
     if out.numel() == 0:
         return out, m, l
-    geo = fwd_geometry(B, S, block, d3 // 3 // nhead, nhead, stats, rate)
+    geo = _geometry(qkv, nhead, block, False, stats, rate)
     valid = key_valid.contiguous()     # the bool itself: one byte a key
     ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
     lib = _load()
-    err = lib.attention_smalls_fwd(
+    entry = _build.entry(lib, "attention_smalls_fwd", qkv.dtype)
+    err = entry(
         ptr(qkv), ptr(valid), ptr(out), ptr(m), ptr(l), B, S, d3 // 3, nhead,
         block, *_dropout_args(rate, seed), *geo.args(), _stream(qkv))
-    _build.check(lib, err, "attention_smalls_fwd")
+    _build.check(lib, err, entry.__name__)
     attention_smalls.launches += 1
-    attention_smalls.instances[geo.instance] += 1
+    attention_smalls.instances[geo.instance + _suffix(qkv)] += 1
     return out, m, l
 
 
@@ -263,7 +308,9 @@ def attention_smalls(qkv: torch.Tensor, key_valid: torch.Tensor, nhead: int,
 
 
 attention_smalls.launches = 0
-attention_smalls.instances = {"tile": 0, "long": 0}   # launches by instance
+# launches by instance
+attention_smalls.instances = {"tile": 0, "long": 0, "tile_bf16": 0,
+                              "long_bf16": 0}
 
 
 def attention_smalls_bwd(qkv: torch.Tensor, key_valid: torch.Tensor,
@@ -293,25 +340,27 @@ def attention_smalls_bwd(qkv: torch.Tensor, key_valid: torch.Tensor,
     dqkv = torch.empty_like(qkv)
     if dqkv.numel() == 0:
         return dqkv
-    geo = bwd_geometry(B, S, block, d3 // 3 // nhead, nhead)
-    # delta = dO.O passes between the long instance's two kernels; the tile
-    # instances compute it themselves
+    geo = _geometry(qkv, nhead, block, True)
+    # delta passes between the long instances' two kernels (f32: dO.O; bf16:
+    # summed from the pairs); the tile instances compute it themselves
     delta = torch.empty_like(m) if geo.instance == "long" else None
     valid = key_valid.contiguous()
     ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
     lib = _load()
-    err = lib.attention_smalls_bwd(
+    entry = _build.entry(lib, "attention_smalls_bwd", qkv.dtype)
+    err = entry(
         *(ptr(t) for t in (qkv, valid, out, gout, m, l, delta, dqkv)),
         B, S, d3 // 3, nhead, block, *_dropout_args(rate, seed), *geo.args(),
         _stream(qkv))
-    _build.check(lib, err, "attention_smalls_bwd")
+    _build.check(lib, err, entry.__name__)
     attention_smalls_bwd.launches += 1
-    attention_smalls_bwd.instances[geo.instance] += 1
+    attention_smalls_bwd.instances[geo.instance + _suffix(qkv)] += 1
     return dqkv
 
 
 attention_smalls_bwd.launches = 0
-attention_smalls_bwd.instances = {"short": 0, "wide": 0, "long": 0}
+attention_smalls_bwd.instances = {"short": 0, "wide": 0, "long": 0,
+                                  "short_bf16": 0, "long_bf16": 0}
 
 
 def _load():

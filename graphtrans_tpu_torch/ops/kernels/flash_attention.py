@@ -73,22 +73,23 @@ tiles filled 56 %. Bound: operations (10 hd flops a pair of products;
 SIMT peak); the pair terms are computed in both kernels. Every output cell
 has one writer: no atomics. Heads of width 32, 64 and 128 are compiled.
 
-bf16 (the bf16 step of the Transformer-only model, heads of 64): the JAX
-kernel asks for precision None (DEFAULT, one bf16 MXU pass) on bf16
-inputs, so its products round their operands to bf16 on the TPU: the
-online softmax's unnormalised p (dropped and rescaled) before P V, and in
-the backward dS = p (dp_drop - delta), whose products are scaled after
-their sums, and P_drop; delta = dO . O over the rounded output. The plain
-bf16 version (``OnlineBf16``, K3's, with dS rounded before its scale)
-rounds p against the row's final max; the kernels round it against the
-running one. The kernels are the bf16 key-list bodies of
-``csrc/attention_list16.cuh`` (K4's bf16 instances run them too), at
-``attention_packed.list16_geometry``'s launch over the whole row: a
-block of four warps per (row, head, 64 queries) walks the keys whose tags
+bf16 (the bf16 step: the Transformer-only model's rows at heads of 64;
+GraphTrans's packed rows of 256-384 tokens under ``--attn_backend flash``,
+the segment form, at heads of 32): the JAX kernel asks for precision None
+(DEFAULT, one bf16 MXU pass) on bf16 inputs, so its products round their
+operands to bf16 on the TPU: the online softmax's unnormalised p (dropped
+and rescaled) before P V, and in the backward dS = p (dp_drop - delta),
+whose products are scaled after their sums, and P_drop; delta = dO . O over
+the rounded output. The plain bf16 version (``OnlineBf16``, K3's, with dS
+rounded before its scale) rounds p against the row's final max; the kernels
+round it against the running one. The kernels are the bf16 key-list bodies
+of ``csrc/attention_list16.cuh`` (K4's and K9's bf16 instances run them
+too), at ``attention_packed.list16_geometry``'s launch over the whole row:
+a block of four warps per (row, head, 64 queries) walks the keys whose tags
 meet its queries', ranked and gathered 64 at a time; the backward is a dq
-kernel (it writes delta) and a dk/dv kernel over chunks of 64 valid keys
-by rank; every product a bf16 ``mma.sync`` with float32 sums. Launches
-count by dtype in ``flash_attention.instances`` and
+kernel (it writes delta) and a dk/dv kernel over chunks of 64 valid keys by
+rank; every product a bf16 ``mma.sync`` with float32 sums. Launches count
+by dtype in ``flash_attention.instances`` and
 ``flash_attention_bwd.instances``.
 """
 
@@ -100,12 +101,12 @@ import math
 import torch
 
 from . import _build
-from .attention_packed import (LIST16_HD, _stream, hash_bits, keep_drop,
+from .attention_packed import (LIST16_HDS, _stream, hash_bits, keep_drop,
                                keep_threshold, list16_geometry,
                                long_fwd_geometry, masked_attention)
 
 HEAD_DIMS = (32, 64, 128)     # the head widths the kernel compiles
-BF16_HEAD_DIMS = (LIST16_HD,)  # and its bf16 instances
+BF16_HEAD_DIMS = LIST16_HDS   # and its bf16 instances
 DTYPES = (torch.float32, torch.bfloat16)
 PLAIN_SCORE_BYTES = 1 << 30   # the plain version's score budget per chunk
 MASK_TILE = 256               # the JAX kernel's BQ = BK, which seed its mask
@@ -308,7 +309,7 @@ def flash_attention_with_stats(qkv: torch.Tensor, segq: torch.Tensor,
         l = torch.empty_like(m)
     if out.numel() == 0:
         return out, m, l
-    geo = (list16_geometry(B, S, 0, nhead, False)
+    geo = (list16_geometry(B, S, 0, nhead, False, d3 // 3 // nhead)
            if qkv.dtype == torch.bfloat16
            else long_fwd_geometry(B, S, d3 // 3 // nhead, nhead))
     ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())

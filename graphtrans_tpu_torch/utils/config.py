@@ -101,15 +101,19 @@ DATASET_DEFAULTS = {"ogbg-molhiv": _MOL, "ogbg-molpcba": _MOL,
 # kind, gnn_type) pairs of slice 10's first part (GIN on the molecule
 # datasets, the strided layout: K1, K2) and its second (GCN on code2, the
 # flat layout: K7, K2, K3); and the Transformer-only model's dataset kinds
-# of its part 3a (K4, K5 and the plain route)
+# of its part 3a (K4, K5 and the plain route). Part 3b runs them under every
+# backend of the command line (K9, K5's segment form, the chunked route).
 BF16_PATHS = {"gnn-transformer": (("mol", "gin"), ("code2", "gcn")),
               "transformer": ("mol", "code2", "tu")}
+# row widths (tokens, CLS included) that reach every branch of
+# nn/transformer.py:attention_route
+ROUTE_WIDTHS = (33, 64, 128, 200, 256, 384, 512, 1024)
 
 
 def _bf16_refusal(args):
     """Why ``--precision bf16`` cannot run this config yet, or None: slice
-    10's parts 1, 2 and 3a run ``BF16_PATHS`` under ``--attn_backend
-    auto``."""
+    10's parts 1, 2, 3a and 3b run ``BF16_PATHS`` under every backend of
+    the command line."""
     from ..data import dataset_kind
 
     model_type = getattr(args, "model_type", "gnn-transformer")
@@ -126,34 +130,96 @@ def _bf16_refusal(args):
         gnn_type = getattr(args, "gnn_type", "gin")
         if (kind, gnn_type) not in paths:
             return f"gnn_type {gnn_type} on {kind}"
-    if getattr(args, "attn_backend", "auto") != "auto":
-        return f"--attn_backend {args.attn_backend}"
+    return None
+
+
+def bf16_routes(args) -> set:
+    """The attention routes (``nn/transformer.py:attention_route``) the
+    config's model can take under its ``--attn_backend`` at d_model, over
+    rows of every width in ROUTE_WIDTHS: GraphTrans's packed rows, or the
+    Transformer-only model's rows of S tokens, graph-packed where
+    ``graphs_per_row`` packs them."""
+    from ..nn.transformer import attention_route, graphs_per_row
+
+    backend = getattr(args, "attn_backend", "auto")
+    d = args.d_model
+    if getattr(args, "model_type", "gnn-transformer") != "transformer":
+        return {attention_route(backend, W, d, seg=True)
+                for W in ROUTE_WIDTHS}
+    routes = set()
+    for S in ROUTE_WIDTHS:
+        gb = graphs_per_row(S, backend)
+        routes.add(attention_route(backend, gb * S, d, S if gb > 1 else 0))
+    return routes
+
+
+def bf16_head_dims() -> dict:
+    """The head widths of the bf16 CUDA instances, by attention route (the
+    plain and chunked routes take any)."""
+    from ..ops.kernels.attention_packed import DENSE_BF16_HEAD_DIMS, HEAD_DIM
+    from ..ops.kernels.attention_smalls import BF16_HEAD_DIMS as K9
+    from ..ops.kernels.flash_attention import BF16_HEAD_DIMS as K5
+
+    return {"k2": (HEAD_DIM,), "k3": (HEAD_DIM,), "k4": DENSE_BF16_HEAD_DIMS,
+            "k5": K5, "k9": K9}
+
+
+def _head_refusal(args):
+    """Why the card's bf16 kernels cannot take this config's heads, or
+    None: a head width (d_model / nhead) that a bf16 instance on one of the
+    config's routes (``bf16_routes``) is not built for. On the CPU the
+    plain versions take any head width."""
+    if getattr(args, "device", None) == "cpu":
+        return None
+    d, nhead = args.d_model, args.nhead
+    if d % nhead:
+        return None     # the model's own check names it
+    hd = d // nhead
+    dims = bf16_head_dims()
+    for route in sorted(bf16_routes(args)):
+        if route in dims and hd not in dims[route]:
+            return (f"heads of {hd} (d_model {d}, nhead {nhead}) under "
+                    f"--attn_backend {getattr(args, 'attn_backend', 'auto')}"
+                    f": route {route} takes heads of {dims[route]} on the "
+                    f"card")
     return None
 
 
 def _model_refusal(args):
     """Why the port has no model for this config yet, or None: the models
-    and compositions of slice 11 (``models/gnn_transformer.py:_PORTED``;
-    the Transformer-only model is ported)."""
+    and compositions of slice 11 (``models/gnn_transformer.py:_PORTED``),
+    and the options its models refuse (``_SUPPORTED``; the
+    Transformer-only model's ``_ENCODER`` and cls pooling)."""
     from ..data import dataset_kind
-    from ..models.gnn_transformer import _PORTED
+    from ..models.gnn_transformer import _ENCODER, _PORTED, _SUPPORTED
 
     model_type = getattr(args, "model_type", "gnn-transformer")
     if model_type == "transformer":
-        return None
-    if model_type != "gnn-transformer":
+        supported = dict(_ENCODER, graph_pooling=("cls",))
+    elif model_type != "gnn-transformer":
         return f"model_type {model_type}"
-    kind = dataset_kind(getattr(args, "dataset", "ogbg-molpcba"))
-    gnn_type = getattr(args, "gnn_type", "gin")
-    if (kind, gnn_type) not in _PORTED:
-        return f"gnn_type {gnn_type} on {kind}"
+    else:
+        kind = dataset_kind(getattr(args, "dataset", "ogbg-molpcba"))
+        gnn_type = getattr(args, "gnn_type", "gin")
+        if (kind, gnn_type) not in _PORTED:
+            return f"gnn_type {gnn_type} on {kind}"
+        supported = _SUPPORTED
+    for key, ok in supported.items():
+        value = getattr(args, key, ok[0])
+        if value not in ok:
+            return f"{key}={value!r} (the port runs {key} in {ok})"
     return None
 
 
 def check_ported(args):
     """Raise NotImplementedError, naming its slice, for a flag that asks
-    for something the port does not do yet: a model the port lacks names
-    slice 11 first, in either precision; then bf16 off slice 10's paths."""
+    for something the port does not do yet: a model or a model option the
+    port lacks names slice 11 first, in either precision; then bf16 off
+    slice 10's paths, or on the card at a head width that no bf16 instance
+    of the config's attention routes takes. In bf16 the whole-layer route
+    (``packed_layer``, set in process) and K11 (behind
+    ``nn/dropout.py:FUSED``) raise where they run, naming slice 10's part
+    3c."""
     for key, asks, why in _LATER:
         value = getattr(args, key)
         if asks(value):
@@ -163,14 +229,15 @@ def check_ported(args):
         raise NotImplementedError(
             f"{why}: the model arrives with slice 11 (the remaining models)")
     if getattr(args, "precision", "f32") == "bf16":
-        why = _bf16_refusal(args)
+        why = _bf16_refusal(args) or _head_refusal(args)
         if why is not None:
             raise NotImplementedError(
                 f"--precision bf16 with {why}: bf16 arrives there with "
-                f"slice 10 (its parts 1 and 2 run the molpcba and code2 "
-                f"GraphTrans, part 3a the Transformer-only model, under "
-                f"--attn_backend auto; part 3b brings the other backends "
-                f"and K11)")
+                f"slice 10 (its parts 1, 2, 3a and 3b run the molpcba and "
+                f"code2 GraphTrans and the Transformer-only model under "
+                f"every --attn_backend at their published head widths; "
+                f"part 3c brings K10 and K11, part 4 NCI1's GraphTrans and "
+                f"the blocked route)")
 
 
 def parse_with_config(parser: argparse.ArgumentParser, argv=None):

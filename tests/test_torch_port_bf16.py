@@ -49,6 +49,7 @@ from graphtrans_tpu_torch import main as tmain  # noqa: E402
 from graphtrans_tpu_torch.data.batch import collate  # noqa: E402
 from graphtrans_tpu_torch.data.synthetic import make_mol_dataset  # noqa: E402
 from graphtrans_tpu_torch.models.gnn_transformer import GNNTransformer  # noqa: E402
+from graphtrans_tpu_torch.nn import dropout as tdrop  # noqa: E402
 from graphtrans_tpu_torch.nn.dropout import ByteDropout, Generators  # noqa: E402
 from graphtrans_tpu_torch.nn import transformer as ttr  # noqa: E402
 from graphtrans_tpu_torch.ops import dense_mp  # noqa: E402
@@ -423,27 +424,51 @@ def test_main_bf16_without_cuda_raises():
                     "--precision", "bf16"])
 
 
-@pytest.mark.parametrize("config,flags", [
+def _packed_layer(mp):
+    """``main`` sets the backend packed_layer (set in process only: the
+    command line does not take it)."""
+    set_backend = tmain.set_attn_backend
+    mp.setattr(tmain, "set_attn_backend",
+               lambda model, name: set_backend(model, "packed_layer"))
+
+
+def _fused_k11(mp):
+    """K11 switched on (``nn/dropout.py:FUSED``) for every tensor."""
+    mp.setattr(tdrop, "FUSED", True)
+    mp.setattr(tdrop, "MIN_SIZE", 1)
+
+
+@pytest.mark.parametrize("config,flags,patch,part", [
     ("configs/code2/transformer/pooling=cls.yml",
-     ["--attn_backend", "flash"]),
+     ["--d_model", "128", "--gnn_emb_dim", "128", "--nhead", "2",
+      "--num_encoder_layers", "1", "--max_input_len", "63"], _packed_layer,
+     "part 3c"),
     ("configs/NCI1/gnn-transformer/no-virtual/"
-     "gd=128+gdp=0.1+tdp=0.1+l=3+cosine.yml", ["--runs", "1"]),
+     "gd=128+gdp=0.1+tdp=0.1+l=3+cosine.yml", ["--runs", "1"], None,
+     "its parts"),
     ("configs/molpcba/transformer/pooling=cls.yml",
-     ["--attn_backend", "packed_smalls"]),
-    ("configs/molpcba/gnn-transformer/JK=cat/pooling=cls+gin+norm_input.yml",
-     ["--attn_backend", "smalls"]),
+     ["--d_model", "128", "--nhead", "2", "--num_encoder_layers", "1"],
+     _fused_k11, "part 3c"),
+    ("configs/NCI109/gnn-transformer/no-virtual/"
+     "gd=128+gdp=0.1+tdp=0.1+l=3+cosine.yml", ["--runs", "1"], None,
+     "its parts"),
 ])
-def test_main_bf16_refuses_later_paths(config, flags):
-    """The Transformer-only model (code2's and molpcba's) under a backend
-    other than auto, NCI1's GraphTrans and the GraphTrans model under a
-    backend other than auto raise NotImplementedError naming slice 10 (the
-    code2 GraphTrans ymls train in bf16 since slice 10's part 2:
-    test_torch_port_code2_bf16.py; the Transformer-only ymls under auto
-    since its part 3a: test_torch_port_tf_bf16.py)."""
-    with pytest.raises(NotImplementedError, match="slice 10"):
+def test_main_bf16_refuses_later_paths(config, flags, patch, part,
+                                       monkeypatch):
+    """What bf16 does not run yet raises NotImplementedError naming slice
+    10: the whole-layer route (``packed_layer``, set in process) on the
+    code2 Transformer-only yml and K11 (``FUSED``) on the molpcba one, part
+    3c, where they run; NCI1's and NCI109's GraphTrans (the strided GCN,
+    K6), part 4, in ``check_ported``. (Every backend of the command line
+    trains the molpcba and code2 GraphTrans and the Transformer-only ymls
+    in bf16 since slice 10's part 3b: test_torch_port_backends_bf16.py.)"""
+    if patch is not None:
+        patch(monkeypatch)
+    with pytest.raises(NotImplementedError, match="slice 10") as err:
         tmain.main(["--configs", str(REPO / config), "--data_root",
                     str(REPO / "data_snapshots"), "--epochs", "1",
                     "--device", "cpu", "--precision", "bf16", *flags])
+    assert part in str(err.value)
 
 
 @pytest.mark.parametrize("config,flags,slice_", [
@@ -475,10 +500,10 @@ def test_check_ported_names_the_models_slice_first(config, flags, slice_,
 def test_bf16_refuses_the_blocked_route_and_other_kernels():
     """In process, where no flag checks: the GCN layer on the blocked
     route (K8, under ``set_block_spmm``) and on the strided layout (NCI1's
-    K6), the attention routes of K9 and ``chunked``, and K10's layer route
-    raise NotImplementedError naming slice 10 on bf16 inputs (code2's flat
-    GCN, K7, and K3 run in bf16 since its part 2, K4 and K5 since its part
-    3a)."""
+    K6), slice 10's part 4, and K10's layer route, its part 3c, raise
+    NotImplementedError naming slice 10 on bf16 inputs; the attention
+    routes of K9 and ``chunked`` run in bf16 since its part 3b (code2's
+    flat GCN, K7, and K3 since its part 2, K4 and K5 since its part 3a)."""
     import types
 
     from graphtrans_tpu_torch.nn.conv import GCNConv
@@ -492,19 +517,20 @@ def test_bf16_refuses_the_blocked_route_and_other_kernels():
         node_mask=torch.ones(4, dtype=torch.bool), node_stride=0,
         edge_src=torch.zeros(2, dtype=torch.int32),
         edge_mask=torch.ones(2, dtype=torch.bool), bsp_fwd=object())
-    with pytest.raises(NotImplementedError, match="slice 10"):
+    with pytest.raises(NotImplementedError, match=r"slice 10 \(part 4\)"):
         conv(flat, torch.zeros(4, 8, dtype=BF))
     strided = types.SimpleNamespace(node_mask=torch.ones(4, dtype=torch.bool),
                                     node_stride=4)
-    with pytest.raises(NotImplementedError, match="slice 10"):
+    with pytest.raises(NotImplementedError, match=r"slice 10 \(part 4\)"):
         GCNConv(8, ZeroEdgeEncoder(8)).to(BF)(strided,
                                               torch.zeros(4, 8, dtype=BF))
-    attn = ttr.MultiheadSelfAttention(128, 4).to(BF)
+    attn = ttr.MultiheadSelfAttention(128, 2).to(BF)
+    valid = torch.ones(1, 8, dtype=torch.bool)
     for route in ("k9", "chunked"):
-        with pytest.raises(NotImplementedError, match="slice 10"):
-            attn(torch.zeros(1, 8, 128, dtype=BF), route)
+        y = attn(torch.randn(1, 8, 128).to(BF), route, valid=valid)
+        assert y.dtype == BF and torch.isfinite(y.float()).all()
     layer = ttr.TransformerEncoderLayer(128, 4, 256).to(BF)
-    with pytest.raises(NotImplementedError, match="slice 10"):
+    with pytest.raises(NotImplementedError, match=r"slice 10 \(part 3c\)"):
         layer(torch.zeros(1, 8, 128, dtype=BF), "k10")
 
 
@@ -516,7 +542,9 @@ def test_bf16_refuses_the_blocked_route_and_other_kernels():
     ("spmm.cu", "spmm_fwd"), ("spmm.cu", "spmm_bwd"),
     ("attention_packed.cu", "attention_dense_fwd"),
     ("flash_attention.cu", "flash_attention_fwd"),
-    ("flash_attention.cu", "flash_attention_bwd")])
+    ("flash_attention.cu", "flash_attention_bwd"),
+    ("attention_smalls.cu", "attention_smalls_fwd"),
+    ("attention_smalls.cu", "attention_smalls_bwd")])
 def test_bf16_entries_take_the_f32_entries_parameters(source, entry):
     """Each bf16 C entry has the f32 entry's parameters, one for one (the
     wrappers give it the f32 entry's argtypes), its float tensors bf16."""

@@ -331,13 +331,15 @@ def test_predict_code2_without_cuda_raises(tmp_path):
 
 def test_main_code2_names_slice_4():
     """code2 training is ported (test_torch_port_code2_train.py), in bf16
-    too under the default backend (test_torch_port_code2_bf16.py); bf16
-    under another backend is a later slice's and raises naming it, and
-    without CUDA the entry raises unless asked for the CPU."""
+    too under every backend (test_torch_port_code2_bf16.py,
+    test_torch_port_backends_bf16_code2.py); bf16 on the card at a head
+    width that no bf16 instance of its routes takes (64: K2 and K3 take
+    32) is a later slice's and raises naming it, and without CUDA the
+    entry raises unless asked for the CPU."""
     with pytest.raises(NotImplementedError, match="slice 10"):
         tmain.main(["--configs", str(CONFIG), "--data_root", SNAPSHOT,
-                    "--epochs", "1", "--device", "cpu", "--precision",
-                    "bf16", "--attn_backend", "flash"])
+                    "--epochs", "1", "--precision", "bf16",
+                    "--attn_backend", "flash", "--nhead", "2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tmain.main(["--configs", str(CONFIG), "--data_root", SNAPSHOT,

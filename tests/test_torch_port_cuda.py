@@ -3394,27 +3394,37 @@ def _onehot_keys(B, S, block, n, cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["k4_tile", "k4_long", "k5"])
+@pytest.mark.parametrize("kernel", ["k4_tile", "k4_long", "k5", "k9_tile",
+                                    "k9_row", "k9_long"])
 def test_bf16_dropout_masks_match_f32_instances(cuda, kernel):
     """Each bf16 instance draws its f32 instance's dropout mask at rate 0.3:
     with q = k = 0 and V one-hot by key rank (``_onehot_keys``) the zeros
     of the output are the mask, and the bf16 instance's zeros equal the
     f32 instance's and the plain version's (K4: K2's tiling with r the
-    packed row; K5: the 256 x 256 tile schedule)."""
+    packed row; K5: the 256 x 256 tile schedule; K9: its tiles of
+    ``pairs_per_tile(S)`` (row, head) pairs, split into a query's and a
+    key's part in the bf16 bodies)."""
     from graphtrans_tpu_torch.ops.kernels import (attention_dense,
                                                   attention_dense_plain,
+                                                  attention_smalls,
+                                                  attention_smalls_plain,
                                                   flash_attention,
                                                   flash_attention_plain,
                                                   key_padding_segs)
 
     B, S, block, n = {"k4_tile": (8, 99, 33, 30), "k4_long": (3, 300, 0, 50),
-                      "k5": (3, 1001, 0, 50)}[kernel]
+                      "k5": (3, 1001, 0, 50), "k9_tile": (8, 99, 33, 30),
+                      "k9_row": (9, 33, 0, 30),
+                      "k9_long": (3, 1001, 0, 50)}[kernel]
     qkv, valid = _onehot_keys(B, S, block, n, cuda)
     seed = 2**31 - 3
     if kernel == "k5":
         segs = key_padding_segs(valid)
         call = lambda fn, q: fn(q, *segs, 4, 0.3, seed)
         fns = (flash_attention, flash_attention_plain)
+    elif kernel.startswith("k9"):
+        call = lambda fn, q: fn(q, valid, 4, block, 0.3, seed)
+        fns = (attention_smalls, attention_smalls_plain)
     else:
         call = lambda fn, q: fn(q, valid, 4, block, 0.3, seed)
         fns = (attention_dense, attention_dense_plain)
@@ -3426,15 +3436,26 @@ def test_bf16_dropout_masks_match_f32_instances(cuda, kernel):
     assert abs(frac - 0.7) < 0.05, frac
 
 
+# the residency entry of each library of bf16 key-list instances: its
+# kernels in the entry's order (``which``), each (backward?, head width)
+LIST16_RESIDENCY = {
+    "attention_packed": ("attention_dense_bf16_residency",
+                         ((False, 64), (True, 64), (True, 64), (True, 64))),
+    "flash_attention": ("flash_attention_bf16_residency",
+                        ((False, 64), (True, 64), (True, 64), (False, 32),
+                         (True, 32), (True, 32))),
+    "attention_smalls": ("attention_smalls_bf16_residency",
+                         ((False, 64), (True, 64), (True, 64), (True, 64)))}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel,entry", [
-    ("attention_packed", "attention_dense_bf16_residency"),
-    ("flash_attention", "flash_attention_bf16_residency")])
-def test_bf16_list_instances_do_not_spill(cuda, kernel, entry):
-    """Every kernel of K4's and K5's bf16 instances (forward, dq, dk/dv and
-    K4-bwd's short one, their training launch) takes no local memory (no
-    spills) and fits four blocks an SM (the forward) or three (the
-    backward's kernels) at its shared bytes."""
+@pytest.mark.parametrize("kernel", sorted(LIST16_RESIDENCY))
+def test_bf16_list_instances_do_not_spill(cuda, kernel):
+    """Every kernel of K4's, K5's (heads of 64 and 32) and K9's bf16
+    instances (forward, dq, dk/dv and the short backward, their training
+    launch) takes no local memory (no spills) and fits four blocks an SM
+    (the forward) or three (the backward's kernels) at its shared
+    bytes."""
     import ctypes
 
     from graphtrans_tpu_torch.ops.kernels import _build, attention_packed
@@ -3442,13 +3463,160 @@ def test_bf16_list_instances_do_not_spill(cuda, kernel, entry):
     mod = importlib.import_module(
         f"graphtrans_tpu_torch.ops.kernels.{kernel}")
     lib = mod._load()
+    entry, kernels = LIST16_RESIDENCY[kernel]
     fn = getattr(lib, entry)
     fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
-    for which in range(4 if kernel == "attention_packed" else 3):
+    for which, (bwd, hd) in enumerate(kernels):
         got = [ctypes.c_int(-1) for _ in range(3)]
-        smem = attention_packed.list16_bytes(which > 0)
+        smem = attention_packed.list16_bytes(bwd, hd)
         _build.check(lib, fn(which, smem, *(ctypes.cast(
             ctypes.pointer(v), ctypes.c_void_p) for v in got)), entry)
         regs, local, blocks = (v.value for v in got)
         assert local == 0, (which, regs, local)
-        assert blocks >= (4 if which == 0 else 3), (which, regs, blocks)
+        assert blocks >= (3 if bwd else 4), (which, regs, blocks)
+
+
+# ---- the bf16 attention backends: K9, K9-bwd and K5's segment form --------
+
+# (B, S, block): K9's bf16 instances on molpcba's packed rows (three graph
+# blocks of 33: the tile forward, the short backward), its unpacked rows of
+# 33 (smalls), blocks of 49 and 64, rows of 257 (the long pair) and code2's
+# rows of 1001 (the long forward and pair)
+K9_BF16_CASES = [(13, 99, 33), (9, 33, 0), (9, 98, 49), (6, 128, 64),
+                 (5, 257, 0), (3, 1001, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("B,S,block", K9_BF16_CASES)
+def test_attention_smalls_bf16_kernels_match_plain(cuda, B, S, block, rate):
+    """K9 and K9-bwd's bf16 instances (the key-list bodies at heads of 64,
+    K9's rounding: p normalised before it is rounded, delta summed from the
+    pairs, dS rounded before its products, which are scaled after their
+    sums) on padding keys everywhere and a block (a row) without a valid
+    key, against the plain bf16 versions (the same mask): out within
+    BF16_OUT_TOL, dqkv within BF16_GRAD_TOL of max(1, max|plain|); queries
+    without a key exactly 0; the same bits on two runs and from the serving
+    launch; counted as tile_bf16 or long_bf16, short_bf16 or long_bf16."""
+    from graphtrans_tpu_torch.ops.kernels import (attention_smalls,
+                                                  attention_smalls_bwd,
+                                                  attention_smalls_bwd_plain,
+                                                  attention_smalls_plain)
+    from graphtrans_tpu_torch.ops.kernels.attention_smalls import (
+        attention_smalls_with_stats)
+
+    gen = torch.Generator().manual_seed(B * S + block + int(rate * 10) + 1)
+    qkv = torch.randn(B, S, 3 * 256, generator=gen).to(cuda, BF16)
+    valid = _dense_valid(B, S, block, gen).to(cuda)
+    span = block or S
+    inst = (("tile" if span <= 128 else "long") + "_bf16",
+            ("short" if span <= 64 else "long") + "_bf16")
+    plain = lambda q, v, H, r, s: attention_smalls_plain(q, v, H, block, r, s)
+    bwd_plain = lambda q, v, H, g, rate, seed: attention_smalls_bwd_plain(
+        q, v, H, g, block, rate, seed)
+    fwd = lambda q, v, H, r, s: attention_smalls_with_stats(q, v, H, block,
+                                                            r, s)
+    bwd = lambda q, v, H, g, rate, seed, saved: attention_smalls_bwd(
+        q, v, H, g, block, rate, seed, saved)
+    out = _list16_pair_check(fwd, bwd, plain, bwd_plain, qkv, (valid,), 4,
+                             rate, 2**31 - 71,
+                             (attention_smalls, attention_smalls_bwd), inst,
+                             _live(valid, block), valid)
+    if rate == 0.0:
+        assert torch.equal(attention_smalls(qkv, valid, 4, block), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("W", [384, 300, 600])
+def test_flash_attention_seg_bf16_hd32_kernels_match_plain(cuda, W, rate):
+    """K5 and K5-bwd's bf16 instances at heads of 32 in the segment form
+    (GraphTrans's packed rows under --attn_backend flash: code2's 384 tier,
+    graph runs of 3-200 tokens, padding at each row's end, a row without a
+    graph) against the plain bf16 versions (the same mask): within
+    BF16_OUT_TOL and BF16_GRAD_TOL; padding queries and the empty row
+    exactly 0 (m = -inf, l = 0); the same bits on two runs and from the
+    serving launch; counted as bf16."""
+    from graphtrans_tpu_torch.ops.kernels import (flash_attention,
+                                                  flash_attention_bwd,
+                                                  flash_attention_bwd_plain,
+                                                  flash_attention_plain)
+    from graphtrans_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_with_stats)
+
+    gen = torch.Generator().manual_seed(W + int(rate * 10))
+    B = 6
+    seg = torch.full((B, W), -1, dtype=torch.int32)
+    for b in range(B - 1):
+        pos, g = 0, 0
+        while True:
+            n = int(torch.randint(3, 200, (1,), generator=gen))
+            if pos + n > W - 5:
+                break
+            seg[b, pos:pos + n] = g
+            pos, g = pos + n, g + 1
+    qkv = torch.randn(B, W, 3 * 128, generator=gen).to(cuda, BF16)
+    seg = seg.to(cuda)
+    live = seg >= 0
+    out = _list16_pair_check(flash_attention_with_stats, flash_attention_bwd,
+                             flash_attention_plain,
+                             flash_attention_bwd_plain, qkv, (seg, seg), 4,
+                             rate, 123456789,
+                             (flash_attention, flash_attention_bwd),
+                             ("bf16", "bf16"), live, live)
+    if rate == 0.0:
+        assert torch.equal(flash_attention(qkv, seg, seg, 4), out)
+
+
+@pytest.mark.cuda
+def test_bf16_attention_backends_train_step_kernels_match_plain(cuda):
+    """One bf16 train step of the narrow molpcba Transformer-only model
+    (d 256, heads of 64) under smalls and packed_smalls through K9's bf16
+    instances against the same step on the plain versions: the loss within
+    2e-2, every gradient within 5e-2 of max(1, max|plain|); every K9 and
+    K9-bwd launch the bf16 instance."""
+    from graphtrans_tpu_torch.data import synthetic as ts
+    from graphtrans_tpu_torch.data import batch as tb
+    from graphtrans_tpu_torch.models.transformer import TransformerModule
+    from graphtrans_tpu_torch.nn.encoders import AtomEncoder
+    from graphtrans_tpu_torch.nn.init import init_weights
+    from graphtrans_tpu_torch.nn.transformer import set_attn_backend
+    from graphtrans_tpu_torch.ops.kernels import (attention_smalls,
+                                                  attention_smalls_bwd,
+                                                  reset_launches, set_kernels)
+    from graphtrans_tpu_torch.train.losses import binary_multitask_loss
+    from graphtrans_tpu_torch.train.optim import build_optimizer
+    from graphtrans_tpu_torch.trainers.base_trainer import make_train_step
+    from graphtrans_tpu_torch.nn.dropout import Generators
+    import argparse
+
+    graphs = ts.make_mol_dataset(num_graphs=60, num_tasks=6, min_nodes=3,
+                                 max_nodes=30, seed=3)
+    batch = tb.collate(graphs, 64, 2048, 8192, num_tasks=6,
+                       y_dtype="float32", dense_cap=32).to(cuda)
+    args = argparse.Namespace(lr=1e-3, weight_decay=0.0, grad_clip=None,
+                              scheduler=None, epochs=1)
+    for backend in ("smalls", "packed_smalls"):
+        out = []
+        for kernels in (True, False):
+            model = init_weights(TransformerModule(
+                6, AtomEncoder(256), 256, 4, 512, 2, 1000, True,
+                transformer_dropout=0.3).to(cuda), torch.Generator().manual_seed(0))
+            set_kernels(set_attn_backend(model, backend), kernels)
+            step = make_train_step(model, binary_multitask_loss,
+                                   build_optimizer(model, args, 1),
+                                   Generators.seeded(5, cuda), "bf16")
+            reset_launches()
+            loss = step(batch)
+            out.append((loss, {n: p.grad.clone()
+                               for n, p in model.named_parameters()}))
+            if kernels:
+                for fn in (attention_smalls, attention_smalls_bwd):
+                    bf = sum(v for k, v in fn.instances.items()
+                             if k.endswith("_bf16"))
+                    assert fn.launches == bf == 2, (fn.__name__,
+                                                    fn.instances)
+        (lk, gk), (lp, gp) = out
+        assert abs(lk.item() - lp.item()) <= 2e-2 * max(1.0, abs(lp.item()))
+        for name in gk:
+            assert _rel_bf16(gk[name], gp[name]) <= 5e-2, (backend, name)

@@ -391,44 +391,46 @@ def test_k4_bf16_bwd_entry_takes_the_f32_entrys_parameters_and_delta():
 def test_check_ported_lets_the_transformer_ymls_through_in_bf16(config,
                                                                 flags):
     """Each Transformer-only yml (molpcba, code2, NCI1, NCI109) passes
-    ``check_ported`` in bf16 under auto, and raises NotImplementedError
-    naming slice 10 under every other backend the command line takes."""
-    args = parse_with_config(tmain.build_parser(), [
-        "--configs", str(REPO / config), "--precision", "bf16", *flags])
-    check_ported(args)
-    for backend in ("smalls", "packed_smalls", "flash", "chunked"):
-        args = parse_with_config(tmain.build_parser(), [
-            "--configs", str(REPO / config), "--precision", "bf16",
-            "--attn_backend", backend, *flags])
-        with pytest.raises(NotImplementedError, match="slice 10"):
+    ``check_ported`` in bf16 under every backend the command line takes
+    (slice 10's part 3b), on the card and on the CPU."""
+    for backend in ttr.CLI_BACKENDS:
+        for device in ([], ["--device", "cpu"]):
+            args = parse_with_config(tmain.build_parser(), [
+                "--configs", str(REPO / config), "--precision", "bf16",
+                "--attn_backend", backend, *device, *flags])
             check_ported(args)
 
 
 def test_bf16_refuses_k9_k10_and_k11_on_the_transformer_model(monkeypatch):
     """In process, where no flag checks: the Transformer-only model in bf16
-    under smalls (K9) and packed_layer (K10), with K11 switched on, and K5
-    on packed rows (the flash backend's segment form) raise
-    NotImplementedError naming slice 10; under auto the model runs."""
+    runs under smalls and packed_smalls (K9's plain bf16 version) and K5
+    runs on packed rows (the flash backend's segment form), in bf16; under
+    packed_layer (K10), and with K11 switched on, it raises
+    NotImplementedError naming slice 10's part 3c; under auto the model
+    runs."""
     batch, make = _mol_case()[1], _mol_case()[4]
     batch = batch.to("cpu")
     model = make().to(BF).train()
     gen = tdrop.Generators.seeded(0, "cpu")
-    for backend in ("smalls", "packed_smalls", "packed_layer"):
+    for backend in ("smalls", "packed_smalls"):
         ttr.set_attn_backend(model, backend)
-        with pytest.raises(NotImplementedError, match="slice 10"):
-            model(batch, gen)
+        assert model(batch, gen).dtype == BF
+    ttr.set_attn_backend(model, "packed_layer")
+    with pytest.raises(NotImplementedError, match=r"slice 10 \(part 3c\)"):
+        model(batch, gen)
     ttr.set_attn_backend(model, "auto")
     for m in model.modules():
         if isinstance(m, tdrop.ByteDropout):
             m.rate = 0.3
     assert model(batch, gen).dtype == BF
     attn = ttr.MultiheadSelfAttention(D, H).to(BF)
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        attn(torch.zeros(1, 8, D, dtype=BF), "k5",
-             seg=torch.zeros(1, 8, dtype=torch.int32))
+    seg = torch.zeros(1, 8, dtype=torch.int32)
+    seg[0, 5:] = -1
+    y = attn(torch.randn(1, 8, D).to(BF), "k5", seg=seg)
+    assert y.dtype == BF and torch.isfinite(y.float()).all()
     monkeypatch.setattr(tdrop, "MIN_SIZE", 1)
     monkeypatch.setattr(tdrop, "FUSED", True)
-    with pytest.raises(NotImplementedError, match="slice 10"):
+    with pytest.raises(NotImplementedError, match=r"slice 10 \(part 3c\)"):
         model(batch, gen)
 
 

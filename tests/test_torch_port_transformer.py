@@ -359,14 +359,15 @@ def test_predict_transformer_on_cpu(tmp_path, config, split, records, width):
 
 def test_later_slices_raise():
     """Training the family is ported (test_torch_port_transformer_train.py),
-    in bf16 too under the default backend (test_torch_port_tf_bf16.py);
-    bf16 under another backend and non-CLS pooling on it name their
-    slices, and a code2 encoder narrower than the transformer is
-    refused."""
+    in bf16 too under every backend (test_torch_port_tf_bf16.py,
+    test_torch_port_backends_bf16.py); bf16 on the card at a head width
+    that no bf16 instance of its routes takes (32 under smalls: K9 takes
+    64) and non-CLS pooling on it name their slices, and a code2 encoder
+    narrower than the transformer is refused."""
     with pytest.raises(NotImplementedError, match="slice 10"):
         tmain.main(["--configs", str(MOL_CONFIG), "--data_root", SNAPSHOT,
-                    "--epochs", "1", "--device", "cpu", "--precision",
-                    "bf16", "--attn_backend", "smalls"])
+                    "--epochs", "1", "--precision", "bf16",
+                    "--attn_backend", "smalls", "--nhead", "8"])
     args = predict.parse_with_config(predict.build_parser(), [
         "--configs", str(MOL_CONFIG), "--graph_pooling", "mean"])
     with pytest.raises(NotImplementedError, match="slice 11"):
